@@ -1,0 +1,15 @@
+"""deepseek-67b [dense]: 95L d_model=8192 64H (GQA kv=8) d_ff=22016
+vocab=102400 — llama-arch. [arXiv:2401.02954; hf]"""
+from repro_torch.configs.base import Family, ModelConfig
+
+CONFIG = ModelConfig(
+    name="deepseek-67b",
+    family=Family.DENSE,
+    n_layers=95,
+    d_model=8192,
+    n_heads=64,
+    n_kv_heads=8,
+    d_ff=22016,
+    vocab_size=102400,
+    max_seq_len=65536,
+)

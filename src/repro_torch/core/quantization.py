@@ -1,0 +1,355 @@
+"""Quantization core at 8 bits (paper §3), ported from
+``repro/core/quantization.py``.
+
+Activations are asymmetric with a per-tensor range (``pt_static``:
+calibrated; ``pt_dynamic`` / ``ptoken_dynamic``: computed on the fly);
+weights are symmetric. Two execution paths: fake-quant in float (used by
+calibration statistics and the fidelity experiments) and true int8, which
+runs the ``act_quant_static`` and ``w8a8_matmul`` kernels on the card.
+
+Type promotion follows JAX, not PyTorch: JAX promotes a bf16 array against
+a 0-dim f32 array to f32, PyTorch keeps bf16. ``_promote`` casts both
+operands of each mixed binary step to the JAX result type, so quantized
+codes match the reference bit for bit.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import QuantConfig
+from repro_torch.kernels.act_quant import act_quant_static
+from repro_torch.kernels.w8a8_matmul import w8a8_matmul
+
+Tensor = torch.Tensor
+
+
+def _promote(a: Tensor, b: Tensor) -> Tuple[Tensor, Tensor]:
+    """Cast two tensors to their JAX (non-weak) common dtype."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt), b.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Quantization parameters (scale / zero-point), eq. (3)-(4)
+# ---------------------------------------------------------------------------
+
+def qrange(bits: int, symmetric: bool) -> Tuple[int, int]:
+    if symmetric:
+        return -(2 ** (bits - 1) - 1), 2 ** (bits - 1) - 1
+    return 0, 2 ** bits - 1
+
+
+def params_from_minmax(mn: Tensor, mx: Tensor, bits: int, symmetric: bool
+                       ) -> Tuple[Tensor, Tensor]:
+    """scale, zero_point from observed (min, max). Shapes broadcast."""
+    qmin, qmax = qrange(bits, symmetric)
+    if symmetric:
+        amax = torch.maximum(mn.abs(), mx.abs())
+        scale = amax / qmax
+        zero = torch.zeros_like(scale)
+    else:
+        mn = torch.clamp(mn, max=0.0)
+        mx = torch.clamp(mx, min=0.0)
+        scale = (mx - mn) / (qmax - qmin)
+        zero = qmin - mn / torch.where(scale == 0, 1.0, scale)
+        zero = torch.round(torch.clamp(zero, qmin, qmax))
+    scale = torch.where(scale <= 0, 1.0, scale)
+    return scale, zero
+
+
+def quantize(x: Tensor, scale: Tensor, zero: Tensor, bits: int,
+             symmetric: bool) -> Tensor:
+    qmin, qmax = qrange(bits, symmetric)
+    t = torch.div(*_promote(x, scale))
+    t = torch.add(*_promote(t, zero))
+    return torch.clamp(torch.round(t), qmin, qmax)
+
+
+def dequantize(xq: Tensor, scale: Tensor, zero: Tensor) -> Tensor:
+    t = torch.sub(*_promote(xq, zero))
+    return torch.mul(*_promote(t, scale))
+
+
+def fake_quant(x: Tensor, scale: Tensor, zero: Tensor, bits: int,
+               symmetric: bool) -> Tensor:
+    """Quantize -> dequantize with a straight-through gradient (scale and
+    zero receive none)."""
+    scale, zero = scale.detach(), zero.detach()
+    y = dequantize(quantize(x, scale, zero, bits, symmetric), scale, zero)
+    y = y.to(x.dtype)
+    return x + (y - x).detach()
+
+
+# ---------------------------------------------------------------------------
+# Activation quantization per granularity
+# ---------------------------------------------------------------------------
+
+def act_minmax(x: Tensor, per_token: bool) -> Tuple[Tensor, Tensor]:
+    if per_token:
+        return x.amin(dim=-1, keepdim=True), x.amax(dim=-1, keepdim=True)
+    return x.amin(), x.amax()
+
+
+def act_fake_quant(x: Tensor, cfg: QuantConfig,
+                   static_scale: Optional[Tensor] = None,
+                   static_zero: Optional[Tensor] = None) -> Tensor:
+    if cfg.mode == "none":
+        return x
+    if cfg.mode == "pt_static":
+        if static_scale is None:
+            raise ValueError("static mode needs calibrated scales")
+        return fake_quant(x, static_scale, static_zero, cfg.a_bits,
+                          cfg.symmetric_a)
+    mn, mx = act_minmax(x.detach(), cfg.mode == "ptoken_dynamic")
+    scale, zero = params_from_minmax(mn, mx, cfg.a_bits, cfg.symmetric_a)
+    return fake_quant(x, scale, zero, cfg.a_bits, cfg.symmetric_a)
+
+
+# ---------------------------------------------------------------------------
+# Weight quantization: symmetric, group-wise along the contracting dim
+# ---------------------------------------------------------------------------
+
+def weight_fake_quant(w: Tensor, cfg: QuantConfig) -> Tensor:
+    """w: (..., d_in, d_out); groups tile the d_in (contracting) axis."""
+    if cfg.mode == "none" and not cfg.true_int8:
+        return w
+    if cfg.w_bits >= 16:
+        return w
+    d_in = w.shape[-2]
+    g = cfg.w_group if cfg.w_group and d_in % cfg.w_group == 0 else d_in
+    shp = w.shape
+    wg = w.reshape(*shp[:-2], d_in // g, g, shp[-1])
+    amax = wg.abs().amax(dim=-2, keepdim=True)
+    scale, zero = params_from_minmax(-amax, amax, cfg.w_bits, True)
+    return fake_quant(wg, scale, zero, cfg.w_bits, True).reshape(shp)
+
+
+def weight_quant_int(w: Tensor, cfg: QuantConfig) -> Tuple[Tensor, Tensor]:
+    """One per-tensor weight scale (the dequant is one scalar multiply in
+    the matmul epilogue). Returns (w_int8, scale); the scale keeps the
+    weight's dtype, as in JAX."""
+    amax = w.abs().amax()
+    scale, _ = params_from_minmax(-amax, amax, cfg.w_bits, True)
+    zero = torch.zeros((), dtype=torch.float32, device=w.device)
+    wq = quantize(w, scale, zero, cfg.w_bits, True).to(torch.int8)
+    return wq, scale
+
+
+# ---------------------------------------------------------------------------
+# Quantized linear
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SiteScale:
+    """Calibrated static range for one activation site."""
+    scale: Tensor
+    zero: Tensor
+
+
+def _f32(t) -> Tensor:
+    return t if t.dtype == torch.float32 else t.float()
+
+
+def _int8_matmul(xq: Tensor, w_int: Tensor, s_x: Tensor, z_x: Tensor,
+                 s_w: Tensor, colsum: Tensor, out_dtype: torch.dtype,
+                 z_shift: float = 0.0) -> Tensor:
+    """(X_int - z) @ W_int * s_x s_w = (X_int @ W_int - z colsum) s_x s_w,
+    with z = z_x + z_shift, through ``w8a8_matmul`` (the kernel on the card,
+    its plain version on the CPU). Scalar (per-tensor static) scales."""
+    K, N = w_int.shape
+    lead = xq.shape[:-1]
+    out = w8a8_matmul(xq.reshape(-1, K), w_int, _f32(s_x), _f32(z_x),
+                      _f32(s_w), colsum=colsum, z_shift=z_shift,
+                      out_dtype=out_dtype if out_dtype == torch.bfloat16
+                      else torch.float32)
+    return out.reshape(*lead, N).to(out_dtype)
+
+
+def _quantize_act(x: Tensor, s_x: Tensor, z_x: Tensor, cfg: QuantConfig
+                  ) -> Tuple[Tensor, float]:
+    """int8 activation codes and the zero-point shift of their storage:
+    asymmetric 8-bit codes live in [0, 255] and are stored offset by -128
+    (the ``act_quant_static`` kernel); the shift folds into the matmul
+    epilogue. The kernel computes x / s + z in f32, which is JAX's
+    arithmetic whenever the scale and zero are f32 (always for calibrated
+    scales; dynamic ranges of a bf16 activation stay bf16 and take the
+    tensor path)."""
+    if (not cfg.symmetric_a and cfg.a_bits == 8
+            and s_x.dtype == torch.float32 and z_x.dtype == torch.float32):
+        K = x.shape[-1]
+        xq = act_quant_static(x.reshape(-1, K).contiguous(), _f32(s_x),
+                              _f32(z_x))
+        return xq.reshape(x.shape), -128.0
+    xq = quantize(x, s_x, z_x, cfg.a_bits, cfg.symmetric_a)
+    off = 0 if cfg.symmetric_a else 2 ** (cfg.a_bits - 1)
+    return (xq - off).to(torch.int8), -float(off)
+
+
+def true_int_dot(x: Tensor, w: Tensor, cfg: QuantConfig,
+                 site: Optional[SiteScale]) -> Tensor:
+    """int8 x int8 -> int32 matmul with a scalar-epilogue dequant; the
+    weight is quantized on every call (``prequantized_int_dot`` is the
+    int8-resident variant)."""
+    wq, s_w = weight_quant_int(w, cfg)
+    if cfg.mode == "pt_static":
+        if site is None:
+            raise ValueError("pt_static needs a calibrated site scale")
+        s_x, z_x = site.scale, site.zero
+    else:
+        mn, mx = act_minmax(x, cfg.mode == "ptoken_dynamic")
+        s_x, z_x = params_from_minmax(mn, mx, cfg.a_bits, cfg.symmetric_a)
+    if s_x.numel() != 1:
+        raise NotImplementedError("true int8 matmul takes per-tensor scales")
+    xq, shift = _quantize_act(x, s_x, z_x, cfg)
+    colsum = wq.sum(0, dtype=torch.int32)
+    return _int8_matmul(xq, wq.contiguous(), s_x, z_x, s_w, colsum, x.dtype,
+                        shift)
+
+
+def prequantized_int_dot(x: Tensor, w: Dict[str, Tensor], cfg: QuantConfig,
+                         site: Optional[SiteScale]) -> Tensor:
+    """Serving path with int8-resident weights ({w_int, w_scale, colsum});
+    needs calibrated static scales. The int4-packed ``w_packed`` format is
+    not ported yet."""
+    if cfg.mode != "pt_static" or site is None:
+        raise ValueError(
+            "prequantized (int8-resident) weights serve the pt_static "
+            "deployment path only and need calibrated site scales; got "
+            f"mode={cfg.mode!r}, site={'set' if site is not None else None}")
+    if "w_packed" in w:
+        raise NotImplementedError("int4-packed weights (W4A8) are not ported "
+                                  "yet: ROADMAP queue 1 item 9")
+    xq, shift = _quantize_act(x, site.scale, site.zero, cfg)
+    return _int8_matmul(xq, w["w_int"], site.scale, site.zero, w["w_scale"],
+                        w["colsum"], x.dtype, shift)
+
+
+def prequantize(w: Tensor, cfg: QuantConfig,
+                weight_bits: int = 8) -> Dict[str, Tensor]:
+    """One (d_in, d_out) weight -> {"w_int" int8 (K, N), "w_scale" f32
+    scalar, "colsum" (N,) int32}. The scale is held in f32 (the value of
+    JAX's scale in the weight dtype, converted exactly) because the kernel
+    reads f32."""
+    if weight_bits != 8:
+        raise NotImplementedError("weight_bits=4 (W4A8) is not ported yet: "
+                                  "ROADMAP queue 1 item 9")
+    wq, scale = weight_quant_int(w, cfg)
+    return {"w_int": wq.contiguous(), "w_scale": scale.float(),
+            "colsum": wq.sum(0, dtype=torch.int32)}
+
+
+_PREQUANT_KEYS = ("wqkv", "wo", "w_up", "w_gate", "w_down", "w_in", "w_out",
+                  "w_proj")
+
+
+def prequantize_tree(params: Any, cfg: QuantConfig, min_ndim: int = 2,
+                     weight_bits: int = 8) -> Any:
+    """Replace qdot-consumed weight matrices (stacked over layers or not)
+    with int8-resident dicts; embeddings stay fp."""
+    if weight_bits != 8:
+        raise NotImplementedError("weight_bits=4 (W4A8) is not ported yet: "
+                                  "ROADMAP queue 1 item 9")
+
+    def eligible(k, v, path):
+        if not (isinstance(v, torch.Tensor) and v.dim() >= min_ndim):
+            return False
+        if "embed" in path or "moe" in path:
+            return False
+        if k in _PREQUANT_KEYS:
+            return True
+        return k == "w" and bool(path) and path[-1] == "head"
+
+    def convert(v):
+        if v.dim() == 2:
+            return prequantize(v, cfg)
+        parts = [prequantize(a, cfg) for a in v.unbind(0)]
+        return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+
+    def visit(d, path=()):
+        out = {}
+        for k, v in d.items():
+            if isinstance(v, dict):
+                out[k] = visit(v, path + (k,))
+            elif eligible(k, v, path):
+                out[k] = convert(v)
+            else:
+                out[k] = v
+        return out
+    return visit(params)
+
+
+def qdot(x: Tensor, w: Any, cfg: QuantConfig,
+         site: Optional[SiteScale] = None) -> Tensor:
+    """Quantized x @ w. ``w`` is (d_in, d_out) or a prequantized dict."""
+    if isinstance(w, dict):
+        return prequantized_int_dot(x, w, cfg, site)
+    if cfg.mode == "none":
+        return x @ w
+    if cfg.true_int8 and w.dim() == 2 and cfg.a_bits == 8 and cfg.w_bits == 8:
+        return true_int_dot(x, w, cfg, site)
+    xq = act_fake_quant(x, cfg, site.scale if site is not None else None,
+                        site.zero if site is not None else None)
+    return xq @ weight_fake_quant(w, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Quantization error L_q, eq. (6), + site statistics for calibration
+# ---------------------------------------------------------------------------
+
+def site_qerr(x: Tensor, cfg: QuantConfig, site: Optional[SiteScale],
+              n_skip: int = 0) -> Tensor:
+    """||X - q(X)||^2 over the token part (positions >= n_skip)."""
+    if n_skip:
+        x = x[..., n_skip:, :]
+    if cfg.mode == "pt_static" and site is not None:
+        scale, zero = site.scale, site.zero
+    else:
+        mn, mx = act_minmax(x.detach(), cfg.mode == "ptoken_dynamic")
+        scale, zero = params_from_minmax(mn, mx, cfg.a_bits, cfg.symmetric_a)
+    scale, zero = scale.detach(), zero.detach()
+    xq = dequantize(quantize(x, scale, zero, cfg.a_bits, cfg.symmetric_a),
+                    scale, zero)
+    return torch.sub(*_promote(x, xq)).float().square().sum()
+
+
+def site_stats(x: Tensor, n_skip: int = 0) -> Dict[str, Tensor]:
+    if n_skip:
+        x = x[..., n_skip:, :]
+    xf = x.float()
+    return {"amin": xf.amin(), "amax": xf.amax(),
+            "absmax_ch": xf.abs().amax(dim=tuple(range(x.dim() - 1)))}
+
+
+def _is_site(d) -> bool:
+    return isinstance(d, dict) and "amin" in d
+
+
+def _map_sites(fn, *trees):
+    t0 = trees[0]
+    if _is_site(t0):
+        return fn(*trees)
+    return {k: _map_sites(fn, *(t[k] for t in trees)) for k in t0}
+
+
+def scales_from_stats(stats: Any, cfg: QuantConfig) -> Any:
+    """{amin, amax, absmax_ch} site leaves -> SiteScale leaves."""
+    def one(site):
+        scale, zero = params_from_minmax(site["amin"], site["amax"],
+                                         cfg.a_bits, cfg.symmetric_a)
+        return SiteScale(scale=scale, zero=zero)
+    return _map_sites(one, stats)
+
+
+def merge_stats(a: Any, b: Any) -> Any:
+    """Running union of two stats trees (min of mins, max of maxes)."""
+    if a is None:
+        return b
+
+    def one(sa, sb):
+        return {"amin": torch.minimum(sa["amin"], sb["amin"]),
+                "amax": torch.maximum(sa["amax"], sb["amax"]),
+                "absmax_ch": torch.maximum(sa["absmax_ch"], sb["absmax_ch"])}
+    return _map_sites(one, a, b)

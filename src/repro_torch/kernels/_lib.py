@@ -1,0 +1,170 @@
+"""Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
+
+Every source is compiled by its own ``nvcc`` process, all started together,
+into an object file for ``sm_90a``; the objects are linked into one shared
+library with a plain C interface, which ``ctypes`` loads. The build runs at
+the first kernel launch (never at import: the CPU tests import every module)
+into ``build/repro_torch/`` at the root of the checkout, keyed by a hash of
+the sources, so a second process reuses it.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; ``check`` turns a nonzero code into an exception.
+There is no fallback: a failed build or launch raises.
+
+``LAUNCHES`` counts kernel launches per kernel name. A wrapper adds one where
+it launches its kernel and nowhere else, so a run can show that its path went
+through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+REPO_ROOT = Path(__file__).resolve().parents[3]
+BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC"]
+
+KERNELS = ("w8a8_matmul", "act_quant_static", "flash_attention",
+           "flash_decode")
+LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signature of every entry point (all return cudaError_t as int)
+_SIGNATURES = {
+    # x, w, colsum, s_x, z_x, s_w, z_shift, out, out_bf16, M, N, K, stream
+    "w8a8_matmul_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _F, _VP, _I, _I, _I,
+                           _I, _VP],
+    # x, x_bf16, scale, zero, out, n, stream
+    "act_quant_static_launch": [_VP, _I, _VP, _VP, _VP, ctypes.c_longlong,
+                                _VP],
+    # q, k, v, out, bf16, B, H, Kh, S, T, hd, prefix_len,
+    # q strides (b, h, s), k strides (b, h, t), v strides (b, h, t),
+    # out strides (b, h, s), stream
+    "flash_attention_launch": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                               _I, _I] + [ctypes.c_longlong] * 12 + [_VP],
+    # q, k, v, k_scale, v_scale, kc, vc, pos, pos_per_row, out,
+    # fp_bf16, cache_int8, B, H, K, Smax, hd, m, stream
+    "flash_decode_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP,
+                            _I, _I, _I, _I, _I, _I, _I, _I, _VP],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+BUILD_SECONDS: Optional[float] = None
+BUILD_LOG: Dict[str, float] = {}
+
+
+def _nvcc() -> str:
+    cand = [shutil.which("nvcc"),
+            os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                         "bin", "nvcc")]
+    for c in cand:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin): the port's kernels build from "
+                       "source and cannot launch without it")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for p in sorted(CSRC.glob("*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile every source in parallel and link one shared library.
+    Returns its path; reuses a library already built from the same
+    sources."""
+    global BUILD_SECONDS
+    out = BUILD_DIR / f"libreprotorch_{_digest()}.so"
+    if out.exists():
+        BUILD_SECONDS = 0.0
+        return out
+    t0 = time.perf_counter()
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for src in _sources():
+        obj = BUILD_DIR / (src.stem + f".{os.getpid()}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    objs, errors = [], []
+    for src, obj, p in procs:
+        log, _ = p.communicate()
+        # seconds from the start until this source was done (sources are
+        # awaited in order, so an entry is at least its predecessor's)
+        BUILD_LOG[src.name] = time.perf_counter() - t0
+        if p.returncode != 0:
+            errors.append(f"{src.name}:\n{log.decode(errors='replace')}")
+        objs.append(str(obj))
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                           "-shared", "-o", str(tmp), *objs],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    if link.returncode != 0:
+        raise RuntimeError("nvcc link failed:\n"
+                           + link.stdout.decode(errors="replace"))
+    os.replace(tmp, out)
+    for o in objs:
+        os.remove(o)
+    BUILD_SECONDS = time.perf_counter() - t0
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, args in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def check(code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA error {code} at launch")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(*tensors: torch.Tensor) -> None:
+    """Every operand of a kernel launch lies on the same CUDA device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"operands on {t.device} and {dev}")
+
+
+def count(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0

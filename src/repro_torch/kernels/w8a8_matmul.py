@@ -1,0 +1,105 @@
+"""W8A8 per-tensor-static matmul (kernel + plain version).
+
+``w8a8_matmul(x_int, w_int, s_x, z_x, s_w, colsum)`` computes
+``(float(x_int @ w_int) - z * float(colsum)) * (s_x * s_w)`` with an exact
+int32 product and ``z = z_x + z_shift``. ``z_shift`` lets the caller pass
+the calibrated zero point as it is stored and fold the int8 storage offset
+(-128) in here, instead of a separate subtraction per call. A CUDA tensor
+launches ``csrc/w8a8_matmul.cu``; a CPU tensor takes ``w8a8_matmul_plain``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _lib
+
+F32_EXACT_K = 1024  # 1024 * 128 * 128 == 2**24: f32 partial sums stay exact
+
+
+def int_product_exact(xq: torch.Tensor, w_int: torch.Tensor) -> torch.Tensor:
+    """Bit-exact int8 x int8 -> int32 product through f32 matmuls (as
+    ``_int_product_f32_exact`` in the JAX package): every chunk of at most
+    1024 along K sums to below 2**24 in magnitude, which f32 holds exactly,
+    and the chunks are added in int32. Works on any device (f32 matmuls on
+    the card must not use TF32)."""
+    K = w_int.shape[0]
+    xf = xq.float()
+    wf = w_int.float()
+    acc = None
+    for k0 in range(0, K, F32_EXACT_K):
+        k1 = min(k0 + F32_EXACT_K, K)
+        part = (xf[..., k0:k1] @ wf[k0:k1]).to(torch.int32)
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def w8a8_matmul_plain(x_int: torch.Tensor, w_int: torch.Tensor,
+                      s_x: torch.Tensor, z_x: torch.Tensor,
+                      s_w: torch.Tensor,
+                      colsum: Optional[torch.Tensor] = None,
+                      z_shift: float = 0.0,
+                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain PyTorch version (``ref.w8a8_matmul_ref`` with the epilogue of
+    ``quantization._int8_matmul``)."""
+    acc = int_product_exact(x_int, w_int)
+    if colsum is None:
+        colsum = w_int.to(torch.int32).sum(0)
+    z = z_x.float() + z_shift
+    out = (acc.float() - z * colsum.float()) * (s_x.float() * s_w.float())
+    return out.to(out_dtype)
+
+
+def _check_scalar(t: torch.Tensor, name: str) -> None:
+    if t.dtype != torch.float32 or t.numel() != 1:
+        raise ValueError(f"{name} must be one float32 element, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+
+
+def w8a8_matmul(x_int: torch.Tensor, w_int: torch.Tensor, s_x: torch.Tensor,
+                z_x: torch.Tensor, s_w: torch.Tensor,
+                colsum: Optional[torch.Tensor] = None, z_shift: float = 0.0,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """x_int: (M, K) int8; w_int: (K, N) int8; s_x, z_x, s_w: one-element
+    f32 tensors; colsum: (N,) int32 column sums of ``w_int`` (computed when
+    absent). Returns (M, N) in ``out_dtype`` (f32 or bf16, rounded once from
+    the f32 epilogue)."""
+    if x_int.device.type == "cpu":
+        return w8a8_matmul_plain(x_int, w_int, s_x, z_x, s_w, colsum,
+                                 z_shift, out_dtype)
+    if x_int.device.type != "cuda":
+        raise ValueError(f"w8a8_matmul: unsupported device {x_int.device}")
+    if x_int.dtype != torch.int8 or w_int.dtype != torch.int8:
+        raise ValueError("w8a8_matmul takes int8 operands")
+    if x_int.dim() != 2 or w_int.dim() != 2:
+        raise ValueError("w8a8_matmul takes 2-D operands")
+    M, K = x_int.shape
+    K2, N = w_int.shape
+    if K != K2:
+        raise ValueError(f"contracting dims differ: {K} vs {K2}")
+    if K % 4:
+        raise ValueError(f"K={K} must be a multiple of 4 (dp4a words)")
+    if not (x_int.is_contiguous() and w_int.is_contiguous()):
+        raise ValueError("w8a8_matmul takes contiguous operands")
+    if x_int.data_ptr() % 4 or w_int.data_ptr() % 4:
+        raise ValueError("w8a8_matmul operands must be 4-byte aligned")
+    if colsum is None:
+        colsum = w_int.sum(0, dtype=torch.int32)
+    if colsum.dtype != torch.int32 or colsum.shape != (N,) \
+            or not colsum.is_contiguous():
+        raise ValueError("colsum must be contiguous int32 (N,)")
+    for t, n in ((s_x, "s_x"), (z_x, "z_x"), (s_w, "s_w")):
+        _check_scalar(t, n)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"out_dtype must be f32 or bf16, got {out_dtype}")
+    _lib.require_cuda(x_int, w_int, colsum, s_x, z_x, s_w)
+    out = torch.empty((M, N), dtype=out_dtype, device=x_int.device)
+    code = _lib.lib().w8a8_matmul_launch(
+        x_int.data_ptr(), w_int.data_ptr(), colsum.data_ptr(),
+        s_x.data_ptr(), z_x.data_ptr(), s_w.data_ptr(), float(z_shift),
+        out.data_ptr(), int(out_dtype == torch.bfloat16), M, N, K,
+        _lib.stream_ptr(x_int))
+    _lib.check(code, "w8a8_matmul")
+    _lib.count("w8a8_matmul")
+    return out

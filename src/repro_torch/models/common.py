@@ -1,0 +1,444 @@
+"""Shared model components, ported from ``repro/models/common.py``: norms,
+RoPE, the quantized linear with activation taps, GQA attention over a
+CushionCache prefix (full sequence and single-token decode), the MLP, the
+embedding and the head.
+
+Conventions
+-----------
+* Parameters are nested dicts of tensors, layer leaves stacked over layers
+  as ``(L, ...)``; ``ParamTree`` is the ``nn.Module`` that owns them.
+* Every linear runs through ``qlinear`` (quantizer + optional taps).
+* ``scales`` maps site names to ``SiteScale`` leaves (``(L,)`` stacked).
+* The cushion prefix enters attention as per-layer KV ``prefix_kv``
+  (dict(k=(m, K, hd), v=(m, K, hd))), fully visible to every query.
+* On the card, prefill attention runs the ``flash_attention`` kernel and
+  decode attention the ``flash_decode`` kernel (``kernels/ops.py``); on the
+  CPU their plain versions.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig, QuantConfig
+from repro_torch.core import quantization as Q
+from repro_torch.kernels import ops
+
+Tensor = torch.Tensor
+Params = Dict[str, Any]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+# ---------------------------------------------------------------------------
+# Parameter container
+# ---------------------------------------------------------------------------
+
+def _flatten(tree: Params, path: Tuple[str, ...] = ()
+             ) -> Iterator[Tuple[Tuple[str, ...], Tensor]]:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+class ParamTree(nn.Module):
+    """The model's parameters as one ``nn.Module``: every leaf of the nested
+    dict is a buffer (the port serves, it does not train), layer leaves
+    stacked ``(L, ...)``. ``.to(device)`` moves them; ``tree()`` is the
+    nested-dict view the model functions take."""
+
+    def __init__(self, tree: Params):
+        super().__init__()
+        self._paths: List[Tuple[str, ...]] = []
+        for path, leaf in _flatten(tree):
+            self.register_buffer("__".join(path), leaf)
+            self._paths.append(path)
+
+    def tree(self) -> Params:
+        out: Params = {}
+        for path in self._paths:
+            d = out
+            for k in path[:-1]:
+                d = d.setdefault(k, {})
+            d[path[-1]] = getattr(self, "__".join(path))
+        return out
+
+
+def as_tree(params) -> Params:
+    return params.tree() if isinstance(params, ParamTree) else params
+
+
+def unstack(tree: Any, n: int) -> List[Any]:
+    """Split a tree of ``(n, ...)``-stacked leaves into n per-layer trees of
+    views (SiteScale leaves included)."""
+    if isinstance(tree, Q.SiteScale):
+        return [Q.SiteScale(s, z) for s, z in
+                zip(tree.scale.unbind(0), tree.zero.unbind(0))]
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def stack_trees(trees: List[Any]) -> Any:
+    """Inverse of ``unstack`` for dict-of-tensor trees."""
+    if isinstance(trees[0], dict):
+        return {k: stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+# ---------------------------------------------------------------------------
+# Init helpers
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
+               scale: float = 1.0) -> Tensor:
+    std = scale / np.sqrt(d_in)
+    w = torch.randn((d_in, d_out), generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (w * std).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def norm_init(cfg: ModelConfig, device, d: Optional[int] = None) -> Params:
+    d = d or cfg.d_model
+    p = {"g": torch.ones((d,), dtype=dtype_of(cfg), device=device)}
+    if cfg.norm == "layernorm":
+        p["b"] = torch.zeros((d,), dtype=dtype_of(cfg), device=device)
+    return p
+
+
+def apply_norm(p: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
+    xf = x.float()
+    if cfg.norm == "layernorm":
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + 1e-5)
+        y = y * p["g"].float() + p["b"].float()
+    else:
+        ms = xf.square().mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + 1e-6) * p["g"].float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (half-rotation / llama convention)
+# ---------------------------------------------------------------------------
+
+def rope_cos_sin(positions: Tensor, d_head: int, theta: float
+                 ) -> Tuple[Tensor, Tensor]:
+    """positions: (...,) -> cos/sin (..., d_head//2), f32. The inverse
+    frequencies are formed in float64 with numpy and used in f32, as in the
+    reference."""
+    inv = 1.0 / (theta ** (np.arange(0, d_head, 2) / d_head))
+    inv_t = torch.from_numpy(inv).to(torch.float32).to(positions.device)
+    ang = positions.float()[..., None] * inv_t
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
+    """x: (..., n_heads, d_head); cos/sin broadcast over the head axis."""
+    xf = x.float()
+    x1, x2 = xf.chunk(2, dim=-1)
+    cos = cos[..., None, :]
+    sin = sin[..., None, :]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Quantized linear with taps
+# ---------------------------------------------------------------------------
+
+def get_site(scales: Optional[Params], name: str) -> Optional[Q.SiteScale]:
+    if scales is None:
+        return None
+    return scales.get(name)
+
+
+def qlinear(x: Tensor, w, b: Optional[Tensor], qcfg: QuantConfig,
+            scales: Optional[Params], site: str, taps: Optional[Dict],
+            n_skip: int = 0) -> Tensor:
+    """y = q(x) @ q(w) + b, recording taps for ``site`` when collecting."""
+    if taps is not None:
+        taps[site] = {
+            "qerr": Q.site_qerr(x, qcfg, get_site(scales, site), n_skip),
+            **Q.site_stats(x, n_skip),
+        }
+    y = Q.qdot(x, w, qcfg, get_site(scales, site))
+    if b is not None:
+        y = y + b
+    return y
+
+
+def placeholder_scales(sites: Tuple[str, ...], n_layers: int,
+                       device) -> Params:
+    """Stacked (L,) SiteScale tree (values are ignored unless pt_static)."""
+    return {s: Q.SiteScale(
+        scale=torch.ones((n_layers,), dtype=torch.float32, device=device),
+        zero=torch.zeros((n_layers,), dtype=torch.float32, device=device))
+        for s in sites}
+
+
+def resolve_scales(scales: Optional[Params], sites: Tuple[str, ...],
+                   n_layers: int, qcfg: QuantConfig, device) -> Params:
+    """The calibrated scales when given, else placeholders; refuses
+    ``pt_static`` without calibrated scales (placeholders would clip every
+    activation to [0, 255] and give wrong logits silently)."""
+    if scales is not None:
+        return {s: scales[s] for s in sites}
+    if qcfg.mode == "pt_static":
+        raise ValueError(
+            "pt_static forward without calibrated scales: per-tensor static "
+            "quantization needs site scales from core.calibration.calibrate; "
+            "refusing to run on placeholder scales, which would produce "
+            "wrong logits silently")
+    return placeholder_scales(sites, n_layers, device)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+
+ATTN_SITES = ("qkv", "o")
+
+
+def attn_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    hd, H, K = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    dt = dtype_of(cfg)
+    p = {"wqkv": dense_init(gen, cfg.d_model, (H + 2 * K) * hd, dt),
+         "wo": dense_init(gen, H * hd, cfg.d_model, dt,
+                          scale=1.0 / np.sqrt(2 * cfg.n_layers))}
+    if cfg.qkv_bias:
+        p["bqkv"] = torch.zeros(((H + 2 * K) * hd,), dtype=dt,
+                                device=gen.device)
+    return p
+
+
+def _split_qkv(qkv: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Tensor, Tensor]:
+    hd, H, K = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    q, k, v = torch.split(qkv, [H * hd, K * hd, K * hd], dim=-1)
+    return (q.reshape(*q.shape[:-1], H, hd), k.reshape(*k.shape[:-1], K, hd),
+            v.reshape(*v.shape[:-1], K, hd))
+
+
+def _sdpa_dense(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor],
+                cfg: ModelConfig) -> Tensor:
+    """Dense masked attention. q: (B,S,H,hd); k/v: (B,T,K,hd); mask: (S,T)
+    or (B,S,T) bool or None. Returns (B,S,H,hd)."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    qg = q.reshape(B, S, K, G, hd)
+    logits = torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float())
+    logits = logits / np.sqrt(hd)
+    if mask is not None:
+        m = mask[:, None, None] if mask.dim() == 3 else mask[None, None, None]
+        logits = torch.where(m, logits,
+                             torch.full((), -1e30, device=logits.device))
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkh->bskgh", w, v)
+    return out.reshape(B, S, H, hd)
+
+
+def attention_full(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
+                   scales: Optional[Params], taps: Optional[Dict],
+                   positions: Tensor, prefix_kv: Optional[Params] = None,
+                   causal: bool = True, n_skip: int = 0,
+                   return_kv: bool = False,
+                   prefix_valid: Optional[Tensor] = None):
+    """Full-sequence attention (prefill / calibration). positions: (S,)
+    absolute positions (already past the cushion). prefix_kv: the layer's
+    cushion KV, visible to every query. prefix_valid ((m,) bool, the search
+    path's padded-prefix mask) runs the dense CPU path only: the kernel does
+    not take it yet (the search slice ports it)."""
+    B, S, _ = x.shape
+    qkv = qlinear(x, p["wqkv"], p.get("bqkv"), qcfg, scales, "qkv", taps,
+                  n_skip)
+    q, k, v = _split_qkv(qkv, cfg)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    new_kv = (k, v)
+
+    m = 0
+    if prefix_kv is not None:
+        m = prefix_kv["k"].shape[0]
+        pk = prefix_kv["k"][None].expand(B, *prefix_kv["k"].shape)
+        pv = prefix_kv["v"][None].expand(B, *prefix_kv["v"].shape)
+        k = torch.cat([pk.to(k.dtype), k], dim=1)
+        v = torch.cat([pv.to(v.dtype), v], dim=1)
+
+    if prefix_valid is not None:
+        if x.device.type != "cpu":
+            raise NotImplementedError("prefix_valid (the cushion search "
+                                      "path) is not ported to the kernel yet")
+        kv_ok = torch.cat([prefix_valid,
+                           torch.ones((S,), dtype=torch.bool)])
+        if causal:
+            i = torch.arange(S)[:, None]
+            j = torch.arange(m + S)[None, :]
+            mask = (j < (i + m + 1)) & kv_ok[None, :]
+        else:
+            mask = kv_ok[None, :].expand(S, m + S)
+        out = _sdpa_dense(q, k, v, mask, cfg)
+    else:
+        out = ops.attention(q, k, v, causal=causal, prefix_len=m)
+    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    y = qlinear(out, p["wo"], None, qcfg, scales, "o", taps, n_skip)
+    if return_kv:
+        return y, new_kv
+    return y
+
+
+def quantize_kv(x: Tensor, scale: Tensor) -> Tensor:
+    """Symmetric per-head int8 KV quantization. x: (..., K, hd); scale: (K,)
+    f32, or per-row (B, K) against x (B, S, K, hd)."""
+    if scale.dim() == 2 and x.dim() == 4:
+        scale = scale[:, None, :, None]
+    else:
+        scale = scale[..., :, None]
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return Q.quantize(x.float(), scale, zero, bits=8,
+                      symmetric=True).to(torch.int8)
+
+
+def kv_scales_from(k: Tensor, head_axis: int = -2) -> Tensor:
+    """Per-kv-head static dequant scale from observed KV (symmetric amax
+    rule with a 1e-6 floor), reducing every axis but ``head_axis``."""
+    axes = tuple(a for a in range(k.dim()) if a != head_axis % k.dim())
+    amax = k.float().abs().amax(dim=axes)
+    scale, _ = Q.params_from_minmax(-amax, amax, bits=8, symmetric=True)
+    return torch.clamp(scale, min=1e-6)
+
+
+def attention_decode_kv(p: Params, x: Tensor, kv: Params, pos: Tensor,
+                        cfg: ModelConfig, qcfg: QuantConfig,
+                        scales: Optional[Params], taps: Optional[Dict]
+                        ) -> Tuple[Tensor, Params]:
+    """Single-token decode over one layer's contiguous KV cache. x: (B,1,D);
+    pos: () or (B,) int32 tensor. kv is the fp cache {"k","v": (B,Smax,K,hd)}
+    (cushion rows in-cache at [0:m)) or the int8 cache {"k","v" int8,
+    "k_scale","v_scale": (K,) f32, "kc","vc": (m,K,hd) fp}. The new token's
+    KV is written into the cache in place (at pos, clamped into [0, Smax)
+    as JAX's dynamic_update_slice clamps); the dict is returned for the
+    reference's signature. The paged layout is not ported yet."""
+    if "page_table" in kv:
+        raise NotImplementedError("the paged KV pool is not ported yet "
+                                  "(ROADMAP queue 1 item 8)")
+    B = x.shape[0]
+    qkv = qlinear(x, p["wqkv"], p.get("bqkv"), qcfg, scales, "qkv", taps)
+    q, k, v = _split_qkv(qkv, cfg)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    posv = pos.reshape(-1).expand(B)
+    cos, sin = rope_cos_sin(posv[:, None], cfg.head_dim, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    quantized = "k_scale" in kv
+    if quantized:
+        k_wr = quantize_kv(k, kv["k_scale"])
+        v_wr = quantize_kv(v, kv["v_scale"])
+    else:
+        k_wr = k.to(kv["k"].dtype)
+        v_wr = v.to(kv["v"].dtype)
+    Smax = kv["k"].shape[1]
+    rows = torch.arange(B, device=x.device)
+    wpos = posv.clamp(0, Smax - 1).long()
+    kv["k"][rows, wpos] = k_wr[:, 0]
+    kv["v"][rows, wpos] = v_wr[:, 0]
+
+    out = ops.decode_attention(
+        q[:, 0].contiguous(), kv["k"], kv["v"], pos,
+        k_scale=kv["k_scale"] if quantized else None,
+        v_scale=kv["v_scale"] if quantized else None,
+        kc=kv.get("kc"), vc=kv.get("vc"))
+    out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim)
+    y = qlinear(out, p["wo"], None, qcfg, scales, "o", taps)
+    return y, kv
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+MLP_SITES = ("mlp_in", "down")
+
+
+def mlp_init(gen: torch.Generator, cfg: ModelConfig,
+             d_ff: Optional[int] = None) -> Params:
+    d_ff = d_ff or cfg.d_ff
+    dt = dtype_of(cfg)
+    p = {"w_up": dense_init(gen, cfg.d_model, d_ff, dt),
+         "w_down": dense_init(gen, d_ff, cfg.d_model, dt,
+                              scale=1.0 / np.sqrt(2 * cfg.n_layers))}
+    if cfg.gated_mlp:
+        p["w_gate"] = dense_init(gen, cfg.d_model, d_ff, dt)
+    return p
+
+
+def apply_mlp(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
+              scales: Optional[Params], taps: Optional[Dict],
+              n_skip: int = 0) -> Tensor:
+    up = qlinear(x, p["w_up"], None, qcfg, scales, "mlp_in", taps, n_skip)
+    if cfg.gated_mlp:
+        # gate shares the "mlp_in" site (same input tensor -> same scale)
+        gate = qlinear(x, p["w_gate"], None, qcfg, scales, "mlp_in", None,
+                       n_skip)
+        h = F.silu(gate) * up
+    else:
+        h = F.gelu(up, approximate="tanh")      # jax.nn.gelu's default
+    return qlinear(h, p["w_down"], None, qcfg, scales, "down", taps, n_skip)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+
+def embed_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    dt = dtype_of(cfg)
+    w = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                    device=gen.device, dtype=torch.float32) * 0.02
+    p = {"embed": {"w": w.to(dt)}}
+    if not cfg.tie_embeddings:
+        p["head"] = {"w": dense_init(gen, cfg.d_model, cfg.vocab_size, dt)}
+    return p
+
+
+def embed_tokens(p: Params, tokens: Tensor, cfg: ModelConfig) -> Tensor:
+    return F.embedding(tokens, p["embed"]["w"])
+
+
+def lm_head(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
+            scales: Optional[Params], taps: Optional[Dict],
+            n_skip: int = 0) -> Tensor:
+    """Logits. A tied head quantizes ``embed.T`` on every call under true
+    int8, as the reference does (caching it at load is a ROADMAP item)."""
+    w = p["embed"]["w"].T if cfg.tie_embeddings else p["head"]["w"]
+    site = scales.get("head") if scales is not None else None
+    if taps is not None:
+        taps["head"] = {"qerr": Q.site_qerr(x, qcfg, site, n_skip),
+                        **Q.site_stats(x, n_skip)}
+    return Q.qdot(x, w, qcfg, site)
+
+
+def cross_entropy(logits: Tensor, labels: Tensor) -> Tensor:
+    """Mean next-token CE; logits (B,S,V), labels (B,S) int."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (lse - gold).mean()

@@ -1,0 +1,234 @@
+"""Dense decoder-only transformer (llama style; qwen's QKV bias by config),
+ported from ``repro/models/transformer.py``:
+
+    init_params(cfg, gen)                      -> ParamTree
+    forward(params, tokens, cfg, qcfg, ...)    -> (logits, taps)
+    init_cache(cfg, B, Smax, ...)              -> cache
+    prefill(params, tokens, cache, ...)        -> (logits, cache, pos)
+    decode_step(params, token, pos, cache, ..) -> (logits, cache)
+
+Layer parameters are stacked ``(L, ...)`` in one ``ParamTree`` module; the
+layer stack is a Python loop over per-layer views (JAX scans it). Caches
+are updated in place and returned, where JAX returns new arrays.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, QuantConfig
+from repro_torch.core import quantization as Q
+from repro_torch.models import common as C
+
+Tensor = torch.Tensor
+Params = Dict[str, Any]
+
+SITES = C.ATTN_SITES + C.MLP_SITES  # ("qkv", "o", "mlp_in", "down")
+
+
+def layer_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    return {"ln1": C.norm_init(cfg, gen.device),
+            "attn": C.attn_init(gen, cfg),
+            "ln2": C.norm_init(cfg, gen.device),
+            "mlp": C.mlp_init(gen, cfg)}
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> C.ParamTree:
+    """Seeded random weights on the generator's device."""
+    p = C.embed_init(gen, cfg)
+    p["layers"] = C.stack_trees([layer_init(gen, cfg)
+                                 for _ in range(cfg.n_layers)])
+    p["ln_f"] = C.norm_init(cfg, gen.device)
+    return C.ParamTree(p)
+
+
+def _cushion_layers(cushion: Optional[Params], L: int) -> List[Optional[Params]]:
+    if cushion is None:
+        return [None] * L
+    return C.unstack(cushion["kv"], L)
+
+
+def _block(lp: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
+           lsc: Optional[Params], lpre: Optional[Params], positions: Tensor,
+           collect: bool, n_skip: int) -> Tuple[Tensor, Dict]:
+    taps: Optional[Dict] = {} if collect else None
+    h = C.apply_norm(lp["ln1"], x, cfg)
+    if collect:
+        taps["block_in"] = Q.site_stats(x, n_skip)
+    x = x + C.attention_full(lp["attn"], h, cfg, qcfg, lsc, taps, positions,
+                             prefix_kv=lpre, causal=True, n_skip=n_skip)
+    h = C.apply_norm(lp["ln2"], x, cfg)
+    x = x + C.apply_mlp(lp["mlp"], h, cfg, qcfg, lsc, taps, n_skip)
+    return x, (taps if collect else {})
+
+
+def forward(params, tokens: Tensor, cfg: ModelConfig, qcfg: QuantConfig, *,
+            scales: Optional[Params] = None, cushion: Optional[Params] = None,
+            collect: bool = False, n_skip: int = 0) -> Tuple[Tensor, Dict]:
+    """Full-sequence causal forward. cushion: {"kv": {"k": (L,m,K,hd), ...}}.
+    With ``collect`` the taps hold every site's statistics, layer entries
+    stacked over L (the calibration input)."""
+    params = C.as_tree(params)
+    L = cfg.n_layers
+    x = C.embed_tokens(params, tokens, cfg)
+    S = x.shape[1]
+    m = 0 if cushion is None else cushion["kv"]["k"].shape[1]
+    positions = m + torch.arange(S, device=x.device)
+    lscales = C.resolve_scales(scales, SITES, L, qcfg, x.device)
+    layer_taps = []
+    for lp, lsc, lpre in zip(C.unstack(params["layers"], L),
+                             C.unstack(lscales, L),
+                             _cushion_layers(cushion, L)):
+        x, taps = _block(lp, x, cfg, qcfg, lsc, lpre, positions, collect,
+                         n_skip)
+        layer_taps.append(taps)
+    x = C.apply_norm(params["ln_f"], x, cfg)
+    head_taps: Optional[Dict] = {} if collect else None
+    logits = C.lm_head(params, x, cfg, qcfg, scales, head_taps, n_skip)
+    if not collect:
+        return logits, {}
+    return logits, {"layers": C.stack_trees(layer_taps), **head_taps,
+                    "final_in": Q.site_stats(x, n_skip)}
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill / decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
+               dtype=None, kv_dtype=None, prefix_len: int = 0,
+               per_slot_scales: bool = False) -> Params:
+    """kv_dtype None -> fp cache {"k","v"}; "int8" -> int8 k/v, (L, K) f32
+    dequant scales and the fp cushion block kc/vc of ``prefix_len`` rows
+    (the int8 tensors hold content positions [prefix_len:max_seq))."""
+    if per_slot_scales:
+        raise NotImplementedError("per-slot (L, B, K) scales come with the "
+                                  "continuous-batching slice")
+    dt = dtype or C.dtype_of(cfg)
+    K, hd, L = cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+    shape = (L, batch, max_seq, K, hd)
+    if kv_dtype is None:
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+    if kv_dtype not in ("int8", torch.int8):
+        raise ValueError(f"unsupported kv_dtype {kv_dtype!r}")
+    return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.ones((L, K), dtype=torch.float32, device=device),
+            "v_scale": torch.ones((L, K), dtype=torch.float32, device=device),
+            "kc": torch.zeros((L, prefix_len, K, hd), dtype=dt, device=device),
+            "vc": torch.zeros((L, prefix_len, K, hd), dtype=dt, device=device)}
+
+
+def write_cushion_to_cache(cache: Params, cushion: Optional[Params]
+                           ) -> Tuple[Params, int]:
+    """Put the cushion at positions [0:m): into kc/vc (int8 cache, never
+    quantized) or into every row of the fp cache. In place."""
+    if cushion is None:
+        return cache, 0
+    kv = cushion["kv"]
+    m = kv["k"].shape[1]
+    if "kc" in cache:
+        if cache["kc"].shape[1] != m:
+            raise ValueError(f"cache prefix_len {cache['kc'].shape[1]} != "
+                             f"cushion len {m}")
+        cache["kc"].copy_(kv["k"])
+        cache["vc"].copy_(kv["v"])
+        return cache, m
+    cache["k"][:, :, :m] = kv["k"][:, None].to(cache["k"].dtype)
+    cache["v"][:, :, :m] = kv["v"][:, None].to(cache["v"].dtype)
+    return cache, m
+
+
+def write_prompt_kv(cache: Params, ks: Tensor, vs: Tensor, m: int) -> Params:
+    """Write prefill KV (stacked (L,B,S,K,hd) fp) at positions [m:m+S]. An
+    int8 cache also derives its per-(layer, head) scales from the prompt KV
+    here; decode reuses them. In place."""
+    S = ks.shape[2]
+    if "k_scale" in cache:
+        k_scale = torch.stack([C.kv_scales_from(k) for k in ks])   # (L, K)
+        v_scale = torch.stack([C.kv_scales_from(v) for v in vs])
+        for l in range(ks.shape[0]):
+            cache["k"][l, :, m:m + S] = C.quantize_kv(ks[l], k_scale[l])
+            cache["v"][l, :, m:m + S] = C.quantize_kv(vs[l], v_scale[l])
+        cache["k_scale"], cache["v_scale"] = k_scale, v_scale
+        return cache
+    cache["k"][:, :, m:m + S] = ks.to(cache["k"].dtype)
+    cache["v"][:, :, m:m + S] = vs.to(cache["v"].dtype)
+    return cache
+
+
+def prefill(params, tokens: Tensor, cache: Params, cfg: ModelConfig,
+            qcfg: QuantConfig, *, scales: Optional[Params] = None,
+            cushion: Optional[Params] = None
+            ) -> Tuple[Tensor, Params, Tensor]:
+    """Process the prompt and fill the cache (cushion at [0:m], prompt at
+    [m:m+S]). Returns (last-position logits (B,1,V), cache, next_pos)."""
+    params = C.as_tree(params)
+    L = cfg.n_layers
+    x = C.embed_tokens(params, tokens, cfg)
+    S = x.shape[1]
+    cache, m = write_cushion_to_cache(cache, cushion)
+    positions = m + torch.arange(S, device=x.device)
+    lscales = C.resolve_scales(scales, SITES, L, qcfg, x.device)
+    ks, vs = [], []
+    for lp, lsc, lpre in zip(C.unstack(params["layers"], L),
+                             C.unstack(lscales, L),
+                             _cushion_layers(cushion, L)):
+        hn = C.apply_norm(lp["ln1"], x, cfg)
+        a, (k, v) = C.attention_full(lp["attn"], hn, cfg, qcfg, lsc, None,
+                                     positions, prefix_kv=lpre, causal=True,
+                                     return_kv=True)
+        x = x + a
+        hn = C.apply_norm(lp["ln2"], x, cfg)
+        x = x + C.apply_mlp(lp["mlp"], hn, cfg, qcfg, lsc, None)
+        ks.append(k)
+        vs.append(v)
+    cache = write_prompt_kv(cache, torch.stack(ks), torch.stack(vs), m)
+    x = C.apply_norm(params["ln_f"], x, cfg)
+    logits = C.lm_head(params, x[:, -1:], cfg, qcfg, scales, None)
+    return logits, cache, torch.tensor(m + S, dtype=torch.int32,
+                                       device=x.device)
+
+
+def decode_step(params, token: Tensor, pos: Tensor, cache: Params,
+                cfg: ModelConfig, qcfg: QuantConfig, *,
+                scales: Optional[Params] = None) -> Tuple[Tensor, Params]:
+    """One decode step. token: (B,) int; pos: () or (B,) int32 absolute
+    position (the cushion occupies [0:m)). Returns ((B, V) logits, cache)."""
+    params = C.as_tree(params)
+    L = cfg.n_layers
+    x = C.embed_tokens(params, token[:, None], cfg)
+    lscales = C.resolve_scales(scales, SITES, L, qcfg, x.device)
+    for lp, lsc, kv in zip(C.unstack(params["layers"], L),
+                           C.unstack(lscales, L), C.unstack(cache, L)):
+        hn = C.apply_norm(lp["ln1"], x, cfg)
+        a, _ = C.attention_decode_kv(lp["attn"], hn, kv, pos, cfg, qcfg, lsc,
+                                     None)
+        x = x + a
+        hn = C.apply_norm(lp["ln2"], x, cfg)
+        x = x + C.apply_mlp(lp["mlp"], hn, cfg, qcfg, lsc, None)
+    x = C.apply_norm(params["ln_f"], x, cfg)
+    logits = C.lm_head(params, x, cfg, qcfg, scales, None)
+    return logits[:, 0], cache
+
+
+def cushion_zeros(cfg: ModelConfig, m: int, device, dtype=None) -> Params:
+    """Zero cushion artifact in the model dtype (what extract_cushion
+    emits)."""
+    dtype = C.dtype_of(cfg) if dtype is None else dtype
+    K, hd, L = cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+    return {"kv": {"k": torch.zeros((L, m, K, hd), dtype=dtype, device=device),
+                   "v": torch.zeros((L, m, K, hd), dtype=dtype,
+                                    device=device)}}
+
+
+def placeholder_all_scales(cfg: ModelConfig, device) -> Params:
+    """Full placeholder scales tree (head included) for lowering the
+    quantized path without calibration."""
+    sc = C.placeholder_scales(SITES, cfg.n_layers, device)
+    sc["head"] = Q.SiteScale(
+        scale=torch.ones((), dtype=torch.float32, device=device),
+        zero=torch.zeros((), dtype=torch.float32, device=device))
+    return sc

@@ -1,0 +1,205 @@
+"""Static-batch serving engine, ported from ``repro/serving/engine.py``:
+one prefill, then a decode loop, under a CushionCache prefix and a
+configurable quantized execution (per-tensor static W8A8 with int8-resident
+weights, an int8 KV cache with the cushion kept in fp).
+
+Tokens stay on the device through the decode loop; ``generate`` syncs with
+the host twice per request (after prefill: TTFT; after the loop: TPOT).
+The reference runs the loop as one compiled ``lax.scan``; here it is an
+eager Python loop (capturing the decode step in a CUDA graph is a later
+step). ``generate_py`` keeps the per-token host loop of the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import QuantConfig
+from repro_torch.core import quantization as Q
+from repro_torch.core.calibration import CalibratedScales
+from repro_torch.core.cushioncache import cushion_fingerprint
+from repro_torch.models import common as C
+from repro_torch.monitoring import resident_weight_bytes
+
+
+def plan_quantization(api, params, qcfg: QuantConfig, cushion=None,
+                      scales=None, calib_batches=None,
+                      prequant: bool = False, weight_bits: int = 8):
+    """Load-time quantization plan. Returns (params tree, scales):
+
+    * precomputed ``CalibratedScales`` are checked against the cushion being
+      served and refused on a fingerprint mismatch (stale static ranges);
+    * ``pt_static`` without scales calibrates over ``calib_batches`` under
+      the cushion, and refuses to run with neither;
+    * ``prequant`` makes every qdot-consumed weight int8-resident
+      (pt_static only). ``weight_bits=4`` (W4A8) is not ported yet.
+    """
+    if isinstance(scales, CalibratedScales):
+        want, got = scales.cushion_fp, cushion_fingerprint(cushion)
+        if want != got:
+            raise ValueError(
+                f"stale pt_static scales: calibrated under cushion "
+                f"{want[:12]} but asked to serve cushion {got[:12]}; "
+                f"recalibrate under the serving cushion (pass "
+                f"calib_batches=) — refusing to serve mismatched static "
+                f"ranges")
+        scales = scales.scales
+    if qcfg.mode == "pt_static" and scales is None:
+        if calib_batches is None:
+            raise ValueError(
+                "pt_static serving needs calibrated site scales: pass "
+                "scales= or calib_batches= to calibrate at engine load; "
+                "refusing to serve on placeholder scales (silent garbage "
+                "logits)")
+        from repro_torch.core.calibration import calibrate
+        scales, _ = calibrate(api, params, calib_batches, qcfg,
+                              cushion=cushion)
+    if weight_bits != 8:
+        raise NotImplementedError("weight_bits=4 (W4A8) is not ported yet: "
+                                  "ROADMAP queue 1 item 9")
+    params = C.as_tree(params)
+    if prequant:
+        if qcfg.mode != "pt_static":
+            raise ValueError(
+                f"prequant (int8-resident weights) serves the pt_static "
+                f"deployment mode only, got mode={qcfg.mode!r}")
+        params = Q.prequantize_tree(params, qcfg)
+    return params, scales
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    tokens: np.ndarray          # (B, n_gen)
+    ttft_ms: float
+    tpot_ms: float
+
+
+def cache_seq_len(max_seq: int) -> int:
+    """Round a KV-cache length up to a multiple of 128 (the decode kernels'
+    chunking in the reference; kept so caches have the same shape)."""
+    return -(-max_seq // 128) * 128
+
+
+def cushion_prefix_len(cushion) -> int:
+    """Length m of the cushion prefix block (0 when absent)."""
+    if cushion is not None and "kv" in cushion:
+        return int(cushion["kv"]["k"].shape[1])
+    return 0
+
+
+def bucket_steps(n_steps: int) -> int:
+    """Round a decode-step budget up to the next power of two (min 8): the
+    reference compiles one decode loop per bucket. The eager loop here runs
+    exactly the requested steps; a captured decode graph will bucket."""
+    if n_steps <= 0:
+        return 0
+    b = 8
+    while b < n_steps:
+        b *= 2
+    return b
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Engine:
+    """Serves one (model, quant, cushion, kv_dtype) configuration on the
+    API's device. The parameters live in ``self.params``, a ``ParamTree``
+    module (stacked ``(L, ...)`` buffers)."""
+
+    def __init__(self, api, params, qcfg: QuantConfig, cushion=None,
+                 scales=None, max_seq: int = 2048, kv_dtype=None,
+                 calib_batches=None, prequant: bool = False,
+                 weight_bits: int = 8):
+        self.api = api
+        self.device = api.device
+        tree, scales = plan_quantization(
+            api, params, qcfg, cushion=cushion, scales=scales,
+            calib_batches=calib_batches, prequant=prequant,
+            weight_bits=weight_bits)
+        self.params = C.ParamTree(tree)
+        (self.weight_bytes_fp, self.weight_bytes_int8,
+         self.weight_bytes_int4) = resident_weight_bytes(tree)
+        self.qcfg = qcfg
+        self.cushion = cushion
+        self.scales = scales
+        self.max_seq = cache_seq_len(max_seq)
+        self.kv_dtype = kv_dtype
+        self.prefix_len = cushion_prefix_len(cushion)
+        self.cushion_fp = cushion_fingerprint(cushion)
+
+    def _decode(self, tok, pos, cache):
+        return self.api.decode_step(self.params.tree(), tok, pos, cache,
+                                    self.qcfg, scales=self.scales)
+
+    def _run_prefill(self, batch: Dict[str, Any]):
+        """Prefill + first token. Returns (tok, pos, cache, ttft_ms)."""
+        B = batch["tokens"].shape[0]
+        cache = self.api.init_cache(B, self.max_seq, kv_dtype=self.kv_dtype,
+                                    prefix_len=self.prefix_len)
+        _sync(self.device)
+        t0 = time.perf_counter()
+        logits, cache, pos = self.api.prefill(
+            self.params.tree(), batch, cache, self.qcfg,
+            cushion=self.cushion, scales=self.scales)
+        logits = logits[:, -1] if logits.dim() == 3 else logits
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        _sync(self.device)          # host sync 1: TTFT
+        return tok, pos, cache, (time.perf_counter() - t0) * 1e3
+
+    @staticmethod
+    def _next(logits, greedy: bool, gen: Optional[torch.Generator]):
+        if greedy:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        probs = torch.softmax(logits.float(), dim=-1)
+        return torch.multinomial(probs, 1, generator=gen)[:, 0].to(torch.int32)
+
+    @torch.inference_mode()
+    def generate(self, batch: Dict[str, Any], n_tokens: int,
+                 greedy: bool = True,
+                 generator: Optional[torch.Generator] = None
+                 ) -> GenerationResult:
+        """Greedy, or categorical sampling from ``generator`` (a
+        ``torch.Generator`` on the engine's device) when ``greedy`` is
+        False."""
+        tok, pos, cache, ttft = self._run_prefill(batch)
+        t1 = time.perf_counter()
+        g = bool(greedy or generator is None)
+        toks = [tok]
+        for _ in range(max(0, n_tokens - 1)):
+            logits, cache = self._decode(tok, pos, cache)
+            tok = self._next(logits, g, generator)
+            pos = pos + 1
+            toks.append(tok)
+        out = torch.stack(toks, dim=1).cpu()    # host sync 2: the loop
+        tpot = (0.0 if n_tokens <= 1
+                else (time.perf_counter() - t1) * 1e3 / (n_tokens - 1))
+        return GenerationResult(tokens=out.numpy(), ttft_ms=ttft,
+                                tpot_ms=tpot)
+
+    @torch.inference_mode()
+    def generate_py(self, batch: Dict[str, Any], n_tokens: int,
+                    greedy: bool = True,
+                    generator: Optional[torch.Generator] = None
+                    ) -> GenerationResult:
+        """Per-token host loop (one device-to-host copy per token), the
+        reference's baseline for the decode benchmarks."""
+        tok, pos, cache, ttft = self._run_prefill(batch)
+        out = [tok.cpu().numpy()]
+        t1 = time.perf_counter()
+        g = bool(greedy or generator is None)
+        for _ in range(n_tokens - 1):
+            logits, cache = self._decode(tok, pos, cache)
+            tok = self._next(logits, g, generator)
+            pos = pos + 1
+            out.append(tok.cpu().numpy())
+        tpot = (0.0 if n_tokens <= 1
+                else (time.perf_counter() - t1) * 1e3 / (n_tokens - 1))
+        return GenerationResult(tokens=np.stack(out, 1), ttft_ms=ttft,
+                                tpot_ms=tpot)

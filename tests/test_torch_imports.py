@@ -1,0 +1,64 @@
+"""The port stands alone: every ``repro_torch`` module imports without jax
+and without the JAX package, and an entry point asked for the card on a
+machine without one raises instead of running on the CPU."""
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+# small shapes: one intra-op thread, so parallel test workers do not
+# oversubscribe the cores
+torch.set_num_threads(1)
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models.registry import build, resolve_device  # noqa: E402
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+_PROBE = r"""
+import pkgutil, importlib, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    n = int(out.stdout.split()[0])
+    assert n >= 20, out.stdout      # every module of the slice was imported
+
+
+def test_cuda_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build(get_config("paper_tiny"))            # the default is the card
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "paper_tiny"])
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_serve_cli_runs_on_cpu_when_asked(tmp_path):
+    out = tmp_path / "bench.json"
+    res = serve.main(["--arch", "paper_tiny", "--device", "cpu",
+                      "--quant", "pt_static", "--prequant",
+                      "--kv-dtype", "int8", "--cushion-len", "2",
+                      "--batch", "2", "--prompt-len", "16", "--tokens", "4",
+                      "--bench-json", str(out)])
+    assert res.tokens.shape == (2, 4)
+    assert out.exists()
