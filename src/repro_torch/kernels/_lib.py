@@ -35,7 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
 KERNELS = ("w8a8_matmul", "act_quant_static", "flash_attention",
-           "flash_decode")
+           "flash_decode", "flash_decode_paged")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -52,10 +52,16 @@ _SIGNATURES = {
     # out strides (b, h, s), stream
     "flash_attention_launch": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
                                _I, _I] + [ctypes.c_longlong] * 12 + [_VP],
-    # q, k, v, k_scale, v_scale, kc, vc, pos, pos_per_row, out,
-    # fp_bf16, cache_int8, B, H, K, Smax, hd, m, stream
-    "flash_decode_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP,
-                            _I, _I, _I, _I, _I, _I, _I, _I, _VP],
+    # q, k, v, k_scale, v_scale, scale_per_row, kc, vc, pos, pos_per_row,
+    # out, fp_bf16, cache_int8, B, H, K, Smax, hd, m, stream
+    "flash_decode_launch": [_VP, _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I,
+                            _VP, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
+    # q, k_pages, v_pages, page_table, k_scale, v_scale, scale_per_row, kc,
+    # vc, pos, pos_per_row, out, fp_bf16, cache_int8, B, H, K, P, ps, hd, m,
+    # stream
+    "flash_decode_paged_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP,
+                                  _VP, _I, _VP, _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _VP],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,16 +1,22 @@
-// Single-query decode attention over a contiguous KV cache (fp, or int8 with
-// per-kv-head dequant scales and an fp CushionCache block).
+// Single-query decode attention over a contiguous KV cache or a paged KV
+// pool (fp, or int8 with per-kv-head dequant scales and an fp CushionCache
+// block).
 //
 // Replaces: src/repro/kernels/flash_decode.py `flash_decode` (Pallas
-// `_kernel`), called from models/common.py `attention_decode_kv` on every
-// decode step of every layer.
+// `_kernel`) and `flash_decode_paged` (the same body through a
+// scalar-prefetched page table), called from models/common.py
+// `attention_decode_kv` on every decode step of every layer.
 //
-//   q (B, H, hd); k/v (B, Smax, K, hd) fp or int8; k_scale/v_scale (K,);
-//   kc/vc (m, K, hd) fp cushion covering positions [0, m) (int8 mode only);
-//   pos () or (B,) int32. Row b attends cache positions [m, pos[b]] (m = 0
-//   for an fp cache, which holds the cushion in-cache) plus the whole
-//   cushion block; pos < 0 retires a row (fp: zeros, int8: cushion only).
-//   Output is acc / max(l, 1e-30).
+//   q (B, H, hd); contiguous k/v (B, Smax, K, hd), or paged k/v
+//   (n_pages, ps, K, hd) with page_table (B, P), Smax = P * ps, logical
+//   position t of row b at physical page page_table[b, t / ps], offset
+//   t % ps (page 0 is scratch: unmapped positions are never read);
+//   fp or int8; k_scale/v_scale (K,) shared or (B, K) per row;
+//   kc/vc (m, K, hd) fp cushion covering positions [0, m) (contiguous: int8
+//   mode only, an fp cache holds the cushion in-cache; paged: fp and int8);
+//   pos () or (B,) int32. Row b attends positions [m, pos[b]] plus the whole
+//   cushion block; pos < 0 retires a row (no cushion: zeros; with a
+//   cushion: the cushion only). Output is acc / max(l, 1e-30).
 //
 // Bound on the card: bytes. Each step reads the live part of the cache once
 // (int8: 1 byte per element, half of bf16) and does 2 multiply-adds per
@@ -24,6 +30,12 @@
 // in registers. Positions past pos are never read. With B * K = 20 blocks
 // on 132 SMs the card is mostly idle at smollm's decode shape; splitting
 // positions across blocks (split-KV with a combine pass) is left for later.
+//
+// Both layouts run one kernel body; a template parameter maps (b, t) to the
+// row's address (`Contig`, `Paged`), so the paged kernel on a pool adds the
+// same terms in the same order as the contiguous kernel on the gathered
+// cache and the two agree bit for bit. The paged variant reads one int32 of
+// the page table per position (cached in L1: a row's table is P ints).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -57,14 +69,33 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T, typename C, int HD>
+// element offset of position t of row b, kv-head kh, dim 0
+struct Contig {
+  int Smax;
+  __device__ __forceinline__ long long row(int b, int t, int K, int kh,
+                                           int hd) const {
+    return (((long long)b * Smax + t) * K + kh) * hd;
+  }
+};
+struct Paged {
+  const int* __restrict__ pt;   // (B, P) physical page of each logical page
+  int P, ps;
+  __device__ __forceinline__ long long row(int b, int t, int K, int kh,
+                                           int hd) const {
+    const long long page = pt[(long long)b * P + t / ps];
+    return ((page * ps + t % ps) * K + kh) * hd;
+  }
+};
+
+template <typename T, typename C, int HD, typename Addr>
 __global__ void __launch_bounds__(NW * 32)
 flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ k,
                     const C* __restrict__ v, const float* __restrict__ ks,
-                    const float* __restrict__ vs, const T* __restrict__ kc,
-                    const T* __restrict__ vc, const int* __restrict__ pos,
-                    int pos_per_row, T* __restrict__ out, int H, int K,
-                    int Smax, int mc, float scale) {
+                    const float* __restrict__ vs, int scale_per_row,
+                    const T* __restrict__ kc, const T* __restrict__ vc,
+                    const int* __restrict__ pos, int pos_per_row,
+                    T* __restrict__ out, int H, int K, int Smax, int mc,
+                    float scale, Addr addr) {
   constexpr int DPL = (HD + 31) / 32;     // dims per lane
   __shared__ float sm_m[NW][GMAX];
   __shared__ float sm_l[NW][GMAX];
@@ -73,8 +104,9 @@ flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ k,
   const int b = blockIdx.x / K, kh = blockIdx.x % K;
   const int G = H / K;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float ksc = ks ? ks[kh] : 1.f;
-  const float vsc = vs ? vs[kh] : 1.f;
+  const int si = scale_per_row ? b * K + kh : kh;
+  const float ksc = ks ? ks[si] : 1.f;
+  const float vsc = vs ? vs[si] : 1.f;
 
   float qv[GMAX][DPL], acc[GMAX][DPL], m[GMAX], l[GMAX];
 #pragma unroll
@@ -105,7 +137,7 @@ flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ k,
         vr[e] = d < HD ? ld(vc + base + d) : 0.f;
       }
     } else {
-      const long long base = (((long long)b * Smax + t) * K + kh) * HD;
+      const long long base = addr.row(b, t, K, kh, HD);
 #pragma unroll
       for (int e = 0; e < DPL; ++e) {
         const int d = lane * DPL + e;
@@ -159,48 +191,69 @@ flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ k,
   }
 }
 
-template <typename T, typename C>
+template <typename T, typename C, typename Addr>
 static int dispatch(const void* q, const void* k, const void* v,
-                    const void* ks, const void* vs, const void* kc,
-                    const void* vc, const void* pos, int per_row, void* out,
-                    int B, int H, int K, int Smax, int hd, int mc,
-                    cudaStream_t stream) {
+                    const void* ks, const void* vs, int scale_per_row,
+                    const void* kc, const void* vc, const void* pos,
+                    int per_row, void* out, int B, int H, int K, int Smax,
+                    int hd, int mc, Addr addr, cudaStream_t stream) {
   if (H % K != 0 || H / K > GMAX) return (int)cudaErrorInvalidValue;
   const float scale = 1.0f / sqrtf((float)hd);
 #define FD_ARGS                                                            \
   (const T*)q, (const C*)k, (const C*)v, (const float*)ks,                 \
-      (const float*)vs, (const T*)kc, (const T*)vc, (const int*)pos,       \
-      per_row, (T*)out, H, K, Smax, mc, scale
+      (const float*)vs, scale_per_row, (const T*)kc, (const T*)vc,         \
+      (const int*)pos, per_row, (T*)out, H, K, Smax, mc, scale, addr
   switch (hd) {
-    case 16: flash_decode_kernel<T, C, 16><<<B * K, NW * 32, 0, stream>>>(FD_ARGS); break;
-    case 32: flash_decode_kernel<T, C, 32><<<B * K, NW * 32, 0, stream>>>(FD_ARGS); break;
-    case 64: flash_decode_kernel<T, C, 64><<<B * K, NW * 32, 0, stream>>>(FD_ARGS); break;
+    case 16: flash_decode_kernel<T, C, 16, Addr><<<B * K, NW * 32, 0, stream>>>(FD_ARGS); break;
+    case 32: flash_decode_kernel<T, C, 32, Addr><<<B * K, NW * 32, 0, stream>>>(FD_ARGS); break;
+    case 64: flash_decode_kernel<T, C, 64, Addr><<<B * K, NW * 32, 0, stream>>>(FD_ARGS); break;
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FD_ARGS
   return (int)cudaGetLastError();
 }
 
+template <typename Addr>
+static int launch(const void* q, const void* k, const void* v, const void* ks,
+                  const void* vs, int scale_per_row, const void* kc,
+                  const void* vc, const void* pos, int pos_per_row, void* out,
+                  int bf16, int cache_int8, int B, int H, int K, int Smax,
+                  int hd, int mc, Addr addr, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+#define FD_CALL(T, C)                                                       \
+  dispatch<T, C, Addr>(q, k, v, ks, vs, scale_per_row, kc, vc, pos,         \
+                       pos_per_row, out, B, H, K, Smax, hd, mc, addr, st)
+  if (bf16) {
+    if (cache_int8) return FD_CALL(__nv_bfloat16, int8_t);
+    return FD_CALL(__nv_bfloat16, __nv_bfloat16);
+  }
+  if (cache_int8) return FD_CALL(float, int8_t);
+  return FD_CALL(float, float);
+#undef FD_CALL
+}
+
+// contiguous cache: k/v (B, Smax, K, hd)
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* ks,
-                                   const void* vs, const void* kc,
-                                   const void* vc, const void* pos,
-                                   int pos_per_row, void* out, int bf16,
-                                   int cache_int8, int B, int H, int K,
-                                   int Smax, int hd, int mc, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (bf16) {
-    if (cache_int8)
-      return dispatch<__nv_bfloat16, int8_t>(q, k, v, ks, vs, kc, vc, pos,
-                                             pos_per_row, out, B, H, K, Smax,
-                                             hd, mc, st);
-    return dispatch<__nv_bfloat16, __nv_bfloat16>(q, k, v, ks, vs, kc, vc,
-                                                  pos, pos_per_row, out, B, H,
-                                                  K, Smax, hd, mc, st);
-  }
-  if (cache_int8)
-    return dispatch<float, int8_t>(q, k, v, ks, vs, kc, vc, pos, pos_per_row,
-                                   out, B, H, K, Smax, hd, mc, st);
-  return dispatch<float, float>(q, k, v, ks, vs, kc, vc, pos, pos_per_row,
-                                out, B, H, K, Smax, hd, mc, st);
+                                   const void* vs, int scale_per_row,
+                                   const void* kc, const void* vc,
+                                   const void* pos, int pos_per_row,
+                                   void* out, int bf16, int cache_int8, int B,
+                                   int H, int K, int Smax, int hd, int mc,
+                                   void* stream) {
+  return launch(q, k, v, ks, vs, scale_per_row, kc, vc, pos, pos_per_row, out,
+                bf16, cache_int8, B, H, K, Smax, hd, mc, Contig{Smax},
+                stream);
+}
+
+// paged pool: k/v (n_pages, ps, K, hd), page_table (B, P) int32
+extern "C" int flash_decode_paged_launch(
+    const void* q, const void* k, const void* v, const void* page_table,
+    const void* ks, const void* vs, int scale_per_row, const void* kc,
+    const void* vc, const void* pos, int pos_per_row, void* out, int bf16,
+    int cache_int8, int B, int H, int K, int P, int ps, int hd, int mc,
+    void* stream) {
+  return launch(q, k, v, ks, vs, scale_per_row, kc, vc, pos, pos_per_row, out,
+                bf16, cache_int8, B, H, K, P * ps, hd, mc,
+                Paged{(const int*)page_table, P, ps}, stream);
 }

@@ -1,13 +1,21 @@
-"""Single-query decode attention over a contiguous KV cache (kernel + plain
-version).
+"""Single-query decode attention over a contiguous KV cache or a paged KV
+pool (kernels + plain versions).
 
-q: (B, H, hd); k/v: (B, Smax, K, hd), fp, or int8 with per-kv-head dequant
-scales k_scale/v_scale (K,); kc/vc: (m, K, hd) fp cushion covering positions
-[0, m) (int8 caches only: an fp cache holds the cushion in-cache); pos: ()
-or (B,) int32. Row b attends positions <= pos[b] (and the whole cushion);
-pos < 0 retires a row. A CUDA tensor launches ``csrc/flash_decode.cu``; a
-CPU tensor takes ``flash_decode_plain``. Per-row (B, K) scales and the paged
-layout are not ported yet (ROADMAP queue 2).
+``flash_decode``: q (B, H, hd); k/v (B, Smax, K, hd), fp, or int8 with
+dequant scales k_scale/v_scale, (K,) shared by the batch or (B, K) per row
+(the continuous pool's per-slot scales); kc/vc (m, K, hd) fp cushion
+covering positions [0, m) (int8 caches only: an fp cache holds the cushion
+in-cache); pos () or (B,) int32. Row b attends positions <= pos[b] (and the
+whole cushion); pos < 0 retires a row.
+
+``flash_decode_paged``: the same function through a page table. k/v are a
+flat (n_pages, ps, K, hd) page store and page_table (B, P) int32 maps row
+b's logical page j (positions [j*ps, (j+1)*ps)) to a physical page; page 0
+is scratch. kc/vc are allowed for fp and int8 pools alike (the paged pool
+keeps the cushion once, batch-free, never in pages).
+
+A CUDA tensor launches ``csrc/flash_decode.cu``; a CPU tensor takes the
+plain version (``flash_decode_plain``, ``flash_decode_paged_plain``).
 """
 from __future__ import annotations
 
@@ -67,6 +75,74 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, H, hd).to(q.dtype)
 
 
+def gather_pages(pages: torch.Tensor, page_table: torch.Tensor
+                 ) -> torch.Tensor:
+    """The paged pool in the dense per-row layout (``ref.gather_pages``):
+    pages (n_pages, ps, K, hd) + page_table (B, P) -> (B, P*ps, K, hd). Row
+    b's positions [j*ps, (j+1)*ps) come from page page_table[b, j];
+    unmapped entries read the scratch page 0, masked downstream."""
+    B, P = page_table.shape
+    g = pages[page_table.long()]                # (B, P, ps, K, hd)
+    return g.reshape(B, P * pages.shape[1], *pages.shape[2:])
+
+
+def flash_decode_paged_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                             v_pages: torch.Tensor, page_table: torch.Tensor,
+                             pos, k_scale: Optional[torch.Tensor] = None,
+                             v_scale: Optional[torch.Tensor] = None,
+                             kc: Optional[torch.Tensor] = None,
+                             vc: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """Plain PyTorch version (``ref.flash_decode_paged_ref``): gather the
+    pages into the dense layout and score it with ``flash_decode_plain``,
+    which splices an fp pool's cushion over [0, m) as well."""
+    return flash_decode_plain(q, gather_pages(k_pages, page_table),
+                              gather_pages(v_pages, page_table), pos,
+                              k_scale, v_scale, kc, vc)
+
+
+def _operands(q, k, v, pos, k_scale, v_scale, kc, vc, K: int):
+    """Checks what both kernels take alike. Returns (tensors, pos vector,
+    quantized, m, scale_per_row)."""
+    B, H, hd = q.shape
+    quantized = k_scale is not None
+    m = 0 if kc is None else kc.shape[0]
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q must be f32 or bf16, got {q.dtype}")
+    if v.shape != k.shape or k.shape[2:] != (K, hd) or H % K:
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    if hd not in (16, 32, 64) or H // K > 8:
+        raise ValueError(f"head_dim {hd} / group {H // K} not built")
+    cache_dt = torch.int8 if quantized else q.dtype
+    if k.dtype != cache_dt or v.dtype != cache_dt:
+        raise ValueError(f"cache dtype must be {cache_dt}, got {k.dtype}")
+    tensors = [q, k, v]
+    per_row = False
+    if quantized:
+        per_row = k_scale.dim() == 2
+        want = (B, K) if per_row else (K,)
+        for s in (k_scale, v_scale):
+            if s is None or s.dtype != torch.float32 or s.shape != want:
+                raise ValueError("KV scales must be f32 (K,) or (B, K)")
+        tensors += [k_scale, v_scale]
+    if m:
+        for c in (kc, vc):
+            if c.shape != (m, K, hd) or c.dtype != q.dtype:
+                raise ValueError("kc/vc must be (m, K, hd) in q's dtype")
+        tensors += [kc, vc]
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("flash_decode takes contiguous operands")
+    posv = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
+    if posv.numel() not in (1, B) or not posv.is_contiguous():
+        raise ValueError(f"pos must be () or ({B},) int32")
+    return tensors, posv, quantized, m, per_row
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
                  k_scale: Optional[torch.Tensor] = None,
                  v_scale: Optional[torch.Tensor] = None,
@@ -79,51 +155,58 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
         raise ValueError(f"flash_decode: unsupported device {q.device}")
     B, H, hd = q.shape
     Smax, K = k.shape[1], k.shape[2]
-    quantized = k_scale is not None
-    m = 0 if kc is None else kc.shape[0]
+    if k.shape[0] != B:
+        raise ValueError(f"cache batch {k.shape[0]} != q batch {B}")
+    tensors, posv, quantized, m, per_row = _operands(
+        q, k, v, pos, k_scale, v_scale, kc, vc, K)
     if m and not quantized:
         raise ValueError("fp caches hold the cushion in-cache (kc/vc are "
                          "for int8 caches)")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"q must be f32 or bf16, got {q.dtype}")
-    if k.shape != (B, Smax, K, hd) or v.shape != k.shape or H % K:
-        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
-                         f"v {tuple(v.shape)}")
-    if hd not in (16, 32, 64) or H // K > 8:
-        raise ValueError(f"head_dim {hd} / group {H // K} not built")
-    cache_dt = torch.int8 if quantized else q.dtype
-    if k.dtype != cache_dt or v.dtype != cache_dt:
-        raise ValueError(f"cache dtype must be {cache_dt}, got {k.dtype}")
-    tensors = [q, k, v]
-    if quantized:
-        if k_scale.dim() != 1 or v_scale is None or v_scale.dim() != 1:
-            raise NotImplementedError(
-                "per-row (B, K) KV scales come with the continuous-batching "
-                "slice (ROADMAP queue 2)")
-        for s in (k_scale, v_scale):
-            if s.dtype != torch.float32 or s.shape != (K,):
-                raise ValueError("KV scales must be f32 (K,)")
-        tensors += [k_scale, v_scale]
-    if m:
-        for c in (kc, vc):
-            if c.shape != (m, K, hd) or c.dtype != q.dtype:
-                raise ValueError("kc/vc must be (m, K, hd) in q's dtype")
-        tensors += [kc, vc]
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("flash_decode takes contiguous operands")
-    posv = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
-    if posv.numel() not in (1, B) or not posv.is_contiguous():
-        raise ValueError(f"pos must be () or ({B},) int32")
     _lib.require_cuda(*tensors, posv)
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
     code = _lib.lib().flash_decode_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        k_scale.data_ptr() if quantized else None,
-        v_scale.data_ptr() if quantized else None,
-        kc.data_ptr() if m else None, vc.data_ptr() if m else None,
-        posv.data_ptr(), int(posv.numel() == B and posv.dim() == 1),
-        out.data_ptr(), int(q.dtype == torch.bfloat16), int(quantized),
-        B, H, K, Smax, hd, m, _lib.stream_ptr(q))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
+        _ptr(v_scale), int(per_row), _ptr(kc), _ptr(vc), posv.data_ptr(),
+        int(posv.numel() == B and posv.dim() == 1), out.data_ptr(),
+        int(q.dtype == torch.bfloat16), int(quantized), B, H, K, Smax, hd, m,
+        _lib.stream_ptr(q))
     _lib.check(code, "flash_decode")
     _lib.count("flash_decode")
+    return out
+
+
+def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, page_table: torch.Tensor, pos,
+                       k_scale: Optional[torch.Tensor] = None,
+                       v_scale: Optional[torch.Tensor] = None,
+                       kc: Optional[torch.Tensor] = None,
+                       vc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Returns (B, H, hd) in q's dtype; on the card bit-identical to
+    ``flash_decode`` over ``gather_pages`` of the pool."""
+    if q.device.type == "cpu":
+        return flash_decode_paged_plain(q, k_pages, v_pages, page_table, pos,
+                                        k_scale, v_scale, kc, vc)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode_paged: unsupported device "
+                         f"{q.device}")
+    B, H, hd = q.shape
+    ps, K = k_pages.shape[1], k_pages.shape[2]
+    if (page_table.dim() != 2 or page_table.shape[0] != B
+            or page_table.dtype != torch.int32
+            or not page_table.is_contiguous()):
+        raise ValueError(f"page_table must be contiguous ({B}, P) int32")
+    P = page_table.shape[1]
+    tensors, posv, quantized, m, per_row = _operands(
+        q, k_pages, v_pages, pos, k_scale, v_scale, kc, vc, K)
+    _lib.require_cuda(*tensors, posv, page_table)
+    out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
+    code = _lib.lib().flash_decode_paged_launch(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_table.data_ptr(), _ptr(k_scale), _ptr(v_scale), int(per_row),
+        _ptr(kc), _ptr(vc), posv.data_ptr(),
+        int(posv.numel() == B and posv.dim() == 1), out.data_ptr(),
+        int(q.dtype == torch.bfloat16), int(quantized), B, H, K, P, ps, hd,
+        m, _lib.stream_ptr(q))
+    _lib.check(code, "flash_decode_paged")
+    _lib.count("flash_decode_paged")
     return out

@@ -1,8 +1,9 @@
 """Model-level entries to the kernels, in the JAX package's layouts
 (``repro/kernels/ops.py``: ``qdot_pallas``, ``attention_pallas``,
-``decode_attention_pallas``). Each dispatches on the device of its tensors
-through the kernel wrappers: the kernel on the card, the plain version on
-the CPU. The tensor-parallel and paged entries are not ported yet."""
+``decode_attention_pallas``, ``decode_attention_paged``). Each dispatches
+on the device of its tensors through the kernel wrappers: the kernel on the
+card, the plain version on the CPU. The tensor-parallel entries are not
+ported yet."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,7 +13,7 @@ import torch
 from repro_torch.configs.base import QuantConfig
 from repro_torch.core import quantization as Q
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.flash_decode import flash_decode, flash_decode_paged
 
 
 def qdot(x: torch.Tensor, w: torch.Tensor, cfg: QuantConfig,
@@ -44,3 +45,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
     given, cushion in kc/vc); pos: () or (B,). Returns (B, H, hd)."""
     return flash_decode(q, k, v, pos, k_scale=k_scale, v_scale=v_scale,
                         kc=kc, vc=vc)
+
+
+def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, page_table: torch.Tensor,
+                           pos, k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None,
+                           kc: Optional[torch.Tensor] = None,
+                           vc: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """q: (B, H, hd); k/v: the (n_pages, ps, K, hd) page store; page_table:
+    (B, P) int32; the cushion in kc/vc for fp and int8 pools alike.
+    Returns (B, H, hd)."""
+    return flash_decode_paged(q, k_pages, v_pages, page_table, pos,
+                              k_scale=k_scale, v_scale=v_scale, kc=kc, vc=vc)

@@ -1,9 +1,20 @@
-"""Serving launcher (static mode): one Engine batch under a quantization
-mode, with an optional CushionCache prefix, on the card unless
-``--device cpu``.
+"""Serving launcher: a quantization mode with an optional CushionCache
+prefix, on the card unless ``--device cpu``.
 
     python -m repro_torch.launch.serve --arch smollm-360m --quant pt_static \
         --prequant --kv-dtype int8 --cushion-len 4
+
+The default (static) mode runs one Engine batch. ``--mode continuous``
+replays a Poisson-arrival trace (``--rate`` req/s, 0 = all queued at once;
+``--n-requests``; ``--trace-seed``) through ``ContinuousEngine`` with
+``--slots`` cache slots; ``--paged --page-size --pages`` swap the dense
+per-slot rows for the paged pool, ``--prefix-cache`` shares repeated prompt
+stems' pages (fp pools), ``--chunk-tokens N|auto`` admits long prompts in
+chunks between decode steps. It prints per-request TTFT/TPOT, the final
+``ServeStats``, the page-pool gauges, tokens/s and p50/p99 latency:
+
+    python -m repro_torch.launch.serve --device cpu --mode continuous \
+        --paged --page-size 32 --prefix-cache --chunk-tokens 16
 
 Weights are random, made from ``--seed``. The cushion is ``extract_cushion``
 of ``--cushion-len`` token ids drawn from the seed; pt_static calibrates its
@@ -25,6 +36,7 @@ from repro_torch.configs import QuantConfig, get_config
 from repro_torch.data.pipeline import Pipeline, SyntheticCorpus
 from repro_torch.models.registry import build
 from repro_torch.serving.engine import Engine
+from repro_torch.serving.scheduler import ContinuousEngine, Request
 
 CALIB_BATCHES = 2
 
@@ -38,6 +50,133 @@ def seeded_cushion(api, params, m: int, seed: int):
 
 def to_device(batch, device):
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def poisson_trace(vocab_size: int, rng_seed: int, n_requests: int,
+                  rate: float, prompt_lens, budgets, device="cpu") -> list:
+    """Poisson-arrival request trace: exponential inter-arrival gaps at
+    ``rate`` req/s (0: every request arrives at once), prompts cycling
+    through ``prompt_lens`` and budgets through ``budgets``. Everything
+    derives from ``rng_seed``. The gaps and budgets are the JAX launcher's;
+    the prompt ids come from a numpy ``RandomState(rng_seed + 7 i + 1)``
+    where the JAX launcher draws them with ``jax.random``, which the port
+    cannot reproduce, so the two launchers serve different prompts."""
+    rs = np.random.RandomState(rng_seed)
+    t = 0.0
+    reqs = []
+    for i in range(n_requests):
+        t += float(rs.exponential(1.0 / rate)) if rate > 0 else 0.0
+        S = int(prompt_lens[i % len(prompt_lens)])
+        ids = np.random.RandomState(rng_seed + 7 * i + 1).randint(
+            0, vocab_size, (1, S))
+        reqs.append(Request(
+            uid=i, batch={"tokens": torch.as_tensor(ids, dtype=torch.int32,
+                                                    device=device)},
+            max_new_tokens=int(budgets[i % len(budgets)]), arrival_s=t))
+    return reqs
+
+
+def install_sigterm_drain() -> None:
+    """Map SIGTERM onto KeyboardInterrupt, so a shutdown takes the same
+    graceful drain as ctrl-C. No-op off the main thread."""
+    import signal
+
+    def _handler(signum, frame):
+        raise KeyboardInterrupt("SIGTERM")
+
+    try:
+        signal.signal(signal.SIGTERM, _handler)
+    except ValueError:      # not the main thread
+        pass
+
+
+def _chunk_tokens_arg(v: str):
+    """--chunk-tokens value: an int budget or 'auto' (adaptive)."""
+    return v if v == "auto" else int(v)
+
+
+def run_continuous(api, params, qcfg, args, calib_batches=None,
+                   cushion=None):
+    install_sigterm_drain()
+    dev = api.device
+    reqs = poisson_trace(api.cfg.vocab_size, args.trace_seed,
+                         args.n_requests, args.rate,
+                         prompt_lens=(args.prompt_len, args.prompt_len + 8),
+                         budgets=(args.tokens, max(1, args.tokens // 2)),
+                         device=dev)
+    eng = ContinuousEngine(api, params, qcfg, n_slots=args.slots,
+                           max_seq=args.prompt_len + 8 + args.tokens + 32,
+                           cushion=cushion,
+                           kv_dtype=None if args.kv_dtype == "fp"
+                           else args.kv_dtype,
+                           calib_batches=calib_batches,
+                           prequant=args.prequant, paged=args.paged,
+                           page_size=args.page_size, n_pages=args.pages,
+                           prefix_cache=args.prefix_cache,
+                           chunk_tokens=args.chunk_tokens)
+    if eng.chunk_auto:
+        print(f"[serve] chunked prefill: adaptive budget (max "
+              f"{eng.chunk_tokens} tokens/chunk)")
+    elif eng.chunk_tokens:
+        print(f"[serve] chunked prefill: {eng.chunk_tokens} tokens/chunk "
+              f"(bucketed from --chunk-tokens {args.chunk_tokens})")
+    print(f"[serve] device={dev} "
+          f"{torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}"
+          f" resident weights: "
+          f"fp={eng.stats.weight_bytes_fp / 2 ** 20:.1f} MiB "
+          f"int8={eng.stats.weight_bytes_int8 / 2 ** 20:.1f} MiB")
+    if args.paged:
+        st = eng.stats
+        print(f"[serve] paged pool: {st.pages_total} pages x "
+              f"{args.page_size} positions, "
+              f"{st.pool_bytes / 2 ** 20:.2f} MiB resident "
+              f"(cushion refs {st.cushion_page_refs})")
+    if args.bench_json:
+        eng.run(reqs)           # warm-up: allocator, kernel build
+    outs = eng.run(reqs)
+    for o in outs:
+        print(f"[serve]   req {o.uid}: slot {o.slot} n={len(o.tokens)} "
+              f"TTFT={o.ttft_ms:.1f}ms TPOT={o.tpot_ms:.2f}ms "
+              f"latency={o.latency_s * 1e3:.0f}ms")
+    if eng.stats.interrupted:
+        print(f"[serve] DRAINED: interrupted after {len(outs)} of "
+              f"{len(reqs)} requests; live slots completed, queued "
+              f"remainder dropped")
+    print(f"[serve] final stats: {eng.stats.as_dict()}")
+    if args.paged:
+        st = eng.stats
+        print(f"[serve] page pool: total={st.pages_total} "
+              f"free={st.pages_free} shared={st.pages_shared} "
+              f"cushion_refs={st.cushion_page_refs} "
+              f"prefix_hits={st.prefix_hits} "
+              f"prefix_misses={st.prefix_misses} "
+              f"positions_exhausted={st.positions_exhausted} "
+              f"pool_bytes={st.pool_bytes}")
+    if not outs:
+        return outs
+    total = sum(len(o.tokens) for o in outs)
+    span = max(o.finished_s for o in outs) - min(r.arrival_s for r in reqs)
+    lat = np.asarray([o.latency_s for o in outs])
+    tps = total / max(span, 1e-9)
+    occ = eng.stats.occupancy()
+    print(f"[serve] continuous: {len(outs)} reqs, {total} tokens, "
+          f"{tps:.1f} tok/s, p50={np.percentile(lat, 50) * 1e3:.0f}ms "
+          f"p99={np.percentile(lat, 99) * 1e3:.0f}ms occupancy={occ:.2f}")
+    if args.bench_json:
+        _append_point(args.bench_json, {
+            "mode": "continuous", "arch": args.arch, "quant": args.quant,
+            "prequant": args.prequant, "paged": args.paged,
+            "page_size": args.page_size, "prefix_cache": args.prefix_cache,
+            "chunk_tokens": args.chunk_tokens, "kv_dtype": args.kv_dtype,
+            "slots": args.slots, "rate": args.rate,
+            "n_requests": args.n_requests,
+            "device": (torch.cuda.get_device_name(dev)
+                       if dev.type == "cuda" else "cpu"),
+            "tokens_per_s": tps,
+            "p50_latency_s": float(np.percentile(lat, 50)),
+            "p99_latency_s": float(np.percentile(lat, 99)),
+            "occupancy": occ, **eng.stats.as_dict()})
+    return outs
 
 
 def _append_point(path: str, point: dict) -> None:
@@ -61,6 +200,35 @@ def main(argv=None):
     ap.add_argument("--prequant", action="store_true",
                     help="int8-resident weights (requires --quant pt_static)")
     ap.add_argument("--kv-dtype", default="fp", choices=["fp", "int8"])
+    ap.add_argument("--mode", default="static",
+                    choices=["static", "continuous"],
+                    help="static: one Engine batch; continuous: a Poisson "
+                         "trace through the slot-pool scheduler")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="continuous: cache-slot pool size")
+    ap.add_argument("--rate", type=float, default=8.0,
+                    help="continuous: Poisson arrival rate (req/s; 0 = "
+                         "all at once)")
+    ap.add_argument("--n-requests", type=int, default=8,
+                    help="continuous: trace length")
+    ap.add_argument("--trace-seed", type=int, default=None,
+                    help="seed of the trace (arrivals, prompts, budgets); "
+                         "defaults to --seed")
+    ap.add_argument("--paged", action="store_true",
+                    help="continuous: paged KV pool (serving/paging.py)")
+    ap.add_argument("--page-size", type=int, default=64,
+                    help="paged: positions per page (multiple of 8, "
+                         "divides max_seq)")
+    ap.add_argument("--pages", type=int, default=None,
+                    help="paged: physical page count (default: the worst "
+                         "case, so admission never waits on pages)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="paged fp pools: share repeated prompt stems' "
+                         "pages read-only, prefill only the tail")
+    ap.add_argument("--chunk-tokens", type=_chunk_tokens_arg, default=None,
+                    help="continuous: per-step prefill token budget "
+                         "(bucketed to a power of two) or 'auto'; longer "
+                         "prompts prefill one chunk per decode step")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--tokens", type=int, default=32)
@@ -73,6 +241,13 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.prequant and args.quant != "pt_static":
         ap.error("--prequant requires --quant pt_static")
+    if args.mode != "continuous" and (args.paged or args.chunk_tokens
+                                      is not None):
+        ap.error("--paged / --chunk-tokens require --mode continuous")
+    if args.prefix_cache and (not args.paged or args.kv_dtype != "fp"):
+        ap.error("--prefix-cache requires --paged and --kv-dtype fp")
+    if args.trace_seed is None:
+        args.trace_seed = args.seed
 
     cfg = get_config(args.arch)
     api = build(cfg, args.device)
@@ -90,6 +265,9 @@ def main(argv=None):
     if args.quant == "pt_static":
         calib = [to_device(pipe.get_batch(1000 + i), dev)
                  for i in range(CALIB_BATCHES)]
+    if args.mode == "continuous":
+        return run_continuous(api, params, qcfg, args, calib_batches=calib,
+                              cushion=cushion)
     batch = to_device(pipe.get_batch(0), dev)
     eng = Engine(api, params, qcfg, max_seq=args.prompt_len + args.tokens + 32,
                  cushion=cushion,

@@ -12,8 +12,8 @@ Conventions
 * The cushion prefix enters attention as per-layer KV ``prefix_kv``
   (dict(k=(m, K, hd), v=(m, K, hd))), fully visible to every query.
 * On the card, prefill attention runs the ``flash_attention`` kernel and
-  decode attention the ``flash_decode`` kernel (``kernels/ops.py``); on the
-  CPU their plain versions.
+  decode attention the ``flash_decode`` / ``flash_decode_paged`` kernels
+  (``kernels/ops.py``); on the CPU their plain versions.
 """
 from __future__ import annotations
 
@@ -330,16 +330,23 @@ def attention_decode_kv(p: Params, x: Tensor, kv: Params, pos: Tensor,
                         cfg: ModelConfig, qcfg: QuantConfig,
                         scales: Optional[Params], taps: Optional[Dict]
                         ) -> Tuple[Tensor, Params]:
-    """Single-token decode over one layer's contiguous KV cache. x: (B,1,D);
-    pos: () or (B,) int32 tensor. kv is the fp cache {"k","v": (B,Smax,K,hd)}
-    (cushion rows in-cache at [0:m)) or the int8 cache {"k","v" int8,
-    "k_scale","v_scale": (K,) f32, "kc","vc": (m,K,hd) fp}. The new token's
-    KV is written into the cache in place (at pos, clamped into [0, Smax)
-    as JAX's dynamic_update_slice clamps); the dict is returned for the
-    reference's signature. The paged layout is not ported yet."""
-    if "page_table" in kv:
-        raise NotImplementedError("the paged KV pool is not ported yet "
-                                  "(ROADMAP queue 1 item 8)")
+    """Single-token decode over one layer's KV cache. x: (B,1,D); pos: ()
+    or (B,) int32 tensor (per-row positions: RoPE, the write and the mask
+    are all per row). kv is the fp cache {"k","v": (B,Smax,K,hd)} (cushion
+    rows in-cache at [0:m)) or the int8 cache {"k","v" int8, "k_scale",
+    "v_scale": (K,) or per-slot (B,K) f32, "kc","vc": (m,K,hd) fp}.
+
+    A third layout is the paged pool (``serving/paging.py``): kv carries
+    "page_table" (B, P) int32 and k/v are a flat (n_pages, ps, K, hd) page
+    store; logical position t of row b lives at page page_table[b, t // ps],
+    offset t % ps, and the shared fp cushion rides in batch-free kc/vc for
+    fp and int8 pools alike.
+
+    The new token's KV is written in place: at pos, clamped into [0, Smax)
+    as JAX's dynamic_update_slice clamps; paged, through the table at pos,
+    and to the scratch page 0 when pos < 0 (retired rows keep a frozen pos
+    and a zeroed table row, so they write to scratch as well). The dict is
+    returned for the reference's signature."""
     B = x.shape[0]
     qkv = qlinear(x, p["wqkv"], p.get("bqkv"), qcfg, scales, "qkv", taps)
     q, k, v = _split_qkv(qkv, cfg)
@@ -356,17 +363,31 @@ def attention_decode_kv(p: Params, x: Tensor, kv: Params, pos: Tensor,
     else:
         k_wr = k.to(kv["k"].dtype)
         v_wr = v.to(kv["v"].dtype)
-    Smax = kv["k"].shape[1]
     rows = torch.arange(B, device=x.device)
-    wpos = posv.clamp(0, Smax - 1).long()
-    kv["k"][rows, wpos] = k_wr[:, 0]
-    kv["v"][rows, wpos] = v_wr[:, 0]
+    paged = "page_table" in kv
+    if paged:
+        ps = kv["k"].shape[1]
+        wpos = posv.clamp(min=0).long()
+        phys = torch.where(posv >= 0, kv["page_table"][rows, wpos // ps],
+                           0).long()
+        # dead rows all land on the scratch page: duplicate indices there
+        # are don't-care, so a plain (non-accumulating) index_put_
+        kv["k"][phys, wpos % ps] = k_wr[:, 0]
+        kv["v"][phys, wpos % ps] = v_wr[:, 0]
+    else:
+        wpos = posv.clamp(0, kv["k"].shape[1] - 1).long()
+        kv["k"][rows, wpos] = k_wr[:, 0]
+        kv["v"][rows, wpos] = v_wr[:, 0]
 
-    out = ops.decode_attention(
-        q[:, 0].contiguous(), kv["k"], kv["v"], pos,
-        k_scale=kv["k_scale"] if quantized else None,
-        v_scale=kv["v_scale"] if quantized else None,
-        kc=kv.get("kc"), vc=kv.get("vc"))
+    kw = dict(k_scale=kv["k_scale"] if quantized else None,
+              v_scale=kv["v_scale"] if quantized else None,
+              kc=kv.get("kc"), vc=kv.get("vc"))
+    q1 = q[:, 0].contiguous()
+    if paged:
+        out = ops.decode_attention_paged(q1, kv["k"], kv["v"],
+                                         kv["page_table"], pos, **kw)
+    else:
+        out = ops.decode_attention(q1, kv["k"], kv["v"], pos, **kw)
     out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim)
     y = qlinear(out, p["wo"], None, qcfg, scales, "o", taps)
     return y, kv

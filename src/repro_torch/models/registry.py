@@ -49,10 +49,33 @@ class ModelAPI:
         return TR.forward(params, batch["tokens"], self.cfg, qcfg, **kw)
 
     def init_cache(self, batch: int, max_seq: int, dtype=None,
-                   kv_dtype=None, prefix_len: int = 0):
+                   kv_dtype=None, prefix_len: int = 0,
+                   per_slot_scales: bool = False):
         return TR.init_cache(self.cfg, batch, max_seq, self.device,
                              dtype=dtype, kv_dtype=kv_dtype,
-                             prefix_len=prefix_len)
+                             prefix_len=prefix_len,
+                             per_slot_scales=per_slot_scales)
+
+    @property
+    def cache_batch_axes(self) -> Dict[str, int]:
+        """Batch axis of every per-request cache leaf: the continuous
+        scheduler's slot-scatter map."""
+        return TR.CACHE_BATCH_AXES
+
+    @property
+    def paged_kv_leaves(self) -> Tuple[str, ...]:
+        """Cache leaves the paged pool re-lays into a flat page store."""
+        return TR.PAGED_KV_LEAVES
+
+    @property
+    def supports_chunked_prefill(self) -> bool:
+        """prefill() takes pos_offset to resume a staged B=1 fp row."""
+        return TR.SUPPORTS_CHUNKED_PREFILL
+
+    def finalize_staged_kv(self, row, cache, cushion, S: int):
+        """The blocking admission row, rebuilt from a finished chunk-staged
+        fp row (int8 pools calibrate their per-slot scales here)."""
+        return TR.finalize_staged_kv(row, cache, cushion, S)
 
     def prefill(self, params, batch, cache, qcfg: QuantConfig, **kw):
         return TR.prefill(params, batch["tokens"], cache, self.cfg, qcfg, **kw)

@@ -26,6 +26,18 @@ Params = Dict[str, Any]
 
 SITES = C.ATTN_SITES + C.MLP_SITES  # ("qkv", "o", "mlp_in", "down")
 
+# prefill(pos_offset=...) resumes a partially staged B=1 fp row, so the
+# continuous scheduler may admit long prompts chunk by chunk.
+SUPPORTS_CHUNKED_PREFILL = True
+
+# Continuous-batching slot layout: batch axis of every per-request cache
+# leaf (init_cache puts batch second, after the layer axis).
+CACHE_BATCH_AXES = {"k": 1, "v": 1}
+
+# Leaves the paged pool re-lays into a flat page store + per-slot page
+# table; every other CACHE_BATCH_AXES entry keeps its dense per-slot row.
+PAGED_KV_LEAVES = ("k", "v")
+
 
 def layer_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     return {"ln1": C.norm_init(cfg, gen.device),
@@ -101,10 +113,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
                per_slot_scales: bool = False) -> Params:
     """kv_dtype None -> fp cache {"k","v"}; "int8" -> int8 k/v, (L, K) f32
     dequant scales and the fp cushion block kc/vc of ``prefix_len`` rows
-    (the int8 tensors hold content positions [prefix_len:max_seq))."""
-    if per_slot_scales:
-        raise NotImplementedError("per-slot (L, B, K) scales come with the "
-                                  "continuous-batching slice")
+    (the int8 tensors hold content positions [prefix_len:max_seq)).
+    per_slot_scales gives every batch row its own scales, (L, batch, K), for
+    the continuous pool, whose slots calibrate at their own admission."""
     dt = dtype or C.dtype_of(cfg)
     K, hd, L = cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
     shape = (L, batch, max_seq, K, hd)
@@ -113,10 +124,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
                 "v": torch.zeros(shape, dtype=dt, device=device)}
     if kv_dtype not in ("int8", torch.int8):
         raise ValueError(f"unsupported kv_dtype {kv_dtype!r}")
+    sshape = (L, batch, K) if per_slot_scales else (L, K)
     return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
             "v": torch.zeros(shape, dtype=torch.int8, device=device),
-            "k_scale": torch.ones((L, K), dtype=torch.float32, device=device),
-            "v_scale": torch.ones((L, K), dtype=torch.float32, device=device),
+            "k_scale": torch.ones(sshape, dtype=torch.float32, device=device),
+            "v_scale": torch.ones(sshape, dtype=torch.float32, device=device),
             "kc": torch.zeros((L, prefix_len, K, hd), dtype=dt, device=device),
             "vc": torch.zeros((L, prefix_len, K, hd), dtype=dt, device=device)}
 
@@ -144,11 +156,18 @@ def write_cushion_to_cache(cache: Params, cushion: Optional[Params]
 def write_prompt_kv(cache: Params, ks: Tensor, vs: Tensor, m: int) -> Params:
     """Write prefill KV (stacked (L,B,S,K,hd) fp) at positions [m:m+S]. An
     int8 cache also derives its per-(layer, head) scales from the prompt KV
-    here; decode reuses them. In place."""
+    here, decode reuses them; a cache with per-slot (L,B,K) scale leaves
+    calibrates each batch row from its own prompt. In place."""
     S = ks.shape[2]
     if "k_scale" in cache:
-        k_scale = torch.stack([C.kv_scales_from(k) for k in ks])   # (L, K)
-        v_scale = torch.stack([C.kv_scales_from(v) for v in vs])
+        if cache["k_scale"].dim() == 3:             # per-slot (L, B, K)
+            k_scale = torch.stack([torch.stack([C.kv_scales_from(r)
+                                                for r in k]) for k in ks])
+            v_scale = torch.stack([torch.stack([C.kv_scales_from(r)
+                                                for r in v]) for v in vs])
+        else:
+            k_scale = torch.stack([C.kv_scales_from(k) for k in ks])  # (L,K)
+            v_scale = torch.stack([C.kv_scales_from(v) for v in vs])
         for l in range(ks.shape[0]):
             cache["k"][l, :, m:m + S] = C.quantize_kv(ks[l], k_scale[l])
             cache["v"][l, :, m:m + S] = C.quantize_kv(vs[l], v_scale[l])
@@ -159,23 +178,53 @@ def write_prompt_kv(cache: Params, ks: Tensor, vs: Tensor, m: int) -> Params:
     return cache
 
 
+def finalize_staged_kv(row: Params, cache: Params, cushion: Optional[Params],
+                       S: int) -> Params:
+    """The admission row a blocking prefill would have produced, rebuilt
+    from a chunk-staged fp row: the prompt KV [m:m+S) of the row goes
+    through ``write_prompt_kv``, so an int8 cache calibrates its per-slot
+    scales over the whole prompt, and the cushion lands in kc/vc."""
+    cache, m = write_cushion_to_cache(cache, cushion)
+    return write_prompt_kv(cache, row["k"][:, :, m:m + S],
+                           row["v"][:, :, m:m + S], m)
+
+
 def prefill(params, tokens: Tensor, cache: Params, cfg: ModelConfig,
             qcfg: QuantConfig, *, scales: Optional[Params] = None,
-            cushion: Optional[Params] = None
+            cushion: Optional[Params] = None,
+            pos_offset: Optional[int] = None
             ) -> Tuple[Tensor, Params, Tensor]:
     """Process the prompt and fill the cache (cushion at [0:m], prompt at
-    [m:m+S]). Returns (last-position logits (B,1,V), cache, next_pos)."""
+    [m:m+S]). Returns (last-position logits (B,1,V), cache, next_pos).
+
+    pos_offset (int) resumes a chunked prefill: positions [0:pos_offset) of
+    the B=1 fp cache row already hold the cushion and every earlier chunk,
+    and are read back as the fully visible prefix of this chunk's tokens.
+    The cushion is attached on chunk 0 only, and the row must be fp (int8
+    admission rows are rebuilt by ``finalize_staged_kv``)."""
     params = C.as_tree(params)
     L = cfg.n_layers
     x = C.embed_tokens(params, tokens, cfg)
     S = x.shape[1]
-    cache, m = write_cushion_to_cache(cache, cushion)
+    if pos_offset is not None:
+        if cushion is not None:
+            raise ValueError("chunk-resume prefill attaches the cushion on "
+                             "chunk 0 only (pos_offset excludes cushion)")
+        if "k_scale" in cache:
+            raise ValueError("chunk-resume prefill needs an fp staging row")
+        if cache["k"].shape[1] != 1:
+            raise ValueError("chunk-resume prefill is B=1 only")
+        m = int(pos_offset)
+        pre = C.unstack({"k": cache["k"][:, 0, :m],
+                         "v": cache["v"][:, 0, :m]}, L)
+    else:
+        cache, m = write_cushion_to_cache(cache, cushion)
+        pre = _cushion_layers(cushion, L)
     positions = m + torch.arange(S, device=x.device)
     lscales = C.resolve_scales(scales, SITES, L, qcfg, x.device)
     ks, vs = [], []
     for lp, lsc, lpre in zip(C.unstack(params["layers"], L),
-                             C.unstack(lscales, L),
-                             _cushion_layers(cushion, L)):
+                             C.unstack(lscales, L), pre):
         hn = C.apply_norm(lp["ln1"], x, cfg)
         a, (k, v) = C.attention_full(lp["attn"], hn, cfg, qcfg, lsc, None,
                                      positions, prefix_kv=lpre, causal=True,

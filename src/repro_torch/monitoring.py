@@ -1,6 +1,8 @@
-"""Serving counters. This slice ports ``resident_weight_bytes`` only."""
+"""Serving counters (``repro/monitoring.py``): ``resident_weight_bytes``
+and the continuous scheduler's ``ServeStats``."""
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Tuple
 
 import torch
@@ -32,3 +34,67 @@ def resident_weight_bytes(params: Any) -> Tuple[int, int, int]:
         else:
             fp += n
     return fp, i8, i4
+
+
+@dataclasses.dataclass
+class ServeStats:
+    """Continuous-batching scheduler counters (serving/scheduler.py).
+
+    ``steps`` counts lock-step decode iterations over the slot pool;
+    ``live_slot_steps`` accumulates how many slots held a live request at
+    each step, so ``occupancy()`` is the mean fraction of decode compute
+    spent on real tokens (retired or empty slots still run, compute-masked).
+
+    ``weight_bytes_*`` (``resident_weight_bytes``), ``pool_bytes`` and
+    ``pages_total`` are facts of the engine's load and pool layout, kept
+    across ``reset()``. ``canceled`` counts live slots freed without a
+    result; ``interrupted`` records a graceful drain (ctrl-C / SIGTERM).
+
+    Page-pool gauges (zero on contiguous pools): ``pages_free`` /
+    ``pages_shared`` / ``cushion_page_refs`` mirror the allocator after
+    every admission and retirement (shared = refcount > 1; cushion refs =
+    the pool's pinned reference + one per live slot). ``prefix_hits`` /
+    ``prefix_misses`` count prefix-cache lookups at admission,
+    ``positions_exhausted`` requests rejected because prompt + budget
+    exceeds the pool, ``page_table_syncs`` host-to-device table copies."""
+    n_slots: int = 0
+    steps: int = 0              # lock-step decode iterations
+    live_slot_steps: int = 0    # sum over steps of live slots that step
+    admitted: int = 0           # requests prefilled into a slot
+    finished: int = 0           # requests retired (EOS or budget)
+    recycles: int = 0           # admissions into a previously-used slot
+    canceled: int = 0           # live slots freed without a result
+    interrupted: bool = False   # run ended by graceful drain
+    weight_bytes_fp: int = 0    # resident fp param bytes (engine load)
+    weight_bytes_int8: int = 0  # resident int8 (prequantized) param bytes
+    weight_bytes_int4: int = 0  # resident int4-packed param bytes (W4A8)
+    pool_bytes: int = 0         # KV pool bytes (pages or dense rows)
+    pages_total: int = 0        # page count incl. the reserved scratch page
+    pages_free: int = 0         # allocator free-list size
+    pages_shared: int = 0       # pages with refcount > 1 (prefix sharing)
+    cushion_page_refs: int = 0  # shared cushion block: pool pin + live slots
+    prefix_hits: int = 0        # admissions that mapped cached stem pages
+    prefix_misses: int = 0      # eligible admissions with no cached stem
+    positions_exhausted: int = 0  # requests rejected: prompt+budget > pool
+    prefill_chunks: int = 0     # chunked-admission prefill chunks run
+    deadline_prefill: int = 0   # streams aborted between chunks (deadline)
+    page_table_syncs: int = 0   # host->device page-table mirrors (paged)
+
+    def reset(self) -> None:
+        """Zero every per-run counter, keeping ``n_slots``, the resident
+        weight bytes and the pool layout facts (``pool_bytes``,
+        ``pages_total``)."""
+        self.steps = self.live_slot_steps = 0
+        self.admitted = self.finished = self.recycles = self.canceled = 0
+        self.interrupted = False
+        self.pages_free = self.pages_shared = self.cushion_page_refs = 0
+        self.prefix_hits = self.prefix_misses = 0
+        self.positions_exhausted = 0
+        self.prefill_chunks = self.deadline_prefill = 0
+        self.page_table_syncs = 0
+
+    def occupancy(self) -> float:
+        return self.live_slot_steps / max(1, self.steps * self.n_slots)
+
+    def as_dict(self) -> dict:
+        return {**dataclasses.asdict(self), "occupancy": self.occupancy()}

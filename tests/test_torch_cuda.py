@@ -5,9 +5,13 @@ one (the fixture decides, never the module's import). On the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
+    PYTHONPATH=src python -m pytest -q -m cuda --noconftest \
+        tests/test_torch_cuda.py     # on a machine without jax
+
 Tolerances: w8a8_matmul and act_quant_static bit-exact (the kernels repeat
 the plain versions' f32 arithmetic step by step); attention in bf16 within
-one bf16 ulp of the plain version's f32-accumulated result.
+one bf16 ulp of the plain version's f32-accumulated result; the paged
+decode kernel bit-identical to the contiguous one on the gathered pool.
 """
 import pytest
 
@@ -17,8 +21,9 @@ from repro_torch.kernels.act_quant import (act_quant_static,  # noqa: E402
                                            act_quant_static_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
-from repro_torch.kernels.flash_decode import (flash_decode,  # noqa: E402
-                                              flash_decode_plain)
+from repro_torch.kernels.flash_decode import (  # noqa: E402
+    flash_decode, flash_decode_paged, flash_decode_paged_plain,
+    flash_decode_plain, gather_pages)
 from repro_torch.kernels.w8a8_matmul import (w8a8_matmul,  # noqa: E402
                                              w8a8_matmul_plain)
 
@@ -84,3 +89,59 @@ def test_attention_kernels_within_one_bf16_ulp(dev):
     pos = torch.tensor([200, -1], dtype=torch.int32, device=dev)
     _within_ulp(flash_decode(qd, kq, vq, pos, ks, ks, kc, kc),
                 flash_decode_plain(qd, kq, vq, pos, ks, ks, kc, kc))
+
+
+def _pool(g, dev, B, P, ps, Kh, hd, dt):
+    """A shuffled page store with junk in the scratch and spare pages."""
+    n_pages = B * P + 3
+    table = (torch.randperm(n_pages - 1, generator=g, device=dev)[:B * P]
+             + 1).to(torch.int32).reshape(B, P)
+    if dt == torch.int8:
+        mk = lambda: torch.randint(-127, 128, (n_pages, ps, Kh, hd),  # noqa
+                                   generator=g, device=dev, dtype=dt)
+    else:
+        mk = lambda: torch.randn((n_pages, ps, Kh, hd), generator=g,  # noqa
+                                 device=dev).to(dt)
+    return mk(), mk(), table
+
+
+@pytest.mark.parametrize("quantized,per_row", [
+    (False, False), (True, False), (True, True)],
+    ids=["fp", "int8-K", "int8-BK"])
+def test_paged_decode_bit_identical_to_contiguous(dev, quantized, per_row):
+    """flash_decode_paged on a shuffled pool equals flash_decode on the
+    gathered cache bit for bit, and both are within one bf16 ulp of the
+    plain version; (K,) and per-row (B, K) scales, pos at m - 1, at a page
+    boundary, mid-page and retired."""
+    g = torch.Generator(dev).manual_seed(2)
+    B, H, Kh, hd, P, ps, m = 4, 15, 5, 64, 10, 64, 4
+    bf = torch.bfloat16
+    kp, vp, table = _pool(g, dev, B, P, ps, Kh, hd,
+                          torch.int8 if quantized else bf)
+    q = torch.randn((B, H, hd), generator=g, device=dev).to(bf)
+    pos = torch.tensor([m - 1, 2 * ps, 548, -1], dtype=torch.int32,
+                       device=dev)
+    kw = {}
+    if quantized:
+        shape = (B, Kh) if per_row else (Kh,)
+        kw = dict(k_scale=torch.rand(shape, generator=g, device=dev) * 0.05
+                  + 0.01,
+                  v_scale=torch.rand(shape, generator=g, device=dev) * 0.05
+                  + 0.01,
+                  kc=torch.randn((m, Kh, hd), generator=g, device=dev).to(bf),
+                  vc=torch.randn((m, Kh, hd), generator=g, device=dev).to(bf))
+    paged = flash_decode_paged(q, kp, vp, table, pos, **kw)
+    dense = flash_decode(q, gather_pages(kp, table), gather_pages(vp, table),
+                         pos, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(paged, dense)
+    _within_ulp(paged, flash_decode_paged_plain(q, kp, vp, table, pos, **kw))
+    _within_ulp(dense, flash_decode_plain(q, gather_pages(kp, table),
+                                          gather_pages(vp, table), pos,
+                                          **kw))
+    if not quantized:
+        # an fp pool may carry the batch-free cushion as well
+        kc = torch.randn((m, Kh, hd), generator=g, device=dev).to(bf)
+        _within_ulp(flash_decode_paged(q, kp, vp, table, pos, kc=kc, vc=kc),
+                    flash_decode_paged_plain(q, kp, vp, table, pos, kc=kc,
+                                             vc=kc))
