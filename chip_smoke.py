@@ -14,13 +14,21 @@ Phases, each fatal on failure:
    with per-row (B, K) scales, and ``flash_decode_paged`` also held
    bit-identical (``torch.equal``) to ``flash_decode`` on the gathered pool
    (fp and int8, (K,) and (B, K) scales, a shuffled page table, pos at
-   m - 1, on a page boundary, mid-page and retired);
+   m - 1, on a page boundary, mid-page and retired); ``w4a8_matmul``
+   (``torch.equal``, one group of 960 and 20 groups of 128, beside the W8A8
+   kernel at the same shapes) and ``act_quant_ptoken`` on bf16 and f32
+   input (``torch.equal`` on codes, scales and zero points, with an
+   all-zero and an outlier row); ``act_quant_static`` beside
+   ``torch.quantize_per_tensor``;
 4. the static main path at full width: smollm-360m (32 layers, bf16,
    seeded random weights), a 4-token cushion from ``extract_cushion``,
    pt_static scales calibrated on 2 pipeline batches, int8-resident
    weights, int8 KV cache; ``Engine.generate`` for B=4, a 512-token prompt
    and 64 new tokens, with every kernel's launch count read around that one
-   request; then the fp path (``--quant none``, fp KV) the same way;
+   request and held to its exact expected value; then the fp path
+   (``--quant none``, fp KV), W4A8 (int4-packed weights, the same scales,
+   int8 KV; resident int4 bytes exactly half the W8A8 int8 bytes) and
+   ``ptoken_dynamic`` (fp KV) the same way;
 4b. the continuous path at full width, same model, cushion, scales and
    weights, 4 slots, 12 requests queued at once (prompts 512 / 520 tokens,
    budgets 64 / 32): (a) contiguous int8 pool; (b) paged int8 pool (page
@@ -28,13 +36,19 @@ Phases, each fatal on failure:
    first 4 requests, tokens identical to (a); (d) a paged fp pool with the
    prefix cache and 256-token chunks over prompts sharing a 256-token stem,
    with prefix hits, chunks, every budget met and first-token logits within
-   phase 5's W8A8 tolerance of a blocking, cache-free run of the same pool.
-   Launch counts are read around each run;
+   phase 5's W8A8 tolerance of a blocking, cache-free run of the same pool;
+   (e) a paged int8 pool with W4A8 weights, tokens identical to the static
+   B=1 W4A8 Engine on the first 4 requests; (f) a contiguous fp pool under
+   ptoken_dynamic, first tokens identical to the static B=1 ptoken Engine
+   on all 12 requests. Launch counts are read around each run;
 5. the card's Engine against the port's CPU Engine on the same weights,
-   scales and cushion (B=1, 64-token prompt, 8 tokens): teacher-forced
-   logits within the stated bf16 tolerance, greedy-token agreement printed;
-6. the ``kernels`` line (launches from the continuous runs (a) and (b) of
-   phase 4b), then ``{"ok": true, ...}`` as the last line.
+   scales and cushion (B=1, 64-token prompt, 8 tokens) in all four phase-4
+   modes: teacher-forced logits within the stated bf16 tolerance,
+   greedy-token agreement printed;
+6. the ``kernels`` line (all seven kernels; launches from the continuous
+   runs (a) and (b) of phase 4b, from (e) for ``w4a8_matmul`` and from the
+   static ptoken run for ``act_quant_ptoken``), then ``{"ok": true, ...}``
+   as the last line.
 
 Exits nonzero with no result line when CUDA is unavailable or when the port
 is missing (the script alone, outside a checkout). Writes the full record to
@@ -66,8 +80,16 @@ BF16_ULP = 2.0 ** -7             # relative spacing bound of bf16
 # / 255), a far larger jump, and both kinds of difference grow through the
 # 32 random-weight layers. A fault (a wrong scale, mask or position) moves
 # every logit by O(1), so the mean error is bounded as well as the largest.
+# W4A8 takes W8A8's bound: its matmul is bit-identical between the kernel
+# and the CPU's plain version on the same codes, so the only sources are
+# W8A8's (activation codes that flip on a one-ulp difference). ptoken takes
+# it too: a one-ulp difference flips a code by one step of its row's range
+# / 255 (or moves the row's range when it hits the row's extreme), a step
+# no larger than the per-tensor one of W8A8; the weights are fake-quantized
+# by the same tensor ops on both sides.
 # mode: (largest |card - cpu|, mean |card - cpu|)
-LOGIT_TOL = {"fp": (0.25, 0.05), "w8a8_int8kv": (0.5, 0.1)}
+LOGIT_TOL = {"fp": (0.25, 0.05), "w8a8_int8kv": (0.5, 0.1),
+             "w4a8_int8kv": (0.5, 0.1), "ptoken_fp": (0.5, 0.1)}
 
 
 def fail(msg: str) -> None:
@@ -101,13 +123,16 @@ def main() -> None:
     from repro_torch.configs import QuantConfig, get_config
     from repro_torch.core import quantization as TQ
     from repro_torch.data.pipeline import Pipeline, SyntheticCorpus
-    from repro_torch.kernels.act_quant import (act_quant_static,
-                                               act_quant_static_plain)
+    from repro_torch.kernels.act_quant import (
+        act_quant_ptoken, act_quant_ptoken_plain, act_quant_static,
+        act_quant_static_plain)
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     from repro_torch.kernels.flash_decode import (
         flash_decode, flash_decode_paged, flash_decode_paged_plain,
         flash_decode_plain, gather_pages)
+    from repro_torch.kernels.w4a8_matmul import (w4a8_matmul,
+                                                 w4a8_matmul_plain)
     from repro_torch.kernels.w8a8_matmul import (w8a8_matmul,
                                                  w8a8_matmul_plain)
     from repro_torch.launch.serve import (poisson_trace, seeded_cushion,
@@ -256,13 +281,88 @@ def main() -> None:
                 fail(f"act_quant_static D={Dd} M={M}: not bit-exact")
             ms = timed(lambda: act_quant_static(x, s, z))
             pms = timed(lambda: act_quant_static_plain(x, s, z), iters=3)
+            # the nearest PyTorch call: quint8 codes in [0, 255] (no -128
+            # offset), from an f32 copy of the same values (it takes no bf16)
+            xf = x.float()
+            try:
+                lib_ms = timed(lambda: torch.quantize_per_tensor(
+                    xf, 0.027, 117, torch.quint8))
+            except RuntimeError as e:
+                log(f"quantize_per_tensor not timed: {e}")
+                lib_ms = None
             bms, by = bound_ms(3 * M * Dd, 4.0 * M * Dd, F32_FLOPS_PER_S)
-            aq[(Dd, M)] = (ms, pms, bms)
+            aq[(Dd, M)] = (ms, pms, bms, lib_ms)
             detail.append({"kernel": "act_quant_static", "D": Dd, "M": M,
                            "max_abs_err": 0.0, "kernel_ms": ms, "plain_ms": pms,
                            "bound_ms": bms, "bound_by": by,
-                           "library_ms": None})
+                           "library_ms": lib_ms,
+                           "library_of": "torch.quantize_per_tensor quint8, "
+                                         "f32 input"})
             print(json.dumps(detail[-1]), flush=True)
+
+    # w4a8: the four prequantized (K, N) pairs of one layer (the tied head
+    # stays W8A8); one group of 960 where 128 does not divide d_model,
+    # twenty of 128 for down
+    w4 = {}
+    for name in per_layer:
+        Kd, N = shapes[name]
+        wg = QuantConfig().w_group
+        gs = wg if Kd % wg == 0 else Kd
+        G = Kd // gs
+        wp = torch.randint(-128, 128, (Kd // 2, N), generator=gen,
+                           device=dev, dtype=torch.int8)
+        s_w = torch.rand((G, N), generator=gen, device=dev) * 0.002 + 1e-4
+        colsum = torch.randn((N,), generator=gen, device=dev)
+        for M in (B, B * PROMPT):
+            x = torch.randint(-128, 128, (M, Kd), generator=gen, device=dev,
+                              dtype=torch.int8)
+            args = (x, wp, scalar(0.021), scalar(131.0), s_w, colsum, gs)
+            kw = dict(z_shift=-128.0, out_dtype=torch.bfloat16)
+            out_k = w4a8_matmul(*args, **kw)
+            out_p = w4a8_matmul_plain(*args, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(out_k, out_p):
+                fail(f"w4a8_matmul {name} M={M}: not bit-exact, max err "
+                     f"{(out_k.float() - out_p.float()).abs().max():.3g}")
+            ms = timed(lambda: w4a8_matmul(*args, **kw))
+            pms = timed(lambda: w4a8_matmul_plain(*args, **kw), iters=3)
+            bms, by = bound_ms(M * Kd + Kd // 2 * N + 4 * G * N + 4 * N
+                               + 2 * M * N, 2.0 * M * Kd * N, INT8_OPS_PER_S)
+            w4[(name, M)] = (ms, pms, bms)
+            detail.append({"kernel": "w4a8_matmul", "site": name, "M": M,
+                           "K": Kd, "N": N, "groups": G, "max_abs_err": 0.0,
+                           "kernel_ms": ms, "plain_ms": pms, "bound_ms": bms,
+                           "bound_by": by, "library_ms": None,
+                           "w8a8_kernel_ms": w8[(name, M)][0]})
+            print(json.dumps(detail[-1]), flush=True)
+
+    # act_quant_ptoken: every GEMM input, both arithmetics (bf16 input: the
+    # smollm path; f32 input: f32 activations), an all-zero and an outlier
+    # row
+    pt = {}
+    for Dd in (D, F_):
+        for M in (B, B * PROMPT):
+            x = torch.randn((M, Dd), generator=gen, device=dev) * 3 + 0.2
+            x[1] = 0.0
+            x[2, 11] = 300.0
+            for mode, xin in (("bf16", x.to(torch.bfloat16)), ("f32", x)):
+                a_k = act_quant_ptoken(xin)
+                a_p = act_quant_ptoken_plain(xin)
+                torch.cuda.synchronize()
+                if not all(torch.equal(u, v) for u, v in zip(a_k, a_p)):
+                    fail(f"act_quant_ptoken {mode} D={Dd} M={M}: not "
+                         f"bit-exact")
+                ms = timed(lambda: act_quant_ptoken(xin))
+                pms = timed(lambda: act_quant_ptoken_plain(xin), iters=3)
+                bms, by = bound_ms((xin.element_size() + 1) * M * Dd + 8 * M,
+                                   6.0 * M * Dd, F32_FLOPS_PER_S)
+                pt[(Dd, M, mode)] = (ms, pms, bms)
+                detail.append({"kernel": "act_quant_ptoken", "mode": mode,
+                               "D": Dd, "M": M, "max_abs_err": 0.0,
+                               "kernel_ms": ms, "plain_ms": pms,
+                               "bound_ms": bms, "bound_by": by,
+                               "library_ms": None})
+                print(json.dumps(detail[-1]), flush=True)
 
     def ulp_check(name, got, want):
         err = (got.float() - want.float()).abs()
@@ -471,14 +571,36 @@ def main() -> None:
     batch = to_device(pipe.get_batch(0), dev)
     max_seq = PROMPT + NEW_TOKENS + 32
     qw8 = QuantConfig(mode="pt_static", true_int8=True)
-    modes = {"w8a8_int8kv": (qw8, "int8", True),
-             "fp": (QuantConfig(), None, False)}
+    qpt = QuantConfig(mode="ptoken_dynamic")
+    # label: (qcfg, kv_dtype, prequant, weight_bits)
+    modes = {"w8a8_int8kv": (qw8, "int8", True, 8),
+             "fp": (QuantConfig(), None, False, 8),
+             "w4a8_int8kv": (qw8, "int8", True, 4),
+             "ptoken_fp": (qpt, None, False, 8)}
+    L = cfg.n_layers
+    zero_counts = {k: 0 for k in _lib.KERNELS}
+    attn = {"flash_attention": L, "flash_decode": L * (NEW_TOKENS - 1)}
+    # launches per request of B = 4 (NEW_TOKENS forward passes: 160 qlinear
+    # sites and the head each)
+    expect_static = {
+        "w8a8_int8kv": {**zero_counts, **attn,
+                        "w8a8_matmul": 161 * NEW_TOKENS,
+                        "act_quant_static": 161 * NEW_TOKENS},
+        "fp": {**zero_counts, **attn},
+        "w4a8_int8kv": {**zero_counts, **attn,
+                        "w4a8_matmul": 160 * NEW_TOKENS,
+                        "w8a8_matmul": NEW_TOKENS,      # the tied head
+                        "act_quant_static": 161 * NEW_TOKENS},
+        "ptoken_fp": {**zero_counts, **attn,
+                      "act_quant_ptoken": 161 * NEW_TOKENS}}
     runs, engines = {}, {}
-    for label, (qcfg, kv, pre) in modes.items():
+    for label, (qcfg, kv, pre, wb) in modes.items():
         torch.cuda.reset_peak_memory_stats()
         eng = Engine(api, params, qcfg, cushion=cushion, max_seq=max_seq,
                      kv_dtype=kv, calib_batches=calib if pre else None,
-                     prequant=pre)
+                     scales=(engines["w8a8_int8kv"].scales
+                             if pre and engines else None),
+                     prequant=pre, weight_bits=wb)
         eng.generate(batch, 8)                       # warm-up
         _lib.reset_launches()
         res = eng.generate(batch, NEW_TOKENS)
@@ -491,6 +613,7 @@ def main() -> None:
         runs[label] = {"ttft_ms": res.ttft_ms, "tpot_ms": res.tpot_ms,
                        "weight_bytes_fp": eng.weight_bytes_fp,
                        "weight_bytes_int8": eng.weight_bytes_int8,
+                       "weight_bytes_int4": eng.weight_bytes_int4,
                        "launches": counts,
                        "device_busy": decode_busy(eng, batch),
                        "peak_mem_bytes": torch.cuda.max_memory_allocated()}
@@ -502,22 +625,20 @@ def main() -> None:
         log(f"{label}: B={B} prompt={PROMPT} new={NEW_TOKENS} m={CUSHION} "
             f"TTFT={res.ttft_ms:.2f} ms TPOT={res.tpot_ms:.3f} ms "
             f"weights fp={eng.weight_bytes_fp} B int8="
-            f"{eng.weight_bytes_int8} B launches={counts} "
-            f"decode device busy {runs[label]['device_busy']}")
+            f"{eng.weight_bytes_int8} B int4={eng.weight_bytes_int4} B "
+            f"launches={counts} decode device busy "
+            f"{runs[label]['device_busy']}")
+        if counts != expect_static[label]:
+            fail(f"{label}: launches {counts}, expected "
+                 f"{expect_static[label]}")
         engines[label] = eng
     main_counts = runs["w8a8_int8kv"]["launches"]
-    expect = {"w8a8_matmul": 161 * NEW_TOKENS,
-              "act_quant_static": 161 * NEW_TOKENS,
-              "flash_attention": cfg.n_layers,
-              "flash_decode": cfg.n_layers * (NEW_TOKENS - 1),
-              "flash_decode_paged": 0}
-    for name, n in main_counts.items():
-        if n != expect[name]:
-            fail(f"{name}: {n} launches, expected {expect[name]}")
-    fp_counts = runs["fp"]["launches"]
-    if fp_counts["w8a8_matmul"] or not fp_counts["flash_decode"] \
-            or not fp_counts["flash_attention"]:
-        fail(f"fp path launches {fp_counts}")
+    # W4A8 packs the same sites as W8A8 at half a byte per weight
+    i8, i4 = (runs["w8a8_int8kv"]["weight_bytes_int8"],
+              runs["w4a8_int8kv"]["weight_bytes_int4"])
+    if i4 * 2 != i8 or runs["w4a8_int8kv"]["weight_bytes_int8"]:
+        fail(f"resident int4 bytes {i4} are not half the int8 bytes {i8}")
+    log(f"resident weights: int4 {i4} B = int8 {i8} B / 2")
     # the tied head requantizes embed.T on every call (as the reference)
     emb_t = params.tree()["embed"]["w"].T
     record["head_requant_ms"] = timed(
@@ -578,7 +699,7 @@ def main() -> None:
                 "device_ms_per_step": busy if busy else
                 "not measured (no device events in the trace)"}
 
-    def serve(label, eng, trace):
+    def serve(label, eng, trace, path="w8a8"):
         warm = [dataclasses.replace(r, max_new_tokens=2)
                 for r in trace[:SLOTS]]
         eng.first_logits = {}
@@ -601,8 +722,15 @@ def main() -> None:
         # every prompt here streams when chunking is on (512 > 256), so
         # each prefill call is one chunk, else one admission
         prefills = st.prefill_chunks if eng.chunk_tokens else st.admitted
-        expect = {"w8a8_matmul": 161 * (st.steps + prefills),
-                  "act_quant_static": 161 * (st.steps + prefills),
+        passes = st.steps + prefills
+        # 161 quantized sites per pass (160 qlinear and the head); under
+        # W4A8 the tied head stays W8A8
+        expect = {**zero_counts,
+                  "w8a8_matmul": {"w8a8": 161 * passes,
+                                  "w4a8": passes}.get(path, 0),
+                  "w4a8_matmul": 160 * passes if path == "w4a8" else 0,
+                  "act_quant_static": 0 if path == "ptoken" else 161 * passes,
+                  "act_quant_ptoken": 161 * passes if path == "ptoken" else 0,
                   "flash_attention": cfg.n_layers * prefills,
                   "flash_decode": 0 if eng.paged else cfg.n_layers * st.steps,
                   "flash_decode_paged": (cfg.n_layers * st.steps if eng.paged
@@ -656,6 +784,45 @@ def main() -> None:
                  f"from the contiguous pool's")
     log(f"(a) == (b) for all {N_REQ} requests (tokens and slots); (c) the "
         f"static B=1 int8 Engine == (a) for requests 0-{SLOTS - 1}")
+    # (e) paged int8 pool with W4A8 weights, against the static B=1 W4A8
+    # Engine (phase 4's) on the first requests
+    eng_e = ContinuousEngine(api, params, qw8, kv_dtype="int8", paged=True,
+                             page_size=PS, weight_bits=4, **ce_kw)
+    outs_e, cruns["e_paged_int8_w4a8"] = serve(
+        "(e) paged int8 pool, W4A8 weights", eng_e, reqs, path="w4a8")
+    if eng_e.stats.weight_bytes_int4 != i4:
+        fail(f"(e) int4 bytes {eng_e.stats.weight_bytes_int4} != {i4}")
+    eng_4 = engines["w4a8_int8kv"]
+    for r, oe in zip(reqs[:SLOTS], outs_e):
+        got = eng_4.generate(r.batch, r.max_new_tokens).tokens[0]
+        if not np.array_equal(got, oe.tokens):
+            fail(f"(e) request {r.uid}: static B=1 W4A8 Engine tokens differ "
+                 f"from the paged W4A8 pool's")
+    log(f"(e) the static B=1 W4A8 Engine == (e) for requests "
+        f"0-{SLOTS - 1}")
+    # (f) contiguous fp pool under ptoken_dynamic (fp weights fake-quantized
+    # per call), against the static B=1 ptoken Engine (phase 4's). Prefill
+    # is B=1 on both sides, so every first token must be equal; decode
+    # multiplies M=4 rows where the static Engine multiplies one, through
+    # cuBLAS, whose result may depend on M, and a per-token code then flips
+    # on a one-ulp difference, so later tokens are compared, not gated
+    eng_f = ContinuousEngine(api, params, qpt,
+                             **dict(ce_kw, scales=None, prequant=False))
+    outs_f, cruns["f_contiguous_fp_ptoken"] = serve(
+        "(f) contiguous fp pool, ptoken_dynamic", eng_f, reqs, path="ptoken")
+    eng_pt = engines["ptoken_fp"]
+    same_f = []
+    for r, of in zip(reqs, outs_f):
+        got = eng_pt.generate(r.batch, r.max_new_tokens).tokens[0]
+        if got[0] != of.tokens[0]:
+            fail(f"(f) request {r.uid}: first token {of.tokens[0]} != the "
+                 f"static B=1 ptoken Engine's {got[0]}")
+        same_f.append(bool(np.array_equal(got, of.tokens)))
+    cruns["f_contiguous_fp_ptoken"]["requests_identical_to_static"] = \
+        float(np.mean(same_f))
+    log(f"(f) first tokens == the static B=1 ptoken Engine's for all "
+        f"{N_REQ} requests; requests identical throughout "
+        f"{float(np.mean(same_f)):.3f} (printed, not gated)")
     # (d) paged fp pool, prefix cache + 256-token chunks, shared stem
     STEM = 256
     reqs_d = [dataclasses.replace(r, batch={"tokens": r.batch["tokens"]
@@ -730,13 +897,14 @@ def main() -> None:
         return torch.stack(out)
 
     record["card_vs_cpu"] = {}
-    for label, (qcfg, kv, pre) in modes.items():
+    for label, (qcfg, kv, pre, wb) in modes.items():
         card_eng = engines[label]
         cpu_eng = Engine(cpu_api, cpu_params, qcfg,
                          cushion=tree_map(cpu, cushion),
                          scales=(tree_map(cpu, card_eng.scales)
                                  if card_eng.scales is not None else None),
-                         max_seq=128, kv_dtype=kv, prequant=pre)
+                         max_seq=128, kv_dtype=kv, prequant=pre,
+                         weight_bits=wb)
         card_toks = card_eng.generate(b1, n_cmp).tokens
         cpu_toks = cpu_eng.generate({"tokens": cpu(b1["tokens"])},
                                     n_cmp).tokens
@@ -744,17 +912,25 @@ def main() -> None:
         lp = trajectory(cpu_eng, cpu(b1["tokens"]), card_toks)
         err = (lc - lp).abs()
         agree = float((card_toks == cpu_toks).mean())
+        # the CPU's top-1 minus top-2 logit at the first token: below the
+        # error there, the two greedy runs may part at once (random weights)
+        top2 = lp[0].topk(2, dim=-1).values
         max_tol, mean_tol = LOGIT_TOL[label]
         cmp = {"max_abs_err": float(err.max()),
                "mean_abs_err": float(err.mean()),
                "max_abs_logit": float(lp.abs().max()),
-               "greedy_agreement": agree, "tol_max": max_tol,
-               "tol_mean": mean_tol}
+               "greedy_agreement": agree,
+               "first_token_margin": float((top2[..., 0] - top2[..., 1])
+                                           .min()),
+               "first_token_max_abs_err": float(err[0].max()),
+               "tol_max": max_tol, "tol_mean": mean_tol}
         record["card_vs_cpu"][label] = cmp
         log(f"card vs CPU, {label} (B=1, prompt 64, {n_cmp} tokens): logits "
             f"max |err| {cmp['max_abs_err']:.4g} (tolerance {max_tol}), mean "
             f"{cmp['mean_abs_err']:.4g} (tolerance {mean_tol}), max |logit| "
-            f"{cmp['max_abs_logit']:.3g}; greedy agreement {agree:.3f}")
+            f"{cmp['max_abs_logit']:.3g}; greedy agreement {agree:.3f} "
+            f"(first token: top-2 margin {cmp['first_token_margin']:.4g}, "
+            f"max |err| {cmp['first_token_max_abs_err']:.4g})")
     for label, cmp in record["card_vs_cpu"].items():
         if cmp["max_abs_err"] > cmp["tol_max"] \
                 or cmp["mean_abs_err"] > cmp["tol_mean"]:
@@ -763,9 +939,10 @@ def main() -> None:
     phase_done("card_vs_cpu")
 
     # 6. the kernels line -----------------------------------------------
-    # launches: the continuous path, runs (a) and (b) of phase 4b; the
-    # static path's counts (phase 4) ride along as static_launches
-    L = cfg.n_layers
+    # launches: the continuous path, runs (a) and (b) of phase 4b, for the
+    # W8A8 path's five kernels; run (e) for w4a8_matmul; the static
+    # ptoken_dynamic run (phase 4) for act_quant_ptoken, its only path. The
+    # static W8A8 / W4A8 counts ride along as static_launches
     cont_counts = {k: cruns["a_contiguous_int8"]["launches"][k]
                    + cruns["b_paged_int8"]["launches"][k]
                    for k in _lib.KERNELS}
@@ -774,8 +951,17 @@ def main() -> None:
         return (L * sum(per_layer[s] * w8[(s, M)][idx] for s in per_layer)
                 + w8[("head", B)][idx])
 
-    def aq_sum(idx, M):
-        return L * (4 * aq[(D, M)][idx] + aq[(F_, M)][idx]) + aq[(D, B)][idx]
+    def aq_sum(idx, M, table=aq):
+        if any(table[k][idx] is None for k in table):
+            return None
+        return (L * (4 * table[(D, M)][idx] + table[(F_, M)][idx])
+                + table[(D, B)][idx])
+
+    def w4_sum(idx, M):
+        return L * sum(per_layer[s] * w4[(s, M)][idx] for s in per_layer)
+
+    pt_bf = {(Dd, M): v for (Dd, M, mode), v in pt.items() if mode == "bf16"}
+    w4_launches = cruns["e_paged_int8_w4a8"]["launches"]
 
     kernels = [
         {"name": "w8a8_matmul", "route": "cuda",
@@ -800,7 +986,10 @@ def main() -> None:
          "max_abs_err": 0.0,
          "unit": "one decode step (161 calls, M=4)",
          "ms": aq_sum(0, B), "plain_ms": aq_sum(1, B),
-         "bound_ms": aq_sum(2, B), "bound_by": "bytes", "library_ms": None,
+         "bound_ms": aq_sum(2, B), "bound_by": "bytes",
+         "library_ms": aq_sum(3, B),
+         "library_of": "torch.quantize_per_tensor to quint8 (no -128 "
+                       "offset) of an f32 copy",
          "prefill_ms": aq_sum(0, B * PROMPT)},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -840,10 +1029,41 @@ def main() -> None:
          "bound_by": cont["flash_decode_paged_BK"][3],
          "fp_ms": L * cont["flash_decode_paged_fp"][0],
          "library_ms": None},
+        {"name": "w4a8_matmul", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/w4a8_matmul.cu",
+         "replaces": "src/repro/kernels/w4a8_matmul.py:60",
+         "launches": w4_launches["w4a8_matmul"],
+         "launches_from": "run (e), paged int8 pool, W4A8",
+         "static_launches": runs["w4a8_int8kv"]["launches"]["w4a8_matmul"],
+         "max_abs_err": 0.0,
+         "unit": "one decode step (160 calls, M=4)",
+         "ms": w4_sum(0, B), "plain_ms": w4_sum(1, B),
+         "bound_ms": w4_sum(2, B), "bound_by": "bytes",
+         "library_ms": None,
+         "library_of": "none: no PyTorch call multiplies int8 by packed "
+                       "int4 with group scales",
+         "w8a8_ms_same_sites": L * sum(per_layer[s] * w8[(s, B)][0]
+                                       for s in per_layer),
+         "prefill_ms": w4_sum(0, B * PROMPT),
+         "prefill_bound_ms": w4_sum(2, B * PROMPT)},
+        {"name": "act_quant_ptoken", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/act_quant.cu",
+         "replaces": "src/repro/kernels/act_quant.py:65",
+         "launches": runs["ptoken_fp"]["launches"]["act_quant_ptoken"],
+         "launches_from": "static ptoken_dynamic run, B=4",
+         "continuous_launches": cruns["f_contiguous_fp_ptoken"]["launches"][
+             "act_quant_ptoken"],
+         "max_abs_err": 0.0,
+         "unit": "one decode step (161 calls, M=4, bf16 mode)",
+         "ms": aq_sum(0, B, pt_bf), "plain_ms": aq_sum(1, B, pt_bf),
+         "bound_ms": aq_sum(2, B, pt_bf), "bound_by": "bytes",
+         "library_ms": None,
+         "library_of": "none: no single PyTorch call quantizes per row",
+         "prefill_ms": aq_sum(0, B * PROMPT, pt_bf)},
     ]
     for kk in kernels:
         if kk["launches"] <= 0:
-            fail(f"{kk['name']} not launched on the continuous path")
+            fail(f"{kk['name']} not launched on its path")
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - t_start
     out_dir = ROOT / "chiprun_out"

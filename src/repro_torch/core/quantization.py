@@ -1,11 +1,13 @@
-"""Quantization core at 8 bits (paper §3), ported from
-``repro/core/quantization.py``.
+"""Quantization core (paper §3), ported from ``repro/core/quantization.py``.
 
 Activations are asymmetric with a per-tensor range (``pt_static``:
-calibrated; ``pt_dynamic`` / ``ptoken_dynamic``: computed on the fly);
-weights are symmetric. Two execution paths: fake-quant in float (used by
-calibration statistics and the fidelity experiments) and true int8, which
-runs the ``act_quant_static`` and ``w8a8_matmul`` kernels on the card.
+calibrated; ``pt_dynamic``: computed on the fly) or a per-token range
+(``ptoken_dynamic``: the ``act_quant_ptoken`` kernel on the card); weights
+are symmetric. Two execution paths: fake-quant in float (the dynamic
+baselines, calibration statistics and the fidelity experiments) and true
+integer, which runs ``act_quant_static`` and ``w8a8_matmul`` (int8-resident
+weights, W8A8) or ``w4a8_matmul`` (int4-packed weights with group-wise
+scales, W4A8) on the card.
 
 Type promotion follows JAX, not PyTorch: JAX promotes a bf16 array against
 a 0-dim f32 array to f32, PyTorch keeps bf16. ``_promote`` casts both
@@ -20,7 +22,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import QuantConfig
-from repro_torch.kernels.act_quant import act_quant_static
+from repro_torch.kernels.act_quant import act_quant_ptoken, act_quant_static
+from repro_torch.kernels.w4a8_matmul import unpack_int4  # noqa: F401 (the reference's name)
+from repro_torch.kernels.w4a8_matmul import w4a8_matmul
 from repro_torch.kernels.w8a8_matmul import w8a8_matmul
 
 Tensor = torch.Tensor
@@ -93,6 +97,20 @@ def act_minmax(x: Tensor, per_token: bool) -> Tuple[Tensor, Tensor]:
     return x.amin(), x.amax()
 
 
+def _ptoken_fake_quant(x: Tensor, cfg: QuantConfig) -> Tensor:
+    """Per-token dynamic fake-quant through ``act_quant_ptoken``: the kernel
+    quantizes the (M, D) view (in the activation's arithmetic: bf16-rounded
+    steps for bf16, JAX's model path; f32 otherwise), and tensor ops
+    dequantize ``(code + 128 - zero) * scale`` and apply the straight-through
+    ``x + (y - x)`` in the activation's dtype, as ``fake_quant`` does."""
+    dt = x.dtype
+    D = x.shape[-1]
+    codes, scale, zero = act_quant_ptoken(x.detach().reshape(-1, D)
+                                          .contiguous(), bits=cfg.a_bits)
+    y = (codes.to(dt) + 128 - zero.to(dt)) * scale.to(dt)
+    return x + (y.reshape(x.shape) - x).detach()
+
+
 def act_fake_quant(x: Tensor, cfg: QuantConfig,
                    static_scale: Optional[Tensor] = None,
                    static_zero: Optional[Tensor] = None) -> Tensor:
@@ -103,6 +121,12 @@ def act_fake_quant(x: Tensor, cfg: QuantConfig,
             raise ValueError("static mode needs calibrated scales")
         return fake_quant(x, static_scale, static_zero, cfg.a_bits,
                           cfg.symmetric_a)
+    if cfg.mode == "ptoken_dynamic":
+        if not cfg.symmetric_a:
+            return _ptoken_fake_quant(x, cfg)
+        if x.device.type != "cpu":
+            raise ValueError("symmetric per-token activations have no "
+                             "kernel; they run on the CPU only")
     mn, mx = act_minmax(x.detach(), cfg.mode == "ptoken_dynamic")
     scale, zero = params_from_minmax(mn, mx, cfg.a_bits, cfg.symmetric_a)
     return fake_quant(x, scale, zero, cfg.a_bits, cfg.symmetric_a)
@@ -138,6 +162,34 @@ def weight_quant_int(w: Tensor, cfg: QuantConfig) -> Tuple[Tensor, Tensor]:
     return wq, scale
 
 
+def weight_quant_int4(w: Tensor, cfg: QuantConfig
+                      ) -> Tuple[Tensor, Tensor, int]:
+    """Group-wise symmetric int4 quantization (the W4A8 path), with the
+    group, amax and scale computation of ``weight_fake_quant``. Values lie
+    in the restricted range [-7, 7] (``qrange``): the packed format could
+    hold -8, the quantizers never emit it. w: (d_in, d_out). Returns (wq
+    int8 (d_in, d_out), scale (n_groups, d_out) in w's dtype, group)."""
+    d_in, d_out = w.shape
+    g = cfg.w_group if cfg.w_group and d_in % cfg.w_group == 0 else d_in
+    wg = w.reshape(d_in // g, g, d_out)
+    amax = wg.abs().amax(dim=-2, keepdim=True)                  # (G, 1, N)
+    scale, zero = params_from_minmax(-amax, amax, 4, True)
+    wq = quantize(wg, scale, zero, 4, True).to(torch.int8)
+    return wq.reshape(d_in, d_out), scale[:, 0, :], g
+
+
+def pack_int4(wq: Tensor) -> Tensor:
+    """Pack int4 values (int8 storage, [-8, 7]) along axis 0, two per byte:
+    element 2i in the LOW nibble of byte i, 2i+1 in the HIGH nibble. An odd
+    axis gets a zero nibble of padding (``unpack_int4(p, k)`` slices it
+    off). Returns int8 (ceil(K/2), ...)."""
+    if wq.shape[0] % 2:
+        wq = torch.cat([wq, wq.new_zeros((1,) + tuple(wq.shape[1:]))])
+    lo = wq[0::2].view(torch.uint8) & 0xF
+    hi = wq[1::2].view(torch.uint8) & 0xF
+    return (lo | (hi << 4)).view(torch.int8)
+
+
 # ---------------------------------------------------------------------------
 # Quantized linear
 # ---------------------------------------------------------------------------
@@ -168,6 +220,33 @@ def _int8_matmul(xq: Tensor, w_int: Tensor, s_x: Tensor, z_x: Tensor,
     return out.reshape(*lead, N).to(out_dtype)
 
 
+def _int4_matmul(xq: Tensor, w_packed: Tensor, s_x: Tensor, z_x: Tensor,
+                 s_w: Tensor, colsum: Tensor, out_dtype: torch.dtype,
+                 z_shift: float = 0.0) -> Tensor:
+    """int8 activations x int4-packed weights with group-wise scales,
+    through ``w4a8_matmul`` (the kernel on the card, its plain version on
+    the CPU):
+
+      out = s_x * (sum_g s_w[g] * (X_int[:, g] @ W_int[g]) - z colsum_scaled)
+
+    with z = z_x + z_shift and ``colsum_scaled`` stored by ``prequantize``.
+    The reference's routes (a folded-scale f32 GEMM, the Pallas per-block
+    accumulation) agree with each other to f32 accumulation, not bit for
+    bit; this one sums exact per-group int32 partials in group order."""
+    K = xq.shape[-1]
+    G = s_w.shape[0]
+    if K % G:
+        raise ValueError(f"groups ({G}) must tile the contracting dim ({K})")
+    N = w_packed.shape[-1]
+    lead = xq.shape[:-1]
+    out = w4a8_matmul(xq.reshape(-1, K), w_packed, _f32(s_x), _f32(z_x),
+                      _f32(s_w), _f32(colsum), group_size=K // G,
+                      z_shift=z_shift,
+                      out_dtype=out_dtype if out_dtype == torch.bfloat16
+                      else torch.float32)
+    return out.reshape(*lead, N).to(out_dtype)
+
+
 def _quantize_act(x: Tensor, s_x: Tensor, z_x: Tensor, cfg: QuantConfig
                   ) -> Tuple[Tensor, float]:
     """int8 activation codes and the zero-point shift of their storage:
@@ -175,14 +254,20 @@ def _quantize_act(x: Tensor, s_x: Tensor, z_x: Tensor, cfg: QuantConfig
     (the ``act_quant_static`` kernel); the shift folds into the matmul
     epilogue. The kernel computes x / s + z in f32, which is JAX's
     arithmetic whenever the scale and zero are f32 (always for calibrated
-    scales; dynamic ranges of a bf16 activation stay bf16 and take the
-    tensor path)."""
+    scales). Dynamic ranges of a bf16 activation stay bf16, and symmetric or
+    narrower codes have no kernel: those take the tensor path on the CPU
+    and raise elsewhere."""
     if (not cfg.symmetric_a and cfg.a_bits == 8
             and s_x.dtype == torch.float32 and z_x.dtype == torch.float32):
         K = x.shape[-1]
         xq = act_quant_static(x.reshape(-1, K).contiguous(), _f32(s_x),
                               _f32(z_x))
         return xq.reshape(x.shape), -128.0
+    if x.device.type != "cpu":
+        raise ValueError(
+            "act_quant_static takes asymmetric 8-bit codes with f32 scales; "
+            f"got a_bits={cfg.a_bits}, symmetric={cfg.symmetric_a}, scale "
+            f"{s_x.dtype}: that combination runs on the CPU only")
     xq = quantize(x, s_x, z_x, cfg.a_bits, cfg.symmetric_a)
     off = 0 if cfg.symmetric_a else 2 ** (cfg.a_bits - 1)
     return (xq - off).to(torch.int8), -float(off)
@@ -211,31 +296,42 @@ def true_int_dot(x: Tensor, w: Tensor, cfg: QuantConfig,
 
 def prequantized_int_dot(x: Tensor, w: Dict[str, Tensor], cfg: QuantConfig,
                          site: Optional[SiteScale]) -> Tensor:
-    """Serving path with int8-resident weights ({w_int, w_scale, colsum});
-    needs calibrated static scales. The int4-packed ``w_packed`` format is
-    not ported yet."""
+    """Serving path with integer-resident weights; needs calibrated static
+    scales. Two formats, told apart by key: ``w_int`` (int8, W8A8) through
+    ``_int8_matmul``, ``w_packed`` (int4 nibbles, group-wise scales, W4A8)
+    through ``_int4_matmul``. Activations are int8 in both."""
     if cfg.mode != "pt_static" or site is None:
         raise ValueError(
             "prequantized (int8-resident) weights serve the pt_static "
             "deployment path only and need calibrated site scales; got "
             f"mode={cfg.mode!r}, site={'set' if site is not None else None}")
-    if "w_packed" in w:
-        raise NotImplementedError("int4-packed weights (W4A8) are not ported "
-                                  "yet: ROADMAP queue 1 item 9")
     xq, shift = _quantize_act(x, site.scale, site.zero, cfg)
+    if "w_packed" in w:
+        return _int4_matmul(xq, w["w_packed"], site.scale, site.zero,
+                            w["w_scale"], w["colsum"], x.dtype, shift)
     return _int8_matmul(xq, w["w_int"], site.scale, site.zero, w["w_scale"],
                         w["colsum"], x.dtype, shift)
 
 
 def prequantize(w: Tensor, cfg: QuantConfig,
                 weight_bits: int = 8) -> Dict[str, Tensor]:
-    """One (d_in, d_out) weight -> {"w_int" int8 (K, N), "w_scale" f32
-    scalar, "colsum" (N,) int32}. The scale is held in f32 (the value of
-    JAX's scale in the weight dtype, converted exactly) because the kernel
-    reads f32."""
+    """Quantize one (d_in, d_out) weight into its resident serving dict.
+
+    weight_bits=8: {"w_int" int8 (K, N), "w_scale" f32 scalar, "colsum"
+    (N,) int32}. weight_bits=4: {"w_packed" int8 (ceil(K/2), N) nibble
+    pairs, "w_scale" f32 (G, N) group scales, "colsum" (N,) f32 *scaled*
+    column sums sum_g s_w[g, n] colsum_g[n]}. Scales are held in f32 (the
+    values of JAX's scales in the weight dtype, converted exactly) because
+    the kernels read f32."""
+    if weight_bits == 4:
+        wq, scale, g = weight_quant_int4(w, cfg)
+        G = w.shape[0] // g
+        colsum_g = wq.to(torch.int32).reshape(G, g, -1).sum(1)    # (G, N)
+        colsum = (colsum_g.float() * scale).sum(0)
+        return {"w_packed": pack_int4(wq), "w_scale": scale.float(),
+                "colsum": colsum}
     if weight_bits != 8:
-        raise NotImplementedError("weight_bits=4 (W4A8) is not ported yet: "
-                                  "ROADMAP queue 1 item 9")
+        raise ValueError(f"weight_bits must be 8 or 4, got {weight_bits}")
     wq, scale = weight_quant_int(w, cfg)
     return {"w_int": wq.contiguous(), "w_scale": scale.float(),
             "colsum": wq.sum(0, dtype=torch.int32)}
@@ -248,10 +344,11 @@ _PREQUANT_KEYS = ("wqkv", "wo", "w_up", "w_gate", "w_down", "w_in", "w_out",
 def prequantize_tree(params: Any, cfg: QuantConfig, min_ndim: int = 2,
                      weight_bits: int = 8) -> Any:
     """Replace qdot-consumed weight matrices (stacked over layers or not)
-    with int8-resident dicts; embeddings stay fp."""
-    if weight_bits != 8:
-        raise NotImplementedError("weight_bits=4 (W4A8) is not ported yet: "
-                                  "ROADMAP queue 1 item 9")
+    with integer-resident dicts (int8 ``w_int`` or, with ``weight_bits=4``,
+    nibble-packed ``w_packed``); stacked ``(L, ...)`` leaves are quantized
+    one layer at a time and stacked again. Embeddings stay fp."""
+    if weight_bits not in (8, 4):
+        raise ValueError(f"weight_bits must be 8 or 4, got {weight_bits}")
 
     def eligible(k, v, path):
         if not (isinstance(v, torch.Tensor) and v.dim() >= min_ndim):
@@ -264,8 +361,8 @@ def prequantize_tree(params: Any, cfg: QuantConfig, min_ndim: int = 2,
 
     def convert(v):
         if v.dim() == 2:
-            return prequantize(v, cfg)
-        parts = [prequantize(a, cfg) for a in v.unbind(0)]
+            return prequantize(v, cfg, weight_bits)
+        parts = [prequantize(a, cfg, weight_bits) for a in v.unbind(0)]
         return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
 
     def visit(d, path=()):

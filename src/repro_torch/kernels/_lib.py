@@ -35,7 +35,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
 KERNELS = ("w8a8_matmul", "act_quant_static", "flash_attention",
-           "flash_decode", "flash_decode_paged")
+           "flash_decode", "flash_decode_paged", "w4a8_matmul",
+           "act_quant_ptoken")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -47,6 +48,12 @@ _SIGNATURES = {
     # x, x_bf16, scale, zero, out, n, stream
     "act_quant_static_launch": [_VP, _I, _VP, _VP, _VP, ctypes.c_longlong,
                                 _VP],
+    # x, w_packed, s_w, colsum, s_x, z_x, z_shift, out, out_bf16, M, N, K,
+    # group, stream
+    "w4a8_matmul_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _F, _VP, _I, _I, _I,
+                           _I, _I, _VP],
+    # x, x_bf16, out, scale, zero, M, D, qmax, stream
+    "act_quant_ptoken_launch": [_VP, _I, _VP, _VP, _VP, _I, _I, _F, _VP],
     # q, k, v, out, bf16, B, H, Kh, S, T, hd, prefix_len,
     # q strides (b, h, s), k strides (b, h, t), v strides (b, h, t),
     # out strides (b, h, s), stream

@@ -1,12 +1,27 @@
-"""Static per-tensor activation quantizer (kernel + plain version).
+"""Activation quantizers (kernels + plain versions).
 
 ``act_quant_static(x, scale, zero)`` computes
 ``clip(round_half_even(x / s + z), 0, 2^bits - 1) - 128`` as int8: the int8
 storage of an asymmetric activation whose zero point the caller shifts by
--128 in the matmul epilogue. A CUDA tensor launches the hand-written kernel
-(``csrc/act_quant.cu``); a CPU tensor takes ``act_quant_static_plain``.
+-128 in the matmul epilogue.
+
+``act_quant_ptoken(x, bits)`` is the per-token dynamic quantizer: per row,
+``mn = min(min(x), 0)`` and ``mx = max(max(x), 0)`` give a scale and an
+integer zero point, and the codes are stored the same way. It returns
+``(codes int8 (M, D), scale f32 (M, 1), zero f32 (M, 1))``, the Pallas
+kernel's contract. The input's dtype sets the arithmetic: an f32 input takes
+the Pallas kernel's (``scale = max((mx - mn) / qmax, 1e-8)``, all in f32); a
+bf16 input the JAX model path's on a bf16 activation (``params_from_minmax``
+and ``quantize`` as bf16 ops: each step rounded to bf16; scale and zero come
+out holding bf16 values). A caller that wants the Pallas arithmetic on a bf16
+activation upcasts it first, as the Pallas kernel does.
+
+A CUDA tensor launches the hand-written kernels (``csrc/act_quant.cu``); a
+CPU tensor takes the plain versions.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -51,3 +66,56 @@ def act_quant_static(x: torch.Tensor, scale: torch.Tensor,
     _lib.check(code, "act_quant_static")
     _lib.count("act_quant_static")
     return out
+
+
+def act_quant_ptoken_plain(x: torch.Tensor, bits: int = 8
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Plain PyTorch version: on f32 input ``ref.act_quant_ref(
+    per_token=True)``; on any other dtype ``quantization.params_from_minmax``
+    and ``quantize`` in that dtype (bf16 on the card; the CPU also takes
+    f16). Every divisor is a tensor, never a Python number: a CUDA division
+    by a host scalar multiplies by its reciprocal, which is not the IEEE
+    quotient."""
+    qmax = 2 ** bits - 1
+    q_t = torch.tensor(float(qmax), dtype=x.dtype, device=x.device)
+    mn = torch.clamp(x.amin(dim=-1, keepdim=True), max=0.0)
+    mx = torch.clamp(x.amax(dim=-1, keepdim=True), min=0.0)
+    if x.dtype == torch.float32:
+        scale = torch.clamp((mx - mn) / q_t, min=1e-8)
+        zero = torch.round(torch.clamp(-mn / scale, 0, qmax))
+    else:
+        scale = (mx - mn) / q_t
+        zero = 0 - mn / torch.where(scale == 0, 1.0, scale)
+        zero = torch.round(torch.clamp(zero, 0, qmax))
+        scale = torch.where(scale <= 0, 1.0, scale)
+    q = torch.clamp(torch.round(x / scale + zero), 0, qmax)
+    return ((q.to(torch.int32) - 128).to(torch.int8), scale.float(),
+            zero.float())
+
+
+def act_quant_ptoken(x: torch.Tensor, bits: int = 8
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (M, D) f32 or bf16 (the CPU also takes other float dtypes).
+    Returns (int8 (M, D), scale f32 (M, 1), zero f32 (M, 1))."""
+    if x.device.type == "cpu":
+        return act_quant_ptoken_plain(x, bits)
+    if x.device.type != "cuda":
+        raise ValueError(f"act_quant_ptoken: unsupported device {x.device}")
+    if not 1 <= bits <= 8:
+        raise ValueError(f"bits must be in [1, 8], got {bits}")
+    if x.dim() != 2 or not x.is_contiguous() \
+            or x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x must be contiguous 2-D f32/bf16, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    M, D = x.shape
+    out = torch.empty((M, D), dtype=torch.int8, device=x.device)
+    scale = torch.empty((M, 1), dtype=torch.float32, device=x.device)
+    zero = torch.empty((M, 1), dtype=torch.float32, device=x.device)
+    code = _lib.lib().act_quant_ptoken_launch(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), out.data_ptr(),
+        scale.data_ptr(), zero.data_ptr(), M, D, float(2 ** bits - 1),
+        _lib.stream_ptr(x))
+    _lib.check(code, "act_quant_ptoken")
+    _lib.count("act_quant_ptoken")
+    return out, scale, zero

@@ -3,7 +3,8 @@
 ``decode_attention_pallas``, ``decode_attention_paged``). Each dispatches
 on the device of its tensors through the kernel wrappers: the kernel on the
 card, the plain version on the CPU. The tensor-parallel entries are not
-ported yet."""
+ported yet. ``w4a8_matmul`` and ``act_quant_ptoken`` have no entry here (as
+in the reference): ``core/quantization.py`` reaches them directly."""
 from __future__ import annotations
 
 from typing import Optional

@@ -1,0 +1,107 @@
+"""W4A8 matmul: int8 activations times int4-packed weights with group-wise
+weight scales (kernel + plain version).
+
+``w4a8_matmul(x_int, w_packed, s_x, z_x, s_w, colsum, group_size)``
+computes
+
+    out = (sum_g s_w[g] * float(x_int[:, g] @ w[g]) - z * colsum) * s_x
+
+with ``w = unpack_int4(w_packed, K)``, each group's product an exact int32,
+the groups added in order, and ``z = z_x + z_shift`` (``z_shift`` folds the
+int8 storage offset of the activation codes, -128, as in ``w8a8_matmul``).
+``colsum`` is the *scale-weighted* column sum ``sum_g s_w[g] * colsum_g``
+that ``prequantize(weight_bits=4)`` stores, so the zero-point correction is
+one rank-1 subtract. A CUDA tensor launches ``csrc/w4a8_matmul.cu``; a CPU
+tensor takes ``w4a8_matmul_plain``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _lib
+from repro_torch.kernels.w8a8_matmul import _check_scalar, int_product_exact
+
+
+def unpack_int4(packed: torch.Tensor, k: int) -> torch.Tensor:
+    """(ceil(k/2), ...) int8 nibble pairs -> (k, ...) int8, sign-extended
+    (``core.quantization.pack_int4`` layout: element 2i in the low nibble of
+    byte i, 2i+1 in the high nibble)."""
+    p = packed.to(torch.int32)
+    lo = ((p & 0xF) ^ 8) - 8
+    hi = p >> 4                  # arithmetic: the byte's sign is the nibble's
+    w = torch.stack([lo, hi], dim=1).reshape(p.shape[0] * 2, *p.shape[1:])
+    return w[:k].to(torch.int8)
+
+
+def w4a8_matmul_plain(x_int: torch.Tensor, w_packed: torch.Tensor,
+                      s_x: torch.Tensor, z_x: torch.Tensor, s_w: torch.Tensor,
+                      colsum: torch.Tensor, group_size: int,
+                      z_shift: float = 0.0,
+                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain PyTorch version: the kernel's sums in the kernel's order, one
+    separately rounded tensor op per step. Any K (odd K through
+    ``unpack_int4``)."""
+    M, K = x_int.shape
+    w = unpack_int4(w_packed, K)
+    acc = torch.zeros((M, w.shape[1]), dtype=torch.float32,
+                      device=x_int.device)
+    for k0 in range(0, K, group_size):
+        k1 = k0 + group_size
+        part = int_product_exact(x_int[:, k0:k1], w[k0:k1]).float()
+        acc = acc + part * s_w[k0 // group_size].float()
+    z = z_x.float() + z_shift
+    out = (acc - z * colsum.float()) * s_x.float()
+    return out.to(out_dtype)
+
+
+def w4a8_matmul(x_int: torch.Tensor, w_packed: torch.Tensor,
+                s_x: torch.Tensor, z_x: torch.Tensor, s_w: torch.Tensor,
+                colsum: torch.Tensor, group_size: int, z_shift: float = 0.0,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """x_int: (M, K) int8; w_packed: (K/2, N) int8; s_x, z_x: one-element
+    f32 tensors; s_w: (K / group_size, N) f32; colsum: (N,) f32. Returns
+    (M, N) in ``out_dtype`` (f32 or bf16, rounded once from the f32
+    epilogue). The kernel takes an even K, and K and ``group_size``
+    multiples of 4."""
+    if x_int.device.type == "cpu":
+        return w4a8_matmul_plain(x_int, w_packed, s_x, z_x, s_w, colsum,
+                                 group_size, z_shift, out_dtype)
+    if x_int.device.type != "cuda":
+        raise ValueError(f"w4a8_matmul: unsupported device {x_int.device}")
+    if x_int.dtype != torch.int8 or w_packed.dtype != torch.int8:
+        raise ValueError("w4a8_matmul takes int8 operands")
+    if x_int.dim() != 2 or w_packed.dim() != 2:
+        raise ValueError("w4a8_matmul takes 2-D operands")
+    M, K = x_int.shape
+    Kp, N = w_packed.shape
+    if K % 2 or Kp * 2 != K:
+        raise ValueError(f"packed rows {Kp} do not hold an even K={K}")
+    if K % 4 or group_size % 4 or K % group_size:
+        raise ValueError(f"K={K} and group_size={group_size} must be "
+                         f"multiples of 4 with groups tiling K")
+    G = K // group_size
+    if s_w.dtype != torch.float32 or s_w.shape != (G, N) \
+            or not s_w.is_contiguous():
+        raise ValueError(f"s_w must be contiguous f32 ({G}, {N}), got "
+                         f"{s_w.dtype} {tuple(s_w.shape)}")
+    if colsum.dtype != torch.float32 or colsum.shape != (N,) \
+            or not colsum.is_contiguous():
+        raise ValueError("colsum must be contiguous f32 (N,)")
+    if not (x_int.is_contiguous() and w_packed.is_contiguous()):
+        raise ValueError("w4a8_matmul takes contiguous operands")
+    if x_int.data_ptr() % 4 or w_packed.data_ptr() % 4:
+        raise ValueError("w4a8_matmul operands must be 4-byte aligned")
+    _check_scalar(s_x, "s_x")
+    _check_scalar(z_x, "z_x")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"out_dtype must be f32 or bf16, got {out_dtype}")
+    _lib.require_cuda(x_int, w_packed, s_w, colsum, s_x, z_x)
+    out = torch.empty((M, N), dtype=out_dtype, device=x_int.device)
+    code = _lib.lib().w4a8_matmul_launch(
+        x_int.data_ptr(), w_packed.data_ptr(), s_w.data_ptr(),
+        colsum.data_ptr(), s_x.data_ptr(), z_x.data_ptr(), float(z_shift),
+        out.data_ptr(), int(out_dtype == torch.bfloat16), M, N, K,
+        group_size, _lib.stream_ptr(x_int))
+    _lib.check(code, "w4a8_matmul")
+    _lib.count("w4a8_matmul")
+    return out

@@ -4,6 +4,10 @@ prefix, on the card unless ``--device cpu``.
     python -m repro_torch.launch.serve --arch smollm-360m --quant pt_static \
         --prequant --kv-dtype int8 --cushion-len 4
 
+``--weight-bits 4`` (with ``--prequant``) serves int4-packed weights (W4A8);
+``--quant ptoken_dynamic`` the per-token dynamic baseline (fp weights,
+fake-quantized per call, as in the reference).
+
 The default (static) mode runs one Engine batch. ``--mode continuous``
 replays a Poisson-arrival trace (``--rate`` req/s, 0 = all queued at once;
 ``--n-requests``; ``--trace-seed``) through ``ContinuousEngine`` with
@@ -110,7 +114,8 @@ def run_continuous(api, params, qcfg, args, calib_batches=None,
                            kv_dtype=None if args.kv_dtype == "fp"
                            else args.kv_dtype,
                            calib_batches=calib_batches,
-                           prequant=args.prequant, paged=args.paged,
+                           prequant=args.prequant,
+                           weight_bits=args.weight_bits, paged=args.paged,
                            page_size=args.page_size, n_pages=args.pages,
                            prefix_cache=args.prefix_cache,
                            chunk_tokens=args.chunk_tokens)
@@ -124,7 +129,8 @@ def run_continuous(api, params, qcfg, args, calib_batches=None,
           f"{torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}"
           f" resident weights: "
           f"fp={eng.stats.weight_bytes_fp / 2 ** 20:.1f} MiB "
-          f"int8={eng.stats.weight_bytes_int8 / 2 ** 20:.1f} MiB")
+          f"int8={eng.stats.weight_bytes_int8 / 2 ** 20:.1f} MiB "
+          f"int4={eng.stats.weight_bytes_int4 / 2 ** 20:.1f} MiB")
     if args.paged:
         st = eng.stats
         print(f"[serve] paged pool: {st.pages_total} pages x "
@@ -165,7 +171,8 @@ def run_continuous(api, params, qcfg, args, calib_batches=None,
     if args.bench_json:
         _append_point(args.bench_json, {
             "mode": "continuous", "arch": args.arch, "quant": args.quant,
-            "prequant": args.prequant, "paged": args.paged,
+            "prequant": args.prequant, "weight_bits": args.weight_bits,
+            "paged": args.paged,
             "page_size": args.page_size, "prefix_cache": args.prefix_cache,
             "chunk_tokens": args.chunk_tokens, "kv_dtype": args.kv_dtype,
             "slots": args.slots, "rate": args.rate,
@@ -199,6 +206,10 @@ def main(argv=None):
                              "ptoken_dynamic"])
     ap.add_argument("--prequant", action="store_true",
                     help="int8-resident weights (requires --quant pt_static)")
+    ap.add_argument("--weight-bits", type=int, default=8, choices=[8, 4],
+                    help="resident weight precision with --prequant: 8 = "
+                         "int8 w_int (W8A8), 4 = nibble-packed w_packed "
+                         "(W4A8, 0.5 byte/weight); activations stay int8")
     ap.add_argument("--kv-dtype", default="fp", choices=["fp", "int8"])
     ap.add_argument("--mode", default="static",
                     choices=["static", "continuous"],
@@ -241,6 +252,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.prequant and args.quant != "pt_static":
         ap.error("--prequant requires --quant pt_static")
+    if args.weight_bits == 4 and not args.prequant:
+        ap.error("--weight-bits 4 requires --prequant (the int4-packed "
+                 "format only exists as resident serving weights)")
     if args.mode != "continuous" and (args.paged or args.chunk_tokens
                                       is not None):
         ap.error("--paged / --chunk-tokens require --mode continuous")
@@ -272,11 +286,13 @@ def main(argv=None):
     eng = Engine(api, params, qcfg, max_seq=args.prompt_len + args.tokens + 32,
                  cushion=cushion,
                  kv_dtype=None if args.kv_dtype == "fp" else args.kv_dtype,
-                 calib_batches=calib, prequant=args.prequant)
+                 calib_batches=calib, prequant=args.prequant,
+                 weight_bits=args.weight_bits)
     print(f"[serve] device={dev} "
           f"{torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}"
           f" resident weights: fp={eng.weight_bytes_fp / 2 ** 20:.1f} MiB "
-          f"int8={eng.weight_bytes_int8 / 2 ** 20:.1f} MiB")
+          f"int8={eng.weight_bytes_int8 / 2 ** 20:.1f} MiB "
+          f"int4={eng.weight_bytes_int4 / 2 ** 20:.1f} MiB")
     if args.bench_json:
         eng.generate(batch, args.tokens)     # warm-up: allocator, build
     res = eng.generate(batch, args.tokens)
@@ -287,13 +303,15 @@ def main(argv=None):
     if args.bench_json:
         _append_point(args.bench_json, {
             "mode": "static", "arch": args.arch, "quant": args.quant,
-            "prequant": args.prequant, "kv_dtype": args.kv_dtype,
+            "prequant": args.prequant, "weight_bits": args.weight_bits,
+            "kv_dtype": args.kv_dtype,
             "cushion_len": args.cushion_len, "batch": args.batch,
             "prompt_len": args.prompt_len, "tokens": args.tokens,
             "device": (torch.cuda.get_device_name(dev)
                        if dev.type == "cuda" else "cpu"),
             "weight_bytes_fp": eng.weight_bytes_fp,
             "weight_bytes_int8": eng.weight_bytes_int8,
+            "weight_bytes_int4": eng.weight_bytes_int4,
             "ttft_ms": res.ttft_ms, "tpot_ms": res.tpot_ms})
     return res
 

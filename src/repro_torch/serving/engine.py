@@ -1,7 +1,8 @@
 """Static-batch serving engine, ported from ``repro/serving/engine.py``:
 one prefill, then a decode loop, under a CushionCache prefix and a
 configurable quantized execution (per-tensor static W8A8 with int8-resident
-weights, an int8 KV cache with the cushion kept in fp).
+weights or W4A8 with int4-packed ones, the per-token dynamic baseline, an
+int8 KV cache with the cushion kept in fp).
 
 Tokens stay on the device through the decode loop; ``generate`` syncs with
 the host twice per request (after prefill: TTFT; after the loop: TPOT).
@@ -35,8 +36,9 @@ def plan_quantization(api, params, qcfg: QuantConfig, cushion=None,
       served and refused on a fingerprint mismatch (stale static ranges);
     * ``pt_static`` without scales calibrates over ``calib_batches`` under
       the cushion, and refuses to run with neither;
-    * ``prequant`` makes every qdot-consumed weight int8-resident
-      (pt_static only). ``weight_bits=4`` (W4A8) is not ported yet.
+    * ``prequant`` makes every qdot-consumed weight integer-resident
+      (pt_static only): int8 ``w_int`` with ``weight_bits=8``, int4-packed
+      ``w_packed`` with ``weight_bits=4``, which exists only prequantized.
     """
     if isinstance(scales, CalibratedScales):
         want, got = scales.cushion_fp, cushion_fingerprint(cushion)
@@ -58,16 +60,20 @@ def plan_quantization(api, params, qcfg: QuantConfig, cushion=None,
         from repro_torch.core.calibration import calibrate
         scales, _ = calibrate(api, params, calib_batches, qcfg,
                               cushion=cushion)
-    if weight_bits != 8:
-        raise NotImplementedError("weight_bits=4 (W4A8) is not ported yet: "
-                                  "ROADMAP queue 1 item 9")
+    if weight_bits not in (8, 4):
+        raise ValueError(f"weight_bits must be 8 or 4, got {weight_bits}")
+    if weight_bits == 4 and not prequant:
+        raise ValueError(
+            "weight_bits=4 is the int4-packed resident format and only "
+            "exists prequantized; pass prequant=True (fp and W8A8 remain "
+            "the A/B baselines)")
     params = C.as_tree(params)
     if prequant:
         if qcfg.mode != "pt_static":
             raise ValueError(
                 f"prequant (int8-resident weights) serves the pt_static "
                 f"deployment mode only, got mode={qcfg.mode!r}")
-        params = Q.prequantize_tree(params, qcfg)
+        params = Q.prequantize_tree(params, qcfg, weight_bits=weight_bits)
     return params, scales
 
 

@@ -8,8 +8,9 @@ one (the fixture decides, never the module's import). On the card:
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest \
         tests/test_torch_cuda.py     # on a machine without jax
 
-Tolerances: w8a8_matmul and act_quant_static bit-exact (the kernels repeat
-the plain versions' f32 arithmetic step by step); attention in bf16 within
+Tolerances: w8a8_matmul, w4a8_matmul, act_quant_static and
+act_quant_ptoken bit-exact (the kernels repeat the plain versions' f32 or
+bf16-rounded arithmetic step by step); attention in bf16 within
 one bf16 ulp of the plain version's f32-accumulated result; the paged
 decode kernel bit-identical to the contiguous one on the gathered pool.
 """
@@ -17,13 +18,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels.act_quant import (act_quant_static,  # noqa: E402
-                                           act_quant_static_plain)
+from repro_torch.kernels.act_quant import (  # noqa: E402
+    act_quant_ptoken, act_quant_ptoken_plain, act_quant_static,
+    act_quant_static_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.flash_decode import (  # noqa: E402
     flash_decode, flash_decode_paged, flash_decode_paged_plain,
     flash_decode_plain, gather_pages)
+from repro_torch.kernels.w4a8_matmul import (w4a8_matmul,  # noqa: E402
+                                             w4a8_matmul_plain)
 from repro_torch.kernels.w8a8_matmul import (w8a8_matmul,  # noqa: E402
                                              w8a8_matmul_plain)
 
@@ -67,6 +71,51 @@ def test_act_quant_kernel_bit_exact(dev):
     for t in (x, x.to(torch.bfloat16)):
         assert torch.equal(act_quant_static(t, s, z),
                            act_quant_static_plain(t, s, z))
+
+
+@pytest.mark.parametrize("M,K,N,group", [(4, 960, 1600, 960),
+                                         (37, 2560, 960, 128),
+                                         (300, 256, 100, 64)])
+def test_w4a8_kernel_bit_exact(dev, M, K, N, group):
+    """One group of 960 and twenty of 128 (smollm), ragged M, an N that is
+    no multiple of 4 (the unvectorized load)."""
+    g = torch.Generator(dev).manual_seed(M)
+    x = torch.randint(-128, 128, (M, K), generator=g, device=dev,
+                      dtype=torch.int8)
+    wp = torch.randint(-128, 128, (K // 2, N), generator=g, device=dev,
+                       dtype=torch.int8)
+    s_w = torch.rand((K // group, N), generator=g, device=dev) * 0.02 + 1e-3
+    colsum = torch.randn((N,), generator=g, device=dev)
+    sc = [torch.tensor(v, device=dev) for v in (0.031, 111.0)]
+    for dt in (torch.float32, torch.bfloat16):
+        a = w4a8_matmul(x, wp, *sc, s_w, colsum, group, z_shift=-128.0,
+                        out_dtype=dt)
+        b = w4a8_matmul_plain(x, wp, *sc, s_w, colsum, group, z_shift=-128.0,
+                              out_dtype=dt)
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        w4a8_matmul(x[:, :-2].contiguous(), wp[:-1].contiguous(), *sc,
+                    s_w[:, :], colsum, group)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M,D", [(4, 960), (2048, 2560)])
+def test_act_quant_ptoken_kernel_bit_exact(dev, M, D, bits):
+    """Both arithmetics (f32 on f32 input, bf16-rounded on bf16 input),
+    with an all-zero row, an outlier row and an all-positive row; any other
+    dtype raises on the card, where the plain version would take it."""
+    g = torch.Generator(dev).manual_seed(D)
+    x = torch.randn((M, D), generator=g, device=dev) * 3 + 0.2
+    x[1] = 0.0
+    x[2, 5] = 250.0
+    x[3] = x[3].abs() + 0.1
+    for t in (x, x.to(torch.bfloat16)):
+        a = act_quant_ptoken(t, bits=bits)
+        b = act_quant_ptoken_plain(t, bits=bits)
+        for u, v in zip(a, b):
+            assert torch.equal(u, v), t.dtype
+    with pytest.raises(ValueError):
+        act_quant_ptoken(x.half(), bits=bits)
 
 
 def test_attention_kernels_within_one_bf16_ulp(dev):

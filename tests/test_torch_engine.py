@@ -148,7 +148,21 @@ def test_engine_sampling_and_plan_guards(setup):
                                  cushion=s["cushion"], scales=ok,
                                  prequant=True)
     assert sc is s["scales"] and "w_int" in tree["layers"]["attn"]["wqkv"]
-    with pytest.raises(NotImplementedError):
-        TQ.prequantize_tree(tree, QW8, weight_bits=4)
+    # the W4A8 format: nibble-packed (L, K/2, N), (L, G, N) f32 scales
+    tree4, _ = plan_quantization(s["api"], s["params"], QW8,
+                                 cushion=s["cushion"], scales=ok,
+                                 prequant=True, weight_bits=4)
+    w4 = tree4["layers"]["attn"]["wqkv"]
+    L, K, N = s["params"].tree()["layers"]["attn"]["wqkv"].shape
+    G = K // 128 if K % 128 == 0 else 1
+    assert set(w4) == {"w_packed", "w_scale", "colsum"}
+    assert w4["w_packed"].shape == (L, K // 2, N)
+    assert w4["w_packed"].dtype == torch.int8
+    assert w4["w_scale"].shape == (L, G, N)
+    assert w4["w_scale"].dtype == w4["colsum"].dtype == torch.float32
+    assert torch.equal(TQ.unpack_int4(w4["w_packed"][0], K),
+                       TQ.weight_quant_int4(
+                           s["params"].tree()["layers"]["attn"]["wqkv"][0],
+                           QW8)[0])
     assert (cache_seq_len(129), bucket_steps(9), bucket_steps(0)) \
         == (256, 16, 0)

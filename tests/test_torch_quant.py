@@ -196,3 +196,24 @@ def test_reduced_configs_resolve_alike():
             == {k: getattr(t, k) for k in ("n_layers", "d_model", "n_heads",
                                            "n_kv_heads", "head_dim", "d_ff",
                                            "vocab_size", "tie_embeddings")}
+
+
+@pytest.mark.parametrize("qcfg", [
+    QuantConfig(mode="pt_dynamic", true_int8=True),
+    QuantConfig(mode="pt_static", true_int8=True, symmetric_a=True)],
+    ids=["bf16-dynamic-range", "symmetric"])
+def test_true_int_quantize_off_the_cpu_raises_without_kernel(qcfg):
+    """Activation codes that ``act_quant_static`` cannot make (a bf16
+    dynamic range, symmetric codes) come from tensor ops on the CPU and
+    raise on any other device, never computing the kernel's function with
+    tensor ops there. A meta tensor stands in for a card."""
+    x = torch.empty((2, 8, 16), dtype=torch.bfloat16, device="meta")
+    w = torch.empty((16, 24), dtype=torch.bfloat16, device="meta")
+    site = TQ.SiteScale(torch.ones((), device="meta"),
+                        torch.zeros((), device="meta"))
+    with pytest.raises(ValueError, match="CPU only"):
+        TQ.true_int_dot(x, w, qcfg, site)
+    xc = torch.randn((2, 8, 16)).to(torch.bfloat16)
+    wc = torch.randn((16, 24)).to(torch.bfloat16)
+    site_c = TQ.SiteScale(torch.tensor(0.05), torch.tensor(0.0))
+    assert TQ.true_int_dot(xc, wc, qcfg, site_c).shape == (2, 8, 24)
