@@ -14,7 +14,12 @@ Phases, each fatal on failure:
    with per-row (B, K) scales, and ``flash_decode_paged`` also held
    bit-identical (``torch.equal``) to ``flash_decode`` on the gathered pool
    (fp and int8, (K,) and (B, K) scales, a shuffled page table, pos at
-   m - 1, on a page boundary, mid-page and retired); ``w4a8_matmul``
+   m - 1, on a page boundary, mid-page and retired), and row b of a batch
+   ``torch.equal`` to the row computed alone; ``flash_attention``'s last
+   100 rows of the main-path prefill ``torch.equal`` to a call on those
+   rows alone with the prefix moved by the cut; how each scales with
+   length: ``flash_decode`` at pos 4000 in a 4096-position cache and
+   ``flash_attention`` at B=1, S=2048; ``w4a8_matmul``
    (``torch.equal``, one group of 960 and 20 groups of 128, beside the W8A8
    kernel at the same shapes) and ``act_quant_ptoken`` on bf16 and f32
    input (``torch.equal`` on codes, scales and zero points, with an
@@ -108,6 +113,27 @@ def bound_ms(bytes_moved: float, ops: float, peak_ops: float):
                                        else "operations")
 
 
+def device_ms(fn, flush_buf, iters=10) -> float:
+    """Mean device ms of fn, the L2 flushed (by zeroing ``flush_buf``, a
+    buffer larger than the L2) before every call: the serving path finds
+    weights and caches cold. The card sleeps while the host enqueues every
+    call, so each event pair brackets device time only, not the host's
+    launch latency."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    evs = [(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(int(4e8))       # ~0.2 s at 1.98 GHz
+    for a, b in evs:
+        flush_buf.zero_()
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in evs) / iters
+
+
 def main() -> None:
     try:
         import torch
@@ -186,22 +212,7 @@ def main() -> None:
     gen = torch.Generator(dev).manual_seed(0)
 
     def timed(fn, iters=10):
-        """Mean device ms of fn, L2 flushed before every call (the serving
-        path finds weights and caches cold). The card sleeps while the host
-        enqueues every call, so each event pair brackets device time only,
-        not the host's launch latency."""
-        fn()
-        torch.cuda.synchronize()
-        evs = [(torch.cuda.Event(enable_timing=True),
-                torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-        torch.cuda._sleep(int(4e8))       # ~0.2 s at 1.98 GHz
-        for a, b in evs:
-            flush_buf.zero_()
-            a.record()
-            fn()
-            b.record()
-        torch.cuda.synchronize()
-        return sum(a.elapsed_time(b) for a, b in evs) / iters
+        return device_ms(fn, flush_buf, iters)
 
     @torch.inference_mode()
     def decode_busy(eng, batch, steps=4):
@@ -371,38 +382,59 @@ def main() -> None:
             fail(f"{name}: beyond one bf16 ulp, max err {float(err.max())}")
         return float(err.max())
 
-    # flash_attention: B=4, S=512 behind a 4-row cushion, bf16
-    T = PROMPT + CUSHION
     bf = torch.bfloat16
-    q = torch.randn((B, PROMPT, H, hd), generator=gen, device=dev).to(bf)
-    k = torch.randn((B, T, K, hd), generator=gen, device=dev).to(bf)
-    v = torch.randn((B, T, K, hd), generator=gen, device=dev).to(bf)
-    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    fa_err = ulp_check("flash_attention",
-                       flash_attention(qh, kh, vh, prefix_len=CUSHION),
-                       flash_attention_plain(qh, kh, vh,
-                                             prefix_len=CUSHION))
-    fa_ms = timed(lambda: flash_attention(qh, kh, vh, prefix_len=CUSHION))
-    fa_pms = timed(lambda: flash_attention_plain(qh, kh, vh,
-                                                 prefix_len=CUSHION), 3)
-    i = torch.arange(PROMPT, device=dev)[:, None]
-    j = torch.arange(T, device=dev)[None, :]
-    vis = (j < CUSHION) | (j <= i + CUSHION)
-    qc, kc_, vc_ = qh.contiguous(), kh.contiguous(), vh.contiguous()
-    try:
-        fa_lib = timed(lambda: F.scaled_dot_product_attention(
-            qc, kc_, vc_, attn_mask=vis, enable_gqa=True))
-    except (RuntimeError, TypeError) as e:
-        log(f"scaled_dot_product_attention not timed: {e}")
-        fa_lib = None
-    pairs = B * H * (PROMPT * CUSHION + PROMPT * (PROMPT + 1) / 2)
-    fa_bms, fa_by = bound_ms(2 * (2 * B * H * PROMPT * hd + 2 * B * K * T * hd),
-                             4.0 * hd * pairs, BF16_FLOPS_PER_S)
-    detail.append({"kernel": "flash_attention", "B": B, "S": PROMPT,
-                   "m": CUSHION, "max_abs_err": fa_err, "kernel_ms": fa_ms,
-                   "plain_ms": fa_pms, "bound_ms": fa_bms, "bound_by": fa_by,
-                   "library_ms": fa_lib})
-    print(json.dumps(detail[-1]), flush=True)
+
+    def attention_row(Bq, S, m):
+        """flash_attention (bf16) at (Bq, S) behind an m-row cushion: one
+        bf16 ulp of the plain version, timed beside its bound and SDPA."""
+        T = S + m
+        q = torch.randn((Bq, S, H, hd), generator=gen, device=dev).to(bf)
+        k = torch.randn((Bq, T, K, hd), generator=gen, device=dev).to(bf)
+        v = torch.randn((Bq, T, K, hd), generator=gen, device=dev).to(bf)
+        qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        err = ulp_check(f"flash_attention B={Bq} S={S}",
+                        flash_attention(qh, kh, vh, prefix_len=m),
+                        flash_attention_plain(qh, kh, vh, prefix_len=m))
+        ms = timed(lambda: flash_attention(qh, kh, vh, prefix_len=m))
+        pms = timed(lambda: flash_attention_plain(qh, kh, vh,
+                                                  prefix_len=m), 3)
+        i = torch.arange(S, device=dev)[:, None]
+        j = torch.arange(T, device=dev)[None, :]
+        vis = (j < m) | (j <= i + m)
+        qc, kc_, vc_ = qh.contiguous(), kh.contiguous(), vh.contiguous()
+        try:
+            lib = timed(lambda: F.scaled_dot_product_attention(
+                qc, kc_, vc_, attn_mask=vis, enable_gqa=True))
+        except (RuntimeError, TypeError) as e:
+            log(f"scaled_dot_product_attention not timed: {e}")
+            lib = None
+        pairs = Bq * H * (S * m + S * (S + 1) / 2)
+        bms, by = bound_ms(2 * (2 * Bq * H * S * hd + 2 * Bq * K * T * hd),
+                           4.0 * hd * pairs, BF16_FLOPS_PER_S)
+        detail.append({"kernel": "flash_attention", "B": Bq, "S": S,
+                       "m": m, "max_abs_err": err, "kernel_ms": ms,
+                       "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                       "library_ms": lib})
+        print(json.dumps(detail[-1]), flush=True)
+        return (ms, pms, bms, by, err, lib), (qh, kh, vh)
+
+    # flash_attention: B=4, S=512 behind a 4-row cushion (the main path),
+    # and B=1, S=2048 (how the tiles scale with length)
+    (fa_ms, fa_pms, fa_bms, fa_by, fa_err, fa_lib), (qh, kh, vh) = \
+        attention_row(B, PROMPT, CUSHION)
+    fa_long = attention_row(1, 2048, CUSHION)[0]
+    # a query's result depends on no other query: the last 100 rows of the
+    # one-shot call equal a call on those rows alone with the prefix moved
+    # by the cut (the chunked prefill's call)
+    cut = PROMPT - 100
+    if not torch.equal(
+            flash_attention(qh, kh, vh, prefix_len=CUSHION)[:, :, cut:],
+            flash_attention(qh[:, :, cut:], kh, vh,
+                            prefix_len=CUSHION + cut)):
+        fail("flash_attention: the last 100 rows differ from a call on "
+             "those rows alone")
+    log("flash_attention rows independent of the other queries "
+        "(torch.equal)")
 
     # flash_decode: int8 + cushion (main path) and fp, mid-generation pos
     Smax = cache_seq_len(PROMPT + NEW_TOKENS + 32)
@@ -458,6 +490,51 @@ def main() -> None:
                        "kernel_ms": ms, "plain_ms": pms, "bound_ms": bms,
                        "bound_by": by, "library_ms": lib_ms})
         print(json.dumps(detail[-1]), flush=True)
+
+    # how split-KV scales with length: int8 (B, K) at pos 4000 in a
+    # 4096-position cache (and fp beside SDPA), B = 4
+    SL, PL = 4096, 4000
+    kql = torch.randint(-127, 128, (B, SL, K, hd), generator=gen,
+                        device=dev, dtype=torch.int8)
+    vql = torch.randint(-127, 128, (B, SL, K, hd), generator=gen,
+                        device=dev, dtype=torch.int8)
+    kfl = torch.randn((B, SL, K, hd), generator=gen, device=dev).to(bf)
+    vfl = torch.randn((B, SL, K, hd), generator=gen, device=dev).to(bf)
+    ksl = torch.rand((B, K), generator=gen, device=dev) * 0.05 + 0.01
+    vsl = torch.rand((B, K), generator=gen, device=dev) * 0.05 + 0.01
+    prl = torch.full((B,), PL, dtype=torch.int32, device=dev)
+    fd_long = {}
+    for mode, a in (("int8_BK", (qd, kql, vql, prl, ksl, vsl, kc, vc)),
+                    ("fp", (qd, kfl, vfl, prl))):
+        err = ulp_check(f"flash_decode {mode} Smax={SL}", flash_decode(*a),
+                        flash_decode_plain(*a))
+        ms = timed(lambda: flash_decode(*a))
+        pms = timed(lambda: flash_decode_plain(*a), 3)
+        if mode == "fp":
+            by_ = 4 * B * H * hd + 2 * B * (PL + 1) * K * hd * 2
+        else:
+            by_ = (4 * B * H * hd + 2 * B * (PL + 1 - CUSHION) * K * hd
+                   + 4 * CUSHION * K * hd + 8 * B * K)
+        bms, by = bound_ms(by_, 4.0 * B * H * hd * (PL + 1),
+                           BF16_FLOPS_PER_S)
+        lib_ms = None
+        if mode == "fp":
+            kt, vt = kfl.transpose(1, 2).contiguous(), \
+                vfl.transpose(1, 2).contiguous()
+            vis_d = (torch.arange(SL, device=dev) <= PL)[None, None, None]
+            try:
+                lib_ms = timed(lambda: F.scaled_dot_product_attention(
+                    qd[:, :, None], kt, vt, attn_mask=vis_d,
+                    enable_gqa=True))
+            except (RuntimeError, TypeError) as e:
+                log(f"scaled_dot_product_attention not timed: {e}")
+        fd_long[mode] = (ms, pms, bms, by, err, lib_ms)
+        detail.append({"kernel": "flash_decode", "mode": mode, "B": B,
+                       "Smax": SL, "pos": PL, "max_abs_err": err,
+                       "kernel_ms": ms, "plain_ms": pms, "bound_ms": bms,
+                       "bound_by": by, "library_ms": lib_ms})
+        print(json.dumps(detail[-1]), flush=True)
+    del kql, vql, kfl, vfl
 
     # the continuous path's decode attention: per-row (B, K) scales on the
     # contiguous slot pool, and the paged pool (page size 64, the pool's P
@@ -517,6 +594,24 @@ def main() -> None:
     log(f"flash_decode_paged bit-identical to flash_decode on the gathered "
         f"pool (int8 (K,) and (B, K), fp, fp + cushion); max |err| vs plain "
         f"{paged_err}; (B, K) contiguous vs plain {err_bk:.3g}")
+    # a row's result does not depend on the batch: row b of the B = 4 call
+    # equals the row computed alone, contiguous and paged
+    for name, full, alone in (
+            ("flash_decode (B, K)",
+             flash_decode(qd, kq, vq, pcase, **int8_bk),
+             lambda r: flash_decode(qd[r], kq[r], vq[r], pcase[r],
+                                    k_scale=ksr[r], v_scale=vsr[r], kc=kc,
+                                    vc=vc)),
+            ("flash_decode_paged fp",
+             flash_decode_paged(qd, kpf, vpf, table, pcase),
+             lambda r: flash_decode_paged(qd[r], kpf, vpf, table[r],
+                                          pcase[r]))):
+        for b_ in range(B):
+            r = slice(b_, b_ + 1)
+            if not torch.equal(full[r], alone(r)):
+                fail(f"{name}: row {b_} of the batch differs from the row "
+                     f"computed alone")
+    log("flash_decode rows independent of the batch (torch.equal)")
     # timed at the continuous path's decode shape: every row at pos_v
     prow = torch.full((B,), pos_v, dtype=torch.int32, device=dev)
     n_live = pos_v + 1 - CUSHION
@@ -1000,7 +1095,10 @@ def main() -> None:
          "unit": f"one prefill ({L} calls, B={B}, S={PROMPT})",
          "ms": L * fa_ms, "plain_ms": L * fa_pms, "bound_ms": L * fa_bms,
          "bound_by": fa_by,
-         "library_ms": None if fa_lib is None else L * fa_lib},
+         "library_ms": None if fa_lib is None else L * fa_lib,
+         "long_unit": "one call, B=1, S=2048, m=4",
+         "long_ms": fa_long[0], "long_plain_ms": fa_long[1],
+         "long_bound_ms": fa_long[2], "long_library_ms": fa_long[5]},
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
          "replaces": "src/repro/kernels/flash_decode.py:163",
@@ -1015,7 +1113,13 @@ def main() -> None:
          "bound_by": cont["flash_decode_BK"][3],
          "static_ms": L * fd["int8"][0], "fp_ms": L * fd["fp"][0],
          "library_ms": None if fd["fp"][5] is None else L * fd["fp"][5],
-         "library_of": "fp mode (fp_ms): scaled_dot_product_attention"},
+         "library_of": "fp mode (fp_ms): scaled_dot_product_attention",
+         "long_unit": f"one call, B={B}, pos {PL} in a {SL}-position cache",
+         "long_ms": fd_long["int8_BK"][0],
+         "long_plain_ms": fd_long["int8_BK"][1],
+         "long_bound_ms": fd_long["int8_BK"][2],
+         "long_fp_ms": fd_long["fp"][0],
+         "long_library_ms": fd_long["fp"][5]},
         {"name": "flash_decode_paged", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
          "replaces": "src/repro/kernels/flash_decode.py:264",

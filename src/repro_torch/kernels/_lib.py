@@ -9,6 +9,8 @@ the sources, so a second process reuses it.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` turns a nonzero code into an exception.
+``flash_decode_workspace_elems`` launches nothing: it sizes the split-KV
+kernel's workspace.
 There is no fallback: a failed build or launch raises.
 
 ``LAUNCHES`` counts kernel launches per kernel name. A wrapper adds one where
@@ -40,7 +42,8 @@ KERNELS = ("w8a8_matmul", "act_quant_static", "flash_attention",
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signature of every entry point (all return cudaError_t as int)
+# C signature of every entry point (all return cudaError_t as int, but
+# those in _RESTYPES)
 _SIGNATURES = {
     # x, w, colsum, s_x, z_x, s_w, z_shift, out, out_bf16, M, N, K, stream
     "w8a8_matmul_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _F, _VP, _I, _I, _I,
@@ -60,16 +63,21 @@ _SIGNATURES = {
     "flash_attention_launch": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
                                _I, _I] + [ctypes.c_longlong] * 12 + [_VP],
     # q, k, v, k_scale, v_scale, scale_per_row, kc, vc, pos, pos_per_row,
-    # out, fp_bf16, cache_int8, B, H, K, Smax, hd, m, stream
+    # out, fp_bf16, cache_int8, B, H, K, Smax, hd, m, workspace, tickets,
+    # stream
     "flash_decode_launch": [_VP, _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I,
-                            _VP, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
+                            _VP, _I, _I, _I, _I, _I, _I, _I, _I, _VP, _VP,
+                            _VP],
     # q, k_pages, v_pages, page_table, k_scale, v_scale, scale_per_row, kc,
     # vc, pos, pos_per_row, out, fp_bf16, cache_int8, B, H, K, P, ps, hd, m,
-    # stream
+    # workspace, tickets, stream
     "flash_decode_paged_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP,
                                   _VP, _I, _VP, _I, _I, _I, _I, _I, _I, _I,
-                                  _I, _I, _VP],
+                                  _I, _I, _VP, _VP, _VP],
+    # B, H, K, Smax, hd
+    "flash_decode_workspace_elems": [_I, _I, _I, _I, _I],
 }
+_RESTYPES = {"flash_decode_workspace_elems": ctypes.c_longlong}
 
 _lib: Optional[ctypes.CDLL] = None
 BUILD_SECONDS: Optional[float] = None
@@ -152,7 +160,7 @@ def lib() -> ctypes.CDLL:
         for name, args in _SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = args
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         _lib = handle
     return _lib
 

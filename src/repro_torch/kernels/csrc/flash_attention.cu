@@ -8,18 +8,51 @@
 //
 //   q (B, H, S, hd), k/v (B, Kh, T, hd), T = prefix_len + S, G = H / Kh
 //   key j is visible to query i  iff  j < T and (j < prefix_len or
-//   j <= i + prefix_len); masked scores are -1e30 (not -inf), and the
-//   output is acc / max(l, 1e-30).
+//   j <= i + prefix_len); masked scores are -1e30 (not -inf), a masked p is
+//   0, and the output is acc / max(l, 1e-30).
 //
-// Bound on the card: operations (S x T x hd multiply-adds per head, twice),
-// which at S = 512 is well above the bytes of q, k, v and out. Design: one
-// block per (b, h, 64-query tile), one thread per query holding its q row,
-// its f32 accumulator and its running max / sum in registers; 32-key K and
-// V tiles are staged in shared memory as f32 and read by every thread as a
-// broadcast. The kv-head is h / G, read in place (no repeat in memory), and
-// key tiles past the tile's last visible key are skipped. Strides are
-// passed in, so q and out may be (B, S, H, hd) tensors viewed as
-// (B, H, S, hd). CUDA cores only: tensor-core MMA is left for later work.
+// Bound on the card: bytes at smollm's prefill shape (q, k, v and out read
+// or written once: 3.1 us a call at B = 4, S = 512, against 2.05 GFLOP of
+// useful work that the bf16 tensor cores do in about 2 us). What holds the
+// kernel back is issue and latency inside the SM (softmax, the split of P,
+// barriers), not either bound. Design of the bf16 kernel (smollm's prefill
+// path): one block per (b, h, 64-query tile), four warps of 16 query rows,
+// three blocks a SM; the grid runs the longest (last) query tiles first.
+// The Q fragments stay in registers for the whole loop. 64-key K and V
+// tiles are staged in shared memory by 16-byte `cp.async` copies,
+// double-buffered so that tile j + 1 loads while tile j computes, rows
+// padded by 16 bytes so that `ldmatrix` (`.trans` for V) reads them without
+// bank conflicts. S = Q K^T runs on `mma.sync.m16n8k16` (bf16 in, f32
+// accumulate). The mask, the online softmax (row max and sum reduced over
+// the quad of lanes that shares a row) and the rescale are f32 on the
+// accumulator fragments, in base 2 as FlashAttention-2 does: one FFMA and
+// one `ex2` per score (e^(x) = 2^(x log2 e); the accurate `expf` takes
+// about a tenth longer, tools/kernel_variants.py).
+//
+// P V must keep the f32 function of the Pallas kernel and of the plain
+// version (one bf16 ulp of the output, with a 1e-6 floor near zero): P
+// rounded once to bf16, as FlashAttention-2 does, misses that for about a
+// tenth of the outputs. So each p is split into three bf16 terms
+// p1 = bf16(p), p2 = bf16(p - p1), p3 = bf16(p - p1 - p2) (together exact
+// to f32's 24 bits), fed as A fragments straight from the accumulator
+// layout, and three `mma.sync` per k-step add them into one f32
+// accumulator: 4.1 GFLOP a call in all, which the tensor cores absorb (P V
+// is about a quarter of the kernel's time). `wgmma` and TMA would not move
+// the bytes bound and are not used.
+//
+// Key tiles start at absolute key 0 and step by 64 whatever the query tile,
+// and tiles past the block's last visible key (q0 + 63 + prefix_len) are
+// not loaded; a warp skips the tiles past its own last visible key. A
+// query's result depends on no other query (a tile a row cannot see would
+// scale its state by 2^0 = 1 and add 0), so a chunked or prefix-tail
+// prefill gives the same rows, bit for bit, as a one-shot one. The kv-head
+// is h / G, read in place; strides are passed in, so q and out may be
+// (B, S, H, hd) tensors viewed as (B, H, S, hd) (rows 16-byte aligned, as
+// the wrapper checks).
+//
+// The f32 instantiation keeps the CUDA-core kernel of the first port (one
+// thread per query row, f32 FMAs): no card path runs an f32 prefill, and
+// TF32 tensor cores would change the function. It was not redesigned.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -42,6 +75,10 @@ template <>
 __device__ __forceinline__ void st<__nv_bfloat16>(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
+
+// ---------------------------------------------------------------------------
+// f32: CUDA cores, one thread per query row (not redesigned)
+// ---------------------------------------------------------------------------
 
 constexpr int BQ = 64;
 constexpr int BKV = 32;
@@ -124,39 +161,343 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-static int dispatch(const void* q, const void* k, const void* v, void* out,
-                    int B, int H, int Kh, int S, int T_, int hd, int P,
-                    const long long* str, cudaStream_t stream) {
-  dim3 grid((S + BQ - 1) / BQ, B * H);
-  const int G = H / Kh;
-  const float scale = 1.0f / sqrtf((float)hd);
-#define FA_ARGS                                                             \
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (mma.sync m16n8k16), cp.async double buffering
+// ---------------------------------------------------------------------------
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int TQ = 64;          // query rows per block (16 per warp)
+constexpr int TK = 64;          // keys per tile
+constexpr int TWARPS = 4;
+constexpr int TTHREADS = TWARPS * 32;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16-byte global -> shared copy; a false predicate fills the 16 bytes with
+// zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a (16x16, row) * b (16x8, col); bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x (MUFU, relative error below 2^-22; results below 2^-126 flush to
+// 0, which no sum of p of at least 1 can see)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// (x, y) as three packed bf16 pairs: p1 = bf16(p), p2 = bf16(p - p1),
+// p3 = bf16(p - p1 - p2), together exact to f32's 24 bits (each
+// subtraction is exact: a term is the nearest bf16 of what is left)
+__device__ __forceinline__ void split3(float x, float y, uint32_t& a1,
+                                       uint32_t& a2, uint32_t& a3) {
+  a1 = pack_rn(x, y);
+  const float rx = __fsub_rn(x, bf16_lo(a1)), ry = __fsub_rn(y, bf16_hi(a1));
+  a2 = pack_rn(rx, ry);
+  a3 = pack_rn(__fsub_rn(rx, bf16_lo(a2)), __fsub_rn(ry, bf16_hi(a2)));
+}
+
+// three blocks of 4 warps a SM: the registers fit (~160 a thread) without
+// spills; a fourth block would cap them at 128 and spill in the loop
+template <int HD>
+__global__ void __launch_bounds__(TTHREADS, 3)
+flash_attention_mma_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, bf16* __restrict__ out,
+                           int H, int G, int S, int T_, int P, long long qsb,
+                           long long qsh, long long qss, long long ksb,
+                           long long ksh, long long kst, long long vsb,
+                           long long vsh, long long vst, long long osb,
+                           long long osh, long long oss, float scale_log2) {
+  constexpr int LD = HD + 8;      // padded row: ldmatrix conflict-free
+  constexpr int CPR = HD / 8;     // 16-byte chunks per row
+  constexpr int KS = HD / 16;     // k-steps of Q K^T
+  constexpr int NO = HD / 8;      // n-tiles of the output
+  constexpr int NS = TK / 8;      // n-tiles of a score tile
+  __shared__ __align__(16) bf16 Qs[TQ * LD];
+  __shared__ __align__(16) bf16 Ks[2][TK * LD];
+  __shared__ __align__(16) bf16 Vs[2][TK * LD];
+
+  // grid (B * H, query tiles), the longest (last) query tiles first
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H, kh = h / G;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * TQ;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const bf16* qb = q + b * qsb + h * qsh;
+  const bf16* kb = k + b * ksb + kh * ksh;
+  const bf16* vb = v + b * vsb + kh * vsh;
+  // last key any query of this tile can see is (q0 + TQ - 1) + P
+  int t_end = q0 + TQ + P;
+  if (t_end > T_) t_end = T_;
+  const int n_tiles = (t_end + TK - 1) / TK;
+
+  for (int i = tid; i < TQ * CPR; i += TTHREADS) {
+    const int r = i / CPR, c = i % CPR, qi = q0 + r;
+    cp_async16(&Qs[r * LD + c * 8],
+               qb + (long long)(qi < S ? qi : 0) * qss + c * 8, qi < S);
+  }
+  auto load_kv = [&](int tile, int buf) {
+    for (int i = tid; i < TK * CPR; i += TTHREADS) {
+      const int r = i / CPR, c = i % CPR, t = tile * TK + r;
+      const bool ok = t < T_;
+      const long long tt = ok ? t : 0;
+      cp_async16(&Ks[buf][r * LD + c * 8], kb + tt * kst + c * 8, ok);
+      cp_async16(&Vs[buf][r * LD + c * 8], vb + tt * vst + c * 8, ok);
+    }
+  };
+  load_kv(0, 0);
+  cp_async_commit();
+
+  // this lane's two rows of the warp's 16 (fragment rows g and g + 8)
+  const int row0 = q0 + warp * 16 + lane / 4;
+  const int row1 = row0 + 8;
+  uint32_t qf[KS][4];
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      load_kv(j + 1, (j + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldmatrix_x4(qf[kk], &Qs[(warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8)
+                                    * LD + kk * 16 + (lane / 16) * 8]);
+    }
+    const bf16* Kt = Ks[j & 1];
+    const bf16* Vt = Vs[j & 1];
+    const int t0 = j * TK;
+    // a tile past the warp's last visible key (q0 + 16 warp + 15 + P) is
+    // masked for all its rows: the warp skips it (a masked p is 0 and adds
+    // nothing)
+    if (t0 <= q0 + warp * 16 + 15 + P) {
+      // S = Q K^T (f32)
+      float s[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+        for (int np = 0; np < NS / 2; ++np) {
+          uint32_t bfr[4];
+          ldmatrix_x4(bfr, &Kt[(np * 16 + (lane % 8) + (lane / 16) * 8) * LD
+                               + kk * 16 + ((lane / 8) % 2) * 8]);
+          mma_bf16(s[2 * np], qf[kk], bfr[0], bfr[1]);
+          mma_bf16(s[2 * np + 1], qf[kk], bfr[2], bfr[3]);
+        }
+      }
+
+      // mask, online softmax (f32) in base 2 on the raw dot products d:
+      // p = 2^(c d - c m) = e^((d - m) / sqrt(hd)) with c = log2(e) /
+      // sqrt(hd), one FFMA and one ex2 per score; a tile every row of the
+      // warp sees whole needs no mask
+      const bool need_mask =
+          t0 + TK > T_ || t0 + TK - 1 > q0 + warp * 16 + P;
+      float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = t0 + n * 8 + (lane % 4) * 2 + (e & 1);
+          const int qi = e < 2 ? row0 : row1;
+          if (need_mask && !(kj < T_ && (kj < P || kj <= qi + P)))
+            s[n][e] = NEG_INF;
+          mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      }
+      // a masked score is -1e30 and every row sees key 0 in tile 0, so mx
+      // is a real score from then on and 2^(c (-1e30) - c mx) is exactly 0:
+      // a masked p is 0
+      float alpha[2], ps[2] = {0.f, 0.f}, cm[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        alpha[r] = ex2(scale_log2 * (m_r[r] - mx[r]));
+        cm[r] = scale_log2 * mx[r];
+      }
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = ex2(fmaf(s[n][e], scale_log2, -cm[e / 2]));
+          ps[e / 2] += s[n][e];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 1);
+        ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 2);
+        l_r[r] = l_r[r] * alpha[r] + ps[r];
+        m_r[r] = mx[r];
+      }
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
+
+      // O += P V, P in three bf16 terms; the A fragment of keys
+      // [16 kk, 16 kk + 16) is score n-tiles 2 kk and 2 kk + 1
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk) {
+        uint32_t a[3][4];
+        split3(s[2 * kk][0], s[2 * kk][1], a[0][0], a[1][0], a[2][0]);
+        split3(s[2 * kk][2], s[2 * kk][3], a[0][1], a[1][1], a[2][1]);
+        split3(s[2 * kk + 1][0], s[2 * kk + 1][1], a[0][2], a[1][2], a[2][2]);
+        split3(s[2 * kk + 1][2], s[2 * kk + 1][3], a[0][3], a[1][3], a[2][3]);
+#pragma unroll
+        for (int dp = 0; dp < NO / 2; ++dp) {
+          uint32_t bfr[4];
+          ldmatrix_x4_trans(bfr, &Vt[(kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8)
+                                         * LD + dp * 16 + (lane / 16) * 8]);
+#pragma unroll
+          for (int term = 0; term < 3; ++term) {
+            mma_bf16(o[2 * dp], a[term], bfr[0], bfr[1]);
+            mma_bf16(o[2 * dp + 1], a[term], bfr[2], bfr[3]);
+          }
+        }
+      }
+    }
+    // every warp is done with buffer j & 1 before tile j + 2 lands in it
+    __syncthreads();
+  }
+
+  const float inv0 = 1.f / fmaxf(l_r[0], 1e-30f);
+  const float inv1 = 1.f / fmaxf(l_r[1], 1e-30f);
+  bf16* ob = out + b * osb + h * osh;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    const int d = n * 8 + (lane % 4) * 2;
+    if (row0 < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row0 * oss + d) =
+          __floats2bfloat162_rn(o[n][0] * inv0, o[n][1] * inv0);
+    if (row1 < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row1 * oss + d) =
+          __floats2bfloat162_rn(o[n][2] * inv1, o[n][3] * inv1);
+  }
+}
+
+// ---------------------------------------------------------------------------
+
+#define FA_ARGS(T)                                                          \
   (const T*)q, (const T*)k, (const T*)v, (T*)out, H, G, S, T_, P, str[0],   \
       str[1], str[2], str[3], str[4], str[5], str[6], str[7], str[8],        \
       str[9], str[10], str[11], scale
+
+static int dispatch_f32(const void* q, const void* k, const void* v,
+                        void* out, int B, int H, int Kh, int S, int T_,
+                        int hd, int P, const long long* str,
+                        cudaStream_t stream) {
+  dim3 grid((S + BQ - 1) / BQ, B * H);
+  const int G = H / Kh;
+  const float scale = 1.0f / sqrtf((float)hd);
   switch (hd) {
-    case 16: flash_attention_kernel<T, 16><<<grid, BQ, 0, stream>>>(FA_ARGS); break;
-    case 32: flash_attention_kernel<T, 32><<<grid, BQ, 0, stream>>>(FA_ARGS); break;
-    case 64: flash_attention_kernel<T, 64><<<grid, BQ, 0, stream>>>(FA_ARGS); break;
+    case 16: flash_attention_kernel<float, 16><<<grid, BQ, 0, stream>>>(FA_ARGS(float)); break;
+    case 32: flash_attention_kernel<float, 32><<<grid, BQ, 0, stream>>>(FA_ARGS(float)); break;
+    case 64: flash_attention_kernel<float, 64><<<grid, BQ, 0, stream>>>(FA_ARGS(float)); break;
     default: return (int)cudaErrorInvalidValue;
   }
-#undef FA_ARGS
   return (int)cudaGetLastError();
 }
 
+static int dispatch_bf16(const void* q, const void* k, const void* v,
+                         void* out, int B, int H, int Kh, int S, int T_,
+                         int hd, int P, const long long* str,
+                         cudaStream_t stream) {
+  dim3 grid(B * H, (S + TQ - 1) / TQ);
+  const int G = H / Kh;
+  // the kernel works in base 2: log2(e) / sqrt(hd)
+  const float scale = (float)(1.4426950408889634 / sqrt((double)hd));
+  switch (hd) {
+    case 16: flash_attention_mma_kernel<16><<<grid, TTHREADS, 0, stream>>>(FA_ARGS(bf16)); break;
+    case 32: flash_attention_mma_kernel<32><<<grid, TTHREADS, 0, stream>>>(FA_ARGS(bf16)); break;
+    case 64: flash_attention_mma_kernel<64><<<grid, TTHREADS, 0, stream>>>(FA_ARGS(bf16)); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+#undef FA_ARGS
+
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out, int bf16, int B,
-    int H, int Kh, int S, int T_, int hd, int prefix_len, long long qsb,
-    long long qsh, long long qss, long long ksb, long long ksh, long long kst,
-    long long vsb, long long vsh, long long vst, long long osb, long long osh,
-    long long oss, void* stream) {
+    const void* q, const void* k, const void* v, void* out, int bf16_in,
+    int B, int H, int Kh, int S, int T_, int hd, int prefix_len,
+    long long qsb, long long qsh, long long qss, long long ksb, long long ksh,
+    long long kst, long long vsb, long long vsh, long long vst,
+    long long osb, long long osh, long long oss, void* stream) {
   const long long str[12] = {qsb, qsh, qss, ksb, ksh, kst,
                              vsb, vsh, vst, osb, osh, oss};
   cudaStream_t st = (cudaStream_t)stream;
-  if (bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, out, B, H, Kh, S, T_, hd,
-                                   prefix_len, str, st);
-  return dispatch<float>(q, k, v, out, B, H, Kh, S, T_, hd, prefix_len, str,
+  if (bf16_in)
+    return dispatch_bf16(q, k, v, out, B, H, Kh, S, T_, hd, prefix_len, str,
                          st);
+  return dispatch_f32(q, k, v, out, B, H, Kh, S, T_, hd, prefix_len, str, st);
 }

@@ -20,29 +20,58 @@
 //
 // Bound on the card: bytes. Each step reads the live part of the cache once
 // (int8: 1 byte per element, half of bf16) and does 2 multiply-adds per
-// element read for each of the G query heads that share a kv-head. Design:
-// one block per (b, kv-head) holding its G query heads, so GQA reads each
-// kv row once and never repeats heads in memory; eight warps split the
-// positions round-robin, each lane owns hd/32 dims of q, k, v and the
-// accumulator, the score is a warp shuffle reduction, and every warp keeps
-// its own f32 online softmax (max, sum, acc) in registers, merged through
-// shared memory at the end. The int8 dequant multiplies by the head's scale
-// in registers. Positions past pos are never read. With B * K = 20 blocks
-// on 132 SMs the card is mostly idle at smollm's decode shape; splitting
-// positions across blocks (split-KV with a combine pass) is left for later.
+// element read for each of the G query heads that share a kv-head, far too
+// little work for a tensor core (G <= 8 rows). At smollm's B * K = 20
+// (b, kv-head) pairs the first port lost to latency, not bytes: one block
+// per pair walked its positions one dependent load at a time. Now what
+// bounds a call is a chain of memory round trips (pos, the chunk's rows,
+// the ticket, the partials) and the launch, not the bytes.
+//
+// Design (split-KV): each row's positions are cut into fixed chunks of
+// CH = 64, and the grid is (ceil(Smax / CH), B * K): 200 blocks at a
+// 640-position cache. A block stages its chunk's K and V rows in shared
+// memory as f32 with 16-byte vector loads, all in flight at once (int8
+// dequantized with the head's scale as it is read; positions below m come
+// from the cushion), computes the chunk's CH x G scores in parallel, one
+// max and one sum per query head, and P V with a thread per (g, d). Its
+// partial (m, l, acc[G][hd]) goes to a workspace. A chunk that starts past
+// the row's last position (max(pos[b], m - 1), pos clamped to Smax - 1)
+// reads nothing and writes no partial. All arithmetic is f32 but the
+// scores' dot products, which are f64: with int8 KV the scores reach about
+// 15 and pass through exp, so their f32 rounding is what moves outputs
+// near zero by a few 1e-6 at long lengths, the size of the 1e-6 floor of
+// the one-bf16-ulp check the kernel is held to (and of the plain version's
+// own f32 error). f64 there costs about 1 us a call; f64 in the other sums
+// bought no margin and cost 8 us at 4096 positions
+// (tools/kernel_variants.py).
+//
+// The merge is deterministic: every block of a (b, kv-head) takes a ticket
+// with atomicAdd after a __threadfence(); the last one reads the partials
+// of the row's live chunks in chunk order 0..n-1, writes the output and
+// resets the counter to 0 for the next launch. The result depends neither
+// on which block merges nor on block timing, on B or on the address map:
+// the chunks, the order of every sum and the merge order are fixed by the
+// positions alone. The counters are an int32 buffer that the wrapper keeps
+// for each (device, stream), zeroed once: launches on one stream run in
+// order, so no two kernels share them at once. One launch per call: the
+// decode path is host-bound and a second (combine) launch would cost host
+// time on every layer of every step.
 //
 // Both layouts run one kernel body; a template parameter maps (b, t) to the
 // row's address (`Contig`, `Paged`), so the paged kernel on a pool adds the
 // same terms in the same order as the contiguous kernel on the gathered
-// cache and the two agree bit for bit. The paged variant reads one int32 of
-// the page table per position (cached in L1: a row's table is P ints).
+// cache and the two agree bit for bit. K/V rows are read as 16-byte vectors
+// (the wrapper checks the alignment).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #define NEG_INF (-1e30f)
-constexpr int NW = 8;      // warps per block
-constexpr int GMAX = 8;    // most query heads per kv-head
+constexpr int CH = 64;       // positions per chunk
+constexpr int NT = 256;      // threads per block
+constexpr int GMAX = 8;      // most query heads per kv-head
+typedef double dot_t;        // the scores' dot products (see above)
+typedef float acc_t;         // every other sum
 
 template <typename T>
 __device__ __forceinline__ float ld(const T* p);
@@ -52,7 +81,6 @@ template <>
 __device__ __forceinline__ float ld<__nv_bfloat16>(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
-__device__ __forceinline__ float ld(const int8_t* p) { return (float)(*p); }
 
 template <typename T>
 __device__ __forceinline__ void st(T* p, float v);
@@ -63,11 +91,50 @@ __device__ __forceinline__ void st<__nv_bfloat16>(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// a 16-byte vector of cache elements -> f32 in shared memory (int8 scaled
+// by the head's dequant scale)
+template <typename C>
+struct Vec;
+template <>
+struct Vec<int8_t> {
+  static constexpr int N = 16;
+  static __device__ __forceinline__ void put(float* dst, uint4 raw,
+                                             float sc) {
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float4*>(dst + 4 * i) = make_float4(
+          (float)(int8_t)(w[i] & 0xff) * sc,
+          (float)(int8_t)((w[i] >> 8) & 0xff) * sc,
+          (float)(int8_t)((w[i] >> 16) & 0xff) * sc,
+          (float)(int8_t)(w[i] >> 24) * sc);
+  }
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ float lo(uint32_t w) {
+    return __bfloat162float(__ushort_as_bfloat16((unsigned short)(w & 0xffff)));
+  }
+  static __device__ __forceinline__ float hi(uint32_t w) {
+    return __bfloat162float(__ushort_as_bfloat16((unsigned short)(w >> 16)));
+  }
+  static __device__ __forceinline__ void put(float* dst, uint4 raw, float) {
+    *reinterpret_cast<float4*>(dst) =
+        make_float4(lo(raw.x), hi(raw.x), lo(raw.y), hi(raw.y));
+    *reinterpret_cast<float4*>(dst + 4) =
+        make_float4(lo(raw.z), hi(raw.z), lo(raw.w), hi(raw.w));
+  }
+};
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void put(float* dst, uint4 raw, float) {
+    *reinterpret_cast<float4*>(dst) =
+        make_float4(__uint_as_float(raw.x), __uint_as_float(raw.y),
+                    __uint_as_float(raw.z), __uint_as_float(raw.w));
+  }
+};
 
 // element offset of position t of row b, kv-head kh, dim 0
 struct Contig {
@@ -87,108 +154,239 @@ struct Paged {
   }
 };
 
+__device__ __forceinline__ acc_t warp_sum(acc_t v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+__device__ __forceinline__ acc_t warp_max(acc_t v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmax(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 template <typename T, typename C, int HD, typename Addr>
-__global__ void __launch_bounds__(NW * 32)
+__global__ void __launch_bounds__(NT)
 flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ k,
                     const C* __restrict__ v, const float* __restrict__ ks,
                     const float* __restrict__ vs, int scale_per_row,
                     const T* __restrict__ kc, const T* __restrict__ vc,
                     const int* __restrict__ pos, int pos_per_row,
                     T* __restrict__ out, int H, int K, int Smax, int mc,
-                    float scale, Addr addr) {
-  constexpr int DPL = (HD + 31) / 32;     // dims per lane
-  __shared__ float sm_m[NW][GMAX];
-  __shared__ float sm_l[NW][GMAX];
-  __shared__ float sm_acc[NW][GMAX][HD];
+                    acc_t scale, Addr addr, acc_t* __restrict__ ws,
+                    int* __restrict__ tickets) {
+  constexpr int LDS = HD + 4;              // float4 reads conflict-free
+  constexpr int VN = Vec<C>::N;            // elements per 16-byte vector
+  constexpr int VPR = HD / VN;             // vectors per row
+  constexpr int ITER = (CH * VPR + NT - 1) / NT;
+  __shared__ __align__(16) float Ks[CH * LDS];
+  __shared__ __align__(16) float Vs[CH * LDS];
+  __shared__ __align__(16) float Qs[GMAX * HD];
+  __shared__ acc_t Ps[GMAX][CH];          // scores, then p; merge weights
+  __shared__ acc_t Ls[GMAX][CH];          // merge: l_c * w_c
+  __shared__ int s_last;
 
-  const int b = blockIdx.x / K, kh = blockIdx.x % K;
+  const int c = blockIdx.x, nch = gridDim.x;
+  const int bk = blockIdx.y, b = bk / K, kh = bk % K;
   const int G = H / K;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int si = scale_per_row ? b * K + kh : kh;
   const float ksc = ks ? ks[si] : 1.f;
   const float vsc = vs ? vs[si] : 1.f;
-
-  float qv[GMAX][DPL], acc[GMAX][DPL], m[GMAX], l[GMAX];
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    m[g] = NEG_INF;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) {
-      const int d = lane * DPL + e;
-      qv[g][e] = (g < G && d < HD)
-                     ? ld(q + ((long long)b * H + kh * G + g) * HD + d)
-                     : 0.f;
-      acc[g][e] = 0.f;
-    }
-  }
-
   const int p = pos_per_row ? pos[b] : pos[0];
-  int last = p < Smax - 1 ? p : Smax - 1;      // cache positions <= pos
-  // positions [0, mc) from the fp cushion, then cache rows [mc, last]
-  for (int t = warp; t <= (last > mc - 1 ? last : mc - 1); t += NW) {
-    float kr[DPL], vr[DPL];
-    if (t < mc) {
-      const long long base = ((long long)t * K + kh) * HD;
+  int last = p < Smax - 1 ? p : Smax - 1;   // cache positions <= pos
+  if (last < mc - 1) last = mc - 1;         // the cushion stays visible
+  const int t0 = c * CH;
+  const int nv = min(CH, last - t0 + 1);    // this chunk's positions
+  // workspace (f32): acc (B*K, nch, G, HD), then (m, l) (B*K, nch, G, 2)
+  acc_t* acc_bk = ws + (long long)bk * nch * G * HD;
+  acc_t* ml_bk = ws + (long long)gridDim.y * nch * G * HD
+                  + (long long)bk * nch * G * 2;
+
+  if (nv > 0) {
+    // cache rows [max(t0, mc), t0 + nv): every vector load in flight first
+    uint4 kr[ITER], vr[ITER];
 #pragma unroll
-      for (int e = 0; e < DPL; ++e) {
-        const int d = lane * DPL + e;
-        kr[e] = d < HD ? ld(kc + base + d) : 0.f;
-        vr[e] = d < HD ? ld(vc + base + d) : 0.f;
-      }
-    } else {
-      const long long base = addr.row(b, t, K, kh, HD);
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) {
-        const int d = lane * DPL + e;
-        kr[e] = d < HD ? ld(k + base + d) * ksc : 0.f;
-        vr[e] = d < HD ? ld(v + base + d) * vsc : 0.f;
+    for (int it = 0; it < ITER; ++it) {
+      const int idx = tid + it * NT, r = idx / VPR, cv = idx % VPR;
+      if (idx < CH * VPR && r < nv && t0 + r >= mc) {
+        const long long off = addr.row(b, t0 + r, K, kh, HD) + cv * VN;
+        kr[it] = *reinterpret_cast<const uint4*>(k + off);
+        vr[it] = *reinterpret_cast<const uint4*>(v + off);
       }
     }
+    for (int i = tid; i < G * HD; i += NT)
+      Qs[i] = ld(q + ((long long)b * H + kh * G) * HD + i);
+    // cushion rows [t0, min(t0 + nv, mc))
+    const int ncu = min(nv, mc - t0);
+    for (int i = tid; i < ncu * HD; i += NT) {
+      const int r = i / HD, d = i % HD;
+      const long long off = ((long long)(t0 + r) * K + kh) * HD + d;
+      Ks[r * LDS + d] = ld(kc + off);
+      Vs[r * LDS + d] = ld(vc + off);
+    }
 #pragma unroll
-    for (int g = 0; g < GMAX; ++g) {
-      if (g >= G) break;
-      float part = 0.f;
+    for (int it = 0; it < ITER; ++it) {
+      const int idx = tid + it * NT, r = idx / VPR, cv = idx % VPR;
+      if (idx < CH * VPR && r < nv && t0 + r >= mc) {
+        Vec<C>::put(&Ks[r * LDS + cv * VN], kr[it], ksc);
+        Vec<C>::put(&Vs[r * LDS + cv * VN], vr[it], vsc);
+      }
+    }
+    __syncthreads();
+
+    // scores: thread (t, g) for g = gq, gq + 4 (NT / CH = 4 quarters)
+    {
+      const int t = tid % CH, gq = tid / CH;
+      if (t < nv) {
+        // four partial sums (dims d mod 4) per head: short f64 chains
+        dot_t acc[GMAX / 4][4] = {};
+#pragma unroll 4
+        for (int d = 0; d < HD; d += 4) {
+          const float4 kv4 = *reinterpret_cast<const float4*>(&Ks[t * LDS + d]);
 #pragma unroll
-      for (int e = 0; e < DPL; ++e) part += qv[g][e] * kr[e];
-      const float s = warp_sum(part) * scale;
-      const float mn = fmaxf(m[g], s);
-      const float alpha = expf(m[g] - mn);
-      const float pr = expf(s - mn);
-      l[g] = l[g] * alpha + pr;
+          for (int j = 0; j < GMAX / 4; ++j) {
+            const int g = gq + 4 * j;
+            if (g < G) {
+              const float4 q4 =
+                  *reinterpret_cast<const float4*>(&Qs[g * HD + d]);
+              acc[j][0] = fma((dot_t)q4.x, (dot_t)kv4.x, acc[j][0]);
+              acc[j][1] = fma((dot_t)q4.y, (dot_t)kv4.y, acc[j][1]);
+              acc[j][2] = fma((dot_t)q4.z, (dot_t)kv4.z, acc[j][2]);
+              acc[j][3] = fma((dot_t)q4.w, (dot_t)kv4.w, acc[j][3]);
+            }
+          }
+        }
 #pragma unroll
-      for (int e = 0; e < DPL; ++e) acc[g][e] = acc[g][e] * alpha + pr * vr[e];
-      m[g] = mn;
+        for (int j = 0; j < GMAX / 4; ++j)
+          if (gq + 4 * j < G)
+            Ps[gq + 4 * j][t] = acc_t(
+                ((acc[j][0] + acc[j][1]) + (acc[j][2] + acc[j][3])) * scale);
+      }
+    }
+    __syncthreads();
+
+    // one max and one sum per query head: warp g
+    if (warp < G) {
+      const acc_t s0 = lane < nv ? Ps[warp][lane] : NEG_INF;
+      const acc_t s1 = lane + 32 < nv ? Ps[warp][lane + 32] : NEG_INF;
+      const acc_t mx = warp_max(fmax(s0, s1));
+      const acc_t p0 = lane < nv ? exp(s0 - mx) : acc_t(0);
+      const acc_t p1 = lane + 32 < nv ? exp(s1 - mx) : acc_t(0);
+      Ps[warp][lane] = p0;
+      Ps[warp][lane + 32] = p1;
+      const acc_t l = warp_sum(p0 + p1);
+      if (lane == 0) {
+        ml_bk[(c * G + warp) * 2] = mx;
+        ml_bk[(c * G + warp) * 2 + 1] = l;
+      }
+    }
+    __syncthreads();
+
+    // P V: thread per (g, d)
+    for (int i = tid; i < G * HD; i += NT) {
+      const int g = i / HD, d = i % HD;
+      // four partial sums (positions t mod 4): short f32 chains
+      acc_t a[4] = {};
+      int t = 0;
+      for (; t + 4 <= nv; t += 4) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          a[u] = fma(Ps[g][t + u], (acc_t)Vs[(t + u) * LDS + d], a[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < 3; ++u)
+        if (t + u < nv)
+          a[u] = fma(Ps[g][t + u], (acc_t)Vs[(t + u) * LDS + d], a[u]);
+      acc_bk[(long long)c * G * HD + i] = (a[0] + a[1]) + (a[2] + a[3]);
     }
   }
 
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) {
-      const int d = lane * DPL + e;
-      if (d < HD) sm_acc[warp][g][d] = acc[g][e];
-    }
+  // ticket: the last block of this (b, kv-head) merges. The barrier orders
+  // the block's partial writes before thread 0's fence, which makes them
+  // visible on the device before its ticket; the merging block fences
+  // again before it reads (L2, past L1)
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    s_last = atomicAdd(&tickets[bk], 1) == nch - 1;
+    if (s_last) __threadfence();
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < G * HD; i += NW * 32) {
-    const int g = i / HD, d = i % HD;
-    float M = NEG_INF;
+  if (!s_last) return;
+
+  // merge the live chunks in order 0..n_live-1, CH chunks a batch: a
+  // batch's (m, l) read at once, its weights exp(m_c - M) against the
+  // running max M (the sums so far rescaled when M grows), then its
+  // partials, 16 loads in flight per thread
+  const int n_live = last < 0 ? 0 : min(last / CH + 1, nch);
+  constexpr int R = (GMAX * HD + NT - 1) / NT;
+  constexpr int U = 16;
+  __shared__ acc_t Mrun[GMAX], Resc[GMAX];
+  acc_t A[R], L[R];
 #pragma unroll
-    for (int w = 0; w < NW; ++w) M = fmaxf(M, sm_m[w][g]);
-    float L = 0.f, A = 0.f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const float c = expf(sm_m[w][g] - M);
-      L += sm_l[w][g] * c;
-      A += sm_acc[w][g][d] * c;
+  for (int r = 0; r < R; ++r) A[r] = L[r] = acc_t(0);
+  if (tid < GMAX) Mrun[tid] = NEG_INF;
+  for (int cb = 0; cb < n_live; cb += CH) {
+    const int nb = min(CH, n_live - cb);
+    __syncthreads();
+    for (int i = tid; i < nb * G; i += NT) {
+      const int cc = i / G, g = i % G;
+      const acc_t* ml = ml_bk + ((cb + cc) * G + g) * 2;
+      Ps[g][cc] = __ldcg(ml);
+      Ls[g][cc] = __ldcg(ml + 1);
     }
-    st(out + ((long long)b * H + kh * G + g) * HD + d, A / fmaxf(L, 1e-30f));
+    __syncthreads();
+    if (warp < G) {
+      acc_t bm = NEG_INF;
+      for (int cc = lane; cc < nb; cc += 32) bm = fmax(bm, Ps[warp][cc]);
+      const acc_t Mn = fmax(Mrun[warp], warp_max(bm));
+      for (int cc = lane; cc < nb; cc += 32) {
+        const acc_t w = exp(Ps[warp][cc] - Mn);
+        Ps[warp][cc] = w;
+        Ls[warp][cc] *= w;
+      }
+      __syncwarp();
+      if (lane == 0) {
+        Resc[warp] = exp(Mrun[warp] - Mn);
+        Mrun[warp] = Mn;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = tid + r * NT;
+      if (i < G * HD) {
+        const int g = i / HD;
+        A[r] *= Resc[g];
+        L[r] *= Resc[g];
+        const acc_t* src = acc_bk + (long long)cb * G * HD + i;
+        for (int c0 = 0; c0 < nb; c0 += U) {
+          acc_t x[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+            x[u] = c0 + u < nb ? __ldcg(src + (long long)(c0 + u) * G * HD)
+                               : acc_t(0);
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            if (c0 + u < nb) {
+              A[r] = fma(x[u], Ps[g][c0 + u], A[r]);
+              L[r] += Ls[g][c0 + u];
+            }
+          }
+        }
+      }
+    }
   }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = tid + r * NT;
+    if (i < G * HD)
+      st(out + ((long long)b * H + kh * G) * HD + i,
+         (float)(A[r] / fmax(L[r], acc_t(1e-30))));
+  }
+  if (tid == 0) tickets[bk] = 0;
 }
 
 template <typename T, typename C, typename Addr>
@@ -196,17 +394,20 @@ static int dispatch(const void* q, const void* k, const void* v,
                     const void* ks, const void* vs, int scale_per_row,
                     const void* kc, const void* vc, const void* pos,
                     int per_row, void* out, int B, int H, int K, int Smax,
-                    int hd, int mc, Addr addr, cudaStream_t stream) {
+                    int hd, int mc, Addr addr, void* ws, void* tickets,
+                    cudaStream_t stream) {
   if (H % K != 0 || H / K > GMAX) return (int)cudaErrorInvalidValue;
-  const float scale = 1.0f / sqrtf((float)hd);
+  const acc_t scale = acc_t(1.0 / sqrt((double)hd));
+  dim3 grid((Smax + CH - 1) / CH, B * K);
 #define FD_ARGS                                                            \
   (const T*)q, (const C*)k, (const C*)v, (const float*)ks,                 \
       (const float*)vs, scale_per_row, (const T*)kc, (const T*)vc,         \
-      (const int*)pos, per_row, (T*)out, H, K, Smax, mc, scale, addr
+      (const int*)pos, per_row, (T*)out, H, K, Smax, mc, scale, addr,      \
+      (acc_t*)ws, (int*)tickets
   switch (hd) {
-    case 16: flash_decode_kernel<T, C, 16, Addr><<<B * K, NW * 32, 0, stream>>>(FD_ARGS); break;
-    case 32: flash_decode_kernel<T, C, 32, Addr><<<B * K, NW * 32, 0, stream>>>(FD_ARGS); break;
-    case 64: flash_decode_kernel<T, C, 64, Addr><<<B * K, NW * 32, 0, stream>>>(FD_ARGS); break;
+    case 16: flash_decode_kernel<T, C, 16, Addr><<<grid, NT, 0, stream>>>(FD_ARGS); break;
+    case 32: flash_decode_kernel<T, C, 32, Addr><<<grid, NT, 0, stream>>>(FD_ARGS); break;
+    case 64: flash_decode_kernel<T, C, 64, Addr><<<grid, NT, 0, stream>>>(FD_ARGS); break;
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FD_ARGS
@@ -218,11 +419,13 @@ static int launch(const void* q, const void* k, const void* v, const void* ks,
                   const void* vs, int scale_per_row, const void* kc,
                   const void* vc, const void* pos, int pos_per_row, void* out,
                   int bf16, int cache_int8, int B, int H, int K, int Smax,
-                  int hd, int mc, Addr addr, void* stream) {
+                  int hd, int mc, Addr addr, void* ws, void* tickets,
+                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
 #define FD_CALL(T, C)                                                       \
   dispatch<T, C, Addr>(q, k, v, ks, vs, scale_per_row, kc, vc, pos,         \
-                       pos_per_row, out, B, H, K, Smax, hd, mc, addr, st)
+                       pos_per_row, out, B, H, K, Smax, hd, mc, addr, ws,   \
+                       tickets, st)
   if (bf16) {
     if (cache_int8) return FD_CALL(__nv_bfloat16, int8_t);
     return FD_CALL(__nv_bfloat16, __nv_bfloat16);
@@ -232,7 +435,15 @@ static int launch(const void* q, const void* k, const void* v, const void* ks,
 #undef FD_CALL
 }
 
-// contiguous cache: k/v (B, Smax, K, hd)
+// acc_t (f32) values of the workspace a launch over Smax positions needs:
+// the partials (acc, m, l) of every chunk of every (row, kv-head)
+extern "C" long long flash_decode_workspace_elems(int B, int H, int K,
+                                                  int Smax, int hd) {
+  return (long long)B * K * ((Smax + CH - 1) / CH) * (H / K) * (hd + 2);
+}
+
+// contiguous cache: k/v (B, Smax, K, hd); ws: flash_decode_workspace_elems
+// acc_t values; tickets: B*K int32 zeros
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* ks,
                                    const void* vs, int scale_per_row,
@@ -240,20 +451,21 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* pos, int pos_per_row,
                                    void* out, int bf16, int cache_int8, int B,
                                    int H, int K, int Smax, int hd, int mc,
-                                   void* stream) {
+                                   void* ws, void* tickets, void* stream) {
   return launch(q, k, v, ks, vs, scale_per_row, kc, vc, pos, pos_per_row, out,
-                bf16, cache_int8, B, H, K, Smax, hd, mc, Contig{Smax},
-                stream);
+                bf16, cache_int8, B, H, K, Smax, hd, mc, Contig{Smax}, ws,
+                tickets, stream);
 }
 
-// paged pool: k/v (n_pages, ps, K, hd), page_table (B, P) int32
+// paged pool: k/v (n_pages, ps, K, hd), page_table (B, P) int32; ws and
+// tickets as above with Smax = P * ps
 extern "C" int flash_decode_paged_launch(
     const void* q, const void* k, const void* v, const void* page_table,
     const void* ks, const void* vs, int scale_per_row, const void* kc,
     const void* vc, const void* pos, int pos_per_row, void* out, int bf16,
     int cache_int8, int B, int H, int K, int P, int ps, int hd, int mc,
-    void* stream) {
+    void* ws, void* tickets, void* stream) {
   return launch(q, k, v, ks, vs, scale_per_row, kc, vc, pos, pos_per_row, out,
                 bf16, cache_int8, B, H, K, P * ps, hd, mc,
-                Paged{(const int*)page_table, P, ps}, stream);
+                Paged{(const int*)page_table, P, ps}, ws, tickets, stream);
 }

@@ -64,6 +64,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head_dim {hd} not built (16, 32, 64)")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("head_dim must be the contiguous axis")
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])
+            for t in (q, k, v)):
+        raise ValueError("the bf16 kernel copies q/k/v rows in 16-byte "
+                         "pieces: rows must start 16-byte aligned")
     _lib.require_cuda(q, k, v)
     buf = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     out = buf.transpose(1, 2)

@@ -20,7 +20,7 @@ plain version (``flash_decode_plain``, ``flash_decode_paged_plain``).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -133,6 +133,9 @@ def _operands(q, k, v, pos, k_scale, v_scale, kc, vc, K: int):
         tensors += [kc, vc]
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash_decode takes contiguous operands")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("the kernel reads K/V rows as 16-byte vectors: "
+                         "k and v must start 16-byte aligned")
     posv = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
     if posv.numel() not in (1, B) or not posv.is_contiguous():
         raise ValueError(f"pos must be () or ({B},) int32")
@@ -141,6 +144,27 @@ def _operands(q, k, v, pos, k_scale, v_scale, kc, vc, K: int):
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+# merge counters of the split-KV kernel, one buffer per (device, stream)
+_TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _scratch(q: torch.Tensor, K: int, Smax: int):
+    """The split-KV kernel's f32 partials (m, l, acc) of every chunk of
+    every (row, kv-head), sized by the kernel's own chunking, and its
+    per-(row, kv-head) merge counters: int32 zeros kept per device and
+    stream (the last block of a row resets its counter; a second stream
+    gets buffers of its own) and grown on demand."""
+    B, H, hd = q.shape
+    n = _lib.lib().flash_decode_workspace_elems(B, H, K, Smax, hd)
+    ws = torch.empty(n, dtype=torch.float32, device=q.device)
+    key = (q.device, _lib.stream_ptr(q))
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < B * K:
+        t = torch.zeros(B * K, dtype=torch.int32, device=q.device)
+        _TICKETS[key] = t
+    return ws, t
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
@@ -164,12 +188,13 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
                          "for int8 caches)")
     _lib.require_cuda(*tensors, posv)
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
+    ws, tickets = _scratch(q, K, Smax)
     code = _lib.lib().flash_decode_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
         _ptr(v_scale), int(per_row), _ptr(kc), _ptr(vc), posv.data_ptr(),
         int(posv.numel() == B and posv.dim() == 1), out.data_ptr(),
         int(q.dtype == torch.bfloat16), int(quantized), B, H, K, Smax, hd, m,
-        _lib.stream_ptr(q))
+        ws.data_ptr(), tickets.data_ptr(), _lib.stream_ptr(q))
     _lib.check(code, "flash_decode")
     _lib.count("flash_decode")
     return out
@@ -200,13 +225,14 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
         q, k_pages, v_pages, pos, k_scale, v_scale, kc, vc, K)
     _lib.require_cuda(*tensors, posv, page_table)
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
+    ws, tickets = _scratch(q, K, P * ps)
     code = _lib.lib().flash_decode_paged_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), _ptr(k_scale), _ptr(v_scale), int(per_row),
         _ptr(kc), _ptr(vc), posv.data_ptr(),
         int(posv.numel() == B and posv.dim() == 1), out.data_ptr(),
         int(q.dtype == torch.bfloat16), int(quantized), B, H, K, P, ps, hd,
-        m, _lib.stream_ptr(q))
+        m, ws.data_ptr(), tickets.data_ptr(), _lib.stream_ptr(q))
     _lib.check(code, "flash_decode_paged")
     _lib.count("flash_decode_paged")
     return out

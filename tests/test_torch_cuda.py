@@ -11,8 +11,10 @@ one (the fixture decides, never the module's import). On the card:
 Tolerances: w8a8_matmul, w4a8_matmul, act_quant_static and
 act_quant_ptoken bit-exact (the kernels repeat the plain versions' f32 or
 bf16-rounded arithmetic step by step); attention in bf16 within
-one bf16 ulp of the plain version's f32-accumulated result; the paged
-decode kernel bit-identical to the contiguous one on the gathered pool.
+one bf16 ulp of the plain version's f32-accumulated result, in f32 within
+1e-5; the paged decode kernel bit-identical to the contiguous one on the
+gathered pool, a decode row bit-identical to the row computed alone, and
+the last rows of a prefill bit-identical to a call on those rows alone.
 """
 import pytest
 
@@ -194,3 +196,165 @@ def test_paged_decode_bit_identical_to_contiguous(dev, quantized, per_row):
         _within_ulp(flash_decode_paged(q, kp, vp, table, pos, kc=kc, vc=kc),
                     flash_decode_paged_plain(q, kp, vp, table, pos, kc=kc,
                                              vc=kc))
+
+
+def _attn_inputs(g, dev, B, Kh, G, S, m, hd, dt):
+    mk = lambda *s: torch.randn(s, generator=g, device=dev).to(dt)  # noqa
+    return mk(B, Kh * G, S, hd), mk(B, Kh, S + m, hd), mk(B, Kh, S + m, hd)
+
+
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("m", [0, 4, 37])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 300])
+def test_flash_attention_bf16_edges_within_one_ulp(dev, S, m, hd, G):
+    """The tensor-core kernel at ragged query and key tiles, a prefix that
+    crosses no tile, a few or most of one, every built head_dim, MHA and
+    GQA: within one bf16 ulp of the plain version."""
+    g = torch.Generator(dev).manual_seed(S * 1000 + m * 10 + hd + G)
+    q, k, v = _attn_inputs(g, dev, 2, 2, G, S, m, hd, torch.bfloat16)
+    _within_ulp(flash_attention(q, k, v, prefix_len=m),
+                flash_attention_plain(q, k, v, prefix_len=m))
+
+
+@pytest.mark.parametrize("S,m,hd,G", [(300, 4, 64, 3), (512, 4, 64, 3),
+                                      (130, 37, 32, 1)])
+def test_flash_attention_rows_independent(dev, S, m, hd, G):
+    """The last 100 query rows of a one-shot call equal, bit for bit, a call
+    on those rows alone with the prefix moved by the cut (the chunked
+    prefill's call): key tiles start at key 0 whatever the query tile."""
+    g = torch.Generator(dev).manual_seed(S + m)
+    q, k, v = _attn_inputs(g, dev, 2, 5 if G == 3 else 2, G, S, m, hd,
+                           torch.bfloat16)
+    cut = S - 100
+    full = flash_attention(q, k, v, prefix_len=m)
+    tail = flash_attention(q[:, :, cut:], k, v, prefix_len=m + cut)
+    torch.cuda.synchronize()
+    assert torch.equal(full[:, :, cut:], tail)
+
+
+def test_flash_attention_f32_within_1e5(dev):
+    """The f32 instantiation (CUDA cores, not redesigned)."""
+    g = torch.Generator(dev).manual_seed(5)
+    q, k, v = _attn_inputs(g, dev, 2, 5, 3, 100, 4, 64, torch.float32)
+    torch.testing.assert_close(flash_attention(q, k, v, prefix_len=4),
+                               flash_attention_plain(q, k, v, prefix_len=4),
+                               rtol=1e-5, atol=1e-5)
+
+
+def _decode_case(g, dev, mode, dt, B, Kh, G, hd, Smax, m):
+    q = torch.randn((B, Kh * G, hd), generator=g, device=dev).to(dt)
+    if mode == "fp":
+        k = torch.randn((B, Smax, Kh, hd), generator=g, device=dev).to(dt)
+        v = torch.randn((B, Smax, Kh, hd), generator=g, device=dev).to(dt)
+        return q, k, v, {}
+    k = torch.randint(-127, 128, (B, Smax, Kh, hd), generator=g, device=dev,
+                      dtype=torch.int8)
+    v = torch.randint(-127, 128, (B, Smax, Kh, hd), generator=g, device=dev,
+                      dtype=torch.int8)
+    shape = (B, Kh) if mode == "int8-BK" else (Kh,)
+    sc = lambda: torch.rand(shape, generator=g, device=dev) * 0.05 + 0.01  # noqa
+    return q, k, v, dict(
+        k_scale=sc(), v_scale=sc(),
+        kc=torch.randn((m, Kh, hd), generator=g, device=dev).to(dt),
+        vc=torch.randn((m, Kh, hd), generator=g, device=dev).to(dt))
+
+
+def _paginate(g, dev, k, v, ps):
+    """dense (B, Smax, K, hd) k and v -> shuffled page stores with junk in
+    the scratch page 0, and their shared (B, Smax / ps) table."""
+    B, Smax = k.shape[:2]
+    P = Smax // ps
+    n_pages = B * P + 1
+    table = (torch.randperm(n_pages - 1, generator=g, device=dev) + 1) \
+        .to(torch.int32).reshape(B, P)
+    stores = []
+    for dense in (k, v):
+        pages = torch.full((n_pages, ps, *dense.shape[2:]), 99,
+                           dtype=dense.dtype, device=dev)
+        pages[table.reshape(-1).long()] = dense.reshape(B * P, ps,
+                                                        *dense.shape[2:])
+        stores.append(pages)
+    return stores[0], stores[1], table
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("mode", ["fp", "int8-K", "int8-BK"])
+@pytest.mark.parametrize("paged", [False, True], ids=["contig", "paged"])
+def test_flash_decode_split_kv_edges(dev, paged, mode, dt):
+    """pos at m - 1, on both sides of the first 64-position chunk edge, the
+    last position and retired, in a 200-position cache (no multiple of
+    64; paged: 5 pages of 40): within one bf16 ulp of the plain version
+    (f32: 1e-5)."""
+    g = torch.Generator(dev).manual_seed(11)
+    B, Kh, G, hd, Smax, m = 6, 5, 3, 64, 200, 4
+    q, k, v, kw = _decode_case(g, dev, mode, dt, B, Kh, G, hd, Smax, m)
+    cm = m if mode != "fp" else 0
+    pos = torch.tensor([cm - 1 if cm else 0, 63, 64, 65, Smax - 1, -1],
+                       dtype=torch.int32, device=dev)
+    if paged:
+        kp, vp, table = _paginate(g, dev, k, v, 40)
+        got = flash_decode_paged(q, kp, vp, table, pos, **kw)
+        want = flash_decode_paged_plain(q, kp, vp, table, pos, **kw)
+    else:
+        got = flash_decode(q, k, v, pos, **kw)
+        want = flash_decode_plain(q, k, v, pos, **kw)
+    if dt == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        _within_ulp(got, want)
+    if mode == "fp":
+        assert not got[-1].any()          # retired, no cushion: zeros
+
+
+@pytest.mark.parametrize("mode", ["fp", "int8-BK"])
+@pytest.mark.parametrize("paged", [False, True], ids=["contig", "paged"])
+def test_flash_decode_batch_row_invariance(dev, paged, mode):
+    """Row b of a B = 4 call equals the same row computed alone, bit for
+    bit: the chunks and their merge order depend on the row's positions
+    only."""
+    g = torch.Generator(dev).manual_seed(12)
+    B, Kh, G, hd, Smax, m = 4, 5, 3, 64, 640, 4
+    q, k, v, kw = _decode_case(g, dev, mode, torch.bfloat16, B, Kh, G, hd,
+                               Smax, m)
+    pos = torch.tensor([548, 63, 639, -1], dtype=torch.int32, device=dev)
+    if paged:
+        kp, vp, table = _paginate(g, dev, k, v, 64)
+        full = flash_decode_paged(q, kp, vp, table, pos, **kw)
+    else:
+        full = flash_decode(q, k, v, pos, **kw)
+    for b in range(B):
+        one = {n: (x[b:b + 1] if n.endswith("scale") else x)
+               for n, x in kw.items()}
+        if paged:
+            alone = flash_decode_paged(q[b:b + 1], kp, vp, table[b:b + 1],
+                                       pos[b:b + 1], **one)
+        else:
+            alone = flash_decode(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                 pos[b:b + 1], **one)
+        torch.cuda.synchronize()
+        assert torch.equal(full[b:b + 1], alone), b
+
+
+def test_flash_decode_two_streams(dev):
+    """Calls enqueued on two streams at once, so their blocks can run
+    together, each equal bit for bit the same call made alone: each stream
+    merges through counters of its own."""
+    g = torch.Generator(dev).manual_seed(13)
+    B, Kh, G, hd, Smax, m = 4, 5, 3, 64, 4096, 4
+    q, k, v, kw = _decode_case(g, dev, "int8-BK", torch.bfloat16, B, Kh, G,
+                               hd, Smax, m)
+    pos = torch.tensor([4000, 2047, 4095, 100], dtype=torch.int32,
+                       device=dev)
+    want = flash_decode(q, k, v, pos, **kw)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    outs = []
+    for _ in range(16):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(flash_decode(q, k, v, pos, **kw))
+    torch.cuda.synchronize()
+    for i, o in enumerate(outs):
+        assert torch.equal(o, want), i
