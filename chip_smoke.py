@@ -19,9 +19,12 @@ Phases, each fatal on failure:
    100 rows of the main-path prefill ``torch.equal`` to a call on those
    rows alone with the prefix moved by the cut; how each scales with
    length: ``flash_decode`` at pos 4000 in a 4096-position cache and
-   ``flash_attention`` at B=1, S=2048; ``w4a8_matmul``
-   (``torch.equal``, one group of 960 and 20 groups of 128, beside the W8A8
-   kernel at the same shapes) and ``act_quant_ptoken`` on bf16 and f32
+   ``flash_attention`` at B=1, S=2048; ``w8a8_matmul`` and
+   ``w4a8_matmul`` (one group of 960 and 20 groups of 128) ``torch.equal``
+   at every site for M = 4 (decode), 256 (a chunk) and 2048 (a prefill),
+   s_w in bf16 and f32, beside ``torch._int_mm`` (x zero-padded to 32 rows
+   at decode; at prefill also on the K-major weight), and
+   ``act_quant_ptoken`` on bf16 and f32
    input (``torch.equal`` on codes, scales and zero points, with an
    all-zero and an outlier row); ``act_quant_static`` beside
    ``torch.quantize_per_tensor``;
@@ -242,6 +245,11 @@ def main() -> None:
         return torch.tensor(v, dtype=torch.float32, device=dev)
 
     detail = []
+    bf = torch.bfloat16
+    # the int matmuls at every main-path M: decode (B rows), a 256-token
+    # chunk of run (d), a whole prefill (B * PROMPT rows); s_w in bf16 (the
+    # weight's dtype, the main path) and f32, both held torch.equal
+    MS = (B, 256, B * PROMPT)
     # w8a8: the five (K, N) pairs of one layer plus the tied head
     shapes = {"qkv": (D, (H + 2 * K) * hd), "o": (H * hd, D),
               "up_gate": (D, F_), "down": (F_, D), "head": (D, V)}
@@ -251,32 +259,55 @@ def main() -> None:
         w = torch.randint(-127, 128, (Kd, N), generator=gen, device=dev,
                           dtype=torch.int8)
         colsum = w.sum(0, dtype=torch.int32)
-        for M in (B, B * PROMPT):
+        w_kmajor = w.t().contiguous().t()      # the same (K, N), K-major
+        for M in MS:
             x = torch.randint(-128, 128, (M, Kd), generator=gen, device=dev,
                               dtype=torch.int8)
-            args = (x, w, scalar(0.021), scalar(131.0), scalar(0.0037),
-                    colsum)
+            sw_bf = scalar(0.0037).to(bf)
+            args = (x, w, scalar(0.021), scalar(131.0), sw_bf, colsum)
             kw = dict(z_shift=-128.0, out_dtype=torch.bfloat16)
-            out_k = w8a8_matmul(*args, **kw)
-            out_p = w8a8_matmul_plain(*args, **kw)
-            torch.cuda.synchronize()
-            if not torch.equal(out_k, out_p):
-                fail(f"w8a8_matmul {name} M={M}: not bit-exact, max err "
-                     f"{(out_k.float() - out_p.float()).abs().max():.3g}")
+            for sw in (sw_bf, scalar(0.0037)):
+                a_ = (*args[:4], sw, colsum)
+                out_k = w8a8_matmul(*a_, **kw)
+                out_p = w8a8_matmul_plain(*a_, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(out_k, out_p):
+                    fail(f"w8a8_matmul {name} M={M} s_w {sw.dtype}: not "
+                         f"bit-exact, max err "
+                         f"{(out_k.float() - out_p.float()).abs().max():.3g}")
             ms = timed(lambda: w8a8_matmul(*args, **kw))
+            if M == 256:
+                # held and timed, not summed into a step or a prefill
+                detail.append({"kernel": "w8a8_matmul", "site": name,
+                               "M": M, "K": Kd, "N": N, "max_abs_err": 0.0,
+                               "kernel_ms": ms})
+                print(json.dumps(detail[-1]), flush=True)
+                continue
             pms = timed(lambda: w8a8_matmul_plain(*args, **kw), iters=3)
-            lib_ms = None
+            lib_km = None
             if M > 16:
                 lib_ms = timed(lambda: torch._int_mm(x, w))
+                lib_km = timed(lambda: torch._int_mm(x, w_kmajor))
+            else:
+                # _int_mm takes M > 16: x zero-padded to 32 rows, the copy
+                # made outside the timed window
+                xp = torch.zeros((32, Kd), dtype=torch.int8, device=dev)
+                xp[:M] = x
+                lib_ms = timed(lambda: torch._int_mm(xp, w))
             bms, by = bound_ms(M * Kd + Kd * N + 4 * N + 2 * M * N,
                                2.0 * M * Kd * N, INT8_OPS_PER_S)
-            w8[(name, M)] = (ms, pms, bms, lib_ms)
+            w8[(name, M)] = (ms, pms, bms, lib_ms, lib_km)
             detail.append({"kernel": "w8a8_matmul", "site": name, "M": M,
                            "K": Kd, "N": N, "max_abs_err": 0.0,
                            "kernel_ms": ms,
                            "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-                           "library_ms": lib_ms})
+                           "library_ms": lib_ms,
+                           "library_of": ("torch._int_mm" if M > 16 else
+                                          "torch._int_mm, x zero-padded to "
+                                          "32 rows"),
+                           "library_kmajor_ms": lib_km})
             print(json.dumps(detail[-1]), flush=True)
+        del w_kmajor
 
     # act_quant: every GEMM input at decode (M=B) and prefill (M=B*PROMPT)
     aq = {}
@@ -313,7 +344,7 @@ def main() -> None:
 
     # w4a8: the four prequantized (K, N) pairs of one layer (the tied head
     # stays W8A8); one group of 960 where 128 does not divide d_model,
-    # twenty of 128 for down
+    # twenty of 128 for down; s_w in bf16 (the main path) and f32
     w4 = {}
     for name in per_layer:
         Kd, N = shapes[name]
@@ -322,22 +353,32 @@ def main() -> None:
         G = Kd // gs
         wp = torch.randint(-128, 128, (Kd // 2, N), generator=gen,
                            device=dev, dtype=torch.int8)
-        s_w = torch.rand((G, N), generator=gen, device=dev) * 0.002 + 1e-4
+        s_w32 = torch.rand((G, N), generator=gen, device=dev) * 0.002 + 1e-4
+        s_w = s_w32.to(bf)
         colsum = torch.randn((N,), generator=gen, device=dev)
-        for M in (B, B * PROMPT):
+        for M in MS:
             x = torch.randint(-128, 128, (M, Kd), generator=gen, device=dev,
                               dtype=torch.int8)
             args = (x, wp, scalar(0.021), scalar(131.0), s_w, colsum, gs)
             kw = dict(z_shift=-128.0, out_dtype=torch.bfloat16)
-            out_k = w4a8_matmul(*args, **kw)
-            out_p = w4a8_matmul_plain(*args, **kw)
-            torch.cuda.synchronize()
-            if not torch.equal(out_k, out_p):
-                fail(f"w4a8_matmul {name} M={M}: not bit-exact, max err "
-                     f"{(out_k.float() - out_p.float()).abs().max():.3g}")
+            for sw in (s_w, s_w32):
+                a_ = (*args[:4], sw, colsum, gs)
+                out_k = w4a8_matmul(*a_, **kw)
+                out_p = w4a8_matmul_plain(*a_, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(out_k, out_p):
+                    fail(f"w4a8_matmul {name} M={M} s_w {sw.dtype}: not "
+                         f"bit-exact, max err "
+                         f"{(out_k.float() - out_p.float()).abs().max():.3g}")
             ms = timed(lambda: w4a8_matmul(*args, **kw))
+            if M == 256:
+                detail.append({"kernel": "w4a8_matmul", "site": name,
+                               "M": M, "K": Kd, "N": N, "groups": G,
+                               "max_abs_err": 0.0, "kernel_ms": ms})
+                print(json.dumps(detail[-1]), flush=True)
+                continue
             pms = timed(lambda: w4a8_matmul_plain(*args, **kw), iters=3)
-            bms, by = bound_ms(M * Kd + Kd // 2 * N + 4 * G * N + 4 * N
+            bms, by = bound_ms(M * Kd + Kd // 2 * N + 2 * G * N + 4 * N
                                + 2 * M * N, 2.0 * M * Kd * N, INT8_OPS_PER_S)
             w4[(name, M)] = (ms, pms, bms)
             detail.append({"kernel": "w4a8_matmul", "site": name, "M": M,
@@ -346,6 +387,8 @@ def main() -> None:
                            "bound_by": by, "library_ms": None,
                            "w8a8_kernel_ms": w8[(name, M)][0]})
             print(json.dumps(detail[-1]), flush=True)
+    log("w8a8_matmul and w4a8_matmul torch.equal to their plain versions "
+        f"at every site for M in {MS}, s_w in bf16 and f32")
 
     # act_quant_ptoken: every GEMM input, both arithmetics (bf16 input: the
     # smollm path; f32 input: f32 activations), an all-zero and an outlier
@@ -381,8 +424,6 @@ def main() -> None:
         if not bool((err <= lim).all()):
             fail(f"{name}: beyond one bf16 ulp, max err {float(err.max())}")
         return float(err.max())
-
-    bf = torch.bfloat16
 
     def attention_row(Bq, S, m):
         """flash_attention (bf16) at (Bq, S) behind an m-row cushion: one
@@ -1042,9 +1083,11 @@ def main() -> None:
                    + cruns["b_paged_int8"]["launches"][k]
                    for k in _lib.KERNELS}
 
+    def layer_sum(idx, M):
+        return L * sum(per_layer[s] * w8[(s, M)][idx] for s in per_layer)
+
     def step_sum(idx, M):
-        return (L * sum(per_layer[s] * w8[(s, M)][idx] for s in per_layer)
-                + w8[("head", B)][idx])
+        return layer_sum(idx, M) + w8[("head", B)][idx]
 
     def aq_sum(idx, M, table=aq):
         if any(table[k][idx] is None for k in table):
@@ -1068,11 +1111,17 @@ def main() -> None:
          "unit": "one decode step (161 calls, M=4)",
          "ms": step_sum(0, B), "plain_ms": step_sum(1, B),
          "bound_ms": step_sum(2, B), "bound_by": "bytes",
-         "library_ms": None,
-         "prefill_ms": step_sum(0, B * PROMPT),
-         "prefill_bound_ms": step_sum(2, B * PROMPT),
-         "prefill_library_ms": L * sum(per_layer[s] * w8[(s, B * PROMPT)][3]
-                                       for s in per_layer)},
+         "library_ms": step_sum(3, B),
+         "library_of": "torch._int_mm, x zero-padded to 32 rows (it takes "
+                       "M > 16; the copy outside the timed window); "
+                       "prefill: torch._int_mm",
+         "prefill_ms": layer_sum(0, B * PROMPT),
+         "prefill_plain_ms": layer_sum(1, B * PROMPT),
+         "prefill_bound_ms": layer_sum(2, B * PROMPT),
+         "prefill_library_ms": layer_sum(3, B * PROMPT),
+         "prefill_library_kmajor_ms": layer_sum(4, B * PROMPT),
+         "prefill_unit": f"one prefill ({L * 5} calls at the layer sites, "
+                         f"M={B * PROMPT})"},
         {"name": "act_quant_static", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/act_quant.cu",
          "replaces": "src/repro/kernels/act_quant.py:31",
@@ -1085,7 +1134,9 @@ def main() -> None:
          "library_ms": aq_sum(3, B),
          "library_of": "torch.quantize_per_tensor to quint8 (no -128 "
                        "offset) of an f32 copy",
-         "prefill_ms": aq_sum(0, B * PROMPT)},
+         "prefill_ms": aq_sum(0, B * PROMPT),
+         "prefill_bound_ms": aq_sum(2, B * PROMPT),
+         "prefill_library_ms": aq_sum(3, B * PROMPT)},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:70",
@@ -1149,7 +1200,9 @@ def main() -> None:
          "w8a8_ms_same_sites": L * sum(per_layer[s] * w8[(s, B)][0]
                                        for s in per_layer),
          "prefill_ms": w4_sum(0, B * PROMPT),
-         "prefill_bound_ms": w4_sum(2, B * PROMPT)},
+         "prefill_plain_ms": w4_sum(1, B * PROMPT),
+         "prefill_bound_ms": w4_sum(2, B * PROMPT),
+         "w8a8_prefill_ms_same_sites": layer_sum(0, B * PROMPT)},
         {"name": "act_quant_ptoken", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/act_quant.cu",
          "replaces": "src/repro/kernels/act_quant.py:65",
@@ -1163,7 +1216,8 @@ def main() -> None:
          "bound_ms": aq_sum(2, B, pt_bf), "bound_by": "bytes",
          "library_ms": None,
          "library_of": "none: no single PyTorch call quantizes per row",
-         "prefill_ms": aq_sum(0, B * PROMPT, pt_bf)},
+         "prefill_ms": aq_sum(0, B * PROMPT, pt_bf),
+         "prefill_bound_ms": aq_sum(2, B * PROMPT, pt_bf)},
     ]
     for kk in kernels:
         if kk["launches"] <= 0:

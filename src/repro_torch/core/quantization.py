@@ -205,6 +205,12 @@ def _f32(t) -> Tensor:
     return t if t.dtype == torch.float32 else t.float()
 
 
+def _weight_scale(t: Tensor) -> Tensor:
+    """A weight scale as the int matmuls read it: f32 and bf16 as stored,
+    any other dtype converted (exactly) to f32."""
+    return t if t.dtype in (torch.float32, torch.bfloat16) else t.float()
+
+
 def _int8_matmul(xq: Tensor, w_int: Tensor, s_x: Tensor, z_x: Tensor,
                  s_w: Tensor, colsum: Tensor, out_dtype: torch.dtype,
                  z_shift: float = 0.0) -> Tensor:
@@ -214,7 +220,7 @@ def _int8_matmul(xq: Tensor, w_int: Tensor, s_x: Tensor, z_x: Tensor,
     K, N = w_int.shape
     lead = xq.shape[:-1]
     out = w8a8_matmul(xq.reshape(-1, K), w_int, _f32(s_x), _f32(z_x),
-                      _f32(s_w), colsum=colsum, z_shift=z_shift,
+                      _weight_scale(s_w), colsum=colsum, z_shift=z_shift,
                       out_dtype=out_dtype if out_dtype == torch.bfloat16
                       else torch.float32)
     return out.reshape(*lead, N).to(out_dtype)
@@ -240,7 +246,7 @@ def _int4_matmul(xq: Tensor, w_packed: Tensor, s_x: Tensor, z_x: Tensor,
     N = w_packed.shape[-1]
     lead = xq.shape[:-1]
     out = w4a8_matmul(xq.reshape(-1, K), w_packed, _f32(s_x), _f32(z_x),
-                      _f32(s_w), _f32(colsum), group_size=K // G,
+                      _weight_scale(s_w), _f32(colsum), group_size=K // G,
                       z_shift=z_shift,
                       out_dtype=out_dtype if out_dtype == torch.bfloat16
                       else torch.float32)
@@ -317,23 +323,22 @@ def prequantize(w: Tensor, cfg: QuantConfig,
                 weight_bits: int = 8) -> Dict[str, Tensor]:
     """Quantize one (d_in, d_out) weight into its resident serving dict.
 
-    weight_bits=8: {"w_int" int8 (K, N), "w_scale" f32 scalar, "colsum"
+    weight_bits=8: {"w_int" int8 (K, N), "w_scale" scalar, "colsum"
     (N,) int32}. weight_bits=4: {"w_packed" int8 (ceil(K/2), N) nibble
-    pairs, "w_scale" f32 (G, N) group scales, "colsum" (N,) f32 *scaled*
-    column sums sum_g s_w[g, n] colsum_g[n]}. Scales are held in f32 (the
-    values of JAX's scales in the weight dtype, converted exactly) because
-    the kernels read f32."""
+    pairs, "w_scale" (G, N) group scales, "colsum" (N,) f32 *scaled*
+    column sums sum_g s_w[g, n] colsum_g[n]}. Scales keep the weight's
+    dtype, as in JAX; the kernels read them as they are stored."""
     if weight_bits == 4:
         wq, scale, g = weight_quant_int4(w, cfg)
         G = w.shape[0] // g
         colsum_g = wq.to(torch.int32).reshape(G, g, -1).sum(1)    # (G, N)
         colsum = (colsum_g.float() * scale).sum(0)
-        return {"w_packed": pack_int4(wq), "w_scale": scale.float(),
+        return {"w_packed": pack_int4(wq), "w_scale": scale,
                 "colsum": colsum}
     if weight_bits != 8:
         raise ValueError(f"weight_bits must be 8 or 4, got {weight_bits}")
     wq, scale = weight_quant_int(w, cfg)
-    return {"w_int": wq.contiguous(), "w_scale": scale.float(),
+    return {"w_int": wq.contiguous(), "w_scale": scale,
             "colsum": wq.sum(0, dtype=torch.int32)}
 
 

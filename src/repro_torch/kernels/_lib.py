@@ -9,8 +9,8 @@ the sources, so a second process reuses it.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` turns a nonzero code into an exception.
-``flash_decode_workspace_elems`` launches nothing: it sizes the split-KV
-kernel's workspace.
+``flash_decode_workspace_elems`` and ``int_matmul_workspace_elems`` launch
+nothing: they size the split kernels' workspaces.
 There is no fallback: a failed build or launch raises.
 
 ``LAUNCHES`` counts kernel launches per kernel name. A wrapper adds one where
@@ -45,16 +45,19 @@ _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of every entry point (all return cudaError_t as int, but
 # those in _RESTYPES)
 _SIGNATURES = {
-    # x, w, colsum, s_x, z_x, s_w, z_shift, out, out_bf16, M, N, K, stream
-    "w8a8_matmul_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _F, _VP, _I, _I, _I,
-                           _I, _VP],
+    # x, w, colsum, s_x, z_x, s_w, s_w_bf16, z_shift, out, out_bf16, M, N,
+    # K, workspace, stream
+    "w8a8_matmul_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _F, _VP, _I, _I,
+                           _I, _I, _VP, _VP],
     # x, x_bf16, scale, zero, out, n, stream
     "act_quant_static_launch": [_VP, _I, _VP, _VP, _VP, ctypes.c_longlong,
                                 _VP],
-    # x, w_packed, s_w, colsum, s_x, z_x, z_shift, out, out_bf16, M, N, K,
-    # group, stream
-    "w4a8_matmul_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _F, _VP, _I, _I, _I,
-                           _I, _I, _VP],
+    # x, w_packed, s_w, s_w_bf16, colsum, s_x, z_x, z_shift, out, out_bf16,
+    # M, N, K, group, workspace, stream
+    "w4a8_matmul_launch": [_VP, _VP, _VP, _I, _VP, _VP, _VP, _F, _VP, _I, _I,
+                           _I, _I, _I, _VP, _VP],
+    # M, N, K, group
+    "int_matmul_workspace_elems": [_I, _I, _I, _I],
     # x, x_bf16, out, scale, zero, M, D, qmax, stream
     "act_quant_ptoken_launch": [_VP, _I, _VP, _VP, _VP, _I, _I, _F, _VP],
     # q, k, v, out, bf16, B, H, Kh, S, T, hd, prefix_len,
@@ -77,7 +80,8 @@ _SIGNATURES = {
     # B, H, K, Smax, hd
     "flash_decode_workspace_elems": [_I, _I, _I, _I, _I],
 }
-_RESTYPES = {"flash_decode_workspace_elems": ctypes.c_longlong}
+_RESTYPES = {"flash_decode_workspace_elems": ctypes.c_longlong,
+             "int_matmul_workspace_elems": ctypes.c_longlong}
 
 _lib: Optional[ctypes.CDLL] = None
 BUILD_SECONDS: Optional[float] = None

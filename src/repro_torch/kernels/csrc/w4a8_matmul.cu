@@ -15,28 +15,29 @@
 //
 // Bound on the card: at decode (M = 4) bytes — every packed weight byte
 // (0.5 byte per weight) is streamed once per step and feeds 2 M
-// multiply-adds; at prefill (M = 4 * 512) operations. Design: the __dp4a
-// tile mainloop of int_matmul.cuh, with the K loop nested in a loop over
-// the groups. The B tile is unpacked while it is staged: a thread loads four
-// packed columns of one packed row (one 32-bit word), sign-extends the
-// eight nibbles in registers and stores them n-major, so that four
-// consecutive k of one column form one word for __dp4a against one aligned
-// word of the activation row. A group's int32 partial is exact (|x| <= 128,
-// |w| <= 8); at the end of the group it is converted to f32 and added into
-// the f32 accumulator with its scale.
+// multiply-adds; at prefill (M = 4 * 512) operations. Design: the two
+// regimes of int_matmul.cuh with the nibbles unpacked in registers (two
+// packed rows -> four k of a column, sign-extended with __vsub4 and
+// transposed with __byte_perm) on their way to mma.sync. Every k-step lies
+// inside one group; a group's int32 partial is exact (|x| <= 128,
+// |w| <= 8) and is converted and scaled when it is complete: at the end of
+// the group's tiles at prefill, and at decode by the last block of a
+// column tile, which reads the (G, M, N) int32 workspace in group order.
 //
 // Exactness: every step rounds on its own (__fmul_rn, __fadd_rn,
-// __fsub_rn, never a fused multiply-add), in the order above, matching the
-// plain PyTorch version bit for bit. Never built with --use_fast_math.
+// __fsub_rn, never a fused multiply-add), in the order above, s_w read in
+// its stored dtype (f32 or bf16), matching the plain PyTorch version bit
+// for bit. Never built with --use_fast_math.
 #include "int_matmul.cuh"
 
+// ws: int_matmul_workspace_elems(M, N, K, group) int32 zeros (left zero)
 extern "C" int w4a8_matmul_launch(const void* x, const void* wp,
-                                  const void* sw, const void* colsum,
-                                  const void* sx, const void* zx,
-                                  float z_shift, void* out, int out_bf16,
-                                  int M, int N, int K, int group,
-                                  void* stream) {
-  return int_matmul_launch<true>(x, wp, sw, colsum, sx, zx, z_shift, out,
-                                 out_bf16, M, N, K, group,
-                                 (cudaStream_t)stream);
+                                  const void* sw, int sw_bf16,
+                                  const void* colsum, const void* sx,
+                                  const void* zx, float z_shift, void* out,
+                                  int out_bf16, int M, int N, int K,
+                                  int group, void* ws, void* stream) {
+  return imm::int_matmul_launch<true>(x, wp, sw, sw_bf16, colsum, sx, zx,
+                                      z_shift, out, out_bf16, M, N, K, group,
+                                      ws, (cudaStream_t)stream);
 }

@@ -8,20 +8,36 @@
 //   acc = x_int @ w_int (int32),  z = z_x + z_shift
 //
 // Bound on the card: at decode (M = batch = 4) bytes — every weight byte is
-// streamed once per step and each byte feeds only M multiply-adds; at
-// prefill (M = 4 * 512) operations. Design: the __dp4a tile mainloop of
-// int_matmul.cuh with int8 B rows and a single group of K.
+// streamed once per step and feeds only M multiply-adds; at prefill
+// (M = 4 * 512) operations. Design (int_matmul.cuh, one group of K): at
+// prefill 128 x 128 tiles on the int8 tensor cores (mma.sync m16n8k32), A
+// by cp.async, B transposed in registers while it is staged, two stages;
+// at decode split-K streaming of the weight over every SM, 16-byte loads
+// with two k-steps in flight a lane, the slices' int32 partials merged
+// exactly in a workspace by the last block of each column tile.
 //
 // Exactness: the epilogue rounds each step on its own (__fmul_rn, __fsub_rn,
 // never a fused multiply-add), in the order above with s_x * s_w formed
-// first, matching the plain PyTorch version bit for bit.
+// first (s_w read in its stored dtype, f32 or bf16), matching the plain
+// PyTorch version bit for bit.
 #include "int_matmul.cuh"
 
+// ws: int_matmul_workspace_elems(M, N, K, K) int32 zeros (left zero)
 extern "C" int w8a8_matmul_launch(const void* x, const void* w,
                                   const void* colsum, const void* sx,
                                   const void* zx, const void* sw,
-                                  float z_shift, void* out, int out_bf16,
-                                  int M, int N, int K, void* stream) {
-  return int_matmul_launch<false>(x, w, sw, colsum, sx, zx, z_shift, out,
-                                  out_bf16, M, N, K, K, (cudaStream_t)stream);
+                                  int sw_bf16, float z_shift, void* out,
+                                  int out_bf16, int M, int N, int K,
+                                  void* ws, void* stream) {
+  return imm::int_matmul_launch<false>(x, w, sw, sw_bf16, colsum, sx, zx,
+                                       z_shift, out, out_bf16, M, N, K, K,
+                                       ws, (cudaStream_t)stream);
+}
+
+// int32 elements of the workspace a launch of either int matmul needs (0
+// above 16 rows): the decode regime's (G, M, N) partials and one ticket per
+// 128-column tile
+extern "C" long long int_matmul_workspace_elems(int M, int N, int K,
+                                                int group) {
+  return imm::workspace_elems(M, N, K, group);
 }

@@ -12,14 +12,17 @@ int8 storage offset of the activation codes, -128, as in ``w8a8_matmul``).
 ``colsum`` is the *scale-weighted* column sum ``sum_g s_w[g] * colsum_g``
 that ``prequantize(weight_bits=4)`` stores, so the zero-point correction is
 one rank-1 subtract. A CUDA tensor launches ``csrc/w4a8_matmul.cu``; a CPU
-tensor takes ``w4a8_matmul_plain``.
+tensor takes ``w4a8_matmul_plain``. ``s_w`` is read in its stored dtype,
+f32 or bf16 (the weight's, as ``prequantize`` keeps it), and converted
+exactly.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _lib
-from repro_torch.kernels.w8a8_matmul import _check_scalar, int_product_exact
+from repro_torch.kernels.w8a8_matmul import (SCALE_DTYPES, _check_scalar,
+                                             int_product_exact, workspace)
 
 
 def unpack_int4(packed: torch.Tensor, k: int) -> torch.Tensor:
@@ -59,7 +62,7 @@ def w4a8_matmul(x_int: torch.Tensor, w_packed: torch.Tensor,
                 colsum: torch.Tensor, group_size: int, z_shift: float = 0.0,
                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """x_int: (M, K) int8; w_packed: (K/2, N) int8; s_x, z_x: one-element
-    f32 tensors; s_w: (K / group_size, N) f32; colsum: (N,) f32. Returns
+    f32 tensors; s_w: (K / group_size, N) f32 or bf16; colsum: (N,) f32. Returns
     (M, N) in ``out_dtype`` (f32 or bf16, rounded once from the f32
     epilogue). The kernel takes an even K, and K and ``group_size``
     multiples of 4."""
@@ -80,10 +83,10 @@ def w4a8_matmul(x_int: torch.Tensor, w_packed: torch.Tensor,
         raise ValueError(f"K={K} and group_size={group_size} must be "
                          f"multiples of 4 with groups tiling K")
     G = K // group_size
-    if s_w.dtype != torch.float32 or s_w.shape != (G, N) \
+    if s_w.dtype not in SCALE_DTYPES or s_w.shape != (G, N) \
             or not s_w.is_contiguous():
-        raise ValueError(f"s_w must be contiguous f32 ({G}, {N}), got "
-                         f"{s_w.dtype} {tuple(s_w.shape)}")
+        raise ValueError(f"s_w must be contiguous f32 or bf16 ({G}, {N}), "
+                         f"got {s_w.dtype} {tuple(s_w.shape)}")
     if colsum.dtype != torch.float32 or colsum.shape != (N,) \
             or not colsum.is_contiguous():
         raise ValueError("colsum must be contiguous f32 (N,)")
@@ -97,11 +100,13 @@ def w4a8_matmul(x_int: torch.Tensor, w_packed: torch.Tensor,
         raise ValueError(f"out_dtype must be f32 or bf16, got {out_dtype}")
     _lib.require_cuda(x_int, w_packed, s_w, colsum, s_x, z_x)
     out = torch.empty((M, N), dtype=out_dtype, device=x_int.device)
+    ws = workspace(x_int, M, N, K, group_size)
     code = _lib.lib().w4a8_matmul_launch(
         x_int.data_ptr(), w_packed.data_ptr(), s_w.data_ptr(),
-        colsum.data_ptr(), s_x.data_ptr(), z_x.data_ptr(), float(z_shift),
-        out.data_ptr(), int(out_dtype == torch.bfloat16), M, N, K,
-        group_size, _lib.stream_ptr(x_int))
+        int(s_w.dtype == torch.bfloat16), colsum.data_ptr(), s_x.data_ptr(),
+        z_x.data_ptr(), float(z_shift), out.data_ptr(),
+        int(out_dtype == torch.bfloat16), M, N, K, group_size, ws.data_ptr(),
+        _lib.stream_ptr(x_int))
     _lib.check(code, "w4a8_matmul")
     _lib.count("w4a8_matmul")
     return out

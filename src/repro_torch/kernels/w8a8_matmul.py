@@ -6,10 +6,12 @@ int32 product and ``z = z_x + z_shift``. ``z_shift`` lets the caller pass
 the calibrated zero point as it is stored and fold the int8 storage offset
 (-128) in here, instead of a separate subtraction per call. A CUDA tensor
 launches ``csrc/w8a8_matmul.cu``; a CPU tensor takes ``w8a8_matmul_plain``.
+``s_w`` is read in its stored dtype, f32 or bf16 (the weight's, as
+``prequantize`` keeps it), and converted exactly.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -51,18 +53,42 @@ def w8a8_matmul_plain(x_int: torch.Tensor, w_int: torch.Tensor,
     return out.to(out_dtype)
 
 
-def _check_scalar(t: torch.Tensor, name: str) -> None:
-    if t.dtype != torch.float32 or t.numel() != 1:
-        raise ValueError(f"{name} must be one float32 element, got "
+SCALE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_scalar(t: torch.Tensor, name: str,
+                  dtypes=(torch.float32,)) -> None:
+    if t.dtype not in dtypes or t.numel() != 1:
+        raise ValueError(f"{name} must be one element of "
+                         f"{[str(d) for d in dtypes]}, got "
                          f"{t.dtype} {tuple(t.shape)}")
+
+
+# the decode regime's int32 workspace (partials and tickets), zeros kept
+# per device and stream and left zero by every launch; a second stream gets
+# a buffer of its own
+_WORKSPACE: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def workspace(x: torch.Tensor, M: int, N: int, K: int,
+              group: int) -> torch.Tensor:
+    """The int matmuls' workspace for this call, sized by the kernel's
+    ``int_matmul_workspace_elems`` and grown on demand."""
+    n = max(int(_lib.lib().int_matmul_workspace_elems(M, N, K, group)), 1)
+    key = (x.device, _lib.stream_ptr(x))
+    ws = _WORKSPACE.get(key)
+    if ws is None or ws.numel() < n:
+        ws = torch.zeros(n, dtype=torch.int32, device=x.device)
+        _WORKSPACE[key] = ws
+    return ws
 
 
 def w8a8_matmul(x_int: torch.Tensor, w_int: torch.Tensor, s_x: torch.Tensor,
                 z_x: torch.Tensor, s_w: torch.Tensor,
                 colsum: Optional[torch.Tensor] = None, z_shift: float = 0.0,
                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """x_int: (M, K) int8; w_int: (K, N) int8; s_x, z_x, s_w: one-element
-    f32 tensors; colsum: (N,) int32 column sums of ``w_int`` (computed when
+    """x_int: (M, K) int8; w_int: (K, N) int8; s_x, z_x: one-element f32
+    tensors; s_w: one f32 or bf16 element; colsum: (N,) int32 column sums of ``w_int`` (computed when
     absent). Returns (M, N) in ``out_dtype`` (f32 or bf16, rounded once from
     the f32 epilogue)."""
     if x_int.device.type == "cpu":
@@ -89,16 +115,19 @@ def w8a8_matmul(x_int: torch.Tensor, w_int: torch.Tensor, s_x: torch.Tensor,
     if colsum.dtype != torch.int32 or colsum.shape != (N,) \
             or not colsum.is_contiguous():
         raise ValueError("colsum must be contiguous int32 (N,)")
-    for t, n in ((s_x, "s_x"), (z_x, "z_x"), (s_w, "s_w")):
-        _check_scalar(t, n)
+    _check_scalar(s_x, "s_x")
+    _check_scalar(z_x, "z_x")
+    _check_scalar(s_w, "s_w", SCALE_DTYPES)
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype must be f32 or bf16, got {out_dtype}")
     _lib.require_cuda(x_int, w_int, colsum, s_x, z_x, s_w)
     out = torch.empty((M, N), dtype=out_dtype, device=x_int.device)
+    ws = workspace(x_int, M, N, K, K)
     code = _lib.lib().w8a8_matmul_launch(
         x_int.data_ptr(), w_int.data_ptr(), colsum.data_ptr(),
-        s_x.data_ptr(), z_x.data_ptr(), s_w.data_ptr(), float(z_shift),
-        out.data_ptr(), int(out_dtype == torch.bfloat16), M, N, K,
+        s_x.data_ptr(), z_x.data_ptr(), s_w.data_ptr(),
+        int(s_w.dtype == torch.bfloat16), float(z_shift), out.data_ptr(),
+        int(out_dtype == torch.bfloat16), M, N, K, ws.data_ptr(),
         _lib.stream_ptr(x_int))
     _lib.check(code, "w8a8_matmul")
     _lib.count("w8a8_matmul")

@@ -20,9 +20,8 @@ def resident_weight_bytes(params: Any) -> Tuple[int, int, int]:
     """(fp_bytes, int8_bytes, int4_bytes) of a served parameter tree: int8
     ``w_int`` leaves stream 1 byte per weight, nibble-packed ``w_packed``
     leaves 0.5; everything else (embeddings, norms, scales) counts as fp.
-    The port holds ``w_scale`` in f32 where the reference keeps the weight
-    dtype, so a bf16 model's fp count is 2 bytes larger per W8A8 matrix and
-    2 G N bytes larger per W4A8 (G, N) scale matrix."""
+    ``w_scale`` keeps the weight's dtype, as in the reference, so the three
+    counts equal the reference's."""
     if hasattr(params, "tree"):
         params = params.tree()
     fp = i8 = i4 = 0

@@ -51,21 +51,38 @@ def _within_ulp(a, b):
         float((a - b).abs().max())
 
 
-@pytest.mark.parametrize("M,K,N", [(4, 960, 1600), (37, 2560, 960),
-                                   (300, 128, 100)])
-def test_w8a8_kernel_bit_exact(dev, M, K, N):
-    g = torch.Generator(dev).manual_seed(M)
+# the regimes of csrc/int_matmul.cuh: decode (M <= 16: split-K streaming,
+# one slice or several per column tile) and tensor-core tiles (M > 16);
+# smollm's sites at M = 4, 256 and 2048, the tied head at M = 4, K that is
+# no multiple of 32, N that is no multiple of 4
+W8_CASES = [(1, 960, 1600), (4, 960, 1600), (16, 2560, 960),
+            (17, 960, 2560), (37, 2560, 960), (256, 960, 1600),
+            (2048, 2560, 960), (2048, 960, 1600), (300, 128, 100),
+            (4, 960, 49152), (5, 100, 102), (40, 100, 102), (3, 36, 7)]
+
+
+def _w8_case(dev, M, K, N, seed):
+    g = torch.Generator(dev).manual_seed(seed)
     x = torch.randint(-128, 128, (M, K), generator=g, device=dev,
                       dtype=torch.int8)
     w = torch.randint(-127, 128, (K, N), generator=g, device=dev,
                       dtype=torch.int8)
-    sc = [torch.tensor(v, device=dev) for v in (0.031, 111.0, 0.0042)]
-    for dt in (torch.float32, torch.bfloat16):
-        a = w8a8_matmul(x, w, *sc, z_shift=-128.0, out_dtype=dt)
-        b = w8a8_matmul_plain(x, w, *sc, z_shift=-128.0, out_dtype=dt)
-        assert torch.equal(a, b)
+    return x, w
 
 
+@pytest.mark.parametrize("M,K,N", W8_CASES)
+def test_w8a8_kernel_bit_exact(dev, M, K, N):
+    """Both output dtypes, s_w in f32 and in bf16 (the weight's dtype)."""
+    x, w = _w8_case(dev, M, K, N, M + K + N)
+    sx, zx = (torch.tensor(v, device=dev) for v in (0.031, 111.0))
+    for sw in (torch.tensor(0.0042, device=dev),
+               torch.tensor(0.0042, device=dev).to(torch.bfloat16)):
+        for dt in (torch.float32, torch.bfloat16):
+            a = w8a8_matmul(x, w, sx, zx, sw, z_shift=-128.0, out_dtype=dt)
+            b = w8a8_matmul_plain(x, w, sx, zx, sw, z_shift=-128.0,
+                                  out_dtype=dt)
+            torch.cuda.synchronize()
+            assert torch.equal(a, b), (sw.dtype, dt)
 def test_act_quant_kernel_bit_exact(dev):
     g = torch.Generator(dev).manual_seed(0)
     x = torch.randn((2048, 960), generator=g, device=dev) * 4
@@ -75,29 +92,90 @@ def test_act_quant_kernel_bit_exact(dev):
                            act_quant_static_plain(t, s, z))
 
 
-@pytest.mark.parametrize("M,K,N,group", [(4, 960, 1600, 960),
-                                         (37, 2560, 960, 128),
-                                         (300, 256, 100, 64)])
-def test_w4a8_kernel_bit_exact(dev, M, K, N, group):
-    """One group of 960 and twenty of 128 (smollm), ragged M, an N that is
-    no multiple of 4 (the unvectorized load)."""
-    g = torch.Generator(dev).manual_seed(M)
+W4_CASES = [(1, 960, 1600, 960), (4, 960, 1600, 960),
+            (16, 2560, 960, 128), (17, 2560, 960, 128),
+            (37, 2560, 960, 128), (256, 960, 2560, 960),
+            (2048, 2560, 960, 128), (2048, 960, 1600, 960),
+            (300, 256, 100, 64), (4, 2560, 960, 64), (4, 200, 102, 100),
+            (50, 200, 102, 100), (2, 36, 7, 12)]
+
+
+def _w4_case(dev, M, K, N, group, seed):
+    g = torch.Generator(dev).manual_seed(seed)
     x = torch.randint(-128, 128, (M, K), generator=g, device=dev,
                       dtype=torch.int8)
     wp = torch.randint(-128, 128, (K // 2, N), generator=g, device=dev,
                        dtype=torch.int8)
     s_w = torch.rand((K // group, N), generator=g, device=dev) * 0.02 + 1e-3
     colsum = torch.randn((N,), generator=g, device=dev)
+    return x, wp, s_w, colsum
+
+
+@pytest.mark.parametrize("M,K,N,group", W4_CASES)
+def test_w4a8_kernel_bit_exact(dev, M, K, N, group):
+    """One group of 960 and twenty of 128 (smollm), groups of 64, a group
+    and K that are no multiples of 32, ragged M, an N that is no multiple
+    of 4 (the unvectorized load); s_w in f32 and in bf16."""
+    x, wp, s_w, colsum = _w4_case(dev, M, K, N, group, M + K + N)
     sc = [torch.tensor(v, device=dev) for v in (0.031, 111.0)]
-    for dt in (torch.float32, torch.bfloat16):
-        a = w4a8_matmul(x, wp, *sc, s_w, colsum, group, z_shift=-128.0,
-                        out_dtype=dt)
-        b = w4a8_matmul_plain(x, wp, *sc, s_w, colsum, group, z_shift=-128.0,
-                              out_dtype=dt)
-        assert torch.equal(a, b)
+    for sw in (s_w, s_w.to(torch.bfloat16)):
+        for dt in (torch.float32, torch.bfloat16):
+            a = w4a8_matmul(x, wp, *sc, sw, colsum, group, z_shift=-128.0,
+                            out_dtype=dt)
+            b = w4a8_matmul_plain(x, wp, *sc, sw, colsum, group,
+                                  z_shift=-128.0, out_dtype=dt)
+            torch.cuda.synchronize()
+            assert torch.equal(a, b), (sw.dtype, dt)
     with pytest.raises(ValueError):
         w4a8_matmul(x[:, :-2].contiguous(), wp[:-1].contiguous(), *sc,
                     s_w[:, :], colsum, group)
+    with pytest.raises(ValueError):
+        w4a8_matmul(x, wp, *sc, s_w.half(), colsum, group)
+
+
+@pytest.mark.parametrize("K,N,group", [(960, 1600, 960), (2560, 960, 128)])
+def test_int_matmul_rows_independent(dev, K, N, group):
+    """Rows of an M = 2048 call (tensor-core tiles) equal the same rows in
+    an M = 4 call (split-K streaming) and in an M = 256 call, bit for bit:
+    chunked prefill relies on it."""
+    x, w = _w8_case(dev, 2048, K, N, 7)
+    _, wp, s_w, colsum = _w4_case(dev, 2048, K, N, group, 8)
+    sx, zx = (torch.tensor(v, device=dev) for v in (0.031, 111.0))
+    sw8 = torch.tensor(0.0042, device=dev).to(torch.bfloat16)
+    s_w = s_w.to(torch.bfloat16)
+    for fn in (lambda t: w8a8_matmul(t, w, sx, zx, sw8, z_shift=-128.0,
+                                     out_dtype=torch.bfloat16),
+               lambda t: w4a8_matmul(t, wp, sx, zx, s_w, colsum, group,
+                                     z_shift=-128.0)):
+        full = fn(x)
+        for r0, n in ((0, 4), (1001, 4), (2044, 4), (512, 256), (3, 1)):
+            part = fn(x[r0:r0 + n].contiguous())
+            torch.cuda.synchronize()
+            assert torch.equal(full[r0:r0 + n], part), (r0, n)
+
+
+def test_int_matmul_two_streams(dev):
+    """Decode calls on two streams at once, so their blocks can run
+    together, each equal bit for bit the same call made alone: each stream
+    merges through a workspace and tickets of its own."""
+    x, w = _w8_case(dev, 4, 2560, 960, 9)
+    _, wp, s_w, colsum = _w4_case(dev, 4, 2560, 960, 128, 10)
+    sx, zx, sw = (torch.tensor(v, device=dev) for v in (0.031, 111.0,
+                                                         0.0042))
+    calls = (lambda: w8a8_matmul(x, w, sx, zx, sw, z_shift=-128.0),
+             lambda: w4a8_matmul(x, wp, sx, zx, s_w, colsum, 128,
+                                 z_shift=-128.0))
+    want = [f() for f in calls]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    outs = []
+    for _ in range(16):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append([f() for f in calls])
+    torch.cuda.synchronize()
+    for i, o in enumerate(outs):
+        assert torch.equal(o[0], want[0]) and torch.equal(o[1], want[1]), i
 
 
 @pytest.mark.parametrize("bits", [8, 4])

@@ -148,7 +148,8 @@ def test_engine_sampling_and_plan_guards(setup):
                                  cushion=s["cushion"], scales=ok,
                                  prequant=True)
     assert sc is s["scales"] and "w_int" in tree["layers"]["attn"]["wqkv"]
-    # the W4A8 format: nibble-packed (L, K/2, N), (L, G, N) f32 scales
+    # the W4A8 format: nibble-packed (L, K/2, N), (L, G, N) scales in the
+    # weight dtype (f32 here)
     tree4, _ = plan_quantization(s["api"], s["params"], QW8,
                                  cushion=s["cushion"], scales=ok,
                                  prequant=True, weight_bits=4)

@@ -30,7 +30,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import repro.flags as flags  # noqa: E402
-from repro.configs import QuantConfig, get_config  # noqa: E402
+from repro.configs import QuantConfig, get_config, reduced  # noqa: E402
 from repro.core import calibration as JCal  # noqa: E402
 from repro.core import quantization as JQ  # noqa: E402
 from repro.kernels import ref as R  # noqa: E402
@@ -40,6 +40,7 @@ from repro.serving import ContinuousEngine as JContinuous  # noqa: E402
 from repro.serving import Request as JRequest  # noqa: E402
 from repro.serving.engine import Engine as JEngine  # noqa: E402
 from repro_torch.configs import get_config as t_get_config  # noqa: E402
+from repro_torch.configs import reduced as t_reduced  # noqa: E402
 from repro_torch.core import quantization as TQ  # noqa: E402
 from repro_torch.kernels.w4a8_matmul import w4a8_matmul_plain  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
@@ -125,18 +126,18 @@ if hypothesis is not None:
 def test_prequantize_int4_matches_jax(dtype, K, N):
     """Groups of 128 (K = 256, 640), one group (K = 960, smollm's d_model:
     128 does not divide it) and odd K. ``w_packed`` equal, ``w_scale`` equal
-    as values (f32 here, the weight dtype in JAX), ``colsum`` within the
-    summation-order bound (exact for G <= 2)."""
+    in the weight's dtype (as in JAX), ``colsum`` within the summation-order
+    bound (exact for G <= 2)."""
     w = jnp.asarray(np.random.RandomState(K).randn(K, N) * 0.1).astype(dtype)
     jpq = np_tree(JQ.prequantize(w, QW8, weight_bits=4))
     tpq = TQ.prequantize(tt(w), QW8, weight_bits=4)
     G = K // 128 if K % 128 == 0 else 1
     assert tpq["w_packed"].shape == ((K + 1) // 2, N)
     assert tpq["w_scale"].shape == (G, N)
-    assert tpq["w_scale"].dtype == torch.float32
+    assert tpq["w_scale"].dtype == getattr(torch, dtype)
     assert tpq["colsum"].dtype == torch.float32
     np.testing.assert_array_equal(tpq["w_packed"].numpy(), jpq["w_packed"])
-    np.testing.assert_array_equal(tpq["w_scale"].numpy(),
+    np.testing.assert_array_equal(tpq["w_scale"].float().numpy(),
                                   np.asarray(jpq["w_scale"], np.float32))
     wq = TQ.unpack_int4(tpq["w_packed"], K)
     assert int(wq.abs().max()) <= 7          # the restricted range
@@ -185,8 +186,8 @@ def test_prequantize_tree_int4_matches_jax():
 def test_params_from_numpy_carries_a_jax_int4_tree():
     """A JAX W4A8-prequantized bf16 tree (a stacked (L, K, N) leaf, two
     groups) crosses through numpy with ``w_packed`` and ``colsum``
-    unchanged; ``w_scale`` arrives in bf16 and holds the values that the
-    port's own prequantization stores in f32."""
+    unchanged; ``w_scale`` arrives in bf16, as the port's own
+    prequantization stores it."""
     w = jnp.asarray(np.random.RandomState(4).randn(2, 256, 96) * 0.1) \
         .astype("bfloat16")
     tree = {"layers": {"attn": {"wqkv": w}}}
@@ -200,7 +201,8 @@ def test_params_from_numpy_carries_a_jax_int4_tree():
     assert got["w_packed"].shape == (2, 128, 96)
     np.testing.assert_array_equal(got["w_packed"].numpy(), j["w_packed"])
     np.testing.assert_array_equal(got["colsum"].numpy(), j["colsum"])
-    assert torch.equal(got["w_scale"].float(), mine["w_scale"])
+    assert mine["w_scale"].dtype == torch.bfloat16
+    assert torch.equal(got["w_scale"], mine["w_scale"])
     assert torch.equal(got["w_packed"], mine["w_packed"])
     assert torch.equal(got["colsum"], mine["colsum"])
 
@@ -299,6 +301,13 @@ def tiny():
 def _min_margin(eng, tokens, gen_tokens):
     """Smallest top-1 minus top-2 logit gap along the generated trajectory
     (teacher-forced through the port's prefill and decode steps)."""
+    top2 = _trajectory_logits(eng, tokens, gen_tokens).topk(2, dim=-1).values
+    return float((top2[..., 0] - top2[..., 1]).min())
+
+
+def _trajectory_logits(eng, tokens, gen_tokens):
+    """The port's logits (steps, B, V) before each generated token,
+    teacher-forced through its prefill and decode steps."""
     api = eng.api
     cache = api.init_cache(tokens.shape[0], eng.max_seq,
                            kv_dtype=eng.kv_dtype, prefix_len=eng.prefix_len)
@@ -312,8 +321,7 @@ def _min_margin(eng, tokens, gen_tokens):
         logits, cache = api.decode_step(p, tok, pos + i, cache, eng.qcfg,
                                         scales=eng.scales)
         steps.append(logits)
-    top2 = torch.stack(steps).topk(2, dim=-1).values
-    return float((top2[..., 0] - top2[..., 1]).min())
+    return torch.stack(steps).float()
 
 
 def test_w4a8_engine_matches_jax_on_both_routes(tiny, monkeypatch):
@@ -389,3 +397,83 @@ def test_weight_bits_guards(tiny):
     with pytest.raises(ValueError, match="pt_static"):
         plan_quantization(s["api"], s["params"], QN, prequant=True,
                           weight_bits=4)
+
+
+@pytest.fixture(scope="module")
+def smollm_bf16():
+    """A reduced smollm-360m in bf16 (2 layers, tied head; d_ff 256 gives
+    ``down`` two groups of 128), with JAX's cushion and calibrated scales."""
+    kw = dict(n_layers=2, d_ff=256, dtype="bfloat16")
+    jcfg = reduced(get_config("smollm-360m"), **kw)
+    japi = j_build(jcfg)
+    jparams = japi.init_params(jax.random.PRNGKey(5))
+    jcushion = japi.extract_cushion(jparams, jnp.asarray([9, 4, 1, 30],
+                                                         jnp.int32), None, QN)
+    rs = np.random.RandomState(12)
+    calib = rs.randint(0, jcfg.vocab_size, (2, 24)).astype(np.int32)
+    jscales, _ = JCal.calibrate(japi, jparams,
+                                [{"tokens": jnp.asarray(calib)}], QW8,
+                                cushion=jcushion)
+    return dict(
+        japi=japi, jparams=jparams, jcushion=jcushion, jscales=jscales,
+        api=build(t_reduced(t_get_config("smollm-360m"), **kw), "cpu"),
+        params=convert.params_from_numpy(np_tree(jparams)),
+        cushion=convert.cushion_from_numpy(np_tree(jcushion)),
+        scales=convert.scales_from_numpy(
+            np_tree(JCal.scales_to_plain(jscales))),
+        tokens=rs.randint(0, jcfg.vocab_size, (2, 12)).astype(np.int32))
+
+
+@pytest.mark.parametrize("weight_bits", [8, 4])
+def test_bf16_resident_bytes_and_tokens_match_jax(smollm_bf16, monkeypatch,
+                                                  weight_bits):
+    """``w_scale`` is held in the weight's dtype, as the reference holds it:
+    on a bf16 model the port's Engine and ContinuousEngine report JAX's
+    fp / int8 / int4 resident bytes exactly (an f32 scale would add 2 bytes
+    per W8A8 matrix and 2 G N per W4A8 scale matrix). The Engine's greedy
+    tokens equal JAX's up to a near tie (``BF16_TIE``), where the two runs
+    may part: bf16 logits of this random-weight model sit a few ulps apart,
+    and the reference's W8A8 epilogue may contract into an FMA where the
+    port rounds each step (ROADMAP queue 3)."""
+    monkeypatch.setattr(flags, "W4A8_KERNEL", "jnp")
+    s = smollm_bf16
+    kw = dict(max_seq=48, kv_dtype="int8", prequant=True,
+              weight_bits=weight_bits)
+    eng = Engine(s["api"], s["params"], QW8, cushion=s["cushion"],
+                 scales=s["scales"], **kw)
+    jeng = JEngine(s["japi"], s["jparams"], QW8, cushion=s["jcushion"],
+                   scales=s["jscales"], **kw)
+    got = (eng.weight_bytes_fp, eng.weight_bytes_int8, eng.weight_bytes_int4)
+    assert got == (jeng.weight_bytes_fp, jeng.weight_bytes_int8,
+                   jeng.weight_bytes_int4)
+    leaf = eng.params.tree()["layers"]["mlp"]["w_down"]["w_scale"]
+    assert leaf.dtype == torch.bfloat16
+    if weight_bits == 4:
+        assert leaf.shape[1] == 2
+    ckw = dict(n_slots=2, max_seq=64, kv_dtype="int8", prequant=True,
+               weight_bits=weight_bits)
+    ce = ContinuousEngine(s["api"], s["params"], QW8, cushion=s["cushion"],
+                          scales=s["scales"], **ckw)
+    jce = JContinuous(s["japi"], s["jparams"], QW8, cushion=s["jcushion"],
+                      scales=s["jscales"], **ckw)
+    assert (ce.stats.weight_bytes_fp, ce.stats.weight_bytes_int8,
+            ce.stats.weight_bytes_int4) == got
+    assert (jce.stats.weight_bytes_fp, jce.stats.weight_bytes_int8,
+            jce.stats.weight_bytes_int4) == got
+    res = eng.generate({"tokens": torch.from_numpy(s["tokens"])}, 8)
+    jres = jeng.generate({"tokens": jnp.asarray(s["tokens"])}, 8)
+    jt = np.asarray(jres.tokens)
+    lg = _trajectory_logits(eng, s["tokens"], jt)
+    for b in range(jt.shape[0]):
+        part = np.flatnonzero(res.tokens[b] != jt[b])
+        if len(part):
+            n = part[0]
+            gap = abs(float(lg[n, b, res.tokens[b, n]] - lg[n, b, jt[b, n]]))
+            assert gap <= BF16_TIE, (b, n, gap)
+
+
+# How far apart, in the port's bf16 logits (|logit| < 1 here), two tokens
+# may be where the port's and JAX's greedy runs part: as
+# ``test_torch_ptoken.py``'s bf16 bar, 4 ulps; a fault (a wrong scale or
+# dtype) moves the logits by O(1).
+BF16_TIE = 4 * 2.0 ** -8

@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
-"""Where the time of the port's two attention kernels goes, on one card.
+"""Where the time of the port's attention kernels and int matmuls goes, on
+one card.
 
     python3 tools/kernel_variants.py        # from the root of a checkout
 
-Builds ablated copies of ``csrc/flash_attention.cu`` and
-``csrc/flash_decode.cu``, each one named text substitution away from the
-source (``ATTENTION``, ``DECODE`` below), every copy into its own shared
-library by its own ``nvcc`` (all started together), and times each copy at
+Builds ablated copies of ``csrc/flash_attention.cu``,
+``csrc/flash_decode.cu`` and the int matmuls' shared mainloop
+``csrc/int_matmul.cuh`` (built with ``w8a8_matmul.cu`` and
+``w4a8_matmul.cu``), each one named text substitution away from the
+source (``ATTENTION``, ``DECODE``, ``INT_MATMUL`` below), every copy into
+its own shared library by its own ``nvcc`` (all started together), and
+times each copy at
 ``chip_smoke.py``'s phase-3 shapes with that script's ``device_ms``: the
 L2 flushed before every call, device time between CUDA events, the card
 kept busy while the host enqueues. Each copy is bound with the package's
@@ -15,11 +19,13 @@ the copy's own ``flash_decode_workspace_elems``. A substitution whose text
 the source no longer holds stops the script before anything is built, so
 a change to a kernel source shows here as that error, never as a wrong
 ablation. A one-element fill is timed the same way: the
-floor of the method (launch and events). Each result line gives device µs
-per call, how many outputs (written into a zeroed buffer) fall outside the
-one-bf16-ulp check against the plain version, and the largest error over
-its bound: copies that drop work fail it by design and time what they
-leave. Last, the decode copies named in ``PRECISION`` are held to that
+floor of the method (launch and events). Each attention result line gives
+device µs per call, how many outputs (written into a zeroed buffer) fall
+outside the one-bf16-ulp check against the plain version, and the largest
+error over its bound; each int matmul line the µs of every main-path site
+at M = 4 (decode) or M = 2048 (prefill), their sum over one decode step
+or one prefill, and how many outputs differ from the plain version:
+copies that drop work fail by design and time what they leave. Last, the decode copies named in ``PRECISION`` are held to that
 check on more seeded draws of the 4096-position case. Needs one NVIDIA
 card and nvcc; writes ``chiprun_out/kernel_variants.json``.
 """
@@ -71,6 +77,44 @@ DECODE = {
     # every other sum in f64 as well
     "f64_sums": [("typedef float acc_t;", "typedef double acc_t;")],
 }
+INT_MATMUL = {
+    "as_built": [],
+    # decode: one slice per group (at most 32 k-steps), no K split beyond
+    # the groups: fewer blocks, no workspace round trip on W8A8
+    "no_split_k": [("    cs = (cs + D_NW - 1) / D_NW * D_NW;\n",
+                    "    cs = D_MAXCS;\n")],
+    # prefill: B's chunks stored as loaded, without the XOR swizzle (the
+    # fragment reads conflict as the earlier byte-transposed staging did)
+    "b_unswizzled": [("16 * (c ^ (2 * ((r / RK) & 3)))", "16 * c"),
+                     ("(((wc >> 2) ^ (2 * q)) << 2)", "((wc >> 2) << 2)")],
+    # no tensor-core work: the loads, staging and transposes only
+    "no_mma": [("      \"mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 \"\n"
+                "      \"{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, \"\n"
+                "      \"{%0, %1, %2, %3};\\n\"",
+                "      \"xor.b32 %0, %0, %4;\\n xor.b32 %1, %1, %8;\\n\"\n"
+                "      \"xor.b32 %2, %2, %9;\\n xor.b32 %3, %3, %7;\\n\"")],
+    # decode: every block stores its own partial (no workspace atomics, no
+    # ticket, no merge by the last block)
+    "no_merge": [("  if (total == 1) {", "  if (true) {")],
+    # decode: every block returns at once (the launch of the grid)
+    "decode_launch_only": [
+        ("  const int tile = blockIdx.x, g = blockIdx.y / cpg, c = "
+         "blockIdx.y % cpg;",
+         "  if (ws != nullptr) return;\n"
+         "  const int tile = blockIdx.x, g = blockIdx.y / cpg, c = "
+         "blockIdx.y % cpg;")],
+    # decode: the weight's registers filled from indices, no weight read
+    "decode_no_weight_loads": [
+        ("        raw[h][r] = ok ? load16(w + row * N + n, n, N, vec)\n"
+         "                       : make_uint4(0u, 0u, 0u, 0u);",
+         "        raw[h][r] = make_uint4(k, r, n, 0u);")],
+    # prefill: the tiles' loads only (no fragments, no MMA)
+    "prefill_loads_only": [("    compute(t % P_STAGES);",
+                            "    if (t < 0) compute(t % P_STAGES);")],
+    # prefill: no tile loads (the MMAs on whatever the stages hold)
+    "prefill_no_loads": [("    if (nt < T) load_tile(nt, nt % P_STAGES);",
+                          "    if (nt < 0) load_tile(nt, nt % P_STAGES);")],
+}
 # the decode copies whose outputs are checked on more data (pos 4000 of
 # 4096, int8 (B, K)), and on how many seeded draws
 PRECISION = ("as_built", "f32_dots", "f64_sums")
@@ -87,6 +131,28 @@ def build(lib, name, source, subs, out_dir):
     cu.write_text(text)
     so = out_dir / f"{name}.so"
     cmd = [lib._nvcc(), *lib.NVCC_FLAGS, "-shared", str(cu), "-o", str(so)]
+    return so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT)
+
+
+def build_int(lib, name, subs, out_dir):
+    """A copy of the int matmuls: the mainloop header with ``subs`` applied
+    beside the two entry-point sources, one library."""
+    text = (lib.CSRC / "int_matmul.cuh").read_text()
+    for old, new in subs:
+        if old not in text:
+            raise SystemExit(f"int_matmul.{name}: the source no longer holds "
+                             f"{old!r}")
+        text = text.replace(old, new)
+    d = out_dir / f"int_matmul.{name}"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "int_matmul.cuh").write_text(text)
+    srcs = []
+    for f in ("w8a8_matmul.cu", "w4a8_matmul.cu"):
+        (d / f).write_text((lib.CSRC / f).read_text())
+        srcs.append(str(d / f))
+    so = d / "lib.so"
+    cmd = [lib._nvcc(), *lib.NVCC_FLAGS, "-shared", *srcs, "-o", str(so)]
     return so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT)
 
@@ -115,6 +181,10 @@ def main() -> None:
             so, p = build(_lib, f"{kernel}.{name}", src, subs, out_dir)
             libs[(kernel, name)] = so
             procs.append((kernel, name, p))
+    for name, subs in INT_MATMUL.items():
+        so, p = build_int(_lib, name, subs, out_dir)
+        libs[("int_matmul", name)] = so
+        procs.append(("int_matmul", name, p))
     for kernel, name, p in procs:
         log, _ = p.communicate()
         if p.returncode:
@@ -219,6 +289,8 @@ def main() -> None:
                     "B": B, "Smax": Smax, "pos": pos_v,
                     "us": timed(lambda: fn(*args)), **check(out, want)})
 
+    int_matmul_rows(dev, gen, flush, timed, entry, stream, report)
+
     # precision at length: the one-ulp check over PRECISION_DRAWS draws of
     # the 4096-position int8 (B, K) case, per decode copy
     B, Smax, pos_v = 4, 4096, 4000
@@ -262,6 +334,86 @@ def main() -> None:
     rec.mkdir(exist_ok=True)
     (rec / "kernel_variants.json").write_text(
         json.dumps({"card": card, "results": results}, indent=1))
+
+
+def int_matmul_rows(dev, gen, flush, timed, entry, stream, report):
+    """Every int matmul copy at smollm-360m's sites (chip_smoke.py phase 3):
+    w8a8 at qkv, o, up/gate, down and the tied head, w4a8 at the four layer
+    sites (one group of 960, or twenty of 128 for down), bf16 scales and
+    output; M = 4 summed over one decode step (161 and 160 calls), M = 2048
+    over one prefill's layer sites (32 layers)."""
+    import torch
+    from repro_torch.kernels.w4a8_matmul import w4a8_matmul_plain
+    from repro_torch.kernels.w8a8_matmul import w8a8_matmul_plain
+    bf = torch.bfloat16
+    D, F, V, L = 960, 2560, 49152, 32
+    sites = {"qkv": (D, 1600, 1), "o": (D, D, 1), "up_gate": (D, F, 2),
+             "down": (F, D, 1)}
+    sx = torch.tensor(0.021, device=dev)
+    zx = torch.tensor(131.0, device=dev)
+    sw8 = torch.tensor(0.0037, device=dev).to(bf)
+    cases = []
+    for name, (K, N, per) in list(sites.items()) + [("head", (D, V, 1))]:
+        w = torch.randint(-127, 128, (K, N), generator=gen, device=dev,
+                          dtype=torch.int8)
+        cs = w.sum(0, dtype=torch.int32)
+        gs = 128 if K % 128 == 0 else K
+        wp = torch.randint(-128, 128, (K // 2, N), generator=gen,
+                           device=dev, dtype=torch.int8)
+        sw4 = (torch.rand((K // gs, N), generator=gen, device=dev) * 0.002
+               + 1e-4).to(bf)
+        c4 = torch.randn((N,), generator=gen, device=dev)
+        for M in ((4,) if name == "head" else (4, 2048)):
+            x = torch.randint(-128, 128, (M, K), generator=gen, device=dev,
+                              dtype=torch.int8)
+            out = torch.empty((M, N), dtype=bf, device=dev)
+            w8 = (w8a8_matmul_plain(x, w, sx, zx, sw8, cs, -128.0, bf),
+                  (x.data_ptr(), w.data_ptr(), cs.data_ptr(), sx.data_ptr(),
+                   zx.data_ptr(), sw8.data_ptr(), 1, -128.0, out.data_ptr(),
+                   1, M, N, K))
+            w4 = None
+            if name != "head":
+                w4 = (w4a8_matmul_plain(x, wp, sx, zx, sw4, c4, gs, -128.0,
+                                        bf),
+                      (x.data_ptr(), wp.data_ptr(), sw4.data_ptr(), 1,
+                       c4.data_ptr(), sx.data_ptr(), zx.data_ptr(), -128.0,
+                       out.data_ptr(), 1, M, N, K, gs))
+            # calls per step or prefill: the head once, a site per layer;
+            # the operands ride along so their memory stays allocated
+            cases.append((name, M, K, N, gs, per if name == "head"
+                          else L * per, out, w8, w4,
+                          (x, w, cs, wp, sw4, c4)))
+    for variant in INT_MATMUL:
+        f8 = entry("int_matmul", variant, "w8a8_matmul_launch")
+        f4 = entry("int_matmul", variant, "w4a8_matmul_launch")
+        elems = entry("int_matmul", variant, "int_matmul_workspace_elems")
+        sums = {}
+        for name, M, K, N, gs, per, out, w8, w4, _ in cases:
+            for kern, fn, spec, grp in (("w8a8_matmul", f8, w8, K),
+                                        ("w4a8_matmul", f4, w4, gs)):
+                if spec is None:
+                    continue
+                want, args = spec
+                ws = torch.zeros(max(int(elems(M, N, K, grp)), 1),
+                                 dtype=torch.int32, device=dev)
+                call = (lambda fn=fn, args=args, ws=ws:
+                        fn(*args, ws.data_ptr(), stream))
+                out.zero_()
+                if call():
+                    raise SystemExit(f"int_matmul.{variant} {kern}: launch "
+                                     f"failed")
+                torch.cuda.synchronize()
+                wrong = int((out != want).sum())
+                us = timed(call)
+                unit = "step" if M == 4 else "prefill"
+                key = f"{kern}_{unit}_ms"
+                sums[key] = sums.get(key, 0.0) + us / 1e3 * per
+                report({"kernel": kern, "variant": variant, "site": name,
+                        "M": M, "K": K, "N": N, "us": us,
+                        "outputs_differing": wrong})
+        report({"kernel": "int matmuls", "variant": variant,
+                "sums": sums, "unit": "step: 161 (w8a8) / 160 (w4a8) "
+                "calls at M = 4; prefill: 160 calls at M = 2048"})
 
 
 if __name__ == "__main__":
