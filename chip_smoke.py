@@ -23,17 +23,27 @@ Phases, each fatal on failure:
    ``w4a8_matmul`` (one group of 960 and 20 groups of 128) ``torch.equal``
    at every site for M = 4 (decode), 256 (a chunk) and 2048 (a prefill),
    s_w in bf16 and f32, beside ``torch._int_mm`` (x zero-padded to 32 rows
-   at decode; at prefill also on the K-major weight), and
+   at decode; at prefill also on the K-major weight); at M = 4 both int
+   matmuls also on bf16 and f32 activations that they quantize while
+   staging A (``quant_w8a8_matmul``, ``quant_w4a8_matmul``), held
+   ``torch.equal`` to ``act_quant_static`` + the matmul and to the plain
+   composition at every site, timed beside that unfused pair; and
    ``act_quant_ptoken`` on bf16 and f32
    input (``torch.equal`` on codes, scales and zero points, with an
-   all-zero and an outlier row); ``act_quant_static`` beside
-   ``torch.quantize_per_tensor``;
+   outlier row, and again with an all-zero row planted; timed both ways,
+   the kernels line's step from the rows without it); ``act_quant_static``
+   at M = 4 and 2048
+   beside ``torch.quantize_per_tensor``; both quantizers' time a call also
+   over the method's floor, a one-element fill timed first;
 4. the static main path at full width: smollm-360m (32 layers, bf16,
    seeded random weights), a 4-token cushion from ``extract_cushion``,
    pt_static scales calibrated on 2 pipeline batches, int8-resident
    weights, int8 KV cache; ``Engine.generate`` for B=4, a 512-token prompt
    and 64 new tokens, with every kernel's launch count read around that one
-   request and held to its exact expected value; then the fp path
+   request and held to its exact expected value (``act_quant_static`` at
+   the prefill's 160 sites, ``act_quant_static_fused``, the quantization
+   inside an int matmul at M <= 16, at the prefill's head and all 161
+   sites of every decode step); then the fp path
    (``--quant none``, fp KV), W4A8 (int4-packed weights, the same scales,
    int8 KV; resident int4 bytes exactly half the W8A8 int8 bytes) and
    ``ptoken_dynamic`` (fp KV) the same way;
@@ -48,15 +58,18 @@ Phases, each fatal on failure:
    (e) a paged int8 pool with W4A8 weights, tokens identical to the static
    B=1 W4A8 Engine on the first 4 requests; (f) a contiguous fp pool under
    ptoken_dynamic, first tokens identical to the static B=1 ptoken Engine
-   on all 12 requests. Launch counts are read around each run;
+   on all 12 requests. Launch counts are read around each run and held
+   exactly, the static quantizer's route counted from each prefill call's
+   rows;
 5. the card's Engine against the port's CPU Engine on the same weights,
    scales and cushion (B=1, 64-token prompt, 8 tokens) in all four phase-4
    modes: teacher-forced logits within the stated bf16 tolerance,
    greedy-token agreement printed;
 6. the ``kernels`` line (all seven kernels; launches from the continuous
    runs (a) and (b) of phase 4b, from (e) for ``w4a8_matmul`` and from the
-   static ptoken run for ``act_quant_ptoken``), then ``{"ok": true, ...}``
-   as the last line.
+   static ptoken run for ``act_quant_ptoken``; ``act_quant_static`` timed
+   over a prefill, where it runs, with its fused cost at decode beside),
+   then ``{"ok": true, ...}`` as the last line.
 
 Exits nonzero with no result line when CUDA is unavailable or when the port
 is missing (the script alone, outside a checkout). Writes the full record to
@@ -116,6 +129,20 @@ def bound_ms(bytes_moved: float, ops: float, peak_ops: float):
                                        else "operations")
 
 
+def by_kernel(prof, steps, top=10):
+    """The profiler's device time per step by kernel name, the largest
+    first (``top`` of them; None: all): {name: [calls per step, ms per
+    step]}."""
+    from torch.autograd import DeviceType
+    by = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = by.get(e.name, (0, 0.0))
+            by[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    rows = sorted(by.items(), key=lambda kv: -kv[1][1])[:top]
+    return {k: [n / steps, us / 1e3 / steps] for k, (n, us) in rows}
+
+
 def device_ms(fn, flush_buf, iters=10) -> float:
     """Mean device ms of fn, the L2 flushed (by zeroing ``flush_buf``, a
     buffer larger than the L2) before every call: the serving path finds
@@ -160,10 +187,12 @@ def main() -> None:
     from repro_torch.kernels.flash_decode import (
         flash_decode, flash_decode_paged, flash_decode_paged_plain,
         flash_decode_plain, gather_pages)
-    from repro_torch.kernels.w4a8_matmul import (w4a8_matmul,
-                                                 w4a8_matmul_plain)
-    from repro_torch.kernels.w8a8_matmul import (w8a8_matmul,
-                                                 w8a8_matmul_plain)
+    from repro_torch.kernels.w4a8_matmul import (
+        quant_w4a8_matmul, quant_w4a8_matmul_plain, w4a8_matmul,
+        w4a8_matmul_plain)
+    from repro_torch.kernels.w8a8_matmul import (
+        quant_w8a8_matmul, quant_w8a8_matmul_plain, w8a8_matmul,
+        w8a8_matmul_plain)
     from repro_torch.launch.serve import (poisson_trace, seeded_cushion,
                                           to_device)
     from repro_torch.models.common import ParamTree
@@ -239,13 +268,53 @@ def main() -> None:
             return {"profiled_wall_ms_per_step": wall, "device_ms_per_step":
                     "not measured (no device events in the trace)"}
         return {"profiled_wall_ms_per_step": wall,
-                "device_ms_per_step": busy}
+                "device_ms_per_step": busy,
+                "by_kernel": by_kernel(prof, steps)}
 
     def scalar(v):
         return torch.tensor(v, dtype=torch.float32, device=dev)
 
     detail = []
     bf = torch.bfloat16
+    # the floor of the method: launch and events around a one-element fill
+    one = torch.zeros(1, device=dev)
+    floor_ms = timed(lambda: one.zero_(), iters=20)
+    record["floor_ms"] = floor_ms
+    log(f"timing floor (a one-element fill): {floor_ms * 1e3:.2f} us a call")
+    # a site's static activation scale and zero (codes clip at both ends
+    # of the range for the randn * 3 activations below)
+    a_sx, a_zx = scalar(0.031), scalar(111.0)
+
+    def fused_row(kernel, name, Kd, N, fused, unfused, plain, extra_bytes):
+        """The int matmul at M = B on the f32 / bf16 activation, which it
+        quantizes while staging A: torch.equal to the plain composition for
+        bf16 and f32 x and s_w (``fused(x, sw)``), timed on bf16 x and s_w
+        (the main path) beside act_quant_static + the matmul on the codes
+        (``unfused``) and the plain composition."""
+        x32 = torch.randn((B, Kd), generator=gen, device=dev) * 3
+        for x_ in (x32.to(bf), x32):
+            for sw_bf in (True, False):
+                got = fused(x_, sw_bf)
+                want = plain(x_, sw_bf)
+                ref2 = unfused(x_, sw_bf)
+                torch.cuda.synchronize()
+                if not (torch.equal(got, want) and torch.equal(got, ref2)):
+                    fail(f"{kernel} fused {name} x {x_.dtype} s_w "
+                         f"{'bf16' if sw_bf else 'f32'}: not bit-exact to "
+                         f"act_quant_static + the matmul")
+        xb = x32.to(bf)
+        ms = timed(lambda: fused(xb, True))
+        ums = timed(lambda: unfused(xb, True))
+        pms = timed(lambda: plain(xb, True), iters=3)
+        bms, by = bound_ms(2 * B * Kd + extra_bytes + 2 * B * N,
+                           2.0 * B * Kd * N, INT8_OPS_PER_S)
+        detail.append({"kernel": f"{kernel} (act_quant_static fused)",
+                       "site": name, "M": B, "K": Kd, "N": N,
+                       "max_abs_err": 0.0, "kernel_ms": ms,
+                       "unfused_ms": ums, "plain_ms": pms, "bound_ms": bms,
+                       "bound_by": by, "library_ms": None})
+        print(json.dumps(detail[-1]), flush=True)
+        return ms, ums, pms, bms
     # the int matmuls at every main-path M: decode (B rows), a 256-token
     # chunk of run (d), a whole prefill (B * PROMPT rows); s_w in bf16 (the
     # weight's dtype, the main path) and f32, both held torch.equal
@@ -254,7 +323,7 @@ def main() -> None:
     shapes = {"qkv": (D, (H + 2 * K) * hd), "o": (H * hd, D),
               "up_gate": (D, F_), "down": (F_, D), "head": (D, V)}
     per_layer = {"qkv": 1, "o": 1, "up_gate": 2, "down": 1}
-    w8 = {}
+    w8, fz8 = {}, {}
     for name, (Kd, N) in shapes.items():
         w = torch.randint(-127, 128, (Kd, N), generator=gen, device=dev,
                           dtype=torch.int8)
@@ -276,6 +345,18 @@ def main() -> None:
                          f"bit-exact, max err "
                          f"{(out_k.float() - out_p.float()).abs().max():.3g}")
             ms = timed(lambda: w8a8_matmul(*args, **kw))
+            if M == B:
+                sws = {True: sw_bf, False: scalar(0.0037)}
+                fz8[name] = fused_row(
+                    "w8a8_matmul", name, Kd, N,
+                    lambda x_, b_: quant_w8a8_matmul(
+                        x_, w, a_sx, a_zx, sws[b_], colsum, out_dtype=bf),
+                    lambda x_, b_: w8a8_matmul(
+                        act_quant_static(x_, a_sx, a_zx), w, a_sx, a_zx,
+                        sws[b_], colsum, z_shift=-128.0, out_dtype=bf),
+                    lambda x_, b_: quant_w8a8_matmul_plain(
+                        x_, w, a_sx, a_zx, sws[b_], colsum, out_dtype=bf),
+                    Kd * N + 4 * N)
             if M == 256:
                 # held and timed, not summed into a step or a prefill
                 detail.append({"kernel": "w8a8_matmul", "site": name,
@@ -336,6 +417,7 @@ def main() -> None:
             aq[(Dd, M)] = (ms, pms, bms, lib_ms)
             detail.append({"kernel": "act_quant_static", "D": Dd, "M": M,
                            "max_abs_err": 0.0, "kernel_ms": ms, "plain_ms": pms,
+                           "over_floor_ms": ms - floor_ms,
                            "bound_ms": bms, "bound_by": by,
                            "library_ms": lib_ms,
                            "library_of": "torch.quantize_per_tensor quint8, "
@@ -345,7 +427,7 @@ def main() -> None:
     # w4a8: the four prequantized (K, N) pairs of one layer (the tied head
     # stays W8A8); one group of 960 where 128 does not divide d_model,
     # twenty of 128 for down; s_w in bf16 (the main path) and f32
-    w4 = {}
+    w4, fz4 = {}, {}
     for name in per_layer:
         Kd, N = shapes[name]
         wg = QuantConfig().w_group
@@ -371,6 +453,20 @@ def main() -> None:
                          f"bit-exact, max err "
                          f"{(out_k.float() - out_p.float()).abs().max():.3g}")
             ms = timed(lambda: w4a8_matmul(*args, **kw))
+            if M == B:
+                sws = {True: s_w, False: s_w32}
+                fz4[name] = fused_row(
+                    "w4a8_matmul", name, Kd, N,
+                    lambda x_, b_: quant_w4a8_matmul(
+                        x_, wp, a_sx, a_zx, sws[b_], colsum, gs,
+                        out_dtype=bf),
+                    lambda x_, b_: w4a8_matmul(
+                        act_quant_static(x_, a_sx, a_zx), wp, a_sx, a_zx,
+                        sws[b_], colsum, gs, z_shift=-128.0, out_dtype=bf),
+                    lambda x_, b_: quant_w4a8_matmul_plain(
+                        x_, wp, a_sx, a_zx, sws[b_], colsum, gs,
+                        out_dtype=bf),
+                    Kd // 2 * N + 2 * G * N + 4 * N)
             if M == 256:
                 detail.append({"kernel": "w4a8_matmul", "site": name,
                                "M": M, "K": Kd, "N": N, "groups": G,
@@ -388,35 +484,54 @@ def main() -> None:
                            "w8a8_kernel_ms": w8[(name, M)][0]})
             print(json.dumps(detail[-1]), flush=True)
     log("w8a8_matmul and w4a8_matmul torch.equal to their plain versions "
-        f"at every site for M in {MS}, s_w in bf16 and f32")
+        f"at every site for M in {MS}, s_w in bf16 and f32; at M = {B} "
+        "quantizing bf16 and f32 x in their staging, torch.equal to "
+        "act_quant_static + the matmul and to the plain composition")
 
     # act_quant_ptoken: every GEMM input, both arithmetics (bf16 input: the
-    # smollm path; f32 input: f32 activations), an all-zero and an outlier
-    # row
+    # smollm path; f32 input: f32 activations), with an outlier row; held
+    # torch.equal also with an all-zero row planted, and timed both ways
+    # (the gate reads the rows without it: an all-zero activation row is
+    # not known to occur in serving, and its zero dividends take the IEEE
+    # division's slow path)
     pt = {}
     for Dd in (D, F_):
         for M in (B, B * PROMPT):
             x = torch.randn((M, Dd), generator=gen, device=dev) * 3 + 0.2
-            x[1] = 0.0
             x[2, 11] = 300.0
-            for mode, xin in (("bf16", x.to(torch.bfloat16)), ("f32", x)):
-                a_k = act_quant_ptoken(xin)
-                a_p = act_quant_ptoken_plain(xin)
-                torch.cuda.synchronize()
-                if not all(torch.equal(u, v) for u, v in zip(a_k, a_p)):
-                    fail(f"act_quant_ptoken {mode} D={Dd} M={M}: not "
-                         f"bit-exact")
+            xz = x.clone()
+            xz[1] = 0.0
+            for mode, xin, xzin in (("bf16", x.to(bf), xz.to(bf)),
+                                    ("f32", x, xz)):
+                for rows, x_ in (("", xin), (" with a zero row", xzin)):
+                    a_k = act_quant_ptoken(x_)
+                    a_p = act_quant_ptoken_plain(x_)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(u, v) for u, v in zip(a_k, a_p)):
+                        fail(f"act_quant_ptoken {mode} D={Dd} M={M}{rows}: "
+                             f"not bit-exact")
                 ms = timed(lambda: act_quant_ptoken(xin))
+                zms = timed(lambda: act_quant_ptoken(xzin))
                 pms = timed(lambda: act_quant_ptoken_plain(xin), iters=3)
                 bms, by = bound_ms((xin.element_size() + 1) * M * Dd + 8 * M,
                                    6.0 * M * Dd, F32_FLOPS_PER_S)
-                pt[(Dd, M, mode)] = (ms, pms, bms)
+                pt[(Dd, M, mode)] = (ms, pms, bms, zms)
                 detail.append({"kernel": "act_quant_ptoken", "mode": mode,
                                "D": Dd, "M": M, "max_abs_err": 0.0,
                                "kernel_ms": ms, "plain_ms": pms,
+                               "over_floor_ms": ms - floor_ms,
+                               "zero_row_kernel_ms": zms,
                                "bound_ms": bms, "bound_by": by,
                                "library_ms": None})
                 print(json.dumps(detail[-1]), flush=True)
+
+    log("act quantizers, us a call and over the floor of "
+        f"{floor_ms * 1e3:.2f}: static "
+        + ", ".join(f"D={k[0]} M={k[1]} {v[0] * 1e3:.2f} "
+                    f"(+{(v[0] - floor_ms) * 1e3:.2f})" for k, v in aq.items())
+        + "; ptoken "
+        + ", ".join(f"{k[2]} D={k[0]} M={k[1]} {v[0] * 1e3:.2f} "
+                    f"(+{(v[0] - floor_ms) * 1e3:.2f})" for k, v in pt.items()))
 
     def ulp_check(name, got, want):
         err = (got.float() - want.float()).abs()
@@ -714,19 +829,21 @@ def main() -> None:
              "w4a8_int8kv": (qw8, "int8", True, 4),
              "ptoken_fp": (qpt, None, False, 8)}
     L = cfg.n_layers
-    zero_counts = {k: 0 for k in _lib.KERNELS}
+    zero_counts = {k: 0 for k in _lib.LAUNCHES}
     attn = {"flash_attention": L, "flash_decode": L * (NEW_TOKENS - 1)}
     # launches per request of B = 4 (NEW_TOKENS forward passes: 160 qlinear
-    # sites and the head each)
+    # sites and the head each). The static quantizer runs standalone at the
+    # prefill's 160 sites (M = B * PROMPT) and inside the matmul at M <= 16:
+    # the prefill's head (the last position, M = B) and every decode site
+    quant = {"act_quant_static": 160,
+             "act_quant_static_fused": 1 + 161 * (NEW_TOKENS - 1)}
     expect_static = {
-        "w8a8_int8kv": {**zero_counts, **attn,
-                        "w8a8_matmul": 161 * NEW_TOKENS,
-                        "act_quant_static": 161 * NEW_TOKENS},
+        "w8a8_int8kv": {**zero_counts, **attn, **quant,
+                        "w8a8_matmul": 161 * NEW_TOKENS},
         "fp": {**zero_counts, **attn},
-        "w4a8_int8kv": {**zero_counts, **attn,
+        "w4a8_int8kv": {**zero_counts, **attn, **quant,
                         "w4a8_matmul": 160 * NEW_TOKENS,
-                        "w8a8_matmul": NEW_TOKENS,      # the tied head
-                        "act_quant_static": 161 * NEW_TOKENS},
+                        "w8a8_matmul": NEW_TOKENS},     # the tied head
         "ptoken_fp": {**zero_counts, **attn,
                       "act_quant_ptoken": 161 * NEW_TOKENS}}
     runs, engines = {}, {}
@@ -762,8 +879,8 @@ def main() -> None:
             f"TTFT={res.ttft_ms:.2f} ms TPOT={res.tpot_ms:.3f} ms "
             f"weights fp={eng.weight_bytes_fp} B int8="
             f"{eng.weight_bytes_int8} B int4={eng.weight_bytes_int4} B "
-            f"launches={counts} decode device busy "
-            f"{runs[label]['device_busy']}")
+            f"launches={counts} decode device ms per step "
+            f"{runs[label]['device_busy']['device_ms_per_step']}")
         if counts != expect_static[label]:
             fail(f"{label}: launches {counts}, expected "
                  f"{expect_static[label]}")
@@ -833,7 +950,8 @@ def main() -> None:
                    if e.device_type == DeviceType.CUDA) / 1e3 / steps
         return {"profiled_wall_ms_per_step": wall,
                 "device_ms_per_step": busy if busy else
-                "not measured (no device events in the trace)"}
+                "not measured (no device events in the trace)",
+                "by_kernel": by_kernel(prof, steps)}
 
     def serve(label, eng, trace, path="w8a8"):
         warm = [dataclasses.replace(r, max_new_tokens=2)
@@ -841,6 +959,16 @@ def main() -> None:
         eng.first_logits = {}
         eng.run(warm)                                # warm-up
         eng.first_logits = {}
+        # the rows of every prefill call (B = 1: its tokens), which pick the
+        # static quantizer's route at its 160 layer sites
+        prefill_rows = []
+        prefill = eng._prefill
+
+        def rows_counted(batch, *a, **k):
+            prefill_rows.append(int(batch["tokens"].numel()))
+            return prefill(batch, *a, **k)
+
+        eng._prefill = rows_counted
         _lib.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -848,6 +976,7 @@ def main() -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(_lib.LAUNCHES)
+        del eng._prefill
         st = eng.stats
         if [o.uid for o in outs] != [r.uid for r in trace]:
             fail(f"{label}: finished {[o.uid for o in outs]}")
@@ -859,13 +988,25 @@ def main() -> None:
         # each prefill call is one chunk, else one admission
         prefills = st.prefill_chunks if eng.chunk_tokens else st.admitted
         passes = st.steps + prefills
+        if len(prefill_rows) != prefills:
+            fail(f"{label}: {len(prefill_rows)} prefill calls, stats count "
+                 f"{prefills}")
         # 161 quantized sites per pass (160 qlinear and the head); under
-        # W4A8 the tied head stays W8A8
+        # W4A8 the tied head stays W8A8. The static quantizer: standalone
+        # at the 160 layer sites of a prefill call above 16 rows, fused at
+        # those of a shorter call, at every prefill's head (its last
+        # position, M = 1) and at all 161 sites of every decode step
+        # (M = SLOTS)
+        long_ = sum(r > 16 for r in prefill_rows)
+        static = path != "ptoken"
         expect = {**zero_counts,
                   "w8a8_matmul": {"w8a8": 161 * passes,
                                   "w4a8": passes}.get(path, 0),
                   "w4a8_matmul": 160 * passes if path == "w4a8" else 0,
-                  "act_quant_static": 0 if path == "ptoken" else 161 * passes,
+                  "act_quant_static": 160 * long_ if static else 0,
+                  "act_quant_static_fused": (
+                      160 * (prefills - long_) + prefills + 161 * st.steps
+                      if static else 0),
                   "act_quant_ptoken": 161 * passes if path == "ptoken" else 0,
                   "flash_attention": cfg.n_layers * prefills,
                   "flash_decode": 0 if eng.paged else cfg.n_layers * st.steps,
@@ -885,6 +1026,7 @@ def main() -> None:
                "tpot_ms_p50": float(np.percentile(tpot, 50)),
                "tpot_ms_p99": float(np.percentile(tpot, 99)),
                "launches": counts, "stats": st.as_dict(),
+               "prefill_rows": prefill_rows,
                "slots": [o.slot for o in outs]}
         res["device_busy"] = pool_busy(eng, trace)     # resets the stats
         sd = res["stats"]
@@ -893,8 +1035,8 @@ def main() -> None:
             f"{res['ttft_ms_p50']:.2f}/{res['ttft_ms_p99']:.2f} ms, TPOT "
             f"p50/p99 {res['tpot_ms_p50']:.2f}/{res['tpot_ms_p99']:.2f} ms, "
             f"occupancy {sd['occupancy']:.3f}, steps {sd['steps']}, "
-            f"pool_bytes {sd['pool_bytes']}, device per decode step "
-            f"{res['device_busy']}, prefix hits/misses "
+            f"pool_bytes {sd['pool_bytes']}, device ms per decode step "
+            f"{res['device_busy']['device_ms_per_step']}, prefix hits/misses "
             f"{sd['prefix_hits']}/{sd['prefix_misses']}, chunks "
             f"{sd['prefill_chunks']}, page-table syncs "
             f"{sd['page_table_syncs']}, launches {counts}")
@@ -1081,7 +1223,7 @@ def main() -> None:
     # static W8A8 / W4A8 counts ride along as static_launches
     cont_counts = {k: cruns["a_contiguous_int8"]["launches"][k]
                    + cruns["b_paged_int8"]["launches"][k]
-                   for k in _lib.KERNELS}
+                   for k in _lib.LAUNCHES}
 
     def layer_sum(idx, M):
         return L * sum(per_layer[s] * w8[(s, M)][idx] for s in per_layer)
@@ -1097,6 +1239,17 @@ def main() -> None:
 
     def w4_sum(idx, M):
         return L * sum(per_layer[s] * w4[(s, M)][idx] for s in per_layer)
+
+    def fused_sum(table, idx):
+        """One decode step of the quantizing int matmuls (M = B): the 160
+        layer sites, and the head where the table has it (w8a8)."""
+        v = L * sum(per_layer[s] * table[s][idx] for s in per_layer)
+        return v + (table["head"][idx] if "head" in table else 0.0)
+
+    def aq_prefill(idx):
+        """act_quant_static over one prefill's 160 layer sites."""
+        a, b = aq[(D, B * PROMPT)][idx], aq[(F_, B * PROMPT)][idx]
+        return None if a is None or b is None else L * (4 * a + b)
 
     pt_bf = {(Dd, M): v for (Dd, M, mode), v in pt.items() if mode == "bf16"}
     w4_launches = cruns["e_paged_int8_w4a8"]["launches"]
@@ -1121,22 +1274,42 @@ def main() -> None:
          "prefill_library_ms": layer_sum(3, B * PROMPT),
          "prefill_library_kmajor_ms": layer_sum(4, B * PROMPT),
          "prefill_unit": f"one prefill ({L * 5} calls at the layer sites, "
-                         f"M={B * PROMPT})"},
+                         f"M={B * PROMPT})",
+         "fused_unit": "one decode step (161 calls, M=4) on bf16 x, "
+                       "quantized in the staging (the main path)",
+         "fused_ms": fused_sum(fz8, 0), "fused_plain_ms": fused_sum(fz8, 2),
+         "fused_bound_ms": fused_sum(fz8, 3),
+         "unfused_ms": fused_sum(fz8, 1),
+         "unfused_of": "act_quant_static + w8a8_matmul on the codes"},
         {"name": "act_quant_static", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/act_quant.cu",
          "replaces": "src/repro/kernels/act_quant.py:31",
          "launches": cont_counts["act_quant_static"],
          "static_launches": main_counts["act_quant_static"],
+         "fused_launches": cont_counts["act_quant_static_fused"],
+         "static_fused_launches": main_counts["act_quant_static_fused"],
+         "fused_launches_are": "quantizations inside w8a8_matmul / "
+                               "w4a8_matmul launches (M <= 16), not "
+                               "launches of their own",
          "max_abs_err": 0.0,
-         "unit": "one decode step (161 calls, M=4)",
-         "ms": aq_sum(0, B), "plain_ms": aq_sum(1, B),
-         "bound_ms": aq_sum(2, B), "bound_by": "bytes",
-         "library_ms": aq_sum(3, B),
+         "unit": f"one prefill ({L * 5} calls at the layer sites, "
+                 f"M={B * PROMPT}); at decode it runs fused",
+         "ms": aq_prefill(0), "plain_ms": aq_prefill(1),
+         "bound_ms": aq_prefill(2), "bound_by": "bytes",
+         "library_ms": aq_prefill(3),
          "library_of": "torch.quantize_per_tensor to quint8 (no -128 "
                        "offset) of an f32 copy",
-         "prefill_ms": aq_sum(0, B * PROMPT),
-         "prefill_bound_ms": aq_sum(2, B * PROMPT),
-         "prefill_library_ms": aq_sum(3, B * PROMPT)},
+         "floor_ms": floor_ms,
+         "ms_over_floor": aq_prefill(0) - L * 5 * floor_ms,
+         "decode_unit": "one decode step (161 sites, M=4)",
+         "decode_standalone_ms": aq_sum(0, B),
+         "decode_standalone_bound_ms": aq_sum(2, B),
+         "decode_standalone_library_ms": aq_sum(3, B),
+         "decode_fused_extra_ms": fused_sum(fz8, 0) - step_sum(0, B),
+         "decode_fused_extra_of": "w8a8_matmul on bf16 x (quantized in "
+                                  "its staging) minus w8a8_matmul on int8 "
+                                  "codes, summed over the step",
+         "w4a8_decode_fused_extra_ms": fused_sum(fz4, 0) - w4_sum(0, B)},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:70",
@@ -1202,7 +1375,13 @@ def main() -> None:
          "prefill_ms": w4_sum(0, B * PROMPT),
          "prefill_plain_ms": w4_sum(1, B * PROMPT),
          "prefill_bound_ms": w4_sum(2, B * PROMPT),
-         "w8a8_prefill_ms_same_sites": layer_sum(0, B * PROMPT)},
+         "w8a8_prefill_ms_same_sites": layer_sum(0, B * PROMPT),
+         "fused_unit": "one decode step (160 calls, M=4) on bf16 x, "
+                       "quantized in the staging (the main path)",
+         "fused_ms": fused_sum(fz4, 0), "fused_plain_ms": fused_sum(fz4, 2),
+         "fused_bound_ms": fused_sum(fz4, 3),
+         "unfused_ms": fused_sum(fz4, 1),
+         "unfused_of": "act_quant_static + w4a8_matmul on the codes"},
         {"name": "act_quant_ptoken", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/act_quant.cu",
          "replaces": "src/repro/kernels/act_quant.py:65",
@@ -1211,13 +1390,20 @@ def main() -> None:
          "continuous_launches": cruns["f_contiguous_fp_ptoken"]["launches"][
              "act_quant_ptoken"],
          "max_abs_err": 0.0,
-         "unit": "one decode step (161 calls, M=4, bf16 mode)",
+         "unit": "one decode step (161 calls, M=4, bf16 mode), rows "
+                 "with an outlier and no all-zero row",
          "ms": aq_sum(0, B, pt_bf), "plain_ms": aq_sum(1, B, pt_bf),
+         "zero_row_ms": aq_sum(3, B, pt_bf),
+         "zero_row_of": "the same step with row 1 of every call all zero",
          "bound_ms": aq_sum(2, B, pt_bf), "bound_by": "bytes",
          "library_ms": None,
          "library_of": "none: no single PyTorch call quantizes per row",
          "prefill_ms": aq_sum(0, B * PROMPT, pt_bf),
-         "prefill_bound_ms": aq_sum(2, B * PROMPT, pt_bf)},
+         "prefill_bound_ms": aq_sum(2, B * PROMPT, pt_bf),
+         "floor_ms": floor_ms,
+         "ms_over_floor": aq_sum(0, B, pt_bf) - 161 * floor_ms,
+         "prefill_ms_over_floor": aq_sum(0, B * PROMPT, pt_bf)
+         - 161 * floor_ms},
     ]
     for kk in kernels:
         if kk["launches"] <= 0:

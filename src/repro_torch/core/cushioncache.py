@@ -1,6 +1,6 @@
 """CushionCache artifacts (paper §4). This slice ports the content
 fingerprint only; the greedy search and prefix tuning come with the
-method's slice (ROADMAP queue 1 item 7)."""
+method's slice (ROADMAP queue 1 item 2)."""
 from __future__ import annotations
 
 import hashlib

@@ -5,9 +5,10 @@ calibrated; ``pt_dynamic``: computed on the fly) or a per-token range
 (``ptoken_dynamic``: the ``act_quant_ptoken`` kernel on the card); weights
 are symmetric. Two execution paths: fake-quant in float (the dynamic
 baselines, calibration statistics and the fidelity experiments) and true
-integer, which runs ``act_quant_static`` and ``w8a8_matmul`` (int8-resident
-weights, W8A8) or ``w4a8_matmul`` (int4-packed weights with group-wise
-scales, W4A8) on the card.
+integer, which runs the static activation quantizer and ``w8a8_matmul``
+(int8-resident weights, W8A8) or ``w4a8_matmul`` (int4-packed weights with
+group-wise scales, W4A8) on the card: one launch at decode, whose A
+staging quantizes the activation, or ``act_quant_static`` and the matmul.
 
 Type promotion follows JAX, not PyTorch: JAX promotes a bf16 array against
 a 0-dim f32 array to f32, PyTorch keeps bf16. ``_promote`` casts both
@@ -22,10 +23,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import QuantConfig
-from repro_torch.kernels.act_quant import act_quant_ptoken, act_quant_static
+from repro_torch.kernels.act_quant import act_quant_ptoken
 from repro_torch.kernels.w4a8_matmul import unpack_int4  # noqa: F401 (the reference's name)
-from repro_torch.kernels.w4a8_matmul import w4a8_matmul
-from repro_torch.kernels.w8a8_matmul import w8a8_matmul
+from repro_torch.kernels.w4a8_matmul import quant_w4a8_matmul, w4a8_matmul
+from repro_torch.kernels.w8a8_matmul import quant_w8a8_matmul, w8a8_matmul
 
 Tensor = torch.Tensor
 
@@ -211,72 +212,67 @@ def _weight_scale(t: Tensor) -> Tensor:
     return t if t.dtype in (torch.float32, torch.bfloat16) else t.float()
 
 
-def _int8_matmul(xq: Tensor, w_int: Tensor, s_x: Tensor, z_x: Tensor,
-                 s_w: Tensor, colsum: Tensor, out_dtype: torch.dtype,
-                 z_shift: float = 0.0) -> Tensor:
-    """(X_int - z) @ W_int * s_x s_w = (X_int @ W_int - z colsum) s_x s_w,
-    with z = z_x + z_shift, through ``w8a8_matmul`` (the kernel on the card,
-    its plain version on the CPU). Scalar (per-tensor static) scales."""
-    K, N = w_int.shape
-    lead = xq.shape[:-1]
-    out = w8a8_matmul(xq.reshape(-1, K), w_int, _f32(s_x), _f32(z_x),
-                      _weight_scale(s_w), colsum=colsum, z_shift=z_shift,
-                      out_dtype=out_dtype if out_dtype == torch.bfloat16
-                      else torch.float32)
-    return out.reshape(*lead, N).to(out_dtype)
+def _static_int_matmul(x: Tensor, w: Dict[str, Tensor], s_x: Tensor,
+                       z_x: Tensor, cfg: QuantConfig) -> Tensor:
+    """x quantized with a per-tensor scale and zero, times an int weight:
+    ``w_int`` (int8, one scale, int32 ``colsum``; W8A8) or ``w_packed``
+    (int4 nibbles, group-wise scales, scaled f32 ``colsum``; W4A8).
 
+    Asymmetric 8-bit codes with f32 scales (always the case for calibrated
+    scales) go through ``quant_w8a8_matmul`` / ``quant_w4a8_matmul``: on
+    the card one launch at M <= 16, whose staging quantizes x, or
+    ``act_quant_static`` and the matmul above; on the CPU their plain
+    versions. The codes live in [0, 255] and are stored offset by -128, a
+    shift that folds into the epilogue (z = z_x - 128); x / s + z is
+    computed in f32, which is JAX's arithmetic whenever the scale and zero
+    are f32. The epilogue:
 
-def _int4_matmul(xq: Tensor, w_packed: Tensor, s_x: Tensor, z_x: Tensor,
-                 s_w: Tensor, colsum: Tensor, out_dtype: torch.dtype,
-                 z_shift: float = 0.0) -> Tensor:
-    """int8 activations x int4-packed weights with group-wise scales,
-    through ``w4a8_matmul`` (the kernel on the card, its plain version on
-    the CPU):
+      W8A8: (X_int @ W_int - z colsum) s_x s_w
+      W4A8: s_x * (sum_g s_w[g] * (X_int[:, g] @ W_int[g]) - z colsum_scaled)
 
-      out = s_x * (sum_g s_w[g] * (X_int[:, g] @ W_int[g]) - z colsum_scaled)
-
-    with z = z_x + z_shift and ``colsum_scaled`` stored by ``prequantize``.
-    The reference's routes (a folded-scale f32 GEMM, the Pallas per-block
-    accumulation) agree with each other to f32 accumulation, not bit for
-    bit; this one sums exact per-group int32 partials in group order."""
-    K = xq.shape[-1]
-    G = s_w.shape[0]
+    The reference's W4A8 routes (a folded-scale f32 GEMM, the Pallas
+    per-block accumulation) agree with each other to f32 accumulation, not
+    bit for bit; this one sums exact per-group int32 partials in group
+    order. Dynamic ranges of a bf16 activation stay bf16, and symmetric or
+    narrower codes have no kernel: those take tensor ops on the CPU and
+    raise elsewhere."""
+    K = x.shape[-1]
+    lead = x.shape[:-1]
+    packed = "w_packed" in w
+    N = (w["w_packed"] if packed else w["w_int"]).shape[-1]
+    G = w["w_scale"].shape[0] if packed else 1
     if K % G:
         raise ValueError(f"groups ({G}) must tile the contracting dim ({K})")
-    N = w_packed.shape[-1]
-    lead = xq.shape[:-1]
-    out = w4a8_matmul(xq.reshape(-1, K), w_packed, _f32(s_x), _f32(z_x),
-                      _weight_scale(s_w), _f32(colsum), group_size=K // G,
-                      z_shift=z_shift,
-                      out_dtype=out_dtype if out_dtype == torch.bfloat16
-                      else torch.float32)
-    return out.reshape(*lead, N).to(out_dtype)
-
-
-def _quantize_act(x: Tensor, s_x: Tensor, z_x: Tensor, cfg: QuantConfig
-                  ) -> Tuple[Tensor, float]:
-    """int8 activation codes and the zero-point shift of their storage:
-    asymmetric 8-bit codes live in [0, 255] and are stored offset by -128
-    (the ``act_quant_static`` kernel); the shift folds into the matmul
-    epilogue. The kernel computes x / s + z in f32, which is JAX's
-    arithmetic whenever the scale and zero are f32 (always for calibrated
-    scales). Dynamic ranges of a bf16 activation stay bf16, and symmetric or
-    narrower codes have no kernel: those take the tensor path on the CPU
-    and raise elsewhere."""
+    od = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+    s_w = _weight_scale(w["w_scale"])
+    x2 = x.reshape(-1, K)
     if (not cfg.symmetric_a and cfg.a_bits == 8
             and s_x.dtype == torch.float32 and z_x.dtype == torch.float32):
-        K = x.shape[-1]
-        xq = act_quant_static(x.reshape(-1, K).contiguous(), _f32(s_x),
-                              _f32(z_x))
-        return xq.reshape(x.shape), -128.0
+        x2 = x2.contiguous()
+        if packed:
+            out = quant_w4a8_matmul(x2, w["w_packed"], s_x, z_x, s_w,
+                                    _f32(w["colsum"]), K // G, out_dtype=od)
+        else:
+            out = quant_w8a8_matmul(x2, w["w_int"], s_x, z_x, s_w,
+                                    w["colsum"], out_dtype=od)
+        return out.reshape(*lead, N).to(x.dtype)
     if x.device.type != "cpu":
         raise ValueError(
             "act_quant_static takes asymmetric 8-bit codes with f32 scales; "
             f"got a_bits={cfg.a_bits}, symmetric={cfg.symmetric_a}, scale "
             f"{s_x.dtype}: that combination runs on the CPU only")
-    xq = quantize(x, s_x, z_x, cfg.a_bits, cfg.symmetric_a)
     off = 0 if cfg.symmetric_a else 2 ** (cfg.a_bits - 1)
-    return (xq - off).to(torch.int8), -float(off)
+    xq = (quantize(x2, s_x, z_x, cfg.a_bits, cfg.symmetric_a)
+          - off).to(torch.int8)
+    if packed:
+        out = w4a8_matmul(xq, w["w_packed"], _f32(s_x), _f32(z_x), s_w,
+                          _f32(w["colsum"]), K // G, z_shift=-float(off),
+                          out_dtype=od)
+    else:
+        out = w8a8_matmul(xq, w["w_int"], _f32(s_x), _f32(z_x), s_w,
+                          colsum=w["colsum"], z_shift=-float(off),
+                          out_dtype=od)
+    return out.reshape(*lead, N).to(x.dtype)
 
 
 def true_int_dot(x: Tensor, w: Tensor, cfg: QuantConfig,
@@ -294,29 +290,23 @@ def true_int_dot(x: Tensor, w: Tensor, cfg: QuantConfig,
         s_x, z_x = params_from_minmax(mn, mx, cfg.a_bits, cfg.symmetric_a)
     if s_x.numel() != 1:
         raise NotImplementedError("true int8 matmul takes per-tensor scales")
-    xq, shift = _quantize_act(x, s_x, z_x, cfg)
-    colsum = wq.sum(0, dtype=torch.int32)
-    return _int8_matmul(xq, wq.contiguous(), s_x, z_x, s_w, colsum, x.dtype,
-                        shift)
+    return _static_int_matmul(
+        x, {"w_int": wq.contiguous(), "w_scale": s_w,
+            "colsum": wq.sum(0, dtype=torch.int32)}, s_x, z_x, cfg)
 
 
 def prequantized_int_dot(x: Tensor, w: Dict[str, Tensor], cfg: QuantConfig,
                          site: Optional[SiteScale]) -> Tensor:
     """Serving path with integer-resident weights; needs calibrated static
-    scales. Two formats, told apart by key: ``w_int`` (int8, W8A8) through
-    ``_int8_matmul``, ``w_packed`` (int4 nibbles, group-wise scales, W4A8)
-    through ``_int4_matmul``. Activations are int8 in both."""
+    scales. Two formats, told apart by key: ``w_int`` (int8, W8A8) and
+    ``w_packed`` (int4 nibbles, group-wise scales, W4A8), both through
+    ``_static_int_matmul``. Activations are int8 in both."""
     if cfg.mode != "pt_static" or site is None:
         raise ValueError(
             "prequantized (int8-resident) weights serve the pt_static "
             "deployment path only and need calibrated site scales; got "
             f"mode={cfg.mode!r}, site={'set' if site is not None else None}")
-    xq, shift = _quantize_act(x, site.scale, site.zero, cfg)
-    if "w_packed" in w:
-        return _int4_matmul(xq, w["w_packed"], site.scale, site.zero,
-                            w["w_scale"], w["colsum"], x.dtype, shift)
-    return _int8_matmul(xq, w["w_int"], site.scale, site.zero, w["w_scale"],
-                        w["colsum"], x.dtype, shift)
+    return _static_int_matmul(x, w, site.scale, site.zero, cfg)
 
 
 def prequantize(w: Tensor, cfg: QuantConfig,

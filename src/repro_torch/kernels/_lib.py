@@ -10,12 +10,16 @@ the sources, so a second process reuses it.
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` turns a nonzero code into an exception.
 ``flash_decode_workspace_elems`` and ``int_matmul_workspace_elems`` launch
-nothing: they size the split kernels' workspaces.
+nothing: they size the split kernels' workspaces; nor does
+``int_matmul_decode_max_m``, the most rows the int matmuls quantize A at.
 There is no fallback: a failed build or launch raises.
 
 ``LAUNCHES`` counts kernel launches per kernel name. A wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its path went
-through the kernels.
+through the kernels. ``FUSED`` names work that runs inside another kernel's
+launch and is counted beside it: ``act_quant_static_fused`` is one static
+quantization done in the staging of a ``w8a8_matmul`` or ``w4a8_matmul``
+launch (M <= 16), not a launch of its own.
 """
 from __future__ import annotations
 
@@ -39,25 +43,28 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNELS = ("w8a8_matmul", "act_quant_static", "flash_attention",
            "flash_decode", "flash_decode_paged", "w4a8_matmul",
            "act_quant_ptoken")
-LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+FUSED = ("act_quant_static_fused",)
+LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS + FUSED}
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of every entry point (all return cudaError_t as int, but
 # those in _RESTYPES)
 _SIGNATURES = {
-    # x, w, colsum, s_x, z_x, s_w, s_w_bf16, z_shift, out, out_bf16, M, N,
-    # K, workspace, stream
-    "w8a8_matmul_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _F, _VP, _I, _I,
-                           _I, _I, _VP, _VP],
+    # x, x_kind, w, colsum, s_x, z_x, s_w, s_w_bf16, z_shift, out,
+    # out_bf16, M, N, K, workspace, stream
+    "w8a8_matmul_launch": [_VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _F, _VP, _I,
+                           _I, _I, _I, _VP, _VP],
     # x, x_bf16, scale, zero, out, n, stream
     "act_quant_static_launch": [_VP, _I, _VP, _VP, _VP, ctypes.c_longlong,
                                 _VP],
-    # x, w_packed, s_w, s_w_bf16, colsum, s_x, z_x, z_shift, out, out_bf16,
-    # M, N, K, group, workspace, stream
-    "w4a8_matmul_launch": [_VP, _VP, _VP, _I, _VP, _VP, _VP, _F, _VP, _I, _I,
-                           _I, _I, _I, _VP, _VP],
+    # x, x_kind, w_packed, s_w, s_w_bf16, colsum, s_x, z_x, z_shift, out,
+    # out_bf16, M, N, K, group, workspace, stream
+    "w4a8_matmul_launch": [_VP, _I, _VP, _VP, _I, _VP, _VP, _VP, _F, _VP, _I,
+                           _I, _I, _I, _I, _VP, _VP],
     # M, N, K, group
     "int_matmul_workspace_elems": [_I, _I, _I, _I],
+    # (no arguments)
+    "int_matmul_decode_max_m": [],
     # x, x_bf16, out, scale, zero, M, D, qmax, stream
     "act_quant_ptoken_launch": [_VP, _I, _VP, _VP, _VP, _I, _I, _F, _VP],
     # q, k, v, out, bf16, B, H, Kh, S, T, hd, prefix_len,

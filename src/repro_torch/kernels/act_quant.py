@@ -17,7 +17,10 @@ out holding bf16 values). A caller that wants the Pallas arithmetic on a bf16
 activation upcasts it first, as the Pallas kernel does.
 
 A CUDA tensor launches the hand-written kernels (``csrc/act_quant.cu``); a
-CPU tensor takes the plain versions.
+CPU tensor takes the plain versions. The serving path launches
+``act_quant_static`` only above 16 rows: at decode the int matmuls quantize
+their A operand themselves (``quant_w8a8_matmul``, ``quant_w4a8_matmul``),
+with the same arithmetic (``csrc/act_quant.cuh``).
 """
 from __future__ import annotations
 

@@ -44,6 +44,18 @@
 // the bytes is mostly latency: the launch, one round trip for the weight
 // and one for the merge (tools/kernel_variants.py times each).
 //
+// The decode regime also takes A as the f32 or bf16 activation (x_kind 1
+// or 2) with its static s_x and z_x, and quantizes it while it stages the
+// slice (act_quant_static's arithmetic, act_quant.cuh): the standalone
+// quantizer's launch goes away. Its loads of x (16- or 8-byte vectors where
+// x is aligned) and its divisions run behind the first two k-steps' weight
+// loads, already in flight. Every column tile's blocks quantize their
+// slice of A again: a call does M x K x ceil(N / 128) divisions in all
+// (M = 4: ~0.05 M for qkv, 1.5 M for the tied head), at most M x 1024 a
+// block, against a weight slice of at least 4 KB a block
+// (tools/kernel_variants.py times the fused call against int8 A). Padding
+// past M and past the group's end stays the int8 zero, as for int8 A.
+//
 // Exactness: int32 addition is exact in any order, so no split, tile or
 // regime changes a row's bits. Every k-step lies inside one group (a step
 // that crosses the group's end is masked with zeros), so a group's int32
@@ -60,6 +72,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "act_quant.cuh"
+
 namespace imm {
 
 // prefill tiles
@@ -67,6 +81,9 @@ constexpr int P_BM = 128, P_BN = 128, P_BK = 32, P_THREADS = 256;
 constexpr int P_STAGES = 4;
 constexpr int P_ALD = P_BK + 16;         // A row stride in bytes
 // decode slices
+// the decode regime (and its quantizing staging) takes at most this many
+// rows: one m16 MMA tile
+constexpr int D_MAX_M = 16;
 constexpr int D_NW = 4, D_THREADS = 32 * D_NW, D_BN = 128, D_MAXCS = 32;
 constexpr int D_ALD = 32 * D_MAXCS + 16;  // A row stride in bytes
 constexpr int D_TARGET_BLOCKS = 264;      // two a SM
@@ -423,6 +440,38 @@ __device__ __forceinline__ uint32_t part(const uint4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
+// Four activations of a row from p on, as one word of int8 codes: int8 A
+// as it is; f32 or bf16 A quantized (vec: p aligned to the 4 elements)
+template <typename XT>
+__device__ __forceinline__ uint32_t a_word(const XT* p, bool vec, float s,
+                                           float z) {
+  if constexpr (sizeof(XT) == 1) {
+    return *reinterpret_cast<const uint32_t*>(p);
+  } else {
+    float f[4];
+    if (!vec) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) f[j] = aq::to_f32(p[j]);
+    } else if constexpr (sizeof(XT) == 4) {
+      const float4 u = __ldg(reinterpret_cast<const float4*>(p));
+      f[0] = u.x;
+      f[1] = u.y;
+      f[2] = u.z;
+      f[3] = u.w;
+    } else {
+      const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+      f[0] = __uint_as_float(u.x << 16);
+      f[1] = __uint_as_float(u.x & 0xFFFF0000u);
+      f[2] = __uint_as_float(u.y << 16);
+      f[3] = __uint_as_float(u.y & 0xFFFF0000u);
+    }
+    return aq::pack4(aq::code_bits<false>(f[0], s, z, 255.0f),
+                     aq::code_bits<false>(f[1], s, z, 255.0f),
+                     aq::code_bits<false>(f[2], s, z, 255.0f),
+                     aq::code_bits<false>(f[3], s, z, 255.0f));
+  }
+}
+
 // One k-step (32 k) of this lane's B fragments: 16 columns from n, the
 // words of k-words q (b0) and q + 4 (b1) of the step.
 template <bool PACKED>
@@ -460,9 +509,10 @@ struct StepB {
   }
 };
 
-template <bool PACKED>
+// XT: int8 codes, or the f32 / bf16 activation quantized while staged
+template <bool PACKED, typename XT>
 __global__ void __launch_bounds__(D_THREADS)
-int_matmul_stream(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+int_matmul_stream(const XT* __restrict__ x, const int8_t* __restrict__ w,
                   const void* __restrict__ sw, int sw_bf16,
                   const void* __restrict__ colsum,
                   const float* __restrict__ sx, const float* __restrict__ zx,
@@ -493,15 +543,28 @@ int_matmul_stream(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     by.load(w, gk0 + 32 * (s + D_NW), min(gk0 + 32 * (s + D_NW) + 32, gk1),
             q, n, N, vec);
 
-  // the slice of A's rows, zero past M and past the group's end
+  // the slice of A's rows (quantized from f32 / bf16), zero past M and
+  // past the group's end
   const int words = (s1 - s0) * 8;
-  for (int i = tid; i < 16 * words; i += D_THREADS) {
+  float qs = 0.0f, qz = 0.0f;
+  if constexpr (sizeof(XT) > 1) {
+    qs = *sx;
+    qz = *zx;
+  }
+  const bool xvec =
+      reinterpret_cast<uintptr_t>(x) % (4 * sizeof(XT)) == 0;
+  const int n_live = M * words;
+#pragma unroll 4
+  for (int i = tid; i < n_live; i += D_THREADS) {
     const int r = i / words, cw = i - r * words;
     const int k = kb + 4 * cw;
-    int v = 0;
-    if (r < M && k < ke)
-      v = *reinterpret_cast<const int*>(x + (size_t)r * K + k);
-    *reinterpret_cast<int*>(&As[r * D_ALD + 4 * cw]) = v;
+    const uint32_t v = k < ke ? a_word(x + (size_t)r * K + k, xvec, qs, qz)
+                              : 0u;
+    *reinterpret_cast<uint32_t*>(&As[r * D_ALD + 4 * cw]) = v;
+  }
+  for (int i = n_live + tid; i < 16 * words; i += D_THREADS) {
+    const int r = i / words, cw = i - r * words;
+    *reinterpret_cast<uint32_t*>(&As[r * D_ALD + 4 * cw]) = 0u;
   }
   for (int i = tid; i < 16 * D_BN; i += D_THREADS) red[i] = 0;
   __syncthreads();
@@ -626,21 +689,24 @@ int_matmul_stream(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 
 // int32 elements of the decode regime's workspace (partials and tickets)
 static long long workspace_elems(int M, int N, int K, int group) {
-  if (M > 16 || group <= 0) return 0;
+  if (M > D_MAX_M || group <= 0) return 0;
   return (long long)(K / group) * M * N + (N + D_BN - 1) / D_BN;
 }
 
 // the regime for M: tensor-core tiles above 16 rows, split-K streaming at
-// or below. ws: workspace_elems int32 zeros (the decode regime leaves them
-// zero).
+// or below. x_kind: 0 int8 codes; 1 f32 or 2 bf16 activations, quantized
+// in the decode regime's staging (M <= 16 only). ws: workspace_elems int32
+// zeros (the decode regime leaves them zero).
 template <bool PACKED>
-static int int_matmul_launch(const void* x, const void* w, const void* sw,
-                             int sw_bf16, const void* colsum, const void* sx,
-                             const void* zx, float z_shift, void* out,
-                             int out_bf16, int M, int N, int K, int group,
-                             void* ws, cudaStream_t st) {
+static int int_matmul_launch(const void* x, int x_kind, const void* w,
+                             const void* sw, int sw_bf16, const void* colsum,
+                             const void* sx, const void* zx, float z_shift,
+                             void* out, int out_bf16, int M, int N, int K,
+                             int group, void* ws, cudaStream_t st) {
+  if (x_kind < 0 || x_kind > 2 || (x_kind != 0 && M > D_MAX_M))
+    return (int)cudaErrorInvalidValue;
   if (M == 0 || N == 0) return 0;
-  if (M > 16) {
+  if (M > D_MAX_M) {
     dim3 grid((N + P_BN - 1) / P_BN, (M + P_BM - 1) / P_BM);
     auto kernel = int_matmul_mma<PACKED, false>;
     if constexpr (PACKED)
@@ -659,10 +725,16 @@ static int int_matmul_launch(const void* x, const void* w, const void* sw,
     if (cs > spg) cs = spg;
     const int cpg = (spg + cs - 1) / cs;
     dim3 grid(tiles, G * cpg);
-    int_matmul_stream<PACKED><<<grid, D_THREADS, 0, st>>>(
-        (const int8_t*)x, (const int8_t*)w, sw, sw_bf16, colsum,
-        (const float*)sx, (const float*)zx, z_shift, out, out_bf16, M, N, K,
-        group, cs, cpg, (int*)ws);
+    auto launch = [&](auto xt) {
+      using XT = decltype(xt);
+      int_matmul_stream<PACKED, XT><<<grid, D_THREADS, 0, st>>>(
+          (const XT*)x, (const int8_t*)w, sw, sw_bf16, colsum,
+          (const float*)sx, (const float*)zx, z_shift, out, out_bf16, M, N,
+          K, group, cs, cpg, (int*)ws);
+    };
+    if (x_kind == 0) launch(int8_t{});
+    else if (x_kind == 1) launch(float{});
+    else launch(__nv_bfloat16{});
   }
   return (int)cudaGetLastError();
 }

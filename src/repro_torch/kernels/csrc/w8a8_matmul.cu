@@ -22,16 +22,18 @@
 // PyTorch version bit for bit.
 #include "int_matmul.cuh"
 
+// x_kind: 0 int8 codes; 1 f32 or 2 bf16 activations quantized with s_x,
+// z_x in the decode staging (M <= 16 only; act_quant_static's codes).
 // ws: int_matmul_workspace_elems(M, N, K, K) int32 zeros (left zero)
-extern "C" int w8a8_matmul_launch(const void* x, const void* w,
+extern "C" int w8a8_matmul_launch(const void* x, int x_kind, const void* w,
                                   const void* colsum, const void* sx,
                                   const void* zx, const void* sw,
                                   int sw_bf16, float z_shift, void* out,
                                   int out_bf16, int M, int N, int K,
                                   void* ws, void* stream) {
-  return imm::int_matmul_launch<false>(x, w, sw, sw_bf16, colsum, sx, zx,
-                                       z_shift, out, out_bf16, M, N, K, K,
-                                       ws, (cudaStream_t)stream);
+  return imm::int_matmul_launch<false>(x, x_kind, w, sw, sw_bf16, colsum,
+                                       sx, zx, z_shift, out, out_bf16, M, N,
+                                       K, K, ws, (cudaStream_t)stream);
 }
 
 // int32 elements of the workspace a launch of either int matmul needs (0
@@ -41,3 +43,7 @@ extern "C" long long int_matmul_workspace_elems(int M, int N, int K,
                                                 int group) {
   return imm::workspace_elems(M, N, K, group);
 }
+
+// the most rows at which either int matmul takes an f32 / bf16 activation
+// and quantizes it in its staging (x_kind 1 or 2): the decode regime's
+extern "C" int int_matmul_decode_max_m() { return imm::D_MAX_M; }

@@ -8,14 +8,21 @@ the calibrated zero point as it is stored and fold the int8 storage offset
 launches ``csrc/w8a8_matmul.cu``; a CPU tensor takes ``w8a8_matmul_plain``.
 ``s_w`` is read in its stored dtype, f32 or bf16 (the weight's, as
 ``prequantize`` keeps it), and converted exactly.
+
+``quant_w8a8_matmul(x, ...)`` takes the f32 / bf16 activation and the
+site's static scale and zero instead of the codes: the serving path's one
+call per site (``core/quantization.py``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _lib
+from repro_torch.kernels.act_quant import (act_quant_static,
+                                           act_quant_static_plain)
 
 F32_EXACT_K = 1024  # 1024 * 128 * 128 == 2**24: f32 partial sums stay exact
 
@@ -54,6 +61,16 @@ def w8a8_matmul_plain(x_int: torch.Tensor, w_int: torch.Tensor,
 
 
 SCALE_DTYPES = (torch.float32, torch.bfloat16)
+# the kernels' A operand: int8 codes, or an activation they quantize
+X_KINDS = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
+
+
+@functools.cache
+def decode_max_m() -> int:
+    """The most rows of the int matmuls' decode regime
+    (``csrc/int_matmul.cuh``), the only one that quantizes A itself, as the
+    kernels define it (the card only: it loads the kernel library)."""
+    return int(_lib.lib().int_matmul_decode_max_m())
 
 
 def _check_scalar(t: torch.Tensor, name: str,
@@ -83,6 +100,59 @@ def workspace(x: torch.Tensor, M: int, N: int, K: int,
     return ws
 
 
+def _launch(x: torch.Tensor, w_int: torch.Tensor, s_x: torch.Tensor,
+            z_x: torch.Tensor, s_w: torch.Tensor,
+            colsum: Optional[torch.Tensor], z_shift: float,
+            out_dtype: torch.dtype) -> torch.Tensor:
+    """One launch of ``csrc/w8a8_matmul.cu`` on int8 codes, or (M <= 16) on
+    an f32 / bf16 activation that the kernel quantizes while it stages it;
+    checks every operand first."""
+    if x.device.type != "cuda":
+        raise ValueError(f"w8a8_matmul: unsupported device {x.device}")
+    if x.dtype not in X_KINDS or w_int.dtype != torch.int8:
+        raise ValueError(f"w8a8_matmul takes int8, f32 or bf16 x and int8 "
+                         f"w, got {x.dtype} and {w_int.dtype}")
+    if x.dim() != 2 or w_int.dim() != 2:
+        raise ValueError("w8a8_matmul takes 2-D operands")
+    M, K = x.shape
+    K2, N = w_int.shape
+    if K != K2:
+        raise ValueError(f"contracting dims differ: {K} vs {K2}")
+    if K % 4:
+        raise ValueError(f"K={K} must be a multiple of 4 (dp4a words)")
+    if x.dtype != torch.int8 and M > decode_max_m():
+        raise ValueError(f"the kernel quantizes x only at M <= "
+                         f"{decode_max_m()}, got M={M}")
+    if not (x.is_contiguous() and w_int.is_contiguous()):
+        raise ValueError("w8a8_matmul takes contiguous operands")
+    if (x.dtype == torch.int8 and x.data_ptr() % 4) or w_int.data_ptr() % 4:
+        raise ValueError("w8a8_matmul int8 operands must be 4-byte aligned")
+    if colsum is None:
+        colsum = w_int.sum(0, dtype=torch.int32)
+    if colsum.dtype != torch.int32 or colsum.shape != (N,) \
+            or not colsum.is_contiguous():
+        raise ValueError("colsum must be contiguous int32 (N,)")
+    _check_scalar(s_x, "s_x")
+    _check_scalar(z_x, "z_x")
+    _check_scalar(s_w, "s_w", SCALE_DTYPES)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"out_dtype must be f32 or bf16, got {out_dtype}")
+    _lib.require_cuda(x, w_int, colsum, s_x, z_x, s_w)
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    ws = workspace(x, M, N, K, K)
+    code = _lib.lib().w8a8_matmul_launch(
+        x.data_ptr(), X_KINDS[x.dtype], w_int.data_ptr(), colsum.data_ptr(),
+        s_x.data_ptr(), z_x.data_ptr(), s_w.data_ptr(),
+        int(s_w.dtype == torch.bfloat16), float(z_shift), out.data_ptr(),
+        int(out_dtype == torch.bfloat16), M, N, K, ws.data_ptr(),
+        _lib.stream_ptr(x))
+    _lib.check(code, "w8a8_matmul")
+    _lib.count("w8a8_matmul")
+    if x.dtype != torch.int8:
+        _lib.count("act_quant_static_fused")
+    return out
+
+
 def w8a8_matmul(x_int: torch.Tensor, w_int: torch.Tensor, s_x: torch.Tensor,
                 z_x: torch.Tensor, s_w: torch.Tensor,
                 colsum: Optional[torch.Tensor] = None, z_shift: float = 0.0,
@@ -94,41 +164,38 @@ def w8a8_matmul(x_int: torch.Tensor, w_int: torch.Tensor, s_x: torch.Tensor,
     if x_int.device.type == "cpu":
         return w8a8_matmul_plain(x_int, w_int, s_x, z_x, s_w, colsum,
                                  z_shift, out_dtype)
-    if x_int.device.type != "cuda":
-        raise ValueError(f"w8a8_matmul: unsupported device {x_int.device}")
-    if x_int.dtype != torch.int8 or w_int.dtype != torch.int8:
+    if x_int.device.type == "cuda" and x_int.dtype != torch.int8:
         raise ValueError("w8a8_matmul takes int8 operands")
-    if x_int.dim() != 2 or w_int.dim() != 2:
-        raise ValueError("w8a8_matmul takes 2-D operands")
-    M, K = x_int.shape
-    K2, N = w_int.shape
-    if K != K2:
-        raise ValueError(f"contracting dims differ: {K} vs {K2}")
-    if K % 4:
-        raise ValueError(f"K={K} must be a multiple of 4 (dp4a words)")
-    if not (x_int.is_contiguous() and w_int.is_contiguous()):
-        raise ValueError("w8a8_matmul takes contiguous operands")
-    if x_int.data_ptr() % 4 or w_int.data_ptr() % 4:
-        raise ValueError("w8a8_matmul operands must be 4-byte aligned")
-    if colsum is None:
-        colsum = w_int.sum(0, dtype=torch.int32)
-    if colsum.dtype != torch.int32 or colsum.shape != (N,) \
-            or not colsum.is_contiguous():
-        raise ValueError("colsum must be contiguous int32 (N,)")
-    _check_scalar(s_x, "s_x")
-    _check_scalar(z_x, "z_x")
-    _check_scalar(s_w, "s_w", SCALE_DTYPES)
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"out_dtype must be f32 or bf16, got {out_dtype}")
-    _lib.require_cuda(x_int, w_int, colsum, s_x, z_x, s_w)
-    out = torch.empty((M, N), dtype=out_dtype, device=x_int.device)
-    ws = workspace(x_int, M, N, K, K)
-    code = _lib.lib().w8a8_matmul_launch(
-        x_int.data_ptr(), w_int.data_ptr(), colsum.data_ptr(),
-        s_x.data_ptr(), z_x.data_ptr(), s_w.data_ptr(),
-        int(s_w.dtype == torch.bfloat16), float(z_shift), out.data_ptr(),
-        int(out_dtype == torch.bfloat16), M, N, K, ws.data_ptr(),
-        _lib.stream_ptr(x_int))
-    _lib.check(code, "w8a8_matmul")
-    _lib.count("w8a8_matmul")
-    return out
+    return _launch(x_int, w_int, s_x, z_x, s_w, colsum, z_shift, out_dtype)
+
+
+def quant_w8a8_matmul_plain(x: torch.Tensor, w_int: torch.Tensor,
+                            s_x: torch.Tensor, z_x: torch.Tensor,
+                            s_w: torch.Tensor,
+                            colsum: Optional[torch.Tensor] = None,
+                            out_dtype: torch.dtype = torch.float32
+                            ) -> torch.Tensor:
+    """``act_quant_static_plain`` then ``w8a8_matmul_plain`` with the -128
+    storage shift folded into the epilogue: the function of both routes of
+    ``quant_w8a8_matmul``."""
+    return w8a8_matmul_plain(act_quant_static_plain(x, s_x, z_x), w_int, s_x,
+                             z_x, s_w, colsum, -128.0, out_dtype)
+
+
+def quant_w8a8_matmul(x: torch.Tensor, w_int: torch.Tensor,
+                      s_x: torch.Tensor, z_x: torch.Tensor, s_w: torch.Tensor,
+                      colsum: Optional[torch.Tensor] = None,
+                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The activation quantized with the site's static scale and zero
+    (``act_quant_static``), times the int8 weight. x: (M, K) f32 or bf16;
+    s_x, z_x: one-element f32 tensors; the rest as ``w8a8_matmul``. On the
+    card, M <= 16 is one launch of the w8a8 kernel, which quantizes x while
+    it stages it (counted under ``w8a8_matmul`` and
+    ``act_quant_static_fused``); M > 16 launches ``act_quant_static`` and
+    then the kernel on the codes. A CPU tensor takes the plain version."""
+    if x.device.type == "cpu":
+        return quant_w8a8_matmul_plain(x, w_int, s_x, z_x, s_w, colsum,
+                                       out_dtype)
+    if x.dim() == 2 and x.shape[0] > decode_max_m():
+        x = act_quant_static(x, s_x, z_x)
+    return _launch(x, w_int, s_x, z_x, s_w, colsum, -128.0, out_dtype)

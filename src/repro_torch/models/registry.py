@@ -102,5 +102,5 @@ def build(cfg: ModelConfig, device="cuda") -> ModelAPI:
     if cfg.family != Family.DENSE:
         raise NotImplementedError(
             f"{cfg.family.value}: only the dense family is ported "
-            "(ROADMAP queue 1 item 11)")
+            "(ROADMAP queue 1 item 5)")
     return ModelAPI(cfg=cfg, device=resolve_device(device))

@@ -10,7 +10,10 @@ one (the fixture decides, never the module's import). On the card:
 
 Tolerances: w8a8_matmul, w4a8_matmul, act_quant_static and
 act_quant_ptoken bit-exact (the kernels repeat the plain versions' f32 or
-bf16-rounded arithmetic step by step); attention in bf16 within
+bf16-rounded arithmetic step by step), and so are the int matmuls that
+quantize their f32 / bf16 A while staging it (M <= 16), against the
+standalone quantizer followed by the matmul and against the plain
+composition; attention in bf16 within
 one bf16 ulp of the plain version's f32-accumulated result, in f32 within
 1e-5; the paged decode kernel bit-identical to the contiguous one on the
 gathered pool, a decode row bit-identical to the row computed alone, and
@@ -28,10 +31,13 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.flash_decode import (  # noqa: E402
     flash_decode, flash_decode_paged, flash_decode_paged_plain,
     flash_decode_plain, gather_pages)
-from repro_torch.kernels.w4a8_matmul import (w4a8_matmul,  # noqa: E402
-                                             w4a8_matmul_plain)
-from repro_torch.kernels.w8a8_matmul import (w8a8_matmul,  # noqa: E402
-                                             w8a8_matmul_plain)
+from repro_torch.kernels import _lib  # noqa: E402
+from repro_torch.kernels.w4a8_matmul import (  # noqa: E402
+    quant_w4a8_matmul, quant_w4a8_matmul_plain, w4a8_matmul,
+    w4a8_matmul_plain)
+from repro_torch.kernels.w8a8_matmul import (  # noqa: E402
+    quant_w8a8_matmul, quant_w8a8_matmul_plain, w8a8_matmul,
+    w8a8_matmul_plain)
 
 pytestmark = pytest.mark.cuda
 BF16_ULP = 2.0 ** -7          # relative spacing bound of bf16
@@ -92,6 +98,73 @@ def test_act_quant_kernel_bit_exact(dev):
                            act_quant_static_plain(t, s, z))
 
 
+@pytest.mark.parametrize("n", [1, 3, 7, 8, 9, 1001, 4 * 960 + 5,
+                               2048 * 2560 + 3])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_act_quant_static_odd_n_and_offset(dev, n, offset):
+    """The scalar head (a slice whose data_ptr is not 16-byte aligned, so
+    neither are its codes) and tail (n not a multiple of the vector) of the
+    standalone kernel, f32 and bf16, against the plain version."""
+    g = torch.Generator(dev).manual_seed(n + offset)
+    buf = torch.randn((n + offset,), generator=g, device=dev) * 4
+    s, z = torch.tensor(0.03, device=dev), torch.tensor(99.0, device=dev)
+    for b in (buf, buf.to(torch.bfloat16)):
+        t = b[offset:].view(1, n)
+        assert t.data_ptr() % 16 or offset == 0
+        assert torch.equal(act_quant_static(t, s, z),
+                           act_quant_static_plain(t, s, z)), b.dtype
+
+
+def _fp_x(dev, M, K, seed, offset=0):
+    """A (M, K) f32 activation wide enough to clip at both ends of the
+    site's range below; offset > 0 makes it a slice whose data_ptr is not
+    16-byte aligned (the staging's scalar loads)."""
+    g = torch.Generator(dev).manual_seed(seed)
+    buf = torch.randn((M * K + offset,), generator=g, device=dev) * 3
+    return buf[offset:].view(M, K)
+
+
+def _fused_agrees(dev, fused, unfused, plain, M, K, seed):
+    """fused(x) == unfused(x) == plain(x) bit for bit for f32 and bf16 x,
+    aligned and not; each fused call at M <= 16 counts one w8a8 or w4a8
+    launch and one fused quantization, and no standalone quantizer."""
+    for offset in (0, 1):
+        x32 = _fp_x(dev, M, K, seed, offset)
+        xbf = torch.empty((M * K + offset,), dtype=torch.bfloat16,
+                          device=dev)[offset:].view(M, K)
+        xbf.copy_(x32)
+        for x in (x32, xbf):
+            _lib.reset_launches()
+            a = fused(x)
+            counts = dict(_lib.LAUNCHES)
+            b, c = unfused(x), plain(x)
+            torch.cuda.synchronize()
+            assert counts["act_quant_static_fused"] == 1, counts
+            assert counts["act_quant_static"] == 0, counts
+            assert torch.equal(a, b), (x.dtype, offset)
+            assert torch.equal(a, c), (x.dtype, offset)
+
+
+@pytest.mark.parametrize("M,K,N", [c for c in W8_CASES if c[0] <= 16])
+def test_w8a8_fused_quant_bit_exact(dev, M, K, N):
+    """The decode regime's staging quantizes x (act_quant_static's
+    arithmetic): equal to act_quant_static + w8a8_matmul and to the plain
+    composition, s_w in f32 and bf16, both output dtypes."""
+    _, w = _w8_case(dev, M, K, N, M + K + N)
+    sx, zx = (torch.tensor(v, device=dev) for v in (0.031, 111.0))
+    for sw in (torch.tensor(0.0042, device=dev),
+               torch.tensor(0.0042, device=dev).to(torch.bfloat16)):
+        for dt in (torch.float32, torch.bfloat16):
+            _fused_agrees(
+                dev,
+                lambda x: quant_w8a8_matmul(x, w, sx, zx, sw, out_dtype=dt),
+                lambda x: w8a8_matmul(act_quant_static(x, sx, zx), w, sx, zx,
+                                      sw, z_shift=-128.0, out_dtype=dt),
+                lambda x: quant_w8a8_matmul_plain(x, w, sx, zx, sw,
+                                                  out_dtype=dt),
+                M, K, M + N)
+
+
 W4_CASES = [(1, 960, 1600, 960), (4, 960, 1600, 960),
             (16, 2560, 960, 128), (17, 2560, 960, 128),
             (37, 2560, 960, 128), (256, 960, 2560, 960),
@@ -133,25 +206,59 @@ def test_w4a8_kernel_bit_exact(dev, M, K, N, group):
         w4a8_matmul(x, wp, *sc, s_w.half(), colsum, group)
 
 
+@pytest.mark.parametrize("M,K,N,group", [c for c in W4_CASES if c[0] <= 16])
+def test_w4a8_fused_quant_bit_exact(dev, M, K, N, group):
+    """As ``test_w8a8_fused_quant_bit_exact``, for the packed int4 weight:
+    one group and several, K and groups that are no multiples of 32."""
+    _, wp, s_w, colsum = _w4_case(dev, M, K, N, group, M + K + N)
+    sx, zx = (torch.tensor(v, device=dev) for v in (0.031, 111.0))
+    for sw in (s_w, s_w.to(torch.bfloat16)):
+        for dt in (torch.float32, torch.bfloat16):
+            _fused_agrees(
+                dev,
+                lambda x: quant_w4a8_matmul(x, wp, sx, zx, sw, colsum, group,
+                                            out_dtype=dt),
+                lambda x: w4a8_matmul(act_quant_static(x, sx, zx), wp, sx,
+                                      zx, sw, colsum, group, z_shift=-128.0,
+                                      out_dtype=dt),
+                lambda x: quant_w4a8_matmul_plain(x, wp, sx, zx, sw, colsum,
+                                                  group, out_dtype=dt),
+                M, K, M + N)
+
+
 @pytest.mark.parametrize("K,N,group", [(960, 1600, 960), (2560, 960, 128)])
 def test_int_matmul_rows_independent(dev, K, N, group):
     """Rows of an M = 2048 call (tensor-core tiles) equal the same rows in
     an M = 4 call (split-K streaming) and in an M = 256 call, bit for bit:
-    chunked prefill relies on it."""
+    chunked prefill relies on it. The same on f32 / bf16 input through the
+    quantizing entries: at M = 2048 and 256 act_quant_static and the tiles,
+    at M <= 16 the fused staging."""
     x, w = _w8_case(dev, 2048, K, N, 7)
     _, wp, s_w, colsum = _w4_case(dev, 2048, K, N, group, 8)
     sx, zx = (torch.tensor(v, device=dev) for v in (0.031, 111.0))
     sw8 = torch.tensor(0.0042, device=dev).to(torch.bfloat16)
     s_w = s_w.to(torch.bfloat16)
-    for fn in (lambda t: w8a8_matmul(t, w, sx, zx, sw8, z_shift=-128.0,
-                                     out_dtype=torch.bfloat16),
-               lambda t: w4a8_matmul(t, wp, sx, zx, s_w, colsum, group,
-                                     z_shift=-128.0)):
-        full = fn(x)
-        for r0, n in ((0, 4), (1001, 4), (2044, 4), (512, 256), (3, 1)):
-            part = fn(x[r0:r0 + n].contiguous())
+    xf = _fp_x(dev, 2048, K, 9)
+    for inp, fn in (
+            (x, lambda t: w8a8_matmul(t, w, sx, zx, sw8, z_shift=-128.0,
+                                      out_dtype=torch.bfloat16)),
+            (x, lambda t: w4a8_matmul(t, wp, sx, zx, s_w, colsum, group,
+                                      z_shift=-128.0)),
+            (xf, lambda t: quant_w8a8_matmul(t, w, sx, zx, sw8)),
+            (xf.to(torch.bfloat16),
+             lambda t: quant_w8a8_matmul(t, w, sx, zx, sw8,
+                                         out_dtype=torch.bfloat16)),
+            (xf, lambda t: quant_w4a8_matmul(t, wp, sx, zx, s_w, colsum,
+                                             group)),
+            (xf.to(torch.bfloat16),
+             lambda t: quant_w4a8_matmul(t, wp, sx, zx, s_w, colsum, group,
+                                         out_dtype=torch.bfloat16))):
+        full = fn(inp)
+        for r0, n in ((0, 4), (1001, 4), (2044, 4), (512, 256), (3, 1),
+                      (100, 16), (7, 17)):
+            part = fn(inp[r0:r0 + n].contiguous())
             torch.cuda.synchronize()
-            assert torch.equal(full[r0:r0 + n], part), (r0, n)
+            assert torch.equal(full[r0:r0 + n], part), (inp.dtype, r0, n)
 
 
 def test_int_matmul_two_streams(dev):
@@ -162,9 +269,12 @@ def test_int_matmul_two_streams(dev):
     _, wp, s_w, colsum = _w4_case(dev, 4, 2560, 960, 128, 10)
     sx, zx, sw = (torch.tensor(v, device=dev) for v in (0.031, 111.0,
                                                          0.0042))
+    xf = _fp_x(dev, 4, 2560, 11).to(torch.bfloat16)
     calls = (lambda: w8a8_matmul(x, w, sx, zx, sw, z_shift=-128.0),
              lambda: w4a8_matmul(x, wp, sx, zx, s_w, colsum, 128,
-                                 z_shift=-128.0))
+                                 z_shift=-128.0),
+             lambda: quant_w8a8_matmul(xf, w, sx, zx, sw),
+             lambda: quant_w4a8_matmul(xf, wp, sx, zx, s_w, colsum, 128))
     want = [f() for f in calls]
     torch.cuda.synchronize()
     streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
@@ -175,25 +285,38 @@ def test_int_matmul_two_streams(dev):
                 outs.append([f() for f in calls])
     torch.cuda.synchronize()
     for i, o in enumerate(outs):
-        assert torch.equal(o[0], want[0]) and torch.equal(o[1], want[1]), i
+        assert all(torch.equal(a, b) for a, b in zip(o, want)), i
 
 
 @pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("M,D", [(4, 960), (2048, 2560)])
+@pytest.mark.parametrize("M", [1, 4, 5, 2048])
+@pytest.mark.parametrize("D", [1, 7, 100, 960, 2560, 4100, 8192])
 def test_act_quant_ptoken_kernel_bit_exact(dev, M, D, bits):
     """Both arithmetics (f32 on f32 input, bf16-rounded on bf16 input),
-    with an all-zero row, an outlier row and an all-positive row; any other
-    dtype raises on the card, where the plain version would take it."""
-    g = torch.Generator(dev).manual_seed(D)
+    with an all-zero row, an outlier row and an all-positive row; D from
+    one element to 8192 (128- and 256-thread blocks, rows staged in up to
+    32 KB of shared memory), an odd D (rows not 16-byte aligned) and a
+    slice whose data_ptr is not aligned; any other dtype raises on the
+    card, where the plain version would take it."""
+    g = torch.Generator(dev).manual_seed(D + M)
     x = torch.randn((M, D), generator=g, device=dev) * 3 + 0.2
-    x[1] = 0.0
-    x[2, 5] = 250.0
-    x[3] = x[3].abs() + 0.1
-    for t in (x, x.to(torch.bfloat16)):
+    # rows 1, 2, 3 (mod M): all zero, an outlier, all positive
+    x[1 % M] = 0.0
+    x[2 % M, min(5, D - 1)] = 250.0
+    x[3 % M] = x[3 % M].abs() + 0.1
+    off = torch.empty((M * D + 1,), device=dev)[1:].view(M, D)
+    off.copy_(x)
+    for t in (x, x.to(torch.bfloat16), off):
         a = act_quant_ptoken(t, bits=bits)
         b = act_quant_ptoken_plain(t, bits=bits)
         for u, v in zip(a, b):
-            assert torch.equal(u, v), t.dtype
+            assert torch.equal(u, v), (t.dtype, t.data_ptr() % 16)
+    offb = torch.empty((M * D + 3,), dtype=torch.bfloat16,
+                       device=dev)[3:].view(M, D)
+    offb.copy_(x)
+    for u, v in zip(act_quant_ptoken(offb, bits=bits),
+                    act_quant_ptoken_plain(offb, bits=bits)):
+        assert torch.equal(u, v), "bf16 slice"
     with pytest.raises(ValueError):
         act_quant_ptoken(x.half(), bits=bits)
 
