@@ -39,14 +39,21 @@ Phases, each fatal on failure:
    seeded random weights), a 4-token cushion from ``extract_cushion``,
    pt_static scales calibrated on 2 pipeline batches, int8-resident
    weights, int8 KV cache; ``Engine.generate`` for B=4, a 512-token prompt
-   and 64 new tokens, with every kernel's launch count read around that one
-   request and held to its exact expected value (``act_quant_static`` at
-   the prefill's 160 sites, ``act_quant_static_fused``, the quantization
-   inside an int matmul at M <= 16, at the prefill's head and all 161
-   sites of every decode step); then the fp path
+   and 64 new tokens, its decode step a CUDA graph captured at the warm-up
+   request and replayed once per token, with every kernel's launch count
+   read around that one request and held to its exact expected value
+   (``act_quant_static`` at the prefill's 160 sites,
+   ``act_quant_static_fused``, the quantization inside an int matmul at
+   M <= 16, at the prefill's head and all 161 sites of every decode step)
+   and 63 graph replays; the eager per-token loop (``generate_py``) gives
+   the same tokens and launches; five requests give TTFT, TPOT and
+   tokens/s quartiles, and the profiler the device time per step of the
+   replayed graph and of the eager step, the graph's capture time and node
+   count; then the fp path
    (``--quant none``, fp KV), W4A8 (int4-packed weights, the same scales,
    int8 KV; resident int4 bytes exactly half the W8A8 int8 bytes) and
-   ``ptoken_dynamic`` (fp KV) the same way;
+   ``ptoken_dynamic`` (fp KV) the same way; every split-KV merge counter
+   and split-K workspace is zero afterwards;
 4b. the continuous path at full width, same model, cushion, scales and
    weights, 4 slots, 12 requests queued at once (prompts 512 / 520 tokens,
    budgets 64 / 32): (a) contiguous int8 pool; (b) paged int8 pool (page
@@ -58,9 +65,12 @@ Phases, each fatal on failure:
    (e) a paged int8 pool with W4A8 weights, tokens identical to the static
    B=1 W4A8 Engine on the first 4 requests; (f) a contiguous fp pool under
    ptoken_dynamic, first tokens identical to the static B=1 ptoken Engine
-   on all 12 requests. Launch counts are read around each run and held
-   exactly, the static quantizer's route counted from each prefill call's
-   rows;
+   on all 12 requests. Each pool's decode step is a CUDA graph captured
+   when the engine is built. Launch counts are read around each run and
+   held exactly, the static quantizer's route counted from each prefill
+   call's rows, and one graph replay per step; four more runs of the trace
+   give the same tokens and the TPOT and tokens/s quartiles; the counters
+   and workspaces are zero afterwards;
 5. the card's Engine against the port's CPU Engine on the same weights,
    scales and cushion (B=1, 64-token prompt, 8 tokens) in all four phase-4
    modes: teacher-forced logits within the stated bf16 tolerance,
@@ -143,6 +153,16 @@ def by_kernel(prof, steps, top=10):
     return {k: [n / steps, us / 1e3 / steps] for k, (n, us) in rows}
 
 
+def quartiles(**metrics):
+    """[p25, p50, p75] of each metric over repeated runs, and the number
+    of runs."""
+    import numpy as np
+    out = {k: [float(x) for x in np.percentile(v, [25, 50, 75])]
+           for k, v in metrics.items()}
+    out["runs"] = len(next(iter(metrics.values())))
+    return out
+
+
 def device_ms(fn, flush_buf, iters=10) -> float:
     """Mean device ms of fn, the L2 flushed (by zeroing ``flush_buf``, a
     buffer larger than the L2) before every call: the serving path finds
@@ -184,6 +204,8 @@ def main() -> None:
         act_quant_static_plain)
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.kernels import w8a8_matmul as W8
     from repro_torch.kernels.flash_decode import (
         flash_decode, flash_decode_paged, flash_decode_paged_plain,
         flash_decode_plain, gather_pages)
@@ -246,20 +268,19 @@ def main() -> None:
     def timed(fn, iters=10):
         return device_ms(fn, flush_buf, iters)
 
-    @torch.inference_mode()
-    def decode_busy(eng, batch, steps=4):
-        """Device-busy share of the decode loop: kernel time from the
-        profiler over ``steps`` decode steps against their wall time."""
+    def profiled_steps(step, steps):
+        """``step`` run ``steps`` times under the profiler: its wall ms per
+        step (the host's clock around the window, ending in a sync) and
+        the kernel time per step, by name ("not measured" where the trace
+        has no device events)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
-        tok, pos, cache, _ = eng._run_prefill(batch)
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(steps):
-                logits, cache = eng._decode(tok, pos, cache)
-                tok = torch.argmax(logits, dim=-1).to(torch.int32)
-                pos = pos + 1
+                step()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / steps
         busy = sum(e.time_range.elapsed_us() for e in prof.events()
@@ -270,6 +291,25 @@ def main() -> None:
         return {"profiled_wall_ms_per_step": wall,
                 "device_ms_per_step": busy,
                 "by_kernel": by_kernel(prof, steps)}
+
+    @torch.inference_mode()
+    def decode_busy(eng, batch, steps=8):
+        """The decode step after a prefill of ``batch``: the captured
+        graph's replays, then the same step run eagerly, each profiled
+        over ``steps`` steps."""
+        st, _ = eng._run_prefill(batch)
+        st.step()
+        graph = profiled_steps(st.step, steps)
+        tok, pos = st.tok.clone(), st.pos.clone()
+
+        def eager():
+            logits, _ = eng._decode(tok, pos, st.cache)
+            tok.copy_(torch.argmax(logits, dim=-1))
+            pos.add_(1)
+
+        eager()
+        graph["eager"] = profiled_steps(eager, steps)
+        return graph
 
     def scalar(v):
         return torch.tensor(v, dtype=torch.float32, device=dev)
@@ -854,37 +894,93 @@ def main() -> None:
                      scales=(engines["w8a8_int8kv"].scales
                              if pre and engines else None),
                      prequant=pre, weight_bits=wb)
-        eng.generate(batch, 8)                       # warm-up
+        eng.generate(batch, 8)              # warm-up; captures B's step
+        graph = eng.states[B].graph
         _lib.reset_launches()
         res = eng.generate(batch, NEW_TOKENS)
         counts = dict(_lib.LAUNCHES)
+        replays = _lib.COUNTERS["graph_replays"]
         toks = res.tokens
         if toks.shape != (B, NEW_TOKENS) or toks.min() < 0 \
                 or toks.max() >= V:
             fail(f"{label}: bad tokens {toks.shape} "
                  f"[{toks.min()}, {toks.max()}]")
+        if counts != expect_static[label]:
+            fail(f"{label}: launches {counts}, expected "
+                 f"{expect_static[label]}")
+        if replays != NEW_TOKENS - 1:
+            fail(f"{label}: {replays} graph replays, expected "
+                 f"{NEW_TOKENS - 1}")
+        # the eager per-token loop: the same tokens and launches
+        _lib.reset_launches()
+        eager = eng.generate_py(batch, NEW_TOKENS)
+        if not np.array_equal(eager.tokens, toks):
+            fail(f"{label}: graph tokens differ from the eager step's")
+        if dict(_lib.LAUNCHES) != counts:
+            fail(f"{label}: eager launches {dict(_lib.LAUNCHES)} != the "
+                 f"graph's {counts}")
+        reps = [res] + [eng.generate(batch, NEW_TOKENS) for _ in range(4)]
+        for r in reps[1:]:
+            if not np.array_equal(r.tokens, toks):
+                fail(f"{label}: a repeated request gave other tokens")
         runs[label] = {"ttft_ms": res.ttft_ms, "tpot_ms": res.tpot_ms,
                        "weight_bytes_fp": eng.weight_bytes_fp,
                        "weight_bytes_int8": eng.weight_bytes_int8,
                        "weight_bytes_int4": eng.weight_bytes_int4,
-                       "launches": counts,
+                       "launches": counts, "graph_replays": replays,
+                       "graph": {"capture_s": graph.capture_s,
+                                 "n_nodes": graph.n_nodes,
+                                 "launches_per_replay": graph.launches},
+                       "eager_generate_py": {"ttft_ms": eager.ttft_ms,
+                                             "tpot_ms": eager.tpot_ms},
+                       # tokens/s: the request's tokens over its wall
+                       "repeats": quartiles(
+                           ttft_ms=[r.ttft_ms for r in reps],
+                           tpot_ms=[r.tpot_ms for r in reps],
+                           tokens_per_s=[
+                               B * NEW_TOKENS * 1e3
+                               / (r.ttft_ms + r.tpot_ms * (NEW_TOKENS - 1))
+                               for r in reps]),
                        "device_busy": decode_busy(eng, batch),
                        "peak_mem_bytes": torch.cuda.max_memory_allocated()}
-        busy = runs[label]["device_busy"]["device_ms_per_step"]
-        if not isinstance(busy, str):
-            # kernel time per step over the unprofiled time per token
-            runs[label]["device_busy"]["busy_share_of_tpot"] = \
-                busy / res.tpot_ms
+        busy = runs[label]["device_busy"]
+        tpot50 = runs[label]["repeats"]["tpot_ms"][1]
+        for d in (busy, busy["eager"]):
+            if not isinstance(d["device_ms_per_step"], str):
+                # kernel time per step over the unprofiled time per token
+                d["busy_share_of_tpot"] = d["device_ms_per_step"] / tpot50
         log(f"{label}: B={B} prompt={PROMPT} new={NEW_TOKENS} m={CUSHION} "
             f"TTFT={res.ttft_ms:.2f} ms TPOT={res.tpot_ms:.3f} ms "
-            f"weights fp={eng.weight_bytes_fp} B int8="
-            f"{eng.weight_bytes_int8} B int4={eng.weight_bytes_int4} B "
-            f"launches={counts} decode device ms per step "
-            f"{runs[label]['device_busy']['device_ms_per_step']}")
-        if counts != expect_static[label]:
-            fail(f"{label}: launches {counts}, expected "
-                 f"{expect_static[label]}")
+            f"(5 runs: TPOT quartiles {runs[label]['repeats']['tpot_ms']}, "
+            f"tokens/s {runs[label]['repeats']['tokens_per_s']}; eager "
+            f"per-token loop TPOT {eager.tpot_ms:.3f} ms) weights "
+            f"fp={eng.weight_bytes_fp} B int8={eng.weight_bytes_int8} B "
+            f"int4={eng.weight_bytes_int4} B launches={counts} graph: "
+            f"{replays} replays, captured in {graph.capture_s:.3f} s, "
+            f"{graph.n_nodes} nodes; decode device ms per step "
+            f"{busy['device_ms_per_step']} (eager step "
+            f"{busy['eager']['device_ms_per_step']}), busy share "
+            f"{busy.get('busy_share_of_tpot')}")
         engines[label] = eng
+
+    def counters_zero(label, graphs):
+        """Every split-KV merge counter and split-K workspace, those of the
+        eager streams and those the graphs captured, is zero after the
+        runs (each launch, replayed or not, leaves its own zero)."""
+        bufs = [*FD.TICKETS.values(), *W8.WORKSPACE.values(),
+                *(w for g in graphs for w in g.workspaces)]
+        torch.cuda.synchronize()
+        nz = sum(int(torch.count_nonzero(t)) for t in bufs)
+        if nz:
+            fail(f"{label}: {nz} nonzero merge counters or workspace "
+                 f"entries after the runs")
+        log(f"{label}: all {len(bufs)} merge-counter and workspace buffers "
+            f"are zero")
+        return len(bufs)
+
+    record["counters_zero_main_path"] = counters_zero(
+        "phase 4", [st.graph for e in engines.values()
+                    for st in e.states.values()])
     main_counts = runs["w8a8_int8kv"]["launches"]
     # W4A8 packs the same sites as W8A8 at half a byte per weight
     i8, i4 = (runs["w8a8_int8kv"]["weight_bytes_int8"],
@@ -926,11 +1022,10 @@ def main() -> None:
             super()._book_admission(req, slot, first, tpf)
 
     @torch.inference_mode()
-    def pool_busy(eng, trace, steps=4):
-        """Device time per decode step of a full pool: kernel time from the
-        profiler over ``steps`` steps once every slot decodes."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+    def pool_busy(eng, trace, steps=8):
+        """Device time per decode step of a full pool (the captured step's
+        replays; admissions and host work around them): kernel time from
+        the profiler over ``steps`` steps once every slot decodes."""
         eng.start()
         for r in trace[:eng.n_slots]:
             if not eng.try_admit(r):
@@ -938,20 +1033,7 @@ def main() -> None:
         while eng.prefilling:
             eng.step()
         eng.step()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                eng.step()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / steps
-        busy = sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.device_type == DeviceType.CUDA) / 1e3 / steps
-        return {"profiled_wall_ms_per_step": wall,
-                "device_ms_per_step": busy if busy else
-                "not measured (no device events in the trace)",
-                "by_kernel": by_kernel(prof, steps)}
+        return profiled_steps(eng.step, steps)
 
     def serve(label, eng, trace, path="w8a8"):
         warm = [dataclasses.replace(r, max_new_tokens=2)
@@ -976,8 +1058,11 @@ def main() -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(_lib.LAUNCHES)
+        replays = _lib.COUNTERS["graph_replays"]
         del eng._prefill
         st = eng.stats
+        if replays != st.steps:
+            fail(f"{label}: {replays} graph replays, {st.steps} steps")
         if [o.uid for o in outs] != [r.uid for r in trace]:
             fail(f"{label}: finished {[o.uid for o in outs]}")
         for o, r in zip(outs, trace):
@@ -1025,10 +1110,34 @@ def main() -> None:
                "ttft_ms_p99": float(np.percentile(ttft, 99)),
                "tpot_ms_p50": float(np.percentile(tpot, 50)),
                "tpot_ms_p99": float(np.percentile(tpot, 99)),
-               "launches": counts, "stats": st.as_dict(),
+               "launches": counts, "graph_replays": replays,
+               "graph": {"capture_s": eng.graph.capture_s,
+                         "n_nodes": eng.graph.n_nodes,
+                         "launches_per_replay": eng.graph.launches},
+               "stats": st.as_dict(),
                "prefill_rows": prefill_rows,
                "slots": [o.slot for o in outs]}
+        # four more runs of the trace: the same tokens, and each run's
+        # TTFT / TPOT p50 and tokens/s for the quartiles
+        rep = [(res["ttft_ms_p50"], res["tpot_ms_p50"],
+                res["tokens_per_s"])]
+        for _ in range(4):
+            again = eng.run(trace)
+            for o, o2 in zip(outs, again):
+                if not np.array_equal(o.tokens, o2.tokens):
+                    fail(f"{label}: a repeated run gave other tokens")
+            rep.append((float(np.median([o.ttft_ms for o in again])),
+                        float(np.median([o.tpot_ms for o in again])),
+                        sum(len(o.tokens) for o in again)
+                        / max(o.finished_s for o in again)))
+        res["repeats"] = quartiles(ttft_ms_p50=[r[0] for r in rep],
+                                   tpot_ms_p50=[r[1] for r in rep],
+                                   tokens_per_s=[r[2] for r in rep])
         res["device_busy"] = pool_busy(eng, trace)     # resets the stats
+        busy = res["device_busy"]["device_ms_per_step"]
+        if not isinstance(busy, str):
+            res["device_busy"]["busy_share_of_tpot"] = \
+                busy / res["repeats"]["tpot_ms_p50"][1]
         sd = res["stats"]
         log(f"{label}: {len(outs)} requests, {total} tokens in {wall:.2f} s "
             f"({res['tokens_per_s']:.1f} tok/s), TTFT p50/p99 "
@@ -1039,7 +1148,12 @@ def main() -> None:
             f"{res['device_busy']['device_ms_per_step']}, prefix hits/misses "
             f"{sd['prefix_hits']}/{sd['prefix_misses']}, chunks "
             f"{sd['prefill_chunks']}, page-table syncs "
-            f"{sd['page_table_syncs']}, launches {counts}")
+            f"{sd['page_table_syncs']}, launches {counts}, {replays} graph "
+            f"replays (captured in {eng.graph.capture_s:.3f} s, "
+            f"{eng.graph.n_nodes} nodes); 5 runs: TPOT p50 quartiles "
+            f"{res['repeats']['tpot_ms_p50']}, tokens/s "
+            f"{res['repeats']['tokens_per_s']}; busy share "
+            f"{res['device_busy'].get('busy_share_of_tpot')}")
         return outs, res
 
     cruns = {}
@@ -1140,6 +1254,10 @@ def main() -> None:
     if float(err.max()) > max_tol or float(err.mean()) > mean_tol:
         fail("(d) first-token logits beyond the stated tolerance")
     record["continuous"] = cruns
+    record["counters_zero_continuous"] = counters_zero(
+        "phase 4b", [e.graph for e in (eng_a, eng_b, eng_e, eng_f, eng_d0,
+                                       eng_d)]
+        + [st.graph for e in engines.values() for st in e.states.values()])
     phase_done("continuous")
 
     # 5. card vs the port's CPU engine on the same weights --------------

@@ -20,6 +20,13 @@ through the kernels. ``FUSED`` names work that runs inside another kernel's
 launch and is counted beside it: ``act_quant_static_fused`` is one static
 quantization done in the staging of a ``w8a8_matmul`` or ``w4a8_matmul``
 launch (M <= 16), not a launch of its own.
+
+A CUDA graph (``serving/graphs.py``) launches its kernels without running
+the wrappers: ``record_launches`` takes back what the wrappers counted while
+a graph was captured (the capture launched nothing), and ``replayed`` adds
+those counts once per replay and counts the replay in
+``COUNTERS["graph_replays"]``, so ``LAUNCHES`` after a replayed step equals
+what the same step run eagerly gives.
 """
 from __future__ import annotations
 
@@ -30,7 +37,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -45,6 +52,7 @@ KERNELS = ("w8a8_matmul", "act_quant_static", "flash_attention",
            "act_quant_ptoken")
 FUSED = ("act_quant_static_fused",)
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS + FUSED}
+COUNTERS: Dict[str, int] = {"graph_replays": 0}
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of every entry point (all return cudaError_t as int, but
@@ -198,5 +206,26 @@ def count(name: str) -> None:
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for d in (LAUNCHES, COUNTERS):
+        for k in d:
+            d[k] = 0
+
+
+def record_launches(capture: Callable[[], None]) -> Dict[str, int]:
+    """Runs ``capture`` (a graph capture: its wrappers count launches that
+    are only recorded) and returns the counts it added, which it takes back
+    out of ``LAUNCHES``."""
+    before = dict(LAUNCHES)
+    try:
+        capture()
+        return {k: LAUNCHES[k] - n for k, n in before.items()
+                if LAUNCHES[k] != n}
+    finally:
+        LAUNCHES.update(before)
+
+
+def replayed(counts: Dict[str, int]) -> None:
+    """One replay of a graph whose capture recorded ``counts``."""
+    for k, n in counts.items():
+        LAUNCHES[k] += n
+    COUNTERS["graph_replays"] += 1

@@ -146,8 +146,10 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-# merge counters of the split-KV kernel, one buffer per (device, stream)
-_TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+# merge counters of the split-KV kernel, one buffer per (device, stream); a
+# CUDA graph (serving/graphs.py) captures on a stream of its own, after a
+# warm-up there made its buffer, and keeps the buffer it captured alive
+TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 def _scratch(q: torch.Tensor, K: int, Smax: int):
@@ -160,10 +162,10 @@ def _scratch(q: torch.Tensor, K: int, Smax: int):
     n = _lib.lib().flash_decode_workspace_elems(B, H, K, Smax, hd)
     ws = torch.empty(n, dtype=torch.float32, device=q.device)
     key = (q.device, _lib.stream_ptr(q))
-    t = _TICKETS.get(key)
+    t = TICKETS.get(key)
     if t is None or t.numel() < B * K:
         t = torch.zeros(B * K, dtype=torch.int32, device=q.device)
-        _TICKETS[key] = t
+        TICKETS[key] = t
     return ws, t
 
 

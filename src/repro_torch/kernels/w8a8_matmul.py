@@ -83,8 +83,9 @@ def _check_scalar(t: torch.Tensor, name: str,
 
 # the decode regime's int32 workspace (partials and tickets), zeros kept
 # per device and stream and left zero by every launch; a second stream gets
-# a buffer of its own
-_WORKSPACE: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+# a buffer of its own (a CUDA graph's capture stream too: serving/graphs.py
+# warms up there first and keeps the buffer it captured alive)
+WORKSPACE: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 def workspace(x: torch.Tensor, M: int, N: int, K: int,
@@ -93,10 +94,10 @@ def workspace(x: torch.Tensor, M: int, N: int, K: int,
     ``int_matmul_workspace_elems`` and grown on demand."""
     n = max(int(_lib.lib().int_matmul_workspace_elems(M, N, K, group)), 1)
     key = (x.device, _lib.stream_ptr(x))
-    ws = _WORKSPACE.get(key)
+    ws = WORKSPACE.get(key)
     if ws is None or ws.numel() < n:
         ws = torch.zeros(n, dtype=torch.int32, device=x.device)
-        _WORKSPACE[key] = ws
+        WORKSPACE[key] = ws
     return ws
 
 

@@ -139,14 +139,29 @@ def apply_norm(p: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
 # RoPE (half-rotation / llama convention)
 # ---------------------------------------------------------------------------
 
+# inverse RoPE frequencies per (d_head, theta, device), formed at first use:
+# a decode step then copies nothing from the host, so it can be captured in
+# a CUDA graph (serving/graphs.py)
+_INV_FREQ: Dict[Tuple[int, float, torch.device], Tensor] = {}
+
+
+def rope_inv_freq(d_head: int, theta: float, device: torch.device) -> Tensor:
+    """(d_head//2,) f32 on ``device``: formed in float64 with numpy and
+    rounded to f32, as in the reference."""
+    key = (d_head, float(theta), device)
+    inv = _INV_FREQ.get(key)
+    if inv is None:
+        f64 = 1.0 / (theta ** (np.arange(0, d_head, 2) / d_head))
+        inv = torch.from_numpy(f64).to(torch.float32).to(device)
+        _INV_FREQ[key] = inv
+    return inv
+
+
 def rope_cos_sin(positions: Tensor, d_head: int, theta: float
                  ) -> Tuple[Tensor, Tensor]:
-    """positions: (...,) -> cos/sin (..., d_head//2), f32. The inverse
-    frequencies are formed in float64 with numpy and used in f32, as in the
-    reference."""
-    inv = 1.0 / (theta ** (np.arange(0, d_head, 2) / d_head))
-    inv_t = torch.from_numpy(inv).to(torch.float32).to(positions.device)
-    ang = positions.float()[..., None] * inv_t
+    """positions: (...,) -> cos/sin (..., d_head//2), f32."""
+    ang = positions.float()[..., None] * rope_inv_freq(d_head, theta,
+                                                       positions.device)
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -448,7 +463,9 @@ def lm_head(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
             scales: Optional[Params], taps: Optional[Dict],
             n_skip: int = 0) -> Tensor:
     """Logits. A tied head quantizes ``embed.T`` on every call under true
-    int8, as the reference does (caching it at load is a ROADMAP item)."""
+    int8, as the reference does: an int8 copy kept at load would add
+    vocab x d_model bytes that the reference does not hold, and the port's
+    resident bytes are held equal to JAX's."""
     w = p["embed"]["w"].T if cfg.tie_embeddings else p["head"]["w"]
     site = scales.get("head") if scales is not None else None
     if taps is not None:

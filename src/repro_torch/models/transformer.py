@@ -157,7 +157,9 @@ def write_prompt_kv(cache: Params, ks: Tensor, vs: Tensor, m: int) -> Params:
     """Write prefill KV (stacked (L,B,S,K,hd) fp) at positions [m:m+S]. An
     int8 cache also derives its per-(layer, head) scales from the prompt KV
     here, decode reuses them; a cache with per-slot (L,B,K) scale leaves
-    calibrates each batch row from its own prompt. In place."""
+    calibrates each batch row from its own prompt. In place, scales
+    included: a captured decode step reads the tensors it was captured
+    on."""
     S = ks.shape[2]
     if "k_scale" in cache:
         if cache["k_scale"].dim() == 3:             # per-slot (L, B, K)
@@ -171,7 +173,8 @@ def write_prompt_kv(cache: Params, ks: Tensor, vs: Tensor, m: int) -> Params:
         for l in range(ks.shape[0]):
             cache["k"][l, :, m:m + S] = C.quantize_kv(ks[l], k_scale[l])
             cache["v"][l, :, m:m + S] = C.quantize_kv(vs[l], v_scale[l])
-        cache["k_scale"], cache["v_scale"] = k_scale, v_scale
+        cache["k_scale"].copy_(k_scale)
+        cache["v_scale"].copy_(v_scale)
         return cache
     cache["k"][:, :, m:m + S] = ks.to(cache["k"].dtype)
     cache["v"][:, :, m:m + S] = vs.to(cache["v"].dtype)

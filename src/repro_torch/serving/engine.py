@@ -4,17 +4,26 @@ configurable quantized execution (per-tensor static W8A8 with int8-resident
 weights or W4A8 with int4-packed ones, the per-token dynamic baseline, an
 int8 KV cache with the cushion kept in fp).
 
+Each batch size B keeps one KV cache and one pair of step buffers (``tok``,
+``pos``), which every request of that B resets and refills in place. The
+greedy decode step (``decode_step``, the argmax, ``tok`` and ``pos``
+updated in place) reads and writes only those. On the card it is captured
+as a CUDA graph at the first request of its B (``serving/graphs.py``) and
+replayed once per generated token: the counterpart of the reference's
+jitted ``lax.scan``, the same kernels launched by one ``cudaGraphLaunch``
+per step. The prefill runs eagerly, and so does the step on the CPU.
+
 Tokens stay on the device through the decode loop; ``generate`` syncs with
 the host twice per request (after prefill: TTFT; after the loop: TPOT).
-The reference runs the loop as one compiled ``lax.scan``; here it is an
-eager Python loop (capturing the decode step in a CUDA graph is a later
-step). ``generate_py`` keeps the per-token host loop of the reference.
+Sampled generation runs the step eagerly (a graph would need the sampling
+generator registered with it). ``generate_py`` keeps the per-token eager
+host loop of the reference, which the graph's tokens are held to.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -25,6 +34,7 @@ from repro_torch.core.calibration import CalibratedScales
 from repro_torch.core.cushioncache import cushion_fingerprint
 from repro_torch.models import common as C
 from repro_torch.monitoring import resident_weight_bytes
+from repro_torch.serving.graphs import CapturedStep
 
 
 def plan_quantization(api, params, qcfg: QuantConfig, cushion=None,
@@ -98,9 +108,11 @@ def cushion_prefix_len(cushion) -> int:
 
 
 def bucket_steps(n_steps: int) -> int:
-    """Round a decode-step budget up to the next power of two (min 8): the
-    reference compiles one decode loop per bucket. The eager loop here runs
-    exactly the requested steps; a captured decode graph will bucket."""
+    """Round a step budget up to the next power of two (min 8). The
+    reference compiles one decode ``lax.scan`` per bucket, because XLA
+    compiles per scan length; the port replays one captured step per token
+    and needs no bucket for decode. The continuous engine buckets its
+    chunked-prefill budgets with it."""
     if n_steps <= 0:
         return 0
     b = 8
@@ -114,10 +126,24 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@dataclasses.dataclass
+class DecodeState:
+    """The fixed decode state of one batch size: the KV cache, the last
+    tokens ``tok`` ((B,) int32) and their position ``pos`` (() int32).
+    ``step`` is one greedy step over them, in place: the replay of
+    ``graph`` on the card, the eager step on the CPU."""
+    cache: Dict[str, torch.Tensor]
+    tok: torch.Tensor
+    pos: torch.Tensor
+    step: Optional[Callable[[], None]] = None
+    graph: Optional[CapturedStep] = None
+
+
 class Engine:
     """Serves one (model, quant, cushion, kv_dtype) configuration on the
     API's device. The parameters live in ``self.params``, a ``ParamTree``
-    module (stacked ``(L, ...)`` buffers)."""
+    module (stacked ``(L, ...)`` buffers); ``states`` holds the decode state
+    of every batch size served so far."""
 
     def __init__(self, api, params, qcfg: QuantConfig, cushion=None,
                  scales=None, max_seq: int = 2048, kv_dtype=None,
@@ -139,25 +165,59 @@ class Engine:
         self.kv_dtype = kv_dtype
         self.prefix_len = cushion_prefix_len(cushion)
         self.cushion_fp = cushion_fingerprint(cushion)
+        self.states: Dict[int, DecodeState] = {}
 
     def _decode(self, tok, pos, cache):
         return self.api.decode_step(self.params.tree(), tok, pos, cache,
                                     self.qcfg, scales=self.scales)
 
+    def _init_cache(self, B: int):
+        return self.api.init_cache(B, self.max_seq, kv_dtype=self.kv_dtype,
+                                   prefix_len=self.prefix_len)
+
+    def _state(self, B: int) -> DecodeState:
+        """B's decode state, made at the first request of that B. On the
+        card its step is captured then, on the fresh cache, which every
+        request resets before its prefill."""
+        st = self.states.get(B)
+        if st is not None:
+            return st
+        st = DecodeState(
+            cache=self._init_cache(B),
+            tok=torch.zeros((B,), dtype=torch.int32, device=self.device),
+            pos=torch.zeros((), dtype=torch.int32, device=self.device))
+
+        def step():
+            logits, _ = self._decode(st.tok, st.pos, st.cache)
+            st.tok.copy_(torch.argmax(logits, dim=-1))
+            st.pos.add_(1)
+
+        if self.device.type == "cuda":
+            st.graph = CapturedStep(step, self.device)
+            st.step = st.graph.replay
+        else:
+            st.step = step
+        self.states[B] = st
+        return st
+
     def _run_prefill(self, batch: Dict[str, Any]):
-        """Prefill + first token. Returns (tok, pos, cache, ttft_ms)."""
+        """Prefill + first token into the batch size's decode state, its
+        cache first reset to what ``init_cache`` makes. Returns (state,
+        ttft_ms)."""
         B = batch["tokens"].shape[0]
-        cache = self.api.init_cache(B, self.max_seq, kv_dtype=self.kv_dtype,
-                                    prefix_len=self.prefix_len)
+        st = self._state(B)
+        for k, t in self._init_cache(B).items():
+            st.cache[k].copy_(t)
         _sync(self.device)
         t0 = time.perf_counter()
-        logits, cache, pos = self.api.prefill(
-            self.params.tree(), batch, cache, self.qcfg,
+        logits, _, pos = self.api.prefill(
+            self.params.tree(), batch, st.cache, self.qcfg,
             cushion=self.cushion, scales=self.scales)
         logits = logits[:, -1] if logits.dim() == 3 else logits
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        st.tok.copy_(torch.argmax(logits, dim=-1))
+        st.pos.copy_(pos)
         _sync(self.device)          # host sync 1: TTFT
-        return tok, pos, cache, (time.perf_counter() - t0) * 1e3
+        return st, (time.perf_counter() - t0) * 1e3
 
     @staticmethod
     def _next(logits, greedy: bool, gen: Optional[torch.Generator]):
@@ -171,19 +231,29 @@ class Engine:
                  greedy: bool = True,
                  generator: Optional[torch.Generator] = None
                  ) -> GenerationResult:
-        """Greedy, or categorical sampling from ``generator`` (a
+        """Greedy: the decode state's step (the captured graph on the card)
+        run ``n_tokens - 1`` times, each token copied into a trajectory on
+        the device. Categorical sampling from ``generator`` (a
         ``torch.Generator`` on the engine's device) when ``greedy`` is
-        False."""
-        tok, pos, cache, ttft = self._run_prefill(batch)
+        False: the eager step."""
+        st, ttft = self._run_prefill(batch)
         t1 = time.perf_counter()
-        g = bool(greedy or generator is None)
-        toks = [tok]
-        for _ in range(max(0, n_tokens - 1)):
-            logits, cache = self._decode(tok, pos, cache)
-            tok = self._next(logits, g, generator)
-            pos = pos + 1
-            toks.append(tok)
-        out = torch.stack(toks, dim=1).cpu()    # host sync 2: the loop
+        if greedy or generator is None:
+            out = torch.empty((st.tok.shape[0], max(1, n_tokens)),
+                              dtype=torch.int32, device=self.device)
+            out[:, 0] = st.tok
+            for i in range(1, n_tokens):
+                st.step()
+                out[:, i] = st.tok
+        else:
+            tok, pos, toks = st.tok, st.pos, [st.tok]
+            for _ in range(n_tokens - 1):
+                logits, _ = self._decode(tok, pos, st.cache)
+                tok = self._next(logits, False, generator)
+                pos = pos + 1
+                toks.append(tok)
+            out = torch.stack(toks, dim=1)
+        out = out.cpu()                         # host sync 2: the loop
         tpot = (0.0 if n_tokens <= 1
                 else (time.perf_counter() - t1) * 1e3 / (n_tokens - 1))
         return GenerationResult(tokens=out.numpy(), ttft_ms=ttft,
@@ -194,14 +264,15 @@ class Engine:
                     greedy: bool = True,
                     generator: Optional[torch.Generator] = None
                     ) -> GenerationResult:
-        """Per-token host loop (one device-to-host copy per token), the
-        reference's baseline for the decode benchmarks."""
-        tok, pos, cache, ttft = self._run_prefill(batch)
+        """Per-token eager host loop (one device-to-host copy per token),
+        the reference's baseline for the decode benchmarks."""
+        st, ttft = self._run_prefill(batch)
+        tok, pos = st.tok, st.pos
         out = [tok.cpu().numpy()]
         t1 = time.perf_counter()
         g = bool(greedy or generator is None)
         for _ in range(n_tokens - 1):
-            logits, cache = self._decode(tok, pos, cache)
+            logits, _ = self._decode(tok, pos, st.cache)
             tok = self._next(logits, g, generator)
             pos = pos + 1
             out.append(tok.cpu().numpy())

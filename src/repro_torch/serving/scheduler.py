@@ -51,8 +51,17 @@ of them and drains gracefully on ``KeyboardInterrupt``. Admission order,
 slot choice and page reservation arithmetic are the reference's, so the two
 assign the same slots to the same requests.
 
-The port runs eagerly: caches are updated in place where the reference
-donates buffers to jitted functions. Tensor parallelism (the reference's
+Caches are updated in place where the reference donates buffers to jitted
+functions. The pool's device tensors (the cache, the paged pool's cushion
+block, ``pos``, ``tok`` and the device copy of ``live``) are made once and
+refilled in place at every ``start()``. The lock-step decode (the model's
+step, the argmax and the ``live``-masked updates of ``tok`` and ``pos``)
+reads and writes only those; on the card it is captured as a CUDA graph
+once per engine, whose pool shape is fixed, and replayed every step
+(``serving/graphs.py``), where the reference jits its ``step`` once per
+pool shape. Admission, the chunked-prefill stream, the page table's copy
+to the device, the copy of a changed ``live`` mask and the one host sync
+per step stay outside the graph. Tensor parallelism (the reference's
 ``mesh``) is not ported yet.
 """
 from __future__ import annotations
@@ -71,6 +80,7 @@ from repro_torch.models import common as C
 from repro_torch.monitoring import ServeStats, resident_weight_bytes
 from repro_torch.serving.engine import (bucket_steps, cache_seq_len,
                                         cushion_prefix_len, plan_quantization)
+from repro_torch.serving.graphs import CapturedStep
 from repro_torch.serving.paging import PagePool
 
 
@@ -235,6 +245,8 @@ class ContinuousEngine:
             # bucketed to powers of two (min 8); prompts at or under one
             # budget admit blocking
             self.chunk_tokens = bucket_steps(int(chunk_tokens))
+        self.cache: Optional[Dict[str, torch.Tensor]] = None
+        self.graph: Optional[CapturedStep] = None
         self.start()
 
     # ------------------------------------------------------------------
@@ -270,27 +282,42 @@ class ContinuousEngine:
     # ------------------------------------------------------------------
 
     def _reset_pool(self) -> None:
+        """An empty pool. Its device tensors are made at the first reset;
+        every later one refills the same tensors in place with what a fresh
+        pool holds, because the captured step reads the addresses it was
+        captured on."""
         if self.paged:
-            self._reset_pool_paged()
+            cache, cushion = self._reset_pool_paged()
         else:
-            self.cache = self._init_cache(self.n_slots)
-            self.cushion_block = {}
-        self.stats.pool_bytes = sum(
-            t.numel() * t.element_size()
-            for t in (*self.cache.values(), *self.cushion_block.values()))
-        self.pos = torch.zeros((self.n_slots,), dtype=torch.int32,
-                               device=self.device)
-        self.tok = torch.zeros((self.n_slots,), dtype=torch.int32,
-                               device=self.device)
+            cache, cushion = self._init_cache(self.n_slots), {}
+        if self.cache is None:
+            self.cache, self.cushion_block = cache, cushion
+            self.stats.pool_bytes = sum(
+                t.numel() * t.element_size()
+                for t in (*cache.values(), *cushion.values()))
+            z = (self.n_slots,)
+            self.pos = torch.zeros(z, dtype=torch.int32, device=self.device)
+            self.tok = torch.zeros(z, dtype=torch.int32, device=self.device)
+            self._live_dev = torch.zeros(z, dtype=torch.bool,
+                                         device=self.device)
+        else:
+            for old, new in ((self.cache, cache),
+                             (self.cushion_block, cushion)):
+                for key, t in new.items():
+                    old[key].copy_(t)
+            for t in (self.pos, self.tok, self._live_dev):
+                t.zero_()
         self.live = np.zeros((self.n_slots,), bool)
+        self._live_sent = self.live.copy()      # what _live_dev holds
         self._slots = [_Slot() for _ in range(self.n_slots)]
 
-    def _reset_pool_paged(self) -> None:
-        """Build the paged pool: the (L, n_slots, max_seq, K, hd) KV leaves
+    def _reset_pool_paged(self):
+        """The paged pool: the (L, n_slots, max_seq, K, hd) KV leaves
         become a flat (L, n_pages, ps, K, hd) page store plus an
         (L, n_slots, P) page table; the int8 scales keep their per-slot
         rows. The fp cushion goes once into batch-free kc/vc, outside the
-        cache."""
+        cache. Resets the host allocator; returns (cache, cushion
+        block)."""
         row = self._init_cache(1)          # the leaves' shapes and types
         ps = self.page_size
         pool = {}
@@ -319,11 +346,10 @@ class ContinuousEngine:
             (self._pt_layers, self.n_slots, self._P), dtype=torch.int32,
             device=self.device)
         self._pool.dirty = False            # device table == host (all 0)
-        self.cache = pool
-        # the shared cushion block lives outside self.cache: the same two
-        # device tensors serve every step of the session
-        self.cushion_block = cu
         self._hpos = np.zeros((self.n_slots,), np.int64)
+        # the shared cushion block lives outside the cache: the same two
+        # device tensors serve every step of the engine
+        return pool, cu
 
     def _sync_page_table(self) -> None:
         """Copy the allocator's host table into the device table (one
@@ -354,8 +380,12 @@ class ContinuousEngine:
     @torch.inference_mode()
     def start(self) -> None:
         """Open a serving session: reset the pool, the occupancy stats and
-        the result buffers."""
+        the result buffers. On the card the first session captures the
+        decode step, on the empty pool, which it then resets again."""
         self._reset_pool()
+        if self.device.type == "cuda" and self.graph is None:
+            self.graph = CapturedStep(self._decode_pool, self.device)
+            self._reset_pool()
         self.stats.reset()
         if self.paged:
             self._publish_gauges()
@@ -429,15 +459,13 @@ class ContinuousEngine:
                 self._pool.ensure_mapped(int(slot), int(self._hpos[slot]))
             if self._pool.dirty:
                 self._sync_page_table()
-        live = torch.from_numpy(self.live).to(self.device)
-        full = dict(self.cache)
-        full.update(self.cushion_block)
-        logits, _ = self.api.decode_step(self.params.tree(), self.tok,
-                                         self.pos, full, self.qcfg,
-                                         scales=self.scales)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        self.tok = torch.where(live, nxt, torch.zeros_like(nxt))
-        self.pos = torch.where(live, self.pos + 1, self.pos)
+        if not np.array_equal(self.live, self._live_sent):
+            self._live_dev.copy_(torch.from_numpy(self.live))
+            self._live_sent = self.live.copy()
+        if self.graph is not None:
+            self.graph.replay()
+        else:
+            self._decode_pool()
         if self.paged:
             self._hpos[live_idx] += 1   # mirror the device pos advance
         toks = self.tok.cpu().numpy()   # the one host sync per step
@@ -454,6 +482,18 @@ class ContinuousEngine:
                 retired.append(req.uid)
                 self._retire(int(slot))
         return retired
+
+    def _decode_pool(self) -> None:
+        """The lock-step decode over the whole pool, in place: dead rows
+        feed token 0 and keep their pos. The step the card captures."""
+        full = dict(self.cache)
+        full.update(self.cushion_block)
+        logits, _ = self.api.decode_step(self.params.tree(), self.tok,
+                                         self.pos, full, self.qcfg,
+                                         scales=self.scales)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        self.tok.copy_(torch.where(self._live_dev, nxt, torch.zeros_like(nxt)))
+        self.pos.copy_(torch.where(self._live_dev, self.pos + 1, self.pos))
 
     def cancel(self, uid: int) -> bool:
         """Free the slot holding ``uid`` without a result (a PREFILLING

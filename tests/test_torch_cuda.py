@@ -559,3 +559,135 @@ def test_flash_decode_two_streams(dev):
     torch.cuda.synchronize()
     for i, o in enumerate(outs):
         assert torch.equal(o, want), i
+
+
+# ---------------------------------------------------------------------------
+# The decode step captured as a CUDA graph (serving/graphs.py)
+# ---------------------------------------------------------------------------
+
+# mode -> (quant mode, kv_dtype, prequant, weight_bits)
+GRAPH_MODES = {"fp": ("none", None, False, 8),
+               "w8a8_int8kv": ("pt_static", "int8", True, 8),
+               "w4a8_int8kv": ("pt_static", "int8", True, 4),
+               "ptoken_fp": ("ptoken_dynamic", None, False, 8)}
+
+
+@pytest.fixture(scope="module")
+def tiny_card():
+    """paper_tiny on the card: seeded weights, a 3-token cushion, pt_static
+    scales calibrated on one batch under it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA unavailable)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import numpy as np
+    from repro_torch.configs import QuantConfig, get_config
+    from repro_torch.core.calibration import calibrate
+    from repro_torch.launch.serve import seeded_cushion
+    from repro_torch.models.registry import build
+    dev = torch.device("cuda")
+    api = build(get_config("paper_tiny"), dev)
+    params = api.init_params(torch.Generator(dev).manual_seed(0))
+    cushion = seeded_cushion(api, params, 3, seed=0)
+    rs = np.random.RandomState(5)
+
+    def tokens(b, s):
+        return {"tokens": torch.as_tensor(
+            rs.randint(0, 512, (b, s)).astype(np.int32), device=dev)}
+
+    scales, _ = calibrate(api, params, [tokens(2, 24)],
+                          QuantConfig(mode="pt_static", true_int8=True),
+                          cushion=cushion)
+    return dict(api=api, params=params, cushion=cushion, scales=scales,
+                tokens=tokens, QuantConfig=QuantConfig)
+
+
+def _graph_engine(s, mode):
+    from repro_torch.serving.engine import Engine
+    qmode, kv, pre, wb = GRAPH_MODES[mode]
+    qcfg = s["QuantConfig"](mode=qmode, true_int8=qmode == "pt_static")
+    return Engine(s["api"], s["params"], qcfg, cushion=s["cushion"],
+                  scales=s["scales"] if qmode == "pt_static" else None,
+                  max_seq=96, kv_dtype=kv, prequant=pre, weight_bits=wb)
+
+
+def _counters_zero(graphs):
+    from repro_torch.kernels import flash_decode as FD
+    from repro_torch.kernels import w8a8_matmul as W8
+    torch.cuda.synchronize()
+    bufs = [*FD.TICKETS.values(), *W8.WORKSPACE.values(),
+            *(w for g in graphs for w in g.workspaces)]
+    assert bufs and all(int(torch.count_nonzero(t)) == 0 for t in bufs)
+
+
+@pytest.mark.parametrize("mode", list(GRAPH_MODES))
+def test_graph_tokens_and_launches_equal_eager(tiny_card, mode):
+    """Engine.generate replays the step captured at the first request of
+    B = 3: the tokens and every kernel's launches of generate_py (the eager
+    step), one replay per token after the first, and the merge counters
+    and workspaces zero afterwards."""
+    s = tiny_card
+    eng = _graph_engine(s, mode)
+    batch = s["tokens"](3, 40)
+    eng.generate(batch, 4)                  # captures B = 3's step
+    graph = eng.states[3].graph
+    assert graph.n_nodes > 0 and graph.capture_s > 0
+    _lib.reset_launches()
+    eng.generate(batch, 4)
+    short = dict(_lib.LAUNCHES)
+    _lib.reset_launches()
+    got = eng.generate(batch, 20)
+    counts = dict(_lib.LAUNCHES)
+    assert _lib.COUNTERS["graph_replays"] == 19
+    # 16 more replays add 16 times what the capture recorded
+    assert {k: n - short[k] for k, n in counts.items() if n != short[k]} \
+        == {k: 16 * n for k, n in graph.launches.items()}
+    _lib.reset_launches()
+    want = eng.generate_py(batch, 20)
+    assert (got.tokens == want.tokens).all()
+    assert counts == dict(_lib.LAUNCHES)
+    assert _lib.COUNTERS["graph_replays"] == 0
+    _counters_zero([graph])
+
+
+def test_paged_continuous_graph_equals_eager_static(tiny_card):
+    """A paged int8 W8A8 pool of 3 slots, 7 requests at once (slots
+    recycled, two runs): every request's tokens equal the static B = 1
+    Engine's eager per-token loop, one replay per step."""
+    import dataclasses
+    from repro_torch.serving.scheduler import ContinuousEngine, Request
+    s = tiny_card
+    eng1 = _graph_engine(s, "w8a8_int8kv")
+    reqs = [Request(uid=i, batch=s["tokens"](1, 20 + 3 * i),
+                    max_new_tokens=4 + i) for i in range(7)]
+    ce = ContinuousEngine(s["api"], s["params"], eng1.qcfg, n_slots=3,
+                          max_seq=96, cushion=s["cushion"],
+                          scales=s["scales"], kv_dtype="int8",
+                          prequant=True, paged=True, page_size=16)
+    for run in range(2):
+        _lib.reset_launches()
+        outs = ce.run([dataclasses.replace(r) for r in reqs])
+        assert _lib.COUNTERS["graph_replays"] == ce.stats.steps > 0
+        for r, o in zip(reqs, outs):
+            want = eng1.generate_py(r.batch, r.max_new_tokens).tokens[0]
+            assert (o.tokens == want).all(), (run, r.uid)
+    _counters_zero([ce.graph])
+
+
+def test_capture_with_a_host_sync_raises(dev):
+    """A step that syncs with the host cannot be captured: the capture
+    raises, nothing runs eagerly in its place, and the card still works
+    (this test runs last in the file)."""
+    from repro_torch.serving.graphs import CapturedStep
+    x = torch.zeros(4, device=dev)
+
+    def step():
+        if x.sum().item() >= 0:             # a host sync
+            x.add_(1)
+
+    with pytest.raises(RuntimeError):
+        CapturedStep(step, dev)
+    torch.cuda.synchronize()
+    assert x.tolist() == [2.0] * 4          # the two warm-up steps only
+    y = torch.arange(4.0, device=dev) * 2
+    torch.cuda.synchronize()
+    assert y.tolist() == [0.0, 2.0, 4.0, 6.0]

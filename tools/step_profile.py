@@ -5,15 +5,17 @@
 
 Builds smollm-360m at full width and depth with seeded random weights and
 a 4-token seeded cushion, and for static W8A8 (int8 KV), W4A8 (int8 KV) and
-ptoken_dynamic (fp KV) runs the static ``Engine``'s decode step at B = 4
-after a 512-token prefill, under ``torch.profiler``: the device time of
-every kernel, summed by name over 6 steps and divided by 6, and the total
-(``chip_smoke.py`` phase 4 reports the same total). pt_static scales are
+ptoken_dynamic (fp KV) replays the static ``Engine``'s captured decode
+step (the CUDA graph that ``generate`` replays) at B = 4 after a 512-token
+prefill, under ``torch.profiler``: the device time of every kernel, summed
+by name over 6 replays and divided by 6, and the total (``chip_smoke.py``
+phase 4 reports the same total); then the same step run eagerly, its
+total beside (``eager_device_ms_per_step``). pt_static scales are
 calibrated on two batches of seeded random token ids (not the synthetic
 corpus, which takes ~80 s of host time to build); the kernels' work does not
 depend on the token values. ``--src`` imports ``repro_torch`` from another
-source tree (an unpacked parent commit, say), so two versions can be
-compared in one call. Writes ``chiprun_out/step_profile.json`` unless
+source tree that has the captured step (another commit, unpacked), so two
+versions can be compared in one call. Writes ``chiprun_out/step_profile.json`` unless
 ``--out`` says otherwise.
 """
 import argparse
@@ -76,24 +78,35 @@ def main() -> None:
                      scales=scales if pre else None, prequant=pre,
                      weight_bits=wb)
         scales = eng.scales if pre else scales
-        eng.generate(batch, 4)                       # warm-up
+        eng.generate(batch, 4)              # warm-up; captures the step
         with torch.inference_mode():
-            tok, pos, cache, _ = eng._run_prefill(batch)
-            for _ in range(2):
-                _, cache = eng._decode(tok, pos, cache)
-                pos = pos + 1
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(STEPS):
-                    logits, cache = eng._decode(tok, pos, cache)
-                    tok = torch.argmax(logits, dim=-1).to(torch.int32)
-                    pos = pos + 1
+            st, _ = eng._run_prefill(batch)
+            tok, pos = st.tok.clone(), st.pos.clone()
+
+            def eager():
+                logits, _ = eng._decode(tok, pos, st.cache)
+                tok.copy_(torch.argmax(logits, dim=-1))
+                pos.add_(1)
+
+            totals = {}
+            for name, step in (("graph", st.step), ("eager", eager)):
+                for _ in range(2):
+                    step()
                 torch.cuda.synchronize()
-        rows = by_kernel(prof, STEPS, top=None)
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for _ in range(STEPS):
+                        step()
+                    torch.cuda.synchronize()
+                totals[name] = by_kernel(prof, STEPS, top=None)
+        rows = totals["graph"]
         total = sum(ms for _, ms in rows.values())
-        out[label] = {"device_ms_per_step": total, "kernels": rows}
-        print(f"{label}: device ms per decode step {total:.4f}", flush=True)
+        eager_total = sum(ms for _, ms in totals["eager"].values())
+        out[label] = {"device_ms_per_step": total, "kernels": rows,
+                      "eager_device_ms_per_step": eager_total,
+                      "graph_nodes": eng.states[4].graph.n_nodes}
+        print(f"{label}: device ms per decode step {total:.4f} (graph "
+              f"replays), {eager_total:.4f} (eager)", flush=True)
         for name, (calls, ms) in list(rows.items())[:12]:
             print(f"  {ms:8.4f} ms {calls:7.1f} calls  {name[:90]}",
                   flush=True)
