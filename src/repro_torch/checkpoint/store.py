@@ -1,0 +1,158 @@
+"""Versioned artifact store, ported from ``repro/checkpoint/store.py``,
+in its on-disk format, so each side reads what the other writes:
+
+* ``<dir>/step_<n:08d>/arrays.npz`` holds leaf i as ``a<i>``;
+  ``manifest.json`` holds ``step``, ``keys`` ("/"-joined leaf paths in the
+  reference's flatten order: dict keys sorted), ``dtypes``, ``shapes``,
+  ``sha256`` of ``arrays.npz`` and the caller's ``extra``;
+* bf16 and f16 leaves are stored upcast to f32 (lossless; npz holds no
+  bf16) with their dtype named in the manifest, so a reader needs numpy
+  and torch alone;
+* atomic: written into ``<dir>/tmp.<step>``, fsynced, renamed;
+* the sha256 is verified on restore, and a ``keep``-newest garbage
+  collection follows every save.
+
+Trees are nested dicts whose leaves are tensors or numpy arrays;
+``restore_tree`` returns nested dicts of CPU tensors in the stored dtypes.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+import os
+import shutil
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+_TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+                 "float32": torch.float32, "float64": torch.float64,
+                 "int8": torch.int8, "uint8": torch.uint8,
+                 "int16": torch.int16, "int32": torch.int32,
+                 "int64": torch.int64, "bool": torch.bool}
+
+
+def _flatten(tree: Any, path: Tuple[str, ...] = ()
+             ) -> List[Tuple[str, Any]]:
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out.extend(_flatten(tree[k], path + (str(k),)))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = []
+        for i, v in enumerate(tree):
+            out.extend(_flatten(v, path + (str(i),)))
+        return out
+    return [("/".join(path), tree)]
+
+
+def _to_numpy(v: Any) -> Tuple[np.ndarray, str]:
+    """(array npz can hold, the leaf's dtype name)."""
+    if isinstance(v, torch.Tensor):
+        t = v.detach().cpu()
+        name = str(t.dtype).replace("torch.", "")
+        if t.dtype in (torch.bfloat16, torch.float16):
+            return t.float().numpy(), name
+        return t.numpy(), name
+    a = np.asarray(v)
+    if a.dtype == np.float16 or a.dtype.name == "bfloat16":
+        return a.astype(np.float32), a.dtype.name
+    return a, a.dtype.name
+
+
+def _sha256(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+@dataclasses.dataclass
+class CheckpointManager:
+    directory: str
+    keep: int = 3
+
+    def __post_init__(self):
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _dir(self, step: int) -> str:
+        return os.path.join(self.directory, f"step_{step:08d}")
+
+    def save(self, step: int, tree: Any, extra: Optional[Dict] = None) -> str:
+        tmp = os.path.join(self.directory, f"tmp.{step}")
+        final = self._dir(step)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        flat = _flatten(tree)
+        arrays, dtypes, shapes = {}, [], []
+        for i, (_, v) in enumerate(flat):
+            a, name = _to_numpy(v)
+            arrays[f"a{i}"] = a
+            dtypes.append(name)
+            shapes.append(list(a.shape))
+        shard = os.path.join(tmp, "arrays.npz")
+        np.savez(shard, **arrays)
+        manifest = {"step": step, "keys": [k for k, _ in flat],
+                    "dtypes": dtypes, "shapes": shapes,
+                    "sha256": {"arrays.npz": _sha256(shard)},
+                    "extra": extra or {}}
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+            f.flush()
+            os.fsync(f.fileno())
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)        # atomic publish
+        self._gc()
+        return final
+
+    def steps(self) -> List[int]:
+        """Published steps, oldest first (a directory without a manifest is
+        a partial write and is skipped)."""
+        out = []
+        for name in os.listdir(self.directory):
+            if name.startswith("step_") and os.path.exists(
+                    os.path.join(self.directory, name, "manifest.json")):
+                out.append(int(name.split("_")[1]))
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        s = self.steps()
+        return s[-1] if s else None
+
+    def manifest(self, step: int) -> Dict:
+        with open(os.path.join(self._dir(step), "manifest.json")) as f:
+            return json.load(f)
+
+    def restore_tree(self, step: int, verify: bool = True
+                     ) -> Tuple[Dict[str, Any], Dict]:
+        """The saved tree as nested dicts of CPU tensors in their stored
+        dtypes, rebuilt from the manifest's "/"-joined keys, and the
+        manifest. Raises IOError when ``arrays.npz`` fails its sha256."""
+        manifest = self.manifest(step)
+        apath = os.path.join(self._dir(step), "arrays.npz")
+        if verify:
+            got, want = _sha256(apath), manifest["sha256"]["arrays.npz"]
+            if got != want:
+                raise IOError(f"checkpoint corruption at step {step}: "
+                              f"sha256 {got} != {want}")
+        tree: Dict[str, Any] = {}
+        with np.load(apath) as data:
+            for i, key in enumerate(manifest["keys"]):
+                parts = key.split("/")
+                node = tree
+                for p in parts[:-1]:
+                    node = node.setdefault(p, {})
+                t = torch.from_numpy(np.array(data[f"a{i}"]))
+                node[parts[-1]] = t.to(_TORCH_DTYPES[manifest["dtypes"][i]])
+        return tree, manifest
+
+    def _gc(self) -> None:
+        steps = self.steps()
+        for s in steps[:-self.keep] if self.keep > 0 else []:
+            shutil.rmtree(self._dir(s), ignore_errors=True)

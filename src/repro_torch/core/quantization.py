@@ -92,9 +92,17 @@ def fake_quant(x: Tensor, scale: Tensor, zero: Tensor, bits: int,
 # Activation quantization per granularity
 # ---------------------------------------------------------------------------
 
-def act_minmax(x: Tensor, per_token: bool) -> Tuple[Tensor, Tensor]:
+def act_minmax(x: Tensor, per_token: bool, groups: int = 1
+               ) -> Tuple[Tensor, Tensor]:
+    """Per-token ranges, or one per-tensor range; with ``groups`` > 1 the
+    leading axis holds ``groups`` stacked tensors, each with its own range
+    (shaped to broadcast against x)."""
     if per_token:
         return x.amin(dim=-1, keepdim=True), x.amax(dim=-1, keepdim=True)
+    if groups > 1:
+        xg = x.reshape(groups, -1)
+        shape = (groups,) + (1,) * (x.dim() - 1)
+        return xg.amin(1).reshape(shape), xg.amax(1).reshape(shape)
     return x.amin(), x.amax()
 
 
@@ -114,7 +122,8 @@ def _ptoken_fake_quant(x: Tensor, cfg: QuantConfig) -> Tensor:
 
 def act_fake_quant(x: Tensor, cfg: QuantConfig,
                    static_scale: Optional[Tensor] = None,
-                   static_zero: Optional[Tensor] = None) -> Tensor:
+                   static_zero: Optional[Tensor] = None,
+                   groups: int = 1) -> Tensor:
     if cfg.mode == "none":
         return x
     if cfg.mode == "pt_static":
@@ -128,7 +137,7 @@ def act_fake_quant(x: Tensor, cfg: QuantConfig,
         if x.device.type != "cpu":
             raise ValueError("symmetric per-token activations have no "
                              "kernel; they run on the CPU only")
-    mn, mx = act_minmax(x.detach(), cfg.mode == "ptoken_dynamic")
+    mn, mx = act_minmax(x.detach(), cfg.mode == "ptoken_dynamic", groups)
     scale, zero = params_from_minmax(mn, mx, cfg.a_bits, cfg.symmetric_a)
     return fake_quant(x, scale, zero, cfg.a_bits, cfg.symmetric_a)
 
@@ -374,16 +383,25 @@ def prequantize_tree(params: Any, cfg: QuantConfig, min_ndim: int = 2,
 
 
 def qdot(x: Tensor, w: Any, cfg: QuantConfig,
-         site: Optional[SiteScale] = None) -> Tensor:
-    """Quantized x @ w. ``w`` is (d_in, d_out) or a prequantized dict."""
+         site: Optional[SiteScale] = None, groups: int = 1) -> Tensor:
+    """Quantized x @ w. ``w`` is (d_in, d_out) or a prequantized dict.
+    ``groups`` > 1: x stacks that many independent tensors along its
+    leading axis, each fake-quantized with its own dynamic range (the
+    integer paths take one range and refuse it)."""
     if isinstance(w, dict):
+        if groups > 1:
+            raise ValueError("integer-resident weights serve one tensor "
+                             "at a time (groups=1)")
         return prequantized_int_dot(x, w, cfg, site)
     if cfg.mode == "none":
         return x @ w
     if cfg.true_int8 and w.dim() == 2 and cfg.a_bits == 8 and cfg.w_bits == 8:
+        if groups > 1 and cfg.mode != "pt_static":
+            raise ValueError("the true int8 matmul takes one dynamic range "
+                             "(groups=1)")
         return true_int_dot(x, w, cfg, site)
     xq = act_fake_quant(x, cfg, site.scale if site is not None else None,
-                        site.zero if site is not None else None)
+                        site.zero if site is not None else None, groups)
     return xq @ weight_fake_quant(w, cfg)
 
 
@@ -392,19 +410,23 @@ def qdot(x: Tensor, w: Any, cfg: QuantConfig,
 # ---------------------------------------------------------------------------
 
 def site_qerr(x: Tensor, cfg: QuantConfig, site: Optional[SiteScale],
-              n_skip: int = 0) -> Tensor:
-    """||X - q(X)||^2 over the token part (positions >= n_skip)."""
+              n_skip: int = 0, groups: int = 1) -> Tensor:
+    """||X - q(X)||^2 over the token part (positions >= n_skip): a scalar,
+    or with ``groups`` > 1 one value per stacked tensor, (groups,)."""
     if n_skip:
         x = x[..., n_skip:, :]
     if cfg.mode == "pt_static" and site is not None:
         scale, zero = site.scale, site.zero
     else:
-        mn, mx = act_minmax(x.detach(), cfg.mode == "ptoken_dynamic")
+        mn, mx = act_minmax(x.detach(), cfg.mode == "ptoken_dynamic", groups)
         scale, zero = params_from_minmax(mn, mx, cfg.a_bits, cfg.symmetric_a)
     scale, zero = scale.detach(), zero.detach()
     xq = dequantize(quantize(x, scale, zero, cfg.a_bits, cfg.symmetric_a),
                     scale, zero)
-    return torch.sub(*_promote(x, xq)).float().square().sum()
+    err = torch.sub(*_promote(x, xq)).float().square()
+    if groups > 1:
+        return err.reshape(groups, -1).sum(1)
+    return err.sum()
 
 
 def site_stats(x: Tensor, n_skip: int = 0) -> Dict[str, Tensor]:

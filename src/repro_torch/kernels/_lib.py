@@ -49,7 +49,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 KERNELS = ("w8a8_matmul", "act_quant_static", "flash_attention",
            "flash_decode", "flash_decode_paged", "w4a8_matmul",
-           "act_quant_ptoken")
+           "act_quant_ptoken", "flash_attention_bwd")
 FUSED = ("act_quant_static_fused",)
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS + FUSED}
 COUNTERS: Dict[str, int] = {"graph_replays": 0}
@@ -75,11 +75,17 @@ _SIGNATURES = {
     "int_matmul_decode_max_m": [],
     # x, x_bf16, out, scale, zero, M, D, qmax, stream
     "act_quant_ptoken_launch": [_VP, _I, _VP, _VP, _VP, _I, _I, _F, _VP],
-    # q, k, v, out, bf16, B, H, Kh, S, T, hd, prefix_len,
-    # q strides (b, h, s), k strides (b, h, t), v strides (b, h, t),
-    # out strides (b, h, s), stream
-    "flash_attention_launch": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
-                               _I, _I] + [ctypes.c_longlong] * 12 + [_VP],
+    # q, k, v, out, lse (null: not written), bf16, B, H, Kh, S, T, hd,
+    # prefix_len, prefix_live, q strides (b, h, s), k strides (b, h, t),
+    # v strides (b, h, t), out strides (b, h, s), stream
+    "flash_attention_launch": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _I] + [ctypes.c_longlong] * 12
+                              + [_VP],
+    # q, k, v, o, dout, lse, delta (workspace), dq, dk, dv, bf16, B, H, Kh,
+    # S, T, hd, prefix_len, prefix_live, the (b, head, row) strides of q, k,
+    # v, o, dout, dq, dk, dv (24 int64), stream
+    "flash_attention_bwd_launch": [_VP] * 10 + [_I] * 9
+                                  + [ctypes.POINTER(ctypes.c_longlong), _VP],
     # q, k, v, k_scale, v_scale, scale_per_row, kc, vc, pos, pos_per_row,
     # out, fp_bf16, cache_int8, B, H, K, Smax, hd, m, workspace, tickets,
     # stream

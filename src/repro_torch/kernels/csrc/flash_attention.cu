@@ -7,9 +7,19 @@
 // kernel in `attention_full` on the card.
 //
 //   q (B, H, S, hd), k/v (B, Kh, T, hd), T = prefix_len + S, G = H / Kh
-//   key j is visible to query i  iff  j < T and (j < prefix_len or
-//   j <= i + prefix_len); masked scores are -1e30 (not -inf), a masked p is
-//   0, and the output is acc / max(l, 1e-30).
+//   key j is visible to query i  iff  j < T and (j < prefix_live or
+//   prefix_len <= j <= i + prefix_len); masked scores are -1e30 (not -inf),
+//   a masked p is 0, and the output is acc / max(l, 1e-30).
+//
+// prefix_live <= prefix_len is the cushion search's live length (the
+// reference's `prefix_valid = arange(m) < live`): rows [prefix_live,
+// prefix_len) of a padded prefix are seen by no query. At prefix_live =
+// prefix_len (the serving path) the mask, the tiles and every bit of the
+// result are those of the kernel without it. Key tiles that lie wholly in
+// [prefix_live, prefix_len) are skipped; a tile that straddles the edge
+// masks per key. With a non-null `lse`, each row's log-sum-exp
+// (m / sqrt(hd) + ln l, natural log, f32 (B, H, S)) is written for the
+// backward (flash_attention_bwd.cu); the serving path passes null.
 //
 // Bound on the card: bytes at smollm's prefill shape (q, k, v and out read
 // or written once: 3.1 us a call at B = 4, S = 512, against 2.05 GFLOP of
@@ -86,8 +96,9 @@ constexpr int BKV = 32;
 template <typename T, int HD>
 __global__ void __launch_bounds__(BQ)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int H,
-                       int G, int S, int T_, int P, long long qsb,
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int H, int G, int S, int T_,
+                       int P, int LV, long long qsb,
                        long long qsh, long long qss, long long ksb,
                        long long ksh, long long kst, long long vsb,
                        long long vsh, long long vst, long long osb,
@@ -115,6 +126,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int t_end = q0 + BQ + P;
   if (t_end > T_) t_end = T_;
   for (int t0 = 0; t0 < t_end; t0 += BKV) {
+    // a tile wholly in the dead rows [LV, P) is seen by no query
+    if (t0 >= LV && t0 + BKV <= P) continue;
     for (int i = threadIdx.x; i < BKV * HD; i += BQ) {
       const int j = i / HD, d = i % HD, t = t0 + j;
       Ks[j][d] = t < T_ ? ld(kb + (long long)t * kst + d) : 0.f;
@@ -129,7 +142,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int d = 0; d < HD; ++d) dot += qr[d] * Ks[j][d];
       const int kj = t0 + j;
-      const bool valid = kj < T_ && (kj < P || kj <= qi + P);
+      const bool valid = kj < T_ && (kj < LV || (kj >= P && kj <= qi + P));
       s[j] = valid ? dot * scale : NEG_INF;
       mx = fmaxf(mx, s[j]);
     }
@@ -138,7 +151,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < BKV; ++j) {
       const int kj = t0 + j;
-      const bool valid = kj < T_ && (kj < P || kj <= qi + P);
+      const bool valid = kj < T_ && (kj < LV || (kj >= P && kj <= qi + P));
       s[j] = valid ? expf(s[j] - mx) : 0.f;
       psum += s[j];
     }
@@ -158,6 +171,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* op = out + b * osb + h * osh + (long long)qi * oss;
 #pragma unroll
     for (int d = 0; d < HD; ++d) st(op + d, acc[d] * inv_l);
+    if (lse) lse[(long long)bh * S + qi] = m + logf(fmaxf(l, 1e-30f));
   }
 }
 
@@ -255,7 +269,8 @@ __global__ void __launch_bounds__(TTHREADS, 3)
 flash_attention_mma_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ k,
                            const bf16* __restrict__ v, bf16* __restrict__ out,
-                           int H, int G, int S, int T_, int P, long long qsb,
+                           float* __restrict__ lse, int H, int G, int S,
+                           int T_, int P, int LV, long long qsb,
                            long long qsh, long long qss, long long ksb,
                            long long ksh, long long kst, long long vsb,
                            long long vsh, long long vst, long long osb,
@@ -280,7 +295,15 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
   // last key any query of this tile can see is (q0 + TQ - 1) + P
   int t_end = q0 + TQ + P;
   if (t_end > T_) t_end = T_;
-  const int n_tiles = (t_end + TK - 1) / TK;
+  // tiles [lo, lo + n_dead) lie wholly in the dead rows [LV, P) and are
+  // skipped: the loop walks n_tiles - n_dead tiles, the j-th being tile(j).
+  // The first tile walked holds key 0 < LV or key P, which every row sees,
+  // so every row's max is a real score after it (see the softmax below).
+  // At LV = P no tile is dead.
+  const int lo = (LV + TK - 1) / TK;
+  const int n_dead = max(0, P / TK - lo);
+  const int n_tiles = (t_end + TK - 1) / TK - n_dead;
+  auto tile = [&](int j) { return j < lo ? j : j + n_dead; };
 
   for (int i = tid; i < TQ * CPR; i += TTHREADS) {
     const int r = i / CPR, c = i % CPR, qi = q0 + r;
@@ -296,7 +319,7 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
       cp_async16(&Vs[buf][r * LD + c * 8], vb + tt * vst + c * 8, ok);
     }
   };
-  load_kv(0, 0);
+  load_kv(tile(0), 0);
   cp_async_commit();
 
   // this lane's two rows of the warp's 16 (fragment rows g and g + 8)
@@ -312,7 +335,7 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
 
   for (int j = 0; j < n_tiles; ++j) {
     if (j + 1 < n_tiles) {
-      load_kv(j + 1, (j + 1) & 1);
+      load_kv(tile(j + 1), (j + 1) & 1);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -327,7 +350,7 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
     }
     const bf16* Kt = Ks[j & 1];
     const bf16* Vt = Vs[j & 1];
-    const int t0 = j * TK;
+    const int t0 = tile(j) * TK;
     // a tile past the warp's last visible key (q0 + 16 warp + 15 + P) is
     // masked for all its rows: the warp skips it (a masked p is 0 and adds
     // nothing)
@@ -355,7 +378,8 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
       // sqrt(hd), one FFMA and one ex2 per score; a tile every row of the
       // warp sees whole needs no mask
       const bool need_mask =
-          t0 + TK > T_ || t0 + TK - 1 > q0 + warp * 16 + P;
+          t0 + TK > T_ || t0 + TK - 1 > q0 + warp * 16 + P ||
+          (LV < P && t0 < P && t0 + TK > LV);
       float mx[2] = {m_r[0], m_r[1]};
 #pragma unroll
       for (int n = 0; n < NS; ++n) {
@@ -363,7 +387,8 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
         for (int e = 0; e < 4; ++e) {
           const int kj = t0 + n * 8 + (lane % 4) * 2 + (e & 1);
           const int qi = e < 2 ? row0 : row1;
-          if (need_mask && !(kj < T_ && (kj < P || kj <= qi + P)))
+          if (need_mask &&
+              !(kj < T_ && (kj < LV || (kj >= P && kj <= qi + P))))
             s[n][e] = NEG_INF;
           mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
         }
@@ -373,9 +398,9 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
       }
-      // a masked score is -1e30 and every row sees key 0 in tile 0, so mx
-      // is a real score from then on and 2^(c (-1e30) - c mx) is exactly 0:
-      // a masked p is 0
+      // a masked score is -1e30 and every row sees a key of the first tile
+      // walked (key 0 < LV, or key P), so mx is a real score from then on
+      // and 2^(c (-1e30) - c mx) is exactly 0: a masked p is 0
       float alpha[2], ps[2] = {0.f, 0.f}, cm[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -444,18 +469,25 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
       *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row1 * oss + d) =
           __floats2bfloat162_rn(o[n][2] * inv1, o[n][3] * inv1);
   }
+  if (lse && lane % 4 == 0) {
+    // m_r is the raw dot product's max: ln l + m / sqrt(hd)
+    const float c = scale_log2 * 0.69314718055994531f;
+    float* lb = lse + (long long)bh * S;
+    if (row0 < S) lb[row0] = fmaf(m_r[0], c, logf(fmaxf(l_r[0], 1e-30f)));
+    if (row1 < S) lb[row1] = fmaf(m_r[1], c, logf(fmaxf(l_r[1], 1e-30f)));
+  }
 }
 
 // ---------------------------------------------------------------------------
 
 #define FA_ARGS(T)                                                          \
-  (const T*)q, (const T*)k, (const T*)v, (T*)out, H, G, S, T_, P, str[0],   \
-      str[1], str[2], str[3], str[4], str[5], str[6], str[7], str[8],        \
-      str[9], str[10], str[11], scale
+  (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, H, G, S, T_, P, LV,  \
+      str[0], str[1], str[2], str[3], str[4], str[5], str[6], str[7],        \
+      str[8], str[9], str[10], str[11], scale
 
 static int dispatch_f32(const void* q, const void* k, const void* v,
-                        void* out, int B, int H, int Kh, int S, int T_,
-                        int hd, int P, const long long* str,
+                        void* out, float* lse, int B, int H, int Kh, int S,
+                        int T_, int hd, int P, int LV, const long long* str,
                         cudaStream_t stream) {
   dim3 grid((S + BQ - 1) / BQ, B * H);
   const int G = H / Kh;
@@ -470,8 +502,8 @@ static int dispatch_f32(const void* q, const void* k, const void* v,
 }
 
 static int dispatch_bf16(const void* q, const void* k, const void* v,
-                         void* out, int B, int H, int Kh, int S, int T_,
-                         int hd, int P, const long long* str,
+                         void* out, float* lse, int B, int H, int Kh, int S,
+                         int T_, int hd, int P, int LV, const long long* str,
                          cudaStream_t stream) {
   dim3 grid(B * H, (S + TQ - 1) / TQ);
   const int G = H / Kh;
@@ -488,16 +520,20 @@ static int dispatch_bf16(const void* q, const void* k, const void* v,
 #undef FA_ARGS
 
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out, int bf16_in,
-    int B, int H, int Kh, int S, int T_, int hd, int prefix_len,
-    long long qsb, long long qsh, long long qss, long long ksb, long long ksh,
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    int bf16_in, int B, int H, int Kh, int S, int T_, int hd, int prefix_len,
+    int prefix_live, long long qsb, long long qsh, long long qss, long long ksb, long long ksh,
     long long kst, long long vsb, long long vsh, long long vst,
     long long osb, long long osh, long long oss, void* stream) {
   const long long str[12] = {qsb, qsh, qss, ksb, ksh, kst,
                              vsb, vsh, vst, osb, osh, oss};
   cudaStream_t st = (cudaStream_t)stream;
+  if (prefix_live < 0 || prefix_live > prefix_len)
+    return (int)cudaErrorInvalidValue;
+  float* l = (float*)lse;
   if (bf16_in)
-    return dispatch_bf16(q, k, v, out, B, H, Kh, S, T_, hd, prefix_len, str,
-                         st);
-  return dispatch_f32(q, k, v, out, B, H, Kh, S, T_, hd, prefix_len, str, st);
+    return dispatch_bf16(q, k, v, out, l, B, H, Kh, S, T_, hd, prefix_len,
+                         prefix_live, str, st);
+  return dispatch_f32(q, k, v, out, l, B, H, Kh, S, T_, hd, prefix_len,
+                      prefix_live, str, st);
 }

@@ -1,57 +1,118 @@
 """Prefill attention with a fully visible CushionCache prefix (kernel +
-plain version).
+plain version), and its backward.
 
-q: (B, H, S, hd); k/v: (B, Kh, T, hd) with Kh | H (GQA); with ``causal``
-and ``prefix_len = m`` key j is visible to query i iff j < m or j <= i + m.
+q: (B, H, S, hd); k/v: (B, Kh, T, hd) with Kh | H (GQA); with ``causal``,
+``prefix_len = m`` and ``prefix_live = lv`` (default m) key j is visible to
+query i iff j < lv or m <= j <= i + m. ``prefix_live`` is the cushion
+search's live length (the reference's ``prefix_valid = arange(m) < lv``):
+rows [lv, m) of a padded prefix are seen by no query.
+
 A CUDA tensor launches ``csrc/flash_attention.cu`` (causal only; it takes
 strided views, so callers hand it (B, S, H, hd) activations transposed in
-place); a CPU tensor takes ``flash_attention_plain``.
+place); a CPU tensor takes ``flash_attention_plain``, through which autograd
+flows on the CPU. On the card, a call that autograd records (grad mode on
+and an input that requires grad) goes through ``FlashAttentionFn``: its
+forward launches the same kernel with the per-row log-sum-exp written out,
+its backward launches ``csrc/flash_attention_bwd.cu``
+(``flash_attention_bwd``). Every other call passes no log-sum-exp buffer
+and is the serving path's kernel, bit for bit.
 """
 from __future__ import annotations
 
+import ctypes
 import math
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _lib
 
 NEG_INF = -1e30
+Tensor = torch.Tensor
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True, prefix_len: int = 0
-                          ) -> torch.Tensor:
-    """Plain PyTorch version (``ref.flash_attention_ref``): dense f32
-    scores, -1e30 mask, softmax, output in q's dtype."""
+def _live(prefix_len: int, prefix_live: Optional[int]) -> int:
+    lv = prefix_len if prefix_live is None else int(prefix_live)
+    if not 0 <= lv <= prefix_len:
+        raise ValueError(f"prefix_live {lv} outside [0, {prefix_len}]")
+    return lv
+
+
+def _visible(S: int, T: int, causal: bool, prefix_len: int, lv: int,
+             device) -> Tensor:
+    """(S, T) bool: key j visible to query i."""
+    i = torch.arange(S, device=device)[:, None]
+    j = torch.arange(T, device=device)[None, :]
+    ok = (j < lv) | (j >= prefix_len)
+    if causal:
+        ok = ok & ((j < prefix_len) | (j <= i + prefix_len))
+    return ok
+
+
+def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor,
+                          causal: bool = True, prefix_len: int = 0,
+                          prefix_live: Optional[int] = None,
+                          return_lse: bool = False):
+    """Plain PyTorch version (``ref.flash_attention_ref``, with the live
+    mask of ``models/common.py`` ``attention_full``): dense f32 scores,
+    -1e30 mask, softmax, output in q's dtype. With ``return_lse`` also the
+    per-row log-sum-exp (B, H, S) f32 that the kernel writes for its
+    backward."""
     B, H, S, hd = q.shape
     Kh, T = k.shape[1], k.shape[2]
+    lv = _live(prefix_len, prefix_live)
     if Kh != H:
         k = k.repeat_interleave(H // Kh, dim=1)
         v = v.repeat_interleave(H // Kh, dim=1)
     logits = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) \
         / math.sqrt(hd)
-    if causal:
-        i = torch.arange(S, device=q.device)[:, None]
-        j = torch.arange(T, device=q.device)[None, :]
-        mask = (j < prefix_len) | (j <= i + prefix_len)
+    if causal or lv < prefix_len:
+        mask = _visible(S, T, causal, prefix_len, lv, q.device)
         logits = torch.where(mask[None, None], logits,
                              torch.full((), NEG_INF, device=q.device))
     w = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhst,bhtd->bhsd", w, v.float()).to(q.dtype)
+    out = torch.einsum("bhst,bhtd->bhsd", w, v.float()).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(logits, dim=-1)
+    return out
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, prefix_len: int = 0
-                    ) -> torch.Tensor:
-    """Returns (B, H, S, hd) in q's dtype. On the card the result is a
-    (B, H, S, hd) view of a contiguous (B, S, H, hd) buffer."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, prefix_len)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if not causal:
-        raise NotImplementedError("the flash_attention kernel is causal "
-                                  "(with a visible prefix) only")
+def flash_attention_bwd_plain(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
+                              lse: Tensor, do: Tensor, prefix_len: int = 0,
+                              prefix_live: Optional[int] = None
+                              ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Plain version of ``flash_attention_bwd`` (causal), in f32 from the
+    forward's output ``o`` and per-row log-sum-exp ``lse`` (B, H, S):
+
+        p = exp(q.k / sqrt(hd) - lse) where visible, else 0
+        D = rowsum(do * o)      dS = p (do.v - D)
+        dq = dS k / sqrt(hd)    dk = dS^T q / sqrt(hd)    dv = p^T do
+
+    dk and dv summed over each kv-head's G query heads. Returns (dq, dk,
+    dv) in the dtypes of q, k and v."""
+    B, H, S, hd = q.shape
+    Kh, T = k.shape[1], k.shape[2]
+    G = H // Kh
+    lv = _live(prefix_len, prefix_live)
+    scale = 1.0 / math.sqrt(hd)
+    kf = k.float().repeat_interleave(G, dim=1)
+    vf = v.float().repeat_interleave(G, dim=1)
+    qf, dof = q.float(), do.float()
+    s = torch.einsum("bhsd,bhtd->bhst", qf, kf) * scale
+    mask = _visible(S, T, True, prefix_len, lv, q.device)[None, None]
+    p = torch.where(mask, torch.exp(s - lse.float()[..., None]),
+                    torch.zeros((), device=q.device))
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bhsd,bhtd->bhst", dof, vf) - delta)
+    dq = torch.einsum("bhst,bhtd->bhsd", ds, kf) * scale
+    dk = torch.einsum("bhst,bhsd->bhtd", ds, qf) * scale
+    dv = torch.einsum("bhst,bhsd->bhtd", p, dof)
+    dk = dk.reshape(B, Kh, G, T, hd).sum(2)
+    dv = dv.reshape(B, Kh, G, T, hd).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check(q: Tensor, k: Tensor, v: Tensor) -> None:
     B, H, S, hd = q.shape
     Kh, T = k.shape[1], k.shape[2]
     if k.shape != (B, Kh, T, hd) or v.shape != k.shape or H % Kh:
@@ -64,6 +125,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head_dim {hd} not built (16, 32, 64)")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("head_dim must be the contiguous axis")
+
+
+def _launch(q: Tensor, k: Tensor, v: Tensor, prefix_len: int, lv: int,
+            with_lse: bool) -> Tuple[Tensor, Optional[Tensor]]:
+    """One ``flash_attention`` launch; the per-row log-sum-exp (B, H, S)
+    f32 is written only ``with_lse``."""
+    _check(q, k, v)
+    B, H, S, hd = q.shape
+    Kh, T = k.shape[1], k.shape[2]
     if q.dtype == torch.bfloat16 and any(
             t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])
             for t in (q, k, v)):
@@ -72,13 +142,103 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _lib.require_cuda(q, k, v)
     buf = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     out = buf.transpose(1, 2)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     code = _lib.lib().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         int(q.dtype == torch.bfloat16), B, H, Kh, S, T, hd, int(prefix_len),
-        q.stride(0), q.stride(1), q.stride(2),
+        lv, q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         out.stride(0), out.stride(1), out.stride(2), _lib.stream_ptr(q))
     _lib.check(code, "flash_attention")
     _lib.count("flash_attention")
-    return out
+    return out, lse
+
+
+def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
+                        lse: Tensor, do: Tensor, prefix_len: int = 0,
+                        prefix_live: Optional[int] = None
+                        ) -> Tuple[Tensor, Tensor, Tensor]:
+    """(dq, dk, dv) of the causal ``flash_attention`` at (q, k, v), given
+    its output ``o``, its per-row log-sum-exp ``lse`` (B, H, S) f32 and the
+    output's gradient ``do``. A CUDA tensor launches
+    ``csrc/flash_attention_bwd.cu`` (one launch: the row sums D, then dk/dv
+    by key tile, then dq by query tile); a CPU tensor takes
+    ``flash_attention_bwd_plain``."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, prefix_len,
+                                         prefix_live)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device "
+                         f"{q.device}")
+    _check(q, k, v)
+    B, H, S, hd = q.shape
+    Kh, T = k.shape[1], k.shape[2]
+    lv = _live(prefix_len, prefix_live)
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype:
+        raise ValueError(f"o {tuple(o.shape)} / do {tuple(do.shape)} must "
+                         f"match q {tuple(q.shape)}")
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise ValueError("lse must be a contiguous (B, H, S) f32 tensor")
+    do = do.to(q.dtype)
+    if do.stride(3) != 1:
+        do = do.contiguous()
+    if o.stride(3) != 1:
+        o = o.contiguous()
+    _lib.require_cuda(q, k, v, o, lse, do)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*[
+        s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]])
+    code = _lib.lib().flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), int(q.dtype == torch.bfloat16), B, H,
+        Kh, S, T, hd, int(prefix_len), lv, strides, _lib.stream_ptr(q))
+    _lib.check(code, "flash_attention_bwd")
+    _lib.count("flash_attention_bwd")
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` on the card, differentiable: the forward kernel
+    writes the per-row log-sum-exp, the backward is
+    ``flash_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, prefix_len, prefix_live):
+        out, lse = _launch(q, k, v, prefix_len, prefix_live, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.prefix = (prefix_len, prefix_live)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, *ctx.prefix)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
+                    prefix_len: int = 0, prefix_live: Optional[int] = None
+                    ) -> Tensor:
+    """Returns (B, H, S, hd) in q's dtype. On the card the result is a
+    (B, H, S, hd) view of a contiguous (B, S, H, hd) buffer."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, prefix_len,
+                                     prefix_live)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if not causal:
+        raise NotImplementedError("the flash_attention kernel is causal "
+                                  "(with a visible prefix) only")
+    lv = _live(prefix_len, prefix_live)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, int(prefix_len), lv)
+    return _launch(q, k, v, prefix_len, lv, with_lse=False)[0]

@@ -28,12 +28,16 @@ def qdot(x: torch.Tensor, w: torch.Tensor, cfg: QuantConfig,
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool = True, prefix_len: int = 0) -> torch.Tensor:
+              causal: bool = True, prefix_len: int = 0,
+              prefix_live: Optional[int] = None) -> torch.Tensor:
     """q: (B, S, H, hd); k/v: (B, T, Kh, hd). GQA kv-heads are read in
-    place by the kernel (no head repeat in memory). Returns (B, S, H, hd)."""
+    place by the kernel (no head repeat in memory). ``prefix_live`` (default
+    ``prefix_len``) masks rows [prefix_live, prefix_len) of a padded prefix
+    out of every query's view. Differentiable on both devices (the kernel's
+    backward on the card). Returns (B, S, H, hd)."""
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), causal=causal,
-                        prefix_len=prefix_len)
+                        prefix_len=prefix_len, prefix_live=prefix_live)
     return o.transpose(1, 2)
 
 

@@ -21,11 +21,14 @@ chunks between decode steps. It prints per-request TTFT/TPOT, the final
         --paged --page-size 32 --prefix-cache --chunk-tokens 16
 
 Weights are random, made from ``--seed``. The cushion is ``extract_cushion``
-of ``--cushion-len`` token ids drawn from the seed; pt_static calibrates its
-site scales at engine load over two pipeline batches, under the cushion.
-Prompts and calibration batches are the same token ids as the JAX
-launcher's (``data/pipeline.py`` is a copy). Loading a tuned cushion
-artifact (``--cushion DIR``) is not ported yet.
+of ``--cushion-len`` token ids drawn from the seed, or with ``--cushion DIR``
+the latest tuned artifact of a ``launch/tune.py --out-dir`` (of either
+package: the format is shared): its fingerprint is recomputed over the
+restored bytes, and its stored pt_static scales serve as they are, tagged
+with the cushion they were calibrated under. Otherwise pt_static calibrates
+its site scales at engine load over two pipeline batches, under the
+cushion. Prompts and calibration batches are the same token ids as the JAX
+launcher's (``data/pipeline.py`` is a copy).
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import os
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.store import CheckpointManager
 from repro_torch.configs import QuantConfig, get_config
 from repro_torch.data.pipeline import Pipeline, SyntheticCorpus
 from repro_torch.models.registry import build
@@ -50,6 +54,59 @@ def seeded_cushion(api, params, m: int, seed: int):
     ids = np.random.RandomState(seed).randint(0, api.cfg.vocab_size, m)
     return api.extract_cushion(params, torch.as_tensor(ids, dtype=torch.int32),
                                None, QuantConfig())
+
+
+def load_cushion_artifact(path: str, api):
+    """The latest cushion artifact of a ``launch/tune.py`` ``--out-dir``
+    (the reference's or the port's), on the API's device. Returns
+    ``(cushion, CalibratedScales | None, extra)``.
+
+    The fingerprint is recomputed over the restored bytes and held to the
+    manifest's: a corrupt or edited artifact stops here. An artifact tuned
+    for another arch stops too. Stored scales come back as
+    ``CalibratedScales`` carrying the fingerprint of the cushion they were
+    calibrated under, which ``plan_quantization`` holds against the
+    cushion served."""
+    from repro_torch.core.calibration import (CalibratedScales,
+                                              scales_from_plain)
+    from repro_torch.core.cushioncache import cushion_fingerprint
+
+    store = CheckpointManager(path)
+    version = store.latest_step()
+    if version is None:
+        raise SystemExit(f"[serve] no cushion artifact under {path}")
+    tree, manifest = store.restore_tree(version)
+    extra = manifest.get("extra", {})
+    if extra.get("kind") != "cushion":
+        raise SystemExit(f"[serve] {path} v{version} is not a cushion "
+                         f"artifact (kind={extra.get('kind')!r}); expected "
+                         f"a launch/tune.py --out-dir")
+    if extra.get("arch") and extra["arch"] != api.cfg.name:
+        raise SystemExit(f"[serve] cushion artifact was tuned for arch "
+                         f"{extra['arch']!r} but serving {api.cfg.name!r}")
+    dev = api.device
+    cushion = {k: {n: t.to(dev) for n, t in v.items()}
+               for k, v in tree["cushion"].items()}
+    got = cushion_fingerprint(cushion)
+    want = extra.get("fingerprint")
+    if want and got != want:
+        raise SystemExit(f"[serve] cushion artifact fingerprint mismatch: "
+                         f"manifest says {want[:12]} but restored bytes "
+                         f"hash to {got[:12]}: artifact corrupt")
+    scales = None
+    if "scales" in tree:
+        plain = scales_from_plain(tree["scales"])
+
+        def to_dev(t):
+            if isinstance(t, dict):
+                return {k: to_dev(v) for k, v in t.items()}
+            return type(t)(scale=t.scale.to(dev), zero=t.zero.to(dev))
+        scales = CalibratedScales(to_dev(plain),
+                                  extra.get("scales_cushion_fp", got))
+    print(f"[serve] cushion artifact v{version} from {path}: "
+          f"prefix_ids={extra.get('prefix_ids')} fingerprint={got[:12]} "
+          f"scales={'stored' if scales is not None else 'none'}")
+    return cushion, scales, extra
 
 
 def to_device(batch, device):
@@ -100,7 +157,7 @@ def _chunk_tokens_arg(v: str):
 
 
 def run_continuous(api, params, qcfg, args, calib_batches=None,
-                   cushion=None):
+                   cushion=None, scales=None):
     install_sigterm_drain()
     dev = api.device
     reqs = poisson_trace(api.cfg.vocab_size, args.trace_seed,
@@ -110,7 +167,7 @@ def run_continuous(api, params, qcfg, args, calib_batches=None,
                          device=dev)
     eng = ContinuousEngine(api, params, qcfg, n_slots=args.slots,
                            max_seq=args.prompt_len + 8 + args.tokens + 32,
-                           cushion=cushion,
+                           cushion=cushion, scales=scales,
                            kv_dtype=None if args.kv_dtype == "fp"
                            else args.kv_dtype,
                            calib_batches=calib_batches,
@@ -245,6 +302,10 @@ def main(argv=None):
     ap.add_argument("--tokens", type=int, default=32)
     ap.add_argument("--cushion-len", type=int, default=0,
                     help="cushion prefix length m (0: no cushion)")
+    ap.add_argument("--cushion", default=None,
+                    help="serve the latest tuned-cushion artifact from "
+                         "this launch/tune.py --out-dir (with its stored "
+                         "pt_static scales, if any)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--bench-json", default=None,
@@ -262,29 +323,35 @@ def main(argv=None):
         ap.error("--prefix-cache requires --paged and --kv-dtype fp")
     if args.trace_seed is None:
         args.trace_seed = args.seed
+    if args.cushion and args.cushion_len:
+        ap.error("--cushion and --cushion-len are exclusive")
 
     cfg = get_config(args.arch)
     api = build(cfg, args.device)
     dev = api.device
     params = api.init_params(torch.Generator(dev).manual_seed(args.seed))
     qcfg = QuantConfig(mode=args.quant, true_int8=args.quant == "pt_static")
-    cushion = None
-    if args.cushion_len:
+    cushion, art_scales = None, None
+    if args.cushion:
+        cushion, art_scales, _ = load_cushion_artifact(args.cushion, api)
+        if args.quant != "pt_static":
+            art_scales = None       # stored scales only apply to pt_static
+    elif args.cushion_len:
         cushion = seeded_cushion(api, params, args.cushion_len, args.seed)
 
     corpus = SyntheticCorpus(cfg.vocab_size, seed=args.seed)
     pipe = Pipeline(corpus, batch=args.batch, seq_len=args.prompt_len,
                     seed=args.seed + 1)
     calib = None
-    if args.quant == "pt_static":
+    if args.quant == "pt_static" and art_scales is None:
         calib = [to_device(pipe.get_batch(1000 + i), dev)
                  for i in range(CALIB_BATCHES)]
     if args.mode == "continuous":
         return run_continuous(api, params, qcfg, args, calib_batches=calib,
-                              cushion=cushion)
+                              cushion=cushion, scales=art_scales)
     batch = to_device(pipe.get_batch(0), dev)
     eng = Engine(api, params, qcfg, max_seq=args.prompt_len + args.tokens + 32,
-                 cushion=cushion,
+                 cushion=cushion, scales=art_scales,
                  kv_dtype=None if args.kv_dtype == "fp" else args.kv_dtype,
                  calib_batches=calib, prequant=args.prequant,
                  weight_bits=args.weight_bits)

@@ -11,9 +11,15 @@ Conventions
 * ``scales`` maps site names to ``SiteScale`` leaves (``(L,)`` stacked).
 * The cushion prefix enters attention as per-layer KV ``prefix_kv``
   (dict(k=(m, K, hd), v=(m, K, hd))), fully visible to every query.
-* On the card, prefill attention runs the ``flash_attention`` kernel and
-  decode attention the ``flash_decode`` / ``flash_decode_paged`` kernels
+* On the card, prefill attention runs the ``flash_attention`` kernel (and,
+  under autograd, its backward ``flash_attention_bwd``) and decode
+  attention the ``flash_decode`` / ``flash_decode_paged`` kernels
   (``kernels/ops.py``); on the CPU their plain versions.
+* ``groups`` (the linears, attention, the MLP, the head, the forward): the
+  batch is ``groups`` independent forwards stacked along B, each
+  ``B / groups`` rows (the reference's ``vmap`` over search candidates);
+  dynamic per-tensor ranges and L_q reduce per group. 1 (the default) is
+  one forward.
 """
 from __future__ import annotations
 
@@ -54,9 +60,10 @@ def _flatten(tree: Params, path: Tuple[str, ...] = ()
 
 class ParamTree(nn.Module):
     """The model's parameters as one ``nn.Module``: every leaf of the nested
-    dict is a buffer (the port serves, it does not train), layer leaves
-    stacked ``(L, ...)``. ``.to(device)`` moves them; ``tree()`` is the
-    nested-dict view the model functions take."""
+    dict is a buffer with no gradient (the model stays frozen; prefix tuning
+    trains only the cushion, ``core/cushioncache.py`` ``prefix_tune``),
+    layer leaves stacked ``(L, ...)``. ``.to(device)`` moves them;
+    ``tree()`` is the nested-dict view the model functions take."""
 
     def __init__(self, tree: Params):
         super().__init__()
@@ -187,14 +194,15 @@ def get_site(scales: Optional[Params], name: str) -> Optional[Q.SiteScale]:
 
 def qlinear(x: Tensor, w, b: Optional[Tensor], qcfg: QuantConfig,
             scales: Optional[Params], site: str, taps: Optional[Dict],
-            n_skip: int = 0) -> Tensor:
+            n_skip: int = 0, groups: int = 1) -> Tensor:
     """y = q(x) @ q(w) + b, recording taps for ``site`` when collecting."""
     if taps is not None:
         taps[site] = {
-            "qerr": Q.site_qerr(x, qcfg, get_site(scales, site), n_skip),
+            "qerr": Q.site_qerr(x, qcfg, get_site(scales, site), n_skip,
+                                groups),
             **Q.site_stats(x, n_skip),
         }
-    y = Q.qdot(x, w, qcfg, get_site(scales, site))
+    y = Q.qdot(x, w, qcfg, get_site(scales, site), groups)
     if b is not None:
         y = y + b
     return y
@@ -251,39 +259,22 @@ def _split_qkv(qkv: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Tensor, Tensor]:
             v.reshape(*v.shape[:-1], K, hd))
 
 
-def _sdpa_dense(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor],
-                cfg: ModelConfig) -> Tensor:
-    """Dense masked attention. q: (B,S,H,hd); k/v: (B,T,K,hd); mask: (S,T)
-    or (B,S,T) bool or None. Returns (B,S,H,hd)."""
-    B, S, H, hd = q.shape
-    K = k.shape[2]
-    G = H // K
-    qg = q.reshape(B, S, K, G, hd)
-    logits = torch.einsum("bskgh,btkh->bkgst", qg.float(), k.float())
-    logits = logits / np.sqrt(hd)
-    if mask is not None:
-        m = mask[:, None, None] if mask.dim() == 3 else mask[None, None, None]
-        logits = torch.where(m, logits,
-                             torch.full((), -1e30, device=logits.device))
-    w = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.einsum("bkgst,btkh->bskgh", w, v)
-    return out.reshape(B, S, H, hd)
-
-
 def attention_full(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
                    scales: Optional[Params], taps: Optional[Dict],
                    positions: Tensor, prefix_kv: Optional[Params] = None,
                    causal: bool = True, n_skip: int = 0,
                    return_kv: bool = False,
-                   prefix_valid: Optional[Tensor] = None):
-    """Full-sequence attention (prefill / calibration). positions: (S,)
-    absolute positions (already past the cushion). prefix_kv: the layer's
-    cushion KV, visible to every query. prefix_valid ((m,) bool, the search
-    path's padded-prefix mask) runs the dense CPU path only: the kernel does
-    not take it yet (the search slice ports it)."""
+                   prefix_valid: Optional[int] = None, groups: int = 1):
+    """Full-sequence attention (prefill, calibration, search, tuning).
+    positions: (S,) absolute positions (already past the cushion).
+    prefix_kv: the layer's cushion KV, visible to every query, broadcast
+    over B (autograd sums its gradient over B). prefix_valid (int, the
+    search's live length): only cushion rows [0, prefix_valid) are visible,
+    the reference's ``(m,) bool`` mask ``arange(m) < prefix_valid`` given by
+    its length, so the kernel's launch takes no mask tensor."""
     B, S, _ = x.shape
     qkv = qlinear(x, p["wqkv"], p.get("bqkv"), qcfg, scales, "qkv", taps,
-                  n_skip)
+                  n_skip, groups)
     q, k, v = _split_qkv(qkv, cfg)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
@@ -298,23 +289,10 @@ def attention_full(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
         k = torch.cat([pk.to(k.dtype), k], dim=1)
         v = torch.cat([pv.to(v.dtype), v], dim=1)
 
-    if prefix_valid is not None:
-        if x.device.type != "cpu":
-            raise NotImplementedError("prefix_valid (the cushion search "
-                                      "path) is not ported to the kernel yet")
-        kv_ok = torch.cat([prefix_valid,
-                           torch.ones((S,), dtype=torch.bool)])
-        if causal:
-            i = torch.arange(S)[:, None]
-            j = torch.arange(m + S)[None, :]
-            mask = (j < (i + m + 1)) & kv_ok[None, :]
-        else:
-            mask = kv_ok[None, :].expand(S, m + S)
-        out = _sdpa_dense(q, k, v, mask, cfg)
-    else:
-        out = ops.attention(q, k, v, causal=causal, prefix_len=m)
+    out = ops.attention(q, k, v, causal=causal, prefix_len=m,
+                        prefix_live=prefix_valid)
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
-    y = qlinear(out, p["wo"], None, qcfg, scales, "o", taps, n_skip)
+    y = qlinear(out, p["wo"], None, qcfg, scales, "o", taps, n_skip, groups)
     if return_kv:
         return y, new_kv
     return y
@@ -429,16 +407,18 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig,
 
 def apply_mlp(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
               scales: Optional[Params], taps: Optional[Dict],
-              n_skip: int = 0) -> Tensor:
-    up = qlinear(x, p["w_up"], None, qcfg, scales, "mlp_in", taps, n_skip)
+              n_skip: int = 0, groups: int = 1) -> Tensor:
+    up = qlinear(x, p["w_up"], None, qcfg, scales, "mlp_in", taps, n_skip,
+                 groups)
     if cfg.gated_mlp:
         # gate shares the "mlp_in" site (same input tensor -> same scale)
         gate = qlinear(x, p["w_gate"], None, qcfg, scales, "mlp_in", None,
-                       n_skip)
+                       n_skip, groups)
         h = F.silu(gate) * up
     else:
         h = F.gelu(up, approximate="tanh")      # jax.nn.gelu's default
-    return qlinear(h, p["w_down"], None, qcfg, scales, "down", taps, n_skip)
+    return qlinear(h, p["w_down"], None, qcfg, scales, "down", taps, n_skip,
+                   groups)
 
 
 # ---------------------------------------------------------------------------
@@ -461,7 +441,7 @@ def embed_tokens(p: Params, tokens: Tensor, cfg: ModelConfig) -> Tensor:
 
 def lm_head(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
             scales: Optional[Params], taps: Optional[Dict],
-            n_skip: int = 0) -> Tensor:
+            n_skip: int = 0, groups: int = 1) -> Tensor:
     """Logits. A tied head quantizes ``embed.T`` on every call under true
     int8, as the reference does: an int8 copy kept at load would add
     vocab x d_model bytes that the reference does not hold, and the port's
@@ -469,9 +449,9 @@ def lm_head(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
     w = p["embed"]["w"].T if cfg.tie_embeddings else p["head"]["w"]
     site = scales.get("head") if scales is not None else None
     if taps is not None:
-        taps["head"] = {"qerr": Q.site_qerr(x, qcfg, site, n_skip),
+        taps["head"] = {"qerr": Q.site_qerr(x, qcfg, site, n_skip, groups),
                         **Q.site_stats(x, n_skip)}
-    return Q.qdot(x, w, qcfg, site)
+    return Q.qdot(x, w, qcfg, site, groups)
 
 
 def cross_entropy(logits: Tensor, labels: Tensor) -> Tensor:

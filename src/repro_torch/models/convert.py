@@ -5,7 +5,8 @@
 ``scales_from_numpy`` takes the plain ``{"scale", "zero"}`` form of a scales
 tree (``calibration.scales_to_plain``); ``cushion_from_numpy`` a cushion.
 bf16 arrives as an ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy``
-refuses, so it crosses as its uint16 bit pattern.
+refuses, so it crosses as its uint16 bit pattern. A leaf that is already a
+tensor (``checkpoint.store`` ``restore_tree``) is moved as it is.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ from repro_torch.models.common import ParamTree
 
 
 def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     a = np.array(a, order="C")      # a C-ordered copy, 0-dim kept
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)

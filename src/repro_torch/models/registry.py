@@ -2,7 +2,8 @@
 ``ModelAPI`` (``repro/models/registry.py``). Only the dense family is
 ported; the others raise.
 
-Batch dicts hold ``{"tokens": (B, S) int tensor}`` on the API's device.
+Batch dicts hold ``{"tokens": (B, S) int tensor}`` (and ``"labels"`` for
+the loss) on the API's device.
 """
 from __future__ import annotations
 
@@ -45,6 +46,10 @@ class ModelAPI:
                              f"{self.device}")
         return TR.init_params(self.cfg, gen)
 
+    def loss_fn(self, params, batch, qcfg: QuantConfig, **kw):
+        return TR.loss_fn(params, batch["tokens"], batch["labels"],
+                          self.cfg, qcfg, **kw)
+
     def forward(self, params, batch, qcfg: QuantConfig, **kw):
         return TR.forward(params, batch["tokens"], self.cfg, qcfg, **kw)
 
@@ -86,6 +91,85 @@ class ModelAPI:
     def cushion_zeros(self, m: int, dtype=None):
         return TR.cushion_zeros(self.cfg, m, self.device, dtype=dtype)
 
+    def forward_with_token_prefix(self, params, prefix_ids, batch,
+                                  qcfg: QuantConfig, **kw):
+        """Forward with a prefix of real tokens where the cushion will sit
+        at deployment (the reference scorer of the greedy search, paper
+        §4.1). prefix_ids: (m,), or (N, m) for N prefixes scored at once:
+        the batch is then tiled once per prefix and the forward runs with
+        ``groups=N`` (the reference vmaps one prefix at a time). Returns
+        (logits, taps); callers pass collect / n_skip via kw."""
+        toks = batch["tokens"]
+        Bs, n = toks.shape
+        ids = torch.as_tensor(prefix_ids, device=toks.device).to(toks.dtype)
+        if ids.dim() == 1:
+            full = torch.cat([ids[None].expand(Bs, -1), toks], dim=1)
+            return TR.forward(params, full, self.cfg, qcfg, **kw)
+        N, m = ids.shape
+        full = torch.cat([ids[:, None].expand(N, Bs, m),
+                          toks[None].expand(N, Bs, n)], dim=2)
+        return TR.forward(params, full.reshape(N * Bs, m + n), self.cfg,
+                          qcfg, groups=N, **kw)
+
+    # ------------------------------------------------------------------
+    # Greedy-search scoring fast path (KV reuse; paper §4.1)
+    # ------------------------------------------------------------------
+    #
+    # The shared prefix is prefilled into a KV block once per search
+    # iteration (`prefix_kv`); every candidate is scored by a forward of
+    # [candidate; sample] against that block (`score_candidates`), the
+    # no-candidate baseline by a forward of the sample alone
+    # (`prefix_qerr`). All three take the prefix padded to a fixed length
+    # and a live length (an int), so the shapes never change.
+
+    @property
+    def supports_kv_scoring(self) -> bool:
+        return TR.SUPPORTS_PREFIX_KV_SCORING
+
+    def prefix_kv(self, params, prefix_ids, qcfg: QuantConfig,
+                  scales=None) -> Params:
+        """Stacked per-layer KV {"k", "v": (L, m, K, hd)} of a token prefix.
+        With a padded prefix the rows past the live length hold the padding
+        tokens' KV; consumers mask them with ``prefix_valid``."""
+        m = int(prefix_ids.shape[0])
+        cache = TR.init_cache(self.cfg, 1, m, self.device)
+        ids = torch.as_tensor(prefix_ids, device=self.device)
+        _, cache, _ = TR.prefill(params, ids[None], cache, self.cfg, qcfg,
+                                 scales=scales)
+        return {"k": cache["k"][:, 0], "v": cache["v"][:, 0]}
+
+    def prefix_qerr(self, params, prefix_kv, live_len: int, batch,
+                    qcfg: QuantConfig, scales=None) -> torch.Tensor:
+        """L_q of the calibration sample after the cached prefix's first
+        ``live_len`` rows (the search's base error)."""
+        _, taps = self.forward(params, batch, qcfg, scales=scales,
+                               cushion={"kv": prefix_kv}, collect=True,
+                               n_skip=0, prefix_valid=int(live_len),
+                               pos_offset=int(live_len))
+        return TR.total_qerr(taps)
+
+    def score_candidates(self, params, prefix_kv, live_len: int, cand_ids,
+                         batch, qcfg: QuantConfig, scales=None
+                         ) -> torch.Tensor:
+        """(N,) L_q of each candidate-extended prefix against the cached
+        prefix: one forward of the N rows [candidate; sample] (each sample
+        row tiled per candidate) with ``groups=N``, so each candidate keeps
+        its own dynamic ranges and L_q, as under the reference's vmap. The
+        candidate position is excluded from L_q (n_skip=1)."""
+        toks = batch["tokens"]
+        Bs, n = toks.shape
+        cand = torch.as_tensor(cand_ids, device=toks.device).to(toks.dtype)
+        N = int(cand.shape[0])
+        rows = torch.cat([cand[:, None, None].expand(N, Bs, 1),
+                          toks[None].expand(N, Bs, n)], dim=2)
+        _, taps = self.forward(params, {"tokens": rows.reshape(N * Bs,
+                                                               n + 1)},
+                               qcfg, scales=scales,
+                               cushion={"kv": prefix_kv}, collect=True,
+                               n_skip=1, prefix_valid=int(live_len),
+                               pos_offset=int(live_len), groups=N)
+        return TR.total_qerr(taps, groups=N).reshape(N)
+
     def extract_cushion(self, params, prefix_ids: torch.Tensor, batch,
                         qcfg: QuantConfig) -> Params:
         """Turn a token prefix into the deployment cushion: its per-layer KV
@@ -96,6 +180,23 @@ class ModelAPI:
         _, cache, _ = TR.prefill(params, prefix_ids[None].to(self.device),
                                  cache, self.cfg, qcfg)
         return {"kv": {"k": cache["k"][:, 0, :m], "v": cache["v"][:, 0, :m]}}
+
+    def make_batch(self, gen: torch.Generator, batch: int, seq_len: int
+                   ) -> Dict[str, torch.Tensor]:
+        """A random batch {"tokens", "labels"} on the API's device, drawn
+        from a ``torch.Generator`` (the reference draws with
+        ``jax.random``, which the port cannot reproduce: the same seed gives
+        other ids)."""
+        toks = torch.randint(0, self.cfg.vocab_size,
+                             (batch, self.text_len(seq_len) + 1),
+                             generator=gen, device=gen.device,
+                             dtype=torch.int32).to(self.device)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def text_len(self, seq_len: int) -> int:
+        """Token count such that total positions == seq_len (the dense
+        family has no prepended embeddings)."""
+        return seq_len
 
 
 def build(cfg: ModelConfig, device="cuda") -> ModelAPI:

@@ -3,6 +3,7 @@ ported from ``repro/models/transformer.py``:
 
     init_params(cfg, gen)                      -> ParamTree
     forward(params, tokens, cfg, qcfg, ...)    -> (logits, taps)
+    loss_fn(params, tokens, labels, ...)       -> (loss, aux)
     init_cache(cfg, B, Smax, ...)              -> cache
     prefill(params, tokens, cache, ...)        -> (logits, cache, pos)
     decode_step(params, token, pos, cache, ..) -> (logits, cache)
@@ -25,6 +26,11 @@ Tensor = torch.Tensor
 Params = Dict[str, Any]
 
 SITES = C.ATTN_SITES + C.MLP_SITES  # ("qkv", "o", "mlp_in", "down")
+
+# The prefix artifact is pure attention KV, so the greedy search's fast path
+# prefills the shared prefix once and scores every candidate against the
+# cached block (registry.ModelAPI.score_candidates).
+SUPPORTS_PREFIX_KV_SCORING = True
 
 # prefill(pos_offset=...) resumes a partially staged B=1 fp row, so the
 # continuous scheduler may admit long prompts chunk by chunk.
@@ -63,41 +69,56 @@ def _cushion_layers(cushion: Optional[Params], L: int) -> List[Optional[Params]]
 
 def _block(lp: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
            lsc: Optional[Params], lpre: Optional[Params], positions: Tensor,
-           collect: bool, n_skip: int) -> Tuple[Tensor, Dict]:
+           collect: bool, n_skip: int, prefix_valid: Optional[int] = None,
+           groups: int = 1) -> Tuple[Tensor, Dict]:
     taps: Optional[Dict] = {} if collect else None
     h = C.apply_norm(lp["ln1"], x, cfg)
     if collect:
         taps["block_in"] = Q.site_stats(x, n_skip)
     x = x + C.attention_full(lp["attn"], h, cfg, qcfg, lsc, taps, positions,
-                             prefix_kv=lpre, causal=True, n_skip=n_skip)
+                             prefix_kv=lpre, causal=True, n_skip=n_skip,
+                             prefix_valid=prefix_valid, groups=groups)
     h = C.apply_norm(lp["ln2"], x, cfg)
-    x = x + C.apply_mlp(lp["mlp"], h, cfg, qcfg, lsc, taps, n_skip)
+    x = x + C.apply_mlp(lp["mlp"], h, cfg, qcfg, lsc, taps, n_skip, groups)
     return x, (taps if collect else {})
 
 
 def forward(params, tokens: Tensor, cfg: ModelConfig, qcfg: QuantConfig, *,
             scales: Optional[Params] = None, cushion: Optional[Params] = None,
-            collect: bool = False, n_skip: int = 0) -> Tuple[Tensor, Dict]:
+            collect: bool = False, n_skip: int = 0,
+            prefix_valid: Optional[int] = None,
+            pos_offset: Optional[int] = None,
+            groups: int = 1) -> Tuple[Tensor, Dict]:
     """Full-sequence causal forward. cushion: {"kv": {"k": (L,m,K,hd), ...}}.
     With ``collect`` the taps hold every site's statistics, layer entries
-    stacked over L (the calibration input)."""
+    stacked over L (the calibration input).
+
+    prefix_valid / pos_offset serve the search's scoring path: the cushion
+    KV is padded to a fixed length, prefix_valid (int) is its live length
+    (rows past it are seen by no query: the reference's ``(m,) bool`` mask
+    ``arange(m) < prefix_valid``) and pos_offset replaces the cushion length
+    as the RoPE origin of the tokens. ``groups`` > 1: the B rows are that
+    many independent forwards stacked (the reference vmaps them), each with
+    its own dynamic ranges and L_q (``models/common.py``)."""
     params = C.as_tree(params)
     L = cfg.n_layers
     x = C.embed_tokens(params, tokens, cfg)
     S = x.shape[1]
     m = 0 if cushion is None else cushion["kv"]["k"].shape[1]
-    positions = m + torch.arange(S, device=x.device)
+    positions = (m if pos_offset is None else int(pos_offset)) \
+        + torch.arange(S, device=x.device)
     lscales = C.resolve_scales(scales, SITES, L, qcfg, x.device)
     layer_taps = []
     for lp, lsc, lpre in zip(C.unstack(params["layers"], L),
                              C.unstack(lscales, L),
                              _cushion_layers(cushion, L)):
         x, taps = _block(lp, x, cfg, qcfg, lsc, lpre, positions, collect,
-                         n_skip)
+                         n_skip, prefix_valid, groups)
         layer_taps.append(taps)
     x = C.apply_norm(params["ln_f"], x, cfg)
     head_taps: Optional[Dict] = {} if collect else None
-    logits = C.lm_head(params, x, cfg, qcfg, scales, head_taps, n_skip)
+    logits = C.lm_head(params, x, cfg, qcfg, scales, head_taps, n_skip,
+                       groups)
     if not collect:
         return logits, {}
     return logits, {"layers": C.stack_trees(layer_taps), **head_taps,
@@ -274,6 +295,51 @@ def cushion_zeros(cfg: ModelConfig, m: int, device, dtype=None) -> Params:
     return {"kv": {"k": torch.zeros((L, m, K, hd), dtype=dtype, device=device),
                    "v": torch.zeros((L, m, K, hd), dtype=dtype,
                                     device=device)}}
+
+
+def loss_fn(params, tokens: Tensor, labels: Tensor, cfg: ModelConfig,
+            qcfg: QuantConfig, *, scales=None, cushion=None,
+            collect: bool = False, n_skip: int = 0, lam: float = 0.0):
+    """Next-token CE (+ λ·L_q when ``lam`` > 0). Returns (loss, aux) with
+    aux {"ce", "taps"} and, when collecting, "qerr"."""
+    logits, taps = forward(params, tokens, cfg, qcfg, scales=scales,
+                           cushion=cushion, collect=collect or lam > 0,
+                           n_skip=n_skip)
+    if n_skip:
+        # loss on the token part only (prefix positions excluded)
+        logits = logits[:, n_skip:]
+        labels = labels[:, n_skip:]
+    ce = C.cross_entropy(logits, labels)
+    loss = ce
+    aux = {"ce": ce, "taps": taps}
+    if lam > 0 or collect:
+        qerr = total_qerr(taps)
+        aux["qerr"] = qerr
+        if lam > 0:
+            loss = loss + lam * qerr
+    return loss, aux
+
+
+def total_qerr(taps: Dict, groups: int = 1) -> Tensor:
+    """Sum of L_q over all sites and layers (paper eq. 6, summed over
+    blocks): a scalar, or (groups,) for a forward of stacked groups."""
+    total: Optional[Tensor] = None
+
+    def visit(d):
+        nonlocal total
+        if isinstance(d, dict):
+            if "qerr" in d:
+                q = d["qerr"]
+                v = q.sum() if groups == 1 else q.reshape(-1, groups).sum(0)
+                total = v if total is None else total + v
+            else:
+                for v in d.values():
+                    visit(v)
+    visit(taps)
+    if total is None:
+        return torch.zeros(() if groups == 1 else (groups,),
+                           dtype=torch.float32)
+    return total
 
 
 def placeholder_all_scales(cfg: ModelConfig, device) -> Params:

@@ -1,9 +1,11 @@
-"""Serving counters (``repro/monitoring.py``): ``resident_weight_bytes``
-and the continuous scheduler's ``ServeStats``."""
+"""Counters (``repro/monitoring.py``): ``resident_weight_bytes``, the
+continuous scheduler's ``ServeStats``, and the host-sync accounting of the
+prefix-tuning loop (``host_sync``, ``count_host_syncs``)."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Iterator, List, Tuple
 
 import torch
 
@@ -98,3 +100,66 @@ class ServeStats:
 
     def as_dict(self) -> dict:
         return {**dataclasses.asdict(self), "occupancy": self.occupancy()}
+
+
+@dataclasses.dataclass
+class HostSyncCounter:
+    count: int = 0
+
+
+_sync_active: List[HostSyncCounter] = []
+
+
+@contextlib.contextmanager
+def count_host_syncs() -> Iterator[HostSyncCounter]:
+    """Count the blocking device-to-host transfers made through
+    ``host_sync`` inside the ``with`` block. Accounting works by
+    convention: host-loop code that must wait for device values (the
+    prefix-tuning metric drain) fetches them through ``host_sync``, and
+    tests bound the count. Counters nest."""
+    c = HostSyncCounter()
+    _sync_active.append(c)
+    try:
+        yield c
+    finally:
+        _sync_active.remove(c)
+
+
+def host_sync(tree: Any) -> Any:
+    """One blocking device-to-host transfer of every tensor leaf of a tree
+    of dicts, lists and tuples: the leaves are flattened, cast to float64
+    (exact for f32 and int32 values) and stacked into one tensor, which
+    crosses with one ``.cpu()``; the tree comes back with each leaf a
+    float64 numpy array of its shape."""
+    for c in _sync_active:
+        c.count += 1
+    leaves: List[torch.Tensor] = []
+
+    def collect(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                collect(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                collect(v)
+        elif isinstance(t, torch.Tensor):
+            leaves.append(t)
+    collect(tree)
+    if not leaves:
+        return tree
+    flat = torch.cat([t.detach().reshape(-1).to(torch.float64)
+                      for t in leaves]).cpu().numpy()
+    pos = [0]
+
+    def rebuild(t):
+        if isinstance(t, dict):
+            return {k: rebuild(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(rebuild(v) for v in t)
+        if isinstance(t, torch.Tensor):
+            n = t.numel()
+            a = flat[pos[0]:pos[0] + n].reshape(tuple(t.shape))
+            pos[0] += n
+            return a
+        return t
+    return rebuild(tree)

@@ -1,0 +1,157 @@
+"""AdamW with decoupled weight decay, global-norm gradient clipping and
+pluggable learning-rate schedules, ported from ``repro/optim/adamw.py``
+with its arithmetic: the clip on f32 gradients, f32 moments, the update
+cast back to each leaf's dtype, frozen leaves passed through bit for bit.
+
+Parameters, gradients and moments are nested dicts of tensors; leaves are
+visited in the reference's flatten order (dict keys sorted), and the masks
+match "/"-joined key paths (``tree_paths``, the port's copy of
+``distributed.sharding.tree_paths``). ``update`` is functional: it returns
+new leaves and leaves its inputs as they were.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, List, NamedTuple, Tuple
+
+import torch
+
+Tensor = torch.Tensor
+
+
+def _flatten(tree: Any, path: Tuple[str, ...] = ()
+             ) -> List[Tuple[Tuple[str, ...], Any]]:
+    """(key path, leaf) pairs in the reference's flatten order."""
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out.extend(_flatten(tree[k], path + (str(k),)))
+        return out
+    return [(path, tree)]
+
+
+def _unflatten(paths: List[Tuple[str, ...]], leaves: List[Any]) -> Any:
+    if paths == [()]:
+        return leaves[0]
+    out: Dict[str, Any] = {}
+    for path, leaf in zip(paths, leaves):
+        d = out
+        for k in path[:-1]:
+            d = d.setdefault(k, {})
+        d[path[-1]] = leaf
+    return out
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of one or more trees of the same structure."""
+    flat = _flatten(tree)
+    others = [[leaf for _, leaf in _flatten(t)] for t in rest]
+    return _unflatten([p for p, _ in flat],
+                      [fn(leaf, *(o[i] for o in others))
+                       for i, (_, leaf) in enumerate(flat)])
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    return [leaf for _, leaf in _flatten(tree)]
+
+
+def tree_paths(tree: Any) -> Any:
+    """A tree of "/"-joined key paths, the same structure as ``tree``."""
+    flat = _flatten(tree)
+    return _unflatten([p for p, _ in flat], ["/".join(p) for p, _ in flat])
+
+
+class AdamWState(NamedTuple):
+    step: Tensor
+    mu: Any
+    nu: Any
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    lr: Callable[[Tensor], Tensor]
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    # decay mask: paths matching these substrings get no weight decay
+    no_decay: tuple = ("ln", "norm", "bias", "b_if", "dt_b", "A_log",
+                       "Dskip", "/g", "/b")
+    # freeze mask: paths matching these substrings pass through bit for bit
+    # (no f32 round trip, no moment update) and stay out of the global-norm
+    # clip (prefix_tune freezes everything of a cushion but its "kv" block)
+    frozen: tuple = ()
+
+    def init(self, params: Any) -> AdamWState:
+        z = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
+        dev = tree_leaves(params)[0].device
+        return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                          mu=tree_map(z, params), nu=tree_map(z, params))
+
+    def _mask(self, params: Any, subs: tuple) -> List[bool]:
+        return [any(s in p for s in subs) for p in tree_leaves(
+            tree_paths(params))]
+
+    @torch.no_grad()
+    def update(self, grads: Any, state: AdamWState, params: Any):
+        """One step. Returns (params, state, {"grad_norm", "lr"})."""
+        flat = _flatten(params)
+        paths = [p for p, _ in flat]
+        ps = [leaf for _, leaf in flat]
+        gs = tree_leaves(grads)
+        ms, vs = tree_leaves(state.mu), tree_leaves(state.nu)
+        frozen = (self._mask(params, self.frozen) if self.frozen
+                  else [False] * len(ps))
+        decay = [not f for f in self._mask(params, self.no_decay)]
+        # frozen leaves contribute nothing to the global norm
+        gs = [torch.zeros_like(g) if f else g for g, f in zip(gs, frozen)]
+        if self.grad_clip > 0:
+            gn = torch.sqrt(sum(g.float().square().sum() for g in gs))
+            scale = torch.clamp(self.grad_clip / (gn + 1e-9), max=1.0)
+            gs = [g.float() * scale for g in gs]
+        else:
+            gn = torch.zeros((), device=ps[0].device)
+            gs = [g.float() for g in gs]
+        step = state.step + 1
+        lr_t = self.lr(step)
+        sf = step.float()
+        b1c = 1.0 - torch.pow(self.b1, sf)
+        b2c = 1.0 - torch.pow(self.b2, sf)
+        new_p, new_m, new_v = [], [], []
+        for g, m, v, p, dk, fz in zip(gs, ms, vs, ps, decay, frozen):
+            if fz:
+                new_p.append(p)         # bit-identical passthrough
+                new_m.append(m)
+                new_v.append(v)
+                continue
+            m = self.b1 * m + (1 - self.b1) * g
+            v = self.b2 * v + (1 - self.b2) * g.square()
+            delta = (m / b1c) / (torch.sqrt(v / b2c) + self.eps)
+            if dk and self.weight_decay > 0:
+                delta = delta + self.weight_decay * p.float()
+            new_p.append((p.float() - lr_t * delta).to(p.dtype))
+            new_m.append(m)
+            new_v.append(v)
+        return (_unflatten(paths, new_p),
+                AdamWState(step=step, mu=_unflatten(paths, new_m),
+                           nu=_unflatten(paths, new_v)),
+                {"grad_norm": gn, "lr": lr_t})
+
+
+def constant_lr(lr: float) -> Callable[[Tensor], Tensor]:
+    # a fill on the step's device: no host-to-device copy per step
+    return lambda step: torch.full((), lr, dtype=torch.float32,
+                                   device=step.device)
+
+
+def cosine_lr(peak: float, warmup: int, total: int,
+              floor: float = 0.1) -> Callable[[Tensor], Tensor]:
+    def f(step):
+        s = step.float()
+        warm = s / max(1.0, warmup)
+        prog = torch.clamp((s - warmup) / max(1.0, total - warmup), 0, 1)
+        cos = floor + (1 - floor) * 0.5 * (1 + torch.cos(math.pi * prog))
+        return peak * torch.where(s < warmup, warm, cos)
+    return f

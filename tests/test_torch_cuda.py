@@ -27,7 +27,8 @@ from repro_torch.kernels.act_quant import (  # noqa: E402
     act_quant_ptoken, act_quant_ptoken_plain, act_quant_static,
     act_quant_static_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_plain)
+    flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+    flash_attention_plain)
 from repro_torch.kernels.flash_decode import (  # noqa: E402
     flash_decode, flash_decode_paged, flash_decode_paged_plain,
     flash_decode_plain, gather_pages)
@@ -671,6 +672,193 @@ def test_paged_continuous_graph_equals_eager_static(tiny_card):
             want = eng1.generate_py(r.batch, r.max_new_tokens).tokens[0]
             assert (o.tokens == want).all(), (run, r.uid)
     _counters_zero([ce.graph])
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("S,m,live", [(1, 4, 1), (65, 4, 0), (65, 4, 2),
+                                      (200, 37, 10), (200, 100, 0),
+                                      (130, 130, 64), (70, 130, 0)])
+def test_flash_attention_live_mask(dev, S, m, live, hd, dt):
+    """The live-length mask: rows [live, m) of the prefix seen by no query,
+    tiles wholly in them skipped (m = 100 and 130 at live 0: whole dead
+    tiles of 64 and of 32 keys), a tile across the edge masked per key;
+    within the bars of the plain version; a dead row changes nothing."""
+    g = torch.Generator(dev).manual_seed(S * 7 + m + live + hd)
+    q, k, v = _attn_inputs(g, dev, 2, 2, 3, S, m, hd, dt)
+    got = flash_attention(q, k, v, prefix_len=m, prefix_live=live)
+    want = flash_attention_plain(q, k, v, prefix_len=m, prefix_live=live)
+    if dt == torch.bfloat16:
+        _within_ulp(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    # garbage in the dead rows leaves the result as it was
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, live:m] = 1e3
+    v2[:, :, live:m] = -1e3
+    assert torch.equal(flash_attention(q, k2, v2, prefix_len=m,
+                                       prefix_live=live), got)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_flash_attention_full_live_and_lse_bit_identical(dev, dt):
+    """prefix_live = prefix_len is the serving launch, and the autograd
+    forward (which writes the log-sum-exp) gives the same output bits."""
+    from repro_torch.kernels.flash_attention import FlashAttentionFn
+    g = torch.Generator(dev).manual_seed(11)
+    q, k, v = _attn_inputs(g, dev, 2, 5, 3, 256, 4, 64, dt)
+    base = flash_attention(q, k, v, prefix_len=4)
+    assert torch.equal(flash_attention(q, k, v, prefix_len=4,
+                                       prefix_live=4), base)
+    qg = q.clone().requires_grad_()
+    out = FlashAttentionFn.apply(qg, k, v, 4, 4)
+    assert torch.equal(out.detach(), base)
+    from repro_torch.kernels.flash_attention import _launch
+    for live in (4, 2):
+        _, lse = _launch(q, k, v, 4, live, with_lse=True)
+        _, want = flash_attention_plain(q, k, v, prefix_len=4,
+                                        prefix_live=live, return_lse=True)
+        assert lse.shape == (2, 15, 256)
+        torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("S,m,live", [(256, 4, 4), (256, 4, 1), (33, 5, 0),
+                                      (100, 70, 20), (1, 3, 3)])
+def test_flash_attention_bwd_matches_plain(dev, S, m, live, hd, dt):
+    """The backward kernel through autograd (FlashAttentionFn) against the
+    plain backward on the kernel's own output and log-sum-exp; dead rows
+    exactly zero; deterministic; one flash_attention_bwd launch."""
+    g = torch.Generator(dev).manual_seed(S + m * 3 + live + hd)
+    q, k, v = _attn_inputs(g, dev, 2, 5, 3, S, m, hd, dt)
+    do = torch.randn(q.shape, generator=g, device=dev).to(dt)
+    from repro_torch.kernels.flash_attention import _launch
+    o, lse = _launch(q, k, v, m, live, with_lse=True)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, m, live)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    n0 = _lib.LAUNCHES["flash_attention_bwd"]
+    out = flash_attention(qg, kg, vg, prefix_len=m, prefix_live=live)
+    out.backward(do)
+    assert _lib.LAUNCHES["flash_attention_bwd"] == n0 + 1
+    got = (qg.grad, kg.grad, vg.grad)
+    again = flash_attention_bwd(q, k, v, o, lse, do, m, live)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, again):
+        assert a.dtype == dt
+        floor = 1e-5 * float(b.float().abs().max())
+        err = (a.float() - b.float()).abs()
+        lim = (BF16_ULP * b.float().abs() if dt == torch.bfloat16
+               else torch.zeros_like(err)) + floor
+        assert bool((err <= lim).all()), float(err.max())
+        assert torch.equal(a, c)
+    assert not got[1][:, :, live:m].any() and not got[2][:, :, live:m].any()
+
+
+# card vs CPU L_q bars on f32 paper_tiny: without fake quant the sums
+# differ by reduction order only; the dynamic modes flip a code (ptoken: in
+# one row; pt_dynamic: a tensor's range, so all its codes) on a one-ulp
+# difference, and the flip propagates: 1.0e-2 measured under pt_dynamic,
+# where the reference's own jitted and eager runs differ by 6.9e-3
+# (tests/test_torch_tune.py)
+SCORE_RTOL = {"none": 1e-4, "pt_dynamic": 5e-2, "ptoken_dynamic": 5e-2}
+
+
+@pytest.mark.parametrize("qmode", list(SCORE_RTOL))
+def test_search_scores_card_equal_cpu(tiny_card, qmode):
+    """prefix_kv, prefix_qerr and score_candidates (groups of candidates,
+    a padded prefix at live length 2) on the card against the port's CPU
+    version on the same f32 weights, within ``SCORE_RTOL``; the argmin
+    agrees without fake quant."""
+    import numpy as np
+    from repro_torch.models.common import ParamTree
+    from repro_torch.models.registry import build
+    s = tiny_card
+    qcfg = s["QuantConfig"](mode=qmode)
+    api, params = s["api"], s["params"]
+    cpu_api = build(api.cfg, "cpu")
+    tree = params.tree()
+
+    def to_cpu(t):
+        return {k: to_cpu(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t.detach().cpu()
+    cpu_params = ParamTree(to_cpu(tree))
+    batch = s["tokens"](1, 40)
+    cands = torch.tensor([5, 9, 100, 200, 1, 33, 77, 401], device="cuda")
+    pad = torch.tensor([1, 7, 0, 0], device="cuda")
+    out = {}
+    for name, a, p, dv in (("card", api, params, "cuda"),
+                           ("cpu", cpu_api, cpu_params, "cpu")):
+        with torch.no_grad():
+            pkv = a.prefix_kv(p, pad.to(dv), qcfg)
+            b = {"tokens": batch["tokens"].to(dv)}
+            out[name] = (a.score_candidates(p, pkv, 2, cands.to(dv), b,
+                                            qcfg).cpu().numpy(),
+                         float(a.prefix_qerr(p, pkv, 2, b, qcfg)))
+    rtol = SCORE_RTOL[qmode]
+    np.testing.assert_allclose(out["card"][0], out["cpu"][0], rtol=rtol)
+    np.testing.assert_allclose(out["card"][1], out["cpu"][1], rtol=rtol)
+    if qmode == "none":
+        assert int(np.argmin(out["card"][0])) == \
+            int(np.argmin(out["cpu"][0]))
+
+
+def test_prefix_tune_card_equal_cpu(tiny_card):
+    """Three prefix_tune steps (quantization mode none: no rounding edge)
+    on the card, through flash_attention and flash_attention_bwd, against
+    the port's CPU run from the same cushion and batches: logs within 1e-4
+    relative; the cushion within 1e-4 of it per element (a tenth of one
+    step's lr: Adam moves an element by ~lr whatever the size of its
+    gradient, so an element whose gradient is near zero can part by a
+    fraction of lr; 1.8e-5 measured at 1 of 1,536 elements) and 1e-6 on
+    the mean; 3 forward and 3 backward attention launches a layer; one
+    host transfer for the log."""
+    from repro_torch import monitoring as MON
+    from repro_torch.configs import CushionConfig
+    from repro_torch.core.cushioncache import prefix_tune
+    from repro_torch.models.common import ParamTree
+    from repro_torch.models.registry import build
+    s = tiny_card
+    qcfg = s["QuantConfig"](mode="none")
+    api, params = s["api"], s["params"]
+
+    def to_cpu(t):
+        return {k: to_cpu(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t.detach().cpu()
+    cpu_api = build(api.cfg, "cpu")
+    cpu_params = ParamTree(to_cpu(params.tree()))
+    # batches of this test's own seed (the fixture's stream depends on
+    # which tests ran before)
+    import numpy as np
+    rs = np.random.RandomState(7)
+    batches = []
+    for _ in range(3):
+        t = torch.as_tensor(rs.randint(0, 512, (2, 33)).astype(np.int32),
+                            device="cuda")
+        batches.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
+    ccfg = CushionConfig(tune_steps=3, tune_lr=1e-3, lam=0.1, log_every=3)
+    _lib.reset_launches()
+    with MON.count_host_syncs() as c:
+        card = prefix_tune(api, params, s["cushion"], iter(batches), qcfg,
+                           ccfg, verbose=False)
+    L = api.cfg.n_layers
+    assert c.count == 1
+    assert _lib.LAUNCHES["flash_attention"] == 3 * L
+    assert _lib.LAUNCHES["flash_attention_bwd"] == 3 * L
+    cpu = prefix_tune(cpu_api, cpu_params, to_cpu(s["cushion"]),
+                      ({k: v.cpu() for k, v in b.items()} for b in batches),
+                      qcfg, ccfg, verbose=False)
+    for a, b in zip(card.log, cpu.log):
+        for key in ("loss", "ce", "range", "gnorm"):
+            assert abs(a[key] - b[key]) <= 1e-4 * abs(b[key]), key
+    for k in ("k", "v"):
+        diff = (card.cushion["kv"][k].cpu() - cpu.cushion["kv"][k]).abs()
+        assert float(diff.max()) <= 1e-4 and float(diff.mean()) <= 1e-6, \
+            (float(diff.max()), float(diff.mean()))
+        assert not torch.equal(card.cushion["kv"][k], s["cushion"]["kv"][k])
 
 
 def test_capture_with_a_host_sync_raises(dev):
