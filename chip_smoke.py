@@ -41,8 +41,9 @@ Phases, each fatal on failure:
    same boolean mask; ``flash_attention_bwd`` at the tuning shape (B=2,
    S=256, m=4), f32 and bf16, all rows live and rows [1, 4) dead, against
    ``flash_attention_bwd_plain`` (f32 1e-5 of the largest entry, bf16 one
-   ulp plus that; dead rows exactly zero), timed beside its bound, the
-   kernel's forward + backward and SDPA's forward + backward;
+   ulp plus that; dead rows exactly zero; two calls identical), timed
+   beside its bound, the kernel's forward + backward and SDPA's forward +
+   backward;
 4. the static main path at full width: smollm-360m (32 layers, bf16,
    seeded random weights), a 4-token cushion from ``extract_cushion``,
    pt_static scales calibrated on 2 pipeline batches, int8-resident
@@ -116,6 +117,7 @@ is missing (the script alone, outside a checkout). Writes the full record to
 """
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -293,9 +295,16 @@ def method_phase(api, params, cfg, corpus, calib, batch, dev, qw8):
                 if e.device_type == DeviceType.CUDA) / steps
         out = {"wall_ms": wall, "device_ms": busy,
                "busy_share": busy / wall, "kernels": n,
-               "by_kernel": by_kernel(prof, steps, top=8)}
+               "by_kernel": by_kernel(prof, steps, top=8),
+               "backward_by_kernel": {
+                   k: v for k, v in by_kernel(prof, steps, top=None).items()
+                   if "attn_bwd" in k}}
+        bwd = ", ".join(
+            f"{re.search(r'attn_bwd_[a-z0-9_]+', k).group(0)} {v[1]:.3f} ms "
+            f"({v[0]:.0f} calls)" for k, v in out["backward_by_kernel"].items())
         log(f"profiled {what}: wall {wall:.1f} ms, device {busy:.1f} ms "
-            f"(busy {busy / wall:.2f}), {n:.0f} kernels")
+            f"(busy {busy / wall:.2f}), {n:.0f} kernels"
+            + (f"; the backward's kernels a step: {bwd}" if bwd else ""))
         return out
     qdyn = QuantConfig(mode="pt_dynamic")
     ccfg = CushionConfig(max_prefix_len=MAX_PREFIX, tau=1.0,
@@ -1085,10 +1094,11 @@ def main() -> None:
     # dead: against flash_attention_bwd_plain on the same inputs (the
     # kernel's own output and log-sum-exp), f32 within 1e-5 of the largest
     # entry, bf16 within one bf16 ulp plus 1e-5 of the largest entry (the
-    # f32 sums run in another order before the bf16 rounding); dead rows
-    # exactly zero; timed beside its bound, the plain version, the kernel's
-    # forward + backward through autograd and SDPA's forward + backward
-    # with the same boolean mask
+    # f32 sums run in another order, and P and dS enter the tensor cores
+    # as two bf16 terms each, before the bf16 rounding); dead rows exactly
+    # zero; two calls identical; timed beside its bound, the plain version,
+    # the kernel's forward + backward through autograd and SDPA's forward +
+    # backward with the same boolean mask
     def bwd_row(dt, live):
         Bq, S, m = TUNE_B, TUNE_S, MAX_PREFIX
         T = S + m
@@ -1098,8 +1108,12 @@ def main() -> None:
         do = mk(Bq, S, H, hd).transpose(1, 2)
         o, lse = FA._launch(q, k, v, m, live, with_lse=True)
         got = flash_attention_bwd(q, k, v, o, lse, do, m, live)
+        again = flash_attention_bwd(q, k, v, o, lse, do, m, live)
         want = flash_attention_bwd_plain(q, k, v, o, lse, do, m, live)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"flash_attention_bwd {dt} live={live}: two calls on the "
+                 f"same inputs differ")
         errs = []
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
             e = (a.float() - b.float()).abs()
@@ -1161,9 +1175,16 @@ def main() -> None:
               for dt in (bf, torch.float32) for live in (MAX_PREFIX, 1)}
     log("flash_attention_bwd within its stated tolerance of the plain "
         "version (f32, bf16; all live and rows [1, 4) dead), dead rows "
-        "exactly zero: ms a call " + ", ".join(
-            f"{k}: {v[0]:.4f} (bound {v[2]:.4f}, fwd+bwd {v[6]:.4f}, SDPA "
-            f"fwd+bwd {v[5]})" for k, v in fa_bwd.items()))
+        "exactly zero, two calls identical: ms a call (a tuning step: "
+        f"x {cfg.n_layers}) " + ", ".join(
+            f"{k}: {v[0]:.4f} ({cfg.n_layers * v[0]:.3f} a step; bound "
+            f"{v[2]:.4f}, fwd+bwd {v[6]:.4f}, SDPA fwd+bwd {v[5]})"
+            for k, v in fa_bwd.items()))
+    fb, sdpa = fa_bwd[("bfloat16", MAX_PREFIX)][6], \
+        fa_bwd[("bfloat16", MAX_PREFIX)][5]
+    log(f"bf16, all rows live: forward + backward through autograd "
+        f"{fb:.4f} ms against SDPA's forward + backward {sdpa} ms "
+        f"({'no slower' if sdpa is not None and fb <= sdpa else 'slower'})")
 
     # flash_decode: int8 + cushion (main path) and fp, mid-generation pos
     Smax = cache_seq_len(PROMPT + NEW_TOKENS + 32)

@@ -9,8 +9,9 @@ the sources, so a second process reuses it.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` turns a nonzero code into an exception.
-``flash_decode_workspace_elems`` and ``int_matmul_workspace_elems`` launch
-nothing: they size the split kernels' workspaces; nor does
+``flash_decode_workspace_elems``, ``int_matmul_workspace_elems`` and
+``flash_attention_bwd_workspace_elems`` launch nothing: they size the
+kernels' workspaces; nor does
 ``int_matmul_decode_max_m``, the most rows the int matmuls quantize A at.
 There is no fallback: a failed build or launch raises.
 
@@ -81,11 +82,13 @@ _SIGNATURES = {
     "flash_attention_launch": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                                _I, _I, _I, _I] + [ctypes.c_longlong] * 12
                               + [_VP],
-    # q, k, v, o, dout, lse, delta (workspace), dq, dk, dv, bf16, B, H, Kh,
-    # S, T, hd, prefix_len, prefix_live, the (b, head, row) strides of q, k,
-    # v, o, dout, dq, dk, dv (24 int64), stream
+    # q, k, v, o, dout, lse, workspace, dq, dk, dv, bf16, B, H, Kh, S, T,
+    # hd, prefix_len, prefix_live, the (b, head, row) strides of q, k, v, o,
+    # dout, dq, dk, dv (24 int64), stream
     "flash_attention_bwd_launch": [_VP] * 10 + [_I] * 9
                                   + [ctypes.POINTER(ctypes.c_longlong), _VP],
+    # bf16, B, H, Kh, S, T, hd
+    "flash_attention_bwd_workspace_elems": [_I] * 7,
     # q, k, v, k_scale, v_scale, scale_per_row, kc, vc, pos, pos_per_row,
     # out, fp_bf16, cache_int8, B, H, K, Smax, hd, m, workspace, tickets,
     # stream
@@ -102,7 +105,8 @@ _SIGNATURES = {
     "flash_decode_workspace_elems": [_I, _I, _I, _I, _I],
 }
 _RESTYPES = {"flash_decode_workspace_elems": ctypes.c_longlong,
-             "int_matmul_workspace_elems": ctypes.c_longlong}
+             "int_matmul_workspace_elems": ctypes.c_longlong,
+             "flash_attention_bwd_workspace_elems": ctypes.c_longlong}
 
 _lib: Optional[ctypes.CDLL] = None
 BUILD_SECONDS: Optional[float] = None

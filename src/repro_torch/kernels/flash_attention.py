@@ -157,6 +157,14 @@ def _launch(q: Tensor, k: Tensor, v: Tensor, prefix_len: int, lv: int,
     return out, lse
 
 
+def _rows_aligned(t: Tensor) -> bool:
+    """A bf16 tensor's rows start 16-byte aligned (the pointer, and every
+    stride but the last a multiple of 8 elements): what 16-byte ``cp.async``
+    copies of its rows need."""
+    return t.stride(3) == 1 and t.data_ptr() % 16 == 0 \
+        and all(s % 8 == 0 for s in t.stride()[:3])
+
+
 def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
                         lse: Tensor, do: Tensor, prefix_len: int = 0,
                         prefix_live: Optional[int] = None
@@ -165,8 +173,10 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
     its output ``o``, its per-row log-sum-exp ``lse`` (B, H, S) f32 and the
     output's gradient ``do``. A CUDA tensor launches
     ``csrc/flash_attention_bwd.cu`` (one launch: the row sums D, then dk/dv
-    by key tile, then dq by query tile); a CPU tensor takes
-    ``flash_attention_bwd_plain``."""
+    by key tile and dq by query tile, then in bf16 the heads' dk/dv summed
+    per kv-head); a CPU tensor takes ``flash_attention_bwd_plain``. A bf16
+    operand whose rows are not 16-byte aligned (``do`` from autograd comes
+    in any layout) is copied contiguous first."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, prefix_len,
                                          prefix_live)
@@ -184,22 +194,24 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
             or not lse.is_contiguous():
         raise ValueError("lse must be a contiguous (B, H, S) f32 tensor")
     do = do.to(q.dtype)
-    if do.stride(3) != 1:
-        do = do.contiguous()
-    if o.stride(3) != 1:
-        o = o.contiguous()
+    bf16 = q.dtype == torch.bfloat16
+    q, k, v, o, do = (t if (_rows_aligned(t) if bf16 else t.stride(3) == 1)
+                      else t.contiguous() for t in (q, k, v, o, do))
     _lib.require_cuda(q, k, v, o, lse, do)
-    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
-    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    # the gradients in their inputs' layouts (strides are passed), so that
+    # autograd neither copies them into the leaves' layouts nor, behind a
+    # transposed (B, S, H, hd) view, makes them contiguous
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    lib = _lib.lib()
+    ws = torch.empty(lib.flash_attention_bwd_workspace_elems(
+        int(bf16), B, H, Kh, S, T, hd), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(*[
         s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]])
-    code = _lib.lib().flash_attention_bwd_launch(
+    code = lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), int(q.dtype == torch.bfloat16), B, H,
-        Kh, S, T, hd, int(prefix_len), lv, strides, _lib.stream_ptr(q))
+        do.data_ptr(), lse.data_ptr(), ws.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), int(bf16), B, H, Kh, S, T, hd,
+        int(prefix_len), lv, strides, _lib.stream_ptr(q))
     _lib.check(code, "flash_attention_bwd")
     _lib.count("flash_attention_bwd")
     return dq, dk, dv

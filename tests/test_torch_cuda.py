@@ -724,20 +724,48 @@ def test_flash_attention_full_live_and_lse_bit_identical(dev, dt):
         torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "f32"])
-@pytest.mark.parametrize("hd", [16, 32, 64])
-@pytest.mark.parametrize("S,m,live", [(256, 4, 4), (256, 4, 1), (33, 5, 0),
-                                      (100, 70, 20), (1, 3, 3)])
-def test_flash_attention_bwd_matches_plain(dev, S, m, live, hd, dt):
-    """The backward kernel through autograd (FlashAttentionFn) against the
-    plain backward on the kernel's own output and log-sum-exp; dead rows
-    exactly zero; deterministic; one flash_attention_bwd launch."""
-    g = torch.Generator(dev).manual_seed(S + m * 3 + live + hd)
-    q, k, v = _attn_inputs(g, dev, 2, 5, 3, S, m, hd, dt)
+def _bwd_case(dev, B, Kh, G, S, m, live, hd, dt, seed):
+    g = torch.Generator(dev).manual_seed(seed)
+    q, k, v = _attn_inputs(g, dev, B, Kh, G, S, m, hd, dt)
     do = torch.randn(q.shape, generator=g, device=dev).to(dt)
     from repro_torch.kernels.flash_attention import _launch
     o, lse = _launch(q, k, v, m, live, with_lse=True)
+    return q, k, v, o, lse, do
+
+
+def _bwd_within(got, want, dt):
+    """bf16: one bf16 ulp of the plain value plus 1e-5 of the largest
+    entry; f32: 1e-5 of the largest entry."""
+    for a, b in zip(got, want):
+        assert a.dtype == dt
+        floor = 1e-5 * float(b.float().abs().max())
+        err = (a.float() - b.float()).abs()
+        lim = (BF16_ULP * b.float().abs() if dt == torch.bfloat16
+               else torch.zeros_like(err)) + floor
+        assert bool((err <= lim).all()), float(err.max())
+
+
+# (S, m, live, B, Kh, G): the tuning shape and the first cases (B = 2,
+# 15 / 5 heads), then a query tile's edges (S = 63, 64, 65, 300), T = S + m
+# that no 64-key tile divides, live 0 behind 37 dead rows, B = 1, G = 1
+BWD_CASES = [(256, 4, 4, 2, 5, 3), (256, 4, 1, 2, 5, 3), (33, 5, 0, 2, 5, 3),
+             (100, 70, 20, 2, 5, 3), (1, 3, 3, 2, 5, 3), (63, 4, 4, 1, 2, 1),
+             (64, 4, 2, 1, 2, 3), (65, 4, 4, 2, 2, 1), (300, 5, 5, 1, 2, 3),
+             (64, 37, 0, 1, 2, 3), (65, 37, 0, 2, 2, 1),
+             (300, 37, 10, 2, 2, 3)]
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("S,m,live,B,Kh,G", BWD_CASES)
+def test_flash_attention_bwd_matches_plain(dev, S, m, live, B, Kh, G, hd,
+                                           dt):
+    """The backward kernel through autograd (FlashAttentionFn) against the
+    plain backward on the kernel's own output and log-sum-exp; dead rows
+    exactly zero; deterministic; one flash_attention_bwd launch."""
+    q, k, v, o, lse, do = _bwd_case(dev, B, Kh, G, S, m, live, hd, dt,
+                                    S + m * 3 + live + hd)
     want = flash_attention_bwd_plain(q, k, v, o, lse, do, m, live)
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
     n0 = _lib.LAUNCHES["flash_attention_bwd"]
@@ -747,15 +775,86 @@ def test_flash_attention_bwd_matches_plain(dev, S, m, live, hd, dt):
     got = (qg.grad, kg.grad, vg.grad)
     again = flash_attention_bwd(q, k, v, o, lse, do, m, live)
     torch.cuda.synchronize()
-    for a, b, c in zip(got, want, again):
-        assert a.dtype == dt
-        floor = 1e-5 * float(b.float().abs().max())
-        err = (a.float() - b.float()).abs()
-        lim = (BF16_ULP * b.float().abs() if dt == torch.bfloat16
-               else torch.zeros_like(err)) + floor
-        assert bool((err <= lim).all()), float(err.max())
+    _bwd_within(got, want, dt)
+    for a, c in zip(got, again):
         assert torch.equal(a, c)
     assert not got[1][:, :, live:m].any() and not got[2][:, :, live:m].any()
+
+
+def test_flash_attention_bwd_two_streams(dev):
+    """Backward calls enqueued on two streams at once equal, bit for bit,
+    the same call made alone: a call's blocks share nothing with another
+    call's (the heads' dK and dV are summed in head order inside each
+    call's thread block clusters)."""
+    q, k, v, o, lse, do = _bwd_case(dev, 2, 5, 3, 256, 4, 4, 64,
+                                    torch.bfloat16, 5)
+    want = flash_attention_bwd(q, k, v, o, lse, do, 4, 4)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    outs = []
+    for _ in range(8):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(flash_attention_bwd(q, k, v, o, lse, do, 4, 4))
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), i
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_flash_attention_bwd_strided_and_unaligned_views(dev, dt):
+    """dO and o as a transposed view (rows aligned, not contiguous), as a
+    view whose rows start 2 bytes off 16 (copied before the launch) and
+    with a strided last axis (copied): each gives the contiguous call's
+    result bit for bit."""
+    B, Kh, G, S, m, hd = 2, 5, 3, 65, 4, 64
+    q, k, v, o, lse, do = _bwd_case(dev, B, Kh, G, S, m, m, hd, dt, 9)
+    want = flash_attention_bwd(q, k, v, o, lse, do, m, m)
+    H = Kh * G
+
+    def views(x):
+        tr = x.transpose(1, 2).contiguous().transpose(1, 2)
+        pad = torch.zeros((B, H, S, hd + 9), dtype=dt, device=dev)
+        pad[..., 1:hd + 1] = x
+        st = x.transpose(2, 3).contiguous().transpose(2, 3)
+        return {"transposed": tr, "unaligned": pad[..., 1:hd + 1],
+                "strided_last_axis": st}
+
+    for name, dv_ in views(do).items():
+        got = flash_attention_bwd(q, k, v, o, lse, dv_, m, m)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), ("do", name)
+    for name, ov in views(o).items():
+        got = flash_attention_bwd(q, k, v, ov, lse, do, m, m)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), ("o", name)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_flash_attention_bwd_routes_by_dtype(dev, dt):
+    """bf16 runs the tensor-core kernel (attn_bwd_mma: dK and dV, the
+    heads' sum and dQ) after attn_bwd_delta, f32 the CUDA-core kernels
+    (attn_bwd_delta, attn_bwd_dkdv, attn_bwd_dq); f32 within 1e-5 of the
+    largest entry."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, o, lse, do = _bwd_case(dev, 2, 5, 3, 256, 4, 4, 64, dt, 3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = flash_attention_bwd(q, k, v, o, lse, do, 4, 4)
+        torch.cuda.synchronize()
+    names = " ".join(e.name for e in prof.events()
+                     if e.device_type == DeviceType.CUDA)
+    cuda_core = ("attn_bwd_dkdv", "attn_bwd_dq<")
+    want, other = ((("attn_bwd_delta", "attn_bwd_mma"), cuda_core)
+                   if dt == torch.bfloat16
+                   else (("attn_bwd_delta",) + cuda_core, ("attn_bwd_mma",)))
+    assert all(n in names for n in want), names
+    assert not any(n in names for n in other), names
+    _bwd_within(got, flash_attention_bwd_plain(q, k, v, o, lse, do, 4, 4),
+                dt)
 
 
 # card vs CPU L_q bars on f32 paper_tiny: without fake quant the sums

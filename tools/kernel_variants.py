@@ -1,37 +1,46 @@
 #!/usr/bin/env python3
-"""Where the time of the port's attention kernels, int matmuls and
-activation quantizers goes, on one card.
+"""Where the time of the port's attention kernels (forward and backward),
+int matmuls and activation quantizers goes, on one card.
 
     python3 tools/kernel_variants.py        # from the root of a checkout
+    python3 tools/kernel_variants.py --only flash_attention_bwd
 
 Builds ablated copies of ``csrc/flash_attention.cu``,
-``csrc/flash_decode.cu``, the int matmuls' shared mainloop
-``csrc/int_matmul.cuh`` (built with ``w8a8_matmul.cu`` and
-``w4a8_matmul.cu``) and the quantizers (``act_quant.cu`` with its
-``act_quant.cuh``, whose arithmetic the int matmuls' decode staging shares),
-each one named text substitution away from the source (``ATTENTION``,
-``DECODE``, ``INT_MATMUL``, ``ACT_QUANT`` below), every copy into
-its own shared library by its own ``nvcc`` (all started together), and
-times each copy at
+``csrc/flash_decode.cu``, ``csrc/flash_attention_bwd.cu``, the int
+matmuls' shared mainloop ``csrc/int_matmul.cuh`` (built with
+``w8a8_matmul.cu`` and ``w4a8_matmul.cu``) and the quantizers
+(``act_quant.cu`` with its ``act_quant.cuh``, whose arithmetic the int
+matmuls' decode staging shares), each one named set of text substitutions
+away from the source (``ATTENTION``, ``DECODE``, ``BACKWARD``,
+``INT_MATMUL``, ``ACT_QUANT`` below), every copy into its own shared
+library by its own ``nvcc`` (all started together), and times each copy at
 ``chip_smoke.py``'s phase-3 shapes with that script's ``device_ms``: the
 L2 flushed before every call, device time between CUDA events, the card
 kept busy while the host enqueues. Each copy is bound with the package's
-own C signatures (``kernels/_lib.py``) and its decode workspace sized by
-the copy's own ``flash_decode_workspace_elems``. A substitution whose text
-the source no longer holds stops the script before anything is built, so
-a change to a kernel source shows here as that error, never as a wrong
-ablation. A one-element fill is timed the same way: the
-floor of the method (launch and events). Each attention result line gives
-device µs per call, how many outputs (written into a zeroed buffer) fall
-outside the one-bf16-ulp check against the plain version, and the largest
-error over its bound; each int matmul line the µs of every main-path site
-at M = 4 (decode; on int8 codes and on the bf16 activation the staging
-quantizes) or M = 2048 (prefill), their sum over one decode step or one
-prefill, and how many outputs differ from the plain version; each
-quantizer line the µs of every phase-3 shape and the sums over a step and a
-prefill: copies that drop work fail by design and time what they leave. Last, the decode copies named in ``PRECISION`` are held to that
-check on more seeded draws of the 4096-position case. Needs one NVIDIA
-card and nvcc; writes ``chiprun_out/kernel_variants.json``.
+own C signatures (``kernels/_lib.py``) and its workspace sized by the
+copy's own ``flash_decode_workspace_elems`` or
+``flash_attention_bwd_workspace_elems``. A substitution whose text the
+source no longer holds stops the script before anything is built, so a
+change to a kernel source shows here as that error, never as a wrong
+ablation. ``--only`` builds and times the named families alone. A
+one-element fill is timed the same way: the floor of the method (launch
+and events). Each attention result line gives device µs per call, how many
+outputs (written into a zeroed buffer) fall outside the one-bf16-ulp check
+against the plain version, and the largest error over its bound; each
+backward line the µs a call and a tuning step at the tuning shape and, per
+output, the entries outside the card's bar; the timeline copies the
+blocks' own clock stamps (when each kind of block starts, how long its
+preamble and each of its steps take); each int matmul line the µs of every
+main-path site at M = 4 (decode; on int8 codes and on the bf16 activation
+the staging quantizes) or M = 2048 (prefill), their sum over one decode
+step or one prefill, and how many outputs differ from the plain version;
+each quantizer line the µs of every phase-3 shape and the sums over a step
+and a prefill: copies that drop work fail by design and time what they
+leave. Last, the decode copies named in ``PRECISION`` and the backward
+copies named in ``BWD_PRECISION`` are held to their checks on more seeded
+draws. Needs one NVIDIA card and nvcc; writes
+``chiprun_out/kernel_variants.json`` (with ``--only``,
+``kernel_variants.<families>.json``).
 """
 import ctypes
 import json
@@ -230,6 +239,166 @@ ACT_QUANT = {
     # division, no store: what reading x costs
     "loads_only": NO_STORE + NO_ARITH,
 }
+# flash_attention_bwd (bf16): the split of P and dS, where the G heads of a
+# kv-head are summed, how dQ gets dS, the order of issue, occupancy, and
+# what each kind of block costs
+P2, D2 = "constexpr int P_TERMS = 2;", "constexpr int DS_TERMS = 2;"
+DQ_DS_READ = """      {
+        const int TP = (T_ + TILE - 1) / TILE * TILE;
+        const float* dsb = A.ds + (long long)bh * S * TP;
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = row[e / 2];
+            dp[n][e] = r < S ? dsb[(long long)r * TP + t0 + n * 8
+                                   + (lane % 4) * 2 + (e & 1)] : 0.f;
+          }
+      }
+"""
+DKDV_DS_WRITE = """            s_[n][e] = p;
+          }
+        {
+          const int TP = (T_ + TILE - 1) / TILE * TILE;
+          float* dsb = A.ds + ((long long)b * A.H + h_lo + j / nq) * S * TP;
+#pragma unroll
+          for (int n = 0; n < NS; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int ql = n * 8 + (lane % 4) * 2 + (e & 1);
+              if (i0 + ql < S)
+                dsb[(long long)(i0 + ql) * TP + kw0 + lane / 4 + (e / 2) * 8]
+                    = dp[n][e];
+            }
+        }
+"""
+BWD_WS = "  return (long long)B * H * S;"
+BWD_DISPATCH = ("  if ((int)blockIdx.x < A.n_q_pad)\n"
+                "    dq_block<HD>(A, blockIdx.x, tiles);\n  else\n"
+                "    dkdv_block<HD>(A, blockIdx.x - A.n_q_pad, tiles, rowv);")
+DKDV_ELEMENTWISE = ("            const float p =\n"
+                    "                ok ? ex2(fmaf(s_[n][e], A.scale_log2, "
+                    "nl[e & 1])) : 0.f;\n"
+                    "            dp[n][e] = ok ? p * (dp[n][e] - dd[e & 1]) : "
+                    "0.f;\n")
+DKDV_PRODUCTS = ("        mma_xt2<HD, P_TERMS, DS_TERMS>(dv, s_, Dt, dk, dp, "
+                 "Qt, lane);\n")
+BACKWARD = {
+    "as_built": [],
+    # P and dS each rounded once to bf16, as FlashAttention-2 does
+    "one_term": [(P2, "constexpr int P_TERMS = 1;"),
+                 (D2, "constexpr int DS_TERMS = 1;")],
+    # three terms each, as the forward splits P (f32's 24 bits)
+    "three_terms": [(P2, "constexpr int P_TERMS = 3;"),
+                    (D2, "constexpr int DS_TERMS = 3;")],
+    # each accumulator's terms issued back to back (a chain of dependent
+    # mma.sync), as a straightforward loop nest would
+    "terms_chained": [
+        ("    for (int term = 0; term < NMAX; ++term)\n#pragma unroll\n"
+         "      for (int dp = 0; dp < HD / 16; ++dp) {",
+         "    for (int dp = 0; dp < HD / 16; ++dp)\n#pragma unroll\n"
+         "      for (int term = 0; term < NMAX; ++term) {")],
+    # each dK/dV block walks all the query tiles that see its keys (the
+    # cluster sums heads only)
+    "qchunks_1": [("constexpr int QCHUNKS = 2;", "constexpr int QCHUNKS = 1;")],
+    # the G heads of a kv-head walked by one dK/dV block (G times fewer,
+    # longer blocks)
+    "g_in_block": [("  int gb = G < 8 ? G : 8;", "  int gb = 1;")],
+    # two blocks a SM: registers up to 255, no spills
+    "two_blocks_per_sm": [("__launch_bounds__(MTHREADS, 3)",
+                           "__launch_bounds__(MTHREADS, 2)")],
+    # the backward's grid launched after the D kernel ends (no
+    # programmatic dependent launch)
+    "no_pdl": [("  cfg.numAttrs = 2;", "  cfg.numAttrs = 1;")],
+    # the dQ blocks return at once: what the dK/dV blocks take
+    "no_dq_blocks": [("    dq_block<HD>(A, blockIdx.x, tiles);",
+                      "    return;")],
+    # the dK/dV blocks return at once: what the dQ blocks take
+    "no_dkdv_blocks": [("    dkdv_block<HD>(A, blockIdx.x - A.n_q_pad, "
+                        "tiles, rowv);", "    return;")],
+    # where a dK/dV step's time goes: without the dK product, without both
+    # products, without the mask and exponentials, without S^T and dP^T,
+    # and with nothing but the loads and barriers
+    "probe_dkdv_no_dk": [(DKDV_PRODUCTS, DKDV_PRODUCTS.replace(
+        "P_TERMS, DS_TERMS", "P_TERMS, 0"))],
+    "probe_dkdv_no_products": [(DKDV_PRODUCTS, "")],
+    "probe_dkdv_no_elementwise": [(DKDV_ELEMENTWISE,
+                                   "            const float p = s_[n][e];\n"
+                                   "            dp[n][e] *= p;\n")],
+    "probe_dkdv_no_s_dp": [("        mma_abt2<HD>(s_, kf, Qt, dp, vf, Dt, "
+                            "lane);\n", "")],
+    "probe_dkdv_loads_only": [("      if (any) {",
+                               "      if (any && kw0 < 0) {")],
+    # dQ from a stored dS: the dK/dV blocks (every warp, every step) write
+    # dS in f32 to the workspace, then a second grid of dQ blocks reads it
+    # in place of recomputing Q K^T and dO V^T (no V staged)
+    "dq_from_ds": [
+        ("  Strides str;\n};", "  Strides str;\n  float* ds;\n  int block0;\n};"),
+        (BWD_DISPATCH,
+         "  const int blk = (int)blockIdx.x + A.block0;\n"
+         "  if (blk < A.n_q_pad)\n    dq_block<HD>(A, blk, tiles);\n"
+         "  else\n    dkdv_block<HD>(A, blk - A.n_q_pad, tiles, rowv);"),
+        ("      if (any) {", "      if (true) {"),
+        ("            s_[n][e] = p;\n          }\n", DKDV_DS_WRITE),
+        ("      mma_abt2<HD>(s_, qf, Kt, dp, df, Vt, lane);  // S = Q K^T, "
+         "dP = dO V^T\n", DQ_DS_READ),
+        ("          const float p = ok ? ex2(fmaf(s_[n][e], A.scale_log2, "
+         "-l2[e / 2]))\n                             : 0.f;\n"
+         "          dp[n][e] = ok ? p * (dp[n][e] - dl[e / 2]) : 0.f;\n", ""),
+        ("    stage_rows<HD>(tile(2 * s + 1), vb, st.v[2], key_tile(j) * "
+         "TILE, T_);\n", ""),
+        ("  A.str = str;\n",
+         "  A.str = str;\n  A.ds = ws + (long long)B * H * S;\n"),
+        ("  return launch(A.n_q_pad + n_kt * B * Kh * CS);",
+         "  A.block0 = A.n_q_pad;\n  const int e = launch(n_kt * B * Kh * CS);"
+         "\n  if (e) return e;\n  A.block0 = 0;\n"
+         "  return launch(A.n_q_pad);"),
+        (BWD_WS, "  return (long long)B * H * S\n"
+                 "         * (bf16_in ? 1 + (T_ + 63) / 64 * 64 : 1);"),
+    ],
+}
+# per-block stamps of the as-built kernel: the global timer and the SM's
+# clock at the block's start, the SM's clock once its fragments are in
+# registers, and both at its end, into the workspace after D (6 u64 a
+# block)
+TIMELINE = [
+    ("  Strides str;\n};", "  Strides str;\n  unsigned long long* stamps;\n};"),
+    ("  __shared__ float rowv[4 * TILE];\n",
+     "  __shared__ float rowv[4 * TILE];\n"
+     "  unsigned long long g0, c0 = clock64();\n"
+     "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(g0));\n"),
+    ("    dkdv_block<HD>(A, blockIdx.x - A.n_q_pad, tiles, rowv);\n}",
+     "    dkdv_block<HD>(A, blockIdx.x - A.n_q_pad, tiles, rowv);\n"
+     "  __syncthreads();\n"
+     "  if (threadIdx.x == 0) {\n"
+     "    unsigned long long g1, c1 = clock64();\n"
+     "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(g1));\n"
+     "    unsigned long long* s = A.stamps + 6 * blockIdx.x;\n"
+     "    s[0] = g0; s[1] = c0; s[3] = c1; s[4] = g1; s[5] = 1;\n"
+     "  }\n}"),
+    ("    a_frags<HD>(vf, tile(3), warp, lane);\n    __syncthreads();\n",
+     "    a_frags<HD>(vf, tile(3), warp, lane);\n    __syncthreads();\n"
+     "    if (tid == 0) A.stamps[6 * blockIdx.x + 2] = clock64();\n"),
+    ("  a_frags<HD>(df, tile(3), warp, lane);\n",
+     "  a_frags<HD>(df, tile(3), warp, lane);\n"
+     "  if (tid == 0) A.stamps[6 * blockIdx.x + 2] = clock64();\n"),
+    ("  A.str = str;\n",
+     "  A.str = str;\n  A.stamps = (unsigned long long*)(ws + ((long long)B "
+     "* H * S + 1) / 2 * 2);\n"),
+    (BWD_WS, "  return ((long long)B * H * S + 1) / 2 * 2\n"
+             "         + 12LL * (((S + 63) / 64 + 1) * B * H\n"
+             "                   + 8LL * (T_ + 63) / 64 * B * Kh);"),
+]
+ONLY_DKDV = [("  const int BH = A.B * A.H;\n",
+              "  if (true) return;\n  const int BH = A.B * A.H;\n")]
+ONLY_DQ = [("  const int per_tile = A.B * A.Kh * CS;\n",
+            "  if (true) return;\n  const int per_tile = A.B * A.Kh * CS;\n")]
+BACKWARD.update({"timeline": TIMELINE,
+                 "timeline_dkdv_alone": TIMELINE + ONLY_DKDV,
+                 "timeline_dq_alone": TIMELINE + ONLY_DQ})
+# the backward copies checked on more seeded draws at the tuning shape
+BWD_PRECISION = ("as_built", "three_terms", "one_term", "qchunks_1")
+
 # the decode copies whose outputs are checked on more data (pos 4000 of
 # 4096, int8 (B, K)), and on how many seeded draws
 PRECISION = ("as_built", "f32_dots", "f64_sums")
@@ -245,7 +414,8 @@ def build(lib, name, source, subs, out_dir):
     cu = out_dir / f"{name}.cu"
     cu.write_text(text)
     so = out_dir / f"{name}.so"
-    cmd = [lib._nvcc(), *lib.NVCC_FLAGS, "-shared", str(cu), "-o", str(so)]
+    cmd = [lib._nvcc(), *lib.NVCC_FLAGS, "-I", str(lib.CSRC), "-shared",
+           str(cu), "-o", str(so)]
     return so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT)
 
@@ -273,7 +443,26 @@ def build_set(lib, family, name, subs, sources, out_dir):
                                 stderr=subprocess.STDOUT)
 
 
+def check(got, want):
+    """Outputs outside |err| <= 2^-7 |want| + 1e-6, and the largest err /
+    that bound."""
+    got, want = got.float(), want.float()
+    ratio = (got - want).abs() / (2.0 ** -7 * want.abs() + 1e-6)
+    return {"outside_one_ulp": int((ratio > 1).sum()),
+            "worst_err_over_bound": float(ratio.max())}
+
+
+FAMILIES = ("flash_attention", "flash_decode", "int_matmul", "act_quant",
+            "flash_attention_bwd")
+
+
 def main() -> None:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", nargs="+", choices=FAMILIES, default=FAMILIES,
+                    help="the kernel families to build and time (default: "
+                         "all)")
+    only = set(ap.parse_args().only)
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("CUDA is not available: this script times the card")
@@ -291,7 +480,10 @@ def main() -> None:
     t0 = time.perf_counter()
     libs, procs = {}, []
     for kernel, table in (("flash_attention", ATTENTION),
-                          ("flash_decode", DECODE)):
+                          ("flash_decode", DECODE),
+                          ("flash_attention_bwd", BACKWARD)):
+        if kernel not in only:
+            continue
         src = (_lib.CSRC / f"{kernel}.cu").read_text()
         for name, subs in table.items():
             so, p = build(_lib, f"{kernel}.{name}", src, subs, out_dir)
@@ -300,6 +492,8 @@ def main() -> None:
     for family, table, sources in (
             ("int_matmul", INT_MATMUL, ("w8a8_matmul.cu", "w4a8_matmul.cu")),
             ("act_quant", ACT_QUANT, ("act_quant.cu",))):
+        if family not in only:
+            continue
         for name, subs in table.items():
             so, p = build_set(_lib, family, name, subs, sources, out_dir)
             libs[(family, name)] = so
@@ -333,14 +527,6 @@ def main() -> None:
             B, H, K, Smax, hd)
         return torch.empty(n, dtype=torch.float64, device=dev)
 
-    def check(got, want):
-        """Outputs outside |err| <= 2^-7 |want| + 1e-6, and the largest
-        err / that bound."""
-        got, want = got.float(), want.float()
-        ratio = (got - want).abs() / (2.0 ** -7 * want.abs() + 1e-6)
-        return {"outside_one_ulp": int((ratio > 1).sum()),
-                "worst_err_over_bound": float(ratio.max())}
-
     results = []
 
     def report(row):
@@ -354,7 +540,7 @@ def main() -> None:
     bf = torch.bfloat16
     H, K, hd, m = 15, 5, 64, 4
     stream = torch.cuda.current_stream().cuda_stream
-    for B, S in ((4, 512), (1, 2048)):
+    for B, S in ((4, 512), (1, 2048)) if "flash_attention" in only else ():
         T = S + m
         q = torch.randn((B, S, H, hd), generator=gen, device=dev).to(bf)
         k = torch.randn((B, T, K, hd), generator=gen, device=dev).to(bf)
@@ -365,7 +551,7 @@ def main() -> None:
         for name in ATTENTION:
             fn = entry("flash_attention", name, "flash_attention_launch")
             args = (qh.data_ptr(), kh.data_ptr(), vh.data_ptr(),
-                    out.data_ptr(), 1, B, H, K, S, T, hd, m,
+                    out.data_ptr(), None, 1, B, H, K, S, T, hd, m, m,
                     *qh.stride()[:3], *kh.stride()[:3], *vh.stride()[:3],
                     *out.stride()[:3], stream)
             out.zero_()
@@ -376,7 +562,8 @@ def main() -> None:
                     "S": S, "m": m, "us": timed(lambda: fn(*args)),
                     **check(out, want)})
 
-    for Smax, pos_v in ((640, 548), (4096, 4000)):
+    for Smax, pos_v in ((640, 548), (4096, 4000)) \
+            if "flash_decode" in only else ():
         B = 4
         qd = torch.randn((B, H, hd), generator=gen, device=dev).to(bf)
         kq = torch.randint(-127, 128, (B, Smax, K, hd), generator=gen,
@@ -408,11 +595,30 @@ def main() -> None:
                     "B": B, "Smax": Smax, "pos": pos_v,
                     "us": timed(lambda: fn(*args)), **check(out, want)})
 
-    int_matmul_rows(dev, gen, flush, timed, entry, stream, report)
-    act_quant_rows(dev, gen, timed, entry, stream, report)
+    if "int_matmul" in only:
+        int_matmul_rows(dev, gen, flush, timed, entry, stream, report)
+    if "act_quant" in only:
+        act_quant_rows(dev, gen, timed, entry, stream, report)
+    if "flash_attention_bwd" in only:
+        backward_rows(dev, timed, entry, stream, report)
+    if "flash_decode" in only:
+        decode_precision(dev, entry, workspace, stream, report)
 
-    # precision at length: the one-ulp check over PRECISION_DRAWS draws of
-    # the 4096-position int8 (B, K) case, per decode copy
+    rec = ROOT / "chiprun_out"
+    rec.mkdir(exist_ok=True)
+    name = "kernel_variants.json" if only == set(FAMILIES) else \
+        "kernel_variants." + "+".join(sorted(only)) + ".json"
+    (rec / name).write_text(
+        json.dumps({"card": card, "results": results}, indent=1))
+
+
+def decode_precision(dev, entry, workspace, stream, report):
+    """The one-ulp check over PRECISION_DRAWS draws of the 4096-position
+    int8 (B, K) case, per decode copy named in PRECISION."""
+    import torch
+    from repro_torch.kernels.flash_decode import flash_decode_plain
+    bf = torch.bfloat16
+    H, K, hd, m = 15, 5, 64, 4
     B, Smax, pos_v = 4, 4096, 4000
     fns = {name: (entry("flash_decode", name, "flash_decode_launch"),
                   workspace(name, B, H, K, Smax, hd)) for name in PRECISION}
@@ -450,10 +656,194 @@ def main() -> None:
                 "draws": PRECISION_DRAWS,
                 "outputs": PRECISION_DRAWS * B * H * hd, **tally[name]})
 
-    rec = ROOT / "chiprun_out"
-    rec.mkdir(exist_ok=True)
-    (rec / "kernel_variants.json").write_text(
-        json.dumps({"card": card, "results": results}, indent=1))
+
+BWD_DRAWS = 8
+
+
+def backward_rows(dev, timed, entry, stream, report):
+    """Every flash_attention_bwd copy at chip_smoke.py's tuning shape
+    (smollm-360m: B = 2, S = 256 behind the 4-row cushion, 15 / 5 heads of
+    64, bf16; the forward's own output and log-sum-exp), all rows live and
+    rows [1, 4) dead: µs a call and ms a tuning step (32 calls); per output
+    (dq, dk, dv) how many entries fall outside the card's bar against
+    ``flash_attention_bwd_plain`` (one bf16 ulp of the plain value plus
+    1e-5 of its largest entry) and the worst error over that bar; whether
+    two calls agree bit for bit and the dead rows are zero. Then the
+    as-built copy's device time by kernel (the profiler), and the copies
+    named in BWD_PRECISION over BWD_DRAWS more seeded draws."""
+    import ctypes
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import (
+        _launch, flash_attention_bwd_plain)
+    bf = torch.bfloat16
+    B, H, K, S, m, hd, L = 2, 15, 5, 256, 4, 64, 32
+    T = S + m
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int8, device=dev)
+
+    def flush_l2():
+        flush.zero_()
+
+    def inputs(seed, live):
+        g = torch.Generator(dev).manual_seed(seed)
+        mk = lambda *sh: torch.randn(sh, generator=g, device=dev).to(bf)  # noqa: E731
+        q = mk(B, S, H, hd).transpose(1, 2)
+        k, v = mk(B, T, K, hd).transpose(1, 2), mk(B, T, K, hd).transpose(1, 2)
+        do = mk(B, S, H, hd).transpose(1, 2)
+        o, lse = _launch(q, k, v, m, live, with_lse=True)
+        want = flash_attention_bwd_plain(q, k, v, o, lse, do, m, live)
+        return (q, k, v, o, lse, do), want
+
+    def bar(got, want):
+        out = {}
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            a, b = a.float(), b.float()
+            lim = 2.0 ** -7 * b.abs() + 1e-5 * float(b.abs().max())
+            r = (a - b).abs() / lim
+            out[name] = {"outside": int((r > 1).sum()),
+                         "worst_err_over_bar": float(r.max())}
+        return out
+
+    def launcher(variant, ins, live):
+        q, k, v, o, lse, do = ins
+        fn = entry("flash_attention_bwd", variant,
+                   "flash_attention_bwd_launch")
+        n = entry("flash_attention_bwd", variant,
+                  "flash_attention_bwd_workspace_elems")(1, B, H, K, S, T, hd)
+        ws = torch.empty(n, dtype=torch.float32, device=dev)
+        outs = tuple(torch.empty_like(x, memory_format=torch.contiguous_format)
+                     for x in (q, k, v))
+        strides = (ctypes.c_longlong * 24)(*[
+            s for x in (q, k, v, o, do) + outs for s in x.stride()[:3]])
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), ws.data_ptr(),
+                *(x.data_ptr() for x in outs), 1, B, H, K, S, T, hd, m, live,
+                strides, stream)
+
+        def run():
+            if fn(*args):
+                raise SystemExit(f"flash_attention_bwd.{variant}: launch "
+                                 f"failed")
+        run.keep = (ws, strides)
+        return run, outs
+
+    for live in (m, 1):
+        ins, want = inputs(0, live)
+        for name in BACKWARD:
+            run, outs = launcher(name, ins, live)
+            for x in outs:
+                x.zero_()
+            run()
+            first = tuple(x.clone() for x in outs)
+            run()
+            torch.cuda.synchronize()
+            us = timed(run)
+            report({"kernel": "flash_attention_bwd", "variant": name,
+                    "B": B, "S": S, "m": m, "prefix_live": live, "us": us,
+                    "tuning_step_ms": L * us / 1e3, **bar(outs, want),
+                    "repeatable": all(torch.equal(a, b)
+                                      for a, b in zip(first, outs)),
+                    "dead_rows_zero": not (outs[1][:, :, live:m].any()
+                                           or outs[2][:, :, live:m].any())})
+
+    # the timeline copies: one call after an L2 flush, the blocks' stamps
+    n_kt, n_qt = (T + 63) // 64, (S + 63) // 64
+    G = H // K
+    GB = max(g for g in range(1, min(G, 8) + 1) if G % g == 0)
+    NC = min(2, 8 // GB)
+    CS = GB * NC
+    n_q = n_qt * B * H
+    n_q_pad = -(-n_q // CS) * CS
+    n_kv = n_kt * B * K * CS
+    for name in ("timeline", "timeline_dkdv_alone", "timeline_dq_alone"):
+        ins, _ = inputs(0, m)
+        run, _ = launcher(name, ins, m)
+        ws = run.keep[0]
+        off = (B * H * S + 1) // 2 * 2
+        stamps = ws[off:off + 12 * (n_q_pad + n_kv)].view(torch.int64) \
+            .view(n_q_pad + n_kv, 6)
+        stamps.zero_()
+        run()
+        torch.cuda.synchronize()
+        stamps.zero_()
+        flush_l2()
+        run()
+        torch.cuda.synchronize()
+        st = stamps.cpu().tolist()
+        ran = [i for i, s in enumerate(st) if s[5] == 1 and s[2] != 0]
+        g_lo = min(st[i][0] for i in ran)
+        g_hi = max(st[i][4] for i in ran)
+        ghz = sum(st[i][3] - st[i][1] for i in ran) / max(1, sum(
+            st[i][4] - st[i][0] for i in ran))
+
+        def steps(i):
+            if i < n_q_pad:
+                q0 = (n_qt - 1 - i // (B * H)) * 64
+                return (min(T, q0 + 64 + m) + 63) // 64
+            i -= n_q_pad
+            t0 = i // (B * K * CS) * 64
+            nq = n_qt - max(0, t0 - m) // 64
+            cs, c = -(-nq // NC), i % CS % NC
+            return max(0, min(nq - c * cs, cs))
+
+        rows = {}
+        for kind, idx in (("dq", [i for i in ran if i < n_q_pad]),
+                          ("dkdv", [i for i in ran if i >= n_q_pad
+                                    and steps(i) > 0])):
+            if not idx:
+                continue
+            us = sorted((st[i][4] - st[i][0]) / 1e3 for i in idx)
+            pre = sorted(st[i][2] - st[i][1] for i in idx)
+            per = sorted((st[i][3] - st[i][2]) / steps(i) for i in idx)
+            start = sorted((st[i][0] - g_lo) / 1e3 for i in idx)
+            rows[kind] = {
+                "blocks": len(idx), "block_us_median": us[len(us) // 2],
+                "block_us_max": us[-1],
+                "preamble_cycles_median": pre[len(pre) // 2],
+                "cycles_per_step_median": per[len(per) // 2],
+                "cycles_per_step_max": per[-1],
+                "start_us_median": start[len(start) // 2],
+                "start_us_max": start[-1]}
+        report({"kernel": "flash_attention_bwd", "variant": name,
+                "span_us": (g_hi - g_lo) / 1e3, "sm_ghz": ghz, **rows,
+                "of": "one call after an L2 flush; a step is a query tile "
+                      "(dK/dV) or a key tile (dQ)"})
+
+    ins, _ = inputs(0, m)
+    run, _ = launcher("as_built", ins, m)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            run()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 20
+    report({"kernel": "flash_attention_bwd", "variant": "as_built",
+            "by_kernel_us": by, "of": "20 calls back to back, L2 warm"})
+
+    tally = {name: {o: {"outside": 0, "worst_err_over_bar": 0.0}
+                    for o in ("dq", "dk", "dv")} for name in BWD_PRECISION}
+    for draw in range(BWD_DRAWS):
+        live = m if draw % 2 == 0 else 1
+        ins, want = inputs(100 + draw, live)
+        for name in BWD_PRECISION:
+            run, outs = launcher(name, ins, live)
+            run()
+            for o, c in bar(outs, want).items():
+                tally[name][o]["outside"] += c["outside"]
+                tally[name][o]["worst_err_over_bar"] = max(
+                    tally[name][o]["worst_err_over_bar"],
+                    c["worst_err_over_bar"])
+    for name in BWD_PRECISION:
+        report({"kernel": "flash_attention_bwd", "variant": name,
+                "draws": BWD_DRAWS, "prefix_live": "4 and 1 in turn",
+                "outputs_each": BWD_DRAWS * B * H * S * hd, **tally[name]})
 
 
 def int_matmul_rows(dev, gen, flush, timed, entry, stream, report):
