@@ -100,6 +100,30 @@ Phases, each fatal on failure:
    ``CheckpointManager`` and reloaded by ``load_cushion_artifact`` (the
    same fingerprint; a W8A8 int8-KV ``Engine`` on it gives the in-memory
    cushion's tokens, B=1, 64-token prompt, 8 tokens; stale scales refused);
+4d. the replica router at full width (run after 4c), same model, cushion,
+   scales and W8A8 weights, prequantized once and shared by every replica
+   (one address per int8 weight tensor in all three engines):
+   ``ReplicaRouter`` over 3 replicas x 4 paged int8 slots (page size 64),
+   the default ``RouterConfig``, phase 4b's trace extended the same way to
+   24 requests at t = 0 (the first 12 are 4b's). A first run with budgets
+   of 2 records what each replica's first steps cost. (r0) no fault: all
+   24 complete with no retry, failover, death, error or rejection, tokens
+   per uid equal to 4b's run (b) for uids 0-11; (r1)
+   ``crash@replica1.step:6``: all 24 complete with r0's tokens per uid,
+   one death, states [HEALTHY, DEAD, HEALTHY], failovers equal to replica
+   1's live requests at its death, retries at least that, and the failover
+   time (the death to the completion of the last request moved); (r2)
+   ``interrupt@replica0.step:10``: drained, every completed uid with r0's
+   tokens, every other uid rejected as ``draining``; (r3) r1's schedule
+   over contiguous int8 pools, r0's tokens. After every run: launch counts
+   exact (from the replicas' steps and admissions), graph replays equal
+   to the replicas' steps, each replica's graph the one captured at
+   construction, every merge counter and workspace zero, and no replica
+   error or death beyond the injected ones (the router catches a replica's
+   exception, as the reference does; this phase refuses it). One round of
+   the three replicas' steps is profiled, as a round and replica by
+   replica; beside the router, one ``ContinuousEngine`` of 12 slots on
+   r0's trace gives r0's tokens per uid and its tokens/s;
 5. the card's Engine against the port's CPU Engine on the same weights,
    scales and cushion (B=1, 64-token prompt, 8 tokens) in all four phase-4
    modes: teacher-forced logits within the stated bf16 tolerance,
@@ -108,7 +132,8 @@ Phases, each fatal on failure:
    runs (a) and (b) of phase 4b, from (e) for ``w4a8_matmul``, from the
    static ptoken run for ``act_quant_ptoken`` and from phase 4c's tuning
    for ``flash_attention_bwd``; ``act_quant_static`` timed over a prefill,
-   where it runs, with its fused cost at decode beside), then
+   where it runs, with its fused cost at decode beside; the router runs'
+   launches of phase 4d beside, as ``router_launches``), then
    ``{"ok": true, ...}`` as the last line.
 
 Exits nonzero with no result line when CUDA is unavailable or when the port
@@ -589,6 +614,328 @@ def method_phase(api, params, cfg, corpus, calib, batch, dev, qw8):
     log(f"artifact: fingerprint {fp[:12]} equal after reload; the reloaded "
         f"cushion's W8A8 int8-KV tokens {toks_art[0].tolist()} = the "
         f"in-memory cushion's; stale scales refused")
+    return rec
+
+
+# phase 4d, the replica router: 3 replicas x 4 slots, the 12 requests of
+# phase 4b extended the same way to 24, all arriving at t = 0
+REPLICAS, ROUTER_SLOTS, ROUTER_REQ = 3, 4, 24
+
+
+def router_phase(api, params, qw8, cushion, scales, reqs_4b, outs_4b, ps,
+                 zero_counts, counters_zero, profiled_steps):
+    """Phase 4d: ``ReplicaRouter`` at full width (see the module
+    docstring). Every run is held to exact launch counts, one graph
+    replay per replica step, graphs captured once, zero merge counters
+    and workspaces, one copy of the weights and no replica error or death
+    beyond the injected ones; tokens are compared per uid, never by
+    replica or slot (a DEGRADED flag moves a request, not its tokens)."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed.fault_injection import FaultInjector
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.serve import poisson_trace
+    from repro_torch.serving.router import DEAD, HEALTHY, ReplicaRouter
+    from repro_torch.serving.scheduler import ContinuousEngine
+
+    L, V = api.cfg.n_layers, api.cfg.vocab_size
+    reqs = poisson_trace(V, 0, ROUTER_REQ, 0.0, (PROMPT, PROMPT + 8),
+                         (NEW_TOKENS, NEW_TOKENS // 2), device=api.device)
+    for r, r4 in zip(reqs, reqs_4b):
+        if not torch.equal(r.batch["tokens"], r4.batch["tokens"]) \
+                or r.max_new_tokens != r4.max_new_tokens:
+            fail(f"router trace: request {r.uid} is not phase 4b's")
+    kw = dict(n_slots=ROUTER_SLOTS, max_seq=PROMPT + 8 + NEW_TOKENS + 32,
+              cushion=cushion, scales=scales, kv_dtype="int8")
+    rec = {"replicas": REPLICAS, "slots": ROUTER_SLOTS,
+           "requests": ROUTER_REQ, "runs": {}, "launches": {}}
+
+    def shared_weights(router):
+        """The int8 weight tensors' addresses, one tuple for every replica
+        (the same tensors behind all of them), or fail."""
+        ptrs = {tuple(t.data_ptr() for t in rep.engine.params.buffers()
+                      if t.dtype == torch.int8) for rep in router.replicas}
+        if len(ptrs) != 1 or not next(iter(ptrs)):
+            fail("router: the replicas do not share one copy of the int8 "
+                 "weights")
+        return next(iter(ptrs))
+
+    def build_router(paged):
+        t0 = time.perf_counter()
+        router = ReplicaRouter(api, params, qw8, n_replicas=REPLICAS,
+                               prequant=True, paged=paged, page_size=ps,
+                               **kw)
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        ptrs = shared_weights(router)
+        graphs = [rep.engine.graph for rep in router.replicas]
+        if any(g is None for g in graphs):
+            fail("router: a replica has no captured decode step")
+        # each replica's step walls (host clock; a step ends in its sync)
+        for rep in router.replicas:
+            rep.walls = []
+
+            def timed_step(step=rep.engine.step, walls=rep.walls):
+                t0 = time.perf_counter()
+                out = step()
+                walls.append(time.perf_counter() - t0)
+                return out
+            rep.engine.step = timed_step
+        log(f"router ({'paged' if paged else 'contiguous'} int8 pools): "
+            f"{REPLICAS} replicas built in {built:.2f} s (one "
+            f"prequantization, {REPLICAS} graph captures: "
+            f"{[round(g.capture_s, 3) for g in graphs]} s), "
+            f"{len(ptrs)} int8 weight tensors shared")
+        return router, graphs, built
+
+    def metrics(outs, wall):
+        total = sum(len(o.tokens) for o in outs)
+        span = max(o.finished_s for o in outs)
+        ttft = [o.ttft_ms for o in outs]
+        tpot = [o.tpot_ms for o in outs]
+        lat = [o.latency_s * 1e3 for o in outs]
+        return {"wall_s": wall, "tokens": total, "tokens_per_s": total / span,
+                **{f"{k}_p{q}": float(np.percentile(v, q))
+                   for k, v in (("ttft_ms", ttft), ("tpot_ms", tpot),
+                                ("latency_ms", lat)) for q in (50, 99)}}
+
+    def expected(steps, prefills, paged):
+        """Launches of ``steps`` decode steps and ``prefills`` B = 1
+        prefills of > 16 rows (the static quantizer standalone at the 160
+        layer sites of a prefill, fused at its head and at every decode
+        site)."""
+        sites = 5 * L
+        return {**zero_counts,
+                "w8a8_matmul": (sites + 1) * (steps + prefills),
+                "act_quant_static": sites * prefills,
+                "act_quant_static_fused": prefills + (sites + 1) * steps,
+                "flash_attention": L * prefills,
+                "flash_decode": 0 if paged else L * steps,
+                "flash_decode_paged": L * steps if paged else 0}
+
+    def route(label, router, graphs, paged, chaos=None):
+        """One run of the 24-request trace under ``chaos``, checked as the
+        docstring says; returns (result, deaths seen, record)."""
+        deaths = []
+        kill = router._kill_replica
+
+        def spy(rep, now, reason, rejected, outputs):
+            if not rep.dead_handled:
+                deaths.append({"replica": rep.idx, "at_s": now,
+                               "reason": reason, "live": [
+                                   r.uid for r in rep.engine.live_requests()]})
+            return kill(rep, now, reason, rejected, outputs)
+
+        router._kill_replica = spy
+        for rep in router.replicas:
+            rep.walls.clear()
+        inj = FaultInjector.parse(chaos) if chaos else None
+        _lib.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            res = router.run(reqs, injector=inj)
+        finally:
+            del router._kill_replica
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_lib.LAUNCHES)
+        replays = _lib.COUNTERS["graph_replays"]
+        st, per = res.stats, res.stats.per_replica
+        steps = sum(p["steps"] for p in per)
+        prefills = sum(p["admitted"] for p in per)
+        if replays != steps:
+            fail(f"router {label}: {replays} graph replays, the replicas "
+                 f"stepped {steps} times")
+        if any(rep.engine.graph is not g
+               for rep, g in zip(router.replicas, graphs)):
+            fail(f"router {label}: a replica captured its step again")
+        shared_weights(router)
+        crashes = sum(kind == "crash" for _, _, kind in inj.log) if inj \
+            else 0
+        errors = [rep.health.errors for rep in router.replicas]
+        if st.replica_deaths != crashes or len(deaths) != crashes \
+                or any(errors) \
+                or any(p["consecutive_errors"] for p in per):
+            fail(f"router {label}: {st.replica_deaths} deaths ({crashes} "
+                 f"injected), errors {errors}: a replica failed on its own")
+        want = expected(steps, prefills, paged)
+        if counts != want:
+            fail(f"router {label}: launches {counts}, expected {want}")
+        for k, n in counts.items():
+            rec["launches"][k] = rec["launches"].get(k, 0) + n
+        counters_zero(f"phase 4d {label}", graphs)
+        # where the wall went: the replicas' steps, the completed
+        # requests' admission prefills (TTFT), the rest (the router's host
+        # loop, failed attempts' prefills)
+        steps_s = [sum(rep.walls) for rep in router.replicas]
+        prefill_s = sum(o.ttft_ms for o in res.outputs) / 1e3
+        info = {**(metrics(res.outputs, wall) if res.outputs else {}),
+                "step_wall_s": steps_s, "prefill_wall_s": prefill_s,
+                "other_wall_s": wall - sum(steps_s) - prefill_s,
+                "step_ms_p50": [float(np.median(rep.walls)) * 1e3
+                                for rep in router.replicas if rep.walls],
+                "stats": {k: v for k, v in st.as_dict().items()
+                          if k != "per_replica"},
+                "per_replica": [{k: p[k] for k in (
+                    "state", "steps", "admitted", "finished", "canceled",
+                    "occupancy", "stragglers", "consecutive_errors")}
+                    for p in per],
+                "errors": errors, "deaths": deaths, "launches": counts,
+                "graph_replays": replays}
+        log(f"router {label}: {st.completed} completed, {st.rejected} "
+            f"rejected {st.rejections}, {st.retries} retries, "
+            f"{st.failovers} failovers, {st.replica_deaths} deaths, queue "
+            f"peak {st.queue_depth_peak}, states "
+            f"{[p['state'] for p in per]}, steps "
+            f"{[p['steps'] for p in per]}, "
+            + (f"{info['tokens_per_s']:.1f} tok/s, TTFT p50/p99 "
+               f"{info['ttft_ms_p50']:.2f}/{info['ttft_ms_p99']:.2f} ms, "
+               f"TPOT p50/p99 {info['tpot_ms_p50']:.2f}/"
+               f"{info['tpot_ms_p99']:.2f} ms, latency p50/p99 "
+               f"{info['latency_ms_p50']:.1f}/{info['latency_ms_p99']:.1f} "
+               f"ms, " if res.outputs else "")
+            + f"steps {sum(steps_s):.3f} s, prefills {prefill_s:.3f} s, "
+            f"other {info['other_wall_s']:.3f} s of {wall:.3f} s, "
+            f"{replays} graph replays, launches {counts}")
+        return res, deaths, info
+
+    def same_tokens(label, outs, want):
+        for o in outs:
+            if not np.array_equal(o.tokens, want[o.uid]):
+                fail(f"router {label}: request {o.uid} tokens differ")
+
+    router, graphs, built = build_router(paged=True)
+    rec["build_s"] = built
+    # the first run after construction, budgets of 2: what the first steps
+    # of each replica cost (host ms of the step, which ends in its sync)
+    router.run([dataclasses.replace(r, max_new_tokens=2) for r in reqs])
+    rec["first_steps_ms"] = [[t * 1e3 for t in rep.walls]
+                             for rep in router.replicas]
+    counters_zero("phase 4d warm-up", graphs)
+
+    res0, _, rec["runs"]["r0_no_fault"] = route("r0", router, graphs, True)
+    st = res0.stats
+    if len(res0.outputs) != ROUTER_REQ or st.completed != ROUTER_REQ \
+            or st.rejected or st.retries or st.failovers:
+        fail(f"router r0: {st.as_dict()}")
+    for o in res0.outputs:
+        if o.tokens.shape != (reqs[o.uid].max_new_tokens,):
+            fail(f"router r0: request {o.uid} gave {o.tokens.shape} tokens")
+    same_tokens("r0 vs phase 4b (b)", res0.outputs[:len(outs_4b)],
+                {o.uid: o.tokens for o in outs_4b})
+    tok0 = {o.uid: o.tokens for o in res0.outputs}
+    log(f"router: first steps of each replica after construction (ms) "
+        f"{[[round(t, 2) for t in ts[:3]] for ts in rec['first_steps_ms']]}"
+        f", r0's median step "
+        f"{[round(t, 2) for t in rec['runs']['r0_no_fault']['step_ms_p50']]}"
+        f" ms")
+
+    res1, deaths, info = route("r1", router, graphs, True,
+                               "crash@replica1.step:6")
+    st = res1.stats
+    if len(res1.outputs) != ROUTER_REQ or st.rejected:
+        fail(f"router r1: {st.completed} completed, {st.rejections}")
+    same_tokens("r1 vs r0", res1.outputs, tok0)
+    states = [p["state"] for p in st.per_replica]
+    failed = deaths[0]["live"]
+    if states != [HEALTHY, DEAD, HEALTHY] or st.failovers != len(failed) \
+            or st.retries < st.failovers or not failed:
+        fail(f"router r1: states {states}, {st.failovers} failovers and "
+             f"{st.retries} retries for {len(failed)} live requests")
+    done = {o.uid: o.finished_s for o in res1.outputs}
+    info["failover_s"] = max(done[u] for u in failed) - deaths[0]["at_s"]
+    rec["runs"]["r1_crash"] = info
+    log(f"router r1: replica 1 died at {deaths[0]['at_s'] * 1e3:.1f} ms "
+        f"with {len(failed)} live requests {failed}; the last of them "
+        f"completed {info['failover_s'] * 1e3:.1f} ms later")
+
+    res2, _, rec["runs"]["r2_drain"] = route("r2", router, graphs, True,
+                                             "interrupt@replica0.step:10")
+    st = res2.stats
+    served = {o.uid for o in res2.outputs}
+    if not st.drained or not served \
+            or {r.reason for r in res2.rejected} != {"draining"} \
+            or sorted(served | {r.uid for r in res2.rejected}) \
+            != list(range(ROUTER_REQ)) \
+            or len(served) + len(res2.rejected) != ROUTER_REQ:
+        fail(f"router r2: drained={st.drained}, {len(served)} completed, "
+             f"{st.rejections}")
+    same_tokens("r2 vs r0", res2.outputs, tok0)
+
+    # one round of the three replicas' steps, all slots decoding, profiled
+    # as a round and replica by replica
+    with torch.inference_mode():
+        for rep in router.replicas:
+            rep.engine.start()
+        for i, r in enumerate(reqs[:REPLICAS * ROUTER_SLOTS]):
+            if not router.replicas[i % REPLICAS].engine.try_admit(r):
+                fail("router profile: admission refused")
+
+        def round_():
+            for rep in router.replicas:
+                rep.engine.step()
+
+        round_()
+        busy = {"round": profiled_steps(round_, 4)}
+        for rep in router.replicas:
+            busy[f"replica{rep.idx}"] = profiled_steps(rep.engine.step, 4)
+    # busy share: device ms over the profiled wall, and over r0's
+    # unprofiled median step (the round: the three medians summed)
+    med = rec["runs"]["r0_no_fault"]["step_ms_p50"]
+    for key, d in busy.items():
+        if not isinstance(d["device_ms_per_step"], str):
+            d["busy_share"] = (d["device_ms_per_step"]
+                               / d["profiled_wall_ms_per_step"])
+            d["busy_share_of_r0_step"] = d["device_ms_per_step"] / (
+                sum(med) if key == "round" else med[int(key[-1])])
+    rec["busy"] = busy
+    counters_zero("phase 4d profile", graphs)
+    log(f"router: one round of {REPLICAS} replica steps (4 slots each): "
+        f"wall {busy['round']['profiled_wall_ms_per_step']:.3f} ms, device "
+        f"{busy['round']['device_ms_per_step']} ms, busy share "
+        f"{busy['round'].get('busy_share')} (of r0's median steps "
+        f"{busy['round'].get('busy_share_of_r0_step')}); alone: " + ", ".join(
+            f"replica {i} {busy[f'replica{i}']['device_ms_per_step']} of "
+            f"{busy[f'replica{i}']['profiled_wall_ms_per_step']:.3f} ms"
+            for i in range(REPLICAS)))
+
+    # r3: r1's schedule over contiguous int8 pools (flash_decode)
+    router_c, graphs_c, _ = build_router(paged=False)
+    res3, _, rec["runs"]["r3_contiguous_crash"] = route(
+        "r3", router_c, graphs_c, False, "crash@replica1.step:6")
+    if len(res3.outputs) != ROUTER_REQ or res3.stats.rejected:
+        fail(f"router r3: {res3.stats.as_dict()}")
+    same_tokens("r3 vs r0", res3.outputs, tok0)
+    del router_c, graphs_c
+
+    # beside them, not a router: one engine of 12 slots on the same trace
+    eng = ContinuousEngine(api, router.replicas[0].engine.params.tree(), qw8,
+                           paged=True, page_size=ps,
+                           **dict(kw, n_slots=REPLICAS * ROUTER_SLOTS))
+    eng.run([dataclasses.replace(r, max_new_tokens=2) for r in reqs])
+    _lib.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if _lib.COUNTERS["graph_replays"] != eng.stats.steps \
+            or len(outs) != ROUTER_REQ:
+        fail(f"12-slot engine: {len(outs)} outputs, "
+             f"{_lib.COUNTERS['graph_replays']} replays, "
+             f"{eng.stats.steps} steps")
+    same_tokens("12-slot engine vs r0", outs, tok0)
+    counters_zero("phase 4d 12-slot engine", [eng.graph])
+    rec["engine_12_slots"] = {**metrics(outs, wall),
+                              "steps": eng.stats.steps,
+                              "occupancy": eng.stats.occupancy()}
+    log(f"one engine of {REPLICAS * ROUTER_SLOTS} slots: "
+        f"{rec['engine_12_slots']['tokens_per_s']:.1f} tok/s in "
+        f"{eng.stats.steps} steps, beside the router's r0 "
+        f"{rec['runs']['r0_no_fault']['tokens_per_s']:.1f} tok/s "
+        f"({sum(p['steps'] for p in rec['runs']['r0_no_fault']['per_replica'])}"
+        f" replica steps); tokens equal per uid")
     return rec
 
 
@@ -1819,6 +2166,12 @@ def main() -> None:
     record["method"] = method
     phase_done("method")
 
+    # 4d. the replica router at full width ------------------------------
+    record["router"] = router_phase(api, params, qw8, cushion, w8_scales,
+                                    reqs, outs_b, PS, zero_counts,
+                                    counters_zero, profiled_steps)
+    phase_done("router")
+
     # 5. card vs the port's CPU engine on the same weights --------------
     def tree_map(fn, t):
         if isinstance(t, dict):
@@ -2120,6 +2473,8 @@ def main() -> None:
     for kk in kernels:
         if kk["launches"] <= 0:
             fail(f"{kk['name']} not launched on its path")
+        if record["router"]["launches"].get(kk["name"]):
+            kk["router_launches"] = record["router"]["launches"][kk["name"]]
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - t_start
     out_dir = ROOT / "chiprun_out"

@@ -12,8 +12,10 @@ in its on-disk format, so each side reads what the other writes:
 * the sha256 is verified on restore, and a ``keep``-newest garbage
   collection follows every save.
 
-Trees are nested dicts whose leaves are tensors or numpy arrays;
-``restore_tree`` returns nested dicts of CPU tensors in the stored dtypes.
+Trees are nested dicts (lists and tuples too) whose leaves are tensors or
+numpy arrays; ``restore_tree`` returns nested dicts of CPU tensors in the
+stored dtypes, ``restore(step, like=)`` the structure of ``like`` with each
+tensor leaf in its ``like`` leaf's dtype and on its device.
 """
 from __future__ import annotations
 
@@ -151,6 +153,36 @@ class CheckpointManager:
                 t = torch.from_numpy(np.array(data[f"a{i}"]))
                 node[parts[-1]] = t.to(_TORCH_DTYPES[manifest["dtypes"][i]])
         return tree, manifest
+
+    def restore(self, step: int, like: Any, verify: bool = True) -> Any:
+        """The saved tree in the structure of ``like`` (the reference's
+        ``restore`` without its shardings): tensor leaves come back in the
+        dtype and on the device of ``like``'s, other leaves as stored CPU
+        tensors. Raises ValueError when the structures differ."""
+        tree, manifest = self.restore_tree(step, verify)
+        if [k for k, _ in _flatten(like)] != manifest["keys"]:
+            raise ValueError("checkpoint/param-tree structure mismatch")
+
+        def stored(path):
+            node = tree
+            for p in "/".join(path).split("/"):
+                node = node[p]
+            return node
+
+        def rebuild(t, path):
+            if isinstance(t, dict):
+                return {k: rebuild(v, path + (str(k),)) for k, v in t.items()}
+            if isinstance(t, (list, tuple)):
+                items = [rebuild(v, path + (str(i),)) for i, v in enumerate(t)]
+                if hasattr(t, "_fields"):           # a NamedTuple
+                    return type(t)(*items)
+                return type(t)(items)
+            leaf = stored(path)
+            if isinstance(t, torch.Tensor):
+                return leaf.to(device=t.device, dtype=t.dtype)
+            return leaf
+
+        return rebuild(like, ())
 
     def _gc(self) -> None:
         steps = self.steps()

@@ -20,6 +20,16 @@ chunks between decode steps. It prints per-request TTFT/TPOT, the final
     python -m repro_torch.launch.serve --device cpu --mode continuous \
         --paged --page-size 32 --prefix-cache --chunk-tokens 16
 
+``--replicas N`` (continuous mode) sends the trace through the
+fault-tolerant replica router (``serving/router.py``) over N engines that
+share one copy of the weights; ``--chaos`` arms deterministic fault
+injection (``kind@site:step[:stall_s]``, comma-separated), ``--max-queue``
+bounds the admission queue. On one card every replica shares one fault
+domain: a real device fault fails them all.
+
+    python -m repro_torch.launch.serve --mode continuous --replicas 3 \
+        --chaos crash@replica1.step:6
+
 Weights are random, made from ``--seed``. The cushion is ``extract_cushion``
 of ``--cushion-len`` token ids drawn from the seed, or with ``--cushion DIR``
 the latest tuned artifact of a ``launch/tune.py --out-dir`` (of either
@@ -42,8 +52,10 @@ import torch
 from repro_torch.checkpoint.store import CheckpointManager
 from repro_torch.configs import QuantConfig, get_config
 from repro_torch.data.pipeline import Pipeline, SyntheticCorpus
+from repro_torch.distributed.fault_injection import FaultInjector
 from repro_torch.models.registry import build
 from repro_torch.serving.engine import Engine
+from repro_torch.serving.router import ReplicaRouter, RouterConfig
 from repro_torch.serving.scheduler import ContinuousEngine, Request
 
 CALIB_BATCHES = 2
@@ -243,6 +255,76 @@ def run_continuous(api, params, qcfg, args, calib_batches=None,
     return outs
 
 
+def run_router(api, params, qcfg, args, calib_batches=None, cushion=None,
+               scales=None):
+    """--replicas N: the trace goes through the fault-tolerant replica
+    router instead of a single engine. --chaos arms deterministic fault
+    injection; rejections, retries, failovers and per-replica health land
+    in the printed RouterStats."""
+    install_sigterm_drain()
+    dev = api.device
+    injector = None
+    if args.chaos:
+        injector = FaultInjector.parse(args.chaos, seed=args.chaos_seed)
+        print(f"[serve] chaos armed: {args.chaos} (seed {args.chaos_seed})")
+    reqs = poisson_trace(api.cfg.vocab_size, args.trace_seed,
+                         args.n_requests, args.rate,
+                         prompt_lens=(args.prompt_len, args.prompt_len + 8),
+                         budgets=(args.tokens, max(1, args.tokens // 2)),
+                         device=dev)
+    router = ReplicaRouter(
+        api, params, qcfg, n_replicas=args.replicas,
+        cfg=RouterConfig(max_queue=args.max_queue),
+        n_slots=args.slots, max_seq=args.prompt_len + 8 + args.tokens + 32,
+        cushion=cushion, scales=scales,
+        kv_dtype=None if args.kv_dtype == "fp" else args.kv_dtype,
+        calib_batches=calib_batches, prequant=args.prequant,
+        weight_bits=args.weight_bits,
+        paged=args.paged, page_size=args.page_size, n_pages=args.pages,
+        prefix_cache=args.prefix_cache, chunk_tokens=args.chunk_tokens)
+    st0 = router.replicas[0].engine.stats
+    print(f"[serve] device={dev} "
+          f"{torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}"
+          f" {args.replicas} replicas x {args.slots} slots, one copy of the "
+          f"resident weights: fp={st0.weight_bytes_fp / 2 ** 20:.1f} MiB "
+          f"int8={st0.weight_bytes_int8 / 2 ** 20:.1f} MiB "
+          f"int4={st0.weight_bytes_int4 / 2 ** 20:.1f} MiB")
+    if args.bench_json:
+        router.run(reqs)        # warm-up, without faults: allocator, build
+    res = router.run(reqs, injector=injector)
+    for o in res.outputs:
+        retry = f" attempts={o.attempts}" if o.attempts > 1 else ""
+        print(f"[serve]   req {o.uid}: replica {o.replica} slot {o.slot} "
+              f"n={len(o.tokens)} TTFT={o.ttft_ms:.1f}ms "
+              f"TPOT={o.tpot_ms:.2f}ms "
+              f"latency={o.latency_s * 1e3:.0f}ms{retry}")
+    for r in res.rejected:
+        print(f"[serve]   req {r.uid}: REJECTED ({r.reason})")
+    st = res.stats
+    print(f"[serve] router: {st.completed}/{st.submitted} completed, "
+          f"{st.rejected} rejected, {st.retries} retries, "
+          f"{st.failovers} failovers, {st.replica_deaths} deaths, "
+          f"queue peak {st.queue_depth_peak}, states "
+          f"{[p['state'] for p in st.per_replica]}")
+    if st.drained:
+        print("[serve] DRAINED: graceful shutdown completed the live slots")
+    if res.outputs:
+        lat = np.asarray([o.latency_s for o in res.outputs])
+        print(f"[serve] p50={np.percentile(lat, 50) * 1e3:.0f}ms "
+              f"p99={np.percentile(lat, 99) * 1e3:.0f}ms")
+    print(f"[serve] final stats: {st.as_dict()}")
+    if args.bench_json:
+        _append_point(args.bench_json, {
+            "mode": "router", "arch": args.arch, "quant": args.quant,
+            "replicas": args.replicas, "chaos": args.chaos or "",
+            "slots": args.slots, "rate": args.rate,
+            "n_requests": args.n_requests,
+            "device": (torch.cuda.get_device_name(dev)
+                       if dev.type == "cuda" else "cpu"),
+            **st.as_dict()})
+    return res
+
+
 def _append_point(path: str, point: dict) -> None:
     hist = []
     if os.path.exists(path):
@@ -282,6 +364,20 @@ def main(argv=None):
     ap.add_argument("--trace-seed", type=int, default=None,
                     help="seed of the trace (arrivals, prompts, budgets); "
                          "defaults to --seed")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="continuous: serve through the replica router over "
+                         "N engine replicas (health checks, retries, "
+                         "backpressure, drain) that share the weights")
+    ap.add_argument("--chaos", default=None,
+                    help="router: comma-separated fault specs "
+                         "kind@site:step[:stall_s], e.g. "
+                         "crash@replica1.step:12 (kinds: crash, stall, "
+                         "heartbeat, interrupt)")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="seed for randomized fault schedules")
+    ap.add_argument("--max-queue", type=int, default=64,
+                    help="router: bounded admission queue size (overflow "
+                         "-> explicit queue_full rejection)")
     ap.add_argument("--paged", action="store_true",
                     help="continuous: paged KV pool (serving/paging.py)")
     ap.add_argument("--page-size", type=int, default=64,
@@ -319,6 +415,9 @@ def main(argv=None):
     if args.mode != "continuous" and (args.paged or args.chunk_tokens
                                       is not None):
         ap.error("--paged / --chunk-tokens require --mode continuous")
+    if (args.replicas > 1 or args.chaos) and args.mode != "continuous":
+        ap.error("--replicas/--chaos require --mode continuous (the "
+                 "router fronts ContinuousEngine replicas)")
     if args.prefix_cache and (not args.paged or args.kv_dtype != "fp"):
         ap.error("--prefix-cache requires --paged and --kv-dtype fp")
     if args.trace_seed is None:
@@ -347,6 +446,9 @@ def main(argv=None):
         calib = [to_device(pipe.get_batch(1000 + i), dev)
                  for i in range(CALIB_BATCHES)]
     if args.mode == "continuous":
+        if args.replicas > 1 or args.chaos:
+            return run_router(api, params, qcfg, args, calib_batches=calib,
+                              cushion=cushion, scales=art_scales)
         return run_continuous(api, params, qcfg, args, calib_batches=calib,
                               cushion=cushion, scales=art_scales)
     batch = to_device(pipe.get_batch(0), dev)

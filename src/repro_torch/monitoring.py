@@ -1,11 +1,12 @@
 """Counters (``repro/monitoring.py``): ``resident_weight_bytes``, the
-continuous scheduler's ``ServeStats``, and the host-sync accounting of the
-prefix-tuning loop (``host_sync``, ``count_host_syncs``)."""
+continuous scheduler's ``ServeStats``, the replica router's
+``RouterStats``, and the host-sync accounting of the prefix-tuning loop
+(``host_sync``, ``count_host_syncs``)."""
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Iterator, List, Tuple
+from typing import Any, Dict, Iterator, List, Tuple
 
 import torch
 
@@ -100,6 +101,47 @@ class ServeStats:
 
     def as_dict(self) -> dict:
         return {**dataclasses.asdict(self), "occupancy": self.occupancy()}
+
+
+@dataclasses.dataclass
+class RouterStats:
+    """Replica-router counters (serving/router.py).
+
+    ``retries`` counts re-enqueues of a request after a failed attempt
+    (admission error, replica crash); ``failovers`` counts requests moved
+    off a dying replica specifically. ``rejections`` buckets explicit
+    backpressure/deadline rejections by reason string. ``queue_depth_peak``
+    is the high-water mark of the bounded admission queue — the
+    backpressure signal. ``per_replica`` snapshots each replica's
+    ``ServeStats`` (and health state) at collection time."""
+    n_replicas: int = 0
+    submitted: int = 0          # requests accepted into the admission queue
+    completed: int = 0          # requests finished with a result
+    retries: int = 0            # re-enqueues after a failed attempt
+    failovers: int = 0          # live requests moved off a dying replica
+    replica_deaths: int = 0     # replicas transitioned to DEAD
+    queue_depth_peak: int = 0   # admission-queue high-water mark
+    drained: bool = False       # run ended via graceful drain
+    rejections: Dict[str, int] = dataclasses.field(default_factory=dict)
+    per_replica: List[dict] = dataclasses.field(default_factory=list)
+
+    def reject(self, reason: str) -> None:
+        self.rejections[reason] = self.rejections.get(reason, 0) + 1
+
+    @property
+    def rejected(self) -> int:
+        return sum(self.rejections.values())
+
+    def reset(self) -> None:
+        self.submitted = self.completed = 0
+        self.retries = self.failovers = self.replica_deaths = 0
+        self.queue_depth_peak = 0
+        self.drained = False
+        self.rejections = {}
+        self.per_replica = []
+
+    def as_dict(self) -> dict:
+        return {**dataclasses.asdict(self), "rejected": self.rejected}
 
 
 @dataclasses.dataclass

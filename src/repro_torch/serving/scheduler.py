@@ -45,9 +45,11 @@ the stem covers it (chunked prefill with the prefix cache on a recycled
 slot); the port then still decodes the static Engine's tokens where the
 reference does not.
 
-Incremental API: ``start()``, ``try_admit(req)``, ``step()``,
-``cancel(uid)``, ``pop_finished()``; ``run(trace)`` replays a trace on top
-of them and drains gracefully on ``KeyboardInterrupt``. Admission order,
+Incremental API (the replica router's contract, ``serving/router.py``):
+``start()``, ``try_admit(req)``, ``step()``, ``cancel(uid)``,
+``pop_finished()``, ``pop_expired()``, ``live_requests()``; ``run(trace)``
+replays a trace on top of them and drains gracefully on
+``KeyboardInterrupt``. Admission order,
 slot choice and page reservation arithmetic are the reference's, so the two
 assign the same slots to the same requests.
 
@@ -88,8 +90,9 @@ from repro_torch.serving.paging import PagePool
 class Request:
     """One generation request. batch: B=1 model inputs ({"tokens": (1, S)}).
     arrival_s is the trace-relative arrival time (0.0 = available at once);
-    deadline_s, when set, is the trace-relative instant after which a
-    PREFILLING stream is dropped between chunks."""
+    deadline_s, when set, is the trace-relative instant after which the
+    request is worthless: a PREFILLING stream is dropped between chunks,
+    and the router rejects it from its queue or cancels it mid-decode."""
     uid: int
     batch: Dict[str, Any]
     max_new_tokens: int
@@ -392,6 +395,7 @@ class ContinuousEngine:
         self._results: Dict[int, RequestOutput] = {}
         self._ttft: Dict[int, float] = {}
         self._streams: collections.deque = collections.deque()
+        self._expired: List[int] = []
         self._t0 = time.perf_counter()
 
     def now(self) -> float:
@@ -408,11 +412,29 @@ class ContinuousEngine:
 
     @property
     def prefilling(self) -> int:
-        """Admission streams currently mid-prefill (PREFILLING slots)."""
+        """Admission streams currently mid-prefill (PREFILLING slots). The
+        router must keep stepping an engine whose only work is a stream."""
         return len(self._streams)
 
     def is_prefilling(self, uid: int) -> bool:
+        """True while ``uid`` is a PREFILLING slot. The engine enforces
+        these deadlines between chunks itself (``pop_expired``); the router
+        leaves them out of its mid-decode deadline sweep, so the rejection
+        reason stays ``deadline-prefill``."""
         return any(st.req.uid == uid for st in self._streams)
+
+    def pop_expired(self) -> List[int]:
+        """Drain the uids of streams retired between chunks for missing
+        their deadline (no result was produced; the router maps them to
+        ``deadline-prefill`` rejections and clears its inflight entry)."""
+        out, self._expired = self._expired, []
+        return out
+
+    def live_requests(self) -> List[Request]:
+        """Requests holding a slot: live decoders and PREFILLING streams
+        (the router fails them over to surviving replicas when this engine
+        dies)."""
+        return [s.req for s in self._slots if s.req is not None]
 
     @torch.inference_mode()
     def try_admit(self, req: Request) -> bool:
@@ -734,6 +756,7 @@ class ContinuousEngine:
             self._publish_gauges()
         if expired:
             self.stats.deadline_prefill += 1
+            self._expired.append(st.req.uid)
 
     def _book_admission(self, req: Request, slot: int, first: int,
                         tpf: float) -> None:

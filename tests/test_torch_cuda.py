@@ -960,6 +960,114 @@ def test_prefix_tune_card_equal_cpu(tiny_card):
         assert not torch.equal(card.cushion["kv"][k], s["cushion"]["kv"][k])
 
 
+@pytest.fixture(scope="module")
+def router_card():
+    """The replica router on the card over a reduced smollm (its widths,
+    heads and tied head, 2 layers, a 2048-id vocabulary): 3 replicas x 2
+    paged int8 slots, W8A8 prequantized, a 4-token cushion, pt_static
+    scales; 9 requests queued at once (prompts 24 / 40, budgets 8 / 5)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA unavailable)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import numpy as np
+    from repro_torch.configs import QuantConfig, get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.core.calibration import calibrate
+    from repro_torch.launch.serve import seeded_cushion
+    from repro_torch.models.registry import build
+    from repro_torch.serving.router import ReplicaRouter, RouterConfig
+    from repro_torch.serving.scheduler import Request
+    dev = torch.device("cuda")
+    cfg = reduced(get_config("smollm-360m"), n_layers=2, d_model=960,
+                  n_heads=15, n_kv_heads=5, d_head=0, d_ff=2560,
+                  vocab_size=2048)
+    api = build(cfg, dev)
+    params = api.init_params(torch.Generator(dev).manual_seed(0))
+    cushion = seeded_cushion(api, params, 4, seed=0)
+    qw8 = QuantConfig(mode="pt_static", true_int8=True)
+    rs = np.random.RandomState(9)
+
+    def tokens(b, s):
+        return {"tokens": torch.as_tensor(
+            rs.randint(0, cfg.vocab_size, (b, s)).astype(np.int32),
+            device=dev)}
+
+    scales, _ = calibrate(api, params, [tokens(2, 48)], qw8, cushion=cushion)
+    reqs = [Request(uid=i, batch=tokens(1, (24, 40)[i % 2]),
+                    max_new_tokens=(8, 5)[i % 2]) for i in range(9)]
+    router = ReplicaRouter(api, params, qw8, n_replicas=3,
+                           cfg=RouterConfig(backoff_base_s=0.0),
+                           n_slots=2, max_seq=96, cushion=cushion,
+                           scales=scales, kv_dtype="int8", prequant=True,
+                           paged=True, page_size=16)
+    return dict(api=api, params=params, cushion=cushion, scales=scales,
+                qw8=qw8, reqs=reqs, router=router,
+                graphs=[rep.engine.graph for rep in router.replicas])
+
+
+def _router_run(s, chaos=None):
+    """One run of the card's router: its result, with the graph replays
+    held to the replicas' steps, no graph captured again, and every merge
+    counter and workspace zero afterwards."""
+    from repro_torch.distributed.fault_injection import FaultInjector
+    router = s["router"]
+    _lib.reset_launches()
+    res = router.run(s["reqs"], injector=(FaultInjector.parse(chaos)
+                                          if chaos else None))
+    torch.cuda.synchronize()
+    steps = sum(p["steps"] for p in res.stats.per_replica)
+    assert _lib.COUNTERS["graph_replays"] == steps > 0
+    assert all(rep.engine.graph is g
+               for rep, g in zip(router.replicas, s["graphs"]))
+    _counters_zero(s["graphs"])
+    # one copy of the weights: every int8 weight leaf at one address
+    ptrs = {tuple(t.data_ptr() for t in rep.engine.params.buffers()
+                  if t.dtype == torch.int8) for rep in router.replicas}
+    assert len(ptrs) == 1 and len(next(iter(ptrs))) > 0
+    return res
+
+
+def test_router_kill_one_of_three_on_card(router_card):
+    """Replica 1 crashes at its third step: every request completes with
+    the tokens of the no-fault run and of the static B = 1 Engine, per
+    uid (replica and slot may differ)."""
+    from repro_torch.serving.engine import Engine
+    s = router_card
+    base = _router_run(s)
+    assert len(base.outputs) == 9 and not base.rejected
+    assert base.stats.replica_deaths == base.stats.retries == 0
+    res = _router_run(s, "crash@replica1.step:2")
+    st = res.stats
+    assert len(res.outputs) == 9 and not res.rejected
+    assert st.replica_deaths == 1 and st.failovers >= 1
+    assert st.retries >= st.failovers
+    assert [p["state"] for p in st.per_replica] == \
+        ["HEALTHY", "DEAD", "HEALTHY"]
+    assert sum(p["consecutive_errors"] for p in st.per_replica) == 0
+    want = {o.uid: o.tokens for o in base.outputs}
+    for o in res.outputs:
+        assert (o.tokens == want[o.uid]).all(), o.uid
+    eng = Engine(s["api"], s["params"], s["qw8"], cushion=s["cushion"],
+                 scales=s["scales"], max_seq=96, kv_dtype="int8",
+                 prequant=True)
+    for r in s["reqs"]:
+        got = eng.generate_py(r.batch, r.max_new_tokens).tokens[0]
+        assert (got == want[r.uid]).all(), r.uid
+
+
+def test_router_drain_on_card(router_card):
+    """An interrupt at replica 0's third step drains: the live requests
+    finish with the no-fault tokens, the rest are rejected as draining."""
+    s = router_card
+    base = {o.uid: o.tokens for o in _router_run(s).outputs}
+    res = _router_run(s, "interrupt@replica0.step:2")
+    assert res.stats.drained and res.stats.replica_deaths == 0
+    assert res.outputs and {r.reason for r in res.rejected} == {"draining"}
+    assert len(res.outputs) + len(res.rejected) == len(s["reqs"])
+    for o in res.outputs:
+        assert (o.tokens == base[o.uid]).all(), o.uid
+
+
 def test_capture_with_a_host_sync_raises(dev):
     """A step that syncs with the host cannot be captured: the capture
     raises, nothing runs eagerly in its place, and the card still works
