@@ -62,7 +62,11 @@ Phases, each fatal on failure:
    (``--quant none``, fp KV), W4A8 (int4-packed weights, the same scales,
    int8 KV; resident int4 bytes exactly half the W8A8 int8 bytes) and
    ``ptoken_dynamic`` (fp KV) the same way; every split-KV merge counter
-   and split-K workspace is zero afterwards;
+   and split-K workspace is zero afterwards; then SmoothQuant's fold
+   (``apply_smoothquant``, alpha 0.8) from the phase's calibration
+   statistics, recalibrated and prequantized, serving B=1 (64-token
+   prompt, 8 tokens) in W8A8 with int8 KV, the largest ``mlp_in`` channel
+   max lower after the fold than before;
 4b. the continuous path at full width, same model, cushion, scales and
    weights, 4 slots, 12 requests queued at once (prompts 512 / 520 tokens,
    budgets 64 / 32): (a) contiguous int8 pool; (b) paged int8 pool (page
@@ -124,6 +128,28 @@ Phases, each fatal on failure:
    the three replicas' steps is profiled, as a round and replica by
    replica; beside the router, one ``ContinuousEngine`` of 12 slots on
    r0's trace gives r0's tokens per uid and its tokens/s;
+4e. the MoE family at full width: olmoe-1b-7b (16 layers, 64 experts,
+   top-8, capacity factor 1.25, bf16, seeded random weights), a 4-token
+   cushion, pt_static scales from phase 4's 2 calibration batches,
+   int8-resident attention and head (the experts stay fp and are
+   fake-quantized per call, as in the reference), int8 KV:
+   ``Engine.generate`` for B=4, a 512-token prompt and 32 new tokens in
+   W8A8 and in fp, the decode step a CUDA graph replayed once per token,
+   launch counts exact, graph tokens = the eager loop's, five requests for
+   the quartiles; the replayed W8A8 step's device time split into the
+   ported kernels (by name in the profile) and the MoE's parts timed alone
+   at the step's shapes (the experts' weight fake-quant, the expert
+   einsums, the dispatch and combine, the activation fake-quant); every
+   ported kernel of the path at olmoe's shapes (head_dim 128) against its
+   plain version, timed beside it and its bound (``moe_*`` in the kernels
+   line); a paged
+   int8 ``ContinuousEngine`` of 4 slots over 8 requests with exact
+   launches, every request's tokens = the static B=1 Engine's; a short
+   ``discover`` under pt_dynamic (16 candidates, the prefix padded to 4
+   rows, 2 seed tokens) and 3 ``prefix_tune`` steps with exact launches;
+   the card's teacher-forced logits against the port's CPU version at 2 of
+   the 16 layers in fp and W8A8 (``MOE_LOGIT_TOL``); the peak device
+   memory and the phase's seconds; the model is released afterwards;
 5. the card's Engine against the port's CPU Engine on the same weights,
    scales and cushion (B=1, 64-token prompt, 8 tokens) in all four phase-4
    modes: teacher-forced logits within the stated bf16 tolerance,
@@ -133,7 +159,8 @@ Phases, each fatal on failure:
    static ptoken run for ``act_quant_ptoken`` and from phase 4c's tuning
    for ``flash_attention_bwd``; ``act_quant_static`` timed over a prefill,
    where it runs, with its fused cost at decode beside; the router runs'
-   launches of phase 4d beside, as ``router_launches``), then
+   launches of phase 4d beside, as ``router_launches``, and phase 4e's,
+   as ``moe_launches``), then
    ``{"ok": true, ...}`` as the last line.
 
 Exits nonzero with no result line when CUDA is unavailable or when the port
@@ -141,6 +168,7 @@ is missing (the script alone, outside a checkout). Writes the full record to
 ``chiprun_out/chip_smoke.json``.
 """
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -937,6 +965,688 @@ def router_phase(api, params, qw8, cushion, scales, reqs_4b, outs_4b, ps,
         f"({sum(p['steps'] for p in rec['runs']['r0_no_fault']['per_replica'])}"
         f" replica steps); tokens equal per uid")
     return rec
+
+
+def smoothquant_step(api, params, cfg, calib, batch, cushion, qw8):
+    """Phase 4's SmoothQuant sub-step on smollm-360m: fold the model with
+    ``apply_smoothquant`` from its calibration statistics under the
+    cushion, recalibrate, prequantize, and serve B=1 (a 64-token prompt, 8
+    tokens) in W8A8 with int8 KV; the largest ``mlp_in`` channel max falls
+    (``tests/test_substrate.py``'s check)."""
+    import torch
+    from repro_torch.core.calibration import calibrate
+    from repro_torch.core.smoothquant import apply_smoothquant
+    from repro_torch.serving.engine import Engine
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        _, stats = calibrate(api, params, calib, qw8, cushion=cushion)
+        sm = apply_smoothquant(params, stats, cfg, alpha=0.8)
+        scales, stats2 = calibrate(api, sm, calib, qw8, cushion=cushion)
+    before = float(stats["layers"]["mlp_in"]["absmax_ch"].float().max())
+    after = float(stats2["layers"]["mlp_in"]["absmax_ch"].float().max())
+    eng = Engine(api, sm, qw8, cushion=cushion, scales=scales, max_seq=128,
+                 kv_dtype="int8", prequant=True)
+    toks = eng.generate({"tokens": batch["tokens"][:1, :64]}, 8).tokens
+    if toks.shape != (1, 8) or toks.min() < 0 or toks.max() >= \
+            cfg.vocab_size:
+        fail(f"smoothquant: bad tokens {toks}")
+    rec = {"mlp_in_absmax_before": before, "mlp_in_absmax_after": after,
+           "alpha": 0.8, "tokens": toks[0].tolist(),
+           "weight_bytes_int8": eng.weight_bytes_int8,
+           "seconds": time.perf_counter() - t0}
+    log(f"smoothquant (alpha 0.8): largest mlp_in channel max {before:.4g} "
+        f"-> {after:.4g}; W8A8 int8-KV Engine on the folded model: tokens "
+        f"{rec['tokens']} ({rec['seconds']:.1f} s)")
+    if not after < before:
+        fail("smoothquant did not lower the largest mlp_in channel max")
+    return rec
+
+
+# phase 4e, the MoE family at full width: olmoe-1b-7b (16 layers, 64
+# experts, top-8, capacity factor 1.25, bf16, ~13.8 GB of seeded random
+# weights) through both engines, the search and the tuning
+MOE_ARCH, MOE_NEW = "olmoe-1b-7b", 32
+MOE_REQ, MOE_PROMPTS, MOE_BUDGETS = 8, (128, 136), (16, 8)
+MOE_CANDIDATES, MOE_SEEDS, MOE_TUNE_STEPS = 16, (1, 198), 3
+# card vs CPU, olmoe at 2 of its 16 layers (full width): the CPU side at
+# full depth would hold 13.8 GB and take minutes. Both sides round to bf16
+# at the same points but reduce in other orders, the combine einsum
+# summing the 8 experts' outputs included, so values land one bf16 ulp
+# apart, and under W8A8 a code flips by one step of its site's range / 255
+# (phase 5's sources, over 2 layers, not 32). One source is the MoE's own:
+# a token whose 8th and 9th gate probabilities nearly tie can take another
+# expert on one side (the gate logits see the one-ulp differences of their
+# bf16 input), which moves that position's MoE output by the expert's
+# share, up to O(1) at that position and little elsewhere. So the largest
+# error is held at 1.0 and the mean at phase 5's: a fault (a wrong scale,
+# slot, expert or position) moves every logit by O(1). The routing
+# disagreements of the prefill are counted and printed.
+# mode: (largest |card - cpu|, mean |card - cpu|)
+MOE_LOGIT_TOL = {"fp": (1.0, 0.05), "w8a8_int8kv": (1.0, 0.1)}
+MOE_CMP_LAYERS, MOE_CMP_PROMPT, MOE_CMP_TOKENS = 2, 64, 4
+# the names of the port's own kernels in a profiler trace
+PORTED = re.compile(r"act_quant_|flash_attention|attn_bwd|flash_decode|"
+                    r"int_matmul")
+
+
+def moe_kernels(cfg, dev, timed, pos_static, smax_static, smax_pool):
+    """The ported kernels at olmoe's shapes (head_dim 128, 16 heads, d_model
+    2048), each against its plain version on the same inputs: the int
+    matmul quantizing bf16 A at decode (M = B, every site of a step) and on
+    int8 codes at prefill (M = B * PROMPT), ``act_quant_static`` at
+    prefill, both held ``torch.equal``; ``flash_attention`` (B, PROMPT
+    behind the cushion), ``flash_decode`` (int8, (K,) scales, the static
+    engine's cache) and ``flash_decode_paged`` (int8 pages, (B, K) scales,
+    the continuous pool's), within one bf16 ulp of the plain version (1e-6
+    floor), the paged one also ``torch.equal`` to the contiguous one on the
+    gathered pool; ``flash_attention_bwd`` (the tuning's shape) within one
+    bf16 ulp plus 1e-5 of the largest entry. Each is timed over the calls
+    of its unit beside the plain version and its bound. Returns {kernel:
+    row}."""
+    import torch
+    from repro_torch.kernels.act_quant import (act_quant_static,
+                                               act_quant_static_plain)
+    from repro_torch.kernels.flash_attention import (
+        _launch, flash_attention, flash_attention_bwd,
+        flash_attention_bwd_plain, flash_attention_plain)
+    from repro_torch.kernels.flash_decode import (
+        flash_decode, flash_decode_paged, flash_decode_paged_plain,
+        flash_decode_plain, gather_pages)
+    from repro_torch.kernels.w8a8_matmul import (
+        quant_w8a8_matmul, quant_w8a8_matmul_plain, w8a8_matmul,
+        w8a8_matmul_plain)
+
+    bf = torch.bfloat16
+    L, D, H, K, hd = (cfg.n_layers, cfg.d_model, cfg.n_heads,
+                      cfg.n_kv_heads, cfg.head_dim)
+    V = cfg.vocab_size
+    g = torch.Generator(dev).manual_seed(21)
+    rows = {}
+
+    def within(name, got, want, floor=1e-6):
+        err = (got.float() - want.float()).abs()
+        if not bool((err <= BF16_ULP * want.float().abs() + floor).all()):
+            fail(f"olmoe {name}: {float(err.max()):.3g} beyond one bf16 ulp")
+        return float(err.max())
+
+    def scalar(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    # the int matmuls: (K, N) of the qkv and o sites and the untied head
+    sites = {"qkv": (D, (H + 2 * K) * hd, L),
+             "o": (H * hd, D, L), "head": (D, V, 1)}
+    s_x, z_x = scalar(0.031), scalar(111.0)
+    dec = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    pre = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    xa = torch.randn((B * PROMPT, D), generator=g, device=dev).to(bf) * 3
+    for name, (Kd, N, n) in sites.items():
+        w = torch.randint(-127, 128, (Kd, N), generator=g, device=dev,
+                          dtype=torch.int8)
+        s_w = torch.tensor(0.002, dtype=bf, device=dev)
+        cs = w.sum(0, dtype=torch.int32)
+        x = torch.randn((B, Kd), generator=g, device=dev).to(bf) * 3
+        args = (x, w, s_x, z_x, s_w, cs)
+        if not torch.equal(quant_w8a8_matmul(*args, out_dtype=bf),
+                           quant_w8a8_matmul_plain(*args, out_dtype=bf)):
+            fail(f"olmoe w8a8_matmul {name} (M={B}): not bit-exact")
+        dec["ms"] += n * timed(lambda: quant_w8a8_matmul(*args,
+                                                         out_dtype=bf))
+        dec["plain_ms"] += n * timed(
+            lambda: quant_w8a8_matmul_plain(*args, out_dtype=bf), 3)
+        dec["bound_ms"] += n * bound_ms(2 * B * Kd + Kd * N + 4 * N
+                                        + 2 * B * N, 2.0 * B * Kd * N,
+                                        INT8_OPS_PER_S)[0]
+        if name == "head":
+            continue
+        xq = act_quant_static(xa[:, :Kd].contiguous(), s_x, z_x)
+        pa = (xq, w, s_x, z_x, s_w, cs, -128.0, bf)
+        if not torch.equal(w8a8_matmul(*pa), w8a8_matmul_plain(*pa)):
+            fail(f"olmoe w8a8_matmul {name} (M={B * PROMPT}): not "
+                 f"bit-exact")
+        M = B * PROMPT
+        pre["ms"] += n * timed(lambda: w8a8_matmul(*pa))
+        pre["plain_ms"] += n * timed(lambda: w8a8_matmul_plain(*pa), 3)
+        pre["bound_ms"] += n * bound_ms(M * Kd + Kd * N + 4 * N + 2 * M * N,
+                                        2.0 * M * Kd * N, INT8_OPS_PER_S)[0]
+    rows["w8a8_matmul"] = {
+        "unit": f"one olmoe decode step ({2 * L + 1} calls, M={B}, bf16 x "
+                f"quantized in the staging)", **dec, "bound_by": "bytes",
+        "max_abs_err": 0.0,
+        **{f"prefill_{k}": v for k, v in pre.items()},
+        "prefill_unit": f"one olmoe prefill ({2 * L} calls at the layer "
+                        f"sites, M={B * PROMPT})"}
+    xp = xa.contiguous()
+    if not torch.equal(act_quant_static(xp, s_x, z_x),
+                       act_quant_static_plain(xp, s_x, z_x)):
+        fail("olmoe act_quant_static: not bit-exact")
+    M = B * PROMPT
+    rows["act_quant_static"] = {
+        "unit": f"one olmoe prefill ({2 * L} calls, M={M}, D={D})",
+        "ms": 2 * L * timed(lambda: act_quant_static(xp, s_x, z_x)),
+        "plain_ms": 2 * L * timed(lambda: act_quant_static_plain(
+            xp, s_x, z_x), 3),
+        "bound_ms": 2 * L * bound_ms(3 * M * D, 0.0, INT8_OPS_PER_S)[0],
+        "bound_by": "bytes", "max_abs_err": 0.0}
+
+    # prefill attention
+    T = PROMPT + CUSHION
+    q = torch.randn((B, H, PROMPT, hd), generator=g, device=dev).to(bf)
+    k = torch.randn((B, K, T, hd), generator=g, device=dev).to(bf)
+    v = torch.randn((B, K, T, hd), generator=g, device=dev).to(bf)
+    err = within("flash_attention", flash_attention(q, k, v,
+                                                    prefix_len=CUSHION),
+                 flash_attention_plain(q, k, v, prefix_len=CUSHION))
+    pairs = B * H * (PROMPT * CUSHION + PROMPT * (PROMPT + 1) / 2)
+    bms, by = bound_ms(2 * (2 * B * H * PROMPT * hd + 2 * B * K * T * hd),
+                       4.0 * hd * pairs, BF16_FLOPS_PER_S)
+    rows["flash_attention"] = {
+        "unit": f"one olmoe prefill ({L} calls, B={B}, S={PROMPT}, "
+                f"m={CUSHION}, hd={hd})",
+        "ms": L * timed(lambda: flash_attention(q, k, v,
+                                                prefix_len=CUSHION)),
+        "plain_ms": L * timed(lambda: flash_attention_plain(
+            q, k, v, prefix_len=CUSHION), 3),
+        "bound_ms": L * bms, "bound_by": by, "max_abs_err": err}
+
+    # decode attention: the static engine's int8 cache, (K,) scales
+    qd = torch.randn((B, H, hd), generator=g, device=dev).to(bf)
+    kq = torch.randint(-127, 128, (B, smax_static, K, hd), generator=g,
+                       device=dev, dtype=torch.int8)
+    vq = torch.randint(-127, 128, (B, smax_static, K, hd), generator=g,
+                       device=dev, dtype=torch.int8)
+    ks = torch.rand((K,), generator=g, device=dev) * 0.05 + 0.01
+    kc = torch.randn((CUSHION, K, hd), generator=g, device=dev).to(bf)
+    pos = torch.tensor(pos_static, dtype=torch.int32, device=dev)
+    a = (qd, kq, vq, pos, ks, ks, kc, kc)
+    err = within("flash_decode", flash_decode(*a), flash_decode_plain(*a))
+    by_ = (4 * B * H * hd + 2 * B * (pos_static + 1 - CUSHION) * K * hd
+           + 4 * CUSHION * K * hd + 8 * K)
+    bms, by = bound_ms(by_, 4.0 * B * H * hd * (pos_static + 1),
+                       BF16_FLOPS_PER_S)
+    rows["flash_decode"] = {
+        "unit": f"one olmoe decode step ({L} calls, int8 KV, (K,) scales, "
+                f"B={B}, pos={pos_static} of {smax_static})",
+        "ms": L * timed(lambda: flash_decode(*a)),
+        "plain_ms": L * timed(lambda: flash_decode_plain(*a), 3),
+        "bound_ms": L * bms, "bound_by": by, "max_abs_err": err}
+
+    # the continuous pool's paged decode: pages of 64, (B, K) scales, a
+    # shuffled table, rows at different positions
+    P = smax_pool // 64
+    n_pages = B * P + 1
+    table = (torch.randperm(n_pages - 1, generator=g, device=dev) + 1) \
+        .to(torch.int32).reshape(B, P)
+    kp = torch.randint(-127, 128, (n_pages, 64, K, hd), generator=g,
+                       device=dev, dtype=torch.int8)
+    vp = torch.randint(-127, 128, (n_pages, 64, K, hd), generator=g,
+                       device=dev, dtype=torch.int8)
+    ksb = torch.rand((B, K), generator=g, device=dev) * 0.05 + 0.01
+    posb = torch.tensor([CUSHION + 140 + 10 * i for i in range(B)],
+                        dtype=torch.int32, device=dev)
+    pa = (qd, kp, vp, table, posb, ksb, ksb, kc, kc)
+    got = flash_decode_paged(*pa)
+    err = within("flash_decode_paged", got, flash_decode_paged_plain(*pa))
+    if not torch.equal(got, flash_decode(qd, gather_pages(kp, table),
+                                         gather_pages(vp, table), posb, ksb,
+                                         ksb, kc, kc)):
+        fail("olmoe flash_decode_paged: not bit-identical to flash_decode "
+             "on the gathered pool")
+    live = int(posb.sum()) + B - B * CUSHION
+    bms, by = bound_ms(4 * B * H * hd + 2 * live * K * hd
+                       + 4 * CUSHION * K * hd + 8 * B * K + 4 * B * P,
+                       4.0 * H * hd * (int(posb.sum()) + B),
+                       BF16_FLOPS_PER_S)
+    rows["flash_decode_paged"] = {
+        "unit": f"one olmoe decode step of the continuous pool ({L} calls, "
+                f"int8 pages of 64, (B, K) scales, B={B}, pos "
+                f"{posb.tolist()})",
+        "ms": L * timed(lambda: flash_decode_paged(*pa)),
+        "plain_ms": L * timed(lambda: flash_decode_paged_plain(*pa), 3),
+        "bound_ms": L * bms, "bound_by": by, "max_abs_err": err}
+
+    # the backward at the tuning's shape
+    qb = torch.randn((TUNE_B, H, TUNE_S, hd), generator=g, device=dev) \
+        .to(bf)
+    Tb = TUNE_S + MAX_PREFIX
+    kb = torch.randn((TUNE_B, K, Tb, hd), generator=g, device=dev).to(bf)
+    vb = torch.randn((TUNE_B, K, Tb, hd), generator=g, device=dev).to(bf)
+    do = torch.randn(qb.shape, generator=g, device=dev).to(bf)
+    o, lse = _launch(qb, kb, vb, MAX_PREFIX, MAX_PREFIX, with_lse=True)
+    ba = (qb, kb, vb, o, lse, do, MAX_PREFIX, MAX_PREFIX)
+    errs = []
+    for got_, want_ in zip(flash_attention_bwd(*ba),
+                           flash_attention_bwd_plain(*ba)):
+        errs.append(within("flash_attention_bwd", got_, want_,
+                           1e-5 * float(want_.float().abs().max())))
+    pairs = TUNE_B * H * (TUNE_S * MAX_PREFIX + TUNE_S * (TUNE_S + 1) / 2)
+    bms, by = bound_ms(2 * (4 * TUNE_B * H * TUNE_S * hd
+                            + 4 * TUNE_B * K * Tb * hd)
+                       + 4 * TUNE_B * H * TUNE_S, 10.0 * hd * pairs,
+                       BF16_FLOPS_PER_S)
+    rows["flash_attention_bwd"] = {
+        "unit": f"one olmoe tuning step ({L} calls, B={TUNE_B}, "
+                f"S={TUNE_S}, m={MAX_PREFIX}, hd={hd})",
+        "ms": L * timed(lambda: flash_attention_bwd(*ba)),
+        "plain_ms": L * timed(lambda: flash_attention_bwd_plain(*ba), 3),
+        "bound_ms": L * bms, "bound_by": by, "max_abs_err": max(errs)}
+    for name, r in rows.items():
+        log(f"olmoe {name}: {r['unit']}: {r['ms']:.3f} ms (plain "
+            f"{r['plain_ms']:.3f}, bound {r['bound_ms']:.4f} by "
+            f"{r['bound_by']}), max |err| {r['max_abs_err']:.3g}")
+    return rows
+
+
+def moe_phase(dev, corpus, calib, batch, ps, zero_counts, counters_zero,
+              timed):
+    """Phase 4e: olmoe-1b-7b at full width (see the module docstring).
+    Returns the record; the model, its engines and graphs are released
+    when it returns."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import CushionConfig, QuantConfig, get_config
+    from repro_torch.core import cushioncache as CC
+    from repro_torch.core import quantization as TQ
+    from repro_torch.core.calibration import calibrate
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.serve import (poisson_trace, seeded_cushion,
+                                          to_device)
+    from repro_torch.models import moe as MO
+    from repro_torch.models.common import ParamTree
+    from repro_torch.models.registry import build
+    from repro_torch.serving.engine import Engine, cache_seq_len
+    from repro_torch.serving.scheduler import ContinuousEngine
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(MOE_ARCH)
+    L, V, E = cfg.n_layers, cfg.vocab_size, cfg.moe.num_experts
+    D, Fd, K = cfg.d_model, cfg.d_ff, cfg.moe.top_k
+    api = build(cfg, "cuda")
+    t0 = time.perf_counter()
+    params = api.init_params(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_weights = sum(t.numel() for t in params.buffers())
+    rec = {"arch": MOE_ARCH, "n_layers": L, "capacity_factor":
+           cfg.moe.capacity_factor, "weights": n_weights,
+           "init_s": time.perf_counter() - t0, "launches": {}}
+    if params.tree()["layers"]["moe"]["router"].dtype != torch.float32:
+        fail("olmoe: the router is not f32 in the bf16 model")
+    cushion = seeded_cushion(api, params, CUSHION, seed=0)
+    qw8 = QuantConfig(mode="pt_static", true_int8=True)
+    qdyn = QuantConfig(mode="pt_dynamic")
+    log(f"olmoe-1b-7b: {n_weights / 1e9:.3f} B weights "
+        f"({sum(t.numel() * t.element_size() for t in params.buffers()) / 1e9:.2f}"
+        f" GB) made in {rec['init_s']:.1f} s")
+
+    def add_launches(counts):
+        for k_, n_ in counts.items():
+            rec["launches"][k_] = rec["launches"].get(k_, 0) + n_
+
+    def check_tokens(label, toks, shape):
+        if toks.shape != shape or toks.min() < 0 or toks.max() >= V:
+            fail(f"olmoe {label}: bad tokens {toks.shape} "
+                 f"[{toks.min()}, {toks.max()}]")
+
+    # 1. the static Engine, W8A8 (int8 attention and head, fp experts,
+    # int8 KV) and fp: exact launches, one replay per token, graph tokens =
+    # the eager loop's, five requests for the quartiles
+    sites = 2 * L + 1                       # qkv, o per layer and the head
+    attn = {"flash_attention": L, "flash_decode": L * (MOE_NEW - 1)}
+    expect = {"w8a8_int8kv": {**zero_counts, **attn,
+                              "w8a8_matmul": sites * MOE_NEW,
+                              "act_quant_static": 2 * L,
+                              "act_quant_static_fused":
+                                  1 + sites * (MOE_NEW - 1)},
+              "fp": {**zero_counts, **attn}}
+    modes = {"w8a8_int8kv": (qw8, "int8", True), "fp": (QuantConfig(), None,
+                                                        False)}
+    engines, rec["static"] = {}, {}
+    for label, (qcfg, kv, pre) in modes.items():
+        eng = Engine(api, params, qcfg, cushion=cushion,
+                     max_seq=PROMPT + MOE_NEW + 32, kv_dtype=kv,
+                     calib_batches=calib if pre else None, prequant=pre)
+        eng.generate(batch, 4)               # warm-up; captures B's step
+        graph = eng.states[B].graph
+        _lib.reset_launches()
+        res = eng.generate(batch, MOE_NEW)
+        counts = dict(_lib.LAUNCHES)
+        replays = _lib.COUNTERS["graph_replays"]
+        check_tokens(label, res.tokens, (B, MOE_NEW))
+        if counts != expect[label]:
+            fail(f"olmoe {label}: launches {counts}, expected "
+                 f"{expect[label]}")
+        if replays != MOE_NEW - 1:
+            fail(f"olmoe {label}: {replays} graph replays")
+        add_launches(counts)
+        _lib.reset_launches()
+        eager = eng.generate_py(batch, MOE_NEW)
+        if not np.array_equal(eager.tokens, res.tokens):
+            fail(f"olmoe {label}: graph tokens differ from the eager step's")
+        if dict(_lib.LAUNCHES) != counts:
+            fail(f"olmoe {label}: eager launches differ from the graph's")
+        reps = [res] + [eng.generate(batch, MOE_NEW) for _ in range(4)]
+        for r in reps[1:]:
+            if not np.array_equal(r.tokens, res.tokens):
+                fail(f"olmoe {label}: a repeated request gave other tokens")
+        rec["static"][label] = {
+            "ttft_ms": res.ttft_ms, "tpot_ms": res.tpot_ms,
+            "launches": counts, "graph_replays": replays,
+            "graph": {"capture_s": graph.capture_s, "n_nodes": graph.n_nodes},
+            "eager_tpot_ms": eager.tpot_ms,
+            "weight_bytes_fp": eng.weight_bytes_fp,
+            "weight_bytes_int8": eng.weight_bytes_int8,
+            "repeats": quartiles(
+                ttft_ms=[r.ttft_ms for r in reps],
+                tpot_ms=[r.tpot_ms for r in reps],
+                tokens_per_s=[B * MOE_NEW * 1e3
+                              / (r.ttft_ms + r.tpot_ms * (MOE_NEW - 1))
+                              for r in reps])}
+        q = rec["static"][label]["repeats"]
+        log(f"olmoe {label}: B={B} prompt={PROMPT} new={MOE_NEW} "
+            f"m={CUSHION} TTFT quartiles {q['ttft_ms']} ms, TPOT "
+            f"{q['tpot_ms']} ms, tokens/s {q['tokens_per_s']} (eager loop "
+            f"TPOT {eager.tpot_ms:.2f} ms); weights fp="
+            f"{eng.weight_bytes_fp} B int8={eng.weight_bytes_int8} B; "
+            f"launches {counts}; {replays} replays, {graph.n_nodes} nodes")
+        engines[label] = eng
+    w8 = engines["w8a8_int8kv"]
+    fp_bytes = rec["static"]["fp"]["weight_bytes_fp"]
+    if not (w8.weight_bytes_int8 > 0 and w8.weight_bytes_fp < fp_bytes):
+        fail("olmoe: prequantization did not shrink the fp bytes")
+
+    # where a replayed W8A8 decode step's time goes: the graph profiled
+    # (its total and the ported kernels by name), and the MoE's parts
+    # timed alone at the step's shapes, once per layer
+    with torch.inference_mode():
+        st, _ = w8._run_prefill(batch)
+        st.step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                st.step()
+            torch.cuda.synchronize()
+    rows = by_kernel(prof, 4, top=None)
+    step_ms = sum(v[1] for v in rows.values())
+    ported_ms = sum(v[1] for k_, v in rows.items() if PORTED.search(k_))
+    lp = {k_: v[0] for k_, v in params.tree()["layers"]["moe"].items()}
+    sc = {s_: TQ.SiteScale(w8.scales[s_].scale[0], w8.scales[s_].zero[0])
+          for s_ in ("mlp_in", "down")}
+    C1 = MO.capacity(1, cfg)
+    g = torch.Generator(dev).manual_seed(9)
+    x1 = torch.randn(B, 1, D, generator=g, device=dev).to(torch.bfloat16)
+    xq = torch.randn(B, E, C1, D, generator=g, device=dev).to(torch.bfloat16)
+    hq = torch.randn(B, E, C1, Fd, generator=g, device=dev) \
+        .to(torch.bfloat16)
+    wq = {k_: TQ.weight_fake_quant(lp[k_], qw8)
+          for k_ in ("w_up", "w_gate", "w_down")}
+
+    def wfq():
+        for k_ in ("w_up", "w_gate", "w_down"):
+            TQ.weight_fake_quant(lp[k_], qw8)
+
+    def experts():
+        up = torch.einsum("becd,edf->becf", xq, wq["w_up"])
+        gate = torch.einsum("becd,edf->becf", xq, wq["w_gate"])
+        h = torch.nn.functional.silu(gate) * up
+        torch.einsum("becf,efd->becd", h, wq["w_down"])
+
+    def dispatch():
+        _, top_w, idx = MO.route(x1, lp["router"], K)
+        onehot = (idx[..., None] == torch.arange(E, device=dev)).float()
+        disp = MO.dispatch(onehot, C1).to(x1.dtype)
+        comb = torch.einsum("bsk,bskec->bsec", top_w.to(x1.dtype), disp)
+        torch.einsum("bsec,bsd->becd", disp.sum(2), x1)
+        torch.einsum("bsec,becd->bsd", comb, xq)
+
+    def act_fq():
+        TQ.act_fake_quant(xq, qw8, sc["mlp_in"].scale, sc["mlp_in"].zero)
+        TQ.act_fake_quant(hq, qw8, sc["down"].scale, sc["down"].zero)
+
+    with torch.inference_mode():
+        parts = {"weight_fake_quant": L * timed(wfq, iters=3),
+                 "expert_einsums": L * timed(experts, iters=5),
+                 "dispatch_combine": L * timed(dispatch, iters=5),
+                 "act_fake_quant": L * timed(act_fq, iters=5)}
+    del wq
+    expert_bytes = 3 * E * D * Fd * 2 * L
+    rec["decode_step"] = {
+        "device_ms": step_ms, "ported_kernels_ms": ported_ms,
+        "parts_timed_alone_ms": parts,
+        "rest_ms": step_ms - ported_ms - sum(parts.values()),
+        "rest_is": "the graph's total minus the ported kernels and the "
+                   "parts timed alone: norms, RoPE, the KV writes, the "
+                   "residual adds, the head's argmax",
+        "expert_weight_bytes": expert_bytes,
+        "bound_ms_expert_weights_once": expert_bytes / HBM_BYTES_PER_S * 1e3,
+        "by_kernel_top": dict(list(rows.items())[:12]),
+        "kernels_per_step": sum(v[0] for v in rows.values())}
+    log(f"olmoe W8A8 decode step (graph replay, B={B}): device "
+        f"{step_ms:.2f} ms; ported kernels {ported_ms:.3f} ms; timed alone "
+        f"x {L} layers: "
+        + ", ".join(f"{k_} {v:.2f} ms" for k_, v in parts.items())
+        + f"; rest {rec['decode_step']['rest_ms']:.2f} ms; bound of reading "
+        f"the expert weights once {rec['decode_step']['bound_ms_expert_weights_once']:.2f}"
+        f" ms")
+
+    # olmoe's shapes through every ported kernel of the path, against the
+    # plain versions
+    rec["kernels"] = moe_kernels(
+        cfg, dev, timed, CUSHION + PROMPT + MOE_NEW // 2,
+        cache_seq_len(PROMPT + MOE_NEW + 32),
+        cache_seq_len(max(MOE_PROMPTS) + max(MOE_BUDGETS) + 32))
+
+    # 2. the continuous path: 4 paged int8 slots, 8 requests at t = 0;
+    # every request's tokens = the static B = 1 W8A8 Engine's
+    reqs = poisson_trace(V, 3, MOE_REQ, 0.0, MOE_PROMPTS, MOE_BUDGETS,
+                         device=dev)
+    ce = ContinuousEngine(api, params, qw8, n_slots=4,
+                          max_seq=max(MOE_PROMPTS) + max(MOE_BUDGETS) + 32,
+                          cushion=cushion, scales=w8.scales, kv_dtype="int8",
+                          prequant=True, paged=True, page_size=ps)
+    ce.run([dataclasses.replace(r, max_new_tokens=2) for r in reqs[:4]])
+    _lib.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = ce.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_lib.LAUNCHES)
+    st_ = ce.stats
+    if _lib.COUNTERS["graph_replays"] != st_.steps:
+        fail(f"olmoe continuous: {_lib.COUNTERS['graph_replays']} replays, "
+             f"{st_.steps} steps")
+    n_pre = st_.admitted
+    want = {**zero_counts, "w8a8_matmul": sites * (n_pre + st_.steps),
+            "act_quant_static": 2 * L * n_pre,
+            "act_quant_static_fused": n_pre + sites * st_.steps,
+            "flash_attention": L * n_pre,
+            "flash_decode_paged": L * st_.steps}
+    if counts != want:
+        fail(f"olmoe continuous: launches {counts}, expected {want}")
+    add_launches(counts)
+    for r, o in zip(reqs, outs):
+        check_tokens(f"continuous {r.uid}", o.tokens, (r.max_new_tokens,))
+        got = w8.generate(r.batch, r.max_new_tokens).tokens[0]
+        if not np.array_equal(got, o.tokens):
+            fail(f"olmoe continuous request {r.uid}: tokens differ from "
+                 f"the static B=1 Engine's")
+    total = sum(len(o.tokens) for o in outs)
+    rec["continuous"] = {
+        "wall_s": wall, "tokens": total,
+        "tokens_per_s": total / max(o.finished_s for o in outs),
+        "ttft_ms_p50": float(np.percentile([o.ttft_ms for o in outs], 50)),
+        "tpot_ms_p50": float(np.percentile([o.tpot_ms for o in outs], 50)),
+        "steps": st_.steps, "launches": counts,
+        "graph_nodes": ce.graph.n_nodes}
+    log(f"olmoe continuous (4 paged int8 slots, {MOE_REQ} requests): "
+        f"{total} tokens in {wall:.2f} s "
+        f"({rec['continuous']['tokens_per_s']:.1f} tok/s), TTFT p50 "
+        f"{rec['continuous']['ttft_ms_p50']:.1f} ms, TPOT p50 "
+        f"{rec['continuous']['tpot_ms_p50']:.2f} ms, {st_.steps} steps = "
+        f"replays; launches exact; tokens = the static B=1 Engine's")
+    counters_zero("phase 4e", [ce.graph] + [s_.graph for e in engines.values()
+                                            for s_ in e.states.values()])
+
+    # 3. the method: a short discover (pt_dynamic, the KV-reuse search) and
+    # prefix tuning, launches exact
+    ccfg = CushionConfig(max_prefix_len=MAX_PREFIX, tau=1.0,
+                         sample_len=SAMPLE_LEN, n_candidates=MOE_CANDIDATES,
+                         seed_tokens=MOE_SEEDS, lam=0.05,
+                         tune_steps=MOE_TUNE_STEPS, tune_lr=1e-3,
+                         log_every=MOE_TUNE_STEPS)
+    samples = [to_device(Pipeline(corpus, batch=1, seq_len=SAMPLE_LEN,
+                                  seed=1).get_batch(i), dev)
+               for i in range(MAX_PREFIX)]
+    tune_pipe = Pipeline(corpus, batch=TUNE_B, seq_len=TUNE_S, seed=2)
+    tune_b = [to_device(tune_pipe.get_batch(3000 + i), dev)
+              for i in range(MOE_TUNE_STEPS)]
+    _lib.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    greedy, sr, _ = CC.discover(api, params, lambda i: samples[i], iter(()),
+                                qdyn, ccfg, torch.Generator().manual_seed(2),
+                                skip_tune=True, verbose=False)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    counts = dict(_lib.LAUNCHES)
+    n_it = len(sr.history)
+    n_pool = CC._pool_pad_len(V, ccfg, SEARCH_CHUNK)
+    want = {**zero_counts, "flash_attention":
+            L * (n_it * (2 + n_pool // SEARCH_CHUNK) + 1)}
+    if counts != want or not 1 <= n_it <= MAX_PREFIX - len(MOE_SEEDS):
+        fail(f"olmoe search: {n_it} iterations, launches {counts}, "
+             f"expected {want}")
+    add_launches(counts)
+    _lib.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = CC.prefix_tune(api, params, greedy, iter(tune_b), qdyn, ccfg,
+                        verbose=False)
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    counts = dict(_lib.LAUNCHES)
+    want = {**zero_counts, "flash_attention": L * MOE_TUNE_STEPS,
+            "flash_attention_bwd": L * MOE_TUNE_STEPS}
+    if counts != want:
+        fail(f"olmoe tune: launches {counts}, expected {want}")
+    if len(tr.log) != MOE_TUNE_STEPS or not all(
+            np.isfinite(r[k_]) for r in tr.log for k_ in r):
+        fail(f"olmoe tune: log {tr.log}")
+    if torch.equal(tr.cushion["kv"]["k"], greedy["kv"]["k"]):
+        fail("olmoe tune: the cushion did not move")
+    add_launches(counts)
+    rec["method"] = {"prefix_ids": [int(t) for t in sr.prefix_ids],
+                     "history": sr.history, "search_s": search_s,
+                     "iterations": n_it, "tune_s": tune_s,
+                     "tune_s_per_step": tune_s / MOE_TUNE_STEPS,
+                     "tune_log": tr.log}
+    log(f"olmoe method: prefix {rec['method']['prefix_ids']} in "
+        f"{search_s:.2f} s ({n_it} iterations of {n_pool} candidates); "
+        f"{MOE_TUNE_STEPS} tuning steps (B={TUNE_B}, {TUNE_S} tokens) in "
+        f"{tune_s:.2f} s, loss {tr.log[0]['loss']:.4f} -> "
+        f"{tr.log[-1]['loss']:.4f}; launches exact "
+        f"({L} flash_attention and {L} flash_attention_bwd a step)")
+    del tr, greedy
+
+    # 4. card against CPU at 2 layers of the full width, fp and W8A8
+    def cut(t):
+        if isinstance(t, dict):
+            return {k_: cut(v) for k_, v in t.items()}
+        return t[:MOE_CMP_LAYERS]
+
+    cfg2 = dataclasses.replace(cfg, n_layers=MOE_CMP_LAYERS)
+    tree = params.tree()
+    p2 = ParamTree({**tree, "layers": cut(tree["layers"])})
+    cush2 = {"kv": cut(cushion["kv"])}
+    cpu = lambda t: t.detach().cpu()           # noqa: E731
+    cp2 = ParamTree(tree_map(cpu, p2.tree()))
+    api2, cpu_api2 = build(cfg2, "cuda"), build(cfg2, "cpu")
+    sc2, _ = calibrate(api2, p2, calib[:1], qw8, cushion=cush2)
+    prompt = {"tokens": batch["tokens"][:1, :MOE_CMP_PROMPT]}
+    routing = {}
+
+    @torch.inference_mode()
+    def trajectory(a, p, qcfg, kv, sc, cush, pre, gen_toks):
+        prm = TQ.prequantize_tree(p.tree(), qcfg) if pre else p.tree()
+        cache = a.init_cache(1, 128, kv_dtype=kv, prefix_len=CUSHION)
+        seen = []
+        inner = MO.route
+
+        def recording(x, router, k_):
+            out = inner(x, router, k_)
+            seen.append(out[2].cpu())
+            return out
+        MO.route = recording
+        try:
+            lg, cache, pos = a.prefill(
+                prm, {"tokens": prompt["tokens"].to(a.device)}, cache, qcfg,
+                cushion=cush, scales=sc)
+        finally:
+            MO.route = inner
+        routing[a.device.type] = seen
+        out = [lg[:, -1].float().cpu()]
+        for n in range(gen_toks.shape[1] - 1):
+            tok = torch.as_tensor(gen_toks[:, n], dtype=torch.int32,
+                                  device=a.device)
+            lg, cache = a.decode_step(prm, tok, pos + n, cache, qcfg,
+                                      scales=sc)
+            out.append(lg.float().cpu())
+        return torch.stack(out)
+
+    rec["card_vs_cpu"] = {}
+    for label, (qcfg, kv, pre) in modes.items():
+        t0 = time.perf_counter()
+        sc_card = sc2 if pre else None
+        sc_cpu = tree_map(cpu, sc2) if pre else None
+        eng2 = Engine(api2, p2, qcfg, cushion=cush2, scales=sc_card,
+                      max_seq=128, kv_dtype=kv, prequant=pre)
+        toks = eng2.generate(prompt, MOE_CMP_TOKENS).tokens
+        lc = trajectory(api2, p2, qcfg, kv, sc_card, cush2, pre, toks)
+        lp_ = trajectory(cpu_api2, cp2, qcfg, kv, sc_cpu,
+                         tree_map(cpu, cush2), pre, toks)
+        err = (lc - lp_).abs()
+        swaps = sum(int((a_.sort(-1).values != b_.sort(-1).values)
+                        .any(-1).sum())
+                    for a_, b_ in zip(routing["cuda"], routing["cpu"]))
+        max_tol, mean_tol = MOE_LOGIT_TOL[label]
+        cmp = {"max_abs_err": float(err.max()),
+               "mean_abs_err": float(err.mean()),
+               "max_abs_logit": float(lp_.abs().max()),
+               "prefill_tokens_with_other_experts": swaps,
+               "prefill_token_layers": MOE_CMP_LAYERS * MOE_CMP_PROMPT,
+               "tol_max": max_tol, "tol_mean": mean_tol,
+               "seconds": time.perf_counter() - t0}
+        rec["card_vs_cpu"][label] = cmp
+        log(f"olmoe card vs CPU, {label} ({MOE_CMP_LAYERS} layers, B=1, "
+            f"prompt {MOE_CMP_PROMPT}, {MOE_CMP_TOKENS} positions): max "
+            f"|err| {cmp['max_abs_err']:.4g} (tolerance {max_tol}), mean "
+            f"{cmp['mean_abs_err']:.4g} (tolerance {mean_tol}), max |logit| "
+            f"{cmp['max_abs_logit']:.3g}; prefill (token, layer) pairs routed "
+            f"to other experts {swaps} of {cmp['prefill_token_layers']}; "
+            f"{cmp['seconds']:.1f} s")
+        if cmp["max_abs_err"] > max_tol or cmp["mean_abs_err"] > mean_tol:
+            fail(f"olmoe {label}: card and CPU logits differ beyond the "
+                 f"stated tolerance")
+    rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"olmoe: peak device memory {rec['peak_mem_bytes'] / 2 ** 30:.2f} "
+        f"GiB; phase launches {rec['launches']}")
+    return rec
+
+
+def tree_map(fn, t):
+    """fn on every tensor of a tree of dicts and SiteScale leaves."""
+    from repro_torch.core.quantization import SiteScale
+    if isinstance(t, dict):
+        return {k: tree_map(fn, v) for k, v in t.items()}
+    if isinstance(t, SiteScale):
+        return SiteScale(fn(t.scale), fn(t.zero))
+    return fn(t)
 
 
 def main() -> None:
@@ -1897,6 +2607,8 @@ def main() -> None:
     log(f"tied-head weight requantization per call: "
         f"{record['head_requant_ms']:.3f} ms")
     record["runs"] = runs
+    record["smoothquant"] = smoothquant_step(api, params, cfg, calib, batch,
+                                             cushion, qw8)
     phase_done("main_path")
 
     # 4b. the continuous path at full width -----------------------------
@@ -2172,14 +2884,14 @@ def main() -> None:
                                     counters_zero, profiled_steps)
     phase_done("router")
 
-    # 5. card vs the port's CPU engine on the same weights --------------
-    def tree_map(fn, t):
-        if isinstance(t, dict):
-            return {k_: tree_map(fn, v_) for k_, v_ in t.items()}
-        if isinstance(t, TQ.SiteScale):
-            return TQ.SiteScale(fn(t.scale), fn(t.zero))
-        return fn(t)
+    # 4e. the MoE family at full width ----------------------------------
+    record["moe"] = moe_phase(dev, corpus, calib, batch, PS, zero_counts,
+                              counters_zero, timed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("moe")
 
+    # 5. card vs the port's CPU engine on the same weights --------------
     cpu = lambda t: t.detach().cpu()       # noqa: E731
     cpu_api = build(cfg, "cpu")
     cpu_params = ParamTree(tree_map(cpu, params.tree()))
@@ -2475,6 +3187,11 @@ def main() -> None:
             fail(f"{kk['name']} not launched on its path")
         if record["router"]["launches"].get(kk["name"]):
             kk["router_launches"] = record["router"]["launches"][kk["name"]]
+        if record["moe"]["launches"].get(kk["name"]):
+            kk["moe_launches"] = record["moe"]["launches"][kk["name"]]
+        # the kernel at olmoe's shapes (phase 4e), beside smollm's
+        kk.update({f"moe_{k_}": v for k_, v in
+                   record["moe"]["kernels"].get(kk["name"], {}).items()})
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - t_start
     out_dir = ROOT / "chiprun_out"

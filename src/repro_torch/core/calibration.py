@@ -68,8 +68,9 @@ def taps_to_stats(taps: Dict[str, Any]) -> Dict[str, Any]:
 
 def stats_to_scales(stats: Dict[str, Any], qcfg: QuantConfig,
                     family: Family) -> Dict[str, Any]:
-    """{site: SiteScale (L,), ..., "head": SiteScale ()} (dense layout)."""
-    if family != Family.DENSE:
+    """{site: SiteScale (L,), ..., "head": SiteScale ()}: the dense layout,
+    which the MoE family shares (its sites are qkv, o, mlp_in and down)."""
+    if family not in (Family.DENSE, Family.MOE):
         raise NotImplementedError(f"{family.value} scales are not ported")
     out = Q.scales_from_stats(stats["layers"], qcfg)
     if "head" in stats:

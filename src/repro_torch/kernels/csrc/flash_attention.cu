@@ -63,6 +63,11 @@
 // The f32 instantiation keeps the CUDA-core kernel of the first port (one
 // thread per query row, f32 FMAs): no card path runs an f32 prefill, and
 // TF32 tensor cores would change the function. It was not redesigned.
+//
+// Head dims: 16, 32 and 64, and 128 in bf16 (olmoe's): there the three
+// tiles (87 KB) take dynamic shared memory and two blocks share a SM; the
+// f32 kernel, whose thread holds a row of q and of acc in registers, stays
+// at 64 and below.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -189,9 +194,19 @@ constexpr int TWARPS = 4;
 constexpr int TTHREADS = TWARPS * 32;
 
 // three blocks of 4 warps a SM: the registers fit (~160 a thread) without
-// spills; a fourth block would cap them at 128 and spill in the loop
+// spills; a fourth block would cap them at 128 and spill in the loop. At
+// head_dim 128 (olmoe) a block's tiles take 87 KB, so two blocks a SM fit
+// and the registers may grow to 255 a thread
 template <int HD>
-__global__ void __launch_bounds__(TTHREADS, 3)
+constexpr int fa_min_blocks() { return HD > 64 ? 2 : 3; }
+
+// the Q tile and two K and V tiles, padded rows, in dynamic shared memory
+// (past the 48 KB of a static allocation at head_dim 128)
+template <int HD>
+constexpr int fa_smem_bytes() { return (TQ + 4 * TK) * (HD + 8) * 2; }
+
+template <int HD>
+__global__ void __launch_bounds__(TTHREADS, fa_min_blocks<HD>())
 flash_attention_mma_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ k,
                            const bf16* __restrict__ v, bf16* __restrict__ out,
@@ -206,9 +221,11 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
   constexpr int KS = HD / 16;     // k-steps of Q K^T
   constexpr int NO = HD / 8;      // n-tiles of the output
   constexpr int NS = TK / 8;      // n-tiles of a score tile
-  __shared__ __align__(16) bf16 Qs[TQ * LD];
-  __shared__ __align__(16) bf16 Ks[2][TK * LD];
-  __shared__ __align__(16) bf16 Vs[2][TK * LD];
+  extern __shared__ __align__(16) unsigned char fa_smem[];
+  // Q [TQ * LD], then the two K tiles and the two V tiles [TK * LD]
+  bf16* const Qs = reinterpret_cast<bf16*>(fa_smem);
+  bf16* const Ks = Qs + TQ * LD;
+  bf16* const Vs = Ks + 2 * TK * LD;
 
   // grid (B * H, query tiles), the longest (last) query tiles first
   const int bh = blockIdx.x;
@@ -241,8 +258,10 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
       const int r = i / CPR, c = i % CPR, t = tile * TK + r;
       const bool ok = t < T_;
       const long long tt = ok ? t : 0;
-      cp_async16(&Ks[buf][r * LD + c * 8], kb + tt * kst + c * 8, ok);
-      cp_async16(&Vs[buf][r * LD + c * 8], vb + tt * vst + c * 8, ok);
+      cp_async16(&Ks[(buf * TK + r) * LD + c * 8], kb + tt * kst + c * 8,
+                 ok);
+      cp_async16(&Vs[(buf * TK + r) * LD + c * 8], vb + tt * vst + c * 8,
+                 ok);
     }
   };
   load_kv(tile(0), 0);
@@ -274,8 +293,8 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
         ldmatrix_x4(qf[kk], &Qs[(warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8)
                                     * LD + kk * 16 + (lane / 16) * 8]);
     }
-    const bf16* Kt = Ks[j & 1];
-    const bf16* Vt = Vs[j & 1];
+    const bf16* Kt = Ks + (j & 1) * TK * LD;
+    const bf16* Vt = Vs + (j & 1) * TK * LD;
     const int t0 = tile(j) * TK;
     // a tile past the warp's last visible key (q0 + 16 warp + 15 + P) is
     // masked for all its rows: the warp skips it (a masked p is 0 and adds
@@ -427,6 +446,22 @@ static int dispatch_f32(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// one launch of the bf16 kernel; above 48 KB of dynamic shared memory the
+// kernel is allowed it once, at its first launch (before any graph capture:
+// a captured step runs twice first, serving/graphs.py)
+template <int HD, typename... Args>
+static int launch_mma(dim3 grid, cudaStream_t stream, Args... args) {
+  constexpr int smem = fa_smem_bytes<HD>();
+  if (smem > 48 * 1024) {
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        flash_attention_mma_kernel<HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (attr != cudaSuccess) return (int)attr;
+  }
+  flash_attention_mma_kernel<HD><<<grid, TTHREADS, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
 static int dispatch_bf16(const void* q, const void* k, const void* v,
                          void* out, float* lse, int B, int H, int Kh, int S,
                          int T_, int hd, int P, int LV, const long long* str,
@@ -436,12 +471,12 @@ static int dispatch_bf16(const void* q, const void* k, const void* v,
   // the kernel works in base 2: log2(e) / sqrt(hd)
   const float scale = (float)(1.4426950408889634 / sqrt((double)hd));
   switch (hd) {
-    case 16: flash_attention_mma_kernel<16><<<grid, TTHREADS, 0, stream>>>(FA_ARGS(bf16)); break;
-    case 32: flash_attention_mma_kernel<32><<<grid, TTHREADS, 0, stream>>>(FA_ARGS(bf16)); break;
-    case 64: flash_attention_mma_kernel<64><<<grid, TTHREADS, 0, stream>>>(FA_ARGS(bf16)); break;
+    case 16: return launch_mma<16>(grid, stream, FA_ARGS(bf16));
+    case 32: return launch_mma<32>(grid, stream, FA_ARGS(bf16));
+    case 64: return launch_mma<64>(grid, stream, FA_ARGS(bf16));
+    case 128: return launch_mma<128>(grid, stream, FA_ARGS(bf16));
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 #undef FA_ARGS
 

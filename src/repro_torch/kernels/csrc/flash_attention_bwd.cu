@@ -584,10 +584,21 @@ __device__ __forceinline__ void dq_block(const MmaArgs& A, int blk,
 }
 
 // the dQ blocks (padded to a whole number of clusters), then the dK/dV
-// blocks (in clusters of GB * NC), of one grid; three blocks a SM
+// blocks (in clusters of GB * NC), of one grid; three blocks a SM. At
+// head_dim 128 (olmoe) the four tiles take 68 KB of dynamic shared memory
+// (past a static allocation's 48 KB) and one block a SM lets a thread hold
+// its fragments and accumulators in up to 255 registers
 template <int HD>
-__global__ void __launch_bounds__(MTHREADS, 3) attn_bwd_mma(MmaArgs A) {
-  __shared__ __align__(16) bf16 tiles[4 * TILE * (HD + 8)];
+constexpr int mma_min_blocks() { return HD > 64 ? 1 : 3; }
+
+template <int HD>
+constexpr int mma_smem_bytes() { return 4 * TILE * (HD + 8) * 2; }
+
+template <int HD>
+__global__ void __launch_bounds__(MTHREADS, mma_min_blocks<HD>())
+attn_bwd_mma(MmaArgs A) {
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  bf16* const tiles = reinterpret_cast<bf16*>(mma_smem);   // 4 TILE (HD + 8)
   __shared__ float rowv[4 * TILE];
   if ((int)blockIdx.x < A.n_q_pad)
     dq_block<HD>(A, blockIdx.x, tiles);
@@ -649,8 +660,16 @@ int run_mma(const void* q, const void* k, const void* v, const void* o,
   at[0].val.clusterDim.z = 1;
   at[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   at[1].val.programmaticStreamSerializationAllowed = 1;
+  constexpr int smem = mma_smem_bytes<HD>();
+  if (smem > 48 * 1024) {
+    // allowed once, at the first launch (before any graph capture)
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        attn_bwd_mma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (attr != cudaSuccess) return (int)attr;
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.blockDim = dim3(MTHREADS);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cfg.attrs = at;
   cfg.numAttrs = 2;
@@ -904,6 +923,7 @@ extern "C" int flash_attention_bwd_launch(
       case 16: return BWD(run_mma, 16);
       case 32: return BWD(run_mma, 32);
       case 64: return BWD(run_mma, 64);
+      case 128: return BWD(run_mma, 128);
     }
   } else {
     switch (hd) {

@@ -43,7 +43,9 @@
 // the one-bf16-ulp check the kernel is held to (and of the plain version's
 // own f32 error). f64 there costs about 1 us a call; f64 in the other sums
 // bought no margin and cost 8 us at 4096 positions
-// (tools/kernel_variants.py).
+// (tools/kernel_variants.py). Head dims 16, 32, 64 and 128 (olmoe's):
+// the chunk's f32 K and V rows and the queries take dynamic shared memory,
+// 72 KB at 128.
 //
 // The merge is deterministic: every block of a (b, kv-head) takes a ticket
 // with atomicAdd after a __threadfence(); the last one reads the partials
@@ -166,6 +168,12 @@ __device__ __forceinline__ acc_t warp_max(acc_t v) {
   return v;
 }
 
+// the chunk's K and V rows (padded) and the group's queries, f32, in
+// dynamic shared memory (past the 48 KB of a static allocation at head_dim
+// 128, olmoe's)
+template <int HD>
+constexpr int fd_smem_bytes() { return (2 * CH * (HD + 4) + GMAX * HD) * 4; }
+
 template <typename T, typename C, int HD, typename Addr>
 __global__ void __launch_bounds__(NT)
 flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ k,
@@ -180,9 +188,10 @@ flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ k,
   constexpr int VN = Vec<C>::N;            // elements per 16-byte vector
   constexpr int VPR = HD / VN;             // vectors per row
   constexpr int ITER = (CH * VPR + NT - 1) / NT;
-  __shared__ __align__(16) float Ks[CH * LDS];
-  __shared__ __align__(16) float Vs[CH * LDS];
-  __shared__ __align__(16) float Qs[GMAX * HD];
+  extern __shared__ __align__(16) float fd_smem[];
+  float* const Ks = fd_smem;                 // [CH * LDS]
+  float* const Vs = Ks + CH * LDS;           // [CH * LDS]
+  float* const Qs = Vs + CH * LDS;           // [GMAX * HD]
   __shared__ acc_t Ps[GMAX][CH];          // scores, then p; merge weights
   __shared__ acc_t Ls[GMAX][CH];          // merge: l_c * w_c
   __shared__ int s_last;
@@ -404,12 +413,30 @@ static int dispatch(const void* q, const void* k, const void* v,
       (const float*)vs, scale_per_row, (const T*)kc, (const T*)vc,         \
       (const int*)pos, per_row, (T*)out, H, K, Smax, mc, scale, addr,      \
       (acc_t*)ws, (int*)tickets
+  // above 48 KB of dynamic shared memory a kernel is allowed it once, at
+  // its first launch (before any graph capture: a captured step runs twice
+  // first, serving/graphs.py)
+#define FD_CASE(HD_)                                                        \
+  case HD_: {                                                               \
+    constexpr int smem = fd_smem_bytes<HD_>();                              \
+    if (smem > 48 * 1024) {                                                 \
+      static const cudaError_t attr = cudaFuncSetAttribute(                 \
+          flash_decode_kernel<T, C, HD_, Addr>,                             \
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);               \
+      if (attr != cudaSuccess) return (int)attr;                            \
+    }                                                                       \
+    flash_decode_kernel<T, C, HD_, Addr><<<grid, NT, smem, stream>>>(       \
+        FD_ARGS);                                                           \
+    break;                                                                  \
+  }
   switch (hd) {
-    case 16: flash_decode_kernel<T, C, 16, Addr><<<grid, NT, 0, stream>>>(FD_ARGS); break;
-    case 32: flash_decode_kernel<T, C, 32, Addr><<<grid, NT, 0, stream>>>(FD_ARGS); break;
-    case 64: flash_decode_kernel<T, C, 64, Addr><<<grid, NT, 0, stream>>>(FD_ARGS); break;
+    FD_CASE(16)
+    FD_CASE(32)
+    FD_CASE(64)
+    FD_CASE(128)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef FD_CASE
 #undef FD_ARGS
   return (int)cudaGetLastError();
 }

@@ -112,7 +112,7 @@ def _operands(q, k, v, pos, k_scale, v_scale, kc, vc, K: int):
     if v.shape != k.shape or k.shape[2:] != (K, hd) or H % K:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
-    if hd not in (16, 32, 64) or H // K > 8:
+    if hd not in (16, 32, 64, 128) or H // K > 8:
         raise ValueError(f"head_dim {hd} / group {H // K} not built")
     cache_dt = torch.int8 if quantized else q.dtype
     if k.dtype != cache_dt or v.dtype != cache_dt:

@@ -6,7 +6,11 @@
 tree (``calibration.scales_to_plain``); ``cushion_from_numpy`` a cushion.
 bf16 arrives as an ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy``
 refuses, so it crosses as its uint16 bit pattern. A leaf that is already a
-tensor (``checkpoint.store`` ``restore_tree``) is moved as it is.
+tensor (``checkpoint.store`` ``restore_tree``) is moved as it is. Every
+leaf keeps its dtype: the MoE family's ``moe`` subtree crosses with its f32
+router ``(L, D, E)`` inside a bf16 model, the experts ``w_up`` / ``w_gate``
+``(L, E, D, F)`` and ``w_down`` ``(L, E, F, D)``, and arctic's dense
+``residual`` MLP.
 """
 from __future__ import annotations
 

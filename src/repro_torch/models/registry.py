@@ -1,6 +1,6 @@
 """Model API over the ported families: ``build(cfg, device)`` ->
-``ModelAPI`` (``repro/models/registry.py``). Only the dense family is
-ported; the others raise.
+``ModelAPI`` (``repro/models/registry.py``). The dense and MoE families
+are ported; the others raise.
 
 Batch dicts hold ``{"tokens": (B, S) int tensor}`` (and ``"labels"`` for
 the loss) on the API's device.
@@ -14,9 +14,23 @@ import torch
 
 from repro_torch.configs.base import Family, ModelConfig, QuantConfig
 from repro_torch.models import common as C
+from repro_torch.models import moe as MO
 from repro_torch.models import transformer as TR
 
 Params = Dict[str, Any]
+
+_FAMILIES = {Family.DENSE: TR, Family.MOE: MO}
+
+
+def family_module(cfg: ModelConfig):
+    """The module of the config's family; raises for a family that is not
+    ported."""
+    mod = _FAMILIES.get(cfg.family)
+    if mod is None:
+        raise NotImplementedError(
+            f"{cfg.family.value}: only the dense and MoE families are ported "
+            "(ROADMAP queue 1 item 5.2 is next)")
+    return mod
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -35,61 +49,68 @@ def resolve_device(device="cuda") -> torch.device:
 class ModelAPI:
     cfg: ModelConfig
     device: torch.device
+    mod: Any = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        self.mod = family_module(self.cfg)
 
     @property
     def sites(self) -> Tuple[str, ...]:
-        return TR.SITES
+        return self.mod.SITES
 
     def init_params(self, gen: torch.Generator) -> C.ParamTree:
         if gen.device.type != self.device.type:
             raise ValueError(f"generator on {gen.device}, model on "
                              f"{self.device}")
-        return TR.init_params(self.cfg, gen)
+        return self.mod.init_params(self.cfg, gen)
 
     def loss_fn(self, params, batch, qcfg: QuantConfig, **kw):
-        return TR.loss_fn(params, batch["tokens"], batch["labels"],
-                          self.cfg, qcfg, **kw)
+        return self.mod.loss_fn(params, batch["tokens"], batch["labels"],
+                                self.cfg, qcfg, **kw)
 
     def forward(self, params, batch, qcfg: QuantConfig, **kw):
-        return TR.forward(params, batch["tokens"], self.cfg, qcfg, **kw)
+        return self.mod.forward(params, batch["tokens"], self.cfg, qcfg,
+                                **kw)
 
     def init_cache(self, batch: int, max_seq: int, dtype=None,
                    kv_dtype=None, prefix_len: int = 0,
                    per_slot_scales: bool = False):
-        return TR.init_cache(self.cfg, batch, max_seq, self.device,
-                             dtype=dtype, kv_dtype=kv_dtype,
-                             prefix_len=prefix_len,
-                             per_slot_scales=per_slot_scales)
+        return self.mod.init_cache(self.cfg, batch, max_seq, self.device,
+                                   dtype=dtype, kv_dtype=kv_dtype,
+                                   prefix_len=prefix_len,
+                                   per_slot_scales=per_slot_scales)
 
     @property
     def cache_batch_axes(self) -> Dict[str, int]:
         """Batch axis of every per-request cache leaf: the continuous
         scheduler's slot-scatter map."""
-        return TR.CACHE_BATCH_AXES
+        return self.mod.CACHE_BATCH_AXES
 
     @property
     def paged_kv_leaves(self) -> Tuple[str, ...]:
         """Cache leaves the paged pool re-lays into a flat page store."""
-        return TR.PAGED_KV_LEAVES
+        return self.mod.PAGED_KV_LEAVES
 
     @property
     def supports_chunked_prefill(self) -> bool:
         """prefill() takes pos_offset to resume a staged B=1 fp row."""
-        return TR.SUPPORTS_CHUNKED_PREFILL
+        return self.mod.SUPPORTS_CHUNKED_PREFILL
 
     def finalize_staged_kv(self, row, cache, cushion, S: int):
         """The blocking admission row, rebuilt from a finished chunk-staged
         fp row (int8 pools calibrate their per-slot scales here)."""
-        return TR.finalize_staged_kv(row, cache, cushion, S)
+        return self.mod.finalize_staged_kv(row, cache, cushion, S)
 
     def prefill(self, params, batch, cache, qcfg: QuantConfig, **kw):
-        return TR.prefill(params, batch["tokens"], cache, self.cfg, qcfg, **kw)
+        return self.mod.prefill(params, batch["tokens"], cache, self.cfg,
+                                qcfg, **kw)
 
     def decode_step(self, params, token, pos, cache, qcfg: QuantConfig, **kw):
-        return TR.decode_step(params, token, pos, cache, self.cfg, qcfg, **kw)
+        return self.mod.decode_step(params, token, pos, cache, self.cfg,
+                                    qcfg, **kw)
 
     def cushion_zeros(self, m: int, dtype=None):
-        return TR.cushion_zeros(self.cfg, m, self.device, dtype=dtype)
+        return self.mod.cushion_zeros(self.cfg, m, self.device, dtype=dtype)
 
     def forward_with_token_prefix(self, params, prefix_ids, batch,
                                   qcfg: QuantConfig, **kw):
@@ -104,12 +125,12 @@ class ModelAPI:
         ids = torch.as_tensor(prefix_ids, device=toks.device).to(toks.dtype)
         if ids.dim() == 1:
             full = torch.cat([ids[None].expand(Bs, -1), toks], dim=1)
-            return TR.forward(params, full, self.cfg, qcfg, **kw)
+            return self.mod.forward(params, full, self.cfg, qcfg, **kw)
         N, m = ids.shape
         full = torch.cat([ids[:, None].expand(N, Bs, m),
                           toks[None].expand(N, Bs, n)], dim=2)
-        return TR.forward(params, full.reshape(N * Bs, m + n), self.cfg,
-                          qcfg, groups=N, **kw)
+        return self.mod.forward(params, full.reshape(N * Bs, m + n),
+                                self.cfg, qcfg, groups=N, **kw)
 
     # ------------------------------------------------------------------
     # Greedy-search scoring fast path (KV reuse; paper §4.1)
@@ -124,7 +145,7 @@ class ModelAPI:
 
     @property
     def supports_kv_scoring(self) -> bool:
-        return TR.SUPPORTS_PREFIX_KV_SCORING
+        return self.mod.SUPPORTS_PREFIX_KV_SCORING
 
     def prefix_kv(self, params, prefix_ids, qcfg: QuantConfig,
                   scales=None) -> Params:
@@ -132,10 +153,10 @@ class ModelAPI:
         With a padded prefix the rows past the live length hold the padding
         tokens' KV; consumers mask them with ``prefix_valid``."""
         m = int(prefix_ids.shape[0])
-        cache = TR.init_cache(self.cfg, 1, m, self.device)
+        cache = self.mod.init_cache(self.cfg, 1, m, self.device)
         ids = torch.as_tensor(prefix_ids, device=self.device)
-        _, cache, _ = TR.prefill(params, ids[None], cache, self.cfg, qcfg,
-                                 scales=scales)
+        _, cache, _ = self.mod.prefill(params, ids[None], cache, self.cfg,
+                                       qcfg, scales=scales)
         return {"k": cache["k"][:, 0], "v": cache["v"][:, 0]}
 
     def prefix_qerr(self, params, prefix_kv, live_len: int, batch,
@@ -146,7 +167,7 @@ class ModelAPI:
                                cushion={"kv": prefix_kv}, collect=True,
                                n_skip=0, prefix_valid=int(live_len),
                                pos_offset=int(live_len))
-        return TR.total_qerr(taps)
+        return self.mod.total_qerr(taps)
 
     def score_candidates(self, params, prefix_kv, live_len: int, cand_ids,
                          batch, qcfg: QuantConfig, scales=None
@@ -168,17 +189,19 @@ class ModelAPI:
                                cushion={"kv": prefix_kv}, collect=True,
                                n_skip=1, prefix_valid=int(live_len),
                                pos_offset=int(live_len), groups=N)
-        return TR.total_qerr(taps, groups=N).reshape(N)
+        return self.mod.total_qerr(taps, groups=N).reshape(N)
 
     def extract_cushion(self, params, prefix_ids: torch.Tensor, batch,
                         qcfg: QuantConfig) -> Params:
         """Turn a token prefix into the deployment cushion: its per-layer KV
         after one pass through the model (paper eq. 8). ``batch`` is unused
-        by the dense family (kept for the reference's signature)."""
+        by the dense and MoE families (kept for the reference's
+        signature)."""
         m = int(prefix_ids.shape[0])
-        cache = TR.init_cache(self.cfg, 1, m, self.device)
-        _, cache, _ = TR.prefill(params, prefix_ids[None].to(self.device),
-                                 cache, self.cfg, qcfg)
+        cache = self.mod.init_cache(self.cfg, 1, m, self.device)
+        _, cache, _ = self.mod.prefill(params,
+                                       prefix_ids[None].to(self.device),
+                                       cache, self.cfg, qcfg)
         return {"kv": {"k": cache["k"][:, 0, :m], "v": cache["v"][:, 0, :m]}}
 
     def make_batch(self, gen: torch.Generator, batch: int, seq_len: int
@@ -194,14 +217,10 @@ class ModelAPI:
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
     def text_len(self, seq_len: int) -> int:
-        """Token count such that total positions == seq_len (the dense
-        family has no prepended embeddings)."""
+        """Token count such that total positions == seq_len (the dense and
+        MoE families have no prepended embeddings)."""
         return seq_len
 
 
 def build(cfg: ModelConfig, device="cuda") -> ModelAPI:
-    if cfg.family != Family.DENSE:
-        raise NotImplementedError(
-            f"{cfg.family.value}: only the dense family is ported "
-            "(ROADMAP queue 1 item 5)")
     return ModelAPI(cfg=cfg, device=resolve_device(device))

@@ -22,7 +22,8 @@ def _leaves(tree: Any, path=()):
 def resident_weight_bytes(params: Any) -> Tuple[int, int, int]:
     """(fp_bytes, int8_bytes, int4_bytes) of a served parameter tree: int8
     ``w_int`` leaves stream 1 byte per weight, nibble-packed ``w_packed``
-    leaves 0.5; everything else (embeddings, norms, scales) counts as fp.
+    leaves 0.5; everything else (embeddings, norms, scales, the MoE
+    experts, which stay fp under prequantization) counts as fp.
     ``w_scale`` keeps the weight's dtype, as in the reference, so the three
     counts equal the reference's."""
     if hasattr(params, "tree"):

@@ -1068,6 +1068,203 @@ def test_router_drain_on_card(router_card):
         assert (o.tokens == base[o.uid]).all(), o.uid
 
 
+# ---------------------------------------------------------------------------
+# the MoE family on the card (reduced olmoe: 4 layers, 8 experts, top-2;
+# capacity factor 1.25 and a router planted so that expert 0 overflows)
+# ---------------------------------------------------------------------------
+
+# olmoe's head_dim 128: the bf16 attention kernels (f32 stays at 16-64)
+# and the decode kernels, at the bars of their head_dim 16-64 tests
+HD128_CASES = [(512, 4, 4, 2, 4, 1), (65, 37, 10, 2, 2, 3), (1, 4, 4, 1, 2, 1),
+               (300, 5, 2, 1, 16, 1)]
+
+
+@pytest.mark.parametrize("S,m,live,B,Kh,G", HD128_CASES)
+def test_attention_head_dim_128_within_bars(dev, S, m, live, B, Kh, G):
+    """flash_attention (bf16) within one bf16 ulp of its plain version and
+    its log-sum-exp within 1e-5, a dead row changing nothing; the backward
+    through autograd within its bar, deterministic, dead rows zero."""
+    bf = torch.bfloat16
+    q, k, v, o, lse, do = _bwd_case(dev, B, Kh, G, S, m, live, 128, bf,
+                                    S + m + live)
+    want, want_lse = flash_attention_plain(q, k, v, prefix_len=m,
+                                           prefix_live=live, return_lse=True)
+    got = flash_attention(q, k, v, prefix_len=m, prefix_live=live)
+    _within_ulp(got, want)
+    assert torch.equal(o, got)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    k2 = k.clone()
+    k2[:, :, live:m] = 1e3
+    assert torch.equal(flash_attention(q, k2, v, prefix_len=m,
+                                       prefix_live=live), got)
+    want_g = flash_attention_bwd_plain(q, k, v, o, lse, do, m, live)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    flash_attention(qg, kg, vg, prefix_len=m, prefix_live=live).backward(do)
+    got_g = (qg.grad, kg.grad, vg.grad)
+    _bwd_within(got_g, want_g, bf)
+    for a, c in zip(got_g, flash_attention_bwd(q, k, v, o, lse, do, m,
+                                               live)):
+        assert torch.equal(a, c)
+    assert not got_g[1][:, :, live:m].any()
+    with pytest.raises(ValueError, match="128"):
+        flash_attention(q.float(), k.float(), v.float(), prefix_len=m)
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("mode", ["fp", "int8-K", "int8-BK"])
+def test_flash_decode_head_dim_128(dev, mode, dt):
+    """Contiguous and paged decode at head_dim 128 (olmoe: 16 kv-heads, G =
+    1; and G = 3): within one bf16 ulp of the plain version (f32: 1e-5),
+    the paged kernel bit-identical to the contiguous one, a row equal to
+    the row computed alone."""
+    g = torch.Generator(dev).manual_seed(13)
+    for Kh, G in ((16, 1), (2, 3)):
+        B, hd, Smax, m = 4, 128, 200, 4
+        q, k, v, kw = _decode_case(g, dev, mode, dt, B, Kh, G, hd, Smax, m)
+        cm = m if mode != "fp" else 0
+        pos = torch.tensor([cm - 1 if cm else 0, 64, Smax - 1, -1],
+                           dtype=torch.int32, device=dev)
+        got = flash_decode(q, k, v, pos, **kw)
+        want = flash_decode_plain(q, k, v, pos, **kw)
+        if dt == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        else:
+            _within_ulp(got, want)
+        kp, vp, table = _paginate(g, dev, k, v, 40)
+        assert torch.equal(flash_decode_paged(q, kp, vp, table, pos, **kw),
+                           got)
+        one = {k_: (v_[1:2] if k_.endswith("scale") and v_.dim() == 2
+                    else v_) for k_, v_ in kw.items()}
+        assert torch.equal(flash_decode(q[1:2], k[1:2], v[1:2], pos[1:2],
+                                        **one), got[1:2])
+
+
+def _moe_setup(dev, dtype="float32"):
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.registry import build
+    cfg = reduced(get_config("olmoe-1b-7b"), dtype=dtype)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=1.25))
+    api = build(cfg, dev)
+    params = api.init_params(torch.Generator(dev).manual_seed(0)).tree()
+    params["layers"]["moe"]["router"][:, :, 0] += 1.0
+    return api, params
+
+
+def test_moe_dispatch_on_card_equals_plain(dev):
+    """The arange-comparison slot one-hot on the card against its plain
+    version on the CPU and against ``F.one_hot`` of the kept positions,
+    with entries dropped: bit-identical."""
+    import torch.nn.functional as F
+    from repro_torch.models import moe as TM
+    g = torch.Generator(dev).manual_seed(1)
+    B, S, K, E, cap = 3, 40, 2, 8, 12
+    idx = torch.stack([torch.randperm(E, generator=g, device=dev)[:K]
+                       for _ in range(B * S)]).reshape(B, S, K)
+    idx[0, :, 0] = 3                           # expert 3 overflows in row 0
+    onehot = (idx[..., None] == torch.arange(E, device=dev)).float()
+    got = TM.dispatch(onehot, cap)
+    assert torch.equal(got.cpu(), TM.dispatch(onehot.cpu(), cap))
+    flat = onehot.reshape(B, S * K, E)
+    pos = (torch.cumsum(flat, 1) - 1).long()
+    keep = (pos < cap) & (flat > 0)
+    plain = F.one_hot(pos.clamp(0, cap - 1), cap).float() * keep[..., None]
+    assert torch.equal(got, plain.reshape(B, S, K, E, cap))
+    assert float(got.sum()) < B * S * K       # entries dropped
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["none", "pt_dynamic", "pt_static"])
+def test_apply_moe_card_equals_cpu(dev, mode, dtype):
+    """One MoE layer on the card against the port on the CPU, same input,
+    where entries drop: the routing, the kept entries and the lb loss
+    identical (the f32 gate logits of one row agree to far below their
+    gaps here), y within 1e-5 in f32 (matmuls summed in another order)
+    and two bf16 ulp of its scale in bf16, except under pt_dynamic where
+    one token row may sit within a down-site code step (2e-2, as against
+    JAX on the CPU)."""
+    from repro_torch.configs import QuantConfig
+    from repro_torch.core.quantization import SiteScale
+    from repro_torch.models import moe as TM
+    api, params = _moe_setup(dev, dtype)
+    lp = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    cpu_lp = {k: v.cpu() for k, v in lp.items()}
+    dt = lp["w_up"].dtype
+    x = torch.randn(2, 24, 64, generator=torch.Generator(dev).manual_seed(2),
+                    device=dev).to(dt)
+    qcfg = QuantConfig(mode=mode)
+    sc = None
+    if mode == "pt_static":
+        sc = {k: SiteScale(torch.tensor(s_, device=dev),
+                           torch.tensor(z_, device=dev))
+              for k, (s_, z_) in {"mlp_in": (0.03, 128.0),
+                                  "down": (0.01, 120.0)}.items()}
+    cpu_sc = None if sc is None else {
+        k: SiteScale(v.scale.cpu(), v.zero.cpu()) for k, v in sc.items()}
+    _, _, idx = TM.route(x, lp["router"], api.cfg.moe.top_k)
+    _, _, cidx = TM.route(x.cpu(), cpu_lp["router"], api.cfg.moe.top_k)
+    assert torch.equal(idx.cpu(), cidx)
+    y, lb = TM.apply_moe(lp, x, api.cfg, qcfg, sc, None)
+    cy, clb = TM.apply_moe(cpu_lp, x.cpu(), api.cfg, qcfg, cpu_sc, None)
+    assert abs(float(lb) - float(clb)) <= 1e-6
+    err = (y.cpu().float() - cy.float()).abs().amax(-1).flatten()
+    bar = 1e-5 if dtype == "float32" else \
+        2 * BF16_ULP * float(cy.float().abs().max())
+    if mode == "pt_dynamic":
+        assert int((err > bar).sum()) <= 1 and float(err.max()) <= 2e-2
+    else:
+        assert float(err.max()) <= bar, float(err.max())
+
+
+def test_moe_decode_step_captured_without_sync(dev):
+    """olmoe's decode step (the routing's stable sort, the dispatch's
+    cumsum and arange comparison, the expert einsums) is captured as a CUDA
+    graph with no host sync, in the static Engine (W8A8, int8 KV) and a
+    paged ContinuousEngine: graph tokens = the eager per-token loop's, one
+    replay per step, and every continuous request = the static B = 1
+    Engine's."""
+    import numpy as np
+    from repro_torch.configs import QuantConfig
+    from repro_torch.core.calibration import calibrate
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import ContinuousEngine, Request
+    api, params = _moe_setup(dev)
+    rs = np.random.RandomState(5)
+
+    def tokens(b, s):
+        return {"tokens": torch.as_tensor(
+            rs.randint(0, 256, (b, s)).astype(np.int32), device=dev)}
+
+    qw8 = QuantConfig(mode="pt_static", true_int8=True)
+    cushion = api.extract_cushion(params, torch.tensor([1, 2, 3]), None,
+                                  QuantConfig())
+    scales, _ = calibrate(api, params, [tokens(2, 24)], qw8,
+                          cushion=cushion)
+    eng = Engine(api, params, qw8, cushion=cushion, scales=scales,
+                 max_seq=96, kv_dtype="int8", prequant=True)
+    batch = tokens(2, 30)
+    eng.generate(batch, 4)                  # captures B = 2's step
+    assert eng.states[2].graph.n_nodes > 0
+    _lib.reset_launches()
+    got = eng.generate(batch, 12)
+    assert _lib.COUNTERS["graph_replays"] == 11
+    assert (got.tokens == eng.generate_py(batch, 12).tokens).all()
+    reqs = [Request(uid=i, batch=tokens(1, 20 + 3 * i), max_new_tokens=5)
+            for i in range(5)]
+    ce = ContinuousEngine(api, params, qw8, n_slots=2, max_seq=96,
+                          cushion=cushion, scales=scales, kv_dtype="int8",
+                          prequant=True, paged=True, page_size=16)
+    _lib.reset_launches()
+    outs = ce.run(reqs)
+    assert _lib.COUNTERS["graph_replays"] == ce.stats.steps > 0
+    for r, o in zip(reqs, outs):
+        want = eng.generate_py(r.batch, r.max_new_tokens).tokens[0]
+        assert (o.tokens == want).all(), r.uid
+    _counters_zero([eng.states[2].graph, ce.graph])
+
+
 def test_capture_with_a_host_sync_raises(dev):
     """A step that syncs with the host cannot be captured: the capture
     raises, nothing runs eagerly in its place, and the card still works

@@ -69,8 +69,8 @@ ATTENTION = {
                        "s[n][e] = expf((s[n][e] - mx[e / 2])"
                        " * (scale_log2 * 0.69314718f));")],
     # four blocks a SM: registers capped at 128, spills in the loop
-    "four_blocks_per_sm": [("__launch_bounds__(TTHREADS, 3)",
-                            "__launch_bounds__(TTHREADS, 4)")],
+    "four_blocks_per_sm": [("return HD > 64 ? 2 : 3;",
+                            "return HD > 64 ? 2 : 4;")],
     # every warp computes every tile its block loads
     "no_warp_tile_skip": [("    if (t0 <= q0 + warp * 16 + 15 + P) {",
                            "    if (true) {")],
@@ -305,8 +305,8 @@ BACKWARD = {
     # longer blocks)
     "g_in_block": [("  int gb = G < 8 ? G : 8;", "  int gb = 1;")],
     # two blocks a SM: registers up to 255, no spills
-    "two_blocks_per_sm": [("__launch_bounds__(MTHREADS, 3)",
-                           "__launch_bounds__(MTHREADS, 2)")],
+    "two_blocks_per_sm": [("return HD > 64 ? 1 : 3;",
+                           "return HD > 64 ? 1 : 2;")],
     # the backward's grid launched after the D kernel ends (no
     # programmatic dependent launch)
     "no_pdl": [("  cfg.numAttrs = 2;", "  cfg.numAttrs = 1;")],
