@@ -150,6 +150,34 @@ Phases, each fatal on failure:
    the card's teacher-forced logits against the port's CPU version at 2 of
    the 16 layers in fp and W8A8 (``MOE_LOGIT_TOL``); the peak device
    memory and the phase's seconds; the model is released afterwards;
+4f. the VLM at full width: internvl2-26b at 16 of its 48 layers (d_model
+   6144, 48 heads over 8 kv-heads, head_dim 128, vocab 92,553 untied,
+   bf16, seeded random weights), 1024 seeded stub patches before the text,
+   a 4-token cushion before the patches, pt_static scales from 2 drawn
+   batches: ``Engine.generate`` for B=4, [1024 patches; 512 tokens] and
+   32 new tokens in W8A8 (int8 KV, int8-resident weights) and fp, the
+   decode step a CUDA graph, launch counts exact, graph tokens = the eager
+   loop's, five requests for the quartiles; every ported kernel of the
+   path at its shapes (G = 6; the head's N = 92,553) against its plain
+   version (``vlm_*`` in the kernels line); a paged int8 pool of 4 slots
+   over 8 requests that carry patches, launches exact, tokens = the static
+   B=1 Engine's; ``discover`` (the KV-reuse search, each candidate between
+   the cushion and the patches, 16 candidates, 2 iterations) and 3 tuning
+   steps, launches exact; card vs CPU at 2 of the layers (64 patches, 64
+   tokens, ``MOE_LOGIT_TOL``); the peak device memory;
+4g. the Jamba hybrid at full width, one period: jamba-v0.1-52b at 8 of its
+   32 layers (attention at 3, Mamba at the other seven, 16 experts top-2
+   on the odd layers, d_model 4096, G = 4, bf16, seeded random weights),
+   a cushion of KV and Mamba state: the static Engine for B=4, 512 tokens
+   and 16 new tokens in W8A8 and fp as in 4f; the Mamba scan's device and
+   wall ms at the prefill's shape; the kernels at its shapes (``hybrid_*``;
+   mamba_out's K = 8192); a contiguous and a paged int8 pool over 8
+   requests, tokens = the static B=1 Engine's; ``discover`` through
+   ``greedy_search_ref`` (no KV-reuse scoring for a recurrence; 16
+   candidates, 2 iterations) and 3 tuning steps, launches exact, the
+   cushion's Mamba state bit-identical after tuning; card vs CPU on a
+   two-layer period of full width (a Mamba layer with its dense MLP, the
+   attention layer with its MoE); the peak device memory;
 5. the card's Engine against the port's CPU Engine on the same weights,
    scales and cushion (B=1, 64-token prompt, 8 tokens) in all four phase-4
    modes: teacher-forced logits within the stated bf16 tolerance,
@@ -159,8 +187,10 @@ Phases, each fatal on failure:
    static ptoken run for ``act_quant_ptoken`` and from phase 4c's tuning
    for ``flash_attention_bwd``; ``act_quant_static`` timed over a prefill,
    where it runs, with its fused cost at decode beside; the router runs'
-   launches of phase 4d beside, as ``router_launches``, and phase 4e's,
-   as ``moe_launches``), then
+   launches of phase 4d beside, as ``router_launches``, and phases 4e,
+   4f and 4g's, as ``moe_launches``, ``vlm_launches`` and
+   ``hybrid_launches``, with each kernel's row at those phases' shapes),
+   then
    ``{"ok": true, ...}`` as the last line.
 
 Exits nonzero with no result line when CUDA is unavailable or when the port
@@ -666,9 +696,9 @@ def router_phase(api, params, qw8, cushion, scales, reqs_4b, outs_4b, ps,
     from repro_torch.serving.router import DEAD, HEALTHY, ReplicaRouter
     from repro_torch.serving.scheduler import ContinuousEngine
 
-    L, V = api.cfg.n_layers, api.cfg.vocab_size
-    reqs = poisson_trace(V, 0, ROUTER_REQ, 0.0, (PROMPT, PROMPT + 8),
-                         (NEW_TOKENS, NEW_TOKENS // 2), device=api.device)
+    L = api.cfg.n_layers
+    reqs = poisson_trace(api, 0, ROUTER_REQ, 0.0, (PROMPT, PROMPT + 8),
+                         (NEW_TOKENS, NEW_TOKENS // 2))
     for r, r4 in zip(reqs, reqs_4b):
         if not torch.equal(r.batch["tokens"], r4.batch["tokens"]) \
                 or r.max_new_tokens != r4.max_new_tokens:
@@ -1003,12 +1033,26 @@ def smoothquant_step(api, params, cfg, calib, batch, cushion, qw8):
     return rec
 
 
+# phases 4f and 4g: the VLM and the Jamba hybrid at full width, each through
+# both engines, the search and the tuning (see the module docstring)
+VLM_ARCH, VLM_LAYERS, VLM_TEXT, VLM_NEW = "internvl2-26b", 16, 512, 32
+HY_ARCH, HY_NEW = "jamba-v0.1-52b", 16
+FAM_REQ, FAM_PROMPTS, FAM_BUDGETS = 8, (128, 136), (16, 8)
+FAM_CANDIDATES, FAM_SEEDS, FAM_TUNE_STEPS = 16, (1, 198), 3
+# card vs CPU at full width and a cut depth: the VLM at 2 of its layers
+# (64 patches, 64 tokens, 4 logits rows), the hybrid as a two-layer period
+# (a Mamba layer with a dense MLP, the attention layer with the MoE; 64
+# tokens, 2 logits rows: each CPU call under W8A8 fake-quantizes the
+# layer's 2.8 B expert weights, ~16 s), phase 4e's sources and
+# tolerances; in the hybrid a one-ulp difference also travels along the
+# Mamba recurrence, within the same bounds
+FAM_CMP_PROMPT, VLM_CMP_TOKENS, HY_CMP_TOKENS = 64, 4, 2
+
+
 # phase 4e, the MoE family at full width: olmoe-1b-7b (16 layers, 64
 # experts, top-8, capacity factor 1.25, bf16, ~13.8 GB of seeded random
 # weights) through both engines, the search and the tuning
 MOE_ARCH, MOE_NEW = "olmoe-1b-7b", 32
-MOE_REQ, MOE_PROMPTS, MOE_BUDGETS = 8, (128, 136), (16, 8)
-MOE_CANDIDATES, MOE_SEEDS, MOE_TUNE_STEPS = 16, (1, 198), 3
 # card vs CPU, olmoe at 2 of its 16 layers (full width): the CPU side at
 # full depth would hold 13.8 GB and take minutes. Both sides round to bf16
 # at the same points but reduce in other orders, the combine einsum
@@ -1030,20 +1074,21 @@ PORTED = re.compile(r"act_quant_|flash_attention|attn_bwd|flash_decode|"
                     r"int_matmul")
 
 
-def moe_kernels(cfg, dev, timed, pos_static, smax_static, smax_pool):
-    """The ported kernels at olmoe's shapes (head_dim 128, 16 heads, d_model
-    2048), each against its plain version on the same inputs: the int
-    matmul quantizing bf16 A at decode (M = B, every site of a step) and on
-    int8 codes at prefill (M = B * PROMPT), ``act_quant_static`` at
-    prefill, both held ``torch.equal``; ``flash_attention`` (B, PROMPT
-    behind the cushion), ``flash_decode`` (int8, (K,) scales, the static
-    engine's cache) and ``flash_decode_paged`` (int8 pages, (B, K) scales,
-    the continuous pool's), within one bf16 ulp of the plain version (1e-6
-    floor), the paged one also ``torch.equal`` to the contiguous one on the
-    gathered pool; ``flash_attention_bwd`` (the tuning's shape) within one
-    bf16 ulp plus 1e-5 of the largest entry. Each is timed over the calls
-    of its unit beside the plain version and its bound. Returns {kernel:
-    row}."""
+def family_kernels(tag, cfg, dev, timed, sites, n_attn, prompt, pos_static,
+                   smax_static, smax_pool, tune_s):
+    """The ported kernels at a model's shapes, each against its plain
+    version on the same inputs, timed over the calls of its unit beside
+    the plain version and its bound: the int matmul at every site in
+    ``sites`` ({name: (K, N, calls a step)}) quantizing bf16
+    A at decode (M = B) and, but for the head, on int8 codes at prefill (M
+    = B * prompt), ``act_quant_static`` at the prefill's sites, held
+    ``torch.equal``; ``flash_attention`` (B, prompt behind the cushion),
+    ``flash_decode`` (int8, (K,) scales), ``flash_decode_paged`` (int8
+    pages, (B, K) scales; also ``torch.equal`` to the contiguous kernel on
+    the gathered pool) within one bf16 ulp, and ``flash_attention_bwd``
+    at the tuning's shape (B = TUNE_B, tune_s positions) within one bf16
+    ulp plus 1e-5 of the largest entry. ``n_attn`` attention layers a
+    unit. Returns {kernel: row}."""
     import torch
     from repro_torch.kernels.act_quant import (act_quant_static,
                                                act_quant_static_plain)
@@ -1058,28 +1103,25 @@ def moe_kernels(cfg, dev, timed, pos_static, smax_static, smax_pool):
         w8a8_matmul_plain)
 
     bf = torch.bfloat16
-    L, D, H, K, hd = (cfg.n_layers, cfg.d_model, cfg.n_heads,
-                      cfg.n_kv_heads, cfg.head_dim)
-    V = cfg.vocab_size
-    g = torch.Generator(dev).manual_seed(21)
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = torch.Generator(dev).manual_seed(22)
     rows = {}
+    M = B * prompt
 
     def within(name, got, want, floor=1e-6):
         err = (got.float() - want.float()).abs()
         if not bool((err <= BF16_ULP * want.float().abs() + floor).all()):
-            fail(f"olmoe {name}: {float(err.max()):.3g} beyond one bf16 ulp")
+            fail(f"{tag} {name}: {float(err.max()):.3g} beyond one bf16 ulp")
         return float(err.max())
 
     def scalar(v):
         return torch.tensor(v, dtype=torch.float32, device=dev)
 
-    # the int matmuls: (K, N) of the qkv and o sites and the untied head
-    sites = {"qkv": (D, (H + 2 * K) * hd, L),
-             "o": (H * hd, D, L), "head": (D, V, 1)}
     s_x, z_x = scalar(0.031), scalar(111.0)
     dec = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     pre = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-    xa = torch.randn((B * PROMPT, D), generator=g, device=dev).to(bf) * 3
+    aqs = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    n_dec = n_pre = 0
     for name, (Kd, N, n) in sites.items():
         w = torch.randint(-127, 128, (Kd, N), generator=g, device=dev,
                           dtype=torch.int8)
@@ -1087,9 +1129,12 @@ def moe_kernels(cfg, dev, timed, pos_static, smax_static, smax_pool):
         cs = w.sum(0, dtype=torch.int32)
         x = torch.randn((B, Kd), generator=g, device=dev).to(bf) * 3
         args = (x, w, s_x, z_x, s_w, cs)
-        if not torch.equal(quant_w8a8_matmul(*args, out_dtype=bf),
-                           quant_w8a8_matmul_plain(*args, out_dtype=bf)):
-            fail(f"olmoe w8a8_matmul {name} (M={B}): not bit-exact")
+        for dt in (bf, torch.float32):
+            if not torch.equal(quant_w8a8_matmul(*args, out_dtype=dt),
+                               quant_w8a8_matmul_plain(*args, out_dtype=dt)):
+                fail(f"{tag} w8a8_matmul {name} (M={B}, {dt}): not "
+                     f"bit-exact")
+        n_dec += n
         dec["ms"] += n * timed(lambda: quant_w8a8_matmul(*args,
                                                          out_dtype=bf))
         dec["plain_ms"] += n * timed(
@@ -1099,57 +1144,56 @@ def moe_kernels(cfg, dev, timed, pos_static, smax_static, smax_pool):
                                         INT8_OPS_PER_S)[0]
         if name == "head":
             continue
-        xq = act_quant_static(xa[:, :Kd].contiguous(), s_x, z_x)
+        xa = torch.randn((M, Kd), generator=g, device=dev).to(bf) * 3
+        if not torch.equal(act_quant_static(xa, s_x, z_x),
+                           act_quant_static_plain(xa, s_x, z_x)):
+            fail(f"{tag} act_quant_static {name}: not bit-exact")
+        xq = act_quant_static(xa, s_x, z_x)
         pa = (xq, w, s_x, z_x, s_w, cs, -128.0, bf)
         if not torch.equal(w8a8_matmul(*pa), w8a8_matmul_plain(*pa)):
-            fail(f"olmoe w8a8_matmul {name} (M={B * PROMPT}): not "
-                 f"bit-exact")
-        M = B * PROMPT
+            fail(f"{tag} w8a8_matmul {name} (M={M}): not bit-exact")
+        n_pre += n
         pre["ms"] += n * timed(lambda: w8a8_matmul(*pa))
         pre["plain_ms"] += n * timed(lambda: w8a8_matmul_plain(*pa), 3)
         pre["bound_ms"] += n * bound_ms(M * Kd + Kd * N + 4 * N + 2 * M * N,
                                         2.0 * M * Kd * N, INT8_OPS_PER_S)[0]
+        aqs["ms"] += n * timed(lambda: act_quant_static(xa, s_x, z_x))
+        aqs["plain_ms"] += n * timed(
+            lambda: act_quant_static_plain(xa, s_x, z_x), 3)
+        aqs["bound_ms"] += n * bound_ms(3 * M * Kd, 0.0, INT8_OPS_PER_S)[0]
+        del xa, xq
     rows["w8a8_matmul"] = {
-        "unit": f"one olmoe decode step ({2 * L + 1} calls, M={B}, bf16 x "
-                f"quantized in the staging)", **dec, "bound_by": "bytes",
-        "max_abs_err": 0.0,
+        "unit": f"one {tag} decode step ({n_dec} calls, M={B}, bf16 x "
+                f"quantized in the staging; sites "
+                f"{ {k: v[:2] for k, v in sites.items()} })",
+        **dec, "bound_by": "bytes", "max_abs_err": 0.0,
         **{f"prefill_{k}": v for k, v in pre.items()},
-        "prefill_unit": f"one olmoe prefill ({2 * L} calls at the layer "
-                        f"sites, M={B * PROMPT})"}
-    xp = xa.contiguous()
-    if not torch.equal(act_quant_static(xp, s_x, z_x),
-                       act_quant_static_plain(xp, s_x, z_x)):
-        fail("olmoe act_quant_static: not bit-exact")
-    M = B * PROMPT
+        "prefill_unit": f"one {tag} prefill ({n_pre} calls at the layer "
+                        f"sites, M={M})"}
     rows["act_quant_static"] = {
-        "unit": f"one olmoe prefill ({2 * L} calls, M={M}, D={D})",
-        "ms": 2 * L * timed(lambda: act_quant_static(xp, s_x, z_x)),
-        "plain_ms": 2 * L * timed(lambda: act_quant_static_plain(
-            xp, s_x, z_x), 3),
-        "bound_ms": 2 * L * bound_ms(3 * M * D, 0.0, INT8_OPS_PER_S)[0],
+        "unit": f"one {tag} prefill ({n_pre} calls, M={M})", **aqs,
         "bound_by": "bytes", "max_abs_err": 0.0}
 
-    # prefill attention
-    T = PROMPT + CUSHION
-    q = torch.randn((B, H, PROMPT, hd), generator=g, device=dev).to(bf)
+    T = prompt + CUSHION
+    q = torch.randn((B, H, prompt, hd), generator=g, device=dev).to(bf)
     k = torch.randn((B, K, T, hd), generator=g, device=dev).to(bf)
     v = torch.randn((B, K, T, hd), generator=g, device=dev).to(bf)
-    err = within("flash_attention", flash_attention(q, k, v,
-                                                    prefix_len=CUSHION),
+    err = within("flash_attention",
+                 flash_attention(q, k, v, prefix_len=CUSHION),
                  flash_attention_plain(q, k, v, prefix_len=CUSHION))
-    pairs = B * H * (PROMPT * CUSHION + PROMPT * (PROMPT + 1) / 2)
-    bms, by = bound_ms(2 * (2 * B * H * PROMPT * hd + 2 * B * K * T * hd),
+    pairs = B * H * (prompt * CUSHION + prompt * (prompt + 1) / 2)
+    bms, by = bound_ms(2 * (2 * B * H * prompt * hd + 2 * B * K * T * hd),
                        4.0 * hd * pairs, BF16_FLOPS_PER_S)
     rows["flash_attention"] = {
-        "unit": f"one olmoe prefill ({L} calls, B={B}, S={PROMPT}, "
-                f"m={CUSHION}, hd={hd})",
-        "ms": L * timed(lambda: flash_attention(q, k, v,
-                                                prefix_len=CUSHION)),
-        "plain_ms": L * timed(lambda: flash_attention_plain(
+        "unit": f"one {tag} prefill ({n_attn} calls, B={B}, S={prompt}, "
+                f"m={CUSHION}, hd={hd}, G={H // K})",
+        "ms": n_attn * timed(lambda: flash_attention(q, k, v,
+                                                     prefix_len=CUSHION)),
+        "plain_ms": n_attn * timed(lambda: flash_attention_plain(
             q, k, v, prefix_len=CUSHION), 3),
-        "bound_ms": L * bms, "bound_by": by, "max_abs_err": err}
+        "bound_ms": n_attn * bms, "bound_by": by, "max_abs_err": err}
+    del q, k, v
 
-    # decode attention: the static engine's int8 cache, (K,) scales
     qd = torch.randn((B, H, hd), generator=g, device=dev).to(bf)
     kq = torch.randint(-127, 128, (B, smax_static, K, hd), generator=g,
                        device=dev, dtype=torch.int8)
@@ -1160,19 +1204,18 @@ def moe_kernels(cfg, dev, timed, pos_static, smax_static, smax_pool):
     pos = torch.tensor(pos_static, dtype=torch.int32, device=dev)
     a = (qd, kq, vq, pos, ks, ks, kc, kc)
     err = within("flash_decode", flash_decode(*a), flash_decode_plain(*a))
-    by_ = (4 * B * H * hd + 2 * B * (pos_static + 1 - CUSHION) * K * hd
-           + 4 * CUSHION * K * hd + 8 * K)
-    bms, by = bound_ms(by_, 4.0 * B * H * hd * (pos_static + 1),
-                       BF16_FLOPS_PER_S)
+    bms, by = bound_ms(4 * B * H * hd + 2 * B * (pos_static + 1 - CUSHION)
+                       * K * hd + 4 * CUSHION * K * hd + 8 * K,
+                       4.0 * B * H * hd * (pos_static + 1), BF16_FLOPS_PER_S)
     rows["flash_decode"] = {
-        "unit": f"one olmoe decode step ({L} calls, int8 KV, (K,) scales, "
-                f"B={B}, pos={pos_static} of {smax_static})",
-        "ms": L * timed(lambda: flash_decode(*a)),
-        "plain_ms": L * timed(lambda: flash_decode_plain(*a), 3),
-        "bound_ms": L * bms, "bound_by": by, "max_abs_err": err}
+        "unit": f"one {tag} decode step ({n_attn} calls, int8 KV, (K,) "
+                f"scales, B={B}, pos={pos_static} of {smax_static}, "
+                f"G={H // K})",
+        "ms": n_attn * timed(lambda: flash_decode(*a)),
+        "plain_ms": n_attn * timed(lambda: flash_decode_plain(*a), 3),
+        "bound_ms": n_attn * bms, "bound_by": by, "max_abs_err": err}
+    del kq, vq
 
-    # the continuous pool's paged decode: pages of 64, (B, K) scales, a
-    # shuffled table, rows at different positions
     P = smax_pool // 64
     n_pages = B * P + 1
     table = (torch.randperm(n_pages - 1, generator=g, device=dev) + 1) \
@@ -1190,25 +1233,24 @@ def moe_kernels(cfg, dev, timed, pos_static, smax_static, smax_pool):
     if not torch.equal(got, flash_decode(qd, gather_pages(kp, table),
                                          gather_pages(vp, table), posb, ksb,
                                          ksb, kc, kc)):
-        fail("olmoe flash_decode_paged: not bit-identical to flash_decode "
-             "on the gathered pool")
+        fail(f"{tag} flash_decode_paged: not bit-identical to flash_decode "
+             f"on the gathered pool")
     live = int(posb.sum()) + B - B * CUSHION
     bms, by = bound_ms(4 * B * H * hd + 2 * live * K * hd
                        + 4 * CUSHION * K * hd + 8 * B * K + 4 * B * P,
                        4.0 * H * hd * (int(posb.sum()) + B),
                        BF16_FLOPS_PER_S)
     rows["flash_decode_paged"] = {
-        "unit": f"one olmoe decode step of the continuous pool ({L} calls, "
-                f"int8 pages of 64, (B, K) scales, B={B}, pos "
-                f"{posb.tolist()})",
-        "ms": L * timed(lambda: flash_decode_paged(*pa)),
-        "plain_ms": L * timed(lambda: flash_decode_paged_plain(*pa), 3),
-        "bound_ms": L * bms, "bound_by": by, "max_abs_err": err}
+        "unit": f"one {tag} decode step of the continuous pool ({n_attn} "
+                f"calls, int8 pages of 64, (B, K) scales, B={B}, pos "
+                f"{posb.tolist()}, G={H // K})",
+        "ms": n_attn * timed(lambda: flash_decode_paged(*pa)),
+        "plain_ms": n_attn * timed(lambda: flash_decode_paged_plain(*pa), 3),
+        "bound_ms": n_attn * bms, "bound_by": by, "max_abs_err": err}
+    del kp, vp
 
-    # the backward at the tuning's shape
-    qb = torch.randn((TUNE_B, H, TUNE_S, hd), generator=g, device=dev) \
-        .to(bf)
-    Tb = TUNE_S + MAX_PREFIX
+    qb = torch.randn((TUNE_B, H, tune_s, hd), generator=g, device=dev).to(bf)
+    Tb = tune_s + MAX_PREFIX
     kb = torch.randn((TUNE_B, K, Tb, hd), generator=g, device=dev).to(bf)
     vb = torch.randn((TUNE_B, K, Tb, hd), generator=g, device=dev).to(bf)
     do = torch.randn(qb.shape, generator=g, device=dev).to(bf)
@@ -1219,22 +1261,348 @@ def moe_kernels(cfg, dev, timed, pos_static, smax_static, smax_pool):
                            flash_attention_bwd_plain(*ba)):
         errs.append(within("flash_attention_bwd", got_, want_,
                            1e-5 * float(want_.float().abs().max())))
-    pairs = TUNE_B * H * (TUNE_S * MAX_PREFIX + TUNE_S * (TUNE_S + 1) / 2)
-    bms, by = bound_ms(2 * (4 * TUNE_B * H * TUNE_S * hd
+    pairs = TUNE_B * H * (tune_s * MAX_PREFIX + tune_s * (tune_s + 1) / 2)
+    bms, by = bound_ms(2 * (4 * TUNE_B * H * tune_s * hd
                             + 4 * TUNE_B * K * Tb * hd)
-                       + 4 * TUNE_B * H * TUNE_S, 10.0 * hd * pairs,
+                       + 4 * TUNE_B * H * tune_s, 10.0 * hd * pairs,
                        BF16_FLOPS_PER_S)
     rows["flash_attention_bwd"] = {
-        "unit": f"one olmoe tuning step ({L} calls, B={TUNE_B}, "
-                f"S={TUNE_S}, m={MAX_PREFIX}, hd={hd})",
-        "ms": L * timed(lambda: flash_attention_bwd(*ba)),
-        "plain_ms": L * timed(lambda: flash_attention_bwd_plain(*ba), 3),
-        "bound_ms": L * bms, "bound_by": by, "max_abs_err": max(errs)}
+        "unit": f"one {tag} tuning step ({n_attn} calls, B={TUNE_B}, "
+                f"S={tune_s}, m={MAX_PREFIX}, hd={hd}, G={H // K})",
+        "ms": n_attn * timed(lambda: flash_attention_bwd(*ba)),
+        "plain_ms": n_attn * timed(lambda: flash_attention_bwd_plain(*ba),
+                                   3),
+        "bound_ms": n_attn * bms, "bound_by": by, "max_abs_err": max(errs)}
     for name, r in rows.items():
-        log(f"olmoe {name}: {r['unit']}: {r['ms']:.3f} ms (plain "
+        log(f"{tag} {name}: {r['unit']}: {r['ms']:.3f} ms (plain "
             f"{r['plain_ms']:.3f}, bound {r['bound_ms']:.4f} by "
             f"{r['bound_by']}), max |err| {r['max_abs_err']:.3g}")
     return rows
+
+
+class FamilyRun:
+    """The parts phases 4f and 4g share: a model at full width on the card,
+    its launch bookkeeping, the static engines, the continuous pools, the
+    method and the card-vs-CPU comparison."""
+
+    def __init__(self, tag, cfg, dev, zero_counts, counters_zero):
+        import torch
+        from repro_torch.models.registry import build
+        self.tag, self.cfg, self.dev = tag, cfg, dev
+        self.zero_counts, self.counters_zero = zero_counts, counters_zero
+        self.t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        self.api = build(cfg, "cuda")
+        t0 = time.perf_counter()
+        self.params = self.api.init_params(
+            torch.Generator(dev).manual_seed(0))
+        torch.cuda.synchronize()
+        n = sum(t.numel() for t in self.params.buffers())
+        self.rec = {"arch": cfg.name, "n_layers": cfg.n_layers,
+                    "weights": n, "init_s": time.perf_counter() - t0,
+                    "launches": {}}
+        log(f"{tag}: {n / 1e9:.3f} B weights "
+            f"({sum(t.numel() * t.element_size() for t in self.params.buffers()) / 1e9:.2f}"
+            f" GB) made in {self.rec['init_s']:.1f} s")
+
+    def add_launches(self, counts):
+        for k, n in counts.items():
+            self.rec["launches"][k] = self.rec["launches"].get(k, 0) + n
+
+    def check_tokens(self, label, toks, shape):
+        V = self.cfg.vocab_size
+        if toks.shape != shape or toks.min() < 0 or toks.max() >= V:
+            fail(f"{self.tag} {label}: bad tokens {toks.shape} "
+                 f"[{toks.min()}, {toks.max()}]")
+
+    def static(self, batch, new, cushion, calib, expect, modes):
+        """Engine.generate for ``batch`` and ``new`` tokens in each mode
+        {label: (qcfg, kv_dtype, prequant)}: exact launches, one replay a
+        token, graph tokens = the eager loop's, five requests for the
+        quartiles. Returns {label: engine}."""
+        import numpy as np
+        from repro_torch.kernels import _lib
+        from repro_torch.serving.engine import Engine
+        Bn = batch["tokens"].shape[0]
+        engines, self.rec["static"] = {}, {}
+        for label, (qcfg, kv, pre) in modes.items():
+            eng = Engine(self.api, self.params, qcfg, cushion=cushion,
+                         max_seq=self.positions(batch) + new + 32,
+                         kv_dtype=kv, calib_batches=calib if pre else None,
+                         prequant=pre)
+            eng.generate(batch, 4)           # warm-up; captures B's step
+            graph = eng.states[Bn].graph
+            _lib.reset_launches()
+            res = eng.generate(batch, new)
+            counts = dict(_lib.LAUNCHES)
+            replays = _lib.COUNTERS["graph_replays"]
+            self.check_tokens(label, res.tokens, (Bn, new))
+            if counts != expect[label]:
+                fail(f"{self.tag} {label}: launches {counts}, expected "
+                     f"{expect[label]}")
+            if replays != new - 1:
+                fail(f"{self.tag} {label}: {replays} graph replays")
+            self.add_launches(counts)
+            _lib.reset_launches()
+            eager = eng.generate_py(batch, new)
+            if not np.array_equal(eager.tokens, res.tokens):
+                fail(f"{self.tag} {label}: graph tokens differ from the "
+                     f"eager step's")
+            if dict(_lib.LAUNCHES) != counts:
+                fail(f"{self.tag} {label}: eager launches differ from the "
+                     f"graph's")
+            reps = [res] + [eng.generate(batch, new) for _ in range(4)]
+            for r in reps[1:]:
+                if not np.array_equal(r.tokens, res.tokens):
+                    fail(f"{self.tag} {label}: a repeated request gave "
+                         f"other tokens")
+            self.rec["static"][label] = {
+                "ttft_ms": res.ttft_ms, "tpot_ms": res.tpot_ms,
+                "launches": counts, "graph_replays": replays,
+                "graph": {"capture_s": graph.capture_s,
+                          "n_nodes": graph.n_nodes},
+                "eager_tpot_ms": eager.tpot_ms,
+                "weight_bytes_fp": eng.weight_bytes_fp,
+                "weight_bytes_int8": eng.weight_bytes_int8,
+                "repeats": quartiles(
+                    ttft_ms=[r.ttft_ms for r in reps],
+                    tpot_ms=[r.tpot_ms for r in reps],
+                    tokens_per_s=[Bn * new * 1e3
+                                  / (r.ttft_ms + r.tpot_ms * (new - 1))
+                                  for r in reps])}
+            q = self.rec["static"][label]["repeats"]
+            log(f"{self.tag} {label}: B={Bn} positions "
+                f"{self.positions(batch)} new={new} m={CUSHION} TTFT "
+                f"quartiles {q['ttft_ms']} ms, TPOT {q['tpot_ms']} ms, "
+                f"tokens/s {q['tokens_per_s']} (eager loop TPOT "
+                f"{eager.tpot_ms:.2f} ms); weights fp={eng.weight_bytes_fp}"
+                f" B int8={eng.weight_bytes_int8} B; launches {counts}; "
+                f"{replays} replays, {graph.n_nodes} nodes")
+            engines[label] = eng
+        return engines
+
+    @staticmethod
+    def positions(batch):
+        n = batch["tokens"].shape[1]
+        return n + (batch["patches"].shape[1] if "patches" in batch else 0)
+
+    def pool(self, label, reqs, static_eng, qcfg, scales, cushion, want_fn,
+             **kw):
+        """A 4-slot int8 ContinuousEngine over ``reqs`` at t = 0: exact
+        launches (``want_fn(admitted, steps)``), one replay a step, every
+        request's tokens = the static B = 1 Engine's (generated once a
+        phase, ``self.solo``)."""
+        import numpy as np
+        import torch
+        from repro_torch.kernels import _lib
+        from repro_torch.serving.scheduler import ContinuousEngine
+        ce = ContinuousEngine(self.api, self.params, qcfg, n_slots=4,
+                              max_seq=max(FAM_PROMPTS) + max(FAM_BUDGETS)
+                              + 32 + max(self.positions(r.batch)
+                                         - r.batch["tokens"].shape[1]
+                                         for r in reqs),
+                              cushion=cushion, scales=scales,
+                              kv_dtype="int8", prequant=True, **kw)
+        ce.run([dataclasses.replace(r, max_new_tokens=2) for r in reqs[:4]])
+        _lib.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = ce.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_lib.LAUNCHES)
+        st = ce.stats
+        if _lib.COUNTERS["graph_replays"] != st.steps:
+            fail(f"{self.tag} {label}: {_lib.COUNTERS['graph_replays']} "
+                 f"replays, {st.steps} steps")
+        want = {**self.zero_counts, **want_fn(st.admitted, st.steps)}
+        if counts != want:
+            fail(f"{self.tag} {label}: launches {counts}, expected {want}")
+        self.add_launches(counts)
+        if not hasattr(self, "solo"):
+            self.solo = {r.uid: static_eng.generate(
+                r.batch, r.max_new_tokens).tokens[0] for r in reqs}
+        for r, o in zip(reqs, outs):
+            self.check_tokens(f"{label} {r.uid}", o.tokens,
+                              (r.max_new_tokens,))
+            if not np.array_equal(self.solo[r.uid], o.tokens):
+                fail(f"{self.tag} {label} request {r.uid}: tokens differ "
+                     f"from the static B=1 Engine's")
+        total = sum(len(o.tokens) for o in outs)
+        out = {"wall_s": wall, "tokens": total,
+               "tokens_per_s": total / max(o.finished_s for o in outs),
+               "ttft_ms_p50": float(np.percentile([o.ttft_ms for o in outs],
+                                                  50)),
+               "tpot_ms_p50": float(np.percentile([o.tpot_ms for o in outs],
+                                                  50)),
+               "steps": st.steps, "launches": counts,
+               "graph_nodes": ce.graph.n_nodes}
+        log(f"{self.tag} {label} (4 int8 slots, {len(reqs)} requests): "
+            f"{total} tokens in {wall:.2f} s ({out['tokens_per_s']:.1f} "
+            f"tok/s), TTFT p50 {out['ttft_ms_p50']:.1f} ms, TPOT p50 "
+            f"{out['tpot_ms_p50']:.2f} ms, {st.steps} steps = replays; "
+            f"launches exact; tokens = the static B=1 Engine's")
+        self.counters_zero(f"{self.tag} {label}", [ce.graph])
+        return out
+
+    def method(self, sample_fn, tune_b, search_want, tune_want, check=None):
+        """``discover`` under pt_dynamic (16 candidates, the prefix padded
+        to MAX_PREFIX rows, 2 seed tokens) and FAM_TUNE_STEPS tuning steps,
+        launches exact (``search_want(iterations)``, ``tune_want``).
+        ``check(greedy, tuned)`` adds the family's own checks."""
+        import numpy as np
+        import torch
+        from repro_torch.configs import CushionConfig, QuantConfig
+        from repro_torch.core import cushioncache as CC
+        from repro_torch.kernels import _lib
+        qdyn = QuantConfig(mode="pt_dynamic")
+        ccfg = CushionConfig(max_prefix_len=MAX_PREFIX, tau=1.0,
+                             sample_len=SAMPLE_LEN,
+                             n_candidates=FAM_CANDIDATES,
+                             seed_tokens=FAM_SEEDS, lam=0.05,
+                             tune_steps=FAM_TUNE_STEPS, tune_lr=1e-3,
+                             log_every=FAM_TUNE_STEPS)
+        _lib.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        greedy, sr, _ = CC.discover(self.api, self.params, sample_fn,
+                                    iter(()), qdyn, ccfg,
+                                    torch.Generator().manual_seed(2),
+                                    skip_tune=True, verbose=False)
+        torch.cuda.synchronize()
+        search_s = time.perf_counter() - t0
+        counts = dict(_lib.LAUNCHES)
+        n_it = len(sr.history)
+        want = {**self.zero_counts, **search_want(n_it, ccfg)}
+        if counts != want or not 1 <= n_it <= MAX_PREFIX - len(FAM_SEEDS):
+            fail(f"{self.tag} search: {n_it} iterations, launches {counts},"
+                 f" expected {want}")
+        self.add_launches(counts)
+        _lib.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr = CC.prefix_tune(self.api, self.params, greedy, iter(tune_b),
+                            qdyn, ccfg, verbose=False)
+        torch.cuda.synchronize()
+        tune_s = time.perf_counter() - t0
+        counts = dict(_lib.LAUNCHES)
+        want = {**self.zero_counts, **tune_want}
+        if counts != want:
+            fail(f"{self.tag} tune: launches {counts}, expected {want}")
+        if len(tr.log) != FAM_TUNE_STEPS or not all(
+                np.isfinite(r[k]) for r in tr.log for k in r):
+            fail(f"{self.tag} tune: log {tr.log}")
+        if torch.equal(tr.cushion["kv"]["k"], greedy["kv"]["k"]):
+            fail(f"{self.tag} tune: the cushion did not move")
+        if check is not None:
+            check(greedy, tr.cushion)
+        self.add_launches(counts)
+        self.rec["method"] = {
+            "prefix_ids": [int(t) for t in sr.prefix_ids],
+            "history": sr.history, "search_s": search_s, "iterations": n_it,
+            "tune_s": tune_s, "tune_s_per_step": tune_s / FAM_TUNE_STEPS,
+            "tune_log": tr.log,
+            "peak_mem_bytes_so_far": torch.cuda.max_memory_allocated()}
+        log(f"{self.tag} method: prefix {self.rec['method']['prefix_ids']} "
+            f"in {search_s:.2f} s ({n_it} iterations); {FAM_TUNE_STEPS} "
+            f"tuning steps in {tune_s:.2f} s, loss {tr.log[0]['loss']:.4f} "
+            f"-> {tr.log[-1]['loss']:.4f}; launches exact; peak device "
+            f"memory so far "
+            f"{self.rec['method']['peak_mem_bytes_so_far'] / 2 ** 30:.2f} GiB")
+
+    def card_vs_cpu(self, cfg2, p2, cush2, calib2, prompt, modes, n_tok):
+        """The card's teacher-forced logits against the port's CPU version
+        on a cut model (``cfg2``, ``p2``) in each mode, within
+        ``MOE_LOGIT_TOL``; the prefill's (token, MoE layer) pairs that the
+        two sides route to other experts are counted."""
+        import torch
+        from repro_torch.core import quantization as TQ
+        from repro_torch.core.calibration import calibrate
+        from repro_torch.models import moe as MO
+        from repro_torch.models.common import ParamTree
+        from repro_torch.models.registry import build
+        from repro_torch.serving.engine import Engine
+        cpu = lambda t: t.detach().cpu()       # noqa: E731
+        cp2 = ParamTree(tree_map(cpu, p2.tree()))
+        api2, cpu_api2 = build(cfg2, "cuda"), build(cfg2, "cpu")
+        qw8 = modes["w8a8_int8kv"][0]
+        sc2, _ = calibrate(api2, p2, calib2, qw8, cushion=cush2)
+        routing = []          # the experts picked: the card's, the CPU's
+
+        @torch.inference_mode()
+        def trajectory(a, p, qcfg, kv, sc, cush, pre, gen_toks):
+            prm = TQ.prequantize_tree(p.tree(), qcfg) if pre else p.tree()
+            cache = a.init_cache(1, 256, kv_dtype=kv, prefix_len=CUSHION)
+            seen = []
+            routing.append(seen)
+            inner = MO.route
+
+            def recording(x, router, k):
+                out = inner(x, router, k)
+                seen.append(out[2].cpu())
+                return out
+            MO.route = recording
+            try:
+                lg, cache, pos = a.prefill(
+                    prm, {k: v.to(a.device) for k, v in prompt.items()},
+                    cache, qcfg, cushion=cush, scales=sc)
+            finally:
+                MO.route = inner
+            out = [lg[:, -1].float().cpu()]
+            for n in range(gen_toks.shape[1] - 1):
+                tok = torch.as_tensor(gen_toks[:, n], dtype=torch.int32,
+                                      device=a.device)
+                lg, cache = a.decode_step(prm, tok, pos + n, cache, qcfg,
+                                          scales=sc)
+                out.append(lg.float().cpu())
+            return torch.stack(out)
+
+        self.rec["card_vs_cpu"] = {"n_layers": cfg2.n_layers}
+        for label, (qcfg, kv, pre) in modes.items():
+            t0 = time.perf_counter()
+            sc_card = sc2 if pre else None
+            sc_cpu = tree_map(cpu, sc2) if pre else None
+            eng2 = Engine(api2, p2, qcfg, cushion=cush2, scales=sc_card,
+                          max_seq=256, kv_dtype=kv, prequant=pre)
+            toks = eng2.generate(prompt, n_tok).tokens
+            lc = trajectory(api2, p2, qcfg, kv, sc_card, cush2, pre, toks)
+            lp = trajectory(cpu_api2, cp2, qcfg, kv, sc_cpu,
+                            tree_map(cpu, cush2), pre, toks)
+            err = (lc - lp).abs()
+            max_tol, mean_tol = MOE_LOGIT_TOL[label]
+            pairs = list(zip(*routing[-2:]))
+            cmp = {"max_abs_err": float(err.max()),
+                   "mean_abs_err": float(err.mean()),
+                   "max_abs_logit": float(lp.abs().max()),
+                   "prefill_tokens_with_other_experts": sum(
+                       int((a.sort(-1).values != b.sort(-1).values)
+                           .any(-1).sum()) for a, b in pairs),
+                   "prefill_token_layers": sum(a[..., 0].numel()
+                                               for a, _ in pairs),
+                   "tol_max": max_tol, "tol_mean": mean_tol,
+                   "seconds": time.perf_counter() - t0}
+            self.rec["card_vs_cpu"][label] = cmp
+            log(f"{self.tag} card vs CPU, {label} ({cfg2.n_layers} layers, "
+                f"B=1, {self.positions(prompt)} positions, "
+                f"{n_tok} logits rows): max |err| "
+                f"{cmp['max_abs_err']:.4g} (tolerance {max_tol}), mean "
+                f"{cmp['mean_abs_err']:.4g} (tolerance {mean_tol}), max "
+                f"|logit| {cmp['max_abs_logit']:.3g}; prefill (token, MoE "
+                f"layer) pairs routed to other experts "
+                f"{cmp['prefill_tokens_with_other_experts']} of "
+                f"{cmp['prefill_token_layers']}; {cmp['seconds']:.1f} s")
+            if cmp["max_abs_err"] > max_tol or cmp["mean_abs_err"] > mean_tol:
+                fail(f"{self.tag} {label}: card and CPU logits differ "
+                     f"beyond the stated tolerance")
+
+    def done(self):
+        import torch
+        self.rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        self.rec["seconds"] = time.perf_counter() - self.t0
+        log(f"{self.tag}: peak device memory "
+            f"{self.rec['peak_mem_bytes'] / 2 ** 30:.2f} GiB; phase launches "
+            f"{self.rec['launches']}")
+        return self.rec
 
 
 def moe_phase(dev, corpus, calib, batch, ps, zero_counts, counters_zero,
@@ -1242,58 +1610,32 @@ def moe_phase(dev, corpus, calib, batch, ps, zero_counts, counters_zero,
     """Phase 4e: olmoe-1b-7b at full width (see the module docstring).
     Returns the record; the model, its engines and graphs are released
     when it returns."""
-    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import CushionConfig, QuantConfig, get_config
+    from repro_torch.configs import QuantConfig, get_config
     from repro_torch.core import cushioncache as CC
     from repro_torch.core import quantization as TQ
-    from repro_torch.core.calibration import calibrate
     from repro_torch.data.pipeline import Pipeline
-    from repro_torch.kernels import _lib
     from repro_torch.launch.serve import (poisson_trace, seeded_cushion,
                                           to_device)
     from repro_torch.models import moe as MO
     from repro_torch.models.common import ParamTree
-    from repro_torch.models.registry import build
-    from repro_torch.serving.engine import Engine, cache_seq_len
-    from repro_torch.serving.scheduler import ContinuousEngine
+    from repro_torch.serving.engine import cache_seq_len
 
-    t_phase = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
     cfg = get_config(MOE_ARCH)
+    run = FamilyRun(MOE_ARCH, cfg, dev, zero_counts, counters_zero)
+    api, params, rec = run.api, run.params, run.rec
     L, V, E = cfg.n_layers, cfg.vocab_size, cfg.moe.num_experts
     D, Fd, K = cfg.d_model, cfg.d_ff, cfg.moe.top_k
-    api = build(cfg, "cuda")
-    t0 = time.perf_counter()
-    params = api.init_params(torch.Generator(dev).manual_seed(0))
-    torch.cuda.synchronize()
-    n_weights = sum(t.numel() for t in params.buffers())
-    rec = {"arch": MOE_ARCH, "n_layers": L, "capacity_factor":
-           cfg.moe.capacity_factor, "weights": n_weights,
-           "init_s": time.perf_counter() - t0, "launches": {}}
+    rec["capacity_factor"] = cfg.moe.capacity_factor
     if params.tree()["layers"]["moe"]["router"].dtype != torch.float32:
         fail("olmoe: the router is not f32 in the bf16 model")
     cushion = seeded_cushion(api, params, CUSHION, seed=0)
     qw8 = QuantConfig(mode="pt_static", true_int8=True)
-    qdyn = QuantConfig(mode="pt_dynamic")
-    log(f"olmoe-1b-7b: {n_weights / 1e9:.3f} B weights "
-        f"({sum(t.numel() * t.element_size() for t in params.buffers()) / 1e9:.2f}"
-        f" GB) made in {rec['init_s']:.1f} s")
-
-    def add_launches(counts):
-        for k_, n_ in counts.items():
-            rec["launches"][k_] = rec["launches"].get(k_, 0) + n_
-
-    def check_tokens(label, toks, shape):
-        if toks.shape != shape or toks.min() < 0 or toks.max() >= V:
-            fail(f"olmoe {label}: bad tokens {toks.shape} "
-                 f"[{toks.min()}, {toks.max()}]")
 
     # 1. the static Engine, W8A8 (int8 attention and head, fp experts,
-    # int8 KV) and fp: exact launches, one replay per token, graph tokens =
-    # the eager loop's, five requests for the quartiles
+    # int8 KV) and fp
     sites = 2 * L + 1                       # qkv, o per layer and the head
     attn = {"flash_attention": L, "flash_decode": L * (MOE_NEW - 1)}
     expect = {"w8a8_int8kv": {**zero_counts, **attn,
@@ -1304,55 +1646,7 @@ def moe_phase(dev, corpus, calib, batch, ps, zero_counts, counters_zero,
               "fp": {**zero_counts, **attn}}
     modes = {"w8a8_int8kv": (qw8, "int8", True), "fp": (QuantConfig(), None,
                                                         False)}
-    engines, rec["static"] = {}, {}
-    for label, (qcfg, kv, pre) in modes.items():
-        eng = Engine(api, params, qcfg, cushion=cushion,
-                     max_seq=PROMPT + MOE_NEW + 32, kv_dtype=kv,
-                     calib_batches=calib if pre else None, prequant=pre)
-        eng.generate(batch, 4)               # warm-up; captures B's step
-        graph = eng.states[B].graph
-        _lib.reset_launches()
-        res = eng.generate(batch, MOE_NEW)
-        counts = dict(_lib.LAUNCHES)
-        replays = _lib.COUNTERS["graph_replays"]
-        check_tokens(label, res.tokens, (B, MOE_NEW))
-        if counts != expect[label]:
-            fail(f"olmoe {label}: launches {counts}, expected "
-                 f"{expect[label]}")
-        if replays != MOE_NEW - 1:
-            fail(f"olmoe {label}: {replays} graph replays")
-        add_launches(counts)
-        _lib.reset_launches()
-        eager = eng.generate_py(batch, MOE_NEW)
-        if not np.array_equal(eager.tokens, res.tokens):
-            fail(f"olmoe {label}: graph tokens differ from the eager step's")
-        if dict(_lib.LAUNCHES) != counts:
-            fail(f"olmoe {label}: eager launches differ from the graph's")
-        reps = [res] + [eng.generate(batch, MOE_NEW) for _ in range(4)]
-        for r in reps[1:]:
-            if not np.array_equal(r.tokens, res.tokens):
-                fail(f"olmoe {label}: a repeated request gave other tokens")
-        rec["static"][label] = {
-            "ttft_ms": res.ttft_ms, "tpot_ms": res.tpot_ms,
-            "launches": counts, "graph_replays": replays,
-            "graph": {"capture_s": graph.capture_s, "n_nodes": graph.n_nodes},
-            "eager_tpot_ms": eager.tpot_ms,
-            "weight_bytes_fp": eng.weight_bytes_fp,
-            "weight_bytes_int8": eng.weight_bytes_int8,
-            "repeats": quartiles(
-                ttft_ms=[r.ttft_ms for r in reps],
-                tpot_ms=[r.tpot_ms for r in reps],
-                tokens_per_s=[B * MOE_NEW * 1e3
-                              / (r.ttft_ms + r.tpot_ms * (MOE_NEW - 1))
-                              for r in reps])}
-        q = rec["static"][label]["repeats"]
-        log(f"olmoe {label}: B={B} prompt={PROMPT} new={MOE_NEW} "
-            f"m={CUSHION} TTFT quartiles {q['ttft_ms']} ms, TPOT "
-            f"{q['tpot_ms']} ms, tokens/s {q['tokens_per_s']} (eager loop "
-            f"TPOT {eager.tpot_ms:.2f} ms); weights fp="
-            f"{eng.weight_bytes_fp} B int8={eng.weight_bytes_int8} B; "
-            f"launches {counts}; {replays} replays, {graph.n_nodes} nodes")
-        engines[label] = eng
+    engines = run.static(batch, MOE_NEW, cushion, calib, expect, modes)
     w8 = engines["w8a8_int8kv"]
     fp_bytes = rec["static"]["fp"]["weight_bytes_fp"]
     if not (w8.weight_bytes_int8 > 0 and w8.weight_bytes_fp < fp_bytes):
@@ -1435,215 +1729,338 @@ def moe_phase(dev, corpus, calib, batch, ps, zero_counts, counters_zero,
 
     # olmoe's shapes through every ported kernel of the path, against the
     # plain versions
-    rec["kernels"] = moe_kernels(
-        cfg, dev, timed, CUSHION + PROMPT + MOE_NEW // 2,
+    H, hd = cfg.n_heads, cfg.head_dim
+    rec["kernels"] = family_kernels(
+        "olmoe-1b-7b", cfg, dev, timed,
+        {"qkv": (D, (H + 2 * cfg.n_kv_heads) * hd, L), "o": (H * hd, D, L),
+         "head": (D, V, 1)},
+        L, PROMPT, CUSHION + PROMPT + MOE_NEW // 2,
         cache_seq_len(PROMPT + MOE_NEW + 32),
-        cache_seq_len(max(MOE_PROMPTS) + max(MOE_BUDGETS) + 32))
+        cache_seq_len(max(FAM_PROMPTS) + max(FAM_BUDGETS) + 32), TUNE_S)
 
-    # 2. the continuous path: 4 paged int8 slots, 8 requests at t = 0;
-    # every request's tokens = the static B = 1 W8A8 Engine's
-    reqs = poisson_trace(V, 3, MOE_REQ, 0.0, MOE_PROMPTS, MOE_BUDGETS,
-                         device=dev)
-    ce = ContinuousEngine(api, params, qw8, n_slots=4,
-                          max_seq=max(MOE_PROMPTS) + max(MOE_BUDGETS) + 32,
-                          cushion=cushion, scales=w8.scales, kv_dtype="int8",
-                          prequant=True, paged=True, page_size=ps)
-    ce.run([dataclasses.replace(r, max_new_tokens=2) for r in reqs[:4]])
-    _lib.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    outs = ce.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = dict(_lib.LAUNCHES)
-    st_ = ce.stats
-    if _lib.COUNTERS["graph_replays"] != st_.steps:
-        fail(f"olmoe continuous: {_lib.COUNTERS['graph_replays']} replays, "
-             f"{st_.steps} steps")
-    n_pre = st_.admitted
-    want = {**zero_counts, "w8a8_matmul": sites * (n_pre + st_.steps),
-            "act_quant_static": 2 * L * n_pre,
-            "act_quant_static_fused": n_pre + sites * st_.steps,
-            "flash_attention": L * n_pre,
-            "flash_decode_paged": L * st_.steps}
-    if counts != want:
-        fail(f"olmoe continuous: launches {counts}, expected {want}")
-    add_launches(counts)
-    for r, o in zip(reqs, outs):
-        check_tokens(f"continuous {r.uid}", o.tokens, (r.max_new_tokens,))
-        got = w8.generate(r.batch, r.max_new_tokens).tokens[0]
-        if not np.array_equal(got, o.tokens):
-            fail(f"olmoe continuous request {r.uid}: tokens differ from "
-                 f"the static B=1 Engine's")
-    total = sum(len(o.tokens) for o in outs)
-    rec["continuous"] = {
-        "wall_s": wall, "tokens": total,
-        "tokens_per_s": total / max(o.finished_s for o in outs),
-        "ttft_ms_p50": float(np.percentile([o.ttft_ms for o in outs], 50)),
-        "tpot_ms_p50": float(np.percentile([o.tpot_ms for o in outs], 50)),
-        "steps": st_.steps, "launches": counts,
-        "graph_nodes": ce.graph.n_nodes}
-    log(f"olmoe continuous (4 paged int8 slots, {MOE_REQ} requests): "
-        f"{total} tokens in {wall:.2f} s "
-        f"({rec['continuous']['tokens_per_s']:.1f} tok/s), TTFT p50 "
-        f"{rec['continuous']['ttft_ms_p50']:.1f} ms, TPOT p50 "
-        f"{rec['continuous']['tpot_ms_p50']:.2f} ms, {st_.steps} steps = "
-        f"replays; launches exact; tokens = the static B=1 Engine's")
-    counters_zero("phase 4e", [ce.graph] + [s_.graph for e in engines.values()
-                                            for s_ in e.states.values()])
+    # 2. the continuous path: 4 paged int8 slots, 8 requests at t = 0
+    reqs = poisson_trace(api, 3, FAM_REQ, 0.0, FAM_PROMPTS, FAM_BUDGETS)
+    rec["continuous"] = run.pool(
+        "paged pool", reqs, w8, qw8, w8.scales, cushion,
+        lambda n, s_: {"w8a8_matmul": sites * (n + s_),
+                       "act_quant_static": 2 * L * n,
+                       "act_quant_static_fused": n + sites * s_,
+                       "flash_attention": L * n,
+                       "flash_decode_paged": L * s_},
+        paged=True, page_size=ps)
+    counters_zero("phase 4e", [s_.graph for e in engines.values()
+                               for s_ in e.states.values()])
 
     # 3. the method: a short discover (pt_dynamic, the KV-reuse search) and
     # prefix tuning, launches exact
-    ccfg = CushionConfig(max_prefix_len=MAX_PREFIX, tau=1.0,
-                         sample_len=SAMPLE_LEN, n_candidates=MOE_CANDIDATES,
-                         seed_tokens=MOE_SEEDS, lam=0.05,
-                         tune_steps=MOE_TUNE_STEPS, tune_lr=1e-3,
-                         log_every=MOE_TUNE_STEPS)
     samples = [to_device(Pipeline(corpus, batch=1, seq_len=SAMPLE_LEN,
                                   seed=1).get_batch(i), dev)
                for i in range(MAX_PREFIX)]
     tune_pipe = Pipeline(corpus, batch=TUNE_B, seq_len=TUNE_S, seed=2)
     tune_b = [to_device(tune_pipe.get_batch(3000 + i), dev)
-              for i in range(MOE_TUNE_STEPS)]
-    _lib.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    greedy, sr, _ = CC.discover(api, params, lambda i: samples[i], iter(()),
-                                qdyn, ccfg, torch.Generator().manual_seed(2),
-                                skip_tune=True, verbose=False)
-    torch.cuda.synchronize()
-    search_s = time.perf_counter() - t0
-    counts = dict(_lib.LAUNCHES)
-    n_it = len(sr.history)
-    n_pool = CC._pool_pad_len(V, ccfg, SEARCH_CHUNK)
-    want = {**zero_counts, "flash_attention":
-            L * (n_it * (2 + n_pool // SEARCH_CHUNK) + 1)}
-    if counts != want or not 1 <= n_it <= MAX_PREFIX - len(MOE_SEEDS):
-        fail(f"olmoe search: {n_it} iterations, launches {counts}, "
-             f"expected {want}")
-    add_launches(counts)
-    _lib.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tr = CC.prefix_tune(api, params, greedy, iter(tune_b), qdyn, ccfg,
-                        verbose=False)
-    torch.cuda.synchronize()
-    tune_s = time.perf_counter() - t0
-    counts = dict(_lib.LAUNCHES)
-    want = {**zero_counts, "flash_attention": L * MOE_TUNE_STEPS,
-            "flash_attention_bwd": L * MOE_TUNE_STEPS}
-    if counts != want:
-        fail(f"olmoe tune: launches {counts}, expected {want}")
-    if len(tr.log) != MOE_TUNE_STEPS or not all(
-            np.isfinite(r[k_]) for r in tr.log for k_ in r):
-        fail(f"olmoe tune: log {tr.log}")
-    if torch.equal(tr.cushion["kv"]["k"], greedy["kv"]["k"]):
-        fail("olmoe tune: the cushion did not move")
-    add_launches(counts)
-    rec["method"] = {"prefix_ids": [int(t) for t in sr.prefix_ids],
-                     "history": sr.history, "search_s": search_s,
-                     "iterations": n_it, "tune_s": tune_s,
-                     "tune_s_per_step": tune_s / MOE_TUNE_STEPS,
-                     "tune_log": tr.log}
-    log(f"olmoe method: prefix {rec['method']['prefix_ids']} in "
-        f"{search_s:.2f} s ({n_it} iterations of {n_pool} candidates); "
-        f"{MOE_TUNE_STEPS} tuning steps (B={TUNE_B}, {TUNE_S} tokens) in "
-        f"{tune_s:.2f} s, loss {tr.log[0]['loss']:.4f} -> "
-        f"{tr.log[-1]['loss']:.4f}; launches exact "
-        f"({L} flash_attention and {L} flash_attention_bwd a step)")
-    del tr, greedy
+              for i in range(FAM_TUNE_STEPS)]
+
+    def search_want(n_it, ccfg):
+        n_pool = CC._pool_pad_len(V, ccfg, SEARCH_CHUNK)
+        return {"flash_attention":
+                L * (n_it * (2 + n_pool // SEARCH_CHUNK) + 1)}
+
+    run.method(lambda i: samples[i], tune_b, search_want,
+               {"flash_attention": L * FAM_TUNE_STEPS,
+                "flash_attention_bwd": L * FAM_TUNE_STEPS})
+    del samples, tune_b
 
     # 4. card against CPU at 2 layers of the full width, fp and W8A8
-    def cut(t):
-        if isinstance(t, dict):
-            return {k_: cut(v) for k_, v in t.items()}
-        return t[:MOE_CMP_LAYERS]
-
     cfg2 = dataclasses.replace(cfg, n_layers=MOE_CMP_LAYERS)
     tree = params.tree()
+    cut = lambda t: tree_map(lambda a: a[:MOE_CMP_LAYERS], t)  # noqa: E731
     p2 = ParamTree({**tree, "layers": cut(tree["layers"])})
-    cush2 = {"kv": cut(cushion["kv"])}
-    cpu = lambda t: t.detach().cpu()           # noqa: E731
-    cp2 = ParamTree(tree_map(cpu, p2.tree()))
-    api2, cpu_api2 = build(cfg2, "cuda"), build(cfg2, "cpu")
-    sc2, _ = calibrate(api2, p2, calib[:1], qw8, cushion=cush2)
-    prompt = {"tokens": batch["tokens"][:1, :MOE_CMP_PROMPT]}
-    routing = {}
+    run.card_vs_cpu(cfg2, p2, {"kv": cut(cushion["kv"])}, calib[:1],
+                    {"tokens": batch["tokens"][:1, :MOE_CMP_PROMPT]}, modes,
+                    MOE_CMP_TOKENS)
+    return run.done()
 
-    @torch.inference_mode()
-    def trajectory(a, p, qcfg, kv, sc, cush, pre, gen_toks):
-        prm = TQ.prequantize_tree(p.tree(), qcfg) if pre else p.tree()
-        cache = a.init_cache(1, 128, kv_dtype=kv, prefix_len=CUSHION)
-        seen = []
-        inner = MO.route
 
-        def recording(x, router, k_):
-            out = inner(x, router, k_)
-            seen.append(out[2].cpu())
-            return out
-        MO.route = recording
-        try:
-            lg, cache, pos = a.prefill(
-                prm, {"tokens": prompt["tokens"].to(a.device)}, cache, qcfg,
-                cushion=cush, scales=sc)
-        finally:
-            MO.route = inner
-        routing[a.device.type] = seen
-        out = [lg[:, -1].float().cpu()]
-        for n in range(gen_toks.shape[1] - 1):
-            tok = torch.as_tensor(gen_toks[:, n], dtype=torch.int32,
-                                  device=a.device)
-            lg, cache = a.decode_step(prm, tok, pos + n, cache, qcfg,
-                                      scales=sc)
-            out.append(lg.float().cpu())
-        return torch.stack(out)
+def vlm_phase(dev, zero_counts, counters_zero, timed):
+    """Phase 4f: internvl2-26b at full width and VLM_LAYERS of its 48
+    layers (see the module docstring)."""
+    import torch
+    from repro_torch.configs import QuantConfig, get_config
+    from repro_torch.launch.serve import poisson_trace, seeded_cushion
+    from repro_torch.models.common import ParamTree
+    from repro_torch.serving.engine import cache_seq_len
 
-    rec["card_vs_cpu"] = {}
-    for label, (qcfg, kv, pre) in modes.items():
-        t0 = time.perf_counter()
-        sc_card = sc2 if pre else None
-        sc_cpu = tree_map(cpu, sc2) if pre else None
-        eng2 = Engine(api2, p2, qcfg, cushion=cush2, scales=sc_card,
-                      max_seq=128, kv_dtype=kv, prequant=pre)
-        toks = eng2.generate(prompt, MOE_CMP_TOKENS).tokens
-        lc = trajectory(api2, p2, qcfg, kv, sc_card, cush2, pre, toks)
-        lp_ = trajectory(cpu_api2, cp2, qcfg, kv, sc_cpu,
-                         tree_map(cpu, cush2), pre, toks)
-        err = (lc - lp_).abs()
-        swaps = sum(int((a_.sort(-1).values != b_.sort(-1).values)
-                        .any(-1).sum())
-                    for a_, b_ in zip(routing["cuda"], routing["cpu"]))
-        max_tol, mean_tol = MOE_LOGIT_TOL[label]
-        cmp = {"max_abs_err": float(err.max()),
-               "mean_abs_err": float(err.mean()),
-               "max_abs_logit": float(lp_.abs().max()),
-               "prefill_tokens_with_other_experts": swaps,
-               "prefill_token_layers": MOE_CMP_LAYERS * MOE_CMP_PROMPT,
-               "tol_max": max_tol, "tol_mean": mean_tol,
-               "seconds": time.perf_counter() - t0}
-        rec["card_vs_cpu"][label] = cmp
-        log(f"olmoe card vs CPU, {label} ({MOE_CMP_LAYERS} layers, B=1, "
-            f"prompt {MOE_CMP_PROMPT}, {MOE_CMP_TOKENS} positions): max "
-            f"|err| {cmp['max_abs_err']:.4g} (tolerance {max_tol}), mean "
-            f"{cmp['mean_abs_err']:.4g} (tolerance {mean_tol}), max |logit| "
-            f"{cmp['max_abs_logit']:.3g}; prefill (token, layer) pairs routed "
-            f"to other experts {swaps} of {cmp['prefill_token_layers']}; "
-            f"{cmp['seconds']:.1f} s")
-        if cmp["max_abs_err"] > max_tol or cmp["mean_abs_err"] > mean_tol:
-            fail(f"olmoe {label}: card and CPU logits differ beyond the "
-                 f"stated tolerance")
-    rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
-    rec["seconds"] = time.perf_counter() - t_phase
-    log(f"olmoe: peak device memory {rec['peak_mem_bytes'] / 2 ** 30:.2f} "
-        f"GiB; phase launches {rec['launches']}")
-    return rec
+    cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_LAYERS)
+    run = FamilyRun("internvl2-26b", cfg, dev, zero_counts, counters_zero)
+    api, params, rec = run.api, run.params, run.rec
+    L, V, Pn = cfg.n_layers, cfg.vocab_size, cfg.vlm.num_patches
+    n_pos = Pn + VLM_TEXT
+    rec["patches"], rec["text_tokens"] = Pn, VLM_TEXT
+
+    def draw(seed, b, n):
+        return api.make_batch(torch.Generator(dev).manual_seed(seed), b, n)
+
+    batch = {k: v for k, v in draw(1, B, n_pos).items() if k != "labels"}
+    calib = [draw(1000 + i, B, n_pos) for i in range(2)]
+    cushion = seeded_cushion(api, params, CUSHION, seed=0)
+    qw8 = QuantConfig(mode="pt_static", true_int8=True)
+
+    # 1. the static Engine: [patches; text] prefill, 32 new tokens
+    sites = 5 * L + 1          # qkv, o, up, gate, down a layer; the head
+    attn = {"flash_attention": L, "flash_decode": L * (VLM_NEW - 1)}
+    expect = {"w8a8_int8kv": {**zero_counts, **attn,
+                              "w8a8_matmul": sites * VLM_NEW,
+                              "act_quant_static": 5 * L,
+                              "act_quant_static_fused":
+                                  1 + sites * (VLM_NEW - 1)},
+              "fp": {**zero_counts, **attn}}
+    modes = {"w8a8_int8kv": (qw8, "int8", True),
+             "fp": (QuantConfig(), None, False)}
+    engines = run.static(batch, VLM_NEW, cushion, calib, expect, modes)
+    w8 = engines["w8a8_int8kv"]
+    D, Fd, H, K, hd = (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim)
+    rec["kernels"] = family_kernels(
+        "internvl2-26b", cfg, dev, timed,
+        {"qkv": (D, (H + 2 * K) * hd, L), "o": (H * hd, D, L),
+         "mlp_in": (D, Fd, 2 * L), "down": (Fd, D, L), "head": (D, V, 1)},
+        L, n_pos, CUSHION + n_pos + VLM_NEW // 2,
+        cache_seq_len(n_pos + VLM_NEW + 32),
+        cache_seq_len(Pn + max(FAM_PROMPTS) + max(FAM_BUDGETS) + 32),
+        Pn + TUNE_S)
+
+    # 2. a paged int8 pool over 8 requests with patches
+    reqs = poisson_trace(api, 3, FAM_REQ, 0.0,
+                         tuple(Pn + p for p in FAM_PROMPTS), FAM_BUDGETS)
+    rec["paged"] = run.pool(
+        "paged pool", reqs, w8, qw8, w8.scales, cushion,
+        lambda n, s: {"w8a8_matmul": sites * (n + s),
+                      "act_quant_static": 5 * L * n,
+                      "act_quant_static_fused": n + sites * s,
+                      "flash_attention": L * n,
+                      "flash_decode_paged": L * s},
+        paged=True, page_size=64)
+    run.counters_zero("internvl2-26b static",
+                      [s.graph for e in engines.values()
+                       for s in e.states.values()])
+    del engines, w8              # the engines' caches and int8 copies
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. the method: the KV-reuse search with each candidate before the
+    # patches, and the tuning
+    samples = [{k: v for k, v in draw(5000 + i, 1, Pn + SAMPLE_LEN).items()
+                if k != "labels"} for i in range(MAX_PREFIX)]
+    tune_b = [draw(3000 + i, TUNE_B, Pn + TUNE_S)
+              for i in range(FAM_TUNE_STEPS)]
+
+    def search_want(n_it, ccfg):
+        from repro_torch.core import cushioncache as CC
+        n_pool = CC._pool_pad_len(V, ccfg, SEARCH_CHUNK)
+        return {"flash_attention":
+                L * (n_it * (2 + n_pool // SEARCH_CHUNK) + 1)}
+
+    run.method(lambda i: samples[i], tune_b, search_want,
+               {"flash_attention": L * FAM_TUNE_STEPS,
+                "flash_attention_bwd": L * FAM_TUNE_STEPS})
+    del samples, tune_b
+
+    # 4. card against CPU at 2 of the layers, 64 patches + 64 tokens
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    tree = params.tree()
+    cut = lambda t: (tree_map(lambda a: a[:2], t))   # noqa: E731
+    p2 = ParamTree({**tree, "layers": cut(tree["layers"])})
+    prompt = {"tokens": batch["tokens"][:1, :FAM_CMP_PROMPT],
+              "patches": batch["patches"][:1, :FAM_CMP_PROMPT]}
+    calib2 = [{"tokens": calib[0]["tokens"][:, :FAM_CMP_PROMPT],
+               "patches": calib[0]["patches"][:, :FAM_CMP_PROMPT]}]
+    run.card_vs_cpu(cfg2, p2, {"kv": cut(cushion["kv"])}, calib2, prompt,
+                    modes, VLM_CMP_TOKENS)
+    return run.done()
+
+
+def hybrid_phase(dev, zero_counts, counters_zero, timed):
+    """Phase 4g: jamba-v0.1-52b at full width and one period (see the
+    module docstring)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import QuantConfig, get_config
+    from repro_torch.launch.serve import poisson_trace, seeded_cushion
+    from repro_torch.models import hybrid as HY
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models.common import ParamTree
+    from repro_torch.serving.engine import cache_seq_len
+
+    full = get_config(HY_ARCH)
+    cfg = dataclasses.replace(full, n_layers=full.hybrid.period)
+    run = FamilyRun("jamba-v0.1-52b", cfg, dev, zero_counts, counters_zero)
+    api, params, rec = run.api, run.params, run.rec
+    V = cfg.vocab_size
+    n_per, kinds = HY.layout(cfg)
+    nm = HY.n_mamba_per_period(cfg)
+    n_dense = sum(1 for _, m in kinds if m == "dense")
+    n_attn = n_per * sum(1 for m, _ in kinds if m == "attn")
+    rec["layout"] = kinds
+
+    def draw(seed, b, n):
+        return api.make_batch(torch.Generator(dev).manual_seed(seed), b, n)
+
+    batch = {"tokens": draw(1, B, PROMPT)["tokens"]}
+    calib = [draw(1000 + i, B, PROMPT) for i in range(2)]
+    cushion = seeded_cushion(api, params, CUSHION, seed=0)
+    qw8 = QuantConfig(mode="pt_static", true_int8=True)
+
+    # 1. the static Engine, 16 new tokens
+    layer_sites = n_per * (2 * (n_attn // n_per) + 2 * nm + 3 * n_dense)
+    sites = layer_sites + 1
+    attn = {"flash_attention": n_attn, "flash_decode": n_attn * (HY_NEW - 1)}
+    expect = {"w8a8_int8kv": {**zero_counts, **attn,
+                              "w8a8_matmul": sites * HY_NEW,
+                              "act_quant_static": layer_sites,
+                              "act_quant_static_fused":
+                                  1 + sites * (HY_NEW - 1)},
+              "fp": {**zero_counts, **attn}}
+    modes = {"w8a8_int8kv": (qw8, "int8", True),
+             "fp": (QuantConfig(), None, False)}
+    engines = run.static(batch, HY_NEW, cushion, calib, expect, modes)
+    w8 = engines["w8a8_int8kv"]
+
+    # the Mamba scan's cost at the prefill's shape (B x PROMPT), one
+    # sublayer timed alone, times the period's nm sublayers
+    inner, N, _, _ = SSM.dims(cfg)
+    g = torch.Generator(dev).manual_seed(5)
+    dt_ = torch.rand((B, PROMPT, inner), generator=g, device=dev) * 0.1
+    xc = torch.randn((B, PROMPT, inner), generator=g, device=dev) \
+        .to(torch.bfloat16)
+    Bm = torch.randn((B, PROMPT, N), generator=g, device=dev)
+    Cm = torch.randn((B, PROMPT, N), generator=g, device=dev)
+    A = -torch.exp(params.tree()["layers"]["sub"][0]["mamba"]["A_log"][0])
+    h0 = torch.zeros((B, inner, N), device=dev)
+    with torch.inference_mode():
+        SSM._scan(dt_, xc, Bm, Cm, A, h0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            SSM._scan(dt_, xc, Bm, Cm, A, h0)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    scan_rows = by_kernel(prof, 1, top=None)
+    dev_ms = sum(v[1] for v in scan_rows.values())
+    scan_bytes = B * PROMPT * (2 * inner + 2 * N + inner) * 4
+    rec["mamba_scan"] = {
+        "unit": f"one Mamba sublayer's scan at B={B}, S={PROMPT}, "
+                f"inner={inner}, N={N}; x {n_per * nm} a prefill",
+        "device_ms": dev_ms, "wall_ms": wall,
+        "device_ms_per_prefill": n_per * nm * dev_ms,
+        "wall_ms_per_prefill": n_per * nm * wall,
+        "kernels": sum(v[0] for v in scan_rows.values()),
+        "bound_ms_inputs_once": scan_bytes / HBM_BYTES_PER_S * 1e3,
+        "by_kernel_top": dict(list(scan_rows.items())[:6])}
+    log(f"jamba Mamba scan ({rec['mamba_scan']['unit']}): device "
+        f"{dev_ms:.3f} ms, wall {wall:.2f} ms in "
+        f"{rec['mamba_scan']['kernels']:.0f} kernels; a prefill "
+        f"{rec['mamba_scan']['device_ms_per_prefill']:.2f} ms device, "
+        f"{rec['mamba_scan']['wall_ms_per_prefill']:.2f} ms wall")
+    del dt_, xc, Bm, Cm, h0, prof
+
+    D, Fd, H, K, hd = (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim)
+    rec["kernels"] = family_kernels(
+        "jamba-v0.1-52b", cfg, dev, timed,
+        {"qkv": (D, (H + 2 * K) * hd, n_attn), "o": (H * hd, D, n_attn),
+         "mamba_in": (D, 2 * inner, n_per * nm),
+         "mamba_out": (inner, D, n_per * nm),
+         "mlp_in": (D, Fd, 2 * n_per * n_dense),
+         "down": (Fd, D, n_per * n_dense), "head": (D, V, 1)},
+        n_attn, PROMPT, CUSHION + PROMPT + HY_NEW // 2,
+        cache_seq_len(PROMPT + HY_NEW + 32),
+        cache_seq_len(max(FAM_PROMPTS) + max(FAM_BUDGETS) + 32), TUNE_S)
+
+    # 2. a contiguous and a paged int8 pool over 8 requests
+    reqs = poisson_trace(api, 3, FAM_REQ, 0.0, FAM_PROMPTS, FAM_BUDGETS)
+
+    def pool_want(decode):
+        return lambda n, s: {"w8a8_matmul": sites * (n + s),
+                             "act_quant_static": layer_sites * n,
+                             "act_quant_static_fused": n + sites * s,
+                             "flash_attention": n_attn * n,
+                             decode: n_attn * s}
+
+    rec["contiguous"] = run.pool("contiguous pool", reqs, w8, qw8,
+                                 w8.scales, cushion,
+                                 pool_want("flash_decode"))
+    rec["paged"] = run.pool("paged pool", reqs, w8, qw8, w8.scales, cushion,
+                            pool_want("flash_decode_paged"), paged=True,
+                            page_size=64)
+    run.counters_zero("jamba static", [s.graph for e in engines.values()
+                                       for s in e.states.values()])
+    del engines, w8              # the engines' caches and int8 copies
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. the method: greedy_search_ref (no KV-reuse scoring for a
+    # recurrence) and the tuning; the Mamba state never trains
+    samples = [{"tokens": draw(5000 + i, 1, SAMPLE_LEN)["tokens"]}
+               for i in range(MAX_PREFIX)]
+    tune_b = [draw(3000 + i, TUNE_B, TUNE_S) for i in range(FAM_TUNE_STEPS)]
+
+    def search_want(n_it, ccfg):
+        # a base forward and one chunk of candidates an iteration, and the
+        # extraction's prefill
+        from repro_torch.core import cushioncache as CC
+        n_pool = CC._pool_pad_len(V, ccfg, SEARCH_CHUNK)
+        return {"flash_attention":
+                n_attn * (n_it * (1 + n_pool // SEARCH_CHUNK) + 1)}
+
+    def state_frozen(greedy, tuned):
+        for k in ("h", "conv"):
+            if not torch.equal(tuned["state"][k], greedy["state"][k]):
+                fail(f"jamba tune: the cushion's Mamba state {k} moved")
+        log("jamba tune: the cushion's Mamba state (h, conv) is "
+            "bit-identical after tuning")
+
+    if api.supports_kv_scoring:
+        fail("jamba: the hybrid must search with greedy_search_ref")
+    run.method(lambda i: samples[i], tune_b, search_want,
+               {"flash_attention": n_attn * FAM_TUNE_STEPS,
+                "flash_attention_bwd": n_attn * FAM_TUNE_STEPS},
+               check=state_frozen)
+    del samples, tune_b
+
+    # 4. card against CPU: a two-layer period at full width, the first
+    # Mamba sublayer (dense MLP) and the attention sublayer (MoE)
+    i_m = next(i for i, (m, f) in enumerate(kinds)
+               if m == "mamba" and f == "dense")
+    i_a = next(i for i, (m, f) in enumerate(kinds) if m == "attn")
+    if kinds[i_a][1] != "moe":
+        fail("jamba: the attention sublayer carries no MoE")
+    cfg2 = dataclasses.replace(cfg, n_layers=2, hybrid=dataclasses.replace(
+        cfg.hybrid, period=2, attn_at=(1,), moe_every=2, moe_offset=1))
+    if HY.layout(cfg2)[1] != [kinds[i_m], kinds[i_a]]:
+        fail(f"jamba: the cut period is {HY.layout(cfg2)[1]}")
+    tree = params.tree()
+    p2 = ParamTree({**tree, "layers": {"sub": [tree["layers"]["sub"][i_m],
+                                               tree["layers"]["sub"][i_a]]}})
+    mi = sum(1 for m, _ in kinds[:i_m] if m == "mamba")
+    cush2 = {"kv": cushion["kv"],
+             "state": {k: v[:, mi:mi + 1]
+                       for k, v in cushion["state"].items()}}
+    prompt = {"tokens": batch["tokens"][:1, :FAM_CMP_PROMPT]}
+    calib2 = [{"tokens": calib[0]["tokens"][:1, :FAM_CMP_PROMPT]}]
+    rec["card_vs_cpu_cut"] = (f"a two-layer period of full width: sublayer "
+                              f"{i_m} {kinds[i_m]} and {i_a} {kinds[i_a]}")
+    run.card_vs_cpu(cfg2, p2, cush2, calib2, prompt, modes, HY_CMP_TOKENS)
+    return run.done()
 
 
 def tree_map(fn, t):
-    """fn on every tensor of a tree of dicts and SiteScale leaves."""
+    """fn on every tensor of a tree of dicts, lists and SiteScale leaves."""
     from repro_torch.core.quantization import SiteScale
     if isinstance(t, dict):
         return {k: tree_map(fn, v) for k, v in t.items()}
+    if isinstance(t, list):
+        return [tree_map(fn, v) for v in t]
     if isinstance(t, SiteScale):
         return SiteScale(fn(t.scale), fn(t.zero))
     return fn(t)
@@ -2614,8 +3031,8 @@ def main() -> None:
     # 4b. the continuous path at full width -----------------------------
     N_REQ, SLOTS = 12, 4
     w8_scales = engines["w8a8_int8kv"].scales
-    reqs = poisson_trace(V, 0, N_REQ, 0.0, (PROMPT, PROMPT + 8),
-                         (NEW_TOKENS, NEW_TOKENS // 2), device=dev)
+    reqs = poisson_trace(api, 0, N_REQ, 0.0, (PROMPT, PROMPT + 8),
+                         (NEW_TOKENS, NEW_TOKENS // 2))
     ce_kw = dict(n_slots=SLOTS, max_seq=PROMPT + 8 + NEW_TOKENS + 32,
                  cushion=cushion, scales=w8_scales, prequant=True)
 
@@ -2890,6 +3307,18 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("moe")
+
+    # 4f. the VLM at full width -----------------------------------------
+    record["vlm"] = vlm_phase(dev, zero_counts, counters_zero, timed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("vlm")
+
+    # 4g. the Jamba hybrid at full width, one period --------------------
+    record["hybrid"] = hybrid_phase(dev, zero_counts, counters_zero, timed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("hybrid")
 
     # 5. card vs the port's CPU engine on the same weights --------------
     cpu = lambda t: t.detach().cpu()       # noqa: E731
@@ -3187,11 +3616,13 @@ def main() -> None:
             fail(f"{kk['name']} not launched on its path")
         if record["router"]["launches"].get(kk["name"]):
             kk["router_launches"] = record["router"]["launches"][kk["name"]]
-        if record["moe"]["launches"].get(kk["name"]):
-            kk["moe_launches"] = record["moe"]["launches"][kk["name"]]
-        # the kernel at olmoe's shapes (phase 4e), beside smollm's
-        kk.update({f"moe_{k_}": v for k_, v in
-                   record["moe"]["kernels"].get(kk["name"], {}).items()})
+        # the kernel's launches and rows at olmoe's (phase 4e), internvl2's
+        # (4f) and jamba's (4g) shapes, beside smollm's
+        for tag in ("moe", "vlm", "hybrid"):
+            if record[tag]["launches"].get(kk["name"]):
+                kk[f"{tag}_launches"] = record[tag]["launches"][kk["name"]]
+            kk.update({f"{tag}_{k_}": v for k_, v in
+                       record[tag]["kernels"].get(kk["name"], {}).items()})
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - t_start
     out_dir = ROOT / "chiprun_out"

@@ -69,8 +69,10 @@ def taps_to_stats(taps: Dict[str, Any]) -> Dict[str, Any]:
 def stats_to_scales(stats: Dict[str, Any], qcfg: QuantConfig,
                     family: Family) -> Dict[str, Any]:
     """{site: SiteScale (L,), ..., "head": SiteScale ()}: the dense layout,
-    which the MoE family shares (its sites are qkv, o, mlp_in and down)."""
-    if family not in (Family.DENSE, Family.MOE):
+    which the MoE and VLM families share (their sites are qkv, o, mlp_in
+    and down) and the hybrid's over its periods (with mamba_in and
+    mamba_out, one scale a period and site)."""
+    if family not in (Family.DENSE, Family.MOE, Family.VLM, Family.HYBRID):
         raise NotImplementedError(f"{family.value} scales are not ported")
     out = Q.scales_from_stats(stats["layers"], qcfg)
     if "head" in stats:

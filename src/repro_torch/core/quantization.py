@@ -350,7 +350,9 @@ def prequantize_tree(params: Any, cfg: QuantConfig, min_ndim: int = 2,
     """Replace qdot-consumed weight matrices (stacked over layers or not)
     with integer-resident dicts (int8 ``w_int`` or, with ``weight_bits=4``,
     nibble-packed ``w_packed``); stacked ``(L, ...)`` leaves are quantized
-    one layer at a time and stacked again. Embeddings stay fp."""
+    one layer at a time and stacked again. Lists of dicts (the hybrid's
+    sublayers) are walked as the reference walks them. Embeddings and
+    every ``moe`` leaf stay fp."""
     if weight_bits not in (8, 4):
         raise ValueError(f"weight_bits must be 8 or 4, got {weight_bits}")
 
@@ -374,6 +376,9 @@ def prequantize_tree(params: Any, cfg: QuantConfig, min_ndim: int = 2,
         for k, v in d.items():
             if isinstance(v, dict):
                 out[k] = visit(v, path + (k,))
+            elif isinstance(v, (list, tuple)):
+                out[k] = [visit(e, path + (k, i)) if isinstance(e, dict)
+                          else e for i, e in enumerate(v)]
             elif eligible(k, v, path):
                 out[k] = convert(v)
             else:

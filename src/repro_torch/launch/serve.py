@@ -43,6 +43,7 @@ launcher's (``data/pipeline.py`` is a copy).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 
@@ -125,26 +126,32 @@ def to_device(batch, device):
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
-def poisson_trace(vocab_size: int, rng_seed: int, n_requests: int,
-                  rate: float, prompt_lens, budgets, device="cpu") -> list:
-    """Poisson-arrival request trace: exponential inter-arrival gaps at
-    ``rate`` req/s (0: every request arrives at once), prompts cycling
-    through ``prompt_lens`` and budgets through ``budgets``. Everything
-    derives from ``rng_seed``. The gaps and budgets are the JAX launcher's;
-    the prompt ids come from a numpy ``RandomState(rng_seed + 7 i + 1)``
-    where the JAX launcher draws them with ``jax.random``, which the port
-    cannot reproduce, so the two launchers serve different prompts."""
+def poisson_trace(api, rng_seed: int, n_requests: int, rate: float,
+                  prompt_lens, budgets) -> list:
+    """Poisson-arrival request trace on the API's device: exponential
+    inter-arrival gaps at ``rate`` req/s (0: every request arrives at
+    once), prompts cycling through ``prompt_lens`` (total positions: a
+    VLM's patches take ``num_patches`` of them) and budgets through
+    ``budgets``. Everything derives from ``rng_seed``. The gaps and budgets
+    are the JAX launcher's; the prompt ids come from a numpy
+    ``RandomState(rng_seed + 7 i + 1)`` and a VLM's patches from a
+    ``torch.Generator`` of the same seed, where the JAX launcher draws both
+    with ``jax.random``, which the port cannot reproduce, so the two
+    launchers serve different prompts."""
     rs = np.random.RandomState(rng_seed)
     t = 0.0
     reqs = []
     for i in range(n_requests):
         t += float(rs.exponential(1.0 / rate)) if rate > 0 else 0.0
-        S = int(prompt_lens[i % len(prompt_lens)])
-        ids = np.random.RandomState(rng_seed + 7 * i + 1).randint(
-            0, vocab_size, (1, S))
+        S = api.text_len(int(prompt_lens[i % len(prompt_lens)]))
+        seed = rng_seed + 7 * i + 1
+        ids = np.random.RandomState(seed).randint(0, api.cfg.vocab_size,
+                                                  (1, S))
+        batch = {"tokens": torch.as_tensor(ids, dtype=torch.int32,
+                                           device=api.device),
+                 **api.extra_inputs(torch.Generator().manual_seed(seed), 1)}
         reqs.append(Request(
-            uid=i, batch={"tokens": torch.as_tensor(ids, dtype=torch.int32,
-                                                    device=device)},
+            uid=i, batch=batch,
             max_new_tokens=int(budgets[i % len(budgets)]), arrival_s=t))
     return reqs
 
@@ -172,11 +179,9 @@ def run_continuous(api, params, qcfg, args, calib_batches=None,
                    cushion=None, scales=None):
     install_sigterm_drain()
     dev = api.device
-    reqs = poisson_trace(api.cfg.vocab_size, args.trace_seed,
-                         args.n_requests, args.rate,
+    reqs = poisson_trace(api, args.trace_seed, args.n_requests, args.rate,
                          prompt_lens=(args.prompt_len, args.prompt_len + 8),
-                         budgets=(args.tokens, max(1, args.tokens // 2)),
-                         device=dev)
+                         budgets=(args.tokens, max(1, args.tokens // 2)))
     eng = ContinuousEngine(api, params, qcfg, n_slots=args.slots,
                            max_seq=args.prompt_len + 8 + args.tokens + 32,
                            cushion=cushion, scales=scales,
@@ -267,11 +272,9 @@ def run_router(api, params, qcfg, args, calib_batches=None, cushion=None,
     if args.chaos:
         injector = FaultInjector.parse(args.chaos, seed=args.chaos_seed)
         print(f"[serve] chaos armed: {args.chaos} (seed {args.chaos_seed})")
-    reqs = poisson_trace(api.cfg.vocab_size, args.trace_seed,
-                         args.n_requests, args.rate,
+    reqs = poisson_trace(api, args.trace_seed, args.n_requests, args.rate,
                          prompt_lens=(args.prompt_len, args.prompt_len + 8),
-                         budgets=(args.tokens, max(1, args.tokens // 2)),
-                         device=dev)
+                         budgets=(args.tokens, max(1, args.tokens // 2)))
     router = ReplicaRouter(
         api, params, qcfg, n_replicas=args.replicas,
         cfg=RouterConfig(max_queue=args.max_queue),
@@ -340,6 +343,10 @@ def _append_point(path: str, point: dict) -> None:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="paper_tiny")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="serve the first N layers of --arch at its full "
+                         "width (a multiple of a hybrid's period), where "
+                         "all of them would not fit on the card")
     ap.add_argument("--quant", default="none",
                     choices=["none", "pt_static", "pt_dynamic",
                              "ptoken_dynamic"])
@@ -426,6 +433,8 @@ def main(argv=None):
         ap.error("--cushion and --cushion-len are exclusive")
 
     cfg = get_config(args.arch)
+    if args.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     api = build(cfg, args.device)
     dev = api.device
     params = api.init_params(torch.Generator(dev).manual_seed(args.seed))
@@ -438,13 +447,26 @@ def main(argv=None):
     elif args.cushion_len:
         cushion = seeded_cushion(api, params, args.cushion_len, args.seed)
 
+    extras = bool(api.extra_inputs(torch.Generator(), 1))
+    if extras and args.mode != "continuous":
+        raise SystemExit(
+            f"[serve] {args.arch}: the static path feeds the pipeline's "
+            f"tokens only and {cfg.family.value} requests carry other "
+            f"inputs (patches), as in the reference; serve it with --mode "
+            f"continuous")
     corpus = SyntheticCorpus(cfg.vocab_size, seed=args.seed)
     pipe = Pipeline(corpus, batch=args.batch, seq_len=args.prompt_len,
                     seed=args.seed + 1)
     calib = None
     if args.quant == "pt_static" and art_scales is None:
-        calib = [to_device(pipe.get_batch(1000 + i), dev)
-                 for i in range(CALIB_BATCHES)]
+        if extras:
+            # the pipeline draws tokens only: calibrate on drawn batches
+            calib = [api.make_batch(torch.Generator().manual_seed(
+                args.seed + 1000 + i), args.batch, args.prompt_len)
+                for i in range(CALIB_BATCHES)]
+        else:
+            calib = [to_device(pipe.get_batch(1000 + i), dev)
+                     for i in range(CALIB_BATCHES)]
     if args.mode == "continuous":
         if args.replicas > 1 or args.chaos:
             return run_router(api, params, qcfg, args, calib_batches=calib,

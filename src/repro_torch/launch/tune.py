@@ -37,7 +37,8 @@ import json
 import torch
 
 from repro_torch.checkpoint.store import CheckpointManager
-from repro_torch.configs import CushionConfig, QuantConfig, get_config
+from repro_torch.configs import (CushionConfig, Family, QuantConfig,
+                                 get_config)
 from repro_torch.core import cushioncache as CC
 from repro_torch.core import outliers as OUT
 from repro_torch.data.pipeline import Pipeline, SyntheticCorpus
@@ -48,8 +49,29 @@ from repro_torch.train.trainer import eval_ppl
 
 def _make_batch_fns(api, cfg, args):
     """(sample_fn for the search, tuning batch generator, held-out eval
-    batches): the synthetic pipeline with the reference launcher's seeds
-    and disjoint step ranges."""
+    batches): token-only families draw from the synthetic pipeline with the
+    reference launcher's seeds and disjoint step ranges; a family with
+    other inputs (a VLM's patches) draws whole batches with
+    ``ModelAPI.make_batch``, with the reference launcher's seeds for a
+    ``torch.Generator``."""
+    if cfg.family in (Family.VLM, Family.ENCDEC):
+        def draw(seed, b, n):
+            return api.make_batch(torch.Generator().manual_seed(seed), b, n)
+
+        def sample_fn(i):
+            return draw(args.seed * 7919 + i, 1, args.sample_len)
+
+        def tune_batches():
+            i = 0
+            while True:
+                yield draw(args.seed * 104729 + 3000 + i, args.batch,
+                           args.seq_len)
+                i += 1
+
+        eval_batches = [draw(args.seed * 7 + 7000 + i, args.batch,
+                             args.seq_len) for i in range(args.eval_batches)]
+        return sample_fn, tune_batches(), eval_batches
+
     dev = api.device
     corpus = SyntheticCorpus(cfg.vocab_size, seed=args.seed)
     sample_pipe = Pipeline(corpus, batch=1, seq_len=args.sample_len,

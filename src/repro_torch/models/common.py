@@ -5,8 +5,9 @@ embedding and the head.
 
 Conventions
 -----------
-* Parameters are nested dicts of tensors, layer leaves stacked over layers
-  as ``(L, ...)``; ``ParamTree`` is the ``nn.Module`` that owns them.
+* Parameters are nested dicts of tensors (and lists, where the hybrid
+  family keeps its sublayers), layer leaves stacked over layers as
+  ``(L, ...)``; ``ParamTree`` is the ``nn.Module`` that owns them.
 * Every linear runs through ``qlinear`` (quantizer + optional taps).
 * ``scales`` maps site names to ``SiteScale`` leaves (``(L,)`` stacked).
 * The cushion prefix enters attention as per-layer KV ``prefix_kv``
@@ -49,37 +50,52 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 # Parameter container
 # ---------------------------------------------------------------------------
 
-def _flatten(tree: Params, path: Tuple[str, ...] = ()
-             ) -> Iterator[Tuple[Tuple[str, ...], Tensor]]:
-    for k, v in tree.items():
-        if isinstance(v, dict):
+def _children(tree: Any) -> Iterator[Tuple[Any, Any]]:
+    """(key, child) pairs of a dict, or (index, child) of a list."""
+    return iter(tree.items() if isinstance(tree, dict) else enumerate(tree))
+
+
+def _flatten(tree: Any, path: Tuple[Any, ...] = ()
+             ) -> Iterator[Tuple[Tuple[Any, ...], Tensor]]:
+    for k, v in _children(tree):
+        if isinstance(v, (dict, list)):
             yield from _flatten(v, path + (k,))
         else:
             yield path + (k,), v
+
+
+def _skeleton(tree: Any, path: Tuple[Any, ...] = ()) -> Any:
+    """The tree's shape with every leaf replaced by its buffer name."""
+    if isinstance(tree, dict):
+        return {k: _skeleton(v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_skeleton(v, path + (i,)) for i, v in enumerate(tree)]
+    return "__".join(str(k) for k in path)
 
 
 class ParamTree(nn.Module):
     """The model's parameters as one ``nn.Module``: every leaf of the nested
     dict is a buffer with no gradient (the model stays frozen; prefix tuning
     trains only the cushion, ``core/cushioncache.py`` ``prefix_tune``),
-    layer leaves stacked ``(L, ...)``. ``.to(device)`` moves them;
-    ``tree()`` is the nested-dict view the model functions take."""
+    layer leaves stacked ``(L, ...)``. A list node (the hybrid's sublayers,
+    ``params["layers"]["sub"]``) takes its index as a path component and
+    comes back a list. ``.to(device)`` moves them; ``tree()`` is the
+    nested view the model functions take."""
 
     def __init__(self, tree: Params):
         super().__init__()
-        self._paths: List[Tuple[str, ...]] = []
         for path, leaf in _flatten(tree):
-            self.register_buffer("__".join(path), leaf)
-            self._paths.append(path)
+            self.register_buffer("__".join(str(k) for k in path), leaf)
+        self._skel = _skeleton(tree)
 
     def tree(self) -> Params:
-        out: Params = {}
-        for path in self._paths:
-            d = out
-            for k in path[:-1]:
-                d = d.setdefault(k, {})
-            d[path[-1]] = getattr(self, "__".join(path))
-        return out
+        def fill(node):
+            if isinstance(node, dict):
+                return {k: fill(v) for k, v in node.items()}
+            if isinstance(node, list):
+                return [fill(v) for v in node]
+            return getattr(self, node)
+        return fill(self._skel)
 
 
 def as_tree(params) -> Params:
@@ -95,13 +111,23 @@ def unstack(tree: Any, n: int) -> List[Any]:
     if isinstance(tree, dict):
         parts = {k: unstack(v, n) for k, v in tree.items()}
         return [{k: parts[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, list):
+        parts = [unstack(v, n) for v in tree]
+        return [[p[i] for p in parts] for i in range(n)]
     return list(tree.unbind(0))
 
 
 def stack_trees(trees: List[Any]) -> Any:
-    """Inverse of ``unstack`` for dict-of-tensor trees."""
+    """Inverse of ``unstack`` for trees of dicts, lists and tensors."""
     if isinstance(trees[0], dict):
         return {k: stack_trees([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], list):
+        return [stack_trees([t[j] for t in trees])
+                for j in range(len(trees[0]))]
+    if len(trees) == 1:
+        # a view, no copy: one period of a model at full width holds its
+        # weights once while they are made
+        return trees[0].unsqueeze(0)
     return torch.stack(trees)
 
 
@@ -180,6 +206,30 @@ def apply_rope(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
     sin = sin[..., None, :]
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Plain products whose rows do not depend on the batch
+# ---------------------------------------------------------------------------
+
+# cuBLAS picks a GEMM's kernel by the row count (a matrix-vector kernel for
+# one row), and the kernels sum in other orders: on the card a row of a
+# B-row product need not equal the row computed alone (the Mamba decode's
+# bf16 x @ w_x and f32 dt product, and the router's, measured so). Products
+# of up to ROW_PAD rows are zero-padded to ROW_PAD, so a decode step's row
+# is the same in a pool of slots as in a batch of one.
+ROW_PAD = 16
+
+
+def matmul_rows(x: Tensor, w: Tensor) -> Tensor:
+    """x @ w (x: (..., K), w: (K, N)), each row's result independent of
+    the other rows for up to ROW_PAD rows on the card."""
+    M = x.numel() // x.shape[-1]
+    if x.device.type != "cuda" or M >= ROW_PAD:
+        return x @ w
+    x2 = x.reshape(M, x.shape[-1])
+    xp = torch.cat([x2, x2.new_zeros((ROW_PAD - M, x2.shape[1]))])
+    return (xp @ w)[:M].reshape(*x.shape[:-1], w.shape[-1])
 
 
 # ---------------------------------------------------------------------------

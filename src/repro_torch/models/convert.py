@@ -10,7 +10,8 @@ tensor (``checkpoint.store`` ``restore_tree``) is moved as it is. Every
 leaf keeps its dtype: the MoE family's ``moe`` subtree crosses with its f32
 router ``(L, D, E)`` inside a bf16 model, the experts ``w_up`` / ``w_gate``
 ``(L, E, D, F)`` and ``w_down`` ``(L, E, F, D)``, and arctic's dense
-``residual`` MLP.
+``residual`` MLP. The hybrid family's sublayers are a list
+(``params["layers"]["sub"]``) and cross as a list.
 """
 from __future__ import annotations
 
@@ -37,6 +38,8 @@ def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
 def _tree(d: Any, device) -> Any:
     if isinstance(d, dict):
         return {k: _tree(v, device) for k, v in d.items()}
+    if isinstance(d, (list, tuple)):
+        return [_tree(v, device) for v in d]
     return tensor_from_numpy(d, device)
 
 

@@ -18,7 +18,8 @@ The cache layout, the cushion and the int8 KV are the dense family's.
 Port notes:
 
 * Routing runs in f32: ``x.float() @ router`` (the router stays f32 in a
-  bf16 model), softmax, the top K and their renormalisation. Ties between
+  bf16 model; ``common.matmul_rows``, so a decode row routes alike in a
+  pool and alone), softmax, the top K and their renormalisation. Ties between
   experts go to the lower index, as in ``jax.lax.top_k``: the top K are
   the first K of a stable descending sort (``torch.topk`` promises no
   order among equal values).
@@ -109,7 +110,7 @@ def route(x: Tensor, router: Tensor, top_k: int
           ) -> Tuple[Tensor, Tensor, Tensor]:
     """f32 gate probabilities (B, S, E), the renormalised top-K weights and
     their expert ids (B, S, K); ties go to the lower expert id."""
-    probs = torch.softmax(x.float() @ router, dim=-1)
+    probs = torch.softmax(C.matmul_rows(x.float(), router), dim=-1)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_w = vals[..., :top_k]
     return probs, top_w / top_w.sum(dim=-1, keepdim=True), idx[..., :top_k]

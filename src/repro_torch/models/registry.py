@@ -1,9 +1,10 @@
 """Model API over the ported families: ``build(cfg, device)`` ->
-``ModelAPI`` (``repro/models/registry.py``). The dense and MoE families
-are ported; the others raise.
+``ModelAPI`` (``repro/models/registry.py``). The dense, MoE, VLM and
+hybrid families are ported; the others raise.
 
 Batch dicts hold ``{"tokens": (B, S) int tensor}`` (and ``"labels"`` for
-the loss) on the API's device.
+the loss) on the API's device; a VLM's also ``"patches"`` (B, P, D), its
+stub vision frontend's embeddings, placed before the tokens.
 """
 from __future__ import annotations
 
@@ -14,12 +15,15 @@ import torch
 
 from repro_torch.configs.base import Family, ModelConfig, QuantConfig
 from repro_torch.models import common as C
+from repro_torch.models import hybrid as HY
 from repro_torch.models import moe as MO
 from repro_torch.models import transformer as TR
+from repro_torch.models import vlm as VL
 
 Params = Dict[str, Any]
 
-_FAMILIES = {Family.DENSE: TR, Family.MOE: MO}
+_FAMILIES = {Family.DENSE: TR, Family.MOE: MO, Family.VLM: VL,
+             Family.HYBRID: HY}
 
 
 def family_module(cfg: ModelConfig):
@@ -28,9 +32,17 @@ def family_module(cfg: ModelConfig):
     mod = _FAMILIES.get(cfg.family)
     if mod is None:
         raise NotImplementedError(
-            f"{cfg.family.value}: only the dense and MoE families are ported "
-            "(ROADMAP queue 1 item 5.2 is next)")
+            f"{cfg.family.value}: only the dense, MoE, VLM and hybrid "
+            "families are ported (ROADMAP queue 1 item 5.4, xLSTM, is next)")
     return mod
+
+
+def _extra_kwargs(cfg: ModelConfig, batch: Dict[str, Any]) -> Dict[str, Any]:
+    """The batch's inputs beside the tokens that the family's functions
+    take (a VLM's patches)."""
+    if cfg.family == Family.VLM:
+        return {"patches": batch["patches"]}
+    return {}
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -66,11 +78,25 @@ class ModelAPI:
 
     def loss_fn(self, params, batch, qcfg: QuantConfig, **kw):
         return self.mod.loss_fn(params, batch["tokens"], batch["labels"],
-                                self.cfg, qcfg, **kw)
+                                self.cfg, qcfg,
+                                **_extra_kwargs(self.cfg, batch), **kw)
 
     def forward(self, params, batch, qcfg: QuantConfig, **kw):
         return self.mod.forward(params, batch["tokens"], self.cfg, qcfg,
-                                **kw)
+                                **_extra_kwargs(self.cfg, batch), **kw)
+
+    @property
+    def _kv_mod(self):
+        """The module whose prefill makes a token prefix's KV: the VLM's
+        cushion is the dense stack's over the prefix tokens alone (it sits
+        before the patches)."""
+        return TR if self.cfg.family == Family.VLM else self.mod
+
+    def _embed(self, params, ids: torch.Tensor, dtype) -> torch.Tensor:
+        """Token embeddings of ``ids`` in ``dtype`` (the VLM's search puts
+        them before the patches)."""
+        w = C.as_tree(params)["embed"]["w"]
+        return torch.nn.functional.embedding(ids.long(), w).to(dtype)
 
     def init_cache(self, batch: int, max_seq: int, dtype=None,
                    kv_dtype=None, prefix_len: int = 0,
@@ -93,8 +119,10 @@ class ModelAPI:
 
     @property
     def supports_chunked_prefill(self) -> bool:
-        """prefill() takes pos_offset to resume a staged B=1 fp row."""
-        return self.mod.SUPPORTS_CHUNKED_PREFILL
+        """prefill() takes pos_offset to resume a staged B=1 fp row. The
+        VLM (the patch prepend) and the hybrid (the Mamba state) admit
+        blocking."""
+        return bool(getattr(self.mod, "SUPPORTS_CHUNKED_PREFILL", False))
 
     def finalize_staged_kv(self, row, cache, cushion, S: int):
         """The blocking admission row, rebuilt from a finished chunk-staged
@@ -103,7 +131,7 @@ class ModelAPI:
 
     def prefill(self, params, batch, cache, qcfg: QuantConfig, **kw):
         return self.mod.prefill(params, batch["tokens"], cache, self.cfg,
-                                qcfg, **kw)
+                                qcfg, **_extra_kwargs(self.cfg, batch), **kw)
 
     def decode_step(self, params, token, pos, cache, qcfg: QuantConfig, **kw):
         return self.mod.decode_step(params, token, pos, cache, self.cfg,
@@ -118,19 +146,33 @@ class ModelAPI:
         at deployment (the reference scorer of the greedy search, paper
         §4.1). prefix_ids: (m,), or (N, m) for N prefixes scored at once:
         the batch is then tiled once per prefix and the forward runs with
-        ``groups=N`` (the reference vmaps one prefix at a time). Returns
-        (logits, taps); callers pass collect / n_skip via kw."""
+        ``groups=N`` (the reference vmaps one prefix at a time). A VLM's
+        prefix is embedded and placed before the patches. Returns (logits,
+        taps); callers pass collect / n_skip via kw."""
         toks = batch["tokens"]
         Bs, n = toks.shape
         ids = torch.as_tensor(prefix_ids, device=toks.device).to(toks.dtype)
-        if ids.dim() == 1:
-            full = torch.cat([ids[None].expand(Bs, -1), toks], dim=1)
-            return self.mod.forward(params, full, self.cfg, qcfg, **kw)
-        N, m = ids.shape
+        stacked = ids.dim() == 2
+        N = int(ids.shape[0]) if stacked else 1
+        ids = ids if stacked else ids[None]
+        m = int(ids.shape[1])
+        if stacked:
+            kw["groups"] = N
+        if self.cfg.family == Family.VLM:
+            pt = batch["patches"]
+            pre = self._embed(params, ids, pt.dtype)           # (N, m, D)
+            pre = torch.cat([pre[:, None].expand(N, Bs, m, pre.shape[-1]),
+                             pt[None].expand(N, *pt.shape)], dim=2)
+            rows = toks[None].expand(N, Bs, n).reshape(N * Bs, n)
+            return TR.forward(params, rows, self.cfg, qcfg,
+                              prepend_embeds=pre.reshape(N * Bs,
+                                                         *pre.shape[2:]),
+                              **kw)
         full = torch.cat([ids[:, None].expand(N, Bs, m),
                           toks[None].expand(N, Bs, n)], dim=2)
-        return self.mod.forward(params, full.reshape(N * Bs, m + n),
-                                self.cfg, qcfg, groups=N, **kw)
+        nb = dict(batch)
+        nb["tokens"] = full.reshape(N * Bs, m + n)
+        return self.forward(params, nb, qcfg, **kw)
 
     # ------------------------------------------------------------------
     # Greedy-search scoring fast path (KV reuse; paper §4.1)
@@ -152,11 +194,16 @@ class ModelAPI:
         """Stacked per-layer KV {"k", "v": (L, m, K, hd)} of a token prefix.
         With a padded prefix the rows past the live length hold the padding
         tokens' KV; consumers mask them with ``prefix_valid``."""
+        if not self.supports_kv_scoring:
+            raise NotImplementedError(
+                f"{self.cfg.family.value}: the prefix artifact is not "
+                "attention KV only; use cushioncache.greedy_search_ref")
         m = int(prefix_ids.shape[0])
-        cache = self.mod.init_cache(self.cfg, 1, m, self.device)
+        mod = self._kv_mod
+        cache = mod.init_cache(self.cfg, 1, m, self.device)
         ids = torch.as_tensor(prefix_ids, device=self.device)
-        _, cache, _ = self.mod.prefill(params, ids[None], cache, self.cfg,
-                                       qcfg, scales=scales)
+        _, cache, _ = mod.prefill(params, ids[None], cache, self.cfg,
+                                  qcfg, scales=scales)
         return {"k": cache["k"][:, 0], "v": cache["v"][:, 0]}
 
     def prefix_qerr(self, params, prefix_kv, live_len: int, batch,
@@ -177,15 +224,28 @@ class ModelAPI:
         row tiled per candidate) with ``groups=N``, so each candidate keeps
         its own dynamic ranges and L_q, as under the reference's vmap. The
         candidate position is excluded from L_q (n_skip=1)."""
+        if not self.supports_kv_scoring:
+            raise NotImplementedError(
+                f"{self.cfg.family.value}: KV-reuse scoring is not "
+                "available; use cushioncache.greedy_search_ref")
         toks = batch["tokens"]
         Bs, n = toks.shape
         cand = torch.as_tensor(cand_ids, device=toks.device).to(toks.dtype)
         N = int(cand.shape[0])
-        rows = torch.cat([cand[:, None, None].expand(N, Bs, 1),
-                          toks[None].expand(N, Bs, n)], dim=2)
-        _, taps = self.forward(params, {"tokens": rows.reshape(N * Bs,
-                                                               n + 1)},
-                               qcfg, scales=scales,
+        nb = dict(batch)
+        if self.cfg.family == Family.VLM:
+            # the candidate sits between the cushion and the patches
+            pt = batch["patches"]
+            ce = self._embed(params, cand, pt.dtype)            # (N, D)
+            pre = torch.cat([ce[:, None, None].expand(N, Bs, 1, ce.shape[-1]),
+                             pt[None].expand(N, *pt.shape)], dim=2)
+            nb["patches"] = pre.reshape(N * Bs, *pre.shape[2:])
+            nb["tokens"] = toks[None].expand(N, Bs, n).reshape(N * Bs, n)
+        else:
+            rows = torch.cat([cand[:, None, None].expand(N, Bs, 1),
+                              toks[None].expand(N, Bs, n)], dim=2)
+            nb["tokens"] = rows.reshape(N * Bs, n + 1)
+        _, taps = self.forward(params, nb, qcfg, scales=scales,
                                cushion={"kv": prefix_kv}, collect=True,
                                n_skip=1, prefix_valid=int(live_len),
                                pos_offset=int(live_len), groups=N)
@@ -194,31 +254,53 @@ class ModelAPI:
     def extract_cushion(self, params, prefix_ids: torch.Tensor, batch,
                         qcfg: QuantConfig) -> Params:
         """Turn a token prefix into the deployment cushion: its per-layer KV
-        after one pass through the model (paper eq. 8). ``batch`` is unused
-        by the dense and MoE families (kept for the reference's
-        signature)."""
+        after one pass through the model (paper eq. 8), and for the hybrid
+        also the Mamba layers' state after it. A VLM's prefix runs without
+        patches (the cushion sits before them). ``batch`` is unused (kept
+        for the reference's signature)."""
         m = int(prefix_ids.shape[0])
-        cache = self.mod.init_cache(self.cfg, 1, m, self.device)
-        _, cache, _ = self.mod.prefill(params,
-                                       prefix_ids[None].to(self.device),
-                                       cache, self.cfg, qcfg)
-        return {"kv": {"k": cache["k"][:, 0, :m], "v": cache["v"][:, 0, :m]}}
+        mod = self._kv_mod
+        cache = mod.init_cache(self.cfg, 1, m, self.device)
+        _, cache, _ = mod.prefill(params, prefix_ids[None].to(self.device),
+                                  cache, self.cfg, qcfg)
+        out = {"kv": {"k": cache["k"][:, 0, :m], "v": cache["v"][:, 0, :m]}}
+        if self.cfg.family == Family.HYBRID:
+            out["state"] = {"h": cache["h"][:, :, 0],
+                            "conv": cache["conv"][:, :, 0]}
+        return out
 
     def make_batch(self, gen: torch.Generator, batch: int, seq_len: int
                    ) -> Dict[str, torch.Tensor]:
-        """A random batch {"tokens", "labels"} on the API's device, drawn
-        from a ``torch.Generator`` (the reference draws with
-        ``jax.random``, which the port cannot reproduce: the same seed gives
-        other ids)."""
+        """A random batch {"tokens", "labels"} of ``seq_len`` positions in
+        all on the API's device, drawn from a ``torch.Generator`` (the
+        reference draws with ``jax.random``, which the port cannot
+        reproduce: the same seed gives other ids); a VLM's also "patches",
+        normal x 0.02 in the model dtype, from the same generator."""
         toks = torch.randint(0, self.cfg.vocab_size,
                              (batch, self.text_len(seq_len) + 1),
                              generator=gen, device=gen.device,
                              dtype=torch.int32).to(self.device)
-        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                **self.extra_inputs(gen, batch)}
+
+    def extra_inputs(self, gen: torch.Generator, batch: int
+                     ) -> Dict[str, torch.Tensor]:
+        """The family's inputs beside the tokens, drawn from ``gen`` on the
+        API's device: a VLM's patches (normal x 0.02 in the model dtype,
+        the stub frontend's output); {} for the token-only families."""
+        cfg = self.cfg
+        if cfg.family != Family.VLM:
+            return {}
+        pt = torch.randn((batch, cfg.vlm.num_patches, cfg.d_model),
+                         generator=gen, device=gen.device,
+                         dtype=C.dtype_of(cfg)) * 0.02
+        return {"patches": pt.to(self.device)}
 
     def text_len(self, seq_len: int) -> int:
-        """Token count such that total positions == seq_len (the dense and
-        MoE families have no prepended embeddings)."""
+        """Token count such that total positions == seq_len (a VLM's
+        patches take ``num_patches`` of them)."""
+        if self.cfg.family == Family.VLM:
+            return max(1, seq_len - self.cfg.vlm.num_patches)
         return seq_len
 
 

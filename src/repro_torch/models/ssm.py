@@ -1,0 +1,208 @@
+"""Mamba selective-SSM mixer (inside the Jamba hybrid), ported from
+``repro/models/ssm.py``:
+
+    dims(cfg)                                     -> (inner, N, d_conv, dt_rank)
+    mamba_init(gen, cfg)                          -> params
+    apply_mamba(p, x, cfg, qcfg, scales, taps...) -> out [, state]
+    init_state(cfg, B, device)                    -> {"h", "conv"}
+    decode_mamba(p, x, state, cfg, qcfg, scales)  -> (out, state)
+
+Sites: ``mamba_in`` (the in-projection's input) and ``mamba_out`` (the
+out-projection's input); with ``groups`` > 1 each stacked forward keeps
+its own dynamic ranges and L_q there (``models/common.py``).
+
+Port notes:
+
+* The scan. The reference runs ``jax.lax.associative_scan`` over
+  ``(B, S, inner, N)`` f32 tensors ``deltaA`` / ``deltaBx``. The port runs
+  the recurrence ``h_t = a_t h_{t-1} + b_t`` position by position, the
+  arithmetic of ``decode_mamba``, forming ``a_t`` and ``b_t`` for a chunk
+  of ``SCAN_CHUNK`` positions at a time, so the four-axis tensors exist
+  for one chunk only. The two associate the products differently and
+  agree to f32 rounding (``tests/test_torch_ssm.py`` states the bar). The
+  loop reads nothing back to the host, and autograd runs through it.
+* The conv, the scan and the ``dt`` products are jnp in the reference,
+  outside any Pallas kernel, and plain PyTorch here; the two linears run
+  through ``qlinear`` (``w8a8_matmul`` on the card under true int8). The
+  ``w_x`` and ``dt_w`` products go through ``common.matmul_rows``: at
+  decode a slot's row is then the same in a pool as alone on the card.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig, QuantConfig
+from repro_torch.models import common as C
+
+Tensor = torch.Tensor
+Params = Dict[str, Any]
+
+SITES = ("mamba_in", "mamba_out")
+
+# positions whose a_t / b_t are formed at once in apply_mamba's scan
+SCAN_CHUNK = 64
+
+
+def dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
+    s = cfg.ssm
+    inner = s.expand * cfg.d_model
+    dt_rank = max(1, int(np.ceil(cfg.d_model / 16)))
+    return inner, s.d_state, s.d_conv, dt_rank
+
+
+def mamba_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """Seeded random weights: S4D-real ``A_log``, ``dt_b`` the inverse
+    softplus of a log-uniform dt in [0.001, 0.1], as the reference."""
+    inner, d_state, d_conv, dt_rank = dims(cfg)
+    D = cfg.d_model
+    dt = C.dtype_of(cfg)
+    dev = gen.device
+
+    def f32(*shape, rand=torch.randn):
+        return rand(shape, generator=gen, device=dev, dtype=torch.float32)
+
+    A = torch.arange(1, d_state + 1, dtype=torch.float32,
+                     device=dev)[None].repeat(inner, 1)
+    dt0 = torch.exp(f32(inner, rand=torch.rand)
+                    * (np.log(0.1) - np.log(0.001)) + np.log(0.001))
+    return {
+        "w_in": C.dense_init(gen, D, 2 * inner, dt),
+        "conv_w": (f32(d_conv, inner) / np.sqrt(d_conv)).to(dt),
+        "conv_b": torch.zeros((inner,), dtype=dt, device=dev),
+        "w_x": C.dense_init(gen, inner, dt_rank + 2 * d_state, dt),
+        "dt_w": C.dense_init(gen, dt_rank, inner, dt),
+        "dt_b": torch.log(torch.exp(dt0) - 1.0),
+        "A_log": torch.log(A),
+        "Dskip": torch.ones((inner,), dtype=torch.float32, device=dev),
+        "w_out": C.dense_init(gen, inner, D, dt,
+                              scale=1.0 / np.sqrt(2 * cfg.n_layers)),
+    }
+
+
+def _conv_full(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
+    """Causal depthwise conv. x: (B, S, C); w: (d_conv, C); b: (C,)."""
+    d_conv = w.shape[0]
+    xt = F.pad(x.transpose(1, 2), (d_conv - 1, 0))
+    y = F.conv1d(xt, w.to(x.dtype).T[:, None, :], groups=x.shape[-1])
+    return y.transpose(1, 2) + b
+
+
+def _ssm_inputs(p: Params, xc: Tensor, cfg: ModelConfig
+                ) -> Tuple[Tensor, Tensor, Tensor]:
+    """xc: (B, S, inner) after the conv. Returns dt (B, S, inner), Bm and
+    Cm (B, S, N), all f32: the step's a_t = exp(dt_t A) and
+    b_t = dt_t x_t Bm_t are formed by the caller."""
+    _, d_state, _, dt_rank = dims(cfg)
+    proj = C.matmul_rows(xc, p["w_x"].to(xc.dtype))
+    dt_raw, Bm, Cm = torch.split(proj, [dt_rank, d_state, d_state], dim=-1)
+    dt = F.softplus(C.matmul_rows(dt_raw.float(), p["dt_w"].float())
+                    + p["dt_b"])
+    return dt, Bm.float(), Cm.float()
+
+
+def _step_terms(dt: Tensor, xc: Tensor, Bm: Tensor, A: Tensor
+                ) -> Tuple[Tensor, Tensor]:
+    """a = exp(dt A), b = (dt x) Bm for (..., inner) dt / xc and (..., N)
+    Bm: (..., inner, N) f32 each."""
+    a = torch.exp(dt[..., None] * A)
+    b = (dt * xc.float())[..., None] * Bm[..., None, :]
+    return a, b
+
+
+def _scan(dt: Tensor, xc: Tensor, Bm: Tensor, Cm: Tensor, A: Tensor,
+          h: Tensor) -> Tuple[Tensor, Tensor]:
+    """The recurrence h_t = a_t h_{t-1} + b_t from h (B, inner, N) f32 over
+    the S positions of dt / xc (B, S, inner) and Bm / Cm (B, S, N).
+    Returns (y (B, S, inner) = sum_n h_t C_t, the last h)."""
+    S = dt.shape[1]
+    ys = []
+    for s0 in range(0, S, SCAN_CHUNK):
+        sl = slice(s0, min(S, s0 + SCAN_CHUNK))
+        a, b = _step_terms(dt[:, sl], xc[:, sl], Bm[:, sl], A)
+        hs = []
+        for t in range(a.shape[1]):
+            h = torch.addcmul(b[:, t], a[:, t], h)
+            hs.append(h)
+        ys.append(torch.einsum("btin,btn->bti", torch.stack(hs, 1),
+                               Cm[:, sl]))
+    return torch.cat(ys, 1), h
+
+
+def apply_mamba(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
+                scales: Optional[Params], taps: Optional[Dict],
+                n_skip: int = 0, init_state: Optional[Params] = None,
+                return_state: bool = False, groups: int = 1):
+    """Full-sequence Mamba mixer. x: (B, S, D). init_state: {"h": (B,
+    inner, N) or (inner, N), "conv": (B, d_conv-1, inner) or (d_conv-1,
+    inner)}, the cushion's state (batch-free broadcasts over B). With
+    ``return_state`` also returns the state after the sequence: its ``h``
+    and the last d_conv-1 inputs of the conv, zero-padded (the reference
+    pads with zeros, not with the initial state's conv rows)."""
+    B, S, _ = x.shape
+    inner, d_state, d_conv, _ = dims(cfg)
+    xz = C.qlinear(x, p["w_in"], None, qcfg, scales, "mamba_in", taps,
+                   n_skip, groups)
+    xin, z = xz.chunk(2, dim=-1)
+    if init_state is not None and "conv" in init_state:
+        cv = init_state["conv"]
+        if cv.dim() == 2:
+            cv = cv[None].expand(B, *cv.shape)
+        xpad = torch.cat([cv.to(xin.dtype), xin], dim=1)
+        xc = _conv_full(xpad, p["conv_w"], p["conv_b"])[:, d_conv - 1:]
+    else:
+        xc = _conv_full(xin, p["conv_w"], p["conv_b"])
+    xc = F.silu(xc)
+
+    dt, Bm, Cm = _ssm_inputs(p, xc, cfg)
+    A = -torch.exp(p["A_log"])
+    if init_state is not None and "h" in init_state:
+        h0 = init_state["h"].float()
+        if h0.dim() == 2:
+            h0 = h0[None].expand(B, *h0.shape)
+    else:
+        h0 = torch.zeros((B, inner, d_state), dtype=torch.float32,
+                         device=x.device)
+    y, h = _scan(dt, xc, Bm, Cm, A, h0)
+    y = y + p["Dskip"] * xc.float()
+    y = y.to(x.dtype) * F.silu(z)
+    out = C.qlinear(y, p["w_out"], None, qcfg, scales, "mamba_out", taps,
+                    n_skip, groups)
+    if return_state:
+        pad = torch.zeros((B, d_conv - 1, inner), dtype=xin.dtype,
+                          device=x.device)
+        conv = torch.cat([pad, xin], dim=1)[:, -(d_conv - 1):]
+        return out, {"h": h, "conv": conv}
+    return out
+
+
+def init_state(cfg: ModelConfig, batch: int, device) -> Params:
+    inner, d_state, d_conv, _ = dims(cfg)
+    return {"h": torch.zeros((batch, inner, d_state), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros((batch, d_conv - 1, inner),
+                                dtype=C.dtype_of(cfg), device=device)}
+
+
+def decode_mamba(p: Params, x: Tensor, state: Params, cfg: ModelConfig,
+                 qcfg: QuantConfig, scales: Optional[Params],
+                 taps: Optional[Dict] = None) -> Tuple[Tensor, Params]:
+    """One token. x: (B, 1, D); state: {"h": (B, inner, N) f32, "conv":
+    (B, d_conv-1, inner)}. Returns (out, the new state)."""
+    xz = C.qlinear(x, p["w_in"], None, qcfg, scales, "mamba_in", taps)
+    xin, z = xz.chunk(2, dim=-1)                          # (B, 1, inner)
+    win = torch.cat([state["conv"].to(xin.dtype), xin], dim=1)
+    xc = torch.einsum("bci,ci->bi", win, p["conv_w"].to(xin.dtype)) \
+        + p["conv_b"]
+    xc = F.silu(xc)[:, None]                              # (B, 1, inner)
+    dt, Bm, Cm = _ssm_inputs(p, xc, cfg)
+    a, b = _step_terms(dt[:, 0], xc[:, 0], Bm[:, 0], -torch.exp(p["A_log"]))
+    h = torch.addcmul(b, a, state["h"])
+    y = torch.einsum("bin,bn->bi", h, Cm[:, 0]) \
+        + p["Dskip"] * xc[:, 0].float()
+    y = y[:, None].to(x.dtype) * F.silu(z)
+    out = C.qlinear(y, p["w_out"], None, qcfg, scales, "mamba_out", taps)
+    return out, {"h": h, "conv": win[:, 1:]}

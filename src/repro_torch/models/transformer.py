@@ -61,6 +61,16 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> C.ParamTree:
     return C.ParamTree(p)
 
 
+def embed_with_prepend(params: Params, tokens: Tensor, cfg: ModelConfig,
+                       prepend_embeds: Optional[Tensor]) -> Tensor:
+    """Token embeddings, with ``prepend_embeds`` (B, P, D) before them in
+    the model dtype."""
+    x = C.embed_tokens(params, tokens, cfg)
+    if prepend_embeds is None:
+        return x
+    return torch.cat([prepend_embeds.to(x.dtype), x], dim=1)
+
+
 def _cushion_layers(cushion: Optional[Params], L: int) -> List[Optional[Params]]:
     if cushion is None:
         return [None] * L
@@ -86,12 +96,16 @@ def _block(lp: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
 def forward(params, tokens: Tensor, cfg: ModelConfig, qcfg: QuantConfig, *,
             scales: Optional[Params] = None, cushion: Optional[Params] = None,
             collect: bool = False, n_skip: int = 0,
+            prepend_embeds: Optional[Tensor] = None,
             prefix_valid: Optional[int] = None,
             pos_offset: Optional[int] = None,
             groups: int = 1) -> Tuple[Tensor, Dict]:
     """Full-sequence causal forward. cushion: {"kv": {"k": (L,m,K,hd), ...}}.
     With ``collect`` the taps hold every site's statistics, layer entries
-    stacked over L (the calibration input).
+    stacked over L (the calibration input). prepend_embeds (B, P, D):
+    embeddings placed before the token embeddings, in the model dtype (the
+    VLM's patches, with the search's prefix or candidate embeddings before
+    them).
 
     prefix_valid / pos_offset serve the search's scoring path: the cushion
     KV is padded to a fixed length, prefix_valid (int) is its live length
@@ -102,7 +116,7 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, qcfg: QuantConfig, *,
     its own dynamic ranges and L_q (``models/common.py``)."""
     params = C.as_tree(params)
     L = cfg.n_layers
-    x = C.embed_tokens(params, tokens, cfg)
+    x = embed_with_prepend(params, tokens, cfg, prepend_embeds)
     S = x.shape[1]
     m = 0 if cushion is None else cushion["kv"]["k"].shape[1]
     positions = (m if pos_offset is None else int(pos_offset)) \
@@ -216,10 +230,13 @@ def finalize_staged_kv(row: Params, cache: Params, cushion: Optional[Params],
 def prefill(params, tokens: Tensor, cache: Params, cfg: ModelConfig,
             qcfg: QuantConfig, *, scales: Optional[Params] = None,
             cushion: Optional[Params] = None,
+            prepend_embeds: Optional[Tensor] = None,
             pos_offset: Optional[int] = None
             ) -> Tuple[Tensor, Params, Tensor]:
     """Process the prompt and fill the cache (cushion at [0:m], prompt at
     [m:m+S]). Returns (last-position logits (B,1,V), cache, next_pos).
+    prepend_embeds (B, P, D) sit before the tokens (the VLM's patches) and
+    count among the S prompt positions.
 
     pos_offset (int) resumes a chunked prefill: positions [0:pos_offset) of
     the B=1 fp cache row already hold the cushion and every earlier chunk,
@@ -228,9 +245,13 @@ def prefill(params, tokens: Tensor, cache: Params, cfg: ModelConfig,
     admission rows are rebuilt by ``finalize_staged_kv``)."""
     params = C.as_tree(params)
     L = cfg.n_layers
-    x = C.embed_tokens(params, tokens, cfg)
+    x = embed_with_prepend(params, tokens, cfg, prepend_embeds)
     S = x.shape[1]
     if pos_offset is not None:
+        if prepend_embeds is not None:
+            raise ValueError("chunk-resume prefill takes tokens only (a "
+                             "request with prepended embeddings admits "
+                             "blocking)")
         if cushion is not None:
             raise ValueError("chunk-resume prefill attaches the cushion on "
                              "chunk 0 only (pos_offset excludes cushion)")

@@ -12,11 +12,19 @@ import torch
 
 
 def _leaves(tree: Any, path=()):
+    """(path, tensor) of every leaf under dicts and lists; any other node
+    raises, so no weight goes uncounted."""
     if isinstance(tree, dict):
         for k, v in tree.items():
             yield from _leaves(v, path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (i,))
     elif isinstance(tree, torch.Tensor):
         yield path, tree
+    else:
+        raise TypeError(f"cannot count the bytes of a "
+                        f"{type(tree).__name__} at {path!r}")
 
 
 def resident_weight_bytes(params: Any) -> Tuple[int, int, int]:

@@ -160,6 +160,13 @@ _AUTO_CHUNK_MAX = 256
 _AUTO_CHUNK_MIN = 8
 
 
+def _has_extras(req: Request) -> bool:
+    """A request with inputs beside its tokens (a VLM's patches) admits
+    blocking and is never looked up in the prefix cache, as in the
+    reference: its positions are not its token ids."""
+    return bool({"patches", "frames"} & set(req.batch))
+
+
 def _host_tokens(req: Request) -> np.ndarray:
     return req.batch["tokens"][0].detach().cpu().numpy()
 
@@ -218,6 +225,13 @@ class ContinuousEngine:
                     "prefix_cache shares fp pages only: int8 donor pages "
                     "are quantized with the donor slot's dequant scales "
                     "and cannot be read under another slot's")
+            state = sorted(set(axes) - set(self._paged_leaves))
+            if prefix_cache and state:
+                # the reference admits the pool and fails at the first
+                # stem hit (its stem cushion carries no recurrent state)
+                raise ValueError(
+                    f"prefix_cache shares KV pages only: this family's "
+                    f"per-request state {state} has no stem to share")
         self._P = self.max_seq // page_size
         c0 = self.prefix_len // page_size
         if n_pages is None:
@@ -373,8 +387,10 @@ class ContinuousEngine:
         st.prefix_misses = self._pool.prefix_misses
 
     def _positions_needed(self, req: Request) -> int:
-        return (self.prefix_len + int(req.batch["tokens"].shape[1])
-                + req.max_new_tokens)
+        S = int(req.batch["tokens"].shape[1])
+        if "patches" in req.batch:
+            S += int(req.batch["patches"].shape[1])
+        return self.prefix_len + S + req.max_new_tokens
 
     # ------------------------------------------------------------------
     # Incremental serving API
@@ -450,6 +466,7 @@ class ContinuousEngine:
             return False
         if (self.chunk_tokens is not None
                 and self.api.supports_chunked_prefill
+                and not _has_extras(req)
                 and req.batch["tokens"].shape[1] > self._chunk_budget()):
             return self._start_stream(req, free[0])
         return self._admit_request(req, free[0])
@@ -614,7 +631,7 @@ class ContinuousEngine:
         prefill_end = need - req.max_new_tokens     # prefix + prompt
         tokens = None
         shared: List[int] = []
-        if self._prefix_cache:
+        if self._prefix_cache and not _has_extras(req):
             tokens = _host_tokens(req)
             shared = self._pool.lookup_stem(tokens)
         scatter = self._pool.admit(slot, prefill_end, need, shared=shared)
@@ -675,7 +692,7 @@ class ContinuousEngine:
         shared: List[int] = []
         stem_tokens = None
         if self.paged:
-            if self._prefix_cache:
+            if self._prefix_cache and not _has_extras(req):
                 stem_tokens = _host_tokens(req)
                 shared = self._pool.lookup_stem(stem_tokens)
             scatter = self._pool.admit(slot, prefill_end, need, shared=shared)

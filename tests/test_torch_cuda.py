@@ -65,7 +65,12 @@ def _within_ulp(a, b):
 W8_CASES = [(1, 960, 1600), (4, 960, 1600), (16, 2560, 960),
             (17, 960, 2560), (37, 2560, 960), (256, 960, 1600),
             (2048, 2560, 960), (2048, 960, 1600), (300, 128, 100),
-            (4, 960, 49152), (5, 100, 102), (40, 100, 102), (3, 36, 7)]
+            (4, 960, 49152), (5, 100, 102), (40, 100, 102), (3, 36, 7),
+            # internvl2-26b's untied head (vocab 92,553, odd: the ragged-N
+            # byte loads) at decode and in tensor-core tiles; jamba's
+            # mamba_out (K = inner = 8192) and mamba_in (N = 16384)
+            (1, 6144, 92553), (4, 6144, 92553), (300, 6144, 92553),
+            (4, 8192, 4096), (2048, 8192, 4096), (2048, 4096, 16384)]
 
 
 def _w8_case(dev, M, K, N, seed):
@@ -1077,9 +1082,16 @@ def test_router_drain_on_card(router_card):
 # and the decode kernels, at the bars of their head_dim 16-64 tests
 HD128_CASES = [(512, 4, 4, 2, 4, 1), (65, 37, 10, 2, 2, 3), (1, 4, 4, 1, 2, 1),
                (300, 5, 2, 1, 16, 1)]
+# jamba (8 kv-heads, G = 4) and internvl2-26b (8 kv-heads, G = 6: the
+# backward's cluster then holds one query chunk): the tuning's shape, a
+# query tile's edges, live 0 behind dead rows
+HD128_GQA_CASES = [(260, 4, 4, 2, 8, 4), (65, 37, 10, 2, 2, 4),
+                   (64, 4, 0, 1, 2, 4), (260, 4, 4, 2, 8, 6),
+                   (65, 37, 10, 2, 2, 6), (63, 4, 2, 1, 1, 6),
+                   (300, 5, 5, 1, 2, 6)]
 
 
-@pytest.mark.parametrize("S,m,live,B,Kh,G", HD128_CASES)
+@pytest.mark.parametrize("S,m,live,B,Kh,G", HD128_CASES + HD128_GQA_CASES)
 def test_attention_head_dim_128_within_bars(dev, S, m, live, B, Kh, G):
     """flash_attention (bf16) within one bf16 ulp of its plain version and
     its log-sum-exp within 1e-5, a dead row changing nothing; the backward
@@ -1138,6 +1150,43 @@ def test_flash_decode_head_dim_128(dev, mode, dt):
                     else v_) for k_, v_ in kw.items()}
         assert torch.equal(flash_decode(q[1:2], k[1:2], v[1:2], pos[1:2],
                                         **one), got[1:2])
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("mode", ["fp", "int8-K", "int8-BK"])
+@pytest.mark.parametrize("G", [4, 6])
+def test_flash_decode_head_dim_128_gqa(dev, G, mode, dt):
+    """Contiguous and paged decode at head_dim 128 over 8 kv-heads, jamba's
+    G = 4 and internvl2-26b's G = 6: bf16 within one bf16 ulp of the plain
+    version plus 1e-5 of its largest entry (the backward's bar: with 24-48
+    heads a row holds entries that cancel to ~1e-4, where the f32 sums of
+    the split-KV chunks, merged in another order, leave a few 1e-6; one
+    such entry measured 1.7e-6 apart, the largest entries up to ~6), f32
+    within 1e-5;
+    the paged kernel bit-identical to the contiguous one, a row equal to
+    the row computed alone."""
+    g = torch.Generator(dev).manual_seed(17 + G)
+    B, Kh, hd, Smax, m = 4, 8, 128, 200, 4
+    q, k, v, kw = _decode_case(g, dev, mode, dt, B, Kh, G, hd, Smax, m)
+    cm = m if mode != "fp" else 0
+    pos = torch.tensor([cm - 1 if cm else 0, 64, Smax - 1, -1],
+                       dtype=torch.int32, device=dev)
+    got = flash_decode(q, k, v, pos, **kw)
+    want = flash_decode_plain(q, k, v, pos, **kw)
+    err = float((got.float() - want.float()).abs().max())
+    print(f"G={G} {mode} {dt}: max |kernel - plain| {err:.3g}, of the "
+          f"largest entry {err / float(want.float().abs().max()):.3g}")
+    if dt == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        _bwd_within((got,), (want,), dt)
+    kp, vp, table = _paginate(g, dev, k, v, 40)
+    assert torch.equal(flash_decode_paged(q, kp, vp, table, pos, **kw), got)
+    one = {k_: (v_[1:2] if k_.endswith("scale") and v_.dim() == 2 else v_)
+           for k_, v_ in kw.items()}
+    assert torch.equal(flash_decode(q[1:2], k[1:2], v[1:2], pos[1:2], **one),
+                       got[1:2])
 
 
 def _moe_setup(dev, dtype="float32"):
@@ -1263,6 +1312,65 @@ def test_moe_decode_step_captured_without_sync(dev):
         want = eng.generate_py(r.batch, r.max_new_tokens).tokens[0]
         assert (o.tokens == want).all(), r.uid
     _counters_zero([eng.states[2].graph, ce.graph])
+
+
+def test_hybrid_decode_step_captured_with_the_mamba_state(dev):
+    """The hybrid's decode step (reduced jamba: one period, Mamba, MoE and
+    attention) captured as a CUDA graph in the static Engine (W8A8, int8
+    KV): graph tokens = the eager loop's, and the Mamba state (h, conv)
+    the graph leaves in the cache = the eager loop's, bit for bit (the step
+    writes it in place, into the tensors the graph was captured on); a
+    contiguous and a paged pool give the static B = 1 Engine's tokens."""
+    import numpy as np
+    from repro_torch.configs import QuantConfig, get_config, reduced
+    from repro_torch.core.calibration import calibrate
+    from repro_torch.models.registry import build
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import ContinuousEngine, Request
+    cfg = reduced(get_config("jamba-v0.1-52b"), dtype="float32")
+    api = build(cfg, "cuda")
+    params = api.init_params(torch.Generator(dev).manual_seed(0))
+    rs = np.random.RandomState(6)
+
+    def tokens(b, s):
+        return {"tokens": torch.as_tensor(
+            rs.randint(0, 256, (b, s)).astype(np.int32), device=dev)}
+
+    qw8 = QuantConfig(mode="pt_static", true_int8=True)
+    cushion = api.extract_cushion(params, torch.tensor([1, 2, 3]), None,
+                                  QuantConfig())
+    scales, _ = calibrate(api, params, [tokens(2, 24)], qw8,
+                          cushion=cushion)
+    eng = Engine(api, params, qw8, cushion=cushion, scales=scales,
+                 max_seq=96, kv_dtype="int8", prequant=True)
+    batch = tokens(2, 30)
+    eng.generate(batch, 4)                  # captures B = 2's step
+    st = eng.states[2]
+    h_at = st.cache["h"].data_ptr()
+    _lib.reset_launches()
+    got = eng.generate(batch, 12)
+    assert _lib.COUNTERS["graph_replays"] == 11
+    state = {k: st.cache[k].clone() for k in ("h", "conv")}
+    eager = eng.generate_py(batch, 12)
+    assert (got.tokens == eager.tokens).all()
+    assert st.cache["h"].data_ptr() == h_at
+    for k in ("h", "conv"):
+        assert torch.equal(st.cache[k], state[k]), k
+    reqs = [Request(uid=i, batch=tokens(1, 20 + 3 * i), max_new_tokens=5)
+            for i in range(5)]
+    for paged in (False, True):
+        ce = ContinuousEngine(api, params, qw8, n_slots=2, max_seq=96,
+                              cushion=cushion, scales=scales,
+                              kv_dtype="int8", prequant=True, paged=paged,
+                              page_size=16)
+        _lib.reset_launches()
+        outs = ce.run(reqs)
+        assert _lib.COUNTERS["graph_replays"] == ce.stats.steps > 0
+        for r, o in zip(reqs, outs):
+            want = eng.generate_py(r.batch, r.max_new_tokens).tokens[0]
+            assert (o.tokens == want).all(), (paged, r.uid)
+        _counters_zero([ce.graph])
+    _counters_zero([st.graph])
 
 
 def test_capture_with_a_host_sync_raises(dev):

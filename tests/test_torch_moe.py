@@ -816,11 +816,36 @@ def test_prefix_tune_on_moe_matches_jax_first_losses(drops):
 # registry, conversion, launchers
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["internvl2-26b", "xlstm-350m",
-                                  "jamba-v0.1-52b", "whisper-base"])
+@pytest.mark.parametrize("arch", ["xlstm-350m", "whisper-base"])
 def test_build_raises_for_unported_families(arch):
-    with pytest.raises(NotImplementedError, match="5.2"):
+    with pytest.raises(NotImplementedError, match="5.4"):
         build(t_get_config(arch), "cpu")
+
+
+@pytest.mark.parametrize("arch", ["internvl2-26b", "jamba-v0.1-52b"])
+def test_build_vlm_and_hybrid_full_config_api(arch):
+    """The full internvl2-26b and jamba-v0.1-52b configs build (no weights
+    made): their sites, cache layout and scoring path."""
+    from repro_torch.models import hybrid as TH
+    from repro_torch.models import vlm as TV
+    api = build(t_get_config(arch), "cpu")
+    assert not api.supports_chunked_prefill
+    assert api.paged_kv_leaves == ("k", "v")
+    if arch == "internvl2-26b":
+        assert api.mod is TV
+        assert api.sites == ("qkv", "o", "mlp_in", "down")
+        assert api.supports_kv_scoring
+        assert api.cache_batch_axes == {"k": 1, "v": 1}
+        assert api.text_len(1536) == 512
+    else:
+        assert api.mod is TH
+        assert api.sites == ("qkv", "o", "mamba_in", "mamba_out",
+                             "mlp_in", "down")
+        assert not api.supports_kv_scoring
+        assert api.cache_batch_axes == {"k": 1, "v": 1, "h": 2, "conv": 2}
+        assert TH.layout(api.cfg)[0] == 4
+        assert TH.n_mamba_per_period(api.cfg) == 7
+        assert TM.capacity(512, api.cfg) == 80
 
 
 def test_build_olmoe_full_config_api():
