@@ -43,6 +43,14 @@ Phases, each fatal on failure:
    ``flash_attention_bwd_plain`` (f32 1e-5 of the largest entry, bf16 one
    ulp plus that; dead rows exactly zero; two calls identical), timed
    beside its bound, the kernel's forward + backward and SDPA's forward +
+   backward; ``flash_attention``'s non-causal mode at whisper-base's shapes
+   (8 heads of 64, bf16): its encoder (B=4, S=T=1500), its cross-attention
+   at prefill (S=256 over T=1500) and at decode (S=1), each within one
+   bf16 ulp of the plain version, two calls ``torch.equal``, rows 0, S/2
+   and S-1 ``torch.equal`` to the row computed alone, timed beside the
+   plain version, the bound and SDPA; its backward at the tuning's
+   cross-attention shape (B=2, S=256, T=1500) within one ulp plus 1e-5 of
+   the largest entry, two calls identical, beside SDPA's forward +
    backward;
 4. the static main path at full width: smollm-360m (32 layers, bf16,
    seeded random weights), a 4-token cushion from ``extract_cushion``,
@@ -128,7 +136,8 @@ Phases, each fatal on failure:
    the three replicas' steps is profiled, as a round and replica by
    replica; beside the router, one ``ContinuousEngine`` of 12 slots on
    r0's trace gives r0's tokens per uid and its tokens/s;
-4e. the MoE family at full width: olmoe-1b-7b (16 layers, 64 experts,
+4e. the MoE family at full width: olmoe-1b-7b (8 of its 16 layers since
+   PR 23, a cut that keeps the whole script in its time; 64 experts,
    top-8, capacity factor 1.25, bf16, seeded random weights), a 4-token
    cushion, pt_static scales from phase 4's 2 calibration batches,
    int8-resident attention and head (the experts stay fp and are
@@ -148,9 +157,10 @@ Phases, each fatal on failure:
    ``discover`` under pt_dynamic (16 candidates, the prefix padded to 4
    rows, 2 seed tokens) and 3 ``prefix_tune`` steps with exact launches;
    the card's teacher-forced logits against the port's CPU version at 2 of
-   the 16 layers in fp and W8A8 (``MOE_LOGIT_TOL``); the peak device
+   the layers in fp and W8A8 (``MOE_LOGIT_TOL``); the peak device
    memory and the phase's seconds; the model is released afterwards;
-4f. the VLM at full width: internvl2-26b at 16 of its 48 layers (d_model
+4f. the VLM at full width: internvl2-26b at 8 of its 48 layers (16 until
+   PR 23, cut to keep the whole script in its time; d_model
    6144, 48 heads over 8 kv-heads, head_dim 128, vocab 92,553 untied,
    bf16, seeded random weights), 1024 seeded stub patches before the text,
    a 4-token cushion before the patches, pt_static scales from 2 drawn
@@ -178,6 +188,35 @@ Phases, each fatal on failure:
    cushion's Mamba state bit-identical after tuning; card vs CPU on a
    two-layer period of full width (a Mamba layer with its dense MLP, the
    attention layer with its MoE); the peak device memory;
+4h. the encoder-decoder at full width and depth: whisper-base (6 encoder
+   and 6 decoder layers, d_model 512, 8 heads of 64, vocab 51,865 untied,
+   1500 seeded stub frames a request, bf16, seeded random weights), a
+   4-token cushion (the decoder's self-attention KV, extracted under zero
+   frames): ``Engine.generate`` for B=4, [1500 frames; 256 tokens] and 32
+   new tokens in fp and in W8A8 as the reference serves it (pt_dynamic
+   with true int8: the int matmul at every site, the weights quantized a
+   call), launches exact (the encoder's and the cross-attention's
+   non-causal ``flash_attention``, at decode too, inside the graph),
+   graph tokens = the eager loop's; an Engine under pt_static refused
+   (the reference's head takes no scales there); the int matmul and
+   ``flash_decode`` (fp KV, G=1) at its shapes (``encdec_*``); 4
+   contiguous fp slots over 8 requests, each with its own frames, tokens
+   = the static B=1 Engine's; ``discover`` through ``greedy_search_ref``
+   (16 candidates, 2 iterations) and 3 tuning steps (B=2, 256 tokens)
+   with exact forward and backward launches, causal and non-causal; card
+   vs CPU at 2 encoder + 2 decoder layers (``FAM_LOGIT_TOL``);
+4i. the xLSTM at full width and depth: xlstm-350m (12 mLSTM / sLSTM
+   pairs, d_model 1024, 4 heads of 512, inner 2048, vocab 50,304, bf16,
+   seeded random weights), a seeded CushionState (the state after 4
+   token ids): ``Engine.generate`` for B=4, 512 tokens and 32 new tokens
+   in W8A8 (pt_static, ``w_proj`` int8-resident, ``m_in`` / ``s_in``
+   quantized a call, as the reference's key list leaves them) and fp,
+   launches exact; the sLSTM and mLSTM blocks at the prefill's shape
+   (device ms, wall ms, kernels a sublayer); the int matmul at its sites
+   (``xlstm_*``); 4 contiguous W8A8 slots over 8 requests (the state tree
+   scattered along its nested axes), tokens = the static B=1 Engine's;
+   ``greedy_search_ref`` and 3 tuning steps that move every leaf of the
+   state tree; card vs CPU at one pair;
 5. the card's Engine against the port's CPU Engine on the same weights,
    scales and cushion (B=1, 64-token prompt, 8 tokens) in all four phase-4
    modes: teacher-forced logits within the stated bf16 tolerance,
@@ -187,10 +226,10 @@ Phases, each fatal on failure:
    static ptoken run for ``act_quant_ptoken`` and from phase 4c's tuning
    for ``flash_attention_bwd``; ``act_quant_static`` timed over a prefill,
    where it runs, with its fused cost at decode beside; the router runs'
-   launches of phase 4d beside, as ``router_launches``, and phases 4e,
-   4f and 4g's, as ``moe_launches``, ``vlm_launches`` and
-   ``hybrid_launches``, with each kernel's row at those phases' shapes),
-   then
+   launches of phase 4d beside, as ``router_launches``, and phases 4e-4i's,
+   as ``moe_launches``, ``vlm_launches``, ``hybrid_launches``,
+   ``encdec_launches`` and ``xlstm_launches``, with each kernel's row at
+   those phases' shapes; the non-causal rows under ``noncausal``), then
    ``{"ok": true, ...}`` as the last line.
 
 Exits nonzero with no result line when CUDA is unavailable or when the port
@@ -1035,7 +1074,9 @@ def smoothquant_step(api, params, cfg, calib, batch, cushion, qw8):
 
 # phases 4f and 4g: the VLM and the Jamba hybrid at full width, each through
 # both engines, the search and the tuning (see the module docstring)
-VLM_ARCH, VLM_LAYERS, VLM_TEXT, VLM_NEW = "internvl2-26b", 16, 512, 32
+# 8 of internvl2's 48 layers and of olmoe's 16 (both 16 until phases 4h and
+# 4i came: cuts of depth that keep the whole script well inside its limit)
+VLM_ARCH, VLM_LAYERS, VLM_TEXT, VLM_NEW = "internvl2-26b", 8, 512, 32
 HY_ARCH, HY_NEW = "jamba-v0.1-52b", 16
 FAM_REQ, FAM_PROMPTS, FAM_BUDGETS = 8, (128, 136), (16, 8)
 FAM_CANDIDATES, FAM_SEEDS, FAM_TUNE_STEPS = 16, (1, 198), 3
@@ -1049,12 +1090,12 @@ FAM_CANDIDATES, FAM_SEEDS, FAM_TUNE_STEPS = 16, (1, 198), 3
 FAM_CMP_PROMPT, VLM_CMP_TOKENS, HY_CMP_TOKENS = 64, 4, 2
 
 
-# phase 4e, the MoE family at full width: olmoe-1b-7b (16 layers, 64
-# experts, top-8, capacity factor 1.25, bf16, ~13.8 GB of seeded random
-# weights) through both engines, the search and the tuning
-MOE_ARCH, MOE_NEW = "olmoe-1b-7b", 32
-# card vs CPU, olmoe at 2 of its 16 layers (full width): the CPU side at
-# full depth would hold 13.8 GB and take minutes. Both sides round to bf16
+# phase 4e, the MoE family at full width: olmoe-1b-7b (8 of its 16 layers,
+# 64 experts, top-8, capacity factor 1.25, bf16, seeded random weights)
+# through both engines, the search and the tuning
+MOE_ARCH, MOE_LAYERS, MOE_NEW = "olmoe-1b-7b", 8, 32
+# card vs CPU, olmoe at 2 of its layers (full width): the CPU side at
+# more would hold GBs and take minutes. Both sides round to bf16
 # at the same points but reduce in other orders, the combine einsum
 # summing the 8 experts' outputs included, so values land one bf16 ulp
 # apart, and under W8A8 a code flips by one step of its site's range / 255
@@ -1074,45 +1115,23 @@ PORTED = re.compile(r"act_quant_|flash_attention|attn_bwd|flash_decode|"
                     r"int_matmul")
 
 
-def family_kernels(tag, cfg, dev, timed, sites, n_attn, prompt, pos_static,
-                   smax_static, smax_pool, tune_s):
-    """The ported kernels at a model's shapes, each against its plain
-    version on the same inputs, timed over the calls of its unit beside
-    the plain version and its bound: the int matmul at every site in
-    ``sites`` ({name: (K, N, calls a step)}) quantizing bf16
-    A at decode (M = B) and, but for the head, on int8 codes at prefill (M
-    = B * prompt), ``act_quant_static`` at the prefill's sites, held
-    ``torch.equal``; ``flash_attention`` (B, prompt behind the cushion),
-    ``flash_decode`` (int8, (K,) scales), ``flash_decode_paged`` (int8
-    pages, (B, K) scales; also ``torch.equal`` to the contiguous kernel on
-    the gathered pool) within one bf16 ulp, and ``flash_attention_bwd``
-    at the tuning's shape (B = TUNE_B, tune_s positions) within one bf16
-    ulp plus 1e-5 of the largest entry. ``n_attn`` attention layers a
-    unit. Returns {kernel: row}."""
+def int_matmul_rows(tag, dev, timed, sites, M, g=None):
+    """The int matmul at every site in ``sites`` ({name: (K, N, calls a
+    step)}) quantizing bf16 A at decode (M = B) and, but for the head, on
+    int8 codes at prefill (``M`` rows), and ``act_quant_static`` at the
+    prefill's sites, all held ``torch.equal`` to their plain versions and
+    timed over the calls of their unit beside the plain versions and their
+    bounds; inputs drawn from ``g``. Returns {kernel: row}."""
     import torch
     from repro_torch.kernels.act_quant import (act_quant_static,
                                                act_quant_static_plain)
-    from repro_torch.kernels.flash_attention import (
-        _launch, flash_attention, flash_attention_bwd,
-        flash_attention_bwd_plain, flash_attention_plain)
-    from repro_torch.kernels.flash_decode import (
-        flash_decode, flash_decode_paged, flash_decode_paged_plain,
-        flash_decode_plain, gather_pages)
     from repro_torch.kernels.w8a8_matmul import (
         quant_w8a8_matmul, quant_w8a8_matmul_plain, w8a8_matmul,
         w8a8_matmul_plain)
 
     bf = torch.bfloat16
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    g = torch.Generator(dev).manual_seed(22)
+    g = torch.Generator(dev).manual_seed(22) if g is None else g
     rows = {}
-    M = B * prompt
-
-    def within(name, got, want, floor=1e-6):
-        err = (got.float() - want.float()).abs()
-        if not bool((err <= BF16_ULP * want.float().abs() + floor).all()):
-            fail(f"{tag} {name}: {float(err.max()):.3g} beyond one bf16 ulp")
-        return float(err.max())
 
     def scalar(v):
         return torch.tensor(v, dtype=torch.float32, device=dev)
@@ -1173,6 +1192,43 @@ def family_kernels(tag, cfg, dev, timed, sites, n_attn, prompt, pos_static,
     rows["act_quant_static"] = {
         "unit": f"one {tag} prefill ({n_pre} calls, M={M})", **aqs,
         "bound_by": "bytes", "max_abs_err": 0.0}
+
+    return rows
+
+
+def family_kernels(tag, cfg, dev, timed, sites, n_attn, prompt, pos_static,
+                   smax_static, smax_pool, tune_s):
+    """The ported kernels at a model's shapes, each against its plain
+    version on the same inputs, timed over the calls of its unit beside
+    the plain version and its bound: the int matmul at every site in
+    ``sites`` ({name: (K, N, calls a step)}) quantizing bf16
+    A at decode (M = B) and, but for the head, on int8 codes at prefill (M
+    = B * prompt), ``act_quant_static`` at the prefill's sites, held
+    ``torch.equal``; ``flash_attention`` (B, prompt behind the cushion),
+    ``flash_decode`` (int8, (K,) scales), ``flash_decode_paged`` (int8
+    pages, (B, K) scales; also ``torch.equal`` to the contiguous kernel on
+    the gathered pool) within one bf16 ulp, and ``flash_attention_bwd``
+    at the tuning's shape (B = TUNE_B, tune_s positions) within one bf16
+    ulp plus 1e-5 of the largest entry. ``n_attn`` attention layers a
+    unit. Returns {kernel: row}."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        _launch, flash_attention, flash_attention_bwd,
+        flash_attention_bwd_plain, flash_attention_plain)
+    from repro_torch.kernels.flash_decode import (
+        flash_decode, flash_decode_paged, flash_decode_paged_plain,
+        flash_decode_plain, gather_pages)
+
+    bf = torch.bfloat16
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = torch.Generator(dev).manual_seed(22)
+    rows = int_matmul_rows(tag, dev, timed, sites, B * prompt, g)
+
+    def within(name, got, want, floor=1e-6):
+        err = (got.float() - want.float()).abs()
+        if not bool((err <= BF16_ULP * want.float().abs() + floor).all()):
+            fail(f"{tag} {name}: {float(err.max()):.3g} beyond one bf16 ulp")
+        return float(err.max())
 
     T = prompt + CUSHION
     q = torch.randn((B, H, prompt, hd), generator=g, device=dev).to(bf)
@@ -1388,10 +1444,11 @@ class FamilyRun:
 
     def pool(self, label, reqs, static_eng, qcfg, scales, cushion, want_fn,
              **kw):
-        """A 4-slot int8 ContinuousEngine over ``reqs`` at t = 0: exact
-        launches (``want_fn(admitted, steps)``), one replay a step, every
-        request's tokens = the static B = 1 Engine's (generated once a
-        phase, ``self.solo``)."""
+        """A 4-slot ContinuousEngine over ``reqs`` at t = 0 (an int8 KV
+        pool with int8-resident weights unless ``kw`` says otherwise):
+        exact launches (``want_fn(admitted, steps)``), one replay a step,
+        every request's tokens = the static B = 1 Engine's (generated once
+        a phase, ``self.solo``)."""
         import numpy as np
         import torch
         from repro_torch.kernels import _lib
@@ -1402,7 +1459,7 @@ class FamilyRun:
                                          - r.batch["tokens"].shape[1]
                                          for r in reqs),
                               cushion=cushion, scales=scales,
-                              kv_dtype="int8", prequant=True, **kw)
+                              **{"kv_dtype": "int8", "prequant": True, **kw})
         ce.run([dataclasses.replace(r, max_new_tokens=2) for r in reqs[:4]])
         _lib.reset_launches()
         torch.cuda.synchronize()
@@ -1437,7 +1494,7 @@ class FamilyRun:
                                                   50)),
                "steps": st.steps, "launches": counts,
                "graph_nodes": ce.graph.n_nodes}
-        log(f"{self.tag} {label} (4 int8 slots, {len(reqs)} requests): "
+        log(f"{self.tag} {label} (4 slots, {len(reqs)} requests): "
             f"{total} tokens in {wall:.2f} s ({out['tokens_per_s']:.1f} "
             f"tok/s), TTFT p50 {out['ttft_ms_p50']:.1f} ms, TPOT p50 "
             f"{out['tpot_ms_p50']:.2f} ms, {st.steps} steps = replays; "
@@ -1492,7 +1549,9 @@ class FamilyRun:
         if len(tr.log) != FAM_TUNE_STEPS or not all(
                 np.isfinite(r[k]) for r in tr.log for k in r):
             fail(f"{self.tag} tune: log {tr.log}")
-        if torch.equal(tr.cushion["kv"]["k"], greedy["kv"]["k"]):
+        from repro_torch.optim.adamw import tree_leaves
+        if all(torch.equal(a, b) for a, b in zip(tree_leaves(tr.cushion),
+                                                 tree_leaves(greedy))):
             fail(f"{self.tag} tune: the cushion did not move")
         if check is not None:
             check(greedy, tr.cushion)
@@ -1510,11 +1569,14 @@ class FamilyRun:
             f"memory so far "
             f"{self.rec['method']['peak_mem_bytes_so_far'] / 2 ** 30:.2f} GiB")
 
-    def card_vs_cpu(self, cfg2, p2, cush2, calib2, prompt, modes, n_tok):
+    def card_vs_cpu(self, cfg2, p2, cush2, calib2, prompt, modes, n_tok,
+                    tols=MOE_LOGIT_TOL):
         """The card's teacher-forced logits against the port's CPU version
-        on a cut model (``cfg2``, ``p2``) in each mode, within
-        ``MOE_LOGIT_TOL``; the prefill's (token, MoE layer) pairs that the
-        two sides route to other experts are counted."""
+        on a cut model (``cfg2``, ``p2``) in each mode, within ``tols``
+        ({mode: (largest, mean)}); the prefill's (token, MoE layer) pairs
+        that the two sides route to other experts are counted. The modes
+        with int8-resident weights serve scales calibrated once, on the
+        card, on ``calib2``."""
         import torch
         from repro_torch.core import quantization as TQ
         from repro_torch.core.calibration import calibrate
@@ -1525,8 +1587,9 @@ class FamilyRun:
         cpu = lambda t: t.detach().cpu()       # noqa: E731
         cp2 = ParamTree(tree_map(cpu, p2.tree()))
         api2, cpu_api2 = build(cfg2, "cuda"), build(cfg2, "cpu")
-        qw8 = modes["w8a8_int8kv"][0]
-        sc2, _ = calibrate(api2, p2, calib2, qw8, cushion=cush2)
+        static = [q for q, _, pre in modes.values() if pre]
+        sc2 = (calibrate(api2, p2, calib2, static[0], cushion=cush2)[0]
+               if static else None)
         routing = []          # the experts picked: the card's, the CPU's
 
         @torch.inference_mode()
@@ -1569,7 +1632,7 @@ class FamilyRun:
             lp = trajectory(cpu_api2, cp2, qcfg, kv, sc_cpu,
                             tree_map(cpu, cush2), pre, toks)
             err = (lc - lp).abs()
-            max_tol, mean_tol = MOE_LOGIT_TOL[label]
+            max_tol, mean_tol = tols[label]
             pairs = list(zip(*routing[-2:]))
             cmp = {"max_abs_err": float(err.max()),
                    "mean_abs_err": float(err.mean()),
@@ -1623,7 +1686,7 @@ def moe_phase(dev, corpus, calib, batch, ps, zero_counts, counters_zero,
     from repro_torch.models.common import ParamTree
     from repro_torch.serving.engine import cache_seq_len
 
-    cfg = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
     run = FamilyRun(MOE_ARCH, cfg, dev, zero_counts, counters_zero)
     api, params, rec = run.api, run.params, run.rec
     L, V, E = cfg.n_layers, cfg.vocab_size, cfg.moe.num_experts
@@ -2051,6 +2114,434 @@ def hybrid_phase(dev, zero_counts, counters_zero, timed):
     rec["card_vs_cpu_cut"] = (f"a two-layer period of full width: sublayer "
                               f"{i_m} {kinds[i_m]} and {i_a} {kinds[i_a]}")
     run.card_vs_cpu(cfg2, p2, cush2, calib2, prompt, modes, HY_CMP_TOKENS)
+    return run.done()
+
+
+# phase 3, the non-causal mode of flash_attention (and of its backward) at
+# whisper-base's shapes: 8 heads of 64 (G = 1), bf16
+NC_ARCH = "whisper-base"
+
+
+def noncausal_attention_rows(dev, timed):
+    """``flash_attention(causal=False)`` at whisper-base's shapes: its
+    encoder (B = 4, S = T = 1500: 23 full key tiles and a ragged 28), its
+    cross-attention at prefill (S = 256 over the 1500 encoder states) and
+    at decode (S = 1): one bf16 ulp of the plain version (1e-6 floor), two
+    calls bit-identical, rows 0, S/2 and S-1 bit-identical to the row
+    computed alone, timed beside the plain version, the bound and SDPA with
+    no mask; the backward at the tuning's cross-attention shape (B =
+    TUNE_B, S = TUNE_S, T = 1500) within one bf16 ulp plus 1e-5 of the
+    largest entry, two calls bit-identical, timed beside the plain
+    version, its bound, the forward + backward through autograd and SDPA's
+    forward + backward. Returns ({shape: row}, backward row)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_plain)
+
+    wcfg = get_config(NC_ARCH)
+    H, K, hd = wcfg.n_heads, wcfg.n_kv_heads, wcfg.head_dim
+    Te = wcfg.encdec.encoder_seq
+    bf = torch.bfloat16
+    g = torch.Generator(dev).manual_seed(23)
+
+    def mk(*sh):
+        return torch.randn(sh, generator=g, device=dev).to(bf)
+
+    def sdpa_ms(fn, what):
+        try:
+            return timed(fn)
+        except (RuntimeError, TypeError) as e:
+            log(f"scaled_dot_product_attention {what} not timed: {e}")
+            return None
+
+    def row(name, Bq, S, T):
+        qh = mk(Bq, S, H, hd).transpose(1, 2)
+        kh, vh = mk(Bq, T, K, hd).transpose(1, 2), \
+            mk(Bq, T, K, hd).transpose(1, 2)
+        got = flash_attention(qh, kh, vh, causal=False)
+        want = flash_attention_plain(qh, kh, vh, causal=False)
+        err = (got.float() - want.float()).abs()
+        if not bool((err <= BF16_ULP * want.float().abs() + 1e-6).all()):
+            fail(f"flash_attention non-causal {name}: beyond one bf16 ulp, "
+                 f"max err {float(err.max())}")
+        if not torch.equal(got, flash_attention(qh, kh, vh, causal=False)):
+            fail(f"flash_attention non-causal {name}: two calls differ")
+        for i in sorted({0, S // 2, S - 1}):
+            alone = flash_attention(qh[:, :, i:i + 1], kh, vh, causal=False)
+            if not torch.equal(got[:, :, i:i + 1], alone):
+                fail(f"flash_attention non-causal {name}: row {i} differs "
+                     f"from the row computed alone")
+        qc, kc_, vc_ = (t.contiguous() for t in (qh, kh, vh))
+        bms, by = bound_ms(2 * (2 * Bq * H * S * hd + 2 * Bq * K * T * hd),
+                           4.0 * hd * Bq * H * S * T, BF16_FLOPS_PER_S)
+        r = {"unit": f"one call, B={Bq}, S={S}, T={T}, {H} heads of {hd}",
+             "ms": timed(lambda: flash_attention(qh, kh, vh, causal=False)),
+             "plain_ms": timed(lambda: flash_attention_plain(
+                 qh, kh, vh, causal=False), 3),
+             "bound_ms": bms, "bound_by": by,
+             "max_abs_err": float(err.max()),
+             "library_ms": sdpa_ms(lambda: F.scaled_dot_product_attention(
+                 qc, kc_, vc_), "forward")}
+        print(json.dumps({"kernel": "flash_attention", "causal": False,
+                          "shape": name, **r}), flush=True)
+        return r
+
+    rows = {"encoder": row("encoder", B, Te, Te),
+            "cross_prefill": row("cross-attention prefill", B, 256, Te),
+            "cross_decode": row("cross-attention decode", B, 1, Te)}
+
+    Bq, S, T = TUNE_B, TUNE_S, Te
+    q = mk(Bq, S, H, hd).transpose(1, 2)
+    k, v = mk(Bq, T, K, hd).transpose(1, 2), mk(Bq, T, K, hd).transpose(1, 2)
+    do = mk(Bq, S, H, hd).transpose(1, 2)
+    o, lse = FA._launch(q, k, v, 0, 0, with_lse=True, causal=False)
+    a = (q, k, v, o, lse, do)
+    got = flash_attention_bwd(*a, causal=False)
+    again = flash_attention_bwd(*a, causal=False)
+    want = flash_attention_bwd_plain(*a, causal=False)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        fail("flash_attention_bwd non-causal: two calls differ")
+    errs = []
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        e = (x.float() - y.float()).abs()
+        lim = BF16_ULP * y.float().abs() + 1e-5 * float(y.float().abs().max())
+        if not bool((e <= lim).all()):
+            fail(f"flash_attention_bwd non-causal {name}: beyond the stated "
+                 f"tolerance, max err {float(e.max())}")
+        errs.append(float(e.max()))
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    qs, ks_, vs_ = (t.detach().contiguous().requires_grad_()
+                    for t in (q, k, v))
+    dos = do.contiguous()
+    bms, by = bound_ms(2 * (4 * Bq * H * S * hd + 4 * Bq * K * T * hd)
+                       + 4 * Bq * H * S, 10.0 * hd * Bq * H * S * T,
+                       BF16_FLOPS_PER_S)
+    bwd = {"unit": f"one call, B={Bq}, S={S}, T={T}, {H} heads of {hd}",
+           "ms": timed(lambda: flash_attention_bwd(*a, causal=False)),
+           "plain_ms": timed(lambda: flash_attention_bwd_plain(
+               *a, causal=False), 3),
+           "bound_ms": bms, "bound_by": by, "max_abs_err": max(errs),
+           "fwd_bwd_ms": timed(lambda: flash_attention(
+               qg, kg, vg, causal=False).backward(do)),
+           "library_ms": sdpa_ms(lambda: F.scaled_dot_product_attention(
+               qs, ks_, vs_).backward(dos), "forward + backward"),
+           "library_of": "scaled_dot_product_attention forward + backward "
+                         "(beside fwd_bwd_ms)"}
+    print(json.dumps({"kernel": "flash_attention_bwd", "causal": False,
+                      **bwd}), flush=True)
+    log("flash_attention non-causal (whisper-base shapes): " + ", ".join(
+        f"{k}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f}, bound "
+        f"{r['bound_ms']:.4f} by {r['bound_by']}, SDPA {r['library_ms']})"
+        for k, r in rows.items()) + f"; backward {bwd['ms']:.4f} ms "
+        f"(plain {bwd['plain_ms']:.3f}, bound {bwd['bound_ms']:.4f}, "
+        f"fwd+bwd {bwd['fwd_bwd_ms']:.4f}, SDPA fwd+bwd "
+        f"{bwd['library_ms']}); within their bars, rows independent, "
+        f"two calls identical")
+    return rows, bwd
+
+
+# phases 4h and 4i: the encoder-decoder and the xLSTM at full width and
+# depth, each through both engines, the search and the tuning (see the
+# module docstring)
+ED_ARCH, ED_PROMPT, ED_NEW = "whisper-base", 256, 32
+XL_ARCH, XL_NEW = "xlstm-350m", 32
+# card vs CPU: whisper at 2 encoder and 2 decoder layers (the 1500 frames,
+# 64 tokens), xlstm at one pair (64 tokens), 4 logits rows each; the MoE
+# phase's bars (both sides round to bf16 at the same points and reduce in
+# other orders; under W8A8 a code flips by one step of its range / 255):
+# mode: (largest |card - cpu|, mean |card - cpu|)
+FAM_LOGIT_TOL = {"fp": (1.0, 0.05), "w8a8": (1.0, 0.1),
+                 "w8a8_dynamic": (1.0, 0.1)}
+FAM_CMP_TOKENS = 4
+
+
+def encdec_phase(dev, zero_counts, counters_zero, timed):
+    """Phase 4h: whisper-base at full width and depth (see the module
+    docstring)."""
+    import torch
+    from repro_torch.configs import QuantConfig, get_config
+    from repro_torch.core import cushioncache as CC
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+    from repro_torch.launch.serve import poisson_trace, seeded_cushion
+    from repro_torch.models.common import ParamTree
+    from repro_torch.serving.engine import Engine, cache_seq_len
+
+    cfg = get_config(ED_ARCH)
+    run = FamilyRun("whisper-base", cfg, dev, zero_counts, counters_zero)
+    api, params, rec = run.api, run.params, run.rec
+    L, E, V = cfg.n_layers, cfg.encdec.encoder_layers, cfg.vocab_size
+    Te = cfg.encdec.encoder_seq
+    D, Fd, H, K, hd = (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim)
+    rec["encoder_layers"], rec["frames"] = E, Te
+
+    def draw(seed, b, n):
+        return {k: v for k, v in api.make_batch(
+            torch.Generator(dev).manual_seed(seed), b, n).items()}
+
+    batch = {k: v for k, v in draw(1, B, ED_PROMPT).items() if k != "labels"}
+    cushion = seeded_cushion(api, params, CUSHION, seed=0)
+    qdyn8 = QuantConfig(mode="pt_dynamic", true_int8=True)
+
+    # 1. the static Engine: [1500 frames; 256 tokens] + 32 new tokens. A
+    # prefill runs the E encoder layers (non-causal attention) and the L
+    # decoder layers (causal self-attention, non-causal cross-attention);
+    # a decode step L flash_decode and L cross-attention calls (S = 1).
+    # W8A8 here is pt_dynamic with true int8 (the reference cannot serve
+    # pt_static for this family): the int matmul at every site (the 4 E + 6
+    # L of a prefill and its head, the 6 L + 1 of a decode step) on codes
+    # that a bf16 dynamic range gives, formed by tensor ops as the
+    # reference forms them with jnp (no quantizer kernel runs)
+    layer_sites, dec_sites = 4 * E + 6 * L, 6 * L + 1
+    attn = {"flash_attention": E + 2 * L + L * (ED_NEW - 1),
+            "flash_decode": L * (ED_NEW - 1)}
+    expect = {"w8a8_dynamic": {
+                  **zero_counts, **attn,
+                  "w8a8_matmul": layer_sites + 1 + dec_sites * (ED_NEW - 1)},
+              "fp": {**zero_counts, **attn}}
+    modes = {"w8a8_dynamic": (qdyn8, None, False),
+             "fp": (QuantConfig(), None, False)}
+    engines = run.static(batch, ED_NEW, cushion, None, expect, modes)
+    try:
+        Engine(api, params, QuantConfig(mode="pt_static", true_int8=True),
+               max_seq=64)
+        fail("whisper: an Engine under pt_static was made")
+    except ValueError as e:
+        if "lm_head without site scales" not in str(e):
+            raise
+        rec["pt_static_refused"] = str(e)
+    log(f"whisper pt_static refused, as the reference cannot serve it: "
+        f"{rec['pt_static_refused'][:90]}...")
+
+    rec["kernels"] = int_matmul_rows(
+        "whisper-base", dev, timed,
+        {"qkv": (D, (H + 2 * K) * hd, L), "o": (H * hd, D, L),
+         "xq": (D, H * hd, L), "xo": (H * hd, D, L), "mlp_in": (D, Fd, L),
+         "down": (Fd, D, L), "head": (D, V, 1)}, B * ED_PROMPT)
+    # flash_decode at the decode step's shape: the fp cache (cushion rows
+    # in it), G = 1, mid-generation
+    g = torch.Generator(dev).manual_seed(24)
+    smax = cache_seq_len(ED_PROMPT + ED_NEW + 32)
+    pos_v = CUSHION + ED_PROMPT + ED_NEW // 2
+    qd = torch.randn((B, H, hd), generator=g, device=dev).to(torch.bfloat16)
+    kf = torch.randn((B, smax, K, hd), generator=g, device=dev) \
+        .to(torch.bfloat16)
+    vf = torch.randn((B, smax, K, hd), generator=g, device=dev) \
+        .to(torch.bfloat16)
+    pos = torch.tensor(pos_v, dtype=torch.int32, device=dev)
+    got, want = flash_decode(qd, kf, vf, pos), flash_decode_plain(qd, kf, vf,
+                                                                 pos)
+    err = (got.float() - want.float()).abs()
+    if not bool((err <= BF16_ULP * want.float().abs() + 1e-6).all()):
+        fail(f"whisper flash_decode: beyond one bf16 ulp ({float(err.max())})")
+    bms, by = bound_ms(4 * B * H * hd + 4 * B * (pos_v + 1) * K * hd,
+                       4.0 * B * H * hd * (pos_v + 1), BF16_FLOPS_PER_S)
+    rec["kernels"]["flash_decode"] = {
+        "unit": f"one whisper-base decode step ({L} calls, fp KV, B={B}, "
+                f"pos={pos_v} of {smax}, G=1)",
+        "ms": L * timed(lambda: flash_decode(qd, kf, vf, pos)),
+        "plain_ms": L * timed(lambda: flash_decode_plain(qd, kf, vf, pos), 3),
+        "bound_ms": L * bms, "bound_by": by, "max_abs_err": float(err.max())}
+    for name, r in rec["kernels"].items():
+        log(f"whisper {name}: {r['unit']}: {r['ms']:.3f} ms (plain "
+            f"{r['plain_ms']:.3f}, bound {r['bound_ms']:.4f} by "
+            f"{r['bound_by']}), max |err| {r['max_abs_err']:.3g}")
+    del qd, kf, vf
+
+    # 2. 4 contiguous fp slots over 8 requests, each with its own frames
+    reqs = poisson_trace(api, 3, FAM_REQ, 0.0, FAM_PROMPTS, FAM_BUDGETS)
+    rec["contiguous"] = run.pool(
+        "contiguous fp pool", reqs, engines["fp"], QuantConfig(), None,
+        cushion, lambda n, s: {"flash_attention": (E + 2 * L) * n + L * s,
+                               "flash_decode": L * s},
+        kv_dtype=None, prequant=False)
+    run.counters_zero("whisper static", [s_.graph for e in engines.values()
+                                         for s_ in e.states.values()])
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. the method: greedy_search_ref (the decoder reads each sample's
+    # frames: no KV-reuse scoring), each forward E + 2 L attention calls;
+    # the tuning's backward runs through the causal self-attention and the
+    # non-causal cross-attention (2 L calls a step; the encoder, which no
+    # gradient reaches, runs no backward)
+    samples = [{k: v for k, v in draw(5000 + i, 1, SAMPLE_LEN).items()
+                if k != "labels"} for i in range(MAX_PREFIX)]
+    tune_b = [draw(3000 + i, TUNE_B, TUNE_S) for i in range(FAM_TUNE_STEPS)]
+
+    def search_want(n_it, ccfg):
+        n_pool = CC._pool_pad_len(V, ccfg, SEARCH_CHUNK)
+        return {"flash_attention":
+                (E + 2 * L) * (n_it * (1 + n_pool // SEARCH_CHUNK) + 1)}
+
+    if api.supports_kv_scoring:
+        fail("whisper: the encoder-decoder must search with "
+             "greedy_search_ref")
+    run.method(lambda i: samples[i], tune_b, search_want,
+               {"flash_attention": (E + 2 * L) * FAM_TUNE_STEPS,
+                "flash_attention_bwd": 2 * L * FAM_TUNE_STEPS})
+    del samples, tune_b
+
+    # 4. card against CPU at 2 encoder and 2 decoder layers, full width
+    cfg2 = dataclasses.replace(cfg, n_layers=2, encdec=dataclasses.replace(
+        cfg.encdec, encoder_layers=2))
+    tree = params.tree()
+    cut = lambda t: tree_map(lambda a: a[:2], t)      # noqa: E731
+    p2 = ParamTree({**tree, "encoder": cut(tree["encoder"]),
+                    "decoder": cut(tree["decoder"])})
+    prompt = {"tokens": batch["tokens"][:1, :FAM_CMP_PROMPT],
+              "frames": batch["frames"][:1]}
+    run.card_vs_cpu(cfg2, p2, {"kv": cut(cushion["kv"])}, None, prompt,
+                    modes, FAM_CMP_TOKENS, tols=FAM_LOGIT_TOL)
+    return run.done()
+
+
+def xlstm_phase(dev, zero_counts, counters_zero, timed):
+    """Phase 4i: xlstm-350m at full width and depth (see the module
+    docstring)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import QuantConfig, get_config
+    from repro_torch.launch.serve import poisson_trace, seeded_cushion
+    from repro_torch.models import xlstm as XL
+    from repro_torch.models.common import ParamTree
+
+    cfg = get_config(XL_ARCH)
+    run = FamilyRun("xlstm-350m", cfg, dev, zero_counts, counters_zero)
+    api, params, rec = run.api, run.params, run.rec
+    P, D, V = XL.n_pairs(cfg), cfg.d_model, cfg.vocab_size
+    inner, NH, hdx = XL.dims(cfg)
+
+    def draw(seed, b, n):
+        return api.make_batch(torch.Generator(dev).manual_seed(seed), b, n)
+
+    batch = {"tokens": draw(1, B, PROMPT)["tokens"]}
+    calib = [draw(1000 + i, B, PROMPT) for i in range(2)]
+    # the seeded CushionState: the state after 4 seeded token ids
+    cushion = seeded_cushion(api, params, CUSHION, seed=0)
+    qw8 = QuantConfig(mode="pt_static", true_int8=True)
+
+    # 1. the static Engine, B x 512 + 32 new tokens. No attention: W8A8
+    # runs the int matmul at the 4 P sites and the head (w_proj
+    # int8-resident, m_in / s_in quantized a call), the prefill's
+    # quantizer standalone (the head too: the reference's prefill runs it
+    # over every position), fused at every decode site; fp launches none
+    sites = 4 * P + 1
+    expect = {"w8a8": {**zero_counts, "w8a8_matmul": sites * XL_NEW,
+                       "act_quant_static": sites,
+                       "act_quant_static_fused": sites * (XL_NEW - 1)},
+              "fp": dict(zero_counts)}
+    modes = {"w8a8": (qw8, None, True), "fp": (QuantConfig(), None, False)}
+    engines = run.static(batch, XL_NEW, cushion, calib, expect, modes)
+    w8 = engines["w8a8"]
+    rec["resident_bytes_w8a8"] = (w8.weight_bytes_fp, w8.weight_bytes_int8)
+
+    # the sLSTM block (its scan: a loop over the 512 positions) and the
+    # mLSTM block (two chunks of 256) at the prefill's shape under `none`,
+    # one sublayer each: device ms (the profiler's kernels), wall ms and
+    # kernels launched, x P a prefill
+    lp = tree_map(lambda a: a[0], params.tree()["layers"])
+    x = torch.randn((B, PROMPT, D), generator=torch.Generator(dev)
+                    .manual_seed(5), device=dev).to(torch.bfloat16)
+    qn = QuantConfig()
+    for name, fn in (
+            ("slstm", lambda: XL.apply_slstm(lp["slstm"], x, cfg, qn, None,
+                                             None)),
+            ("mlstm", lambda: XL.apply_mlstm(lp["mlstm"], x, cfg, qn, None,
+                                             None))):
+        with torch.inference_mode():
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+        krows = by_kernel(prof, 1, top=None)
+        dev_ms = sum(v[1] for v in krows.values())
+        rec[f"{name}_block"] = {
+            "unit": f"one {name} block at B={B}, S={PROMPT}, inner={inner}, "
+                    f"{NH} heads of {hdx}, under none; x {P} a prefill",
+            "device_ms": dev_ms, "wall_ms": wall,
+            "device_ms_per_prefill": P * dev_ms,
+            "wall_ms_per_prefill": P * wall,
+            "kernels": sum(v[0] for v in krows.values()),
+            "by_kernel_top": dict(list(krows.items())[:6])}
+        r = rec[f"{name}_block"]
+        log(f"xlstm {name} block ({r['unit']}): device {dev_ms:.3f} ms, "
+            f"wall {wall:.2f} ms in {r['kernels']:.0f} kernels; a prefill "
+            f"{r['device_ms_per_prefill']:.2f} ms device, "
+            f"{r['wall_ms_per_prefill']:.2f} ms wall")
+        del prof
+    del x, lp
+
+    rec["kernels"] = int_matmul_rows(
+        "xlstm-350m", dev, timed,
+        {"m_in": (D, 3 * inner, P), "m_out": (inner, D, P),
+         "s_in": (D, 4 * inner, P), "s_out": (inner, D, P),
+         "head": (D, V, 1)}, B * PROMPT)
+    for name, r in rec["kernels"].items():
+        log(f"xlstm {name}: {r['unit']}: {r['ms']:.3f} ms (plain "
+            f"{r['plain_ms']:.3f}, bound {r['bound_ms']:.4f} by "
+            f"{r['bound_by']})")
+
+    # 2. 4 contiguous W8A8 slots over 8 requests: the state tree scattered
+    # along its nested batch axes
+    reqs = poisson_trace(api, 3, FAM_REQ, 0.0, FAM_PROMPTS, FAM_BUDGETS)
+    rec["contiguous"] = run.pool(
+        "contiguous pool", reqs, w8, qw8, w8.scales, cushion,
+        lambda n, s: {"w8a8_matmul": sites * (n + s),
+                      "act_quant_static": sites * n,
+                      "act_quant_static_fused": sites * s},
+        kv_dtype=None)
+    run.counters_zero("xlstm static", [s_.graph for e in engines.values()
+                                       for s_ in e.states.values()])
+    del engines, w8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. the method: greedy_search_ref and 3 tuning steps under
+    # pt_dynamic's fake quant (no kernel of the port runs); the whole state
+    # tree trains
+    samples = [{"tokens": draw(5000 + i, 1, SAMPLE_LEN)["tokens"]}
+               for i in range(MAX_PREFIX)]
+    tune_b = [draw(3000 + i, TUNE_B, TUNE_S) for i in range(FAM_TUNE_STEPS)]
+
+    def every_leaf_moved(greedy, tuned):
+        for (gk, gl), (_, tl) in zip(
+                ((f"{g}.{k}", v) for g, d in greedy["state"].items()
+                 for k, v in d.items()),
+                ((f"{g}.{k}", v) for g, d in tuned["state"].items()
+                 for k, v in d.items())):
+            if not bool(torch.isfinite(tl).all()):
+                fail(f"xlstm tune: state leaf {gk} is not finite")
+            if torch.equal(tl, gl):
+                fail(f"xlstm tune: state leaf {gk} did not move")
+        log("xlstm tune: every leaf of the state tree moved, all finite")
+
+    if api.supports_kv_scoring:
+        fail("xlstm: the xLSTM must search with greedy_search_ref")
+    run.method(lambda i: samples[i], tune_b, lambda n, c: {}, {},
+               check=every_leaf_moved)
+    del samples, tune_b
+
+    # 4. card against CPU at one pair of full width
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    tree = params.tree()
+    one = lambda t: tree_map(lambda a: a[:1], t)      # noqa: E731
+    p2 = ParamTree({**tree, "layers": one(tree["layers"])})
+    prompt = {"tokens": batch["tokens"][:1, :FAM_CMP_PROMPT]}
+    calib2 = [{"tokens": calib[0]["tokens"][:1, :FAM_CMP_PROMPT]}]
+    run.card_vs_cpu(cfg2, p2, {"state": one(cushion["state"])}, calib2,
+                    prompt, modes, FAM_CMP_TOKENS, tols=FAM_LOGIT_TOL)
     return run.done()
 
 
@@ -2659,6 +3150,13 @@ def main() -> None:
     log(f"bf16, all rows live: forward + backward through autograd "
         f"{fb:.4f} ms against SDPA's forward + backward {sdpa} ms "
         f"({'no slower' if sdpa is not None and fb <= sdpa else 'slower'})")
+
+    # the non-causal mode, forward and backward, at whisper-base's shapes
+    fa_nc, fa_nc_bwd = noncausal_attention_rows(dev, timed)
+    detail += [{"kernel": "flash_attention", "causal": False, "shape": k_,
+                **r} for k_, r in fa_nc.items()]
+    detail.append({"kernel": "flash_attention_bwd", "causal": False,
+                   **fa_nc_bwd})
 
     # flash_decode: int8 + cushion (main path) and fp, mid-generation pos
     Smax = cache_seq_len(PROMPT + NEW_TOKENS + 32)
@@ -3320,6 +3818,18 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("hybrid")
 
+    # 4h. the encoder-decoder at full width and depth -------------------
+    record["encdec"] = encdec_phase(dev, zero_counts, counters_zero, timed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("encdec")
+
+    # 4i. the xLSTM at full width and depth -------------------------------
+    record["xlstm"] = xlstm_phase(dev, zero_counts, counters_zero, timed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("xlstm")
+
     # 5. card vs the port's CPU engine on the same weights --------------
     cpu = lambda t: t.detach().cpu()       # noqa: E731
     cpu_api = build(cfg, "cpu")
@@ -3503,7 +4013,13 @@ def main() -> None:
          "masked_ms": fa_masked[0], "masked_plain_ms": fa_masked[1],
          "masked_bound_ms": fa_masked[2], "masked_bound_by": fa_masked[3],
          "masked_max_abs_err": fa_masked[4],
-         "masked_library_ms": fa_masked[5]},
+         "masked_library_ms": fa_masked[5],
+         "noncausal": fa_nc,
+         "noncausal_of": "the non-causal mode at whisper-base's shapes "
+                         "(8 heads of 64, bf16): its encoder, its "
+                         "cross-attention at prefill and at decode; "
+                         "library_ms: scaled_dot_product_attention, no "
+                         "mask"},
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
          "replaces": "src/repro/kernels/flash_decode.py:163",
@@ -3609,7 +4125,13 @@ def main() -> None:
                        "flash_attention_bwd through autograd",
          "dead_rows_ms": L * fa_bwd[("bfloat16", 1)][0],
          "f32_ms": L * fa_bwd[("float32", MAX_PREFIX)][0],
-         "f32_bound_ms": L * fa_bwd[("float32", MAX_PREFIX)][2]},
+         "f32_bound_ms": L * fa_bwd[("float32", MAX_PREFIX)][2],
+         "noncausal": fa_nc_bwd,
+         "noncausal_launches": record["encdec"]["launches"].get(
+             "flash_attention_bwd", 0),
+         "noncausal_launches_from": "phase 4h's prefix_tune (whisper-base: "
+                                    "half of them non-causal, the "
+                                    "cross-attention)"},
     ]
     for kk in kernels:
         if kk["launches"] <= 0:
@@ -3617,8 +4139,9 @@ def main() -> None:
         if record["router"]["launches"].get(kk["name"]):
             kk["router_launches"] = record["router"]["launches"][kk["name"]]
         # the kernel's launches and rows at olmoe's (phase 4e), internvl2's
-        # (4f) and jamba's (4g) shapes, beside smollm's
-        for tag in ("moe", "vlm", "hybrid"):
+        # (4f), jamba's (4g), whisper-base's (4h) and xlstm-350m's (4i)
+        # shapes, beside smollm's
+        for tag in ("moe", "vlm", "hybrid", "encdec", "xlstm"):
             if record[tag]["launches"].get(kk["name"]):
                 kk[f"{tag}_launches"] = record[tag]["launches"][kk["name"]]
             kk.update({f"{tag}_{k_}": v for k_, v in

@@ -52,15 +52,17 @@ def scales_from_plain(tree: Any) -> Any:
 
 
 def taps_to_stats(taps: Dict[str, Any]) -> Dict[str, Any]:
-    """Keep the sites of a taps tree, and of each its {amin, amax,
+    """Keep the sites of a taps tree (the layers', an encoder's
+    ``enc_layers``, the head's), and of each its {amin, amax,
     absmax_ch}."""
     def clean(site):
         return {"amin": site["amin"], "amax": site["amax"],
                 "absmax_ch": site["absmax_ch"]}
     out: Dict[str, Any] = {}
-    if "layers" in taps:
-        out["layers"] = {k: clean(v) for k, v in taps["layers"].items()
-                         if k not in NON_SITES}
+    for key in ("layers", "enc_layers"):
+        if key in taps:
+            out[key] = {k: clean(v) for k, v in taps[key].items()
+                        if k not in NON_SITES}
     if "head" in taps:
         out["head"] = clean(taps["head"])
     return out
@@ -70,11 +72,15 @@ def stats_to_scales(stats: Dict[str, Any], qcfg: QuantConfig,
                     family: Family) -> Dict[str, Any]:
     """{site: SiteScale (L,), ..., "head": SiteScale ()}: the dense layout,
     which the MoE and VLM families share (their sites are qkv, o, mlp_in
-    and down) and the hybrid's over its periods (with mamba_in and
-    mamba_out, one scale a period and site)."""
-    if family not in (Family.DENSE, Family.MOE, Family.VLM, Family.HYBRID):
-        raise NotImplementedError(f"{family.value} scales are not ported")
-    out = Q.scales_from_stats(stats["layers"], qcfg)
+    and down), the hybrid's over its periods (with mamba_in and mamba_out,
+    one scale a period and site) and the xLSTM's over its pairs (m_in,
+    m_out, s_in, s_out); an encoder-decoder's is {"enc": {site: (E,)},
+    "dec": {site: (L,)}, "head"}."""
+    if family == Family.ENCDEC:
+        out = {"enc": Q.scales_from_stats(stats["enc_layers"], qcfg),
+               "dec": Q.scales_from_stats(stats["layers"], qcfg)}
+    else:
+        out = Q.scales_from_stats(stats["layers"], qcfg)
     if "head" in stats:
         out["head"] = Q.scales_from_stats({"head": stats["head"]},
                                           qcfg)["head"]

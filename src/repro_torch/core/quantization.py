@@ -242,9 +242,11 @@ def _static_int_matmul(x: Tensor, w: Dict[str, Tensor], s_x: Tensor,
     The reference's W4A8 routes (a folded-scale f32 GEMM, the Pallas
     per-block accumulation) agree with each other to f32 accumulation, not
     bit for bit; this one sums exact per-group int32 partials in group
-    order. Dynamic ranges of a bf16 activation stay bf16, and symmetric or
-    narrower codes have no kernel: those take tensor ops on the CPU and
-    raise elsewhere."""
+    order. Dynamic ranges of a bf16 activation stay bf16 (``pt_dynamic``
+    under true int8): the codes are then ``quantize``'s tensor ops in bf16,
+    as the reference computes them with jnp outside its kernels, and the
+    int matmul runs on them. Symmetric or narrower codes have no kernel:
+    those take tensor ops on the CPU and raise elsewhere."""
     K = x.shape[-1]
     lead = x.shape[:-1]
     packed = "w_packed" in w
@@ -265,11 +267,11 @@ def _static_int_matmul(x: Tensor, w: Dict[str, Tensor], s_x: Tensor,
             out = quant_w8a8_matmul(x2, w["w_int"], s_x, z_x, s_w,
                                     w["colsum"], out_dtype=od)
         return out.reshape(*lead, N).to(x.dtype)
-    if x.device.type != "cpu":
+    if x.device.type != "cpu" and (cfg.symmetric_a or cfg.a_bits != 8):
         raise ValueError(
-            "act_quant_static takes asymmetric 8-bit codes with f32 scales; "
-            f"got a_bits={cfg.a_bits}, symmetric={cfg.symmetric_a}, scale "
-            f"{s_x.dtype}: that combination runs on the CPU only")
+            "the int matmuls take asymmetric 8-bit codes; got "
+            f"a_bits={cfg.a_bits}, symmetric={cfg.symmetric_a}: that "
+            "combination runs on the CPU only")
     off = 0 if cfg.symmetric_a else 2 ** (cfg.a_bits - 1)
     xq = (quantize(x2, s_x, z_x, cfg.a_bits, cfg.symmetric_a)
           - off).to(torch.int8)

@@ -76,16 +76,16 @@ _SIGNATURES = {
     "int_matmul_decode_max_m": [],
     # x, x_bf16, out, scale, zero, M, D, qmax, stream
     "act_quant_ptoken_launch": [_VP, _I, _VP, _VP, _VP, _I, _I, _F, _VP],
-    # q, k, v, out, lse (null: not written), bf16, B, H, Kh, S, T, hd,
-    # prefix_len, prefix_live, q strides (b, h, s), k strides (b, h, t),
+    # q, k, v, out, lse (null: not written), bf16, causal, B, H, Kh, S, T,
+    # hd, prefix_len, prefix_live, q strides (b, h, s), k strides (b, h, t),
     # v strides (b, h, t), out strides (b, h, s), stream
     "flash_attention_launch": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _I] + [ctypes.c_longlong] * 12
+                               _I, _I, _I, _I, _I] + [ctypes.c_longlong] * 12
                               + [_VP],
-    # q, k, v, o, dout, lse, workspace, dq, dk, dv, bf16, B, H, Kh, S, T,
-    # hd, prefix_len, prefix_live, the (b, head, row) strides of q, k, v, o,
-    # dout, dq, dk, dv (24 int64), stream
-    "flash_attention_bwd_launch": [_VP] * 10 + [_I] * 9
+    # q, k, v, o, dout, lse, workspace, dq, dk, dv, bf16, causal, B, H, Kh,
+    # S, T, hd, prefix_len, prefix_live, the (b, head, row) strides of q, k,
+    # v, o, dout, dq, dk, dv (24 int64), stream
+    "flash_attention_bwd_launch": [_VP] * 10 + [_I] * 10
                                   + [ctypes.POINTER(ctypes.c_longlong), _VP],
     # bf16, B, H, Kh, S, T, hd
     "flash_attention_bwd_workspace_elems": [_I] * 7,

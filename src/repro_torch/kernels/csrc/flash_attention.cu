@@ -6,10 +6,19 @@
 // models/common.py `_sdpa_dense` / `flash_attention_jnp`; the port runs this
 // kernel in `attention_full` on the card.
 //
-//   q (B, H, S, hd), k/v (B, Kh, T, hd), T = prefix_len + S, G = H / Kh
+//   q (B, H, S, hd), k/v (B, Kh, T, hd), G = H / Kh
 //   key j is visible to query i  iff  j < T and (j < prefix_live or
-//   prefix_len <= j <= i + prefix_len); masked scores are -1e30 (not -inf),
-//   a masked p is 0, and the output is acc / max(l, 1e-30).
+//   prefix_len <= j <= i + R); masked scores are -1e30 (not -inf), a masked
+//   p is 0, and the output is acc / max(l, 1e-30).
+//
+// R is the causal reach. Causal (the decoder's self-attention): T =
+// prefix_len + S and R = prefix_len. Non-causal (`causal` = 0: an
+// encoder's self-attention, a cross-attention over encoder states):
+// prefix_len = prefix_live = 0, T >= 1 is any length, independent of S, and
+// R = T, so every key j < T is visible to every query. Each query tile then
+// walks all ceil(T / 64) key tiles, the last one masked per key at j < T.
+// The causal path computes with R = prefix_len exactly what it computed
+// before R existed: only integer bounds read R, never a float.
 //
 // prefix_live <= prefix_len is the cushion search's live length (the
 // reference's `prefix_valid = arange(m) < live`): rows [prefix_live,
@@ -105,7 +114,7 @@ __global__ void __launch_bounds__(BQ)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
                        float* __restrict__ lse, int H, int G, int S, int T_,
-                       int P, int LV, long long qsb,
+                       int P, int LV, int R, long long qsb,
                        long long qsh, long long qss, long long ksb,
                        long long ksh, long long kst, long long vsb,
                        long long vsh, long long vst, long long osb,
@@ -129,8 +138,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const T* kb = k + b * ksb + kh * ksh;
   const T* vb = v + b * vsb + kh * vsh;
-  // last key any query of this tile can see is (q0 + BQ - 1) + P
-  int t_end = q0 + BQ + P;
+  // last key any query of this tile can see is (q0 + BQ - 1) + R
+  int t_end = q0 + BQ + R;
   if (t_end > T_) t_end = T_;
   for (int t0 = 0; t0 < t_end; t0 += BKV) {
     // a tile wholly in the dead rows [LV, P) is seen by no query
@@ -149,7 +158,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int d = 0; d < HD; ++d) dot += qr[d] * Ks[j][d];
       const int kj = t0 + j;
-      const bool valid = kj < T_ && (kj < LV || (kj >= P && kj <= qi + P));
+      const bool valid = kj < T_ && (kj < LV || (kj >= P && kj <= qi + R));
       s[j] = valid ? dot * scale : NEG_INF;
       mx = fmaxf(mx, s[j]);
     }
@@ -158,7 +167,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < BKV; ++j) {
       const int kj = t0 + j;
-      const bool valid = kj < T_ && (kj < LV || (kj >= P && kj <= qi + P));
+      const bool valid = kj < T_ && (kj < LV || (kj >= P && kj <= qi + R));
       s[j] = valid ? expf(s[j] - mx) : 0.f;
       psum += s[j];
     }
@@ -211,7 +220,7 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ k,
                            const bf16* __restrict__ v, bf16* __restrict__ out,
                            float* __restrict__ lse, int H, int G, int S,
-                           int T_, int P, int LV, long long qsb,
+                           int T_, int P, int LV, int R, long long qsb,
                            long long qsh, long long qss, long long ksb,
                            long long ksh, long long kst, long long vsb,
                            long long vsh, long long vst, long long osb,
@@ -235,14 +244,14 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
   const bf16* qb = q + b * qsb + h * qsh;
   const bf16* kb = k + b * ksb + kh * ksh;
   const bf16* vb = v + b * vsb + kh * vsh;
-  // last key any query of this tile can see is (q0 + TQ - 1) + P
-  int t_end = q0 + TQ + P;
+  // last key any query of this tile can see is (q0 + TQ - 1) + R
+  int t_end = q0 + TQ + R;
   if (t_end > T_) t_end = T_;
   // tiles [lo, lo + n_dead) lie wholly in the dead rows [LV, P) and are
   // skipped: the loop walks n_tiles - n_dead tiles, the j-th being tile(j).
-  // The first tile walked holds key 0 < LV or key P, which every row sees,
-  // so every row's max is a real score after it (see the softmax below).
-  // At LV = P no tile is dead.
+  // The first tile walked holds key 0 < LV or key P, which every row sees
+  // (non-causal: key 0), so every row's max is a real score after it (see
+  // the softmax below). At LV = P no tile is dead.
   const int lo = (LV + TK - 1) / TK;
   const int n_dead = max(0, P / TK - lo);
   const int n_tiles = (t_end + TK - 1) / TK - n_dead;
@@ -296,10 +305,10 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
     const bf16* Kt = Ks + (j & 1) * TK * LD;
     const bf16* Vt = Vs + (j & 1) * TK * LD;
     const int t0 = tile(j) * TK;
-    // a tile past the warp's last visible key (q0 + 16 warp + 15 + P) is
+    // a tile past the warp's last visible key (q0 + 16 warp + 15 + R) is
     // masked for all its rows: the warp skips it (a masked p is 0 and adds
     // nothing)
-    if (t0 <= q0 + warp * 16 + 15 + P) {
+    if (t0 <= q0 + warp * 16 + 15 + R) {
       // S = Q K^T (f32)
       float s[NS][4];
 #pragma unroll
@@ -323,7 +332,7 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
       // sqrt(hd), one FFMA and one ex2 per score; a tile every row of the
       // warp sees whole needs no mask
       const bool need_mask =
-          t0 + TK > T_ || t0 + TK - 1 > q0 + warp * 16 + P ||
+          t0 + TK > T_ || t0 + TK - 1 > q0 + warp * 16 + R ||
           (LV < P && t0 < P && t0 + TK > LV);
       float mx[2] = {m_r[0], m_r[1]};
 #pragma unroll
@@ -333,7 +342,7 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
           const int kj = t0 + n * 8 + (lane % 4) * 2 + (e & 1);
           const int qi = e < 2 ? row0 : row1;
           if (need_mask &&
-              !(kj < T_ && (kj < LV || (kj >= P && kj <= qi + P))))
+              !(kj < T_ && (kj < LV || (kj >= P && kj <= qi + R))))
             s[n][e] = NEG_INF;
           mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
         }
@@ -427,13 +436,14 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
 
 #define FA_ARGS(T)                                                          \
   (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, H, G, S, T_, P, LV,  \
+      R,                                                                     \
       str[0], str[1], str[2], str[3], str[4], str[5], str[6], str[7],        \
       str[8], str[9], str[10], str[11], scale
 
 static int dispatch_f32(const void* q, const void* k, const void* v,
                         void* out, float* lse, int B, int H, int Kh, int S,
-                        int T_, int hd, int P, int LV, const long long* str,
-                        cudaStream_t stream) {
+                        int T_, int hd, int P, int LV, int R,
+                        const long long* str, cudaStream_t stream) {
   dim3 grid((S + BQ - 1) / BQ, B * H);
   const int G = H / Kh;
   const float scale = 1.0f / sqrtf((float)hd);
@@ -464,8 +474,8 @@ static int launch_mma(dim3 grid, cudaStream_t stream, Args... args) {
 
 static int dispatch_bf16(const void* q, const void* k, const void* v,
                          void* out, float* lse, int B, int H, int Kh, int S,
-                         int T_, int hd, int P, int LV, const long long* str,
-                         cudaStream_t stream) {
+                         int T_, int hd, int P, int LV, int R,
+                         const long long* str, cudaStream_t stream) {
   dim3 grid(B * H, (S + TQ - 1) / TQ);
   const int G = H / Kh;
   // the kernel works in base 2: log2(e) / sqrt(hd)
@@ -480,21 +490,25 @@ static int dispatch_bf16(const void* q, const void* k, const void* v,
 }
 #undef FA_ARGS
 
+// causal = 0: every key j < T is visible to every query (prefix_len and
+// prefix_live must be 0)
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, void* lse,
-    int bf16_in, int B, int H, int Kh, int S, int T_, int hd, int prefix_len,
-    int prefix_live, long long qsb, long long qsh, long long qss, long long ksb, long long ksh,
+    int bf16_in, int causal, int B, int H, int Kh, int S, int T_, int hd,
+    int prefix_len, int prefix_live, long long qsb, long long qsh, long long qss, long long ksb, long long ksh,
     long long kst, long long vsb, long long vsh, long long vst,
     long long osb, long long osh, long long oss, void* stream) {
   const long long str[12] = {qsb, qsh, qss, ksb, ksh, kst,
                              vsb, vsh, vst, osb, osh, oss};
   cudaStream_t st = (cudaStream_t)stream;
-  if (prefix_live < 0 || prefix_live > prefix_len)
+  if (prefix_live < 0 || prefix_live > prefix_len || T_ < 1 ||
+      (!causal && prefix_len != 0))
     return (int)cudaErrorInvalidValue;
+  const int R = causal ? prefix_len : T_;
   float* l = (float*)lse;
   if (bf16_in)
     return dispatch_bf16(q, k, v, out, l, B, H, Kh, S, T_, hd, prefix_len,
-                         prefix_live, str, st);
+                         prefix_live, R, str, st);
   return dispatch_f32(q, k, v, out, l, B, H, Kh, S, T_, hd, prefix_len,
-                      prefix_live, str, st);
+                      prefix_live, R, str, st);
 }

@@ -9,7 +9,12 @@
 //
 //   q, o, dO (B, H, S, hd); k, v (B, Kh, T, hd); G = H / Kh; lse (B, H, S)
 //   f32, the forward's per-row natural log-sum-exp; scale = 1 / sqrt(hd)
-//   key j visible to query i iff j < T and (j < LV or P <= j <= i + P)
+//   key j visible to query i iff j < T and (j < LV or P <= j <= i + R)
+//   R the causal reach: P causal (T = P + S); T non-causal (`causal` = 0,
+//   P = LV = 0, any T >= 1: every key visible to every query, so a dQ block
+//   walks every key tile below T and a dK/dV block takes every query tile
+//   in its chunks). Only integer bounds read R: the causal path computes
+//   what it computed before R existed
 //   p_ij = exp(scale q_i.k_j - lse_i) where visible, else 0
 //   D_i = sum_d dO_id O_id
 //   dV_j = sum_i p_ij dO_i      dS_ij = p_ij (dO_i.v_j - D_i)
@@ -83,8 +88,9 @@ struct Strides {
   long long q[3], k[3], v[3], o[3], d[3], dq[3], dk[3], dv[3];
 };
 
-__device__ __forceinline__ bool visible(int i, int j, int T_, int P, int LV) {
-  return j < T_ && (j < LV || (j >= P && j <= i + P));
+__device__ __forceinline__ bool visible(int i, int j, int T_, int P, int LV,
+                                        int R) {
+  return j < T_ && (j < LV || (j >= P && j <= i + R));
 }
 
 // D = rowsum(dO * O) of f32 rows: one warp a row
@@ -161,7 +167,7 @@ struct MmaArgs {
   const bf16 *q, *k, *v, *dout;
   const float *lse, *delta;
   bf16 *dq, *dk, *dv;
-  int B, H, Kh, G, GB, NC, S, T, P, LV, n_q_blocks, n_q_pad;
+  int B, H, Kh, G, GB, NC, S, T, P, LV, R, n_q_blocks, n_q_pad;
   float scale, scale_log2;
   Strides str;
 };
@@ -316,7 +322,7 @@ __device__ __forceinline__ void dkdv_block(const MmaArgs& A, int blk,
   const int b = r / (A.Kh * CS), kh = r / CS % A.Kh;
   const int gi = rank / A.NC, c = rank % A.NC;
   const int hpb = A.G / A.GB, h_lo = kh * A.G + gi * hpb;
-  const int S = A.S, T_ = A.T, P = A.P, LV = A.LV;
+  const int S = A.S, T_ = A.T, P = A.P, LV = A.LV, R = A.R;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int kw0 = t0 + warp * 16;                // the warp's first key
   const Strides& st = A.str;
@@ -335,7 +341,7 @@ __device__ __forceinline__ void dkdv_block(const MmaArgs& A, int blk,
   // reaches t0) to the last, in NC chunks; this block's chunk starts at
   // q_lo and has nqc tiles. A tile wholly in the dead rows [LV, P) is seen
   // by no query: zeros
-  const int qt0 = (t0 < LV ? 0 : max(0, t0 - P)) / TILE;
+  const int qt0 = (t0 < LV ? 0 : max(0, t0 - R)) / TILE;
   const int nq = (S + TILE - 1) / TILE - qt0;
   const int cs = (nq + A.NC - 1) / A.NC, q_lo = qt0 + c * cs;
   const int nqc = max(0, min(nq - c * cs, cs));
@@ -385,7 +391,7 @@ __device__ __forceinline__ void dkdv_block(const MmaArgs& A, int blk,
       // the warp's keys seen by a query of the step: a live prefix key, or
       // a key in [P, T) no later than the last query's diagonal
       const bool any = kw0 < T_ && (kw0 < LV || (kw0 + 15 >= P &&
-                                                 max(kw0, P) <= i_last + P));
+                                                 max(kw0, P) <= i_last + R));
       if (any) {
         float s_[NS][4], dp[NS][4];
 #pragma unroll
@@ -396,7 +402,7 @@ __device__ __forceinline__ void dkdv_block(const MmaArgs& A, int blk,
         mma_abt2<HD>(s_, kf, Qt, dp, vf, Dt, lane);
         // every pair of the warp's 16 x 64 visible: no mask
         const bool full = kw0 + 15 < T_ && i0 + TILE <= S &&
-                          (kw0 + 15 < LV || (kw0 >= P && kw0 + 15 <= i0 + P));
+                          (kw0 + 15 < LV || (kw0 >= P && kw0 + 15 <= i0 + R));
 #pragma unroll
         for (int n = 0; n < NS; ++n) {
           // this lane's two query columns 8 n + 2 (lane % 4) + {0, 1}
@@ -409,7 +415,7 @@ __device__ __forceinline__ void dkdv_block(const MmaArgs& A, int blk,
           for (int e = 0; e < 4; ++e) {
             const int kj = kw0 + lane / 4 + (e / 2) * 8, ql = q2 + (e & 1);
             const bool ok = full || (i0 + ql < S &&
-                                     visible(i0 + ql, kj, T_, P, LV));
+                                     visible(i0 + ql, kj, T_, P, LV, R));
             const float p =
                 ok ? ex2(fmaf(s_[n][e], A.scale_log2, nl[e & 1])) : 0.f;
             dp[n][e] = ok ? p * (dp[n][e] - dd[e & 1]) : 0.f;
@@ -482,16 +488,16 @@ __device__ __forceinline__ void dq_block(const MmaArgs& A, int blk,
   const int n_qt = (A.S + TILE - 1) / TILE;
   const int q0 = (n_qt - 1 - blk / BH) * TILE;   // the last tile first
   const int bh = blk % BH, b = bh / A.H, h = bh % A.H, kh = h / A.G;
-  const int S = A.S, T_ = A.T, P = A.P, LV = A.LV;
+  const int S = A.S, T_ = A.T, P = A.P, LV = A.LV, R = A.R;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const Strides& st = A.str;
   const bf16* kb = A.k + b * st.k[0] + kh * st.k[1];
   const bf16* vb = A.v + b * st.v[0] + kh * st.v[1];
   // K and V of stage s in tiles 2 s, 2 s + 1
   auto tile = [&](int i) { return tiles + i * TS; };
-  // last key any query of the block sees is (q0 + 63) + P; tiles
+  // last key any query of the block sees is (q0 + 63) + R; tiles
   // [lo, lo + n_dead) lie wholly in the dead rows [LV, P) and are skipped
-  const int t_end = min(T_, q0 + TILE + P);
+  const int t_end = min(T_, q0 + TILE + R);
   const int lo = (LV + TILE - 1) / TILE;
   const int n_dead = max(0, P / TILE - lo);
   const int n_tiles = (t_end + TILE - 1) / TILE - n_dead;
@@ -541,7 +547,7 @@ __device__ __forceinline__ void dq_block(const MmaArgs& A, int blk,
     const int t0 = key_tile(j) * TILE;
     // a tile past the warp's last visible key, or a warp past the last
     // row, adds nothing
-    if (t0 <= q0 + warp * 16 + 15 + P && q0 + warp * 16 < S) {
+    if (t0 <= q0 + warp * 16 + 15 + R && q0 + warp * 16 < S) {
       const bf16 *Kt = tile(2 * (j & 1)), *Vt = tile(2 * (j & 1) + 1);
       float s_[NS][4], dp[NS][4];
 #pragma unroll
@@ -550,14 +556,15 @@ __device__ __forceinline__ void dq_block(const MmaArgs& A, int blk,
         for (int e = 0; e < 4; ++e) s_[n][e] = dp[n][e] = 0.f;
       mma_abt2<HD>(s_, qf, Kt, dp, df, Vt, lane);  // S = Q K^T, dP = dO V^T
       const bool need_mask =
-          t0 + TILE > T_ || t0 + TILE - 1 > q0 + warp * 16 + P ||
+          t0 + TILE > T_ || t0 + TILE - 1 > q0 + warp * 16 + R ||
           (LV < P && t0 < P && t0 + TILE > LV);
 #pragma unroll
       for (int n = 0; n < NS; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int kj = t0 + n * 8 + (lane % 4) * 2 + (e & 1);
-          const bool ok = !need_mask || visible(row[e / 2], kj, T_, P, LV);
+          const bool ok = !need_mask ||
+                          visible(row[e / 2], kj, T_, P, LV, R);
           const float p = ok ? ex2(fmaf(s_[n][e], A.scale_log2, -l2[e / 2]))
                              : 0.f;
           dp[n][e] = ok ? p * (dp[n][e] - dl[e / 2]) : 0.f;
@@ -620,7 +627,7 @@ template <int HD>
 int run_mma(const void* q, const void* k, const void* v, const void* o,
             const void* dout, const float* lse, float* ws, void* dq,
             void* dk, void* dv, int B, int H, int Kh, int S, int T_, int P,
-            int LV, const Strides& str, cudaStream_t st) {
+            int LV, int R, const Strides& str, cudaStream_t st) {
   MmaArgs A;
   A.q = (const bf16*)q;
   A.k = (const bf16*)k;
@@ -641,6 +648,7 @@ int run_mma(const void* q, const void* k, const void* v, const void* o,
   A.T = T_;
   A.P = P;
   A.LV = LV;
+  A.R = R;
   const int n_kt = (T_ + TILE - 1) / TILE, n_qt = (S + TILE - 1) / TILE;
   const int CS = A.GB * A.NC;
   A.n_q_blocks = n_qt * B * H;
@@ -707,7 +715,7 @@ attn_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               float* __restrict__ dk, float* __restrict__ dv, int H, int Kh,
-              int S, int T_, int P, int LV, Strides str, float scale) {
+              int S, int T_, int P, int LV, int R, Strides str, float scale) {
   constexpr int NPT = HD / TPR;     // output dims a thread
   __shared__ float Ks[BT][HD + 1], Vs[BT][HD + 1];
   __shared__ float Qs[BT][HD + 1], Ds[BT][HD + 1];
@@ -733,7 +741,7 @@ attn_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
     // the first query that sees a key of this tile: all of them where the
     // tile holds a live prefix key, else the query whose diagonal reaches
     // the tile's first key
-    const int i_first = t0 < LV ? 0 : max(0, t0 - P);
+    const int i_first = t0 < LV ? 0 : max(0, t0 - R);
     for (int g = 0; g < G; ++g) {
       const int h = kh * G + g;
       const long long bh = (long long)b * H + h;
@@ -752,7 +760,7 @@ attn_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
         for (int u = 0; u < BT / TPR; ++u) {
           const int qi = tid / TPR, kj = tid % TPR + TPR * u;
           float p = 0.f, ds = 0.f;
-          if (i0 + qi < S && visible(i0 + qi, t0 + kj, T_, P, LV)) {
+          if (i0 + qi < S && visible(i0 + qi, t0 + kj, T_, P, LV, R)) {
             float sqk = 0.f, dpv = 0.f;
 #pragma unroll 16
             for (int d = 0; d < HD; ++d) {
@@ -797,7 +805,7 @@ attn_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
             float* __restrict__ dq, int H, int Kh, int S, int T_, int P,
-            int LV, Strides str, float scale) {
+            int LV, int R, Strides str, float scale) {
   constexpr int NPT = HD / TPR;
   __shared__ float Qs[BT][HD + 1], Ds[BT][HD + 1];
   __shared__ float Ks[BT][HD + 1], Vs[BT][HD + 1];
@@ -821,8 +829,8 @@ attn_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   float aq[NPT];
 #pragma unroll
   for (int u = 0; u < NPT; ++u) aq[u] = 0.f;
-  // the last key any row of the tile sees is (i0 + BT - 1) + P
-  const int t_end = min(T_, i0 + BT + P);
+  // the last key any row of the tile sees is (i0 + BT - 1) + R
+  const int t_end = min(T_, i0 + BT + R);
   for (int t0 = 0; t0 < t_end; t0 += BT) {
     if (t0 >= LV && t0 + BT <= P) continue;     // wholly dead rows
     __syncthreads();          // the previous tile's readers are done
@@ -833,7 +841,7 @@ attn_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
     for (int u = 0; u < BT / TPR; ++u) {
       const int qi = tid / TPR, kj = tid % TPR + TPR * u;
       float ds = 0.f;
-      if (i0 + qi < S && visible(i0 + qi, t0 + kj, T_, P, LV)) {
+      if (i0 + qi < S && visible(i0 + qi, t0 + kj, T_, P, LV, R)) {
         float sqk = 0.f, dpv = 0.f;
 #pragma unroll 16
         for (int d = 0; d < HD; ++d) {
@@ -866,7 +874,7 @@ template <int HD>
 int run_f32(const void* q, const void* k, const void* v, const void* o,
             const void* dout, const float* lse, float* delta, void* dq,
             void* dk, void* dv, int B, int H, int Kh, int S, int T_, int P,
-            int LV, const Strides& str, cudaStream_t st) {
+            int LV, int R, const Strides& str, cudaStream_t st) {
   const float scale = (float)(1.0 / sqrt((double)HD));
   const long long rows = (long long)B * H * S;
   typedef const float* cf;
@@ -877,13 +885,13 @@ int run_f32(const void* q, const void* k, const void* v, const void* o,
   dim3 g_kv((T_ + BT - 1) / BT, B * Kh);
   attn_bwd_dkdv<HD><<<g_kv, NT, 0, st>>>(
       (cf)q, (cf)k, (cf)v, (cf)dout, lse, delta, (float*)dk, (float*)dv, H,
-      Kh, S, T_, P, LV, str, scale);
+      Kh, S, T_, P, LV, R, str, scale);
   err = (int)cudaGetLastError();
   if (err) return err;
   dim3 g_q((S + BT - 1) / BT, B * H);
   attn_bwd_dq<HD><<<g_q, NT, 0, st>>>(
       (cf)q, (cf)k, (cf)v, (cf)dout, lse, delta, (float*)dq, H, Kh, S, T_, P,
-      LV, str, scale);
+      LV, R, str, scale);
   return (int)cudaGetLastError();
 }
 
@@ -898,15 +906,18 @@ extern "C" long long flash_attention_bwd_workspace_elems(int bf16_in, int B,
 
 // strides (24 int64, host memory): q, k, v, o, dout, dq, dk, dv, each
 // (b, head, row); `workspace` holds flash_attention_bwd_workspace_elems
-// f32, 16-byte aligned
+// f32, 16-byte aligned; causal = 0: every key j < T visible to every query
+// (prefix_len and prefix_live must be 0)
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* workspace, void* dq, void* dk,
-    void* dv, int bf16_in, int B, int H, int Kh, int S, int T_, int hd,
-    int prefix_len, int prefix_live, const long long* strides,
+    void* dv, int bf16_in, int causal, int B, int H, int Kh, int S, int T_,
+    int hd, int prefix_len, int prefix_live, const long long* strides,
     void* stream) {
-  if (prefix_live < 0 || prefix_live > prefix_len || H % Kh)
+  if (prefix_live < 0 || prefix_live > prefix_len || H % Kh || T_ < 1 ||
+      (!causal && prefix_len != 0))
     return (int)cudaErrorInvalidValue;
+  const int R = causal ? prefix_len : T_;
   Strides str;
   long long* dst[8] = {str.q, str.k, str.v, str.o, str.d, str.dq, str.dk,
                        str.dv};
@@ -917,7 +928,7 @@ extern "C" int flash_attention_bwd_launch(
   float* ws = (float*)workspace;
 #define BWD(RUN, HD)                                                        \
   RUN<HD>(q, k, v, o, dout, l, ws, dq, dk, dv, B, H, Kh, S, T_, prefix_len, \
-          prefix_live, str, st)
+          prefix_live, R, str, st)
   if (bf16_in) {
     switch (hd) {
       case 16: return BWD(run_mma, 16);

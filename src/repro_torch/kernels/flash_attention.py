@@ -5,9 +5,12 @@ q: (B, H, S, hd); k/v: (B, Kh, T, hd) with Kh | H (GQA); with ``causal``,
 ``prefix_len = m`` and ``prefix_live = lv`` (default m) key j is visible to
 query i iff j < lv or m <= j <= i + m. ``prefix_live`` is the cushion
 search's live length (the reference's ``prefix_valid = arange(m) < lv``):
-rows [lv, m) of a padded prefix are seen by no query.
+rows [lv, m) of a padded prefix are seen by no query. Without ``causal``
+(an encoder's self-attention, a cross-attention over encoder states) every
+key j < T is visible to every query, T any length: the kernels take no
+prefix there (``prefix_len`` must be 0).
 
-A CUDA tensor launches ``csrc/flash_attention.cu`` (causal only; it takes
+A CUDA tensor launches ``csrc/flash_attention.cu`` (both modes; it takes
 strided views, so callers hand it (B, S, H, hd) activations transposed in
 place); a CPU tensor takes ``flash_attention_plain``, through which autograd
 flows on the CPU. On the card, a call that autograd records (grad mode on
@@ -79,10 +82,12 @@ def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor,
 
 def flash_attention_bwd_plain(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
                               lse: Tensor, do: Tensor, prefix_len: int = 0,
-                              prefix_live: Optional[int] = None
+                              prefix_live: Optional[int] = None,
+                              causal: bool = True
                               ) -> Tuple[Tensor, Tensor, Tensor]:
-    """Plain version of ``flash_attention_bwd`` (causal), in f32 from the
-    forward's output ``o`` and per-row log-sum-exp ``lse`` (B, H, S):
+    """Plain version of ``flash_attention_bwd``, in f32 from the forward's
+    output ``o`` and per-row log-sum-exp ``lse`` (B, H, S), with the mask of
+    the forward's plain version (``_visible``):
 
         p = exp(q.k / sqrt(hd) - lse) where visible, else 0
         D = rowsum(do * o)      dS = p (do.v - D)
@@ -99,7 +104,7 @@ def flash_attention_bwd_plain(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
     vf = v.float().repeat_interleave(G, dim=1)
     qf, dof = q.float(), do.float()
     s = torch.einsum("bhsd,bhtd->bhst", qf, kf) * scale
-    mask = _visible(S, T, True, prefix_len, lv, q.device)[None, None]
+    mask = _visible(S, T, causal, prefix_len, lv, q.device)[None, None]
     p = torch.where(mask, torch.exp(s - lse.float()[..., None]),
                     torch.zeros((), device=q.device))
     delta = (dof * o.float()).sum(-1, keepdim=True)
@@ -129,11 +134,20 @@ def _check(q: Tensor, k: Tensor, v: Tensor) -> None:
         raise ValueError("head_dim must be the contiguous axis")
 
 
+def _check_mode(causal: bool, prefix_len: int, T: int) -> None:
+    """Non-causal attention takes T >= 1 keys behind no prefix."""
+    if not causal and (prefix_len or T < 1):
+        raise ValueError(f"non-causal attention takes T >= 1 keys and no "
+                         f"prefix, got T {T}, prefix_len {prefix_len}")
+
+
 def _launch(q: Tensor, k: Tensor, v: Tensor, prefix_len: int, lv: int,
-            with_lse: bool) -> Tuple[Tensor, Optional[Tensor]]:
+            with_lse: bool, causal: bool = True
+            ) -> Tuple[Tensor, Optional[Tensor]]:
     """One ``flash_attention`` launch; the per-row log-sum-exp (B, H, S)
     f32 is written only ``with_lse``."""
     _check(q, k, v)
+    _check_mode(causal, prefix_len, k.shape[2])
     B, H, S, hd = q.shape
     Kh, T = k.shape[1], k.shape[2]
     if q.dtype == torch.bfloat16 and any(
@@ -149,7 +163,8 @@ def _launch(q: Tensor, k: Tensor, v: Tensor, prefix_len: int, lv: int,
     code = _lib.lib().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
-        int(q.dtype == torch.bfloat16), B, H, Kh, S, T, hd, int(prefix_len),
+        int(q.dtype == torch.bfloat16), int(causal), B, H, Kh, S, T, hd,
+        int(prefix_len),
         lv, q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
@@ -169,9 +184,10 @@ def _rows_aligned(t: Tensor) -> bool:
 
 def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
                         lse: Tensor, do: Tensor, prefix_len: int = 0,
-                        prefix_live: Optional[int] = None
+                        prefix_live: Optional[int] = None,
+                        causal: bool = True
                         ) -> Tuple[Tensor, Tensor, Tensor]:
-    """(dq, dk, dv) of the causal ``flash_attention`` at (q, k, v), given
+    """(dq, dk, dv) of ``flash_attention`` at (q, k, v), given
     its output ``o``, its per-row log-sum-exp ``lse`` (B, H, S) f32 and the
     output's gradient ``do``. A CUDA tensor launches
     ``csrc/flash_attention_bwd.cu`` (one launch: the row sums D, then dk/dv
@@ -181,13 +197,14 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
     in any layout) is copied contiguous first."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, prefix_len,
-                                         prefix_live)
+                                         prefix_live, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
     _check(q, k, v)
     B, H, S, hd = q.shape
     Kh, T = k.shape[1], k.shape[2]
+    _check_mode(causal, prefix_len, T)
     lv = _live(prefix_len, prefix_live)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype:
         raise ValueError(f"o {tuple(o.shape)} / do {tuple(do.shape)} must "
@@ -212,7 +229,8 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
     code = lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), ws.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), int(bf16), B, H, Kh, S, T, hd,
+        dk.data_ptr(), dv.data_ptr(), int(bf16), int(causal), B, H, Kh, S,
+        T, hd,
         int(prefix_len), lv, strides, _lib.stream_ptr(q))
     _lib.check(code, "flash_attention_bwd")
     _lib.count("flash_attention_bwd")
@@ -225,17 +243,18 @@ class FlashAttentionFn(torch.autograd.Function):
     ``flash_attention_bwd``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, prefix_len, prefix_live):
-        out, lse = _launch(q, k, v, prefix_len, prefix_live, with_lse=True)
+    def forward(ctx, q, k, v, prefix_len, prefix_live, causal):
+        out, lse = _launch(q, k, v, prefix_len, prefix_live, with_lse=True,
+                           causal=causal)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.prefix = (prefix_len, prefix_live)
+        ctx.mode = (prefix_len, prefix_live, causal)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, *ctx.prefix)
-        return dq, dk, dv, None, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, *ctx.mode)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
@@ -248,11 +267,10 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
                                      prefix_live)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if not causal:
-        raise NotImplementedError("the flash_attention kernel is causal "
-                                  "(with a visible prefix) only")
     lv = _live(prefix_len, prefix_live)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttentionFn.apply(q, k, v, int(prefix_len), lv)
-    return _launch(q, k, v, prefix_len, lv, with_lse=False)[0]
+        return FlashAttentionFn.apply(q, k, v, int(prefix_len), lv,
+                                      bool(causal))
+    return _launch(q, k, v, prefix_len, lv, with_lse=False,
+                   causal=causal)[0]

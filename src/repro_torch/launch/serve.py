@@ -51,9 +51,10 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.store import CheckpointManager
-from repro_torch.configs import QuantConfig, get_config
+from repro_torch.configs import Family, QuantConfig, get_config
 from repro_torch.data.pipeline import Pipeline, SyntheticCorpus
 from repro_torch.distributed.fault_injection import FaultInjector
+from repro_torch.models import encdec as ED
 from repro_torch.models.registry import build
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.router import ReplicaRouter, RouterConfig
@@ -98,8 +99,12 @@ def load_cushion_artifact(path: str, api):
         raise SystemExit(f"[serve] cushion artifact was tuned for arch "
                          f"{extra['arch']!r} but serving {api.cfg.name!r}")
     dev = api.device
-    cushion = {k: {n: t.to(dev) for n, t in v.items()}
-               for k, v in tree["cushion"].items()}
+
+    def on_dev(t):
+        if isinstance(t, dict):
+            return {k: on_dev(v) for k, v in t.items()}
+        return t.to(dev)
+    cushion = on_dev(tree["cushion"])
     got = cushion_fingerprint(cushion)
     want = extra.get("fingerprint")
     if want and got != want:
@@ -108,13 +113,7 @@ def load_cushion_artifact(path: str, api):
                          f"hash to {got[:12]}: artifact corrupt")
     scales = None
     if "scales" in tree:
-        plain = scales_from_plain(tree["scales"])
-
-        def to_dev(t):
-            if isinstance(t, dict):
-                return {k: to_dev(v) for k, v in t.items()}
-            return type(t)(scale=t.scale.to(dev), zero=t.zero.to(dev))
-        scales = CalibratedScales(to_dev(plain),
+        scales = CalibratedScales(scales_from_plain(on_dev(tree["scales"])),
                                   extra.get("scales_cushion_fp", got))
     print(f"[serve] cushion artifact v{version} from {path}: "
           f"prefix_ids={extra.get('prefix_ids')} fingerprint={got[:12]} "
@@ -134,7 +133,8 @@ def poisson_trace(api, rng_seed: int, n_requests: int, rate: float,
     VLM's patches take ``num_patches`` of them) and budgets through
     ``budgets``. Everything derives from ``rng_seed``. The gaps and budgets
     are the JAX launcher's; the prompt ids come from a numpy
-    ``RandomState(rng_seed + 7 i + 1)`` and a VLM's patches from a
+    ``RandomState(rng_seed + 7 i + 1)`` and a VLM's patches or an
+    encoder-decoder's frames (each request its own) from a
     ``torch.Generator`` of the same seed, where the JAX launcher draws both
     with ``jax.random``, which the port cannot reproduce, so the two
     launchers serve different prompts."""
@@ -447,13 +447,18 @@ def main(argv=None):
     elif args.cushion_len:
         cushion = seeded_cushion(api, params, args.cushion_len, args.seed)
 
-    extras = bool(api.extra_inputs(torch.Generator(), 1))
+    extras = sorted(api.extra_inputs(torch.Generator(), 1))
     if extras and args.mode != "continuous":
         raise SystemExit(
             f"[serve] {args.arch}: the static path feeds the pipeline's "
             f"tokens only and {cfg.family.value} requests carry other "
-            f"inputs (patches), as in the reference; serve it with --mode "
-            f"continuous")
+            f"inputs ({', '.join(extras)}), as in the reference; serve it "
+            f"with --mode continuous")
+    if cfg.family == Family.ENCDEC:
+        try:
+            ED.check_serving_quant(qcfg)
+        except ValueError as e:
+            raise SystemExit(f"[serve] {args.arch}: {e}")
     corpus = SyntheticCorpus(cfg.vocab_size, seed=args.seed)
     pipe = Pipeline(corpus, batch=args.batch, seq_len=args.prompt_len,
                     seed=args.seed + 1)

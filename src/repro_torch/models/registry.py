@@ -1,10 +1,13 @@
 """Model API over the ported families: ``build(cfg, device)`` ->
-``ModelAPI`` (``repro/models/registry.py``). The dense, MoE, VLM and
-hybrid families are ported; the others raise.
+``ModelAPI`` (``repro/models/registry.py``). Every family of the reference
+is ported: dense, MoE, VLM, the Jamba hybrid, the encoder-decoder and the
+xLSTM.
 
 Batch dicts hold ``{"tokens": (B, S) int tensor}`` (and ``"labels"`` for
 the loss) on the API's device; a VLM's also ``"patches"`` (B, P, D), its
-stub vision frontend's embeddings, placed before the tokens.
+stub vision frontend's embeddings, placed before the tokens; an
+encoder-decoder's ``"frames"`` (B, T_enc, D), its stub audio frontend's,
+which the encoder reads.
 """
 from __future__ import annotations
 
@@ -15,33 +18,35 @@ import torch
 
 from repro_torch.configs.base import Family, ModelConfig, QuantConfig
 from repro_torch.models import common as C
+from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import moe as MO
 from repro_torch.models import transformer as TR
 from repro_torch.models import vlm as VL
+from repro_torch.models import xlstm as XL
 
 Params = Dict[str, Any]
 
 _FAMILIES = {Family.DENSE: TR, Family.MOE: MO, Family.VLM: VL,
-             Family.HYBRID: HY}
+             Family.HYBRID: HY, Family.ENCDEC: ED, Family.SSM: XL}
+
+# the families with an attention KV cache, the only ones that take an int8
+# one (the reference's list)
+_KV_DTYPE_FAMILIES = (Family.DENSE, Family.MOE, Family.VLM, Family.HYBRID)
 
 
 def family_module(cfg: ModelConfig):
-    """The module of the config's family; raises for a family that is not
-    ported."""
-    mod = _FAMILIES.get(cfg.family)
-    if mod is None:
-        raise NotImplementedError(
-            f"{cfg.family.value}: only the dense, MoE, VLM and hybrid "
-            "families are ported (ROADMAP queue 1 item 5.4, xLSTM, is next)")
-    return mod
+    """The module of the config's family."""
+    return _FAMILIES[cfg.family]
 
 
 def _extra_kwargs(cfg: ModelConfig, batch: Dict[str, Any]) -> Dict[str, Any]:
     """The batch's inputs beside the tokens that the family's functions
-    take (a VLM's patches)."""
+    take (a VLM's patches, an encoder-decoder's frames)."""
     if cfg.family == Family.VLM:
         return {"patches": batch["patches"]}
+    if cfg.family == Family.ENCDEC:
+        return {"frames": batch["frames"]}
     return {}
 
 
@@ -68,6 +73,7 @@ class ModelAPI:
 
     @property
     def sites(self) -> Tuple[str, ...]:
+        """The sites of a layer (an encoder-decoder's: its decoder's)."""
         return self.mod.SITES
 
     def init_params(self, gen: torch.Generator) -> C.ParamTree:
@@ -101,21 +107,30 @@ class ModelAPI:
     def init_cache(self, batch: int, max_seq: int, dtype=None,
                    kv_dtype=None, prefix_len: int = 0,
                    per_slot_scales: bool = False):
+        """``kv_dtype`` "int8": a quantized KV cache, for the families with
+        an attention KV cache only (the others raise the reference's
+        ValueError)."""
+        if kv_dtype is not None and self.cfg.family not in _KV_DTYPE_FAMILIES:
+            raise ValueError(
+                f"kv_dtype={kv_dtype!r} unsupported for {self.cfg.family}")
         return self.mod.init_cache(self.cfg, batch, max_seq, self.device,
                                    dtype=dtype, kv_dtype=kv_dtype,
                                    prefix_len=prefix_len,
                                    per_slot_scales=per_slot_scales)
 
     @property
-    def cache_batch_axes(self) -> Dict[str, int]:
+    def cache_batch_axes(self) -> Dict[str, Any]:
         """Batch axis of every per-request cache leaf: the continuous
-        scheduler's slot-scatter map."""
+        scheduler's slot-scatter map. An entry may be a nested dict of
+        per-leaf axes (the xLSTM's state tree)."""
         return self.mod.CACHE_BATCH_AXES
 
     @property
     def paged_kv_leaves(self) -> Tuple[str, ...]:
-        """Cache leaves the paged pool re-lays into a flat page store."""
-        return self.mod.PAGED_KV_LEAVES
+        """Cache leaves the paged pool re-lays into a flat page store;
+        empty for the encoder-decoder (per-request cross-attention KV) and
+        the xLSTM (recurrent state), which a paged pool refuses."""
+        return tuple(getattr(self.mod, "PAGED_KV_LEAVES", ()))
 
     @property
     def supports_chunked_prefill(self) -> bool:
@@ -147,7 +162,8 @@ class ModelAPI:
         §4.1). prefix_ids: (m,), or (N, m) for N prefixes scored at once:
         the batch is then tiled once per prefix and the forward runs with
         ``groups=N`` (the reference vmaps one prefix at a time). A VLM's
-        prefix is embedded and placed before the patches. Returns (logits,
+        prefix is embedded and placed before the patches; an
+        encoder-decoder's frames are tiled with the rows. Returns (logits,
         taps); callers pass collect / n_skip via kw."""
         toks = batch["tokens"]
         Bs, n = toks.shape
@@ -172,6 +188,10 @@ class ModelAPI:
                           toks[None].expand(N, Bs, n)], dim=2)
         nb = dict(batch)
         nb["tokens"] = full.reshape(N * Bs, m + n)
+        if "frames" in batch:
+            fr = batch["frames"]
+            nb["frames"] = fr[None].expand(N, *fr.shape).reshape(
+                N * Bs, *fr.shape[1:])
         return self.forward(params, nb, qcfg, **kw)
 
     # ------------------------------------------------------------------
@@ -255,14 +275,26 @@ class ModelAPI:
                         qcfg: QuantConfig) -> Params:
         """Turn a token prefix into the deployment cushion: its per-layer KV
         after one pass through the model (paper eq. 8), and for the hybrid
-        also the Mamba layers' state after it. A VLM's prefix runs without
-        patches (the cushion sits before them). ``batch`` is unused (kept
+        also the Mamba layers' state after it; for the xLSTM the state
+        after it alone ({"state": ...}, f32). A VLM's prefix runs without
+        patches (the cushion sits before them), an encoder-decoder's under
+        zero frames (a null acoustic context). ``batch`` is unused (kept
         for the reference's signature)."""
         m = int(prefix_ids.shape[0])
+        toks = prefix_ids[None].to(self.device)
+        if self.cfg.family == Family.SSM:
+            _, _, states = XL.forward(params, toks, self.cfg, qcfg,
+                                      return_cache=True)
+            return {"state": {g: {k: v[:, 0] for k, v in leaves.items()}
+                              for g, leaves in states.items()}}
         mod = self._kv_mod
         cache = mod.init_cache(self.cfg, 1, m, self.device)
-        _, cache, _ = mod.prefill(params, prefix_ids[None].to(self.device),
-                                  cache, self.cfg, qcfg)
+        kw = {}
+        if self.cfg.family == Family.ENCDEC:
+            kw["frames"] = torch.zeros(
+                (1, self.cfg.encdec.encoder_seq, self.cfg.d_model),
+                dtype=C.dtype_of(self.cfg), device=self.device)
+        _, cache, _ = mod.prefill(params, toks, cache, self.cfg, qcfg, **kw)
         out = {"kv": {"k": cache["k"][:, 0, :m], "v": cache["v"][:, 0, :m]}}
         if self.cfg.family == Family.HYBRID:
             out["state"] = {"h": cache["h"][:, :, 0],
@@ -275,7 +307,8 @@ class ModelAPI:
         all on the API's device, drawn from a ``torch.Generator`` (the
         reference draws with ``jax.random``, which the port cannot
         reproduce: the same seed gives other ids); a VLM's also "patches",
-        normal x 0.02 in the model dtype, from the same generator."""
+        an encoder-decoder's "frames", normal x 0.02 in the model dtype,
+        from the same generator."""
         toks = torch.randint(0, self.cfg.vocab_size,
                              (batch, self.text_len(seq_len) + 1),
                              generator=gen, device=gen.device,
@@ -286,15 +319,19 @@ class ModelAPI:
     def extra_inputs(self, gen: torch.Generator, batch: int
                      ) -> Dict[str, torch.Tensor]:
         """The family's inputs beside the tokens, drawn from ``gen`` on the
-        API's device: a VLM's patches (normal x 0.02 in the model dtype,
-        the stub frontend's output); {} for the token-only families."""
+        API's device: a VLM's patches (B, P, D), an encoder-decoder's frames
+        (B, T_enc, D), normal x 0.02 in the model dtype (the stub
+        frontends' output); {} for the token-only families."""
         cfg = self.cfg
-        if cfg.family != Family.VLM:
+        if cfg.family == Family.VLM:
+            key, n = "patches", cfg.vlm.num_patches
+        elif cfg.family == Family.ENCDEC:
+            key, n = "frames", cfg.encdec.encoder_seq
+        else:
             return {}
-        pt = torch.randn((batch, cfg.vlm.num_patches, cfg.d_model),
-                         generator=gen, device=gen.device,
-                         dtype=C.dtype_of(cfg)) * 0.02
-        return {"patches": pt.to(self.device)}
+        x = torch.randn((batch, n, cfg.d_model), generator=gen,
+                        device=gen.device, dtype=C.dtype_of(cfg)) * 0.02
+        return {key: x.to(self.device)}
 
     def text_len(self, seq_len: int) -> int:
         """Token count such that total positions == seq_len (a VLM's

@@ -1,0 +1,536 @@
+"""xLSTM language model, ported from ``repro/models/xlstm.py``: pairs of an
+mLSTM block (matrix memory: a parallel, stabilized form over the sequence,
+chunkwise past ``MLSTM_CHUNK`` positions, and an O(1) recurrent decode) and
+an sLSTM block (scalar memory, sequential), every recurrence stabilized in
+log space by a running max state ``m``.
+
+    init_params(cfg, gen)                      -> ParamTree
+    forward(params, tokens, cfg, qcfg, ...)    -> (logits, taps[, state])
+    loss_fn(params, tokens, labels, ...)       -> (loss, aux)
+    init_cache(cfg, B, Smax, device, ...)      -> state
+    prefill(params, tokens, cache, ...)        -> (logits, state, pos)
+    decode_step(params, token, pos, cache, ..) -> (logits, state)
+
+Parameters ``layers`` are stacked over the pairs (P, ...), the reference's
+``vmap``-ed layout; the pair stack is a Python loop. The recurrences are
+PyTorch ops, as in the reference they are jnp outside any Pallas kernel:
+the mLSTM mixing einsums over a chunk, the sLSTM scan a loop over
+positions (as the Mamba scan, ``models/ssm.py``).
+
+The cushion is a trainable initial state, the "CushionState" (no attention
+KV: the family has no softmax attention): ``{"state": {"m": {C, n, m},
+"s": {c, n, h, m}}}``, batch-free leaves (P, ...) broadcast over the batch.
+Prefix tuning trains the whole tree; the search scores with
+``greedy_search_ref`` (a padded prefix cannot be masked out of a
+recurrence).
+
+The cache is the state tree with the batch on axis 1 of every leaf (P, B,
+...), always f32. Prefill and decode write every leaf in place: a captured
+decode step reads the tensors it was captured on. On the card a decode
+row's result does not depend on the batch it runs in: the small plain
+products pad their rows (``common.matmul_rows``) or run a row at a time
+(``_per_row``), so a pool's rows equal the static B = 1 Engine's.
+"""
+from __future__ import annotations
+
+import math
+import os
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig, QuantConfig
+from repro_torch.core import quantization as Q
+from repro_torch.models import common as C
+from repro_torch.models import transformer as T
+from repro_torch.optim.adamw import tree_leaves
+
+Tensor = torch.Tensor
+Params = Dict[str, Any]
+
+SITES = ("m_in", "m_out", "s_in", "s_out")
+
+# The prefix artifact is recurrent state: the search scores with
+# greedy_search_ref.
+SUPPORTS_PREFIX_KV_SCORING = False
+
+# Slot layout: a state tree, every leaf (P, B, ...), the batch on axis 1.
+# The recurrence reads no position, and a dead pool row's state takes
+# dummy updates until an admission rewrites the whole row.
+CACHE_BATCH_AXES = {"m": {"C": 1, "n": 1, "m": 1},
+                    "s": {"c": 1, "n": 1, "h": 1, "m": 1}}
+
+# chunk length of the chunkwise-parallel mLSTM (0: the quadratic form over
+# the whole sequence); the reference's ``REPRO_MLSTM_CHUNK`` switch
+MLSTM_CHUNK = int(os.environ.get("REPRO_MLSTM_CHUNK", "256"))
+
+# a fresh state's max (the reference's), and the cushion's initial one
+M_FRESH = -1e30
+M_CUSHION = -30.0
+
+total_qerr = T.total_qerr
+
+
+def dims(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(inner width, heads, head dim)."""
+    inner = cfg.ssm.expand * cfg.d_model if cfg.ssm else 2 * cfg.d_model
+    NH = cfg.n_heads
+    if inner % NH:
+        raise ValueError(f"inner width {inner} is not a multiple of the "
+                         f"{NH} heads")
+    return inner, NH, inner // NH
+
+
+def n_pairs(cfg: ModelConfig) -> int:
+    if cfg.n_layers % 2:
+        raise ValueError(f"the xLSTM stack takes an even layer count, got "
+                         f"{cfg.n_layers}")
+    return cfg.n_layers // 2
+
+
+def _per_row(fn: Callable[..., Tensor], *xs: Tensor) -> Tensor:
+    """``fn(*xs)``, on the card one batch row at a time: a decode row's sums
+    then run in the kernels of a batch of one, whatever the pool's size
+    (cuBLAS and the reductions pick their kernels by size). One call on the
+    CPU."""
+    B = xs[0].shape[0]
+    if xs[0].device.type != "cuda" or B == 1:
+        return fn(*xs)
+    return torch.cat([fn(*(x[b:b + 1] for x in xs)) for b in range(B)])
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+def mlstm_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    inner, NH, _ = dims(cfg)
+    D = cfg.d_model
+    dt = C.dtype_of(cfg)
+    w_if = torch.randn((D, 2 * NH), generator=gen, device=gen.device,
+                       dtype=torch.float32) / math.sqrt(D)
+    b_if = torch.cat([torch.zeros((NH,)), torch.linspace(3.0, 6.0, NH)])
+    return {"w_qkv": C.dense_init(gen, D, 3 * inner, dt),
+            "w_if": w_if,
+            "b_if": b_if.to(torch.float32).to(gen.device),
+            "w_o": C.dense_init(gen, D, inner, dt),
+            "w_proj": C.dense_init(gen, inner, D, dt,
+                                   scale=1.0 / math.sqrt(2 * cfg.n_layers))}
+
+
+def _mlstm_qkvif(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
+                 scales, taps, n_skip: int, groups: int = 1):
+    """q, v (B, S, NH, hd), k (B, S, NH, hd) f32 scaled by 1/sqrt(hd); the
+    log input and forget gates li, lf (B, S, NH) f32; the output gate og
+    (B, S, inner)."""
+    inner, NH, hd = dims(cfg)
+    B, S, _ = x.shape
+    qkv = C.qlinear(x, p["w_qkv"], None, qcfg, scales, "m_in", taps, n_skip,
+                    groups)
+    q, k, v = (t.reshape(B, S, NH, hd) for t in torch.split(qkv, inner, -1))
+    # the reference divides by a numpy f64 scalar, which promotes k to f32
+    k = k.float() / math.sqrt(hd)
+    gif = C.matmul_rows(x.float(), p["w_if"]) + p["b_if"]
+    li, lf_raw = torch.split(gif, NH, dim=-1)
+    og = torch.sigmoid(C.matmul_rows(x, p["w_o"]))
+    return q, k, v, li, F.logsigmoid(lf_raw), og
+
+
+def _f32_state(st: Optional[Params]) -> Optional[Params]:
+    return None if st is None else {k: v.float() for k, v in st.items()}
+
+
+def _mlstm_mix(q: Tensor, k: Tensor, v: Tensor, li: Tensor, lf: Tensor,
+               init_state: Optional[Params], return_state: bool):
+    """The stabilized parallel (quadratic in S) mLSTM mixing. q, k, v (B,
+    S, NH, hd); li, lf (B, S, NH). Returns h (B, NH, S, hd) f32, and with
+    ``return_state`` the final state {C, n, m}. A masked decay is -inf, as
+    in the reference; every max is clamped at -1e30 before it is
+    subtracted, so no gradient meets -inf - -inf."""
+    S = q.shape[1]
+    init_state = _f32_state(init_state)
+    b = torch.cumsum(lf, dim=1)
+    bT = b.transpose(1, 2)                                   # (B, NH, S)
+    liT = li.transpose(1, 2)
+    # logD[t, s] = b_t - b_s + li_s for s <= t
+    logD = bT[..., :, None] - bT[..., None, :] + liT[..., None, :]
+    tri = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    neg_inf = torch.full((), -math.inf, device=q.device)
+    logD = torch.where(tri, logD, neg_inf)
+    if init_state is not None:
+        inter_log = bT + init_state["m"][..., None]
+    else:
+        inter_log = torch.full_like(bT, -math.inf)
+    m_row = torch.maximum(logD.amax(dim=-1), inter_log).clamp(min=M_FRESH)
+    Dm = torch.exp(logD - m_row[..., None])
+
+    qh, kh, vh = (t.transpose(1, 2).float() for t in (q, k, v))
+    scores = (qh @ kh.transpose(-1, -2)) * Dm
+    num = scores @ vh
+    den = scores.sum(-1)
+    if init_state is not None:
+        iw = torch.exp(inter_log - m_row)
+        num = num + iw[..., None] * (qh @ init_state["C"])
+        den = den + iw * (qh * init_state["n"][..., None, :]).sum(-1)
+    norm = torch.maximum(den.abs(), torch.exp(-m_row))
+    h = num / norm[..., None]
+    if not return_state:
+        return h
+
+    bS = bT[..., -1]                                         # (B, NH)
+    w_log = bS[..., None] - bT + liT
+    m_state = w_log.amax(dim=-1)
+    if init_state is not None:
+        m_state = torch.maximum(m_state, bS + init_state["m"])
+    w = torch.exp(w_log - m_state[..., None])
+    Cn = (kh * w[..., None]).transpose(-1, -2) @ vh
+    nn = (w[..., None] * kh).sum(-2)
+    if init_state is not None:
+        iw0 = torch.exp(bS + init_state["m"] - m_state)
+        Cn = Cn + iw0[..., None, None] * init_state["C"]
+        nn = nn + iw0[..., None] * init_state["n"]
+    return h, {"C": Cn, "n": nn, "m": m_state}
+
+
+def mlstm_state(cfg: ModelConfig, batch: int, device) -> Params:
+    _, NH, hd = dims(cfg)
+    return {"C": torch.zeros((batch, NH, hd, hd), device=device),
+            "n": torch.zeros((batch, NH, hd), device=device),
+            "m": torch.full((batch, NH), M_FRESH, device=device)}
+
+
+def apply_mlstm(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
+                scales: Optional[Params], taps: Optional[Dict],
+                n_skip: int = 0, init_state: Optional[Params] = None,
+                return_state: bool = False, chunk: Optional[int] = None,
+                groups: int = 1):
+    """The mLSTM block: the QKV / gate projections over the sequence, the
+    mixing (quadratic, or chunkwise when ``S % chunk == 0`` and ``S >
+    chunk``: quadratic inside a chunk, the state carried between chunks),
+    the output gate and ``w_proj``."""
+    B, S, _ = x.shape
+    inner, NH, hd = dims(cfg)
+    chunk = MLSTM_CHUNK if chunk is None else chunk
+    q, k, v, li, lf, og = _mlstm_qkvif(p, x, cfg, qcfg, scales, taps,
+                                       n_skip, groups)
+    if chunk <= 0 or S <= chunk or S % chunk:
+        res = _mlstm_mix(q, k, v, li, lf, init_state, return_state)
+        h, state = res if return_state else (res, None)
+    else:
+        state = _f32_state(init_state) if init_state is not None \
+            else mlstm_state(cfg, B, x.device)
+        hs = []
+        for c0 in range(0, S, chunk):
+            sl = slice(c0, c0 + chunk)
+            hc, state = _mlstm_mix(q[:, sl], k[:, sl], v[:, sl], li[:, sl],
+                                   lf[:, sl], state, True)
+            hs.append(hc)
+        h = torch.cat(hs, dim=2)
+    h = h.transpose(1, 2).reshape(B, S, inner).to(x.dtype) * og.to(x.dtype)
+    out = C.qlinear(h, p["w_proj"], None, qcfg, scales, "m_out", taps,
+                    n_skip, groups)
+    return (out, state) if return_state else out
+
+
+def decode_mlstm(p: Params, x: Tensor, state: Params, cfg: ModelConfig,
+                 qcfg: QuantConfig, scales: Optional[Params],
+                 taps: Optional[Dict] = None) -> Tuple[Tensor, Params]:
+    """x: (B, 1, D); one stabilized recurrent step."""
+    B = x.shape[0]
+    inner, _, _ = dims(cfg)
+    q, k, v, li, lf, og = _mlstm_qkvif(p, x, cfg, qcfg, scales, taps, 0)
+    q, k, v = (t[:, 0].float() for t in (q, k, v))           # (B, NH, hd)
+    li, lf = li[:, 0], lf[:, 0]                              # (B, NH)
+    m_new = torch.maximum(lf + state["m"], li)
+    fp = torch.exp(lf + state["m"] - m_new)
+    ip = torch.exp(li - m_new)
+    Cn = fp[..., None, None] * state["C"] \
+        + ip[..., None, None] * (k[..., :, None] * v[..., None, :])
+    nn = fp[..., None] * state["n"] + ip[..., None] * k
+    den = _per_row(lambda a, b_: (a * b_).sum(-1), q, nn)
+    norm = torch.maximum(den.abs(), torch.exp(-m_new))
+    h = _per_row(lambda a, c: (a[..., None, :] @ c)[..., 0, :], q, Cn)
+    h = (h / norm[..., None]).reshape(B, 1, inner).to(x.dtype) * og
+    out = C.qlinear(h, p["w_proj"], None, qcfg, scales, "m_out", taps)
+    return out, {"C": Cn, "n": nn, "m": m_new}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+def slstm_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    inner, NH, hd = dims(cfg)
+    D = cfg.d_model
+    dt = C.dtype_of(cfg)
+    w = C.dense_init(gen, D, 4 * inner, dt)
+    r = torch.randn((NH, hd, 4 * hd), generator=gen, device=gen.device,
+                    dtype=torch.float32) / math.sqrt(hd)
+    return {"w": w, "r": r,
+            "b": torch.zeros((4 * inner,), dtype=torch.float32,
+                             device=gen.device),
+            "w_proj": C.dense_init(gen, inner, D, dt,
+                                   scale=1.0 / math.sqrt(2 * cfg.n_layers))}
+
+
+def slstm_state(cfg: ModelConfig, batch: int, device) -> Params:
+    _, NH, hd = dims(cfg)
+
+    def z():
+        return torch.zeros((batch, NH, hd), device=device)
+    return {"c": z(), "n": z(), "h": z(),
+            "m": torch.full((batch, NH, hd), M_FRESH, device=device)}
+
+
+def _slstm_step(r: Tensor, wx_t: Tensor, state: Params, NH: int, hd: int,
+                rows: bool = False) -> Tuple[Tensor, Params]:
+    """wx_t: (B, 4 inner) f32, W x_t + b. Returns (h (B, NH, hd), state).
+    ``rows``: the recurrent product a row at a time on the card (decode)."""
+    B = wx_t.shape[0]
+
+    def rec(h):
+        return torch.einsum("bhd,hde->bhe", h, r)
+    zall = wx_t.reshape(B, 4, NH, hd).transpose(1, 2).reshape(B, NH, 4 * hd) \
+        + (_per_row(rec, state["h"]) if rows else rec(state["h"]))
+    zi, zf, zz, zo = torch.split(zall, hd, dim=-1)
+    lf = F.logsigmoid(zf)
+    m_new = torch.maximum(lf + state["m"], zi)
+    fp = torch.exp(lf + state["m"] - m_new)
+    ip = torch.exp(zi - m_new)
+    c = fp * state["c"] + ip * torch.tanh(zz)
+    n = fp * state["n"] + ip
+    h = torch.sigmoid(zo) * c / torch.clamp(n, min=1e-6)
+    return h, {"c": c, "n": n, "h": h, "m": m_new}
+
+
+def apply_slstm(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
+                scales: Optional[Params], taps: Optional[Dict],
+                n_skip: int = 0, init_state: Optional[Params] = None,
+                return_state: bool = False, groups: int = 1):
+    """The sLSTM block: W x over the sequence, then the scan, a loop over
+    positions."""
+    B, S, _ = x.shape
+    inner, NH, hd = dims(cfg)
+    wx = C.qlinear(x, p["w"], None, qcfg, scales, "s_in", taps, n_skip,
+                   groups).float() + p["b"]
+    state = _f32_state(init_state) if init_state is not None \
+        else slstm_state(cfg, B, x.device)
+    hs = []
+    for t in range(S):
+        h, state = _slstm_step(p["r"], wx[:, t], state, NH, hd)
+        hs.append(h)
+    hs = torch.stack(hs, dim=1).reshape(B, S, inner).to(x.dtype)
+    out = C.qlinear(hs, p["w_proj"], None, qcfg, scales, "s_out", taps,
+                    n_skip, groups)
+    return (out, state) if return_state else out
+
+
+def decode_slstm(p: Params, x: Tensor, state: Params, cfg: ModelConfig,
+                 qcfg: QuantConfig, scales: Optional[Params],
+                 taps: Optional[Dict] = None) -> Tuple[Tensor, Params]:
+    B = x.shape[0]
+    inner, NH, hd = dims(cfg)
+    wx = C.qlinear(x, p["w"], None, qcfg, scales, "s_in", taps).float() \
+        + p["b"]
+    h, state = _slstm_step(p["r"], wx[:, 0], state, NH, hd, rows=True)
+    out = C.qlinear(h.reshape(B, 1, inner).to(x.dtype), p["w_proj"], None,
+                    qcfg, scales, "s_out", taps)
+    return out, state
+
+
+# ---------------------------------------------------------------------------
+# The pair stack
+# ---------------------------------------------------------------------------
+
+def pair_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    return {"ln_m": C.norm_init(cfg, gen.device), "mlstm": mlstm_init(gen, cfg),
+            "ln_s": C.norm_init(cfg, gen.device), "slstm": slstm_init(gen, cfg)}
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> C.ParamTree:
+    """Seeded random weights on the generator's device."""
+    p = C.embed_init(gen, cfg)
+    p["layers"] = C.stack_trees([pair_init(gen, cfg)
+                                 for _ in range(n_pairs(cfg))])
+    p["ln_f"] = C.norm_init(cfg, gen.device)
+    return C.ParamTree(p)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
+               dtype=None, kv_dtype=None, prefix_len: int = 0,
+               per_slot_scales: bool = False) -> Params:
+    """The state tree, stacked over the pairs, every leaf (P, B, ...) f32.
+    The other arguments are the families' common signature, unused: the
+    state is O(1) and never int8 (``registry`` refuses ``kv_dtype``)."""
+    P = n_pairs(cfg)
+
+    def stacked(st):
+        return {k: v[None].repeat(P, *([1] * v.dim())) for k, v in st.items()}
+    return {"m": stacked(mlstm_state(cfg, batch, device)),
+            "s": stacked(slstm_state(cfg, batch, device))}
+
+
+def cushion_zeros(cfg: ModelConfig, m: int, device, dtype=None) -> Params:
+    """The CushionState: a batch-free initial state (broadcast at use), C /
+    n / c / h zero and the max states at -30, in the model dtype by
+    default. ``m`` (a prefix length) has no meaning here."""
+    dtype = C.dtype_of(cfg) if dtype is None else dtype
+    P = n_pairs(cfg)
+    _, NH, hd = dims(cfg)
+
+    def full(shape, v):
+        return torch.full(shape, v, dtype=dtype, device=device)
+    return {"state": {
+        "m": {"C": full((P, NH, hd, hd), 0.0), "n": full((P, NH, hd), 0.0),
+              "m": full((P, NH), M_CUSHION)},
+        "s": {"c": full((P, NH, hd), 0.0), "n": full((P, NH, hd), 0.0),
+              "h": full((P, NH, hd), 0.0), "m": full((P, NH, hd), M_CUSHION)}}}
+
+
+def _bcast_state(st: Params, B: int) -> Params:
+    """A batch-free state tree (P, ...) broadcast to (P, B, ...) (a view)."""
+    return {g: {k: v[:, None].expand(v.shape[0], B, *v.shape[1:])
+                for k, v in leaves.items()} for g, leaves in st.items()}
+
+
+def _pair_state(st: Optional[Params], i: int) -> Tuple[Optional[Params],
+                                                       Optional[Params]]:
+    if st is None:
+        return None, None
+    return ({k: v[i] for k, v in st["m"].items()},
+            {k: v[i] for k, v in st["s"].items()})
+
+
+def forward(params, tokens: Tensor, cfg: ModelConfig, qcfg: QuantConfig, *,
+            scales: Optional[Params] = None, cushion: Optional[Params] = None,
+            collect: bool = False, n_skip: int = 0,
+            prepend_embeds: Optional[Tensor] = None,
+            return_cache: bool = False, groups: int = 1):
+    """Full-sequence forward from the cushion's state (or a fresh one).
+    With ``collect`` the taps hold every site's statistics and
+    ``block_in``, stacked over the pairs; ``return_cache`` adds the state
+    after the sequence, {"m": {C, n, m}, "s": {c, n, h, m}} (P, B, ...).
+    ``groups``: stacked forwards, as ``transformer.forward``."""
+    params = C.as_tree(params)
+    x = T.embed_with_prepend(params, tokens, cfg, prepend_embeds)
+    B = x.shape[0]
+    P = n_pairs(cfg)
+    lscales = C.resolve_scales(scales, SITES, P, qcfg, x.device)
+    init = None
+    if cushion is not None:
+        if "state" not in cushion:
+            raise ValueError("an xLSTM cushion is an initial state tree "
+                             "({'state': {'m': ..., 's': ...}})")
+        init = _bcast_state(cushion["state"], B)
+    layer_taps, states = [], []
+    for i, (lp, lsc) in enumerate(zip(C.unstack(params["layers"], P),
+                                      C.unstack(lscales, P))):
+        st_m, st_s = _pair_state(init, i)
+        taps: Optional[Dict] = {} if collect else None
+        if collect:
+            taps["block_in"] = Q.site_stats(x, n_skip)
+        hn = C.apply_norm(lp["ln_m"], x, cfg)
+        o = apply_mlstm(lp["mlstm"], hn, cfg, qcfg, lsc, taps, n_skip,
+                        init_state=st_m, return_state=return_cache,
+                        groups=groups)
+        if return_cache:
+            o, new_m = o
+        x = x + o
+        hn = C.apply_norm(lp["ln_s"], x, cfg)
+        o = apply_slstm(lp["slstm"], hn, cfg, qcfg, lsc, taps, n_skip,
+                        init_state=st_s, return_state=return_cache,
+                        groups=groups)
+        if return_cache:
+            o, new_s = o
+            states.append({"m": new_m, "s": new_s})
+        x = x + o
+        layer_taps.append(taps)
+    x = C.apply_norm(params["ln_f"], x, cfg)
+    head_taps: Optional[Dict] = {} if collect else None
+    logits = C.lm_head(params, x, cfg, qcfg, scales, head_taps, n_skip,
+                       groups)
+    taps_out: Dict = {}
+    if collect:
+        taps_out = {"layers": C.stack_trees(layer_taps), **head_taps,
+                    "final_in": Q.site_stats(x, n_skip)}
+    if return_cache:
+        return logits, taps_out, C.stack_trees(states)
+    return logits, taps_out
+
+
+def prefill(params, tokens: Tensor, cache: Params, cfg: ModelConfig,
+            qcfg: QuantConfig, *, scales: Optional[Params] = None,
+            cushion: Optional[Params] = None,
+            prepend_embeds: Optional[Tensor] = None
+            ) -> Tuple[Tensor, Params, Tensor]:
+    """Run the prompt from the cushion's state and write the state after
+    it into ``cache``, in place. Returns (last-position logits (B,1,V),
+    cache, the prompt length): the head runs over every position, as in
+    the reference, whose dynamic ranges span them."""
+    logits, _, states = forward(params, tokens, cfg, qcfg, scales=scales,
+                                cushion=cushion,
+                                prepend_embeds=prepend_embeds,
+                                return_cache=True)
+    for old, new in zip(tree_leaves(cache), tree_leaves(states)):
+        old.copy_(new)
+    S = tokens.shape[1] + (0 if prepend_embeds is None
+                           else prepend_embeds.shape[1])
+    return logits[:, -1:], cache, torch.tensor(S, dtype=torch.int32,
+                                               device=logits.device)
+
+
+def decode_step(params, token: Tensor, pos: Tensor, cache: Params,
+                cfg: ModelConfig, qcfg: QuantConfig, *,
+                scales: Optional[Params] = None) -> Tuple[Tensor, Params]:
+    """One recurrent step of every pair; ``pos`` is unused (the state holds
+    no positions). Every state leaf is written in place."""
+    params = C.as_tree(params)
+    P = n_pairs(cfg)
+    x = C.embed_tokens(params, token[:, None], cfg)
+    lscales = C.resolve_scales(scales, SITES, P, qcfg, x.device)
+    for i, (lp, lsc) in enumerate(zip(C.unstack(params["layers"], P),
+                                      C.unstack(lscales, P))):
+        st_m, st_s = _pair_state(cache, i)
+        hn = C.apply_norm(lp["ln_m"], x, cfg)
+        o, new_m = decode_mlstm(lp["mlstm"], hn, st_m, cfg, qcfg, lsc)
+        x = x + o
+        hn = C.apply_norm(lp["ln_s"], x, cfg)
+        o, new_s = decode_slstm(lp["slstm"], hn, st_s, cfg, qcfg, lsc)
+        x = x + o
+        for st, new in ((st_m, new_m), (st_s, new_s)):
+            for k, v in new.items():
+                st[k].copy_(v)
+    x = C.apply_norm(params["ln_f"], x, cfg)
+    logits = C.lm_head(params, x, cfg, qcfg, scales, None)
+    return logits[:, 0], cache
+
+
+def loss_fn(params, tokens: Tensor, labels: Tensor, cfg: ModelConfig,
+            qcfg: QuantConfig, *, scales=None, cushion=None,
+            collect: bool = False, n_skip: int = 0, lam: float = 0.0):
+    """Next-token CE (+ λ·L_q when ``lam`` > 0), as
+    ``transformer.loss_fn``."""
+    logits, taps = forward(params, tokens, cfg, qcfg, scales=scales,
+                           cushion=cushion, collect=collect or lam > 0,
+                           n_skip=n_skip)
+    if n_skip:
+        logits = logits[:, n_skip:]
+        labels = labels[:, n_skip:]
+    ce = C.cross_entropy(logits, labels)
+    loss = ce
+    aux = {"ce": ce, "taps": taps}
+    if lam > 0 or collect:
+        qerr = total_qerr(taps)
+        aux["qerr"] = qerr
+        if lam > 0:
+            loss = loss + lam * qerr
+    return loss, aux
+
+
+def placeholder_all_scales(cfg: ModelConfig, device) -> Params:
+    sc = C.placeholder_scales(SITES, n_pairs(cfg), device)
+    sc["head"] = Q.SiteScale(
+        scale=torch.ones((), dtype=torch.float32, device=device),
+        zero=torch.zeros((), dtype=torch.float32, device=device))
+    return sc

@@ -34,6 +34,7 @@ from repro_torch.core.calibration import CalibratedScales
 from repro_torch.core.cushioncache import cushion_fingerprint
 from repro_torch.models import common as C
 from repro_torch.monitoring import resident_weight_bytes
+from repro_torch.optim.adamw import tree_leaves
 from repro_torch.serving.graphs import CapturedStep
 
 
@@ -42,6 +43,8 @@ def plan_quantization(api, params, qcfg: QuantConfig, cushion=None,
                       prequant: bool = False, weight_bits: int = 8):
     """Load-time quantization plan. Returns (params tree, scales):
 
+    * a family that cannot serve the mode refuses it here (the
+      encoder-decoder's head takes no scales: no ``pt_static``);
     * precomputed ``CalibratedScales`` are checked against the cushion being
       served and refused on a fingerprint mismatch (stale static ranges);
     * ``pt_static`` without scales calibrates over ``calib_batches`` under
@@ -50,6 +53,9 @@ def plan_quantization(api, params, qcfg: QuantConfig, cushion=None,
       (pt_static only): int8 ``w_int`` with ``weight_bits=8``, int4-packed
       ``w_packed`` with ``weight_bits=4``, which exists only prequantized.
     """
+    check = getattr(api.mod, "check_serving_quant", None)
+    if check is not None:
+        check(qcfg)
     if isinstance(scales, CalibratedScales):
         want, got = scales.cushion_fp, cushion_fingerprint(cushion)
         if want != got:
@@ -206,8 +212,10 @@ class Engine:
         ttft_ms)."""
         B = batch["tokens"].shape[0]
         st = self._state(B)
-        for k, t in self._init_cache(B).items():
-            st.cache[k].copy_(t)
+        # every leaf, those of a nested state tree too (the xLSTM's)
+        for old, new in zip(tree_leaves(st.cache),
+                            tree_leaves(self._init_cache(B))):
+            old.copy_(new)
         _sync(self.device)
         t0 = time.perf_counter()
         logits, _, pos = self.api.prefill(

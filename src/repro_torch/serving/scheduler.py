@@ -80,6 +80,7 @@ from repro_torch.configs.base import QuantConfig
 from repro_torch.core.cushioncache import cushion_fingerprint
 from repro_torch.models import common as C
 from repro_torch.monitoring import ServeStats, resident_weight_bytes
+from repro_torch.optim.adamw import tree_leaves
 from repro_torch.serving.engine import (bucket_steps, cache_seq_len,
                                         cushion_prefix_len, plan_quantization)
 from repro_torch.serving.graphs import CapturedStep
@@ -165,6 +166,17 @@ def _has_extras(req: Request) -> bool:
     blocking and is never looked up in the prefix cache, as in the
     reference: its positions are not its token ids."""
     return bool({"patches", "frames"} & set(req.batch))
+
+
+def _scatter_row(dst, src, spec, slot: int) -> None:
+    """Copy a B=1 admission row into pool slot ``slot``, in place. ``spec``
+    is the family's batch-axis entry: an int (a flat cache leaf) or a dict
+    of per-leaf axes (a state tree: the xLSTM's mLSTM / sLSTM states)."""
+    if isinstance(spec, dict):
+        for k, sub in spec.items():
+            _scatter_row(dst[k], src[k], sub, slot)
+        return
+    dst.select(spec, slot).copy_(src.select(spec, 0))
 
 
 def _host_tokens(req: Request) -> np.ndarray:
@@ -311,17 +323,17 @@ class ContinuousEngine:
             self.cache, self.cushion_block = cache, cushion
             self.stats.pool_bytes = sum(
                 t.numel() * t.element_size()
-                for t in (*cache.values(), *cushion.values()))
+                for t in tree_leaves(cache) + tree_leaves(cushion))
             z = (self.n_slots,)
             self.pos = torch.zeros(z, dtype=torch.int32, device=self.device)
             self.tok = torch.zeros(z, dtype=torch.int32, device=self.device)
             self._live_dev = torch.zeros(z, dtype=torch.bool,
                                          device=self.device)
         else:
-            for old, new in ((self.cache, cache),
-                             (self.cushion_block, cushion)):
-                for key, t in new.items():
-                    old[key].copy_(t)
+            for old, new in zip(
+                    tree_leaves({"c": self.cache, "b": self.cushion_block}),
+                    tree_leaves({"c": cache, "b": cushion})):
+                old.copy_(new)
             for t in (self.pos, self.tok, self._live_dev):
                 t.zero_()
         self.live = np.zeros((self.n_slots,), bool)
@@ -579,9 +591,10 @@ class ContinuousEngine:
 
     def _admit_row(self, row, slot: int, rpos, tok0) -> None:
         """Copy a B=1 admission row into slot ``slot`` (every batch-axis
-        leaf; an int8 pool's batch-free kc/vc wholesale)."""
+        leaf, nested ones too; an int8 pool's batch-free kc/vc
+        wholesale)."""
         for key, ax in self._axes.items():
-            self.cache[key].select(ax, slot).copy_(row[key].select(ax, 0))
+            _scatter_row(self.cache[key], row[key], ax, slot)
         for key in ("kc", "vc"):
             if key in self.cache:
                 self.cache[key].copy_(row[key])

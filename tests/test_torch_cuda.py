@@ -718,7 +718,7 @@ def test_flash_attention_full_live_and_lse_bit_identical(dev, dt):
     assert torch.equal(flash_attention(q, k, v, prefix_len=4,
                                        prefix_live=4), base)
     qg = q.clone().requires_grad_()
-    out = FlashAttentionFn.apply(qg, k, v, 4, 4)
+    out = FlashAttentionFn.apply(qg, k, v, 4, 4, True)
     assert torch.equal(out.detach(), base)
     from repro_torch.kernels.flash_attention import _launch
     for live in (4, 2):
@@ -1371,6 +1371,208 @@ def test_hybrid_decode_step_captured_with_the_mamba_state(dev):
             assert (o.tokens == want).all(), (paged, r.uid)
         _counters_zero([ce.graph])
     _counters_zero([st.graph])
+
+
+# (S, T) of the non-causal mode: whisper's encoder (S = T = 1500: 23 full
+# key tiles and a ragged 28), its cross-attention at prefill (S = 256, T =
+# 1500) and at decode (S = 1), and a query or key tile's edges with T != S
+NC_CASES = [(1, 1500), (63, 65), (64, 1), (65, 63), (256, 1500),
+            (1500, 1500), (64, 130)]
+
+
+def _nc_inputs(dev, B, Kh, G, S, T, hd, dt, seed):
+    g = torch.Generator(dev).manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=g, device=dev).to(dt)  # noqa
+    return mk(B, Kh * G, S, hd), mk(B, Kh, T, hd), mk(B, Kh, T, hd)
+
+
+@pytest.mark.parametrize("dt,hd", [(torch.bfloat16, 64),
+                                   (torch.bfloat16, 128),
+                                   (torch.float32, 64)],
+                         ids=["bf16-64", "bf16-128", "f32-64"])
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("S,T", NC_CASES)
+def test_flash_attention_noncausal_within_bars(dev, S, T, G, hd, dt):
+    """Every key j < T visible to every query, T independent of S: within
+    one bf16 ulp (bf16) or 1e-5 (f32) of the plain version, two calls
+    bit-identical, and a row's result bit-identical to the row computed
+    alone."""
+    q, k, v = _nc_inputs(dev, 2, 2, G, S, T, hd, dt, S * 7 + T + G + hd)
+    n0 = _lib.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, causal=False)
+    want = flash_attention_plain(q, k, v, causal=False)
+    if dt == torch.bfloat16:
+        _within_ulp(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, flash_attention(q, k, v, causal=False))
+    for i in sorted({0, S // 2, S - 1}):
+        row = flash_attention(q[:, :, i:i + 1], k, v, causal=False)
+        assert torch.equal(got[:, :, i:i + 1], row), i
+    assert _lib.LAUNCHES["flash_attention"] == n0 + 2 + len({0, S // 2,
+                                                            S - 1})
+
+
+def test_flash_attention_causal_equals_noncausal_where_they_coincide(dev):
+    """One query behind T - 1 prefix keys sees every key in both modes: the
+    two launches are bit-identical (the causal walk with R = prefix_len and
+    the non-causal one with R = T)."""
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = _nc_inputs(dev, 2, 2, 3, 1, 300, 64, dt, 9)
+        assert torch.equal(flash_attention(q, k, v, prefix_len=299),
+                           flash_attention(q, k, v, causal=False))
+
+
+def test_noncausal_refuses_a_prefix(dev):
+    q, k, v = _nc_inputs(dev, 1, 1, 1, 4, 9, 64, torch.bfloat16, 1)
+    with pytest.raises(ValueError, match="no prefix"):
+        flash_attention(q, k, v, causal=False, prefix_len=2)
+
+
+@pytest.mark.parametrize("dt,hd", [(torch.bfloat16, 64),
+                                   (torch.bfloat16, 128),
+                                   (torch.float32, 64)],
+                         ids=["bf16-64", "bf16-128", "f32-64"])
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("S,T", [(7, 40), (63, 65), (65, 1), (256, 1500),
+                                 (1, 130)])
+def test_flash_attention_noncausal_bwd_matches_plain(dev, S, T, G, hd, dt):
+    """The backward of the non-causal mode through autograd against the
+    plain backward on the kernel's own output and log-sum-exp, within the
+    backward's bars; two calls bit-identical; one launch. At T = 1 every p
+    is 1 and dS = dO.v - D is zero in exact arithmetic: dQ and dK are
+    rounding residue on both sides, held within 1e-5 of dV's largest
+    entry."""
+    from repro_torch.kernels.flash_attention import _launch
+    q, k, v = _nc_inputs(dev, 2, 2, G, S, T, hd, dt, S + 3 * T + G)
+    do = torch.randn(q.shape, generator=torch.Generator(dev).manual_seed(T),
+                     device=dev).to(dt)
+    o, lse = _launch(q, k, v, 0, 0, with_lse=True, causal=False)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    n0 = _lib.LAUNCHES["flash_attention_bwd"]
+    flash_attention(qg, kg, vg, causal=False).backward(do)
+    assert _lib.LAUNCHES["flash_attention_bwd"] == n0 + 1
+    got = (qg.grad, kg.grad, vg.grad)
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    torch.cuda.synchronize()
+    if T == 1:
+        _bwd_within(got[2:], want[2:], dt)
+        lim = 1e-5 * float(want[2].float().abs().max())
+        for a, b in zip(got[:2], want[:2]):
+            assert float(a.float().abs().max()) <= lim
+            assert float(b.float().abs().max()) <= lim
+    else:
+        _bwd_within(got, want, dt)
+    for a, c in zip(got, again):
+        assert torch.equal(a, c)
+
+
+def test_encdec_decode_step_captured_reads_cross_kv_in_place(dev):
+    """The encoder-decoder's decode step (reduced whisper-base, bf16, fp
+    KV) captured in the static Engine: graph tokens = the eager loop's; the
+    cross-attention KV the graph reads is the tensor the prefill filled
+    (in place, unchanged by the steps), the self-attention KV the graph
+    writes equals the eager loop's; a contiguous pool of 2 slots, each
+    request with its own frames, gives the static B = 1 Engine's tokens;
+    the non-causal attention ran on the card."""
+    from repro_torch.configs import QuantConfig, get_config, reduced
+    from repro_torch.models.registry import build
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import ContinuousEngine, Request
+    cfg = reduced(get_config("whisper-base"), dtype="bfloat16")
+    api = build(cfg, "cuda")
+    params = api.init_params(torch.Generator(dev).manual_seed(0))
+    cushion = api.extract_cushion(params, torch.tensor([1, 2, 3]), None,
+                                  QuantConfig())
+
+    def batch(b, s, seed):
+        return api.make_batch(torch.Generator(dev).manual_seed(seed), b, s)
+
+    eng = Engine(api, params, QuantConfig(), cushion=cushion, max_seq=96)
+    b = {k: v for k, v in batch(2, 30, 1).items() if k != "labels"}
+    eng.generate(b, 4)                      # captures B = 2's step
+    st = eng.states[2]
+    xk_at = st.cache["xk"].data_ptr()
+    _lib.reset_launches()
+    got = eng.generate(b, 12)
+    assert _lib.COUNTERS["graph_replays"] == 11
+    assert _lib.LAUNCHES["flash_attention"] > 0
+    cache = {k: t.clone() for k, t in st.cache.items()}
+    eager = eng.generate_py(b, 12)
+    assert (got.tokens == eager.tokens).all()
+    assert st.cache["xk"].data_ptr() == xk_at
+    for k in cache:
+        assert torch.equal(st.cache[k], cache[k]), k
+    reqs = [Request(uid=i, batch={k: v for k, v in batch(1, 20 + 3 * i,
+                                                         10 + i).items()
+                                  if k != "labels"}, max_new_tokens=5)
+            for i in range(5)]
+    ce = ContinuousEngine(api, params, QuantConfig(), n_slots=2, max_seq=96,
+                          cushion=cushion)
+    _lib.reset_launches()
+    outs = ce.run(reqs)
+    assert _lib.COUNTERS["graph_replays"] == ce.stats.steps > 0
+    for r, o in zip(reqs, outs):
+        want = eng.generate_py(r.batch, r.max_new_tokens).tokens[0]
+        assert (o.tokens == want).all(), r.uid
+    _counters_zero([ce.graph, st.graph])
+
+
+def test_xlstm_decode_step_captured_with_its_state_tree(dev):
+    """The xLSTM's decode step (reduced xlstm-350m, bf16, W8A8 with
+    int8-resident w_proj) captured in the static Engine: graph tokens =
+    the eager loop's and every leaf of the state tree the graph leaves =
+    the eager loop's, bit for bit, in the tensors it was captured on; a
+    pool of 2 slots (the nested axes) gives the static B = 1 Engine's
+    tokens."""
+    import numpy as np
+    from repro_torch.configs import QuantConfig, get_config, reduced
+    from repro_torch.core.calibration import calibrate
+    from repro_torch.models.registry import build
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.scheduler import ContinuousEngine, Request
+    cfg = reduced(get_config("xlstm-350m"), dtype="bfloat16")
+    api = build(cfg, "cuda")
+    params = api.init_params(torch.Generator(dev).manual_seed(0))
+    rs = np.random.RandomState(6)
+
+    def tokens(b, s):
+        return {"tokens": torch.as_tensor(
+            rs.randint(0, 256, (b, s)).astype(np.int32), device=dev)}
+
+    qw8 = QuantConfig(mode="pt_static", true_int8=True)
+    cushion = api.extract_cushion(params, torch.tensor([1, 2, 3]), None,
+                                  QuantConfig())
+    scales, _ = calibrate(api, params, [tokens(2, 24)], qw8,
+                          cushion=cushion)
+    eng = Engine(api, params, qw8, cushion=cushion, scales=scales,
+                 max_seq=96, prequant=True)
+    b = tokens(2, 30)
+    eng.generate(b, 4)
+    st = eng.states[2]
+    at = [t.data_ptr() for t in tree_leaves(st.cache)]
+    _lib.reset_launches()
+    got = eng.generate(b, 12)
+    assert _lib.COUNTERS["graph_replays"] == 11
+    state = [t.clone() for t in tree_leaves(st.cache)]
+    eager = eng.generate_py(b, 12)
+    assert (got.tokens == eager.tokens).all()
+    assert [t.data_ptr() for t in tree_leaves(st.cache)] == at
+    for a, c in zip(tree_leaves(st.cache), state):
+        assert torch.equal(a, c)
+    reqs = [Request(uid=i, batch=tokens(1, 20 + 3 * i), max_new_tokens=5)
+            for i in range(5)]
+    ce = ContinuousEngine(api, params, qw8, n_slots=2, max_seq=96,
+                          cushion=cushion, scales=scales, prequant=True)
+    _lib.reset_launches()
+    outs = ce.run(reqs)
+    assert _lib.COUNTERS["graph_replays"] == ce.stats.steps > 0
+    for r, o in zip(reqs, outs):
+        want = eng.generate_py(r.batch, r.max_new_tokens).tokens[0]
+        assert (o.tokens == want).all(), r.uid
+    _counters_zero([ce.graph, st.graph])
 
 
 def test_capture_with_a_host_sync_raises(dev):

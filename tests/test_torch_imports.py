@@ -25,7 +25,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 assert {"repro_torch.models.moe", "repro_torch.core.smoothquant",
         "repro_torch.models.vlm", "repro_torch.models.ssm",
-        "repro_torch.models.hybrid"} <= set(names)
+        "repro_torch.models.hybrid", "repro_torch.models.encdec",
+        "repro_torch.models.xlstm"} <= set(names)
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
@@ -42,7 +43,7 @@ def test_port_imports_no_jax_and_no_reference_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     n = int(out.stdout.split()[0])
-    assert n >= 57, out.stdout      # every module of the port was imported
+    assert n >= 59, out.stdout      # every module of the port was imported
 
 
 def test_cuda_entry_points_raise_without_a_card(monkeypatch):

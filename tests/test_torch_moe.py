@@ -61,6 +61,7 @@ from repro.models import moe as JM  # noqa: E402
 from repro.models.registry import build as j_build  # noqa: E402
 from repro.serving import ContinuousEngine as JContinuous  # noqa: E402
 from repro.serving import Request as JRequest  # noqa: E402
+from repro_torch.configs import _ARCH_MODULES as T_ARCHS  # noqa: E402
 from repro_torch.configs import get_config as t_get_config  # noqa: E402
 from repro_torch.configs import reduced as t_reduced  # noqa: E402
 from repro_torch.core import calibration as TCal  # noqa: E402
@@ -816,10 +817,20 @@ def test_prefix_tune_on_moe_matches_jax_first_losses(drops):
 # registry, conversion, launchers
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["xlstm-350m", "whisper-base"])
-def test_build_raises_for_unported_families(arch):
-    with pytest.raises(NotImplementedError, match="5.4"):
-        build(t_get_config(arch), "cpu")
+@pytest.mark.parametrize("arch", list(T_ARCHS))
+def test_build_every_arch_matches_jax_family_api(arch):
+    """Every arch of the port's config table builds (no weights made), and
+    its family module, sites, cache slot layout, scoring path and paged
+    leaves are the reference's."""
+    jcfg, tcfg = get_config(arch), t_get_config(arch)
+    japi, api = j_build(jcfg), build(tcfg, "cpu")
+    assert api.mod.__name__.rsplit(".", 1)[1] == \
+        japi.mod.__name__.rsplit(".", 1)[1]
+    assert tuple(api.sites) == tuple(japi.sites)
+    assert api.cache_batch_axes == japi.cache_batch_axes
+    assert api.supports_kv_scoring == japi.supports_kv_scoring
+    assert api.supports_chunked_prefill == japi.supports_chunked_prefill
+    assert api.paged_kv_leaves == japi.paged_kv_leaves
 
 
 @pytest.mark.parametrize("arch", ["internvl2-26b", "jamba-v0.1-52b"])

@@ -202,17 +202,34 @@ def test_reduced_configs_resolve_alike():
     QuantConfig(mode="pt_dynamic", true_int8=True),
     QuantConfig(mode="pt_static", true_int8=True, symmetric_a=True)],
     ids=["bf16-dynamic-range", "symmetric"])
-def test_true_int_quantize_off_the_cpu_raises_without_kernel(qcfg):
-    """Activation codes that ``act_quant_static`` cannot make (a bf16
-    dynamic range, symmetric codes) come from tensor ops on the CPU and
-    raise on any other device, never computing the kernel's function with
-    tensor ops there. A meta tensor stands in for a card."""
+def test_true_int_quantize_off_the_cpu_raises_without_kernel(qcfg,
+                                                            monkeypatch):
+    """Symmetric activation codes, which no kernel takes, come from tensor
+    ops on the CPU and raise on any other device. A bf16 dynamic range
+    (pt_dynamic under true int8) gives codes in bf16-rounded steps, which
+    the reference forms with jnp's ``quantize`` outside its kernels: those
+    are tensor ops on every device, and the int matmul kernel runs on the
+    int8 codes (the encoder-decoder's W8A8 on the card). A meta tensor
+    stands in for a card."""
     x = torch.empty((2, 8, 16), dtype=torch.bfloat16, device="meta")
     w = torch.empty((16, 24), dtype=torch.bfloat16, device="meta")
     site = TQ.SiteScale(torch.ones((), device="meta"),
                         torch.zeros((), device="meta"))
-    with pytest.raises(ValueError, match="CPU only"):
-        TQ.true_int_dot(x, w, qcfg, site)
+    if qcfg.symmetric_a:
+        with pytest.raises(ValueError, match="CPU only"):
+            TQ.true_int_dot(x, w, qcfg, site)
+    else:
+        seen = []
+
+        def matmul(xq, w_int, *a, **k):
+            seen.append(xq)
+            return torch.empty((xq.shape[0], w_int.shape[1]), device="meta")
+
+        monkeypatch.setattr(TQ, "w8a8_matmul", matmul)
+        assert TQ.true_int_dot(x, w, qcfg, site).shape == (2, 8, 24)
+        assert len(seen) == 1 and seen[0].dtype == torch.int8
+        assert seen[0].device.type == "meta"
+        monkeypatch.undo()
     xc = torch.randn((2, 8, 16)).to(torch.bfloat16)
     wc = torch.randn((16, 24)).to(torch.bfloat16)
     site_c = TQ.SiteScale(torch.tensor(0.05), torch.tensor(0.0))

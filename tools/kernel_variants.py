@@ -72,7 +72,7 @@ ATTENTION = {
     "four_blocks_per_sm": [("return HD > 64 ? 2 : 3;",
                             "return HD > 64 ? 2 : 4;")],
     # every warp computes every tile its block loads
-    "no_warp_tile_skip": [("    if (t0 <= q0 + warp * 16 + 15 + P) {",
+    "no_warp_tile_skip": [("    if (t0 <= q0 + warp * 16 + 15 + R) {",
                            "    if (true) {")],
 }
 DECODE = {
@@ -551,7 +551,7 @@ def main() -> None:
         for name in ATTENTION:
             fn = entry("flash_attention", name, "flash_attention_launch")
             args = (qh.data_ptr(), kh.data_ptr(), vh.data_ptr(),
-                    out.data_ptr(), None, 1, B, H, K, S, T, hd, m, m,
+                    out.data_ptr(), None, 1, 1, B, H, K, S, T, hd, m, m,
                     *qh.stride()[:3], *kh.stride()[:3], *vh.stride()[:3],
                     *out.stride()[:3], stream)
             out.zero_()
@@ -720,7 +720,8 @@ def backward_rows(dev, timed, entry, stream, report):
             s for x in (q, k, v, o, do) + outs for s in x.stride()[:3]])
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), ws.data_ptr(),
-                *(x.data_ptr() for x in outs), 1, B, H, K, S, T, hd, m, live,
+                *(x.data_ptr() for x in outs), 1, 1, B, H, K, S, T, hd, m,
+                live,
                 strides, stream)
 
         def run():
