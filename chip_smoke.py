@@ -217,6 +217,27 @@ Phases, each fatal on failure:
    scattered along its nested axes), tokens = the static B=1 Engine's;
    ``greedy_search_ref`` and 3 tuning steps that move every leaf of the
    state tree; card vs CPU at one pair;
+4j. one-card training at full width and depth: smollm-360m (32 layers,
+   bf16, seeded random weights made on the card) through
+   ``launch/train.py`` ``main`` at the launcher's defaults (B=8 x 256, lr
+   1e-3, warmup 10, remat on, ``--quant none``) for 21 steps on phase 4's
+   corpus: the held-out loss falling (the launcher's eval batches under
+   the initial and the trained weights), the logged losses finite, exact
+   launches (``flash_attention`` twice a layer a step, the recompute, and
+   once a layer for each eval batch; ``flash_attention_bwd`` once a layer
+   a step), the host syncs the log's only, ms a step from CUDA events,
+   tokens trained a second, the peak device memory, the final 4.4 GB
+   checkpoint; the train step alone on staged batches (ms a step, zero
+   host syncs, CUDA's synchronizing calls in a step counted, the
+   profiler's device ms and busy share); ``flash_attention`` and its
+   backward at the training shape (no cushion, B=8, S=256, G=3) against
+   their plain versions, timed beside their bounds and SDPA (``train_*``
+   in the kernels line); 6 steps each under pt_dynamic and ptoken_dynamic
+   (``act_quant_ptoken`` launches exact), 6 with ``microbatches=2``
+   against 1, a step at B=1 x 2048; 12 straight launcher steps against 6,
+   saved, and 6 resumed, bit for bit, at 2 of the layers at full width;
+   one step on the card against the port's CPU step: smollm at 2 layers in
+   f32 and bf16, and each other family at its reduced size in f32;
 5. the card's Engine against the port's CPU Engine on the same weights,
    scales and cushion (B=1, 64-token prompt, 8 tokens) in all four phase-4
    modes: teacher-forced logits within the stated bf16 tolerance,
@@ -228,8 +249,9 @@ Phases, each fatal on failure:
    where it runs, with its fused cost at decode beside; the router runs'
    launches of phase 4d beside, as ``router_launches``, and phases 4e-4i's,
    as ``moe_launches``, ``vlm_launches``, ``hybrid_launches``,
-   ``encdec_launches`` and ``xlstm_launches``, with each kernel's row at
-   those phases' shapes; the non-causal rows under ``noncausal``), then
+   ``encdec_launches``, ``xlstm_launches`` and, from phase 4j's launcher
+   run, ``train_launches``, with each kernel's row at those phases'
+   shapes; the non-causal rows under ``noncausal``), then
    ``{"ok": true, ...}`` as the last line.
 
 Exits nonzero with no result line when CUDA is unavailable or when the port
@@ -2545,6 +2567,507 @@ def xlstm_phase(dev, zero_counts, counters_zero, timed):
     return run.done()
 
 
+# phase 4j, one-card training at full width and depth: smollm-360m through
+# launch/train.py at the launcher's defaults (B = 8 x 256, lr 1e-3, remat
+# on), TRAIN_STEPS steps (0..20: the launcher logs steps 0 and 20); the
+# quantization-aware modes, microbatches and the backward at length through
+# train/trainer.py; resume at 2 of smollm's layers at full width (a
+# checkpoint of the full model's train state is 4.4 GB of npz a save)
+TRAIN_STEPS, TRAIN_B, TRAIN_S, TRAIN_QAT_STEPS = 21, 8, 256, 6
+TRAIN_TIMED_STEPS, TRAIN_LONG_S, TRAIN_CUT_LAYERS = 10, 2048, 2
+# card vs CPU, one step: in f32 each first moment (0.1 x the clipped
+# gradient) within 1e-5 of its leaf's largest entry and the loss within
+# 1e-5 relative (smollm's two layers: the kernels and the plain versions
+# sum in other orders, ~1e-6); the other families at their reduced sizes,
+# f32, within 1e-4 of a leaf's largest entry (their Mamba and sLSTM scans
+# and the MoE's routing run as tensor ops on both sides, in other kernels);
+# in bf16 the card's first moments no farther from the CPU's f32 ones than
+# GRAD_TUNE_FACTOR x the CPU's bf16 ones (phase 4c's bar)
+TRAIN_F32_TOL, TRAIN_FAM_TOL = 1e-5, 1e-4
+# microbatches = 2 against 1 from the same weights and batches, bf16: the
+# first step's loss within 1e-2 relative and its first moments within
+# GRAD_TOL (the row count changes cuBLAS's kernels, so rows round apart),
+# the six steps' losses within 5e-2
+TRAIN_MB_LOSS, TRAIN_MB_LOSS_6 = 1e-2, 5e-2
+
+
+def train_phase(dev, corpus, timed):
+    """Phase 4j: one-card training of smollm-360m at full width and depth
+    (see the module docstring). Returns the record."""
+    import shutil
+    import warnings
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import monitoring as MON
+    from repro_torch.configs import QuantConfig, RunConfig, get_config, reduced
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train as TL
+    from repro_torch.launch.serve import to_device
+    from repro_torch.models.registry import build
+    from repro_torch.optim.adamw import tree_leaves, tree_paths
+    from repro_torch.train.trainer import (eval_ppl, make_optimizer,
+                                           make_train_step)
+
+    cfg = get_config(ARCH)
+    L, H, K, hd = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    zero = {k: 0 for k in _lib.LAUNCHES}
+    rec = {}
+    work = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+    pipe = Pipeline(corpus, batch=TRAIN_B, seq_len=TRAIN_S, seed=0)
+    tokens = TRAIN_B * TRAIN_S
+
+    def launches(fa, bwd, ptoken=0):
+        return {**zero, "flash_attention": fa, "flash_attention_bwd": bwd,
+                "act_quant_ptoken": ptoken}
+
+    # (a) launch/train.py main at full width: a CUDA event at the start of
+    # every train step (the launcher's step function wrapped, nothing else
+    # changed), the launches and host syncs of the whole run
+    real_step = TL.make_train_step
+    evs = []
+
+    def evented(*a, **kw):
+        step = real_step(*a, **kw)
+
+        def f(*args):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            evs.append(ev)
+            return step(*args)
+        return f
+    # the held-out loss before training: the launcher's eval batches under
+    # its initial weights (the same seed on the card)
+    n_eval = 8
+    api = build(cfg, "cuda")
+    p0 = api.init_params(torch.Generator(dev).manual_seed(0)).tree()
+    ppl0 = eval_ppl(api, p0, [to_device(pipe.get_batch(10_000 + i), dev)
+                              for i in range(n_eval)], QuantConfig())
+    del p0
+    argv = ["--arch", ARCH, "--device", "cuda", "--steps", str(TRAIN_STEPS),
+            "--quant", "none", "--eval-batches", str(n_eval), "--ckpt-dir",
+            str(work / "a"), "--out", str(work / "a.json")]
+    TL.make_train_step = evented
+    _lib.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()      # earlier phases' tensors
+    t0 = time.perf_counter()
+    try:
+        with MON.count_host_syncs() as hs:
+            state, ppl = TL.main(argv, pipe=pipe)
+    finally:
+        TL.make_train_step = real_step
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_lib.LAUNCHES)
+    # remat: every layer's attention forward twice a step (the recompute),
+    # its backward once; the eval's forwards once a layer
+    want = launches(TRAIN_STEPS * 2 * L + n_eval * L, TRAIN_STEPS * L)
+    if counts != want:
+        fail(f"train: launches {counts}, expected {want}")
+    out = json.loads((work / "a.json").read_text())
+    log_ = out["log"]
+    # the loss falls on the held-out batches; the logged training losses
+    # (steps 0 and 20) are of two other batches, whose spread (~0.014 at
+    # 2,048 tokens) is of the 21 steps' gain's size
+    if [r["step"] for r in log_] != [0, 20] or not all(
+            np.isfinite(r[k]) for r in log_ for k in r) \
+            or not ppl < ppl0:
+        fail(f"train: the launcher's log {log_}, eval ppl {ppl0} -> {ppl}")
+    if hs.count != len(log_) or out["report"]["failures"]:
+        fail(f"train: {hs.count} host syncs (the log's {len(log_)}), "
+             f"report {out['report']}")
+    step_ms = [a.elapsed_time(b) for a, b in zip(evs, evs[1:])]
+    peak = torch.cuda.max_memory_allocated()
+    rec["launcher"] = {
+        "argv": argv, "wall_s": wall, "log": log_, "eval_ppl": ppl,
+        "eval_ppl_before": ppl0,
+        "report": out["report"], "launches": counts, "host_syncs": hs.count,
+        "step_ms": quartiles(step_ms=step_ms)["step_ms"],
+        "step_ms_all": step_ms,
+        "step_ms_are": "CUDA events at the starts of consecutive train "
+                       "steps: the launcher's whole step, the host's batch "
+                       "drawing included",
+        "tokens_per_s": tokens / (float(np.median(step_ms)) / 1e3),
+        "peak_mem_bytes": peak, "mem_before_bytes": mem0,
+        "peak_mem_of_run_bytes": peak - mem0}
+    log(f"train (launch/train.py, {ARCH}, B={TRAIN_B} x {TRAIN_S}, "
+        f"{TRAIN_STEPS} steps, remat): loss {log_[0]['loss']:.4f} (step 0)"
+        f", {log_[-1]['loss']:.4f} (step 20); held-out ppl {ppl0:.1f} -> "
+        f"{ppl:.1f}; ms a step (p25/p50/"
+        f"p75) {rec['launcher']['step_ms']}, "
+        f"{rec['launcher']['tokens_per_s']:.0f} tokens/s; launches "
+        f"{counts['flash_attention']} / {counts['flash_attention_bwd']}; "
+        f"{hs.count} host syncs (the log's); peak {peak / 2 ** 30:.2f} GiB "
+        f"({(peak - mem0) / 2 ** 30:.2f} above the earlier phases'); "
+        f"{wall:.1f} s with the final checkpoint and the eval")
+    del state
+    shutil.rmtree(work / "a", ignore_errors=True)
+
+    # the train step alone on staged batches: ms a step, host syncs, the
+    # profiler's device time, CUDA's synchronizing calls
+    run = RunConfig(model=cfg, quant=QuantConfig(), seq_len=TRAIN_S,
+                    global_batch=TRAIN_B, lr=1e-3, train_steps=TRAIN_STEPS,
+                    warmup_steps=10)              # the launcher's
+    staged = [to_device(pipe.get_batch(i), dev)
+              for i in range(TRAIN_TIMED_STEPS + 4)]
+
+    def fresh(r):
+        opt = make_optimizer(r)
+        p = api.init_params(torch.Generator(dev).manual_seed(0)).tree()
+        return opt, p, opt.init(p)
+
+    opt, p, s = fresh(run)
+    step = make_train_step(api, run, opt)
+    p, s, _ = step(p, s, staged[0])                 # warm-up
+    torch.cuda.synchronize()
+    evs = [torch.cuda.Event(enable_timing=True)
+           for _ in range(TRAIN_TIMED_STEPS + 1)]
+    _lib.reset_launches()
+    with MON.count_host_syncs() as hs:
+        for i in range(TRAIN_TIMED_STEPS):
+            evs[i].record()
+            p, s, m = step(p, s, staged[1 + i])
+        evs[-1].record()
+    torch.cuda.synchronize()
+    counts = dict(_lib.LAUNCHES)
+    want = launches(TRAIN_TIMED_STEPS * 2 * L, TRAIN_TIMED_STEPS * L)
+    if counts != want or hs.count:
+        fail(f"train step: launches {counts} (expected {want}), "
+             f"{hs.count} host syncs")
+    alone = [a.elapsed_time(b) for a, b in zip(evs, evs[1:])]
+    # CUDA's synchronizing calls inside one step, as PyTorch's sync debug
+    # mode sees them (one warning a call; its note on being a prototype is
+    # not one), with one known sync after the step as the detector's check
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            p, s, m = step(p, s, staged[-3])
+            n_in_step = sum("called a synchronizing" in str(w.message)
+                            for w in caught)
+            float(m["loss"])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message).splitlines()[0][:160] for w in caught
+             if "called a synchronizing" in str(w.message)]
+    if len(syncs) != n_in_step + 1:
+        fail(f"the sync detector missed the known sync: {syncs}")
+    syncs = syncs[:n_in_step]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b_ in staged[-2:]:
+            p, s, m = step(p, s, b_)
+        torch.cuda.synchronize()
+        pwall = (time.perf_counter() - t0) * 1e3 / 2
+    dev_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA) / 1e3 / 2
+    n_k = sum(1 for e in prof.events()
+              if e.device_type == DeviceType.CUDA) / 2
+    rec["step"] = {
+        "steps": TRAIN_TIMED_STEPS, "step_ms": quartiles(
+            step_ms=alone)["step_ms"], "step_ms_all": alone,
+        "tokens_per_s": tokens / (float(np.median(alone)) / 1e3),
+        "host_syncs": hs.count, "launches": counts,
+        "cuda_synchronizing_calls": len(syncs),
+        "cuda_synchronizing_first": syncs[:3],
+        "profile": {"wall_ms": pwall, "device_ms": dev_ms,
+                    "busy_share": dev_ms / pwall, "kernels": n_k,
+                    "by_kernel": by_kernel(prof, 2, top=10)}}
+    log(f"train step alone (staged batches, {TRAIN_TIMED_STEPS} steps): ms "
+        f"(p25/p50/p75) {rec['step']['step_ms']}, "
+        f"{rec['step']['tokens_per_s']:.0f} tokens/s; host syncs "
+        f"{hs.count}; CUDA synchronizing calls in a step {len(syncs)} "
+        f"{syncs[:1]}; profiled: device {dev_ms:.1f} of {pwall:.1f} ms "
+        f"(busy {dev_ms / pwall:.2f}), {n_k:.0f} kernels a step")
+    del p, s, m, step
+
+    # the attention kernels at the training shape (B = 8 x 256, no
+    # cushion, 15 heads over 5), against their plain versions, timed
+    bf = torch.bfloat16
+    g = torch.Generator(dev).manual_seed(7)
+    mk = lambda *sh: torch.randn(sh, generator=g, device=dev).to(bf)  # noqa: E731
+    q = mk(TRAIN_B, TRAIN_S, H, hd).transpose(1, 2)
+    k = mk(TRAIN_B, TRAIN_S, K, hd).transpose(1, 2)
+    v = mk(TRAIN_B, TRAIN_S, K, hd).transpose(1, 2)
+    do = mk(TRAIN_B, TRAIN_S, H, hd).transpose(1, 2)
+    o, lse = FA._launch(q, k, v, 0, 0, with_lse=True)
+    want_o = FA.flash_attention_plain(q, k, v)
+    e_o = (o.float() - want_o.float()).abs()
+    if not bool((e_o <= BF16_ULP * want_o.float().abs() + 1e-5).all()):
+        fail(f"flash_attention at the training shape: max err "
+             f"{float(e_o.max())}")
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, 0, 0)
+    want_g = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, 0, 0)
+    errs = []
+    for name, a, b_ in zip(("dq", "dk", "dv"), got, want_g):
+        e = (a.float() - b_.float()).abs()
+        lim = BF16_ULP * b_.float().abs() + 1e-5 * float(
+            b_.float().abs().max())
+        if not bool((e <= lim).all()):
+            fail(f"flash_attention_bwd at the training shape, {name}: max "
+                 f"err {float(e.max())}")
+        errs.append(float(e.max()))
+    pairs = TRAIN_B * H * TRAIN_S * (TRAIN_S + 1) / 2
+    io = 2 * (2 * TRAIN_B * H * TRAIN_S * hd + 2 * TRAIN_B * K * TRAIN_S * hd)
+    f_b, f_by = bound_ms(io, 4.0 * hd * pairs, BF16_FLOPS_PER_S)
+    b_b, b_by = bound_ms(2 * (4 * TRAIN_B * H * TRAIN_S * hd
+                              + 4 * TRAIN_B * K * TRAIN_S * hd)
+                         + 4 * TRAIN_B * H * TRAIN_S, 10.0 * hd * pairs,
+                         BF16_FLOPS_PER_S)
+    qs, ks_, vs_ = (t.detach().contiguous().requires_grad_()
+                    for t in (q, k, v))
+    dos = do.contiguous()
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def lib_or_none(fn):
+        try:
+            return timed(fn)
+        except (RuntimeError, TypeError) as e_:
+            log(f"scaled_dot_product_attention not timed: {e_}")
+            return None
+    fa_row = {"unit": f"one call (B={TRAIN_B}, S={TRAIN_S}, no cushion)",
+              "ms": timed(lambda: FA.flash_attention(q, k, v)),
+              "plain_ms": timed(lambda: FA.flash_attention_plain(q, k, v),
+                                3),
+              "bound_ms": f_b, "bound_by": f_by,
+              "library_ms": lib_or_none(
+                  lambda: F.scaled_dot_product_attention(
+                      qs, ks_, vs_, is_causal=True, enable_gqa=True)),
+              "max_abs_err": float(e_o.max())}
+    bwd_row = {"unit": f"one call (B={TRAIN_B}, S={TRAIN_S}, no cushion)",
+               "ms": timed(lambda: FA.flash_attention_bwd(
+                   q, k, v, o, lse, do, 0, 0)),
+               "plain_ms": timed(lambda: FA.flash_attention_bwd_plain(
+                   q, k, v, o, lse, do, 0, 0), 3),
+               "bound_ms": b_b, "bound_by": b_by,
+               "fwd_bwd_ms": timed(lambda: FA.flash_attention(
+                   qg, kg, vg).backward(do)),
+               "library_ms": lib_or_none(
+                   lambda: F.scaled_dot_product_attention(
+                       qs, ks_, vs_, is_causal=True,
+                       enable_gqa=True).backward(dos)),
+               "library_of": "scaled_dot_product_attention forward + "
+                             "backward, against fwd_bwd_ms",
+               "max_abs_err": max(errs)}
+    rec["kernels"] = {"flash_attention": fa_row,
+                      "flash_attention_bwd": bwd_row}
+    log(f"at the training shape (B={TRAIN_B} x {TRAIN_S}, m=0): "
+        f"flash_attention {fa_row['ms']:.4f} ms (bound {f_b:.4f}, SDPA "
+        f"{fa_row['library_ms']}), flash_attention_bwd {bwd_row['ms']:.4f} "
+        f"(bound {b_b:.4f}); forward + backward {bwd_row['fwd_bwd_ms']:.4f} "
+        f"against SDPA's {bwd_row['library_ms']}")
+    del q, k, v, do, o, lse, qs, ks_, vs_, qg, kg, vg
+
+    # (b) quantization-aware training, microbatches, the backward at length
+    def steps_of(r, batches, microbatches=1):
+        opt_, p_, s_ = fresh(r)
+        st = make_train_step(api, r, opt_, microbatches=microbatches)
+        _lib.reset_launches()
+        losses, first = [], None
+        for b_ in batches:
+            p_, s_, m_ = st(p_, s_, b_)
+            losses.append(m_["loss"])
+            if first is None:
+                first = [t.float() for t in tree_leaves(s_.mu)]
+        n = dict(_lib.LAUNCHES)
+        out_ = [float(x) for x in torch.stack(losses).cpu()]
+        del p_, s_
+        return out_, n, first
+
+    qat = {}
+    per_fwd = 5 * L                  # qkv, o, w_up, w_gate, down a layer
+    for mode in ("pt_dynamic", "ptoken_dynamic"):
+        r = dataclasses.replace(run, quant=QuantConfig(mode=mode))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses, n, _ = steps_of(r, staged[:TRAIN_QAT_STEPS])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        # the head's quantizer runs outside the layers' checkpoints
+        want = launches(TRAIN_QAT_STEPS * 2 * L, TRAIN_QAT_STEPS * L,
+                        TRAIN_QAT_STEPS * (2 * per_fwd + 1)
+                        if mode == "ptoken_dynamic" else 0)
+        if n != want or not all(np.isfinite(losses)):
+            fail(f"train {mode}: launches {n} (expected {want}), losses "
+                 f"{losses}")
+        qat[mode] = {"losses": losses, "launches": n, "seconds": sec,
+                     "act_quant_ptoken_per_step": n["act_quant_ptoken"]
+                     // TRAIN_QAT_STEPS}
+        log(f"train {mode}: {TRAIN_QAT_STEPS} steps, losses "
+            f"{[round(x, 4) for x in losses]}, {sec:.2f} s; launches a "
+            f"step: flash_attention {2 * L}, flash_attention_bwd {L}, "
+            f"act_quant_ptoken {n['act_quant_ptoken'] // TRAIN_QAT_STEPS}")
+    l1, _, mu1 = steps_of(run, staged[:TRAIN_QAT_STEPS])
+    l2, n2, mu2 = steps_of(run, staged[:TRAIN_QAT_STEPS], microbatches=2)
+    a_ = torch.cat([t.reshape(-1) for t in mu2])
+    b_ = torch.cat([t.reshape(-1) for t in mu1])
+    mb_rel = float((a_ - b_).norm() / b_.norm())
+    mb_cos = float(torch.dot(a_, b_) / (a_.norm() * b_.norm()))
+    rels = [abs(x / y - 1) for x, y in zip(l2, l1)]
+    del a_, b_, mu1, mu2
+    # two microbatches: each layer's attention twice a microbatch
+    if n2 != launches(TRAIN_QAT_STEPS * 4 * L, TRAIN_QAT_STEPS * 2 * L) \
+            or rels[0] > TRAIN_MB_LOSS or max(rels) > TRAIN_MB_LOSS_6 \
+            or mb_rel > GRAD_TOL[0] or mb_cos < GRAD_TOL[1]:
+        fail(f"microbatches=2 against 1: launches {n2}, loss rel {rels}, "
+             f"first moments rel {mb_rel} cos {mb_cos}")
+    qat["microbatches"] = {"losses_1": l1, "losses_2": l2, "loss_rel": rels,
+                           "first_moment_rel_l2": mb_rel,
+                           "first_moment_cosine": mb_cos}
+    log(f"microbatches=2 against 1 (bf16): losses rel {max(rels):.3g} at "
+        f"most ({rels[0]:.3g} at step 0), first moments rel L2 "
+        f"{mb_rel:.4g}, cosine {mb_cos:.6f}")
+    long_pipe = Pipeline(corpus, batch=1, seq_len=TRAIN_LONG_S, seed=0)
+    long_b = [to_device(long_pipe.get_batch(i), dev) for i in range(2)]
+    opt_, p_, s_ = fresh(run)
+    st = make_train_step(api, run, opt_)
+    p_, s_, _ = st(p_, s_, long_b[0])
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    _lib.reset_launches()
+    e0.record()
+    p_, s_, m_ = st(p_, s_, long_b[1])
+    e1.record()
+    torch.cuda.synchronize()
+    n = dict(_lib.LAUNCHES)
+    if n != launches(2 * L, L) or not np.isfinite(float(m_["loss"])):
+        fail(f"train at S={TRAIN_LONG_S}: launches {n}, loss {m_['loss']}")
+    qat["long"] = {"B": 1, "S": TRAIN_LONG_S, "step_ms": e0.elapsed_time(e1),
+                   "loss": float(m_["loss"]), "launches": n}
+    log(f"train B=1 x {TRAIN_LONG_S}: a step {e0.elapsed_time(e1):.1f} ms, "
+        f"loss {float(m_['loss']):.4f}")
+    del p_, s_, m_, st, staged
+    rec["qat"] = qat
+
+    # (c) checkpoint and resume through the launcher, at 2 of the layers at
+    # full width: 12 straight steps against 6, saved, and 6 resumed
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS)
+    real_get = TL.get_config
+    TL.get_config = lambda arch: cut
+    base = ["--arch", ARCH, "--device", "cuda", "--save-every", "6",
+            "--eval-batches", "1"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        a, _ = TL.main(base + ["--steps", "12", "--ckpt-dir",
+                               str(work / "r1")], pipe=pipe)
+        TL.main(base + ["--steps", "6", "--ckpt-dir", str(work / "r2")],
+                pipe=pipe)
+        b, _ = TL.main(base + ["--steps", "12", "--ckpt-dir",
+                               str(work / "r2"), "--resume"], pipe=pipe)
+    finally:
+        TL.get_config = real_get
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    paths = tree_leaves(tree_paths(a))
+    diff = [(pth, float((x.float() - y.float()).abs().max()))
+            for pth, x, y in zip(paths, tree_leaves(a), tree_leaves(b))
+            if not torch.equal(x, y)]
+    if diff or int(b["opt"]["step"]) != 12:
+        fail(f"resume: the resumed state differs from the straight run's "
+             f"at {diff[:4]}")
+    n_bytes = sum(t.numel() * 4 for t in tree_leaves(a))
+    rec["resume"] = {"layers": TRAIN_CUT_LAYERS, "steps": 12,
+                     "leaves": len(paths), "bit_identical": True,
+                     "checkpoint_bytes": n_bytes, "seconds": sec}
+    log(f"resume ({TRAIN_CUT_LAYERS} layers at full width): 12 straight "
+        f"steps = 6 + a resumed 6, bit for bit on all {len(paths)} leaves "
+        f"of params and moments ({n_bytes / 2 ** 20:.0f} MiB a checkpoint; "
+        f"{sec:.1f} s for the three launches)")
+    del a, b
+    shutil.rmtree(work, ignore_errors=True)
+
+    # (d) one step on the card against the port's CPU step
+    def first_moments(api_, params, batch, dtype_cfg):
+        r = RunConfig(model=dtype_cfg, seq_len=64, global_batch=2, lr=1e-3,
+                      train_steps=TRAIN_STEPS, warmup_steps=10)
+        opt_ = make_optimizer(r)
+        _, s_, m_ = make_train_step(api_, r, opt_)(params,
+                                                   opt_.init(params), batch)
+        return [t.float().cpu() for t in tree_leaves(s_.mu)], \
+            float(m_["loss"])
+
+    def leaf_err(x, y):
+        return max(float((a_ - b_).abs().max() / b_.abs().max())
+                   for a_, b_ in zip(x, y))
+
+    def rel_l2(x, y):
+        d = torch.cat([(a_ - b_).reshape(-1) for a_, b_ in zip(x, y)])
+        return float(d.norm() / torch.cat([b_.reshape(-1) for b_ in y])
+                     .norm())
+
+    cvc = {}
+    b0 = {k_: v_[:2, :64] for k_, v_ in pipe.get_batch(0).items()}
+    res = {}
+    for dt in ("float32", "bfloat16"):
+        c2 = dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS, dtype=dt)
+        cpu_api = build(c2, "cpu")
+        cp = cpu_api.init_params(torch.Generator().manual_seed(0)).tree()
+        cb = {k_: torch.as_tensor(v_) for k_, v_ in b0.items()}
+        res[dt] = (first_moments(build(c2, "cuda"),
+                                 tree_map(lambda t: t.to(dev), cp),
+                                 tree_map(lambda t: t.to(dev), cb), c2),
+                   first_moments(cpu_api, cp, cb, c2))
+        del cp
+    (card32, lc32), (cpu32, lp32) = res["float32"]
+    (card16, lc16), (cpu16, lp16) = res["bfloat16"]
+    cvc["smollm_2_layers"] = {
+        "f32_first_moment_leaf_err": leaf_err(card32, cpu32),
+        "f32_loss_rel": abs(lc32 / lp32 - 1),
+        "bf16_card_vs_cpu_f32_rel_l2": rel_l2(card16, cpu32),
+        "bf16_cpu_vs_cpu_f32_rel_l2": rel_l2(cpu16, cpu32),
+        "bf16_loss_card_cpu": [lc16, lp16]}
+    sm = cvc["smollm_2_layers"]
+    if sm["f32_first_moment_leaf_err"] > TRAIN_F32_TOL \
+            or sm["f32_loss_rel"] > TRAIN_F32_TOL \
+            or sm["bf16_card_vs_cpu_f32_rel_l2"] > GRAD_TUNE_FACTOR * \
+            sm["bf16_cpu_vs_cpu_f32_rel_l2"]:
+        fail(f"train card vs CPU (smollm, {TRAIN_CUT_LAYERS} layers): {sm}")
+    del res, card32, cpu32, card16, cpu16
+    for arch in ("olmoe-1b-7b", "internvl2-26b", "jamba-v0.1-52b",
+                 "whisper-base", "xlstm-350m"):
+        rc = reduced(get_config(arch), dtype="float32")
+        cpu_api = build(rc, "cpu")
+        cp = cpu_api.init_params(torch.Generator().manual_seed(0)).tree()
+        cb = cpu_api.make_batch(torch.Generator().manual_seed(1), 2, 32)
+        (card_mu, lc), (cpu_mu, lp) = (
+            first_moments(build(rc, "cuda"), tree_map(lambda t: t.to(dev),
+                                                      cp),
+                          tree_map(lambda t: t.to(dev), cb), rc),
+            first_moments(cpu_api, cp, cb, rc))
+        cvc[arch] = {"first_moment_leaf_err": leaf_err(card_mu, cpu_mu),
+                     "loss_rel": abs(lc / lp - 1), "leaves": len(cpu_mu)}
+        if cvc[arch]["first_moment_leaf_err"] > TRAIN_FAM_TOL \
+                or cvc[arch]["loss_rel"] > TRAIN_FAM_TOL:
+            fail(f"train card vs CPU, {arch}: {cvc[arch]}")
+    rec["card_vs_cpu"] = cvc
+    log("train card vs CPU, one step: smollm 2 layers f32 first moments "
+        f"{sm['f32_first_moment_leaf_err']:.3g} of a leaf's max, loss "
+        f"{sm['f32_loss_rel']:.3g}; bf16 rel L2 from the CPU's f32 "
+        f"{sm['bf16_card_vs_cpu_f32_rel_l2']:.4g} (the CPU's bf16 "
+        f"{sm['bf16_cpu_vs_cpu_f32_rel_l2']:.4g}); families (reduced, f32): "
+        + ", ".join(f"{a_} {v_['first_moment_leaf_err']:.3g}"
+                    for a_, v_ in cvc.items() if a_ != "smollm_2_layers"))
+    rec["launches"] = rec["launcher"]["launches"]
+    rec["kernels"]["act_quant_ptoken"] = {
+        "ptoken_launches": qat["ptoken_dynamic"]["launches"][
+            "act_quant_ptoken"],
+        "ptoken_launches_per_step": qat["ptoken_dynamic"][
+            "act_quant_ptoken_per_step"]}
+    return rec
+
+
 def tree_map(fn, t):
     """fn on every tensor of a tree of dicts, lists and SiteScale leaves."""
     from repro_torch.core.quantization import SiteScale
@@ -3830,6 +4353,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("xlstm")
 
+    # 4j. one-card training at full width and depth ---------------------
+    record["train"] = train_phase(dev, corpus, timed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("train")
+
     # 5. card vs the port's CPU engine on the same weights --------------
     cpu = lambda t: t.detach().cpu()       # noqa: E731
     cpu_api = build(cfg, "cpu")
@@ -4140,8 +4669,8 @@ def main() -> None:
             kk["router_launches"] = record["router"]["launches"][kk["name"]]
         # the kernel's launches and rows at olmoe's (phase 4e), internvl2's
         # (4f), jamba's (4g), whisper-base's (4h) and xlstm-350m's (4i)
-        # shapes, beside smollm's
-        for tag in ("moe", "vlm", "hybrid", "encdec", "xlstm"):
+        # shapes, beside smollm's; smollm's training run (4j)
+        for tag in ("moe", "vlm", "hybrid", "encdec", "xlstm", "train"):
             if record[tag]["launches"].get(kk["name"]):
                 kk[f"{tag}_launches"] = record[tag]["launches"][kk["name"]]
             kk.update({f"{tag}_{k_}": v for k_, v in

@@ -96,7 +96,7 @@ def make_qerr_fn(api, qcfg: QuantConfig, scales: Optional[Params] = None
         m = int(prefix_ids.shape[0])
         _, taps = api.forward_with_token_prefix(
             params, prefix_ids, batch, qcfg, scales=scales, collect=True,
-            n_skip=m)
+            n_skip=m, remat=False)
         return T.total_qerr(taps)
     return f
 
@@ -111,7 +111,7 @@ def make_batched_qerr_fn(api, qcfg: QuantConfig,
         N, m = (int(d) for d in prefixes.shape)
         _, taps = api.forward_with_token_prefix(
             params, prefixes, batch, qcfg, scales=scales, collect=True,
-            n_skip=m)
+            n_skip=m, remat=False)
         return T.total_qerr(taps, groups=N).reshape(N)
     return f
 
@@ -390,7 +390,7 @@ def prefix_tune(api, params, cushion0: Params,
         with torch.enable_grad():
             _, aux = api.loss_fn(params, batch, qcfg, scales=scales,
                                  cushion=stop_grad_frozen(leaves),
-                                 collect=True)
+                                 collect=True, remat=False)
             reg = OUT.activation_range_penalty(aux["taps"])
             loss = aux["ce"] + ccfg.lam * reg
             got = iter(torch.autograd.grad(loss, tree_leaves(leaves),

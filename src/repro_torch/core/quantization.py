@@ -286,11 +286,40 @@ def _static_int_matmul(x: Tensor, w: Dict[str, Tensor], s_x: Tensor,
     return out.reshape(*lead, N).to(x.dtype)
 
 
+def _ptoken_int_matmul(x: Tensor, wq: Tensor, s_w: Tensor, s_x: Tensor,
+                       z_x: Tensor, cfg: QuantConfig) -> Tensor:
+    """x quantized with per-row scales and zeros ((..., 1) each), times the
+    int8 weight, in the reference's arithmetic (``_int8_matmul``'s plain
+    path): codes by ``quantize`` in x's dtype with the -2^(b-1) storage
+    offset, the exact int32 product, then ``f32(acc) - z_x colsum`` times
+    ``s_x s_w`` per row. The product runs through ``w8a8_matmul`` (the
+    kernel on the card, its plain version on the CPU) with unit scales and
+    a zero point of 0, so its epilogue returns ``f32(acc)`` exactly; the
+    per-row epilogue follows as tensor ops."""
+    K = x.shape[-1]
+    lead = x.shape[:-1]
+    N = wq.shape[-1]
+    off = 0 if cfg.symmetric_a else 2 ** (cfg.a_bits - 1)
+    xq = (quantize(x, s_x, z_x, cfg.a_bits, cfg.symmetric_a)
+          - off).to(torch.int8)
+    z = (z_x - off).reshape(-1, 1).float()
+    colsum = wq.sum(0, dtype=torch.int32)
+    one = torch.ones((), dtype=torch.float32, device=x.device)
+    acc = w8a8_matmul(xq.reshape(-1, K).contiguous(), wq.contiguous(), one,
+                      torch.zeros_like(one), one, colsum=colsum)
+    out = (acc - z * colsum.float()) \
+        * (s_x.reshape(-1, 1).float() * s_w.float())
+    return out.reshape(*lead, N).to(x.dtype)
+
+
 def true_int_dot(x: Tensor, w: Tensor, cfg: QuantConfig,
                  site: Optional[SiteScale]) -> Tensor:
-    """int8 x int8 -> int32 matmul with a scalar-epilogue dequant; the
+    """int8 x int8 -> int32 matmul with the dequant in its epilogue; the
     weight is quantized on every call (``prequantized_int_dot`` is the
-    int8-resident variant)."""
+    int8-resident variant). A per-tensor range (``pt_static``,
+    ``pt_dynamic``) takes the scalar epilogue of ``_static_int_matmul``,
+    ``ptoken_dynamic``'s per-row ranges the per-row one of
+    ``_ptoken_int_matmul``."""
     wq, s_w = weight_quant_int(w, cfg)
     if cfg.mode == "pt_static":
         if site is None:
@@ -299,8 +328,8 @@ def true_int_dot(x: Tensor, w: Tensor, cfg: QuantConfig,
     else:
         mn, mx = act_minmax(x, cfg.mode == "ptoken_dynamic")
         s_x, z_x = params_from_minmax(mn, mx, cfg.a_bits, cfg.symmetric_a)
-    if s_x.numel() != 1:
-        raise NotImplementedError("true int8 matmul takes per-tensor scales")
+    if cfg.mode == "ptoken_dynamic":
+        return _ptoken_int_matmul(x, wq, s_w, s_x, z_x, cfg)
     return _static_int_matmul(
         x, {"w_int": wq.contiguous(), "w_scale": s_w,
             "colsum": wq.sum(0, dtype=torch.int32)}, s_x, z_x, cfg)

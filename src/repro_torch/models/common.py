@@ -29,6 +29,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig, QuantConfig
@@ -75,9 +76,12 @@ def _skeleton(tree: Any, path: Tuple[Any, ...] = ()) -> Any:
 
 class ParamTree(nn.Module):
     """The model's parameters as one ``nn.Module``: every leaf of the nested
-    dict is a buffer with no gradient (the model stays frozen; prefix tuning
-    trains only the cushion, ``core/cushioncache.py`` ``prefix_tune``),
-    layer leaves stacked ``(L, ...)``. A list node (the hybrid's sublayers,
+    dict is a buffer with no gradient (serving and prefix tuning hold the
+    model frozen: ``core/cushioncache.py`` ``prefix_tune`` trains only the
+    cushion), layer leaves stacked ``(L, ...)``. Full-parameter training
+    (``train/trainer.py``) takes the weights as the plain nested dict of
+    ``tree()`` and differentiates fresh leaves of its own; no buffer here
+    ever requires a gradient. A list node (the hybrid's sublayers,
     ``params["layers"]["sub"]``) takes its index as a path component and
     comes back a list. ``.to(device)`` moves them; ``tree()`` is the
     nested view the model functions take."""
@@ -100,6 +104,19 @@ class ParamTree(nn.Module):
 
 def as_tree(params) -> Params:
     return params.tree() if isinstance(params, ParamTree) else params
+
+
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``, rematerialized in the backward when ``remat`` is true
+    and autograd is recording: ``torch.utils.checkpoint.checkpoint`` (not
+    reentrant) keeps the inputs and runs ``fn`` again when the gradient
+    needs its intermediates, as the reference's ``jax.checkpoint(body)``
+    does for each layer body of its scan. Every other case (serving,
+    prefill, ``no_grad``) is a plain call."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
 
 
 def unstack(tree: Any, n: int) -> List[Any]:

@@ -130,11 +130,25 @@ def _dec_scales(scales: Optional[Params], cfg: ModelConfig,
                             DEC_SITES, cfg.n_layers, qcfg, device)
 
 
+def _enc_block(lp: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
+               lsc: Params, positions: Tensor, collect: bool,
+               groups: int) -> Tuple[Tensor, Optional[Dict]]:
+    """One encoder layer (non-causal self-attention, the MLP)."""
+    taps: Optional[Dict] = {} if collect else None
+    hn = C.apply_norm(lp["ln1"], x, cfg)
+    x = x + C.attention_full(lp["attn"], hn, cfg, qcfg, lsc, taps,
+                             positions, causal=False, groups=groups)
+    hn = C.apply_norm(lp["ln2"], x, cfg)
+    x = x + C.apply_mlp(lp["mlp"], hn, cfg, qcfg, lsc, taps, 0, groups)
+    return x, taps
+
+
 def encode(params, frames: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
            scales: Optional[Params] = None, collect: bool = False,
-           groups: int = 1) -> Tuple[Tensor, Dict]:
+           groups: int = 1, remat: bool = True) -> Tuple[Tensor, Dict]:
     """frames (B, T_enc, D) -> (encoder states (B, T_enc, D), the encoder
-    sites' taps stacked over its layers, or {} without ``collect``)."""
+    sites' taps stacked over its layers, or {} without ``collect``).
+    ``remat``: one checkpoint a layer (``common.remat_call``)."""
     params = C.as_tree(params)
     x = frames.to(C.dtype_of(cfg))
     positions = torch.arange(x.shape[1], device=x.device)
@@ -144,12 +158,8 @@ def encode(params, frames: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
     enc_taps: List[Dict] = []
     for lp, lsc in zip(C.unstack(params["encoder"], ne),
                        C.unstack(lscales, ne)):
-        taps: Optional[Dict] = {} if collect else None
-        hn = C.apply_norm(lp["ln1"], x, cfg)
-        x = x + C.attention_full(lp["attn"], hn, cfg, qcfg, lsc, taps,
-                                 positions, causal=False, groups=groups)
-        hn = C.apply_norm(lp["ln2"], x, cfg)
-        x = x + C.apply_mlp(lp["mlp"], hn, cfg, qcfg, lsc, taps, 0, groups)
+        x, taps = C.remat_call(remat, _enc_block, lp, x, cfg, qcfg, lsc,
+                               positions, collect, groups)
         enc_taps.append(taps)
     out = C.apply_norm(params["ln_enc"], x, cfg)
     return out, (C.stack_trees(enc_taps) if collect else {})
@@ -158,15 +168,17 @@ def encode(params, frames: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
 def forward(params, tokens: Tensor, cfg: ModelConfig, qcfg: QuantConfig, *,
             frames: Tensor, scales: Optional[Params] = None,
             cushion: Optional[Params] = None, collect: bool = False,
-            n_skip: int = 0, groups: int = 1) -> Tuple[Tensor, Dict]:
+            n_skip: int = 0, groups: int = 1,
+            remat: bool = True) -> Tuple[Tensor, Dict]:
     """Teacher-forced decoder pass over the encoded ``frames``. With
     ``collect`` the taps hold ``enc_layers`` (the encoder's sites),
     ``layers`` (the decoder's, with ``block_in``), the head's and
     ``final_in``. ``groups``: stacked forwards, as ``transformer.forward``
-    (the search tiles each sample's frames with its rows)."""
+    (the search tiles each sample's frames with its rows). ``remat``: one
+    checkpoint a layer of either stack."""
     params = C.as_tree(params)
     enc_out, enc_taps = encode(params, frames, cfg, qcfg, scales, collect,
-                               groups)
+                               groups, remat)
     x = C.embed_tokens(params, tokens, cfg)
     S = x.shape[1]
     m = 0 if cushion is None else cushion["kv"]["k"].shape[1]
@@ -177,20 +189,8 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, qcfg: QuantConfig, *,
     for lp, lsc, lpre in zip(C.unstack(params["decoder"], L),
                              C.unstack(lscales, L),
                              T._cushion_layers(cushion, L)):
-        taps: Optional[Dict] = {} if collect else None
-        if collect:
-            taps["block_in"] = Q.site_stats(x, n_skip)
-        hn = C.apply_norm(lp["ln1"], x, cfg)
-        x = x + C.attention_full(lp["attn"], hn, cfg, qcfg, lsc, taps,
-                                 positions, prefix_kv=lpre, causal=True,
-                                 n_skip=n_skip, groups=groups)
-        hn = C.apply_norm(lp["lnx"], x, cfg)
-        x = x + cross_attention(lp["xattn"], hn,
-                                enc_kv(lp["xattn"], enc_out, cfg), cfg, qcfg,
-                                lsc, taps, n_skip, groups)
-        hn = C.apply_norm(lp["ln2"], x, cfg)
-        x = x + C.apply_mlp(lp["mlp"], hn, cfg, qcfg, lsc, taps, n_skip,
-                            groups)
+        x, taps = C.remat_call(remat, _dec_block, lp, x, enc_out, cfg, qcfg,
+                               lsc, lpre, positions, collect, n_skip, groups)
         dec_taps.append(taps)
     x = C.apply_norm(params["ln_f"], x, cfg)
     head_taps: Optional[Dict] = {} if collect else None
@@ -203,14 +203,38 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, qcfg: QuantConfig, *,
                     "final_in": Q.site_stats(x, n_skip)}
 
 
+def _dec_block(lp: Params, x: Tensor, enc_out: Tensor, cfg: ModelConfig,
+               qcfg: QuantConfig, lsc: Params, lpre: Optional[Params],
+               positions: Tensor, collect: bool, n_skip: int,
+               groups: int) -> Tuple[Tensor, Optional[Dict]]:
+    """One decoder layer: causal self-attention over the cushion and the
+    tokens, the non-causal cross-attention over ``enc_out``, the MLP."""
+    taps: Optional[Dict] = {} if collect else None
+    if collect:
+        taps["block_in"] = Q.site_stats(x, n_skip)
+    hn = C.apply_norm(lp["ln1"], x, cfg)
+    x = x + C.attention_full(lp["attn"], hn, cfg, qcfg, lsc, taps,
+                             positions, prefix_kv=lpre, causal=True,
+                             n_skip=n_skip, groups=groups)
+    hn = C.apply_norm(lp["lnx"], x, cfg)
+    x = x + cross_attention(lp["xattn"], hn,
+                            enc_kv(lp["xattn"], enc_out, cfg), cfg, qcfg,
+                            lsc, taps, n_skip, groups)
+    hn = C.apply_norm(lp["ln2"], x, cfg)
+    x = x + C.apply_mlp(lp["mlp"], hn, cfg, qcfg, lsc, taps, n_skip, groups)
+    return x, taps
+
+
 def loss_fn(params, tokens: Tensor, labels: Tensor, cfg: ModelConfig,
             qcfg: QuantConfig, *, frames: Tensor, scales=None, cushion=None,
-            collect: bool = False, n_skip: int = 0, lam: float = 0.0):
+            collect: bool = False, n_skip: int = 0, remat: bool = True,
+            lam: float = 0.0):
     """Next-token CE (+ λ·L_q, the encoder's sites included, when ``lam``
     > 0), as ``transformer.loss_fn``."""
     logits, taps = forward(params, tokens, cfg, qcfg, frames=frames,
                            scales=scales, cushion=cushion,
-                           collect=collect or lam > 0, n_skip=n_skip)
+                           collect=collect or lam > 0, n_skip=n_skip,
+                           remat=remat)
     if n_skip:
         logits = logits[:, n_skip:]
         labels = labels[:, n_skip:]
@@ -266,7 +290,7 @@ def _head(params: Params, x: Tensor, cfg: ModelConfig,
 def prefill(params, tokens: Tensor, cache: Params, cfg: ModelConfig,
             qcfg: QuantConfig, *, frames: Tensor,
             scales: Optional[Params] = None,
-            cushion: Optional[Params] = None
+            cushion: Optional[Params] = None, remat: bool = False
             ) -> Tuple[Tensor, Params, Tensor]:
     """Encode ``frames``, run the prompt, and fill the cache in place: the
     cushion KV at [0:m) of every row, the prompt's at [m:m+S), the
@@ -274,7 +298,7 @@ def prefill(params, tokens: Tensor, cache: Params, cfg: ModelConfig,
     (B,1,V), cache, next_pos)."""
     check_serving_quant(qcfg)
     params = C.as_tree(params)
-    enc_out, _ = encode(params, frames, cfg, qcfg, scales)
+    enc_out, _ = encode(params, frames, cfg, qcfg, scales, remat=remat)
     x = C.embed_tokens(params, tokens, cfg)
     S = x.shape[1]
     cache, m = T.write_cushion_to_cache(cache, cushion)

@@ -232,14 +232,15 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, qcfg: QuantConfig, *,
             scales: Optional[Params] = None, cushion: Optional[Params] = None,
             collect: bool = False, n_skip: int = 0,
             prepend_embeds: Optional[Tensor] = None,
-            return_cache: bool = False, groups: int = 1):
+            return_cache: bool = False, groups: int = 1, remat: bool = True):
     """Full-sequence forward. The taps always hold ``lb_loss`` (the MoE
     layers' load-balance loss summed over a period, averaged over the
     periods); with ``collect`` also every site's statistics, merged over a
     period's sublayers and stacked over the periods. ``return_cache`` adds
     the Mamba state after the sequence, {"h": (P, nm, B, inner, N),
     "conv": (P, nm, B, d_conv-1, inner)}. ``groups``: stacked forwards,
-    as ``transformer.forward``."""
+    as ``transformer.forward``. ``remat``: one checkpoint a period, the
+    reference's scan body (``common.remat_call``)."""
     params = C.as_tree(params)
     n_periods, _ = layout(cfg)
     nm = n_mamba_per_period(cfg)
@@ -253,9 +254,9 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, qcfg: QuantConfig, *,
                                  C.unstack(lscales, n_periods),
                                  T._cushion_layers(cushion, n_periods),
                                  _cushion_states(cushion, n_periods, nm)):
-        x, taps, lb, _, new_st = _period_apply(
-            pp, x, cfg, qcfg, lsc, positions, pkv, mst, collect, n_skip,
-            want_state=return_cache, groups=groups)
+        x, taps, lb, _, new_st = C.remat_call(
+            remat, _period_apply, pp, x, cfg, qcfg, lsc, positions, pkv,
+            mst, collect, n_skip, False, return_cache, groups)
         layer_taps.append(taps)
         lbs.append(lb)
         if return_cache:
@@ -301,7 +302,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
 def prefill(params, tokens: Tensor, cache: Params, cfg: ModelConfig,
             qcfg: QuantConfig, *, scales: Optional[Params] = None,
             cushion: Optional[Params] = None,
-            prepend_embeds: Optional[Tensor] = None
+            prepend_embeds: Optional[Tensor] = None, remat: bool = False
             ) -> Tuple[Tensor, Params, Tensor]:
     """Process the prompt and fill the cache: the cushion KV at [0:m) (into
     kc/vc, or every row of the fp cache), the prompt KV at [m:m+S), and the
@@ -321,9 +322,9 @@ def prefill(params, tokens: Tensor, cache: Params, cfg: ModelConfig,
                                  C.unstack(lscales, n_periods),
                                  T._cushion_layers(cushion, n_periods),
                                  _cushion_states(cushion, n_periods, nm)):
-        x, _, _, (k, v), new_st = _period_apply(
-            pp, x, cfg, qcfg, lsc, positions, pkv, mst, False, 0,
-            want_kv=True, want_state=True)
+        x, _, _, (k, v), new_st = C.remat_call(
+            remat, _period_apply, pp, x, cfg, qcfg, lsc, positions, pkv,
+            mst, False, 0, True, True)
         ks.append(k)
         vs.append(v)
         states.append(_stack_states(new_st))
@@ -385,12 +386,13 @@ def decode_step(params, token: Tensor, pos: Tensor, cache: Params,
 
 def loss_fn(params, tokens: Tensor, labels: Tensor, cfg: ModelConfig,
             qcfg: QuantConfig, *, scales=None, cushion=None,
-            collect: bool = False, n_skip: int = 0, lam: float = 0.0):
+            collect: bool = False, n_skip: int = 0, remat: bool = True,
+            lam: float = 0.0):
     """CE + ``load_balance_coef`` * lb (+ λ·L_q when ``lam`` > 0), as
     ``moe.loss_fn``."""
     logits, taps = forward(params, tokens, cfg, qcfg, scales=scales,
                            cushion=cushion, collect=collect or lam > 0,
-                           n_skip=n_skip)
+                           n_skip=n_skip, remat=remat)
     if n_skip:
         logits = logits[:, n_skip:]
         labels = labels[:, n_skip:]

@@ -219,7 +219,7 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, qcfg: QuantConfig, *,
             collect: bool = False, n_skip: int = 0,
             prefix_valid: Optional[int] = None,
             pos_offset: Optional[int] = None,
-            groups: int = 1) -> Tuple[Tensor, Dict]:
+            groups: int = 1, remat: bool = True) -> Tuple[Tensor, Dict]:
     """Full-sequence causal forward (``transformer.forward``'s arguments).
     The taps always hold ``lb_loss``, the load-balance loss averaged over
     the layers; with ``collect`` also every site's statistics. With
@@ -237,8 +237,9 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, qcfg: QuantConfig, *,
     for lp, lsc, lpre in zip(C.unstack(params["layers"], L),
                              C.unstack(lscales, L),
                              T._cushion_layers(cushion, L)):
-        x, taps, lb = _block(lp, x, cfg, qcfg, lsc, lpre, positions, collect,
-                             n_skip, prefix_valid, groups)
+        x, taps, lb = C.remat_call(remat, _block, lp, x, cfg, qcfg, lsc,
+                                   lpre, positions, collect, n_skip,
+                                   prefix_valid, groups)
         layer_taps.append(taps)
         lbs.append(lb)
     x = C.apply_norm(params["ln_f"], x, cfg)
@@ -256,7 +257,7 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, qcfg: QuantConfig, *,
 def prefill(params, tokens: Tensor, cache: Params, cfg: ModelConfig,
             qcfg: QuantConfig, *, scales: Optional[Params] = None,
             cushion: Optional[Params] = None,
-            pos_offset: Optional[int] = None
+            pos_offset: Optional[int] = None, remat: bool = False
             ) -> Tuple[Tensor, Params, Tensor]:
     """``transformer.prefill`` with the expert layers. A chunk-resumed
     call (``pos_offset``) sizes the experts' capacity from the chunk's
@@ -285,13 +286,8 @@ def prefill(params, tokens: Tensor, cache: Params, cfg: ModelConfig,
     ks, vs = [], []
     for lp, lsc, lpre in zip(C.unstack(params["layers"], L),
                              C.unstack(lscales, L), pre):
-        hn = C.apply_norm(lp["ln1"], x, cfg)
-        a, (k, v) = C.attention_full(lp["attn"], hn, cfg, qcfg, lsc, None,
-                                     positions, prefix_kv=lpre, causal=True,
-                                     return_kv=True)
-        x = x + a
-        hn = C.apply_norm(lp["ln2"], x, cfg)
-        x = x + apply_moe(lp["moe"], hn, cfg, qcfg, lsc, None)[0]
+        x, k, v = C.remat_call(remat, _prefill_block, lp, x, cfg, qcfg, lsc,
+                               lpre, positions)
         ks.append(k)
         vs.append(v)
     cache = T.write_prompt_kv(cache, torch.stack(ks), torch.stack(vs), m)
@@ -299,6 +295,20 @@ def prefill(params, tokens: Tensor, cache: Params, cfg: ModelConfig,
     logits = C.lm_head(params, x[:, -1:], cfg, qcfg, scales, None)
     return logits, cache, torch.tensor(m + S, dtype=torch.int32,
                                        device=x.device)
+
+
+def _prefill_block(lp: Params, x: Tensor, cfg: ModelConfig,
+                   qcfg: QuantConfig, lsc: Optional[Params],
+                   lpre: Optional[Params], positions: Tensor
+                   ) -> Tuple[Tensor, Tensor, Tensor]:
+    """One layer of the prefill: (x, the layer's K, V)."""
+    hn = C.apply_norm(lp["ln1"], x, cfg)
+    a, (k, v) = C.attention_full(lp["attn"], hn, cfg, qcfg, lsc, None,
+                                 positions, prefix_kv=lpre, causal=True,
+                                 return_kv=True)
+    x = x + a
+    hn = C.apply_norm(lp["ln2"], x, cfg)
+    return x + apply_moe(lp["moe"], hn, cfg, qcfg, lsc, None)[0], k, v
 
 
 def decode_step(params, token: Tensor, pos: Tensor, cache: Params,
@@ -326,13 +336,14 @@ def decode_step(params, token: Tensor, pos: Tensor, cache: Params,
 
 def loss_fn(params, tokens: Tensor, labels: Tensor, cfg: ModelConfig,
             qcfg: QuantConfig, *, scales=None, cushion=None,
-            collect: bool = False, n_skip: int = 0, lam: float = 0.0):
+            collect: bool = False, n_skip: int = 0, remat: bool = True,
+            lam: float = 0.0):
     """CE + ``load_balance_coef`` * lb (+ λ·L_q when ``lam`` > 0). Returns
     (loss, aux) with aux {"ce", "taps", "lb"} and, when collecting,
     "qerr" (``lb_loss`` carries no L_q)."""
     logits, taps = forward(params, tokens, cfg, qcfg, scales=scales,
                            cushion=cushion, collect=collect or lam > 0,
-                           n_skip=n_skip)
+                           n_skip=n_skip, remat=remat)
     if n_skip:
         logits = logits[:, n_skip:]
         labels = labels[:, n_skip:]

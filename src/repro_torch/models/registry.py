@@ -233,7 +233,7 @@ class ModelAPI:
         _, taps = self.forward(params, batch, qcfg, scales=scales,
                                cushion={"kv": prefix_kv}, collect=True,
                                n_skip=0, prefix_valid=int(live_len),
-                               pos_offset=int(live_len))
+                               pos_offset=int(live_len), remat=False)
         return self.mod.total_qerr(taps)
 
     def score_candidates(self, params, prefix_kv, live_len: int, cand_ids,
@@ -268,7 +268,8 @@ class ModelAPI:
         _, taps = self.forward(params, nb, qcfg, scales=scales,
                                cushion={"kv": prefix_kv}, collect=True,
                                n_skip=1, prefix_valid=int(live_len),
-                               pos_offset=int(live_len), groups=N)
+                               pos_offset=int(live_len), groups=N,
+                               remat=False)
         return self.mod.total_qerr(taps, groups=N).reshape(N)
 
     def extract_cushion(self, params, prefix_ids: torch.Tensor, batch,
@@ -284,7 +285,7 @@ class ModelAPI:
         toks = prefix_ids[None].to(self.device)
         if self.cfg.family == Family.SSM:
             _, _, states = XL.forward(params, toks, self.cfg, qcfg,
-                                      return_cache=True)
+                                      return_cache=True, remat=False)
             return {"state": {g: {k: v[:, 0] for k, v in leaves.items()}
                               for g, leaves in states.items()}}
         mod = self._kv_mod

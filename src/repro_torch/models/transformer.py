@@ -9,8 +9,10 @@ ported from ``repro/models/transformer.py``:
     decode_step(params, token, pos, cache, ..) -> (logits, cache)
 
 Layer parameters are stacked ``(L, ...)`` in one ``ParamTree`` module; the
-layer stack is a Python loop over per-layer views (JAX scans it). Caches
-are updated in place and returned, where JAX returns new arrays.
+layer stack is a Python loop over per-layer views (JAX scans it), and with
+``remat`` each layer body is one checkpoint (``common.remat_call``, the
+reference's ``jax.checkpoint`` on its scan body). Caches are updated in
+place and returned, where JAX returns new arrays.
 """
 from __future__ import annotations
 
@@ -99,7 +101,7 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, qcfg: QuantConfig, *,
             prepend_embeds: Optional[Tensor] = None,
             prefix_valid: Optional[int] = None,
             pos_offset: Optional[int] = None,
-            groups: int = 1) -> Tuple[Tensor, Dict]:
+            groups: int = 1, remat: bool = True) -> Tuple[Tensor, Dict]:
     """Full-sequence causal forward. cushion: {"kv": {"k": (L,m,K,hd), ...}}.
     With ``collect`` the taps hold every site's statistics, layer entries
     stacked over L (the calibration input). prepend_embeds (B, P, D):
@@ -113,7 +115,8 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, qcfg: QuantConfig, *,
     ``arange(m) < prefix_valid``) and pos_offset replaces the cushion length
     as the RoPE origin of the tokens. ``groups`` > 1: the B rows are that
     many independent forwards stacked (the reference vmaps them), each with
-    its own dynamic ranges and L_q (``models/common.py``)."""
+    its own dynamic ranges and L_q (``models/common.py``). ``remat``
+    recomputes each layer in the backward (``common.remat_call``)."""
     params = C.as_tree(params)
     L = cfg.n_layers
     x = embed_with_prepend(params, tokens, cfg, prepend_embeds)
@@ -126,8 +129,9 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, qcfg: QuantConfig, *,
     for lp, lsc, lpre in zip(C.unstack(params["layers"], L),
                              C.unstack(lscales, L),
                              _cushion_layers(cushion, L)):
-        x, taps = _block(lp, x, cfg, qcfg, lsc, lpre, positions, collect,
-                         n_skip, prefix_valid, groups)
+        x, taps = C.remat_call(remat, _block, lp, x, cfg, qcfg, lsc, lpre,
+                               positions, collect, n_skip, prefix_valid,
+                               groups)
         layer_taps.append(taps)
     x = C.apply_norm(params["ln_f"], x, cfg)
     head_taps: Optional[Dict] = {} if collect else None
@@ -231,7 +235,7 @@ def prefill(params, tokens: Tensor, cache: Params, cfg: ModelConfig,
             qcfg: QuantConfig, *, scales: Optional[Params] = None,
             cushion: Optional[Params] = None,
             prepend_embeds: Optional[Tensor] = None,
-            pos_offset: Optional[int] = None
+            pos_offset: Optional[int] = None, remat: bool = False
             ) -> Tuple[Tensor, Params, Tensor]:
     """Process the prompt and fill the cache (cushion at [0:m], prompt at
     [m:m+S]). Returns (last-position logits (B,1,V), cache, next_pos).
@@ -270,13 +274,8 @@ def prefill(params, tokens: Tensor, cache: Params, cfg: ModelConfig,
     ks, vs = [], []
     for lp, lsc, lpre in zip(C.unstack(params["layers"], L),
                              C.unstack(lscales, L), pre):
-        hn = C.apply_norm(lp["ln1"], x, cfg)
-        a, (k, v) = C.attention_full(lp["attn"], hn, cfg, qcfg, lsc, None,
-                                     positions, prefix_kv=lpre, causal=True,
-                                     return_kv=True)
-        x = x + a
-        hn = C.apply_norm(lp["ln2"], x, cfg)
-        x = x + C.apply_mlp(lp["mlp"], hn, cfg, qcfg, lsc, None)
+        x, k, v = C.remat_call(remat, _prefill_block, lp, x, cfg, qcfg, lsc,
+                               lpre, positions)
         ks.append(k)
         vs.append(v)
     cache = write_prompt_kv(cache, torch.stack(ks), torch.stack(vs), m)
@@ -284,6 +283,20 @@ def prefill(params, tokens: Tensor, cache: Params, cfg: ModelConfig,
     logits = C.lm_head(params, x[:, -1:], cfg, qcfg, scales, None)
     return logits, cache, torch.tensor(m + S, dtype=torch.int32,
                                        device=x.device)
+
+
+def _prefill_block(lp: Params, x: Tensor, cfg: ModelConfig,
+                   qcfg: QuantConfig, lsc: Optional[Params],
+                   lpre: Optional[Params], positions: Tensor
+                   ) -> Tuple[Tensor, Tensor, Tensor]:
+    """One layer of the prefill: (x, the layer's K, V)."""
+    hn = C.apply_norm(lp["ln1"], x, cfg)
+    a, (k, v) = C.attention_full(lp["attn"], hn, cfg, qcfg, lsc, None,
+                                 positions, prefix_kv=lpre, causal=True,
+                                 return_kv=True)
+    x = x + a
+    hn = C.apply_norm(lp["ln2"], x, cfg)
+    return x + C.apply_mlp(lp["mlp"], hn, cfg, qcfg, lsc, None), k, v
 
 
 def decode_step(params, token: Tensor, pos: Tensor, cache: Params,
@@ -320,12 +333,13 @@ def cushion_zeros(cfg: ModelConfig, m: int, device, dtype=None) -> Params:
 
 def loss_fn(params, tokens: Tensor, labels: Tensor, cfg: ModelConfig,
             qcfg: QuantConfig, *, scales=None, cushion=None,
-            collect: bool = False, n_skip: int = 0, lam: float = 0.0):
+            collect: bool = False, n_skip: int = 0, remat: bool = True,
+            lam: float = 0.0):
     """Next-token CE (+ λ·L_q when ``lam`` > 0). Returns (loss, aux) with
     aux {"ce", "taps"} and, when collecting, "qerr"."""
     logits, taps = forward(params, tokens, cfg, qcfg, scales=scales,
                            cushion=cushion, collect=collect or lam > 0,
-                           n_skip=n_skip)
+                           n_skip=n_skip, remat=remat)
     if n_skip:
         # loss on the token part only (prefix positions excluded)
         logits = logits[:, n_skip:]

@@ -41,31 +41,32 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, qcfg: QuantConfig, *,
             patches: Tensor, scales: Optional[Params] = None,
             cushion: Optional[Params] = None, collect: bool = False,
             n_skip: int = 0, prefix_valid: Optional[int] = None,
-            pos_offset: Optional[int] = None, groups: int = 1):
+            pos_offset: Optional[int] = None, groups: int = 1,
+            remat: bool = True):
     """tokens: (B, S_text); patches: (B, P, D). Sequence = [patches; text]."""
     return T.forward(params, tokens, cfg, qcfg, scales=scales,
                      cushion=cushion, collect=collect, n_skip=n_skip,
                      prepend_embeds=patches, prefix_valid=prefix_valid,
-                     pos_offset=pos_offset, groups=groups)
+                     pos_offset=pos_offset, groups=groups, remat=remat)
 
 
 def prefill(params, tokens: Tensor, cache: Params, cfg: ModelConfig,
             qcfg: QuantConfig, *, patches: Tensor,
             scales: Optional[Params] = None,
-            cushion: Optional[Params] = None):
+            cushion: Optional[Params] = None, remat: bool = False):
     return T.prefill(params, tokens, cache, cfg, qcfg, scales=scales,
-                     cushion=cushion, prepend_embeds=patches)
+                     cushion=cushion, prepend_embeds=patches, remat=remat)
 
 
 def loss_fn(params, tokens: Tensor, labels: Tensor, cfg: ModelConfig,
             qcfg: QuantConfig, *, patches: Tensor, scales=None, cushion=None,
-            collect: bool = False, lam: float = 0.0):
+            collect: bool = False, remat: bool = True, lam: float = 0.0):
     """CE over the text positions only (patch positions carry no labels);
     L_q skips the patches too (``n_skip=P``)."""
     P = patches.shape[1]
     logits, taps = T.forward(params, tokens, cfg, qcfg, scales=scales,
                              cushion=cushion, collect=collect or lam > 0,
-                             n_skip=P, prepend_embeds=patches)
+                             n_skip=P, prepend_embeds=patches, remat=remat)
     ce = C.cross_entropy(logits[:, P:], labels)
     loss = ce
     aux = {"ce": ce, "taps": taps}

@@ -402,16 +402,43 @@ def _pair_state(st: Optional[Params], i: int) -> Tuple[Optional[Params],
             {k: v[i] for k, v in st["s"].items()})
 
 
+def _pair_block(lp: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
+                lsc: Params, st_m: Optional[Params], st_s: Optional[Params],
+                collect: bool, n_skip: int, return_state: bool, groups: int):
+    """One mLSTM / sLSTM pair: (x, taps or None, {"m", "s"} state after the
+    sequence or None)."""
+    taps: Optional[Dict] = {} if collect else None
+    if collect:
+        taps["block_in"] = Q.site_stats(x, n_skip)
+    hn = C.apply_norm(lp["ln_m"], x, cfg)
+    o = apply_mlstm(lp["mlstm"], hn, cfg, qcfg, lsc, taps, n_skip,
+                    init_state=st_m, return_state=return_state,
+                    groups=groups)
+    if return_state:
+        o, new_m = o
+    x = x + o
+    hn = C.apply_norm(lp["ln_s"], x, cfg)
+    o = apply_slstm(lp["slstm"], hn, cfg, qcfg, lsc, taps, n_skip,
+                    init_state=st_s, return_state=return_state,
+                    groups=groups)
+    state = None
+    if return_state:
+        o, new_s = o
+        state = {"m": new_m, "s": new_s}
+    return x + o, taps, state
+
+
 def forward(params, tokens: Tensor, cfg: ModelConfig, qcfg: QuantConfig, *,
             scales: Optional[Params] = None, cushion: Optional[Params] = None,
             collect: bool = False, n_skip: int = 0,
             prepend_embeds: Optional[Tensor] = None,
-            return_cache: bool = False, groups: int = 1):
+            return_cache: bool = False, groups: int = 1, remat: bool = True):
     """Full-sequence forward from the cushion's state (or a fresh one).
     With ``collect`` the taps hold every site's statistics and
     ``block_in``, stacked over the pairs; ``return_cache`` adds the state
     after the sequence, {"m": {C, n, m}, "s": {c, n, h, m}} (P, B, ...).
-    ``groups``: stacked forwards, as ``transformer.forward``."""
+    ``groups``: stacked forwards, as ``transformer.forward``. ``remat``:
+    one checkpoint a pair (``common.remat_call``)."""
     params = C.as_tree(params)
     x = T.embed_with_prepend(params, tokens, cfg, prepend_embeds)
     B = x.shape[0]
@@ -427,24 +454,11 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, qcfg: QuantConfig, *,
     for i, (lp, lsc) in enumerate(zip(C.unstack(params["layers"], P),
                                       C.unstack(lscales, P))):
         st_m, st_s = _pair_state(init, i)
-        taps: Optional[Dict] = {} if collect else None
-        if collect:
-            taps["block_in"] = Q.site_stats(x, n_skip)
-        hn = C.apply_norm(lp["ln_m"], x, cfg)
-        o = apply_mlstm(lp["mlstm"], hn, cfg, qcfg, lsc, taps, n_skip,
-                        init_state=st_m, return_state=return_cache,
-                        groups=groups)
+        x, taps, state = C.remat_call(remat, _pair_block, lp, x, cfg, qcfg,
+                                      lsc, st_m, st_s, collect, n_skip,
+                                      return_cache, groups)
         if return_cache:
-            o, new_m = o
-        x = x + o
-        hn = C.apply_norm(lp["ln_s"], x, cfg)
-        o = apply_slstm(lp["slstm"], hn, cfg, qcfg, lsc, taps, n_skip,
-                        init_state=st_s, return_state=return_cache,
-                        groups=groups)
-        if return_cache:
-            o, new_s = o
-            states.append({"m": new_m, "s": new_s})
-        x = x + o
+            states.append(state)
         layer_taps.append(taps)
     x = C.apply_norm(params["ln_f"], x, cfg)
     head_taps: Optional[Dict] = {} if collect else None
@@ -462,7 +476,7 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, qcfg: QuantConfig, *,
 def prefill(params, tokens: Tensor, cache: Params, cfg: ModelConfig,
             qcfg: QuantConfig, *, scales: Optional[Params] = None,
             cushion: Optional[Params] = None,
-            prepend_embeds: Optional[Tensor] = None
+            prepend_embeds: Optional[Tensor] = None, remat: bool = False
             ) -> Tuple[Tensor, Params, Tensor]:
     """Run the prompt from the cushion's state and write the state after
     it into ``cache``, in place. Returns (last-position logits (B,1,V),
@@ -471,7 +485,7 @@ def prefill(params, tokens: Tensor, cache: Params, cfg: ModelConfig,
     logits, _, states = forward(params, tokens, cfg, qcfg, scales=scales,
                                 cushion=cushion,
                                 prepend_embeds=prepend_embeds,
-                                return_cache=True)
+                                return_cache=True, remat=remat)
     for old, new in zip(tree_leaves(cache), tree_leaves(states)):
         old.copy_(new)
     S = tokens.shape[1] + (0 if prepend_embeds is None
@@ -508,12 +522,13 @@ def decode_step(params, token: Tensor, pos: Tensor, cache: Params,
 
 def loss_fn(params, tokens: Tensor, labels: Tensor, cfg: ModelConfig,
             qcfg: QuantConfig, *, scales=None, cushion=None,
-            collect: bool = False, n_skip: int = 0, lam: float = 0.0):
+            collect: bool = False, n_skip: int = 0, remat: bool = True,
+            lam: float = 0.0):
     """Next-token CE (+ λ·L_q when ``lam`` > 0), as
     ``transformer.loss_fn``."""
     logits, taps = forward(params, tokens, cfg, qcfg, scales=scales,
                            cushion=cushion, collect=collect or lam > 0,
-                           n_skip=n_skip)
+                           n_skip=n_skip, remat=remat)
     if n_skip:
         logits = logits[:, n_skip:]
         labels = labels[:, n_skip:]

@@ -3,17 +3,18 @@ pluggable learning-rate schedules, ported from ``repro/optim/adamw.py``
 with its arithmetic: the clip on f32 gradients, f32 moments, the update
 cast back to each leaf's dtype, frozen leaves passed through bit for bit.
 
-Parameters, gradients and moments are nested dicts of tensors; leaves are
-visited in the reference's flatten order (dict keys sorted), and the masks
-match "/"-joined key paths (``tree_paths``, the port's copy of
-``distributed.sharding.tree_paths``). ``update`` is functional: it returns
-new leaves and leaves its inputs as they were.
+Parameters, gradients and moments are nested dicts and lists of tensors
+(the hybrid keeps its sublayers in a list); leaves are visited in JAX's
+flatten order (dict keys sorted, list items by index), and the masks match
+"/"-joined key paths, a list item named by its index (``tree_paths``, the
+port's copy of ``distributed.sharding.tree_paths``). ``update`` is
+functional: it returns new leaves and leaves its inputs as they were.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List, NamedTuple, Tuple
+from typing import Any, Callable, Iterator, List, NamedTuple, Tuple
 
 import torch
 
@@ -22,34 +23,37 @@ Tensor = torch.Tensor
 
 def _flatten(tree: Any, path: Tuple[str, ...] = ()
              ) -> List[Tuple[Tuple[str, ...], Any]]:
-    """(key path, leaf) pairs in the reference's flatten order."""
+    """(key path, leaf) pairs in JAX's flatten order: dict keys sorted,
+    list items by index, an item named by its index."""
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
             out.extend(_flatten(tree[k], path + (str(k),)))
         return out
+    if isinstance(tree, list):
+        out = []
+        for i, v in enumerate(tree):
+            out.extend(_flatten(v, path + (str(i),)))
+        return out
     return [(path, tree)]
 
 
-def _unflatten(paths: List[Tuple[str, ...]], leaves: List[Any]) -> Any:
-    if paths == [()]:
-        return leaves[0]
-    out: Dict[str, Any] = {}
-    for path, leaf in zip(paths, leaves):
-        d = out
-        for k in path[:-1]:
-            d = d.setdefault(k, {})
-        d[path[-1]] = leaf
-    return out
+def _unflatten(like: Any, leaves: Iterator[Any]) -> Any:
+    """``like``'s structure (dicts come back with their keys sorted, as
+    JAX's) filled from ``leaves`` in flatten order."""
+    if isinstance(like, dict):
+        return {k: _unflatten(like[k], leaves) for k in sorted(like)}
+    if isinstance(like, list):
+        return [_unflatten(v, leaves) for v in like]
+    return next(leaves)
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     """``fn`` over the leaves of one or more trees of the same structure."""
-    flat = _flatten(tree)
-    others = [[leaf for _, leaf in _flatten(t)] for t in rest]
-    return _unflatten([p for p, _ in flat],
-                      [fn(leaf, *(o[i] for o in others))
-                       for i, (_, leaf) in enumerate(flat)])
+    others = [tree_leaves(t) for t in rest]
+    return _unflatten(tree, iter(
+        [fn(leaf, *(o[i] for o in others))
+         for i, leaf in enumerate(tree_leaves(tree))]))
 
 
 def tree_leaves(tree: Any) -> List[Any]:
@@ -58,8 +62,7 @@ def tree_leaves(tree: Any) -> List[Any]:
 
 def tree_paths(tree: Any) -> Any:
     """A tree of "/"-joined key paths, the same structure as ``tree``."""
-    flat = _flatten(tree)
-    return _unflatten([p for p, _ in flat], ["/".join(p) for p, _ in flat])
+    return _unflatten(tree, iter(["/".join(p) for p, _ in _flatten(tree)]))
 
 
 class AdamWState(NamedTuple):
@@ -97,9 +100,7 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads: Any, state: AdamWState, params: Any):
         """One step. Returns (params, state, {"grad_norm", "lr"})."""
-        flat = _flatten(params)
-        paths = [p for p, _ in flat]
-        ps = [leaf for _, leaf in flat]
+        ps = tree_leaves(params)
         gs = tree_leaves(grads)
         ms, vs = tree_leaves(state.mu), tree_leaves(state.nu)
         frozen = (self._mask(params, self.frozen) if self.frozen
@@ -134,9 +135,9 @@ class AdamW:
             new_p.append((p.float() - lr_t * delta).to(p.dtype))
             new_m.append(m)
             new_v.append(v)
-        return (_unflatten(paths, new_p),
-                AdamWState(step=step, mu=_unflatten(paths, new_m),
-                           nu=_unflatten(paths, new_v)),
+        return (_unflatten(params, iter(new_p)),
+                AdamWState(step=step, mu=_unflatten(params, iter(new_m)),
+                           nu=_unflatten(params, iter(new_v))),
                 {"grad_norm": gn, "lr": lr_t})
 
 

@@ -1575,6 +1575,149 @@ def test_xlstm_decode_step_captured_with_its_state_tree(dev):
     _counters_zero([ce.graph, st.graph])
 
 
+# ---------------------------------------------------------------------------
+# One-card training (train/trainer.py): smollm-360m's attention at its
+# training shapes, and a step at its full width over two layers
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("S", [256, 2048])
+def test_flash_attention_bwd_at_training_shapes(dev, S, dt):
+    """The backward at the trainer's shapes: B = 8, 15 heads over 5
+    kv-heads (G = 3), head_dim 64, no cushion (m = 0: every key row live),
+    S = 256 (the launcher's default) and 2048 (RunConfig's seq_len),
+    against its plain version; two calls identical."""
+    q, k, v, o, lse, do = _bwd_case(dev, 8, 5, 3, S, 0, 0, 64, dt, S)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, 0, 0)
+    got = flash_attention_bwd(q, k, v, o, lse, do, 0, 0)
+    again = flash_attention_bwd(q, k, v, o, lse, do, 0, 0)
+    torch.cuda.synchronize()
+    _bwd_within(got, want, dt)
+    for a, c in zip(got, again):
+        assert torch.equal(a, c)
+
+
+def _smollm_two_layers(dev, dtype):
+    """smollm-360m at full width over 2 layers (seeded weights made on the
+    CPU), a B = 2 x 64 batch, and the train step's pieces on ``dev``."""
+    import dataclasses
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.models.registry import build
+    from repro_torch.train.trainer import make_optimizer, make_train_step
+    cfg = dataclasses.replace(get_config("smollm-360m"), n_layers=2,
+                              dtype=dtype)
+    cpu = build(cfg, "cpu")
+    params = cpu.init_params(torch.Generator().manual_seed(0)).tree()
+    batch = cpu.make_batch(torch.Generator().manual_seed(1), 2, 64)
+    api = build(cfg, dev)
+    run = RunConfig(model=cfg, seq_len=64, global_batch=2, lr=1e-3,
+                    train_steps=20, warmup_steps=10)
+    opt = make_optimizer(run)
+    to = lambda t: {k: to(v) for k, v in t.items()} \
+        if isinstance(t, dict) else t.to(api.device)   # noqa: E731
+    p = to(params)
+    return (api, run, opt, p, to(batch), make_train_step(api, run, opt),
+            (cpu, params, batch))
+
+
+def _first_moments(state):
+    from repro_torch.optim.adamw import tree_leaves
+    return [t.float().cpu() for t in tree_leaves(state.mu)]
+
+
+def test_train_step_card_equals_cpu(dev):
+    """One step of smollm at full width over 2 layers on the card against
+    the port's CPU step: in f32 the loss within 1e-5 relative and each
+    first moment (0.1 x the clipped gradient) within 1e-5 of its leaf's
+    largest entry; in bf16 the card's first moments no farther from the
+    CPU's f32 ones than the CPU's bf16 ones are, within 1.5x in L2 (phase
+    4c's bar: the two sides round to bf16 at the same points but reduce in
+    other orders)."""
+    from repro_torch.train.trainer import make_optimizer, make_train_step
+    mus, losses = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        api, run, opt, p, b, step, (cpu, cp, cb) = _smollm_two_layers(
+            dev, dtype)
+        _, s, m = step(p, opt.init(p), b)
+        _, cs, cm = make_train_step(cpu, run, opt)(cp, opt.init(cp), cb)
+        mus[dtype] = (_first_moments(s), _first_moments(cs))
+        losses[dtype] = (float(m["loss"]), float(cm["loss"]))
+    card, ref = mus["float32"]
+    assert abs(losses["float32"][0] / losses["float32"][1] - 1) <= 1e-5
+    for a, c in zip(card, ref):
+        assert float((a - c).abs().max()) <= 1e-5 * float(c.abs().max())
+
+    def dist(x, y):
+        return float(torch.cat([(a - c).reshape(-1) for a, c in zip(x, y)])
+                     .norm() / torch.cat([c.reshape(-1) for c in y]).norm())
+    card_bf, cpu_bf = mus["bfloat16"]
+    assert dist(card_bf, ref) <= 1.5 * dist(cpu_bf, ref)
+    assert abs(losses["bfloat16"][0] / losses["bfloat16"][1] - 1) <= 1e-2
+
+
+def test_train_step_is_deterministic_with_exact_launches(dev):
+    """Two identical bf16 steps on the card are bit-identical (the
+    attention backward has no atomics; the embedding's backward and every
+    other op of the step are deterministic), and a step launches
+    flash_attention twice a layer with remat (the recompute) and
+    flash_attention_bwd once, once and once without."""
+    import dataclasses
+    from repro_torch.train.trainer import make_train_step
+    api, run, opt, p, b, step, _ = _smollm_two_layers(dev, "bfloat16")
+    outs = []
+    for _ in range(2):
+        _lib.reset_launches()
+        outs.append(step(p, opt.init(p), b))
+        assert _lib.LAUNCHES["flash_attention"] == 4
+        assert _lib.LAUNCHES["flash_attention_bwd"] == 2
+    from repro_torch.optim.adamw import tree_leaves
+
+    def leaves(out):
+        p_, s_, m_ = out
+        return tree_leaves([p_, s_.mu, s_.nu, s_.step, m_])
+    for a, c in zip(leaves(outs[0]), leaves(outs[1])):
+        assert torch.equal(a, c)
+    off = dataclasses.replace(run, parallel=dataclasses.replace(
+        run.parallel, remat=False))
+    _lib.reset_launches()
+    got = make_train_step(api, off, opt)(p, opt.init(p), b)
+    assert _lib.LAUNCHES["flash_attention"] == 2
+    assert _lib.LAUNCHES["flash_attention_bwd"] == 2
+    for a, c in zip(leaves(got), leaves(outs[0])):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_true_int_dot_ptoken_card_equals_plain(dev, dt):
+    """``true_int_dot`` under ptoken_dynamic on the card: its route (the
+    int product through the w8a8_matmul kernel with unit scales, then the
+    per-row epilogue) equal bit for bit to the CPU's plain route on the
+    same weight codes and per-row scales, at a decode and a prefill M.
+    (The scales themselves are tensor ops, which PyTorch's CUDA kernels
+    compute an ulp off the CPU's where they divide by a Python number,
+    ROADMAP queue 3.)"""
+    from repro_torch.configs import QuantConfig
+    from repro_torch.core import quantization as Q
+    q = QuantConfig(mode="ptoken_dynamic", true_int8=True)
+    g = torch.Generator().manual_seed(0)
+    for M in (4, 300):
+        x = torch.randn(M, 960, generator=g).to(dt)
+        x[1, 7] = 40.0
+        w = (torch.randn(960, 2560, generator=g) * 0.05).to(dt)
+        xc = x.to(dev)
+        wq, s_w = Q.weight_quant_int(w.to(dev), q)
+        s_x, z_x = Q.params_from_minmax(*Q.act_minmax(xc, True), 8, False)
+        _lib.reset_launches()
+        got = Q._ptoken_int_matmul(xc, wq, s_w, s_x, z_x, q)
+        assert _lib.LAUNCHES["w8a8_matmul"] == 1
+        want = Q._ptoken_int_matmul(x, wq.cpu(), s_w.cpu(), s_x.cpu(),
+                                    z_x.cpu(), q)
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(Q.true_int_dot(xc, w.to(dev), q, None), got)
+
+
 def test_capture_with_a_host_sync_raises(dev):
     """A step that syncs with the host cannot be captured: the capture
     raises, nothing runs eagerly in its place, and the card still works

@@ -13,7 +13,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.launch import serve, tune  # noqa: E402
+from repro_torch.launch import serve, train, tune  # noqa: E402
 from repro_torch.models.registry import build, resolve_device  # noqa: E402
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
@@ -26,7 +26,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 assert {"repro_torch.models.moe", "repro_torch.core.smoothquant",
         "repro_torch.models.vlm", "repro_torch.models.ssm",
         "repro_torch.models.hybrid", "repro_torch.models.encdec",
-        "repro_torch.models.xlstm"} <= set(names)
+        "repro_torch.models.xlstm", "repro_torch.train.trainer",
+        "repro_torch.launch.train"} <= set(names)
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
@@ -43,7 +44,7 @@ def test_port_imports_no_jax_and_no_reference_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     n = int(out.stdout.split()[0])
-    assert n >= 59, out.stdout      # every module of the port was imported
+    assert n >= 60, out.stdout      # every module of the port was imported
 
 
 def test_cuda_entry_points_raise_without_a_card(monkeypatch):
@@ -59,6 +60,8 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
                     "--replicas", "3"])
     with pytest.raises(RuntimeError, match="CUDA"):
         tune.main(["--arch", "paper_tiny", "--out-dir", "unused"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "paper_tiny"])
     assert resolve_device("cpu").type == "cpu"
 
 
