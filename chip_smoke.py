@@ -238,6 +238,24 @@ Phases, each fatal on failure:
    saved, and 6 resumed, bit for bit, at 2 of the layers at full width;
    one step on the card against the port's CPU step: smollm at 2 layers in
    f32 and bf16, and each other family at its reduced size in f32;
+4k. tensor-parallel serving: deepseek-67b at full width (d_model 8192,
+   64 heads, 8 KV heads of 128, d_ff 22016, vocab 102400, bf16, seeded
+   random weights) cut to 4 of its 95 layers, a 4-token cushion, scales
+   calibrated on 2 batches of 4 x 512; served by one rank in this process,
+   then by two ranks (``launch/mesh.spawn_tp``: gloo on one card, NCCL
+   where every rank has a card, which then runs as well) that each make
+   the same weights from the seed and keep their shard: the static
+   ``Engine`` in W8A8 with int8-resident weights and an int8 KV cache (B =
+   4 x 512, 32 greedy tokens: both ranks' prefill logits and tokens equal
+   one rank's, bit for bit) and in fp (a row's tokens may part only at a
+   near tie, ``TP_FP_TIE``), and a paged int8 W8A8 ``ContinuousEngine`` of 4
+   slots over 8 requests (tokens and admissions equal); every rank's
+   launches of every kernel equal to one rank's, the cushion block whole
+   and bit-identical on every rank; TTFT / TPOT, the backend and the peak
+   memory of each run; ``w8a8_matmul``'s int32 mode (the row-parallel
+   sites' accumulators) ``torch.equal`` to its plain version at the
+   shards' shapes, two K-halves summed with the epilogue applied once
+   equal to the whole launch, timed beside the bf16 epilogue launch;
 5. the card's Engine against the port's CPU Engine on the same weights,
    scales and cushion (B=1, 64-token prompt, 8 tokens) in all four phase-4
    modes: teacher-forced logits within the stated bf16 tolerance,
@@ -249,9 +267,9 @@ Phases, each fatal on failure:
    where it runs, with its fused cost at decode beside; the router runs'
    launches of phase 4d beside, as ``router_launches``, and phases 4e-4i's,
    as ``moe_launches``, ``vlm_launches``, ``hybrid_launches``,
-   ``encdec_launches``, ``xlstm_launches`` and, from phase 4j's launcher
-   run, ``train_launches``, with each kernel's row at those phases'
-   shapes; the non-causal rows under ``noncausal``), then
+   ``encdec_launches``, ``xlstm_launches``, from phase 4j's launcher
+   run, ``train_launches``, and from phase 4k's rank 0, ``tp_launches``,
+   with each kernel's row at those phases' shapes; the non-causal rows under ``noncausal``), then
    ``{"ok": true, ...}`` as the last line.
 
 Exits nonzero with no result line when CUDA is unavailable or when the port
@@ -3068,6 +3086,532 @@ def train_phase(dev, corpus, timed):
     return rec
 
 
+# phase 4k, tensor-parallel serving: deepseek-67b at full width (d_model
+# 8192, 64 heads, 8 KV heads of 128, d_ff 22016, vocab 102400) cut to 4 of
+# its 95 layers, served by one rank in this process and by two ranks
+# (launch/mesh.spawn_tp: gloo on the one card, NCCL where there is a card a
+# rank); W8A8 with int8-resident weights and an int8 KV cache, fp, and a
+# paged int8 ContinuousEngine of 4 slots over 8 requests
+TP_ARCH, TP_LAYERS, TP_B, TP_PROMPT, TP_NEW = "deepseek-67b", 4, 4, 512, 32
+TP_SLOTS, TP_REQS, TP_PAGE = 4, 8, 64
+# fp (none) at tp = 2: the two ranks' bf16 partial products are summed in
+# f32 and rounded once, where one rank rounds the whole product: logits
+# differ by bf16 roundings. A row's tokens may part only at a near tie: a
+# token where one rank's top-1 and top-2 logits lie within TP_FP_TIE (phase
+# 5's largest fp card-vs-CPU gap); the prefill logits lie within it
+TP_FP_TIE = 0.25
+
+
+def tp_phase(dev, timed):
+    """Phase 4k: tensor-parallel serving of deepseek-67b at full width and
+    4 layers (see the module docstring). Returns the record."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import QuantConfig, get_config
+    from repro_torch.core.calibration import calibrate, scales_to_plain
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.act_quant import act_quant_static_plain
+    from repro_torch.kernels.w8a8_matmul import (
+        quant_w8a8_matmul, quant_w8a8_matmul_plain, w8a8_epilogue,
+        w8a8_matmul, w8a8_matmul_plain)
+    from repro_torch.launch.mesh import TPMesh, spawn_tp
+    from repro_torch.models.registry import build
+    # a rank's program (jax-free), beside the tests that spawn it too; the
+    # spawned ranks inherit this sys.path
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.append(str(ROOT / "tests"))
+    import _tp_probe as tp_probe
+
+    rec = {"arch": TP_ARCH, "reduced": f"n_layers {TP_LAYERS} of 95",
+           "runs": {}}
+    cfg = dataclasses.replace(get_config(TP_ARCH), n_layers=TP_LAYERS)
+    V, K = cfg.vocab_size, cfg.n_kv_heads
+    qw8 = QuantConfig(mode="pt_static", true_int8=True)
+    rs = np.random.RandomState(25)
+    prompt = rs.randint(0, V, (TP_B, TP_PROMPT))
+    calib = [rs.randint(0, V, (TP_B, TP_PROMPT)) for _ in range(2)]
+    base = dict(cfg=cfg, seed=0, max_seq=TP_PROMPT + 2 * TP_NEW + 64)
+    api = build(cfg, dev)
+    t0 = time.perf_counter()
+    params = tp_probe._params(api, base)
+    cushion = api.extract_cushion(
+        params, torch.as_tensor(rs.randint(0, V, CUSHION),
+                                dtype=torch.int32), None, QuantConfig())
+    scales, _ = calibrate(api, params, [
+        {"tokens": torch.as_tensor(c, dtype=torch.int32, device=dev)}
+        for c in calib], qw8, cushion=cushion)
+    base.update(cushion=tree_map(lambda t: t.cpu(), cushion),
+                scales=tree_map(lambda t: t.cpu(), scales_to_plain(scales)))
+    rec["setup_s"] = time.perf_counter() - t0
+    reqs = [dict(tokens=rs.randint(0, V, (1, (TP_PROMPT // 2,
+                                             TP_PROMPT // 2 + 64)[i % 2])),
+                 max_new_tokens=(TP_NEW, TP_NEW // 2)[i % 2])
+            for i in range(TP_REQS)]
+    cases = [dict(base, name="w8a8_int8kv", kind="static", qcfg=qw8,
+                  prequant=True, kv_dtype="int8", tokens=prompt,
+                  n_tokens=TP_NEW, logits=True, warmup=True),
+             dict(base, name="fp", kind="static", qcfg=QuantConfig(),
+                  tokens=prompt, n_tokens=TP_NEW, logits=True, warmup=True,
+                  margins=True),
+             dict(base, name="paged_w8a8_int8kv", kind="continuous",
+                  qcfg=qw8, prequant=True, kv_dtype="int8", paged=True,
+                  page_size=TP_PAGE, n_slots=TP_SLOTS, requests=reqs)]
+
+    # (1) one rank, in this process, without a mesh
+    t0 = time.perf_counter()
+    one = {c["name"]: tp_probe.run_case(TPMesh(0, 1, None, dev, None),
+                                        dict(c, mesh=False)) for c in cases}
+    rec["one_rank_s"] = time.perf_counter() - t0
+    del params, cushion, scales
+    tp_probe._TREES.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def spawned(label):
+        t0 = time.perf_counter()
+        ranks = spawn_tp(tp_probe.run_cases, 2, cases, device=dev.type,
+                         every_rank=True, backend=label)
+        rec[f"{label}_s"] = time.perf_counter() - t0
+        return [{c["name"]: r[i] for i, c in enumerate(cases)}
+                for r in ranks]
+
+    def held(label, ranks):
+        """Every check of the two ranks against one rank."""
+        out = {}
+        for name, ref in one.items():
+            reps = [r[name] for r in ranks]
+            for rank, rep in enumerate(reps):
+                if rep["launches"] != ref["launches"]:
+                    fail(f"tp {label} {name}: rank {rank} launched "
+                         f"{rep['launches']}, one rank {ref['launches']}")
+            if isinstance(ref["tokens"], dict):
+                for rank, rep in enumerate(reps):
+                    if sorted(rep["tokens"]) != sorted(ref["tokens"]) or any(
+                            not np.array_equal(rep["tokens"][u], t)
+                            for u, t in ref["tokens"].items()):
+                        fail(f"tp {label} {name}: rank {rank}'s tokens "
+                             f"differ from one rank's")
+                    if rep["admissions"] != ref["admissions"]:
+                        fail(f"tp {label} {name}: rank {rank} admitted "
+                             f"{rep['admissions']}, one rank "
+                             f"{ref['admissions']}")
+                n = K // 2
+                for rank, rep in enumerate(reps):
+                    for k_ in ("kc", "vc"):
+                        v_ = ref["cushion"][k_]
+                        if not np.array_equal(rep["cushion"][k_], v_) \
+                                or not np.array_equal(
+                                    rep["cushion"][k_ + "_tp"],
+                                    v_[:, :, n * rank:n * (rank + 1)]):
+                            fail(f"tp {label} {name}: rank {rank}'s cushion "
+                                 f"block {k_} is not one rank's")
+                out[name] = {
+                    "ttft_ms_p50": [float(np.median(list(
+                        rep["ttft_ms"].values()))) for rep in reps],
+                    "tpot_ms_p50": [float(np.median(list(
+                        rep["tpot_ms"].values()))) for rep in reps],
+                    "seconds": [rep["seconds"] for rep in reps],
+                    "one_rank_ttft_ms_p50": float(np.median(list(
+                        ref["ttft_ms"].values()))),
+                    "one_rank_tpot_ms_p50": float(np.median(list(
+                        ref["tpot_ms"].values()))),
+                    "one_rank_seconds": ref["seconds"],
+                    "peak_gib": [rep["peak_bytes"] / 2 ** 30
+                                 for rep in reps],
+                    "one_rank_peak_gib": ref["peak_bytes"] / 2 ** 30}
+                continue
+            for rank, rep in enumerate(reps):
+                if not np.array_equal(rep["tokens"], reps[0]["tokens"]):
+                    fail(f"tp {label} {name}: the ranks' tokens differ")
+                # the cushion block: whole and bit-identical on every rank
+                # (int8: kc / vc, one rank's block; fp: each rank's heads
+                # of the rows [0:m))
+                n = K // 2
+                for k_, v_ in ref["cushion"].items():
+                    mine = rep["cushion"][k_]
+                    want = v_ if k_ in ("kc", "vc") else \
+                        v_[..., n * rank:n * (rank + 1), :]
+                    if not np.array_equal(mine, want):
+                        fail(f"tp {label} {name}: rank {rank}'s cushion "
+                             f"{k_} is not one rank's")
+                    if k_ in ("kc", "vc") and not np.array_equal(
+                            rep["cushion"][k_ + "_tp"],
+                            v_[:, :, n * rank:n * (rank + 1)]):
+                        fail(f"tp {label} {name}: rank {rank}'s {k_}_tp is "
+                             f"not its heads of the block")
+            gap = float(np.abs(reps[0]["logits"] - ref["logits"]).max())
+            o = {"ttft_ms": [rep["ttft_ms"] for rep in reps],
+                 "tpot_ms": [rep["tpot_ms"] for rep in reps],
+                 "one_rank_ttft_ms": ref["ttft_ms"],
+                 "one_rank_tpot_ms": ref["tpot_ms"],
+                 "peak_gib": [rep["peak_bytes"] / 2 ** 30 for rep in reps],
+                 "one_rank_peak_gib": ref["peak_bytes"] / 2 ** 30,
+                 "prefill_logits_max_abs_err": gap,
+                 "tokens_equal": float((reps[0]["tokens"]
+                                        == ref["tokens"]).mean())}
+            if name == "w8a8_int8kv":
+                if gap != 0.0 or not np.array_equal(reps[0]["tokens"],
+                                                    ref["tokens"]):
+                    fail(f"tp {label} W8A8: the ranks' logits or tokens are "
+                         f"not one rank's (prefill logits max |err| {gap})")
+            else:
+                if gap > TP_FP_TIE:
+                    fail(f"tp {label} fp: prefill logits max |err| {gap} > "
+                         f"{TP_FP_TIE}")
+                parts = []
+                for b in range(TP_B):
+                    diff = np.flatnonzero(reps[0]["tokens"][b]
+                                          != ref["tokens"][b])
+                    if not diff.size:
+                        parts.append(None)
+                        continue
+                    first = int(diff[0])
+                    margin = float(ref["margins"][b, first])
+                    if margin >= TP_FP_TIE:
+                        fail(f"tp {label} fp: row {b} parts at token "
+                             f"{first}, where one rank's top-2 margin is "
+                             f"{margin} (no near tie: >= {TP_FP_TIE})")
+                    parts.append([first, margin])
+                o["first_part_and_its_margin"] = parts
+            out[name] = o
+        return out
+
+    ranks = spawned("gloo")
+    backend = ranks[0]["w8a8_int8kv"]["backend"]
+    rec["backend"] = backend
+    rec["runs"]["two_ranks"] = held("gloo", ranks)
+    rec["launches"] = {}
+    for name in one:
+        for k_, v_ in ranks[0][name]["launches"].items():
+            rec["launches"][k_] = rec["launches"].get(k_, 0) + v_
+    if torch.cuda.device_count() >= 2:
+        rec["runs"]["nccl"] = held("nccl", spawned("nccl"))
+    for name, o in rec["runs"]["two_ranks"].items():
+        if "ttft_ms" in o:
+            log(f"tp=2 ({backend}) {name}: TTFT {o['ttft_ms'][0]:.1f} ms "
+                f"(one rank {o['one_rank_ttft_ms']:.1f}), TPOT "
+                f"{o['tpot_ms'][0]:.2f} ms (one rank "
+                f"{o['one_rank_tpot_ms']:.2f}), peak "
+                f"{o['peak_gib'][0]:.2f} / {o['peak_gib'][1]:.2f} GiB "
+                f"(one rank {o['one_rank_peak_gib']:.2f}); prefill logits "
+                f"max |err| {o['prefill_logits_max_abs_err']:.4g}, tokens "
+                f"equal {o['tokens_equal']:.3f}")
+        else:
+            log(f"tp=2 ({backend}) {name}: {TP_REQS} requests in "
+                f"{o['seconds'][0]:.2f} s (one rank "
+                f"{o['one_rank_seconds']:.2f}), TTFT p50 "
+                f"{o['ttft_ms_p50'][0]:.1f} ms (one rank "
+                f"{o['one_rank_ttft_ms_p50']:.1f}), TPOT p50 "
+                f"{o['tpot_ms_p50'][0]:.2f} ms (one rank "
+                f"{o['one_rank_tpot_ms_p50']:.2f}); tokens, admissions and "
+                f"the cushion block equal")
+
+    # the int matmul's int32 mode at the row-parallel sites' shards
+    g = torch.Generator(dev).manual_seed(25)
+    sx, zx = (torch.tensor(v, device=dev) for v in (0.031, 111.0))
+    sw = torch.tensor(0.0042, device=dev).to(torch.bfloat16)
+    N = cfg.d_model
+    i32 = {}
+    for site, Kk in (("o", cfg.n_heads * cfg.head_dim // 2),
+                     ("down", cfg.d_ff // 2)):
+        w = torch.randint(-127, 128, (Kk, N), generator=g, device=dev,
+                          dtype=torch.int8)
+        colsum = w.sum(0, dtype=torch.int32)
+        for M in (TP_B, TP_B * TP_PROMPT):
+            if M <= 16:     # decode: bf16 x quantized in the staging
+                x = torch.randn((M, Kk), generator=g, device=dev).mul_(
+                    3).to(torch.bfloat16)
+                f_acc = lambda: quant_w8a8_matmul(   # noqa: E731
+                    x, w, sx, zx, sw, out_dtype=torch.int32)
+                f_out = lambda: quant_w8a8_matmul(   # noqa: E731
+                    x, w, sx, zx, sw, colsum, out_dtype=torch.bfloat16)
+                want = quant_w8a8_matmul_plain(x, w, sx, zx, sw,
+                                               out_dtype=torch.int32)
+                xb = M * Kk * 2
+            else:           # prefill: int8 codes
+                x = torch.randint(-128, 128, (M, Kk), generator=g,
+                                  device=dev, dtype=torch.int8)
+                f_acc = lambda: w8a8_matmul(          # noqa: E731
+                    x, w, sx, zx, sw, out_dtype=torch.int32)
+                f_out = lambda: w8a8_matmul(          # noqa: E731
+                    x, w, sx, zx, sw, colsum, -128.0, torch.bfloat16)
+                want = w8a8_matmul_plain(x, w, sx, zx, sw,
+                                         out_dtype=torch.int32)
+                xb = M * Kk
+            acc = f_acc()
+            if not torch.equal(acc, want):
+                fail(f"w8a8_matmul int32 mode ({site}, M={M}) differs from "
+                     f"its plain version")
+            if M > 16:
+                # two K-halves summed, the epilogue once = the whole launch
+                h = Kk // 2
+                halves = [w8a8_matmul(x[:, s_].contiguous(),
+                                      w[s_].contiguous(), sx, zx, sw,
+                                      out_dtype=torch.int32)
+                          for s_ in (slice(0, h), slice(h, Kk))]
+                whole = f_out()
+                if not torch.equal(whole, w8a8_epilogue(
+                        halves[0] + halves[1], sx, zx, sw, colsum, -128.0,
+                        torch.bfloat16)):
+                    fail(f"w8a8_matmul ({site}, M={M}): two K-halves' int32 "
+                         f"sums with the epilogue are not the whole launch")
+            b_ms, b_by = bound_ms(xb + Kk * N + 4 * M * N, 2 * M * N * Kk,
+                                  INT8_OPS_PER_S)
+            # the library's int8 x int8 -> int32 product: torch._int_mm
+            # (M > 16: at decode x's codes zero-padded to 32 rows, the copy
+            # made outside the timed window, as on the kernels line)
+            if M <= 16:
+                xl = torch.zeros((32, Kk), dtype=torch.int8, device=dev)
+                xl[:M] = act_quant_static_plain(x, sx, zx)
+            else:
+                xl = x
+            i32[f"{site}_M{M}"] = {
+                "K": Kk, "N": N, "M": M, "int32_ms": timed(f_acc),
+                "epilogue_bf16_ms": timed(f_out),
+                "int32_plain_ms": timed(lambda: (quant_w8a8_matmul_plain(
+                    x, w, sx, zx, sw, out_dtype=torch.int32) if M <= 16
+                    else w8a8_matmul_plain(x, w, sx, zx, sw,
+                                           out_dtype=torch.int32)), iters=3),
+                "int32_library_ms": timed(lambda: torch._int_mm(xl, w)),
+                "int32_library_of": ("torch._int_mm" if M > 16 else
+                                     "torch._int_mm, x's codes zero-padded "
+                                     "to 32 rows"),
+                "int32_bound_ms": b_ms, "int32_bound_by": b_by}
+    rec["int32_mode"] = i32
+    log("w8a8_matmul's int32 mode at deepseek-67b's tp = 2 shards (ms: "
+        "int32 / the bf16 epilogue launch): " + ", ".join(
+            f"{k_} {v_['int32_ms']:.4f} / {v_['epilogue_bf16_ms']:.4f}"
+            for k_, v_ in i32.items()))
+    dec = [i32[f"{s_}_M{TP_B}"] for s_ in ("o", "down")]
+    rec["kernels"] = {"w8a8_matmul": {
+        "int32_unit": f"the two row-parallel sites of one layer at one "
+                      f"rank's shard of deepseek-67b at tp=2 (o: K="
+                      f"{dec[0]['K']}, down: K={dec[1]['K']}, N={N}), "
+                      f"M={TP_B}, bf16 x quantized in the staging",
+        "int32_ms": sum(d["int32_ms"] for d in dec),
+        "int32_epilogue_ms": sum(d["epilogue_bf16_ms"] for d in dec),
+        "int32_bound_ms": sum(d["int32_bound_ms"] for d in dec),
+        "int32_plain_ms": sum(d["int32_plain_ms"] for d in dec),
+        "int32_library_ms": sum(d["int32_library_ms"] for d in dec),
+        "int32_library_of": dec[0]["int32_library_of"]}}
+    for name, r in tp_kernel_rows(dev, timed, cfg).items():
+        rec["kernels"].setdefault(name, {}).update(r)
+    return rec
+
+
+# the bars of phase 4k's kernel checks: prefill attention within one bf16
+# ulp (+1e-6) of its plain version, as phase 2's; decode within one bf16
+# ulp plus 1e-5 of the largest entry, the bar of tests/test_torch_cuda.py
+# at G = 4, 6 and 8 (24-64 heads: a row holds entries that cancel to
+# ~1e-4, where the split-KV chunks' f32 sums, merged in another order,
+# leave a few 1e-6); the int matmul torch.equal
+TP_DECODE_FLOOR = 1e-5
+
+
+def tp_kernel_rows(dev, timed, cfg):
+    """Phase 4k's kernels at the shapes its runs give them, each against
+    its plain version on the same inputs (random, from a seed): deepseek-
+    67b's G = 8 at head_dim 128 at one rank (64 query / 8 KV heads) and at
+    each of two ranks (32 / 4), prefill (B = 4 x 512 behind the 4-row
+    cushion), contiguous decode (int8 with (K,) scales and the cushion,
+    and fp) and paged decode (int8 with (B, K) scales); w8a8_matmul at the
+    column-parallel sites' shards and whole weights and the row-parallel
+    sites' whole weights, decode (bf16 x quantized in the staging) and
+    prefill (int8 codes), bf16 out. Returns {kernel: the tp_* keys of the
+    kernels line}; fails on a disagreement."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_decode import (
+        flash_decode, flash_decode_paged, flash_decode_paged_plain,
+        flash_decode_plain)
+    from repro_torch.kernels.w8a8_matmul import (
+        quant_w8a8_matmul, quant_w8a8_matmul_plain, w8a8_matmul,
+        w8a8_matmul_plain)
+    from repro_torch.serving.engine import cache_seq_len
+
+    bf = torch.bfloat16
+    g = torch.Generator(dev).manual_seed(251)
+    hd, m, B, S = cfg.head_dim, CUSHION, TP_B, TP_PROMPT
+    Smax = cache_seq_len(TP_PROMPT + 2 * TP_NEW + 64)
+    pos_v = m + S + TP_NEW // 2
+    out = {}
+
+    def err_within(name, got, want, floor_rel):
+        got, want = got.float(), want.float()
+        err = (got - want).abs()
+        floor = floor_rel * float(want.abs().max()) if floor_rel else 1e-6
+        if not bool((err <= BF16_ULP * want.abs() + floor).all()):
+            fail(f"phase 4k {name}: max |kernel - plain| "
+                 f"{float(err.max())} beyond its bar")
+        return float(err.max())
+
+    def rnd(*shape, dtype=bf):
+        if dtype == torch.int8:
+            return torch.randint(-127, 128, shape, generator=g, device=dev,
+                                 dtype=torch.int8)
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    rows = {"flash_attention": [], "flash_decode": [],
+            "flash_decode_paged": []}
+    for tp in (1, 2):
+        H, K = cfg.n_heads // tp, cfg.n_kv_heads // tp
+        # prefill
+        q = rnd(B, S, H, hd).transpose(1, 2)
+        k = rnd(B, S + m, K, hd).transpose(1, 2)
+        v = rnd(B, S + m, K, hd).transpose(1, 2)
+        e = err_within(f"flash_attention tp={tp}",
+                       flash_attention(q, k, v, prefix_len=m),
+                       flash_attention_plain(q, k, v, prefix_len=m), 0)
+        pairs = B * H * (S * m + S * (S + 1) / 2)
+        bms, by = bound_ms(2 * (2 * B * H * S * hd + 2 * B * K * (S + m)
+                                * hd), 4.0 * hd * pairs, BF16_FLOPS_PER_S)
+        rows["flash_attention"].append(dict(
+            tp=tp, H=H, K=K, max_abs_err=e,
+            ms=timed(lambda: flash_attention(q, k, v, prefix_len=m)),
+            plain_ms=timed(lambda: flash_attention_plain(
+                q, k, v, prefix_len=m), 3), bound_ms=bms, bound_by=by))
+        del q, k, v
+        # contiguous decode: int8 + (K,) scales + the cushion, and fp
+        qd = rnd(B, H, hd)
+        pos = torch.tensor(pos_v, dtype=torch.int32, device=dev)
+        kq = rnd(B, Smax, K, hd, dtype=torch.int8)
+        vq = rnd(B, Smax, K, hd, dtype=torch.int8)
+        sc = lambda *s_: torch.rand(s_, generator=g,  # noqa: E731
+                                    device=dev) * 0.05 + 0.01
+        cu = dict(kc=rnd(m, K, hd), vc=rnd(m, K, hd))
+        kf, vf = rnd(B, Smax, K, hd), rnd(B, Smax, K, hd)
+        for mode, a, kw in (("int8", (qd, kq, vq, pos),
+                             dict(cu, k_scale=sc(K), v_scale=sc(K))),
+                            ("fp", (qd, kf, vf, pos), {})):
+            e = err_within(f"flash_decode {mode} tp={tp}",
+                           flash_decode(*a, **kw),
+                           flash_decode_plain(*a, **kw), TP_DECODE_FLOOR)
+            live = pos_v + 1 - (m if mode == "int8" else 0)
+            cb = 1 if mode == "int8" else 2
+            bms, by = bound_ms(4 * B * H * hd + 2 * B * live * K * hd * cb
+                               + (4 * m * K * hd + 8 * K if mode == "int8"
+                                  else 0),
+                               4.0 * B * H * hd * (pos_v + 1),
+                               BF16_FLOPS_PER_S)
+            rows["flash_decode"].append(dict(
+                tp=tp, H=H, K=K, mode=mode, max_abs_err=e,
+                ms=timed(lambda: flash_decode(*a, **kw)),
+                plain_ms=timed(lambda: flash_decode_plain(*a, **kw), 3),
+                bound_ms=bms, bound_by=by))
+        # paged decode over the pool's 4 slots: (B, K) scales, page 64, a
+        # shuffled table, per-row pos (one row retired)
+        P = Smax // TP_PAGE
+        n_pages = TP_SLOTS * P + 1
+        table = (torch.randperm(n_pages - 1, generator=g, device=dev) + 1) \
+            .to(torch.int32).reshape(TP_SLOTS, P)
+        kp = torch.full((n_pages, TP_PAGE, K, hd), 99, dtype=torch.int8,
+                        device=dev)
+        vp = kp.clone()
+        kp[table.reshape(-1).long()] = kq[:TP_SLOTS].reshape(
+            TP_SLOTS * P, TP_PAGE, K, hd)
+        vp[table.reshape(-1).long()] = vq[:TP_SLOTS].reshape(
+            TP_SLOTS * P, TP_PAGE, K, hd)
+        prows = [m + 256 + 9, m + 320 + 2, 2 * TP_PAGE, -1]
+        prow = torch.tensor(prows, dtype=torch.int32, device=dev)
+        kw = dict(cu, k_scale=sc(TP_SLOTS, K), v_scale=sc(TP_SLOTS, K))
+        a = (qd[:TP_SLOTS], kp, vp, table, prow)
+        e = err_within(f"flash_decode_paged tp={tp}",
+                       flash_decode_paged(*a, **kw),
+                       flash_decode_paged_plain(*a, **kw), TP_DECODE_FLOOR)
+        # the keys this run's rows read: pos + 1 each (none for the
+        # retired row), the cushion's m from the block
+        n_keys = sum(p_ + 1 for p_ in prows if p_ >= 0)
+        n_int8 = n_keys - m * sum(p_ >= 0 for p_ in prows)
+        bms, by = bound_ms(4 * TP_SLOTS * H * hd + 2 * n_int8 * K * hd
+                           + 4 * m * K * hd + 8 * TP_SLOTS * K
+                           + 4 * TP_SLOTS * P,
+                           4.0 * H * hd * n_keys, BF16_FLOPS_PER_S)
+        rows["flash_decode_paged"].append(dict(
+            tp=tp, H=H, K=K, max_abs_err=e,
+            ms=timed(lambda: flash_decode_paged(*a, **kw)),
+            plain_ms=timed(lambda: flash_decode_paged_plain(*a, **kw), 3),
+            bound_ms=bms, bound_by=by))
+        del kq, vq, kf, vf, kp, vp
+
+    # the int matmul: (K, N) of each site at one rank and at a rank of two
+    # (the row-parallel sites' shards are held in the int32 mode above)
+    D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    qkv = (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+    sites = [("qkv", D, qkv, 1), ("qkv", D, qkv // 2, 2),
+             ("up_gate", D, F, 1), ("up_gate", D, F // 2, 2),
+             ("head", D, V, 1), ("head", D, V // 2, 2),
+             ("o", cfg.n_heads * hd, D, 1), ("down", F, D, 1)]
+    sx, zx = (torch.tensor(v_, device=dev) for v_ in (0.031, 111.0))
+    sw = torch.tensor(0.0042, device=dev).to(bf)
+    mm = []
+    for site, Kd, N, tp in sites:
+        w = rnd(Kd, N, dtype=torch.int8)
+        colsum = w.sum(0, dtype=torch.int32)
+        xd = (torch.randn((B, Kd), generator=g, device=dev) * 3).to(bf)
+        xp = torch.randint(-128, 128, (B * S, Kd), generator=g, device=dev,
+                           dtype=torch.int8)
+        for M, f, fp in (
+                (B, lambda: quant_w8a8_matmul(xd, w, sx, zx, sw, colsum,
+                                              out_dtype=bf),
+                 lambda: quant_w8a8_matmul_plain(xd, w, sx, zx, sw, colsum,
+                                                 out_dtype=bf)),
+                (B * S, lambda: w8a8_matmul(xp, w, sx, zx, sw, colsum,
+                                            -128.0, bf),
+                 lambda: w8a8_matmul_plain(xp, w, sx, zx, sw, colsum,
+                                           -128.0, bf))):
+            if not torch.equal(f(), fp()):
+                fail(f"phase 4k w8a8_matmul {site} tp={tp} (K={Kd}, N={N}, "
+                     f"M={M}): not torch.equal to its plain version")
+            if tp == 2 and M == B:
+                bms, by = bound_ms(2 * M * Kd + Kd * N + 4 * N + 2 * M * N,
+                                   2.0 * M * Kd * N, INT8_OPS_PER_S)
+                mm.append(dict(site=site, K=Kd, N=N, M=M,
+                               ms=timed(f), plain_ms=timed(fp, 3),
+                               bound_ms=bms, bound_by=by))
+        del w, xp
+    for name, r in rows.items():
+        log(f"phase 4k {name} at G = 8, hd 128 against its plain version: "
+            + ", ".join(f"tp={x['tp']} {x.get('mode', '')} H={x['H']} "
+                        f"K={x['K']} max |err| {x['max_abs_err']:.3g}, "
+                        f"{x['ms']:.4f} ms (plain {x['plain_ms']:.4f}, "
+                        f"bound {x['bound_ms']:.4f})" for x in r))
+    log(f"phase 4k w8a8_matmul: {len(sites)} sites x 2 M torch.equal to the "
+        f"plain version; a rank's column shards at decode (ms): "
+        + ", ".join(f"{x['site']} N={x['N']} {x['ms']:.4f} (plain "
+                    f"{x['plain_ms']:.4f}, bound {x['bound_ms']:.4f})"
+                    for x in mm))
+    for name, r in rows.items():
+        two = [x for x in r if x["tp"] == 2]
+        out[name] = {
+            "checked_unit": "deepseek-67b at G = 8, head_dim 128, at one "
+                            "rank and at a rank of tp = 2 (random inputs "
+                            "at the runs' shapes)",
+            "checked_max_abs_err": max(x["max_abs_err"] for x in r),
+            "rank_unit": "a rank of tp = 2: " + ", ".join(
+                f"{x.get('mode', '')} H={x['H']} K={x['K']}".strip()
+                for x in two),
+            "rank_ms": sum(x["ms"] for x in two),
+            "rank_plain_ms": sum(x["plain_ms"] for x in two),
+            "rank_bound_ms": sum(x["bound_ms"] for x in two)}
+    out["w8a8_matmul"] = {
+        "checked_sites": [f"{s_} K={k_} N={n_} tp={t_}"
+                          for s_, k_, n_, t_ in sites],
+        "checked_max_abs_err": 0.0,
+        "shard_unit": f"the column-parallel sites of one layer and the head "
+                      f"at a rank of tp = 2, M={B}, bf16 x quantized in the "
+                      f"staging (up_gate twice)",
+        "shard_ms": sum(x["ms"] * (2 if x["site"] == "up_gate" else 1)
+                        for x in mm),
+        "shard_plain_ms": sum(x["plain_ms"] * (2 if x["site"] == "up_gate"
+                                               else 1) for x in mm),
+        "shard_bound_ms": sum(x["bound_ms"] * (2 if x["site"] == "up_gate"
+                                               else 1) for x in mm)}
+    return out
+
+
 def tree_map(fn, t):
     """fn on every tensor of a tree of dicts, lists and SiteScale leaves."""
     from repro_torch.core.quantization import SiteScale
@@ -4359,6 +4903,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("train")
 
+    # 4k. tensor-parallel serving, deepseek-67b at full width ------------
+    record["tp"] = tp_phase(dev, timed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("tp")
+
     # 5. card vs the port's CPU engine on the same weights --------------
     cpu = lambda t: t.detach().cpu()       # noqa: E731
     cpu_api = build(cfg, "cpu")
@@ -4669,8 +5219,10 @@ def main() -> None:
             kk["router_launches"] = record["router"]["launches"][kk["name"]]
         # the kernel's launches and rows at olmoe's (phase 4e), internvl2's
         # (4f), jamba's (4g), whisper-base's (4h) and xlstm-350m's (4i)
-        # shapes, beside smollm's; smollm's training run (4j)
-        for tag in ("moe", "vlm", "hybrid", "encdec", "xlstm", "train"):
+        # shapes, beside smollm's; smollm's training run (4j); rank 0 of
+        # deepseek-67b's tensor-parallel runs (4k)
+        for tag in ("moe", "vlm", "hybrid", "encdec", "xlstm", "train",
+                    "tp"):
             if record[tag]["launches"].get(kk["name"]):
                 kk[f"{tag}_launches"] = record[tag]["launches"][kk["name"]]
             kk.update({f"{tag}_{k_}": v for k_, v in

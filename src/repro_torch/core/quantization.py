@@ -10,6 +10,15 @@ integer, which runs the static activation quantizer and ``w8a8_matmul``
 group-wise scales, W4A8) on the card: one launch at decode, whose A
 staging quantizes the activation, or ``act_quant_static`` and the matmul.
 
+Under tensor parallelism (``distributed/collectives.py``, a mesh of more
+than one rank active) a weight is the rank's shard: its per-tensor range
+is the whole weight's (``pmax``), and a row-parallel site (``wo``,
+``w_down``: the contracting axis sharded) sums the ranks' partial
+products, int32 accumulators where the product is W8A8 (exact, with the
+epilogue applied once to the sum) and f32 otherwise. Dynamic activation
+ranges (``pt_dynamic``, ``ptoken_dynamic``) and W4A8 are not sharded yet
+(ROADMAP queue 1, item 6.4) and raise there.
+
 Type promotion follows JAX, not PyTorch: JAX promotes a bf16 array against
 a 0-dim f32 array to f32, PyTorch keeps bf16. ``_promote`` casts both
 operands of each mixed binary step to the JAX result type, so quantized
@@ -23,10 +32,14 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import QuantConfig
+from repro_torch.distributed import collectives as DC
 from repro_torch.kernels.act_quant import act_quant_ptoken
 from repro_torch.kernels.w4a8_matmul import unpack_int4  # noqa: F401 (the reference's name)
 from repro_torch.kernels.w4a8_matmul import quant_w4a8_matmul, w4a8_matmul
-from repro_torch.kernels.w8a8_matmul import quant_w8a8_matmul, w8a8_matmul
+from repro_torch.kernels.w8a8_matmul import (quant_w8a8_matmul, w8a8_epilogue,
+                                             w8a8_matmul)
+
+_TP_LATER = "(ROADMAP queue 1, item 6.4)"
 
 Tensor = torch.Tensor
 
@@ -146,17 +159,29 @@ def act_fake_quant(x: Tensor, cfg: QuantConfig,
 # Weight quantization: symmetric, group-wise along the contracting dim
 # ---------------------------------------------------------------------------
 
-def weight_fake_quant(w: Tensor, cfg: QuantConfig) -> Tensor:
-    """w: (..., d_in, d_out); groups tile the d_in (contracting) axis."""
+def weight_fake_quant(w: Tensor, cfg: QuantConfig,
+                      row_parallel: bool = False) -> Tensor:
+    """w: (..., d_in, d_out); groups tile the d_in (contracting) axis.
+    ``row_parallel``: w is a rank's rows of a weight whose d_in is sharded;
+    groups follow the whole weight's d_in (a group over all of it takes
+    the ranks' max)."""
     if cfg.mode == "none" and not cfg.true_int8:
         return w
     if cfg.w_bits >= 16:
         return w
     d_in = w.shape[-2]
-    g = cfg.w_group if cfg.w_group and d_in % cfg.w_group == 0 else d_in
+    d_all = d_in * (DC.tp_size() if row_parallel else 1)
+    whole = not (cfg.w_group and d_all % cfg.w_group == 0)
+    g = d_all if whole else cfg.w_group
+    if d_in % g and not whole:
+        raise ValueError(f"weight groups of {g} rows straddle the shards of "
+                         f"{d_in} rows: not sharded yet {_TP_LATER}")
+    g = min(g, d_in)
     shp = w.shape
     wg = w.reshape(*shp[:-2], d_in // g, g, shp[-1])
     amax = wg.abs().amax(dim=-2, keepdim=True)
+    if whole and row_parallel:
+        amax = DC.pmax(amax)
     scale, zero = params_from_minmax(-amax, amax, cfg.w_bits, True)
     return fake_quant(wg, scale, zero, cfg.w_bits, True).reshape(shp)
 
@@ -164,8 +189,9 @@ def weight_fake_quant(w: Tensor, cfg: QuantConfig) -> Tensor:
 def weight_quant_int(w: Tensor, cfg: QuantConfig) -> Tuple[Tensor, Tensor]:
     """One per-tensor weight scale (the dequant is one scalar multiply in
     the matmul epilogue). Returns (w_int8, scale); the scale keeps the
-    weight's dtype, as in JAX."""
-    amax = w.abs().amax()
+    weight's dtype, as in JAX. A rank's shard takes the whole weight's
+    range."""
+    amax = DC.pmax(w.abs().amax())
     scale, _ = params_from_minmax(-amax, amax, cfg.w_bits, True)
     zero = torch.zeros((), dtype=torch.float32, device=w.device)
     wq = quantize(w, scale, zero, cfg.w_bits, True).to(torch.int8)
@@ -222,7 +248,8 @@ def _weight_scale(t: Tensor) -> Tensor:
 
 
 def _static_int_matmul(x: Tensor, w: Dict[str, Tensor], s_x: Tensor,
-                       z_x: Tensor, cfg: QuantConfig) -> Tensor:
+                       z_x: Tensor, cfg: QuantConfig,
+                       row_parallel: bool = False) -> Tensor:
     """x quantized with a per-tensor scale and zero, times an int weight:
     ``w_int`` (int8, one scale, int32 ``colsum``; W8A8) or ``w_packed``
     (int4 nibbles, group-wise scales, scaled f32 ``colsum``; W4A8).
@@ -242,7 +269,10 @@ def _static_int_matmul(x: Tensor, w: Dict[str, Tensor], s_x: Tensor,
     The reference's W4A8 routes (a folded-scale f32 GEMM, the Pallas
     per-block accumulation) agree with each other to f32 accumulation, not
     bit for bit; this one sums exact per-group int32 partials in group
-    order. Dynamic ranges of a bf16 activation stay bf16 (``pt_dynamic``
+    order. A row-parallel site under tensor parallelism (W8A8, 8-bit
+    asymmetric codes) takes the int32 accumulator of its shard, sums it
+    over the ranks and applies the epilogue once, with ``w["colsum"]`` the
+    whole weight's. Dynamic ranges of a bf16 activation stay bf16 (``pt_dynamic``
     under true int8): the codes are then ``quantize``'s tensor ops in bf16,
     as the reference computes them with jnp outside its kernels, and the
     int matmul runs on them. Symmetric or narrower codes have no kernel:
@@ -257,8 +287,20 @@ def _static_int_matmul(x: Tensor, w: Dict[str, Tensor], s_x: Tensor,
     od = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
     s_w = _weight_scale(w["w_scale"])
     x2 = x.reshape(-1, K)
-    if (not cfg.symmetric_a and cfg.a_bits == 8
-            and s_x.dtype == torch.float32 and z_x.dtype == torch.float32):
+    kernel_codes = (not cfg.symmetric_a and cfg.a_bits == 8
+                    and s_x.dtype == torch.float32
+                    and z_x.dtype == torch.float32)
+    if row_parallel and DC.tp_size() > 1:
+        if packed or not kernel_codes:
+            raise ValueError("a row-parallel site shards W8A8 with 8-bit "
+                             "asymmetric static codes only; W4A8 and other "
+                             f"codes are not sharded yet {_TP_LATER}")
+        acc = quant_w8a8_matmul(x2.contiguous(), w["w_int"], s_x, z_x, s_w,
+                                None, out_dtype=torch.int32)
+        out = w8a8_epilogue(DC.psum(acc), s_x, z_x, s_w, w["colsum"],
+                            -128.0, od)
+        return out.reshape(*lead, N).to(x.dtype)
+    if kernel_codes:
         x2 = x2.contiguous()
         if packed:
             out = quant_w4a8_matmul(x2, w["w_packed"], s_x, z_x, s_w,
@@ -313,13 +355,19 @@ def _ptoken_int_matmul(x: Tensor, wq: Tensor, s_w: Tensor, s_x: Tensor,
 
 
 def true_int_dot(x: Tensor, w: Tensor, cfg: QuantConfig,
-                 site: Optional[SiteScale]) -> Tensor:
+                 site: Optional[SiteScale],
+                 row_parallel: bool = False) -> Tensor:
     """int8 x int8 -> int32 matmul with the dequant in its epilogue; the
     weight is quantized on every call (``prequantized_int_dot`` is the
     int8-resident variant). A per-tensor range (``pt_static``,
     ``pt_dynamic``) takes the scalar epilogue of ``_static_int_matmul``,
     ``ptoken_dynamic``'s per-row ranges the per-row one of
-    ``_ptoken_int_matmul``."""
+    ``_ptoken_int_matmul``. A rank's shard is quantized with the whole
+    weight's range; a row-parallel shard's ``colsum`` is summed over the
+    ranks."""
+    if cfg.mode != "pt_static" and DC.tp_size() > 1:
+        raise ValueError(f"{cfg.mode}: dynamic activation ranges are not "
+                         f"sharded yet {_TP_LATER}")
     wq, s_w = weight_quant_int(w, cfg)
     if cfg.mode == "pt_static":
         if site is None:
@@ -330,13 +378,17 @@ def true_int_dot(x: Tensor, w: Tensor, cfg: QuantConfig,
         s_x, z_x = params_from_minmax(mn, mx, cfg.a_bits, cfg.symmetric_a)
     if cfg.mode == "ptoken_dynamic":
         return _ptoken_int_matmul(x, wq, s_w, s_x, z_x, cfg)
+    colsum = wq.sum(0, dtype=torch.int32)
+    if row_parallel:
+        colsum = DC.psum(colsum)
     return _static_int_matmul(
-        x, {"w_int": wq.contiguous(), "w_scale": s_w,
-            "colsum": wq.sum(0, dtype=torch.int32)}, s_x, z_x, cfg)
+        x, {"w_int": wq.contiguous(), "w_scale": s_w, "colsum": colsum},
+        s_x, z_x, cfg, row_parallel)
 
 
 def prequantized_int_dot(x: Tensor, w: Dict[str, Tensor], cfg: QuantConfig,
-                         site: Optional[SiteScale]) -> Tensor:
+                         site: Optional[SiteScale],
+                         row_parallel: bool = False) -> Tensor:
     """Serving path with integer-resident weights; needs calibrated static
     scales. Two formats, told apart by key: ``w_int`` (int8, W8A8) and
     ``w_packed`` (int4 nibbles, group-wise scales, W4A8), both through
@@ -346,7 +398,7 @@ def prequantized_int_dot(x: Tensor, w: Dict[str, Tensor], cfg: QuantConfig,
             "prequantized (int8-resident) weights serve the pt_static "
             "deployment path only and need calibrated site scales; got "
             f"mode={cfg.mode!r}, site={'set' if site is not None else None}")
-    return _static_int_matmul(x, w, site.scale, site.zero, cfg)
+    return _static_int_matmul(x, w, site.scale, site.zero, cfg, row_parallel)
 
 
 def prequantize(w: Tensor, cfg: QuantConfig,
@@ -418,27 +470,44 @@ def prequantize_tree(params: Any, cfg: QuantConfig, min_ndim: int = 2,
     return visit(params)
 
 
+def _sum_rows(y: Tensor) -> Tensor:
+    """A row-parallel site's partial products summed over the ranks, in
+    f32, rounded once to y's dtype."""
+    if DC.tp_size() == 1:
+        return y
+    return DC.psum(y.float()).to(y.dtype)
+
+
 def qdot(x: Tensor, w: Any, cfg: QuantConfig,
-         site: Optional[SiteScale] = None, groups: int = 1) -> Tensor:
+         site: Optional[SiteScale] = None, groups: int = 1,
+         row_parallel: bool = False) -> Tensor:
     """Quantized x @ w. ``w`` is (d_in, d_out) or a prequantized dict.
     ``groups`` > 1: x stacks that many independent tensors along its
     leading axis, each fake-quantized with its own dynamic range (the
-    integer paths take one range and refuse it)."""
+    integer paths take one range and refuse it). ``row_parallel``: under
+    tensor parallelism x and w are the rank's shards of the contracting
+    axis, and the ranks' partial products are summed (see the module
+    docstring); it changes nothing on one rank."""
     if isinstance(w, dict):
         if groups > 1:
             raise ValueError("integer-resident weights serve one tensor "
                              "at a time (groups=1)")
-        return prequantized_int_dot(x, w, cfg, site)
+        return prequantized_int_dot(x, w, cfg, site, row_parallel)
     if cfg.mode == "none":
-        return x @ w
+        y = x @ w
+        return _sum_rows(y) if row_parallel else y
     if cfg.true_int8 and w.dim() == 2 and cfg.a_bits == 8 and cfg.w_bits == 8:
         if groups > 1 and cfg.mode != "pt_static":
             raise ValueError("the true int8 matmul takes one dynamic range "
                              "(groups=1)")
-        return true_int_dot(x, w, cfg, site)
+        return true_int_dot(x, w, cfg, site, row_parallel)
+    if cfg.mode != "pt_static" and DC.tp_size() > 1:
+        raise ValueError(f"{cfg.mode}: dynamic activation ranges are not "
+                         f"sharded yet {_TP_LATER}")
     xq = act_fake_quant(x, cfg, site.scale if site is not None else None,
                         site.zero if site is not None else None, groups)
-    return xq @ weight_fake_quant(w, cfg)
+    y = xq @ weight_fake_quant(w, cfg, row_parallel)
+    return _sum_rows(y) if row_parallel else y
 
 
 # ---------------------------------------------------------------------------

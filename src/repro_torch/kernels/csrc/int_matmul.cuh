@@ -235,6 +235,19 @@ __device__ __forceinline__ void store4(void* __restrict__ out, int bf16,
     if (n + j < N) store1(out, bf16, i + j, v[j]);
 }
 
+// W8A8's int32 output mode (out_kind 2): the accumulators, no epilogue
+__device__ __forceinline__ void store4i(void* __restrict__ out, int m, int n,
+                                        int N, bool vec, const int* a) {
+  int* o = static_cast<int*>(out) + (size_t)m * N + n;
+  if (vec && n + 4 <= N) {
+    *reinterpret_cast<int4*>(o) = make_int4(a[0], a[1], a[2], a[3]);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (n + j < N) o[j] = a[j];
+}
+
 // ---------------------------------------------------------------------------
 // Regime 1: M > 16, tensor-core tiles
 // ---------------------------------------------------------------------------
@@ -247,7 +260,7 @@ int_matmul_mma(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                const void* __restrict__ sw, int sw_bf16,
                const void* __restrict__ colsum, const float* __restrict__ sx,
                const float* __restrict__ zx, float z_shift,
-               void* __restrict__ out, int out_bf16, int M, int N, int K,
+               void* __restrict__ out, int out_kind, int M, int N, int K,
                int group) {
   // per stage: A (BM rows of BK bytes, padded) and B's raw rows (BK int8
   // rows or BK / 2 packed rows of BN bytes, 16-byte chunks swizzled)
@@ -401,10 +414,13 @@ int_matmul_mma(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int n = out_col(j, e);
-      cs[j][e] = n < N ? colsum_at<PACKED>(colsum, n) : 0.0f;
+      // (the int32 mode reads no colsum: it may be null)
+      cs[j][e] = (n < N && out_kind != 2) ? colsum_at<PACKED>(colsum, n)
+                                          : 0.0f;
       s1[j][e] = (PACKED && !FOLD && n < N) ? ld_scale(sw, n, sw_bf16)
                                              : 0.0f;
     }
+  const int out_bf16 = out_kind == 1;
   const int align = out_bf16 ? 8 : 16;
   const bool vec = (N % 4 == 0) &&
                    (reinterpret_cast<uintptr_t>(out) % align == 0);
@@ -417,6 +433,15 @@ int_matmul_mma(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
       if (m >= M) continue;
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
+        if constexpr (!PACKED) {
+          if (out_kind == 2) {
+            int a4[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) a4[j] = acc[i][j][2 * hh + e];
+            store4i(out, m, out_col(0, e), N, vec, a4);
+            continue;
+          }
+        }
         float v[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -516,7 +541,7 @@ int_matmul_stream(const XT* __restrict__ x, const int8_t* __restrict__ w,
                   const void* __restrict__ sw, int sw_bf16,
                   const void* __restrict__ colsum,
                   const float* __restrict__ sx, const float* __restrict__ zx,
-                  float z_shift, void* __restrict__ out, int out_bf16, int M,
+                  float z_shift, void* __restrict__ out, int out_kind, int M,
                   int N, int K, int group, int cs, int cpg,
                   int* __restrict__ ws) {
   __shared__ __align__(16) int8_t As[16 * D_ALD];
@@ -608,9 +633,12 @@ int_matmul_stream(const XT* __restrict__ x, const int8_t* __restrict__ w,
 
   const float z = __fadd_rn(*zx, z_shift);
   const float scale = out_scale<PACKED>(sx, sw, sw_bf16);
+  const int out_bf16 = out_kind == 1;
+  const bool out_acc = !PACKED && out_kind == 2;   // int32 accumulators
   const int nn = n0 + tid;                     // this thread's column
   const bool live = nn < N;
-  const float csum = live ? colsum_at<PACKED>(colsum, nn) : 0.0f;
+  const float csum =
+      (live && !out_acc) ? colsum_at<PACKED>(colsum, nn) : 0.0f;
   const int total = G * cpg;
   if (total == 1) {
     if (live) {
@@ -619,8 +647,11 @@ int_matmul_stream(const XT* __restrict__ x, const int8_t* __restrict__ w,
         const int a = red[r * D_BN + tid];
         const float f =
             PACKED ? __fadd_rn(0.0f, __fmul_rn(__int2float_rn(a), s_g)) : 0.0f;
-        store1(out, out_bf16, (size_t)r * N + nn,
-               dequant<PACKED>(a, f, z, scale, csum));
+        if (out_acc)
+          static_cast<int*>(out)[(size_t)r * N + nn] = a;
+        else
+          store1(out, out_bf16, (size_t)r * N + nn,
+                 dequant<PACKED>(a, f, z, scale, csum));
       }
     }
     return;
@@ -678,10 +709,14 @@ int_matmul_stream(const XT* __restrict__ x, const int8_t* __restrict__ w,
         }
       }
 #pragma unroll
-      for (int v = 0; v < 4; ++v)
-        if (r0 + v < M)
+      for (int v = 0; v < 4; ++v) {
+        if (r0 + v >= M) continue;
+        if (out_acc)
+          static_cast<int*>(out)[(size_t)(r0 + v) * N + nn] = a[v];
+        else
           store1(out, out_bf16, (size_t)(r0 + v) * N + nn,
                  dequant<PACKED>(a[v], f[v], z, scale, csum));
+      }
     }
   }
   if (tid == 0) tickets[tile] = 0;
@@ -695,15 +730,20 @@ static long long workspace_elems(int M, int N, int K, int group) {
 
 // the regime for M: tensor-core tiles above 16 rows, split-K streaming at
 // or below. x_kind: 0 int8 codes; 1 f32 or 2 bf16 activations, quantized
-// in the decode regime's staging (M <= 16 only). ws: workspace_elems int32
-// zeros (the decode regime leaves them zero).
+// in the decode regime's staging (M <= 16 only). out_kind: 0 f32, 1 bf16,
+// 2 (W8A8 only) the int32 accumulators with no epilogue (the row-parallel
+// sites of tensor parallelism sum them over the ranks first; colsum, the
+// scales and z_shift are then not read). ws: workspace_elems int32 zeros
+// (the decode regime leaves them zero).
 template <bool PACKED>
 static int int_matmul_launch(const void* x, int x_kind, const void* w,
                              const void* sw, int sw_bf16, const void* colsum,
                              const void* sx, const void* zx, float z_shift,
-                             void* out, int out_bf16, int M, int N, int K,
+                             void* out, int out_kind, int M, int N, int K,
                              int group, void* ws, cudaStream_t st) {
   if (x_kind < 0 || x_kind > 2 || (x_kind != 0 && M > D_MAX_M))
+    return (int)cudaErrorInvalidValue;
+  if (out_kind < 0 || out_kind > 2 || (PACKED && out_kind == 2))
     return (int)cudaErrorInvalidValue;
   if (M == 0 || N == 0) return 0;
   if (M > D_MAX_M) {
@@ -713,7 +753,7 @@ static int int_matmul_launch(const void* x, int x_kind, const void* w,
       if (K / group > 1) kernel = int_matmul_mma<true, true>;
     kernel<<<grid, P_THREADS, 0, st>>>(
         (const int8_t*)x, (const int8_t*)w, sw, sw_bf16, colsum,
-        (const float*)sx, (const float*)zx, z_shift, out, out_bf16, M, N, K,
+        (const float*)sx, (const float*)zx, z_shift, out, out_kind, M, N, K,
         group);
   } else {
     const int tiles = (N + D_BN - 1) / D_BN, G = K / group;
@@ -729,7 +769,7 @@ static int int_matmul_launch(const void* x, int x_kind, const void* w,
       using XT = decltype(xt);
       int_matmul_stream<PACKED, XT><<<grid, D_THREADS, 0, st>>>(
           (const XT*)x, (const int8_t*)w, sw, sw_bf16, colsum,
-          (const float*)sx, (const float*)zx, z_shift, out, out_bf16, M, N,
+          (const float*)sx, (const float*)zx, z_shift, out, out_kind, M, N,
           K, group, cs, cpg, (int*)ws);
     };
     if (x_kind == 0) launch(int8_t{});

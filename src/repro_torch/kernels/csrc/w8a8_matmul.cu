@@ -24,15 +24,18 @@
 
 // x_kind: 0 int8 codes; 1 f32 or 2 bf16 activations quantized with s_x,
 // z_x in the decode staging (M <= 16 only; act_quant_static's codes).
+// out_kind: 0 f32, 1 bf16, 2 int32 acc with no epilogue (colsum unread:
+// may be null; the row-parallel sites of tensor parallelism sum acc over
+// the ranks and apply the epilogue once, in the order above).
 // ws: int_matmul_workspace_elems(M, N, K, K) int32 zeros (left zero)
 extern "C" int w8a8_matmul_launch(const void* x, int x_kind, const void* w,
                                   const void* colsum, const void* sx,
                                   const void* zx, const void* sw,
                                   int sw_bf16, float z_shift, void* out,
-                                  int out_bf16, int M, int N, int K,
+                                  int out_kind, int M, int N, int K,
                                   void* ws, void* stream) {
   return imm::int_matmul_launch<false>(x, x_kind, w, sw, sw_bf16, colsum,
-                                       sx, zx, z_shift, out, out_bf16, M, N,
+                                       sx, zx, z_shift, out, out_kind, M, N,
                                        K, K, ws, (cudaStream_t)stream);
 }
 

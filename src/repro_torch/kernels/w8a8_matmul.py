@@ -12,6 +12,13 @@ launches ``csrc/w8a8_matmul.cu``; a CPU tensor takes ``w8a8_matmul_plain``.
 ``quant_w8a8_matmul(x, ...)`` takes the f32 / bf16 activation and the
 site's static scale and zero instead of the codes: the serving path's one
 call per site (``core/quantization.py``).
+
+``out_dtype=torch.int32`` returns the exact accumulator ``x_int @ w_int``
+with no epilogue (``colsum`` is then not read). Tensor parallelism's
+row-parallel sites (``wo``, ``w_down``) take it: the ranks sum their
+int32 partials, which is exact, and ``w8a8_epilogue`` applies the
+epilogue once to the sum with the whole weight's ``colsum``, in the
+kernel's order, so a sharded W8A8 layer computes what the whole one does.
 """
 from __future__ import annotations
 
@@ -44,6 +51,19 @@ def int_product_exact(xq: torch.Tensor, w_int: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def w8a8_epilogue(acc: torch.Tensor, s_x: torch.Tensor, z_x: torch.Tensor,
+                  s_w: torch.Tensor, colsum: torch.Tensor,
+                  z_shift: float = 0.0,
+                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``(float(acc) - z * float(colsum)) * (s_x * s_w)``, z = z_x +
+    z_shift, one rounding a step in the kernel's order (each step a tensor
+    op of its own: nothing contracts into a fused multiply-add), on any
+    device."""
+    z = z_x.float() + z_shift
+    out = (acc.float() - z * colsum.float()) * (s_x.float() * s_w.float())
+    return out.to(out_dtype)
+
+
 def w8a8_matmul_plain(x_int: torch.Tensor, w_int: torch.Tensor,
                       s_x: torch.Tensor, z_x: torch.Tensor,
                       s_w: torch.Tensor,
@@ -51,18 +71,21 @@ def w8a8_matmul_plain(x_int: torch.Tensor, w_int: torch.Tensor,
                       z_shift: float = 0.0,
                       out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain PyTorch version (``ref.w8a8_matmul_ref`` with the epilogue of
-    ``quantization._int8_matmul``)."""
+    ``quantization._int8_matmul``); ``out_dtype=torch.int32`` returns the
+    accumulator."""
     acc = int_product_exact(x_int, w_int)
+    if out_dtype == torch.int32:
+        return acc
     if colsum is None:
         colsum = w_int.to(torch.int32).sum(0)
-    z = z_x.float() + z_shift
-    out = (acc.float() - z * colsum.float()) * (s_x.float() * s_w.float())
-    return out.to(out_dtype)
+    return w8a8_epilogue(acc, s_x, z_x, s_w, colsum, z_shift, out_dtype)
 
 
 SCALE_DTYPES = (torch.float32, torch.bfloat16)
 # the kernels' A operand: int8 codes, or an activation they quantize
 X_KINDS = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
+# what the kernel writes: the epilogue's f32 or bf16, or the int32 acc
+OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 
 
 @functools.cache
@@ -128,24 +151,29 @@ def _launch(x: torch.Tensor, w_int: torch.Tensor, s_x: torch.Tensor,
         raise ValueError("w8a8_matmul takes contiguous operands")
     if (x.dtype == torch.int8 and x.data_ptr() % 4) or w_int.data_ptr() % 4:
         raise ValueError("w8a8_matmul int8 operands must be 4-byte aligned")
-    if colsum is None:
+    if out_dtype not in OUT_KINDS:
+        raise ValueError(f"out_dtype must be f32, bf16 or int32, got "
+                         f"{out_dtype}")
+    acc_only = out_dtype == torch.int32
+    if colsum is None and not acc_only:
         colsum = w_int.sum(0, dtype=torch.int32)
-    if colsum.dtype != torch.int32 or colsum.shape != (N,) \
-            or not colsum.is_contiguous():
+    if colsum is not None and (colsum.dtype != torch.int32
+                               or colsum.shape != (N,)
+                               or not colsum.is_contiguous()):
         raise ValueError("colsum must be contiguous int32 (N,)")
     _check_scalar(s_x, "s_x")
     _check_scalar(z_x, "z_x")
     _check_scalar(s_w, "s_w", SCALE_DTYPES)
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"out_dtype must be f32 or bf16, got {out_dtype}")
-    _lib.require_cuda(x, w_int, colsum, s_x, z_x, s_w)
+    _lib.require_cuda(x, w_int, s_x, z_x, s_w,
+                      *(() if colsum is None else (colsum,)))
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     ws = workspace(x, M, N, K, K)
     code = _lib.lib().w8a8_matmul_launch(
-        x.data_ptr(), X_KINDS[x.dtype], w_int.data_ptr(), colsum.data_ptr(),
+        x.data_ptr(), X_KINDS[x.dtype], w_int.data_ptr(),
+        0 if colsum is None else colsum.data_ptr(),
         s_x.data_ptr(), z_x.data_ptr(), s_w.data_ptr(),
         int(s_w.dtype == torch.bfloat16), float(z_shift), out.data_ptr(),
-        int(out_dtype == torch.bfloat16), M, N, K, ws.data_ptr(),
+        OUT_KINDS[out_dtype], M, N, K, ws.data_ptr(),
         _lib.stream_ptr(x))
     _lib.check(code, "w8a8_matmul")
     _lib.count("w8a8_matmul")
@@ -161,7 +189,7 @@ def w8a8_matmul(x_int: torch.Tensor, w_int: torch.Tensor, s_x: torch.Tensor,
     """x_int: (M, K) int8; w_int: (K, N) int8; s_x, z_x: one-element f32
     tensors; s_w: one f32 or bf16 element; colsum: (N,) int32 column sums of ``w_int`` (computed when
     absent). Returns (M, N) in ``out_dtype`` (f32 or bf16, rounded once from
-    the f32 epilogue)."""
+    the f32 epilogue; int32: the accumulator, no epilogue)."""
     if x_int.device.type == "cpu":
         return w8a8_matmul_plain(x_int, w_int, s_x, z_x, s_w, colsum,
                                  z_shift, out_dtype)

@@ -30,6 +30,19 @@ domain: a real device fault fails them all.
     python -m repro_torch.launch.serve --mode continuous --replicas 3 \
         --chaos crash@replica1.step:6
 
+``--tp N`` serves a dense model tensor-parallel over N ranks
+(``launch/mesh.spawn_tp``: one process a rank, on ``cuda:{r % cards}``,
+NCCL where every rank has a card of its own, else gloo, which it prints),
+through either engine and pool; rank 0 prints the ``[serve]`` lines. Every
+rank makes the same weights from ``--seed``, builds and quantizes the whole
+model, and keeps its shard, so the whole model must fit on one card today
+(ROADMAP queue 1, item 6.9). W4A8,
+``pt_dynamic``, ``ptoken_dynamic``, the other families and ``--replicas``
+stop with the reason (ROADMAP queue 1, items 6.2-6.4):
+
+    python -m repro_torch.launch.serve --device cpu --tp 2 --quant \
+        pt_static --prequant --kv-dtype int8 --cushion-len 4
+
 Weights are random, made from ``--seed``. The cushion is ``extract_cushion``
 of ``--cushion-len`` token ids drawn from the seed, or with ``--cushion DIR``
 the latest tuned artifact of a ``launch/tune.py --out-dir`` (of either
@@ -46,6 +59,7 @@ import argparse
 import dataclasses
 import json
 import os
+import sys
 
 import numpy as np
 import torch
@@ -54,9 +68,10 @@ from repro_torch.checkpoint.store import CheckpointManager
 from repro_torch.configs import Family, QuantConfig, get_config
 from repro_torch.data.pipeline import Pipeline, SyntheticCorpus
 from repro_torch.distributed.fault_injection import FaultInjector
+from repro_torch.launch.mesh import spawn_tp
 from repro_torch.models import encdec as ED
 from repro_torch.models.registry import build
-from repro_torch.serving.engine import Engine
+from repro_torch.serving.engine import Engine, check_tp_serving
 from repro_torch.serving.router import ReplicaRouter, RouterConfig
 from repro_torch.serving.scheduler import ContinuousEngine, Request
 
@@ -176,7 +191,7 @@ def _chunk_tokens_arg(v: str):
 
 
 def run_continuous(api, params, qcfg, args, calib_batches=None,
-                   cushion=None, scales=None):
+                   cushion=None, scales=None, mesh=None):
     install_sigterm_drain()
     dev = api.device
     reqs = poisson_trace(api, args.trace_seed, args.n_requests, args.rate,
@@ -192,7 +207,7 @@ def run_continuous(api, params, qcfg, args, calib_batches=None,
                            weight_bits=args.weight_bits, paged=args.paged,
                            page_size=args.page_size, n_pages=args.pages,
                            prefix_cache=args.prefix_cache,
-                           chunk_tokens=args.chunk_tokens)
+                           chunk_tokens=args.chunk_tokens, mesh=mesh)
     if eng.chunk_auto:
         print(f"[serve] chunked prefill: adaptive budget (max "
               f"{eng.chunk_tokens} tokens/chunk)")
@@ -246,6 +261,7 @@ def run_continuous(api, params, qcfg, args, calib_batches=None,
         _append_point(args.bench_json, {
             "mode": "continuous", "arch": args.arch, "quant": args.quant,
             "prequant": args.prequant, "weight_bits": args.weight_bits,
+            "tp": args.tp,
             "paged": args.paged,
             "page_size": args.page_size, "prefix_cache": args.prefix_cache,
             "chunk_tokens": args.chunk_tokens, "kv_dtype": args.kv_dtype,
@@ -411,6 +427,10 @@ def main(argv=None):
                          "pt_static scales, if any)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor parallel over N ranks (the dense family; "
+                         "one process a rank, NCCL where every rank has a "
+                         "card, else gloo)")
     ap.add_argument("--bench-json", default=None,
                     help="append a trajectory point to this file")
     args = ap.parse_args(argv)
@@ -431,11 +451,44 @@ def main(argv=None):
         args.trace_seed = args.seed
     if args.cushion and args.cushion_len:
         ap.error("--cushion and --cushion-len are exclusive")
+    if args.tp < 1:
+        ap.error("--tp must be >= 1")
+    if args.tp > 1:
+        if args.replicas > 1 or args.chaos:
+            raise SystemExit("[serve] --tp with --replicas / --chaos: the "
+                             "router's per-replica meshes are not ported "
+                             "yet (ROADMAP queue 1, item 6.2)")
+        try:
+            check_tp_serving(_config(args),
+                             QuantConfig(mode=args.quant), args.tp,
+                             args.weight_bits)
+        except ValueError as e:
+            raise SystemExit(f"[serve] {e}")
+        return spawn_tp(serve_rank, args.tp, args, device=args.device)
+    return serve(args)
 
+
+def _config(args):
     cfg = get_config(args.arch)
     if args.n_layers:
         cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
-    api = build(cfg, args.device)
+    return cfg
+
+
+def serve_rank(mesh, args):
+    """One rank of ``--tp N`` (a ``spawn_tp`` target): ``serve`` on the
+    rank's device and mesh; only rank 0 prints."""
+    if mesh.rank != 0:
+        sys.stdout = open(os.devnull, "w")
+    print(f"[serve] tp={mesh.size} backend={mesh.backend} rank 0 on "
+          f"{mesh.device}")
+    return serve(args, mesh)
+
+
+def serve(args, mesh=None):
+    """Serve as ``args`` say, on ``mesh``'s device and shard when given."""
+    cfg = _config(args)
+    api = build(cfg, args.device if mesh is None else mesh.device)
     dev = api.device
     params = api.init_params(torch.Generator(dev).manual_seed(args.seed))
     qcfg = QuantConfig(mode=args.quant, true_int8=args.quant == "pt_static")
@@ -477,13 +530,14 @@ def main(argv=None):
             return run_router(api, params, qcfg, args, calib_batches=calib,
                               cushion=cushion, scales=art_scales)
         return run_continuous(api, params, qcfg, args, calib_batches=calib,
-                              cushion=cushion, scales=art_scales)
+                              cushion=cushion, scales=art_scales, mesh=mesh)
     batch = to_device(pipe.get_batch(0), dev)
     eng = Engine(api, params, qcfg, max_seq=args.prompt_len + args.tokens + 32,
                  cushion=cushion, scales=art_scales,
                  kv_dtype=None if args.kv_dtype == "fp" else args.kv_dtype,
                  calib_batches=calib, prequant=args.prequant,
-                 weight_bits=args.weight_bits)
+                 weight_bits=args.weight_bits, mesh=mesh)
+    del params
     print(f"[serve] device={dev} "
           f"{torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}"
           f" resident weights: fp={eng.weight_bytes_fp / 2 ** 20:.1f} MiB "
@@ -494,12 +548,14 @@ def main(argv=None):
     res = eng.generate(batch, args.tokens)
     print(f"[serve] B={args.batch} prompt={args.prompt_len} "
           f"gen={args.tokens} kv={args.kv_dtype} m={eng.prefix_len} "
+          f"tp={args.tp} "
           f"TTFT={res.ttft_ms:.1f}ms TPOT={res.tpot_ms:.2f}ms")
     print("[serve] sample:", res.tokens[0][:16].tolist())
     if args.bench_json:
         _append_point(args.bench_json, {
             "mode": "static", "arch": args.arch, "quant": args.quant,
             "prequant": args.prequant, "weight_bits": args.weight_bits,
+            "tp": args.tp,
             "kv_dtype": args.kv_dtype,
             "cushion_len": args.cushion_len, "batch": args.batch,
             "prompt_len": args.prompt_len, "tokens": args.tokens,

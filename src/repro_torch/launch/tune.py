@@ -150,7 +150,7 @@ def main(argv=None):
     if args.dp > 1:
         raise NotImplementedError(
             "--dp > 1: data-parallel tuning is not ported (ROADMAP queue 1 "
-            "item 6, multi-GPU)")
+            "item 6.1, multi-GPU)")
 
     cfg = get_config(args.arch)
     api = build(cfg, args.device)

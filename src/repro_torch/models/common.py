@@ -21,6 +21,15 @@ Conventions
   ``B / groups`` rows (the reference's ``vmap`` over search candidates);
   dynamic per-tensor ranges and L_q reduce per group. 1 (the default) is
   one forward.
+* Tensor parallelism (a mesh of several ranks active,
+  ``distributed/collectives.py``): the config is the rank's
+  (``serving/engine.tp_config``: H/tp query heads, K/tp KV heads, d_ff/tp,
+  vocab/tp) and the parameters its shards, so attention runs on the
+  rank's heads as it is. The row-parallel linears (``wo``, ``w_down``)
+  sum their partial products over the ranks, the embedding looks up the
+  rank's vocabulary rows and sums, the head's vocabulary-sharded logits
+  are gathered (``gather_last``), and decode attention runs
+  ``ops.decode_attention_tp`` / ``decode_attention_tp_paged``.
 """
 from __future__ import annotations
 
@@ -34,6 +43,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig, QuantConfig
 from repro_torch.core import quantization as Q
+from repro_torch.distributed import collectives as DC
 from repro_torch.kernels import ops
 
 Tensor = torch.Tensor
@@ -261,15 +271,18 @@ def get_site(scales: Optional[Params], name: str) -> Optional[Q.SiteScale]:
 
 def qlinear(x: Tensor, w, b: Optional[Tensor], qcfg: QuantConfig,
             scales: Optional[Params], site: str, taps: Optional[Dict],
-            n_skip: int = 0, groups: int = 1) -> Tensor:
-    """y = q(x) @ q(w) + b, recording taps for ``site`` when collecting."""
+            n_skip: int = 0, groups: int = 1,
+            row_parallel: bool = False) -> Tensor:
+    """y = q(x) @ q(w) + b, recording taps for ``site`` when collecting.
+    ``row_parallel``: the site's contracting axis is the one tensor
+    parallelism shards (``wo``, ``w_down``; ``Q.qdot``)."""
     if taps is not None:
         taps[site] = {
             "qerr": Q.site_qerr(x, qcfg, get_site(scales, site), n_skip,
                                 groups),
             **Q.site_stats(x, n_skip),
         }
-    y = Q.qdot(x, w, qcfg, get_site(scales, site), groups)
+    y = Q.qdot(x, w, qcfg, get_site(scales, site), groups, row_parallel)
     if b is not None:
         y = y + b
     return y
@@ -359,7 +372,8 @@ def attention_full(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
     out = ops.attention(q, k, v, causal=causal, prefix_len=m,
                         prefix_live=prefix_valid)
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
-    y = qlinear(out, p["wo"], None, qcfg, scales, "o", taps, n_skip, groups)
+    y = qlinear(out, p["wo"], None, qcfg, scales, "o", taps, n_skip, groups,
+                row_parallel=True)
     if return_kv:
         return y, new_kv
     return y
@@ -439,18 +453,34 @@ def attention_decode_kv(p: Params, x: Tensor, kv: Params, pos: Tensor,
         kv["k"][rows, wpos] = k_wr[:, 0]
         kv["v"][rows, wpos] = v_wr[:, 0]
 
+    # under tensor parallelism the cushion block kc / vc is whole on every
+    # rank, and kc_tp / vc_tp its slice of this rank's heads, made once
     kw = dict(k_scale=kv["k_scale"] if quantized else None,
               v_scale=kv["v_scale"] if quantized else None,
-              kc=kv.get("kc"), vc=kv.get("vc"))
+              kc=kv.get("kc_tp", kv.get("kc")),
+              vc=kv.get("vc_tp", kv.get("vc")))
     q1 = q[:, 0].contiguous()
-    if paged:
+    mesh = DC.active() if DC.tp_size() > 1 else None
+    if paged and mesh is not None:
+        out = ops.decode_attention_tp_paged(q1, kv["k"], kv["v"],
+                                            kv["page_table"], pos, mesh, **kw)
+    elif paged:
         out = ops.decode_attention_paged(q1, kv["k"], kv["v"],
                                          kv["page_table"], pos, **kw)
+    elif mesh is not None:
+        out = ops.decode_attention_tp(q1, kv["k"], kv["v"], pos, mesh, **kw)
     else:
         out = ops.decode_attention(q1, kv["k"], kv["v"], pos, **kw)
     out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim)
-    y = qlinear(out, p["wo"], None, qcfg, scales, "o", taps)
+    y = qlinear(out, p["wo"], None, qcfg, scales, "o", taps,
+                row_parallel=True)
     return y, kv
+
+
+def local_heads(t: Tensor, n: int, axis: int = -2) -> Tensor:
+    """This rank's ``n`` heads of ``t``'s heads axis (``t`` itself when it
+    holds ``n``: already the rank's, or one rank)."""
+    return ops.rank_heads(t, n, DC.tp_rank(), DC.tp_size(), axis)
 
 
 # ---------------------------------------------------------------------------
@@ -485,7 +515,7 @@ def apply_mlp(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
     else:
         h = F.gelu(up, approximate="tanh")      # jax.nn.gelu's default
     return qlinear(h, p["w_down"], None, qcfg, scales, "down", taps, n_skip,
-                   groups)
+                   groups, row_parallel=True)
 
 
 # ---------------------------------------------------------------------------
@@ -503,7 +533,19 @@ def embed_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def embed_tokens(p: Params, tokens: Tensor, cfg: ModelConfig) -> Tensor:
-    return F.embedding(tokens, p["embed"]["w"])
+    """The tokens' embeddings. Under tensor parallelism the table is the
+    rank's vocabulary rows: each rank looks up the tokens it holds, zeros
+    elsewhere, and the ranks' rows are summed (adding zeros is exact)."""
+    w = p["embed"]["w"]
+    if DC.tp_size() == 1:
+        return F.embedding(tokens, w)
+    n = w.shape[0]
+    local = tokens.long() - DC.tp_rank() * n
+    mine = (local >= 0) & (local < n)
+    e = F.embedding(local.clamp(0, n - 1), w)
+    e = torch.where(mine[..., None], e, torch.zeros((), dtype=e.dtype,
+                                                    device=e.device))
+    return DC.psum(e.float()).to(w.dtype)
 
 
 def lm_head(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
@@ -518,7 +560,8 @@ def lm_head(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
     if taps is not None:
         taps["head"] = {"qerr": Q.site_qerr(x, qcfg, site, n_skip, groups),
                         **Q.site_stats(x, n_skip)}
-    return Q.qdot(x, w, qcfg, site, groups)
+    # under tensor parallelism the rank's vocabulary columns, gathered
+    return DC.gather_last(Q.qdot(x, w, qcfg, site, groups))
 
 
 def cross_entropy(logits: Tensor, labels: Tensor) -> Tensor:

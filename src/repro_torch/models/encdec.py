@@ -253,6 +253,16 @@ def loss_fn(params, tokens: Tensor, labels: Tensor, cfg: ModelConfig,
 # Serving
 # ---------------------------------------------------------------------------
 
+def cache_roles(cfg: ModelConfig, kv_dtype=None,
+                per_slot_scales: bool = False) -> Params:
+    """Serving cache roles, the reference's: self- and cross-attention KV
+    (L, B, S, K, hd) on their heads axis (``kv_dtype`` is unused: this
+    family's KV stays fp). Tensor-parallel serving of this family is not
+    ported yet (ROADMAP queue 1, item 6.3)."""
+    kv = (None, "B", None, "M", None)
+    return {"k": kv, "v": kv, "xk": kv, "xv": kv}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
                dtype=None, kv_dtype=None, prefix_len: int = 0,
                per_slot_scales: bool = False) -> Params:

@@ -278,6 +278,24 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, qcfg: QuantConfig, *,
 # Serving
 # ---------------------------------------------------------------------------
 
+def cache_roles(cfg: ModelConfig, kv_dtype=None,
+                per_slot_scales: bool = False) -> Params:
+    """Serving cache roles, the reference's (``transformer.cache_roles``):
+    attention KV (P, B, S, K, hd) on its heads axis, the Mamba state on
+    its channels (h (P, nm, B, inner, d_state), conv (P, nm, B, d_conv-1,
+    inner)); int8 scales with their heads, the cushion block replicated.
+    Tensor-parallel serving of this family is not ported yet (ROADMAP
+    queue 1, item 6.3)."""
+    kv = (None, "B", None, "M", None)
+    roles = {"k": kv, "v": kv,
+             "h": (None, None, "B", "M", None),
+             "conv": (None, None, "B", None, "M")}
+    if kv_dtype is not None:
+        sc = (None, "B", "M") if per_slot_scales else (None, "M")
+        roles.update({"k_scale": sc, "v_scale": sc, "kc": (), "vc": ()})
+    return roles
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
                dtype=None, kv_dtype=None, prefix_len: int = 0,
                per_slot_scales: bool = False) -> Params:

@@ -68,6 +68,7 @@ SITES = C.ATTN_SITES + C.MLP_SITES  # ("qkv", "o", "mlp_in", "down")
 SUPPORTS_PREFIX_KV_SCORING = True
 
 init_cache = T.init_cache
+cache_roles = T.cache_roles
 cushion_zeros = T.cushion_zeros
 write_cushion_to_cache = T.write_cushion_to_cache
 finalize_staged_kv = T.finalize_staged_kv

@@ -118,6 +118,14 @@ class ModelAPI:
                                    prefix_len=prefix_len,
                                    per_slot_scales=per_slot_scales)
 
+    def cache_roles(self, kv_dtype=None,
+                    per_slot_scales: bool = False) -> Dict[str, Any]:
+        """Every serving cache leaf's sharding roles (leaf name -> axis
+        roles, nested for the xLSTM's state), which
+        ``distributed/sharding.cache_shardings`` resolves on a mesh."""
+        return self.mod.cache_roles(self.cfg, kv_dtype=kv_dtype,
+                                    per_slot_scales=per_slot_scales)
+
     @property
     def cache_batch_axes(self) -> Dict[str, Any]:
         """Batch axis of every per-request cache leaf: the continuous

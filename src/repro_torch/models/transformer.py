@@ -172,10 +172,29 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
             "vc": torch.zeros((L, prefix_len, K, hd), dtype=dt, device=device)}
 
 
+def cache_roles(cfg: ModelConfig, kv_dtype=None,
+                per_slot_scales: bool = False) -> Params:
+    """The serving cache's sharding roles (``distributed/sharding.py``
+    ``cache_shardings``), the reference's: (L, B, S, K, hd) with batch on
+    "B" and the KV heads on "M", so decode attention runs on each rank's
+    heads with no collective; int8 scales shard with their heads; the fp
+    cushion block kc / vc is replicated, whole on every rank (each rank's
+    slice is ``kc_tp`` / ``vc_tp``, made when the cushion is written)."""
+    kv = (None, "B", None, "M", None)
+    roles = {"k": kv, "v": kv}
+    if kv_dtype is not None:
+        sc = (None, "B", "M") if per_slot_scales else (None, "M")
+        roles.update({"k_scale": sc, "v_scale": sc, "kc": (), "vc": ()})
+    return roles
+
+
 def write_cushion_to_cache(cache: Params, cushion: Optional[Params]
                            ) -> Tuple[Params, int]:
     """Put the cushion at positions [0:m): into kc/vc (int8 cache, never
-    quantized) or into every row of the fp cache. In place."""
+    quantized) or into every row of the fp cache. In place. Under tensor
+    parallelism the cushion is the whole artifact: an int8 cache keeps it
+    whole in kc/vc and this rank's heads in kc_tp/vc_tp, an fp cache's rows
+    [0:m) take this rank's heads."""
     if cushion is None:
         return cache, 0
     kv = cushion["kv"]
@@ -186,10 +205,26 @@ def write_cushion_to_cache(cache: Params, cushion: Optional[Params]
                              f"cushion len {m}")
         cache["kc"].copy_(kv["k"])
         cache["vc"].copy_(kv["v"])
+        if "kc_tp" in cache:
+            n = cache["kc_tp"].shape[-2]
+            cache["kc_tp"].copy_(C.local_heads(kv["k"], n))
+            cache["vc_tp"].copy_(C.local_heads(kv["v"], n))
         return cache, m
-    cache["k"][:, :, :m] = kv["k"][:, None].to(cache["k"].dtype)
-    cache["v"][:, :, :m] = kv["v"][:, None].to(cache["v"].dtype)
+    n = cache["k"].shape[-2]
+    cache["k"][:, :, :m] = C.local_heads(kv["k"], n)[:, None].to(
+        cache["k"].dtype)
+    cache["v"][:, :, :m] = C.local_heads(kv["v"], n)[:, None].to(
+        cache["v"].dtype)
     return cache, m
+
+
+def local_cushion(cushion: Optional[Params], cfg: ModelConfig
+                  ) -> Optional[Params]:
+    """The cushion's KV on this rank's heads (itself on one rank)."""
+    if cushion is None:
+        return None
+    n = cfg.n_kv_heads
+    return {"kv": {k: C.local_heads(t, n) for k, t in cushion["kv"].items()}}
 
 
 def write_prompt_kv(cache: Params, ks: Tensor, vs: Tensor, m: int) -> Params:
@@ -268,7 +303,7 @@ def prefill(params, tokens: Tensor, cache: Params, cfg: ModelConfig,
                          "v": cache["v"][:, 0, :m]}, L)
     else:
         cache, m = write_cushion_to_cache(cache, cushion)
-        pre = _cushion_layers(cushion, L)
+        pre = _cushion_layers(local_cushion(cushion, cfg), L)
     positions = m + torch.arange(S, device=x.device)
     lscales = C.resolve_scales(scales, SITES, L, qcfg, x.device)
     ks, vs = [], []

@@ -29,6 +29,7 @@ SITES = T.SITES
 SUPPORTS_PREFIX_KV_SCORING = True
 init_params = T.init_params
 init_cache = T.init_cache
+cache_roles = T.cache_roles
 cushion_zeros = T.cushion_zeros
 decode_step = T.decode_step
 placeholder_all_scales = T.placeholder_all_scales

@@ -357,6 +357,19 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> C.ParamTree:
     return C.ParamTree(p)
 
 
+def cache_roles(cfg: ModelConfig, kv_dtype=None,
+                per_slot_scales: bool = False) -> Params:
+    """Serving roles of the recurrent state, the reference's: batch on
+    "B", the head dim on "M" (``kv_dtype`` is unused: the state is never
+    int8). Tensor-parallel serving of this family is not ported yet
+    (ROADMAP queue 1, item 6.3)."""
+    return {"m": {"C": (None, "B", None, None, "M"),
+                  "n": (None, "B", None, "M"),
+                  "m": (None, "B", None)},
+            "s": {"c": (None, "B", None, "M"), "n": (None, "B", None, "M"),
+                  "h": (None, "B", None, "M"), "m": (None, "B", None, "M")}}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
                dtype=None, kv_dtype=None, prefix_len: int = 0,
                per_slot_scales: bool = False) -> Params:

@@ -13,6 +13,19 @@ replayed once per generated token: the counterpart of the reference's
 jitted ``lax.scan``, the same kernels launched by one ``cudaGraphLaunch``
 per step. The prefill runs eagerly, and so does the step on the CPU.
 
+Tensor parallelism (``mesh``, a ``launch/mesh.TPMesh``; the dense family):
+every rank runs an ``Engine`` on its shard of the model. The quantization
+plan (calibration, ``prequantize_tree``) runs on the whole model on every
+rank, then ``shard_params_for_serving`` keeps the rank's shard; the rank
+serves through its own config (``tp_config``: its heads, its d_ff and
+vocabulary columns) and the collectives of ``distributed/collectives.py``.
+So every rank holds the whole model while it is built and planned: under
+tp > 1 a model must still fit on one card (building and quantizing by
+shard is ROADMAP queue 1, item 6.9). Under tp > 1 the decode step runs eagerly, by design: over gloo a
+collective synchronizes with the host, which a CUDA graph cannot hold
+(capturing NCCL collectives is later work, ROADMAP queue 1, item 6.6).
+One rank (tp = 1) keeps the graph.
+
 Tokens stay on the device through the decode loop; ``generate`` syncs with
 the host twice per request (after prefill: TTFT; after the loop: TPOT).
 Sampled generation runs the step eagerly (a graph would need the sampling
@@ -22,16 +35,19 @@ host loop of the reference, which the graph's tokens are held to.
 from __future__ import annotations
 
 import dataclasses
+import re
 import time
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import QuantConfig
+from repro_torch.configs.base import Family, ModelConfig, QuantConfig
 from repro_torch.core import quantization as Q
 from repro_torch.core.calibration import CalibratedScales
 from repro_torch.core.cushioncache import cushion_fingerprint
+from repro_torch.distributed import collectives as DC
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import common as C
 from repro_torch.monitoring import resident_weight_bytes
 from repro_torch.optim.adamw import tree_leaves
@@ -93,6 +109,177 @@ def plan_quantization(api, params, qcfg: QuantConfig, cushion=None,
     return params, scales
 
 
+def check_tp_serving(cfg: ModelConfig, qcfg: QuantConfig, tp: int,
+                     weight_bits: int = 8) -> None:
+    """Refuse what tensor-parallel serving does not shard yet (the dense
+    family, ``none`` and ``pt_static`` with 8-bit weights, every sharded
+    axis divisible by tp). One rank takes anything."""
+    if tp == 1:
+        return
+    why = item = None
+    if cfg.family != Family.DENSE:
+        why, item = (f"the {cfg.family.value} family serves on one rank "
+                     f"only", "6.3")
+    elif weight_bits != 8:
+        why, item = "W4A8 (int4-packed weights) is not sharded", "6.4"
+    elif qcfg.mode not in ("none", "pt_static"):
+        why, item = (f"{qcfg.mode}: dynamic activation ranges are not "
+                     f"sharded", "6.4")
+    else:
+        dims = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size}
+        bad = [f"{k}={v}" for k, v in dims.items() if v % tp]
+        if bad:
+            why, item = (f"{', '.join(bad)} do not divide by tp; the "
+                         f"reference replicates such leaves, which is not "
+                         f"ported", "6.5")
+    if why is not None:
+        raise ValueError(f"tensor parallelism (tp={tp}): {why} yet "
+                         f"(ROADMAP queue 1, item {item})")
+
+
+def tp_config(cfg: ModelConfig, tp: int) -> ModelConfig:
+    """One rank's config of a dense model over ``tp`` ranks: its H/tp query
+    heads, K/tp KV heads, d_ff/tp and vocab/tp (the head width kept)."""
+    if tp == 1:
+        return cfg
+    return dataclasses.replace(
+        cfg, n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,
+        d_head=cfg.head_dim, d_ff=cfg.d_ff // tp,
+        vocab_size=cfg.vocab_size // tp)
+
+
+# the fused qkv projection's columns (and its bias, int weight and colsum)
+# are [q heads | k heads | v heads]: a rank takes its heads of each
+_QKV = re.compile(r"attn/(wqkv|bqkv)(/w_int|/colsum)?$")
+
+
+def _qkv_columns(cfg: ModelConfig, rank: int, tp: int, device
+                 ) -> torch.Tensor:
+    hd, H, K = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    Hl, Kl = H // tp, K // tp
+    ar = torch.arange
+    return torch.cat([ar(rank * Hl * hd, (rank + 1) * Hl * hd),
+                      H * hd + ar(rank * Kl * hd, (rank + 1) * Kl * hd),
+                      (H + K) * hd + ar(rank * Kl * hd, (rank + 1) * Kl * hd)]
+                     ).to(device)
+
+
+def _leaves(tree: Any):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def tree_checksum(tree: Any) -> torch.Tensor:
+    """(2,) int64 on the leaves' device: the sum of every leaf's 32-bit
+    words (bytes where a leaf's size is not a multiple of 4), and the sum
+    of the odd-indexed ones, in 64 MiB pieces."""
+    total = None
+    piece = 1 << 26
+    for leaf in _leaves(tree):
+        b = leaf.detach().contiguous().reshape(-1).view(torch.uint8)
+        for i in range(0, b.numel(), piece):
+            c = b[i:i + piece]
+            w = c.view(torch.int32) if c.numel() % 4 == 0 else c
+            w = w.to(torch.int64)
+            part = torch.stack([w.sum(), w[1::2].sum()])
+            total = part if total is None else total + part
+    return total
+
+
+def check_same_tree(tree: Any, mesh) -> None:
+    """Every rank holds the same tree: rank 0's checksum, broadcast, equals
+    each rank's (one check at load); all ranks raise together if not."""
+    if mesh.size == 1:
+        return
+    import torch.distributed as dist
+    mine = tree_checksum(tree).to(mesh.device)
+    theirs = mine.clone()
+    dist.broadcast(theirs, src=0, group=mesh.group)
+    ok = torch.tensor([int(torch.equal(mine, theirs))], dtype=torch.int64,
+                      device=mesh.device)
+    dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=mesh.group)
+    if not int(ok.item()):
+        raise RuntimeError("tensor-parallel ranks built different parameter "
+                           "trees (checksums differ): every rank must make "
+                           "the same tree from the same seed")
+
+
+def shard_params_for_serving(params: Any, cfg: ModelConfig, mesh) -> Any:
+    """The rank's shard of a dense parameter tree (quantized whole first,
+    when int-resident), laid out by the reference's serve rules
+    (``distributed/sharding.py``): the sharded axis of each leaf is cut to
+    this rank's 1/tp, every other leaf is replicated. The fused ``wqkv`` /
+    ``bqkv`` columns are cut by heads (the rank's query heads, then its KV
+    heads for k and for v: the layout ``common._split_qkv`` reads), ``wo``'s
+    rows are those query heads', ``w_up`` / ``w_gate`` / the head are cut by
+    columns, ``w_down`` by rows, ``embed`` by vocabulary rows. Of an
+    int-resident weight, ``w_int`` is cut like its parent, ``w_scale`` (the
+    whole weight's) is replicated, ``colsum`` is cut at the column-parallel
+    sites and whole at the row-parallel ones (``wo``, ``w_down``), as the
+    reference's spec. The ranks' trees are checked equal first; the
+    returned shards are copies, so the whole tree can be freed."""
+    params = C.as_tree(params)
+    if mesh.size == 1:
+        return params
+    check_same_tree(params, mesh)
+    return shard_tree(params, cfg, mesh)
+
+
+def shard_tree(params: Any, cfg: ModelConfig, mesh) -> Any:
+    """Rank ``mesh.rank``'s shard of ``params`` of ``mesh.size`` ranks
+    (``shard_params_for_serving`` without its check; ``mesh`` needs only
+    ``rank``, ``size``, ``shape`` and ``axis_names``)."""
+    tp, r = mesh.size, mesh.rank
+    specs = SH.params_shardings(params, mesh, SH.serve_rules())
+    paths = SH.tree_paths(params)
+    qkv = {}
+
+    def cut(leaf, spec, path):
+        axes = [i for i, a in enumerate(spec) if a == "tp"]
+        if not axes:
+            return leaf
+        ax = axes[0]
+        if _QKV.search(path):
+            idx = qkv.get(leaf.device)
+            if idx is None:
+                idx = qkv[leaf.device] = _qkv_columns(cfg, r, tp,
+                                                      leaf.device)
+            return leaf.index_select(ax, idx)
+        n = leaf.shape[ax] // tp
+        return leaf.narrow(ax, r * n, n).clone()
+
+    def visit(node, spec, path):
+        if isinstance(node, dict):
+            return {k: visit(node[k], spec[k], path[k]) for k in node}
+        if isinstance(node, list):
+            return [visit(a, b, c) for a, b, c in zip(node, spec, path)]
+        return cut(node, spec, path)
+    return visit(params, specs, paths)
+
+
+def tp_cache(cache: Dict[str, Any], cfg: ModelConfig, tp: int
+             ) -> Dict[str, Any]:
+    """A rank's cache from its config's ``init_cache``: an int8 cache's
+    cushion block kc / vc becomes whole (the full config's KV heads,
+    replicated on every rank, as the reference's roles) beside kc_tp /
+    vc_tp, the rank's slice that decode reads."""
+    if tp == 1 or "kc" not in cache:
+        return cache
+    for key in ("kc", "vc"):
+        local = cache[key]
+        cache[key + "_tp"] = local
+        cache[key] = local.new_zeros((*local.shape[:2], cfg.n_kv_heads,
+                                      local.shape[3]))
+    return cache
+
+
 @dataclasses.dataclass
 class GenerationResult:
     tokens: np.ndarray          # (B, n_gen)
@@ -149,18 +336,27 @@ class Engine:
     """Serves one (model, quant, cushion, kv_dtype) configuration on the
     API's device. The parameters live in ``self.params``, a ``ParamTree``
     module (stacked ``(L, ...)`` buffers); ``states`` holds the decode state
-    of every batch size served so far."""
+    of every batch size served so far. ``mesh``: this rank's
+    ``launch/mesh.TPMesh`` (see the module docstring); ``self.api`` is then
+    the rank's (``tp_config``), ``self.full_cfg`` the model's."""
 
     def __init__(self, api, params, qcfg: QuantConfig, cushion=None,
                  scales=None, max_seq: int = 2048, kv_dtype=None,
                  calib_batches=None, prequant: bool = False,
-                 weight_bits: int = 8):
-        self.api = api
+                 weight_bits: int = 8, mesh=None):
+        self.mesh = mesh
+        self.tp = 1 if mesh is None else mesh.size
+        check_tp_serving(api.cfg, qcfg, self.tp, weight_bits)
+        self.full_cfg = api.cfg
         self.device = api.device
         tree, scales = plan_quantization(
             api, params, qcfg, cushion=cushion, scales=scales,
             calib_batches=calib_batches, prequant=prequant,
             weight_bits=weight_bits)
+        if mesh is not None:
+            tree = shard_params_for_serving(tree, api.cfg, mesh)
+            api = dataclasses.replace(api, cfg=tp_config(api.cfg, self.tp))
+        self.api = api
         self.params = C.ParamTree(tree)
         (self.weight_bytes_fp, self.weight_bytes_int8,
          self.weight_bytes_int4) = resident_weight_bytes(tree)
@@ -178,8 +374,10 @@ class Engine:
                                     self.qcfg, scales=self.scales)
 
     def _init_cache(self, B: int):
-        return self.api.init_cache(B, self.max_seq, kv_dtype=self.kv_dtype,
-                                   prefix_len=self.prefix_len)
+        return tp_cache(self.api.init_cache(B, self.max_seq,
+                                            kv_dtype=self.kv_dtype,
+                                            prefix_len=self.prefix_len),
+                        self.full_cfg, self.tp)
 
     def _state(self, B: int) -> DecodeState:
         """B's decode state, made at the first request of that B. On the
@@ -198,10 +396,11 @@ class Engine:
             st.tok.copy_(torch.argmax(logits, dim=-1))
             st.pos.add_(1)
 
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and self.tp == 1:
             st.graph = CapturedStep(step, self.device)
             st.step = st.graph.replay
         else:
+            # the CPU, and tp > 1 (eager by design: module docstring)
             st.step = step
         self.states[B] = st
         return st
@@ -239,6 +438,11 @@ class Engine:
                  greedy: bool = True,
                  generator: Optional[torch.Generator] = None
                  ) -> GenerationResult:
+        with DC.use_tp(self.mesh):
+            return self._generate(batch, n_tokens, greedy, generator)
+
+    def _generate(self, batch, n_tokens, greedy, generator
+                  ) -> GenerationResult:
         """Greedy: the decode state's step (the captured graph on the card)
         run ``n_tokens - 1`` times, each token copied into a trajectory on
         the device. Categorical sampling from ``generator`` (a
@@ -274,6 +478,11 @@ class Engine:
                     ) -> GenerationResult:
         """Per-token eager host loop (one device-to-host copy per token),
         the reference's baseline for the decode benchmarks."""
+        with DC.use_tp(self.mesh):
+            return self._generate_py(batch, n_tokens, greedy, generator)
+
+    def _generate_py(self, batch, n_tokens, greedy, generator
+                     ) -> GenerationResult:
         st, ttft = self._run_prefill(batch)
         tok, pos = st.tok, st.pos
         out = [tok.cpu().numpy()]

@@ -54,7 +54,7 @@ workspaces.
 
 Differences from the reference: no per-replica device meshes (the
 reference's ``meshes``, tensor-parallel replicas, are ROADMAP queue 1
-item 6 and raise here); every replica lives on ``api.device``.
+item 6.2 and raise here); every replica lives on ``api.device``.
 """
 from __future__ import annotations
 
@@ -166,7 +166,7 @@ class ReplicaRouter:
     tensors: N replicas hold one copy of the weights.
 
     ``meshes``: per-replica device meshes are not ported (tensor-parallel
-    replicas, ROADMAP queue 1 item 6); anything but ``None`` raises. Every
+    replicas, ROADMAP queue 1 item 6.2); anything but ``None`` raises. Every
     replica is built on ``api.device``, and on the card each captures its
     decode step at construction, so ``run`` builds and captures nothing.
 
@@ -189,7 +189,7 @@ class ReplicaRouter:
         if meshes is not None:
             raise NotImplementedError(
                 "per-replica device meshes (tensor-parallel replicas) are "
-                "not ported yet: ROADMAP queue 1 item 6")
+                "not ported yet: ROADMAP queue 1 item 6.2")
         self.cfg = cfg if cfg is not None else RouterConfig()
         self.stats = stats if stats is not None else RouterStats()
         # one shared plan: calibrate/prequantize once, replicate everywhere

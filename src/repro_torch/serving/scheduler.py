@@ -63,26 +63,49 @@ once per engine, whose pool shape is fixed, and replayed every step
 (``serving/graphs.py``), where the reference jits its ``step`` once per
 pool shape. Admission, the chunked-prefill stream, the page table's copy
 to the device, the copy of a changed ``live`` mask and the one host sync
-per step stay outside the graph. Tensor parallelism (the reference's
-``mesh``) is not ported yet.
+per step stay outside the graph.
+
+Tensor parallelism (``mesh``, the reference's; the dense family): every
+rank runs a ``ContinuousEngine`` on its shard, as ``Engine`` does
+(``serving/engine.py``); the pool holds the rank's KV heads, the per-slot
+scales its heads' columns, and an int8 or paged pool's cushion block is
+whole on every rank beside the rank's slice (``kc_tp`` / ``vc_tp``). The
+page table and the host allocator are the same on every rank. Under
+tp > 1 the decode step runs eagerly, by design (a collective over gloo
+synchronizes with the host, which a CUDA graph cannot hold). The ranks
+must take the same host decisions: rank 0 takes every decision that reads
+the clock (how many queued requests have arrived, whether a stream's
+deadline passed) and broadcasts it as a small int tensor
+(``collectives.broadcast_ints``); an interrupt on any rank drains every
+rank (a max over the ranks' flags, ``collectives.max_ints``, taken at the
+top of ``run``'s loop, where no collective is open); everything else
+follows from those.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
+import signal
+import threading
 import time
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import QuantConfig
 from repro_torch.core.cushioncache import cushion_fingerprint
+from repro_torch.distributed import collectives as DC
 from repro_torch.models import common as C
 from repro_torch.monitoring import ServeStats, resident_weight_bytes
 from repro_torch.optim.adamw import tree_leaves
 from repro_torch.serving.engine import (bucket_steps, cache_seq_len,
-                                        cushion_prefix_len, plan_quantization)
+                                        check_tp_serving, cushion_prefix_len,
+                                        plan_quantization,
+                                        shard_params_for_serving, tp_cache,
+                                        tp_config)
 from repro_torch.serving.graphs import CapturedStep
 from repro_torch.serving.paging import PagePool
 
@@ -135,7 +158,8 @@ class _PrefillStream:
                  "rpos")
 
     def __init__(self, req: Request, slot: int, row, toks, base: int,
-                 shared, scatter, stem_tokens, prefill_end: int) -> None:
+                 shared, scatter, stem_tokens, prefill_end: int,
+                 tpf: float) -> None:
         self.req = req
         self.slot = slot
         self.row = row              # B=1 fp staging cache
@@ -145,7 +169,7 @@ class _PrefillStream:
         self.scatter = scatter      # paged admission page vector
         self.stem_tokens = stem_tokens
         self.prefill_end = prefill_end
-        self.tpf = time.perf_counter()
+        self.tpf = tpf              # when admission began (for TTFT)
         self.done = 0               # prompt tokens prefilled so far
         self.logits = None          # last chunk's logits (first token)
         self.rpos = None
@@ -179,13 +203,35 @@ def _scatter_row(dst, src, spec, slot: int) -> None:
     dst.select(spec, slot).copy_(src.select(spec, 0))
 
 
+def _host_clock() -> float:
+    """The host's clock, read through the module's ``time`` at each call."""
+    return time.perf_counter()
+
+
 def _host_tokens(req: Request) -> np.ndarray:
     return req.batch["tokens"][0].detach().cpu().numpy()
 
 
+def _on_mesh(fn):
+    """Run an engine method with its mesh active (the model calls inside
+    see the rank's collectives)."""
+    @functools.wraps(fn)
+    def run(self, *args, **kw):
+        with DC.use_tp(self.mesh):
+            return fn(self, *args, **kw)
+    return run
+
+
+# the cushion block and, under tensor parallelism, this rank's slice of it
+_CUSHION_KEYS = ("kc", "vc", "kc_tp", "vc_tp")
+
+
 class ContinuousEngine:
     """Continuous-batching counterpart of ``Engine`` (see the module
-    docstring). The parameters live in ``self.params``, a ``ParamTree``."""
+    docstring). The parameters live in ``self.params``, a ``ParamTree``;
+    ``mesh`` is this rank's ``launch/mesh.TPMesh``; ``clock`` is read for
+    every arrival, deadline and latency (seconds; the host's
+    ``time.perf_counter`` when None)."""
 
     def __init__(self, api, params, qcfg: QuantConfig, n_slots: int = 4,
                  max_seq: int = 2048, cushion=None, scales=None,
@@ -194,13 +240,22 @@ class ContinuousEngine:
                  weight_bits: int = 8, paged: bool = False,
                  page_size: int = 64, n_pages: Optional[int] = None,
                  prefix_cache: bool = False,
-                 chunk_tokens: Optional[Union[int, str]] = None):
-        self.api = api
+                 chunk_tokens: Optional[Union[int, str]] = None, mesh=None,
+                 clock: Optional[Callable[[], float]] = None):
+        self.mesh = mesh
+        self._clock = clock if clock is not None else _host_clock
+        self.tp = 1 if mesh is None else mesh.size
+        check_tp_serving(api.cfg, qcfg, self.tp, weight_bits)
+        self.full_cfg = api.cfg
         self.device = api.device
         tree, scales = plan_quantization(
             api, params, qcfg, cushion=cushion, scales=scales,
             calib_batches=calib_batches, prequant=prequant,
             weight_bits=weight_bits)
+        if mesh is not None:
+            tree = shard_params_for_serving(tree, api.cfg, mesh)
+            api = dataclasses.replace(api, cfg=tp_config(api.cfg, self.tp))
+        self.api = api
         self.params = C.ParamTree(tree)
         self.qcfg = qcfg
         self.n_slots = n_slots
@@ -293,10 +348,11 @@ class ContinuousEngine:
         return logits, row, rpos
 
     def _init_cache(self, batch: int):
-        return self.api.init_cache(batch, self.max_seq,
-                                   kv_dtype=self.kv_dtype,
-                                   prefix_len=self.prefix_len,
-                                   per_slot_scales=self.kv_dtype is not None)
+        return tp_cache(self.api.init_cache(
+            batch, self.max_seq, kv_dtype=self.kv_dtype,
+            prefix_len=self.prefix_len,
+            per_slot_scales=self.kv_dtype is not None), self.full_cfg,
+            self.tp)
 
     def _staging_row(self):
         """B=1 fp staging row for chunked admission. int8 pools stage fp
@@ -355,7 +411,7 @@ class ContinuousEngine:
                 L, _, _, *rest = t.shape
                 pool[key] = torch.zeros((L, self.n_pages, ps, *rest),
                                         dtype=t.dtype, device=self.device)
-            elif key not in ("kc", "vc"):
+            elif key not in _CUSHION_KEYS:
                 shape = list(t.shape)
                 shape[self._axes[key]] = self.n_slots
                 pool[key] = torch.zeros(shape, dtype=t.dtype,
@@ -367,6 +423,10 @@ class ContinuousEngine:
                   else pool[self._paged_leaves[0]].dtype)
             cu = {"kc": kvc["k"].to(self.device, dt).contiguous(),
                   "vc": kvc["v"].to(self.device, dt).contiguous()}
+            if self.tp > 1:
+                n = pool[self._paged_leaves[0]].shape[-2]
+                cu["kc_tp"] = C.local_heads(cu["kc"], n)
+                cu["vc_tp"] = C.local_heads(cu["vc"], n)
         self._pt_layers = int(pool[self._paged_leaves[0]].shape[0])
         self._pool = PagePool(self.n_slots, self.max_seq, ps, self.n_pages,
                               cushion_m=self.prefix_len,
@@ -409,12 +469,15 @@ class ContinuousEngine:
     # ------------------------------------------------------------------
 
     @torch.inference_mode()
+    @_on_mesh
     def start(self) -> None:
         """Open a serving session: reset the pool, the occupancy stats and
         the result buffers. On the card the first session captures the
-        decode step, on the empty pool, which it then resets again."""
+        decode step (tp = 1), on the empty pool, which it then resets
+        again."""
         self._reset_pool()
-        if self.device.type == "cuda" and self.graph is None:
+        if (self.device.type == "cuda" and self.tp == 1
+                and self.graph is None):
             self.graph = CapturedStep(self._decode_pool, self.device)
             self._reset_pool()
         self.stats.reset()
@@ -424,11 +487,11 @@ class ContinuousEngine:
         self._ttft: Dict[int, float] = {}
         self._streams: collections.deque = collections.deque()
         self._expired: List[int] = []
-        self._t0 = time.perf_counter()
+        self._t0 = self._clock()
 
     def now(self) -> float:
         """Seconds since ``start()``."""
-        return time.perf_counter() - self._t0
+        return self._clock() - self._t0
 
     def free_slots(self) -> List[int]:
         return [int(i) for i in np.flatnonzero(~self.live)
@@ -465,6 +528,7 @@ class ContinuousEngine:
         return [s.req for s in self._slots if s.req is not None]
 
     @torch.inference_mode()
+    @_on_mesh
     def try_admit(self, req: Request) -> bool:
         """Admit ``req`` into the first free slot (B=1 prefill + the row
         copy, or the page scatter on a paged pool). False when no slot is
@@ -494,6 +558,7 @@ class ContinuousEngine:
         return bucket_steps(max(_AUTO_CHUNK_MIN, want))
 
     @torch.inference_mode()
+    @_on_mesh
     def step(self) -> List[int]:
         """One prefill chunk of the oldest pending stream (if any), then one
         lock-step decode over the whole pool, retiring slots that hit EOS or
@@ -595,7 +660,7 @@ class ContinuousEngine:
         wholesale)."""
         for key, ax in self._axes.items():
             _scatter_row(self.cache[key], row[key], ax, slot)
-        for key in ("kc", "vc"):
+        for key in _CUSHION_KEYS:
             if key in self.cache:
                 self.cache[key].copy_(row[key])
         self.pos[slot] = rpos
@@ -626,7 +691,7 @@ class ContinuousEngine:
         need = self._check_capacity(req)
         if self.paged:
             return self._admit_request_paged(req, slot, need)
-        tpf = time.perf_counter()
+        tpf = self._clock()
         logits, row, rpos = self._prefill(req.batch, self._init_cache(1),
                                           cushion=self.cushion)
         tok0 = torch.argmax(logits, dim=-1).to(torch.int32)[0]
@@ -650,7 +715,7 @@ class ContinuousEngine:
         scatter = self._pool.admit(slot, prefill_end, need, shared=shared)
         if scatter is None:
             return False
-        tpf = time.perf_counter()
+        tpf = self._clock()
         row = self._init_cache(1)
         if shared:
             stem_end = (self._pool.c0 + len(shared)) * self.page_size
@@ -683,12 +748,14 @@ class ContinuousEngine:
         vp = vp.reshape(vp.shape[0], -1, *vp.shape[3:])
         skip = self.prefix_len - self._pool.c0 * ps
         if self.prefix_len:
+            # the pages hold this rank's heads: so does the stem cushion
+            n = kp.shape[-2]
             kvc = self.cushion["kv"]
             return {"kv": {
-                "k": torch.cat([kvc["k"].to(self.device, kp.dtype),
-                                kp[:, skip:]], dim=1),
-                "v": torch.cat([kvc["v"].to(self.device, vp.dtype),
-                                vp[:, skip:]], dim=1)}}
+                "k": torch.cat([C.local_heads(kvc["k"], n).to(
+                    self.device, kp.dtype), kp[:, skip:]], dim=1),
+                "v": torch.cat([C.local_heads(kvc["v"], n).to(
+                    self.device, vp.dtype), vp[:, skip:]], dim=1)}}
         return {"kv": {"k": kp, "v": vp}}
 
     # ------------------------------------------------------------------
@@ -727,7 +794,8 @@ class ContinuousEngine:
         self._slots[slot].req = req     # PREFILLING: slot held, not live
         self._streams.append(_PrefillStream(req, slot, self._staging_row(),
                                             toks, base, shared, scatter,
-                                            stem_tokens, prefill_end))
+                                            stem_tokens, prefill_end,
+                                            self._clock()))
         return True
 
     def _advance_stream(self) -> None:
@@ -736,7 +804,8 @@ class ContinuousEngine:
         its slot and pages without a result."""
         st = self._streams.popleft()
         req = st.req
-        if req.deadline_s is not None and self.now() > req.deadline_s:
+        if req.deadline_s is not None and self._agree(
+                self.now() > req.deadline_s)[0]:
             self._abort_stream(st, expired=True)
             return
         c = min(self._chunk_budget(), st.total - st.done)
@@ -790,7 +859,7 @@ class ContinuousEngine:
 
     def _book_admission(self, req: Request, slot: int, first: int,
                         tpf: float) -> None:
-        now = time.perf_counter()
+        now = self._clock()
         s = self._slots[slot]
         if s.used:
             self.stats.recycles += 1
@@ -811,7 +880,7 @@ class ContinuousEngine:
         s = self._slots[slot]
         req = s.req
         assert req is not None
-        now = time.perf_counter()
+        now = self._clock()
         n = len(s.tokens)
         tpot = 0.0 if n <= 1 else (now - s.t_first) * 1e3 / (n - 1)
         self._results[req.uid] = RequestOutput(
@@ -832,6 +901,21 @@ class ContinuousEngine:
     # Trace replay
     # ------------------------------------------------------------------
 
+    def _agree(self, *values) -> List[int]:
+        """Rank 0's values on every rank (a host decision read from the
+        clock); the values themselves on one rank."""
+        return DC.broadcast_ints(values, self.mesh)
+
+    def _agree_loop(self, arrived: int, drain: bool) -> Tuple[int, bool]:
+        """Rank 0's count of arrived requests, and whether any rank drains
+        (an interrupt on one rank drains them all), in one collective."""
+        if self.tp == 1:
+            return arrived, drain
+        mine = arrived if self.mesh.rank == 0 else -1
+        arrived, drain = DC.max_ints((mine, drain), self.mesh)
+        return arrived, bool(drain)
+
+    @_on_mesh
     def run(self, requests: Sequence[Request]) -> List[RequestOutput]:
         """Replay a trace: admit each request once it has arrived and a slot
         is free (FIFO), decode the pool in lock-step, return outputs sorted
@@ -839,49 +923,103 @@ class ContinuousEngine:
 
         ``KeyboardInterrupt`` drains gracefully: admission stops, live slots
         decode to completion, streams and the queued remainder are dropped,
-        and ``stats.interrupted`` is set. A second interrupt aborts."""
+        and ``stats.interrupted`` is set. A second interrupt aborts.
+
+        Under tensor parallelism ctrl-C and SIGTERM are counted, not
+        raised, while the trace runs (``_DeferredInterrupts``), and read at
+        the top of each loop, where no collective is open: an interrupt on
+        any rank drains every rank."""
         self.start()
         queue = collections.deque(
             sorted(requests, key=lambda r: (r.arrival_s, r.uid)))
         done: Dict[int, RequestOutput] = {}
         draining = False
-
-        while queue or self.live.any() or self._streams:
-            try:
-                if draining:
-                    while self._streams:
-                        self._abort_stream(self._streams.popleft(),
-                                           expired=False)
-                    if not self.live.any():
-                        break
-                else:
+        with _DeferredInterrupts(self.tp > 1) as interrupts:
+            while queue or self.live.any() or self._streams:
+                try:
+                    if interrupts.count > 1:
+                        raise KeyboardInterrupt("second interrupt")
+                    # rank 0's clock decides, for every rank, how many
+                    # queued requests have arrived; any rank's interrupt
+                    # drains
                     now = self.now()
-                    # admit every arrived request that fits; one that can
-                    # never fit is dropped (stats.positions_exhausted)
-                    while queue and queue[0].arrival_s <= now:
-                        try:
-                            if not self.try_admit(queue[0]):
-                                break
-                        except ValueError:
-                            queue.popleft()
-                            continue
-                        queue.popleft()
-                    if not self.live.any() and not self._streams:
-                        if queue:   # pool idle, next arrival in the future
-                            time.sleep(min(1e-3, max(
-                                0.0, queue[0].arrival_s - self.now())))
-                        for o in self.pop_finished():
-                            done[o.uid] = o
-                        continue
-                self.step()
-                for o in self.pop_finished():
-                    done[o.uid] = o
-            except KeyboardInterrupt:
-                if draining:
-                    raise
-                draining = True
-                self.stats.interrupted = True
+                    arrived = 0
+                    for r in queue:
+                        if r.arrival_s > now:
+                            break
+                        arrived += 1
+                    arrived, draining = self._agree_loop(
+                        arrived, draining or interrupts.count > 0)
+                    if draining:
+                        self.stats.interrupted = True
+                    if self._loop_once(queue, done, arrived, draining):
+                        break
+                except KeyboardInterrupt:
+                    # raised inside a step: under tp > 1 this rank may be
+                    # part-way through its collectives, so it cannot drain
+                    if draining or self.tp > 1:
+                        raise
+                    draining = True
+                    self.stats.interrupted = True
 
         for o in self.pop_finished():
             done[o.uid] = o
         return [done[u] for u in sorted(done)]
+
+    def _loop_once(self, queue, done, arrived: int, draining: bool) -> bool:
+        """One pass of ``run``'s loop on the agreed decisions; True when a
+        drain has nothing left to decode."""
+        if draining:
+            while self._streams:
+                self._abort_stream(self._streams.popleft(), expired=False)
+            if not self.live.any():
+                return True
+        else:
+            # admit every arrived request that fits; one that can never
+            # fit is dropped (stats.positions_exhausted)
+            while queue and arrived > 0:
+                try:
+                    if not self.try_admit(queue[0]):
+                        break
+                except ValueError:
+                    queue.popleft()
+                    arrived -= 1
+                    continue
+                queue.popleft()
+                arrived -= 1
+            if not self.live.any() and not self._streams:
+                if queue:   # pool idle, next arrival in the future
+                    time.sleep(min(1e-3, max(
+                        0.0, queue[0].arrival_s - self.now())))
+                for o in self.pop_finished():
+                    done[o.uid] = o
+                return False
+        self.step()
+        for o in self.pop_finished():
+            done[o.uid] = o
+        return False
+
+
+class _DeferredInterrupts:
+    """While ``on`` (and in the main thread, where signal handlers live),
+    ctrl-C and SIGTERM add one to ``count`` instead of raising; the
+    previous handlers come back on exit. ``run`` reads the count at the top
+    of its loop, between collectives."""
+
+    def __init__(self, on: bool):
+        self.on = on
+        self.count = 0
+        self._old: Dict[int, Any] = {}
+
+    def _note(self, signum, frame) -> None:
+        self.count += 1
+
+    def __enter__(self) -> "_DeferredInterrupts":
+        if self.on and threading.current_thread() is threading.main_thread():
+            for sig in (signal.SIGINT, signal.SIGTERM):
+                self._old[sig] = signal.signal(sig, self._note)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for sig, handler in self._old.items():
+            signal.signal(sig, handler)

@@ -13,8 +13,8 @@ sync. On the card every layer's attention runs ``flash_attention`` forward
 (twice with remat: the recompute) and ``flash_attention_bwd`` backward.
 
 The reference's mesh entries (``replicated_shardings``,
-``shard_update_step``, ``shard_train_step``) raise: tensor parallel is not
-ported (ROADMAP queue 1 item 6).
+``shard_update_step``, ``shard_train_step``) raise: training meshes are
+not ported (ROADMAP queue 1 item 6.1).
 """
 from __future__ import annotations
 
@@ -120,8 +120,8 @@ def make_train_step(api, run: RunConfig, opt: AdamW, microbatches: int = 1,
 
 def _not_ported(name: str):
     raise NotImplementedError(
-        f"{name}: device meshes (tensor parallel, data parallel over "
-        "several cards) are not ported yet: ROADMAP queue 1 item 6")
+        f"{name}: training meshes (tensor parallel, data parallel over "
+        "several cards) are not ported yet: ROADMAP queue 1 item 6.1")
 
 
 def replicated_shardings(tree: Any, mesh: Any) -> Any:

@@ -1082,13 +1082,16 @@ def test_router_drain_on_card(router_card):
 # and the decode kernels, at the bars of their head_dim 16-64 tests
 HD128_CASES = [(512, 4, 4, 2, 4, 1), (65, 37, 10, 2, 2, 3), (1, 4, 4, 1, 2, 1),
                (300, 5, 2, 1, 16, 1)]
-# jamba (8 kv-heads, G = 4) and internvl2-26b (8 kv-heads, G = 6: the
-# backward's cluster then holds one query chunk): the tuning's shape, a
-# query tile's edges, live 0 behind dead rows
+# jamba (8 kv-heads, G = 4), internvl2-26b (8 kv-heads, G = 6: the
+# backward's cluster then holds one query chunk) and deepseek-67b (G = 8:
+# 8 kv-heads at one rank, 4 at each of two tensor-parallel ranks, the
+# backward's cluster of 8 head groups): the tuning's shape, a query tile's
+# edges, live 0 behind dead rows, a tensor-parallel rank's prefill
 HD128_GQA_CASES = [(260, 4, 4, 2, 8, 4), (65, 37, 10, 2, 2, 4),
                    (64, 4, 0, 1, 2, 4), (260, 4, 4, 2, 8, 6),
                    (65, 37, 10, 2, 2, 6), (63, 4, 2, 1, 1, 6),
-                   (300, 5, 5, 1, 2, 6)]
+                   (300, 5, 5, 1, 2, 6), (260, 4, 4, 2, 8, 8),
+                   (65, 37, 10, 2, 2, 8), (512, 4, 4, 1, 4, 8)]
 
 
 @pytest.mark.parametrize("S,m,live,B,Kh,G", HD128_CASES + HD128_GQA_CASES)
@@ -1155,10 +1158,11 @@ def test_flash_decode_head_dim_128(dev, mode, dt):
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("mode", ["fp", "int8-K", "int8-BK"])
-@pytest.mark.parametrize("G", [4, 6])
+@pytest.mark.parametrize("G", [4, 6, 8])
 def test_flash_decode_head_dim_128_gqa(dev, G, mode, dt):
     """Contiguous and paged decode at head_dim 128 over 8 kv-heads, jamba's
-    G = 4 and internvl2-26b's G = 6: bf16 within one bf16 ulp of the plain
+    G = 4, internvl2-26b's G = 6 and deepseek-67b's G = 8 (64 heads at one
+    rank): bf16 within one bf16 ulp of the plain
     version plus 1e-5 of its largest entry (the backward's bar: with 24-48
     heads a row holds entries that cancel to ~1e-4, where the f32 sums of
     the split-KV chunks, merged in another order, leave a few 1e-6; one
@@ -1736,3 +1740,146 @@ def test_capture_with_a_host_sync_raises(dev):
     y = torch.arange(4.0, device=dev) * 2
     torch.cuda.synchronize()
     assert y.tolist() == [0.0, 2.0, 4.0, 6.0]
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the int matmul's int32 mode, the per-rank decode
+# attention and two gloo ranks on the card
+# ---------------------------------------------------------------------------
+
+# deepseek-67b at tp = 2: the row-parallel sites' shards (wo: K = 4096 of
+# 8192 query-head columns; w_down: K = 11008 of 22016) at decode and in
+# tensor-core tiles
+TP_CASES = [(M, K, 8192) for M in (4, 256, 2048) for K in (4096, 11008)]
+
+
+@pytest.mark.parametrize("M,K,N", TP_CASES)
+def test_w8a8_int32_mode_bit_exact(dev, M, K, N):
+    """out_dtype=torch.int32: the accumulator, equal to the plain
+    version's, from int8 codes and (M <= 16) from f32 / bf16 activations
+    quantized in the staging; and two K-halves' accumulators summed, with
+    the epilogue applied once (``w8a8_epilogue``), equal to the whole
+    launch in f32 and bf16."""
+    from repro_torch.kernels.w8a8_matmul import w8a8_epilogue
+    x, w = _w8_case(dev, M, K, N, M + K)
+    sx, zx = (torch.tensor(v, device=dev) for v in (0.031, 111.0))
+    sw = torch.tensor(0.0042, device=dev).to(torch.bfloat16)
+    acc = w8a8_matmul(x, w, sx, zx, sw, out_dtype=torch.int32)
+    assert acc.dtype == torch.int32
+    assert torch.equal(acc, w8a8_matmul_plain(x, w, sx, zx, sw,
+                                              out_dtype=torch.int32))
+    if M <= 16:
+        xf = _fp_x(dev, M, K, M + K + 1)
+        for t in (xf, xf.to(torch.bfloat16)):
+            _lib.reset_launches()
+            a = quant_w8a8_matmul(t, w, sx, zx, sw, out_dtype=torch.int32)
+            assert _lib.LAUNCHES["act_quant_static_fused"] == 1
+            assert torch.equal(a, quant_w8a8_matmul_plain(
+                t, w, sx, zx, sw, out_dtype=torch.int32)), t.dtype
+    h = K // 2
+    halves = [w8a8_matmul(x[:, s].contiguous(), w[s].contiguous(), sx, zx,
+                          sw, out_dtype=torch.int32)
+              for s in (slice(0, h), slice(h, K))]
+    colsum = w.sum(0, dtype=torch.int32)
+    for dt in (torch.float32, torch.bfloat16):
+        whole = w8a8_matmul(x, w, sx, zx, sw, colsum, -128.0, dt)
+        summed = w8a8_epilogue(halves[0] + halves[1], sx, zx, sw, colsum,
+                               -128.0, dt)
+        assert torch.equal(whole, summed), dt
+
+
+def test_decode_attention_tp_slice_equals_whole(dev):
+    """Each rank's ``decode_attention_tp`` (its 32 query heads of 64, 4 KV
+    heads of 8, head_dim 128, G = 8: deepseek-67b at tp = 2) on an int8
+    cache with the cushion block whole is the whole launch's heads, bit
+    for bit, and so is the paged entry; the whole launch and each rank's
+    are within the bar of ``flash_decode_plain`` on the same inputs (one
+    bf16 ulp plus 1e-5 of the largest entry, as at G = 4 and 6)."""
+    from repro_torch.kernels.ops import (decode_attention_tp,
+                                         decode_attention_tp_paged)
+    from repro_torch.launch.mesh import TPMesh
+    B, H, K, hd, S, m = 4, 64, 8, 128, 640, 4
+    g = torch.Generator(dev).manual_seed(3)
+    q = torch.randn((B, H, hd), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randint(-127, 128, (B, S, K, hd), generator=g, device=dev,
+                      dtype=torch.int8)
+    v = torch.randint(-127, 128, (B, S, K, hd), generator=g, device=dev,
+                      dtype=torch.int8)
+    ks = torch.rand((B, K), generator=g, device=dev) * 0.05 + 0.01
+    vs = torch.rand((B, K), generator=g, device=dev) * 0.05 + 0.01
+    kc = torch.randn((m, K, hd), generator=g, device=dev).to(torch.bfloat16)
+    vc = torch.randn((m, K, hd), generator=g, device=dev).to(torch.bfloat16)
+    pos = torch.tensor([600, 37, -1, 4], dtype=torch.int32, device=dev)
+    whole = flash_decode(q, k, v, pos, k_scale=ks, v_scale=vs, kc=kc, vc=vc)
+    _bwd_within((whole,), (flash_decode_plain(q, k, v, pos, k_scale=ks,
+                                              v_scale=vs, kc=kc, vc=vc),),
+                torch.bfloat16)
+    ps = 64
+    P = S // ps
+    table = (1 + torch.arange(B * P, device=dev, dtype=torch.int32)
+             ).reshape(B, P)
+    for r in range(2):
+        mesh = TPMesh(r, 2, None, dev, None)
+        hs, kh = slice(32 * r, 32 * r + 32), slice(4 * r, 4 * r + 4)
+        lk, lv = k[:, :, kh].contiguous(), v[:, :, kh].contiguous()
+        lq = q[:, hs].contiguous()
+        kw = dict(k_scale=ks[:, kh].contiguous(),
+                  v_scale=vs[:, kh].contiguous(), kc=kc, vc=vc)
+        got = decode_attention_tp(lq, lk, lv, pos, mesh, **kw)
+        assert torch.equal(got, whole[:, hs]), r
+        _bwd_within((got,), (flash_decode_plain(
+            lq, lk, lv, pos, **dict(kw, kc=kc[:, kh], vc=vc[:, kh])),),
+            torch.bfloat16)
+        pages = [torch.cat([t.new_zeros((1, ps, 4, hd)),
+                            t.reshape(B * P, ps, 4, hd)]) for t in (lk, lv)]
+        got = decode_attention_tp_paged(lq, pages[0], pages[1], table, pos,
+                                        mesh, **kw)
+        assert torch.equal(got, whole[:, hs]), r
+
+
+def test_tp2_gloo_ranks_on_the_card(dev):
+    """Two ranks of deepseek-67b at full width and 2 layers (int8-resident
+    W8A8, int8 KV, a 4-token cushion) over gloo on the card: their prefill
+    logits and tokens are the unsharded engine's, bit for bit (the
+    row-parallel sites sum int32 accumulators), and each rank launches
+    every kernel as often as the unsharded engine."""
+    import dataclasses
+
+    from repro_torch.configs import QuantConfig, get_config
+    from repro_torch.core.calibration import calibrate, scales_to_plain
+    from repro_torch.launch.mesh import TPMesh, spawn_tp
+    from repro_torch.models.registry import build
+    import _tp_probe as tp_probe
+    cfg = dataclasses.replace(get_config("deepseek-67b"), n_layers=2)
+    qw8 = QuantConfig(mode="pt_static", true_int8=True)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=g)
+    case = dict(cfg=cfg, seed=0, kind="static", qcfg=qw8, prequant=True,
+                kv_dtype="int8", tokens=toks.numpy(), n_tokens=4,
+                logits=True, max_seq=128, warmup=True)
+    api = build(cfg, dev)
+    params = tp_probe._params(api, case)
+    cushion = api.extract_cushion(
+        params, torch.tensor([5, 6, 7, 8], dtype=torch.int32), None,
+        QuantConfig())
+    scales, _ = calibrate(api, params, [{"tokens": toks.to(dev)}], qw8,
+                          cushion=cushion)
+
+    def cpu(t):
+        if isinstance(t, dict):
+            return {k: cpu(v) for k, v in t.items()}
+        return t.cpu()
+    case.update(cushion=cpu(cushion), scales=cpu(scales_to_plain(scales)))
+    one = tp_probe.run_case(TPMesh(0, 1, None, dev, None),
+                            dict(case, mesh=False))
+    del params, cushion, scales
+    tp_probe._TREES.clear()
+    torch.cuda.empty_cache()
+    ranks = spawn_tp(tp_probe.run_cases, 2, [case], device="cuda",
+                     every_rank=True, backend="gloo")
+    for rank, (rep,) in enumerate(ranks):
+        assert rep["backend"] == "gloo"
+        assert (rep["logits"] == one["logits"]).all(), rank
+        assert (rep["tokens"] == one["tokens"]).all(), rank
+        assert rep["launches"] == one["launches"], rank
+        assert rep["launches"]["w8a8_matmul"] > 0

@@ -27,9 +27,13 @@ assert {"repro_torch.models.moe", "repro_torch.core.smoothquant",
         "repro_torch.models.vlm", "repro_torch.models.ssm",
         "repro_torch.models.hybrid", "repro_torch.models.encdec",
         "repro_torch.models.xlstm", "repro_torch.train.trainer",
-        "repro_torch.launch.train"} <= set(names)
+        "repro_torch.launch.train", "repro_torch.launch.mesh",
+        "repro_torch.distributed.sharding",
+        "repro_torch.distributed.collectives"} <= set(names)
 for n in names:
     importlib.import_module(n)
+# the rank program that tensor-parallel tests and chip_smoke.py spawn
+importlib.import_module("_tp_probe")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -39,7 +43,8 @@ assert not bad, bad
 
 
 def test_port_imports_no_jax_and_no_reference_package():
-    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.abspath(SRC), os.path.abspath(os.path.dirname(__file__))]))
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
@@ -74,3 +79,16 @@ def test_serve_cli_runs_on_cpu_when_asked(tmp_path):
                       "--bench-json", str(out)])
     assert res.tokens.shape == (2, 4)
     assert out.exists()
+
+
+def test_serve_cli_tp2_runs_on_cpu_when_asked():
+    """``--tp 2`` spawns two gloo ranks; rank 0's result comes back, and
+    the tokens are the unsharded launcher's (W8A8 int8-resident weights:
+    the row-parallel sites sum int32 accumulators)."""
+    argv = ["--arch", "paper_tiny", "--device", "cpu", "--quant",
+            "pt_static", "--prequant", "--kv-dtype", "int8",
+            "--cushion-len", "2", "--batch", "2", "--prompt-len", "16",
+            "--tokens", "4"]
+    res = serve.main(argv + ["--tp", "2"])
+    assert res.tokens.shape == (2, 4)
+    assert (res.tokens == serve.main(argv).tokens).all()

@@ -1,0 +1,578 @@
+"""Port parity, tensor-parallel serving: ``repro_torch`` over
+``torch.distributed`` against the JAX package's sharding rules and its
+unsharded engines, on f32 ``paper_tiny`` (8 query heads, 4 KV heads).
+
+* the port's rules (``distributed/sharding.py``) give JAX's spec for every
+  parameter leaf (fp and prequantized) and every family's cache leaf, at
+  tp = 1, 2 and 4 (JAX is given a stand-in mesh of ``shape`` and
+  ``axis_names``, which its rules read);
+* the placement (``serving/engine.shard_tree``) cuts JAX's shard shapes,
+  with the fused qkv columns cut by heads;
+* a tp = 1 mesh is the unsharded engine, bit for bit;
+* two gloo ranks (``launch/mesh.spawn_tp``, one spawn a world size, every
+  case in it) serve the static ``Engine`` with JAX's tokens and prefill
+  logits within JAX's own tp bar (2e-4), the cushion block bit-identical on
+  both ranks; int8-resident W8A8 gives the port's tp = 1 logits exactly
+  (the row-parallel sites sum int32 accumulators); one tp = 4 case;
+* the ``ContinuousEngine`` (contiguous fp, contiguous int8 with per-slot
+  scales, paged int8) gives JAX's unsharded pool's tokens, and the ranks
+  admit together when rank 1's clock runs three times as fast;
+* ``decode_attention_tp`` / ``_tp_paged``, each rank's slice computed in one
+  process, concatenate to JAX's ``flash_decode_ref``;
+* what is not sharded yet raises, citing the ROADMAP.
+"""
+import types
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# small shapes: one intra-op thread, so parallel test workers do not
+# oversubscribe the cores
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import QuantConfig, get_config, reduced  # noqa: E402
+from repro.core import calibration as JCal  # noqa: E402
+from repro.core import quantization as JQ  # noqa: E402
+from repro.distributed import sharding as JSH  # noqa: E402
+from repro.kernels import ref as R  # noqa: E402
+from repro.models.registry import build as j_build  # noqa: E402
+from repro.serving import ContinuousEngine as JContinuous  # noqa: E402
+from repro.serving import Engine as JEngine  # noqa: E402
+from repro.serving import Request as JRequest  # noqa: E402
+from repro_torch.configs import get_config as t_get_config  # noqa: E402
+from repro_torch.configs import reduced as t_reduced  # noqa: E402
+from repro_torch.core import quantization as TQ  # noqa: E402
+from repro_torch.distributed import sharding as SH  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch import mesh as M  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import common as TC  # noqa: E402
+from repro_torch.models import convert  # noqa: E402
+from repro_torch.models.registry import build  # noqa: E402
+from repro_torch.serving.engine import Engine, shard_tree, tp_config  # noqa: E402
+from _tp_probe import run_cases  # noqa: E402
+
+QN = QuantConfig()
+QW8 = QuantConfig(mode="pt_static", true_int8=True)
+TOL = 2e-4                # JAX's own tp bar (tests/test_sharding.py)
+N_TOKENS = 10
+# (name, qcfg, prequant, kv_dtype)
+STATIC = [("none-fp", QN, False, None), ("none-int8", QN, False, "int8"),
+          ("w8a8-fpw", QW8, False, None),
+          ("w8a8-prequant-int8", QW8, True, "int8")]
+# (name, kv_dtype, paged)
+POOLS = [("fp", None, False), ("int8", "int8", False),
+         ("paged-int8", "int8", True)]
+BUDGETS = [5, 3, 6, 4]
+
+
+def np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def fake_mesh(tp):
+    """JAX's stand-in mesh: its rules read only these two attributes."""
+    return types.SimpleNamespace(shape={"data": 1, "tp": tp},
+                                 axis_names=("data", "tp"))
+
+
+@pytest.fixture(scope="module")
+def ref():
+    cfg = get_config("paper_tiny")
+    japi = j_build(cfg)
+    params = japi.init_params(jax.random.PRNGKey(0))
+    cushion = japi.extract_cushion(params, jnp.asarray([1, 2, 3], jnp.int32),
+                                   None, QN)
+    cal = [japi.make_batch(jax.random.PRNGKey(100 + i), 2, 32)
+           for i in range(2)]
+    scales, _ = JCal.calibrate(japi, params, cal, QW8, cushion=cushion)
+    batch = japi.make_batch(jax.random.PRNGKey(7), 2, 24)
+    reqs = [JRequest(uid=i, batch=japi.make_batch(
+        jax.random.PRNGKey(100 + i), 1, (20, 26)[i % 2]), max_new_tokens=n)
+        for i, n in enumerate(BUDGETS)]
+    return dict(cfg=cfg, japi=japi, params=params, cushion=cushion,
+                scales=scales, batch=batch, reqs=reqs,
+                np_params=np_tree(params), np_cushion=np_tree(cushion),
+                np_scales=np_tree(JCal.scales_to_plain(scales)),
+                tokens=np.asarray(batch["tokens"]))
+
+
+def _jax_prefill_logits(eng, batch):
+    with JSH.use_mesh(None):
+        cache = eng._init_cache(batch["tokens"].shape[0])
+        logits, _, _ = eng._prefill(eng.params, batch, cache)
+    return np.asarray(logits[:, -1] if logits.ndim == 3 else logits)
+
+
+def _case(ref, **kw):
+    return dict(cfg=t_get_config("paper_tiny"), params=ref["np_params"],
+                cushion=ref["np_cushion"], scales=ref["np_scales"],
+                max_seq=128, **kw)
+
+
+def _static_cases(ref):
+    return [_case(ref, name=name, kind="static", qcfg=q, prequant=pq,
+                  kv_dtype=kv, tokens=ref["tokens"], n_tokens=N_TOKENS,
+                  logits=True)
+            for name, q, pq, kv in STATIC]
+
+
+def _pool_cases(ref):
+    reqs = [dict(tokens=np.asarray(r.batch["tokens"]),
+                 max_new_tokens=r.max_new_tokens) for r in ref["reqs"]]
+    cases = [_case(ref, name=f"pool-{name}", kind="continuous", qcfg=QN,
+                   kv_dtype=kv, paged=paged, page_size=32, n_slots=2,
+                   requests=reqs)
+             for name, kv, paged in POOLS]
+    # arrivals 10 ms apart on a clock a rank owns, into a slot for each:
+    # when each is admitted depends on the clock, and rank 1's runs three
+    # times as fast as rank 0's
+    timed = [dict(r, arrival_s=0.01 * i) for i, r in enumerate(reqs)]
+    cases.append(_case(ref, name="clock", kind="continuous", qcfg=QN,
+                       n_slots=4, requests=timed, clock_rates=[1.0, 3.0]))
+    return cases
+
+
+def _interrupt_case(ref):
+    """The fp pool with a SIGINT sent to rank 1 alone after its second
+    decode step."""
+    case = _pool_cases(ref)[0]
+    return dict(case, name="interrupt", interrupt=(1, 2))
+
+
+@pytest.fixture(scope="module")
+def tp2(ref):
+    """Every tp = 2 case in one spawn: {name: [rank 0's report, rank 1's]}."""
+    cases = _static_cases(ref) + _pool_cases(ref) + [_interrupt_case(ref)]
+    outs = M.spawn_tp(run_cases, 2, cases, device="cpu", every_rank=True,
+                      timeout_s=600)
+    return {c["name"]: [o[i] for o in outs] for i, c in enumerate(cases)}
+
+
+@pytest.fixture(scope="module")
+def tp1(ref):
+    """The same cases on one rank without a mesh, in this process."""
+    cases = _static_cases(ref) + _pool_cases(ref)
+    outs = run_cases(M.make_tp_mesh(1, device="cpu"),
+                     [dict(c, mesh=False) for c in cases])
+    return {c["name"]: o for c, o in zip(cases, outs)}
+
+
+# ---------------------------------------------------------------------------
+# 1. Specs
+# ---------------------------------------------------------------------------
+
+def _jax_param_specs(tree, mesh, rules=None):
+    rules = JSH.serve_rules() if rules is None else rules
+    paths = jax.tree_util.tree_leaves(JSH.tree_paths(tree))
+    leaves = jax.tree_util.tree_leaves(tree)
+    return {p: tuple(JSH.rules_pspec(p, x.shape, mesh, rules))
+            for p, x in zip(paths, leaves)}
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}/{k}" if prefix else k))
+        return out
+    return {prefix: tree}
+
+
+@pytest.mark.parametrize("tp", [1, 2, 4])
+@pytest.mark.parametrize("prequant", [False, True], ids=["fp", "prequant"])
+def test_param_specs_equal_jax(ref, tp, prequant):
+    jp = ref["params"]
+    tp_tree = convert.params_from_numpy(ref["np_params"]).tree()
+    if prequant:
+        jp = JQ.prequantize_tree(jp, QW8)
+        tp_tree = TQ.prequantize_tree(tp_tree, QW8)
+    mesh = fake_mesh(tp)
+    for rules, jrules in ((SH.serve_rules(), JSH.serve_rules()),
+                          (SH.DEFAULT_RULES, JSH.DEFAULT_RULES)):
+        assert _flat(SH.params_shardings(tp_tree, mesh, rules)) \
+            == _jax_param_specs(jp, mesh, jrules)
+
+
+FAMILIES = ("paper_tiny", "olmoe-1b-7b", "internvl2-26b", "jamba-v0.1-52b",
+            "whisper-base", "xlstm-350m")
+
+
+@pytest.mark.parametrize("tp", [1, 2, 4])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_cache_roles_and_specs_equal_jax(arch, tp):
+    jcfg = get_config(arch)
+    tcfg = t_get_config(arch)
+    if arch != "paper_tiny":
+        jcfg = reduced(jcfg, dtype="float32")
+        tcfg = t_reduced(tcfg, dtype="float32")
+    japi, api = j_build(jcfg), build(tcfg, "cpu")
+    mesh = fake_mesh(tp)
+    kvs = [None, "int8"] if arch in FAMILIES[:4] else [None]
+    for kv in kvs:
+        for per_slot in (False, True):
+            roles = japi.cache_roles(kv, per_slot_scales=per_slot)
+            assert api.cache_roles(kv, per_slot_scales=per_slot) == roles
+            cache = jax.eval_shape(lambda: japi.init_cache(
+                2, 64, kv_dtype=kv, **({"prefix_len": 3} if kv else {})))
+            got = SH.cache_shardings(roles, cache, mesh)
+            flat_c = jax.tree_util.tree_flatten_with_path(cache)[0]
+            assert len(flat_c) == len(_flat(got))
+            for kp, leaf in flat_c:
+                keys = [k.key for k in kp]
+                r, g = roles, got
+                for k in keys:
+                    r = r.get(k, ()) if isinstance(r, dict) else ()
+                    g = g[k]
+                assert g == tuple(JSH.roles_pspec(r, leaf.shape, mesh)), \
+                    (arch, kv, keys)
+
+
+def test_drop_indivisible_and_role_resolution():
+    m2 = fake_mesh(2)
+    assert SH.roles_pspec(("M",), (8,), m2) == ("tp",)
+    assert SH.roles_pspec(("M",), (7,), m2) == (None,)
+    assert SH.roles_pspec((None, "B", None, "M"), (4, 2, 64, 2), m2) \
+        == (None, "data", None, "tp")
+    for roles, shape in [(("M",), (8,)), (("M",), (7,)),
+                         ((None, "B", None, "M"), (4, 2, 64, 2)),
+                         ((None, "M"), (4, 6))]:
+        for tp in (1, 2, 4):
+            assert SH.roles_pspec(roles, shape, fake_mesh(tp)) == tuple(
+                JSH.roles_pspec(roles, shape, fake_mesh(tp)))
+    train = types.SimpleNamespace(shape={"data": 1, "model": 2},
+                                  axis_names=("data", "model"))
+    assert SH.to_pspec(("M", "B"), train) == ("model", "data")
+    assert SH.to_pspec(("M", "B"), m2) == ("tp", "data")
+
+
+# ---------------------------------------------------------------------------
+# 2. Placement
+# ---------------------------------------------------------------------------
+
+def test_placement_shapes_and_heads(ref):
+    cfg = t_get_config("paper_tiny")
+    full = TQ.prequantize_tree(
+        convert.params_from_numpy(ref["np_params"]).tree(), QW8)
+    jspecs = _jax_param_specs(JQ.prequantize_tree(ref["params"], QW8),
+                              fake_mesh(2))
+    shards = [shard_tree(full, cfg, M.TPMesh(r, 2, None,
+                                             torch.device("cpu"), None))
+              for r in range(2)]
+    flat_full = _flat(full)
+    for r in range(2):
+        flat = _flat(shards[r])
+        assert set(flat) == set(jspecs)
+        for p, spec in jspecs.items():
+            shape = flat_full[p].shape
+            spec = spec + (None,) * (len(shape) - len(spec))
+            want = tuple(d // 2 if a == "tp" else d
+                         for d, a in zip(shape, spec))
+            assert tuple(flat[p].shape) == want, p
+    attn = [s["layers"]["attn"] for s in shards]
+    N = full["layers"]["attn"]["wqkv"]["w_int"].shape[-1]
+    assert attn[0]["wqkv"]["w_int"].shape[-1] == N // 2
+    assert attn[0]["wqkv"]["colsum"].shape[-1] == N // 2
+    assert attn[0]["wo"]["colsum"].shape == \
+        full["layers"]["attn"]["wo"]["colsum"].shape      # whole
+    # the heads line up: a rank's split of its columns is its heads' split
+    lcfg = tp_config(cfg, 2)
+    q, k, v = TC._split_qkv(full["layers"]["attn"]["wqkv"]["w_int"], cfg)
+    for r in range(2):
+        lq, lk, lv = TC._split_qkv(attn[r]["wqkv"]["w_int"], lcfg)
+        assert torch.equal(lq, q[..., 4 * r:4 * r + 4, :])
+        assert torch.equal(lk, k[..., 2 * r:2 * r + 2, :])
+        assert torch.equal(lv, v[..., 2 * r:2 * r + 2, :])
+        lo = 4 * r * cfg.head_dim
+        assert torch.equal(attn[r]["wo"]["w_int"],
+                           full["layers"]["attn"]["wo"]["w_int"]
+                           [:, lo:lo + 4 * cfg.head_dim])
+        for lb, b, h in zip(TC._split_qkv(attn[r]["bqkv"], lcfg),
+                            TC._split_qkv(full["layers"]["attn"]["bqkv"],
+                                          cfg), (4, 2, 2)):
+            assert torch.equal(lb, b[..., h * r:h * (r + 1), :])
+        emb = full["embed"]["w"]
+        assert torch.equal(shards[r]["embed"]["w"],
+                           emb[256 * r:256 * (r + 1)])
+
+
+# ---------------------------------------------------------------------------
+# 3. A tp = 1 mesh is the unsharded engine
+# ---------------------------------------------------------------------------
+
+def test_trivial_tp1_mesh_matches_no_mesh(ref, tp1):
+    cases = _static_cases(ref)
+    outs = run_cases(M.make_tp_mesh(1, device="cpu"), cases)
+    for c, o in zip(cases, outs):
+        r = tp1[c["name"]]
+        assert np.array_equal(o["logits"], r["logits"]), c["name"]
+        assert np.array_equal(o["tokens"], r["tokens"]), c["name"]
+        assert o["cushion"].keys() == r["cushion"].keys()
+        for k in r["cushion"]:
+            assert np.array_equal(o["cushion"][k], r["cushion"][k])
+
+
+# ---------------------------------------------------------------------------
+# 4. / 5. The static Engine at tp = 2 and 4 against JAX's unsharded one
+# ---------------------------------------------------------------------------
+
+def _jax_engine(ref, qcfg, prequant, kv):
+    static = qcfg.mode == "pt_static"
+    return JEngine(ref["japi"], ref["params"], qcfg, cushion=ref["cushion"],
+                   scales=ref["scales"] if static else None, max_seq=128,
+                   kv_dtype=kv, prequant=prequant)
+
+
+def _check_cushion(rep, ref, rank, tp):
+    """The cushion block on a rank: whole and bit-identical to the artifact
+    in an int8 cache (its heads' slice beside it), the rank's heads in an
+    fp cache's rows [0:m)."""
+    want = {k: np.asarray(ref["cushion"]["kv"][k], np.float32)
+            for k in ("k", "v")}
+    n = want["k"].shape[2] // tp
+    cu = rep["cushion"]
+    if "kc" in cu:
+        for c, k in (("kc", "k"), ("vc", "v")):
+            np.testing.assert_array_equal(cu[c], want[k])
+            if tp > 1:
+                np.testing.assert_array_equal(
+                    cu[c + "_tp"], want[k][:, :, n * rank:n * (rank + 1)])
+    else:
+        for c, k in (("k_rows", "k"), ("v_rows", "v")):
+            local = want[k][:, :, n * rank:n * (rank + 1)]
+            np.testing.assert_array_equal(
+                cu[c], np.broadcast_to(local[:, None], cu[c].shape))
+
+
+@pytest.mark.parametrize("name,qcfg,prequant,kv", STATIC,
+                         ids=[s[0] for s in STATIC])
+def test_tp2_engine_matches_jax(ref, tp2, tp1, name, qcfg, prequant, kv):
+    jeng = _jax_engine(ref, qcfg, prequant, kv)
+    want_logits = _jax_prefill_logits(jeng, ref["batch"])
+    want = jeng.generate(ref["batch"], N_TOKENS).tokens
+    ranks = tp2[name]
+    for rank, rep in enumerate(ranks):
+        assert rep["backend"] == "gloo"
+        np.testing.assert_allclose(rep["logits"], want_logits, rtol=TOL,
+                                   atol=TOL)
+        np.testing.assert_array_equal(rep["tokens"], want)
+        np.testing.assert_array_equal(rep["logits"], ranks[0]["logits"])
+        _check_cushion(rep, ref, rank, 2)
+    if prequant:
+        # W8A8 with int32 sums at the row-parallel sites: exactly tp = 1
+        np.testing.assert_array_equal(ranks[0]["logits"],
+                                      tp1[name]["logits"])
+
+
+def test_tp4_engine_matches_jax(ref):
+    case = _static_cases(ref)[0]            # none, fp KV
+    outs = M.spawn_tp(run_cases, 4, [case], device="cpu", every_rank=True)
+    jeng = _jax_engine(ref, QN, False, None)
+    want_logits = _jax_prefill_logits(jeng, ref["batch"])
+    want = jeng.generate(ref["batch"], N_TOKENS).tokens
+    for rank, (rep,) in enumerate(outs):
+        np.testing.assert_allclose(rep["logits"], want_logits, rtol=TOL,
+                                   atol=TOL)
+        np.testing.assert_array_equal(rep["tokens"], want)
+        _check_cushion(rep, ref, rank, 4)
+
+
+# ---------------------------------------------------------------------------
+# 6. / 8. The ContinuousEngine at tp = 2; the ranks' clock decisions
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def jax_pools(ref):
+    out = {}
+    for name, kv, paged in POOLS:
+        ce = JContinuous(ref["japi"], ref["params"], QN, n_slots=2,
+                         max_seq=128, cushion=ref["cushion"], kv_dtype=kv,
+                         paged=paged, page_size=32)
+        out[name] = {o.uid: o.tokens for o in ce.run(ref["reqs"])}
+    return out
+
+
+@pytest.mark.parametrize("name,kv,paged", POOLS, ids=[p[0] for p in POOLS])
+def test_tp2_continuous_matches_jax(ref, tp2, jax_pools, name, kv, paged):
+    cfg = ref["cfg"]
+    want = jax_pools[name]
+    cu = {k: np.asarray(ref["cushion"]["kv"][k], np.float32)
+          for k in ("k", "v")}
+    for rank, rep in enumerate(tp2[f"pool-{name}"]):
+        assert sorted(rep["tokens"]) == sorted(want)
+        for uid in want:
+            np.testing.assert_array_equal(rep["tokens"][uid], want[uid])
+        assert rep["stats"]["recycles"] >= 1
+        assert rep["admissions"] == tp2[f"pool-{name}"][0]["admissions"]
+        if kv is not None:
+            assert rep["k_scale_shape"] == (cfg.n_layers, 2,
+                                            cfg.n_kv_heads // 2)
+            np.testing.assert_array_equal(rep["cushion"]["kc"], cu["k"])
+            np.testing.assert_array_equal(
+                rep["cushion"]["kc_tp"], cu["k"][:, :, 2 * rank:2 * rank + 2])
+        else:
+            # every slot's rows [0:m), recycled ones included, are the
+            # rank's heads of the cushion
+            local = cu["k"][:, :, 2 * rank:2 * rank + 2]
+            rows = rep["slot_rows"]
+            for s in range(rows.shape[1]):
+                np.testing.assert_array_equal(rows[:, s], local)
+
+
+def test_interrupt_on_one_rank_drains_every_rank(tp2):
+    """ctrl-C on rank 1 alone is read at the top of the loop on every rank
+    (a max over the ranks' flags): both stop admitting, finish the live
+    slots with the uninterrupted run's tokens and drop the queue, where
+    rank 1 alone draining would leave the ranks in different
+    collectives."""
+    full = tp2["pool-fp"][0]["tokens"]
+    ranks = tp2["interrupt"]
+    for rep in ranks:
+        assert rep["stats"]["interrupted"]
+        assert rep["admissions"] == ranks[0]["admissions"]
+        assert sorted(rep["tokens"]) == sorted(ranks[0]["tokens"])
+        assert 0 < len(rep["tokens"]) < len(full)
+        for uid, toks in rep["tokens"].items():
+            np.testing.assert_array_equal(toks, full[uid])
+
+
+def test_ranks_take_rank0_clock_decisions(ref, tp2, tp1, jax_pools):
+    ranks = tp2["clock"]
+    # alone, rank 1's faster clock admits on another schedule
+    alone = run_cases(M.make_tp_mesh(1, device="cpu"), [dict(
+        _pool_cases(ref)[-1], mesh=False, clock_rates=[3.0])])[0]
+    assert alone["admissions"] != tp1["clock"]["admissions"]
+    for rep in ranks:
+        assert rep["admissions"] == tp1["clock"]["admissions"]
+        for uid, toks in jax_pools["fp"].items():
+            np.testing.assert_array_equal(rep["tokens"][uid], toks)
+
+
+# ---------------------------------------------------------------------------
+# 7. decode_attention_tp / decode_attention_tp_paged
+# ---------------------------------------------------------------------------
+
+B, K, G, HD, SMAX, MC = 2, 4, 2, 16, 64, 8
+
+
+def _decode_operands(quantized):
+    rs = np.random.RandomState(5)
+    q = rs.randn(B, K * G, HD).astype(np.float32)
+    pos = np.asarray([33, -1], np.int32)
+    if not quantized:
+        k = rs.randn(B, SMAX, K, HD).astype(np.float32)
+        v = rs.randn(B, SMAX, K, HD).astype(np.float32)
+        return dict(q=q, k=k, v=v, pos=pos)
+    return dict(q=q, pos=pos,
+                k=rs.randint(-127, 128, (B, SMAX, K, HD)).astype(np.int8),
+                v=rs.randint(-127, 128, (B, SMAX, K, HD)).astype(np.int8),
+                k_scale=rs.rand(K).astype(np.float32) * 0.05 + 0.01,
+                v_scale=rs.rand(K).astype(np.float32) * 0.05 + 0.01,
+                kc=rs.randn(MC, K, HD).astype(np.float32),
+                vc=rs.randn(MC, K, HD).astype(np.float32))
+
+
+def _rank_slices(o, r, tp):
+    """Rank r's operands: its query heads, KV heads and scales; the cushion
+    block stays whole (decode_attention_tp slices it)."""
+    Hl, Kl = K * G // tp, K // tp
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in o.items()}
+    out = dict(q=t["q"][:, r * Hl:(r + 1) * Hl].contiguous(),
+               k=t["k"][:, :, r * Kl:(r + 1) * Kl].contiguous(),
+               v=t["v"][:, :, r * Kl:(r + 1) * Kl].contiguous(),
+               pos=t["pos"])
+    if "k_scale" in t:
+        out.update(k_scale=t["k_scale"][r * Kl:(r + 1) * Kl].contiguous(),
+                   v_scale=t["v_scale"][r * Kl:(r + 1) * Kl].contiguous(),
+                   kc=t["kc"], vc=t["vc"])
+    return out
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp", "int8"])
+def test_decode_attention_tp_matches_jax_oracle(quantized, paged):
+    o = _decode_operands(quantized)
+    kw = {k: jnp.asarray(o[k]) for k in ("k_scale", "v_scale", "kc", "vc")
+          if k in o}
+    want = np.asarray(R.flash_decode_ref(jnp.asarray(o["q"]),
+                                         jnp.asarray(o["k"]),
+                                         jnp.asarray(o["v"]),
+                                         jnp.asarray(o["pos"]), **kw))
+    tp = 2
+    parts = []
+    for r in range(tp):
+        s = _rank_slices(o, r, tp)
+        mesh = M.TPMesh(r, tp, None, torch.device("cpu"), None)
+        extra = {k: s[k] for k in ("k_scale", "v_scale", "kc", "vc")
+                 if k in s}
+        if paged:
+            # each row's positions on pages 1.. of 8 rows, in reverse
+            ps = 8
+            P = SMAX // ps
+            table = torch.zeros((B, P), dtype=torch.int32)
+            pages = {n: torch.zeros((1 + B * P, ps) + s[n].shape[2:],
+                                    dtype=s[n].dtype) for n in ("k", "v")}
+            for b in range(B):
+                for j in range(P):
+                    phys = 1 + b * P + (P - 1 - j)
+                    table[b, j] = phys
+                    for n in ("k", "v"):
+                        pages[n][phys] = s[n][b, j * ps:(j + 1) * ps]
+            out = ops.decode_attention_tp_paged(
+                s["q"], pages["k"], pages["v"], table, s["pos"], mesh,
+                **extra)
+        else:
+            out = ops.decode_attention_tp(s["q"], s["k"], s["v"], s["pos"],
+                                          mesh, **extra)
+        parts.append(out)
+    got = torch.cat(parts, dim=1).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# 9. Refusals
+# ---------------------------------------------------------------------------
+
+def _mesh2():
+    return M.TPMesh(0, 2, None, torch.device("cpu"), None)
+
+
+@pytest.mark.parametrize("arch,qcfg,kw", [
+    ("olmoe-1b-7b", QN, {}),
+    ("paper_tiny", QuantConfig(mode="pt_dynamic", true_int8=True), {}),
+    ("paper_tiny", QuantConfig(mode="ptoken_dynamic"), {}),
+    ("paper_tiny", QW8, {"prequant": True, "weight_bits": 4}),
+], ids=["moe", "pt_dynamic", "ptoken_dynamic", "w4a8"])
+def test_unsharded_cases_refuse(ref, arch, qcfg, kw):
+    cfg = t_get_config(arch)
+    if arch != "paper_tiny":
+        cfg = t_reduced(cfg, dtype="float32")
+    api = build(cfg, "cpu")
+    params = api.init_params(torch.Generator().manual_seed(0))
+    scales = convert.scales_from_numpy(ref["np_scales"]) \
+        if arch == "paper_tiny" and qcfg.mode == "pt_static" else None
+    with pytest.raises(ValueError, match="ROADMAP queue 1, item 6"):
+        Engine(api, params, qcfg, scales=scales, mesh=_mesh2(), **kw)
+
+
+def test_indivisible_heads_replicas_and_data_refuse():
+    api = build(t_get_config("paper_tiny"), "cpu")
+    params = api.init_params(torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="ROADMAP queue 1, item 6"):
+        Engine(api, params, QN,
+               mesh=M.TPMesh(0, 3, None, torch.device("cpu"), None))
+    with pytest.raises(SystemExit, match="ROADMAP queue 1, item 6"):
+        serve.main(["--device", "cpu", "--tp", "2", "--mode", "continuous",
+                    "--replicas", "2"])
+    with pytest.raises(SystemExit, match="ROADMAP queue 1, item 6"):
+        serve.main(["--device", "cpu", "--tp", "3"])
+    with pytest.raises(ValueError, match="ROADMAP queue 1, item 6"):
+        M.make_tp_mesh(2, data=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
+        M.make_replica_meshes(2, tp=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
+        M.make_production_mesh()
