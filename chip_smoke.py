@@ -63,7 +63,7 @@ Phases, each fatal on failure:
    ``act_quant_static_fused``, the quantization inside an int matmul at
    M <= 16, at the prefill's head and all 161 sites of every decode step)
    and 63 graph replays; the eager per-token loop (``generate_py``) gives
-   the same tokens and launches; five requests give TTFT, TPOT and
+   the same tokens and launches; two requests give TTFT, TPOT and
    tokens/s quartiles, and the profiler the device time per step of the
    replayed graph and of the eager step, the graph's capture time and node
    count; then the fp path
@@ -144,7 +144,7 @@ Phases, each fatal on failure:
    fake-quantized per call, as in the reference), int8 KV:
    ``Engine.generate`` for B=4, a 512-token prompt and 32 new tokens in
    W8A8 and in fp, the decode step a CUDA graph replayed once per token,
-   launch counts exact, graph tokens = the eager loop's, five requests for
+   launch counts exact, graph tokens = the eager loop's, two requests for
    the quartiles; the replayed W8A8 step's device time split into the
    ported kernels (by name in the profile) and the MoE's parts timed alone
    at the step's shapes (the experts' weight fake-quant, the expert
@@ -167,7 +167,7 @@ Phases, each fatal on failure:
    batches: ``Engine.generate`` for B=4, [1024 patches; 512 tokens] and
    32 new tokens in W8A8 (int8 KV, int8-resident weights) and fp, the
    decode step a CUDA graph, launch counts exact, graph tokens = the eager
-   loop's, five requests for the quartiles; every ported kernel of the
+   loop's, two requests for the quartiles; every ported kernel of the
    path at its shapes (G = 6; the head's N = 92,553) against its plain
    version (``vlm_*`` in the kernels line); a paged int8 pool of 4 slots
    over 8 requests that carry patches, launches exact, tokens = the static
@@ -256,6 +256,34 @@ Phases, each fatal on failure:
    sites' accumulators) ``torch.equal`` to its plain version at the
    shards' shapes, two K-halves summed with the epilogue applied once
    equal to the whole launch, timed beside the bf16 epilogue launch;
+4l. data parallelism over a (data, tp) rank mesh: smollm-360m at full
+   width and depth on two gloo ranks of the one card
+   (``launch/mesh.spawn_mesh``; they time-slice the card through the
+   host: not data parallelism's speed). (d) The user's path, each stage
+   timed: ``launch/train.py`` 2 steps (its 4.4 GB checkpoint), ``tune.py
+   --dp 2 --ckpt-dir`` (B = 4 x 256, 20 pt_dynamic steps, a search of 2
+   tokens over 16 candidates, ``--with-scales``), ``serve.py --ckpt-dir
+   --cushion`` (W8A8, int8 KV) on one rank: tokens in range, the
+   checkpoint's sha256 verified at every restore. (b) Its tuning against
+   ``tune.py --dp 1`` on the same checkpoint: the prefix ids equal, every
+   rank's cushion equal after every step (the log's ``ranks_equal``) and
+   its fingerprint, each rank's ``flash_attention`` / ``flash_attention_bwd``
+   launches 32 / 32 a step as one rank's, the logs within ``DP_CE_TOL`` /
+   ``DP_SQ_TOL``, the first step's gradient (the rank program
+   ``tests/_dp_probe.py``, dp 2 against rank 0 alone) within
+   ``GRAD_TOL``, the tuned cushions' mean difference below
+   ``DP_MOVE_SHARE`` of dp 1's move and a planted fault's above it
+   (``tune.py --dp 1 --batch 2``: rank 1's rows dropped); ms a step and
+   peak GiB a rank, a gradient step profiled on rank 0 (busy share), the
+   phase's seconds by stage and by case. (c) ``shard_train_step``
+   (FSDP, remat) at B = 8 x 256, 4 steps of phase 4j's batches, against
+   rank 0's one-rank ``make_train_step``: the metrics equal on both
+   ranks, launches 64 / 32 a step a rank, each leaf's shard and f32
+   moments by its spec, the losses within ``DP_LOSS0_TOL`` /
+   ``DP_LOSS_TOL`` and the two runs' first moments within ``GRAD_TOL``; ms a
+   step, peak GiB, a step profiled on rank 0. (a) ``compressed_psum`` of
+   2.46 M values and ``dp_train_step_compressed``: every rank equal,
+   within ``amax / 127 + 1e-6`` of the exact mean;
 5. the card's Engine against the port's CPU Engine on the same weights,
    scales and cushion (B=1, 64-token prompt, 8 tokens) in all four phase-4
    modes: teacher-forced logits within the stated bf16 tolerance,
@@ -268,7 +296,8 @@ Phases, each fatal on failure:
    launches of phase 4d beside, as ``router_launches``, and phases 4e-4i's,
    as ``moe_launches``, ``vlm_launches``, ``hybrid_launches``,
    ``encdec_launches``, ``xlstm_launches``, from phase 4j's launcher
-   run, ``train_launches``, and from phase 4k's rank 0, ``tp_launches``,
+   run, ``train_launches``, from phase 4k's rank 0, ``tp_launches``, and
+   from a rank of phase 4l's ``tune.py --dp 2``, ``dp_launches``,
    with each kernel's row at those phases' shapes; the non-causal rows under ``noncausal``), then
    ``{"ok": true, ...}`` as the last line.
 
@@ -296,6 +325,9 @@ F32_FLOPS_PER_S = 67e12          # CUDA cores, no tensor core
 
 ARCH = "smollm-360m"
 B, PROMPT, NEW_TOKENS, CUSHION = 4, 512, 64, 4
+# the runs of each static request and continuous trace beside the first,
+# for the quartiles (phases 4, 4b, 4e-4i): 1 since phase 4l came, 4 before
+REPEATS = 1
 # phase 4c, the method: the search (launch/tune.py's pt_dynamic, chunks of
 # 16 candidates, a 256-token sample, the prefix padded to 4 rows) and the
 # tuning (B = 2, 256 tokens, 20 steps)
@@ -1414,7 +1446,7 @@ class FamilyRun:
     def static(self, batch, new, cushion, calib, expect, modes):
         """Engine.generate for ``batch`` and ``new`` tokens in each mode
         {label: (qcfg, kv_dtype, prequant)}: exact launches, one replay a
-        token, graph tokens = the eager loop's, five requests for the
+        token, graph tokens = the eager loop's, two requests for the
         quartiles. Returns {label: engine}."""
         import numpy as np
         from repro_torch.kernels import _lib
@@ -1447,7 +1479,8 @@ class FamilyRun:
             if dict(_lib.LAUNCHES) != counts:
                 fail(f"{self.tag} {label}: eager launches differ from the "
                      f"graph's")
-            reps = [res] + [eng.generate(batch, new) for _ in range(4)]
+            reps = [res] + [eng.generate(batch, new)
+                            for _ in range(REPEATS)]
             for r in reps[1:]:
                 if not np.array_equal(r.tokens, res.tokens):
                     fail(f"{self.tag} {label}: a repeated request gave "
@@ -3612,6 +3645,347 @@ def tp_kernel_rows(dev, timed, cfg):
     return out
 
 
+# phase 4l, data parallelism over a (data, tp) rank mesh: smollm-360m at
+# full width and depth, two gloo ranks of the one card
+# (launch/mesh.spawn_mesh); see the module docstring
+DP_TUNE_B, DP_TUNE_S, DP_TUNE_STEPS = 4, 256, 20
+DP_TRAIN_B, DP_TRAIN_S, DP_TRAIN_STEPS = 8, 256, 4
+DP_SEARCH = ["--max-prefix-len", "2", "--candidates", "16", "--sample-len",
+             "64"]
+# The bars of (b), tune.py --dp 2 against --dp 1, derived on the CPU first
+# (PERF.md §6): in f32 the two runs differ only in the order of CE's and
+# L_q's f32 sums, 1.6e-7 relative (tests/test_torch_data_parallel.py); in
+# bf16 (smollm's width, 4 layers, B = 4 x 128, 20 pt_dynamic steps) each
+# rank's GEMMs take half the rows, which rounds bf16 activations apart:
+# CE 5.5e-4 relative at most, range 4.2e-2, L_q 6.5e-2, the first step's
+# gradient 0.041 in L2 with a cosine of 0.9995. CE, the smooth part, takes
+# the method's 1e-3; range, L_q and the loss are sums of squared extremes
+# under pt_dynamic, where a one-ulp difference at a tensor's extreme moves
+# its range and every code of it: 0.1; the gradient phase 4c's GRAD_TOL.
+# The gradient norm after the first step is not held: the range term
+# reaches the cushion only through each site's arg-max element, which the
+# roundings move (0.46 apart at one step in the CPU's bf16 run). The final
+# cushion, in units of dp 1's mean move (|tuned - greedy|): Adam moves an
+# element by about the learning rate a step, whatever the size of its
+# gradient, so an element whose small gradient changes sign between two
+# runs parts from the other run by about its move. The f32 tests' 0.25
+# was the first bar; dp 2 read 0.32 (k) and 0.25 (v) on the NVIDIA H100
+# 80GB HBM3 at 700 W, so the bar is 0.5, and the phase plants a fault
+# beside it to show that the bar parts a wrong gradient from dp 2's
+# roundings: tune.py --dp 1 --batch 2, rank 0's rows alone (rank 1's rows
+# dropped), read 0.93 (k) and 0.75 (v) there (PERF.md §6). A gradient
+# counted twice over barely moves Adam's update; the first step's
+# gradient (GRAD_TOL) is the check that catches it.
+DP_CE_TOL, DP_SQ_TOL, DP_MOVE_SHARE = 1e-3, 0.1, 0.5
+# (c), shard_train_step at data = 2 against one rank's make_train_step on
+# phase 4j's batches: each rank's GEMMs take half the rows, as phase 4j's
+# microbatches = 2 do, so phase 4j's microbatch bars: the first step's loss
+# within 1e-2 relative, the four steps' within 5e-2, and the first moments
+# (f32) of the whole tree within GRAD_TOL (relative L2, cosine). The bf16
+# parameters' updates are printed, not held: an update of ~1e-4 on a
+# weight of ~1e-2 is about one bf16 ulp, so which side of a rounding it
+# lands on turns on the last bits (0.0907 apart, cosine 0.9959, on the
+# NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6)
+DP_LOSS0_TOL, DP_LOSS_TOL = 1e-2, 5e-2
+
+
+def dp_phase(dev, corpus):
+    """Phase 4l: data-parallel tuning and training of smollm-360m over two
+    gloo ranks of the card, and the user's path train -> tune --dp 2 ->
+    serve --ckpt-dir (see the module docstring). Returns the record."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.store import CheckpointManager
+    from repro_torch.configs import QuantConfig, get_config
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import serve as SV
+    from repro_torch.launch import train as TL
+    from repro_torch.launch import tune as TU
+    from repro_torch.launch.mesh import spawn_mesh
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.append(str(ROOT / "tests"))
+    import _dp_probe as dp_probe
+
+    cfg = get_config(ARCH)
+    L = cfg.n_layers
+    work = ROOT / "build" / "chip_smoke_dp"
+    shutil.rmtree(work, ignore_errors=True)
+    rec = {"arch": ARCH, "ranks": 2, "backend": "gloo",
+           "note": "two ranks time-slice one card through the host: not "
+                   "data parallelism's speed"}
+    zero = {k: 0 for k in _lib.LAUNCHES}
+    gib = 2.0 ** 30
+
+    # (d) the user's path: launch/train.py 2 steps -> tune.py --dp 2
+    # --ckpt-dir -> serve.py --ckpt-dir --cushion, timed stage by stage;
+    # (b) is its tuning, held against --dp 1 on the same checkpoint
+    pipe = Pipeline(corpus, batch=DP_TRAIN_B, seq_len=DP_TRAIN_S, seed=0)
+    ckpt = str(work / "ckpt")
+    path_s = {}
+    t0 = time.perf_counter()
+    TL.main(["--arch", ARCH, "--device", "cuda", "--steps", "2",
+             "--eval-batches", "1", "--ckpt-dir", ckpt], pipe=pipe)
+    torch.cuda.synchronize()
+    path_s["train"] = time.perf_counter() - t0
+    store = CheckpointManager(ckpt)
+    if store.latest_step() != 2:
+        fail(f"phase 4l: the trainer saved steps {store.steps()}, not 2")
+    sha = store.manifest(2)["sha256"]["arrays.npz"]
+    tune_argv = ["--arch", ARCH, "--device", "cuda", "--ckpt-dir", ckpt,
+                 "--seq-len", str(DP_TUNE_S), "--steps", str(DP_TUNE_STEPS),
+                 "--quant", "pt_dynamic", "--log-every", "10",
+                 "--eval-batches", "1", *DP_SEARCH]
+    # dp 2 (the path's, its artifact served below), dp 1 on the same
+    # batches, and the planted fault: dp 1 on rank 0's rows alone (a
+    # launcher batch's rows are drawn by their index, so --batch 2 takes
+    # the first two rows of each --batch 4 batch: rank 1's rows dropped)
+    reps = {}
+    for name, dp, rows, extra in (
+            ("dp2", 2, DP_TUNE_B, ["--with-scales", "--calib-batches", "1"]),
+            ("dp1", 1, DP_TUNE_B, []), ("drop", 1, DP_TUNE_B // 2, [])):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        TU.main(tune_argv + extra + [
+            "--dp", str(dp), "--batch", str(rows),
+            "--out-dir", str(work / name),
+            "--report-json", str(work / f"{name}.json")], corpus=corpus)
+        torch.cuda.synchronize()
+        reps[name] = json.loads((work / f"{name}.json").read_text())
+        reps[name]["wall_s"] = time.perf_counter() - t0
+    path_s["tune_dp2"] = reps["dp2"]["wall_s"]
+    t0 = time.perf_counter()
+    res = SV.main(["--arch", ARCH, "--device", "cuda", "--ckpt-dir", ckpt,
+                   "--cushion", str(work / "dp2"), "--quant", "pt_static",
+                   "--prequant", "--kv-dtype", "int8", "--batch", "4",
+                   "--prompt-len", "64", "--tokens", "16"],
+                  corpus=corpus)
+    torch.cuda.synchronize()
+    path_s["serve"] = time.perf_counter() - t0
+    toks = np.asarray(res.tokens)
+    if toks.shape != (4, 16) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        fail(f"phase 4l: served tokens {toks.shape} in "
+             f"[{toks.min()}, {toks.max()}]")
+    if store.manifest(2)["sha256"]["arrays.npz"] != sha:
+        fail("phase 4l: the checkpoint changed under the path")
+    rec["path"] = {"seconds": path_s, "total_s": sum(path_s.values()),
+                   "checkpoint_sha256": sha, "tokens": toks[0].tolist()}
+    log(f"path (d): launch/train.py 2 steps {path_s['train']:.1f} s -> "
+        f"tune.py --dp 2 --ckpt-dir {path_s['tune_dp2']:.1f} s -> serve.py "
+        f"--ckpt-dir --cushion {path_s['serve']:.1f} s (the checkpoint's "
+        f"sha256 {sha[:12]} verified at each restore); tokens "
+        f"{toks[0][:8].tolist()}")
+
+    # (b) tune.py --dp 2 against --dp 1
+    two, one = reps["dp2"], reps["dp1"]
+    if two["prefix_ids"] != one["prefix_ids"]:
+        fail(f"phase 4l: prefix ids {two['prefix_ids']} (dp 2) != "
+             f"{one['prefix_ids']} (dp 1)")
+    if len(two["ranks"]) != 2 or len({r["fingerprint"]
+                                      for r in two["ranks"]}) != 1:
+        fail(f"phase 4l: the ranks' tuned cushions differ")
+    if not all(x["ranks_equal"] == 1.0 for x in two["tune_log"]) or len(
+            two["tune_log"]) != DP_TUNE_STEPS:
+        fail("phase 4l: a step left the ranks' cushions unequal")
+    want = dict(zero, flash_attention=DP_TUNE_STEPS * L,
+                flash_attention_bwd=DP_TUNE_STEPS * L)
+    for r in two["ranks"] + one["ranks"] + reps["drop"]["ranks"]:
+        if r["tune_launches"] != want:
+            fail(f"phase 4l: a rank's tuning launched {r['tune_launches']},"
+                 f" expected {want} ({L} / {L} a step)")
+    rel = {k: [abs(a[k] / b[k] - 1) for a, b in zip(two["tune_log"],
+                                                   one["tune_log"])]
+           for k in ("loss", "ce", "range", "qerr", "gnorm")}
+    if max(rel["ce"]) > DP_CE_TOL or max(max(rel[k]) for k in
+                                         ("loss", "range", "qerr")) \
+            > DP_SQ_TOL:
+        fail(f"phase 4l: dp 2 vs dp 1 logs apart by "
+             f"{ {k: max(v) for k, v in rel.items()} }")
+    arts = {n: CheckpointManager(str(work / n)).restore_tree(1)[0]["cushion"]
+            for n in ("dp2", "dp1", "drop")}
+    tune_ms = {n: [1e3 * r["tune_s"] / DP_TUNE_STEPS for r in reps[n]["ranks"]]
+               for n in reps}
+    rec["tune"] = {"argv": tune_argv, "prefix_ids": two["prefix_ids"],
+                   "log_rel_max": {k: max(v) for k, v in rel.items()},
+                   "ms_a_step": tune_ms,
+                   "peak_gib": {n: [(r["peak_bytes"] or 0) / gib for r in
+                                    reps[n]["ranks"]] for n in reps},
+                   "launches_a_rank": two["ranks"][0]["tune_launches"],
+                   "losses": {n: [x["loss"] for x in reps[n]["tune_log"]]
+                              for n in reps}}
+
+    # (a), (c) and the first tuning step's gradient: one spawn of the rank
+    # program; the one-rank references run in rank 0
+    V = cfg.vocab_size
+    tpipe = Pipeline(corpus, batch=DP_TUNE_B, seq_len=DP_TUNE_S, seed=2)
+    rs = np.random.RandomState(26)
+    big = (rs.randn(2, 960 * 2560) * 0.02).astype(np.float32)
+    cases = [
+        dict(kind="compressed", name="compressed", x=big),
+        dict(kind="dp_step", name="dp_step",
+             params=rs.randn(8, 4).astype(np.float32),
+             batch=rs.randn(4, 8).astype(np.float32)),
+        dict(kind="grad", name="grad", cfg=cfg, seed=0,
+             cushion_ids=two["prefix_ids"] or [0],
+             batch=tpipe.get_batch(3000), qcfg=QuantConfig(mode="pt_dynamic"),
+             lam=0.05, one_rank=True, profile=True),
+        dict(kind="train", name="train", cfg=cfg, seed=0,
+             batches=[pipe.get_batch(i) for i in range(DP_TRAIN_STEPS)],
+             batch_rows=DP_TRAIN_B, seq=DP_TRAIN_S, steps=DP_TRAIN_STEPS,
+             lr=1e-3, warmup=max(10, 300 // 20), one_rank=True,
+             profile=True)]
+    t0 = time.perf_counter()
+    ranks = spawn_mesh(dp_probe.run_cases, 2, 1, cases, device="cuda",
+                       every_rank=True, backend="gloo")
+    rec["probe_s"] = time.perf_counter() - t0
+    got = {c["name"]: [r[i] for r in ranks] for i, c in enumerate(cases)}
+    # where the spawn's time went: each case's seconds on each rank
+    rec["probe_case_s"] = {n: [r["seconds"] for r in v]
+                           for n, v in got.items()}
+
+    # (a) compressed_psum and dp_train_step_compressed
+    c0, c1 = got["compressed"]
+    exact = big.mean(axis=0)
+    err = float(np.abs(c0["out"] - exact).max())
+    if not (np.array_equal(c0["out"], c1["out"])
+            and np.array_equal(c0["acc"], c1["acc"])):
+        fail("phase 4l: compressed_psum differs between the ranks")
+    if err > np.abs(big).max() / 127 + 1e-6:
+        fail(f"phase 4l: compressed_psum off the exact mean by {err}")
+    s0, s1 = got["dp_step"]
+    if s0["loss"] != s1["loss"] or not np.array_equal(s0["grads"],
+                                                      s1["grads"]):
+        fail("phase 4l: dp_train_step_compressed differs between the ranks")
+    rec["compressed"] = {"n": int(big.shape[1]), "max_abs_err": err,
+                         "bound": float(np.abs(big).max() / 127 + 1e-6)}
+
+    # the first tuning step's gradient, dp 2 against one rank
+    g0, g1 = got["grad"]
+    gl = {}
+    for k in ("k", "v"):
+        a, b = g0["grads"]["kv"][k], g1["grads"]["kv"][k]
+        if not np.array_equal(a, b):
+            fail(f"phase 4l: the ranks' summed gradients d{k} differ")
+        w = g0["one"]["grads"]["kv"][k]
+        gl[k] = (float(np.linalg.norm(a - w) / np.linalg.norm(w)),
+                 float((a * w).sum() / np.linalg.norm(a) / np.linalg.norm(w)))
+        if gl[k][0] > GRAD_TOL[0] or gl[k][1] < GRAD_TOL[1]:
+            fail(f"phase 4l: first tuning gradient d{k}, dp 2 vs one rank: "
+                 f"relative L2 {gl[k][0]:.4g}, cosine {gl[k][1]:.6f} "
+                 f"(tolerance {GRAD_TOL})")
+    if g0["launches"] != dict(zero, flash_attention=L,
+                              flash_attention_bwd=L):
+        fail(f"phase 4l: a gradient step launched {g0['launches']}")
+    # each tuned cushion's mean |. - dp1| in units of dp 1's mean move:
+    # dp 2 below the bar, the planted fault (rank 1's rows dropped) above
+    move, share = {}, {}
+    for k in ("k", "v"):
+        b = arts["dp1"]["kv"][k].float().numpy()
+        mv = one["ranks"][0]["cushion_move"][k]
+        share[k] = {n: float(np.abs(arts[n]["kv"][k].float().numpy()
+                                    - b).mean()) / mv
+                    for n in ("dp2", "drop")}
+        move[k] = (share[k]["dp2"] * mv, mv)
+        if not share[k]["dp2"] < DP_MOVE_SHARE < share[k]["drop"]:
+            fail(f"phase 4l: tuned {k}, mean |. - dp1| over dp 1's mean "
+                 f"move {mv:.3g}: dp 2 {share[k]['dp2']:.3g}, rank 1's rows "
+                 f"dropped {share[k]['drop']:.3g} (the bar {DP_MOVE_SHARE} "
+                 f"must part them)")
+    rec["tune"].update(first_gradient=gl, cushion_mean_diff_and_move=move,
+                       cushion_diff_share=share, grad_profile=g0["profile"])
+    prof = g0["profile"]
+    busy = (prof["device_ms"] / prof["ms"]
+            if not isinstance(prof["device_ms"], str) else "not measured")
+    rec["tune"]["busy_share"] = busy
+    log(f"(b) tune.py --dp 2 vs --dp 1 (B={DP_TUNE_B} x {DP_TUNE_S}, "
+        f"{DP_TUNE_STEPS} steps, pt_dynamic): prefix {two['prefix_ids']} "
+        f"equal; ranks equal after every step; launches a rank "
+        f"{L} / {L} a step; logs apart at most "
+        f"{ {k: round(max(v), 5) for k, v in rel.items()} } (tolerance CE "
+        f"{DP_CE_TOL}, loss / range / L_q {DP_SQ_TOL}); first gradient "
+        f"rel L2 / cosine {gl}; tuned cushion mean |. - dp1| / dp 1's mean "
+        f"move {share} (bar {DP_MOVE_SHARE}); "
+        f"ms a step {tune_ms}; peak GiB a "
+        f"rank {rec['tune']['peak_gib']}; a dp 2 gradient step profiled on "
+        f"rank 0: wall {prof['ms']:.1f} ms, device {prof['device_ms']} ms "
+        f"(busy {busy})")
+
+    # (c) shard_train_step at data = 2 against one rank's make_train_step
+    t0_, t1_ = got["train"]
+    if t0_["metrics"] != t1_["metrics"]:
+        fail("phase 4l: the ranks' training metrics differ")
+    want = dict(zero, flash_attention=2 * L, flash_attention_bwd=L)
+    for r in (t0_, t1_):
+        if any(x != want for x in r["launches"]):
+            fail(f"phase 4l: a training step launched {r['launches']}, "
+                 f"expected {want} a step (remat)")
+        for path, lf in r["leaves"].items():
+            share = 2 if "data" in lf["spec"] else 1
+            if lf["shard"] * share != lf["full"] or \
+                    lf["moments"] != 2 * lf["shard"] or \
+                    lf["moment_dtype"] != "torch.float32":
+                fail(f"phase 4l: {path} holds {lf}")
+    n_sharded = sum("data" in lf["spec"] for lf in t0_["leaves"].values())
+    one_ = t0_["one"]
+    l2 = [abs(a["loss"] / b["loss"] - 1) for a, b in zip(t0_["metrics"],
+                                                        one_["metrics"])]
+    if l2[0] > DP_LOSS0_TOL or max(l2) > DP_LOSS_TOL:
+        fail(f"phase 4l: shard_train_step losses apart {l2}")
+    mom = one_["moments"]
+    if mom["rel_l2"] > GRAD_TOL[0] or mom["cosine"] < GRAD_TOL[1]:
+        fail(f"phase 4l: the first moments apart: relative L2 "
+             f"{mom['rel_l2']:.4g}, cosine {mom['cosine']:.6f}")
+    tprof = t0_["profile"]
+    tbusy = (tprof["device_ms"] / tprof["ms"]
+             if not isinstance(tprof["device_ms"], str) else "not measured")
+    rec["train"] = {
+        "losses": [m["loss"] for m in t0_["metrics"]],
+        "one_rank_losses": [m["loss"] for m in one_["metrics"]],
+        "loss_rel": l2, "moments": mom, "update": one_["update"],
+        "ms_a_step": [r["ms"] for r in (t0_, t1_)],
+        "peak_gib": [r["peak_bytes"] / gib for r in (t0_, t1_)],
+        "leaves_sharded": [n_sharded, len(t0_["leaves"])],
+        "param_bytes": {"whole": t0_["full_bytes"],
+                        "rank": t0_["shard_bytes"],
+                        "moments_rank": t0_["moment_bytes"]},
+        "profile": tprof, "busy_share": tbusy,
+        "launches_a_step": t0_["launches"][0]}
+    log(f"(c) shard_train_step at data = 2 (B={DP_TRAIN_B} x {DP_TRAIN_S}, "
+        f"{DP_TRAIN_STEPS} steps, FSDP, remat) vs one rank's make_train_step:"
+        f" losses {[round(x, 4) for x in rec['train']['losses']]} vs "
+        f"{[round(x, 4) for x in rec['train']['one_rank_losses']]} (rel "
+        f"{max(l2):.2e}); first moments rel L2 {mom['rel_l2']:.4g}, cosine "
+        f"{mom['cosine']:.6f} (the bf16 parameters' updates "
+        f"{one_['update']['rel_l2']:.4g}, {one_['update']['cosine']:.6f}: "
+        f"printed, not gated); a rank holds "
+        f"{t0_['shard_bytes'] / gib:.3f} of {t0_['full_bytes'] / gib:.3f} "
+        f"GiB of parameters ({n_sharded} of {len(t0_['leaves'])} leaves "
+        f"sharded) and {t0_['moment_bytes'] / gib:.3f} GiB of "
+        f"moments; launches a step {L * 2} / {L}; ms a step "
+        f"{[round(x, 1) for x in t0_['ms']]}; peak GiB a rank "
+        f"{rec['train']['peak_gib']}; one step profiled on rank 0: wall "
+        f"{tprof['ms']:.1f} ms, device {tprof['device_ms']} ms (busy "
+        f"{tbusy})")
+    log(f"(a) compressed_psum over 2 ranks of {big.shape[1]} values: every "
+        f"rank equal, max |err| {err:.3g} against the exact mean (bound "
+        f"{rec['compressed']['bound']:.3g}); dp_train_step_compressed equal "
+        f"on both ranks")
+    cases_s = {n: [round(x, 1) for x in v]
+               for n, v in rec["probe_case_s"].items()}
+    log(f"where the phase's time went (s): the path {path_s}, tune.py "
+        f"{ {n: round(r['wall_s'], 1) for n, r in reps.items()} }, the rank "
+        f"program's spawn {rec['probe_s']:.1f} (each case's on each rank "
+        f"{cases_s})")
+    # the kernels' launches on the phase's main path: one rank's tuning
+    rec["launches"] = two["ranks"][0]["tune_launches"]
+    rec["kernels"] = {}
+    shutil.rmtree(work, ignore_errors=True)
+    return rec
+
+
 def tree_map(fn, t):
     """fn on every tensor of a tree of dicts, lists and SiteScale leaves."""
     from repro_torch.core.quantization import SiteScale
@@ -3688,6 +4062,15 @@ def main() -> None:
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
     record["card"] = card
+    # smollm's synthetic corpus takes a minute and more of one host core:
+    # a process of its own builds it (the same SyntheticCorpus(V, seed=0),
+    # returned by pickle) while the kernels build and phase 3 runs
+    import concurrent.futures
+    import multiprocessing
+    corpus_pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    corpus_job = corpus_pool.submit(SyntheticCorpus,
+                                    get_config(ARCH).vocab_size, 0)
 
     # 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -4447,9 +4830,10 @@ def main() -> None:
     params = api.init_params(torch.Generator(dev).manual_seed(0))
     cushion = seeded_cushion(api, params, CUSHION, seed=0)
     t0 = time.perf_counter()
-    corpus = SyntheticCorpus(V, seed=0)
-    log(f"synthetic corpus over {V} ids in "
-        f"{time.perf_counter() - t0:.1f} s (host set-up)")
+    corpus = corpus_job.result()
+    corpus_pool.shutdown()
+    log(f"synthetic corpus over {V} ids (built beside phases 2 and 3), "
+        f"waited {time.perf_counter() - t0:.1f} s for it (host set-up)")
     pipe = Pipeline(corpus, batch=B, seq_len=PROMPT, seed=1)
     calib = [to_device(pipe.get_batch(1000 + n), dev) for n in range(2)]
     batch = to_device(pipe.get_batch(0), dev)
@@ -4512,7 +4896,8 @@ def main() -> None:
         if dict(_lib.LAUNCHES) != counts:
             fail(f"{label}: eager launches {dict(_lib.LAUNCHES)} != the "
                  f"graph's {counts}")
-        reps = [res] + [eng.generate(batch, NEW_TOKENS) for _ in range(4)]
+        reps = [res] + [eng.generate(batch, NEW_TOKENS)
+                        for _ in range(REPEATS)]
         for r in reps[1:]:
             if not np.array_equal(r.tokens, toks):
                 fail(f"{label}: a repeated request gave other tokens")
@@ -4544,8 +4929,9 @@ def main() -> None:
                 d["busy_share_of_tpot"] = d["device_ms_per_step"] / tpot50
         log(f"{label}: B={B} prompt={PROMPT} new={NEW_TOKENS} m={CUSHION} "
             f"TTFT={res.ttft_ms:.2f} ms TPOT={res.tpot_ms:.3f} ms "
-            f"(5 runs: TPOT quartiles {runs[label]['repeats']['tpot_ms']}, "
-            f"tokens/s {runs[label]['repeats']['tokens_per_s']}; eager "
+            f"({REPEATS + 1} runs: TPOT quartiles "
+            f"{runs[label]['repeats']['tpot_ms']}, tokens/s "
+            f"{runs[label]['repeats']['tokens_per_s']}; eager "
             f"per-token loop TPOT {eager.tpot_ms:.3f} ms) weights "
             f"fp={eng.weight_bytes_fp} B int8={eng.weight_bytes_int8} B "
             f"int4={eng.weight_bytes_int4} B launches={counts} graph: "
@@ -4712,11 +5098,11 @@ def main() -> None:
                "stats": st.as_dict(),
                "prefill_rows": prefill_rows,
                "slots": [o.slot for o in outs]}
-        # four more runs of the trace: the same tokens, and each run's
+        # REPEATS more runs of the trace: the same tokens, and each run's
         # TTFT / TPOT p50 and tokens/s for the quartiles
         rep = [(res["ttft_ms_p50"], res["tpot_ms_p50"],
                 res["tokens_per_s"])]
-        for _ in range(4):
+        for _ in range(REPEATS):
             again = eng.run(trace)
             for o, o2 in zip(outs, again):
                 if not np.array_equal(o.tokens, o2.tokens):
@@ -4745,8 +5131,8 @@ def main() -> None:
             f"{sd['prefill_chunks']}, page-table syncs "
             f"{sd['page_table_syncs']}, launches {counts}, {replays} graph "
             f"replays (captured in {eng.graph.capture_s:.3f} s, "
-            f"{eng.graph.n_nodes} nodes); 5 runs: TPOT p50 quartiles "
-            f"{res['repeats']['tpot_ms_p50']}, tokens/s "
+            f"{eng.graph.n_nodes} nodes); {REPEATS + 1} runs: TPOT p50 "
+            f"quartiles {res['repeats']['tpot_ms_p50']}, tokens/s "
             f"{res['repeats']['tokens_per_s']}; busy share "
             f"{res['device_busy'].get('busy_share_of_tpot')}")
         return outs, res
@@ -4908,6 +5294,12 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("tp")
+
+    # 4l. data-parallel tuning and training, smollm-360m on two ranks ---
+    record["dp"] = dp_phase(dev, corpus)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("dp")
 
     # 5. card vs the port's CPU engine on the same weights --------------
     cpu = lambda t: t.detach().cpu()       # noqa: E731
@@ -5222,7 +5614,7 @@ def main() -> None:
         # shapes, beside smollm's; smollm's training run (4j); rank 0 of
         # deepseek-67b's tensor-parallel runs (4k)
         for tag in ("moe", "vlm", "hybrid", "encdec", "xlstm", "train",
-                    "tp"):
+                    "tp", "dp"):
             if record[tag]["launches"].get(kk["name"]):
                 kk[f"{tag}_launches"] = record[tag]["launches"][kk["name"]]
             kk.update({f"{tag}_{k_}": v for k_, v in

@@ -131,11 +131,14 @@ class CheckpointManager:
         with open(os.path.join(self._dir(step), "manifest.json")) as f:
             return json.load(f)
 
-    def restore_tree(self, step: int, verify: bool = True
+    def restore_tree(self, step: int, verify: bool = True,
+                     prefix: Optional[str] = None
                      ) -> Tuple[Dict[str, Any], Dict]:
         """The saved tree as nested dicts of CPU tensors in their stored
         dtypes, rebuilt from the manifest's "/"-joined keys, and the
-        manifest. Raises IOError when ``arrays.npz`` fails its sha256."""
+        manifest; with ``prefix`` only the leaves under that key (the
+        others are not read). Raises IOError when ``arrays.npz`` fails its
+        sha256 (over the whole file)."""
         manifest = self.manifest(step)
         apath = os.path.join(self._dir(step), "arrays.npz")
         if verify:
@@ -146,6 +149,8 @@ class CheckpointManager:
         tree: Dict[str, Any] = {}
         with np.load(apath) as data:
             for i, key in enumerate(manifest["keys"]):
+                if prefix is not None and not key.startswith(prefix + "/"):
+                    continue
                 parts = key.split("/")
                 node = tree
                 for p in parts[:-1]:
@@ -162,29 +167,53 @@ class CheckpointManager:
         tree, manifest = self.restore_tree(step, verify)
         if [k for k, _ in _flatten(like)] != manifest["keys"]:
             raise ValueError("checkpoint/param-tree structure mismatch")
+        return _rebuild(tree, like)
 
-        def stored(path):
-            node = tree
-            for p in "/".join(path).split("/"):
-                node = node[p]
-            return node
-
-        def rebuild(t, path):
-            if isinstance(t, dict):
-                return {k: rebuild(v, path + (str(k),)) for k, v in t.items()}
-            if isinstance(t, (list, tuple)):
-                items = [rebuild(v, path + (str(i),)) for i, v in enumerate(t)]
-                if hasattr(t, "_fields"):           # a NamedTuple
-                    return type(t)(*items)
-                return type(t)(items)
-            leaf = stored(path)
-            if isinstance(t, torch.Tensor):
-                return leaf.to(device=t.device, dtype=t.dtype)
-            return leaf
-
-        return rebuild(like, ())
+    def restore_subtree(self, step: int, key: str, like: Any,
+                        verify: bool = True) -> Any:
+        """The saved tree's ``key`` subtree (the ``params`` of a training
+        checkpoint) in the structure of ``like``, as ``restore`` returns a
+        whole tree. Raises ValueError when the structures or shapes
+        differ."""
+        tree, manifest = self.restore_tree(step, verify, prefix=key)
+        if key not in tree or sorted(k for k, _ in _flatten(tree[key])) != \
+                sorted(k for k, _ in _flatten(like)):
+            raise ValueError(f"checkpoint step {step}: its {key!r} subtree "
+                             f"is not the structure asked for")
+        out = _rebuild(tree[key], like)
+        for (_, a), (_, b) in zip(_flatten(out), _flatten(like)):
+            if isinstance(b, torch.Tensor) and a.shape != b.shape:
+                raise ValueError(f"checkpoint step {step}: a {key!r} leaf "
+                                 f"of shape {tuple(a.shape)} where "
+                                 f"{tuple(b.shape)} was asked for")
+        return out
 
     def _gc(self) -> None:
         steps = self.steps()
         for s in steps[:-self.keep] if self.keep > 0 else []:
             shutil.rmtree(self._dir(s), ignore_errors=True)
+
+
+def _rebuild(tree: Dict[str, Any], like: Any) -> Any:
+    """``like``'s structure filled from ``restore_tree``'s nested dicts:
+    tensor leaves in their ``like`` leaf's dtype and on its device."""
+    def stored(path):
+        node = tree
+        for p in "/".join(path).split("/"):
+            node = node[p]
+        return node
+
+    def rebuild(t, path):
+        if isinstance(t, dict):
+            return {k: rebuild(v, path + (str(k),)) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            items = [rebuild(v, path + (str(i),)) for i, v in enumerate(t)]
+            if hasattr(t, "_fields"):           # a NamedTuple
+                return type(t)(*items)
+            return type(t)(items)
+        leaf = stored(path)
+        if isinstance(t, torch.Tensor):
+            return leaf.to(device=t.device, dtype=t.dtype)
+        return leaf
+
+    return rebuild(like, ())

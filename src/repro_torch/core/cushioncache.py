@@ -331,10 +331,51 @@ def _partition_cushion(cushion0: Params):
     return frozen, stop_grad_frozen
 
 
+def tune_loss_grads(api, params, cushion: Params, batch: Dict[str, Any],
+                    qcfg: QuantConfig, ccfg: CushionConfig,
+                    scales: Optional[Params] = None,
+                    stop_grad_frozen: Callable = None):
+    """One tuning step's gradient into the cushion of L = CE + λ·range
+    (``stop_grad_frozen``: ``_partition_cushion``'s, default: from the
+    cushion), and its metrics ("loss", "ce", "range", "qerr"), device
+    tensors. Under a data axis the batch is the rank's rows, the loss's
+    reductions global and the gradients summed over the axis
+    (``collectives.sum_over_data``): every rank gets the global gradient."""
+    from repro_torch.core import outliers as OUT
+    from repro_torch.distributed import collectives as DC
+    if stop_grad_frozen is None:
+        stop_grad_frozen = _partition_cushion(cushion)[1]
+    leaves = tree_map(lambda t: t.detach().requires_grad_(), cushion)
+    with torch.enable_grad():
+        _, aux = api.loss_fn(params, batch, qcfg, scales=scales,
+                             cushion=stop_grad_frozen(leaves),
+                             collect=True, remat=False)
+        reg = OUT.activation_range_penalty(aux["taps"])
+        loss = aux["ce"] + ccfg.lam * reg
+        got = iter(torch.autograd.grad(loss, tree_leaves(leaves),
+                                       allow_unused=True))
+    # a frozen leaf is detached in the loss: its gradient is zero
+    grads = DC.sum_over_data(
+        tree_map(lambda t: _or_zeros(next(got), t), leaves))
+    return grads, {"loss": loss.detach(), "ce": aux["ce"].detach(),
+                   "range": reg.detach(), "qerr": aux["qerr"].detach()}
+
+
+def _ranks_equal(tree: Params) -> torch.Tensor:
+    """1.0 where every rank of the active data axis holds ``tree`` equal
+    (elementwise, as ``torch.equal``: the max over the ranks is the min),
+    else 0.0; a device scalar."""
+    from repro_torch.distributed import collectives as DC
+    ok = torch.ones((), dtype=torch.bool, device=tree_leaves(tree)[0].device)
+    for t in tree_leaves(tree):
+        ok = ok & (DC.pmax(t, "data") == DC.pmin(t, "data")).all()
+    return ok.float()
+
+
 def prefix_tune(api, params, cushion0: Params,
                 batch_iter: Iterable[Dict[str, Any]],
                 qcfg: QuantConfig, ccfg: CushionConfig,
-                scales: Optional[Params] = None,
+                scales: Optional[Params] = None, mesh=None,
                 verbose: bool = True) -> TuneResult:
     """Freeze the model; train the cushion KV on L = L_pred + λ·L_range
     (eq. 11) with ``ccfg.tune_steps`` AdamW steps (constant lr
@@ -345,25 +386,54 @@ def prefix_tune(api, params, cushion0: Params,
     * The cushion trained is a private ``detach().clone()`` of
       ``cushion0`` (which may have been made under ``inference_mode``) and
       keeps its dtype: AdamW holds f32 moments and casts each update back.
-    * Only the "kv" block trains (``_partition_cushion``).
+    * Only the "kv" block trains (``_partition_cushion``): the frozen
+      recurrent-state leaves come out bit for bit.
     * Per-step metrics stay on the device; the log drains every
       ``ccfg.log_every`` steps through ``monitoring.host_sync``, one
       transfer of the stacked pending metrics, so a run of ``n`` steps
-      makes at most ``n / log_every + 1`` transfers and still logs every
-      step.
+      makes at most ``n / log_every + 1`` transfers (on each rank) and
+      still logs every step.
+    * ``mesh=`` (a ``launch/mesh.TPMesh`` with a data axis; every rank of
+      it calls ``prefix_tune`` with the same global batches) splits each
+      batch over the data axis with the cushion and its moments replicated
+      (``train/trainer.shard_update_step``): the loss's reductions over
+      the batch are global, the gradients summed over the axis, and every
+      rank holds the same cushion after every step. The batch size must
+      divide by the axis.
     * On the card every layer's attention runs ``flash_attention`` forward
       and ``flash_attention_bwd`` backward.
     """
     from repro_torch import monitoring as MON
-    from repro_torch.core import outliers as OUT
+    from repro_torch.distributed import collectives as DC
     from repro_torch.optim.adamw import AdamW, constant_lr
 
     t0 = time.time()
+    if mesh is not None:
+        from repro_torch.train.trainer import (check_data_parallel,
+                                               replicated_shardings,
+                                               shard_update_step)
+        check_data_parallel(api.cfg, int(mesh.data_size), int(mesh.size))
     frozen, stop_grad_frozen = _partition_cushion(cushion0)
     opt = AdamW(lr=constant_lr(ccfg.tune_lr), weight_decay=0.0,
                 grad_clip=1.0, frozen=frozen)
     cushion = tree_map(lambda t: t.detach().clone(), cushion0)
     state = opt.init(cushion)
+
+    def step(cush, state, batch):
+        grads, metrics = tune_loss_grads(api, params, cush, batch, qcfg,
+                                         ccfg, scales, stop_grad_frozen)
+        cush, state, om = opt.update(grads, state, cush)
+        metrics["gnorm"] = om["grad_norm"]
+        if DC.data_size() > 1:
+            metrics["ranks_equal"] = _ranks_equal(cush)
+        return cush, state, metrics
+
+    step_fn = step
+    if mesh is not None:
+        step_fn = shard_update_step(step, mesh,
+                                    replicated_shardings(cushion0, mesh),
+                                    replicated_shardings(state, mesh), True)
+
     log: List[Dict[str, float]] = []
     pending: List[Tuple[int, Dict[str, torch.Tensor]]] = []
     log_every = max(1, int(ccfg.log_every))
@@ -376,6 +446,9 @@ def prefix_tune(api, params, cushion0: Params,
         for (j, _), mv in zip(pending, fetched):
             rec = {k: float(v) for k, v in mv.items()}
             rec["step"] = j
+            if rec.get("ranks_equal", 1.0) != 1.0:
+                raise RuntimeError(f"prefix_tune: the ranks' cushions "
+                                   f"differ after step {j}")
             log.append(rec)
             if verbose and j % print_every == 0:
                 print(f"[tune] step={j} loss={rec['loss']:.4f} "
@@ -386,23 +459,8 @@ def prefix_tune(api, params, cushion0: Params,
     for i, batch in enumerate(batch_iter):
         if i >= ccfg.tune_steps:
             break
-        leaves = tree_map(lambda t: t.detach().requires_grad_(), cushion)
-        with torch.enable_grad():
-            _, aux = api.loss_fn(params, batch, qcfg, scales=scales,
-                                 cushion=stop_grad_frozen(leaves),
-                                 collect=True, remat=False)
-            reg = OUT.activation_range_penalty(aux["taps"])
-            loss = aux["ce"] + ccfg.lam * reg
-            got = iter(torch.autograd.grad(loss, tree_leaves(leaves),
-                                           allow_unused=True))
-        # a frozen leaf is detached in the loss: its gradient is zero
-        grads = tree_map(lambda t: _or_zeros(next(got), t), leaves)
-        cushion, state, om = opt.update(
-            grads, state, tree_map(torch.Tensor.detach, leaves))
-        pending.append((i, {"loss": loss.detach(), "ce": aux["ce"].detach(),
-                            "range": reg.detach(),
-                            "qerr": aux["qerr"].detach(),
-                            "gnorm": om["grad_norm"]}))
+        cushion, state, metrics = step_fn(cushion, state, batch)
+        pending.append((i, metrics))
         if len(pending) >= log_every:
             drain()
     drain()
@@ -417,19 +475,33 @@ def prefix_tune(api, params, cushion0: Params,
 def discover(api, params, sample_fn: Callable[[int], Dict[str, Any]],
              batch_iter: Iterable[Dict[str, Any]], qcfg: QuantConfig,
              ccfg: CushionConfig, gen: torch.Generator,
-             skip_tune: bool = False, verbose: bool = True):
+             skip_tune: bool = False, mesh=None, verbose: bool = True):
     """greedy search -> extract the cushion KV -> quantization-aware
     tuning. Returns (cushion, SearchResult, TuneResult | None). The
     artifact keeps the dtype ``extract_cushion`` emits (the model's): a
-    bf16 model gets a bf16 cushion."""
-    sr = greedy_search(api, params, sample_fn, qcfg, ccfg, gen,
-                       verbose=verbose)
+    bf16 model gets a bf16 cushion. ``mesh=``: every rank of its data axis
+    calls ``discover``; rank 0 searches and broadcasts the prefix ids
+    (another rank's ``SearchResult`` holds them and no history), every
+    rank extracts the cushion, and ``prefix_tune`` runs on the mesh."""
+    from repro_torch.distributed import collectives as DC
+    lead = mesh is None or int(mesh.data_rank) == 0
+    if lead:
+        sr = greedy_search(api, params, sample_fn, qcfg, ccfg, gen,
+                           verbose=verbose)
+    if mesh is not None and int(mesh.data_size) > 1:
+        n = DC.broadcast_ints([sr.prefix_ids.size if lead else 0], mesh,
+                              axis="data")[0]
+        ids = DC.broadcast_ints(sr.prefix_ids.tolist() if lead else [0] * n,
+                                mesh, axis="data")
+        if not lead:
+            sr = SearchResult(prefix_ids=np.asarray(ids, np.int32),
+                              history=[], wall_time_s=0.0)
     ids = sr.prefix_ids if sr.prefix_ids.size else np.asarray([0], np.int32)
     cushion = api.extract_cushion(
         params, torch.as_tensor(ids, dtype=torch.int32, device=api.device),
         None, qcfg)
     if skip_tune:
         return cushion, sr, None
-    tr = prefix_tune(api, params, cushion, batch_iter, qcfg, ccfg,
+    tr = prefix_tune(api, params, cushion, batch_iter, qcfg, ccfg, mesh=mesh,
                      verbose=verbose)
     return tr.cushion, sr, tr

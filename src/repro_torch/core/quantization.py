@@ -107,16 +107,21 @@ def fake_quant(x: Tensor, scale: Tensor, zero: Tensor, bits: int,
 
 def act_minmax(x: Tensor, per_token: bool, groups: int = 1
                ) -> Tuple[Tensor, Tensor]:
-    """Per-token ranges, or one per-tensor range; with ``groups`` > 1 the
-    leading axis holds ``groups`` stacked tensors, each with its own range
-    (shaped to broadcast against x)."""
+    """Per-token ranges, or one per-tensor range (the global batch's under
+    a data axis, ``distributed/collectives.use_data``); with ``groups`` > 1
+    the leading axis holds ``groups`` stacked tensors, each with its own
+    range (shaped to broadcast against x)."""
     if per_token:
         return x.amin(dim=-1, keepdim=True), x.amax(dim=-1, keepdim=True)
     if groups > 1:
+        if DC.data_size() > 1:
+            raise ValueError("stacked groups (the search's candidates) run "
+                             "on one rank's batch, not over a data axis")
         xg = x.reshape(groups, -1)
         shape = (groups,) + (1,) * (x.dim() - 1)
         return xg.amin(1).reshape(shape), xg.amax(1).reshape(shape)
-    return x.amin(), x.amax()
+    # over the global batch under a data axis
+    return DC.global_extrema(x)
 
 
 def _ptoken_fake_quant(x: Tensor, cfg: QuantConfig) -> Tensor:
@@ -136,7 +141,9 @@ def _ptoken_fake_quant(x: Tensor, cfg: QuantConfig) -> Tensor:
 def act_fake_quant(x: Tensor, cfg: QuantConfig,
                    static_scale: Optional[Tensor] = None,
                    static_zero: Optional[Tensor] = None,
-                   groups: int = 1) -> Tensor:
+                   groups: int = 1, rng: Optional[Tuple] = None) -> Tensor:
+    """``rng``: x's per-tensor (min, max), where the caller has it
+    (``site_taps``)."""
     if cfg.mode == "none":
         return x
     if cfg.mode == "pt_static":
@@ -150,7 +157,8 @@ def act_fake_quant(x: Tensor, cfg: QuantConfig,
         if x.device.type != "cpu":
             raise ValueError("symmetric per-token activations have no "
                              "kernel; they run on the CPU only")
-    mn, mx = act_minmax(x.detach(), cfg.mode == "ptoken_dynamic", groups)
+    mn, mx = rng if rng is not None and cfg.mode == "pt_dynamic" else \
+        act_minmax(x.detach(), cfg.mode == "ptoken_dynamic", groups)
     scale, zero = params_from_minmax(mn, mx, cfg.a_bits, cfg.symmetric_a)
     return fake_quant(x, scale, zero, cfg.a_bits, cfg.symmetric_a)
 
@@ -356,7 +364,8 @@ def _ptoken_int_matmul(x: Tensor, wq: Tensor, s_w: Tensor, s_x: Tensor,
 
 def true_int_dot(x: Tensor, w: Tensor, cfg: QuantConfig,
                  site: Optional[SiteScale],
-                 row_parallel: bool = False) -> Tensor:
+                 row_parallel: bool = False,
+                 rng: Optional[Tuple] = None) -> Tensor:
     """int8 x int8 -> int32 matmul with the dequant in its epilogue; the
     weight is quantized on every call (``prequantized_int_dot`` is the
     int8-resident variant). A per-tensor range (``pt_static``,
@@ -374,7 +383,8 @@ def true_int_dot(x: Tensor, w: Tensor, cfg: QuantConfig,
             raise ValueError("pt_static needs a calibrated site scale")
         s_x, z_x = site.scale, site.zero
     else:
-        mn, mx = act_minmax(x, cfg.mode == "ptoken_dynamic")
+        mn, mx = rng if rng is not None and cfg.mode == "pt_dynamic" else \
+            act_minmax(x, cfg.mode == "ptoken_dynamic")
         s_x, z_x = params_from_minmax(mn, mx, cfg.a_bits, cfg.symmetric_a)
     if cfg.mode == "ptoken_dynamic":
         return _ptoken_int_matmul(x, wq, s_w, s_x, z_x, cfg)
@@ -480,14 +490,15 @@ def _sum_rows(y: Tensor) -> Tensor:
 
 def qdot(x: Tensor, w: Any, cfg: QuantConfig,
          site: Optional[SiteScale] = None, groups: int = 1,
-         row_parallel: bool = False) -> Tensor:
+         row_parallel: bool = False, rng: Optional[Tuple] = None) -> Tensor:
     """Quantized x @ w. ``w`` is (d_in, d_out) or a prequantized dict.
     ``groups`` > 1: x stacks that many independent tensors along its
     leading axis, each fake-quantized with its own dynamic range (the
     integer paths take one range and refuse it). ``row_parallel``: under
     tensor parallelism x and w are the rank's shards of the contracting
     axis, and the ranks' partial products are summed (see the module
-    docstring); it changes nothing on one rank."""
+    docstring); it changes nothing on one rank. ``rng``: x's per-tensor
+    (min, max) for a dynamic range, where the caller has it."""
     if isinstance(w, dict):
         if groups > 1:
             raise ValueError("integer-resident weights serve one tensor "
@@ -500,12 +511,12 @@ def qdot(x: Tensor, w: Any, cfg: QuantConfig,
         if groups > 1 and cfg.mode != "pt_static":
             raise ValueError("the true int8 matmul takes one dynamic range "
                              "(groups=1)")
-        return true_int_dot(x, w, cfg, site, row_parallel)
+        return true_int_dot(x, w, cfg, site, row_parallel, rng)
     if cfg.mode != "pt_static" and DC.tp_size() > 1:
         raise ValueError(f"{cfg.mode}: dynamic activation ranges are not "
                          f"sharded yet {_TP_LATER}")
     xq = act_fake_quant(x, cfg, site.scale if site is not None else None,
-                        site.zero if site is not None else None, groups)
+                        site.zero if site is not None else None, groups, rng)
     y = xq @ weight_fake_quant(w, cfg, row_parallel)
     return _sum_rows(y) if row_parallel else y
 
@@ -515,13 +526,18 @@ def qdot(x: Tensor, w: Any, cfg: QuantConfig,
 # ---------------------------------------------------------------------------
 
 def site_qerr(x: Tensor, cfg: QuantConfig, site: Optional[SiteScale],
-              n_skip: int = 0, groups: int = 1) -> Tensor:
-    """||X - q(X)||^2 over the token part (positions >= n_skip): a scalar,
-    or with ``groups`` > 1 one value per stacked tensor, (groups,)."""
+              n_skip: int = 0, groups: int = 1,
+              rng: Optional[Tuple] = None) -> Tensor:
+    """||X - q(X)||^2 over the token part (positions >= n_skip): a scalar
+    (the global batch's under a data axis), or with ``groups`` > 1 one
+    value per stacked tensor, (groups,). ``rng``: the token part's
+    per-tensor (min, max), where the caller has it."""
     if n_skip:
         x = x[..., n_skip:, :]
     if cfg.mode == "pt_static" and site is not None:
         scale, zero = site.scale, site.zero
+    elif rng is not None and cfg.mode != "ptoken_dynamic":
+        scale, zero = params_from_minmax(*rng, cfg.a_bits, cfg.symmetric_a)
     else:
         mn, mx = act_minmax(x.detach(), cfg.mode == "ptoken_dynamic", groups)
         scale, zero = params_from_minmax(mn, mx, cfg.a_bits, cfg.symmetric_a)
@@ -531,15 +547,33 @@ def site_qerr(x: Tensor, cfg: QuantConfig, site: Optional[SiteScale],
     err = torch.sub(*_promote(x, xq)).float().square()
     if groups > 1:
         return err.reshape(groups, -1).sum(1)
-    return err.sum()
+    return DC.global_sum(err.sum())
 
 
 def site_stats(x: Tensor, n_skip: int = 0) -> Dict[str, Tensor]:
+    """A site's range (differentiable: the range penalty of prefix tuning
+    reads it) and per-channel absmax, over the global batch under a data
+    axis."""
     if n_skip:
         x = x[..., n_skip:, :]
-    xf = x.float()
-    return {"amin": xf.amin(), "amax": xf.amax(),
-            "absmax_ch": xf.abs().amax(dim=tuple(range(x.dim() - 1)))}
+    amin, amax, absmax_ch = DC.global_site_stats(x.float())
+    return {"amin": amin, "amax": amax, "absmax_ch": absmax_ch}
+
+
+def site_taps(x: Tensor, cfg: QuantConfig, site: Optional[SiteScale],
+              n_skip: int = 0, groups: int = 1):
+    """A site's taps, ``{"qerr", "amin", "amax", "absmax_ch"}``, and x's
+    per-tensor (min, max) for the site's quantizer (``qdot(..., rng=)``),
+    or None. The statistics' range serves L_q's range and the quantizer's:
+    they are the same values (a min and a max are exact in x's dtype), so
+    a site takes its range once (one all-reduce under a data axis)."""
+    stats = site_stats(x, n_skip)
+    rng = None
+    if groups == 1:
+        rng = (stats["amin"].detach().to(x.dtype),
+               stats["amax"].detach().to(x.dtype))
+    taps = {"qerr": site_qerr(x, cfg, site, n_skip, groups, rng), **stats}
+    return taps, (rng if not n_skip else None)
 
 
 def _is_site(d) -> bool:

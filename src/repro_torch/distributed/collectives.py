@@ -1,36 +1,52 @@
-"""The collectives of tensor-parallel serving over ``torch.distributed``
-(the reference's module name, ``repro/distributed/collectives.py``).
+"""The collectives of the port over ``torch.distributed`` (the reference's
+module name, ``repro/distributed/collectives.py``): over the ``tp`` axis
+for tensor-parallel serving, over the ``data`` axis for data-parallel
+tuning and training.
 
 The reference leaves its collectives to GSPMD, which inserts them where a
 sharded layout meets a replicated one. The port calls them where the model
 code needs them: ``psum`` after a row-parallel linear (``wo``, ``w_down``)
 and after the vocabulary-sharded embedding, ``pmax`` for the whole weight's
 range when a sharded weight is quantized per call, ``gather_last`` for the
-vocabulary-sharded logits.
+vocabulary-sharded logits; and, with a data axis active, every reduction
+over the batch: ``global_sum`` (CE's sum, L_q), ``global_extrema`` (the
+per-tensor ranges) and ``global_site_stats`` (the sites' statistics).
 
-``use_tp(mesh)`` makes a ``launch/mesh.TPMesh`` the active group for the
-model calls inside it (the engines enter it around their prefill and decode
-calls); with no active mesh, or a mesh of one rank, every collective is a
-no-op and returns its input. Every rank gets the same bits: a sum of
-integers, a max, and a gather that adds zeros are exact in any order.
+``use_tp(mesh)`` makes a ``launch/mesh.TPMesh``'s tp axis, ``use_data(mesh)``
+its data axis, the active group for the model calls inside it (the engines
+enter ``use_tp`` around their prefill and decode calls,
+``train/trainer.shard_update_step`` enters ``use_data`` around a step).
+With no active mesh, or an axis of one rank, every collective is a no-op
+and returns its input, and the model code takes the one-rank path. Every
+rank gets the same bits: a sum of integers, a max, and a gather that adds
+zeros are exact in any order, and two ranks' float sums are commutative.
 
-The reference's ``compressed_psum`` and ``dp_train_step_compressed`` belong
-to data-parallel training, which is not ported yet (ROADMAP queue 1, item
-6.1).
+Under a data axis a reduction's value is the global one on every rank and
+its gradient is the rank's share: ``global_sum``'s backward is the
+identity, and a global max or min sends the gradient to the elements equal
+to the global value, divided by the global count of such elements (JAX's
+``reduce_max`` rule, and ``torch.amax``'s within one rank). The gradients
+of replicated leaves summed over the axis (``sum_over_data``) are then the
+global loss's.
+
+``compressed_psum`` and ``dp_train_step_compressed`` are the reference's
+int8-payload all-reduce mean and its data-parallel gradient step.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator
+from typing import Any, Callable, Iterator
 
 import torch
 
-_ACTIVE = None      # the TPMesh of the model calls in progress, or None
+_ACTIVE = None      # the TPMesh of the tensor-parallel calls, or None
+_DATA = None        # the TPMesh whose data axis is active, or None
 
 
 @contextlib.contextmanager
 def use_tp(mesh) -> Iterator[None]:
-    """Run the model calls inside on ``mesh`` (None: unsharded)."""
+    """Run the model calls inside on ``mesh``'s tp axis (None:
+    unsharded)."""
     global _ACTIVE
     prev, _ACTIVE = _ACTIVE, mesh
     try:
@@ -39,8 +55,21 @@ def use_tp(mesh) -> Iterator[None]:
         _ACTIVE = prev
 
 
+@contextlib.contextmanager
+def use_data(mesh) -> Iterator[None]:
+    """Run the model calls inside on ``mesh``'s data axis: each rank holds
+    its rows of the batch, and every reduction over the batch is global
+    (None: one rank's batch)."""
+    global _DATA
+    prev, _DATA = _DATA, mesh
+    try:
+        yield
+    finally:
+        _DATA = prev
+
+
 def active():
-    """The active TPMesh, or None."""
+    """The active TPMesh (tp axis), or None."""
     return _ACTIVE
 
 
@@ -52,30 +81,214 @@ def tp_rank() -> int:
     return 0 if _ACTIVE is None else int(_ACTIVE.rank)
 
 
-def _all_reduce(x: torch.Tensor, op) -> torch.Tensor:
+def data_size() -> int:
+    return 1 if _DATA is None else int(_DATA.data_size)
+
+
+def axis_size(axis: str = "tp") -> int:
+    if axis == "data":
+        return data_size()
+    if axis == "tp":
+        return tp_size()
+    raise ValueError(f"axis must be 'tp' or 'data', got {axis!r}")
+
+
+def _group(axis: str):
+    return _DATA.data_group if axis == "data" else _ACTIVE.group
+
+
+def _all_reduce(x: torch.Tensor, op, axis: str = "tp") -> torch.Tensor:
     import torch.distributed as dist
     # a fresh contiguous buffer: the reduction runs in place, and gloo takes
     # no 0-dim tensors
     buf = x.reshape(-1).clone()
-    dist.all_reduce(buf, op=op, group=_ACTIVE.group)
+    dist.all_reduce(buf, op=op, group=_group(axis))
     return buf.reshape(x.shape)
 
 
-def psum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over the ranks (in ``x``'s dtype: callers pass f32
-    or int32)."""
-    if tp_size() == 1:
+def psum(x: torch.Tensor, axis: str = "tp") -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axis`` (in ``x``'s dtype:
+    callers pass f32 or int32)."""
+    if axis_size(axis) == 1:
         return x
     import torch.distributed as dist
-    return _all_reduce(x, dist.ReduceOp.SUM)
+    return _all_reduce(x, dist.ReduceOp.SUM, axis)
 
 
-def pmax(x: torch.Tensor) -> torch.Tensor:
-    """The elementwise max of ``x`` over the ranks."""
-    if tp_size() == 1:
+def pmax(x: torch.Tensor, axis: str = "tp") -> torch.Tensor:
+    """The elementwise max of ``x`` over the ranks of ``axis``."""
+    if axis_size(axis) == 1:
         return x
     import torch.distributed as dist
-    return _all_reduce(x, dist.ReduceOp.MAX)
+    return _all_reduce(x, dist.ReduceOp.MAX, axis)
+
+
+def pmin(x: torch.Tensor, axis: str = "tp") -> torch.Tensor:
+    """The elementwise min of ``x`` over the ranks of ``axis``."""
+    if axis_size(axis) == 1:
+        return x
+    import torch.distributed as dist
+    return _all_reduce(x, dist.ReduceOp.MIN, axis)
+
+
+def pmean(x: torch.Tensor, axis: str = "tp") -> torch.Tensor:
+    """``psum(x) / n`` over the ranks of ``axis``."""
+    n = axis_size(axis)
+    return x if n == 1 else psum(x, axis) / n
+
+
+class _GlobalSum(torch.autograd.Function):
+    """The sum over the data axis; the gradient is each rank's share."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return psum(x, "data")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def global_sum(x: torch.Tensor) -> torch.Tensor:
+    """A rank's partial sum summed over the data axis; its gradient flows
+    to the rank's own terms (identity), so the gradients summed over the
+    axis are the global sum's. ``x`` on one rank."""
+    return x if data_size() == 1 else _GlobalSum.apply(x)
+
+
+def global_extrema(x: torch.Tensor):
+    """``(x.amin(), x.amax())`` over the data axis: a per-tensor range,
+    which the quantizers detach (one all-reduce: the max of (-min, max));
+    on one rank torch's, gradient and all."""
+    if data_size() == 1:
+        return x.amin(), x.amax()
+    with torch.no_grad():
+        both = pmax(torch.stack([-x.amin(), x.amax()]), "data")
+    return -both[0], both[1]
+
+
+class _GlobalSiteStats(torch.autograd.Function):
+    """(min, max, per-channel max of |x| over every axis but the last) of
+    x over the data axis: one all-reduce forward (the max of (-min, max,
+    channel maxima)) and, for the outputs that carry a gradient, one
+    backward (their counts)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.set_materialize_grads(False)
+        dims = tuple(range(x.dim() - 1))
+        local = torch.cat([torch.stack([-x.amin(), x.amax()]),
+                           x.abs().amax(dim=dims)])
+        both = pmax(local, "data")
+        mn, mx, ch = -both[0], both[1], both[2:]
+        ctx.save_for_backward(x, mn, mx, ch)
+        return mn, mx, ch
+
+    @staticmethod
+    def backward(ctx, g_mn, g_mx, g_ch):
+        x, mn, mx, ch = ctx.saved_tensors
+        dims = tuple(range(x.dim() - 1))
+        masks, sums = [], []
+        for g, m in ((g_mn, x == mn), (g_mx, x == mx)):
+            if g is not None:
+                masks.append((g, m.to(g.dtype)))
+                sums.append(masks[-1][1].sum().reshape(1))
+        if g_ch is not None:
+            m_ch = (x.abs() == ch).to(g_ch.dtype)
+            sums.append(m_ch.sum(dim=dims))
+        if not sums:
+            return None
+        counts = psum(torch.cat(sums), "data")
+        grad = torch.zeros_like(x)
+        for i, (g, m) in enumerate(masks):
+            grad = grad + m * (g / counts[i])
+        if g_ch is not None:
+            # through |x|: the sign of x, 0 at 0 (torch's abs rule)
+            grad = grad + torch.sign(x) * m_ch * (g_ch / counts[len(masks):])
+        return grad
+
+
+def global_site_stats(x: torch.Tensor):
+    """``(x.amin(), x.amax(), x.abs().amax(all axes but the last))`` over
+    the data axis (see the module docstring for the gradient)."""
+    if data_size() == 1:
+        return x.amin(), x.amax(), x.abs().amax(dim=tuple(range(
+            x.dim() - 1)))
+    return _GlobalSiteStats.apply(x)
+
+
+def sum_over_data(grads: Any) -> Any:
+    """The gradients of replicated leaves summed over the active data axis
+    (each rank's share of the global loss's gradient -> the global
+    gradient), floating leaves in f32, which the optimizer computes in; a
+    tree of tensors, as it is with no data axis."""
+    if data_size() == 1:
+        return grads
+    from repro_torch.optim.adamw import tree_map
+    return tree_map(lambda g: psum(g.float() if g.is_floating_point()
+                                   else g, "data"), grads)
+
+
+def _compressed_parts(x: torch.Tensor, axis: str):
+    """(int32 sum of the codes, the f32 scale, the rank count) of
+    ``compressed_psum``."""
+    n = axis_size(axis)
+    xf = x.float()
+    amax = pmax(xf.abs().amax(), axis)
+    scale = torch.clamp(amax, min=1e-12) / 127.0
+    xq = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return psum(xq.to(torch.int32), axis), scale, n
+
+
+def compressed_psum(x: torch.Tensor, axis: str = "data") -> torch.Tensor:
+    """All-reduce mean with an int8 payload and one f32 scale, the
+    reference's arithmetic in its order: the max of |x| over the ranks,
+    ``scale = max(amax, 1e-12) / 127``, codes ``clip(round(x / scale),
+    -127, 127)`` as int8, their int32 sum, ``* scale / n`` in x's dtype
+    (on one rank: x through its int8 codes, as the reference's)."""
+    acc, scale, n = _compressed_parts(x, axis)
+    return (acc.float() * scale / n).to(x.dtype)
+
+
+def dp_train_step_compressed(grad_fn: Callable, mesh,
+                             axis_name: str = "data") -> Callable:
+    """Data-parallel gradients with the compressed all-reduce:
+    ``grad_fn(params, batch) -> (loss, grads)`` on the rank's rows (params
+    replicated); returns ``(params, global_batch) -> (loss mean, grads
+    mean)``, the loss ``pmean``'d and every gradient ``compressed_psum``'d
+    over the data axis. The batch's leading axis must divide by it."""
+    if axis_name != "data":
+        raise ValueError(f"the port's data axis is 'data', got "
+                         f"{axis_name!r}")
+    from repro_torch.optim.adamw import tree_map
+
+    def step(params, batch):
+        rows = rank_rows(batch, mesh)
+        loss, grads = grad_fn(params, rows)
+        with use_data(mesh):
+            return (pmean(loss.float().reshape(()), "data").to(loss.dtype),
+                    tree_map(lambda g: compressed_psum(g, "data"), grads))
+    return step
+
+
+def rank_rows(batch: Any, mesh) -> Any:
+    """This rank's rows of a global batch (dicts of tensors): the leading
+    axis split in ``mesh.data_size`` equal parts, in data-rank order (the
+    reference's batch sharding over "data")."""
+    d, r = int(mesh.data_size), int(mesh.data_rank)
+    if d == 1:
+        return batch
+    if isinstance(batch, dict):
+        return {k: rank_rows(v, mesh) for k, v in batch.items()}
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(rank_rows(v, mesh) for v in batch)
+    if batch.dim() == 0:
+        return batch
+    if batch.shape[0] % d:
+        raise ValueError(f"a batch of {batch.shape[0]} rows does not split "
+                         f"over data={d}")
+    n = batch.shape[0] // d
+    return batch[r * n:(r + 1) * n]
 
 
 def gather_last(x: torch.Tensor) -> torch.Tensor:
@@ -94,17 +307,27 @@ def gather_last(x: torch.Tensor) -> torch.Tensor:
     return psum(full).to(x.dtype)
 
 
-def broadcast_ints(values, mesh=None, src: int = 0) -> list:
-    """Rank ``src``'s list of ints on every rank of ``mesh`` (default: the
-    active one): the host decisions the ranks must take together
-    (admissions, expiries). A no-op at one rank."""
+def broadcast_ints(values, mesh=None, src: int = 0, axis: str = "tp"
+                   ) -> list:
+    """The list of ints of rank ``src`` of ``mesh``'s ``axis`` (default:
+    the active tp mesh) on every rank of the axis: the host decisions the
+    ranks must take together (admissions, expiries; a searched prefix). A
+    no-op at one rank."""
     mesh = _ACTIVE if mesh is None else mesh
-    if mesh is None or mesh.size == 1:
+    if mesh is None:
+        return [int(v) for v in values]
+    if axis == "data":
+        n, group = int(mesh.data_size), mesh.data_group
+        world_src = src * int(mesh.size) + int(mesh.rank)
+    else:
+        n, group = int(mesh.size), mesh.group
+        world_src = int(mesh.data_rank) * int(mesh.size) + src
+    if n == 1:
         return [int(v) for v in values]
     import torch.distributed as dist
     t = torch.tensor([int(v) for v in values], dtype=torch.int64,
                      device=mesh.device)
-    dist.broadcast(t, src=src, group=mesh.group)
+    dist.broadcast(t, src=world_src, group=group)
     return [int(v) for v in t.tolist()]
 
 

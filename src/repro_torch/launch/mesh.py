@@ -1,37 +1,43 @@
-"""Serving meshes over ``torch.distributed``, ported from
+"""Rank meshes over ``torch.distributed``, ported from
 ``repro/launch/mesh.py``.
 
 The reference builds a ``(data, tp)`` device mesh in one process and lets
 GSPMD place the shards. The port runs one process a rank:
 
-* ``spawn_tp(fn, tp, *args, device=...)`` starts ``tp`` processes (the
-  ``spawn`` start method), joins them into one process group through a
-  ``file://`` store in a fresh temporary directory (no port to collide on
-  when tests run in parallel), calls ``fn(mesh, *args)`` on every rank and
-  returns rank 0's result (every rank's with ``every_rank=True``). A rank
-  that raises stops them all, and the traceback is raised in the caller.
-  ``fn`` must be importable by the child: a module-level function of a
-  module that does not import jax.
-* ``make_tp_mesh(tp)`` is the calling rank's ``TPMesh``: its rank, the
-  group's size, the process group, its device and the backend.
+* ``spawn_mesh(fn, data, tp, *args, device=...)`` starts ``data * tp``
+  processes (the ``spawn`` start method), joins them into one process group
+  through a ``file://`` store in a fresh temporary directory (no port to
+  collide on when tests run in parallel), calls ``fn(mesh, *args)`` on
+  every rank and returns rank 0's result (every rank's with
+  ``every_rank=True``). A rank that raises stops them all, and the
+  traceback is raised in the caller. ``fn`` must be importable by the
+  child: a module-level function of a module that does not import jax.
+  ``spawn_tp(fn, tp, ...)`` is ``spawn_mesh(fn, 1, tp, ...)``.
+* ``make_tp_mesh(tp, data)`` is the calling rank's ``TPMesh``: its place
+  on both axes, one process group an axis (the ranks of its data row, the
+  ``tp`` group, and of its tp column, the ``data`` group), its device and
+  the backend. World rank ``d * tp + t`` sits at ``(d, t)``, the
+  reference's ``reshape(data, tp)``. ``make_mesh(shape, axes)`` names the
+  axes as the caller asks (a training mesh: ``("data", "model")``),
+  ``single_device_mesh()`` is the one-rank ``("data",)`` mesh.
 
 Rank r runs on ``cuda:{r % device_count}``. Where every rank has a card of
 its own the backend is NCCL by default; where ranks share a card (NCCL
 refuses two ranks on one device) it is gloo, which takes CUDA tensors for
 ``all_reduce`` and ``broadcast`` and stages them through the host: that
-proves the mechanism and the kernels on each rank's shard, not the speed of
-tensor parallelism. The CPU always uses gloo. ``spawn_tp(...,
+proves the mechanism and the kernels on each rank's part, not the speed of
+tensor or data parallelism. The CPU always uses gloo. ``spawn_mesh(...,
 backend="gloo")`` asks for gloo on separate cards too (NCCL on a shared
-card or the CPU raises). ``tp = 1`` needs no process group: the whole
-sharded code path runs with no collective.
+card or the CPU raises). A mesh of one rank needs no process group: the
+whole sharded code path runs with no collective.
 
 The kernels are built once in the caller (``_lib.build()``) before the
 ranks start, so two ranks never both run nvcc.
 
-Data parallelism (``data > 1``), the training meshes
-(``make_production_mesh``) and the router's per-replica meshes
-(``make_replica_meshes``) are not ported yet (ROADMAP queue 1, items 6.1
-and 6.2).
+The reference's ``make_production_mesh`` needs 256 or 512 devices and
+raises its ``RuntimeError`` with fewer ranks. The router's per-replica
+meshes (``make_replica_meshes``) are not ported yet (ROADMAP queue 1, item
+6.2).
 """
 from __future__ import annotations
 
@@ -46,13 +52,20 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 _NOT_YET = "is not ported yet (ROADMAP queue 1, item {})"
-# how long spawn_tp waits for the ranks' results
+# how long spawn_mesh waits for the ranks' results
 RESULT_TIMEOUT_S = 3600.0
+# the axis names a mesh may carry: the data axis, then the tensor-parallel
+# one ("tp" at serving, "model" in training, as the reference's callers)
+_TP_AXES = ("tp", "model")
 
 
 @dataclasses.dataclass
 class TPMesh:
-    """One rank's view of a ``(data=1, tp)`` serving mesh. ``shape`` and
+    """One rank's view of a ``(data, tp)`` mesh. ``rank`` / ``size`` /
+    ``group`` are the tensor-parallel axis (the ranks of this rank's data
+    row), ``data_rank`` / ``data_size`` / ``data_group`` the data axis (the
+    ranks of its tp column); a group is None on an axis of one rank, and
+    the world group where the axis spans every rank. ``shape`` and
     ``axis_names`` are the reference mesh's, which the sharding rules
     (``distributed/sharding.py``) read."""
     rank: int
@@ -60,14 +73,21 @@ class TPMesh:
     group: Any
     device: torch.device
     backend: Optional[str]
+    data_rank: int = 0
+    data_size: int = 1
+    data_group: Any = None
+    axes: Tuple[str, ...] = ("data", "tp")
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {"data": 1, "tp": self.size}
+        sizes = {"data": self.data_size}
+        if len(self.axes) > 1:
+            sizes[self.axes[1]] = self.size
+        return sizes
 
     @property
-    def axis_names(self) -> Tuple[str, str]:
-        return ("data", "tp")
+    def axis_names(self) -> Tuple[str, ...]:
+        return self.axes
 
 
 def rank_device(rank: int, device="cuda") -> torch.device:
@@ -99,28 +119,91 @@ def choose_backend(tp: int, device="cuda",
     return backend
 
 
-def make_tp_mesh(tp: int, data: int = 1, device="cuda") -> TPMesh:
-    """The calling rank's mesh. ``tp = 1`` works in any process (no group);
-    ``tp > 1`` needs the process group that ``spawn_tp`` made."""
-    if data != 1:
-        raise ValueError(f"a (data={data}, tp={tp}) mesh: data parallelism "
-                         + _NOT_YET.format("6.1"))
-    if tp < 1:
-        raise ValueError(f"tp must be >= 1, got {tp}")
+# the calling rank's process groups by (data, tp): dist.new_group is a
+# collective of the whole world, made once a spawn (_rank_main clears it)
+_GROUPS: Dict[Tuple[int, int], Tuple[Any, Any]] = {}
+
+
+def _axis_groups(data: int, tp: int, rank: int) -> Tuple[Any, Any]:
+    """(tp group, data group) of world rank ``rank``. Every rank makes
+    every group, in the same order, as ``new_group`` requires."""
     import torch.distributed as dist
-    if tp == 1 and not dist.is_initialized():
-        return TPMesh(0, 1, None, rank_device(0, device), None)
-    if not dist.is_initialized() or dist.get_world_size() != tp:
+    if (data, tp) not in _GROUPS:
+        if data == 1:
+            groups = (dist.group.WORLD, None)
+        elif tp == 1:
+            groups = (None, dist.group.WORLD)
+        else:
+            rows = [dist.new_group([d * tp + t for t in range(tp)])
+                    for d in range(data)]
+            cols = [dist.new_group([d * tp + t for d in range(data)])
+                    for t in range(tp)]
+            groups = (rows, cols)
+        _GROUPS[(data, tp)] = groups
+    tp_g, data_g = _GROUPS[(data, tp)]
+    if isinstance(tp_g, list):
+        return tp_g[rank // tp], data_g[rank % tp]
+    return tp_g, data_g
+
+
+def make_tp_mesh(tp: int, data: int = 1, device="cuda",
+                 axes: Tuple[str, ...] = ("data", "tp")) -> TPMesh:
+    """The calling rank's ``(data, tp)`` mesh. One rank works in any
+    process (no group); more need the process group that ``spawn_mesh``
+    made, of ``data * tp`` ranks."""
+    if tp < 1 or data < 1:
+        raise ValueError(f"a (data={data}, tp={tp}) mesh needs both >= 1")
+    import torch.distributed as dist
+    n = data * tp
+    if n == 1 and not dist.is_initialized():
+        return TPMesh(0, 1, None, rank_device(0, device), None, axes=axes)
+    if not dist.is_initialized() or dist.get_world_size() != n:
         raise RuntimeError(
-            f"make_tp_mesh({tp}) runs inside a rank of spawn_tp(fn, {tp}, "
-            f"...), which makes the process group")
+            f"make_tp_mesh({tp}, data={data}) runs inside a rank of "
+            f"spawn_mesh(fn, {data}, {tp}, ...), which makes the process "
+            f"group")
     rank = dist.get_rank()
-    return TPMesh(rank, tp, dist.group.WORLD, rank_device(rank, device),
-                  dist.get_backend())
+    tp_g, data_g = _axis_groups(data, tp, rank)
+    return TPMesh(rank % tp, tp, tp_g, rank_device(rank, device),
+                  dist.get_backend(), data_rank=rank // tp, data_size=data,
+                  data_group=data_g, axes=axes)
+
+
+def make_mesh(shape, axes, device="cuda") -> TPMesh:
+    """The calling rank's mesh of ``shape`` over ``axes``: ``("data",)``,
+    or ``("data", "tp")`` / ``("data", "model")`` (the reference's training
+    meshes name the second axis ``model``)."""
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes) or axes[0] != "data" or len(axes) > 2 or (
+            len(axes) == 2 and axes[1] not in _TP_AXES):
+        raise ValueError(f"a mesh of axes {axes} and shape {shape}: the "
+                         f"port's meshes are ('data',) and ('data', X) "
+                         f"with X in {_TP_AXES}")
+    tp = shape[1] if len(shape) == 2 else 1
+    return make_tp_mesh(tp, data=shape[0], device=device, axes=axes)
+
+
+def single_device_mesh(device="cuda") -> TPMesh:
+    """The one-rank ``("data",)`` mesh."""
+    return make_mesh((1,), ("data",), device)
 
 
 def make_production_mesh(*, multi_pod: bool = False):
-    raise NotImplementedError("the training mesh " + _NOT_YET.format("6.1"))
+    """The reference's production meshes, (data=16, model=16) or (pod=2,
+    data=16, model=16): they need 256 or 512 ranks."""
+    import numpy as np
+    import torch.distributed as dist
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    n = int(np.prod(shape))
+    have = dist.get_world_size() if dist.is_initialized() else 1
+    if have < n:
+        raise RuntimeError(
+            f"need {n} devices for mesh {shape}; have {have}. "
+            "The dry-run launcher must set "
+            "XLA_FLAGS=--xla_force_host_platform_device_count=512 before "
+            "importing jax.")
+    return make_mesh(shape, ("pod", "data", "model") if multi_pod
+                     else ("data", "model"))
 
 
 def make_replica_meshes(n: int, tp: int = 1):
@@ -128,8 +211,8 @@ def make_replica_meshes(n: int, tp: int = 1):
                               "meshes " + _NOT_YET.format("6.2"))
 
 
-def _rank_main(fn: Callable, rank: int, tp: int, init_file: str, device: str,
-               backend: str, args: tuple, results) -> None:
+def _rank_main(fn: Callable, rank: int, data: int, tp: int, init_file: str,
+               device: str, backend: str, args: tuple, results) -> None:
     import torch.distributed as dist
     try:
         dev = rank_device(rank, device)
@@ -140,44 +223,47 @@ def _rank_main(fn: Callable, rank: int, tp: int, init_file: str, device: str,
         # one host: gloo's sockets stay on the loopback interface
         os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
         dist.init_process_group(backend, init_method=f"file://{init_file}",
-                                rank=rank, world_size=tp)
-        out = fn(make_tp_mesh(tp, device=device), *args)
+                                rank=rank, world_size=data * tp)
+        out = fn(make_tp_mesh(tp, data=data, device=device), *args)
         results.put((rank, True, out))
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
     finally:
+        _GROUPS.clear()
         if dist.is_initialized():
             dist.destroy_process_group()
 
 
-def spawn_tp(fn: Callable, tp: int, *args, device="cuda",
-             every_rank: bool = False, backend: Optional[str] = None,
-             timeout_s: float = RESULT_TIMEOUT_S):
-    """Run ``fn(mesh, *args)`` on ``tp`` ranks (see the module docstring)
-    over ``backend`` (default: ``choose_backend``). Returns rank 0's
-    result, or the list of every rank's; raises when a rank fails or the
-    ranks have not all returned within ``timeout_s``."""
-    if tp < 1:
-        raise ValueError(f"tp must be >= 1, got {tp}")
-    backend = choose_backend(tp, device, backend)
+def spawn_mesh(fn: Callable, data: int, tp: int, *args, device="cuda",
+               every_rank: bool = False, backend: Optional[str] = None,
+               timeout_s: float = RESULT_TIMEOUT_S):
+    """Run ``fn(mesh, *args)`` on ``data * tp`` ranks (see the module
+    docstring) over ``backend`` (default: ``choose_backend``). Returns rank
+    0's result, or the list of every rank's in world-rank order; raises
+    when a rank fails or the ranks have not all returned within
+    ``timeout_s``."""
+    if tp < 1 or data < 1:
+        raise ValueError(f"a (data={data}, tp={tp}) mesh needs both >= 1")
+    n = data * tp
+    backend = choose_backend(n, device, backend)
     if torch.device(device).type == "cuda":
         rank_device(0, device)              # raises without a card
         from repro_torch.kernels import _lib
         _lib.build()
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()
-    tmp = tempfile.mkdtemp(prefix="repro_tp_")
+    tmp = tempfile.mkdtemp(prefix="repro_mesh_")
     procs = [ctx.Process(target=_rank_main,
-                         args=(fn, r, tp, os.path.join(tmp, "store"),
+                         args=(fn, r, data, tp, os.path.join(tmp, "store"),
                                str(device), backend, args, results))
-             for r in range(tp)]
+             for r in range(n)]
     for p in procs:
         p.start()
     got: Dict[int, Any] = {}
     failure = None
     waited = 0.0
     try:
-        while len(got) < tp and failure is None:
+        while len(got) < n and failure is None:
             try:
                 rank, ok, out = results.get(timeout=1.0)
             except _queue.Empty:
@@ -201,6 +287,14 @@ def spawn_tp(fn: Callable, tp: int, *args, device="cuda",
             p.join()
         shutil.rmtree(tmp, ignore_errors=True)
     if failure is not None:
-        raise RuntimeError(f"spawn_tp({getattr(fn, '__name__', fn)}, "
-                           f"tp={tp}): {failure}")
-    return [got[r] for r in range(tp)] if every_rank else got[0]
+        raise RuntimeError(f"spawn_mesh({getattr(fn, '__name__', fn)}, "
+                           f"data={data}, tp={tp}): {failure}")
+    return [got[r] for r in range(n)] if every_rank else got[0]
+
+
+def spawn_tp(fn: Callable, tp: int, *args, device="cuda",
+             every_rank: bool = False, backend: Optional[str] = None,
+             timeout_s: float = RESULT_TIMEOUT_S):
+    """``spawn_mesh(fn, 1, tp, ...)``: a serving mesh of ``tp`` ranks."""
+    return spawn_mesh(fn, 1, tp, *args, device=device, every_rank=every_rank,
+                      backend=backend, timeout_s=timeout_s)

@@ -43,15 +43,28 @@ stop with the reason (ROADMAP queue 1, items 6.2-6.4):
     python -m repro_torch.launch.serve --device cpu --tp 2 --quant \
         pt_static --prequant --kv-dtype int8 --cushion-len 4
 
-Weights are random, made from ``--seed``. The cushion is ``extract_cushion``
-of ``--cushion-len`` token ids drawn from the seed, or with ``--cushion DIR``
-the latest tuned artifact of a ``launch/tune.py --out-dir`` (of either
-package: the format is shared): its fingerprint is recomputed over the
-restored bytes, and its stored pt_static scales serve as they are, tagged
-with the cushion they were calibrated under. Otherwise pt_static calibrates
-its site scales at engine load over two pipeline batches, under the
+Weights are random, made from ``--seed``, unless ``--ckpt-dir`` serves the
+``params`` of the latest checkpoint there (written by either package's
+``launch/train.py``; its sha256 is verified on restore). ``--smoke`` serves
+the arch's reduced f32 config, named ``<arch>-smoke`` as in the reference.
+The cushion is ``extract_cushion`` of ``--cushion-len`` token ids drawn
+from the seed, or with ``--cushion DIR`` the latest tuned artifact of a
+``launch/tune.py --out-dir`` (of either package: the format is shared): its
+fingerprint is recomputed over the restored bytes, and its stored
+pt_static scales serve as they are, tagged with the cushion they were
+calibrated under. Otherwise pt_static calibrates its site scales at engine
+load over ``--calib-batches`` pipeline batches (default 2), under the
 cushion. Prompts and calibration batches are the same token ids as the JAX
 launcher's (``data/pipeline.py`` is a copy).
+
+The whole user path, on the CPU (drop ``--device cpu`` for the card):
+
+    python -m repro_torch.launch.train --device cpu --smoke --steps 5 \
+        --ckpt-dir /tmp/ck
+    python -m repro_torch.launch.tune --device cpu --smoke --dp 2 \
+        --ckpt-dir /tmp/ck --out-dir /tmp/art --with-scales
+    python -m repro_torch.launch.serve --device cpu --smoke --ckpt-dir \
+        /tmp/ck --cushion /tmp/art --quant pt_static --prequant
 """
 from __future__ import annotations
 
@@ -65,17 +78,16 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.store import CheckpointManager
-from repro_torch.configs import Family, QuantConfig, get_config
+from repro_torch.configs import Family, QuantConfig, get_config, reduced
 from repro_torch.data.pipeline import Pipeline, SyntheticCorpus
 from repro_torch.distributed.fault_injection import FaultInjector
 from repro_torch.launch.mesh import spawn_tp
 from repro_torch.models import encdec as ED
+from repro_torch.models.common import ParamTree
 from repro_torch.models.registry import build
 from repro_torch.serving.engine import Engine, check_tp_serving
 from repro_torch.serving.router import ReplicaRouter, RouterConfig
 from repro_torch.serving.scheduler import ContinuousEngine, Request
-
-CALIB_BATCHES = 2
 
 
 def seeded_cushion(api, params, m: int, seed: int):
@@ -134,6 +146,25 @@ def load_cushion_artifact(path: str, api):
           f"prefix_ids={extra.get('prefix_ids')} fingerprint={got[:12]} "
           f"scales={'stored' if scales is not None else 'none'}")
     return cushion, scales, extra
+
+
+def restore_params(ckpt_dir: str, params):
+    """The ``params`` of the latest checkpoint in ``ckpt_dir`` (either
+    package's ``launch/train.py``; its sha256 is verified on restore) in
+    the structure, dtypes and device of ``params`` (a ``ParamTree``), or
+    ``params`` itself where the directory holds none. A checkpoint of
+    another parameter tree (another arch) stops here."""
+    ckpt = CheckpointManager(ckpt_dir)
+    step = ckpt.latest_step()
+    if step is None:
+        return params
+    try:
+        tree = ckpt.restore_subtree(step, "params", params.tree())
+    except ValueError as e:
+        raise SystemExit(f"[restore] {ckpt_dir} holds another parameter "
+                         f"tree than the arch's: {e}")
+    print(f"[restore] params of step {step} from {ckpt_dir}")
+    return ParamTree(tree)
 
 
 def to_device(batch, device):
@@ -356,9 +387,16 @@ def _append_point(path: str, point: dict) -> None:
     print(f"[serve] bench point -> {path}")
 
 
-def main(argv=None):
+def main(argv=None, corpus: SyntheticCorpus = None):
+    """Serve as ``argv`` says; returns the static path's ``GenerateResult``
+    or the continuous path's outputs. ``corpus``: an already built
+    ``SyntheticCorpus`` of the arch's vocabulary and ``--seed`` (the
+    prompts' and the calibration's; at a 49,152-id vocabulary it takes a
+    minute and more to build)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="paper_tiny")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the arch's reduced f32 config (<arch>-smoke)")
     ap.add_argument("--n-layers", type=int, default=None,
                     help="serve the first N layers of --arch at its full "
                          "width (a multiple of a hybrid's period), where "
@@ -425,6 +463,12 @@ def main(argv=None):
                     help="serve the latest tuned-cushion artifact from "
                          "this launch/tune.py --out-dir (with its stored "
                          "pt_static scales, if any)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the params of the latest checkpoint there "
+                         "(either package's launch/train.py)")
+    ap.add_argument("--calib-batches", type=int, default=2,
+                    help="pt_static: calibration batches drawn from the "
+                         "synthetic pipeline at engine load")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--tp", type=int, default=1,
@@ -464,33 +508,38 @@ def main(argv=None):
                              args.weight_bits)
         except ValueError as e:
             raise SystemExit(f"[serve] {e}")
-        return spawn_tp(serve_rank, args.tp, args, device=args.device)
-    return serve(args)
+        return spawn_tp(serve_rank, args.tp, args, corpus,
+                        device=args.device)
+    return serve(args, corpus=corpus)
 
 
 def _config(args):
     cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = reduced(cfg, dtype="float32")
     if args.n_layers:
         cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     return cfg
 
 
-def serve_rank(mesh, args):
+def serve_rank(mesh, args, corpus=None):
     """One rank of ``--tp N`` (a ``spawn_tp`` target): ``serve`` on the
     rank's device and mesh; only rank 0 prints."""
     if mesh.rank != 0:
         sys.stdout = open(os.devnull, "w")
     print(f"[serve] tp={mesh.size} backend={mesh.backend} rank 0 on "
           f"{mesh.device}")
-    return serve(args, mesh)
+    return serve(args, mesh, corpus)
 
 
-def serve(args, mesh=None):
+def serve(args, mesh=None, corpus=None):
     """Serve as ``args`` say, on ``mesh``'s device and shard when given."""
     cfg = _config(args)
     api = build(cfg, args.device if mesh is None else mesh.device)
     dev = api.device
     params = api.init_params(torch.Generator(dev).manual_seed(args.seed))
+    if args.ckpt_dir:
+        params = restore_params(args.ckpt_dir, params)
     qcfg = QuantConfig(mode=args.quant, true_int8=args.quant == "pt_static")
     cushion, art_scales = None, None
     if args.cushion:
@@ -512,7 +561,8 @@ def serve(args, mesh=None):
             ED.check_serving_quant(qcfg)
         except ValueError as e:
             raise SystemExit(f"[serve] {args.arch}: {e}")
-    corpus = SyntheticCorpus(cfg.vocab_size, seed=args.seed)
+    if corpus is None:
+        corpus = SyntheticCorpus(cfg.vocab_size, seed=args.seed)
     pipe = Pipeline(corpus, batch=args.batch, seq_len=args.prompt_len,
                     seed=args.seed + 1)
     calib = None
@@ -521,10 +571,10 @@ def serve(args, mesh=None):
             # the pipeline draws tokens only: calibrate on drawn batches
             calib = [api.make_batch(torch.Generator().manual_seed(
                 args.seed + 1000 + i), args.batch, args.prompt_len)
-                for i in range(CALIB_BATCHES)]
+                for i in range(args.calib_batches)]
         else:
             calib = [to_device(pipe.get_batch(1000 + i), dev)
-                     for i in range(CALIB_BATCHES)]
+                     for i in range(args.calib_batches)]
     if args.mode == "continuous":
         if args.replicas > 1 or args.chaos:
             return run_router(api, params, qcfg, args, calib_batches=calib,

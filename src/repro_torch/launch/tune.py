@@ -25,29 +25,51 @@ Batches come from ``data/pipeline.py`` (a copy of the reference's) with the
 reference's seeds, so a run gets the reference's samples, tuning and eval
 batches; the candidate pools differ (``candidate_pool`` draws from a
 ``torch.Generator``). Weights are random, made from ``--seed``, unless
-``--ckpt-dir`` restores the ``params`` subtree of a checkpoint. Before /
-after quality numbers (last-block max-activation top-1, held-out
+``--ckpt-dir`` restores the ``params`` subtree of a checkpoint (of either
+package's ``launch/train.py``). ``--smoke`` takes the arch's reduced f32
+config, as the reference's, and the artifact records it, so smoke
+artifacts of either package load in the other's ``serve.py --smoke``.
+Before / after quality numbers (last-block max-activation top-1, held-out
 perplexity) print at the end and land in ``--report-json``.
+
+``--dp N`` tunes data-parallel over N ranks (``launch/mesh.spawn_mesh``:
+one process a rank, gloo where ranks share a card or on the CPU): rank 0
+runs the greedy search and broadcasts the prefix ids, every rank extracts
+the cushion and tunes it on its rows of each ``--batch`` (which N must
+divide) with the cushion and its moments replicated
+(``prefix_tune(mesh=)``), and rank 0 evaluates, calibrates
+``--with-scales`` and writes the one artifact. The report's ``ranks``
+holds each rank's tuning launches and tuned-cushion fingerprint (equal on
+every rank; the tuning log's ``ranks_equal`` is 1 after every step). Two
+ranks on one card time-slice it through the host: that is not data
+parallelism's speed.
+
+    python -m repro_torch.launch.tune --device cpu --arch paper_tiny \
+        --dp 2 --out-dir /tmp/art
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import sys
 
 import torch
 
 from repro_torch.checkpoint.store import CheckpointManager
 from repro_torch.configs import (CushionConfig, Family, QuantConfig,
-                                 get_config)
+                                 get_config, reduced)
 from repro_torch.core import cushioncache as CC
 from repro_torch.core import outliers as OUT
 from repro_torch.data.pipeline import Pipeline, SyntheticCorpus
-from repro_torch.models import convert
+from repro_torch.kernels import _lib
+from repro_torch.launch.mesh import spawn_mesh
+from repro_torch.launch.serve import restore_params
 from repro_torch.models.registry import build
-from repro_torch.train.trainer import eval_ppl
+from repro_torch.train.trainer import check_data_parallel, eval_ppl
 
 
-def _make_batch_fns(api, cfg, args):
+def _make_batch_fns(api, cfg, args, corpus=None):
     """(sample_fn for the search, tuning batch generator, held-out eval
     batches): token-only families draw from the synthetic pipeline with the
     reference launcher's seeds and disjoint step ranges; a family with
@@ -73,7 +95,8 @@ def _make_batch_fns(api, cfg, args):
         return sample_fn, tune_batches(), eval_batches
 
     dev = api.device
-    corpus = SyntheticCorpus(cfg.vocab_size, seed=args.seed)
+    if corpus is None:
+        corpus = SyntheticCorpus(cfg.vocab_size, seed=args.seed)
     sample_pipe = Pipeline(corpus, batch=1, seq_len=args.sample_len,
                            seed=args.seed + 1)
     tune_pipe = Pipeline(corpus, batch=args.batch, seq_len=args.seq_len,
@@ -105,9 +128,16 @@ def _quality(api, params, cushion, eval_batches):
     return top1, ppl
 
 
-def main(argv=None):
+def main(argv=None, corpus: SyntheticCorpus = None):
+    """Run the launcher; returns the artifact's path. ``corpus``: an
+    already built ``SyntheticCorpus`` of the arch's vocabulary and
+    ``--seed`` (a caller that launches several runs builds it once; at a
+    49,152-id vocabulary that takes a minute and more)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="paper_tiny")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (matches serve --smoke so a smoke "
+                         "artifact serves against smoke params)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--out-dir", required=True,
@@ -133,7 +163,9 @@ def main(argv=None):
     ap.add_argument("--seq-len", type=int, default=48,
                     help="tuning/eval batch sequence length")
     ap.add_argument("--dp", type=int, default=1,
-                    help="data-parallel tuning width (not ported: 1 only)")
+                    help="tune over a data axis of this many ranks, each "
+                         "on its rows of every batch (cushion and optimizer "
+                         "state replicated)")
     ap.add_argument("--quant", default="pt_dynamic",
                     help="quantized-forward mode the tuning loss runs "
                          "under (straight-through fake quant)")
@@ -147,22 +179,63 @@ def main(argv=None):
     ap.add_argument("--report-json", default=None,
                     help="write the search/tune log + quality numbers here")
     args = ap.parse_args(argv)
-    if args.dp > 1:
-        raise NotImplementedError(
-            "--dp > 1: data-parallel tuning is not ported (ROADMAP queue 1 "
-            "item 6.1, multi-GPU)")
+    if args.dp < 1:
+        ap.error("--dp must be >= 1")
+    if args.batch % args.dp:
+        ap.error(f"--batch {args.batch} must divide over --dp {args.dp}")
+    if args.dp == 1:
+        ranks = [tune(args, corpus=corpus)]
+    else:
+        try:
+            check_data_parallel(_config(args), data=args.dp)
+        except ValueError as e:
+            raise SystemExit(f"[tune] {e}")
+        ranks = spawn_mesh(tune_rank, args.dp, 1, args, corpus,
+                           device=args.device, every_rank=True)
+        fps = {r["fingerprint"] for r in ranks}
+        if len(fps) != 1:
+            raise RuntimeError(f"--dp {args.dp}: the ranks tuned "
+                               f"{len(fps)} different cushions")
+    if args.report_json:
+        with open(args.report_json) as f:
+            rep = json.load(f)
+        rep["ranks"] = [{k: v for k, v in r.items() if k != "path"}
+                        for r in ranks]
+        with open(args.report_json, "w") as f:
+            json.dump(rep, f, indent=1)
+    return ranks[0]["path"]
 
+
+def _config(args):
     cfg = get_config(args.arch)
-    api = build(cfg, args.device)
+    return reduced(cfg, dtype="float32") if args.smoke else cfg
+
+
+def tune_rank(mesh, args, corpus=None):
+    """One rank of ``--dp N`` (a ``spawn_mesh`` target): ``tune`` on the
+    rank's device and mesh; only rank 0 prints."""
+    if mesh.data_rank != 0:
+        sys.stdout = open(os.devnull, "w")
+    print(f"[tune] data-parallel tuning over {mesh.data_size} ranks "
+          f"({mesh.backend}), rank 0 on {mesh.device}")
+    return tune(args, mesh, corpus)
+
+
+def tune(args, mesh=None, corpus=None):
+    """Search, tune and (rank 0) save as ``args`` say, on ``mesh``'s
+    device and data axis when given. Returns this rank's ``{"path"`` (rank
+    0's artifact, None elsewhere), ``"fingerprint"`` (of its tuned
+    cushion), ``"tune_launches"`` (the kernels launched by its tuning
+    steps), ``"tune_s"``, ``"cushion_move"`` (each KV leaf's mean |tuned -
+    greedy|), ``"peak_bytes"}`` (the card's peak during the tuning; None
+    on the CPU)."""
+    lead = mesh is None or mesh.data_rank == 0
+    cfg = _config(args)
+    api = build(cfg, args.device if mesh is None else mesh.device)
     dev = api.device
     params = api.init_params(torch.Generator(dev).manual_seed(args.seed))
     if args.ckpt_dir:
-        ckpt = CheckpointManager(args.ckpt_dir)
-        step = ckpt.latest_step()
-        if step is not None:
-            tree, _ = ckpt.restore_tree(step)
-            params = convert.params_from_numpy(tree["params"], dev)
-            print(f"[tune] restored step {step}")
+        params = restore_params(args.ckpt_dir, params)
 
     qcfg = QuantConfig(mode=args.quant)
     ccfg = CushionConfig(max_prefix_len=args.max_prefix_len, tau=args.tau,
@@ -170,33 +243,52 @@ def main(argv=None):
                          n_candidates=args.candidates, seed_tokens=(1,),
                          lam=args.lam, tune_steps=args.steps,
                          tune_lr=args.lr, log_every=args.log_every)
-    sample_fn, tune_iter, eval_batches = _make_batch_fns(api, cfg, args)
+    sample_fn, tune_iter, eval_batches = _make_batch_fns(api, cfg, args,
+                                                         corpus)
 
-    # stage 1: greedy search + artifact extraction (model dtype)
+    # stage 1: greedy search (rank 0) + artifact extraction (model dtype)
     greedy, sr, _ = CC.discover(api, params, sample_fn, iter(()), qcfg,
                                 ccfg, torch.Generator().manual_seed(
-                                    args.seed + 2), skip_tune=True)
+                                    args.seed + 2), skip_tune=True,
+                                mesh=mesh, verbose=lead)
     print(f"[tune] greedy prefix {sr.prefix_ids.tolist()} "
           f"({sr.wall_time_s:.1f}s, {len(sr.history)} iterations)")
-    g_top1, g_ppl = _quality(api, params, greedy, eval_batches)
+    if lead:
+        g_top1, g_ppl = _quality(api, params, greedy, eval_batches)
 
     # stage 2: gradient prefix tuning of the cushion KV block
-    tr = CC.prefix_tune(api, params, greedy, tune_iter, qcfg, ccfg)
+    before = dict(_lib.LAUNCHES)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    tr = CC.prefix_tune(api, params, greedy, tune_iter, qcfg, ccfg,
+                        mesh=mesh, verbose=lead)
     tuned = tr.cushion
+    fp = CC.cushion_fingerprint(tuned)
+    rank_rec = {"path": None, "fingerprint": fp, "tune_s": tr.wall_time_s,
+                # how far the tuning moved each cushion leaf (mean |.|)
+                "cushion_move": {k: float((tuned["kv"][k].float()
+                                           - greedy["kv"][k].float())
+                                          .abs().mean())
+                                 for k in tuned.get("kv", {})},
+                "tune_launches": {k: v - before.get(k, 0)
+                                  for k, v in _lib.LAUNCHES.items()},
+                "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                               if dev.type == "cuda" else None)}
+    if not lead:
+        return rank_rec
     t_top1, t_ppl = _quality(api, params, tuned, eval_batches)
     print(f"[tune] {args.steps} steps in {tr.wall_time_s:.1f}s; "
           f"max-activation top1 {g_top1:.1f} -> {t_top1:.1f}, "
           f"held-out ppl {g_ppl:.2f} -> {t_ppl:.2f}")
 
-    fp = CC.cushion_fingerprint(tuned)
     tree = {"cushion": tuned}
     extra = {"kind": "cushion", "arch": cfg.name,
              "family": str(cfg.family), "dtype": cfg.dtype,
              "fingerprint": fp,
              "prefix_ids": [int(t) for t in sr.prefix_ids],
              "quant_mode": args.quant, "tune_steps": args.steps,
-             "lam": args.lam, "lr": args.lr, "smoke": False,
-             "device": str(dev),
+             "lam": args.lam, "lr": args.lr, "smoke": bool(args.smoke),
+             "dp": args.dp, "device": str(dev),
              "maxact_top1": {"greedy": g_top1, "tuned": t_top1},
              "ppl": {"greedy": g_ppl, "tuned": t_ppl}}
     if args.with_scales:
@@ -223,7 +315,8 @@ def main(argv=None):
             json.dump({"search": sr.history, "tune_log": tr.log,
                        "artifact": path, **extra}, f, indent=1)
         print(f"[tune] report -> {args.report_json}")
-    return path
+    rank_rec["path"] = path
+    return rank_rec
 
 
 if __name__ == "__main__":

@@ -276,13 +276,12 @@ def qlinear(x: Tensor, w, b: Optional[Tensor], qcfg: QuantConfig,
     """y = q(x) @ q(w) + b, recording taps for ``site`` when collecting.
     ``row_parallel``: the site's contracting axis is the one tensor
     parallelism shards (``wo``, ``w_down``; ``Q.qdot``)."""
+    rng = None
     if taps is not None:
-        taps[site] = {
-            "qerr": Q.site_qerr(x, qcfg, get_site(scales, site), n_skip,
-                                groups),
-            **Q.site_stats(x, n_skip),
-        }
-    y = Q.qdot(x, w, qcfg, get_site(scales, site), groups, row_parallel)
+        taps[site], rng = Q.site_taps(x, qcfg, get_site(scales, site),
+                                      n_skip, groups)
+    y = Q.qdot(x, w, qcfg, get_site(scales, site), groups, row_parallel,
+               rng)
     if b is not None:
         y = y + b
     return y
@@ -557,16 +556,22 @@ def lm_head(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
     resident bytes are held equal to JAX's."""
     w = p["embed"]["w"].T if cfg.tie_embeddings else p["head"]["w"]
     site = scales.get("head") if scales is not None else None
+    rng = None
     if taps is not None:
-        taps["head"] = {"qerr": Q.site_qerr(x, qcfg, site, n_skip, groups),
-                        **Q.site_stats(x, n_skip)}
+        taps["head"], rng = Q.site_taps(x, qcfg, site, n_skip, groups)
     # under tensor parallelism the rank's vocabulary columns, gathered
-    return DC.gather_last(Q.qdot(x, w, qcfg, site, groups))
+    return DC.gather_last(Q.qdot(x, w, qcfg, site, groups, rng=rng))
 
 
 def cross_entropy(logits: Tensor, labels: Tensor) -> Tensor:
-    """Mean next-token CE; logits (B,S,V), labels (B,S) int."""
+    """Mean next-token CE; logits (B,S,V), labels (B,S) int. Under a data
+    axis (``collectives.use_data``, each rank's rows of an evenly split
+    batch) the global mean: the ranks' sums over the global token count,
+    its gradient each rank's share."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
-    return (lse - gold).mean()
+    if DC.data_size() == 1:
+        return (lse - gold).mean()
+    return DC.global_sum((lse - gold).sum()) / (gold.numel()
+                                                * DC.data_size())

@@ -51,6 +51,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, QuantConfig
 from repro_torch.core import quantization as Q
+from repro_torch.distributed import collectives as DC
 from repro_torch.models import common as C
 from repro_torch.models import transformer as T
 
@@ -58,6 +59,12 @@ Tensor = torch.Tensor
 Params = Dict[str, Any]
 
 SITES = C.ATTN_SITES + C.MLP_SITES  # ("qkv", "o", "mlp_in", "down")
+# under GSPMD the reference's load-balance means (and its dispatch) span the
+# global batch; over a data axis of ranks that needs collectives in the
+# routing, which are not written
+DATA_AXIS_LATER = ("the experts' routing statistics over a data axis of "
+                   "more than one rank are not ported yet (ROADMAP queue 1, "
+                   "item 6.11)")
 
 # The prefix artifact is attention KV only, so the search's KV-reuse scorer
 # applies. Its contract for MoE: expert capacity comes from the scored
@@ -134,7 +141,10 @@ def dispatch(onehot: Tensor, cap: int) -> Tensor:
 def apply_moe(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
               scales: Optional[Params], taps: Optional[Dict],
               n_skip: int = 0, groups: int = 1) -> Tuple[Tensor, Tensor]:
-    """Returns (y, load-balance loss). x: (B, S, D)."""
+    """Returns (y, load-balance loss). x: (B, S, D). Refuses a data axis
+    of more than one rank (``DATA_AXIS_LATER``)."""
+    if DC.data_size() > 1:
+        raise ValueError(DATA_AXIS_LATER)
     moe = cfg.moe
     B, S, D = x.shape
     E, K = moe.num_experts, moe.top_k

@@ -65,6 +65,22 @@ def tree_paths(tree: Any) -> Any:
     return _unflatten(tree, iter(["/".join(p) for p, _ in _flatten(tree)]))
 
 
+def _sharded_norm(gs: List[Tensor], sharded: List[bool]) -> Tensor:
+    """The global norm of a tree whose ``sharded`` leaves are this rank's
+    shards over the active data axis: their squared sums summed over the
+    axis, plus the replicated leaves' once."""
+    from repro_torch.distributed import collectives as DC
+    zero = torch.zeros((), dtype=torch.float32, device=gs[0].device)
+    part, rep = zero, zero
+    for g, s in zip(gs, sharded):
+        sq = g.float().square().sum()
+        if s:
+            part = part + sq
+        else:
+            rep = rep + sq
+    return torch.sqrt(DC.psum(part, "data") + rep)
+
+
 class AdamWState(NamedTuple):
     step: Tensor
     mu: Any
@@ -98,8 +114,14 @@ class AdamW:
             tree_paths(params))]
 
     @torch.no_grad()
-    def update(self, grads: Any, state: AdamWState, params: Any):
-        """One step. Returns (params, state, {"grad_norm", "lr"})."""
+    def update(self, grads: Any, state: AdamWState, params: Any,
+               sharded: Any = None):
+        """One step. Returns (params, state, {"grad_norm", "lr"}).
+        ``sharded``: a tree of bools beside ``params`` marking the leaves
+        that hold this rank's shard of a leaf split over the active data
+        axis (``train/trainer.shard_train_step``); the clip's norm is then
+        the whole tree's, the sharded leaves' squares summed over the axis
+        and each replicated leaf counted once."""
         ps = tree_leaves(params)
         gs = tree_leaves(grads)
         ms, vs = tree_leaves(state.mu), tree_leaves(state.nu)
@@ -108,8 +130,11 @@ class AdamW:
         decay = [not f for f in self._mask(params, self.no_decay)]
         # frozen leaves contribute nothing to the global norm
         gs = [torch.zeros_like(g) if f else g for g, f in zip(gs, frozen)]
-        if self.grad_clip > 0:
+        if self.grad_clip > 0 and sharded is not None:
+            gn = _sharded_norm(gs, tree_leaves(sharded))
+        elif self.grad_clip > 0:
             gn = torch.sqrt(sum(g.float().square().sum() for g in gs))
+        if self.grad_clip > 0:
             scale = torch.clamp(self.grad_clip / (gn + 1e-9), max=1.0)
             gs = [g.float() * scale for g in gs]
         else:

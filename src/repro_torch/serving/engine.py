@@ -110,10 +110,18 @@ def plan_quantization(api, params, qcfg: QuantConfig, cushion=None,
 
 
 def check_tp_serving(cfg: ModelConfig, qcfg: QuantConfig, tp: int,
-                     weight_bits: int = 8) -> None:
+                     weight_bits: int = 8, data: int = 1) -> None:
     """Refuse what tensor-parallel serving does not shard yet (the dense
     family, ``none`` and ``pt_static`` with 8-bit weights, every sharded
-    axis divisible by tp). One rank takes anything."""
+    axis divisible by tp) and a mesh with a data axis of more than one
+    rank, on which the reference never serves (its data-parallel serving
+    is the router's replicas). One rank takes anything."""
+    if data > 1:
+        raise ValueError(
+            f"serving on a mesh with a data axis of {data} ranks: the "
+            f"reference serves data-parallel only as the router's replicas, "
+            f"whose per-replica meshes are not ported yet (ROADMAP queue 1, "
+            f"item 6.2)")
     if tp == 1:
         return
     why = item = None
@@ -346,7 +354,8 @@ class Engine:
                  weight_bits: int = 8, mesh=None):
         self.mesh = mesh
         self.tp = 1 if mesh is None else mesh.size
-        check_tp_serving(api.cfg, qcfg, self.tp, weight_bits)
+        check_tp_serving(api.cfg, qcfg, self.tp, weight_bits,
+                         1 if mesh is None else mesh.data_size)
         self.full_cfg = api.cfg
         self.device = api.device
         tree, scales = plan_quantization(

@@ -245,7 +245,8 @@ class ContinuousEngine:
         self.mesh = mesh
         self._clock = clock if clock is not None else _host_clock
         self.tp = 1 if mesh is None else mesh.size
-        check_tp_serving(api.cfg, qcfg, self.tp, weight_bits)
+        check_tp_serving(api.cfg, qcfg, self.tp, weight_bits,
+                         1 if mesh is None else mesh.data_size)
         self.full_cfg = api.cfg
         self.device = api.device
         tree, scales = plan_quantization(

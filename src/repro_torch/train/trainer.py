@@ -1,8 +1,9 @@
-"""The training step, ported from ``repro/train/trainer.py`` for one card:
+"""The training step, ported from ``repro/train/trainer.py``:
 ``TrainState``, ``make_optimizer``, ``make_train_step`` (gradient
 accumulation over microbatches, remat per layer, the quantization-aware
-forward with straight-through fake quant), ``eval_ppl`` and
-``eval_next_token_acc``.
+forward with straight-through fake quant), the mesh entries
+(``replicated_shardings``, ``shard_update_step``, ``shard_train_step``),
+``eval_ppl`` and ``eval_next_token_acc``.
 
 The step is functional, as the reference's ``jax.value_and_grad``: it takes
 fresh leaves of the parameter tree that require a gradient, runs
@@ -12,9 +13,21 @@ returns new leaves. Metrics stay device tensors, so a step makes no host
 sync. On the card every layer's attention runs ``flash_attention`` forward
 (twice with remat: the recompute) and ``flash_attention_bwd`` backward.
 
-The reference's mesh entries (``replicated_shardings``,
-``shard_update_step``, ``shard_train_step``) raise: training meshes are
-not ported (ROADMAP queue 1 item 6.1).
+Data parallelism runs one process a rank (``launch/mesh.spawn_mesh``).
+``shard_update_step`` gives each rank its rows of the global batch and
+runs a step with the mesh's data axis active
+(``distributed/collectives.use_data``): every reduction over the batch in
+the model code is then global, each rank's loss carries its share of the
+global loss's gradient, and the gradients are summed over the axis where
+they meet the optimizer (``collectives.sum_over_data``), so every rank
+takes the same update. ``shard_train_step`` adds FSDP: a rank keeps the
+``data`` shard of every leaf the training rules shard ("D") and the AdamW
+moments of that shard (ZeRO-1); a step gathers the whole leaves, runs on
+the rank's rows, keeps its shard of the summed gradients (an all-reduce,
+then a slice: gloo on one card has no reduce-scatter for CUDA tensors) and
+updates the shard, clipping by the whole tree's norm. Tensor-parallel
+training (a ``model`` axis of more than one rank) and the experts over a
+data axis are not ported yet (ROADMAP queue 1, items 6.10 and 6.11).
 """
 from __future__ import annotations
 
@@ -24,8 +37,11 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.configs.base import QuantConfig, RunConfig
+from repro_torch.configs.base import (Family, ModelConfig, QuantConfig,
+                                      RunConfig)
 from repro_torch.core.quantization import SiteScale
+from repro_torch.distributed import collectives as DC
+from repro_torch.distributed import sharding as SH
 from repro_torch.models.common import as_tree
 from repro_torch.optim.adamw import (AdamW, AdamWState, cosine_lr,
                                      tree_leaves, tree_map)
@@ -72,7 +88,15 @@ def make_train_step(api, run: RunConfig, opt: AdamW, microbatches: int = 1,
     leading axis, the gradients summed in microbatch order into f32 zeros
     and divided, as the reference's scan does. ``metrics``: "loss", the
     optimizer's "grad_norm" and "lr", and with one microbatch "ce", all
-    device tensors."""
+    device tensors. Under an active data axis (``shard_update_step``) the
+    gradients are summed over it before the update."""
+    return _train_step(api, run, opt, microbatches, cushion, scales)
+
+
+def _train_step(api, run: RunConfig, opt: AdamW, microbatches: int,
+                cushion: Any, scales: Any, fsdp: Any = None) -> Callable:
+    """``make_train_step``; with ``fsdp`` (an ``_FSDP``) the step takes and
+    returns the rank's shards of the parameters and moments."""
     qcfg = run.quant
     cushion, scales = _autograd_usable(cushion), _autograd_usable(scales)
 
@@ -92,24 +116,33 @@ def make_train_step(api, run: RunConfig, opt: AdamW, microbatches: int = 1,
 
     def train_step(params, opt_state, batch):
         params = as_tree(params)
+        full = params if fsdp is None else fsdp.gather(params)
         if microbatches == 1:
-            loss, aux, grads = grads_of(params, batch)
+            loss, aux, grads = grads_of(full, batch)
         else:
             mb = {k: v.reshape((microbatches, v.shape[0] // microbatches)
                                + tuple(v.shape[1:]))
                   for k, v in batch.items()}
             grads = tree_map(lambda a: torch.zeros(
-                a.shape, dtype=torch.float32, device=a.device), params)
+                a.shape, dtype=torch.float32, device=a.device), full)
             lsum = torch.zeros((), dtype=torch.float32,
-                               device=tree_leaves(params)[0].device)
+                               device=tree_leaves(full)[0].device)
             for i in range(microbatches):
-                li, _, gi = grads_of(params, {k: v[i] for k, v in mb.items()})
+                li, _, gi = grads_of(full, {k: v[i] for k, v in mb.items()})
                 grads = tree_map(torch.add, grads, gi)
                 lsum = lsum + li
             grads = tree_map(lambda a: a / microbatches, grads)
             loss = lsum / microbatches
             aux = {}
-        params, opt_state, om = opt.update(grads, opt_state, params)
+        del full
+        # where the gradients meet the optimizer: each rank's share of the
+        # global loss's gradient, summed over the data axis
+        grads = DC.sum_over_data(grads)
+        if fsdp is None:
+            params, opt_state, om = opt.update(grads, opt_state, params)
+        else:
+            params, opt_state, om = opt.update(
+                fsdp.shard(grads), opt_state, params, sharded=fsdp.sharded)
         metrics = {"loss": loss, **om}
         if isinstance(aux, dict) and "ce" in aux:
             metrics["ce"] = aux["ce"].detach()
@@ -118,31 +151,125 @@ def make_train_step(api, run: RunConfig, opt: AdamW, microbatches: int = 1,
     return train_step
 
 
-def _not_ported(name: str):
-    raise NotImplementedError(
-        f"{name}: training meshes (tensor parallel, data parallel over "
-        "several cards) are not ported yet: ROADMAP queue 1 item 6.1")
+def check_data_parallel(cfg: ModelConfig, data: int, model: int = 1
+                        ) -> None:
+    """Refuse what training and tuning over a ``(data, model)`` mesh do not
+    run yet: a tensor-parallel axis of more than one rank, and a family
+    with experts over a data axis of more than one rank."""
+    if model > 1:
+        raise ValueError(
+            f"tensor-parallel training (a model axis of {model} ranks) is "
+            f"not ported yet (ROADMAP queue 1, item 6.10)")
+    if data > 1 and (cfg.family == Family.MOE or cfg.moe is not None):
+        from repro_torch.models.moe import DATA_AXIS_LATER
+        raise ValueError(f"{cfg.name}: {DATA_AXIS_LATER}")
+
+
+def _map_leaves(fn: Callable, tree: Any) -> Any:
+    """``fn`` over the leaves of dicts, lists, tuples and NamedTuples (an
+    ``AdamWState``)."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_leaves(fn, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(fn, v) for v in tree)
+    return fn(tree)
 
 
 def replicated_shardings(tree: Any, mesh: Any) -> Any:
-    """The reference lays small trainable trees out replicated over a
-    mesh; the port has no meshes yet."""
-    _not_ported("replicated_shardings")
+    """Every leaf replicated over ``mesh`` (the port's spec ``()``): the
+    layout of small trainable trees (the cushion KV block and its AdamW
+    moments) that ride a data axis for batch parallelism only."""
+    return _map_leaves(lambda _: (), tree)
 
 
-def shard_update_step(step_fn: Callable, mesh: Any, var_shardings: Any,
-                      opt_shardings: Any, batch_like: Any = None):
-    """The reference compiles an update step for a mesh; the port has no
-    meshes yet."""
-    _not_ported("shard_update_step")
+def shard_update_step(step_fn: Callable, mesh: Any, var_specs: Any,
+                      opt_specs: Any, batch_like: Any = None) -> Callable:
+    """An ``(vars, opt_state, global_batch) -> (vars, opt_state, metrics)``
+    update step over ``mesh``: with ``batch_like`` given (only its being
+    given matters) each rank keeps its rows of every batch leaf (the
+    leading axis split over "data", which it must divide; the reference's
+    batch sharding), and ``step_fn`` runs on them with the data axis active
+    (``collectives.use_data``). The carried state stays on each rank as
+    ``var_specs`` / ``opt_specs`` lay it out (replicated, or the rank's
+    "data" shard): the step function keeps it so, and nothing moves it
+    between steps. Shared by ``shard_train_step`` (FSDP shards) and
+    ``cushioncache.prefix_tune`` (the replicated cushion)."""
+    def step(variables, opt_state, batch):
+        if batch_like is not None:
+            batch = DC.rank_rows(batch, mesh)
+        with DC.use_data(mesh):
+            return step_fn(variables, opt_state, batch)
+    return step
+
+
+class _FSDP:
+    """The "data" shards of a tree by its specs on one rank: ``shard``
+    slices the rank's part of each sharded leaf (a copy, so the whole leaf
+    can be freed), ``gather`` rebuilds the whole leaves (each rank's part
+    in a buffer filled with -0.0, summed over the axis: adding -0.0 is
+    exact for every value, +0 and -0 included, so the gathered leaf is
+    bit for bit the one that was sharded)."""
+
+    def __init__(self, specs: Any, mesh: Any):
+        self.mesh = mesh
+        # a spec tuple is a leaf of the optimizer's tree functions
+        self.axes = tree_map(
+            lambda spec: spec.index("data") if "data" in spec else None,
+            specs)
+        self.sharded = tree_map(lambda spec: "data" in spec, specs)
+
+    def shard(self, tree: Any) -> Any:
+        d, r = int(self.mesh.data_size), int(self.mesh.data_rank)
+
+        def one(leaf, ax):
+            if ax is None or d == 1:
+                return leaf
+            n = leaf.shape[ax] // d
+            return leaf.narrow(ax, r * n, n).clone()
+        return tree_map(one, tree, self.axes)
+
+    def gather(self, tree: Any) -> Any:
+        d, r = int(self.mesh.data_size), int(self.mesh.data_rank)
+
+        def one(leaf, ax):
+            if ax is None or d == 1:
+                return leaf
+            n = leaf.shape[ax]
+            shape = list(leaf.shape)
+            shape[ax] = n * d
+            fill = -0.0 if leaf.is_floating_point() else 0
+            full = torch.full(shape, fill, dtype=leaf.dtype,
+                              device=leaf.device)
+            full.narrow(ax, r * n, n).copy_(leaf)
+            return DC.psum(full, "data")
+        return tree_map(one, tree, self.axes)
 
 
 def shard_train_step(api, run: RunConfig, opt: AdamW, mesh: Any,
-                     params_abstract: Any, microbatches: int = 1,
+                     params_like: Any, microbatches: int = 1,
                      cushion: Any = None, scales: Any = None):
-    """The reference compiles the train step for a mesh with its partition
-    rules; the port has no meshes yet."""
-    _not_ported("shard_train_step")
+    """The train step over ``mesh`` (axes ``("data", "model")`` or
+    ``("data", "tp")``, the second of one rank) with FSDP parameter
+    layouts by the training rules (``distributed/sharding.DEFAULT_RULES``:
+    "D" is the ``data`` axis) and ZeRO-1 moments that inherit them. Returns
+    ``(fn, param_specs, opt_specs)``: ``fn(shards, opt_state, global_batch)
+    -> (shards, opt_state, metrics)`` on each rank's shards (``data_shards``
+    of the whole tree; ``opt.init`` of them) and its rows of the batch."""
+    check_data_parallel(api.cfg, int(mesh.data_size), int(mesh.size))
+    p_specs = SH.params_shardings(as_tree(params_like), mesh)
+    o_specs = AdamWState(step=(), mu=p_specs, nu=p_specs)
+    step_fn = _train_step(api, run, opt, microbatches, cushion, scales,
+                          fsdp=_FSDP(p_specs, mesh))
+    return (shard_update_step(step_fn, mesh, p_specs, o_specs, True),
+            p_specs, o_specs)
+
+
+def data_shards(tree: Any, specs: Any, mesh: Any) -> Any:
+    """This rank's part of a whole tree laid out by ``specs`` (the leaves
+    with a "data" axis cut to the rank's slice, the others as they are)."""
+    return _FSDP(specs, mesh).shard(as_tree(tree))
 
 
 @torch.no_grad()

@@ -1883,3 +1883,80 @@ def test_tp2_gloo_ranks_on_the_card(dev):
         assert (rep["tokens"] == one["tokens"]).all(), rank
         assert rep["launches"] == one["launches"], rank
         assert rep["launches"]["w8a8_matmul"] > 0
+
+
+def _dp_cases():
+    """smollm-360m at full width and 2 layers (bf16): three pt_dynamic
+    tuning steps (B = 2 x 64, one row a rank) and three FSDP train steps
+    (B = 4 x 64), on two gloo ranks of the card and on one rank."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import CushionConfig, QuantConfig, get_config
+    cfg = dataclasses.replace(get_config("smollm-360m"), n_layers=2)
+    rs = np.random.RandomState(26)
+
+    def batch(b, s):
+        t = rs.randint(0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
+        return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+    tune = dict(kind="tune", name="tune", cfg=cfg, seed=0,
+                cushion_ids=[1, 198, 400], qcfg=QuantConfig(mode="pt_dynamic"),
+                ccfg=CushionConfig(tune_steps=3, tune_lr=1e-3, lam=0.05,
+                                   log_every=3),
+                batches=[batch(2, 64) for _ in range(3)])
+    train = dict(kind="train", name="train", cfg=cfg, seed=0,
+                 batches=[batch(4, 64) for _ in range(3)], batch_rows=4,
+                 seq=64, steps=3, lr=1e-3, warmup=10, one_rank=True)
+    return cfg, tune, train
+
+
+def test_dp2_gloo_ranks_tune_and_train_on_the_card(dev):
+    """Two gloo ranks of the card against one rank: prefix tuning with the
+    cushion replicated (every rank's cushion equal after every step, the
+    launches a rank equal to one rank's, the logs within phase 4l's bars:
+    CE 1e-3, loss / range / L_q 0.1, the tuned cushions' mean difference
+    below a quarter of their move) and shard_train_step with FSDP shards
+    (launches 2 L / L a step with remat, half of every "D" leaf and f32
+    moments of it a rank, the losses within 1e-2 and the first moments
+    within 0.1 in L2, cosine 0.99, of one rank's make_train_step)."""
+    import numpy as np
+
+    from repro_torch.launch.mesh import make_tp_mesh, spawn_mesh
+    import _dp_probe as dp_probe
+    cfg, tune, train = _dp_cases()
+    L = cfg.n_layers
+    one = dp_probe.run_case(make_tp_mesh(1, device="cuda"), tune)
+    torch.cuda.empty_cache()
+    (t0, r0), (t1, r1) = spawn_mesh(dp_probe.run_cases, 2, 1, [tune, train],
+                                    device="cuda", every_rank=True,
+                                    backend="gloo")
+    assert t0["backend"] == "gloo" and t0["fingerprint"] == t1["fingerprint"]
+    for t in (t0, t1):
+        assert all(x["ranks_equal"] == 1.0 for x in t["log"])
+        assert t["launches"] == one["launches"]
+        assert t["launches"]["flash_attention"] == 3 * L
+        assert t["launches"]["flash_attention_bwd"] == 3 * L
+    for a, b in zip(t0["log"], one["log"]):
+        assert abs(a["ce"] / b["ce"] - 1) <= 1e-3
+        for k in ("loss", "range", "qerr"):
+            assert abs(a[k] / b[k] - 1) <= 0.1, (k, a[k], b[k])
+    for k in ("k", "v"):
+        move = np.abs(one["cushion"]["kv"][k] - one["start"]["kv"][k]).mean()
+        diff = np.abs(t0["cushion"]["kv"][k] - one["cushion"]["kv"][k])
+        assert diff.mean() < 0.25 * move, (k, diff.mean(), move)
+    assert r0["metrics"] == r1["metrics"]
+    for r in (r0, r1):
+        assert all(x["flash_attention"] == 2 * L and
+                   x["flash_attention_bwd"] == L for x in r["launches"])
+        for lf in r["leaves"].values():
+            share = 2 if "data" in lf["spec"] else 1
+            assert lf["shard"] * share == lf["full"]
+            assert lf["moments"] == 2 * lf["shard"]
+            assert lf["moment_dtype"] == "torch.float32"
+    o = r0["one"]
+    rel = [abs(a["loss"] / b["loss"] - 1)
+           for a, b in zip(r0["metrics"], o["metrics"])]
+    assert rel[0] <= 1e-2 and max(rel) <= 5e-2, rel
+    assert o["moments"]["rel_l2"] <= 0.1, o["moments"]
+    assert o["moments"]["cosine"] >= 0.99, o["moments"]

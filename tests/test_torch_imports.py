@@ -32,8 +32,10 @@ assert {"repro_torch.models.moe", "repro_torch.core.smoothquant",
         "repro_torch.distributed.collectives"} <= set(names)
 for n in names:
     importlib.import_module(n)
-# the rank program that tensor-parallel tests and chip_smoke.py spawn
+# the rank programs that the tensor- and data-parallel tests and
+# chip_smoke.py spawn
 importlib.import_module("_tp_probe")
+importlib.import_module("_dp_probe")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -65,6 +67,12 @@ def test_cuda_entry_points_raise_without_a_card(monkeypatch):
                     "--replicas", "3"])
     with pytest.raises(RuntimeError, match="CUDA"):
         tune.main(["--arch", "paper_tiny", "--out-dir", "unused"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tune.main(["--arch", "paper_tiny", "--out-dir", "unused", "--dp",
+                   "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "paper_tiny", "--smoke", "--ckpt-dir",
+                    "unused"])
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--arch", "paper_tiny"])
     assert resolve_device("cpu").type == "cpu"

@@ -570,9 +570,20 @@ def test_indivisible_heads_replicas_and_data_refuse():
                     "--replicas", "2"])
     with pytest.raises(SystemExit, match="ROADMAP queue 1, item 6"):
         serve.main(["--device", "cpu", "--tp", "3"])
-    with pytest.raises(ValueError, match="ROADMAP queue 1, item 6"):
+    # a (data=2, tp=2) mesh is made inside the ranks of spawn_mesh; an
+    # engine refuses a mesh with a data axis (the reference never serves on
+    # one: its data-parallel serving is the router's replicas)
+    with pytest.raises(RuntimeError, match="spawn_mesh"):
         M.make_tp_mesh(2, data=2)
+    with pytest.raises(ValueError, match="ROADMAP queue 1, item 6.2"):
+        Engine(api, params, QN,
+               mesh=M.TPMesh(0, 1, None, torch.device("cpu"), None,
+                             data_rank=0, data_size=2))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
         M.make_replica_meshes(2, tp=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
+    # the reference's production meshes need 256 or 512 devices
+    with pytest.raises(RuntimeError, match=r"need 256 devices for mesh "
+                       r"\(16, 16\); have 1"):
         M.make_production_mesh()
+    with pytest.raises(RuntimeError, match="need 512 devices"):
+        M.make_production_mesh(multi_pod=True)

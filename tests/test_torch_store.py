@@ -165,8 +165,11 @@ def test_port_tune_launcher_artifact_serves(tmp_path):
     jc, jsc, _ = jserve.load_cushion_artifact(str(out), japi)
     assert JCC.cushion_fingerprint(jc) == extra["fingerprint"]
     assert jsc.cushion_fp == extra["fingerprint"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tune.main(["--device", "cpu", "--out-dir", str(out), "--dp", "2"])
+    # --dp N tunes data-parallel (tests/test_torch_data_parallel.py); a
+    # batch that does not split over the ranks stops before they start
+    with pytest.raises(SystemExit):
+        tune.main(["--device", "cpu", "--out-dir", str(out), "--dp", "2",
+                   "--batch", "3"])
 
 
 def test_jax_tuned_artifact_serves_jax_tokens(tmp_path):
