@@ -308,6 +308,7 @@ is missing (the script alone, outside a checkout). Writes the full record to
 import dataclasses
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -355,7 +356,293 @@ LOGIT_TOL = {"fp": (0.25, 0.05), "w8a8_int8kv": (0.5, 0.1),
 
 def fail(msg: str) -> None:
     print(f"[chip_smoke] FAIL: {msg}", file=sys.stderr)
+    if CPU_HALVES is not None:
+        CPU_HALVES.close(kill=True)
     sys.exit(1)
+
+
+# ---------------------------------------------------------------------------
+# The CPU halves of the card-vs-CPU checks (phases 4e-4i and 5) run in one
+# worker process started at the script's start, beside the card phases. A
+# check's card half runs in its phase; its CPU half is queued (its inputs,
+# CPU copies, written to a file under a temporary directory by a thread of
+# this process, so the phase goes on) and the comparison, with its
+# tolerances as before, is made when the script joins the queue, before
+# phase 5's. The worker takes half the host's cores, so the host-bound card
+# phases keep the rest.
+
+CPU_HALVES = None
+
+
+def _cpu_worker_init(threads: int) -> None:
+    """The worker yields the host's cores to the card phases' host work
+    (its own priority lowered) and takes ``threads`` of them."""
+    import torch
+    os.nice(10)
+    torch.set_num_threads(threads)
+
+
+class CpuHalves:
+    """The worker, the queued CPU halves ({label: the thread that saves
+    the inputs and waits for the worker, its result box}) and the
+    comparisons to make at the join."""
+
+    def __init__(self):
+        import concurrent.futures
+        import multiprocessing
+        import tempfile
+        self.threads = max(1, (os.cpu_count() or 2) // 2)
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_cpu_worker_init, initargs=(self.threads,))
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_cpu_")
+        self.jobs = {}
+        self.pending = []
+        self.seconds = {}
+
+    def submit(self, label, fn, payload):
+        """Queue ``fn(path)`` on the worker, ``path`` a file holding
+        ``payload`` (``torch.save``): a thread writes the file, hands the
+        job to the worker and ends, dropping the payload."""
+        import threading
+        import torch
+        box, held = {}, [payload]
+        path = os.path.join(self.dir, f"{len(self.jobs)}.pt")
+
+        def run():
+            try:
+                t0 = time.perf_counter()
+                torch.save(held.pop(), path)
+                box["save_s"] = time.perf_counter() - t0
+                box["future"] = self.pool.submit(fn, path)
+            except Exception as e:          # reported by result()
+                box["error"] = e
+        th = threading.Thread(target=run, daemon=True)
+        th.start()
+        self.jobs[label] = (th, box, time.perf_counter())
+
+    def result(self, label):
+        th, box, t_sub = self.jobs[label]
+        t0 = time.perf_counter()
+        th.join()
+        try:
+            if "error" in box:
+                raise box["error"]
+            out = box["future"].result()
+        except Exception as e:
+            fail(f"the CPU half of {label} failed: {e!r}")
+        self.seconds[label] = {"waited_s": time.perf_counter() - t0,
+                               "save_s": box["save_s"],
+                               "queued_to_joined_s": time.perf_counter()
+                               - t_sub}
+        return out
+
+    def later(self, compare):
+        """A comparison to make at the join."""
+        self.pending.append(compare)
+
+    def join(self):
+        """Make every queued comparison, in order."""
+        while self.pending:
+            self.pending.pop(0)()
+
+    def close(self, kill=False):
+        import shutil
+        if kill:
+            for proc in list(getattr(self.pool, "_processes", {}).values()):
+                proc.terminate()
+        self.pool.shutdown(wait=not kill, cancel_futures=True)
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def family_trajectory(a, p, qcfg, kv, sc, cush, pre, prompt, gen_toks,
+                      routing):
+    """Teacher-forced logits of ``a``'s model along ``gen_toks`` (B = 1):
+    the prefill of ``prompt``, then a decode step per token; the experts
+    picked at the prefill's MoE layers appended to ``routing``."""
+    import torch
+    from repro_torch.core import quantization as TQ
+    from repro_torch.models import moe as MO
+    with torch.inference_mode():
+        prm = TQ.prequantize_tree(p.tree(), qcfg) if pre else p.tree()
+        cache = a.init_cache(1, 256, kv_dtype=kv, prefix_len=CUSHION)
+        inner = MO.route
+
+        def recording(x, router, k):
+            out = inner(x, router, k)
+            routing.append(out[2].cpu())
+            return out
+        MO.route = recording
+        try:
+            lg, cache, pos = a.prefill(
+                prm, {k: v.to(a.device) for k, v in prompt.items()},
+                cache, qcfg, cushion=cush, scales=sc)
+        finally:
+            MO.route = inner
+        out = [lg[:, -1].float().cpu()]
+        for n in range(gen_toks.shape[1] - 1):
+            tok = torch.as_tensor(gen_toks[:, n], dtype=torch.int32,
+                                  device=a.device)
+            lg, cache = a.decode_step(prm, tok, pos + n, cache, qcfg,
+                                      scales=sc)
+            out.append(lg.float().cpu())
+        return torch.stack(out)
+
+
+def cpu_family_half(path):
+    """The worker: ``family_trajectory`` on the CPU for each mode of a
+    family's card-vs-CPU check. Returns {label: (logits, routing)} as
+    numpy arrays."""
+    import torch
+    from repro_torch.models.common import ParamTree
+    from repro_torch.models.registry import build
+    job = torch.load(path, weights_only=False)
+    os.remove(path)
+    api, p = build(job["cfg"], "cpu"), ParamTree(job["params"])
+    out = {}
+    for label, (qcfg, kv, pre, toks) in job["modes"].items():
+        routing = []
+        lp = family_trajectory(api, p, qcfg, kv,
+                               job["scales"] if pre else None,
+                               job["cushion"], pre, job["prompt"], toks,
+                               routing)
+        out[label] = (lp.numpy(), [r.numpy() for r in routing])
+    return out
+
+
+def cushion_grad(a, p, cush, b, qcfg, lam):
+    """Phase 4c: the gradient into the cushion's KV of CE + ``lam`` x the
+    activation range penalty, flattened, f32 on the CPU."""
+    import torch
+    from repro_torch.core import outliers as OUT
+    c = {"kv": {k: t.detach().clone().requires_grad_()
+                for k, t in cush["kv"].items()}}
+    with torch.enable_grad():
+        _, aux = a.loss_fn(p, b, qcfg, cushion=c, collect=True)
+        loss = aux["ce"] + lam * OUT.activation_range_penalty(aux["taps"])
+        g = torch.autograd.grad(loss, [c["kv"]["k"], c["kv"]["v"]])
+    return torch.cat([x.float().cpu().reshape(-1) for x in g])
+
+
+def method_scores(a, p, pad, cands, tokens, qcfg):
+    """Phase 4c: the search's candidate scores and base L_q of a padded
+    two-token prefix on ``a``'s device."""
+    import torch
+    d = a.device
+    with torch.no_grad():
+        pkv = a.prefix_kv(p, pad.to(d), qcfg)
+        b = {"tokens": tokens.to(d)}
+        return (a.score_candidates(p, pkv, 2, cands.to(d), b,
+                                   qcfg).float().cpu().numpy(),
+                float(a.prefix_qerr(p, pkv, 2, b, qcfg)))
+
+
+def cpu_method_half(path):
+    """The worker, phase 4c: the scores on the CPU in bf16, and the
+    gradients into the cushion in bf16 and in f32 (CE under ``none``, the
+    tuning loss under pt_dynamic)."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.configs import QuantConfig
+    from repro_torch.models.common import ParamTree
+    from repro_torch.models.registry import build
+    job = torch.load(path, weights_only=False)
+    os.remove(path)
+    cfg, qdyn, lam = job["cfg"], job["qdyn"], job["lam"]
+    api, params = build(cfg, "cpu"), ParamTree(job["params"])
+    out = {"scores": method_scores(api, params, job["pad"], job["cands"],
+                                   job["s32"], qdyn)}
+    gb, greedy, qnone = job["gb"], job["greedy"], QuantConfig()
+    out["ce"] = cushion_grad(api, params, greedy, gb, qnone, 0.0)
+    out["tune"] = cushion_grad(api, params, greedy, gb, qdyn, lam)
+
+    def f32(t):
+        if isinstance(t, dict):
+            return {k: f32(v) for k, v in t.items()}
+        return t.float() if t.is_floating_point() else t
+    api32 = build(dc.replace(cfg, dtype="float32"), "cpu")
+    p32 = ParamTree(f32(job["params"]))
+    out["ce_ref"] = cushion_grad(api32, p32, f32(greedy), gb, qnone, 0.0)
+    out["tune_ref"] = cushion_grad(api32, p32, f32(greedy), gb, qdyn, lam)
+    return {k: (v if k == "scores" else v.numpy()) for k, v in out.items()}
+
+
+def train_first_moments(api_, params, batch, dtype_cfg):
+    """Phase 4j: AdamW's first moments (CPU f32 leaves) and the loss of one
+    training step of ``api_``'s model from ``params`` on ``batch``."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.trainer import make_optimizer, make_train_step
+    r = RunConfig(model=dtype_cfg, seq_len=64, global_batch=2, lr=1e-3,
+                  train_steps=TRAIN_STEPS, warmup_steps=10)
+    opt_ = make_optimizer(r)
+    _, s_, m_ = make_train_step(api_, r, opt_)(params, opt_.init(params),
+                                               batch)
+    return [t.float().cpu() for t in tree_leaves(s_.mu)], float(m_["loss"])
+
+
+def cpu_train_half(path):
+    """The worker, phase 4j: one training step on the CPU of each
+    {label: (config, batch)}, from the CPU generator's seed 0 (the weights
+    the card's side copies). Returns {label: (first moments, loss)} as
+    numpy arrays."""
+    import torch
+    from repro_torch.models.registry import build
+    job = torch.load(path, weights_only=False)
+    os.remove(path)
+    out = {}
+    for label, (c, b) in job.items():
+        api_ = build(c, "cpu")
+        cp = api_.init_params(torch.Generator().manual_seed(0)).tree()
+        mu, loss = train_first_moments(api_, cp, b, c)
+        out[label] = ([t.numpy() for t in mu], loss)
+    return out
+
+
+def engine_trajectory(eng, tokens, gen_toks):
+    """Phase 5: teacher-forced logits of an engine's model along
+    ``gen_toks`` (B = 1), its prefill of ``tokens`` and a decode step per
+    token."""
+    import torch
+    with torch.inference_mode():
+        api_ = eng.api
+        cache = api_.init_cache(1, eng.max_seq, kv_dtype=eng.kv_dtype,
+                                prefix_len=eng.prefix_len)
+        p = eng.params.tree()
+        lg, cache, pos_ = api_.prefill(p, {"tokens": tokens}, cache,
+                                       eng.qcfg, cushion=eng.cushion,
+                                       scales=eng.scales)
+        out = [lg[:, -1].float().cpu()]
+        for n in range(gen_toks.shape[1] - 1):
+            tok = torch.as_tensor(gen_toks[:, n], dtype=torch.int32,
+                                  device=api_.device)
+            lg, cache = api_.decode_step(p, tok, pos_ + n, cache, eng.qcfg,
+                                         scales=eng.scales)
+            out.append(lg.float().cpu())
+        return torch.stack(out)
+
+
+def cpu_engine_half(path):
+    """The worker, phase 5: the port's CPU engine on the card's weights in
+    each mode, its greedy tokens and its logits along the card's. Returns
+    {label: (logits, tokens)} as numpy arrays."""
+    import torch
+    from repro_torch.models.common import ParamTree
+    from repro_torch.models.registry import build
+    from repro_torch.serving.engine import Engine
+    job = torch.load(path, weights_only=False)
+    os.remove(path)
+    api, params = build(job["cfg"], "cpu"), ParamTree(job["params"])
+    b1 = job["tokens"]
+    out = {}
+    for label, (qcfg, kv, pre, wb, scales, card_toks) in job["modes"].items():
+        eng = Engine(api, params, qcfg, cushion=job["cushion"],
+                     scales=scales, max_seq=128, kv_dtype=kv, prequant=pre,
+                     weight_bits=wb)
+        toks = eng.generate({"tokens": b1}, job["n_cmp"]).tokens
+        lp = engine_trajectory(eng, b1, card_toks)
+        out[label] = (lp.numpy(), toks)
+    return out
 
 
 def log(msg: str) -> None:
@@ -457,14 +744,11 @@ def method_phase(api, params, cfg, corpus, calib, batch, dev, qw8):
     from repro_torch.checkpoint.store import CheckpointManager
     from repro_torch.configs import CushionConfig, QuantConfig
     from repro_torch.core import cushioncache as CC
-    from repro_torch.core import outliers as OUT
     from repro_torch.core.calibration import calibrate_tagged, scales_to_plain
     from repro_torch.data.pipeline import Pipeline
     from repro_torch.kernels import _lib
     from repro_torch.launch.serve import load_cushion_artifact, to_device
     from repro_torch.launch.tune import _quality
-    from repro_torch.models.common import ParamTree
-    from repro_torch.models.registry import build
     from repro_torch.serving.engine import Engine
 
     L, V = cfg.n_layers, cfg.vocab_size
@@ -584,36 +868,13 @@ def method_phase(api, params, cfg, corpus, calib, batch, dev, qw8):
         1, "search iteration")
 
     # 2. card against CPU: a 32-token sample, 4 candidates, a 2-token live
-    # prefix padded to MAX_PREFIX rows
-    cpu_api = build(cfg, "cpu")
-    cpu_params = ParamTree(to_cpu(params.tree()))
+    # prefix padded to MAX_PREFIX rows (the CPU's side in the worker, with
+    # the gradients below; both compared at the join)
     s32 = {"tokens": samples[0]["tokens"][:, :32]}
     two = (prefix + [3])[:2]
     pad = torch.tensor(two + [0] * (MAX_PREFIX - 2), dtype=torch.int32)
     cands = torch.tensor([13, 198, V // 4, V - 1], dtype=torch.int32)
-    sc = {}
-    for name, a, p in (("card", api, params), ("cpu", cpu_api, cpu_params)):
-        d = a.device
-        with torch.no_grad():
-            pkv = a.prefix_kv(p, pad.to(d), qdyn)
-            b = {"tokens": s32["tokens"].to(d)}
-            sc[name] = (a.score_candidates(p, pkv, 2, cands.to(d), b,
-                                           qdyn).float().cpu().numpy(),
-                        float(a.prefix_qerr(p, pkv, 2, b, qdyn)))
-    rel = np.abs(sc["card"][0] - sc["cpu"][0]) / np.abs(sc["cpu"][0])
-    base_rel = abs(sc["card"][1] - sc["cpu"][1]) / abs(sc["cpu"][1])
-    agree = int(np.argmin(sc["card"][0])) == int(np.argmin(sc["cpu"][0]))
-    rec["scores_card_vs_cpu"] = {
-        "card": sc["card"][0].tolist(), "cpu": sc["cpu"][0].tolist(),
-        "base_card": sc["card"][1], "base_cpu": sc["cpu"][1],
-        "max_rel_err": float(rel.max()), "base_rel_err": base_rel,
-        "rtol": SCORE_RTOL, "argmin_agrees": agree}
-    log(f"scores card vs CPU (32 tokens, candidates {cands.tolist()}, "
-        f"prefix {two} padded to {MAX_PREFIX}): max rel err "
-        f"{float(rel.max()):.3g}, base {base_rel:.3g} (tolerance "
-        f"{SCORE_RTOL}); argmin agrees: {agree}")
-    if float(rel.max()) > SCORE_RTOL or base_rel > SCORE_RTOL:
-        fail("search scores: card and CPU beyond the stated tolerance")
+    sc_card = method_scores(api, params, pad, cands, s32["tokens"], qdyn)
 
     # 3. tune: exact launches, bounded host syncs, per-step device time
     evs = []
@@ -677,66 +938,67 @@ def method_phase(api, params, cfg, corpus, calib, batch, dev, qw8):
     # bf16 one
     gb = {k: v[:1, :32] for k, v in tune_b[0].items()}
 
-    def grad_of(a, p, cush, b, qcfg, lam):
-        c = {"kv": {k: t.detach().clone().requires_grad_()
-                    for k, t in cush["kv"].items()}}
-        with torch.enable_grad():
-            _, aux = a.loss_fn(p, b, qcfg, cushion=c, collect=True)
-            loss = aux["ce"] + lam * OUT.activation_range_penalty(
-                aux["taps"])
-            g = torch.autograd.grad(loss, [c["kv"]["k"], c["kv"]["v"]])
-        return torch.cat([x.float().cpu().reshape(-1) for x in g])
-
     def cmp(a, b):
         return (float((a - b).norm() / b.norm()),
                 float(torch.dot(a, b) / (a.norm() * b.norm())))
 
-    def f32(t):
-        if isinstance(t, dict):
-            return {k: f32(v) for k, v in t.items()}
-        return t.detach().cpu().float() if t.is_floating_point() \
-            else t.detach().cpu()
-
     qnone = QuantConfig()
-    gb_cpu, greedy_cpu = to_cpu(gb), to_cpu(greedy)
     _lib.reset_launches()
-    g_ce_card = grad_of(api, params, greedy, gb, qnone, 0.0)
-    g_tune_card = grad_of(api, params, greedy, gb, qdyn, ccfg.lam)
+    g_ce_card = cushion_grad(api, params, greedy, gb, qnone, 0.0)
+    g_tune_card = cushion_grad(api, params, greedy, gb, qdyn, ccfg.lam)
     if _lib.LAUNCHES["flash_attention_bwd"] != 2 * L:
         fail(f"gradient: {_lib.LAUNCHES['flash_attention_bwd']} backward "
              f"launches, expected {2 * L}")
-    g_ce_cpu = grad_of(cpu_api, cpu_params, greedy_cpu, gb_cpu, qnone, 0.0)
-    g_tune_cpu = grad_of(cpu_api, cpu_params, greedy_cpu, gb_cpu, qdyn,
-                         ccfg.lam)
-    del cpu_params
-    api32 = build(dataclasses.replace(cfg, dtype="float32"), "cpu")
-    p32 = ParamTree(f32(params.tree()))
-    g_ce_ref = grad_of(api32, p32, f32(greedy), gb_cpu, qnone, 0.0)
-    g_tune_ref = grad_of(api32, p32, f32(greedy), gb_cpu, qdyn, ccfg.lam)
-    del p32
-    ce_rel, ce_cos = cmp(g_ce_card, g_ce_cpu)
-    card_rel, card_cos = cmp(g_tune_card, g_tune_ref)
-    cpu_rel, cpu_cos = cmp(g_tune_cpu, g_tune_ref)
-    rec["grad_card_vs_cpu"] = {
-        "ce_rel_l2": ce_rel, "ce_cosine": ce_cos, "ce_tol": GRAD_TOL,
-        "ce_card_vs_f32": list(cmp(g_ce_card, g_ce_ref)),
-        "ce_cpu_bf16_vs_f32": list(cmp(g_ce_cpu, g_ce_ref)),
-        "tune_card_vs_f32": [card_rel, card_cos],
-        "tune_cpu_bf16_vs_f32": [cpu_rel, cpu_cos],
-        "tune_card_vs_cpu_bf16": list(cmp(g_tune_card, g_tune_cpu)),
-        "tune_factor": GRAD_TUNE_FACTOR}
-    gr = rec["grad_card_vs_cpu"]
-    log(f"gradient into the cushion (B=1, 32 tokens): CE, card vs CPU bf16: "
-        f"relative L2 {ce_rel:.4g}, cosine {ce_cos:.6f} (tolerance "
-        f"{GRAD_TOL}; against the CPU's f32 gradient: card "
-        f"{gr['ce_card_vs_f32'][0]:.4g}, CPU bf16 "
-        f"{gr['ce_cpu_bf16_vs_f32'][0]:.4g}); tuning loss against the "
-        f"CPU's f32 gradient: card "
-        f"{card_rel:.4g} / {card_cos:.4f}, CPU bf16 {cpu_rel:.4g} / "
-        f"{cpu_cos:.4f} (card within {GRAD_TUNE_FACTOR}x the CPU's)")
-    if ce_rel > GRAD_TOL[0] or ce_cos < GRAD_TOL[1] \
-            or card_rel > GRAD_TUNE_FACTOR * cpu_rel:
-        fail("gradient: card and CPU beyond the stated tolerance")
+    CPU_HALVES.submit("phase 4c", cpu_method_half, {
+        "cfg": cfg, "params": to_cpu(params.tree()), "pad": pad,
+        "cands": cands, "s32": to_cpu(s32["tokens"]), "gb": to_cpu(gb),
+        "greedy": to_cpu(greedy), "qdyn": qdyn, "lam": ccfg.lam})
+
+    def compare():
+        got = CPU_HALVES.result("phase 4c")
+        sc = {"card": sc_card, "cpu": got["scores"]}
+        rel = np.abs(sc["card"][0] - sc["cpu"][0]) / np.abs(sc["cpu"][0])
+        base_rel = abs(sc["card"][1] - sc["cpu"][1]) / abs(sc["cpu"][1])
+        agree = int(np.argmin(sc["card"][0])) == int(np.argmin(sc["cpu"][0]))
+        rec["scores_card_vs_cpu"] = {
+            "card": sc["card"][0].tolist(), "cpu": sc["cpu"][0].tolist(),
+            "base_card": sc["card"][1], "base_cpu": sc["cpu"][1],
+            "max_rel_err": float(rel.max()), "base_rel_err": base_rel,
+            "rtol": SCORE_RTOL, "argmin_agrees": agree}
+        log(f"scores card vs CPU (32 tokens, candidates {cands.tolist()}, "
+            f"prefix {two} padded to {MAX_PREFIX}): max rel err "
+            f"{float(rel.max()):.3g}, base {base_rel:.3g} (tolerance "
+            f"{SCORE_RTOL}); argmin agrees: {agree}")
+        if float(rel.max()) > SCORE_RTOL or base_rel > SCORE_RTOL:
+            fail("search scores: card and CPU beyond the stated tolerance")
+        g_ce_cpu, g_tune_cpu, g_ce_ref, g_tune_ref = (
+            torch.from_numpy(got[k]) for k in ("ce", "tune", "ce_ref",
+                                               "tune_ref"))
+        ce_rel, ce_cos = cmp(g_ce_card, g_ce_cpu)
+        card_rel, card_cos = cmp(g_tune_card, g_tune_ref)
+        cpu_rel, cpu_cos = cmp(g_tune_cpu, g_tune_ref)
+        rec["grad_card_vs_cpu"] = {
+            "ce_rel_l2": ce_rel, "ce_cosine": ce_cos, "ce_tol": GRAD_TOL,
+            "ce_card_vs_f32": list(cmp(g_ce_card, g_ce_ref)),
+            "ce_cpu_bf16_vs_f32": list(cmp(g_ce_cpu, g_ce_ref)),
+            "tune_card_vs_f32": [card_rel, card_cos],
+            "tune_cpu_bf16_vs_f32": [cpu_rel, cpu_cos],
+            "tune_card_vs_cpu_bf16": list(cmp(g_tune_card, g_tune_cpu)),
+            "tune_factor": GRAD_TUNE_FACTOR,
+            "cpu_half": CPU_HALVES.seconds["phase 4c"]}
+        gr = rec["grad_card_vs_cpu"]
+        log(f"gradient into the cushion (B=1, 32 tokens): CE, card vs CPU "
+            f"bf16: relative L2 {ce_rel:.4g}, cosine {ce_cos:.6f} "
+            f"(tolerance {GRAD_TOL}; against the CPU's f32 gradient: card "
+            f"{gr['ce_card_vs_f32'][0]:.4g}, CPU bf16 "
+            f"{gr['ce_cpu_bf16_vs_f32'][0]:.4g}); tuning loss against the "
+            f"CPU's f32 gradient: card {card_rel:.4g} / {card_cos:.4f}, CPU "
+            f"bf16 {cpu_rel:.4g} / {cpu_cos:.4f} (card within "
+            f"{GRAD_TUNE_FACTOR}x the CPU's)")
+        if ce_rel > GRAD_TOL[0] or ce_cos < GRAD_TOL[1] \
+                or card_rel > GRAD_TUNE_FACTOR * cpu_rel:
+            fail("gradient: card and CPU beyond the stated tolerance")
+    CPU_HALVES.later(compare)
 
     # quality before and after tuning (random weights: printed, not gated)
     g_top1, g_ppl = _quality(api, params, greedy, eval_b)
@@ -1144,6 +1406,21 @@ def smoothquant_step(api, params, cfg, calib, batch, cushion, qw8):
     return rec
 
 
+# phase 4k's one-rank sides of the MoE, VLM and hybrid runs, recorded by
+# phases 4e-4g from their own engines: {arch: {"one", "cases", ...}}
+TP_FAMILIES = {}
+
+
+def import_tp_probe():
+    """``tests/_tp_probe.py``, a tensor-parallel rank's program (jax-free),
+    beside the tests that spawn it too; the spawned ranks inherit this
+    ``sys.path``."""
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.append(str(ROOT / "tests"))
+    import _tp_probe
+    return _tp_probe
+
+
 # phases 4f and 4g: the VLM and the Jamba hybrid at full width, each through
 # both engines, the search and the tuning (see the module docstring)
 # 8 of internvl2's 48 layers and of olmoe's 16 (both 16 until phases 4h and
@@ -1452,7 +1729,7 @@ class FamilyRun:
         from repro_torch.kernels import _lib
         from repro_torch.serving.engine import Engine
         Bn = batch["tokens"].shape[0]
-        engines, self.rec["static"] = {}, {}
+        engines, self.rec["static"], self.static_runs = {}, {}, {}
         for label, (qcfg, kv, pre) in modes.items():
             eng = Engine(self.api, self.params, qcfg, cushion=cushion,
                          max_seq=self.positions(batch) + new + 32,
@@ -1485,6 +1762,7 @@ class FamilyRun:
                 if not np.array_equal(r.tokens, res.tokens):
                     fail(f"{self.tag} {label}: a repeated request gave "
                          f"other tokens")
+            self.static_runs[label] = (res, counts)
             self.rec["static"][label] = {
                 "ttft_ms": res.ttft_ms, "tpot_ms": res.tpot_ms,
                 "launches": counts, "graph_replays": replays,
@@ -1534,12 +1812,20 @@ class FamilyRun:
                               cushion=cushion, scales=scales,
                               **{"kv_dtype": "int8", "prequant": True, **kw})
         ce.run([dataclasses.replace(r, max_new_tokens=2) for r in reqs[:4]])
+        admissions = []
+        book = ce._book_admission
+
+        def logged(req, slot, first, tpf):
+            admissions.append((req.uid, slot, ce.stats.steps))
+            book(req, slot, first, tpf)
+        ce._book_admission = logged
         _lib.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         outs = ce.run(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        del ce._book_admission
         counts = dict(_lib.LAUNCHES)
         st = ce.stats
         if _lib.COUNTERS["graph_replays"] != st.steps:
@@ -1573,7 +1859,94 @@ class FamilyRun:
             f"{out['tpot_ms_p50']:.2f} ms, {st.steps} steps = replays; "
             f"launches exact; tokens = the static B=1 Engine's")
         self.counters_zero(f"{self.tag} {label}", [ce.graph])
+        self.pool_outputs = {"tokens": {o.uid: o.tokens for o in outs},
+                             "admissions": admissions,
+                             "max_seq": ce.max_seq}
         return out
+
+    def tp_one_rank(self, engines, batch, new, cushion, in_turn=False):
+        """Phase 4k's one-rank side of this model, from this phase's static
+        engines (the same seed, cushion, scales and prompt as the two
+        ranks'): each engine's request of ``static`` (its tokens, launches,
+        TTFT / TPOT), the peak memory so far, the prefill as the rank
+        program sees it (``prefill_view``: the logits, the cushion as the
+        cache holds it) and the teacher-forced top-1 - top-2 margins along
+        its tokens; and the cases the two ranks serve in phase 4k. Returns
+        nothing; the record is ``TP_FAMILIES[arch]``."""
+        import torch
+        from repro_torch.core.calibration import scales_to_plain
+        tp_probe = import_tp_probe()
+        cpu = lambda t: t.detach().cpu()       # noqa: E731
+        one, cases = {}, []
+        for label, eng in engines.items():
+            case = dict(
+                cfg=self.cfg, seed=0, name=f"{self.cfg.name}/{label}",
+                kind="static", qcfg=eng.qcfg,
+                prequant=bool(eng.weight_bytes_int8),
+                kv_dtype=eng.kv_dtype, max_seq=eng.max_seq,
+                cushion=tree_map(cpu, cushion),
+                scales=(None if eng.scales is None else
+                        tree_map(cpu, scales_to_plain(eng.scales))),
+                n_tokens=new, logits=True, in_turn=in_turn,
+                **{k: cpu(v) for k, v in batch.items()})
+            res, counts = self.static_runs[label]
+            one[label] = dict(
+                tp_probe.prefill_view(eng, batch), tokens=res.tokens,
+                ttft_ms=res.ttft_ms, tpot_ms=res.tpot_ms, launches=counts,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                margins=tp_probe._margins(eng, batch, res.tokens))
+            cases.append(case)
+        TP_FAMILIES[self.cfg.name] = {"one": one, "cases": cases,
+                                      "new": new, "in_turn": in_turn}
+        torch.cuda.synchronize()
+        log(f"{self.tag}: phase 4k's one-rank side recorded ("
+            + ", ".join(f"{k}: tokens {v['tokens'].shape}, TTFT "
+                        f"{v['ttft_ms']:.1f} ms, TPOT {v['tpot_ms']:.2f} ms"
+                        for k, v in one.items()) + ")")
+
+    def tp_one_rank_pool(self, reqs, static_eng, qcfg, cushion, page_size):
+        """Phase 4k's one-rank side of the paged pool just run (its tokens
+        and admissions), with the teacher-forced margins of each request
+        along its tokens from the static B = 1 engine, and the case the
+        two ranks serve."""
+        import numpy as np
+        import torch
+        from repro_torch.core.calibration import scales_to_plain
+        tp_probe = import_tp_probe()
+        cpu = lambda t: t.detach().cpu()       # noqa: E731
+        po = self.pool_outputs
+        # teacher-forced through the static engine a prompt length at a
+        # time (its rows are independent: a row's margins are its B = 1
+        # ones), each row's tokens padded to the group's longest budget
+        margins = {}
+        for n in sorted({r.batch["tokens"].shape[1] for r in reqs}):
+            grp = [r for r in reqs if r.batch["tokens"].shape[1] == n]
+            steps = max(len(po["tokens"][r.uid]) for r in grp)
+            toks = np.zeros((len(grp), steps), np.int64)
+            for i, r in enumerate(grp):
+                toks[i, :len(po["tokens"][r.uid])] = po["tokens"][r.uid]
+            mg = tp_probe._margins(static_eng, {"tokens": torch.cat(
+                [r.batch["tokens"] for r in grp])}, toks)
+            for i, r in enumerate(grp):
+                margins[r.uid] = mg[i, :len(po["tokens"][r.uid])]
+        case = dict(
+            cfg=self.cfg, seed=0, name=f"{self.cfg.name}/paged_pool",
+            kind="continuous", qcfg=qcfg, prequant=True, kv_dtype="int8",
+            paged=True, page_size=page_size, n_slots=4,
+            max_seq=po["max_seq"], cushion=tree_map(cpu, cushion),
+            scales=tree_map(cpu, scales_to_plain(static_eng.scales)),
+            requests=[dict(tokens=cpu(r.batch["tokens"]),
+                           max_new_tokens=r.max_new_tokens) for r in reqs],
+            in_turn=True)
+        rec = TP_FAMILIES[self.cfg.name]
+        rec["cases"].append(case)
+        rec["pool"] = {"tokens": po["tokens"], "admissions":
+                       po["admissions"], "margins": margins,
+                       "seconds": self.rec["paged"]["wall_s"]}
+        rec["pool_launches"] = self.rec["paged"]["launches"]
+        torch.cuda.synchronize()
+        log(f"{self.tag}: phase 4k's one-rank pool recorded, margins "
+            f"min {min(float(np.min(m)) for m in margins.values()):.4g}")
 
     def method(self, sample_fn, tune_b, search_want, tune_want, check=None):
         """``discover`` under pt_dynamic (16 candidates, the prefix padded
@@ -1649,87 +2022,75 @@ class FamilyRun:
         ({mode: (largest, mean)}); the prefill's (token, MoE layer) pairs
         that the two sides route to other experts are counted. The modes
         with int8-resident weights serve scales calibrated once, on the
-        card, on ``calib2``."""
+        card, on ``calib2``. The card's half runs here; the CPU's runs in
+        the CPU worker (``CpuHalves``) and the comparison is made at the
+        join, into ``self.rec["card_vs_cpu"]``."""
         import torch
-        from repro_torch.core import quantization as TQ
         from repro_torch.core.calibration import calibrate
-        from repro_torch.models import moe as MO
-        from repro_torch.models.common import ParamTree
         from repro_torch.models.registry import build
         from repro_torch.serving.engine import Engine
         cpu = lambda t: t.detach().cpu()       # noqa: E731
-        cp2 = ParamTree(tree_map(cpu, p2.tree()))
-        api2, cpu_api2 = build(cfg2, "cuda"), build(cfg2, "cpu")
+        api2 = build(cfg2, "cuda")
         static = [q for q, _, pre in modes.values() if pre]
         sc2 = (calibrate(api2, p2, calib2, static[0], cushion=cush2)[0]
                if static else None)
-        routing = []          # the experts picked: the card's, the CPU's
-
-        @torch.inference_mode()
-        def trajectory(a, p, qcfg, kv, sc, cush, pre, gen_toks):
-            prm = TQ.prequantize_tree(p.tree(), qcfg) if pre else p.tree()
-            cache = a.init_cache(1, 256, kv_dtype=kv, prefix_len=CUSHION)
-            seen = []
-            routing.append(seen)
-            inner = MO.route
-
-            def recording(x, router, k):
-                out = inner(x, router, k)
-                seen.append(out[2].cpu())
-                return out
-            MO.route = recording
-            try:
-                lg, cache, pos = a.prefill(
-                    prm, {k: v.to(a.device) for k, v in prompt.items()},
-                    cache, qcfg, cushion=cush, scales=sc)
-            finally:
-                MO.route = inner
-            out = [lg[:, -1].float().cpu()]
-            for n in range(gen_toks.shape[1] - 1):
-                tok = torch.as_tensor(gen_toks[:, n], dtype=torch.int32,
-                                      device=a.device)
-                lg, cache = a.decode_step(prm, tok, pos + n, cache, qcfg,
-                                          scales=sc)
-                out.append(lg.float().cpu())
-            return torch.stack(out)
-
-        self.rec["card_vs_cpu"] = {"n_layers": cfg2.n_layers}
+        card, jobs = {}, {}
         for label, (qcfg, kv, pre) in modes.items():
             t0 = time.perf_counter()
             sc_card = sc2 if pre else None
-            sc_cpu = tree_map(cpu, sc2) if pre else None
             eng2 = Engine(api2, p2, qcfg, cushion=cush2, scales=sc_card,
                           max_seq=256, kv_dtype=kv, prequant=pre)
             toks = eng2.generate(prompt, n_tok).tokens
-            lc = trajectory(api2, p2, qcfg, kv, sc_card, cush2, pre, toks)
-            lp = trajectory(cpu_api2, cp2, qcfg, kv, sc_cpu,
-                            tree_map(cpu, cush2), pre, toks)
-            err = (lc - lp).abs()
-            max_tol, mean_tol = tols[label]
-            pairs = list(zip(*routing[-2:]))
-            cmp = {"max_abs_err": float(err.max()),
-                   "mean_abs_err": float(err.mean()),
-                   "max_abs_logit": float(lp.abs().max()),
-                   "prefill_tokens_with_other_experts": sum(
-                       int((a.sort(-1).values != b.sort(-1).values)
-                           .any(-1).sum()) for a, b in pairs),
-                   "prefill_token_layers": sum(a[..., 0].numel()
-                                               for a, _ in pairs),
-                   "tol_max": max_tol, "tol_mean": mean_tol,
-                   "seconds": time.perf_counter() - t0}
-            self.rec["card_vs_cpu"][label] = cmp
-            log(f"{self.tag} card vs CPU, {label} ({cfg2.n_layers} layers, "
-                f"B=1, {self.positions(prompt)} positions, "
-                f"{n_tok} logits rows): max |err| "
-                f"{cmp['max_abs_err']:.4g} (tolerance {max_tol}), mean "
-                f"{cmp['mean_abs_err']:.4g} (tolerance {mean_tol}), max "
-                f"|logit| {cmp['max_abs_logit']:.3g}; prefill (token, MoE "
-                f"layer) pairs routed to other experts "
-                f"{cmp['prefill_tokens_with_other_experts']} of "
-                f"{cmp['prefill_token_layers']}; {cmp['seconds']:.1f} s")
-            if cmp["max_abs_err"] > max_tol or cmp["mean_abs_err"] > mean_tol:
-                fail(f"{self.tag} {label}: card and CPU logits differ "
-                     f"beyond the stated tolerance")
+            del eng2
+            routing = []
+            lc = family_trajectory(api2, p2, qcfg, kv, sc_card, cush2, pre,
+                                   prompt, toks, routing)
+            card[label] = (lc, routing, time.perf_counter() - t0)
+            jobs[label] = (qcfg, kv, pre, toks)
+        CPU_HALVES.submit(self.tag, cpu_family_half, {
+            "cfg": cfg2, "params": tree_map(cpu, p2.tree()),
+            "cushion": tree_map(cpu, cush2),
+            "scales": None if sc2 is None else tree_map(cpu, sc2),
+            "prompt": {k: cpu(v) for k, v in prompt.items()},
+            "modes": jobs})
+        rec = self.rec["card_vs_cpu"] = {"n_layers": cfg2.n_layers}
+        tag, positions = self.tag, self.positions(prompt)
+
+        def compare():
+            got = CPU_HALVES.result(tag)
+            for label in modes:
+                lc, r_card, card_s = card[label]
+                lp = torch.from_numpy(got[label][0])
+                r_cpu = [torch.from_numpy(r) for r in got[label][1]]
+                err = (lc - lp).abs()
+                max_tol, mean_tol = tols[label]
+                pairs = list(zip(r_card, r_cpu))
+                cmp = {"max_abs_err": float(err.max()),
+                       "mean_abs_err": float(err.mean()),
+                       "max_abs_logit": float(lp.abs().max()),
+                       "prefill_tokens_with_other_experts": sum(
+                           int((a.sort(-1).values != b.sort(-1).values)
+                               .any(-1).sum()) for a, b in pairs),
+                       "prefill_token_layers": sum(a[..., 0].numel()
+                                                   for a, _ in pairs),
+                       "tol_max": max_tol, "tol_mean": mean_tol,
+                       "card_seconds": card_s,
+                       "cpu_half": CPU_HALVES.seconds[tag]}
+                rec[label] = cmp
+                log(f"{tag} card vs CPU, {label} ({cfg2.n_layers} layers, "
+                    f"B=1, {positions} positions, {n_tok} logits rows): "
+                    f"max |err| {cmp['max_abs_err']:.4g} (tolerance "
+                    f"{max_tol}), mean {cmp['mean_abs_err']:.4g} (tolerance "
+                    f"{mean_tol}), max |logit| {cmp['max_abs_logit']:.3g}; "
+                    f"prefill (token, MoE layer) pairs routed to other "
+                    f"experts {cmp['prefill_tokens_with_other_experts']} of "
+                    f"{cmp['prefill_token_layers']}; card half "
+                    f"{card_s:.1f} s, CPU half in the worker")
+                if cmp["max_abs_err"] > max_tol \
+                        or cmp["mean_abs_err"] > mean_tol:
+                    fail(f"{tag} {label}: card and CPU logits differ "
+                         f"beyond the stated tolerance")
+        CPU_HALVES.later(compare)
 
     def done(self):
         import torch
@@ -1784,6 +2145,7 @@ def moe_phase(dev, corpus, calib, batch, ps, zero_counts, counters_zero,
                                                         False)}
     engines = run.static(batch, MOE_NEW, cushion, calib, expect, modes)
     w8 = engines["w8a8_int8kv"]
+    run.tp_one_rank(engines, {"tokens": batch["tokens"]}, MOE_NEW, cushion)
     fp_bytes = rec["static"]["fp"]["weight_bytes_fp"]
     if not (w8.weight_bytes_int8 > 0 and w8.weight_bytes_fp < fp_bytes):
         fail("olmoe: prequantization did not shrink the fp bytes")
@@ -1954,6 +2316,7 @@ def vlm_phase(dev, zero_counts, counters_zero, timed):
              "fp": (QuantConfig(), None, False)}
     engines = run.static(batch, VLM_NEW, cushion, calib, expect, modes)
     w8 = engines["w8a8_int8kv"]
+    run.tp_one_rank(engines, batch, VLM_NEW, cushion)
     D, Fd, H, K, hd = (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim)
     rec["kernels"] = family_kernels(
@@ -2060,6 +2423,9 @@ def hybrid_phase(dev, zero_counts, counters_zero, timed):
              "fp": (QuantConfig(), None, False)}
     engines = run.static(batch, HY_NEW, cushion, calib, expect, modes)
     w8 = engines["w8a8_int8kv"]
+    # phase 4k's ranks build this period in turn: one whole tree on the
+    # card at a time
+    run.tp_one_rank(engines, batch, HY_NEW, cushion, in_turn=True)
 
     # the Mamba scan's cost at the prefill's shape (B x PROMPT), one
     # sublayer timed alone, times the period's nm sublayers
@@ -2129,6 +2495,7 @@ def hybrid_phase(dev, zero_counts, counters_zero, timed):
     rec["paged"] = run.pool("paged pool", reqs, w8, qw8, w8.scales, cushion,
                             pool_want("flash_decode_paged"), paged=True,
                             page_size=64)
+    run.tp_one_rank_pool(reqs, w8, qw8, cushion, 64)
     run.counters_zero("jamba static", [s.graph for e in engines.values()
                                        for s in e.states.values()])
     del engines, w8              # the engines' caches and int8 copies
@@ -3039,16 +3406,8 @@ def train_phase(dev, corpus, timed):
     del a, b
     shutil.rmtree(work, ignore_errors=True)
 
-    # (d) one step on the card against the port's CPU step
-    def first_moments(api_, params, batch, dtype_cfg):
-        r = RunConfig(model=dtype_cfg, seq_len=64, global_batch=2, lr=1e-3,
-                      train_steps=TRAIN_STEPS, warmup_steps=10)
-        opt_ = make_optimizer(r)
-        _, s_, m_ = make_train_step(api_, r, opt_)(params,
-                                                   opt_.init(params), batch)
-        return [t.float().cpu() for t in tree_leaves(s_.mu)], \
-            float(m_["loss"])
-
+    # (d) one step on the card against the port's CPU step (the CPU's in
+    # the worker, compared at the join)
     def leaf_err(x, y):
         return max(float((a_ - b_).abs().max() / b_.abs().max())
                    for a_, b_ in zip(x, y))
@@ -3058,58 +3417,63 @@ def train_phase(dev, corpus, timed):
         return float(d.norm() / torch.cat([b_.reshape(-1) for b_ in y])
                      .norm())
 
-    cvc = {}
-    b0 = {k_: v_[:2, :64] for k_, v_ in pipe.get_batch(0).items()}
-    res = {}
+    b0 = {k_: torch.as_tensor(v_[:2, :64])
+          for k_, v_ in pipe.get_batch(0).items()}
+    jobs, card = {}, {}
     for dt in ("float32", "bfloat16"):
-        c2 = dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS, dtype=dt)
-        cpu_api = build(c2, "cpu")
-        cp = cpu_api.init_params(torch.Generator().manual_seed(0)).tree()
-        cb = {k_: torch.as_tensor(v_) for k_, v_ in b0.items()}
-        res[dt] = (first_moments(build(c2, "cuda"),
-                                 tree_map(lambda t: t.to(dev), cp),
-                                 tree_map(lambda t: t.to(dev), cb), c2),
-                   first_moments(cpu_api, cp, cb, c2))
-        del cp
-    (card32, lc32), (cpu32, lp32) = res["float32"]
-    (card16, lc16), (cpu16, lp16) = res["bfloat16"]
-    cvc["smollm_2_layers"] = {
-        "f32_first_moment_leaf_err": leaf_err(card32, cpu32),
-        "f32_loss_rel": abs(lc32 / lp32 - 1),
-        "bf16_card_vs_cpu_f32_rel_l2": rel_l2(card16, cpu32),
-        "bf16_cpu_vs_cpu_f32_rel_l2": rel_l2(cpu16, cpu32),
-        "bf16_loss_card_cpu": [lc16, lp16]}
-    sm = cvc["smollm_2_layers"]
-    if sm["f32_first_moment_leaf_err"] > TRAIN_F32_TOL \
-            or sm["f32_loss_rel"] > TRAIN_F32_TOL \
-            or sm["bf16_card_vs_cpu_f32_rel_l2"] > GRAD_TUNE_FACTOR * \
-            sm["bf16_cpu_vs_cpu_f32_rel_l2"]:
-        fail(f"train card vs CPU (smollm, {TRAIN_CUT_LAYERS} layers): {sm}")
-    del res, card32, cpu32, card16, cpu16
-    for arch in ("olmoe-1b-7b", "internvl2-26b", "jamba-v0.1-52b",
-                 "whisper-base", "xlstm-350m"):
+        jobs[dt] = (dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS,
+                                        dtype=dt), b0)
+    fams = ("olmoe-1b-7b", "internvl2-26b", "jamba-v0.1-52b",
+            "whisper-base", "xlstm-350m")
+    for arch in fams:
         rc = reduced(get_config(arch), dtype="float32")
-        cpu_api = build(rc, "cpu")
-        cp = cpu_api.init_params(torch.Generator().manual_seed(0)).tree()
-        cb = cpu_api.make_batch(torch.Generator().manual_seed(1), 2, 32)
-        (card_mu, lc), (cpu_mu, lp) = (
-            first_moments(build(rc, "cuda"), tree_map(lambda t: t.to(dev),
-                                                      cp),
-                          tree_map(lambda t: t.to(dev), cb), rc),
-            first_moments(cpu_api, cp, cb, rc))
-        cvc[arch] = {"first_moment_leaf_err": leaf_err(card_mu, cpu_mu),
-                     "loss_rel": abs(lc / lp - 1), "leaves": len(cpu_mu)}
-        if cvc[arch]["first_moment_leaf_err"] > TRAIN_FAM_TOL \
-                or cvc[arch]["loss_rel"] > TRAIN_FAM_TOL:
-            fail(f"train card vs CPU, {arch}: {cvc[arch]}")
-    rec["card_vs_cpu"] = cvc
-    log("train card vs CPU, one step: smollm 2 layers f32 first moments "
-        f"{sm['f32_first_moment_leaf_err']:.3g} of a leaf's max, loss "
-        f"{sm['f32_loss_rel']:.3g}; bf16 rel L2 from the CPU's f32 "
-        f"{sm['bf16_card_vs_cpu_f32_rel_l2']:.4g} (the CPU's bf16 "
-        f"{sm['bf16_cpu_vs_cpu_f32_rel_l2']:.4g}); families (reduced, f32): "
-        + ", ".join(f"{a_} {v_['first_moment_leaf_err']:.3g}"
-                    for a_, v_ in cvc.items() if a_ != "smollm_2_layers"))
+        jobs[arch] = (rc, build(rc, "cpu").make_batch(
+            torch.Generator().manual_seed(1), 2, 32))
+    for label, (c, b) in jobs.items():
+        cp = build(c, "cpu").init_params(
+            torch.Generator().manual_seed(0)).tree()
+        card[label] = train_first_moments(
+            build(c, "cuda"), tree_map(lambda t: t.to(dev), cp),
+            tree_map(lambda t: t.to(dev), b), c)
+        del cp
+    CPU_HALVES.submit("phase 4j", cpu_train_half, jobs)
+
+    def compare():
+        got = {k: ([torch.from_numpy(t) for t in v[0]], v[1])
+               for k, v in CPU_HALVES.result("phase 4j").items()}
+        cvc = {}
+        (card32, lc32), (cpu32, lp32) = card["float32"], got["float32"]
+        (card16, lc16), (cpu16, lp16) = card["bfloat16"], got["bfloat16"]
+        cvc["smollm_2_layers"] = {
+            "f32_first_moment_leaf_err": leaf_err(card32, cpu32),
+            "f32_loss_rel": abs(lc32 / lp32 - 1),
+            "bf16_card_vs_cpu_f32_rel_l2": rel_l2(card16, cpu32),
+            "bf16_cpu_vs_cpu_f32_rel_l2": rel_l2(cpu16, cpu32),
+            "bf16_loss_card_cpu": [lc16, lp16]}
+        sm = cvc["smollm_2_layers"]
+        if sm["f32_first_moment_leaf_err"] > TRAIN_F32_TOL \
+                or sm["f32_loss_rel"] > TRAIN_F32_TOL \
+                or sm["bf16_card_vs_cpu_f32_rel_l2"] > GRAD_TUNE_FACTOR * \
+                sm["bf16_cpu_vs_cpu_f32_rel_l2"]:
+            fail(f"train card vs CPU (smollm, {TRAIN_CUT_LAYERS} layers): "
+                 f"{sm}")
+        for arch in fams:
+            (card_mu, lc), (cpu_mu, lp) = card[arch], got[arch]
+            cvc[arch] = {"first_moment_leaf_err": leaf_err(card_mu, cpu_mu),
+                         "loss_rel": abs(lc / lp - 1), "leaves": len(cpu_mu)}
+            if cvc[arch]["first_moment_leaf_err"] > TRAIN_FAM_TOL \
+                    or cvc[arch]["loss_rel"] > TRAIN_FAM_TOL:
+                fail(f"train card vs CPU, {arch}: {cvc[arch]}")
+        cvc["cpu_half"] = CPU_HALVES.seconds["phase 4j"]
+        rec["card_vs_cpu"] = cvc
+        log("train card vs CPU, one step: smollm 2 layers f32 first moments "
+            f"{sm['f32_first_moment_leaf_err']:.3g} of a leaf's max, loss "
+            f"{sm['f32_loss_rel']:.3g}; bf16 rel L2 from the CPU's f32 "
+            f"{sm['bf16_card_vs_cpu_f32_rel_l2']:.4g} (the CPU's bf16 "
+            f"{sm['bf16_cpu_vs_cpu_f32_rel_l2']:.4g}); families (reduced, "
+            f"f32): " + ", ".join(f"{a_} {cvc[a_]['first_moment_leaf_err']:.3g}"
+                                  for a_ in fams))
+    CPU_HALVES.later(compare)
     rec["launches"] = rec["launcher"]["launches"]
     rec["kernels"]["act_quant_ptoken"] = {
         "ptoken_launches": qat["ptoken_dynamic"]["launches"][
@@ -3150,14 +3514,13 @@ def tp_phase(dev, timed):
         w8a8_matmul, w8a8_matmul_plain)
     from repro_torch.launch.mesh import TPMesh, spawn_tp
     from repro_torch.models.registry import build
-    # a rank's program (jax-free), beside the tests that spawn it too; the
-    # spawned ranks inherit this sys.path
-    if str(ROOT / "tests") not in sys.path:
-        sys.path.append(str(ROOT / "tests"))
-    import _tp_probe as tp_probe
+    tp_probe = import_tp_probe()
 
+    gc.collect()
+    torch.cuda.empty_cache()
     rec = {"arch": TP_ARCH, "reduced": f"n_layers {TP_LAYERS} of 95",
-           "runs": {}}
+           "runs": {}, "script_holds_gib_at_start":
+               torch.cuda.memory_allocated() / 2 ** 30}
     cfg = dataclasses.replace(get_config(TP_ARCH), n_layers=TP_LAYERS)
     V, K = cfg.vocab_size, cfg.n_kv_heads
     qw8 = QuantConfig(mode="pt_static", true_int8=True)
@@ -3201,12 +3564,17 @@ def tp_phase(dev, timed):
     gc.collect()
     torch.cuda.empty_cache()
 
+    # the MoE, VLM and hybrid runs (phases 4e-4g recorded their one-rank
+    # sides), in the same two ranks after deepseek's
+    fam_cases = [c for f in TP_FAMILIES.values() for c in f["cases"]]
+    all_cases = cases + fam_cases
+
     def spawned(label):
         t0 = time.perf_counter()
-        ranks = spawn_tp(tp_probe.run_cases, 2, cases, device=dev.type,
+        ranks = spawn_tp(tp_probe.run_cases, 2, all_cases, device=dev.type,
                          every_rank=True, backend=label)
         rec[f"{label}_s"] = time.perf_counter() - t0
-        return [{c["name"]: r[i] for i, c in enumerate(cases)}
+        return [{c["name"]: r[i] for i, c in enumerate(all_cases)}
                 for r in ranks]
 
     def held(label, ranks):
@@ -3314,12 +3682,22 @@ def tp_phase(dev, timed):
     backend = ranks[0]["w8a8_int8kv"]["backend"]
     rec["backend"] = backend
     rec["runs"]["two_ranks"] = held("gloo", ranks)
+    rec["families"] = {"two_ranks": tp_family_checks("gloo", ranks)}
     rec["launches"] = {}
     for name in one:
         for k_, v_ in ranks[0][name]["launches"].items():
             rec["launches"][k_] = rec["launches"].get(k_, 0) + v_
+    # rank 0's launches in each family's runs, for the kernels line
+    rec["family_launches"] = {}
+    for arch, fam in TP_FAMILIES.items():
+        tot = rec["family_launches"].setdefault(TP_FAMILY_TAG[arch], {})
+        for c in fam["cases"]:
+            for k_, v_ in ranks[0][c["name"]]["launches"].items():
+                tot[k_] = tot.get(k_, 0) + v_
     if torch.cuda.device_count() >= 2:
-        rec["runs"]["nccl"] = held("nccl", spawned("nccl"))
+        nccl = spawned("nccl")
+        rec["runs"]["nccl"] = held("nccl", nccl)
+        rec["families"]["nccl"] = tp_family_checks("nccl", nccl)
     for name, o in rec["runs"]["two_ranks"].items():
         if "ttft_ms" in o:
             log(f"tp=2 ({backend}) {name}: TTFT {o['ttft_ms'][0]:.1f} ms "
@@ -3430,7 +3808,343 @@ def tp_phase(dev, timed):
         "int32_library_of": dec[0]["int32_library_of"]}}
     for name, r in tp_kernel_rows(dev, timed, cfg).items():
         rec["kernels"].setdefault(name, {}).update(r)
+    for name, r in tp_family_kernel_rows(dev, timed).items():
+        rec["kernels"].setdefault(name, {}).update(r)
     return rec
+
+
+def tp_family_kernel_rows(dev, timed):
+    """Phase 4k's kernels at the shapes the MoE, VLM and hybrid runs give a
+    rank of two where they differ from deepseek's, each against its plain
+    version on the same inputs (random, from a seed): w8a8_matmul's int32
+    mode at jamba's ``mamba_out`` shard (K = 4096 of its 8192 channels,
+    N = 4096; decode, bf16 x quantized in the staging, and prefill, int8
+    codes), torch.equal; internvl2's attention at a rank's 24 query heads
+    over 4 KV heads (G = 6, head_dim 128): the prefill over [1024 patches;
+    512 tokens] behind the 4-row cushion, and the int8 decode with the
+    cushion, within phase 4k's bars. Returns {kernel: the tp_* keys of the
+    kernels line}."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.act_quant import act_quant_static_plain
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+    from repro_torch.kernels.w8a8_matmul import (
+        quant_w8a8_matmul, quant_w8a8_matmul_plain, w8a8_matmul,
+        w8a8_matmul_plain)
+    from repro_torch.models import ssm as SSM
+    from repro_torch.serving.engine import cache_seq_len
+
+    bf = torch.bfloat16
+    g = torch.Generator(dev).manual_seed(271)
+    out = {}
+
+    def within(name, got, want, floor_rel):
+        got, want = got.float(), want.float()
+        err = (got - want).abs()
+        floor = floor_rel * float(want.abs().max()) if floor_rel else 1e-6
+        if not bool((err <= BF16_ULP * want.abs() + floor).all()):
+            fail(f"phase 4k {name}: max |kernel - plain| "
+                 f"{float(err.max())} beyond its bar")
+        return float(err.max())
+
+    # jamba's mamba_out at a rank: int32 out, the epilogue after the sum
+    hy = get_config(HY_ARCH)
+    inner = SSM.dims(hy)[0]
+    Kk, N = inner // 2, hy.d_model
+    sx, zx = (torch.tensor(v_, device=dev) for v_ in (0.027, 119.0))
+    sw = torch.tensor(0.0039, device=dev).to(bf)
+    w = torch.randint(-127, 128, (Kk, N), generator=g, device=dev,
+                      dtype=torch.int8)
+    i32 = {}
+    for M in (B, B * PROMPT):
+        if M <= 16:
+            x = (torch.randn((M, Kk), generator=g, device=dev) * 3).to(bf)
+            f = lambda: quant_w8a8_matmul(         # noqa: E731
+                x, w, sx, zx, sw, out_dtype=torch.int32)
+            fp = lambda: quant_w8a8_matmul_plain(  # noqa: E731
+                x, w, sx, zx, sw, out_dtype=torch.int32)
+            xl = torch.zeros((32, Kk), dtype=torch.int8, device=dev)
+            xl[:M] = act_quant_static_plain(x, sx, zx)
+            xb = 2 * M * Kk
+        else:
+            x = torch.randint(-128, 128, (M, Kk), generator=g, device=dev,
+                              dtype=torch.int8)
+            f = lambda: w8a8_matmul(               # noqa: E731
+                x, w, sx, zx, sw, out_dtype=torch.int32)
+            fp = lambda: w8a8_matmul_plain(        # noqa: E731
+                x, w, sx, zx, sw, out_dtype=torch.int32)
+            xl = x
+            xb = M * Kk
+        if not torch.equal(f(), fp()):
+            fail(f"phase 4k w8a8_matmul int32 mode at jamba's mamba_out "
+                 f"shard (M={M}) differs from its plain version")
+        bms, by = bound_ms(xb + Kk * N + 4 * M * N, 2.0 * M * N * Kk,
+                           INT8_OPS_PER_S)
+        i32[M] = {"ms": timed(f), "plain_ms": timed(fp, 3),
+                  "library_ms": timed(lambda: torch._int_mm(xl, w)),
+                  "bound_ms": bms, "bound_by": by}
+    d = i32[B]
+    out["w8a8_matmul"] = {
+        "mamba_out_int32_unit": f"jamba-v0.1-52b's mamba_out at a rank of "
+                                f"tp = 2 (K={Kk}, N={N}), M={B}, bf16 x "
+                                f"quantized in the staging, int32 out",
+        "mamba_out_int32_ms": d["ms"], "mamba_out_int32_plain_ms":
+        d["plain_ms"], "mamba_out_int32_bound_ms": d["bound_ms"],
+        "mamba_out_int32_library_ms": d["library_ms"],
+        "mamba_out_int32_prefill_ms": i32[B * PROMPT]["ms"],
+        "mamba_out_int32_prefill_bound_ms": i32[B * PROMPT]["bound_ms"],
+        "mamba_out_int32_max_abs_err": 0.0}
+    del w, x, xl
+
+    # internvl2's attention at a rank: 24 query heads over 4 KV heads
+    vl = get_config(VLM_ARCH)
+    H, Kh, hd, m = vl.n_heads // 2, vl.n_kv_heads // 2, vl.head_dim, CUSHION
+    S = vl.vlm.num_patches + VLM_TEXT
+
+    def rnd(*shape, dtype=bf):
+        if dtype == torch.int8:
+            return torch.randint(-127, 128, shape, generator=g, device=dev,
+                                 dtype=torch.int8)
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    q = rnd(B, S, H, hd).transpose(1, 2)
+    k = rnd(B, S + m, Kh, hd).transpose(1, 2)
+    v = rnd(B, S + m, Kh, hd).transpose(1, 2)
+    e = within("flash_attention G=6", flash_attention(q, k, v, prefix_len=m),
+               flash_attention_plain(q, k, v, prefix_len=m), 0)
+    pairs = B * H * (S * m + S * (S + 1) / 2)
+    bms, by = bound_ms(2 * (2 * B * H * S * hd + 2 * B * Kh * (S + m) * hd),
+                       4.0 * hd * pairs, BF16_FLOPS_PER_S)
+    out["flash_attention"] = {
+        "g6_unit": f"internvl2-26b at a rank of tp = 2: B={B}, {H} query / "
+                   f"{Kh} KV heads (G = 6), S={S} behind m={m}",
+        "g6_ms": timed(lambda: flash_attention(q, k, v, prefix_len=m)),
+        "g6_plain_ms": timed(lambda: flash_attention_plain(
+            q, k, v, prefix_len=m), 3),
+        "g6_bound_ms": bms, "g6_bound_by": by, "g6_max_abs_err": e}
+    del q, k, v
+    Smax = cache_seq_len(S + VLM_NEW + 32)
+    pos_v = m + S + VLM_NEW // 2
+    qd = rnd(B, H, hd)
+    kq, vq = rnd(B, Smax, Kh, hd, dtype=torch.int8), \
+        rnd(B, Smax, Kh, hd, dtype=torch.int8)
+    sc = torch.rand((Kh,), generator=g, device=dev) * 0.05 + 0.01
+    kw = dict(k_scale=sc, v_scale=sc.flip(0).contiguous(),
+              kc=rnd(m, Kh, hd), vc=rnd(m, Kh, hd))
+    pos = torch.tensor(pos_v, dtype=torch.int32, device=dev)
+    e = within("flash_decode G=6", flash_decode(qd, kq, vq, pos, **kw),
+               flash_decode_plain(qd, kq, vq, pos, **kw), TP_DECODE_FLOOR)
+    live = pos_v + 1 - m
+    bms, by = bound_ms(4 * B * H * hd + 2 * B * live * Kh * hd
+                       + 4 * m * Kh * hd + 8 * Kh,
+                       4.0 * B * H * hd * (pos_v + 1), BF16_FLOPS_PER_S)
+    out["flash_decode"] = {
+        "g6_unit": f"internvl2-26b at a rank of tp = 2: B={B}, {H} query / "
+                   f"{Kh} KV heads, int8 cache with the cushion, pos {pos_v}",
+        "g6_ms": timed(lambda: flash_decode(qd, kq, vq, pos, **kw)),
+        "g6_plain_ms": timed(lambda: flash_decode_plain(qd, kq, vq, pos,
+                                                        **kw), 3),
+        "g6_bound_ms": bms, "g6_bound_by": by, "g6_max_abs_err": e}
+    log("phase 4k at the families' rank shapes: w8a8_matmul int32 at "
+        f"jamba's mamba_out shard {d['ms']:.4f} ms (plain "
+        f"{d['plain_ms']:.4f}, bound {d['bound_ms']:.4f}, _int_mm "
+        f"{d['library_ms']:.4f}), torch.equal; internvl2 G = 6: "
+        f"flash_attention {out['flash_attention']['g6_ms']:.4f} ms (plain "
+        f"{out['flash_attention']['g6_plain_ms']:.4f}, bound "
+        f"{out['flash_attention']['g6_bound_ms']:.4f}), flash_decode "
+        f"{out['flash_decode']['g6_ms']:.4f} ms (plain "
+        f"{out['flash_decode']['g6_plain_ms']:.4f}, bound "
+        f"{out['flash_decode']['g6_bound_ms']:.4f}), each within its bar")
+    return out
+
+
+# phase 4k's MoE, VLM and hybrid runs: two ranks against one rank on the
+# same seed, cushion, scales and prompt (the one-rank side from phases
+# 4e-4g). A row's tokens may part from one rank's only at a near tie: a
+# token where one rank's top-1 and top-2 logits lie within the model's
+# bound. The VLM is the dense family
+# (TP_FP_TIE). In olmoe and jamba the experts' partial outputs are summed
+# in f32 over the ranks where one rank's einsum rounds its f32 sum once,
+# so a MoE output may land one bf16 ulp apart, which can send a token
+# whose 8th and 9th (olmoe) or 2nd and 3rd (jamba) gate probabilities
+# nearly tie to another expert in the next layer and move that position's
+# logits by O(1): the bound is MOE_LOGIT_TOL's largest, 1.0.
+TP_FAM_TIE = {"olmoe-1b-7b": 1.0, "internvl2-26b": TP_FP_TIE,
+              "jamba-v0.1-52b": 1.0}
+# The prefill logits: under W8A8 every site but the experts sums int32
+# and the experts' partial outputs meet in f32, so they lie within the
+# same bound (jamba's were one rank's bit for bit on an H100 once the
+# Mamba projection was formed whole on every rank, models/ssm.py). Under
+# fp the
+# ranks' bf16 partial products and column shards round otherwise than one
+# rank's whole products, and jamba's Mamba recurrence carries those
+# roundings over 512 positions (up to 2.4 on an H100): they are printed,
+# and the tokens' near ties hold the run.
+TP_FAMILY_TAG = {"olmoe-1b-7b": "moe", "internvl2-26b": "vlm",
+                 "jamba-v0.1-52b": "hybrid"}
+
+
+def _first_parts(got, want, margins, tie, label):
+    """[first index, one rank's margin there] of each row (None where the
+    rows are equal); fails where a row parts at no near tie."""
+    import numpy as np
+    parts = []
+    for b in range(want.shape[0]):
+        diff = np.flatnonzero(got[b] != want[b])
+        if not diff.size:
+            parts.append(None)
+            continue
+        first = int(diff[0])
+        margin = float(margins[b][first])
+        if margin >= tie:
+            fail(f"tp {label}: row {b} parts at token {first}, where one "
+                 f"rank's top-2 margin is {margin} (no near tie: >= {tie})")
+        parts.append([first, margin])
+    return parts
+
+
+def tp_family_checks(label, ranks):
+    """Phase 4k's MoE, VLM and hybrid runs on two ranks against one rank:
+    exact launches of every kernel a rank; the ranks' tokens equal; the
+    tokens equal to one rank's up to near ties (``_first_parts``), the
+    W8A8 prefill logits within the same bound (fp: printed); the int8
+    cushion block kc /
+    vc whole on every rank and bit-identical to the artifact (kc_tp / vc_tp
+    the rank's KV heads of it), an fp cache's rows [0:m) the rank's heads;
+    jamba's Mamba cushion state each rank's channel slice of the
+    artifact; the paged pool's admissions one rank's. Returns the record:
+    TTFT / TPOT and the peak memory a rank beside one rank's, the share of
+    tokens equal, each parting and its margin."""
+    import numpy as np
+    out = {}
+    for arch, fam in TP_FAMILIES.items():
+        tie = TP_FAM_TIE[arch]
+        for case in fam["cases"]:
+            name = case["name"]
+            mode = name.split("/", 1)[1]
+            reps = [r[name] for r in ranks]
+            if case["kind"] == "continuous":
+                ref = fam["pool"]
+                want_launches = fam["pool_launches"]
+            else:
+                ref = fam["one"][mode]
+                want_launches = ref["launches"]
+            for rank, rep in enumerate(reps):
+                if rep["launches"] != want_launches:
+                    fail(f"tp {label} {name}: rank {rank} launched "
+                         f"{rep['launches']}, one rank {want_launches}")
+            if case["kind"] == "continuous":
+                o = {"seconds": [rep["seconds"] for rep in reps],
+                     "one_rank_seconds": ref["seconds"],
+                     "peak_gib": [rep["peak_bytes"] / 2 ** 30
+                                  for rep in reps]}
+                for rank, rep in enumerate(reps):
+                    if sorted(rep["tokens"]) != sorted(ref["tokens"]):
+                        fail(f"tp {label} {name}: rank {rank} finished "
+                             f"other requests")
+                    if rep["admissions"] != ref["admissions"]:
+                        fail(f"tp {label} {name}: rank {rank} admitted "
+                             f"{rep['admissions']}, one rank "
+                             f"{ref['admissions']}")
+                    for k_ in ("kc", "vc"):
+                        want = case["cushion"]["kv"][k_[0]].float().numpy()
+                        if not np.array_equal(rep["cushion"][k_], want):
+                            fail(f"tp {label} {name}: rank {rank}'s "
+                                 f"cushion block {k_} is not the artifact")
+                uids = sorted(ref["tokens"])
+                got = [reps[0]["tokens"][u] for u in uids]
+                want = [ref["tokens"][u] for u in uids]
+                o["first_part_and_its_margin"] = {
+                    u: _first_parts(g_[None], w_[None],
+                                    ref["margins"][u][None], tie,
+                                    f"{label} {name} request {u}")[0]
+                    for u, g_, w_ in zip(uids, got, want)}
+                o["tokens_equal"] = float(np.mean(np.concatenate(
+                    [g_ == w_ for g_, w_ in zip(got, want)])))
+                out[name] = o
+                continue
+            art = {k: case["cushion"]["kv"][k].float().numpy()
+                   for k in ("k", "v")}
+            for rank, rep in enumerate(reps):
+                if not np.array_equal(rep["tokens"], reps[0]["tokens"]):
+                    fail(f"tp {label} {name}: the ranks' tokens differ")
+                cu = rep["cushion"]
+                if "kc" in cu:
+                    for c_, k_ in (("kc", "k"), ("vc", "v")):
+                        n = cu[c_ + "_tp"].shape[-2]
+                        if not np.array_equal(cu[c_], art[k_]) \
+                                or not np.array_equal(
+                                    cu[c_ + "_tp"],
+                                    art[k_][:, :, n * rank:n * (rank + 1)]):
+                            fail(f"tp {label} {name}: rank {rank}'s cushion "
+                                 f"block {c_} is not the artifact's")
+                else:
+                    for c_, k_ in (("k_rows", "k"), ("v_rows", "v")):
+                        n = cu[c_].shape[-2]
+                        want = art[k_][:, :, n * rank:n * (rank + 1)]
+                        if not np.array_equal(cu[c_], np.broadcast_to(
+                                want[:, None], cu[c_].shape)):
+                            fail(f"tp {label} {name}: rank {rank}'s cushion "
+                                 f"rows {c_} are not its heads of the "
+                                 f"artifact")
+                if "cushion_state" in rep:
+                    for k_, v_ in rep["cushion_state"].items():
+                        whole = case["cushion"]["state"][k_].float().numpy()
+                        ax = -2 if k_ == "h" else -1
+                        n = v_.shape[ax]
+                        want = np.take(whole, range(n * rank,
+                                                    n * (rank + 1)), axis=ax)
+                        if not np.array_equal(v_, want):
+                            fail(f"tp {label} {name}: rank {rank}'s Mamba "
+                                 f"cushion state {k_} is not its channel "
+                                 f"slice of the artifact")
+            err = np.abs(reps[0]["logits"] - ref["logits"])
+            gap, mean = float(err.max()), float(err.mean())
+            if case["prequant"] and gap > tie:
+                fail(f"tp {label} {name}: prefill logits max |err| {gap} > "
+                     f"{tie}")
+            out[name] = {
+                "ttft_ms": [rep["ttft_ms"] for rep in reps],
+                "tpot_ms": [rep["tpot_ms"] for rep in reps],
+                "one_rank_ttft_ms": ref["ttft_ms"],
+                "one_rank_tpot_ms": ref["tpot_ms"],
+                "peak_gib": [rep["peak_bytes"] / 2 ** 30 for rep in reps],
+                "one_rank_peak_gib_phase": ref["peak_bytes"] / 2 ** 30,
+                "prefill_logits_max_abs_err": gap,
+                "prefill_logits_mean_abs_err": mean,
+                "prefill_logits_row_max_abs_err": err.max(1).tolist(),
+                "tokens_equal": float((reps[0]["tokens"]
+                                       == ref["tokens"]).mean()),
+                "first_part_and_its_margin": _first_parts(
+                    reps[0]["tokens"], ref["tokens"], ref["margins"], tie,
+                    f"{label} {name}"),
+                "near_tie_bound": tie}
+    for name, o in out.items():
+        if "ttft_ms" in o:
+            log(f"tp=2 ({label}) {name}: TTFT {o['ttft_ms'][0]:.1f} ms (one "
+                f"rank {o['one_rank_ttft_ms']:.1f}), TPOT "
+                f"{o['tpot_ms'][0]:.2f} ms (one rank "
+                f"{o['one_rank_tpot_ms']:.2f}), peak "
+                f"{o['peak_gib'][0]:.2f} / {o['peak_gib'][1]:.2f} GiB (one "
+                f"rank's phase so far {o['one_rank_peak_gib_phase']:.2f}); "
+                f"prefill logits max |err| "
+                f"{o['prefill_logits_max_abs_err']:.4g} (rows "
+                f"{[round(x, 4) for x in o['prefill_logits_row_max_abs_err']]}"
+                f"), mean {o['prefill_logits_mean_abs_err']:.4g}, tokens equal "
+                f"{o['tokens_equal']:.3f}, partings (token, one rank's "
+                f"margin) {o['first_part_and_its_margin']}")
+        else:
+            log(f"tp=2 ({label}) {name}: {o['seconds'][0]:.2f} s (one rank "
+                f"{o['one_rank_seconds']:.2f}), peak {o['peak_gib'][0]:.2f} "
+                f"/ {o['peak_gib'][1]:.2f} GiB; tokens equal "
+                f"{o['tokens_equal']:.3f}, partings "
+                f"{o['first_part_and_its_margin']}; admissions and the "
+                f"cushion block one rank's")
+    return out
 
 
 # the bars of phase 4k's kernel checks: prefill attention within one bf16
@@ -3999,6 +4713,7 @@ def tree_map(fn, t):
 
 
 def main() -> None:
+    global CPU_HALVES
     try:
         import torch
     except ImportError:
@@ -4050,7 +4765,10 @@ def main() -> None:
         now = time.perf_counter()
         record["phases"][name] = "ok"
         record["phase_seconds"][name] = now - t_mark[0]
-        log(f"phase {name}: ok in {now - t_mark[0]:.1f} s")
+        log(f"phase {name}: ok in {now - t_mark[0]:.1f} s (this process "
+            f"holds {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB of "
+            f"the card, {torch.cuda.memory_reserved() / 2 ** 30:.2f} "
+            f"reserved)")
         t_mark[0] = now
 
     # 1. the card -------------------------------------------------------
@@ -4069,6 +4787,8 @@ def main() -> None:
     import multiprocessing
     corpus_pool = concurrent.futures.ProcessPoolExecutor(
         1, mp_context=multiprocessing.get_context("spawn"))
+    # the CPU halves' worker, idle until phase 4 queues the first
+    CPU_HALVES = CpuHalves()
     corpus_job = corpus_pool.submit(SyntheticCorpus,
                                     get_config(ARCH).vocab_size, 0)
 
@@ -4977,6 +5697,26 @@ def main() -> None:
     record["runs"] = runs
     record["smoothquant"] = smoothquant_step(api, params, cfg, calib, batch,
                                              cushion, qw8)
+    # phase 5's card half: each engine's greedy tokens and its logits along
+    # them (B = 1, a 64-token prompt, 8 tokens); the CPU half is queued
+    cpu = lambda t: t.detach().cpu()       # noqa: E731
+    b1 = {"tokens": batch["tokens"][:1, :64]}
+    n_cmp = 8
+    card_cmp, cpu_modes = {}, {}
+    for label, (qcfg, kv, pre, wb) in modes.items():
+        card_eng = engines[label]
+        card_toks = card_eng.generate(b1, n_cmp).tokens
+        card_cmp[label] = (card_toks, engine_trajectory(card_eng,
+                                                        b1["tokens"],
+                                                        card_toks))
+        cpu_modes[label] = (qcfg, kv, pre, wb,
+                            (tree_map(cpu, card_eng.scales)
+                             if card_eng.scales is not None else None),
+                            card_toks)
+    CPU_HALVES.submit("phase 5", cpu_engine_half, {
+        "cfg": cfg, "params": tree_map(cpu, params.tree()),
+        "cushion": tree_map(cpu, cushion), "tokens": cpu(b1["tokens"]),
+        "n_cmp": n_cmp, "modes": cpu_modes})
     phase_done("main_path")
 
     # 4b. the continuous path at full width -----------------------------
@@ -5302,44 +6042,14 @@ def main() -> None:
     phase_done("dp")
 
     # 5. card vs the port's CPU engine on the same weights --------------
-    cpu = lambda t: t.detach().cpu()       # noqa: E731
-    cpu_api = build(cfg, "cpu")
-    cpu_params = ParamTree(tree_map(cpu, params.tree()))
-    b1 = {"tokens": batch["tokens"][:1, :64]}
-    n_cmp = 8
-
-    @torch.inference_mode()
-    def trajectory(eng, tokens, gen_toks):
-        api_ = eng.api
-        cache = api_.init_cache(1, eng.max_seq, kv_dtype=eng.kv_dtype,
-                                prefix_len=eng.prefix_len)
-        p = eng.params.tree()
-        lg, cache, pos_ = api_.prefill(p, {"tokens": tokens}, cache,
-                                       eng.qcfg, cushion=eng.cushion,
-                                       scales=eng.scales)
-        out = [lg[:, -1].float().cpu()]
-        for n in range(gen_toks.shape[1] - 1):
-            tok = torch.as_tensor(gen_toks[:, n], dtype=torch.int32,
-                                  device=api_.device)
-            lg, cache = api_.decode_step(p, tok, pos_ + n, cache, eng.qcfg,
-                                         scales=eng.scales)
-            out.append(lg.float().cpu())
-        return torch.stack(out)
-
+    # the card halves ran in phase 4 (and the families' in theirs); the CPU
+    # halves in the worker beside the card phases: every comparison now
+    CPU_HALVES.join()
+    got = CPU_HALVES.result("phase 5")
     record["card_vs_cpu"] = {}
-    for label, (qcfg, kv, pre, wb) in modes.items():
-        card_eng = engines[label]
-        cpu_eng = Engine(cpu_api, cpu_params, qcfg,
-                         cushion=tree_map(cpu, cushion),
-                         scales=(tree_map(cpu, card_eng.scales)
-                                 if card_eng.scales is not None else None),
-                         max_seq=128, kv_dtype=kv, prequant=pre,
-                         weight_bits=wb)
-        card_toks = card_eng.generate(b1, n_cmp).tokens
-        cpu_toks = cpu_eng.generate({"tokens": cpu(b1["tokens"])},
-                                    n_cmp).tokens
-        lc = trajectory(card_eng, b1["tokens"], card_toks)
-        lp = trajectory(cpu_eng, cpu(b1["tokens"]), card_toks)
+    for label, (card_toks, lc) in card_cmp.items():
+        lp = torch.from_numpy(got[label][0])
+        cpu_toks = got[label][1]
         err = (lc - lp).abs()
         agree = float((card_toks == cpu_toks).mean())
         # the CPU's top-1 minus top-2 logit at the first token: below the
@@ -5366,6 +6076,9 @@ def main() -> None:
                 or cmp["mean_abs_err"] > cmp["tol_mean"]:
             fail(f"{label}: card and CPU logits differ beyond the stated "
                  f"tolerance")
+    record["cpu_halves"] = {"threads": CPU_HALVES.threads,
+                            "seconds": CPU_HALVES.seconds}
+    CPU_HALVES.close()
     phase_done("card_vs_cpu")
 
     # 6. the kernels line -----------------------------------------------
@@ -5619,6 +6332,10 @@ def main() -> None:
                 kk[f"{tag}_launches"] = record[tag]["launches"][kk["name"]]
             kk.update({f"{tag}_{k_}": v for k_, v in
                        record[tag]["kernels"].get(kk["name"], {}).items()})
+        # rank 0 of phase 4k's MoE, VLM and hybrid runs
+        for fam, counts in record["tp"]["family_launches"].items():
+            if counts.get(kk["name"]):
+                kk[f"tp_{fam}_launches"] = counts[kk["name"]]
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - t_start
     out_dir = ROOT / "chiprun_out"

@@ -70,6 +70,21 @@ class VLMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TPLayout:
+    """One rank's cut of a model served over ``size`` tensor-parallel ranks
+    (``serving/engine.tp_layout``): the logical axes in ``cut`` are split
+    in ``size`` equal parts, every other axis is whole on every rank. The
+    axes are "heads" (query heads), "kv_heads", "d_ff" (the dense MLPs'),
+    "vocab", "experts" and "inner" (the Mamba channels). ``n_heads`` is
+    the whole model's query heads: with the query heads cut and the KV
+    heads whole, a rank's heads map onto the whole cache's KV heads by
+    it."""
+    size: int
+    cut: Tuple[str, ...] = ()
+    n_heads: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: Family
@@ -93,6 +108,9 @@ class ModelConfig:
     encdec: Optional[EncDecConfig] = None
     vlm: Optional[VLMConfig] = None
     dtype: str = "bfloat16"          # activation/param compute dtype
+    # a tensor-parallel rank's config says which axes it holds a part of
+    # (serving/engine.tp_config); None: the whole model
+    tp: Optional[TPLayout] = None
 
     @property
     def head_dim(self) -> int:

@@ -90,17 +90,17 @@ _SIGNATURES = {
     # bf16, B, H, Kh, S, T, hd
     "flash_attention_bwd_workspace_elems": [_I] * 7,
     # q, k, v, k_scale, v_scale, scale_per_row, kc, vc, pos, pos_per_row,
-    # out, fp_bf16, cache_int8, B, H, K, Smax, hd, m, workspace, tickets,
-    # stream
+    # out, fp_bf16, cache_int8, B, H, K, Smax, hd, m, kv0, Kmem (the window
+    # of K KV heads read, of Kmem in memory), workspace, tickets, stream
     "flash_decode_launch": [_VP, _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I,
-                            _VP, _I, _I, _I, _I, _I, _I, _I, _I, _VP, _VP,
-                            _VP],
+                            _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _VP, _VP, _VP],
     # q, k_pages, v_pages, page_table, k_scale, v_scale, scale_per_row, kc,
     # vc, pos, pos_per_row, out, fp_bf16, cache_int8, B, H, K, P, ps, hd, m,
-    # workspace, tickets, stream
+    # kv0, Kmem, workspace, tickets, stream
     "flash_decode_paged_launch": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP,
                                   _VP, _I, _VP, _I, _I, _I, _I, _I, _I, _I,
-                                  _I, _I, _VP, _VP, _VP],
+                                  _I, _I, _I, _I, _VP, _VP, _VP],
     # B, H, K, Smax, hd
     "flash_decode_workspace_elems": [_I, _I, _I, _I, _I],
 }

@@ -18,6 +18,13 @@
 //   cushion block; pos < 0 retires a row (no cushion: zeros; with a
 //   cushion: the cushion only). Output is acc / max(l, 1e-30).
 //
+// A window of the KV heads: the cache, its scales and the cushion hold
+// Kmem heads, and the launch reads heads
+// [kv0, kv0 + K) of them for its H = G * K query heads. A tensor-parallel
+// rank whose query heads are cut while the KV heads are whole reads its
+// group's head of the whole cache so, in place (models/common.py
+// `kv_window`); every other launch reads all of them (kv0 = 0, Kmem = K).
+//
 // Bound on the card: bytes. Each step reads the live part of the cache once
 // (int8: 1 byte per element, half of bf16) and does 2 multiply-adds per
 // element read for each of the G query heads that share a kv-head, far too
@@ -138,7 +145,7 @@ struct Vec<float> {
   }
 };
 
-// element offset of position t of row b, kv-head kh, dim 0
+// element offset of position t of row b, kv-head kh (of K in memory), dim 0
 struct Contig {
   int Smax;
   __device__ __forceinline__ long long row(int b, int t, int K, int kh,
@@ -182,8 +189,8 @@ flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ k,
                     const T* __restrict__ kc, const T* __restrict__ vc,
                     const int* __restrict__ pos, int pos_per_row,
                     T* __restrict__ out, int H, int K, int Smax, int mc,
-                    acc_t scale, Addr addr, acc_t* __restrict__ ws,
-                    int* __restrict__ tickets) {
+                    int kv0, int Kmem, acc_t scale, Addr addr,
+                    acc_t* __restrict__ ws, int* __restrict__ tickets) {
   constexpr int LDS = HD + 4;              // float4 reads conflict-free
   constexpr int VN = Vec<C>::N;            // elements per 16-byte vector
   constexpr int VPR = HD / VN;             // vectors per row
@@ -198,9 +205,10 @@ flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ k,
 
   const int c = blockIdx.x, nch = gridDim.x;
   const int bk = blockIdx.y, b = bk / K, kh = bk % K;
+  const int km = kv0 + kh;                  // the head's index in memory
   const int G = H / K;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int si = scale_per_row ? b * K + kh : kh;
+  const int si = scale_per_row ? b * Kmem + km : km;
   const float ksc = ks ? ks[si] : 1.f;
   const float vsc = vs ? vs[si] : 1.f;
   const int p = pos_per_row ? pos[b] : pos[0];
@@ -220,7 +228,7 @@ flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ k,
     for (int it = 0; it < ITER; ++it) {
       const int idx = tid + it * NT, r = idx / VPR, cv = idx % VPR;
       if (idx < CH * VPR && r < nv && t0 + r >= mc) {
-        const long long off = addr.row(b, t0 + r, K, kh, HD) + cv * VN;
+        const long long off = addr.row(b, t0 + r, Kmem, km, HD) + cv * VN;
         kr[it] = *reinterpret_cast<const uint4*>(k + off);
         vr[it] = *reinterpret_cast<const uint4*>(v + off);
       }
@@ -231,7 +239,7 @@ flash_decode_kernel(const T* __restrict__ q, const C* __restrict__ k,
     const int ncu = min(nv, mc - t0);
     for (int i = tid; i < ncu * HD; i += NT) {
       const int r = i / HD, d = i % HD;
-      const long long off = ((long long)(t0 + r) * K + kh) * HD + d;
+      const long long off = ((long long)(t0 + r) * Kmem + km) * HD + d;
       Ks[r * LDS + d] = ld(kc + off);
       Vs[r * LDS + d] = ld(vc + off);
     }
@@ -403,16 +411,17 @@ static int dispatch(const void* q, const void* k, const void* v,
                     const void* ks, const void* vs, int scale_per_row,
                     const void* kc, const void* vc, const void* pos,
                     int per_row, void* out, int B, int H, int K, int Smax,
-                    int hd, int mc, Addr addr, void* ws, void* tickets,
-                    cudaStream_t stream) {
-  if (H % K != 0 || H / K > GMAX) return (int)cudaErrorInvalidValue;
+                    int hd, int mc, int kv0, int Kmem, Addr addr, void* ws,
+                    void* tickets, cudaStream_t stream) {
+  if (H % K != 0 || H / K > GMAX || kv0 < 0 || kv0 + K > Kmem)
+    return (int)cudaErrorInvalidValue;
   const acc_t scale = acc_t(1.0 / sqrt((double)hd));
   dim3 grid((Smax + CH - 1) / CH, B * K);
 #define FD_ARGS                                                            \
   (const T*)q, (const C*)k, (const C*)v, (const float*)ks,                 \
       (const float*)vs, scale_per_row, (const T*)kc, (const T*)vc,         \
-      (const int*)pos, per_row, (T*)out, H, K, Smax, mc, scale, addr,      \
-      (acc_t*)ws, (int*)tickets
+      (const int*)pos, per_row, (T*)out, H, K, Smax, mc, kv0, Kmem, scale, \
+      addr, (acc_t*)ws, (int*)tickets
   // above 48 KB of dynamic shared memory a kernel is allowed it once, at
   // its first launch (before any graph capture: a captured step runs twice
   // first, serving/graphs.py)
@@ -446,13 +455,13 @@ static int launch(const void* q, const void* k, const void* v, const void* ks,
                   const void* vs, int scale_per_row, const void* kc,
                   const void* vc, const void* pos, int pos_per_row, void* out,
                   int bf16, int cache_int8, int B, int H, int K, int Smax,
-                  int hd, int mc, Addr addr, void* ws, void* tickets,
-                  void* stream) {
+                  int hd, int mc, int kv0, int Kmem, Addr addr, void* ws,
+                  void* tickets, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
 #define FD_CALL(T, C)                                                       \
   dispatch<T, C, Addr>(q, k, v, ks, vs, scale_per_row, kc, vc, pos,         \
-                       pos_per_row, out, B, H, K, Smax, hd, mc, addr, ws,   \
-                       tickets, st)
+                       pos_per_row, out, B, H, K, Smax, hd, mc, kv0, Kmem,  \
+                       addr, ws, tickets, st)
   if (bf16) {
     if (cache_int8) return FD_CALL(__nv_bfloat16, int8_t);
     return FD_CALL(__nv_bfloat16, __nv_bfloat16);
@@ -469,30 +478,29 @@ extern "C" long long flash_decode_workspace_elems(int B, int H, int K,
   return (long long)B * K * ((Smax + CH - 1) / CH) * (H / K) * (hd + 2);
 }
 
-// contiguous cache: k/v (B, Smax, K, hd); ws: flash_decode_workspace_elems
-// acc_t values; tickets: B*K int32 zeros
-extern "C" int flash_decode_launch(const void* q, const void* k,
-                                   const void* v, const void* ks,
-                                   const void* vs, int scale_per_row,
-                                   const void* kc, const void* vc,
-                                   const void* pos, int pos_per_row,
-                                   void* out, int bf16, int cache_int8, int B,
-                                   int H, int K, int Smax, int hd, int mc,
-                                   void* ws, void* tickets, void* stream) {
+// contiguous cache: k/v (B, Smax, Kmem, hd), heads [kv0, kv0 + K) read
+// (kv0 = 0, Kmem = K: every head); ws: flash_decode_workspace_elems acc_t
+// values; tickets: B*K int32 zeros
+extern "C" int flash_decode_launch(
+    const void* q, const void* k, const void* v, const void* ks,
+    const void* vs, int scale_per_row, const void* kc, const void* vc,
+    const void* pos, int pos_per_row, void* out, int bf16, int cache_int8,
+    int B, int H, int K, int Smax, int hd, int mc, int kv0, int Kmem,
+    void* ws, void* tickets, void* stream) {
   return launch(q, k, v, ks, vs, scale_per_row, kc, vc, pos, pos_per_row, out,
-                bf16, cache_int8, B, H, K, Smax, hd, mc, Contig{Smax}, ws,
-                tickets, stream);
+                bf16, cache_int8, B, H, K, Smax, hd, mc, kv0, Kmem,
+                Contig{Smax}, ws, tickets, stream);
 }
 
-// paged pool: k/v (n_pages, ps, K, hd), page_table (B, P) int32; ws and
-// tickets as above with Smax = P * ps
+// paged pool: k/v (n_pages, ps, Kmem, hd), page_table (B, P) int32, heads
+// [kv0, kv0 + K) read; ws and tickets as above with Smax = P * ps
 extern "C" int flash_decode_paged_launch(
     const void* q, const void* k, const void* v, const void* page_table,
     const void* ks, const void* vs, int scale_per_row, const void* kc,
     const void* vc, const void* pos, int pos_per_row, void* out, int bf16,
     int cache_int8, int B, int H, int K, int P, int ps, int hd, int mc,
-    void* ws, void* tickets, void* stream) {
+    int kv0, int Kmem, void* ws, void* tickets, void* stream) {
   return launch(q, k, v, ks, vs, scale_per_row, kc, vc, pos, pos_per_row, out,
-                bf16, cache_int8, B, H, K, P * ps, hd, mc,
+                bf16, cache_int8, B, H, K, P * ps, hd, mc, kv0, Kmem,
                 Paged{(const int*)page_table, P, ps}, ws, tickets, stream);
 }

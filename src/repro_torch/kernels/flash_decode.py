@@ -14,6 +14,12 @@ b's logical page j (positions [j*ps, (j+1)*ps)) to a physical page; page 0
 is scratch. kc/vc are allowed for fp and int8 pools alike (the paged pool
 keeps the cushion once, batch-free, never in pages).
 
+``kv_heads = (kv0, n)`` (both functions): the cache, its scales and the
+cushion hold K heads, and the H query heads read heads [kv0, kv0 + n) of
+them, in place (G = H / n). A tensor-parallel rank whose query heads are
+cut while the KV heads are whole on every rank reads its group's head so
+(``models/common.py`` ``kv_window``). None reads all K.
+
 A CUDA tensor launches ``csrc/flash_decode.cu``; a CPU tensor takes the
 plain version (``flash_decode_plain``, ``flash_decode_paged_plain``).
 """
@@ -34,13 +40,31 @@ def _posv(pos, B: int, device) -> torch.Tensor:
     return p.expand(B)
 
 
+def _window(kv_heads, k, v, k_scale, v_scale, kc, vc):
+    """The operands cut to the KV heads ``kv_heads`` reads (plain
+    versions): the heads axis of k / v, the scales' last axis, kc / vc's
+    heads axis."""
+    if kv_heads is None:
+        return k, v, k_scale, v_scale, kc, vc
+    a, n = kv_heads
+
+    def cut(t, axis):
+        return None if t is None else t.narrow(axis, a, n)
+    return (cut(k, 2), cut(v, 2), cut(k_scale, -1), cut(v_scale, -1),
+            cut(kc, 1), cut(vc, 1))
+
+
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        pos, k_scale: Optional[torch.Tensor] = None,
                        v_scale: Optional[torch.Tensor] = None,
                        kc: Optional[torch.Tensor] = None,
-                       vc: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       vc: Optional[torch.Tensor] = None,
+                       kv_heads: Optional[Tuple[int, int]] = None
+                       ) -> torch.Tensor:
     """Plain PyTorch version (``ref.flash_decode_ref``): dense f32 scores
     over the whole cache with the cushion spliced over [0, m)."""
+    k, v, k_scale, v_scale, kc, vc = _window(kv_heads, k, v, k_scale,
+                                             v_scale, kc, vc)
     B, H, hd = q.shape
     Smax, K = k.shape[1], k.shape[2]
     G = H // K
@@ -91,29 +115,34 @@ def flash_decode_paged_plain(q: torch.Tensor, k_pages: torch.Tensor,
                              pos, k_scale: Optional[torch.Tensor] = None,
                              v_scale: Optional[torch.Tensor] = None,
                              kc: Optional[torch.Tensor] = None,
-                             vc: Optional[torch.Tensor] = None
+                             vc: Optional[torch.Tensor] = None,
+                             kv_heads: Optional[Tuple[int, int]] = None
                              ) -> torch.Tensor:
     """Plain PyTorch version (``ref.flash_decode_paged_ref``): gather the
     pages into the dense layout and score it with ``flash_decode_plain``,
     which splices an fp pool's cushion over [0, m) as well."""
     return flash_decode_plain(q, gather_pages(k_pages, page_table),
                               gather_pages(v_pages, page_table), pos,
-                              k_scale, v_scale, kc, vc)
+                              k_scale, v_scale, kc, vc, kv_heads)
 
 
-def _operands(q, k, v, pos, k_scale, v_scale, kc, vc, K: int):
+def _operands(q, k, v, pos, k_scale, v_scale, kc, vc, K: int, kv_heads):
     """Checks what both kernels take alike. Returns (tensors, pos vector,
-    quantized, m, scale_per_row)."""
+    quantized, m, scale_per_row, kv0, n): the window of the K heads in
+    memory that the query heads read."""
     B, H, hd = q.shape
     quantized = k_scale is not None
     m = 0 if kc is None else kc.shape[0]
+    kv0, n = (0, K) if kv_heads is None else (int(kv_heads[0]),
+                                             int(kv_heads[1]))
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"q must be f32 or bf16, got {q.dtype}")
-    if v.shape != k.shape or k.shape[2:] != (K, hd) or H % K:
+    if v.shape != k.shape or k.shape[2:] != (K, hd) or n < 1 or H % n \
+            or kv0 < 0 or kv0 + n > K:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
-                         f"v {tuple(v.shape)}")
-    if hd not in (16, 32, 64, 128) or H // K > 8:
-        raise ValueError(f"head_dim {hd} / group {H // K} not built")
+                         f"v {tuple(v.shape)}, KV heads [{kv0}, {kv0 + n})")
+    if hd not in (16, 32, 64, 128) or H // n > 8:
+        raise ValueError(f"head_dim {hd} / group {H // n} not built")
     cache_dt = torch.int8 if quantized else q.dtype
     if k.dtype != cache_dt or v.dtype != cache_dt:
         raise ValueError(f"cache dtype must be {cache_dt}, got {k.dtype}")
@@ -139,7 +168,7 @@ def _operands(q, k, v, pos, k_scale, v_scale, kc, vc, K: int):
     posv = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
     if posv.numel() not in (1, B) or not posv.is_contiguous():
         raise ValueError(f"pos must be () or ({B},) int32")
-    return tensors, posv, quantized, m, per_row
+    return tensors, posv, quantized, m, per_row, kv0, n
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -173,30 +202,32 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
                  k_scale: Optional[torch.Tensor] = None,
                  v_scale: Optional[torch.Tensor] = None,
                  kc: Optional[torch.Tensor] = None,
-                 vc: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 vc: Optional[torch.Tensor] = None,
+                 kv_heads: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Returns (B, H, hd) in q's dtype."""
     if q.device.type == "cpu":
-        return flash_decode_plain(q, k, v, pos, k_scale, v_scale, kc, vc)
+        return flash_decode_plain(q, k, v, pos, k_scale, v_scale, kc, vc,
+                                  kv_heads)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")
     B, H, hd = q.shape
     Smax, K = k.shape[1], k.shape[2]
     if k.shape[0] != B:
         raise ValueError(f"cache batch {k.shape[0]} != q batch {B}")
-    tensors, posv, quantized, m, per_row = _operands(
-        q, k, v, pos, k_scale, v_scale, kc, vc, K)
+    tensors, posv, quantized, m, per_row, kv0, n = _operands(
+        q, k, v, pos, k_scale, v_scale, kc, vc, K, kv_heads)
     if m and not quantized:
         raise ValueError("fp caches hold the cushion in-cache (kc/vc are "
                          "for int8 caches)")
     _lib.require_cuda(*tensors, posv)
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
-    ws, tickets = _scratch(q, K, Smax)
+    ws, tickets = _scratch(q, n, Smax)
     code = _lib.lib().flash_decode_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(k_scale),
         _ptr(v_scale), int(per_row), _ptr(kc), _ptr(vc), posv.data_ptr(),
         int(posv.numel() == B and posv.dim() == 1), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), int(quantized), B, H, K, Smax, hd, m,
-        ws.data_ptr(), tickets.data_ptr(), _lib.stream_ptr(q))
+        int(q.dtype == torch.bfloat16), int(quantized), B, H, n, Smax, hd, m,
+        kv0, K, ws.data_ptr(), tickets.data_ptr(), _lib.stream_ptr(q))
     _lib.check(code, "flash_decode")
     _lib.count("flash_decode")
     return out
@@ -207,12 +238,14 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
                        k_scale: Optional[torch.Tensor] = None,
                        v_scale: Optional[torch.Tensor] = None,
                        kc: Optional[torch.Tensor] = None,
-                       vc: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       vc: Optional[torch.Tensor] = None,
+                       kv_heads: Optional[Tuple[int, int]] = None
+                       ) -> torch.Tensor:
     """Returns (B, H, hd) in q's dtype; on the card bit-identical to
     ``flash_decode`` over ``gather_pages`` of the pool."""
     if q.device.type == "cpu":
         return flash_decode_paged_plain(q, k_pages, v_pages, page_table, pos,
-                                        k_scale, v_scale, kc, vc)
+                                        k_scale, v_scale, kc, vc, kv_heads)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode_paged: unsupported device "
                          f"{q.device}")
@@ -223,18 +256,18 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
             or not page_table.is_contiguous()):
         raise ValueError(f"page_table must be contiguous ({B}, P) int32")
     P = page_table.shape[1]
-    tensors, posv, quantized, m, per_row = _operands(
-        q, k_pages, v_pages, pos, k_scale, v_scale, kc, vc, K)
+    tensors, posv, quantized, m, per_row, kv0, n = _operands(
+        q, k_pages, v_pages, pos, k_scale, v_scale, kc, vc, K, kv_heads)
     _lib.require_cuda(*tensors, posv, page_table)
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
-    ws, tickets = _scratch(q, K, P * ps)
+    ws, tickets = _scratch(q, n, P * ps)
     code = _lib.lib().flash_decode_paged_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), _ptr(k_scale), _ptr(v_scale), int(per_row),
         _ptr(kc), _ptr(vc), posv.data_ptr(),
         int(posv.numel() == B and posv.dim() == 1), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), int(quantized), B, H, K, P, ps, hd,
-        m, ws.data_ptr(), tickets.data_ptr(), _lib.stream_ptr(q))
+        int(q.dtype == torch.bfloat16), int(quantized), B, H, n, P, ps, hd,
+        m, kv0, K, ws.data_ptr(), tickets.data_ptr(), _lib.stream_ptr(q))
     _lib.check(code, "flash_decode_paged")
     _lib.count("flash_decode_paged")
     return out

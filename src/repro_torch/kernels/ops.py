@@ -9,7 +9,7 @@ kernels on one rank's heads (the reference ``shard_map``s them).
 reference): ``core/quantization.py`` reaches them directly."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -31,12 +31,19 @@ def qdot(x: torch.Tensor, w: torch.Tensor, cfg: QuantConfig,
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, prefix_len: int = 0,
-              prefix_live: Optional[int] = None) -> torch.Tensor:
+              prefix_live: Optional[int] = None,
+              kv_heads: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """q: (B, S, H, hd); k/v: (B, T, Kh, hd). GQA kv-heads are read in
     place by the kernel (no head repeat in memory). ``prefix_live`` (default
     ``prefix_len``) masks rows [prefix_live, prefix_len) of a padded prefix
-    out of every query's view. Differentiable on both devices (the kernel's
-    backward on the card). Returns (B, S, H, hd)."""
+    out of every query's view. ``kv_heads`` = (kv0, n): the query heads
+    read KV heads [kv0, kv0 + n) of the Kh, a strided view the kernel takes
+    as it is (a tensor-parallel rank's heads over whole KV heads).
+    Differentiable on both devices (the kernel's backward on the card).
+    Returns (B, S, H, hd)."""
+    if kv_heads is not None:
+        k = k.narrow(2, kv_heads[0], kv_heads[1])
+        v = v.narrow(2, kv_heads[0], kv_heads[1])
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), causal=causal,
                         prefix_len=prefix_len, prefix_live=prefix_live)
@@ -81,12 +88,12 @@ def rank_heads(t: torch.Tensor, n: int, rank: int, size: int,
     return t.narrow(axis, rank * n, n).contiguous()
 
 
-def _tp_operands(q, k, kc, vc, mesh):
-    Kl = k.shape[-2]
+def _tp_operands(q, k, kc, vc, mesh, kv_heads):
+    Kl = k.shape[-2] if kv_heads is None else kv_heads[1]
     if q.shape[1] % Kl:
         raise ValueError(f"{q.shape[1]} local query heads over {Kl} local "
                          f"KV heads")
-    if kc is not None:
+    if kc is not None and kv_heads is None:
         kc = rank_heads(kc, Kl, mesh.rank, mesh.size)
         vc = rank_heads(vc, Kl, mesh.rank, mesh.size)
     return kc, vc
@@ -96,19 +103,24 @@ def decode_attention_tp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         pos, mesh, k_scale: Optional[torch.Tensor] = None,
                         v_scale: Optional[torch.Tensor] = None,
                         kc: Optional[torch.Tensor] = None,
-                        vc: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        vc: Optional[torch.Tensor] = None,
+                        kv_heads: Optional[Tuple[int, int]] = None
+                        ) -> torch.Tensor:
     """Tensor-parallel split-KV decode on one rank (``mesh``: its rank and
     size): ``flash_decode`` on the rank's heads, the body of the
     reference's ``shard_map``. The operands are the rank's shards: q
     (B, H/tp, hd), whose query heads are those of its KV heads; k/v
     (B, Smax, K/tp, hd); k/v_scale (K/tp,) or (B, K/tp). kc/vc (m, K, hd)
     are the cushion block, whole on every rank (sliced to the rank's heads
-    here) or already the rank's slice (m, K/tp, hd). pos () or (B,) is the
-    same on every rank. No collective runs: per-head attention needs none,
-    and ``wo`` sums the ranks' heads. Returns the rank's (B, H/tp, hd)."""
-    kc, vc = _tp_operands(q, k, kc, vc, mesh)
+    here) or already the rank's slice (m, K/tp, hd). Where the KV heads are
+    whole on every rank (they do not divide by tp), k/v, the scales and
+    kc/vc hold all K, and ``kv_heads`` = (kv0, n) names the heads the
+    rank's query heads read, in place. pos () or (B,) is the same on every
+    rank. No collective runs: per-head attention needs none, and ``wo``
+    sums the ranks' heads. Returns the rank's (B, H/tp, hd)."""
+    kc, vc = _tp_operands(q, k, kc, vc, mesh, kv_heads)
     return flash_decode(q, k, v, pos, k_scale=k_scale, v_scale=v_scale,
-                        kc=kc, vc=vc)
+                        kc=kc, vc=vc, kv_heads=kv_heads)
 
 
 def decode_attention_tp_paged(q: torch.Tensor, k_pages: torch.Tensor,
@@ -117,13 +129,15 @@ def decode_attention_tp_paged(q: torch.Tensor, k_pages: torch.Tensor,
                               k_scale: Optional[torch.Tensor] = None,
                               v_scale: Optional[torch.Tensor] = None,
                               kc: Optional[torch.Tensor] = None,
-                              vc: Optional[torch.Tensor] = None
+                              vc: Optional[torch.Tensor] = None,
+                              kv_heads: Optional[Tuple[int, int]] = None
                               ) -> torch.Tensor:
     """``decode_attention_tp`` through a page table: the page store is the
-    rank's KV heads (n_pages, ps, K/tp, hd), the page table (B, P) is the
-    same on every rank (page ids are layout, not data), and the shared
-    cushion block is whole or the rank's slice, as there. Returns the
-    rank's (B, H/tp, hd)."""
-    kc, vc = _tp_operands(q, k_pages, kc, vc, mesh)
+    rank's KV heads (n_pages, ps, K/tp, hd), or all K with ``kv_heads``,
+    the page table (B, P) is the same on every rank (page ids are layout,
+    not data), and the shared cushion block is whole or the rank's slice,
+    as there. Returns the rank's (B, H/tp, hd)."""
+    kc, vc = _tp_operands(q, k_pages, kc, vc, mesh, kv_heads)
     return flash_decode_paged(q, k_pages, v_pages, page_table, pos,
-                              k_scale=k_scale, v_scale=v_scale, kc=kc, vc=vc)
+                              k_scale=k_scale, v_scale=v_scale, kc=kc, vc=vc,
+                              kv_heads=kv_heads)

@@ -30,18 +30,23 @@ domain: a real device fault fails them all.
     python -m repro_torch.launch.serve --mode continuous --replicas 3 \
         --chaos crash@replica1.step:6
 
-``--tp N`` serves a dense model tensor-parallel over N ranks
-(``launch/mesh.spawn_tp``: one process a rank, on ``cuda:{r % cards}``,
-NCCL where every rank has a card of its own, else gloo, which it prints),
-through either engine and pool; rank 0 prints the ``[serve]`` lines. Every
-rank makes the same weights from ``--seed``, builds and quantizes the whole
+``--tp N`` serves a dense, MoE, VLM or hybrid model tensor-parallel over
+N ranks (``launch/mesh.spawn_tp``: one process a rank, on
+``cuda:{r % cards}``, NCCL where every rank has a card of its own, else
+gloo, which it prints), through either engine and pool; rank 0 prints the
+``[serve]`` lines. Every rank makes the same weights (and a VLM's
+requests the same patches) from ``--seed``, builds and quantizes the whole
 model, and keeps its shard, so the whole model must fit on one card today
-(ROADMAP queue 1, item 6.9). W4A8,
-``pt_dynamic``, ``ptoken_dynamic``, the other families and ``--replicas``
-stop with the reason (ROADMAP queue 1, items 6.2-6.4):
+(ROADMAP queue 1, item 6.9); an axis that does not divide by N is whole on
+every rank. W4A8, ``pt_dynamic``, ``ptoken_dynamic``, the xLSTM and
+encoder-decoder families and ``--replicas`` stop with the reason (ROADMAP
+queue 1, items 6.2-6.4):
 
     python -m repro_torch.launch.serve --device cpu --tp 2 --quant \
         pt_static --prequant --kv-dtype int8 --cushion-len 4
+    python -m repro_torch.launch.serve --device cpu --smoke --tp 2 \
+        --arch jamba-v0.1-52b --quant pt_static --prequant --kv-dtype int8 \
+        --cushion-len 4
 
 Weights are random, made from ``--seed``, unless ``--ckpt-dir`` serves the
 ``params`` of the latest checkpoint there (written by either package's
@@ -472,9 +477,9 @@ def main(argv=None, corpus: SyntheticCorpus = None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor parallel over N ranks (the dense family; "
-                         "one process a rank, NCCL where every rank has a "
-                         "card, else gloo)")
+                    help="tensor parallel over N ranks (the dense, MoE, "
+                         "VLM and hybrid families; one process a rank, NCCL "
+                         "where every rank has a card, else gloo)")
     ap.add_argument("--bench-json", default=None,
                     help="append a trajectory point to this file")
     args = ap.parse_args(argv)

@@ -23,12 +23,15 @@ Conventions
   one forward.
 * Tensor parallelism (a mesh of several ranks active,
   ``distributed/collectives.py``): the config is the rank's
-  (``serving/engine.tp_config``: H/tp query heads, K/tp KV heads, d_ff/tp,
-  vocab/tp) and the parameters its shards, so attention runs on the
-  rank's heads as it is. The row-parallel linears (``wo``, ``w_down``)
-  sum their partial products over the ranks, the embedding looks up the
-  rank's vocabulary rows and sums, the head's vocabulary-sharded logits
-  are gathered (``gather_last``), and decode attention runs
+  (``serving/engine.tp_config``) and the parameters its shards; its
+  ``tp`` layout says which axes are cut (``tp_cut``), and a collective
+  runs only where a contracting axis was cut. Attention runs on the
+  rank's query heads as it is, over its KV heads, or over the whole
+  cache's where the KV heads do not divide (``kv_window``). A
+  row-parallel linear (``wo``, ``w_down``) sums its partial products over
+  the ranks where its rows are cut; a cut embedding looks up the rank's
+  vocabulary rows and sums, a cut head's logits are gathered
+  (``gather_last``); whole ones take no collective. Decode attention runs
   ``ops.decode_attention_tp`` / ``decode_attention_tp_paged``.
 """
 from __future__ import annotations
@@ -263,6 +266,30 @@ def matmul_rows(x: Tensor, w: Tensor) -> Tensor:
 # Quantized linear with taps
 # ---------------------------------------------------------------------------
 
+def tp_cut(cfg: ModelConfig, axis: str) -> bool:
+    """Whether the rank's config holds a part of ``axis`` (one of
+    ``TPLayout``'s: "heads", "kv_heads", "d_ff", "vocab", "experts",
+    "inner"); false for the whole model."""
+    return cfg.tp is not None and axis in cfg.tp.cut
+
+
+def kv_window(cfg: ModelConfig) -> Optional[Tuple[int, int]]:
+    """Where a rank's query heads are cut and the KV heads whole on every
+    rank: (the first KV head, the count) of the whole cache that its H/tp
+    query heads read, the group of query head rank * H/tp (G = H / K of
+    the whole model; ``check_tp_serving`` refuses a rank whose heads
+    straddle groups). None where the rank's KV heads are its query heads'
+    own."""
+    lay = cfg.tp
+    if lay is None or "heads" not in lay.cut or "kv_heads" in lay.cut:
+        return None
+    if DC.tp_size() != lay.size:
+        raise RuntimeError(f"a rank's config of tp={lay.size} called with "
+                           f"{DC.tp_size()} ranks active")
+    G = lay.n_heads // cfg.n_kv_heads
+    return DC.tp_rank() * cfg.n_heads // G, 1
+
+
 def get_site(scales: Optional[Params], name: str) -> Optional[Q.SiteScale]:
     if scales is None:
         return None
@@ -369,10 +396,10 @@ def attention_full(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
         v = torch.cat([pv.to(v.dtype), v], dim=1)
 
     out = ops.attention(q, k, v, causal=causal, prefix_len=m,
-                        prefix_live=prefix_valid)
+                        prefix_live=prefix_valid, kv_heads=kv_window(cfg))
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
     y = qlinear(out, p["wo"], None, qcfg, scales, "o", taps, n_skip, groups,
-                row_parallel=True)
+                row_parallel=tp_cut(cfg, "heads"))
     if return_kv:
         return y, new_kv
     return y
@@ -460,6 +487,8 @@ def attention_decode_kv(p: Params, x: Tensor, kv: Params, pos: Tensor,
               vc=kv.get("vc_tp", kv.get("vc")))
     q1 = q[:, 0].contiguous()
     mesh = DC.active() if DC.tp_size() > 1 else None
+    if mesh is not None:
+        kw["kv_heads"] = kv_window(cfg)
     if paged and mesh is not None:
         out = ops.decode_attention_tp_paged(q1, kv["k"], kv["v"],
                                             kv["page_table"], pos, mesh, **kw)
@@ -472,7 +501,7 @@ def attention_decode_kv(p: Params, x: Tensor, kv: Params, pos: Tensor,
         out = ops.decode_attention(q1, kv["k"], kv["v"], pos, **kw)
     out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim)
     y = qlinear(out, p["wo"], None, qcfg, scales, "o", taps,
-                row_parallel=True)
+                row_parallel=tp_cut(cfg, "heads"))
     return y, kv
 
 
@@ -503,7 +532,13 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig,
 
 def apply_mlp(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
               scales: Optional[Params], taps: Optional[Dict],
-              n_skip: int = 0, groups: int = 1) -> Tensor:
+              n_skip: int = 0, groups: int = 1,
+              cut: Optional[bool] = None) -> Tensor:
+    """``cut``: whether the rank holds a part of this MLP's hidden axis
+    (default: the config's d_ff, ``tp_cut``); ``w_down`` then sums over
+    the ranks."""
+    if cut is None:
+        cut = tp_cut(cfg, "d_ff")
     up = qlinear(x, p["w_up"], None, qcfg, scales, "mlp_in", taps, n_skip,
                  groups)
     if cfg.gated_mlp:
@@ -514,7 +549,7 @@ def apply_mlp(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
     else:
         h = F.gelu(up, approximate="tanh")      # jax.nn.gelu's default
     return qlinear(h, p["w_down"], None, qcfg, scales, "down", taps, n_skip,
-                   groups, row_parallel=True)
+                   groups, row_parallel=cut)
 
 
 # ---------------------------------------------------------------------------
@@ -532,11 +567,12 @@ def embed_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def embed_tokens(p: Params, tokens: Tensor, cfg: ModelConfig) -> Tensor:
-    """The tokens' embeddings. Under tensor parallelism the table is the
-    rank's vocabulary rows: each rank looks up the tokens it holds, zeros
-    elsewhere, and the ranks' rows are summed (adding zeros is exact)."""
+    """The tokens' embeddings. Where a tensor-parallel rank's vocabulary
+    is cut, the table is its vocabulary rows: each rank looks up the tokens
+    it holds, zeros elsewhere, and the ranks' rows are summed (adding zeros
+    is exact); a whole table takes no collective."""
     w = p["embed"]["w"]
-    if DC.tp_size() == 1:
+    if not tp_cut(cfg, "vocab"):
         return F.embedding(tokens, w)
     n = w.shape[0]
     local = tokens.long() - DC.tp_rank() * n
@@ -559,8 +595,9 @@ def lm_head(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
     rng = None
     if taps is not None:
         taps["head"], rng = Q.site_taps(x, qcfg, site, n_skip, groups)
-    # under tensor parallelism the rank's vocabulary columns, gathered
-    return DC.gather_last(Q.qdot(x, w, qcfg, site, groups, rng=rng))
+    logits = Q.qdot(x, w, qcfg, site, groups, rng=rng)
+    # a rank's cut vocabulary columns, gathered
+    return DC.gather_last(logits) if tp_cut(cfg, "vocab") else logits
 
 
 def cross_entropy(logits: Tensor, labels: Tensor) -> Tensor:

@@ -223,6 +223,22 @@ def _cushion_states(cushion: Optional[Params], n_periods: int, nm: int
              for i in range(nm)] for p in range(n_periods)]
 
 
+def local_cushion(cushion: Optional[Params], cfg: ModelConfig
+                  ) -> Optional[Params]:
+    """The cushion as a tensor-parallel rank reads it: the KV on its KV
+    heads (``transformer.local_cushion``) and the Mamba state on its
+    channels where they are cut (itself on one rank)."""
+    if cushion is None:
+        return None
+    out = {"kv": T.local_cushion(cushion, cfg)["kv"]}
+    if "state" in cushion:
+        inner = SSM.dims(cfg)[0]
+        out["state"] = {
+            "h": C.local_heads(cushion["state"]["h"], inner),
+            "conv": C.local_heads(cushion["state"]["conv"], inner, -1)}
+    return out
+
+
 def _stack_states(states: List[Params]) -> Params:
     return {"h": torch.stack([s["h"] for s in states]),
             "conv": torch.stack([s["conv"] for s in states])}
@@ -284,8 +300,8 @@ def cache_roles(cfg: ModelConfig, kv_dtype=None,
     attention KV (P, B, S, K, hd) on its heads axis, the Mamba state on
     its channels (h (P, nm, B, inner, d_state), conv (P, nm, B, d_conv-1,
     inner)); int8 scales with their heads, the cushion block replicated.
-    Tensor-parallel serving of this family is not ported yet (ROADMAP
-    queue 1, item 6.3)."""
+    A tensor-parallel rank holds its KV heads (all of them where they do
+    not divide) and its channels of the state (``ssm.dims``)."""
     kv = (None, "B", None, "M", None)
     roles = {"k": kv, "v": kv,
              "h": (None, None, "B", "M", None),
@@ -336,10 +352,11 @@ def prefill(params, tokens: Tensor, cache: Params, cfg: ModelConfig,
     positions = m + torch.arange(S, device=x.device)
     lscales = C.resolve_scales(scales, SITES, n_periods, qcfg, x.device)
     ks, vs, states = [], [], []
+    local = local_cushion(cushion, cfg)
     for pp, lsc, pkv, mst in zip(C.unstack(params["layers"], n_periods),
                                  C.unstack(lscales, n_periods),
-                                 T._cushion_layers(cushion, n_periods),
-                                 _cushion_states(cushion, n_periods, nm)):
+                                 T._cushion_layers(local, n_periods),
+                                 _cushion_states(local, n_periods, nm)):
         x, _, _, (k, v), new_st = C.remat_call(
             remat, _period_apply, pp, x, cfg, qcfg, lsc, positions, pkv,
             mst, False, 0, True, True)
@@ -356,7 +373,8 @@ def prefill(params, tokens: Tensor, cache: Params, cfg: ModelConfig,
                                        device=x.device)
 
 
-_KV_KEYS = ("k", "v", "k_scale", "v_scale", "kc", "vc", "page_table")
+_KV_KEYS = ("k", "v", "k_scale", "v_scale", "kc", "vc", "kc_tp", "vc_tp",
+            "page_table")
 
 
 def decode_step(params, token: Tensor, pos: Tensor, cache: Params,

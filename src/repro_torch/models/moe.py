@@ -40,6 +40,16 @@ Port notes:
   arctic residual branch is a dense MLP (``common.apply_mlp``), whose
   linears take the int path under ``true_int8``; it shares the ``mlp_in``
   and ``down`` site scales and records no taps.
+* Expert parallelism (a tensor-parallel rank's config with its experts
+  cut, ``common.tp_cut``): a rank holds E/tp experts, its slice of the
+  ``w_*`` leaves. Every rank routes the same way, over all E experts (the
+  router is whole): ``route``, the load-balance loss, the capacity and
+  the dispatch are the one-rank ones. A rank gathers the tokens for its
+  experts only, runs their einsums and combines with their columns of the
+  combine weights; one ``psum`` (f32) sums the ranks' partial outputs.
+  The experts' weight quantization is per expert and column, so a rank's
+  quantize as on one rank. The residual branch is whole on every rank
+  (the reference's rules replicate it) and takes no collective.
 """
 from __future__ import annotations
 
@@ -160,6 +170,12 @@ def apply_moe(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
     disp = dispatch(onehot, Cp).to(x.dtype)                  # (B,S,K,E,C)
     comb = torch.einsum("bsk,bskec->bsec", top_w.to(x.dtype), disp)
     disp_tok = disp.sum(dim=2)                               # (B,S,E,C)
+    cut = C.tp_cut(cfg, "experts")
+    if cut:
+        # this rank's experts: its columns of the dispatch and combine
+        El = p["w_up"].shape[0]
+        comb = comb.narrow(2, DC.tp_rank() * El, El)
+        disp_tok = disp_tok.narrow(2, DC.tp_rank() * El, El)
 
     if taps is not None:
         taps["mlp_in"] = {
@@ -184,12 +200,18 @@ def apply_moe(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
                           qs2.zero if qs2 else None, groups)
     out = torch.einsum("becf,efd->becd", hq,
                        Q.weight_fake_quant(p["w_down"], qcfg))
-    y = torch.einsum("bsec,becd->bsd", comb, out)
+    if cut:
+        # the rank's partial output in f32, summed over the ranks and
+        # rounded once, as one rank's einsum rounds its f32 sum once
+        y = DC.psum(torch.einsum("bsec,becd->bsd", comb.float(),
+                                 out.float())).to(x.dtype)
+    else:
+        y = torch.einsum("bsec,becd->bsd", comb, out)
 
     if "residual" in p:
-        # arctic: a dense FFN branch beside the experts
+        # arctic: a dense FFN branch beside the experts, whole on every rank
         y = y + C.apply_mlp(p["residual"], x, cfg, qcfg, scales, None,
-                            n_skip, groups)
+                            n_skip, groups, cut=False)
     return y, lb
 
 
@@ -291,7 +313,7 @@ def prefill(params, tokens: Tensor, cache: Params, cfg: ModelConfig,
                          "v": cache["v"][:, 0, :m]}, L)
     else:
         cache, m = write_cushion_to_cache(cache, cushion)
-        pre = T._cushion_layers(cushion, L)
+        pre = T._cushion_layers(T.local_cushion(cushion, cfg), L)
     positions = m + torch.arange(S, device=x.device)
     lscales = C.resolve_scales(scales, SITES, L, qcfg, x.device)
     ks, vs = [], []

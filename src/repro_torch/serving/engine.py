@@ -13,15 +13,18 @@ replayed once per generated token: the counterpart of the reference's
 jitted ``lax.scan``, the same kernels launched by one ``cudaGraphLaunch``
 per step. The prefill runs eagerly, and so does the step on the CPU.
 
-Tensor parallelism (``mesh``, a ``launch/mesh.TPMesh``; the dense family):
-every rank runs an ``Engine`` on its shard of the model. The quantization
-plan (calibration, ``prequantize_tree``) runs on the whole model on every
-rank, then ``shard_params_for_serving`` keeps the rank's shard; the rank
-serves through its own config (``tp_config``: its heads, its d_ff and
-vocabulary columns) and the collectives of ``distributed/collectives.py``.
+Tensor parallelism (``mesh``, a ``launch/mesh.TPMesh``; the dense, MoE,
+VLM and hybrid families): every rank runs an ``Engine`` on its shard of
+the model. The quantization plan (calibration, ``prequantize_tree``) runs
+on the whole model on every rank, then ``shard_params_for_serving`` keeps
+the rank's shard; the rank serves through its own config (``tp_config``,
+whose ``tp`` layout says which axes it holds a part of: ``tp_layout``)
+and the collectives of ``distributed/collectives.py``. An axis that does
+not divide by tp is whole on every rank, as the reference replicates it.
 So every rank holds the whole model while it is built and planned: under
 tp > 1 a model must still fit on one card (building and quantizing by
-shard is ROADMAP queue 1, item 6.9). Under tp > 1 the decode step runs eagerly, by design: over gloo a
+shard is ROADMAP queue 1, item 6.9; ranks may build in turn,
+``defer_tree_check``). Under tp > 1 the decode step runs eagerly, by design: over gloo a
 collective synchronizes with the host, which a CUDA graph cannot hold
 (capturing NCCL collectives is later work, ROADMAP queue 1, item 6.6).
 One rank (tp = 1) keeps the graph.
@@ -42,7 +45,8 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import Family, ModelConfig, QuantConfig
+from repro_torch.configs.base import (Family, ModelConfig, QuantConfig,
+                                      TPLayout)
 from repro_torch.core import quantization as Q
 from repro_torch.core.calibration import CalibratedScales
 from repro_torch.core.cushioncache import cushion_fingerprint
@@ -109,13 +113,44 @@ def plan_quantization(api, params, qcfg: QuantConfig, cushion=None,
     return params, scales
 
 
+def tp_layout(cfg: ModelConfig, tp: int) -> TPLayout:
+    """Which axes of ``cfg`` ``tp`` ranks cut, by the reference's serve
+    rules: an axis is cut where the specs of its leaves
+    (``SH.params_shardings(..., SH.serve_rules())``) name ``tp``, and whole
+    where ``_drop_indivisible`` dropped it (the axis does not divide by
+    tp). The query heads are cut where the fused ``wqkv`` columns and
+    ``wo``'s rows divide and whole heads do too; the KV heads where they
+    divide as well (the cache's spec, ``cache_roles``), else every rank
+    holds all of them, as the reference's replicated cache. The experts
+    where E divides (``moe/w_*``), the Mamba channels where ``inner``
+    does (``mamba/w_out``'s rows and the state's roles)."""
+    hd, H, K = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    cut = []
+    if (H + 2 * K) * hd % tp == 0 and H % tp == 0:
+        cut.append("heads")
+        if K % tp == 0:
+            cut.append("kv_heads")
+    if cfg.d_ff and cfg.d_ff % tp == 0:
+        cut.append("d_ff")
+    if cfg.vocab_size % tp == 0:
+        cut.append("vocab")
+    if cfg.moe is not None and cfg.moe.num_experts % tp == 0:
+        cut.append("experts")
+    if cfg.family == Family.HYBRID and cfg.ssm is not None \
+            and cfg.ssm.expand * cfg.d_model % tp == 0:
+        cut.append("inner")
+    return TPLayout(size=tp, cut=tuple(cut), n_heads=H)
+
+
 def check_tp_serving(cfg: ModelConfig, qcfg: QuantConfig, tp: int,
                      weight_bits: int = 8, data: int = 1) -> None:
-    """Refuse what tensor-parallel serving does not shard yet (the dense
-    family, ``none`` and ``pt_static`` with 8-bit weights, every sharded
-    axis divisible by tp) and a mesh with a data axis of more than one
-    rank, on which the reference never serves (its data-parallel serving
-    is the router's replicas). One rank takes anything."""
+    """Refuse what tensor-parallel serving does not shard yet: the xLSTM
+    and encoder-decoder families, W4A8 and the dynamic modes, a rank whose
+    query heads straddle KV groups of a whole cache, and a mesh with a data
+    axis of more than one rank, on which the reference never serves (its
+    data-parallel serving is the router's replicas). Axes that do not
+    divide by tp are served whole on every rank (``tp_layout``). One rank
+    takes anything."""
     if data > 1:
         raise ValueError(
             f"serving on a mesh with a data axis of {data} ranks: the "
@@ -125,52 +160,114 @@ def check_tp_serving(cfg: ModelConfig, qcfg: QuantConfig, tp: int,
     if tp == 1:
         return
     why = item = None
-    if cfg.family != Family.DENSE:
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    lay = tp_layout(cfg, tp)
+    if cfg.family in (Family.SSM, Family.ENCDEC):
         why, item = (f"the {cfg.family.value} family serves on one rank "
-                     f"only", "6.3")
+                     f"only", "6.3b")
     elif weight_bits != 8:
         why, item = "W4A8 (int4-packed weights) is not sharded", "6.4"
     elif qcfg.mode not in ("none", "pt_static"):
         why, item = (f"{qcfg.mode}: dynamic activation ranges are not "
                      f"sharded", "6.4")
-    else:
-        dims = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
-                "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size}
-        bad = [f"{k}={v}" for k, v in dims.items() if v % tp]
-        if bad:
-            why, item = (f"{', '.join(bad)} do not divide by tp; the "
-                         f"reference replicates such leaves, which is not "
-                         f"ported", "6.5")
+    elif "heads" in lay.cut and "kv_heads" not in lay.cut and tp % K:
+        # the KV heads are whole on every rank; a rank's H/tp query heads
+        # must lie in one KV group (tp a multiple of K) for the attention
+        # kernels' slice of the cache
+        why, item = (f"n_heads={H}, n_kv_heads={K}: a rank's {H // tp} "
+                     f"query heads straddle the groups of the whole KV "
+                     f"heads, which the attention kernels' KV-head slice "
+                     f"does not map", "6.5b")
     if why is not None:
         raise ValueError(f"tensor parallelism (tp={tp}): {why} yet "
                          f"(ROADMAP queue 1, item {item})")
 
 
 def tp_config(cfg: ModelConfig, tp: int) -> ModelConfig:
-    """One rank's config of a dense model over ``tp`` ranks: its H/tp query
-    heads, K/tp KV heads, d_ff/tp and vocab/tp (the head width kept)."""
+    """One rank's config over ``tp`` ranks (``tp_layout``): H/tp query
+    heads and K/tp KV heads (or all K where the KV heads are whole), d_ff/tp
+    and vocab/tp where they are cut, the head width kept. The experts and
+    the Mamba channels keep the whole model's counts here (every rank
+    routes over all experts; ``ssm.dims`` divides ``inner``); ``tp`` says
+    what is cut."""
     if tp == 1:
         return cfg
-    return dataclasses.replace(
-        cfg, n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,
-        d_head=cfg.head_dim, d_ff=cfg.d_ff // tp,
-        vocab_size=cfg.vocab_size // tp)
-
-
-# the fused qkv projection's columns (and its bias, int weight and colsum)
-# are [q heads | k heads | v heads]: a rank takes its heads of each
-_QKV = re.compile(r"attn/(wqkv|bqkv)(/w_int|/colsum)?$")
+    lay = tp_layout(cfg, tp)
+    kw = dict(tp=lay, d_head=cfg.head_dim)
+    if "heads" in lay.cut:
+        kw["n_heads"] = cfg.n_heads // tp
+        if "kv_heads" in lay.cut:
+            kw["n_kv_heads"] = cfg.n_kv_heads // tp
+    if "d_ff" in lay.cut:
+        kw["d_ff"] = cfg.d_ff // tp
+    if "vocab" in lay.cut:
+        kw["vocab_size"] = cfg.vocab_size // tp
+    return dataclasses.replace(cfg, **kw)
 
 
 def _qkv_columns(cfg: ModelConfig, rank: int, tp: int, device
                  ) -> torch.Tensor:
+    """A rank's columns of the fused qkv projection [q heads | k heads |
+    v heads]: its query heads, then its KV heads for k and for v, or every
+    KV head where they are whole (``tp_layout``)."""
     hd, H, K = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    Hl, Kl = H // tp, K // tp
+    Hl = H // tp
+    Kl, k0 = (K // tp, rank * (K // tp)) \
+        if "kv_heads" in tp_layout(cfg, tp).cut else (K, 0)
     ar = torch.arange
     return torch.cat([ar(rank * Hl * hd, (rank + 1) * Hl * hd),
-                      H * hd + ar(rank * Kl * hd, (rank + 1) * Kl * hd),
-                      (H + K) * hd + ar(rank * Kl * hd, (rank + 1) * Kl * hd)]
+                      H * hd + ar(k0 * hd, (k0 + Kl) * hd),
+                      (H + K) * hd + ar(k0 * hd, (k0 + Kl) * hd)]
                      ).to(device)
+
+
+def _xz_columns(inner: int, rank: int, tp: int, device) -> torch.Tensor:
+    """A rank's columns of the Mamba in-projection [x | z]: its channels
+    of each half."""
+    n = inner // tp
+    ar = torch.arange(rank * n, (rank + 1) * n)
+    return torch.cat([ar, inner + ar]).to(device)
+
+
+# Each leaf's logical axis (``tp_layout``), the dim it lies on, counted
+# from the end (the hybrid's and the stacked layers' leading axes come
+# first), and how a rank takes its part: a block of the dim, or its heads
+# of the fused qkv columns, or its channels of each half of the Mamba
+# in-projection. The first match wins, and a leaf that matches none is
+# whole on every rank (the norms, ``moe/router``, ``moe/residual``: the
+# reference's rules replicate them). ``w_int`` cuts like its parent;
+# ``colsum`` with its parent's columns, so it is whole at the row-parallel
+# sites; ``w_scale`` (the whole weight's) is whole.
+_LEAF_AXES = (
+    (re.compile(r"attn/(wqkv|bqkv)$"), "heads", -1, "qkv"),
+    (re.compile(r"attn/wo$"), "heads", -2, "block"),
+    (re.compile(r"mlp/w_(gate|up)$"), "d_ff", -1, "block"),
+    (re.compile(r"mlp/w_down$"), "d_ff", -2, "block"),
+    (re.compile(r"(^|/)embed(/w)?$"), "vocab", -2, "block"),
+    (re.compile(r"(^|/)(lm_)?head(/w)?$"), "vocab", -1, "block"),
+    (re.compile(r"moe/w_(gate|up|down)$"), "experts", -3, "block"),
+    (re.compile(r"mamba/w_in$"), "inner", -1, "xz"),
+    (re.compile(r"mamba/(w_out|A_log)$"), "inner", -2, "block"),
+    (re.compile(r"mamba/(conv_w|conv_b|dt_w|dt_b|Dskip)$"), "inner", -1,
+     "block"),
+)
+
+
+def leaf_cut(path: str, cfg: ModelConfig, tp: int):
+    """(the logical axis, the dim, how) a rank cuts of the leaf at
+    ``path`` (``_LEAF_AXES``), or None where the leaf is whole on every
+    rank."""
+    base = re.sub(r"/(w_int|colsum|w_scale)$", "", path)
+    kind = path[len(base) + 1:]
+    if kind == "w_scale":
+        return None
+    for rx, axis, dim, how in _LEAF_AXES:
+        if rx.search(base):
+            if axis not in tp_layout(cfg, tp).cut \
+                    or (kind == "colsum" and dim != -1):
+                return None
+            return axis, dim, how
+    return None
 
 
 def _leaves(tree: Any):
@@ -201,13 +298,12 @@ def tree_checksum(tree: Any) -> torch.Tensor:
     return total
 
 
-def check_same_tree(tree: Any, mesh) -> None:
-    """Every rank holds the same tree: rank 0's checksum, broadcast, equals
-    each rank's (one check at load); all ranks raise together if not."""
-    if mesh.size == 1:
-        return
+def check_tree_sums(mine: torch.Tensor, mesh) -> None:
+    """Every rank built the same tree: rank 0's checksum (``tree_checksum``
+    of its whole tree), broadcast, equals each rank's; all ranks raise
+    together if not. A collective: every rank of ``mesh`` calls it."""
     import torch.distributed as dist
-    mine = tree_checksum(tree).to(mesh.device)
+    mine = mine.to(mesh.device)
     theirs = mine.clone()
     dist.broadcast(theirs, src=0, group=mesh.group)
     ok = torch.tensor([int(torch.equal(mine, theirs))], dtype=torch.int64,
@@ -219,23 +315,27 @@ def check_same_tree(tree: Any, mesh) -> None:
                            "the same tree from the same seed")
 
 
-def shard_params_for_serving(params: Any, cfg: ModelConfig, mesh) -> Any:
-    """The rank's shard of a dense parameter tree (quantized whole first,
-    when int-resident), laid out by the reference's serve rules
-    (``distributed/sharding.py``): the sharded axis of each leaf is cut to
-    this rank's 1/tp, every other leaf is replicated. The fused ``wqkv`` /
-    ``bqkv`` columns are cut by heads (the rank's query heads, then its KV
-    heads for k and for v: the layout ``common._split_qkv`` reads), ``wo``'s
-    rows are those query heads', ``w_up`` / ``w_gate`` / the head are cut by
-    columns, ``w_down`` by rows, ``embed`` by vocabulary rows. Of an
-    int-resident weight, ``w_int`` is cut like its parent, ``w_scale`` (the
-    whole weight's) is replicated, ``colsum`` is cut at the column-parallel
-    sites and whole at the row-parallel ones (``wo``, ``w_down``), as the
-    reference's spec. The ranks' trees are checked equal first; the
-    returned shards are copies, so the whole tree can be freed."""
+def check_same_tree(tree: Any, mesh) -> None:
+    """Every rank holds the same tree (one check at load)."""
+    if mesh.size > 1:
+        check_tree_sums(tree_checksum(tree), mesh)
+
+
+def shard_params_for_serving(params: Any, cfg: ModelConfig, mesh,
+                             defer_check: bool = False):
+    """The rank's shard of a parameter tree (quantized whole first, when
+    int-resident), laid out by the reference's serve rules
+    (``distributed/sharding.py``, ``tp_layout``, ``shard_tree``). The
+    ranks' trees are checked equal first; with ``defer_check`` no
+    collective runs and ``(shard, checksum)`` is returned, for
+    ``check_tree_sums`` once every rank has built (ranks that build in
+    turn, so that one card holds one whole tree at a time). The shards are
+    copies, so the whole tree can be freed."""
     params = C.as_tree(params)
     if mesh.size == 1:
-        return params
+        return (params, None) if defer_check else params
+    if defer_check:
+        return shard_tree(params, cfg, mesh), tree_checksum(params)
     check_same_tree(params, mesh)
     return shard_tree(params, cfg, mesh)
 
@@ -243,48 +343,77 @@ def shard_params_for_serving(params: Any, cfg: ModelConfig, mesh) -> Any:
 def shard_tree(params: Any, cfg: ModelConfig, mesh) -> Any:
     """Rank ``mesh.rank``'s shard of ``params`` of ``mesh.size`` ranks
     (``shard_params_for_serving`` without its check; ``mesh`` needs only
-    ``rank``, ``size``, ``shape`` and ``axis_names``)."""
+    ``rank`` and ``size``). Each leaf is cut on its logical axis where
+    ``tp_layout`` cuts that axis (``leaf_cut``), which is where the
+    reference's spec (``SH.params_shardings``) cuts it, with these
+    differences, each forced by computing whole heads and channels on a
+    rank:
+
+    * ``wqkv`` / ``bqkv``: the spec cuts the fused columns in contiguous
+      blocks; a rank takes its query heads, then its KV heads (or every
+      KV head, where they do not divide) for k and for v
+      (``_qkv_columns``). With whole KV heads the spec replicates the
+      cache, and so does the port: each rank computes all of them.
+    * ``wo`` where the fused columns or whole heads do not divide: the
+      spec may still cut its rows; the port keeps attention whole.
+    * ``mamba/w_in``: the spec cuts its (D, 2 inner) columns contiguously
+      (rank 0 all of x, rank 1 all of z); a rank takes its channels of
+      each half (``_xz_columns``).
+    * ``mamba/A_log`` (inner, N): the spec cuts its last axis; a rank
+      takes its channels' rows.
+    * ``mamba/w_x`` (inner, R + 2N): the spec cuts its last axis; it is
+      whole on every rank, which forms the whole projection from the
+      ranks' gathered channels (``models/ssm.py``).
+    * ``mamba/conv_b``: the spec replicates it; a rank takes its
+      channels, as of ``conv_w``.
+
+    Shards are copies, so the whole tree can be freed."""
     tp, r = mesh.size, mesh.rank
-    specs = SH.params_shardings(params, mesh, SH.serve_rules())
     paths = SH.tree_paths(params)
-    qkv = {}
+    index = {}
 
-    def cut(leaf, spec, path):
-        axes = [i for i, a in enumerate(spec) if a == "tp"]
-        if not axes:
+    def columns(how, device):
+        idx = index.get((how, device))
+        if idx is None:
+            idx = index[how, device] = (
+                _qkv_columns(cfg, r, tp, device) if how == "qkv" else
+                _xz_columns(cfg.ssm.expand * cfg.d_model, r, tp, device))
+        return idx
+
+    def cut(leaf, path):
+        c = leaf_cut(path, cfg, tp)
+        if c is None:
             return leaf
-        ax = axes[0]
-        if _QKV.search(path):
-            idx = qkv.get(leaf.device)
-            if idx is None:
-                idx = qkv[leaf.device] = _qkv_columns(cfg, r, tp,
-                                                      leaf.device)
-            return leaf.index_select(ax, idx)
-        n = leaf.shape[ax] // tp
-        return leaf.narrow(ax, r * n, n).clone()
+        _, dim, how = c
+        dim %= leaf.dim()
+        if how != "block":
+            return leaf.index_select(dim, columns(how, leaf.device))
+        n = leaf.shape[dim] // tp
+        return leaf.narrow(dim, r * n, n).clone()
 
-    def visit(node, spec, path):
+    def visit(node, path):
         if isinstance(node, dict):
-            return {k: visit(node[k], spec[k], path[k]) for k in node}
+            return {k: visit(node[k], path[k]) for k in node}
         if isinstance(node, list):
-            return [visit(a, b, c) for a, b, c in zip(node, spec, path)]
-        return cut(node, spec, path)
-    return visit(params, specs, paths)
+            return [visit(a, b) for a, b in zip(node, path)]
+        return cut(node, path)
+    return visit(params, paths)
 
 
-def tp_cache(cache: Dict[str, Any], cfg: ModelConfig, tp: int
-             ) -> Dict[str, Any]:
-    """A rank's cache from its config's ``init_cache``: an int8 cache's
-    cushion block kc / vc becomes whole (the full config's KV heads,
-    replicated on every rank, as the reference's roles) beside kc_tp /
-    vc_tp, the rank's slice that decode reads."""
-    if tp == 1 or "kc" not in cache:
+def tp_cache(cache: Dict[str, Any], full_cfg: ModelConfig,
+             cfg: ModelConfig) -> Dict[str, Any]:
+    """A rank's cache from its config's (``cfg``) ``init_cache``: where the
+    KV heads are cut, an int8 cache's cushion block kc / vc becomes whole
+    (the full config's KV heads, replicated on every rank, as the
+    reference's roles) beside kc_tp / vc_tp, the rank's slice that decode
+    reads. Where they are whole, the cache is whole on every rank."""
+    if cfg.tp is None or "kv_heads" not in cfg.tp.cut or "kc" not in cache:
         return cache
     for key in ("kc", "vc"):
         local = cache[key]
         cache[key + "_tp"] = local
-        cache[key] = local.new_zeros((*local.shape[:2], cfg.n_kv_heads,
-                                      local.shape[3]))
+        cache[key] = local.new_zeros((*local.shape[:2],
+                                      full_cfg.n_kv_heads, local.shape[3]))
     return cache
 
 
@@ -346,12 +475,16 @@ class Engine:
     module (stacked ``(L, ...)`` buffers); ``states`` holds the decode state
     of every batch size served so far. ``mesh``: this rank's
     ``launch/mesh.TPMesh`` (see the module docstring); ``self.api`` is then
-    the rank's (``tp_config``), ``self.full_cfg`` the model's."""
+    the rank's (``tp_config``), ``self.full_cfg`` the model's.
+    ``defer_tree_check``: the engine is made without a collective (ranks
+    that build in turn) and keeps its whole tree's checksum in
+    ``tree_sum`` for ``check_tree_sums``."""
 
     def __init__(self, api, params, qcfg: QuantConfig, cushion=None,
                  scales=None, max_seq: int = 2048, kv_dtype=None,
                  calib_batches=None, prequant: bool = False,
-                 weight_bits: int = 8, mesh=None):
+                 weight_bits: int = 8, mesh=None,
+                 defer_tree_check: bool = False):
         self.mesh = mesh
         self.tp = 1 if mesh is None else mesh.size
         check_tp_serving(api.cfg, qcfg, self.tp, weight_bits,
@@ -362,8 +495,13 @@ class Engine:
             api, params, qcfg, cushion=cushion, scales=scales,
             calib_batches=calib_batches, prequant=prequant,
             weight_bits=weight_bits)
+        self.tree_sum = None
         if mesh is not None:
-            tree = shard_params_for_serving(tree, api.cfg, mesh)
+            if defer_tree_check:
+                tree, self.tree_sum = shard_params_for_serving(
+                    tree, api.cfg, mesh, defer_check=True)
+            else:
+                tree = shard_params_for_serving(tree, api.cfg, mesh)
             api = dataclasses.replace(api, cfg=tp_config(api.cfg, self.tp))
         self.api = api
         self.params = C.ParamTree(tree)
@@ -386,7 +524,7 @@ class Engine:
         return tp_cache(self.api.init_cache(B, self.max_seq,
                                             kv_dtype=self.kv_dtype,
                                             prefix_len=self.prefix_len),
-                        self.full_cfg, self.tp)
+                        self.full_cfg, self.api.cfg)
 
     def _state(self, B: int) -> DecodeState:
         """B's decode state, made at the first request of that B. On the

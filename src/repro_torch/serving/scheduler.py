@@ -65,11 +65,13 @@ pool shape. Admission, the chunked-prefill stream, the page table's copy
 to the device, the copy of a changed ``live`` mask and the one host sync
 per step stay outside the graph.
 
-Tensor parallelism (``mesh``, the reference's; the dense family): every
-rank runs a ``ContinuousEngine`` on its shard, as ``Engine`` does
-(``serving/engine.py``); the pool holds the rank's KV heads, the per-slot
-scales its heads' columns, and an int8 or paged pool's cushion block is
-whole on every rank beside the rank's slice (``kc_tp`` / ``vc_tp``). The
+Tensor parallelism (``mesh``, the reference's; the dense, MoE, VLM and
+hybrid families): every rank runs a ``ContinuousEngine`` on its shard, as
+``Engine`` does (``serving/engine.py``); the pool holds the rank's KV
+heads (all of them where they do not divide), the per-slot scales its
+heads' columns, a hybrid's state rows its Mamba channels, and an int8 or
+paged pool's cushion block is whole on every rank beside the rank's slice
+(``kc_tp`` / ``vc_tp``). The
 page table and the host allocator are the same on every rank. Under
 tp > 1 the decode step runs eagerly, by design (a collective over gloo
 synchronizes with the host, which a CUDA graph cannot hold). The ranks
@@ -241,7 +243,8 @@ class ContinuousEngine:
                  page_size: int = 64, n_pages: Optional[int] = None,
                  prefix_cache: bool = False,
                  chunk_tokens: Optional[Union[int, str]] = None, mesh=None,
-                 clock: Optional[Callable[[], float]] = None):
+                 clock: Optional[Callable[[], float]] = None,
+                 defer_tree_check: bool = False):
         self.mesh = mesh
         self._clock = clock if clock is not None else _host_clock
         self.tp = 1 if mesh is None else mesh.size
@@ -253,8 +256,14 @@ class ContinuousEngine:
             api, params, qcfg, cushion=cushion, scales=scales,
             calib_batches=calib_batches, prequant=prequant,
             weight_bits=weight_bits)
+        self.tree_sum = None
         if mesh is not None:
-            tree = shard_params_for_serving(tree, api.cfg, mesh)
+            if defer_tree_check:
+                # ranks that build in turn: Engine's defer_tree_check
+                tree, self.tree_sum = shard_params_for_serving(
+                    tree, api.cfg, mesh, defer_check=True)
+            else:
+                tree = shard_params_for_serving(tree, api.cfg, mesh)
             api = dataclasses.replace(api, cfg=tp_config(api.cfg, self.tp))
         self.api = api
         self.params = C.ParamTree(tree)
@@ -353,7 +362,7 @@ class ContinuousEngine:
             batch, self.max_seq, kv_dtype=self.kv_dtype,
             prefix_len=self.prefix_len,
             per_slot_scales=self.kv_dtype is not None), self.full_cfg,
-            self.tp)
+            self.api.cfg)
 
     def _staging_row(self):
         """B=1 fp staging row for chunked admission. int8 pools stage fp

@@ -16,19 +16,28 @@ returns one report a case. A case names:
   ``cushion`` (a tree) or ``cushion_ids`` (extracted on the rank),
   ``scales`` (the plain ``{"scale", "zero"}`` tree) or ``calib`` (token
   arrays to calibrate on);
-* ``kind`` "static": ``tokens`` (B, S) and ``n_tokens`` through
-  ``Engine.generate`` (``logits``: also the prefill's last logits);
+* ``kind`` "static": ``tokens`` (B, S) (and a VLM's ``patches`` (B, P,
+  D), the same on every rank) and ``n_tokens`` through
+  ``Engine.generate`` (``logits``: also the prefill's last logits, the
+  cushion block as the cache holds it and, of a hybrid, the Mamba
+  cushion state the rank's prefill starts from);
   ``warmup``: one ``generate`` first, outside the report (on the card a
   single rank captures its decode graph there, with two eager warm-up
   steps); ``margins``: the top-1 minus top-2 logit of every row at every
   generated token, teacher-forced (B, n_tokens); "continuous":
-  ``requests`` (dicts of ``tokens`` (1, S), ``max_new_tokens``,
+  ``requests`` (dicts of ``tokens`` (1, S), ``patches``, ``max_new_tokens``,
   ``arrival_s``) through ``ContinuousEngine.run`` with
   ``n_slots``, ``paged``, ``page_size``; ``clock_rates`` gives each rank a
   clock of its own (a tick of ``rate`` ms a read, the engine's ``clock``),
   to show that the ranks still agree; ``interrupt`` (rank, decode steps)
   sends that rank a SIGINT once it has run that many decode steps;
-* ``mesh``: False serves without a mesh (the unsharded engine).
+* ``mesh``: False serves without a mesh (the unsharded engine);
+* ``reset_peak``: False keeps the device's peak-memory count running
+  (default: reset before serving);
+* ``in_turn``: the ranks build one after another (each makes the whole
+  tree, plans and cuts it, frees it and empties the card's cache before
+  the next rank starts), so that one card holds one whole tree at a time;
+  the trees' checksums are exchanged afterwards.
 
 The report holds numpy arrays and numbers: the tokens, the cushion block as
 this rank holds it, the launch counts of the kernels during the serving
@@ -38,6 +47,7 @@ decode steps so far) and each slot's cushion rows.
 """
 from __future__ import annotations
 
+import gc
 import os
 import signal
 import time
@@ -49,9 +59,10 @@ import torch
 from repro_torch.configs.base import QuantConfig
 from repro_torch.distributed import collectives as DC
 from repro_torch.kernels import _lib
+from repro_torch.models import common as C
 from repro_torch.models import convert
 from repro_torch.models.registry import build
-from repro_torch.serving.engine import Engine
+from repro_torch.serving.engine import Engine, check_tree_sums
 from repro_torch.serving.scheduler import ContinuousEngine, Request
 
 # trees made from a seed on this rank, by (cfg, seed)
@@ -102,6 +113,21 @@ def _tokens(a, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a), dtype=torch.int32, device=device)
 
 
+def _batch(d, device, dtype) -> Dict[str, torch.Tensor]:
+    """A request's inputs on the rank: its tokens and, of a VLM, its
+    patches (numpy or a tensor) in the model dtype."""
+    tok = d["tokens"]
+    out = {"tokens": (tok.to(device, torch.int32)
+                      if isinstance(tok, torch.Tensor)
+                      else _tokens(tok, device))}
+    p = d.get("patches")
+    if p is not None:
+        p = p if isinstance(p, torch.Tensor) else torch.from_numpy(
+            np.array(p))
+        out["patches"] = p.to(device, dtype)
+    return out
+
+
 def _cushion_view(cache: Dict[str, torch.Tensor], m: int) -> Dict:
     """The cushion block as this rank's cache holds it."""
     out = {k: _np(cache[k]) for k in ("kc", "vc", "kc_tp", "vc_tp")
@@ -132,37 +158,106 @@ def _margins(eng, batch, tokens: np.ndarray) -> np.ndarray:
     return (top2[..., 0] - top2[..., 1]).cpu().numpy()
 
 
+@torch.inference_mode()
+def prefill_view(eng, batch) -> Dict[str, Any]:
+    """An engine's prefill of ``batch`` as this rank sees it: the last
+    position's logits, the cushion block as its cache holds it and, of a
+    hybrid, the Mamba cushion state its prefill starts from."""
+    with DC.use_tp(eng.mesh):
+        cache = eng._init_cache(batch["tokens"].shape[0])
+        lg, cache, _ = eng.api.prefill(eng.params.tree(), batch, cache,
+                                       eng.qcfg, cushion=eng.cushion,
+                                       scales=eng.scales)
+        out = {"logits": _np(lg[:, -1]),
+               "cushion": _cushion_view(cache, eng.prefix_len)}
+        if eng.cushion is not None and "state" in eng.cushion:
+            local = eng.api.mod.local_cushion(eng.cushion, eng.api.cfg)
+            out["cushion_state"] = {k: _np(v)
+                                    for k, v in local["state"].items()}
+    return out
+
+
+def _in_turn(mesh, make):
+    """``make()`` on each rank in turn (the ranks' other work waits at a
+    barrier), the card's cache emptied after each; returns its result."""
+    import torch.distributed as dist
+    out = None
+    _TREES.clear()
+    gc.collect()
+    if mesh.device.type == "cuda":
+        torch.cuda.empty_cache()
+    for turn in range(mesh.size):
+        if turn == mesh.rank:
+            out = make()
+            _TREES.clear()
+            gc.collect()
+            if mesh.device.type == "cuda":
+                torch.cuda.synchronize(mesh.device)
+                torch.cuda.empty_cache()
+        if mesh.size > 1:
+            dist.barrier(group=mesh.group)
+    return out
+
+
 def run_case(mesh, case: Dict[str, Any]) -> Dict[str, Any]:
     dev = mesh.device
+    if dev.type == "cuda":
+        # the last case's engines (an engine and its decode states refer to
+        # each other) go before this case builds
+        gc.collect()
+        torch.cuda.empty_cache()
     api = build(case["cfg"], dev)
+    if case.get("in_turn") and case.get("mesh", True):
+        def make():
+            return _engine(mesh, api, case, defer_tree_check=True)
+        eng = _in_turn(mesh, make)
+        if mesh.size > 1:
+            check_tree_sums(eng.tree_sum, mesh)
+    else:
+        eng = _engine(mesh, api, case)
+    return _serve(mesh, api, eng, case)
+
+
+def _engine(mesh, api, case, **extra):
+    dev = mesh.device
     params = _params(api, case)
     cushion = _cushion(api, params, case)
     scales = case.get("scales")
     if scales is not None:
         scales = convert.scales_from_numpy(scales, dev)
-    calib = [{"tokens": _tokens(t, dev)} for t in case.get("calib") or []]
+    dt = C.dtype_of(api.cfg)
+    calib = [_batch(t if isinstance(t, dict) else {"tokens": t}, dev, dt)
+             for t in case.get("calib") or []]
     qcfg = case["qcfg"]
     kw = dict(cushion=cushion, scales=scales,
               max_seq=case.get("max_seq", 128), kv_dtype=case.get("kv_dtype"),
               calib_batches=calib or None,
               prequant=case.get("prequant", False),
-              mesh=mesh if case.get("mesh", True) else None)
-    if dev.type == "cuda":
+              mesh=mesh if case.get("mesh", True) else None, **extra)
+    if case["kind"] == "static":
+        return Engine(api, params, qcfg, **kw)
+    rates = case.get("clock_rates")
+    if rates:
+        kw["clock"] = _Clock(rates[mesh.rank % len(rates)])
+    return ContinuousEngine(api, params, qcfg,
+                            n_slots=case.get("n_slots", 2),
+                            paged=case.get("paged", False),
+                            page_size=case.get("page_size", 32),
+                            chunk_tokens=case.get("chunk_tokens"), **kw)
+
+
+def _serve(mesh, api, eng, case: Dict[str, Any]) -> Dict[str, Any]:
+    dev = mesh.device
+    qcfg = case["qcfg"]
+    if dev.type == "cuda" and case.get("reset_peak", True):
         torch.cuda.reset_peak_memory_stats(dev)
     rep: Dict[str, Any] = {"rank": mesh.rank, "backend": mesh.backend,
                            "name": case.get("name")}
+    dt = C.dtype_of(api.cfg)
     if case["kind"] == "static":
-        eng = Engine(api, params, qcfg, **kw)
-        del params
-        batch = {"tokens": _tokens(case["tokens"], dev)}
+        batch = _batch(case, dev, dt)
         if case.get("logits"):
-            with DC.use_tp(eng.mesh), torch.inference_mode():
-                cache = eng._init_cache(batch["tokens"].shape[0])
-                lg, cache, _ = eng.api.prefill(
-                    eng.params.tree(), batch, cache, qcfg,
-                    cushion=eng.cushion, scales=eng.scales)
-                rep["logits"] = _np(lg[:, -1])
-                rep["cushion"] = _cushion_view(cache, eng.prefix_len)
+            rep.update(prefill_view(eng, batch))
         if case.get("warmup"):
             eng.generate(batch, case["n_tokens"])
         _lib.reset_launches()
@@ -174,16 +269,7 @@ def run_case(mesh, case: Dict[str, Any]) -> Dict[str, Any]:
         if case.get("margins"):
             rep["margins"] = _margins(eng, batch, res.tokens)
     else:
-        rates = case.get("clock_rates")
-        if rates:
-            kw["clock"] = _Clock(rates[mesh.rank % len(rates)])
-        eng = ContinuousEngine(api, params, qcfg,
-                               n_slots=case.get("n_slots", 2),
-                               paged=case.get("paged", False),
-                               page_size=case.get("page_size", 32),
-                               chunk_tokens=case.get("chunk_tokens"), **kw)
-        del params
-        reqs = [Request(uid=i, batch={"tokens": _tokens(r["tokens"], dev)},
+        reqs = [Request(uid=i, batch=_batch(r, dev, dt),
                         max_new_tokens=int(r["max_new_tokens"]),
                         arrival_s=float(r.get("arrival_s", 0.0)))
                 for i, r in enumerate(case["requests"])]
@@ -208,6 +294,7 @@ def run_case(mesh, case: Dict[str, Any]) -> Dict[str, Any]:
         t0 = time.perf_counter()
         outs = eng.run(reqs)
         rep["seconds"] = time.perf_counter() - t0
+        del eng._book_admission
         rep["launches"] = dict(_lib.LAUNCHES)
         m = eng.prefix_len
         rep.update(
@@ -228,6 +315,11 @@ def run_case(mesh, case: Dict[str, Any]) -> Dict[str, Any]:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         rep["peak_bytes"] = int(torch.cuda.max_memory_allocated(dev))
+    del eng
+    if case.get("in_turn"):
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
     return rep
 
 

@@ -1960,3 +1960,120 @@ def test_dp2_gloo_ranks_tune_and_train_on_the_card(dev):
     assert rel[0] <= 1e-2 and max(rel) <= 5e-2, rel
     assert o["moments"]["rel_l2"] <= 0.1, o["moments"]
     assert o["moments"]["cosine"] >= 0.99, o["moments"]
+
+
+@pytest.mark.parametrize("quantized", [True, False], ids=["int8", "fp"])
+def test_kv_head_window_into_a_whole_cache(dev, quantized):
+    """A rank's KV-head window into a whole cache (the query heads cut,
+    the KV heads whole: the reduced VLM and hybrid at tp = 4, one query
+    head a rank over 2 KV heads; here 2 query heads a rank of 8 over 4 KV
+    heads, head_dim 64, bf16): the decode and paged decode kernels with
+    ``kv_heads`` equal, bit for bit, the kernel on the window copied
+    contiguous (int8 with (B, K) scales and the cushion block, and fp), and
+    lie within the bar of the plain version; the prefill kernel on the
+    window's strided view equals it on a contiguous copy, bit for bit."""
+    B, H, K, hd, S, m, tp = 3, 8, 4, 64, 320, 4, 4
+    Hl = H // tp
+    G = H // K
+    g = torch.Generator(dev).manual_seed(17)
+    bf = torch.bfloat16
+    pos = torch.tensor([300, 5, -1], dtype=torch.int32, device=dev)
+    if quantized:
+        k = torch.randint(-127, 128, (B, S, K, hd), generator=g, device=dev,
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, (B, S, K, hd), generator=g, device=dev,
+                          dtype=torch.int8)
+        kw = dict(k_scale=torch.rand((B, K), generator=g, device=dev) * 0.05
+                  + 0.01,
+                  v_scale=torch.rand((B, K), generator=g, device=dev) * 0.05
+                  + 0.01,
+                  kc=torch.randn((m, K, hd), generator=g, device=dev).to(bf),
+                  vc=torch.randn((m, K, hd), generator=g, device=dev).to(bf))
+    else:
+        k = torch.randn((B, S, K, hd), generator=g, device=dev).to(bf)
+        v = torch.randn((B, S, K, hd), generator=g, device=dev).to(bf)
+        kw = {}
+    ps = 64
+    P = S // ps
+    table = (1 + torch.randperm(B * P, generator=g, device=dev)
+             ).to(torch.int32).reshape(B, P)
+    pages = []
+    for t in (k, v):
+        pg = t.new_zeros((1 + B * P, ps, K, hd))
+        pg[table.reshape(-1).long()] = t.reshape(B * P, ps, K, hd)
+        pages.append(pg)
+    for r in range(tp):
+        kv0 = r * Hl // G
+        q = torch.randn((B, Hl, hd), generator=g, device=dev).to(bf)
+        win = dict(kw)
+        if quantized:
+            win.update(k_scale=kw["k_scale"][:, kv0:kv0 + 1].contiguous(),
+                       v_scale=kw["v_scale"][:, kv0:kv0 + 1].contiguous(),
+                       kc=kw["kc"][:, kv0:kv0 + 1].contiguous(),
+                       vc=kw["vc"][:, kv0:kv0 + 1].contiguous())
+        lk = k[:, :, kv0:kv0 + 1].contiguous()
+        lv = v[:, :, kv0:kv0 + 1].contiguous()
+        want = flash_decode(q, lk, lv, pos, **win)
+        got = flash_decode(q, k, v, pos, kv_heads=(kv0, 1), **kw)
+        assert torch.equal(got, want), r
+        _bwd_within((got,), (flash_decode_plain(
+            q, k, v, pos, kv_heads=(kv0, 1), **kw),), bf)
+        paged = flash_decode_paged(q, pages[0], pages[1], table, pos,
+                                   kv_heads=(kv0, 1), **kw)
+        assert torch.equal(paged, got), r
+        # the prefill: the window of the fresh KV as a strided view
+        Sp = 80
+        qp = torch.randn((B, Sp, Hl, hd), generator=g, device=dev).to(bf)
+        kp = torch.randn((B, Sp + m, K, hd), generator=g, device=dev).to(bf)
+        vp = torch.randn((B, Sp + m, K, hd), generator=g, device=dev).to(bf)
+        view = [t.narrow(2, kv0, 1).transpose(1, 2) for t in (kp, vp)]
+        copy = [t.narrow(2, kv0, 1).contiguous().transpose(1, 2)
+                for t in (kp, vp)]
+        a = flash_attention(qp.transpose(1, 2), *view, prefix_len=m)
+        assert torch.equal(a, flash_attention(qp.transpose(1, 2), *copy,
+                                              prefix_len=m)), r
+        _within_ulp(a, flash_attention_plain(qp.transpose(1, 2), *copy,
+                                             prefix_len=m))
+
+
+@pytest.mark.parametrize("M", [4, 2048])
+def test_int32_mode_at_mamba_out_shard(dev, M):
+    """``w8a8_matmul``'s int32 mode (the row-parallel sites' accumulator)
+    at jamba-v0.1-52b's ``mamba_out`` shard of tp = 2 (K = 4096 of the
+    8192 channels, N = 4096): decode (M = 4, bf16 x quantized in the
+    staging) and prefill (int8 codes) equal their plain versions, and the
+    two ranks' int32 partials summed, with the epilogue once, equal the
+    whole weight's launch, bit for bit."""
+    from repro_torch.kernels.w8a8_matmul import w8a8_epilogue
+    g = torch.Generator(dev).manual_seed(29)
+    K, N = 8192, 4096
+    bf = torch.bfloat16
+    sx, zx = (torch.tensor(v_, device=dev) for v_ in (0.027, 119.0))
+    sw = torch.tensor(0.0039, device=dev).to(bf)
+    w = torch.randint(-127, 128, (K, N), generator=g, device=dev,
+                      dtype=torch.int8)
+    colsum = w.sum(0, dtype=torch.int32)
+    h = K // 2
+    if M <= 16:
+        x = (torch.randn((M, K), generator=g, device=dev) * 3).to(bf)
+        parts = [quant_w8a8_matmul(x[:, s].contiguous(), w[s].contiguous(),
+                                   sx, zx, sw, out_dtype=torch.int32)
+                 for s in (slice(0, h), slice(h, K))]
+        for i, s in enumerate((slice(0, h), slice(h, K))):
+            assert torch.equal(parts[i], quant_w8a8_matmul_plain(
+                x[:, s].contiguous(), w[s].contiguous(), sx, zx, sw,
+                out_dtype=torch.int32))
+        whole = quant_w8a8_matmul(x, w, sx, zx, sw, colsum, out_dtype=bf)
+    else:
+        x = torch.randint(-128, 128, (M, K), generator=g, device=dev,
+                          dtype=torch.int8)
+        parts = [w8a8_matmul(x[:, s].contiguous(), w[s].contiguous(), sx,
+                             zx, sw, out_dtype=torch.int32)
+                 for s in (slice(0, h), slice(h, K))]
+        for i, s in enumerate((slice(0, h), slice(h, K))):
+            assert torch.equal(parts[i], w8a8_matmul_plain(
+                x[:, s].contiguous(), w[s].contiguous(), sx, zx, sw,
+                out_dtype=torch.int32))
+        whole = w8a8_matmul(x, w, sx, zx, sw, colsum, -128.0, bf)
+    assert torch.equal(whole, w8a8_epilogue(parts[0] + parts[1], sx, zx, sw,
+                                            colsum, -128.0, bf))

@@ -19,8 +19,11 @@ unsharded engines, on f32 ``paper_tiny`` (8 query heads, 4 KV heads).
   admit together when rank 1's clock runs three times as fast;
 * ``decode_attention_tp`` / ``_tp_paged``, each rank's slice computed in one
   process, concatenate to JAX's ``flash_decode_ref``;
-* what is not sharded yet raises, citing the ROADMAP.
+* what is not sharded yet raises, citing the ROADMAP (the MoE, VLM and
+  hybrid families and the axes that do not divide are served and held in
+  ``test_torch_tp_families.py``).
 """
+import dataclasses
 import types
 
 import numpy as np
@@ -53,7 +56,8 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import common as TC  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
 from repro_torch.models.registry import build  # noqa: E402
-from repro_torch.serving.engine import Engine, shard_tree, tp_config  # noqa: E402
+from repro_torch.serving.engine import (Engine, check_tp_serving,  # noqa: E402
+                                        shard_tree, tp_config)
 from _tp_probe import run_cases  # noqa: E402
 
 QN = QuantConfig()
@@ -180,6 +184,11 @@ def _flat(tree, prefix=""):
         for k, v in tree.items():
             out.update(_flat(v, f"{prefix}/{k}" if prefix else k))
         return out
+    if isinstance(tree, list):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_flat(v, f"{prefix}/{i}"))
+        return out
     return {prefix: tree}
 
 
@@ -200,6 +209,26 @@ def test_param_specs_equal_jax(ref, tp, prequant):
 
 FAMILIES = ("paper_tiny", "olmoe-1b-7b", "internvl2-26b", "jamba-v0.1-52b",
             "whisper-base", "xlstm-350m")
+
+
+@pytest.mark.parametrize("tp", [1, 2, 4])
+@pytest.mark.parametrize("prequant", [False, True], ids=["fp", "prequant"])
+@pytest.mark.parametrize("arch", FAMILIES[1:4])
+def test_param_specs_equal_jax_families(arch, tp, prequant):
+    """``test_param_specs_equal_jax`` for the MoE, VLM and hybrid families
+    (reduced, JAX's weights): every leaf's spec under the serve and the
+    training rules, fp and prequantized."""
+    jcfg = reduced(get_config(arch), dtype="float32")
+    jp = j_build(jcfg).init_params(jax.random.PRNGKey(0))
+    tp_tree = convert.params_from_numpy(np_tree(jp)).tree()
+    if prequant:
+        jp = JQ.prequantize_tree(jp, QW8)
+        tp_tree = TQ.prequantize_tree(tp_tree, QW8)
+    mesh = fake_mesh(tp)
+    for rules, jrules in ((SH.serve_rules(), JSH.serve_rules()),
+                          (SH.DEFAULT_RULES, JSH.DEFAULT_RULES)):
+        assert _flat(SH.params_shardings(tp_tree, mesh, rules)) \
+            == _jax_param_specs(jp, mesh, jrules)
 
 
 @pytest.mark.parametrize("tp", [1, 2, 4])
@@ -542,12 +571,17 @@ def _mesh2():
 
 
 @pytest.mark.parametrize("arch,qcfg,kw", [
-    ("olmoe-1b-7b", QN, {}),
+    ("xlstm-350m", QN, {}),
+    ("whisper-base", QN, {}),
     ("paper_tiny", QuantConfig(mode="pt_dynamic", true_int8=True), {}),
     ("paper_tiny", QuantConfig(mode="ptoken_dynamic"), {}),
     ("paper_tiny", QW8, {"prequant": True, "weight_bits": 4}),
-], ids=["moe", "pt_dynamic", "ptoken_dynamic", "w4a8"])
+], ids=["xlstm", "encdec", "pt_dynamic", "ptoken_dynamic", "w4a8"])
 def test_unsharded_cases_refuse(ref, arch, qcfg, kw):
+    """What is not sharded yet raises, naming its ROADMAP item: the xLSTM
+    and encoder-decoder families (6.3b), the dynamic modes and W4A8 (6.4).
+    The MoE, VLM and hybrid families serve (``test_torch_tp_families.py``
+    holds them to JAX)."""
     cfg = t_get_config(arch)
     if arch != "paper_tiny":
         cfg = t_reduced(cfg, dtype="float32")
@@ -560,16 +594,22 @@ def test_unsharded_cases_refuse(ref, arch, qcfg, kw):
 
 
 def test_indivisible_heads_replicas_and_data_refuse():
+    """Axes that do not divide are served whole (``paper_tiny`` at tp = 3
+    in ``test_torch_tp_families.py``); what still raises: a rank whose
+    query heads straddle the groups of whole KV heads (H = 12, K = 4 at
+    tp = 3), replicas with tp, a data axis."""
     api = build(t_get_config("paper_tiny"), "cpu")
     params = api.init_params(torch.Generator().manual_seed(0))
-    with pytest.raises(ValueError, match="ROADMAP queue 1, item 6"):
-        Engine(api, params, QN,
-               mesh=M.TPMesh(0, 3, None, torch.device("cpu"), None))
+    straddle = dataclasses.replace(t_get_config("paper_tiny"), n_heads=12,
+                                   n_kv_heads=4, d_head=48, d_model=576)
+    with pytest.raises(ValueError, match=r"ROADMAP queue 1, item 6\.5b"):
+        check_tp_serving(straddle, QN, 3)
     with pytest.raises(SystemExit, match="ROADMAP queue 1, item 6"):
         serve.main(["--device", "cpu", "--tp", "2", "--mode", "continuous",
                     "--replicas", "2"])
-    with pytest.raises(SystemExit, match="ROADMAP queue 1, item 6"):
-        serve.main(["--device", "cpu", "--tp", "3"])
+    with pytest.raises(SystemExit, match=r"ROADMAP queue 1, item 6\.3b"):
+        serve.main(["--device", "cpu", "--tp", "2", "--arch",
+                    "xlstm-350m"])
     # a (data=2, tp=2) mesh is made inside the ranks of spawn_mesh; an
     # engine refuses a mesh with a data axis (the reference never serves on
     # one: its data-parallel serving is the router's replicas)

@@ -1,0 +1,480 @@
+"""Port parity, tensor-parallel serving of the MoE, VLM and hybrid families
+and of axes that do not divide by tp: ``repro_torch`` over
+``torch.distributed`` (gloo, one ``launch/mesh.spawn_tp`` a world size,
+every case in it) against the JAX package's unsharded engines, in f32 on
+the reduced configs (olmoe: 4 query and 4 KV heads, 8 experts; internvl2:
+4 query and 2 KV heads, 16 patches; jamba: one period, 4 query and 2 KV
+heads, 128 Mamba channels, 8 experts).
+
+* the rank's layout (``serving/engine.tp_layout``) cuts an axis exactly
+  where the reference's specs name tp, and the placement
+  (``shard_tree``) cuts JAX's shard shapes there, with the documented
+  differences: qkv by heads (every KV head where they do not divide), the
+  Mamba ``w_in`` by each half's channels, ``A_log`` by rows, ``w_x``
+  whole, ``conv_b`` cut;
+* tp = 2, each family, the static ``Engine`` under ``none`` (fp and int8
+  KV) and ``pt_static`` with int8-resident weights and int8 KV: prefill
+  logits within JAX's own tp bar (2e-4) of JAX's unsharded engine under
+  ``none``, and its 10 greedy tokens; under ``pt_static`` within 1e-4 of
+  the port's unsharded engine and its tokens (the experts' partial
+  outputs summed in f32, the other row-parallel sites in int32), and of
+  JAX's in every row where the unsharded port holds them: all rows of
+  olmoe and internvl2 (bit-exact on this input), one of jamba's two (in
+  the other an f32 rounding difference of the Mamba mixer flips a W8A8
+  code against JAX on one rank too, ROADMAP queue 3);
+* tp = 4: olmoe fp (the reference's case) and the VLM and the hybrid,
+  whose 2 KV heads are whole on every rank (each rank's one query head
+  reads its group's KV head of the whole cache, ``kv_window``);
+* axes that do not divide: internvl2 with a vocabulary of 257 at tp = 2
+  (the embedding and the head whole on every rank, no collective there),
+  ``paper_tiny`` at tp = 3, where only d_ff divides;
+* each family's ``ContinuousEngine`` at tp = 2, contiguous and paged int8
+  pools: JAX's tokens and slots, the ranks' admissions equal;
+* jamba's int8 cushion block is whole and bit-identical on every rank,
+  and each rank's Mamba cushion state is its channel slice of the
+  artifact;
+* ``serve.py --tp 2`` serves ``--tp 1``'s tokens (jamba static,
+  internvl2 through a paged pool).
+"""
+import types
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import QuantConfig, get_config, reduced  # noqa: E402
+from repro.core import calibration as JCal  # noqa: E402
+from repro.core import quantization as JQ  # noqa: E402
+from repro.distributed import sharding as JSH  # noqa: E402
+from repro.models.registry import build as j_build  # noqa: E402
+from repro.serving import ContinuousEngine as JContinuous  # noqa: E402
+from repro.serving import Engine as JEngine  # noqa: E402
+from repro.serving import Request as JRequest  # noqa: E402
+from repro_torch.configs import get_config as t_get_config  # noqa: E402
+from repro_torch.configs import reduced as t_reduced  # noqa: E402
+from repro_torch.core import quantization as TQ  # noqa: E402
+from repro_torch.distributed import sharding as SH  # noqa: E402
+from repro_torch.launch import mesh as M  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import convert  # noqa: E402
+from repro_torch.models import ssm as SSM  # noqa: E402
+from repro_torch.serving.engine import (leaf_cut, shard_tree,  # noqa: E402
+                                        tp_layout)
+from _tp_probe import run_cases  # noqa: E402
+
+QN = QuantConfig()
+QW8 = QuantConfig(mode="pt_static", true_int8=True)
+TOL = 2e-4                # JAX's own tp bar (tests/test_sharding.py)
+W8_TOL = 1e-4             # the families' W8A8 bar where no code flips
+N_TOKENS = 10
+ARCHS = ("olmoe-1b-7b", "internvl2-26b", "jamba-v0.1-52b")
+# (name, qcfg, prequant, kv_dtype)
+STATIC = [("none-fp", QN, False, None), ("none-int8", QN, False, "int8"),
+          ("w8a8-prequant-int8", QW8, True, "int8")]
+# (name, kv_dtype, paged)
+POOLS = [("int8", "int8", False), ("paged-int8", "int8", True)]
+BUDGETS = [5, 3, 6, 4]
+
+
+def np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def fake_mesh(tp):
+    return types.SimpleNamespace(shape={"data": 1, "tp": tp},
+                                 axis_names=("data", "tp"))
+
+
+def _setup(arch, **over):
+    jcfg = get_config(arch)
+    tcfg = t_get_config(arch)
+    if arch != "paper_tiny":
+        jcfg = reduced(jcfg, dtype="float32", **over)
+        tcfg = t_reduced(tcfg, dtype="float32", **over)
+    japi = j_build(jcfg)
+    params = japi.init_params(jax.random.PRNGKey(0))
+    cushion = japi.extract_cushion(params, jnp.asarray([1, 2, 3], jnp.int32),
+                                   None, QN)
+    cal = [japi.make_batch(jax.random.PRNGKey(100 + i), 2, 32)
+           for i in range(2)]
+    scales, _ = JCal.calibrate(japi, params, cal, QW8, cushion=cushion)
+    batch = {k: v for k, v in japi.make_batch(jax.random.PRNGKey(7), 2,
+                                              24).items() if k != "labels"}
+    reqs = [JRequest(uid=i, batch={
+        k: v for k, v in japi.make_batch(jax.random.PRNGKey(200 + i), 1,
+                                         (20, 26)[i % 2]).items()
+        if k != "labels"}, max_new_tokens=n)
+        for i, n in enumerate(BUDGETS)]
+    return dict(arch=arch, jcfg=jcfg, tcfg=tcfg, japi=japi, params=params,
+                cushion=cushion, scales=scales, batch=batch, reqs=reqs,
+                np_params=np_tree(params), np_cushion=np_tree(cushion),
+                np_scales=np_tree(JCal.scales_to_plain(scales)),
+                np_batch=np_tree(batch))
+
+
+@pytest.fixture(scope="module")
+def fams():
+    return {a: _setup(a) for a in ARCHS}
+
+
+@pytest.fixture(scope="module")
+def odd():
+    """The indivisible cases: internvl2 with 257 tokens, paper_tiny."""
+    return {"vocab257": _setup("internvl2-26b", vocab_size=257),
+            "paper_tiny": _setup("paper_tiny")}
+
+
+def _case(s, name, **kw):
+    return dict(cfg=s["tcfg"], params=s["np_params"],
+                cushion=s["np_cushion"], scales=s["np_scales"], max_seq=128,
+                name=name, **kw)
+
+
+def _static(s, name, qcfg, pq, kv, **kw):
+    return _case(s, f"{s['arch']}/{name}", kind="static", qcfg=qcfg,
+                 prequant=pq, kv_dtype=kv, n_tokens=N_TOKENS, logits=True,
+                 **s["np_batch"], **kw)
+
+
+def _pool(s, name, kv, paged):
+    reqs = [dict(np_tree(r.batch), max_new_tokens=r.max_new_tokens)
+            for r in s["reqs"]]
+    return _case(s, f"{s['arch']}/pool-{name}", kind="continuous", qcfg=QN,
+                 kv_dtype=kv, paged=paged, page_size=32, n_slots=2,
+                 requests=reqs)
+
+
+def _by_name(cases, outs):
+    return {c["name"]: [o[i] for o in outs] for i, c in enumerate(cases)}
+
+
+@pytest.fixture(scope="module")
+def tp2(fams, odd):
+    """Every tp = 2 case in one spawn: {name: [rank 0's report, ...]}."""
+    cases = [_static(s, n, q, pq, kv) for s in fams.values()
+             for n, q, pq, kv in STATIC]
+    cases += [_pool(s, n, kv, pg) for s in fams.values()
+              for n, kv, pg in POOLS]
+    cases += [dict(_static(odd["vocab257"], "none-fp", QN, False, None),
+                   name="vocab257")]
+    outs = M.spawn_tp(run_cases, 2, cases, device="cpu", every_rank=True,
+                      timeout_s=900)
+    return _by_name(cases, outs)
+
+
+@pytest.fixture(scope="module")
+def tp4(fams):
+    cases = [_static(fams[a], "none-fp", QN, False, None) for a in ARCHS]
+    return _by_name(cases, M.spawn_tp(run_cases, 4, cases, device="cpu",
+                                      every_rank=True, timeout_s=900))
+
+
+@pytest.fixture(scope="module")
+def tp3(odd):
+    cases = [dict(_static(odd["paper_tiny"], "none-fp", QN, False, None),
+                  name="paper_tiny")]
+    return _by_name(cases, M.spawn_tp(run_cases, 3, cases, device="cpu",
+                                      every_rank=True, timeout_s=900))
+
+
+def _jax_engine(s, qcfg, prequant, kv):
+    static = qcfg.mode == "pt_static"
+    return JEngine(s["japi"], s["params"], qcfg, cushion=s["cushion"],
+                   scales=s["scales"] if static else None, max_seq=128,
+                   kv_dtype=kv, prequant=prequant)
+
+
+def _jax_ref(s, qcfg, prequant, kv):
+    """JAX's unsharded engine: (prefill's last logits, 10 tokens)."""
+    eng = _jax_engine(s, qcfg, prequant, kv)
+    with JSH.use_mesh(None):
+        cache = eng._init_cache(s["batch"]["tokens"].shape[0])
+        logits, _, _ = eng._prefill(eng.params, s["batch"], cache)
+    logits = np.asarray(logits[:, -1] if logits.ndim == 3 else logits)
+    return logits, eng.generate(s["batch"], N_TOKENS).tokens
+
+
+def _held(ranks, want_logits, want_tokens, tol, rows=None):
+    """Every rank's prefill logits within ``tol`` of ``want_logits`` and
+    its tokens equal to ``want_tokens`` (in ``rows``, default all), the
+    ranks' logits equal."""
+    rows = slice(None) if rows is None else rows
+    for rep in ranks:
+        assert rep["backend"] == "gloo"
+        err = float(np.abs(rep["logits"] - want_logits)[rows].max())
+        print(f"rank {rep['rank']}: prefill logits max |port tp - want| "
+              f"{err:.3g}")
+        np.testing.assert_allclose(rep["logits"][rows], want_logits[rows],
+                                   rtol=tol, atol=tol)
+        np.testing.assert_array_equal(rep["tokens"][rows],
+                                      want_tokens[rows])
+        np.testing.assert_array_equal(rep["logits"], ranks[0]["logits"])
+
+
+# ---------------------------------------------------------------------------
+# 1. The rank's layout and its cut
+# ---------------------------------------------------------------------------
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}/{k}" if prefix else k))
+        return out
+    if isinstance(tree, list):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_flat(v, f"{prefix}/{i}"))
+        return out
+    return {prefix: tree}
+
+
+def _jax_param_specs(tree, mesh):
+    paths = jax.tree_util.tree_leaves(JSH.tree_paths(tree))
+    leaves = jax.tree_util.tree_leaves(tree)
+    return {p: tuple(JSH.rules_pspec(p, x.shape, mesh, JSH.serve_rules()))
+            for p, x in zip(paths, leaves)}
+
+
+# leaves the port cuts otherwise than the reference's spec (each said at
+# the cut, serving/engine.shard_tree): a rank computes whole heads and
+# whole channels
+OTHERWISE = ("attn/wqkv", "attn/bqkv", "mamba/w_in", "mamba/w_x",
+             "mamba/A_log", "mamba/conv_b")
+
+
+@pytest.mark.parametrize("tp", [2, 3, 4])
+@pytest.mark.parametrize("arch", ARCHS + ("paper_tiny",))
+def test_layout_and_cut_follow_the_specs(fams, odd, arch, tp):
+    """An axis is cut where JAX's spec of its leaves names tp; each leaf of
+    a prequantized tree is cut on the spec's axis to JAX's shard shape,
+    but for the documented differences; a leaf the spec keeps whole is
+    whole (conv_b aside)."""
+    s = fams[arch] if arch in fams else odd["paper_tiny"]
+    jp = JQ.prequantize_tree(s["params"], QW8)
+    full = TQ.prequantize_tree(
+        convert.params_from_numpy(s["np_params"]).tree(), QW8)
+    jspecs = _jax_param_specs(jp, fake_mesh(tp))
+    assert _flat(SH.params_shardings(full, fake_mesh(tp),
+                                     SH.serve_rules())) == jspecs
+    cfg = s["tcfg"]
+    lay = tp_layout(cfg, tp)
+    shard = _flat(shard_tree(full, cfg, M.TPMesh(tp - 1, tp, None,
+                                                 torch.device("cpu"), None)))
+    flat_full = _flat(full)
+    for p, spec in jspecs.items():
+        shape = tuple(flat_full[p].shape)
+        spec = (None,) * (len(shape) - len(spec)) + spec
+        c = leaf_cut(p, cfg, tp)
+        got = tuple(shard[p].shape)
+        if c is not None:
+            dim = c[1] % len(shape)
+            assert c[0] in lay.cut
+            want = list(shape)
+            if "attn/wqkv" in p or "attn/bqkv" in p:
+                K = cfg.n_kv_heads // (tp if "kv_heads" in lay.cut else 1)
+                want[dim] = (cfg.n_heads // tp + 2 * K) * cfg.head_dim
+            else:
+                want[dim] //= tp
+            assert got == tuple(want), p
+        else:
+            assert got == shape, p
+        if any(o in p for o in OTHERWISE):
+            continue
+        # every other leaf: cut exactly where the spec names tp
+        assert (c is not None) == ("tp" in spec), (p, spec, lay.cut)
+        if c is not None:
+            assert spec[c[1] % len(shape)] == "tp", p
+    # the layout says each axis as the specs do
+    assert ("vocab" in lay.cut) == (cfg.vocab_size % tp == 0)
+    assert ("d_ff" in lay.cut) == (cfg.d_ff % tp == 0)
+    if cfg.moe is not None:
+        assert ("experts" in lay.cut) == (cfg.moe.num_experts % tp == 0)
+    if arch == "jamba-v0.1-52b":
+        assert ("inner" in lay.cut) == (SSM.dims(cfg)[0] % tp == 0)
+
+
+def test_layouts_of_the_served_models():
+    """Full width at tp = 2: olmoe cuts heads, experts and vocabulary;
+    internvl2's odd vocabulary (92,553) is whole; jamba cuts everything.
+    The reduced VLM and hybrid at tp = 4 keep their 2 KV heads whole."""
+    def cut(arch, tp, red=False):
+        cfg = t_get_config(arch)
+        if red:
+            cfg = t_reduced(cfg, dtype="float32")
+        return set(tp_layout(cfg, tp).cut)
+    assert cut("olmoe-1b-7b", 2) >= {"heads", "kv_heads", "experts",
+                                     "vocab"}
+    assert cut("internvl2-26b", 2) == {"heads", "kv_heads", "d_ff"}
+    assert cut("jamba-v0.1-52b", 2) == {"heads", "kv_heads", "d_ff",
+                                        "vocab", "experts", "inner"}
+    for arch in ("internvl2-26b", "jamba-v0.1-52b"):
+        got = cut(arch, 4, red=True)
+        assert "heads" in got and "kv_heads" not in got
+    assert cut("paper_tiny", 3) == {"d_ff"}
+
+
+# ---------------------------------------------------------------------------
+# 2. The static Engine at tp = 2 against JAX's unsharded one
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name,qcfg,prequant,kv", STATIC,
+                         ids=[s[0] for s in STATIC])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_tp2_engine_matches_jax(fams, tp2, arch, name, qcfg, prequant, kv):
+    """Under ``none``, JAX's unsharded logits within 2e-4 and its tokens.
+    Under ``pt_static``, the port's unsharded engine's logits within 1e-4
+    and its tokens (what sharding adds), and JAX's in every row where the
+    unsharded port holds JAX's: in jamba one row of this input parts
+    from JAX on one rank as well, where an f32 rounding difference of the
+    Mamba mixer flips a W8A8 code (ROADMAP queue 3); no other row may."""
+    s = fams[arch]
+    want_logits, want = _jax_ref(s, qcfg, prequant, kv)
+    ranks = tp2[f"{arch}/{name}"]
+    if qcfg.mode == "none":
+        _held(ranks, want_logits, want, TOL)
+        return
+    case = _static(s, name, qcfg, prequant, kv)
+    one = run_cases(M.make_tp_mesh(1, device="cpu"),
+                    [dict(case, mesh=False)])[0]
+    _held(ranks, one["logits"], one["tokens"], W8_TOL)
+    same = [b for b in range(want.shape[0])
+            if np.allclose(one["logits"][b], want_logits[b], rtol=W8_TOL,
+                           atol=W8_TOL)
+            and np.array_equal(one["tokens"][b], want[b])]
+    print(f"{arch} W8A8: rows where one rank holds JAX's: {same}")
+    assert len(same) >= want.shape[0] - (arch == "jamba-v0.1-52b")
+    _held(ranks, want_logits, want, W8_TOL, rows=same)
+
+
+def test_jamba_cushion_on_every_rank(fams, tp2):
+    """The int8 cushion block kc / vc is whole and bit-identical to the
+    artifact on both ranks (kc_tp / vc_tp its KV heads' slice); each
+    rank's Mamba cushion state is its channel slice of the artifact, bit
+    for bit."""
+    s = fams["jamba-v0.1-52b"]
+    art = {k: np.asarray(v, np.float32)
+           for k, v in s["cushion"]["kv"].items()}
+    st = {k: np.asarray(v, np.float32)
+          for k, v in s["cushion"]["state"].items()}
+    n = SSM.dims(s["tcfg"])[0] // 2
+    kn = s["tcfg"].n_kv_heads // 2
+    for name in ("none-int8", "w8a8-prequant-int8"):
+        for rank, rep in enumerate(tp2[f"jamba-v0.1-52b/{name}"]):
+            cu = rep["cushion"]
+            for c, k in (("kc", "k"), ("vc", "v")):
+                np.testing.assert_array_equal(cu[c], art[k])
+                np.testing.assert_array_equal(
+                    cu[c + "_tp"], art[k][:, :, kn * rank:kn * (rank + 1)])
+            cs = rep["cushion_state"]
+            np.testing.assert_array_equal(
+                cs["h"], st["h"][..., n * rank:n * (rank + 1), :])
+            np.testing.assert_array_equal(
+                cs["conv"], st["conv"][..., n * rank:n * (rank + 1)])
+
+
+# ---------------------------------------------------------------------------
+# 3. tp = 4, whole KV heads
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_tp4_engine_matches_jax(fams, tp4, arch):
+    s = fams[arch]
+    want_logits, want = _jax_ref(s, QN, False, None)
+    ranks = tp4[f"{arch}/none-fp"]
+    _held(ranks, want_logits, want, TOL)
+    if arch != "olmoe-1b-7b":
+        # the 2 KV heads whole on every rank: the fp cache rows [0:m) hold
+        # the whole cushion on each
+        m = 3
+        art = np.asarray(s["cushion"]["kv"]["k"], np.float32)
+        for rep in ranks:
+            rows = rep["cushion"]["k_rows"]
+            assert rows.shape[-2] == s["tcfg"].n_kv_heads
+            np.testing.assert_array_equal(
+                rows, np.broadcast_to(art[:, None], rows.shape))
+            assert rows.shape[2] == m
+
+
+# ---------------------------------------------------------------------------
+# 4. Axes that do not divide
+# ---------------------------------------------------------------------------
+
+def test_odd_vocabulary_served_whole(odd, tp2):
+    s = odd["vocab257"]
+    assert "vocab" not in tp_layout(s["tcfg"], 2).cut
+    want_logits, want = _jax_ref(s, QN, False, None)
+    _held(tp2["vocab257"], want_logits, want, TOL)
+
+
+def test_paper_tiny_tp3_only_d_ff_cut(odd, tp3):
+    s = odd["paper_tiny"]
+    want_logits, want = _jax_ref(s, QN, False, None)
+    _held(tp3["paper_tiny"], want_logits, want, TOL)
+
+
+# ---------------------------------------------------------------------------
+# 5. The ContinuousEngine at tp = 2
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def jax_pools(fams):
+    out = {}
+    for arch, s in fams.items():
+        for name, kv, paged in POOLS:
+            ce = JContinuous(s["japi"], s["params"], QN, n_slots=2,
+                             max_seq=128, cushion=s["cushion"], kv_dtype=kv,
+                             paged=paged, page_size=32)
+            out[f"{arch}/pool-{name}"] = {o.uid: (o.tokens, o.slot)
+                                          for o in ce.run(s["reqs"])}
+    return out
+
+
+@pytest.mark.parametrize("name,kv,paged", POOLS, ids=[p[0] for p in POOLS])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_tp2_continuous_matches_jax(fams, tp2, jax_pools, arch, name, kv,
+                                    paged):
+    key = f"{arch}/pool-{name}"
+    want = jax_pools[key]
+    ranks = tp2[key]
+    for rep in ranks:
+        assert sorted(rep["tokens"]) == sorted(want)
+        for uid, (toks, slot) in want.items():
+            np.testing.assert_array_equal(rep["tokens"][uid], toks)
+        slots = {uid: slot for uid, slot, _ in rep["admissions"]}
+        assert slots == {uid: slot for uid, (_, slot) in want.items()}
+        assert rep["admissions"] == ranks[0]["admissions"]
+        assert rep["stats"]["recycles"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# 6. The launcher
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch,extra", [
+    ("jamba-v0.1-52b", []),
+    ("internvl2-26b", ["--mode", "continuous", "--paged", "--page-size",
+                       "32", "--rate", "0", "--n-requests", "3"]),
+], ids=["jamba-static", "internvl2-paged"])
+def test_serve_tp2_gives_tp1_tokens(arch, extra):
+    """``serve.py --tp 2`` (the reduced config, W8A8 with int8-resident
+    weights and int8 KV, a 4-token cushion) serves the tokens of ``--tp
+    1``: the static path for the hybrid, a paged pool for the VLM (each
+    request's patches the same on both ranks)."""
+    argv = ["--device", "cpu", "--smoke", "--arch", arch, "--quant",
+            "pt_static", "--prequant", "--kv-dtype", "int8",
+            "--cushion-len", "4", "--tokens", "6", "--prompt-len", "24",
+            *extra]
+    one = serve.main(argv)
+    two = serve.main(argv + ["--tp", "2"])
+    if isinstance(one, list):
+        assert [o.uid for o in two] == [o.uid for o in one]
+        for a, b in zip(one, two):
+            np.testing.assert_array_equal(b.tokens, a.tokens)
+    else:
+        np.testing.assert_array_equal(two.tokens, one.tokens)

@@ -584,8 +584,8 @@ def main() -> None:
             args = (qd.data_ptr(), kq.data_ptr(), vq.data_ptr(),
                     ks.data_ptr(), vs.data_ptr(), 1, kc.data_ptr(),
                     vc.data_ptr(), pos.data_ptr(), 1, out.data_ptr(), 1, 1,
-                    B, H, K, Smax, hd, m, ws.data_ptr(), tickets.data_ptr(),
-                    stream)
+                    B, H, K, Smax, hd, m, 0, K, ws.data_ptr(),
+                    tickets.data_ptr(), stream)
             out.zero_()
             ws.zero_()
             if fn(*args):
@@ -643,7 +643,7 @@ def decode_precision(dev, entry, workspace, stream, report):
             if fn(qd.data_ptr(), kq.data_ptr(), vq.data_ptr(), ks.data_ptr(),
                   vs.data_ptr(), 1, kc.data_ptr(), vc.data_ptr(),
                   pos.data_ptr(), 1, out.data_ptr(), 1, 1, B, H, K, Smax, hd,
-                  m, ws.data_ptr(), tickets.data_ptr(), stream):
+                  m, 0, K, ws.data_ptr(), tickets.data_ptr(), stream):
                 raise SystemExit(f"flash_decode.{name}: launch failed")
             c = check(out, want)
             tally[name]["outside_one_ulp"] += c["outside_one_ulp"]
