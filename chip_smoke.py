@@ -180,7 +180,8 @@ Phases, each fatal on failure:
    on the odd layers, d_model 4096, G = 4, bf16, seeded random weights),
    a cushion of KV and Mamba state: the static Engine for B=4, 512 tokens
    and 16 new tokens in W8A8 and fp as in 4f; the Mamba scan's device and
-   wall ms at the prefill's shape; the kernels at its shapes (``hybrid_*``;
+   wall ms and its kernel count at the prefill's shape (the reference's
+   associative scan, ``models/ssm.py``); the kernels at its shapes (``hybrid_*``;
    mamba_out's K = 8192); a contiguous and a paged int8 pool over 8
    requests, tokens = the static B=1 Engine's; ``discover`` through
    ``greedy_search_ref`` (no KV-reuse scoring for a recurrence; 16
@@ -252,10 +253,21 @@ Phases, each fatal on failure:
    slots over 8 requests (tokens and admissions equal); every rank's
    launches of every kernel equal to one rank's, the cushion block whole
    and bit-identical on every rank; TTFT / TPOT, the backend and the peak
-   memory of each run; ``w8a8_matmul``'s int32 mode (the row-parallel
-   sites' accumulators) ``torch.equal`` to its plain version at the
-   shards' shapes, two K-halves summed with the epilogue applied once
-   equal to the whole launch, timed beside the bf16 epilogue launch;
+   memory of each run; in the same spawn W4A8 (int4-resident, int8 KV),
+   ``pt_dynamic`` and ``ptoken_dynamic`` as ``serve.py`` serves them (the
+   dynamic ones 16 tokens, ``TP_DYN_NEW``),
+   tokens equal to one rank's up to near ties (``TP_FP_TIE``), the prefill
+   logits' largest difference printed, launches a rank one rank's with the
+   row-parallel sites' modes counted by name (``w4a8_matmul_acc``,
+   ``act_quant_ptoken_range`` / ``_given``); ``w8a8_matmul``'s int32 mode
+   (the row-parallel sites' accumulators) ``torch.equal`` to its plain
+   version at the shards' shapes, two K-halves summed with the epilogue
+   applied once equal to the whole launch, timed beside the bf16 epilogue
+   launch; ``w4a8_matmul``'s f32 accumulator mode and ``act_quant_ptoken``'s
+   range-only and given-range modes at the same shards ``torch.equal`` to
+   their plain versions, a row's two halves given their joint range equal
+   to the whole row, two K-halves' W4A8 accumulators with the epilogue
+   within the W4A8 bar of the whole launch, each timed beside its bound;
 4l. data parallelism over a (data, tp) rank mesh: smollm-360m at full
    width and depth on two gloo ranks of the one card
    (``launch/mesh.spawn_mesh``; they time-slice the card through the
@@ -284,6 +296,17 @@ Phases, each fatal on failure:
    step, peak GiB, a step profiled on rank 0. (a) ``compressed_psum`` of
    2.46 M values and ``dp_train_step_compressed``: every rank equal,
    within ``amax / 127 + 1e-6`` of the exact mean;
+4m. the router over tensor-parallel replicas: smollm-360m whole on four
+   gloo ranks of the card, 2 replicas of tp = 2
+   (``launch/mesh.spawn_mesh(data=2, tp=2)``, ``make_replica_meshes``; the
+   15 heads whole on every rank, d_ff and the vocabulary cut), W8A8
+   int8-resident, paged int8 pools of 4 slots a replica, phase 4d's
+   cushion and scales and the first 12 requests of its trace, without
+   faults and with ``crash@replica1.step:48``: every request completed with
+   phase 4d's tokens, every rank's ``RouterStats`` the same, the crash one
+   death with its live requests failed over, each rank's launches those
+   of its replica's admissions and steps; TTFT / TPOT p50, each rank's
+   wall split (its replica's steps, prefills, the rest) and peak GiB;
 5. the card's Engine against the port's CPU Engine on the same weights,
    scales and cushion (B=1, 64-token prompt, 8 tokens) in all four phase-4
    modes: teacher-forced logits within the stated bf16 tolerance,
@@ -296,8 +319,9 @@ Phases, each fatal on failure:
    launches of phase 4d beside, as ``router_launches``, and phases 4e-4i's,
    as ``moe_launches``, ``vlm_launches``, ``hybrid_launches``,
    ``encdec_launches``, ``xlstm_launches``, from phase 4j's launcher
-   run, ``train_launches``, from phase 4k's rank 0, ``tp_launches``, and
-   from a rank of phase 4l's ``tune.py --dp 2``, ``dp_launches``,
+   run, ``train_launches``, from phase 4k's rank 0, ``tp_launches``,
+   from a rank of phase 4l's ``tune.py --dp 2``, ``dp_launches``, and
+   from phase 4m's four ranks, ``router_tp_launches``,
    with each kernel's row at those phases' shapes; the non-causal rows under ``noncausal``), then
    ``{"ok": true, ...}`` as the last line.
 
@@ -656,16 +680,31 @@ def bound_ms(bytes_moved: float, ops: float, peak_ops: float):
                                        else "operations")
 
 
+def device_events(prof):
+    """The trace's device events as (name, us), read from the profiler's
+    raw results: its ``events()`` list builds every CPU op's tree in
+    Python, seconds a trace of tens of thousands of events, for nothing
+    read here."""
+    from torch.autograd import DeviceType
+    return [(e.name(), e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
+def trace_device_ms(prof, steps=1):
+    """(device ms, kernels) a step in the trace."""
+    ev = device_events(prof)
+    return sum(us for _, us in ev) / 1e3 / steps, len(ev) / steps
+
+
 def by_kernel(prof, steps, top=10):
     """The profiler's device time per step by kernel name, the largest
     first (``top`` of them; None: all): {name: [calls per step, ms per
     step]}."""
-    from torch.autograd import DeviceType
     by = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n, us = by.get(e.name, (0, 0.0))
-            by[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    for name, us0 in device_events(prof):
+        n, us = by.get(name, (0, 0.0))
+        by[name] = (n + 1, us + us0)
     rows = sorted(by.items(), key=lambda kv: -kv[1][1])[:top]
     return {k: [n / steps, us / 1e3 / steps] for k, (n, us) in rows}
 
@@ -758,7 +797,6 @@ def method_phase(api, params, cfg, corpus, calib, batch, dev, qw8):
         """fn (``steps`` steps of work) under the profiler: wall ms a step
         (host clock, ending in a sync), the kernels' device ms a step, their
         share of the wall, and the largest kernels."""
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -767,10 +805,7 @@ def method_phase(api, params, cfg, corpus, calib, batch, dev, qw8):
             fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / steps
-        busy = sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.device_type == DeviceType.CUDA) / 1e3 / steps
-        n = sum(1 for e in prof.events()
-                if e.device_type == DeviceType.CUDA) / steps
+        busy, n = trace_device_ms(prof, steps)
         out = {"wall_ms": wall, "device_ms": busy,
                "busy_share": busy / wall, "kernels": n,
                "by_kernel": by_kernel(prof, steps, top=8),
@@ -1051,6 +1086,8 @@ def method_phase(api, params, cfg, corpus, calib, batch, dev, qw8):
 # phase 4d, the replica router: 3 replicas x 4 slots, the 12 requests of
 # phase 4b extended the same way to 24, all arriving at t = 0
 REPLICAS, ROUTER_SLOTS, ROUTER_REQ = 3, 4, 24
+# phase 4d's no-fault tokens by uid, which phase 4m's replicas must give
+ROUTER_TOKENS = {}
 
 
 def router_phase(api, params, qw8, cushion, scales, reqs_4b, outs_4b, ps,
@@ -1256,6 +1293,7 @@ def router_phase(api, params, qw8, cushion, scales, reqs_4b, outs_4b, ps,
     same_tokens("r0 vs phase 4b (b)", res0.outputs[:len(outs_4b)],
                 {o.uid: o.tokens for o in outs_4b})
     tok0 = {o.uid: o.tokens for o in res0.outputs}
+    ROUTER_TOKENS.update(tok0)
     log(f"router: first steps of each replica after construction (ms) "
         f"{[[round(t, 2) for t in ts[:3]] for ts in rec['first_steps_ms']]}"
         f", r0's median step "
@@ -2461,7 +2499,9 @@ def hybrid_phase(dev, zero_counts, counters_zero, timed):
         "by_kernel_top": dict(list(scan_rows.items())[:6])}
     log(f"jamba Mamba scan ({rec['mamba_scan']['unit']}): device "
         f"{dev_ms:.3f} ms, wall {wall:.2f} ms in "
-        f"{rec['mamba_scan']['kernels']:.0f} kernels; a prefill "
+        f"{rec['mamba_scan']['kernels']:.0f} kernels (the position-by-"
+        f"position loop it replaced: 5.83 ms device, 18.5 ms wall, 541 "
+        f"kernels, PERF.md section 5); a prefill "
         f"{rec['mamba_scan']['device_ms_per_prefill']:.2f} ms device, "
         f"{rec['mamba_scan']['wall_ms_per_prefill']:.2f} ms wall")
     del dt_, xc, Bm, Cm, h0, prof
@@ -3018,7 +3058,6 @@ def train_phase(dev, corpus, timed):
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import monitoring as MON
@@ -3188,10 +3227,7 @@ def train_phase(dev, corpus, timed):
             p, s, m = step(p, s, b_)
         torch.cuda.synchronize()
         pwall = (time.perf_counter() - t0) * 1e3 / 2
-    dev_ms = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA) / 1e3 / 2
-    n_k = sum(1 for e in prof.events()
-              if e.device_type == DeviceType.CUDA) / 2
+    dev_ms, n_k = trace_device_ms(prof, 2)
     rec["step"] = {
         "steps": TRAIN_TIMED_STEPS, "step_ms": quartiles(
             step_ms=alone)["step_ms"], "step_ms_all": alone,
@@ -3497,6 +3533,48 @@ TP_SLOTS, TP_REQS, TP_PAGE = 4, 8, 64
 # token where one rank's top-1 and top-2 logits lie within TP_FP_TIE (phase
 # 5's largest fp card-vs-CPU gap); the prefill logits lie within it
 TP_FP_TIE = 0.25
+# phase 4k's cases beside W8A8 and fp (name, qcfg, prequant, weight_bits,
+# kv_dtype), as serve.py serves them; they are made in tp_phase
+TP_MODES = [("w4a8_int8kv", "pt_static", True, 4, "int8"),
+            ("pt_dynamic", "pt_dynamic", False, 8, None),
+            ("ptoken_dynamic", "ptoken_dynamic", False, 8, None)]
+# the dynamic modes' tokens (their rows part at near ties within the first
+# 20 of 32 on the NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 6; their
+# weights are fake-quantized on every call)
+TP_DYN_NEW = 16
+# the tensor-parallel modes' launch names and the kernel each replaces at
+# a rank's row-parallel sites (the range-only launches ride with the
+# given-range ones, one each)
+TP_MODE_NAMES = {"w4a8_matmul_acc": "w4a8_matmul",
+                 "act_quant_ptoken_given": "act_quant_ptoken"}
+
+
+def merge_tp_modes(counts):
+    """A rank's launch counts with its modes' launches counted under the
+    kernels they replace: one rank's counts where every check holds."""
+    out = {k: v for k, v in counts.items() if k != "act_quant_ptoken_range"}
+    for mode, kern in TP_MODE_NAMES.items():
+        out[kern] = out.get(kern, 0) + out.pop(mode, 0)
+        out[mode] = 0
+    out["act_quant_ptoken_range"] = 0
+    return out
+
+
+def tp_mode_launches(name, counts):
+    """The modes' launches a rank of phase 4k's run ``name`` must make: the
+    two row-parallel sites of each of the TP_LAYERS layers at every one of
+    the case's forwards (W4A8: the accumulator mode; ptoken_dynamic: a
+    range-only and a given-range launch), none elsewhere. Returns the
+    counts, or None where they differ."""
+    rows = 2 * TP_LAYERS * (TP_NEW if name == "w4a8_int8kv"
+                            else TP_DYN_NEW)
+    want = {"w4a8_matmul_acc": rows if name == "w4a8_int8kv" else 0,
+            "act_quant_ptoken_given": rows if name == "ptoken_dynamic"
+            else 0,
+            "act_quant_ptoken_range": rows if name == "ptoken_dynamic"
+            else 0}
+    got = {k: counts.get(k, 0) for k in want}
+    return got if got == want else None
 
 
 def tp_phase(dev, timed):
@@ -3548,16 +3626,30 @@ def tp_phase(dev, timed):
                   prequant=True, kv_dtype="int8", tokens=prompt,
                   n_tokens=TP_NEW, logits=True, warmup=True),
              dict(base, name="fp", kind="static", qcfg=QuantConfig(),
-                  tokens=prompt, n_tokens=TP_NEW, logits=True, warmup=True,
-                  margins=True),
+                  tokens=prompt, n_tokens=TP_NEW, logits=True, warmup=True),
              dict(base, name="paged_w8a8_int8kv", kind="continuous",
                   qcfg=qw8, prequant=True, kv_dtype="int8", paged=True,
                   page_size=TP_PAGE, n_slots=TP_SLOTS, requests=reqs)]
+    # W4A8 (int4-resident, int8 KV), pt_dynamic and ptoken_dynamic as
+    # serve.py serves them, the ranks once each (no warm-up: their tokens,
+    # logits and launches are what is held)
+    cases += [dict(base, name=name, kind="static",
+                   qcfg=QuantConfig(mode=q, true_int8=q == "pt_static"),
+                   prequant=pre, weight_bits=wb, kv_dtype=kv, tokens=prompt,
+                   n_tokens=TP_NEW if wb == 4 else TP_DYN_NEW, logits=True)
+              for name, q, pre, wb, kv in TP_MODES]
+    # the margins at the partings are one rank's; the one rank warms up
+    # (its decode graph's capture steps stay out of the launch counts)
+    one_rank_only = {"fp": dict(margins=True),
+                     **{m[0]: dict(margins=True, warmup=True)
+                        for m in TP_MODES}}
 
     # (1) one rank, in this process, without a mesh
     t0 = time.perf_counter()
-    one = {c["name"]: tp_probe.run_case(TPMesh(0, 1, None, dev, None),
-                                        dict(c, mesh=False)) for c in cases}
+    one = {c["name"]: tp_probe.run_case(
+        TPMesh(0, 1, None, dev, None),
+        dict(c, mesh=False, **one_rank_only.get(c["name"], {})))
+        for c in cases}
     rec["one_rank_s"] = time.perf_counter() - t0
     del params, cushion, scales
     tp_probe._TREES.clear()
@@ -3583,7 +3675,11 @@ def tp_phase(dev, timed):
         for name, ref in one.items():
             reps = [r[name] for r in ranks]
             for rank, rep in enumerate(reps):
-                if rep["launches"] != ref["launches"]:
+                # the row-parallel sites' launches count under their
+                # mode's name (2 sites a layer, a forward a token)
+                modes = tp_mode_launches(name, rep["launches"])
+                if modes is None or merge_tp_modes(rep["launches"]) \
+                        != ref["launches"]:
                     fail(f"tp {label} {name}: rank {rank} launched "
                          f"{rep['launches']}, one rank {ref['launches']}")
             if isinstance(ref["tokens"], dict):
@@ -3657,7 +3753,10 @@ def tp_phase(dev, timed):
                     fail(f"tp {label} W8A8: the ranks' logits or tokens are "
                          f"not one rank's (prefill logits max |err| {gap})")
             else:
-                if gap > TP_FP_TIE:
+                # fp: the logits within the bound; the modes of TP_MODES:
+                # printed (a range that moves by an ulp flips codes: the
+                # near ties gate)
+                if name == "fp" and gap > TP_FP_TIE:
                     fail(f"tp {label} fp: prefill logits max |err| {gap} > "
                          f"{TP_FP_TIE}")
                 parts = []
@@ -3670,7 +3769,7 @@ def tp_phase(dev, timed):
                     first = int(diff[0])
                     margin = float(ref["margins"][b, first])
                     if margin >= TP_FP_TIE:
-                        fail(f"tp {label} fp: row {b} parts at token "
+                        fail(f"tp {label} {name}: row {b} parts at token "
                              f"{first}, where one rank's top-2 margin is "
                              f"{margin} (no near tie: >= {TP_FP_TIE})")
                     parts.append([first, margin])
@@ -3808,6 +3907,14 @@ def tp_phase(dev, timed):
         "int32_library_of": dec[0]["int32_library_of"]}}
     for name, r in tp_kernel_rows(dev, timed, cfg).items():
         rec["kernels"].setdefault(name, {}).update(r)
+    for name, r in tp_mode_rows(dev, timed, cfg).items():
+        rec["kernels"].setdefault(name, {}).update(r)
+    # rank 0's launches of the modes in the runs above
+    rec["kernels"]["w4a8_matmul"]["acc_launches"] = \
+        rec["launches"].get("w4a8_matmul_acc", 0)
+    rec["kernels"]["act_quant_ptoken"].update(
+        range_launches=rec["launches"].get("act_quant_ptoken_range", 0),
+        given_launches=rec["launches"].get("act_quant_ptoken_given", 0))
     for name, r in tp_family_kernel_rows(dev, timed).items():
         rec["kernels"].setdefault(name, {}).update(r)
     return rec
@@ -4156,6 +4263,178 @@ def tp_family_checks(label, ranks):
 TP_DECODE_FLOOR = 1e-5
 
 
+def tp_mode_rows(dev, timed, cfg):
+    """Phase 4k's tensor-parallel modes at deepseek-67b's row-parallel
+    shards at tp = 2 (``o``: K 4,096; ``down``: K 11,008; N 8,192;
+    groups of 128), M = TP_B (decode: bf16 x, W4A8 quantizing it in its
+    staging) and TP_B x TP_PROMPT (prefill: W4A8 on int8 codes, the
+    per-token quantizer on bf16 x): ``w4a8_matmul``'s f32 accumulator mode
+    and ``act_quant_ptoken``'s range-only and given-range modes
+    ``torch.equal`` to their plain versions; the given range of a row's
+    two halves (the ranks' shards) gives each half the whole row's codes,
+    scale and zero (``torch.equal``); the two K halves' accumulators
+    summed, with the epilogue once, within the reference's W4A8 bar (rtol
+    1e-4, atol 1e-3: f32 sums in another order) of the whole weight's
+    launch. Each timed beside its plain version and its bound (no PyTorch
+    call computes either). Returns {kernel: the tp_* keys}."""
+    import torch
+
+    from repro_torch.kernels.act_quant import (
+        act_quant_ptoken, act_quant_ptoken_plain, act_quant_ptoken_range,
+        act_quant_ptoken_range_plain)
+    from repro_torch.kernels.w4a8_matmul import (
+        quant_w4a8_matmul, quant_w4a8_matmul_plain, w4a8_epilogue,
+        w4a8_matmul, w4a8_matmul_plain)
+
+    bf = torch.bfloat16
+    g = torch.Generator(dev).manual_seed(252)
+    N, G_ = cfg.d_model, 128
+    sx, zx = (torch.tensor(v_, device=dev) for v_ in (0.031, 111.0))
+    acc_rows, pt_rows = [], []
+    for site, Kw in (("o", cfg.n_heads * cfg.head_dim),
+                     ("down", cfg.d_ff)):
+        Kr = Kw // 2                         # a rank's rows of two
+        wq = torch.randint(-7, 8, (Kw, N), generator=g, device=dev,
+                           dtype=torch.int8)
+        lo, hi = wq[0::2].view(torch.uint8) & 0xF, wq[1::2].view(
+            torch.uint8) & 0xF
+        wp = (lo | (hi << 4)).view(torch.int8)
+        s_w = (torch.rand((Kw // G_, N), generator=g, device=dev) * 0.02
+               + 1e-3).to(bf)
+        colsum = (wq.to(torch.int32).reshape(Kw // G_, G_, N).sum(1).float()
+                  * s_w.float()).sum(0)
+        half = [(wp[r * Kr // 2:(r + 1) * Kr // 2].contiguous(),
+                 s_w[r * Kr // G_:(r + 1) * Kr // G_].contiguous())
+                for r in range(2)]
+        for M in (TP_B, TP_B * TP_PROMPT):
+            if M <= 16:
+                x = (torch.randn((M, Kw), generator=g, device=dev) * 3) \
+                    .to(bf)
+                xr = x[:, :Kr].contiguous()
+                run = lambda a, w_, s_: quant_w4a8_matmul(  # noqa: E731
+                    a, w_, sx, zx, s_, None, G_, accumulate=True)
+                plain = lambda a, w_, s_: quant_w4a8_matmul_plain(  # noqa
+                    a, w_, sx, zx, s_, None, G_, accumulate=True)
+                whole = quant_w4a8_matmul(x, wp, sx, zx, s_w, colsum, G_)
+                xs = [x[:, r * Kr:(r + 1) * Kr].contiguous()
+                      for r in range(2)]
+                xb = 2 * M * Kr
+            else:
+                x = torch.randint(-128, 128, (M, Kw), generator=g,
+                                  device=dev, dtype=torch.int8)
+                xr = x[:, :Kr].contiguous()
+                run = lambda a, w_, s_: w4a8_matmul(  # noqa: E731
+                    a, w_, sx, zx, s_, None, G_, accumulate=True)
+                plain = lambda a, w_, s_: w4a8_matmul_plain(  # noqa: E731
+                    a, w_, sx, zx, s_, None, G_, accumulate=True)
+                whole = w4a8_matmul(x, wp, sx, zx, s_w, colsum, G_, -128.0)
+                xs = [x[:, r * Kr:(r + 1) * Kr].contiguous()
+                      for r in range(2)]
+                xb = M * Kr
+            got = run(xr, *half[0])
+            if not torch.equal(got, plain(xr, *half[0])):
+                fail(f"w4a8_matmul accumulator mode ({site} shard, M={M}) "
+                     f"differs from its plain version")
+            split = w4a8_epilogue(run(xs[0], *half[0]) + run(xs[1], *half[1]),
+                                  sx, zx, colsum, -128.0)
+            err = float((split - whole).abs().max())
+            if not bool(((split - whole).abs()
+                         <= 1e-4 * whole.abs() + 1e-3).all()):
+                fail(f"w4a8_matmul ({site}, M={M}): the two K halves' "
+                     f"accumulators with the epilogue are {err} from the "
+                     f"whole weight's launch, beyond the W4A8 bar")
+            bms, by = bound_ms(xb + Kr * N // 2 + 2 * (Kr // G_) * N
+                               + 4 * M * N, 2.0 * M * Kr * N,
+                               INT8_OPS_PER_S)
+            acc_rows.append(dict(
+                site=site, K=Kr, N=N, M=M, halves_max_abs_err=err,
+                ms=timed(lambda: run(xr, *half[0])),
+                plain_ms=timed(lambda: plain(xr, *half[0]), 3),
+                bound_ms=bms, bound_by=by))
+            # the per-token quantizer on the rank's bf16 activation
+            xa = (torch.randn((M, Kw), generator=g, device=dev) * 3
+                  + 0.2).to(bf)
+            parts = [xa[:, r * Kr:(r + 1) * Kr].contiguous()
+                     for r in range(2)]
+            rngs = [act_quant_ptoken_range(p_) for p_ in parts]
+            for p_, r_ in zip(parts, rngs):
+                if not all(torch.equal(a, b) for a, b in zip(
+                        r_, act_quant_ptoken_range_plain(p_))):
+                    fail(f"act_quant_ptoken range-only mode ({site}, M={M}) "
+                         f"differs from its plain version")
+            mn = torch.minimum(rngs[0][0], rngs[1][0])
+            mx = torch.maximum(rngs[0][1], rngs[1][1])
+            given = [act_quant_ptoken(p_, rng=(mn, mx)) for p_ in parts]
+            for p_, got_ in zip(parts, given):
+                if not all(torch.equal(a, b) for a, b in zip(
+                        got_, act_quant_ptoken_plain(p_, rng=(mn, mx)))):
+                    fail(f"act_quant_ptoken given-range mode ({site}, M={M}) "
+                         f"differs from its plain version")
+            want = act_quant_ptoken(xa)
+            if not torch.equal(torch.cat([q_[0] for q_ in given], 1),
+                               want[0]) or not all(
+                    torch.equal(q_[1], want[1])
+                    and torch.equal(q_[2], want[2]) for q_ in given):
+                fail(f"act_quant_ptoken ({site}, M={M}): the halves' given "
+                     f"range does not give the whole row's codes")
+            p0 = parts[0]
+            r_b, r_by = bound_ms(2 * M * Kr + 8 * M, 0, BF16_FLOPS_PER_S)
+            g_b, g_by = bound_ms(2 * M * Kr + M * Kr + 16 * M, 0,
+                                 BF16_FLOPS_PER_S)
+            pt_rows.append(dict(
+                site=site, D=Kr, M=M,
+                range_ms=timed(lambda: act_quant_ptoken_range(p0)),
+                range_plain_ms=timed(
+                    lambda: act_quant_ptoken_range_plain(p0), 3),
+                range_bound_ms=r_b,
+                given_ms=timed(lambda: act_quant_ptoken(p0, rng=(mn, mx))),
+                given_plain_ms=timed(
+                    lambda: act_quant_ptoken_plain(p0, rng=(mn, mx)), 3),
+                given_bound_ms=g_b, bound_by=g_by))
+        del wq, wp, x, xa
+    log("phase 4k's tensor-parallel modes at deepseek-67b's row-parallel "
+        "shards (ms; plain; bound): w4a8_matmul accumulator " + ", ".join(
+            f"{x['site']} K={x['K']} M={x['M']} {x['ms']:.4f} "
+            f"({x['plain_ms']:.4f}; {x['bound_ms']:.4f}; halves + epilogue "
+            f"{x['halves_max_abs_err']:.3g} from whole)" for x in acc_rows)
+        + "; act_quant_ptoken range-only / given-range " + ", ".join(
+            f"{x['site']} D={x['D']} M={x['M']} {x['range_ms']:.4f} / "
+            f"{x['given_ms']:.4f} ({x['range_plain_ms']:.4f} / "
+            f"{x['given_plain_ms']:.4f}; {x['range_bound_ms']:.4f} / "
+            f"{x['given_bound_ms']:.4f})" for x in pt_rows))
+    dec_a = [x for x in acc_rows if x["M"] == TP_B]
+    pre_a = [x for x in acc_rows if x["M"] > TP_B]
+    dec_p = [x for x in pt_rows if x["M"] == TP_B]
+    pre_p = [x for x in pt_rows if x["M"] > TP_B]
+    unit = ("the two row-parallel sites of one layer at a rank's shard of "
+            "deepseek-67b at tp = 2 (o: K=4096, down: K=11008, N=8192)")
+    return {
+        "w4a8_matmul": {
+            "acc_unit": unit + f", M={TP_B}, bf16 x quantized in the staging",
+            "acc_ms": sum(x["ms"] for x in dec_a),
+            "acc_plain_ms": sum(x["plain_ms"] for x in dec_a),
+            "acc_bound_ms": sum(x["bound_ms"] for x in dec_a),
+            "acc_prefill_ms": sum(x["ms"] for x in pre_a),
+            "acc_prefill_plain_ms": sum(x["plain_ms"] for x in pre_a),
+            "acc_prefill_bound_ms": sum(x["bound_ms"] for x in pre_a),
+            "acc_library_ms": None,
+            "acc_halves_max_abs_err": max(x["halves_max_abs_err"]
+                                          for x in acc_rows)},
+        "act_quant_ptoken": {
+            "modes_unit": unit.replace("K=", "D=") + f", M={TP_B}, bf16",
+            "range_ms": sum(x["range_ms"] for x in dec_p),
+            "range_plain_ms": sum(x["range_plain_ms"] for x in dec_p),
+            "range_bound_ms": sum(x["range_bound_ms"] for x in dec_p),
+            "given_ms": sum(x["given_ms"] for x in dec_p),
+            "given_plain_ms": sum(x["given_plain_ms"] for x in dec_p),
+            "given_bound_ms": sum(x["given_bound_ms"] for x in dec_p),
+            "given_prefill_ms": sum(x["given_ms"] for x in pre_p),
+            "given_prefill_bound_ms": sum(x["given_bound_ms"]
+                                          for x in pre_p),
+            "range_prefill_ms": sum(x["range_ms"] for x in pre_p),
+            "modes_library_ms": None}}
+
+
 def tp_kernel_rows(dev, timed, cfg):
     """Phase 4k's kernels at the shapes its runs give them, each against
     its plain version on the same inputs (random, from a seed): deepseek-
@@ -4357,6 +4636,143 @@ def tp_kernel_rows(dev, timed, cfg):
         "shard_bound_ms": sum(x["bound_ms"] * (2 if x["site"] == "up_gate"
                                                else 1) for x in mm)}
     return out
+
+
+# phase 4m, the router over tensor-parallel replicas: smollm-360m whole,
+# 2 replicas of tp = 2 (four gloo ranks of the one card,
+# launch/mesh.spawn_mesh(data=2, tp=2), each replica a data row), W8A8
+# int8-resident with int8 paged pools of ROUTER_SLOTS slots, phase 4d's
+# cushion, scales and the first RTP_REQ requests of its trace
+RTP_REPLICAS, RTP_TP, RTP_REQ = 2, 2, 12
+# replica 1 dies with requests live (it steps 94 times without a fault on
+# the NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 5); late enough that
+# replica 0 takes over only the requests replica 1 holds then
+RTP_CRASH = "crash@replica1.step:48"
+
+
+def router_tp_phase(dev, api, cushion, scales, ps):
+    """Phase 4m: ``ReplicaRouter(meshes=make_replica_meshes(2, 2))`` on
+    four ranks, without faults and with ``RTP_CRASH``: every rank's
+    ``RouterStats`` the same; every request completed with phase 4d's
+    tokens (its one-rank replicas'; W8A8 at tp = 2 is one rank's bit for
+    bit); the fault run one death and its live requests failed over; the
+    launches of each rank those of its replica's admissions and steps.
+    Prints TTFT / TPOT p50, the wall split and each rank's peak GiB.
+    Returns the record."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import QuantConfig, get_config
+    from repro_torch.core.calibration import scales_to_plain
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.mesh import spawn_mesh
+    from repro_torch.launch.serve import poisson_trace
+    tp_probe = import_tp_probe()
+
+    cfg = get_config(ARCH)
+    L = cfg.n_layers
+    reqs = poisson_trace(api, 0, ROUTER_REQ, 0.0, (PROMPT, PROMPT + 8),
+                         (NEW_TOKENS, NEW_TOKENS // 2))[:RTP_REQ]
+    cpu = lambda t: t.detach().cpu()       # noqa: E731
+    base = dict(cfg=cfg, seed=0, kind="router",
+                qcfg=QuantConfig(mode="pt_static", true_int8=True),
+                prequant=True, kv_dtype="int8", paged=True, page_size=ps,
+                n_slots=ROUTER_SLOTS, n_replicas=RTP_REPLICAS,
+                max_seq=PROMPT + 8 + NEW_TOKENS + 32,
+                cushion=tree_map(cpu, cushion),
+                scales=tree_map(cpu, scales_to_plain(scales)),
+                requests=[dict(tokens=cpu(r.batch["tokens"]),
+                               max_new_tokens=r.max_new_tokens)
+                          for r in reqs])
+    cases = [dict(base, name="no_fault"),
+             dict(base, name="crash", chaos=RTP_CRASH)]
+    rec = {"arch": ARCH, "replicas": RTP_REPLICAS, "tp": RTP_TP,
+           "slots": ROUTER_SLOTS, "requests": RTP_REQ, "runs": {},
+           "launches": {}, "kernels": {},
+           "note": "four gloo ranks time-slice one card: the mechanism, "
+                   "not the speed of tensor parallelism"}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = spawn_mesh(tp_probe.run_router_cases, RTP_REPLICAS, RTP_TP, cases,
+                     device="cuda", every_rank=True)
+    rec["spawn_s"] = time.perf_counter() - t0
+    sites = 5 * L
+    zero = {k: 0 for k in _lib.LAUNCHES}
+    for i, case in enumerate(cases):
+        name = case["name"]
+        ranks = [o[i] for o in out]
+        r0 = ranks[0]
+        st = r0["stats"]
+        for rep in ranks:
+            if rep["stats"] != st or [o[:3] for o in rep["outputs"]] != [
+                    o[:3] for o in r0["outputs"]]:
+                fail(f"router tp {name}: rank {rep['rank']}'s router saw "
+                     f"another run than rank 0's")
+            # this rank's launches: its replica's admissions (B = 1
+            # prefills of > 16 rows) and decode steps
+            per = st["per_replica"][rep["replica"]]
+            n, s_ = per["admitted"], per["steps"]
+            want = {**zero, "w8a8_matmul": (sites + 1) * (s_ + n),
+                    "act_quant_static": sites * n,
+                    "act_quant_static_fused": n + (sites + 1) * s_,
+                    "flash_attention": L * n, "flash_decode_paged": L * s_}
+            if rep["launches"] != want:
+                fail(f"router tp {name}: rank {rep['rank']} launched "
+                     f"{rep['launches']}, its replica's {n} admissions and "
+                     f"{s_} steps make {want}")
+            for k_, v_ in rep["launches"].items():
+                rec["launches"][k_] = rec["launches"].get(k_, 0) + v_
+        outs = {o[0]: o for o in r0["outputs"]}
+        if sorted(outs) != list(range(RTP_REQ)) or st["completed"] != RTP_REQ \
+                or st["rejected"]:
+            fail(f"router tp {name}: {st['completed']} of {RTP_REQ} "
+                 f"completed, rejections {st['rejections']}")
+        for uid, o in outs.items():
+            if not np.array_equal(o[3], ROUTER_TOKENS[uid]):
+                fail(f"router tp {name}: request {uid}'s tokens are not "
+                     f"phase 4d's")
+        states = [p["state"] for p in st["per_replica"]]
+        if name == "crash":
+            if st["replica_deaths"] != 1 or states != ["HEALTHY", "DEAD"] \
+                    or not st["failovers"] \
+                    or st["retries"] < st["failovers"]:
+                fail(f"router tp crash: {st['replica_deaths']} deaths, "
+                     f"states {states}, {st['failovers']} failovers, "
+                     f"{st['retries']} retries")
+        elif st["replica_deaths"] or st["failovers"] or st["retries"]:
+            fail(f"router tp no fault: {st}")
+        ttft = list(r0["ttft_ms"].values())
+        tpot = list(r0["tpot_ms"].values())
+        split = []
+        for rep in ranks:
+            mine = [o[0] for o in r0["outputs"] if o[1] == rep["replica"]]
+            pre = sum(r0["ttft_ms"][u] for u in mine) / 1e3
+            split.append({"rank": rep["rank"], "replica": rep["replica"],
+                          "wall_s": rep["seconds"], "step_s": rep["step_s"],
+                          "steps": rep["steps"], "prefill_s": pre,
+                          "other_s": rep["seconds"] - rep["step_s"] - pre,
+                          "peak_gib": rep["peak_bytes"] / 2 ** 30})
+        rec["runs"][name] = {
+            "stats": {k: v for k, v in st.items() if k != "per_replica"},
+            "states": states,
+            "per_replica": [{k: p[k] for k in ("state", "steps", "admitted",
+                                               "finished", "canceled",
+                                               "stragglers")}
+                            for p in st["per_replica"]],
+            "ttft_ms_p50": float(np.median(ttft)),
+            "tpot_ms_p50": float(np.median(tpot)),
+            "ranks": split, "launches_rank0": r0["launches"]}
+        log(f"router tp ({RTP_REPLICAS} replicas x tp={RTP_TP}, "
+            f"{r0['backend']}) {name}: {st['completed']} completed, "
+            f"{st['failovers']} failovers, {st['replica_deaths']} deaths, "
+            f"states {states}; TTFT p50 {np.median(ttft):.1f} ms, TPOT p50 "
+            f"{np.median(tpot):.2f} ms; tokens = phase 4d's; launches a "
+            f"rank exact; by rank (wall: steps / prefills / other s, peak "
+            f"GiB) " + ", ".join(
+                f"{x['rank']}: {x['wall_s']:.2f}: {x['step_s']:.2f} / "
+                f"{x['prefill_s']:.2f} / {x['other_s']:.2f}, "
+                f"{x['peak_gib']:.2f}" for x in split))
+    return rec
 
 
 # phase 4l, data parallelism over a (data, tp) rank mesh: smollm-360m at
@@ -4583,7 +4999,7 @@ def dp_phase(dev, corpus):
         a, b = g0["grads"]["kv"][k], g1["grads"]["kv"][k]
         if not np.array_equal(a, b):
             fail(f"phase 4l: the ranks' summed gradients d{k} differ")
-        w = g0["one"]["grads"]["kv"][k]
+        w = g1["one"]["grads"]["kv"][k]
         gl[k] = (float(np.linalg.norm(a - w) / np.linalg.norm(w)),
                  float((a * w).sum() / np.linalg.norm(a) / np.linalg.norm(w)))
         if gl[k][0] > GRAD_TOL[0] or gl[k][1] < GRAD_TOL[1]:
@@ -4643,7 +5059,7 @@ def dp_phase(dev, corpus):
                     lf["moment_dtype"] != "torch.float32":
                 fail(f"phase 4l: {path} holds {lf}")
     n_sharded = sum("data" in lf["spec"] for lf in t0_["leaves"].values())
-    one_ = t0_["one"]
+    one_ = t1_["one"]
     l2 = [abs(a["loss"] / b["loss"] - 1) for a, b in zip(t0_["metrics"],
                                                         one_["metrics"])]
     if l2[0] > DP_LOSS0_TOL or max(l2) > DP_LOSS_TOL:
@@ -4762,13 +5178,26 @@ def main() -> None:
     t_mark = [t_start]
 
     def phase_done(name):
+        # a phase's engines and their decode states refer to each other:
+        # only the cyclic collector frees them (and the weights they hold);
+        # the memory before and after it is printed
+        held = torch.cuda.memory_allocated()
+        gc.collect()
+        torch.cuda.empty_cache()
         now = time.perf_counter()
         record["phases"][name] = "ok"
         record["phase_seconds"][name] = now - t_mark[0]
+        record.setdefault("allocated_gib_after", {})[name] = \
+            torch.cuda.memory_allocated() / 2 ** 30
+        # the host's run queue over the last minute: the host-bound phases
+        # move with it
+        load = os.getloadavg()[0]
+        record.setdefault("host_load_after", {})[name] = load
         log(f"phase {name}: ok in {now - t_mark[0]:.1f} s (this process "
             f"holds {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB of "
-            f"the card, {torch.cuda.memory_reserved() / 2 ** 30:.2f} "
-            f"reserved)")
+            f"the card, {held / 2 ** 30:.2f} before the cyclic collector "
+            f"ran; {torch.cuda.memory_reserved() / 2 ** 30:.2f} reserved; "
+            f"host load {load:.1f} on {os.cpu_count()} cores)")
         t_mark[0] = now
 
     # 1. the card -------------------------------------------------------
@@ -4818,7 +5247,6 @@ def main() -> None:
         step (the host's clock around the window, ending in a sync) and
         the kernel time per step, by name ("not measured" where the trace
         has no device events)."""
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -4828,8 +5256,7 @@ def main() -> None:
                 step()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / steps
-        busy = sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.device_type == DeviceType.CUDA) / 1e3 / steps
+        busy = trace_device_ms(prof, steps)[0]
         if busy == 0:
             return {"profiled_wall_ms_per_step": wall, "device_ms_per_step":
                     "not measured (no device events in the trace)"}
@@ -6041,6 +6468,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("dp")
 
+    # 4m. the router over tensor-parallel replicas -----------------------
+    record["router_tp"] = router_tp_phase(dev, api, cushion, w8_scales, PS)
+    phase_done("router_tp")
+
     # 5. card vs the port's CPU engine on the same weights --------------
     # the card halves ran in phase 4 (and the families' in theirs); the CPU
     # halves in the worker beside the card phases: every comparison now
@@ -6327,7 +6758,7 @@ def main() -> None:
         # shapes, beside smollm's; smollm's training run (4j); rank 0 of
         # deepseek-67b's tensor-parallel runs (4k)
         for tag in ("moe", "vlm", "hybrid", "encdec", "xlstm", "train",
-                    "tp", "dp"):
+                    "tp", "dp", "router_tp"):
             if record[tag]["launches"].get(kk["name"]):
                 kk[f"{tag}_launches"] = record[tag]["launches"][kk["name"]]
             kk.update({f"{tag}_{k_}": v for k_, v in

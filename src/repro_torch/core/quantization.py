@@ -15,9 +15,14 @@ than one rank active) a weight is the rank's shard: its per-tensor range
 is the whole weight's (``pmax``), and a row-parallel site (``wo``,
 ``w_down``: the contracting axis sharded) sums the ranks' partial
 products, int32 accumulators where the product is W8A8 (exact, with the
-epilogue applied once to the sum) and f32 otherwise. Dynamic activation
-ranges (``pt_dynamic``, ``ptoken_dynamic``) and W4A8 are not sharded yet
-(ROADMAP queue 1, item 6.4) and raise there.
+epilogue applied once to the sum), W4A8's f32 group-scaled accumulators
+(the epilogue applied once, with the whole weight's scaled column sums),
+and f32 otherwise. A dynamic activation range over a row-parallel site's
+features (cut over the ranks) is the ranks' min and max: per tensor
+(``pt_dynamic``) of the local ranges, per row (``ptoken_dynamic``) of the
+rows' (M, 1) partial ranges, which ``act_quant_ptoken``'s range-only mode
+gives and its given-range mode quantizes with. Min and max are exact, so
+every scale, zero point and code is the unsharded run's.
 
 Type promotion follows JAX, not PyTorch: JAX promotes a bf16 array against
 a 0-dim f32 array to f32, PyTorch keeps bf16. ``_promote`` casts both
@@ -33,13 +38,15 @@ import torch
 
 from repro_torch.configs.base import QuantConfig
 from repro_torch.distributed import collectives as DC
-from repro_torch.kernels.act_quant import act_quant_ptoken
+from repro_torch.kernels.act_quant import (act_quant_ptoken,
+                                           act_quant_ptoken_range)
 from repro_torch.kernels.w4a8_matmul import unpack_int4  # noqa: F401 (the reference's name)
-from repro_torch.kernels.w4a8_matmul import quant_w4a8_matmul, w4a8_matmul
+from repro_torch.kernels.w4a8_matmul import (quant_w4a8_matmul,
+                                             w4a8_epilogue, w4a8_matmul)
 from repro_torch.kernels.w8a8_matmul import (quant_w8a8_matmul, w8a8_epilogue,
                                              w8a8_matmul)
 
-_TP_LATER = "(ROADMAP queue 1, item 6.4)"
+_TP_LATER = "(ROADMAP queue 1, item 6.4b)"
 
 Tensor = torch.Tensor
 
@@ -105,14 +112,35 @@ def fake_quant(x: Tensor, scale: Tensor, zero: Tensor, bits: int,
 # Activation quantization per granularity
 # ---------------------------------------------------------------------------
 
-def act_minmax(x: Tensor, per_token: bool, groups: int = 1
-               ) -> Tuple[Tensor, Tensor]:
+def _tp_extrema(mn: Tensor, mx: Tensor) -> Tuple[Tensor, Tensor]:
+    """The ranks' elementwise min of ``mn`` and max of ``mx`` over tp (in
+    f32, which holds any bf16 value exactly), in their dtype."""
+    return (DC.pmin(mn.float()).to(mn.dtype),
+            DC.pmax(mx.float()).to(mx.dtype))
+
+
+def act_minmax(x: Tensor, per_token: bool, groups: int = 1,
+               row_parallel: bool = False) -> Tuple[Tensor, Tensor]:
     """Per-token ranges, or one per-tensor range (the global batch's under
     a data axis, ``distributed/collectives.use_data``); with ``groups`` > 1
     the leading axis holds ``groups`` stacked tensors, each with its own
-    range (shaped to broadcast against x)."""
+    range (shaped to broadcast against x). ``row_parallel``: x is a rank's
+    slice of the features, and the range is the ranks' (whole on every
+    rank, the per-row one from ``act_quant_ptoken``'s range-only mode)."""
+    tp = row_parallel and DC.tp_size() > 1
     if per_token:
+        if tp:
+            mn, mx = act_quant_ptoken_range(
+                x.reshape(-1, x.shape[-1]).contiguous())
+            mn, mx = _tp_extrema(mn, mx)
+            lead = tuple(x.shape[:-1]) + (1,)
+            return mn.reshape(lead).to(x.dtype), mx.reshape(lead).to(x.dtype)
         return x.amin(dim=-1, keepdim=True), x.amax(dim=-1, keepdim=True)
+    if tp:
+        if groups > 1:
+            raise ValueError("stacked groups (the search's candidates) run "
+                             "on one rank")
+        return _tp_extrema(*DC.global_extrema(x))
     if groups > 1:
         if DC.data_size() > 1:
             raise ValueError("stacked groups (the search's candidates) run "
@@ -124,16 +152,22 @@ def act_minmax(x: Tensor, per_token: bool, groups: int = 1
     return DC.global_extrema(x)
 
 
-def _ptoken_fake_quant(x: Tensor, cfg: QuantConfig) -> Tensor:
+def _ptoken_fake_quant(x: Tensor, cfg: QuantConfig,
+                       row_parallel: bool = False) -> Tensor:
     """Per-token dynamic fake-quant through ``act_quant_ptoken``: the kernel
     quantizes the (M, D) view (in the activation's arithmetic: bf16-rounded
     steps for bf16, JAX's model path; f32 otherwise), and tensor ops
     dequantize ``(code + 128 - zero) * scale`` and apply the straight-through
-    ``x + (y - x)`` in the activation's dtype, as ``fake_quant`` does."""
+    ``x + (y - x)`` in the activation's dtype, as ``fake_quant`` does. At a
+    row-parallel site under tp the rows' ranges are the ranks' (the
+    kernel's range-only mode, then its given-range mode)."""
     dt = x.dtype
     D = x.shape[-1]
-    codes, scale, zero = act_quant_ptoken(x.detach().reshape(-1, D)
-                                          .contiguous(), bits=cfg.a_bits)
+    x2 = x.detach().reshape(-1, D).contiguous()
+    rng = None
+    if row_parallel and DC.tp_size() > 1:
+        rng = _tp_extrema(*act_quant_ptoken_range(x2))
+    codes, scale, zero = act_quant_ptoken(x2, bits=cfg.a_bits, rng=rng)
     y = (codes.to(dt) + 128 - zero.to(dt)) * scale.to(dt)
     return x + (y.reshape(x.shape) - x).detach()
 
@@ -141,9 +175,13 @@ def _ptoken_fake_quant(x: Tensor, cfg: QuantConfig) -> Tensor:
 def act_fake_quant(x: Tensor, cfg: QuantConfig,
                    static_scale: Optional[Tensor] = None,
                    static_zero: Optional[Tensor] = None,
-                   groups: int = 1, rng: Optional[Tuple] = None) -> Tensor:
+                   groups: int = 1, rng: Optional[Tuple] = None,
+                   row_parallel: bool = False) -> Tensor:
     """``rng``: x's per-tensor (min, max), where the caller has it
-    (``site_taps``)."""
+    (``site_taps``; not under tp at a row-parallel site, whose range is the
+    ranks'). ``row_parallel``: as ``act_minmax``."""
+    if row_parallel and DC.tp_size() > 1:
+        rng = None
     if cfg.mode == "none":
         return x
     if cfg.mode == "pt_static":
@@ -153,12 +191,13 @@ def act_fake_quant(x: Tensor, cfg: QuantConfig,
                           cfg.symmetric_a)
     if cfg.mode == "ptoken_dynamic":
         if not cfg.symmetric_a:
-            return _ptoken_fake_quant(x, cfg)
+            return _ptoken_fake_quant(x, cfg, row_parallel)
         if x.device.type != "cpu":
             raise ValueError("symmetric per-token activations have no "
                              "kernel; they run on the CPU only")
     mn, mx = rng if rng is not None and cfg.mode == "pt_dynamic" else \
-        act_minmax(x.detach(), cfg.mode == "ptoken_dynamic", groups)
+        act_minmax(x.detach(), cfg.mode == "ptoken_dynamic", groups,
+                   row_parallel)
     scale, zero = params_from_minmax(mn, mx, cfg.a_bits, cfg.symmetric_a)
     return fake_quant(x, scale, zero, cfg.a_bits, cfg.symmetric_a)
 
@@ -187,11 +226,21 @@ def weight_fake_quant(w: Tensor, cfg: QuantConfig,
     g = min(g, d_in)
     shp = w.shape
     wg = w.reshape(*shp[:-2], d_in // g, g, shp[-1])
-    amax = wg.abs().amax(dim=-2, keepdim=True)
-    if whole and row_parallel:
-        amax = DC.pmax(amax)
-    scale, zero = params_from_minmax(-amax, amax, cfg.w_bits, True)
-    return fake_quant(wg, scale, zero, cfg.w_bits, True).reshape(shp)
+    with torch.no_grad():
+        mn, mx = torch.aminmax(wg, dim=-2, keepdim=True)
+        amax = torch.maximum(mx, -mn)           # the groups' max |w|
+        if whole and row_parallel:
+            amax = DC.pmax(amax)
+        scale, _ = params_from_minmax(-amax, amax, cfg.w_bits, True)
+        # fake_quant with the zero point of symmetric codes, 0, left out:
+        # adding and subtracting it changes no value but the sign of a
+        # zero, which the straight-through sum below washes out (the
+        # experts' weights are fake-quantized on every call, as in the
+        # reference: two passes fewer over them)
+        qmin, qmax = qrange(cfg.w_bits, True)
+        t = torch.div(*_promote(wg, scale)).round_().clamp_(qmin, qmax)
+        y = torch.mul(*_promote(t, scale)).to(wg.dtype)
+    return (wg + (y - wg).detach()).reshape(shp)
 
 
 def weight_quant_int(w: Tensor, cfg: QuantConfig) -> Tuple[Tensor, Tensor]:
@@ -280,7 +329,11 @@ def _static_int_matmul(x: Tensor, w: Dict[str, Tensor], s_x: Tensor,
     order. A row-parallel site under tensor parallelism (W8A8, 8-bit
     asymmetric codes) takes the int32 accumulator of its shard, sums it
     over the ranks and applies the epilogue once, with ``w["colsum"]`` the
-    whole weight's. Dynamic ranges of a bf16 activation stay bf16 (``pt_dynamic``
+    whole weight's; a row-parallel W4A8 site (its packed rows cut by whole
+    groups, ``w_scale`` whole on every rank, as the reference keeps it)
+    takes its groups' scales and the kernel's f32 accumulator, sums that
+    over the ranks in f32 and applies ``s_x (sum - z colsum_scaled)`` once.
+    Dynamic ranges of a bf16 activation stay bf16 (``pt_dynamic``
     under true int8): the codes are then ``quantize``'s tensor ops in bf16,
     as the reference computes them with jnp outside its kernels, and the
     int matmul runs on them. Symmetric or narrower codes have no kernel:
@@ -289,30 +342,55 @@ def _static_int_matmul(x: Tensor, w: Dict[str, Tensor], s_x: Tensor,
     lead = x.shape[:-1]
     packed = "w_packed" in w
     N = (w["w_packed"] if packed else w["w_int"]).shape[-1]
+    tp = DC.tp_size() if row_parallel else 1
     G = w["w_scale"].shape[0] if packed else 1
-    if K % G:
-        raise ValueError(f"groups ({G}) must tile the contracting dim ({K})")
+    if (K * tp) % G:
+        raise ValueError(f"groups ({G}) must tile the contracting dim "
+                         f"({K * tp})")
+    gsize = K * tp // G
+    if packed and K % gsize:
+        raise ValueError(f"W4A8 groups of {gsize} rows straddle a rank's "
+                         f"{K} rows of the contracting axis: not sharded "
+                         f"{_TP_LATER}")
     od = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
     s_w = _weight_scale(w["w_scale"])
     x2 = x.reshape(-1, K)
     kernel_codes = (not cfg.symmetric_a and cfg.a_bits == 8
                     and s_x.dtype == torch.float32
                     and z_x.dtype == torch.float32)
-    if row_parallel and DC.tp_size() > 1:
-        if packed or not kernel_codes:
-            raise ValueError("a row-parallel site shards W8A8 with 8-bit "
-                             "asymmetric static codes only; W4A8 and other "
-                             f"codes are not sharded yet {_TP_LATER}")
-        acc = quant_w8a8_matmul(x2.contiguous(), w["w_int"], s_x, z_x, s_w,
-                                None, out_dtype=torch.int32)
-        out = w8a8_epilogue(DC.psum(acc), s_x, z_x, s_w, w["colsum"],
-                            -128.0, od)
+    off = 0 if cfg.symmetric_a else 2 ** (cfg.a_bits - 1)
+    if tp > 1:
+        if cfg.symmetric_a or cfg.a_bits != 8:
+            raise ValueError("a row-parallel site shards 8-bit asymmetric "
+                             f"activation codes only {_TP_LATER}")
+        if kernel_codes:
+            xa, z_shift = x2.contiguous(), -128.0
+        else:
+            xa = (quantize(x2, s_x, z_x, 8, False) - off).to(torch.int8)
+            xa, z_shift = xa.contiguous(), -float(off)
+        s1, z1 = _f32(s_x).reshape(()), _f32(z_x).reshape(())
+        if packed:
+            n_g = K // gsize
+            r = DC.tp_rank()
+            mine = s_w[r * n_g:(r + 1) * n_g].contiguous()
+            run = quant_w4a8_matmul if kernel_codes else w4a8_matmul
+            acc = run(xa, w["w_packed"], s1, z1, mine, None, gsize,
+                      accumulate=True)
+            out = w4a8_epilogue(DC.psum(acc), s1, z1, _f32(w["colsum"]),
+                                z_shift, od)
+        else:
+            acc = (quant_w8a8_matmul(xa, w["w_int"], s1, z1, s_w, None,
+                                     out_dtype=torch.int32) if kernel_codes
+                   else w8a8_matmul(xa, w["w_int"], s1, z1, s_w,
+                                    out_dtype=torch.int32))
+            out = w8a8_epilogue(DC.psum(acc), s1, z1, s_w, w["colsum"],
+                                z_shift, od)
         return out.reshape(*lead, N).to(x.dtype)
     if kernel_codes:
         x2 = x2.contiguous()
         if packed:
             out = quant_w4a8_matmul(x2, w["w_packed"], s_x, z_x, s_w,
-                                    _f32(w["colsum"]), K // G, out_dtype=od)
+                                    _f32(w["colsum"]), gsize, out_dtype=od)
         else:
             out = quant_w8a8_matmul(x2, w["w_int"], s_x, z_x, s_w,
                                     w["colsum"], out_dtype=od)
@@ -322,12 +400,11 @@ def _static_int_matmul(x: Tensor, w: Dict[str, Tensor], s_x: Tensor,
             "the int matmuls take asymmetric 8-bit codes; got "
             f"a_bits={cfg.a_bits}, symmetric={cfg.symmetric_a}: that "
             "combination runs on the CPU only")
-    off = 0 if cfg.symmetric_a else 2 ** (cfg.a_bits - 1)
     xq = (quantize(x2, s_x, z_x, cfg.a_bits, cfg.symmetric_a)
           - off).to(torch.int8)
     if packed:
         out = w4a8_matmul(xq, w["w_packed"], _f32(s_x), _f32(z_x), s_w,
-                          _f32(w["colsum"]), K // G, z_shift=-float(off),
+                          _f32(w["colsum"]), gsize, z_shift=-float(off),
                           out_dtype=od)
     else:
         out = w8a8_matmul(xq, w["w_int"], _f32(s_x), _f32(z_x), s_w,
@@ -337,7 +414,9 @@ def _static_int_matmul(x: Tensor, w: Dict[str, Tensor], s_x: Tensor,
 
 
 def _ptoken_int_matmul(x: Tensor, wq: Tensor, s_w: Tensor, s_x: Tensor,
-                       z_x: Tensor, cfg: QuantConfig) -> Tensor:
+                       z_x: Tensor, cfg: QuantConfig,
+                       colsum: Optional[Tensor] = None,
+                       row_parallel: bool = False) -> Tensor:
     """x quantized with per-row scales and zeros ((..., 1) each), times the
     int8 weight, in the reference's arithmetic (``_int8_matmul``'s plain
     path): codes by ``quantize`` in x's dtype with the -2^(b-1) storage
@@ -345,7 +424,10 @@ def _ptoken_int_matmul(x: Tensor, wq: Tensor, s_w: Tensor, s_x: Tensor,
     ``s_x s_w`` per row. The product runs through ``w8a8_matmul`` (the
     kernel on the card, its plain version on the CPU) with unit scales and
     a zero point of 0, so its epilogue returns ``f32(acc)`` exactly; the
-    per-row epilogue follows as tensor ops."""
+    per-row epilogue follows as tensor ops. ``row_parallel`` (under tp):
+    x and ``wq`` are the rank's part of the contracting axis, s_x / z_x the
+    rows' ranks-wide parameters, ``colsum`` the whole weight's; the ranks'
+    int32 accumulators are summed (exact) before the epilogue."""
     K = x.shape[-1]
     lead = x.shape[:-1]
     N = wq.shape[-1]
@@ -353,10 +435,16 @@ def _ptoken_int_matmul(x: Tensor, wq: Tensor, s_w: Tensor, s_x: Tensor,
     xq = (quantize(x, s_x, z_x, cfg.a_bits, cfg.symmetric_a)
           - off).to(torch.int8)
     z = (z_x - off).reshape(-1, 1).float()
-    colsum = wq.sum(0, dtype=torch.int32)
+    if colsum is None:
+        colsum = wq.sum(0, dtype=torch.int32)
     one = torch.ones((), dtype=torch.float32, device=x.device)
-    acc = w8a8_matmul(xq.reshape(-1, K).contiguous(), wq.contiguous(), one,
-                      torch.zeros_like(one), one, colsum=colsum)
+    if row_parallel:
+        acc = DC.psum(w8a8_matmul(xq.reshape(-1, K).contiguous(),
+                                  wq.contiguous(), one, torch.zeros_like(one),
+                                  one, out_dtype=torch.int32)).float()
+    else:
+        acc = w8a8_matmul(xq.reshape(-1, K).contiguous(), wq.contiguous(),
+                          one, torch.zeros_like(one), one, colsum=colsum)
     out = (acc - z * colsum.float()) \
         * (s_x.reshape(-1, 1).float() * s_w.float())
     return out.reshape(*lead, N).to(x.dtype)
@@ -373,24 +461,23 @@ def true_int_dot(x: Tensor, w: Tensor, cfg: QuantConfig,
     ``ptoken_dynamic``'s per-row ranges the per-row one of
     ``_ptoken_int_matmul``. A rank's shard is quantized with the whole
     weight's range; a row-parallel shard's ``colsum`` is summed over the
-    ranks."""
-    if cfg.mode != "pt_static" and DC.tp_size() > 1:
-        raise ValueError(f"{cfg.mode}: dynamic activation ranges are not "
-                         f"sharded yet {_TP_LATER}")
+    ranks, and its dynamic range is the ranks' (``act_minmax``)."""
     wq, s_w = weight_quant_int(w, cfg)
+    tp = row_parallel and DC.tp_size() > 1
     if cfg.mode == "pt_static":
         if site is None:
             raise ValueError("pt_static needs a calibrated site scale")
         s_x, z_x = site.scale, site.zero
     else:
-        mn, mx = rng if rng is not None and cfg.mode == "pt_dynamic" else \
-            act_minmax(x, cfg.mode == "ptoken_dynamic")
+        mn, mx = rng if (rng is not None and cfg.mode == "pt_dynamic"
+                         and not tp) else \
+            act_minmax(x, cfg.mode == "ptoken_dynamic", 1, row_parallel)
         s_x, z_x = params_from_minmax(mn, mx, cfg.a_bits, cfg.symmetric_a)
-    if cfg.mode == "ptoken_dynamic":
-        return _ptoken_int_matmul(x, wq, s_w, s_x, z_x, cfg)
     colsum = wq.sum(0, dtype=torch.int32)
     if row_parallel:
         colsum = DC.psum(colsum)
+    if cfg.mode == "ptoken_dynamic":
+        return _ptoken_int_matmul(x, wq, s_w, s_x, z_x, cfg, colsum, tp)
     return _static_int_matmul(
         x, {"w_int": wq.contiguous(), "w_scale": s_w, "colsum": colsum},
         s_x, z_x, cfg, row_parallel)
@@ -512,11 +599,9 @@ def qdot(x: Tensor, w: Any, cfg: QuantConfig,
             raise ValueError("the true int8 matmul takes one dynamic range "
                              "(groups=1)")
         return true_int_dot(x, w, cfg, site, row_parallel, rng)
-    if cfg.mode != "pt_static" and DC.tp_size() > 1:
-        raise ValueError(f"{cfg.mode}: dynamic activation ranges are not "
-                         f"sharded yet {_TP_LATER}")
     xq = act_fake_quant(x, cfg, site.scale if site is not None else None,
-                        site.zero if site is not None else None, groups, rng)
+                        site.zero if site is not None else None, groups, rng,
+                        row_parallel)
     y = xq @ weight_fake_quant(w, cfg, row_parallel)
     return _sum_rows(y) if row_parallel else y
 

@@ -316,12 +316,13 @@ def broadcast_ints(values, mesh=None, src: int = 0, axis: str = "tp"
     mesh = _ACTIVE if mesh is None else mesh
     if mesh is None:
         return [int(v) for v in values]
+    base = int(getattr(mesh, "base", 0))
     if axis == "data":
         n, group = int(mesh.data_size), mesh.data_group
-        world_src = src * int(mesh.size) + int(mesh.rank)
+        world_src = base + src * int(mesh.size) + int(mesh.rank)
     else:
         n, group = int(mesh.size), mesh.group
-        world_src = int(mesh.data_rank) * int(mesh.size) + src
+        world_src = base + int(mesh.data_rank) * int(mesh.size) + src
     if n == 1:
         return [int(v) for v in values]
     import torch.distributed as dist

@@ -51,7 +51,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNELS = ("w8a8_matmul", "act_quant_static", "flash_attention",
            "flash_decode", "flash_decode_paged", "w4a8_matmul",
            "act_quant_ptoken", "flash_attention_bwd")
-FUSED = ("act_quant_static_fused",)
+# counted beside the kernels: quantizations done inside an int matmul
+# launch, and the launches of the tensor-parallel modes (the W4A8 kernel's
+# f32 accumulator, the per-token quantizer's range-only and given-range
+# modes), which count under these names instead of the kernel's
+FUSED = ("act_quant_static_fused", "w4a8_matmul_acc", "act_quant_ptoken_range",
+         "act_quant_ptoken_given")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS + FUSED}
 COUNTERS: Dict[str, int] = {"graph_replays": 0}
 
@@ -67,15 +72,16 @@ _SIGNATURES = {
     "act_quant_static_launch": [_VP, _I, _VP, _VP, _VP, ctypes.c_longlong,
                                 _VP],
     # x, x_kind, w_packed, s_w, s_w_bf16, colsum, s_x, z_x, z_shift, out,
-    # out_bf16, M, N, K, group, workspace, stream
+    # out_kind, M, N, K, group, workspace, stream
     "w4a8_matmul_launch": [_VP, _I, _VP, _VP, _I, _VP, _VP, _VP, _F, _VP, _I,
                            _I, _I, _I, _I, _VP, _VP],
     # M, N, K, group
     "int_matmul_workspace_elems": [_I, _I, _I, _I],
     # (no arguments)
     "int_matmul_decode_max_m": [],
-    # x, x_bf16, out, scale, zero, M, D, qmax, stream
-    "act_quant_ptoken_launch": [_VP, _I, _VP, _VP, _VP, _I, _I, _F, _VP],
+    # x, x_bf16, out, scale, zero, lo, hi, mode, M, D, qmax, stream
+    "act_quant_ptoken_launch": [_VP, _I, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
+                                _F, _VP],
     # q, k, v, out, lse (null: not written), bf16, causal, B, H, Kh, S, T,
     # hd, prefix_len, prefix_live, q strides (b, h, s), k strides (b, h, t),
     # v strides (b, h, t), out strides (b, h, s), stream

@@ -16,6 +16,14 @@ and ``quantize`` as bf16 ops: each step rounded to bf16; scale and zero come
 out holding bf16 values). A caller that wants the Pallas arithmetic on a bf16
 activation upcasts it first, as the Pallas kernel does.
 
+Under tensor parallelism a row-parallel site's rows are cut over the
+ranks, and the row's range is the ranks' min and max:
+``act_quant_ptoken_range(x)`` is the kernel's range-only mode (each row's
+``(mn, mx)`` with the zero folded in, f32 (M, 1) each), and
+``act_quant_ptoken(x, bits, rng=(mn, mx))`` its given-range mode (the
+codes, scale and zero it makes from that range). Min and max are exact, so
+a rank's codes are those of the whole row.
+
 A CUDA tensor launches the hand-written kernels (``csrc/act_quant.cu``); a
 CPU tensor takes the plain versions. The serving path launches
 ``act_quant_static`` only above 16 rows: at decode the int matmuls quantize
@@ -71,19 +79,32 @@ def act_quant_static(x: torch.Tensor, scale: torch.Tensor,
     return out
 
 
-def act_quant_ptoken_plain(x: torch.Tensor, bits: int = 8
+def act_quant_ptoken_range_plain(x: torch.Tensor
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the range-only mode: each row's ``min(min(x), 0)``
+    and ``max(max(x), 0)``, f32 (M, 1)."""
+    mn = torch.clamp(x.amin(dim=-1, keepdim=True), max=0.0)
+    mx = torch.clamp(x.amax(dim=-1, keepdim=True), min=0.0)
+    return mn.float(), mx.float()
+
+
+def act_quant_ptoken_plain(x: torch.Tensor, bits: int = 8, rng=None
                            ) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
     """Plain PyTorch version: on f32 input ``ref.act_quant_ref(
     per_token=True)``; on any other dtype ``quantization.params_from_minmax``
     and ``quantize`` in that dtype (bf16 on the card; the CPU also takes
-    f16). Every divisor is a tensor, never a Python number: a CUDA division
+    f16). ``rng``: each row's given (mn, mx), (M, 1) each, in place of its
+    own. Every divisor is a tensor, never a Python number: a CUDA division
     by a host scalar multiplies by its reciprocal, which is not the IEEE
     quotient."""
     qmax = 2 ** bits - 1
     q_t = torch.tensor(float(qmax), dtype=x.dtype, device=x.device)
-    mn = torch.clamp(x.amin(dim=-1, keepdim=True), max=0.0)
-    mx = torch.clamp(x.amax(dim=-1, keepdim=True), min=0.0)
+    if rng is None:
+        mn = torch.clamp(x.amin(dim=-1, keepdim=True), max=0.0)
+        mx = torch.clamp(x.amax(dim=-1, keepdim=True), min=0.0)
+    else:
+        mn, mx = (r.reshape(-1, 1).to(x.dtype) for r in rng)
     if x.dtype == torch.float32:
         scale = torch.clamp((mx - mn) / q_t, min=1e-8)
         zero = torch.round(torch.clamp(-mn / scale, 0, qmax))
@@ -97,12 +118,10 @@ def act_quant_ptoken_plain(x: torch.Tensor, bits: int = 8
             zero.float())
 
 
-def act_quant_ptoken(x: torch.Tensor, bits: int = 8
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: (M, D) f32 or bf16 (the CPU also takes other float dtypes).
-    Returns (int8 (M, D), scale f32 (M, 1), zero f32 (M, 1))."""
-    if x.device.type == "cpu":
-        return act_quant_ptoken_plain(x, bits)
+def _ptoken_launch(x: torch.Tensor, bits: int, mode: int, rng=None):
+    """One launch of the per-token kernel in ``mode`` (0 whole, 1 range
+    only, 2 the given range); checks every operand first. Returns (codes,
+    scale, zero), or (mn, mx) in the range-only mode."""
     if x.device.type != "cuda":
         raise ValueError(f"act_quant_ptoken: unsupported device {x.device}")
     if not 1 <= bits <= 8:
@@ -112,13 +131,45 @@ def act_quant_ptoken(x: torch.Tensor, bits: int = 8
         raise ValueError(f"x must be contiguous 2-D f32/bf16, got {x.dtype} "
                          f"{tuple(x.shape)}")
     M, D = x.shape
-    out = torch.empty((M, D), dtype=torch.int8, device=x.device)
-    scale = torch.empty((M, 1), dtype=torch.float32, device=x.device)
-    zero = torch.empty((M, 1), dtype=torch.float32, device=x.device)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    if mode == 2:
+        lo, hi = (r.reshape(M, 1).float().contiguous() for r in rng)
+        _lib.require_cuda(x, lo, hi)
+    else:
+        lo, hi = torch.empty((M, 1), **f32), torch.empty((M, 1), **f32)
+    out = scale = zero = None
+    if mode != 1:
+        out = torch.empty((M, D), dtype=torch.int8, device=x.device)
+        scale = torch.empty((M, 1), **f32)
+        zero = torch.empty((M, 1), **f32)
+    ptr = (lambda t: 0 if t is None else t.data_ptr())
     code = _lib.lib().act_quant_ptoken_launch(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), out.data_ptr(),
-        scale.data_ptr(), zero.data_ptr(), M, D, float(2 ** bits - 1),
-        _lib.stream_ptr(x))
+        x.data_ptr(), int(x.dtype == torch.bfloat16), ptr(out), ptr(scale),
+        ptr(zero), lo.data_ptr(), hi.data_ptr(), mode, M, D,
+        float(2 ** bits - 1), _lib.stream_ptr(x))
     _lib.check(code, "act_quant_ptoken")
-    _lib.count("act_quant_ptoken")
-    return out, scale, zero
+    _lib.count(("act_quant_ptoken", "act_quant_ptoken_range",
+                "act_quant_ptoken_given")[mode])
+    return (lo, hi) if mode == 1 else (out, scale, zero)
+
+
+def act_quant_ptoken(x: torch.Tensor, bits: int = 8, rng=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (M, D) f32 or bf16 (the CPU also takes other float dtypes).
+    Returns (int8 (M, D), scale f32 (M, 1), zero f32 (M, 1)). ``rng``: each
+    row's (mn, mx), (M, 1) f32 each (values x's dtype holds), in place of
+    the row's own (the given-range mode; counted under
+    ``act_quant_ptoken_given``)."""
+    if x.device.type == "cpu":
+        return act_quant_ptoken_plain(x, bits, rng)
+    return _ptoken_launch(x, bits, 0 if rng is None else 2, rng)
+
+
+def act_quant_ptoken_range(x: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each row's (min(min(x), 0), max(max(x), 0)), f32 (M, 1) each: the
+    per-token kernel's range-only mode (counted under
+    ``act_quant_ptoken_range``)."""
+    if x.device.type == "cpu":
+        return act_quant_ptoken_range_plain(x)
+    return _ptoken_launch(x, 8, 1)

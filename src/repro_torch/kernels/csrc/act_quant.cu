@@ -65,6 +65,13 @@
 // aligned.
 // min and max are exact in any order, and every division is IEEE
 // (__fdiv_rn), never fused.
+//
+// Two more modes serve tensor parallelism, where a row-parallel site's row
+// is cut over the ranks: range-only (mode 1) writes the row's (mn, mx),
+// the zero folded in, and no codes; given-range (mode 2) reads a row's
+// (mn, mx), the ranks' min and max of those (exact), and writes the codes,
+// scale and zero that this kernel makes from a range. The codes of a rank's
+// part are then those of the whole row.
 #include "act_quant.cuh"
 
 namespace {
@@ -162,7 +169,8 @@ template <typename T>
 __global__ void __launch_bounds__(P_MAX_THREADS)
 act_quant_ptoken_kernel(const T* __restrict__ x, int8_t* __restrict__ out,
                         float* __restrict__ scale, float* __restrict__ zero,
-                        int D, float qmax) {
+                        float* __restrict__ lo, float* __restrict__ hi,
+                        int mode, int D, float qmax) {
   constexpr int N = aq::Vec<T>::N;
   constexpr bool BF16_ARITH = sizeof(T) == 2;   // bf16 input
   extern __shared__ __align__(16) unsigned char smem[];
@@ -222,6 +230,17 @@ act_quant_ptoken_kernel(const T* __restrict__ x, int8_t* __restrict__ out,
     mn = fminf(mn, smn[w]);
     mx = fmaxf(mx, smx[w]);
   }
+  if (mode == 1) {                      // range only
+    if (tid == 0) {
+      lo[blockIdx.x] = mn;
+      hi[blockIdx.x] = mx;
+    }
+    return;
+  }
+  if (mode == 2) {                      // the given range
+    mn = lo[blockIdx.x];
+    mx = hi[blockIdx.x];
+  }
   float s, z;
   row_params<BF16_ARITH>(mn, mx, qmax, &s, &z);
   if (tid == 0) {
@@ -241,8 +260,9 @@ act_quant_ptoken_kernel(const T* __restrict__ x, int8_t* __restrict__ out,
 }
 
 template <typename T>
-int launch_ptoken(const T* x, int8_t* out, float* scale, float* zero, int M,
-                  int D, float qmax, cudaStream_t st) {
+int launch_ptoken(const T* x, int8_t* out, float* scale, float* zero,
+                  float* lo, float* hi, int mode, int M, int D, float qmax,
+                  cudaStream_t st) {
   constexpr int N = aq::Vec<T>::N;
   const int threads = D / N > 128 ? 256 : 128;
   // the row plus up to 15 bytes of alignment, in 16-byte units
@@ -253,8 +273,8 @@ int launch_ptoken(const T* x, int8_t* out, float* scale, float* zero, int M,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  act_quant_ptoken_kernel<T><<<M, threads, smem, st>>>(x, out, scale, zero,
-                                                       D, qmax);
+  act_quant_ptoken_kernel<T><<<M, threads, smem, st>>>(
+      x, out, scale, zero, lo, hi, mode, D, qmax);
   return (int)cudaGetLastError();
 }
 
@@ -273,15 +293,21 @@ extern "C" int act_quant_static_launch(const void* x, int x_bf16,
                        (const float*)zero, (int8_t*)out, n, st);
 }
 
+// mode: 0 the row's own range; 1 range only: (mn, mx) into lo / hi (M,)
+// f32, nothing else written; 2 the range given in lo / hi (M,) f32 (bf16
+// input: values a bf16 holds), the codes, scale and zero written
 extern "C" int act_quant_ptoken_launch(const void* x, int x_bf16, void* out,
-                                       void* scale, void* zero, int M, int D,
+                                       void* scale, void* zero, void* lo,
+                                       void* hi, int mode, int M, int D,
                                        float qmax, void* stream) {
   if (M < 1) return 0;
-  if (D < 1) return (int)cudaErrorInvalidValue;
+  if (D < 1 || mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (x_bf16)
     return launch_ptoken((const __nv_bfloat16*)x, (int8_t*)out,
-                         (float*)scale, (float*)zero, M, D, qmax, st);
+                         (float*)scale, (float*)zero, (float*)lo, (float*)hi,
+                         mode, M, D, qmax, st);
   return launch_ptoken((const float*)x, (int8_t*)out, (float*)scale,
-                       (float*)zero, M, D, qmax, st);
+                       (float*)zero, (float*)lo, (float*)hi, mode, M, D,
+                       qmax, st);
 }

@@ -450,7 +450,9 @@ int_matmul_mma(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
           const float f =
               FOLD ? facc[i][j][2 * hh + e]
                    : __fadd_rn(0.0f, __fmul_rn(__int2float_rn(a), s1[j][e]));
-          v[j] = dequant<PACKED>(a, f, z, scale, cs[j][e]);
+          // W4A8's accumulator mode (out_kind 2): the f32 sum, no epilogue
+          v[j] = (PACKED && out_kind == 2)
+                     ? f : dequant<PACKED>(a, f, z, scale, cs[j][e]);
         }
         store4(out, out_bf16, m, out_col(0, e), N, vec, v);
       }
@@ -635,10 +637,11 @@ int_matmul_stream(const XT* __restrict__ x, const int8_t* __restrict__ w,
   const float scale = out_scale<PACKED>(sx, sw, sw_bf16);
   const int out_bf16 = out_kind == 1;
   const bool out_acc = !PACKED && out_kind == 2;   // int32 accumulators
+  const bool out_facc = PACKED && out_kind == 2;   // W4A8's f32 sum
   const int nn = n0 + tid;                     // this thread's column
   const bool live = nn < N;
   const float csum =
-      (live && !out_acc) ? colsum_at<PACKED>(colsum, nn) : 0.0f;
+      (live && out_kind != 2) ? colsum_at<PACKED>(colsum, nn) : 0.0f;
   const int total = G * cpg;
   if (total == 1) {
     if (live) {
@@ -651,7 +654,7 @@ int_matmul_stream(const XT* __restrict__ x, const int8_t* __restrict__ w,
           static_cast<int*>(out)[(size_t)r * N + nn] = a;
         else
           store1(out, out_bf16, (size_t)r * N + nn,
-                 dequant<PACKED>(a, f, z, scale, csum));
+                 out_facc ? f : dequant<PACKED>(a, f, z, scale, csum));
       }
     }
     return;
@@ -715,7 +718,8 @@ int_matmul_stream(const XT* __restrict__ x, const int8_t* __restrict__ w,
           static_cast<int*>(out)[(size_t)(r0 + v) * N + nn] = a[v];
         else
           store1(out, out_bf16, (size_t)(r0 + v) * N + nn,
-                 dequant<PACKED>(a[v], f[v], z, scale, csum));
+                 out_facc ? f[v]
+                          : dequant<PACKED>(a[v], f[v], z, scale, csum));
       }
     }
   }
@@ -731,10 +735,11 @@ static long long workspace_elems(int M, int N, int K, int group) {
 // the regime for M: tensor-core tiles above 16 rows, split-K streaming at
 // or below. x_kind: 0 int8 codes; 1 f32 or 2 bf16 activations, quantized
 // in the decode regime's staging (M <= 16 only). out_kind: 0 f32, 1 bf16,
-// 2 (W8A8 only) the int32 accumulators with no epilogue (the row-parallel
-// sites of tensor parallelism sum them over the ranks first; colsum, the
-// scales and z_shift are then not read). ws: workspace_elems int32 zeros
-// (the decode regime leaves them zero).
+// 2 the accumulators with no epilogue: W8A8's int32 sums, W4A8's f32 sums
+// of the scaled group partials (the row-parallel sites of tensor
+// parallelism sum them over the ranks first; colsum and z_shift are then
+// not read, nor W8A8's scales). ws: workspace_elems int32 zeros (the decode
+// regime leaves them zero).
 template <bool PACKED>
 static int int_matmul_launch(const void* x, int x_kind, const void* w,
                              const void* sw, int sw_bf16, const void* colsum,
@@ -743,8 +748,7 @@ static int int_matmul_launch(const void* x, int x_kind, const void* w,
                              int group, void* ws, cudaStream_t st) {
   if (x_kind < 0 || x_kind > 2 || (x_kind != 0 && M > D_MAX_M))
     return (int)cudaErrorInvalidValue;
-  if (out_kind < 0 || out_kind > 2 || (PACKED && out_kind == 2))
-    return (int)cudaErrorInvalidValue;
+  if (out_kind < 0 || out_kind > 2) return (int)cudaErrorInvalidValue;
   if (M == 0 || N == 0) return 0;
   if (M > D_MAX_M) {
     dim3 grid((N + P_BN - 1) / P_BN, (M + P_BM - 1) / P_BM);

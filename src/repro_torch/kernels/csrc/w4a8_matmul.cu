@@ -32,14 +32,17 @@
 
 // x_kind: 0 int8 codes; 1 f32 or 2 bf16 activations quantized with s_x,
 // z_x in the decode staging (M <= 16 only; act_quant_static's codes).
+// out_kind: 0 f32, 1 bf16, 2 the f32 accumulator acc above with no
+// epilogue (colsum unread: may be null; the row-parallel sites of tensor
+// parallelism sum it over the ranks and apply the epilogue once).
 // ws: int_matmul_workspace_elems(M, N, K, group) int32 zeros (left zero)
 extern "C" int w4a8_matmul_launch(const void* x, int x_kind, const void* wp,
                                   const void* sw, int sw_bf16,
                                   const void* colsum, const void* sx,
                                   const void* zx, float z_shift, void* out,
-                                  int out_bf16, int M, int N, int K,
+                                  int out_kind, int M, int N, int K,
                                   int group, void* ws, void* stream) {
   return imm::int_matmul_launch<true>(x, x_kind, wp, sw, sw_bf16, colsum,
-                                      sx, zx, z_shift, out, out_bf16, M, N,
+                                      sx, zx, z_shift, out, out_kind, M, N,
                                       K, group, ws, (cudaStream_t)stream);
 }

@@ -34,10 +34,15 @@ whole sharded code path runs with no collective.
 The kernels are built once in the caller (``_lib.build()``) before the
 ranks start, so two ranks never both run nvcc.
 
+``make_replica_meshes(n, tp)``, called in a rank of ``spawn_mesh(fn,
+data=n, tp=tp)``, gives the serving router its ``n`` replicas: replica i
+is data row i, a ``(data=1, tp)`` mesh over that row's own process group
+(replicas never share a tp group). The calling rank gets its own row's
+live ``TPMesh`` and a ``ReplicaGroup`` (the world ranks) for every other
+row.
+
 The reference's ``make_production_mesh`` needs 256 or 512 devices and
-raises its ``RuntimeError`` with fewer ranks. The router's per-replica
-meshes (``make_replica_meshes``) are not ported yet (ROADMAP queue 1, item
-6.2).
+raises its ``RuntimeError`` with fewer ranks.
 """
 from __future__ import annotations
 
@@ -51,7 +56,6 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-_NOT_YET = "is not ported yet (ROADMAP queue 1, item {})"
 # how long spawn_mesh waits for the ranks' results
 RESULT_TIMEOUT_S = 3600.0
 # the axis names a mesh may carry: the data axis, then the tensor-parallel
@@ -67,7 +71,9 @@ class TPMesh:
     ranks of its tp column); a group is None on an axis of one rank, and
     the world group where the axis spans every rank. ``shape`` and
     ``axis_names`` are the reference mesh's, which the sharding rules
-    (``distributed/sharding.py``) read."""
+    (``distributed/sharding.py``) read. ``base`` is the world rank of the
+    mesh's first rank: a replica's mesh (``make_replica_meshes``) is a row
+    of a larger world."""
     rank: int
     size: int
     group: Any
@@ -77,6 +83,13 @@ class TPMesh:
     data_size: int = 1
     data_group: Any = None
     axes: Tuple[str, ...] = ("data", "tp")
+    base: int = 0
+
+    @property
+    def world_ranks(self) -> Tuple[int, ...]:
+        """The world ranks of this mesh, data row by data row."""
+        return tuple(range(self.base,
+                           self.base + self.data_size * self.size))
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -206,9 +219,44 @@ def make_production_mesh(*, multi_pod: bool = False):
                      else ("data", "model"))
 
 
-def make_replica_meshes(n: int, tp: int = 1):
-    raise NotImplementedError(f"{n} replica meshes of tp={tp}: per-replica "
-                              "meshes " + _NOT_YET.format("6.2"))
+@dataclasses.dataclass(frozen=True)
+class ReplicaGroup:
+    """Another replica's ``(data=1, tp)`` mesh as a rank outside it sees
+    it: its world ranks, the first of which speaks for it."""
+    ranks: Tuple[int, ...]
+
+    @property
+    def world_ranks(self) -> Tuple[int, ...]:
+        return self.ranks
+
+
+def make_replica_meshes(n: int, tp: int = 1, device="cuda") -> list:
+    """The serving router's ``n`` replica meshes of ``tp`` ranks each (the
+    reference's disjoint ``(data=1, tp)`` meshes): entry i is data row i of
+    the ``(data=n, tp)`` world, this rank's own row as its live ``TPMesh``
+    (``data_size`` 1, ``base`` the row's first world rank) and every other
+    row as a ``ReplicaGroup``. Runs inside a rank of ``spawn_mesh(fn, n,
+    tp, ...)``; one replica of one rank needs no process group."""
+    if n < 1 or tp < 1:
+        raise ValueError(f"{n} replicas of tp={tp}: both must be >= 1")
+    import torch.distributed as dist
+    if n * tp == 1 and not dist.is_initialized():
+        return [make_tp_mesh(1, device=device)]
+    if not dist.is_initialized() or dist.get_world_size() != n * tp:
+        raise RuntimeError(
+            f"make_replica_meshes({n}, {tp}) runs inside a rank of "
+            f"spawn_mesh(fn, {n}, {tp}, ...), which makes the process "
+            f"group")
+    world = make_tp_mesh(tp, data=n, device=device)
+    out: list = []
+    for i in range(n):
+        ranks = tuple(range(i * tp, (i + 1) * tp))
+        if i == world.data_rank:
+            out.append(TPMesh(world.rank, tp, world.group, world.device,
+                              world.backend, base=i * tp))
+        else:
+            out.append(ReplicaGroup(ranks))
+    return out
 
 
 def _rank_main(fn: Callable, rank: int, data: int, tp: int, init_file: str,

@@ -38,15 +38,28 @@ gloo, which it prints), through either engine and pool; rank 0 prints the
 requests the same patches) from ``--seed``, builds and quantizes the whole
 model, and keeps its shard, so the whole model must fit on one card today
 (ROADMAP queue 1, item 6.9); an axis that does not divide by N is whole on
-every rank. W4A8, ``pt_dynamic``, ``ptoken_dynamic``, the xLSTM and
-encoder-decoder families and ``--replicas`` stop with the reason (ROADMAP
-queue 1, items 6.2-6.4):
+every rank. W4A8 (``--weight-bits 4``), ``pt_dynamic`` and
+``ptoken_dynamic`` serve under ``--tp`` too (their ranges taken over the
+ranks where the features are cut); the xLSTM and encoder-decoder families
+stop with the reason (ROADMAP queue 1, item 6.3b):
 
     python -m repro_torch.launch.serve --device cpu --tp 2 --quant \
         pt_static --prequant --kv-dtype int8 --cushion-len 4
+    python -m repro_torch.launch.serve --device cpu --tp 2 --quant \
+        ptoken_dynamic --cushion-len 4
     python -m repro_torch.launch.serve --device cpu --smoke --tp 2 \
         --arch jamba-v0.1-52b --quant pt_static --prequant --kv-dtype int8 \
         --cushion-len 4
+
+``--replicas R --tp N`` (continuous mode) runs the router over R replicas
+of N ranks each: ``spawn_mesh(..., data=R, tp=N)``, replica i on data row
+i (``launch/mesh.make_replica_meshes``), every rank running the same
+router loop, world rank 0 deciding and printing. On one card these are
+gloo ranks taking turns on the device: the mechanism, not the speed of
+tensor parallelism.
+
+    python -m repro_torch.launch.serve --device cpu --mode continuous \
+        --replicas 2 --tp 2 --chaos crash@replica1.step:4
 
 Weights are random, made from ``--seed``, unless ``--ckpt-dir`` serves the
 ``params`` of the latest checkpoint there (written by either package's
@@ -86,7 +99,8 @@ from repro_torch.checkpoint.store import CheckpointManager
 from repro_torch.configs import Family, QuantConfig, get_config, reduced
 from repro_torch.data.pipeline import Pipeline, SyntheticCorpus
 from repro_torch.distributed.fault_injection import FaultInjector
-from repro_torch.launch.mesh import spawn_tp
+from repro_torch.launch.mesh import (make_replica_meshes, spawn_mesh,
+                                     spawn_tp)
 from repro_torch.models import encdec as ED
 from repro_torch.models.common import ParamTree
 from repro_torch.models.registry import build
@@ -317,9 +331,15 @@ def run_router(api, params, qcfg, args, calib_batches=None, cushion=None,
     """--replicas N: the trace goes through the fault-tolerant replica
     router instead of a single engine. --chaos arms deterministic fault
     injection; rejections, retries, failovers and per-replica health land
-    in the printed RouterStats."""
+    in the printed RouterStats. With --tp T (inside the spawn) each replica
+    is a data row of T ranks."""
     install_sigterm_drain()
     dev = api.device
+    meshes = None
+    if args.tp > 1:
+        meshes = make_replica_meshes(args.replicas, args.tp, args.device)
+        print(f"[serve] {args.replicas} replicas x tp={args.tp} on disjoint "
+              f"rank groups")
     injector = None
     if args.chaos:
         injector = FaultInjector.parse(args.chaos, seed=args.chaos_seed)
@@ -329,7 +349,7 @@ def run_router(api, params, qcfg, args, calib_batches=None, cushion=None,
                          budgets=(args.tokens, max(1, args.tokens // 2)))
     router = ReplicaRouter(
         api, params, qcfg, n_replicas=args.replicas,
-        cfg=RouterConfig(max_queue=args.max_queue),
+        cfg=RouterConfig(max_queue=args.max_queue), meshes=meshes,
         n_slots=args.slots, max_seq=args.prompt_len + 8 + args.tokens + 32,
         cushion=cushion, scales=scales,
         kv_dtype=None if args.kv_dtype == "fp" else args.kv_dtype,
@@ -503,16 +523,15 @@ def main(argv=None, corpus: SyntheticCorpus = None):
     if args.tp < 1:
         ap.error("--tp must be >= 1")
     if args.tp > 1:
-        if args.replicas > 1 or args.chaos:
-            raise SystemExit("[serve] --tp with --replicas / --chaos: the "
-                             "router's per-replica meshes are not ported "
-                             "yet (ROADMAP queue 1, item 6.2)")
         try:
             check_tp_serving(_config(args),
                              QuantConfig(mode=args.quant), args.tp,
                              args.weight_bits)
         except ValueError as e:
             raise SystemExit(f"[serve] {e}")
+        if args.mode == "continuous" and (args.replicas > 1 or args.chaos):
+            return spawn_mesh(serve_rank, args.replicas, args.tp, args,
+                              corpus, device=args.device)
         return spawn_tp(serve_rank, args.tp, args, corpus,
                         device=args.device)
     return serve(args, corpus=corpus)
@@ -528,19 +547,23 @@ def _config(args):
 
 
 def serve_rank(mesh, args, corpus=None):
-    """One rank of ``--tp N`` (a ``spawn_tp`` target): ``serve`` on the
-    rank's device and mesh; only rank 0 prints."""
-    if mesh.rank != 0:
+    """One rank of ``--tp N`` (a ``spawn_tp`` / ``spawn_mesh`` target):
+    ``serve`` on the rank's device and mesh; only world rank 0 prints.
+    Under ``--replicas`` the router makes the replicas' meshes."""
+    if mesh.rank != 0 or mesh.data_rank != 0:
         sys.stdout = open(os.devnull, "w")
     print(f"[serve] tp={mesh.size} backend={mesh.backend} rank 0 on "
           f"{mesh.device}")
-    return serve(args, mesh, corpus)
+    return serve(args, None if mesh.data_size > 1 else mesh, corpus,
+                 device=mesh.device)
 
 
-def serve(args, mesh=None, corpus=None):
-    """Serve as ``args`` say, on ``mesh``'s device and shard when given."""
+def serve(args, mesh=None, corpus=None, device=None):
+    """Serve as ``args`` say, on ``mesh``'s device and shard when given
+    (else on ``device``, default ``args.device``)."""
     cfg = _config(args)
-    api = build(cfg, args.device if mesh is None else mesh.device)
+    api = build(cfg, mesh.device if mesh is not None
+                else device or args.device)
     dev = api.device
     params = api.init_params(torch.Generator(dev).manual_seed(args.seed))
     if args.ckpt_dir:

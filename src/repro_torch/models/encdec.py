@@ -258,7 +258,7 @@ def cache_roles(cfg: ModelConfig, kv_dtype=None,
     """Serving cache roles, the reference's: self- and cross-attention KV
     (L, B, S, K, hd) on their heads axis (``kv_dtype`` is unused: this
     family's KV stays fp). Tensor-parallel serving of this family is not
-    ported yet (ROADMAP queue 1, item 6.3)."""
+    ported yet (ROADMAP queue 1, item 6.3b)."""
     kv = (None, "B", None, "M", None)
     return {"k": kv, "v": kv, "xk": kv, "xv": kv}
 

@@ -56,10 +56,6 @@ Params = Dict[str, Any]
 
 SITES = ("mamba_in", "mamba_out")
 
-# positions whose a_t / b_t are formed at once in apply_mamba's scan
-SCAN_CHUNK = 64
-
-
 def dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
     """(inner, d_state, d_conv, dt_rank); inner is a tensor-parallel
     rank's channels where they are cut."""
@@ -135,23 +131,53 @@ def _step_terms(dt: Tensor, xc: Tensor, Bm: Tensor, A: Tensor
     return a, b
 
 
+def _combine(a1: Tensor, b1: Tensor, a2: Tensor, b2: Tensor
+             ) -> Tuple[Tensor, Tensor]:
+    """The scan's operator, the reference's ``combine``: (a1, b1) then
+    (a2, b2) is (a2 a1, a2 b1 + b2), the sum one fused multiply-add as XLA
+    forms it (``addcmul``)."""
+    return a2 * a1, torch.addcmul(b2, a2, b1)
+
+
+def _interleave(even: Tensor, odd: Tensor) -> Tensor:
+    """even[0], odd[0], even[1], ... along dim 1 (even has as many
+    positions as odd, or one more)."""
+    B, n = even.shape[0], even.shape[1] + odd.shape[1]
+    out = even.new_empty((B, n) + tuple(even.shape[2:]))
+    out[:, 0::2] = even
+    out[:, 1::2] = odd
+    return out
+
+
+def associative_scan(a: Tensor, b: Tensor) -> Tuple[Tensor, Tensor]:
+    """The inclusive scan of (a, b) along dim 1 under ``_combine``, with
+    ``jax.lax.associative_scan``'s recursion: combine adjacent pairs, scan
+    the pairs, combine each pair's prefix with the next even element, and
+    interleave; so every product is associated as the reference's."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    oa, ob = associative_scan(*_combine(a[:, 0:-1:2], b[:, 0:-1:2],
+                                        a[:, 1::2], b[:, 1::2]))
+    if n % 2 == 0:
+        ea, eb = _combine(oa[:, :-1], ob[:, :-1], a[:, 2::2], b[:, 2::2])
+    else:
+        ea, eb = _combine(oa, ob, a[:, 2::2], b[:, 2::2])
+    return (_interleave(torch.cat([a[:, :1], ea], 1), oa),
+            _interleave(torch.cat([b[:, :1], eb], 1), ob))
+
+
 def _scan(dt: Tensor, xc: Tensor, Bm: Tensor, Cm: Tensor, A: Tensor,
           h: Tensor) -> Tuple[Tensor, Tensor]:
     """The recurrence h_t = a_t h_{t-1} + b_t from h (B, inner, N) f32 over
-    the S positions of dt / xc (B, S, inner) and Bm / Cm (B, S, N).
-    Returns (y (B, S, inner) = sum_n h_t C_t, the last h)."""
-    S = dt.shape[1]
-    ys = []
-    for s0 in range(0, S, SCAN_CHUNK):
-        sl = slice(s0, min(S, s0 + SCAN_CHUNK))
-        a, b = _step_terms(dt[:, sl], xc[:, sl], Bm[:, sl], A)
-        hs = []
-        for t in range(a.shape[1]):
-            h = torch.addcmul(b[:, t], a[:, t], h)
-            hs.append(h)
-        ys.append(torch.einsum("btin,btn->bti", torch.stack(hs, 1),
-                               Cm[:, sl]))
-    return torch.cat(ys, 1), h
+    the S positions of dt / xc (B, S, inner) and Bm / Cm (B, S, N), as the
+    reference's prefill: h folded into the first b, then
+    ``associative_scan`` over the (B, S, inner, N) terms. Returns (y (B, S,
+    inner) = sum_n h_t C_t, the last h)."""
+    a, b = _step_terms(dt, xc, Bm, A)
+    b = torch.cat([torch.addcmul(b[:, :1], a[:, :1], h[:, None]), b[:, 1:]], 1)
+    _, hs = associative_scan(a, b)
+    return torch.einsum("bsin,bsn->bsi", hs, Cm), hs[:, -1]
 
 
 def apply_mamba(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,

@@ -362,7 +362,7 @@ def cache_roles(cfg: ModelConfig, kv_dtype=None,
     """Serving roles of the recurrent state, the reference's: batch on
     "B", the head dim on "M" (``kv_dtype`` is unused: the state is never
     int8). Tensor-parallel serving of this family is not ported yet
-    (ROADMAP queue 1, item 6.3)."""
+    (ROADMAP queue 1, item 6.3b)."""
     return {"m": {"C": (None, "B", None, None, "M"),
                   "n": (None, "B", None, "M"),
                   "m": (None, "B", None)},

@@ -145,18 +145,19 @@ def tp_layout(cfg: ModelConfig, tp: int) -> TPLayout:
 def check_tp_serving(cfg: ModelConfig, qcfg: QuantConfig, tp: int,
                      weight_bits: int = 8, data: int = 1) -> None:
     """Refuse what tensor-parallel serving does not shard yet: the xLSTM
-    and encoder-decoder families, W4A8 and the dynamic modes, a rank whose
-    query heads straddle KV groups of a whole cache, and a mesh with a data
-    axis of more than one rank, on which the reference never serves (its
-    data-parallel serving is the router's replicas). Axes that do not
-    divide by tp are served whole on every rank (``tp_layout``). One rank
-    takes anything."""
+    and encoder-decoder families (ROADMAP queue 1, item 6.3b), a rank whose
+    query heads straddle KV groups of a whole cache (6.5b), and a mesh with
+    a data axis of more than one rank, on which the reference never serves
+    (its data-parallel serving is the router's replicas, one ``(data=1,
+    tp)`` mesh each: ``launch/mesh.make_replica_meshes``). W4A8 and the
+    dynamic modes serve at any tp; axes that do not divide by tp are
+    served whole on every rank (``tp_layout``). One rank takes anything."""
     if data > 1:
         raise ValueError(
             f"serving on a mesh with a data axis of {data} ranks: the "
             f"reference serves data-parallel only as the router's replicas, "
-            f"whose per-replica meshes are not ported yet (ROADMAP queue 1, "
-            f"item 6.2)")
+            f"each on a (data=1, tp) mesh of its own (make_replica_meshes, "
+            f"ReplicaRouter(meshes=))")
     if tp == 1:
         return
     why = item = None
@@ -165,11 +166,6 @@ def check_tp_serving(cfg: ModelConfig, qcfg: QuantConfig, tp: int,
     if cfg.family in (Family.SSM, Family.ENCDEC):
         why, item = (f"the {cfg.family.value} family serves on one rank "
                      f"only", "6.3b")
-    elif weight_bits != 8:
-        why, item = "W4A8 (int4-packed weights) is not sharded", "6.4"
-    elif qcfg.mode not in ("none", "pt_static"):
-        why, item = (f"{qcfg.mode}: dynamic activation ranges are not "
-                     f"sharded", "6.4")
     elif "heads" in lay.cut and "kv_heads" not in lay.cut and tp % K:
         # the KV heads are whole on every rank; a rank's H/tp query heads
         # must lie in one KV group (tp a multiple of K) for the attention
@@ -257,7 +253,7 @@ def leaf_cut(path: str, cfg: ModelConfig, tp: int):
     """(the logical axis, the dim, how) a rank cuts of the leaf at
     ``path`` (``_LEAF_AXES``), or None where the leaf is whole on every
     rank."""
-    base = re.sub(r"/(w_int|colsum|w_scale)$", "", path)
+    base = re.sub(r"/(w_int|w_packed|colsum|w_scale)$", "", path)
     kind = path[len(base) + 1:]
     if kind == "w_scale":
         return None
@@ -305,7 +301,8 @@ def check_tree_sums(mine: torch.Tensor, mesh) -> None:
     import torch.distributed as dist
     mine = mine.to(mesh.device)
     theirs = mine.clone()
-    dist.broadcast(theirs, src=0, group=mesh.group)
+    dist.broadcast(theirs, src=int(getattr(mesh, "base", 0)),
+                   group=mesh.group)
     ok = torch.tensor([int(torch.equal(mine, theirs))], dtype=torch.int64,
                       device=mesh.device)
     dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=mesh.group)
@@ -366,6 +363,10 @@ def shard_tree(params: Any, cfg: ModelConfig, mesh) -> Any:
       ranks' gathered channels (``models/ssm.py``).
     * ``mamba/conv_b``: the spec replicates it; a rank takes its
       channels, as of ``conv_w``.
+    * W4A8's group scales ``w_scale`` (G, N): the spec replicates them; a
+      rank takes its columns where the weight's columns are cut, and keeps
+      them whole where its rows are (the row-parallel sites read their
+      groups' rows, ``core/quantization.py``).
 
     Shards are copies, so the whole tree can be freed."""
     tp, r = mesh.size, mesh.rank
@@ -382,6 +383,11 @@ def shard_tree(params: Any, cfg: ModelConfig, mesh) -> Any:
 
     def cut(leaf, path):
         c = leaf_cut(path, cfg, tp)
+        if path.endswith("/w_scale") and leaf.dim() >= 2:
+            # W4A8's (G, N) group scales follow the weight's columns
+            c = leaf_cut(path[:-len("w_scale")] + "w_packed", cfg, tp)
+            if c is not None and c[1] != -1:
+                c = None
         if c is None:
             return leaf
         _, dim, how = c

@@ -52,20 +52,40 @@ runs once and every engine serves the same parameter tensors; each replica
 owns its slot pool, its captured decode graph and its kernels' per-stream
 workspaces.
 
-Differences from the reference: no per-replica device meshes (the
-reference's ``meshes``, tensor-parallel replicas, are ROADMAP queue 1
-item 6.2 and raise here); every replica lives on ``api.device``.
+Tensor-parallel replicas (``meshes``, the reference's per-replica
+meshes; ``launch/mesh.make_replica_meshes`` inside a ``spawn_mesh(fn,
+data=N, tp=T)``): every world rank runs the same router loop and builds
+only its own replica's ``ContinuousEngine(mesh=row)``; another replica is
+a handle (``_WorldEngine``) whose state comes from that replica's first
+rank. The decisions are one router's: world rank 0 takes every decision
+that reads the clock or the fault injector (arrivals, dispatch, deadlines,
+heartbeat ages, fault firings) and broadcasts it as small int tensors over
+the world group; each call into a replica (an admission, a cancel, a
+session start) runs on that replica's ranks and its result and the
+engine's state after it are broadcast; a round of decode steps runs on
+every replica at once, and its outcomes (tokens emitted, slots freed,
+expiries, the step's time) are exchanged. So ``RouterStats``, health
+states and failovers are the same on every rank. A crash injected at
+``replica{i}.step`` kills replica i on all of its ranks at the same
+visit; they stop engine work but stay in the world's collectives until
+the run ends. The world group is one fault domain, as one card is: a real
+(non-injected) exception on one rank ends the spawn with its traceback
+(``spawn_mesh``), and ctrl-C on any rank drains every rank (read at the
+top of the loop, where no collective is open). Every rank calls ``run``
+with the same trace; rank 0's clock and injector decide.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import QuantConfig
+from repro_torch.distributed import collectives as DC
 from repro_torch.distributed.fault_injection import (FaultInjector,
                                                      InjectedFault)
 from repro_torch.distributed.fault_tolerance import (DEAD, DEGRADED,
@@ -73,7 +93,8 @@ from repro_torch.distributed.fault_tolerance import (DEAD, DEGRADED,
 from repro_torch.models.registry import ModelAPI
 from repro_torch.monitoring import RouterStats, ServeStats
 from repro_torch.serving.engine import plan_quantization
-from repro_torch.serving.scheduler import ContinuousEngine, Request
+from repro_torch.serving.scheduler import (ContinuousEngine, Request,
+                                           _DeferredInterrupts)
 
 
 class AllReplicasDead(RuntimeError):
@@ -157,6 +178,107 @@ class _Replica:
         return self.health.state(now)
 
 
+class _WorldEngine:
+    """Replica ``idx``'s engine as every world rank sees it, with the
+    router's view of a ``ContinuousEngine`` (slots, live and prefilling
+    requests, finished outputs, expiries, stats). Its own ranks hold the
+    engine (``engine``), every other rank None. ``call(fn)`` is a
+    collective of the whole world, made in the same order on every rank:
+    the replica's ranks run ``fn(engine)``, and its first rank broadcasts
+    the result with the engine's state after it, which every rank keeps.
+    Outputs and expiries are drained into the handle as they appear, so
+    ``pop_finished`` / ``pop_expired`` read the same lists everywhere."""
+
+    def __init__(self, idx: int, engine: Optional[ContinuousEngine],
+                 leader: int, world_rank: int,
+                 requests: Dict[int, Request]):
+        self.idx = idx
+        self.engine = engine
+        self.leader = leader
+        self.is_leader = world_rank == leader
+        self._requests = requests
+        self._finished: List[Any] = []
+        self._expired: List[int] = []
+        self._free: List[int] = []
+        self._live: List[int] = []
+        self._streams: List[int] = []
+        self.live_count = 0
+        self.stats: Optional[ServeStats] = None
+        self.call(lambda e: None)       # every rank learns the state
+
+    def snapshot(self) -> dict:
+        """The engine's state as the router reads it (drains its outputs
+        and expiries)."""
+        e = self.engine
+        return dict(free=e.free_slots(),
+                    live=[r.uid for r in e.live_requests()],
+                    streams=[st.req.uid for st in e._streams],
+                    live_count=e.live_count, finished=e.pop_finished(),
+                    expired=e.pop_expired(), stats=e.stats)
+
+    def apply(self, snap: dict) -> None:
+        self._free, self._live = snap["free"], snap["live"]
+        self._streams, self.live_count = snap["streams"], snap["live_count"]
+        self._finished += snap["finished"]
+        self._expired += snap["expired"]
+        self.stats = snap["stats"]
+
+    def call(self, fn: Callable[[ContinuousEngine], Any]) -> Any:
+        import torch.distributed as dist
+        box = [None]
+        if self.engine is not None:
+            out = fn(self.engine)
+            box[0] = (out, self.snapshot())
+        dist.broadcast_object_list(box, src=self.leader)
+        out, snap = box[0]
+        self.apply(snap)
+        return out
+
+    # the router's view ------------------------------------------------
+    def free_slots(self) -> List[int]:
+        return list(self._free)
+
+    @property
+    def prefilling(self) -> int:
+        return len(self._streams)
+
+    def is_prefilling(self, uid: int) -> bool:
+        return uid in self._streams
+
+    def live_requests(self) -> List[Request]:
+        return [self._requests[u] for u in self._live]
+
+    def pop_finished(self) -> list:
+        out, self._finished = self._finished, []
+        return sorted(out, key=lambda o: o.uid)
+
+    def pop_expired(self) -> List[int]:
+        out, self._expired = self._expired, []
+        return out
+
+    def start(self) -> None:
+        self._finished, self._expired = [], []
+        self.call(lambda e: e.start())
+
+    def cancel(self, uid: int) -> bool:
+        return self.call(lambda e: e.cancel(uid))
+
+    def try_admit(self, req: Request, stall_s: float = 0.0) -> bool:
+        """The engine's ``try_admit`` on the replica's ranks; a ValueError
+        there (a request that can never fit) is raised on every rank."""
+        def admit(e):
+            if stall_s:
+                time.sleep(stall_s)
+            try:
+                return ("ok", e.try_admit(req))
+            except ValueError as err:
+                return ("invalid", str(err))
+        kind, out = self.call(admit)
+        if kind == "invalid":
+            raise ValueError(out)
+        return out
+
+
 class ReplicaRouter:
     """Multi-replica front-end over ``ContinuousEngine`` (see module
     docstring). Engine construction kwargs (``n_slots``, ``max_seq``,
@@ -165,10 +287,15 @@ class ReplicaRouter:
     same calibrated scales and the same (optionally prequantized) weight
     tensors: N replicas hold one copy of the weights.
 
-    ``meshes``: per-replica device meshes are not ported (tensor-parallel
-    replicas, ROADMAP queue 1 item 6.2); anything but ``None`` raises. Every
-    replica is built on ``api.device``, and on the card each captures its
-    decode step at construction, so ``run`` builds and captures nothing.
+    ``meshes``: per-replica device meshes, one a replica
+    (``launch/mesh.make_replica_meshes``): this rank's own replica as its
+    live ``(data=1, tp)`` mesh and every other as a ``ReplicaGroup``, the
+    whole world running this router (the module docstring). ``None`` (or
+    ``None`` entries) builds every replica on ``api.device``; on the card a
+    replica of one rank captures its decode step at construction, so
+    ``run`` builds and captures nothing. ``clock``: the router's clock
+    (seconds; the host's ``time.perf_counter`` when None), world rank 0's
+    deciding for all.
 
     ``paged=True`` (with ``page_size``/``n_pages``/``prefix_cache``) rides
     through like any engine kwarg: replicas share the quantization plan but
@@ -183,36 +310,114 @@ class ReplicaRouter:
                  meshes: Optional[Sequence[Any]] = None,
                  cushion=None, scales=None, calib_batches=None,
                  prequant: bool = False, weight_bits: int = 8,
+                 clock: Optional[Callable[[], float]] = None,
                  **engine_kwargs):
         if n_replicas < 1:
             raise ValueError("n_replicas must be >= 1")
-        if meshes is not None:
-            raise NotImplementedError(
-                "per-replica device meshes (tensor-parallel replicas) are "
-                "not ported yet: ROADMAP queue 1 item 6.2")
+        if meshes is not None and len(meshes) != n_replicas:
+            raise ValueError(f"got {len(meshes)} meshes for "
+                             f"{n_replicas} replicas")
+        meshes = list(meshes) if meshes is not None else [None] * n_replicas
         self.cfg = cfg if cfg is not None else RouterConfig()
         self.stats = stats if stats is not None else RouterStats()
+        self._clock = clock if clock is not None else self._host_clock
         # one shared plan: calibrate/prequantize once, replicate everywhere
         params, scales = plan_quantization(
             api, params, qcfg, cushion=cushion, scales=scales,
             calib_batches=calib_batches, prequant=prequant,
             weight_bits=weight_bits)
-        self.replicas = [
-            _Replica(i, ContinuousEngine(
-                api, params, qcfg, cushion=cushion, scales=scales,
-                stats=ServeStats(), **engine_kwargs), self.cfg)
-            for i in range(n_replicas)]
+
+        def engine(mesh):
+            return ContinuousEngine(api, params, qcfg, cushion=cushion,
+                                    scales=scales, mesh=mesh,
+                                    stats=ServeStats(), **engine_kwargs)
+        self._world = None
+        self._requests: Dict[int, Request] = {}
+        groups = [getattr(m, "world_ranks", None) for m in meshes]
+        if any(g is not None and len(g) > 1 for g in groups) or (
+                sum(g is not None for g in groups) > 1):
+            self._world = self._world_mesh(meshes)
+            wr = self._world.rank
+            self.replicas = [
+                _Replica(i, _WorldEngine(
+                    i, engine(m) if wr in g else None, g[0], wr,
+                    self._requests), self.cfg)
+                for i, (m, g) in enumerate(zip(meshes, groups))]
+        else:
+            self.replicas = [_Replica(i, engine(m), self.cfg)
+                             for i, m in enumerate(meshes)]
         self._queue: collections.deque = collections.deque()
         self._inflight: Dict[int, Tuple[_QEntry, _Replica]] = {}
         self._draining = False
-        self._t0 = time.perf_counter()
+        self._t0 = self._clock()
+
+    @staticmethod
+    def _host_clock() -> float:
+        """The host's clock, read through this module's ``time`` at each
+        call (a test may swap it)."""
+        return time.perf_counter()
+
+    @staticmethod
+    def _world_mesh(meshes):
+        """The whole world as one mesh (its group and this rank's place),
+        over which the router's decisions are broadcast: host ints, on
+        the CPU where the backend is gloo (no copy to the card and back,
+        no sync of it), on the rank's card under NCCL."""
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import TPMesh
+        ranks = sorted(r for m in meshes for r in m.world_ranks)
+        if not dist.is_initialized() or ranks != list(
+                range(dist.get_world_size())):
+            raise ValueError(
+                f"replica meshes over world ranks {ranks}: they must cover "
+                f"the process group of a spawn_mesh(fn, data=n, tp=t) "
+                f"(launch/mesh.make_replica_meshes)")
+        own = [m for m in meshes if isinstance(m, TPMesh)]
+        if len(own) != 1:
+            raise ValueError("replica meshes: this rank's own replica must "
+                             "be its one live TPMesh")
+        dev = (torch.device("cpu") if own[0].backend == "gloo"
+               else own[0].device)
+        return TPMesh(dist.get_rank(), dist.get_world_size(),
+                      dist.group.WORLD, dev, own[0].backend)
 
     # ------------------------------------------------------------------
     # Clock / bookkeeping helpers
     # ------------------------------------------------------------------
 
     def now(self) -> float:
-        return time.perf_counter() - self._t0
+        """Seconds on the router's clock; with replica meshes world rank
+        0's reading on every rank (a collective)."""
+        t = self._clock() - self._t0
+        if self._world is None:
+            return t
+        return DC.broadcast_ints([round(t * 1e9)], self._world)[0] * 1e-9
+
+    def _fire(self, injector: FaultInjector, site: str
+              ) -> Tuple[List[str], float]:
+        """``injector.fire(site)``: the kinds fired and a stall's seconds
+        (slept here on one process; with replica meshes rank 0 fires, every
+        rank raises or returns the same, and the replica's ranks sleep the
+        stall inside the work it delays)."""
+        if self._world is None:
+            return injector.fire(site), 0.0
+        codes = [0, 0, 0, 0]        # raised (1 crash, 2 interrupt), visit,
+        if self._world.rank == 0:   # heartbeat, stall in microseconds
+            stalls: List[float] = []
+            try:
+                acts = injector.fire(site, sleep=stalls.append)
+                codes = [0, 0, int("heartbeat" in acts),
+                         round(sum(stalls) * 1e6)]
+            except InjectedFault as e:
+                codes = [1, e.step, 0, 0]
+            except KeyboardInterrupt:
+                codes = [2, 0, 0, 0]
+        raised, visit, beat, stall = DC.broadcast_ints(codes, self._world)
+        if raised == 1:
+            raise InjectedFault(site, visit)
+        if raised == 2:
+            raise KeyboardInterrupt(f"injected interrupt at {site}")
+        return ["heartbeat"] if beat else [], stall * 1e-6
 
     def states(self, now: Optional[float] = None) -> List[str]:
         now = self.now() if now is None else now
@@ -343,11 +548,13 @@ class ReplicaRouter:
                   outputs: Dict[int, RoutedOutput]) -> None:
         entry.attempts += 1
         try:
+            stall = 0.0
             if injector is not None:
-                for act in injector.fire(f"replica{rep.idx}.admit"):
-                    if act == "heartbeat":
-                        rep.heartbeat_suppressed = True
-            ok = rep.engine.try_admit(entry.req)
+                acts, stall = self._fire(injector, f"replica{rep.idx}.admit")
+                if "heartbeat" in acts:
+                    rep.heartbeat_suppressed = True
+            ok = (rep.engine.try_admit(entry.req) if self._world is None
+                  else rep.engine.try_admit(entry.req, stall))
         except KeyboardInterrupt:
             raise
         except InjectedFault as e:
@@ -362,6 +569,8 @@ class ReplicaRouter:
             rejected.append(self._reject(entry.req.uid, f"invalid: {e}"))
             return
         except Exception as e:  # noqa: BLE001 — replica-side failure
+            if self._world is not None:
+                raise               # one fault domain: the spawn ends
             rep.health.record_error(now)
             rej = self._requeue(entry, now)
             if rej is not None:
@@ -377,12 +586,12 @@ class ReplicaRouter:
                       injector: Optional[FaultInjector],
                       rejected: List[Rejected],
                       outputs: Dict[int, RoutedOutput]) -> None:
-        t0 = time.perf_counter()
+        t0 = self._clock()
         try:
             if injector is not None:
-                for act in injector.fire(f"replica{rep.idx}.step"):
-                    if act == "heartbeat":
-                        rep.heartbeat_suppressed = True
+                acts, _ = self._fire(injector, f"replica{rep.idx}.step")
+                if "heartbeat" in acts:
+                    rep.heartbeat_suppressed = True
             rep.engine.step()
         except KeyboardInterrupt:
             raise
@@ -395,9 +604,94 @@ class ReplicaRouter:
                 self._kill_replica(rep, now, f"step failed: {e}",
                                    rejected, outputs)
             return
-        dt = time.perf_counter() - t0
+        dt = self._clock() - t0
         rep.health.record_step(dt, now + dt,
                                beat=not rep.heartbeat_suppressed)
+
+    def _step_all(self, now: float, injector: Optional[FaultInjector],
+                  rejected: List[Rejected],
+                  outputs: Dict[int, RoutedOutput]) -> bool:
+        """One round: fail over replicas found DEAD, step every other
+        replica with work. True when any replica was visited."""
+        if self._world is not None:
+            return self._step_world(now, injector, rejected, outputs)
+        stepped = False
+        for rep in self.replicas:
+            if rep.state(now) == DEAD:
+                # health-driven death (heartbeat timeout, error budget):
+                # run failover once
+                self._kill_replica(rep, now, rep.health.dead_reason
+                                   or "health: " + rep.state(now),
+                                   rejected, outputs)
+                continue
+            if rep.engine.live_count == 0 and rep.engine.prefilling == 0:
+                continue
+            self._step_replica(rep, now, injector, rejected, outputs)
+            stepped = True
+        return stepped
+
+    def _step_world(self, now: float, injector: Optional[FaultInjector],
+                    rejected: List[Rejected],
+                    outputs: Dict[int, RoutedOutput]) -> bool:
+        """``_step_all`` over replica meshes: the same decisions in the same
+        order (rank 0 fires the injector at each replica in turn; a crash
+        kills that replica, an interrupt ends the round after the replicas
+        before it), then every replica to step steps at once on its ranks
+        and the round's outcomes are exchanged."""
+        import torch.distributed as dist
+        plan: List[Tuple[_Replica, float]] = []
+        interrupted = stepped = False
+        for rep in self.replicas:
+            if rep.state(now) == DEAD:
+                self._kill_replica(rep, now, rep.health.dead_reason
+                                   or "health: " + rep.state(now),
+                                   rejected, outputs)
+                continue
+            if rep.engine.live_count == 0 and rep.engine.prefilling == 0:
+                continue
+            stepped = True
+            stall = 0.0
+            if injector is not None:
+                try:
+                    acts, stall = self._fire(injector,
+                                             f"replica{rep.idx}.step")
+                except InjectedFault as e:
+                    self._kill_replica(rep, now, str(e), rejected, outputs)
+                    continue
+                except KeyboardInterrupt:
+                    interrupted = True
+                    break
+                if "heartbeat" in acts:
+                    rep.heartbeat_suppressed = True
+            plan.append((rep, stall))
+        if plan:
+            mine = None
+            for rep, stall in plan:
+                h = rep.engine
+                if h.engine is None:
+                    continue
+                t0 = self._clock()
+                if stall:
+                    time.sleep(stall)
+                h.engine.step()
+                dt = self._clock() - t0
+                if h.is_leader:
+                    mine = (rep.idx, dt, h.snapshot())
+            got: List[Any] = [None] * self._world.size
+            dist.all_gather_object(got, mine)
+            dts = {}
+            for item in got:
+                if item is not None:
+                    idx, dt, snap = item
+                    self.replicas[idx].engine.apply(snap)
+                    dts[idx] = dt
+            for rep, _ in plan:
+                dt = dts[rep.idx]
+                rep.health.record_step(dt, now + dt,
+                                       beat=not rep.heartbeat_suppressed)
+        if interrupted:
+            raise KeyboardInterrupt("injected interrupt")
+        return stepped
 
     def _expire_live(self, now: float, rejected: List[Rejected]) -> None:
         """Cancel live requests whose deadline passed mid-decode.
@@ -458,16 +752,33 @@ class ReplicaRouter:
         self._queue.clear()
         self._inflight.clear()
         self._draining = False
+        self._requests.clear()
+        self._requests.update({r.uid: r for r in requests})
         for rep in self.replicas:
             rep.reset()
             rep.engine.start()
-        self._t0 = time.perf_counter()
+        self._t0 = self._clock()
         pending = collections.deque(
             sorted(requests, key=lambda r: (r.arrival_s, r.uid)))
         outputs: Dict[int, RoutedOutput] = {}
         rejected: List[Rejected] = []
+        with _DeferredInterrupts(self._world is not None) as interrupts:
+            self._loop(pending, injector, outputs, rejected, interrupts)
+        self._snapshot_stats(self.now())
+        return RouterResult(
+            outputs=[outputs[u] for u in sorted(outputs)],
+            rejected=rejected, stats=self.stats)
 
+    def _loop(self, pending, injector, outputs, rejected, interrupts
+              ) -> None:
+        """``run``'s event loop. With replica meshes a ctrl-C on any rank
+        is counted and read at the top of the loop, where no collective is
+        open (a max over the world), and starts the drain on every rank."""
         while pending or self._queue or self._inflight:
+            if self._world is not None and not self._draining:
+                if DC.max_ints([interrupts.count], self._world)[0]:
+                    self._draining = True
+                    self.stats.drained = True
             try:
                 now = self.now()
                 if self._draining:
@@ -491,20 +802,7 @@ class ReplicaRouter:
                             f"{len(self._queue) + len(pending) + len(self._inflight)} "
                             f"request(s) outstanding")
                     break
-                stepped = False
-                for rep in self.replicas:
-                    if rep.state(now) == DEAD:
-                        # health-driven death (heartbeat timeout, error
-                        # budget): run failover once
-                        self._kill_replica(rep, now, rep.health.dead_reason
-                                           or "health: " + rep.state(now),
-                                           rejected, outputs)
-                        continue
-                    if rep.engine.live_count == 0 \
-                            and rep.engine.prefilling == 0:
-                        continue
-                    self._step_replica(rep, now, injector, rejected, outputs)
-                    stepped = True
+                stepped = self._step_all(now, injector, rejected, outputs)
                 now = self.now()
                 self._expire_live(now, rejected)
                 for rep in self.replicas:
@@ -518,8 +816,3 @@ class ReplicaRouter:
                     raise               # second interrupt: stop for real
                 self._draining = True
                 self.stats.drained = True
-
-        self._snapshot_stats(self.now())
-        return RouterResult(
-            outputs=[outputs[u] for u in sorted(outputs)],
-            rejected=rejected, stats=self.stats)

@@ -17,9 +17,10 @@ returns one report a case (numpy arrays and numbers, and the case's wall
   activation-range penalty of ``site_stats`` of it under the data axis.
 * "grad": the gradient of the tuning loss (``cushioncache.tune_loss_grads``)
   at ``cushion`` (a numpy tree, or ``cushion_ids`` extracted on the rank)
-  on the global ``batch``, under the data axis; with ``one_rank`` rank 0
-  also computes it alone on the whole batch (``one``, with the cushion it
-  started from) and ``profile`` times one data-parallel call on rank 0.
+  on the global ``batch``, under the data axis; with ``one_rank`` the last
+  data rank also computes it alone on the whole batch (``one``, with the
+  cushion it started from), beside rank 0's ``profile`` of one
+  data-parallel call.
 * "tune": ``prefix_tune(mesh=)`` from ``cushion`` on ``batches`` under
   ``qcfg`` / ``ccfg``: the log, the cushion it started from and the tuned
   one, the launches and the host syncs of the tuning.
@@ -31,10 +32,11 @@ returns one report a case (numpy arrays and numbers, and the case's wall
   leaf's spec and element counts), the peak device memory, the final
   whole parameters (``return_params``), ``ms`` a step, ``profile`` (one
   more step, timed),
-  and with ``one_rank`` rank 0's comparison with ``make_train_step`` alone
-  on the whole batches (``one``: its metrics, each leaf's difference, and
-  the two runs' parameter updates and first moments, each of the whole
-  tree as a vector, against each other).
+  and with ``one_rank`` the last data rank's comparison with
+  ``make_train_step`` alone on the whole batches (``one``: its metrics,
+  each leaf's difference, and the two runs' parameter updates and first
+  moments, each of the whole tree as a vector, against each other), made
+  beside rank 0's profile.
 * "refuse": ``shard_train_step`` and ``prefix_tune`` over the mesh on
   ``cfg`` (a family with experts): the messages they raise.
 
@@ -126,8 +128,9 @@ def _profiled(fn, mesh) -> Dict[str, Any]:
         fn()
         _sync(dev)
         wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3
+    # the raw results: the profiler's events() list takes seconds to build
+    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA) / 1e6
     return {"ms": wall, "device_ms": busy if busy else "not measured"}
 
 
@@ -189,7 +192,7 @@ def _grad(mesh, case):
     rep["metrics"] = {k: float(v) for k, v in m.items()}
     if case.get("profile"):
         rep["profile"] = _profiled(dp, mesh)
-    if case.get("one_rank") and mesh.data_rank == 0:
+    if case.get("one_rank") and mesh.data_rank == mesh.data_size - 1:
         g1, m1 = CC.tune_loss_grads(api, params, cushion, batch, qcfg, ccfg)
         rep["one"] = {"grads": _np_tree(g1),
                       "metrics": {k: float(v) for k, v in m1.items()},
@@ -248,7 +251,7 @@ def _train(mesh, case):
                    for p, spec, t, s_, m in zip(
                        paths, tree_leaves(p_specs), tree_leaves(full),
                        tree_leaves(shards), tree_leaves(state.mu))}}
-    one_rank = case.get("one_rank") and mesh.data_rank == 0
+    one_rank = case.get("one_rank") and mesh.data_rank == mesh.data_size - 1
     if one_rank:
         keep = tree_map(lambda t: t.clone(), full)
     del full
@@ -266,14 +269,16 @@ def _train(mesh, case):
         rep["metrics"].append({k: float(v) for k, v in met.items()})
     rep["peak_bytes"] = (int(torch.cuda.max_memory_allocated(dev))
                          if dev.type == "cuda" else 0)
-    if case.get("profile"):
-        # one more step (the step is functional: the run's state stays)
-        rep["profile"] = _profiled(lambda: fn(shards, state, batches[0]),
-                                   mesh)
     fsdp = TR._FSDP(p_specs, mesh)
     with DC.use_data(mesh):
         whole = fsdp.gather(shards)
         whole_mu = fsdp.gather(state.mu)
+    if case.get("profile"):
+        # one more step (the step is functional: the run's state stays);
+        # the last collective of the case, so that the one-rank run below
+        # goes beside rank 0's profile
+        rep["profile"] = _profiled(lambda: fn(shards, state, batches[0]),
+                                   mesh)
     if case.get("return_params"):
         rep["params"] = _np_tree(whole)
     if one_rank:

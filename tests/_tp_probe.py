@@ -18,9 +18,12 @@ returns one report a case. A case names:
   arrays to calibrate on);
 * ``kind`` "static": ``tokens`` (B, S) (and a VLM's ``patches`` (B, P,
   D), the same on every rank) and ``n_tokens`` through
-  ``Engine.generate`` (``logits``: also the prefill's last logits, the
-  cushion block as the cache holds it and, of a hybrid, the Mamba
-  cushion state the rank's prefill starts from);
+  ``Engine.generate`` (``logits``: also the served request's prefill's
+  last logits, the cushion block as its cache holds it and, of a hybrid,
+  the Mamba cushion state the rank's prefill starts from;
+  ``record_quant``: also every activation quantization of that request,
+  its prefill's and its decode steps', in call order, as its scale, zero
+  point and codes, ``quant_records``);
   ``warmup``: one ``generate`` first, outside the report (on the card a
   single rank captures its decode graph there, with two eager warm-up
   steps); ``margins``: the top-1 minus top-2 logit of every row at every
@@ -31,6 +34,15 @@ returns one report a case. A case names:
   clock of its own (a tick of ``rate`` ms a read, the engine's ``clock``),
   to show that the ranks still agree; ``interrupt`` (rank, decode steps)
   sends that rank a SIGINT once it has run that many decode steps;
+* ``kind`` "router" (run by ``run_router_cases`` in a ``spawn_mesh`` of
+  ``n_replicas`` data rows): ``requests`` as "continuous" through a
+  ``ReplicaRouter`` over ``launch/mesh.make_replica_meshes`` (a replica a
+  data row), with ``n_slots``, ``paged``, ``page_size``, ``router_cfg``
+  (``RouterConfig`` fields), ``chaos`` (a ``--chaos`` spec for rank 0's
+  injector) and ``clock_rates`` (the router's and the engines' clocks, one
+  a rank); ``warmup``: one run first, without faults, outside the report.
+  The report: every output as (uid, replica, slot, tokens), the
+  rejections, ``RouterStats`` and the launches;
 * ``mesh``: False serves without a mesh (the unsharded engine);
 * ``reset_peak``: False keeps the device's peak-memory count running
   (default: reset before serving);
@@ -53,16 +65,23 @@ import signal
 import time
 from typing import Any, Dict, List
 
+import contextlib
+
 import numpy as np
 import torch
 
 from repro_torch.configs.base import QuantConfig
+from repro_torch.core import quantization as Q
+from repro_torch.kernels.act_quant import act_quant_static_plain
 from repro_torch.distributed import collectives as DC
 from repro_torch.kernels import _lib
 from repro_torch.models import common as C
 from repro_torch.models import convert
 from repro_torch.models.registry import build
+from repro_torch.distributed.fault_injection import FaultInjector
+from repro_torch.launch.mesh import make_replica_meshes
 from repro_torch.serving.engine import Engine, check_tree_sums
+from repro_torch.serving.router import ReplicaRouter, RouterConfig
 from repro_torch.serving.scheduler import ContinuousEngine, Request
 
 # trees made from a seed on this rank, by (cfg, seed)
@@ -177,6 +196,61 @@ def prefill_view(eng, batch) -> Dict[str, Any]:
     return out
 
 
+@contextlib.contextmanager
+def recording_quant(records: List[Dict[str, np.ndarray]]):
+    """Append every activation quantization made meanwhile (``quantize``
+    with asymmetric codes, the per-token kernel, the int matmuls' static
+    codes) to ``records`` as {"scale", "zero", "codes"}, in call order."""
+    names = ("quantize", "act_quant_ptoken", "quant_w8a8_matmul",
+             "quant_w4a8_matmul")
+    saved = {k: getattr(Q, k) for k in names}
+
+    def put(scale, zero, codes):
+        records.append({"scale": _np(scale.reshape(-1)),
+                        "zero": _np(zero.reshape(-1)), "codes": _np(codes)})
+
+    def quantize(x, scale, zero, bits, symmetric):
+        out = saved["quantize"](x, scale, zero, bits, symmetric)
+        if not symmetric:               # an activation (weights: symmetric)
+            put(scale, zero, out)
+        return out
+
+    def act_quant_ptoken(x, bits=8, rng=None):
+        out = saved["act_quant_ptoken"](x, bits, rng=rng)
+        put(out[1], out[2], out[0])
+        return out
+
+    def static(name):
+        def run(x, w, s_x, z_x, *a, **kw):
+            put(s_x, z_x, act_quant_static_plain(x, s_x, z_x))
+            return saved[name](x, w, s_x, z_x, *a, **kw)
+        return run
+    wrap = dict(quantize=quantize, act_quant_ptoken=act_quant_ptoken,
+                quant_w8a8_matmul=static("quant_w8a8_matmul"),
+                quant_w4a8_matmul=static("quant_w4a8_matmul"))
+    for k in names:
+        setattr(Q, k, wrap[k])
+    try:
+        yield records
+    finally:
+        for k, f in saved.items():
+            setattr(Q, k, f)
+
+
+def served_view(eng, batch, logits) -> Dict[str, Any]:
+    """``prefill_view`` of the request ``eng`` just served, from its own
+    prefill's last ``logits`` and its decode state's cache (the cushion rows and
+    blocks, which decoding never writes)."""
+    cache = eng.states[batch["tokens"].shape[0]].cache
+    out = {"logits": _np(logits),
+           "cushion": _cushion_view(cache, eng.prefix_len)}
+    if eng.cushion is not None and "state" in eng.cushion:
+        with DC.use_tp(eng.mesh):
+            local = eng.api.mod.local_cushion(eng.cushion, eng.api.cfg)
+        out["cushion_state"] = {k: _np(v) for k, v in local["state"].items()}
+    return out
+
+
 def _in_turn(mesh, make):
     """``make()`` on each rank in turn (the ranks' other work waits at a
     barrier), the card's cache emptied after each; returns its result."""
@@ -233,6 +307,7 @@ def _engine(mesh, api, case, **extra):
               max_seq=case.get("max_seq", 128), kv_dtype=case.get("kv_dtype"),
               calib_batches=calib or None,
               prequant=case.get("prequant", False),
+              weight_bits=case.get("weight_bits", 8),
               mesh=mesh if case.get("mesh", True) else None, **extra)
     if case["kind"] == "static":
         return Engine(api, params, qcfg, **kw)
@@ -256,13 +331,33 @@ def _serve(mesh, api, eng, case: Dict[str, Any]) -> Dict[str, Any]:
     dt = C.dtype_of(api.cfg)
     if case["kind"] == "static":
         batch = _batch(case, dev, dt)
-        if case.get("logits"):
-            rep.update(prefill_view(eng, batch))
         if case.get("warmup"):
             eng.generate(batch, case["n_tokens"])
+        seen: Dict[str, torch.Tensor] = {}
+        if case.get("logits"):
+            # the served request's own prefill: its logits, kept on the
+            # device until the request is done (the method shadowed on
+            # this engine's api only)
+            prefill = eng.api.prefill
+
+            def capture(*a, **kw):
+                out = prefill(*a, **kw)
+                lg = out[0]
+                seen.setdefault("logits",
+                                (lg[:, -1] if lg.dim() == 3 else lg).clone())
+                return out
+            eng.api.prefill = capture
+        records: List[Dict[str, np.ndarray]] = []
         _lib.reset_launches()
-        res = eng.generate(batch, case["n_tokens"])
+        with (recording_quant(records) if case.get("record_quant")
+              else contextlib.nullcontext()):
+            res = eng.generate(batch, case["n_tokens"])
         rep["launches"] = dict(_lib.LAUNCHES)
+        if case.get("logits"):
+            del eng.api.prefill
+            rep.update(served_view(eng, batch, seen["logits"]))
+        if case.get("record_quant"):
+            rep["quant_records"] = records
         rep.update(tokens=res.tokens, ttft_ms=res.ttft_ms,
                    tpot_ms=res.tpot_ms,
                    weight_bytes=(eng.weight_bytes_fp, eng.weight_bytes_int8))
@@ -326,3 +421,97 @@ def _serve(mesh, api, eng, case: Dict[str, Any]) -> Dict[str, Any]:
 def run_cases(mesh, cases: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
     """Every case on this rank, in order (a ``spawn_tp`` target)."""
     return [run_case(mesh, c) for c in cases]
+
+
+def _requests(case, dev, dt) -> List[Request]:
+    return [Request(uid=i, batch=_batch(r, dev, dt),
+                    max_new_tokens=int(r["max_new_tokens"]),
+                    arrival_s=float(r.get("arrival_s", 0.0)))
+            for i, r in enumerate(case["requests"])]
+
+
+def run_router_case(world, case: Dict[str, Any]) -> Dict[str, Any]:
+    """One "router" case on this rank of a ``spawn_mesh(run_router_cases,
+    data=n_replicas, tp)`` (``world`` is the (data, tp) mesh)."""
+    n = int(case["n_replicas"])
+    meshes = make_replica_meshes(n, world.size, world.device.type)
+    mine = meshes[world.data_rank]
+    dev = mine.device
+    if dev.type == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+    api = build(case["cfg"], dev)
+    params = _params(api, case)
+    cushion = _cushion(api, params, case)
+    scales = case.get("scales")
+    if scales is not None:
+        scales = convert.scales_from_numpy(scales, dev)
+    dt = C.dtype_of(api.cfg)
+    calib = [_batch(t if isinstance(t, dict) else {"tokens": t}, dev, dt)
+             for t in case.get("calib") or []]
+    wr = world.data_rank * world.size + world.rank
+    rates = case.get("clock_rates")
+    kw = {}
+    if rates:
+        rate = rates[wr % len(rates)]
+        kw = dict(clock=_Clock(rate))
+    router = ReplicaRouter(
+        api, params, case["qcfg"], n_replicas=n,
+        cfg=RouterConfig(**case.get("router_cfg", {})), meshes=meshes,
+        cushion=cushion, scales=scales, calib_batches=calib or None,
+        prequant=case.get("prequant", False),
+        weight_bits=case.get("weight_bits", 8),
+        n_slots=case.get("n_slots", 2), max_seq=case.get("max_seq", 128),
+        kv_dtype=case.get("kv_dtype"), paged=case.get("paged", False),
+        page_size=case.get("page_size", 32), **kw)
+    if rates:
+        # the engines read a clock of this rank's too
+        router.replicas[world.data_rank].engine.engine._clock = \
+            _Clock(rates[wr % len(rates)])
+    del params
+    # the wall of this rank's own replica steps (a step ends in its sync)
+    own = router.replicas[world.data_rank].engine.engine
+    walls: List[float] = []
+    step = own.step
+
+    def timed_step():
+        t0 = time.perf_counter()
+        out = step()
+        walls.append(time.perf_counter() - t0)
+        return out
+    own.step = timed_step
+    reqs = _requests(case, dev, dt)
+    if case.get("warmup"):
+        router.run(reqs)
+    injector = (FaultInjector.parse(case["chaos"]) if case.get("chaos")
+                else None)
+    if dev.type == "cuda" and case.get("reset_peak", True):
+        torch.cuda.reset_peak_memory_stats(dev)
+    _lib.reset_launches()
+    walls.clear()
+    t0 = time.perf_counter()
+    res = router.run(reqs, injector=injector)
+    rep: Dict[str, Any] = {
+        "rank": wr, "replica": world.data_rank, "backend": world.backend,
+        "name": case.get("name"), "seconds": time.perf_counter() - t0,
+        "step_s": sum(walls), "steps": len(walls),
+        "launches": dict(_lib.LAUNCHES),
+        "outputs": [(o.uid, o.replica, o.slot, np.asarray(o.tokens))
+                    for o in res.outputs],
+        "ttft_ms": {o.uid: o.ttft_ms for o in res.outputs},
+        "tpot_ms": {o.uid: o.tpot_ms for o in res.outputs},
+        "rejected": [(r.uid, r.reason) for r in res.rejected],
+        "stats": res.stats.as_dict(), "peak_bytes": 0}
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        rep["peak_bytes"] = int(torch.cuda.max_memory_allocated(dev))
+    del router
+    gc.collect()
+    return rep
+
+
+def run_router_cases(world, cases: List[Dict[str, Any]]
+                     ) -> List[Dict[str, Any]]:
+    """Every "router" case on this rank, in order (a ``spawn_mesh``
+    target)."""
+    return [run_router_case(world, c) for c in cases]

@@ -24,8 +24,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.act_quant import (  # noqa: E402
-    act_quant_ptoken, act_quant_ptoken_plain, act_quant_static,
-    act_quant_static_plain)
+    act_quant_ptoken, act_quant_ptoken_plain, act_quant_ptoken_range,
+    act_quant_ptoken_range_plain, act_quant_static, act_quant_static_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
     flash_attention_plain)
@@ -2077,3 +2077,73 @@ def test_int32_mode_at_mamba_out_shard(dev, M):
         whole = w8a8_matmul(x, w, sx, zx, sw, colsum, -128.0, bf)
     assert torch.equal(whole, w8a8_epilogue(parts[0] + parts[1], sx, zx, sw,
                                             colsum, -128.0, bf))
+
+
+@pytest.mark.parametrize("M,K,N,group", W4_CASES + [(4, 4096, 8192, 128),
+                                                    (2048, 4096, 8192, 128)])
+def test_w4a8_accumulator_mode_bit_exact(dev, M, K, N, group):
+    """W4A8's f32 accumulator mode (``accumulate=True``: sum_g s_w[g] acc_g,
+    no epilogue), both regimes, s_w in f32 and bf16, and at M <= 16 the
+    fused staging of an f32 / bf16 activation: equal to the plain version
+    bit for bit (deepseek-67b's ``wo`` shard at tp = 2: K 4,096, N 8,192);
+    its launches count under ``w4a8_matmul_acc``."""
+    x, wp, s_w, _ = _w4_case(dev, M, K, N, group, M + K + N + 1)
+    sx, zx = (torch.tensor(v, device=dev) for v in (0.031, 111.0))
+    for sw in (s_w, s_w.to(torch.bfloat16)):
+        _lib.reset_launches()
+        a = w4a8_matmul(x, wp, sx, zx, sw, None, group, accumulate=True)
+        assert _lib.LAUNCHES["w4a8_matmul_acc"] == 1
+        assert _lib.LAUNCHES["w4a8_matmul"] == 0
+        b = w4a8_matmul_plain(x, wp, sx, zx, sw, None, group,
+                              accumulate=True)
+        torch.cuda.synchronize()
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+        if M <= 16:
+            for xf in (_fp_x(dev, M, K, M + 3),
+                       _fp_x(dev, M, K, M + 3).to(torch.bfloat16)):
+                a = quant_w4a8_matmul(xf, wp, sx, zx, sw, None, group,
+                                      accumulate=True)
+                b = quant_w4a8_matmul_plain(xf, wp, sx, zx, sw, None, group,
+                                            accumulate=True)
+                torch.cuda.synchronize()
+                assert torch.equal(a, b), xf.dtype
+
+
+@pytest.mark.parametrize("M,D", [(1, 7), (4, 4096), (5, 100), (2048, 4096),
+                                 (4, 11008), (300, 8192)])
+def test_act_quant_ptoken_range_and_given_modes(dev, M, D):
+    """The per-token kernel's range-only mode and its given-range mode,
+    f32 and bf16 input, equal to their plain versions bit for bit; the
+    given range of the two halves of every row (their min and max) gives
+    each half the whole row's codes, scale and zero (deepseek-67b's
+    row-parallel shards at tp = 2: D 4,096 and 11,008)."""
+    g = torch.Generator(dev).manual_seed(M * D)
+    x = torch.randn((M, D), generator=g, device=dev) * 3 + 0.2
+    x[1 % M] = 0.0
+    x[2 % M] = x[2 % M].abs() + 0.1
+    for t in (x, x.to(torch.bfloat16)):
+        _lib.reset_launches()
+        rng = act_quant_ptoken_range(t)
+        assert _lib.LAUNCHES["act_quant_ptoken_range"] == 1
+        for u, v in zip(rng, act_quant_ptoken_range_plain(t)):
+            assert torch.equal(u, v), t.dtype
+        whole = act_quant_ptoken(t)
+        if D < 2:
+            continue
+        h = D // 2
+        halves = (t[:, :h].contiguous(), t[:, h:].contiguous())
+        rs = [act_quant_ptoken_range(p) for p in halves]
+        mn = torch.minimum(rs[0][0], rs[1][0])
+        mx = torch.maximum(rs[0][1], rs[1][1])
+        parts = []
+        for p in halves:
+            _lib.reset_launches()
+            got = act_quant_ptoken(p, rng=(mn, mx))
+            assert _lib.LAUNCHES["act_quant_ptoken_given"] == 1
+            assert _lib.LAUNCHES["act_quant_ptoken"] == 0
+            for u, v in zip(got, act_quant_ptoken_plain(p, rng=(mn, mx))):
+                assert torch.equal(u, v), t.dtype
+            parts.append(got)
+        assert torch.equal(torch.cat([p[0] for p in parts], 1), whole[0])
+        for p in parts:
+            assert torch.equal(p[1], whole[1]) and torch.equal(p[2], whole[2])

@@ -309,10 +309,10 @@ def test_shard_train_step_matches_jax(ref, dp2):
     for k in flat(r0["params"]):
         np.testing.assert_array_equal(flat(r0["params"])[k],
                                       flat(r1["params"])[k])
-    for m, o in zip(r0["metrics"], r0["one"]["metrics"]):
+    for m, o in zip(r0["metrics"], r1["one"]["metrics"]):
         for k in ("loss", "ce", "grad_norm"):
             np.testing.assert_allclose(m[k], o[k], rtol=1e-6)
-    for path, d in r0["one"]["diffs"].items():
+    for path, d in r1["one"]["diffs"].items():
         assert d["past"] <= ADAM_SHARE and d["worst_past"] <= lrs, path
 
 

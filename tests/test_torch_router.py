@@ -327,14 +327,21 @@ def test_paged_pools(paged, chaos):
 
 
 def test_shared_weights_and_tp_refused(tiny, pair):
-    """One copy of the weights behind every replica; per-replica meshes
-    (tensor-parallel replicas) are refused."""
+    """One copy of the weights behind every replica; per-replica meshes of
+    ``None`` build every replica on the default device, as the reference
+    (tensor-parallel replicas: ``test_torch_replica_tp.py``), and a mesh
+    count other than the replicas' is refused."""
     ptrs = {rep.engine.params.tree()["embed"]["w"].data_ptr()
             for rep in pair.t.replicas}
     assert ptrs == {tiny["params"].tree()["embed"]["w"].data_ptr()}
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        TR.ReplicaRouter(tiny["api"], tiny["params"], QN, n_replicas=2,
+    r = TR.ReplicaRouter(tiny["api"], tiny["params"], QN, n_replicas=2,
                          meshes=[None, None], n_slots=1, max_seq=128)
+    assert [rep.engine.mesh for rep in r.replicas] == [None, None]
+    assert {rep.engine.params.tree()["embed"]["w"].data_ptr()
+            for rep in r.replicas} == ptrs
+    with pytest.raises(ValueError, match="3 meshes for 2 replicas"):
+        TR.ReplicaRouter(tiny["api"], tiny["params"], QN, n_replicas=2,
+                         meshes=[None] * 3, n_slots=1, max_seq=128)
 
 
 def test_serve_cli_router_on_cpu(capsys):

@@ -573,15 +573,12 @@ def _mesh2():
 @pytest.mark.parametrize("arch,qcfg,kw", [
     ("xlstm-350m", QN, {}),
     ("whisper-base", QN, {}),
-    ("paper_tiny", QuantConfig(mode="pt_dynamic", true_int8=True), {}),
-    ("paper_tiny", QuantConfig(mode="ptoken_dynamic"), {}),
-    ("paper_tiny", QW8, {"prequant": True, "weight_bits": 4}),
-], ids=["xlstm", "encdec", "pt_dynamic", "ptoken_dynamic", "w4a8"])
+], ids=["xlstm", "encdec"])
 def test_unsharded_cases_refuse(ref, arch, qcfg, kw):
     """What is not sharded yet raises, naming its ROADMAP item: the xLSTM
-    and encoder-decoder families (6.3b), the dynamic modes and W4A8 (6.4).
-    The MoE, VLM and hybrid families serve (``test_torch_tp_families.py``
-    holds them to JAX)."""
+    and encoder-decoder families (6.3b). The MoE, VLM and hybrid families
+    serve (``test_torch_tp_families.py`` holds them to JAX), and so do the
+    dynamic modes and W4A8 (``test_torch_replica_tp.py``)."""
     cfg = t_get_config(arch)
     if arch != "paper_tiny":
         cfg = t_reduced(cfg, dtype="float32")
@@ -593,20 +590,57 @@ def test_unsharded_cases_refuse(ref, arch, qcfg, kw):
         Engine(api, params, qcfg, scales=scales, mesh=_mesh2(), **kw)
 
 
+@pytest.mark.parametrize("qcfg,wb", [
+    (QuantConfig(mode="pt_dynamic", true_int8=True), 8),
+    (QuantConfig(mode="ptoken_dynamic"), 8),
+    (QW8, 4),
+], ids=["pt_dynamic", "ptoken_dynamic", "w4a8"])
+def test_dynamic_modes_and_w4a8_shard(qcfg, wb):
+    """The dynamic modes and W4A8 pass ``check_tp_serving`` at tp = 2; a
+    W4A8 tree's rank shard cuts ``w_packed`` by columns at the
+    column-parallel sites (``wqkv``, ``w_up``: its group scales and scaled
+    column sums with it) and by whole groups of rows at the row-parallel
+    ones (``wo``, ``w_down``: the group scales and column sums whole, as
+    the reference keeps them)."""
+    cfg = t_get_config("paper_tiny")
+    check_tp_serving(cfg, qcfg, 2, wb)
+    if wb != 4:
+        return
+    api = build(cfg, "cpu")
+    tree = TQ.prequantize_tree(
+        api.init_params(torch.Generator().manual_seed(0)).tree(), qcfg,
+        weight_bits=4)
+    r1 = shard_tree(tree, cfg, types.SimpleNamespace(rank=1, size=2))
+    for key, rows in (("attn", "wo"), ("mlp", "w_down")):
+        w, got = tree["layers"][key][rows], r1["layers"][key][rows]
+        Kp = w["w_packed"].shape[-2]
+        assert torch.equal(got["w_packed"], w["w_packed"][..., Kp // 2:, :])
+        assert torch.equal(got["w_scale"], w["w_scale"])
+        assert torch.equal(got["colsum"], w["colsum"])
+    w, got = tree["layers"]["mlp"]["w_up"], r1["layers"]["mlp"]["w_up"]
+    n = w["w_packed"].shape[-1] // 2
+    assert torch.equal(got["w_packed"], w["w_packed"][..., n:])
+    assert torch.equal(got["w_scale"], w["w_scale"][..., n:])
+    assert torch.equal(got["colsum"], w["colsum"][..., n:])
+    assert got["w_scale"].shape[-2] == w["w_scale"].shape[-2]
+
+
 def test_indivisible_heads_replicas_and_data_refuse():
     """Axes that do not divide are served whole (``paper_tiny`` at tp = 3
     in ``test_torch_tp_families.py``); what still raises: a rank whose
     query heads straddle the groups of whole KV heads (H = 12, K = 4 at
-    tp = 3), replicas with tp, a data axis."""
+    tp = 3), replicas outside the continuous mode, a data axis on one
+    engine, replica meshes outside a spawn."""
     api = build(t_get_config("paper_tiny"), "cpu")
     params = api.init_params(torch.Generator().manual_seed(0))
     straddle = dataclasses.replace(t_get_config("paper_tiny"), n_heads=12,
                                    n_kv_heads=4, d_head=48, d_model=576)
     with pytest.raises(ValueError, match=r"ROADMAP queue 1, item 6\.5b"):
         check_tp_serving(straddle, QN, 3)
-    with pytest.raises(SystemExit, match="ROADMAP queue 1, item 6"):
-        serve.main(["--device", "cpu", "--tp", "2", "--mode", "continuous",
-                    "--replicas", "2"])
+    with pytest.raises(SystemExit):
+        # the router fronts ContinuousEngine replicas (--replicas 2 --tp 2
+        # --mode continuous serves: test_torch_replica_tp.py)
+        serve.main(["--device", "cpu", "--tp", "2", "--replicas", "2"])
     with pytest.raises(SystemExit, match=r"ROADMAP queue 1, item 6\.3b"):
         serve.main(["--device", "cpu", "--tp", "2", "--arch",
                     "xlstm-350m"])
@@ -615,11 +649,11 @@ def test_indivisible_heads_replicas_and_data_refuse():
     # one: its data-parallel serving is the router's replicas)
     with pytest.raises(RuntimeError, match="spawn_mesh"):
         M.make_tp_mesh(2, data=2)
-    with pytest.raises(ValueError, match="ROADMAP queue 1, item 6.2"):
+    with pytest.raises(ValueError, match="router's replicas"):
         Engine(api, params, QN,
                mesh=M.TPMesh(0, 1, None, torch.device("cpu"), None,
                              data_rank=0, data_size=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
+    with pytest.raises(RuntimeError, match="spawn_mesh"):
         M.make_replica_meshes(2, tp=2)
     # the reference's production meshes need 256 or 512 devices
     with pytest.raises(RuntimeError, match=r"need 256 devices for mesh "

@@ -12,10 +12,12 @@ print what they measure: ``pytest -s``):
 * ``apply_mamba``'s output and final ``h``, and ``decode_mamba``'s: within
   1e-5 of the largest entry (measured up to 6.6e-7 under pt_dynamic,
   3.0e-7 under none). The
-  port's scan runs the recurrence position by position, the reference's
-  ``associative_scan`` associates the products as a tree: the two agree
-  to f32 rounding only. The conv state is a copy of the inputs: within
-  1e-6.
+  port's scan associates the products as the reference's
+  ``associative_scan`` does (``ssm.associative_scan``: the same odd/even
+  recursion and combine, its sum one fused multiply-add as XLA forms it),
+  bit for bit on the same terms; the terms themselves (the conv, ``exp``,
+  the projections) round otherwise by ulps. The conv state is a copy of
+  the inputs: within 1e-6.
 * ``apply_mamba`` over S positions against S ``decode_mamba`` steps, both
   the port's: within 1e-5 of the largest entry (measured 3.6e-7; the
   same recurrence, the conv and the in-projection batched differently).
@@ -222,3 +224,36 @@ def test_autograd_runs_through_the_scan(mamba):
     (g,) = torch.autograd.grad(out.square().sum(), h0)
     assert g.shape == h0.shape and bool(torch.isfinite(g).all())
     assert float(g.abs().max()) > 0
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 7, 24, 33, 70, 257])
+def test_associative_scan_is_jax_bit_for_bit(S):
+    """``ssm.associative_scan`` on the reference's combine gives
+    ``jax.lax.associative_scan``'s (jitted) a and h bit for bit, at odd and
+    even lengths (a's subnormal products aside, which XLA flushes to zero);
+    the position-by-position recurrence does not (the products associate
+    otherwise: up to ~1e-6 apart here)."""
+    rs = np.random.RandomState(S)
+    a = np.exp(-rs.rand(2, S, 8, 4).astype(np.float32))
+    b = rs.randn(2, S, 8, 4).astype(np.float32)
+
+    def combine(x, y):
+        (a1, b1), (a2, b2) = x, y
+        return a2 * a1, a2 * b1 + b2
+    ja, jh = jax.jit(lambda a, b: jax.lax.associative_scan(
+        combine, (a, b), axis=1))(a, b)
+    ta, th = TS.associative_scan(torch.from_numpy(a), torch.from_numpy(b))
+    # XLA on the CPU flushes subnormal results to zero, PyTorch keeps them
+    # (long products of a reach them): compare a with those flushed
+    tiny = np.finfo(np.float32).tiny
+    ta = np.where(np.abs(ta.numpy()) < tiny, 0.0, ta.numpy())
+    np.testing.assert_array_equal(ta, np.asarray(ja))
+    np.testing.assert_array_equal(th.numpy(), np.asarray(jh))
+    h, seq = torch.zeros(2, 8, 4), []
+    for t in range(S):
+        h = torch.addcmul(torch.from_numpy(b[:, t]),
+                          torch.from_numpy(a[:, t]), h)
+        seq.append(h)
+    gap = float(np.abs(torch.stack(seq, 1).numpy() - np.asarray(jh)).max())
+    print(f"S={S}: the sequential recurrence {gap:.3g} from JAX's scan")
+    assert gap <= 1e-5

@@ -148,8 +148,9 @@ INT_MATMUL = {
 # 24 16-byte vectors a lane: 6144 bf16, 3072 f32), min and max by shuffles
 # only, no shared memory and no barrier; wider rows keep the block kernel
 PTOKEN_LAUNCH = """template <typename T>
-int launch_ptoken(const T* x, int8_t* out, float* scale, float* zero, int M,
-                  int D, float qmax, cudaStream_t st) {
+int launch_ptoken(const T* x, int8_t* out, float* scale, float* zero,
+                  float* lo, float* hi, int mode, int M, int D, float qmax,
+                  cudaStream_t st) {
   constexpr int N = aq::Vec<T>::N;
 """
 PTOKEN_WARP = """constexpr int W_ROWS = 4;
@@ -211,7 +212,7 @@ act_quant_ptoken_warp(const T* __restrict__ x, int8_t* __restrict__ out,
 
 """ + PTOKEN_LAUNCH + """  const int vpl = (D / N + 31) / 32;
   const int wb = (M + W_ROWS - 1) / W_ROWS, wt = 32 * W_ROWS;
-  if (vpl <= 24) {
+  if (vpl <= 24 && mode == 0) {
     if (vpl <= 4)
       act_quant_ptoken_warp<T, 4><<<wb, wt, 0, st>>>(x, out, scale, zero, M,
                                                      D, qmax);
@@ -985,7 +986,7 @@ def act_quant_rows(dev, gen, timed, entry, stream, report):
                     out.data_ptr(), x.numel(), stream)),
                 "act_quant_ptoken": (lambda x=x, out=out, sc=sc, zp=zp: fp(
                     x.data_ptr(), 1, out.data_ptr(), sc.data_ptr(),
-                    zp.data_ptr(), M, Dd, 255.0, stream))}
+                    zp.data_ptr(), 0, 0, 0, M, Dd, 255.0, stream))}
             for kern, call in calls.items():
                 out.zero_()
                 if call():
