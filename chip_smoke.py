@@ -205,7 +205,8 @@ Phases, each fatal on failure:
    = the static B=1 Engine's; ``discover`` through ``greedy_search_ref``
    (16 candidates, 2 iterations) and 3 tuning steps (B=2, 256 tokens)
    with exact forward and backward launches, causal and non-causal; card
-   vs CPU at 2 encoder + 2 decoder layers (``FAM_LOGIT_TOL``);
+   vs CPU at 2 encoder + 2 decoder layers (``FAM_LOGIT_TOL``); phase
+   4k's one-rank side of its static requests and its pool;
 4i. the xLSTM at full width and depth: xlstm-350m (12 mLSTM / sLSTM
    pairs, d_model 1024, 4 heads of 512, inner 2048, vocab 50,304, bf16,
    seeded random weights), a seeded CushionState (the state after 4
@@ -216,8 +217,9 @@ Phases, each fatal on failure:
    (device ms, wall ms, kernels a sublayer); the int matmul at its sites
    (``xlstm_*``); 4 contiguous W8A8 slots over 8 requests (the state tree
    scattered along its nested axes), tokens = the static B=1 Engine's;
-   ``greedy_search_ref`` and 3 tuning steps that move every leaf of the
-   state tree; card vs CPU at one pair;
+   ``greedy_search_ref`` over 64-token samples and 3 tuning steps (B=2,
+   64 tokens) that move every leaf of the state tree; card vs CPU at one
+   pair; phase 4k's one-rank side of its static requests and its pool;
 4j. one-card training at full width and depth: smollm-360m (32 layers,
    bf16, seeded random weights made on the card) through
    ``launch/train.py`` ``main`` at the launcher's defaults (B=8 x 256, lr
@@ -268,6 +270,22 @@ Phases, each fatal on failure:
    their plain versions, a row's two halves given their joint range equal
    to the whole row, two K-halves' W4A8 accumulators with the epilogue
    within the W4A8 bar of the whole launch, each timed beside its bound;
+   in the same spawn the families at full width against phases 4e-4i's
+   one-rank engines: olmoe-1b-7b, internvl2-26b and jamba-v0.1-52b,
+   whisper-base (6 + 6 layers: heads, d_ff cut; the
+   cross-attention's ``wq`` / ``wkv`` read by the rank's columns; W8A8 as
+   pt_dynamic with true int8, and fp) and xlstm-350m (24 layers: the
+   vocabulary and the mLSTM memory's values cut; W8A8 with int8-resident
+   ``w_proj``, and fp), each static at B = 4 and through its pool (a
+   contiguous one of 4 slots over 8 requests for whisper and xlstm):
+   tokens equal to one rank's up to near ties (``TP_FAM_TIE``; whether
+   W8A8 was one rank's bit for bit is printed), launches a rank one
+   rank's, the cushion as each rank holds it (its heads of the KV, its
+   value slice of the xLSTM's ``C``); the kernels at the families' rank
+   shapes against their plain versions (whisper: the non-causal
+   ``flash_attention`` of the encoder, the cross-attention's prefill and
+   decode and ``flash_decode`` on 4 heads of 64, ``w8a8_matmul``'s int32
+   mode at the ``xattn/wo`` shard);
 4l. data parallelism over a (data, tp) rank mesh: smollm-360m at full
    width and depth on two gloo ranks of the one card
    (``launch/mesh.spawn_mesh``; they time-slice the card through the
@@ -286,9 +304,8 @@ Phases, each fatal on failure:
    ``GRAD_TOL``, the tuned cushions' mean difference below
    ``DP_MOVE_SHARE`` of dp 1's move and a planted fault's above it
    (``tune.py --dp 1 --batch 2``: rank 1's rows dropped); ms a step and
-   peak GiB a rank, a gradient step profiled on rank 0 (busy share), the
-   phase's seconds by stage and by case. (c) ``shard_train_step``
-   (FSDP, remat) at B = 8 x 256, 4 steps of phase 4j's batches, against
+   peak GiB a rank, the phase's seconds by stage and by case. (c)
+   ``shard_train_step`` (FSDP, remat) at B = 8 x 256, 4 steps of phase 4j's batches, against
    rank 0's one-rank ``make_train_step``: the metrics equal on both
    ranks, launches 64 / 32 a step a rank, each leaf's shard and f32
    moments by its spec, the losses within ``DP_LOSS0_TOL`` /
@@ -301,8 +318,9 @@ Phases, each fatal on failure:
    (``launch/mesh.spawn_mesh(data=2, tp=2)``, ``make_replica_meshes``; the
    15 heads whole on every rank, d_ff and the vocabulary cut), W8A8
    int8-resident, paged int8 pools of 4 slots a replica, phase 4d's
-   cushion and scales and the first 12 requests of its trace, without
-   faults and with ``crash@replica1.step:48``: every request completed with
+   cushion and scales and the first 12 requests of its trace, with
+   ``crash@replica1.step:48`` (phase 4d holds the router without
+   faults): every request completed with
    phase 4d's tokens, every rank's ``RouterStats`` the same, the crash one
    death with its live requests failed over, each rank's launches those
    of its replica's admissions and steps; TTFT / TPOT p50, each rank's
@@ -1928,11 +1946,18 @@ class FamilyRun:
                 n_tokens=new, logits=True, in_turn=in_turn,
                 **{k: cpu(v) for k, v in batch.items()})
             res, counts = self.static_runs[label]
+            peak = torch.cuda.max_memory_allocated()
+            # the request's own memory: the peak of its prefill and decode
+            # steps (teacher-forced) above what the card held before
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
             one[label] = dict(
                 tp_probe.prefill_view(eng, batch), tokens=res.tokens,
                 ttft_ms=res.ttft_ms, tpot_ms=res.tpot_ms, launches=counts,
-                peak_bytes=torch.cuda.max_memory_allocated(),
+                peak_bytes=peak,
                 margins=tp_probe._margins(eng, batch, res.tokens))
+            one[label]["request_bytes"] = \
+                torch.cuda.max_memory_allocated() - held
             cases.append(case)
         TP_FAMILIES[self.cfg.name] = {"one": one, "cases": cases,
                                       "new": new, "in_turn": in_turn}
@@ -1942,11 +1967,13 @@ class FamilyRun:
                         f"{v['ttft_ms']:.1f} ms, TPOT {v['tpot_ms']:.2f} ms"
                         for k, v in one.items()) + ")")
 
-    def tp_one_rank_pool(self, reqs, static_eng, qcfg, cushion, page_size):
-        """Phase 4k's one-rank side of the paged pool just run (its tokens
-        and admissions), with the teacher-forced margins of each request
-        along its tokens from the static B = 1 engine, and the case the
-        two ranks serve."""
+    def tp_one_rank_pool(self, reqs, static_eng, qcfg, cushion,
+                         page_size=None, prequant=True, kv_dtype="int8",
+                         in_turn=True):
+        """Phase 4k's one-rank side of the pool just run (its tokens and
+        admissions; paged with ``page_size``, else contiguous), with the
+        teacher-forced margins of each request along its tokens from the
+        static B = 1 engine, and the case the two ranks serve."""
         import numpy as np
         import torch
         from repro_torch.core.calibration import scales_to_plain
@@ -1963,30 +1990,36 @@ class FamilyRun:
             toks = np.zeros((len(grp), steps), np.int64)
             for i, r in enumerate(grp):
                 toks[i, :len(po["tokens"][r.uid])] = po["tokens"][r.uid]
-            mg = tp_probe._margins(static_eng, {"tokens": torch.cat(
-                [r.batch["tokens"] for r in grp])}, toks)
+            mg = tp_probe._margins(static_eng, {
+                k: torch.cat([r.batch[k] for r in grp])
+                for k in grp[0].batch}, toks)
             for i, r in enumerate(grp):
                 margins[r.uid] = mg[i, :len(po["tokens"][r.uid])]
+        paged = page_size is not None
+        key = "paged" if paged else "contiguous"
         case = dict(
-            cfg=self.cfg, seed=0, name=f"{self.cfg.name}/paged_pool",
-            kind="continuous", qcfg=qcfg, prequant=True, kv_dtype="int8",
-            paged=True, page_size=page_size, n_slots=4,
-            max_seq=po["max_seq"], cushion=tree_map(cpu, cushion),
-            scales=tree_map(cpu, scales_to_plain(static_eng.scales)),
-            requests=[dict(tokens=cpu(r.batch["tokens"]),
+            cfg=self.cfg, seed=0, name=f"{self.cfg.name}/{key}_pool",
+            kind="continuous", qcfg=qcfg, prequant=prequant,
+            kv_dtype=kv_dtype, paged=paged, page_size=page_size or 64,
+            n_slots=4, max_seq=po["max_seq"],
+            cushion=tree_map(cpu, cushion),
+            scales=(None if static_eng.scales is None else
+                    tree_map(cpu, scales_to_plain(static_eng.scales))),
+            requests=[dict({k: cpu(v) for k, v in r.batch.items()},
                            max_new_tokens=r.max_new_tokens) for r in reqs],
-            in_turn=True)
+            in_turn=in_turn)
         rec = TP_FAMILIES[self.cfg.name]
         rec["cases"].append(case)
         rec["pool"] = {"tokens": po["tokens"], "admissions":
                        po["admissions"], "margins": margins,
-                       "seconds": self.rec["paged"]["wall_s"]}
-        rec["pool_launches"] = self.rec["paged"]["launches"]
+                       "seconds": self.rec[key]["wall_s"]}
+        rec["pool_launches"] = self.rec[key]["launches"]
         torch.cuda.synchronize()
         log(f"{self.tag}: phase 4k's one-rank pool recorded, margins "
             f"min {min(float(np.min(m)) for m in margins.values()):.4g}")
 
-    def method(self, sample_fn, tune_b, search_want, tune_want, check=None):
+    def method(self, sample_fn, tune_b, search_want, tune_want, check=None,
+               sample_len=SAMPLE_LEN):
         """``discover`` under pt_dynamic (16 candidates, the prefix padded
         to MAX_PREFIX rows, 2 seed tokens) and FAM_TUNE_STEPS tuning steps,
         launches exact (``search_want(iterations)``, ``tune_want``).
@@ -1998,7 +2031,7 @@ class FamilyRun:
         from repro_torch.kernels import _lib
         qdyn = QuantConfig(mode="pt_dynamic")
         ccfg = CushionConfig(max_prefix_len=MAX_PREFIX, tau=1.0,
-                             sample_len=SAMPLE_LEN,
+                             sample_len=sample_len,
                              n_candidates=FAM_CANDIDATES,
                              seed_tokens=FAM_SEEDS, lam=0.05,
                              tune_steps=FAM_TUNE_STEPS, tune_lr=1e-3,
@@ -2730,6 +2763,11 @@ def noncausal_attention_rows(dev, timed):
 # module docstring)
 ED_ARCH, ED_PROMPT, ED_NEW = "whisper-base", 256, 32
 XL_ARCH, XL_NEW = "xlstm-350m", 32
+# the xLSTM's search sample and tuning batches: 64 positions, not the other
+# families' 256 (SAMPLE_LEN, TUNE_S): the sLSTM scan is a host loop over
+# the positions, a forward a candidate, and its backward the same loop
+# again
+XL_SAMPLE, XL_TUNE_S = 64, 64
 # card vs CPU: whisper at 2 encoder and 2 decoder layers (the 1500 frames,
 # 64 tokens), xlstm at one pair (64 tokens), 4 logits rows each; the MoE
 # phase's bars (both sides round to bf16 at the same points and reduce in
@@ -2841,6 +2879,10 @@ def encdec_phase(dev, zero_counts, counters_zero, timed):
         cushion, lambda n, s: {"flash_attention": (E + 2 * L) * n + L * s,
                                "flash_decode": L * s},
         kv_dtype=None, prequant=False)
+    # phase 4k's one-rank sides: the static requests and the pool
+    run.tp_one_rank(engines, batch, ED_NEW, cushion)
+    run.tp_one_rank_pool(reqs, engines["fp"], QuantConfig(), cushion,
+                         prequant=False, kv_dtype=None, in_turn=False)
     run.counters_zero("whisper static", [s_.graph for e in engines.values()
                                          for s_ in e.states.values()])
     del engines
@@ -2982,6 +3024,10 @@ def xlstm_phase(dev, zero_counts, counters_zero, timed):
                       "act_quant_static": sites * n,
                       "act_quant_static_fused": sites * s},
         kv_dtype=None)
+    # phase 4k's one-rank sides: the static requests and the pool
+    run.tp_one_rank(engines, batch, XL_NEW, cushion)
+    run.tp_one_rank_pool(reqs, w8, qw8, cushion, kv_dtype=None,
+                         in_turn=False)
     run.counters_zero("xlstm static", [s_.graph for e in engines.values()
                                        for s_ in e.states.values()])
     del engines, w8
@@ -2991,9 +3037,10 @@ def xlstm_phase(dev, zero_counts, counters_zero, timed):
     # 3. the method: greedy_search_ref and 3 tuning steps under
     # pt_dynamic's fake quant (no kernel of the port runs); the whole state
     # tree trains
-    samples = [{"tokens": draw(5000 + i, 1, SAMPLE_LEN)["tokens"]}
+    samples = [{"tokens": draw(5000 + i, 1, XL_SAMPLE)["tokens"]}
                for i in range(MAX_PREFIX)]
-    tune_b = [draw(3000 + i, TUNE_B, TUNE_S) for i in range(FAM_TUNE_STEPS)]
+    tune_b = [draw(3000 + i, TUNE_B, XL_TUNE_S)
+              for i in range(FAM_TUNE_STEPS)]
 
     def every_leaf_moved(greedy, tuned):
         for (gk, gl), (_, tl) in zip(
@@ -3010,7 +3057,7 @@ def xlstm_phase(dev, zero_counts, counters_zero, timed):
     if api.supports_kv_scoring:
         fail("xlstm: the xLSTM must search with greedy_search_ref")
     run.method(lambda i: samples[i], tune_b, lambda n, c: {}, {},
-               check=every_leaf_moved)
+               check=every_leaf_moved, sample_len=XL_SAMPLE)
     del samples, tune_b
 
     # 4. card against CPU at one pair of full width
@@ -4056,6 +4103,8 @@ def tp_family_kernel_rows(dev, timed):
         "g6_plain_ms": timed(lambda: flash_decode_plain(qd, kq, vq, pos,
                                                         **kw), 3),
         "g6_bound_ms": bms, "g6_bound_by": by, "g6_max_abs_err": e}
+    for name, r in tp_encdec_kernel_rows(dev, timed, within, rnd).items():
+        out.setdefault(name, {}).update(r)
     log("phase 4k at the families' rank shapes: w8a8_matmul int32 at "
         f"jamba's mamba_out shard {d['ms']:.4f} ms (plain "
         f"{d['plain_ms']:.4f}, bound {d['bound_ms']:.4f}, _int_mm "
@@ -4069,6 +4118,142 @@ def tp_family_kernel_rows(dev, timed):
     return out
 
 
+def tp_encdec_kernel_rows(dev, timed, within, rnd):
+    """Phase 4k's kernels at whisper-base's shapes at a rank of two (4 of
+    its 8 heads of 64, G = 1, bf16), each against its plain version on
+    the same random inputs, within phase 4k's bars: the non-causal
+    ``flash_attention`` of the encoder (S = T = 1,500), of the
+    cross-attention's prefill (S = 256 over the 1,500 frames) and of its
+    decode (S = 1), beside SDPA; ``flash_decode`` over the fp cache with
+    the cushion's rows in it; ``w8a8_matmul``'s int32 mode at the
+    cross-attention's ``wo`` shard (K = 256 of 512, N = 512; decode on
+    bf16 x quantized in the staging, prefill on int8 codes), torch.equal,
+    the two ranks' partials with the epilogue once equal to the whole
+    launch. Returns {kernel: {"encdec_rank": ...}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.act_quant import act_quant_static_plain
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_plain)
+    from repro_torch.kernels.w8a8_matmul import (
+        quant_w8a8_matmul, quant_w8a8_matmul_plain, w8a8_epilogue,
+        w8a8_matmul, w8a8_matmul_plain)
+    from repro_torch.serving.engine import cache_seq_len
+
+    wh = get_config(ED_ARCH)
+    H, hd, Te = wh.n_heads // 2, wh.head_dim, wh.encdec.encoder_seq
+    fa = {}
+    for tag, S in (("encoder", Te), ("cross_prefill", ED_PROMPT),
+                   ("cross_decode", 1)):
+        q, k, v = rnd(B, H, S, hd), rnd(B, H, Te, hd), rnd(B, H, Te, hd)
+        e = within(f"flash_attention non-causal at whisper's rank ({tag})",
+                   flash_attention(q, k, v, causal=False),
+                   flash_attention_plain(q, k, v, causal=False), 0)
+        bms, by = bound_ms(2 * (2 * B * H * S * hd + 2 * B * H * Te * hd),
+                           4.0 * hd * B * H * S * Te, BF16_FLOPS_PER_S)
+        fa[tag] = {
+            "unit": f"whisper-base at a rank of tp = 2: B={B}, {H} heads of "
+                    f"{hd}, S={S} over T={Te}, non-causal",
+            "ms": timed(lambda: flash_attention(q, k, v, causal=False)),
+            "plain_ms": timed(lambda: flash_attention_plain(
+                q, k, v, causal=False), 3),
+            "library_ms": timed(lambda: F.scaled_dot_product_attention(
+                q, k, v)),
+            "bound_ms": bms, "bound_by": by, "max_abs_err": e}
+        del q, k, v
+    smax = cache_seq_len(ED_PROMPT + ED_NEW + 32)
+    pos_v = CUSHION + ED_PROMPT + ED_NEW // 2
+    qd, kf, vf = rnd(B, H, hd), rnd(B, smax, H, hd), rnd(B, smax, H, hd)
+    pos = torch.tensor(pos_v, dtype=torch.int32, device=dev)
+    e = within("flash_decode at whisper's rank", flash_decode(qd, kf, vf, pos),
+               flash_decode_plain(qd, kf, vf, pos), TP_DECODE_FLOOR)
+    bms, by = bound_ms(4 * B * H * hd + 4 * B * (pos_v + 1) * H * hd,
+                       4.0 * B * H * hd * (pos_v + 1), BF16_FLOPS_PER_S)
+    fd = {"unit": f"whisper-base at a rank of tp = 2: B={B}, {H} heads of "
+                  f"{hd}, fp cache, pos {pos_v} of {smax}",
+          "ms": timed(lambda: flash_decode(qd, kf, vf, pos)),
+          "plain_ms": timed(lambda: flash_decode_plain(qd, kf, vf, pos), 3),
+          "bound_ms": bms, "bound_by": by, "max_abs_err": e}
+    del qd, kf, vf
+    # the cross-attention's wo at a rank: int32 out, the epilogue after
+    # the ranks' sum
+    g = torch.Generator(dev).manual_seed(277)
+    Kk, N = H * hd, wh.d_model
+    sx, zx = (torch.tensor(v_, device=dev) for v_ in (0.029, 113.0))
+    sw = torch.tensor(0.0041, device=dev).to(torch.bfloat16)
+    w = torch.randint(-127, 128, (2 * Kk, N), generator=g, device=dev,
+                      dtype=torch.int8)
+    colsum = w.sum(0, dtype=torch.int32)
+    i32 = {}
+    for M in (B, B * ED_PROMPT):
+        if M <= 16:
+            x = (torch.randn((M, 2 * Kk), generator=g, device=dev) * 3).to(
+                torch.bfloat16)
+            mm = lambda xx, ww, **kw: quant_w8a8_matmul(  # noqa: E731
+                xx, ww, sx, zx, sw, **kw)
+            pm = quant_w8a8_matmul_plain
+            whole = mm(x, w, colsum=colsum, out_dtype=torch.bfloat16)
+            xl = torch.zeros((32, Kk), dtype=torch.int8, device=dev)
+            xl[:M] = act_quant_static_plain(x[:, :Kk], sx, zx)
+            xb = 2 * M * Kk
+        else:
+            x = torch.randint(-128, 128, (M, 2 * Kk), generator=g,
+                              device=dev, dtype=torch.int8)
+            mm = lambda xx, ww, **kw: w8a8_matmul(  # noqa: E731
+                xx, ww, sx, zx, sw, **kw)
+            pm = w8a8_matmul_plain
+            whole = w8a8_matmul(x, w, sx, zx, sw, colsum, -128.0,
+                                torch.bfloat16)
+            xl = x[:, :Kk].contiguous()
+            xb = M * Kk
+        halves = [(x[:, r * Kk:(r + 1) * Kk].contiguous(),
+                   w[r * Kk:(r + 1) * Kk].contiguous()) for r in range(2)]
+        parts = [mm(xx, ww, out_dtype=torch.int32) for xx, ww in halves]
+        for (xx, ww), got in zip(halves, parts):
+            if not torch.equal(got, pm(xx, ww, sx, zx, sw,
+                                       out_dtype=torch.int32)):
+                fail(f"phase 4k w8a8_matmul int32 mode at whisper's "
+                     f"xattn/wo shard (M={M}) differs from its plain "
+                     f"version")
+        if not torch.equal(whole, w8a8_epilogue(
+                parts[0] + parts[1], sx, zx, sw, colsum, -128.0,
+                torch.bfloat16)):
+            fail(f"phase 4k w8a8_matmul at whisper's xattn/wo (M={M}): the "
+                 f"two ranks' int32 partials with the epilogue are not the "
+                 f"whole launch")
+        xx, ww = halves[0]
+        bms, by = bound_ms(xb + Kk * N + 4 * M * N, 2.0 * M * N * Kk,
+                           INT8_OPS_PER_S)
+        i32[M] = {"ms": timed(lambda: mm(xx, ww, out_dtype=torch.int32)),
+                  "plain_ms": timed(lambda: pm(xx, ww, sx, zx, sw,
+                                               out_dtype=torch.int32), 3),
+                  "library_ms": timed(lambda: torch._int_mm(xl, ww)),
+                  "bound_ms": bms, "bound_by": by}
+    log("phase 4k at whisper-base's rank shapes (4 heads of 64), ms (plain, "
+        "bound; SDPA): " + ", ".join(
+            f"flash_attention {t} {r['ms']:.4f} ({r['plain_ms']:.4f}, "
+            f"{r['bound_ms']:.4f}; {r['library_ms']:.4f})"
+            for t, r in fa.items())
+        + f", flash_decode {fd['ms']:.4f} ({fd['plain_ms']:.4f}, "
+        f"{fd['bound_ms']:.4f}), w8a8_matmul int32 at xattn/wo M={B} "
+        f"{i32[B]['ms']:.4f} ({i32[B]['plain_ms']:.4f}, "
+        f"{i32[B]['bound_ms']:.4f}; _int_mm {i32[B]['library_ms']:.4f}); "
+        f"each within its bar, the int32 mode torch.equal")
+    return {"flash_attention": {"encdec_rank": fa},
+            "flash_decode": {"encdec_rank": fd},
+            "w8a8_matmul": {"encdec_rank_xo_int32": {
+                "unit": f"whisper-base's xattn/wo at a rank of tp = 2 "
+                        f"(K={Kk} of {2 * Kk}, N={N}), int32 out; M={B}: "
+                        f"bf16 x quantized in the staging, M={B * ED_PROMPT}"
+                        f": int8 codes",
+                "decode": i32[B], "prefill": i32[B * ED_PROMPT],
+                "max_abs_err": 0.0}}}
+
+
 # phase 4k's MoE, VLM and hybrid runs: two ranks against one rank on the
 # same seed, cushion, scales and prompt (the one-rank side from phases
 # 4e-4g). A row's tokens may part from one rank's only at a near tie: a
@@ -4080,8 +4265,13 @@ def tp_family_kernel_rows(dev, timed):
 # whose 8th and 9th (olmoe) or 2nd and 3rd (jamba) gate probabilities
 # nearly tie to another expert in the next layer and move that position's
 # logits by O(1): the bound is MOE_LOGIT_TOL's largest, 1.0.
+# whisper-base is the dense family's arithmetic (its five row-parallel
+# sites sum as the dense family's do) and the xLSTM sums nothing over the
+# ranks (its ranks differ only in the mLSTM value columns they hold):
+# TP_FP_TIE.
 TP_FAM_TIE = {"olmoe-1b-7b": 1.0, "internvl2-26b": TP_FP_TIE,
-              "jamba-v0.1-52b": 1.0}
+              "jamba-v0.1-52b": 1.0, "whisper-base": TP_FP_TIE,
+              "xlstm-350m": TP_FP_TIE}
 # The prefill logits: under W8A8 every site but the experts sums int32
 # and the experts' partial outputs meet in f32, so they lie within the
 # same bound (jamba's were one rank's bit for bit on an H100 once the
@@ -4092,7 +4282,32 @@ TP_FAM_TIE = {"olmoe-1b-7b": 1.0, "internvl2-26b": TP_FP_TIE,
 # roundings over 512 positions (up to 2.4 on an H100): they are printed,
 # and the tokens' near ties hold the run.
 TP_FAMILY_TAG = {"olmoe-1b-7b": "moe", "internvl2-26b": "vlm",
-                 "jamba-v0.1-52b": "hybrid"}
+                 "jamba-v0.1-52b": "hybrid", "whisper-base": "encdec",
+                 "xlstm-350m": "xlstm"}
+
+
+def _flat_state(tree, prefix=""):
+    """A cushion state tree's leaves by their dotted path, as numpy f32
+    (the rank program's ``cushion_state`` keys)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_state(v, f"{prefix}.{k}" if prefix else k))
+        return out
+    return {prefix: tree.float().numpy()}
+
+
+def _state_slice(key, whole, n, rank):
+    """Rank ``rank``'s part of a cushion state leaf, ``n`` entries of its
+    cut axis, as the rank's prefill reads it: the Mamba ``h`` on its
+    channel rows and ``conv`` on its channel columns (jamba), the mLSTM
+    memory ``m.C`` on its value columns (the xLSTM); every other xLSTM
+    leaf whole."""
+    import numpy as np
+    ax = {"h": -2, "conv": -1, "m.C": -1}.get(key)
+    if ax is None:
+        return whole
+    return np.take(whole, range(n * rank, n * (rank + 1)), axis=ax)
 
 
 def _first_parts(got, want, margins, tie, label):
@@ -4158,10 +4373,24 @@ def tp_family_checks(label, ranks):
                              f"{rep['admissions']}, one rank "
                              f"{ref['admissions']}")
                     for k_ in ("kc", "vc"):
+                        if k_ not in rep["cushion"]:
+                            continue
                         want = case["cushion"]["kv"][k_[0]].float().numpy()
                         if not np.array_equal(rep["cushion"][k_], want):
                             fail(f"tp {label} {name}: rank {rank}'s "
                                  f"cushion block {k_} is not the artifact")
+                    if "slot_rows" in rep:
+                        # a contiguous fp pool: every slot's rows [0:m)
+                        # hold the rank's heads of the cushion
+                        rows = rep["slot_rows"]
+                        n = rows.shape[-2]
+                        want = case["cushion"]["kv"]["k"].float().numpy()[
+                            :, None, :, n * rank:n * (rank + 1)]
+                        if not np.array_equal(rows, np.broadcast_to(
+                                want, rows.shape)):
+                            fail(f"tp {label} {name}: rank {rank}'s slots' "
+                                 f"cushion rows are not its heads of the "
+                                 f"artifact")
                 uids = sorted(ref["tokens"])
                 got = [reps[0]["tokens"][u] for u in uids]
                 want = [ref["tokens"][u] for u in uids]
@@ -4175,12 +4404,14 @@ def tp_family_checks(label, ranks):
                 out[name] = o
                 continue
             art = {k: case["cushion"]["kv"][k].float().numpy()
-                   for k in ("k", "v")}
+                   for k in ("k", "v")} if "kv" in case["cushion"] else {}
             for rank, rep in enumerate(reps):
                 if not np.array_equal(rep["tokens"], reps[0]["tokens"]):
                     fail(f"tp {label} {name}: the ranks' tokens differ")
                 cu = rep["cushion"]
-                if "kc" in cu:
+                if not art:
+                    pass        # a cushion of state only (the xLSTM)
+                elif "kc" in cu:
                     for c_, k_ in (("kc", "k"), ("vc", "v")):
                         n = cu[c_ + "_tp"].shape[-2]
                         if not np.array_equal(cu[c_], art[k_]) \
@@ -4199,28 +4430,35 @@ def tp_family_checks(label, ranks):
                                  f"rows {c_} are not its heads of the "
                                  f"artifact")
                 if "cushion_state" in rep:
+                    whole = _flat_state(case["cushion"]["state"])
+                    if sorted(whole) != sorted(rep["cushion_state"]):
+                        fail(f"tp {label} {name}: rank {rank}'s cushion "
+                             f"state holds {sorted(rep['cushion_state'])}")
                     for k_, v_ in rep["cushion_state"].items():
-                        whole = case["cushion"]["state"][k_].float().numpy()
-                        ax = -2 if k_ == "h" else -1
-                        n = v_.shape[ax]
-                        want = np.take(whole, range(n * rank,
-                                                    n * (rank + 1)), axis=ax)
+                        n = v_.shape[-2 if k_ == "h" else -1]
+                        want = _state_slice(k_, whole[k_], n, rank)
                         if not np.array_equal(v_, want):
-                            fail(f"tp {label} {name}: rank {rank}'s Mamba "
-                                 f"cushion state {k_} is not its channel "
-                                 f"slice of the artifact")
+                            fail(f"tp {label} {name}: rank {rank}'s "
+                                 f"cushion state {k_} is not its part of "
+                                 f"the artifact")
             err = np.abs(reps[0]["logits"] - ref["logits"])
             gap, mean = float(err.max()), float(err.mean())
             if case["prequant"] and gap > tie:
                 fail(f"tp {label} {name}: prefill logits max |err| {gap} > "
                      f"{tie}")
             out[name] = {
+                "bit_for_bit": bool(gap == 0.0 and np.array_equal(
+                    reps[0]["tokens"], ref["tokens"])),
                 "ttft_ms": [rep["ttft_ms"] for rep in reps],
                 "tpot_ms": [rep["tpot_ms"] for rep in reps],
                 "one_rank_ttft_ms": ref["ttft_ms"],
                 "one_rank_tpot_ms": ref["tpot_ms"],
                 "peak_gib": [rep["peak_bytes"] / 2 ** 30 for rep in reps],
                 "one_rank_peak_gib_phase": ref["peak_bytes"] / 2 ** 30,
+                "request_gib": [(rep["peak_bytes"] - rep["held_bytes"])
+                                / 2 ** 30 for rep in reps],
+                "one_rank_request_gib": ref.get("request_bytes", 0)
+                / 2 ** 30,
                 "prefill_logits_max_abs_err": gap,
                 "prefill_logits_mean_abs_err": mean,
                 "prefill_logits_row_max_abs_err": err.max(1).tolist(),
@@ -4237,12 +4475,16 @@ def tp_family_checks(label, ranks):
                 f"{o['tpot_ms'][0]:.2f} ms (one rank "
                 f"{o['one_rank_tpot_ms']:.2f}), peak "
                 f"{o['peak_gib'][0]:.2f} / {o['peak_gib'][1]:.2f} GiB (one "
-                f"rank's phase so far {o['one_rank_peak_gib_phase']:.2f}); "
+                f"rank's phase so far {o['one_rank_peak_gib_phase']:.2f}), "
+                f"of it the request's {o['request_gib'][0]:.3f} GiB above "
+                f"what the rank held (one rank's "
+                f"{o['one_rank_request_gib']:.3f}); "
                 f"prefill logits max |err| "
                 f"{o['prefill_logits_max_abs_err']:.4g} (rows "
                 f"{[round(x, 4) for x in o['prefill_logits_row_max_abs_err']]}"
                 f"), mean {o['prefill_logits_mean_abs_err']:.4g}, tokens equal "
-                f"{o['tokens_equal']:.3f}, partings (token, one rank's "
+                f"{o['tokens_equal']:.3f}, one rank's bit for bit: "
+                f"{o['bit_for_bit']}, partings (token, one rank's "
                 f"margin) {o['first_part_and_its_margin']}")
         else:
             log(f"tp=2 ({label}) {name}: {o['seconds'][0]:.2f} s (one rank "
@@ -4652,7 +4894,7 @@ RTP_CRASH = "crash@replica1.step:48"
 
 def router_tp_phase(dev, api, cushion, scales, ps):
     """Phase 4m: ``ReplicaRouter(meshes=make_replica_meshes(2, 2))`` on
-    four ranks, without faults and with ``RTP_CRASH``: every rank's
+    four ranks, with ``RTP_CRASH``: every rank's
     ``RouterStats`` the same; every request completed with phase 4d's
     tokens (its one-rank replicas'; W8A8 at tp = 2 is one rank's bit for
     bit); the fault run one death and its live requests failed over; the
@@ -4683,8 +4925,9 @@ def router_tp_phase(dev, api, cushion, scales, ps):
                 requests=[dict(tokens=cpu(r.batch["tokens"]),
                                max_new_tokens=r.max_new_tokens)
                           for r in reqs])
-    cases = [dict(base, name="no_fault"),
-             dict(base, name="crash", chaos=RTP_CRASH)]
+    # the crash run alone: phase 4d holds the router without faults, and
+    # this run's requests that never met the fault give its tokens too
+    cases = [dict(base, name="crash", chaos=RTP_CRASH)]
     rec = {"arch": ARCH, "replicas": RTP_REPLICAS, "tp": RTP_TP,
            "slots": ROUTER_SLOTS, "requests": RTP_REQ, "runs": {},
            "launches": {}, "kernels": {},
@@ -4961,7 +5204,7 @@ def dp_phase(dev, corpus):
         dict(kind="grad", name="grad", cfg=cfg, seed=0,
              cushion_ids=two["prefix_ids"] or [0],
              batch=tpipe.get_batch(3000), qcfg=QuantConfig(mode="pt_dynamic"),
-             lam=0.05, one_rank=True, profile=True),
+             lam=0.05, one_rank=True),
         dict(kind="train", name="train", cfg=cfg, seed=0,
              batches=[pipe.get_batch(i) for i in range(DP_TRAIN_STEPS)],
              batch_rows=DP_TRAIN_B, seq=DP_TRAIN_S, steps=DP_TRAIN_STEPS,
@@ -5024,12 +5267,10 @@ def dp_phase(dev, corpus):
                  f"move {mv:.3g}: dp 2 {share[k]['dp2']:.3g}, rank 1's rows "
                  f"dropped {share[k]['drop']:.3g} (the bar {DP_MOVE_SHARE} "
                  f"must part them)")
+    # the gradient step is not profiled (a trace of 11 s); (c)'s training
+    # step is, on rank 0
     rec["tune"].update(first_gradient=gl, cushion_mean_diff_and_move=move,
-                       cushion_diff_share=share, grad_profile=g0["profile"])
-    prof = g0["profile"]
-    busy = (prof["device_ms"] / prof["ms"]
-            if not isinstance(prof["device_ms"], str) else "not measured")
-    rec["tune"]["busy_share"] = busy
+                       cushion_diff_share=share, busy_share="not measured")
     log(f"(b) tune.py --dp 2 vs --dp 1 (B={DP_TUNE_B} x {DP_TUNE_S}, "
         f"{DP_TUNE_STEPS} steps, pt_dynamic): prefix {two['prefix_ids']} "
         f"equal; ranks equal after every step; launches a rank "
@@ -5039,9 +5280,7 @@ def dp_phase(dev, corpus):
         f"rel L2 / cosine {gl}; tuned cushion mean |. - dp1| / dp 1's mean "
         f"move {share} (bar {DP_MOVE_SHARE}); "
         f"ms a step {tune_ms}; peak GiB a "
-        f"rank {rec['tune']['peak_gib']}; a dp 2 gradient step profiled on "
-        f"rank 0: wall {prof['ms']:.1f} ms, device {prof['device_ms']} ms "
-        f"(busy {busy})")
+        f"rank {rec['tune']['peak_gib']}")
 
     # (c) shard_train_step at data = 2 against one rank's make_train_step
     t0_, t1_ = got["train"]

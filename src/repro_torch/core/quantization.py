@@ -46,6 +46,9 @@ from repro_torch.kernels.w4a8_matmul import (quant_w4a8_matmul,
 from repro_torch.kernels.w8a8_matmul import (quant_w8a8_matmul, w8a8_epilogue,
                                              w8a8_matmul)
 
+# what tensor parallelism does not shard yet raises NotImplementedError: a
+# continuous pool reads a ValueError at admission as a request that can
+# never fit and drops it, where this refusal must stop the run
 _TP_LATER = "(ROADMAP queue 1, item 6.4b)"
 
 Tensor = torch.Tensor
@@ -221,8 +224,9 @@ def weight_fake_quant(w: Tensor, cfg: QuantConfig,
     whole = not (cfg.w_group and d_all % cfg.w_group == 0)
     g = d_all if whole else cfg.w_group
     if d_in % g and not whole:
-        raise ValueError(f"weight groups of {g} rows straddle the shards of "
-                         f"{d_in} rows: not sharded yet {_TP_LATER}")
+        raise NotImplementedError(
+            f"weight groups of {g} rows straddle the shards of {d_in} "
+            f"rows: not sharded yet {_TP_LATER}")
     g = min(g, d_in)
     shp = w.shape
     wg = w.reshape(*shp[:-2], d_in // g, g, shp[-1])
@@ -349,9 +353,9 @@ def _static_int_matmul(x: Tensor, w: Dict[str, Tensor], s_x: Tensor,
                          f"({K * tp})")
     gsize = K * tp // G
     if packed and K % gsize:
-        raise ValueError(f"W4A8 groups of {gsize} rows straddle a rank's "
-                         f"{K} rows of the contracting axis: not sharded "
-                         f"{_TP_LATER}")
+        raise NotImplementedError(
+            f"W4A8 groups of {gsize} rows straddle a rank's {K} rows of "
+            f"the contracting axis: not sharded {_TP_LATER}")
     od = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
     s_w = _weight_scale(w["w_scale"])
     x2 = x.reshape(-1, K)
@@ -361,8 +365,9 @@ def _static_int_matmul(x: Tensor, w: Dict[str, Tensor], s_x: Tensor,
     off = 0 if cfg.symmetric_a else 2 ** (cfg.a_bits - 1)
     if tp > 1:
         if cfg.symmetric_a or cfg.a_bits != 8:
-            raise ValueError("a row-parallel site shards 8-bit asymmetric "
-                             f"activation codes only {_TP_LATER}")
+            raise NotImplementedError(
+                "a row-parallel site shards 8-bit asymmetric activation "
+                f"codes only {_TP_LATER}")
         if kernel_codes:
             xa, z_shift = x2.contiguous(), -128.0
         else:

@@ -30,18 +30,19 @@ domain: a real device fault fails them all.
     python -m repro_torch.launch.serve --mode continuous --replicas 3 \
         --chaos crash@replica1.step:6
 
-``--tp N`` serves a dense, MoE, VLM or hybrid model tensor-parallel over
-N ranks (``launch/mesh.spawn_tp``: one process a rank, on
-``cuda:{r % cards}``, NCCL where every rank has a card of its own, else
-gloo, which it prints), through either engine and pool; rank 0 prints the
+``--tp N`` serves a model of any family tensor-parallel over N ranks
+(``launch/mesh.spawn_tp``: one process a rank, on ``cuda:{r % cards}``,
+NCCL where every rank has a card of its own, else gloo, which it
+prints), through either engine and pool; rank 0 prints the
 ``[serve]`` lines. Every rank makes the same weights (and a VLM's
 requests the same patches) from ``--seed``, builds and quantizes the whole
 model, and keeps its shard, so the whole model must fit on one card today
 (ROADMAP queue 1, item 6.9); an axis that does not divide by N is whole on
 every rank. W4A8 (``--weight-bits 4``), ``pt_dynamic`` and
 ``ptoken_dynamic`` serve under ``--tp`` too (their ranges taken over the
-ranks where the features are cut); the xLSTM and encoder-decoder families
-stop with the reason (ROADMAP queue 1, item 6.3b):
+ranks where the features are cut). What one rank refuses stops before
+the ranks spawn, with the reason: the encoder-decoder's ``pt_static``
+and a paged pool of the encoder-decoder or the xLSTM:
 
     python -m repro_torch.launch.serve --device cpu --tp 2 --quant \
         pt_static --prequant --kv-dtype int8 --cushion-len 4
@@ -50,6 +51,11 @@ stop with the reason (ROADMAP queue 1, item 6.3b):
     python -m repro_torch.launch.serve --device cpu --smoke --tp 2 \
         --arch jamba-v0.1-52b --quant pt_static --prequant --kv-dtype int8 \
         --cushion-len 4
+    python -m repro_torch.launch.serve --device cpu --smoke --tp 2 \
+        --arch xlstm-350m --quant pt_static --prequant --cushion-len 4
+    python -m repro_torch.launch.serve --device cpu --smoke --tp 2 \
+        --arch whisper-base --mode continuous --quant pt_dynamic \
+        --cushion-len 4 --rate 0
 
 ``--replicas R --tp N`` (continuous mode) runs the router over R replicas
 of N ranks each: ``spawn_mesh(..., data=R, tp=N)``, replica i on data row
@@ -497,9 +503,9 @@ def main(argv=None, corpus: SyntheticCorpus = None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor parallel over N ranks (the dense, MoE, "
-                         "VLM and hybrid families; one process a rank, NCCL "
-                         "where every rank has a card, else gloo)")
+                    help="tensor parallel over N ranks (every family; "
+                         "one process a rank, NCCL where every rank has a "
+                         "card, else gloo)")
     ap.add_argument("--bench-json", default=None,
                     help="append a trajectory point to this file")
     args = ap.parse_args(argv)
@@ -526,7 +532,7 @@ def main(argv=None, corpus: SyntheticCorpus = None):
         try:
             check_tp_serving(_config(args),
                              QuantConfig(mode=args.quant), args.tp,
-                             args.weight_bits)
+                             args.weight_bits, paged=args.paged)
         except ValueError as e:
             raise SystemExit(f"[serve] {e}")
         if args.mode == "continuous" and (args.replicas > 1 or args.chaos):

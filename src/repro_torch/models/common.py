@@ -32,7 +32,9 @@ Conventions
   the ranks where its rows are cut; a cut embedding looks up the rank's
   vocabulary rows and sums, a cut head's logits are gathered
   (``gather_last``); whole ones take no collective. Decode attention runs
-  ``ops.decode_attention_tp`` / ``decode_attention_tp_paged``.
+  ``ops.decode_attention_tp`` / ``decode_attention_tp_paged``. A leaf the
+  reference keeps whole but whose output the rank needs only a part of
+  is read through a window of its columns (``rank_window``).
 """
 from __future__ import annotations
 
@@ -511,6 +513,16 @@ def local_heads(t: Tensor, n: int, axis: int = -2) -> Tensor:
     return ops.rank_heads(t, n, DC.tp_rank(), DC.tp_size(), axis)
 
 
+def rank_window(t: Tensor, n: int, axis: int = -1, start: int = 0
+                ) -> Tensor:
+    """This rank's window of ``n`` entries of ``t``'s ``axis``, from
+    ``start + rank * n``: a view, no copy. A rank reads its heads' columns
+    of a leaf the reference keeps whole this way (the encoder-decoder's
+    ``xattn/wq`` and each half of ``xattn/wkv``; the xLSTM's mLSTM values),
+    as ``kv_window`` reads whole KV heads in place."""
+    return t.narrow(axis, start + DC.tp_rank() * n, n)
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
@@ -585,17 +597,21 @@ def embed_tokens(p: Params, tokens: Tensor, cfg: ModelConfig) -> Tensor:
 
 def lm_head(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
             scales: Optional[Params], taps: Optional[Dict],
-            n_skip: int = 0, groups: int = 1) -> Tensor:
+            n_skip: int = 0, groups: int = 1, last: bool = False) -> Tensor:
     """Logits. A tied head quantizes ``embed.T`` on every call under true
     int8, as the reference does: an int8 copy kept at load would add
     vocab x d_model bytes that the reference does not hold, and the port's
-    resident bytes are held equal to JAX's."""
+    resident bytes are held equal to JAX's. ``last``: the head reads
+    every position of x (a dynamic range spans them) and returns the last
+    position's logits (B, 1, V), taken before a cut vocabulary's gather."""
     w = p["embed"]["w"].T if cfg.tie_embeddings else p["head"]["w"]
     site = scales.get("head") if scales is not None else None
     rng = None
     if taps is not None:
         taps["head"], rng = Q.site_taps(x, qcfg, site, n_skip, groups)
     logits = Q.qdot(x, w, qcfg, site, groups, rng=rng)
+    if last:
+        logits = logits[:, -1:]
     # a rank's cut vocabulary columns, gathered
     return DC.gather_last(logits) if tp_cut(cfg, "vocab") else logits
 

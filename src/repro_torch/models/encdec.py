@@ -33,6 +33,17 @@ Cache: the decoder's self-attention KV ``k`` / ``v`` (L, B, Smax, K, hd)
 cross-attention KV ``xk`` / ``xv`` (L, B, T_enc, K, hd), each request's own
 encoder states. Prefill writes all four in place (a captured decode step
 reads the tensors it was captured on).
+
+Tensor parallelism (a rank's config, ``serving/engine.tp_config``), the
+reference's serve specs: both stacks' self-attention on the rank's heads
+(``wqkv`` by heads, ``wo`` by rows) and their MLPs on its ``d_ff``
+(``w_up`` by columns, ``w_down`` by rows); the cross-attention's ``wo``
+by rows (the rule ``attn/wo$`` finds ``xattn/wo``), while ``wq`` and
+``wkv`` stay whole leaves (``attn/wqkv$`` misses them): a rank reads its
+heads' columns of each (``common.rank_window``), so its cross KV holds
+its heads, as the cache roles say. The five row-parallel sites sum over
+the ranks (``Q.qdot``); the embedding and the head are cut where the
+vocabulary divides.
 """
 from __future__ import annotations
 
@@ -103,10 +114,18 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> C.ParamTree:
 def enc_kv(p: Params, enc_out: Tensor, cfg: ModelConfig
            ) -> Tuple[Tensor, Tensor]:
     """The cross-attention's keys and values (B, T_enc, K, hd) of the
-    encoder states (an fp product, as in the reference)."""
+    encoder states (an fp product, as in the reference). A
+    tensor-parallel rank whose KV heads are cut forms its K heads of each
+    half of the whole ``wkv`` [k | v] (two windows of its columns)."""
     B, Te, _ = enc_out.shape
     K, hd = cfg.n_kv_heads, cfg.head_dim
-    k, v = torch.split(enc_out @ p["wkv"], K * hd, dim=-1)
+    w = p["wkv"]
+    if C.tp_cut(cfg, "kv_heads"):
+        half = w.shape[-1] // 2
+        k = enc_out @ C.rank_window(w, K * hd)
+        v = enc_out @ C.rank_window(w, K * hd, start=half)
+    else:
+        k, v = torch.split(enc_out @ w, K * hd, dim=-1)
     return k.reshape(B, Te, K, hd), v.reshape(B, Te, K, hd)
 
 
@@ -115,13 +134,19 @@ def cross_attention(p: Params, x: Tensor, kv: Tuple[Tensor, Tensor],
                     scales: Optional[Params], taps: Optional[Dict],
                     n_skip: int = 0, groups: int = 1) -> Tensor:
     """x: (B, S, D); kv: (k, v) each (B, T_enc, K, hd). Every query sees
-    every encoder state."""
+    every encoder state. A tensor-parallel rank whose heads are cut
+    computes its H heads' queries from its columns of the whole ``wq``,
+    attends over its KV heads (or its group's window of whole ones,
+    ``kv_window``) and sums ``wo``'s partial products over the ranks."""
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
-    q = C.qlinear(x, p["wq"], None, qcfg, scales, "xq", taps, n_skip, groups)
-    out = ops.attention(q.reshape(B, S, H, hd), kv[0], kv[1], causal=False)
+    cut = C.tp_cut(cfg, "heads")
+    wq = C.rank_window(p["wq"], H * hd) if cut else p["wq"]
+    q = C.qlinear(x, wq, None, qcfg, scales, "xq", taps, n_skip, groups)
+    out = ops.attention(q.reshape(B, S, H, hd), kv[0], kv[1], causal=False,
+                        kv_heads=C.kv_window(cfg))
     return C.qlinear(out.reshape(B, S, H * hd), p["wo"], None, qcfg, scales,
-                     "xo", taps, n_skip, groups)
+                     "xo", taps, n_skip, groups, row_parallel=cut)
 
 
 def _dec_scales(scales: Optional[Params], cfg: ModelConfig,
@@ -257,8 +282,8 @@ def cache_roles(cfg: ModelConfig, kv_dtype=None,
                 per_slot_scales: bool = False) -> Params:
     """Serving cache roles, the reference's: self- and cross-attention KV
     (L, B, S, K, hd) on their heads axis (``kv_dtype`` is unused: this
-    family's KV stays fp). Tensor-parallel serving of this family is not
-    ported yet (ROADMAP queue 1, item 6.3b)."""
+    family's KV stays fp). A tensor-parallel rank's cache
+    (``init_cache`` of its config) holds its KV heads of all four."""
     kv = (None, "B", None, "M", None)
     return {"k": kv, "v": kv, "xk": kv, "xv": kv}
 
@@ -316,9 +341,9 @@ def prefill(params, tokens: Tensor, cache: Params, cfg: ModelConfig,
     L = cfg.n_layers
     lscales = _dec_scales(scales, cfg, qcfg, x.device)
     ks, vs = [], []
+    pre = T._cushion_layers(T.local_cushion(cushion, cfg), L)
     for l, (lp, lsc, lpre) in enumerate(zip(C.unstack(params["decoder"], L),
-                                            C.unstack(lscales, L),
-                                            T._cushion_layers(cushion, L))):
+                                            C.unstack(lscales, L), pre)):
         hn = C.apply_norm(lp["ln1"], x, cfg)
         a, (k, v) = C.attention_full(lp["attn"], hn, cfg, qcfg, lsc, None,
                                      positions, prefix_kv=lpre, causal=True,

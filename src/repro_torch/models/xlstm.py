@@ -30,6 +30,16 @@ decode step reads the tensors it was captured on. On the card a decode
 row's result does not depend on the batch it runs in: the small plain
 products pad their rows (``common.matmul_rows``) or run a row at a time
 (``_per_row``), so a pool's rows equal the static B = 1 Engine's.
+
+Tensor parallelism (a rank's config, ``serving/engine.tp_config``): the
+reference's serve rules replicate every block weight (its ``xlstm/``
+rules match no path of the family), so every rank computes q, k, the
+gates and the output gate of all heads, and the sLSTM whole. Only the
+vocabulary (the embedding and the head) and the mLSTM memory ``C`` are
+cut: a rank holds ``C``'s value slice ("values", ``cache_roles``), forms
+its slice of h from q and that slice (the values' columns are contracted
+nowhere), and the slices are gathered whole before ``w_proj``, once an
+mLSTM block a forward.
 """
 from __future__ import annotations
 
@@ -42,6 +52,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, QuantConfig
 from repro_torch.core import quantization as Q
+from repro_torch.distributed import collectives as DC
 from repro_torch.models import common as C
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import tree_leaves
@@ -80,6 +91,25 @@ def dims(cfg: ModelConfig) -> Tuple[int, int, int]:
         raise ValueError(f"inner width {inner} is not a multiple of the "
                          f"{NH} heads")
     return inner, NH, inner // NH
+
+
+def value_width(cfg: ModelConfig) -> int:
+    """The mLSTM memory's value columns a rank holds: the head width, or
+    its slice of it where a tensor-parallel rank's config cuts "values"."""
+    hd = dims(cfg)[2]
+    return hd // cfg.tp.size if C.tp_cut(cfg, "values") else hd
+
+
+def _local_values(v: Tensor, cfg: ModelConfig) -> Tensor:
+    """v (..., hd): this rank's value columns (v itself on one rank)."""
+    n = value_width(cfg)
+    return v if n == v.shape[-1] else C.rank_window(v, n)
+
+
+def _gather_values(h: Tensor, cfg: ModelConfig) -> Tensor:
+    """h (..., hd / tp): the ranks' value slices, gathered whole (exact:
+    ``DC.gather_last`` adds zeros)."""
+    return DC.gather_last(h) if C.tp_cut(cfg, "values") else h
 
 
 def n_pairs(cfg: ModelConfig) -> int:
@@ -195,7 +225,8 @@ def _mlstm_mix(q: Tensor, k: Tensor, v: Tensor, li: Tensor, lf: Tensor,
 
 def mlstm_state(cfg: ModelConfig, batch: int, device) -> Params:
     _, NH, hd = dims(cfg)
-    return {"C": torch.zeros((batch, NH, hd, hd), device=device),
+    return {"C": torch.zeros((batch, NH, hd, value_width(cfg)),
+                             device=device),
             "n": torch.zeros((batch, NH, hd), device=device),
             "m": torch.full((batch, NH), M_FRESH, device=device)}
 
@@ -214,6 +245,7 @@ def apply_mlstm(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
     chunk = MLSTM_CHUNK if chunk is None else chunk
     q, k, v, li, lf, og = _mlstm_qkvif(p, x, cfg, qcfg, scales, taps,
                                        n_skip, groups)
+    v = _local_values(v, cfg)
     if chunk <= 0 or S <= chunk or S % chunk:
         res = _mlstm_mix(q, k, v, li, lf, init_state, return_state)
         h, state = res if return_state else (res, None)
@@ -227,6 +259,7 @@ def apply_mlstm(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
                                    lf[:, sl], state, True)
             hs.append(hc)
         h = torch.cat(hs, dim=2)
+    h = _gather_values(h, cfg)
     h = h.transpose(1, 2).reshape(B, S, inner).to(x.dtype) * og.to(x.dtype)
     out = C.qlinear(h, p["w_proj"], None, qcfg, scales, "m_out", taps,
                     n_skip, groups)
@@ -241,6 +274,7 @@ def decode_mlstm(p: Params, x: Tensor, state: Params, cfg: ModelConfig,
     inner, _, _ = dims(cfg)
     q, k, v, li, lf, og = _mlstm_qkvif(p, x, cfg, qcfg, scales, taps, 0)
     q, k, v = (t[:, 0].float() for t in (q, k, v))           # (B, NH, hd)
+    v = _local_values(v, cfg)
     li, lf = li[:, 0], lf[:, 0]                              # (B, NH)
     m_new = torch.maximum(lf + state["m"], li)
     fp = torch.exp(lf + state["m"] - m_new)
@@ -251,7 +285,8 @@ def decode_mlstm(p: Params, x: Tensor, state: Params, cfg: ModelConfig,
     den = _per_row(lambda a, b_: (a * b_).sum(-1), q, nn)
     norm = torch.maximum(den.abs(), torch.exp(-m_new))
     h = _per_row(lambda a, c: (a[..., None, :] @ c)[..., 0, :], q, Cn)
-    h = (h / norm[..., None]).reshape(B, 1, inner).to(x.dtype) * og
+    h = _gather_values(h / norm[..., None], cfg)
+    h = h.reshape(B, 1, inner).to(x.dtype) * og
     out = C.qlinear(h, p["w_proj"], None, qcfg, scales, "m_out", taps)
     return out, {"C": Cn, "n": nn, "m": m_new}
 
@@ -361,8 +396,20 @@ def cache_roles(cfg: ModelConfig, kv_dtype=None,
                 per_slot_scales: bool = False) -> Params:
     """Serving roles of the recurrent state, the reference's: batch on
     "B", the head dim on "M" (``kv_dtype`` is unused: the state is never
-    int8). Tensor-parallel serving of this family is not ported yet
-    (ROADMAP queue 1, item 6.3b)."""
+    int8).
+
+    What a tensor-parallel rank holds (the roles stay the reference's;
+    only where the values live differs, not a value): the mLSTM memory
+    ``C`` (P, B, NH, hd, hd) cut on its last axis, the values, as the
+    roles say; it is nearly all of the state's bytes (at xlstm-350m's
+    width 12 pairs x 4 heads x 512 x 512 x 4 B = 50.3 MB a slot), and that
+    axis is contracted nowhere (a rank forms its slice of h from q and
+    its slice of ``C``; h is gathered once a block). ``n`` and the
+    sLSTM's ``c``, ``n``, ``h`` and ``m`` stay whole on every rank,
+    although the roles name tp on their last axis: that axis is
+    contracted (``q . n`` in the mLSTM's denominator; ``h . r`` in the
+    sLSTM's recurrence, which would take a collective at every position
+    of a prefill), and they total under 0.5 MB a slot."""
     return {"m": {"C": (None, "B", None, None, "M"),
                   "n": (None, "B", None, "M"),
                   "m": (None, "B", None)},
@@ -399,6 +446,19 @@ def cushion_zeros(cfg: ModelConfig, m: int, device, dtype=None) -> Params:
               "m": full((P, NH), M_CUSHION)},
         "s": {"c": full((P, NH, hd), 0.0), "n": full((P, NH, hd), 0.0),
               "h": full((P, NH, hd), 0.0), "m": full((P, NH, hd), M_CUSHION)}}}
+
+
+def local_cushion(cushion: Optional[Params], cfg: ModelConfig
+                  ) -> Optional[Params]:
+    """The CushionState as a tensor-parallel rank reads it: the mLSTM
+    memory ``C`` on its value slice (``cache_roles``), every other leaf
+    whole (itself on one rank)."""
+    if cushion is None or not C.tp_cut(cfg, "values"):
+        return cushion
+    st = cushion["state"]
+    return {"state": {"m": {**st["m"], "C": _local_values(st["m"]["C"],
+                                                          cfg)},
+                      "s": st["s"]}}
 
 
 def _bcast_state(st: Params, B: int) -> Params:
@@ -448,8 +508,12 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, qcfg: QuantConfig, *,
             return_cache: bool = False, groups: int = 1, remat: bool = True):
     """Full-sequence forward from the cushion's state (or a fresh one).
     With ``collect`` the taps hold every site's statistics and
-    ``block_in``, stacked over the pairs; ``return_cache`` adds the state
-    after the sequence, {"m": {C, n, m}, "s": {c, n, h, m}} (P, B, ...).
+    ``block_in``, stacked over the pairs; ``return_cache`` (serving: the
+    prefill, the cushion's extraction) adds the state after the sequence,
+    {"m": {C, n, m}, "s": {c, n, h, m}} (P, B, ...), and keeps the last
+    position's logits only (``common.lm_head``'s ``last``: a
+    tensor-parallel rank gathers one position's vocabulary, not every
+    position's).
     ``groups``: stacked forwards, as ``transformer.forward``. ``remat``:
     one checkpoint a pair (``common.remat_call``)."""
     params = C.as_tree(params)
@@ -462,7 +526,7 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, qcfg: QuantConfig, *,
         if "state" not in cushion:
             raise ValueError("an xLSTM cushion is an initial state tree "
                              "({'state': {'m': ..., 's': ...}})")
-        init = _bcast_state(cushion["state"], B)
+        init = _bcast_state(local_cushion(cushion, cfg)["state"], B)
     layer_taps, states = [], []
     for i, (lp, lsc) in enumerate(zip(C.unstack(params["layers"], P),
                                       C.unstack(lscales, P))):
@@ -476,7 +540,7 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, qcfg: QuantConfig, *,
     x = C.apply_norm(params["ln_f"], x, cfg)
     head_taps: Optional[Dict] = {} if collect else None
     logits = C.lm_head(params, x, cfg, qcfg, scales, head_taps, n_skip,
-                       groups)
+                       groups, last=return_cache)
     taps_out: Dict = {}
     if collect:
         taps_out = {"layers": C.stack_trees(layer_taps), **head_taps,
@@ -493,8 +557,8 @@ def prefill(params, tokens: Tensor, cache: Params, cfg: ModelConfig,
             ) -> Tuple[Tensor, Params, Tensor]:
     """Run the prompt from the cushion's state and write the state after
     it into ``cache``, in place. Returns (last-position logits (B,1,V),
-    cache, the prompt length): the head runs over every position, as in
-    the reference, whose dynamic ranges span them."""
+    cache, the prompt length): the head reads every position, as in the
+    reference, whose dynamic ranges span them."""
     logits, _, states = forward(params, tokens, cfg, qcfg, scales=scales,
                                 cushion=cushion,
                                 prepend_embeds=prepend_embeds,
@@ -503,8 +567,8 @@ def prefill(params, tokens: Tensor, cache: Params, cfg: ModelConfig,
         old.copy_(new)
     S = tokens.shape[1] + (0 if prepend_embeds is None
                            else prepend_embeds.shape[1])
-    return logits[:, -1:], cache, torch.tensor(S, dtype=torch.int32,
-                                               device=logits.device)
+    return logits, cache, torch.tensor(S, dtype=torch.int32,
+                                       device=logits.device)
 
 
 def decode_step(params, token: Tensor, pos: Tensor, cache: Params,

@@ -13,10 +13,10 @@ replayed once per generated token: the counterpart of the reference's
 jitted ``lax.scan``, the same kernels launched by one ``cudaGraphLaunch``
 per step. The prefill runs eagerly, and so does the step on the CPU.
 
-Tensor parallelism (``mesh``, a ``launch/mesh.TPMesh``; the dense, MoE,
-VLM and hybrid families): every rank runs an ``Engine`` on its shard of
-the model. The quantization plan (calibration, ``prequantize_tree``) runs
-on the whole model on every rank, then ``shard_params_for_serving`` keeps
+Tensor parallelism (``mesh``, a ``launch/mesh.TPMesh``; every family):
+every rank runs an ``Engine`` on its shard of the model. The quantization
+plan (calibration, ``prequantize_tree``) runs on the whole model on every
+rank, then ``shard_params_for_serving`` keeps
 the rank's shard; the rank serves through its own config (``tp_config``,
 whose ``tp`` layout says which axes it holds a part of: ``tp_layout``)
 and the collectives of ``distributed/collectives.py``. An axis that does
@@ -53,6 +53,8 @@ from repro_torch.core.cushioncache import cushion_fingerprint
 from repro_torch.distributed import collectives as DC
 from repro_torch.distributed import sharding as SH
 from repro_torch.models import common as C
+from repro_torch.models import encdec as ED
+from repro_torch.models import xlstm as XL
 from repro_torch.monitoring import resident_weight_bytes
 from repro_torch.optim.adamw import tree_leaves
 from repro_torch.serving.graphs import CapturedStep
@@ -123,9 +125,22 @@ def tp_layout(cfg: ModelConfig, tp: int) -> TPLayout:
     divide as well (the cache's spec, ``cache_roles``), else every rank
     holds all of them, as the reference's replicated cache. The experts
     where E divides (``moe/w_*``), the Mamba channels where ``inner``
-    does (``mamba/w_out``'s rows and the state's roles)."""
+    does (``mamba/w_out``'s rows and the state's roles).
+
+    The xLSTM: the reference's rules for its blocks (``xlstm/w_...``)
+    match no path of the family (``layers/mlstm/w_qkv``, ...), so every
+    block weight is whole and only the vocabulary is cut. Its state is
+    cut where the roles name tp and no collective a position follows:
+    the mLSTM memory ``C`` on its value axis ("values", where the head
+    width divides; ``models/xlstm.cache_roles``)."""
     hd, H, K = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     cut = []
+    if cfg.family == Family.SSM:
+        if cfg.vocab_size % tp == 0:
+            cut.append("vocab")
+        if XL.dims(cfg)[2] % tp == 0:
+            cut.append("values")
+        return TPLayout(size=tp, cut=tuple(cut), n_heads=H)
     if (H + 2 * K) * hd % tp == 0 and H % tp == 0:
         cut.append("heads")
         if K % tp == 0:
@@ -142,16 +157,26 @@ def tp_layout(cfg: ModelConfig, tp: int) -> TPLayout:
     return TPLayout(size=tp, cut=tuple(cut), n_heads=H)
 
 
+# the families whose serving cache is per-request state (no sequence
+# axis to page), as in the reference
+_UNPAGED = (Family.SSM, Family.ENCDEC)
+
+
 def check_tp_serving(cfg: ModelConfig, qcfg: QuantConfig, tp: int,
-                     weight_bits: int = 8, data: int = 1) -> None:
-    """Refuse what tensor-parallel serving does not shard yet: the xLSTM
-    and encoder-decoder families (ROADMAP queue 1, item 6.3b), a rank whose
-    query heads straddle KV groups of a whole cache (6.5b), and a mesh with
-    a data axis of more than one rank, on which the reference never serves
-    (its data-parallel serving is the router's replicas, one ``(data=1,
-    tp)`` mesh each: ``launch/mesh.make_replica_meshes``). W4A8 and the
-    dynamic modes serve at any tp; axes that do not divide by tp are
-    served whole on every rank (``tp_layout``). One rank takes anything."""
+                     weight_bits: int = 8, data: int = 1,
+                     paged: bool = False) -> None:
+    """Refuse what tensor-parallel serving does not serve: what one rank
+    refuses as well and a launcher must refuse before it spawns (the
+    encoder-decoder's ``pt_static``, ``encdec.check_serving_quant``; a
+    paged pool of the xLSTM or the encoder-decoder, whose cache is
+    per-request state with nothing to page); a rank whose query heads
+    straddle KV groups of a whole cache (ROADMAP queue 1, item 6.5b); and
+    a mesh with a data axis of more than one rank, on which the reference
+    never serves (its data-parallel serving is the router's replicas, one
+    ``(data=1, tp)`` mesh each: ``launch/mesh.make_replica_meshes``).
+    W4A8 and the dynamic modes serve at any tp; axes that do not divide by
+    tp are served whole on every rank (``tp_layout``). One rank takes
+    anything else."""
     if data > 1:
         raise ValueError(
             f"serving on a mesh with a data axis of {data} ranks: the "
@@ -160,23 +185,24 @@ def check_tp_serving(cfg: ModelConfig, qcfg: QuantConfig, tp: int,
             f"ReplicaRouter(meshes=))")
     if tp == 1:
         return
-    why = item = None
+    if cfg.family == Family.ENCDEC:
+        ED.check_serving_quant(qcfg)
+    if paged and cfg.family in _UNPAGED:
+        raise ValueError(
+            f"tensor parallelism (tp={tp}): a paged pool of the "
+            f"{cfg.family.value} family, whose cache is per-request state "
+            f"with nothing to page (the reference refuses it at every tp)")
     H, K = cfg.n_heads, cfg.n_kv_heads
     lay = tp_layout(cfg, tp)
-    if cfg.family in (Family.SSM, Family.ENCDEC):
-        why, item = (f"the {cfg.family.value} family serves on one rank "
-                     f"only", "6.3b")
-    elif "heads" in lay.cut and "kv_heads" not in lay.cut and tp % K:
+    if "heads" in lay.cut and "kv_heads" not in lay.cut and tp % K:
         # the KV heads are whole on every rank; a rank's H/tp query heads
         # must lie in one KV group (tp a multiple of K) for the attention
         # kernels' slice of the cache
-        why, item = (f"n_heads={H}, n_kv_heads={K}: a rank's {H // tp} "
-                     f"query heads straddle the groups of the whole KV "
-                     f"heads, which the attention kernels' KV-head slice "
-                     f"does not map", "6.5b")
-    if why is not None:
-        raise ValueError(f"tensor parallelism (tp={tp}): {why} yet "
-                         f"(ROADMAP queue 1, item {item})")
+        raise ValueError(
+            f"tensor parallelism (tp={tp}): n_heads={H}, n_kv_heads={K}: a "
+            f"rank's {H // tp} query heads straddle the groups of the whole "
+            f"KV heads, which the attention kernels' KV-head slice does not "
+            f"map yet (ROADMAP queue 1, item 6.5b)")
 
 
 def tp_config(cfg: ModelConfig, tp: int) -> ModelConfig:
@@ -229,11 +255,14 @@ def _xz_columns(inner: int, rank: int, tp: int, device) -> torch.Tensor:
 # from the end (the hybrid's and the stacked layers' leading axes come
 # first), and how a rank takes its part: a block of the dim, or its heads
 # of the fused qkv columns, or its channels of each half of the Mamba
-# in-projection. The first match wins, and a leaf that matches none is
-# whole on every rank (the norms, ``moe/router``, ``moe/residual``: the
-# reference's rules replicate them). ``w_int`` cuts like its parent;
-# ``colsum`` with its parent's columns, so it is whole at the row-parallel
-# sites; ``w_scale`` (the whole weight's) is whole.
+# in-projection. The first match wins (by ``search``, as the reference's
+# rules: ``attn/wo$`` cuts the encoder-decoder's ``xattn/wo`` by rows too),
+# and a leaf that matches none is whole on every rank (the norms,
+# ``moe/router``, ``moe/residual``, the cross-attention's ``xattn/wq`` and
+# ``xattn/wkv``, which ``attn/wqkv$`` misses, and every xLSTM block
+# weight: the reference's rules replicate them). ``w_int`` cuts like its
+# parent; ``colsum`` with its parent's columns, so it is whole at the
+# row-parallel sites; ``w_scale`` (the whole weight's) is whole.
 _LEAF_AXES = (
     (re.compile(r"attn/(wqkv|bqkv)$"), "heads", -1, "qkv"),
     (re.compile(r"attn/wo$"), "heads", -2, "block"),

@@ -65,13 +65,16 @@ pool shape. Admission, the chunked-prefill stream, the page table's copy
 to the device, the copy of a changed ``live`` mask and the one host sync
 per step stay outside the graph.
 
-Tensor parallelism (``mesh``, the reference's; the dense, MoE, VLM and
-hybrid families): every rank runs a ``ContinuousEngine`` on its shard, as
-``Engine`` does (``serving/engine.py``); the pool holds the rank's KV
-heads (all of them where they do not divide), the per-slot scales its
-heads' columns, a hybrid's state rows its Mamba channels, and an int8 or
-paged pool's cushion block is whole on every rank beside the rank's slice
-(``kc_tp`` / ``vc_tp``). The
+Tensor parallelism (``mesh``, the reference's; every family): every rank
+runs a ``ContinuousEngine`` on its shard, as ``Engine`` does
+(``serving/engine.py``); the pool holds the rank's KV heads (all of them
+where they do not divide; an encoder-decoder's cross-attention KV too),
+the per-slot scales its heads' columns, a hybrid's state rows its Mamba
+channels, an xLSTM's state its slice of the mLSTM memory's value axis
+(the rest of its state whole), and an int8 or paged pool's cushion block
+is whole on every rank beside the rank's slice (``kc_tp`` / ``vc_tp``).
+An admission's B = 1 row is made at the rank's shapes, so it scatters
+into the rank's part of the slot as it is. The
 page table and the host allocator are the same on every rank. Under
 tp > 1 the decode step runs eagerly, by design (a collective over gloo
 synchronizes with the host, which a CUDA graph cannot hold). The ranks
@@ -249,7 +252,7 @@ class ContinuousEngine:
         self._clock = clock if clock is not None else _host_clock
         self.tp = 1 if mesh is None else mesh.size
         check_tp_serving(api.cfg, qcfg, self.tp, weight_bits,
-                         1 if mesh is None else mesh.data_size)
+                         1 if mesh is None else mesh.data_size, paged)
         self.full_cfg = api.cfg
         self.device = api.device
         tree, scales = plan_quantization(

@@ -17,10 +17,11 @@ returns one report a case. A case names:
   ``scales`` (the plain ``{"scale", "zero"}`` tree) or ``calib`` (token
   arrays to calibrate on);
 * ``kind`` "static": ``tokens`` (B, S) (and a VLM's ``patches`` (B, P,
-  D), the same on every rank) and ``n_tokens`` through
-  ``Engine.generate`` (``logits``: also the served request's prefill's
-  last logits, the cushion block as its cache holds it and, of a hybrid,
-  the Mamba cushion state the rank's prefill starts from;
+  D) or an encoder-decoder's ``frames`` (B, T_enc, D), the same on every
+  rank) and ``n_tokens`` through ``Engine.generate`` (``logits``: also
+  the served request's prefill's last logits, the cushion block as its
+  cache holds it and, of a hybrid or an xLSTM, the cushion state the
+  rank's prefill starts from, its leaves by dotted path;
   ``record_quant``: also every activation quantization of that request,
   its prefill's and its decode steps', in call order, as its scale, zero
   point and codes, ``quant_records``);
@@ -28,8 +29,8 @@ returns one report a case. A case names:
   single rank captures its decode graph there, with two eager warm-up
   steps); ``margins``: the top-1 minus top-2 logit of every row at every
   generated token, teacher-forced (B, n_tokens); "continuous":
-  ``requests`` (dicts of ``tokens`` (1, S), ``patches``, ``max_new_tokens``,
-  ``arrival_s``) through ``ContinuousEngine.run`` with
+  ``requests`` (dicts of ``tokens`` (1, S), ``patches`` or ``frames``,
+  ``max_new_tokens``, ``arrival_s``) through ``ContinuousEngine.run`` with
   ``n_slots``, ``paged``, ``page_size``; ``clock_rates`` gives each rank a
   clock of its own (a tick of ``rate`` ms a read, the engine's ``clock``),
   to show that the ranks still agree; ``interrupt`` (rank, decode steps)
@@ -54,8 +55,10 @@ returns one report a case. A case names:
 The report holds numpy arrays and numbers: the tokens, the cushion block as
 this rank holds it, the launch counts of the kernels during the serving
 call (``_lib.LAUNCHES``; none on the CPU), TTFT / TPOT, the backend, the
-peak device memory and, for "continuous", every admission as (uid, slot,
-decode steps so far) and each slot's cushion rows.
+peak device memory and what the card held when the count was reset (the
+weights, and the tree a rank keeps for the next case: ``held_bytes``)
+and, for "continuous", every admission as (uid, slot, decode steps so
+far) and each slot's cushion rows.
 """
 from __future__ import annotations
 
@@ -77,7 +80,7 @@ from repro_torch.distributed import collectives as DC
 from repro_torch.kernels import _lib
 from repro_torch.models import common as C
 from repro_torch.models import convert
-from repro_torch.models.registry import build
+from repro_torch.models.registry import build, family_module
 from repro_torch.distributed.fault_injection import FaultInjector
 from repro_torch.launch.mesh import make_replica_meshes
 from repro_torch.serving.engine import Engine, check_tree_sums
@@ -134,16 +137,34 @@ def _tokens(a, device) -> torch.Tensor:
 
 def _batch(d, device, dtype) -> Dict[str, torch.Tensor]:
     """A request's inputs on the rank: its tokens and, of a VLM, its
-    patches (numpy or a tensor) in the model dtype."""
+    patches, of an encoder-decoder its frames (numpy or a tensor) in the
+    model dtype."""
     tok = d["tokens"]
     out = {"tokens": (tok.to(device, torch.int32)
                       if isinstance(tok, torch.Tensor)
                       else _tokens(tok, device))}
-    p = d.get("patches")
-    if p is not None:
-        p = p if isinstance(p, torch.Tensor) else torch.from_numpy(
-            np.array(p))
-        out["patches"] = p.to(device, dtype)
+    for key in ("patches", "frames"):
+        p = d.get(key)
+        if p is not None:
+            p = p if isinstance(p, torch.Tensor) else torch.from_numpy(
+                np.array(p))
+            out[key] = p.to(device, dtype)
+    return out
+
+
+def _state_view(cushion, cfg) -> Dict[str, np.ndarray]:
+    """A recurrent cushion state as this rank reads it (the family's
+    ``local_cushion``), its leaves flattened by path: a hybrid's Mamba
+    ``h`` / ``conv``, an xLSTM's ``m.C``, ``s.h``, ..."""
+    out: Dict[str, np.ndarray] = {}
+
+    def visit(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                visit(v, f"{path}.{k}" if path else k)
+        else:
+            out[path] = _np(node)
+    visit(family_module(cfg).local_cushion(cushion, cfg)["state"], "")
     return out
 
 
@@ -190,9 +211,7 @@ def prefill_view(eng, batch) -> Dict[str, Any]:
         out = {"logits": _np(lg[:, -1]),
                "cushion": _cushion_view(cache, eng.prefix_len)}
         if eng.cushion is not None and "state" in eng.cushion:
-            local = eng.api.mod.local_cushion(eng.cushion, eng.api.cfg)
-            out["cushion_state"] = {k: _np(v)
-                                    for k, v in local["state"].items()}
+            out["cushion_state"] = _state_view(eng.cushion, eng.api.cfg)
     return out
 
 
@@ -246,8 +265,7 @@ def served_view(eng, batch, logits) -> Dict[str, Any]:
            "cushion": _cushion_view(cache, eng.prefix_len)}
     if eng.cushion is not None and "state" in eng.cushion:
         with DC.use_tp(eng.mesh):
-            local = eng.api.mod.local_cushion(eng.cushion, eng.api.cfg)
-        out["cushion_state"] = {k: _np(v) for k, v in local["state"].items()}
+            out["cushion_state"] = _state_view(eng.cushion, eng.api.cfg)
     return out
 
 
@@ -324,10 +342,11 @@ def _engine(mesh, api, case, **extra):
 def _serve(mesh, api, eng, case: Dict[str, Any]) -> Dict[str, Any]:
     dev = mesh.device
     qcfg = case["qcfg"]
+    rep: Dict[str, Any] = {"rank": mesh.rank, "backend": mesh.backend,
+                           "name": case.get("name"), "held_bytes": 0}
     if dev.type == "cuda" and case.get("reset_peak", True):
         torch.cuda.reset_peak_memory_stats(dev)
-    rep: Dict[str, Any] = {"rank": mesh.rank, "backend": mesh.backend,
-                           "name": case.get("name")}
+        rep["held_bytes"] = int(torch.cuda.memory_allocated(dev))
     dt = C.dtype_of(api.cfg)
     if case["kind"] == "static":
         batch = _batch(case, dev, dt)

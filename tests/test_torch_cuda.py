@@ -2036,17 +2036,14 @@ def test_kv_head_window_into_a_whole_cache(dev, quantized):
                                              prefix_len=m))
 
 
-@pytest.mark.parametrize("M", [4, 2048])
-def test_int32_mode_at_mamba_out_shard(dev, M):
-    """``w8a8_matmul``'s int32 mode (the row-parallel sites' accumulator)
-    at jamba-v0.1-52b's ``mamba_out`` shard of tp = 2 (K = 4096 of the
-    8192 channels, N = 4096): decode (M = 4, bf16 x quantized in the
-    staging) and prefill (int8 codes) equal their plain versions, and the
-    two ranks' int32 partials summed, with the epilogue once, equal the
-    whole weight's launch, bit for bit."""
+def _int32_halves_equal_whole(dev, M, K, N, seed):
+    """``w8a8_matmul``'s int32 mode at a row-parallel shard of tp = 2 (a
+    rank's K / 2 rows of a (K, N) weight): decode (M <= 16, bf16 x
+    quantized in the staging) and prefill (int8 codes) equal their plain
+    versions, and the two ranks' int32 partials summed, with the epilogue
+    once, equal the whole weight's launch, bit for bit."""
     from repro_torch.kernels.w8a8_matmul import w8a8_epilogue
-    g = torch.Generator(dev).manual_seed(29)
-    K, N = 8192, 4096
+    g = torch.Generator(dev).manual_seed(seed)
     bf = torch.bfloat16
     sx, zx = (torch.tensor(v_, device=dev) for v_ in (0.027, 119.0))
     sw = torch.tensor(0.0039, device=dev).to(bf)
@@ -2077,6 +2074,85 @@ def test_int32_mode_at_mamba_out_shard(dev, M):
         whole = w8a8_matmul(x, w, sx, zx, sw, colsum, -128.0, bf)
     assert torch.equal(whole, w8a8_epilogue(parts[0] + parts[1], sx, zx, sw,
                                             colsum, -128.0, bf))
+
+
+@pytest.mark.parametrize("M", [4, 2048])
+def test_int32_mode_at_mamba_out_shard(dev, M):
+    """The int32 mode at jamba-v0.1-52b's ``mamba_out`` shard of tp = 2
+    (K = 4096 of the 8192 channels, N = 4096)
+    (``_int32_halves_equal_whole``)."""
+    _int32_halves_equal_whole(dev, M, 8192, 4096, 29)
+
+
+# whisper-base at a rank of tp = 2: 4 of its 8 heads of 64, d_ff 1,024 of
+# 2,048, 1,500 frames, B = 4, the decoder's prompt 256 (+ a 4-row cushion)
+WH_B, WH_T, WH_PROMPT = 4, 1500, 256
+
+
+@pytest.mark.parametrize("M", [WH_B, WH_B * WH_PROMPT])
+@pytest.mark.parametrize("K", [512, 2048], ids=["xattn_wo", "w_down"])
+def test_int32_mode_at_whisper_shards(dev, M, K):
+    """The int32 mode at whisper-base's row-parallel shards of tp = 2: the
+    attention's and the cross-attention's ``wo`` (K = 512, 4 heads of 64 a
+    rank) and ``w_down`` (K = 2,048, 1,024 a rank), N = 512
+    (``_int32_halves_equal_whole``)."""
+    _int32_halves_equal_whole(dev, M, K, 512, 31 + K + M)
+
+
+@pytest.mark.parametrize("S,T", [(WH_T, WH_T), (WH_PROMPT, WH_T),
+                                 (1, WH_T)],
+                         ids=["encoder", "cross-prefill", "cross-decode"])
+def test_noncausal_attention_at_a_whisper_rank(dev, S, T):
+    """The non-causal ``flash_attention`` on a rank's 4 heads of whisper's 8
+    (the encoder, S = T = 1,500; the cross-attention's prefill over the
+    frames, S = 256, and its decode, S = 1), through ``ops.attention`` as
+    the model calls it on the rank's (B, S, 4, 64) q and cross KV: each
+    rank's launch equals the whole launch's heads bit for bit (a head's
+    result depends on that head alone), within one bf16 ulp of the plain
+    version."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(dev).manual_seed(S + T)
+    mk = lambda *s: torch.randn(s, generator=g, device=dev).to(  # noqa
+        torch.bfloat16)
+    q, k, v = mk(WH_B, S, 8, 64), mk(WH_B, T, 8, 64), mk(WH_B, T, 8, 64)
+    whole = ops.attention(q, k, v, causal=False)
+    n0 = _lib.LAUNCHES["flash_attention"]
+    for r in range(2):
+        hs = slice(4 * r, 4 * r + 4)
+        lq, lk, lv = (t[:, :, hs].contiguous() for t in (q, k, v))
+        got = ops.attention(lq, lk, lv, causal=False)
+        assert torch.equal(got, whole[:, :, hs]), r
+        _within_ulp(got.transpose(1, 2), flash_attention_plain(
+            lq.transpose(1, 2), lk.transpose(1, 2), lv.transpose(1, 2),
+            causal=False))
+    assert _lib.LAUNCHES["flash_attention"] == n0 + 2
+
+
+def test_flash_decode_at_a_whisper_rank(dev):
+    """The decoder's self-attention decode on a rank's 4 heads (G = 1, the
+    fp cache with the cushion's rows in it, per-row positions) through
+    ``ops.decode_attention_tp``: each rank's launch equals the whole
+    launch's heads bit for bit, within the bar of ``flash_decode_plain``
+    (one bf16 ulp plus 1e-5 of the largest entry)."""
+    from repro_torch.kernels.ops import decode_attention_tp
+    from repro_torch.launch.mesh import TPMesh
+    g = torch.Generator(dev).manual_seed(7)
+    smax = 384
+    mk = lambda *s: torch.randn(s, generator=g, device=dev).to(  # noqa
+        torch.bfloat16)
+    q, k, v = mk(WH_B, 8, 64), mk(WH_B, smax, 8, 64), mk(WH_B, smax, 8, 64)
+    pos = torch.tensor([4 + WH_PROMPT + 16, 37, 300, 4], dtype=torch.int32,
+                       device=dev)
+    whole = flash_decode(q, k, v, pos)
+    for r in range(2):
+        hs = slice(4 * r, 4 * r + 4)
+        lq, lk, lv = q[:, hs].contiguous(), k[:, :, hs].contiguous(), \
+            v[:, :, hs].contiguous()
+        got = decode_attention_tp(lq, lk, lv, pos, TPMesh(r, 2, None, dev,
+                                                          None))
+        assert torch.equal(got, whole[:, hs]), r
+        _bwd_within((got,), (flash_decode_plain(lq, lk, lv, pos),),
+                    torch.bfloat16)
 
 
 @pytest.mark.parametrize("M,K,N,group", W4_CASES + [(4, 4096, 8192, 128),

@@ -100,3 +100,45 @@ def test_serve_cli_tp2_runs_on_cpu_when_asked():
     res = serve.main(argv + ["--tp", "2"])
     assert res.tokens.shape == (2, 4)
     assert (res.tokens == serve.main(argv).tokens).all()
+
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+# the port's scripts beside the package: they import neither jax nor the
+# JAX package (the card's machine has no jax)
+STANDALONE = ["chip_smoke.py", "examples/torch_quickstart.py",
+              "examples/torch_quantized_serving.py",
+              "examples/torch_multiarch_smoke.py", "tests/_tp_probe.py",
+              "tests/_dp_probe.py", "tools/kernel_variants.py",
+              "tools/step_profile.py"]
+
+
+@pytest.mark.parametrize("path", STANDALONE)
+def test_standalone_scripts_import_no_jax(path):
+    """Every import statement of the script, at any depth (the scripts
+    import inside their functions), names neither jax nor ``repro``."""
+    import ast
+    with open(os.path.join(ROOT, path)) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert names and not bad, bad
+
+
+def test_torch_multiarch_smoke_example_on_cpu():
+    """``examples/torch_multiarch_smoke.py --arch xlstm-350m --device
+    cpu``: a reduced model's loss and one decode step's logits (B = 2,
+    its vocabulary of 256)."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    out = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "examples",
+                                      "torch_multiarch_smoke.py"),
+         "--arch", "xlstm-350m", "--device", "cpu"], env=env,
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "xlstm-350m" in out.stdout
+    assert "decode_logits=(2, 256)" in out.stdout

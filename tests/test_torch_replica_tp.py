@@ -29,6 +29,9 @@ CPU, each world size in one spawn (gloo ranks).
   ``w4a8_matmul`` and JAX's ``ref.w4a8_matmul_ref``.
 * ``serve.py --replicas 2 --tp 2 --chaos crash@replica1.step:4`` completes
   every request.
+* the router over 2 replicas x tp 2 of the reduced xlstm-350m (its
+  recurrent state in contiguous pools, W8A8 with int8-resident
+  ``w_proj``), in the same spawn: the JAX router's outputs and counts.
 """
 import functools
 import types
@@ -45,13 +48,14 @@ import jax.numpy as jnp  # noqa: E402
 import repro.flags as flags  # noqa: E402
 import repro.serving.router as JR  # noqa: E402
 import repro.serving.scheduler as JS  # noqa: E402
-from repro.configs import QuantConfig, get_config  # noqa: E402
+from repro.configs import QuantConfig, get_config, reduced  # noqa: E402
 from repro.core import calibration as JCal  # noqa: E402
 from repro.distributed import fault_injection as JFI  # noqa: E402
 from repro.kernels import ref as R  # noqa: E402
 from repro.models.registry import build as j_build  # noqa: E402
 from repro.serving import Engine as JEngine  # noqa: E402
 from repro_torch.configs import get_config as t_get_config  # noqa: E402
+from repro_torch.configs import reduced as t_reduced  # noqa: E402
 from repro_torch.core import quantization as TQ  # noqa: E402
 from repro_torch.kernels.act_quant import (act_quant_ptoken,  # noqa: E402
                                            act_quant_ptoken_range)
@@ -110,31 +114,60 @@ def tiny():
                 np_scales=np_tree(JCal.scales_to_plain(scales)))
 
 
+@pytest.fixture(scope="module")
+def xl():
+    """The reduced xLSTM (f32, JAX's weights), a 4-token cushion state,
+    W8A8 scales and a trace of 6 requests."""
+    jcfg = reduced(get_config("xlstm-350m"), dtype="float32")
+    japi = j_build(jcfg)
+    params = japi.init_params(jax.random.PRNGKey(0))
+    cushion = japi.extract_cushion(
+        params, jnp.asarray([1, 2, 3, 4], jnp.int32), None, QN)
+    rs = np.random.RandomState(6)
+    calib = rs.randint(0, jcfg.vocab_size, (2, 16)).astype(np.int32)
+    scales, _ = JCal.calibrate(japi, params, [{"tokens": jnp.asarray(calib)}],
+                               QW8, cushion=cushion)
+    trace = [rs.randint(0, jcfg.vocab_size, (1, (10, 14)[i % 2]))
+             .astype(np.int32) for i in range(6)]
+    return dict(jcfg=jcfg, japi=japi, params=params, cushion=cushion,
+                scales=scales, trace=trace, budgets=[5, 3, 6, 4, 2, 5],
+                np_params=np_tree(params), np_cushion=np_tree(cushion),
+                np_scales=np_tree(JCal.scales_to_plain(scales)),
+                tcfg=t_reduced(t_get_config("xlstm-350m"), dtype="float32"))
+
+
 def _case(s, **kw):
-    return dict(cfg=t_get_config("paper_tiny"), params=s["np_params"],
-                cushion=s["np_cushion"], scales=s["np_scales"], max_seq=128,
-                **kw)
+    return dict(cfg=s.get("tcfg", t_get_config("paper_tiny")),
+                params=s["np_params"], cushion=s["np_cushion"],
+                scales=s["np_scales"], max_seq=128, **kw)
 
 
 # ---------------------------------------------------------------------------
 # 1. The router over 2 replicas x tp 2
 # ---------------------------------------------------------------------------
 
-def _router_case(s, name, chaos=None):
+# the pools of the router cases: paper_tiny's paged int8 pool, the
+# xLSTM's contiguous pool of state (no KV to page or quantize)
+PAGED_INT8 = dict(kv_dtype="int8", paged=True, page_size=32)
+STATE_POOL = dict(kv_dtype=None, paged=False)
+
+
+def _router_case(s, name, chaos=None, pool=PAGED_INT8):
     reqs = [dict(tokens=t, max_new_tokens=b)
             for t, b in zip(s["trace"], s["budgets"])]
     return _case(s, name=name, kind="router", qcfg=QW8, prequant=True,
-                 kv_dtype="int8", paged=True, page_size=32, n_slots=2,
-                 n_replicas=2, requests=reqs, chaos=chaos,
-                 router_cfg=dict(backoff_base_s=0.0), clock_rates=RATES)
+                 n_slots=2, n_replicas=2, requests=reqs, chaos=chaos,
+                 router_cfg=dict(backoff_base_s=0.0), clock_rates=RATES,
+                 **pool)
 
 
 @pytest.fixture(scope="module")
-def router_runs(tiny):
-    """Both router cases in one spawn of 2 x 2 ranks: {name: [each rank's
+def router_runs(tiny, xl):
+    """The router cases in one spawn of 2 x 2 ranks: {name: [each rank's
     report]}."""
     cases = [_router_case(tiny, "no-fault"), _router_case(tiny, "crash",
-                                                          CRASH)]
+                                                          CRASH),
+             _router_case(xl, "xlstm", pool=STATE_POOL)]
     outs = M.spawn_mesh(run_router_cases, 2, 2, cases, device="cpu",
                         every_rank=True, timeout_s=900)
     return {c["name"]: [o[i] for o in outs] for i, c in enumerate(cases)}
@@ -154,13 +187,12 @@ class _Clock:
         self.t += dt
 
 
-def _jax_router(s, chaos):
+def _jax_router(s, chaos, pool=PAGED_INT8):
     clock = _Clock()
     router = JR.ReplicaRouter(
         s["japi"], s["params"], QW8, n_replicas=2, meshes=None,
         cfg=JR.RouterConfig(backoff_base_s=0.0), cushion=s["cushion"],
-        scales=s["scales"], prequant=True, n_slots=2, max_seq=128,
-        kv_dtype="int8", paged=True, page_size=32)
+        scales=s["scales"], prequant=True, n_slots=2, max_seq=128, **pool)
 
     def step(fn):
         clock.sleep(STEP_S)
@@ -220,6 +252,26 @@ def test_router_over_tp_replicas_matches_jax(tiny, router_runs, name, chaos):
     print(f"[{name}] {st['completed']} completed, {st['failovers']} "
           f"failovers, {st['replica_deaths']} deaths, replicas "
           f"{sorted({o[1] for o in ranks[0]['outputs']})}")
+
+
+def test_router_over_tp_replicas_xlstm_matches_jax(xl, router_runs):
+    """2 replicas x tp 2 of the reduced xLSTM (each rank its value slice
+    of the mLSTM memory, contiguous W8A8 pools of 2 slots): every
+    request's tokens, replica and slot and the ``RouterStats`` counts of
+    the JAX router on every rank."""
+    want = _jax_router(xl, None, STATE_POOL)
+    ranks = router_runs["xlstm"]
+    jstats = want.stats.as_dict()
+    for rep in ranks:
+        assert [o[:3] for o in rep["outputs"]] == \
+            [(o.uid, o.replica, o.slot) for o in want.outputs]
+        for o, j in zip(rep["outputs"], want.outputs):
+            np.testing.assert_array_equal(o[3], j.tokens)
+        for k in COUNTS:
+            assert rep["stats"][k] == jstats[k], k
+        assert rep["stats"] == ranks[0]["stats"]
+    assert ranks[0]["stats"]["completed"] == len(xl["trace"])
+    assert {o[1] for o in ranks[0]["outputs"]} == {0, 1}
 
 
 def test_replica_meshes_are_disjoint_rows(router_runs):

@@ -47,8 +47,10 @@ from repro.serving import ContinuousEngine as JContinuous  # noqa: E402
 from repro.serving import Engine as JEngine  # noqa: E402
 from repro.serving import Request as JRequest  # noqa: E402
 from repro_torch.configs import get_config as t_get_config  # noqa: E402
+from repro_torch.configs import QuantConfig as TQuantConfig  # noqa: E402
 from repro_torch.configs import reduced as t_reduced  # noqa: E402
 from repro_torch.core import quantization as TQ  # noqa: E402
+from repro_torch.distributed import collectives as DC  # noqa: E402
 from repro_torch.distributed import sharding as SH  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import mesh as M  # noqa: E402
@@ -58,6 +60,7 @@ from repro_torch.models import convert  # noqa: E402
 from repro_torch.models.registry import build  # noqa: E402
 from repro_torch.serving.engine import (Engine, check_tp_serving,  # noqa: E402
                                         shard_tree, tp_config)
+from repro_torch.serving.scheduler import ContinuousEngine  # noqa: E402
 from _tp_probe import run_cases  # noqa: E402
 
 QN = QuantConfig()
@@ -213,11 +216,12 @@ FAMILIES = ("paper_tiny", "olmoe-1b-7b", "internvl2-26b", "jamba-v0.1-52b",
 
 @pytest.mark.parametrize("tp", [1, 2, 4])
 @pytest.mark.parametrize("prequant", [False, True], ids=["fp", "prequant"])
-@pytest.mark.parametrize("arch", FAMILIES[1:4])
+@pytest.mark.parametrize("arch", FAMILIES[1:])
 def test_param_specs_equal_jax_families(arch, tp, prequant):
-    """``test_param_specs_equal_jax`` for the MoE, VLM and hybrid families
-    (reduced, JAX's weights): every leaf's spec under the serve and the
-    training rules, fp and prequantized."""
+    """``test_param_specs_equal_jax`` for the MoE, VLM, hybrid,
+    encoder-decoder and xLSTM families (reduced, JAX's weights): every
+    leaf's spec under the serve and the training rules, fp and
+    prequantized."""
     jcfg = reduced(get_config(arch), dtype="float32")
     jp = j_build(jcfg).init_params(jax.random.PRNGKey(0))
     tp_tree = convert.params_from_numpy(np_tree(jp)).tree()
@@ -570,24 +574,49 @@ def _mesh2():
     return M.TPMesh(0, 2, None, torch.device("cpu"), None)
 
 
-@pytest.mark.parametrize("arch,qcfg,kw", [
-    ("xlstm-350m", QN, {}),
-    ("whisper-base", QN, {}),
-], ids=["xlstm", "encdec"])
-def test_unsharded_cases_refuse(ref, arch, qcfg, kw):
-    """What is not sharded yet raises, naming its ROADMAP item: the xLSTM
-    and encoder-decoder families (6.3b). The MoE, VLM and hybrid families
-    serve (``test_torch_tp_families.py`` holds them to JAX), and so do the
+@pytest.mark.parametrize("arch,qcfg,paged,match", [
+    ("whisper-base", QW8, False, "lm_head without site scales"),
+    ("whisper-base", QN, True, "nothing to page"),
+    ("xlstm-350m", QN, True, "nothing to page"),
+], ids=["encdec-pt_static", "encdec-paged", "xlstm-paged"])
+def test_unsharded_cases_refuse(arch, qcfg, paged, match):
+    """What tensor parallelism refuses for the encoder-decoder and the
+    xLSTM at tp = 2 is what one rank refuses too, the reason named before
+    any collective: the encoder-decoder's ``pt_static`` (the reference's
+    serving head takes no scales) and a paged pool of either family (per
+    -request state, nothing to page). Every family serves otherwise
+    (``test_torch_tp_families.py`` holds them to JAX), and so do the
     dynamic modes and W4A8 (``test_torch_replica_tp.py``)."""
-    cfg = t_get_config(arch)
-    if arch != "paper_tiny":
-        cfg = t_reduced(cfg, dtype="float32")
+    cfg = t_reduced(t_get_config(arch), dtype="float32")
     api = build(cfg, "cpu")
     params = api.init_params(torch.Generator().manual_seed(0))
-    scales = convert.scales_from_numpy(ref["np_scales"]) \
-        if arch == "paper_tiny" and qcfg.mode == "pt_static" else None
-    with pytest.raises(ValueError, match="ROADMAP queue 1, item 6"):
-        Engine(api, params, qcfg, scales=scales, mesh=_mesh2(), **kw)
+    with pytest.raises(ValueError, match=match):
+        if paged:
+            ContinuousEngine(api, params, qcfg, paged=True, page_size=32,
+                             max_seq=64, mesh=_mesh2())
+        else:
+            Engine(api, params, qcfg, mesh=_mesh2())
+    with pytest.raises(ValueError, match=match):
+        check_tp_serving(cfg, qcfg, 2, paged=paged)
+    check_tp_serving(cfg, qcfg, 1, paged=False)
+
+
+def test_unsharded_weight_groups_stop_the_run():
+    """A fake-quantized weight group that straddles a rank's rows of a
+    row-parallel site (item 6.4b) raises ``NotImplementedError``, not
+    ``ValueError``: a continuous pool reads a ValueError at admission as a
+    request that can never fit and drops it, where this refusal must stop
+    the run (reduced whisper's ``w_down``, 64 rows a rank of tp = 2 under
+    groups of 128)."""
+    w = torch.randn((64, 8))
+    with DC.use_tp(types.SimpleNamespace(size=2, rank=0)):
+        with pytest.raises(NotImplementedError, match=r"item 6\.4b"):
+            TQ.weight_fake_quant(w, TQuantConfig(mode="pt_dynamic"),
+                                 row_parallel=True)
+        # a whole group of the rank's rows is served
+        TQ.weight_fake_quant(torch.randn((256, 8)),
+                             TQuantConfig(mode="pt_dynamic"),
+                             row_parallel=True)
 
 
 @pytest.mark.parametrize("qcfg,wb", [
@@ -629,8 +658,10 @@ def test_indivisible_heads_replicas_and_data_refuse():
     """Axes that do not divide are served whole (``paper_tiny`` at tp = 3
     in ``test_torch_tp_families.py``); what still raises: a rank whose
     query heads straddle the groups of whole KV heads (H = 12, K = 4 at
-    tp = 3), replicas outside the continuous mode, a data axis on one
-    engine, replica meshes outside a spawn."""
+    tp = 3), replicas outside the continuous mode, ``serve.py --tp`` on
+    what one rank refuses (an xLSTM paged pool, the encoder-decoder's
+    pt_static), a data axis on one engine, replica meshes outside a
+    spawn."""
     api = build(t_get_config("paper_tiny"), "cpu")
     params = api.init_params(torch.Generator().manual_seed(0))
     straddle = dataclasses.replace(t_get_config("paper_tiny"), n_heads=12,
@@ -641,9 +672,14 @@ def test_indivisible_heads_replicas_and_data_refuse():
         # the router fronts ContinuousEngine replicas (--replicas 2 --tp 2
         # --mode continuous serves: test_torch_replica_tp.py)
         serve.main(["--device", "cpu", "--tp", "2", "--replicas", "2"])
-    with pytest.raises(SystemExit, match=r"ROADMAP queue 1, item 6\.3b"):
+    # what one rank refuses stops before the ranks spawn
+    with pytest.raises(SystemExit, match="nothing to page"):
         serve.main(["--device", "cpu", "--tp", "2", "--arch",
-                    "xlstm-350m"])
+                    "xlstm-350m", "--mode", "continuous", "--paged"])
+    with pytest.raises(SystemExit, match="lm_head without site scales"):
+        serve.main(["--device", "cpu", "--tp", "2", "--arch",
+                    "whisper-base", "--mode", "continuous", "--quant",
+                    "pt_static"])
     # a (data=2, tp=2) mesh is made inside the ranks of spawn_mesh; an
     # engine refuses a mesh with a data axis (the reference never serves on
     # one: its data-parallel serving is the router's replicas)

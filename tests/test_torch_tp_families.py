@@ -34,7 +34,27 @@ heads, 128 Mamba channels, 8 experts).
   and each rank's Mamba cushion state is its channel slice of the
   artifact;
 * ``serve.py --tp 2`` serves ``--tp 1``'s tokens (jamba static,
-  internvl2 through a paged pool).
+  internvl2 through a paged pool, xlstm static, whisper through a
+  contiguous pool).
+
+The encoder-decoder and the xLSTM (reduced whisper-base: 4 heads of 16,
+d_ff 128, 2 + 4 layers, 32 frames; reduced xlstm-350m: 2 pairs, 4 heads,
+a head width of 32), in the same spawns:
+
+* their layout follows the specs: whisper cuts heads, d_ff and the
+  vocabulary (``xattn/wo`` by rows, ``xattn/wq`` / ``wkv`` whole); the
+  xLSTM cuts the vocabulary and the mLSTM memory's values, no block
+  weight;
+* tp = 2 against JAX's unsharded ``Engine``: prefill logits within 2e-4
+  and every token under ``none``; JAX's tokens under W8A8 (whisper
+  ``pt_dynamic`` with true int8, the xLSTM ``pt_static`` with
+  int8-resident ``w_proj``), whose logits are the unsharded port's within
+  1e-4; tp = 4 under ``none``;
+* the contiguous ``ContinuousEngine`` at tp = 2: the unsharded port's
+  tokens, slots and scheduling counters (and JAX's tokens), a rank's pool
+  smaller than one rank's;
+* each rank holds its value slice of the xLSTM cushion's mLSTM memory and
+  the rest of the state whole.
 """
 import types
 
@@ -63,8 +83,9 @@ from repro_torch.launch import mesh as M  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import ssm as SSM  # noqa: E402
+from repro_torch.models import xlstm as XL  # noqa: E402
 from repro_torch.serving.engine import (leaf_cut, shard_tree,  # noqa: E402
-                                        tp_layout)
+                                        tp_config, tp_layout)
 from _tp_probe import run_cases  # noqa: E402
 
 QN = QuantConfig()
@@ -79,6 +100,16 @@ STATIC = [("none-fp", QN, False, None), ("none-int8", QN, False, "int8"),
 # (name, kv_dtype, paged)
 POOLS = [("int8", "int8", False), ("paged-int8", "int8", True)]
 BUDGETS = [5, 3, 6, 4]
+QD8 = QuantConfig(mode="pt_dynamic", true_int8=True)
+# the encoder-decoder and the xLSTM, and each one's static cases (name,
+# qcfg, prequant): W8A8 as the card serves it (whisper: pt_dynamic with
+# true int8, the reference cannot serve its pt_static; the xLSTM:
+# pt_static with int8-resident w_proj)
+REC_ARCHS = ("whisper-base", "xlstm-350m")
+REC_STATIC = {"whisper-base": [("none-fp", QN, False),
+                               ("pt_dynamic-int8", QD8, False)],
+              "xlstm-350m": [("none-fp", QN, False),
+                             ("w8a8-prequant", QW8, True)]}
 
 
 def np_tree(tree):
@@ -123,6 +154,13 @@ def fams():
 
 
 @pytest.fixture(scope="module")
+def recs():
+    """The encoder-decoder and the xLSTM, reduced (a batch of whisper
+    carries its frames)."""
+    return {a: _setup(a) for a in REC_ARCHS}
+
+
+@pytest.fixture(scope="module")
 def odd():
     """The indivisible cases: internvl2 with 257 tokens, paper_tiny."""
     return {"vocab257": _setup("internvl2-26b", vocab_size=257),
@@ -149,12 +187,34 @@ def _pool(s, name, kv, paged):
                  requests=reqs)
 
 
+def _rec_static(s, name, qcfg, pq):
+    return _case(s, f"{s['arch']}/{name}", kind="static", qcfg=qcfg,
+                 prequant=pq, kv_dtype=None, n_tokens=N_TOKENS, logits=True,
+                 **s["np_batch"])
+
+
+def _rec_pool(s):
+    """A contiguous pool of 2 slots over the 4 requests: fp for whisper,
+    W8A8 with int8-resident ``w_proj`` for the xLSTM."""
+    reqs = [dict(np_tree(r.batch), max_new_tokens=r.max_new_tokens)
+            for r in s["reqs"]]
+    w8 = s["arch"] == "xlstm-350m"
+    return _case(s, f"{s['arch']}/pool", kind="continuous",
+                 qcfg=QW8 if w8 else QN, prequant=w8, kv_dtype=None,
+                 n_slots=2, requests=reqs)
+
+
+def _rec_cases(recs):
+    return [_rec_static(s, *m) for a, s in recs.items()
+            for m in REC_STATIC[a]] + [_rec_pool(s) for s in recs.values()]
+
+
 def _by_name(cases, outs):
     return {c["name"]: [o[i] for o in outs] for i, c in enumerate(cases)}
 
 
 @pytest.fixture(scope="module")
-def tp2(fams, odd):
+def tp2(fams, odd, recs):
     """Every tp = 2 case in one spawn: {name: [rank 0's report, ...]}."""
     cases = [_static(s, n, q, pq, kv) for s in fams.values()
              for n, q, pq, kv in STATIC]
@@ -162,14 +222,26 @@ def tp2(fams, odd):
               for n, kv, pg in POOLS]
     cases += [dict(_static(odd["vocab257"], "none-fp", QN, False, None),
                    name="vocab257")]
+    cases += _rec_cases(recs)
     outs = M.spawn_tp(run_cases, 2, cases, device="cpu", every_rank=True,
                       timeout_s=900)
     return _by_name(cases, outs)
 
 
 @pytest.fixture(scope="module")
-def tp4(fams):
+def rec_one(recs):
+    """The encoder-decoder's and the xLSTM's cases on one rank, without a
+    mesh: {name: report}."""
+    cases = _rec_cases(recs)
+    outs = run_cases(M.make_tp_mesh(1, device="cpu"),
+                     [dict(c, mesh=False) for c in cases])
+    return {c["name"]: o for c, o in zip(cases, outs)}
+
+
+@pytest.fixture(scope="module")
+def tp4(fams, recs):
     cases = [_static(fams[a], "none-fp", QN, False, None) for a in ARCHS]
+    cases += [_rec_static(recs[a], "none-fp", QN, False) for a in REC_ARCHS]
     return _by_name(cases, M.spawn_tp(run_cases, 4, cases, device="cpu",
                                       every_rank=True, timeout_s=900))
 
@@ -187,6 +259,8 @@ def _jax_engine(s, qcfg, prequant, kv):
     return JEngine(s["japi"], s["params"], qcfg, cushion=s["cushion"],
                    scales=s["scales"] if static else None, max_seq=128,
                    kv_dtype=kv, prequant=prequant)
+
+
 
 
 def _jax_ref(s, qcfg, prequant, kv):
@@ -527,26 +601,191 @@ def test_tp2_continuous_matches_jax(fams, tp2, jax_pools, arch, name, kv,
 
 
 # ---------------------------------------------------------------------------
-# 6. The launcher
+# 6. The encoder-decoder and the xLSTM
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("tp", [2, 3, 4])
+@pytest.mark.parametrize("arch", REC_ARCHS)
+def test_recurrent_layout_and_cut_follow_the_specs(recs, arch, tp):
+    """Every leaf of whisper and the xLSTM is cut exactly where JAX's serve
+    spec names tp, to JAX's shard shape, but for the fused ``wqkv``
+    (heads, as the other families): whisper's ``xattn/wo`` by rows (the
+    rule ``attn/wo$`` finds it), ``xattn/wq`` and ``xattn/wkv`` whole; the
+    xLSTM's block weights all whole (the reference's ``xlstm/`` rules
+    match none of its paths), its embedding and head by vocabulary. The
+    xLSTM's layout also cuts the mLSTM memory's values where the head
+    width divides, a state axis that no leaf holds."""
+    s = recs[arch]
+    jspecs = _jax_param_specs(s["params"], fake_mesh(tp))
+    full = convert.params_from_numpy(s["np_params"]).tree()
+    cfg = s["tcfg"]
+    lay = tp_layout(cfg, tp)
+    shard = _flat(shard_tree(full, cfg, M.TPMesh(tp - 1, tp, None,
+                                                 torch.device("cpu"), None)))
+    flat_full = _flat(full)
+    for p, spec in jspecs.items():
+        shape = tuple(flat_full[p].shape)
+        spec = (None,) * (len(shape) - len(spec)) + spec
+        c = leaf_cut(p, cfg, tp)
+        got = tuple(shard[p].shape)
+        want = list(shape)
+        if c is not None:
+            dim = c[1] % len(shape)
+            if "attn/wqkv" in p:
+                want[dim] = 3 * cfg.n_heads // tp * cfg.head_dim
+            else:
+                want[dim] //= tp
+                assert spec[dim] == "tp", p
+        assert got == tuple(want), p
+        if "attn/wqkv" not in p:
+            assert (c is not None) == ("tp" in spec), (p, spec, lay.cut)
+        if arch == "xlstm-350m" and p.startswith("layers/"):
+            assert c is None and "tp" not in spec, p
+        if "xattn/wq" in p or "xattn/wkv" in p:
+            assert c is None and "tp" not in spec, p
+    assert ("vocab" in lay.cut) == (cfg.vocab_size % tp == 0)
+    if arch == "whisper-base":
+        assert ("heads" in lay.cut) == (cfg.n_heads % tp == 0)
+        assert leaf_cut("decoder/xattn/wo", cfg, tp) == (
+            ("heads", -2, "block") if "heads" in lay.cut else None)
+    else:
+        assert set(lay.cut) <= {"vocab", "values"}
+        assert ("values" in lay.cut) == (XL.dims(cfg)[2] % tp == 0)
+
+
+def test_recurrent_layouts_at_full_width():
+    """whisper-base at tp = 2 and 4 cuts its 8 heads and its d_ff, not its
+    odd vocabulary (51,865); xlstm-350m cuts its vocabulary (50,304) and
+    the mLSTM values (512 a head) at 2, 3 (the vocabulary only: 512 does
+    not divide by 3) and 4."""
+    wh, xl = t_get_config("whisper-base"), t_get_config("xlstm-350m")
+    for tp in (2, 4):
+        assert set(tp_layout(wh, tp).cut) == {"heads", "kv_heads", "d_ff"}
+        assert set(tp_layout(xl, tp).cut) == {"vocab", "values"}
+        rank = tp_config(xl, tp)
+        assert XL.value_width(rank) == 512 // tp
+        assert (rank.n_heads, rank.vocab_size) == (4, 50304 // tp)
+    assert set(tp_layout(xl, 3).cut) == {"vocab"}
+
+
+def _one_rank_counters(stats):
+    """``ServeStats`` without what a rank holds less of (its weights and
+    its pool): the scheduling counters."""
+    return {k: v for k, v in stats.items()
+            if not k.startswith("weight_bytes") and k != "pool_bytes"}
+
+
+@pytest.mark.parametrize("arch,name", [(a, m[0]) for a in REC_ARCHS
+                                       for m in REC_STATIC[a]])
+def test_tp2_recurrent_engine_matches_jax(recs, tp2, rec_one, arch, name):
+    """Under ``none`` JAX's unsharded logits within 2e-4 (the reference's
+    tp bar) and its tokens; under W8A8 JAX's tokens, and the unsharded
+    port's logits within 1e-4 (what sharding adds: every row-parallel
+    site of whisper sums int32, the xLSTM's gather of the mLSTM values
+    adds zeros)."""
+    s = recs[arch]
+    qcfg, pq = {m[0]: m[1:] for m in REC_STATIC[arch]}[name]
+    want_logits, want = _jax_ref(s, qcfg, pq, None)
+    ranks = tp2[f"{arch}/{name}"]
+    if qcfg.mode == "none":
+        _held(ranks, want_logits, want, TOL)
+        return
+    one = rec_one[f"{arch}/{name}"]
+    _held(ranks, one["logits"], want, W8_TOL)
+    gap = float(np.abs(one["logits"] - want_logits).max())
+    print(f"{arch} {name}: one rank's prefill logits max |port - JAX| "
+          f"{gap:.3g}")
+    np.testing.assert_array_equal(one["tokens"], want)
+
+
+@pytest.mark.parametrize("arch", REC_ARCHS)
+def test_tp4_recurrent_engine_matches_jax(recs, tp4, arch):
+    """tp = 4: whisper one head a rank, the xLSTM 8 of each head's 32
+    values a rank; JAX's logits within 2e-4 and its tokens."""
+    s = recs[arch]
+    want_logits, want = _jax_ref(s, QN, False, None)
+    _held(tp4[f"{arch}/none-fp"], want_logits, want, TOL)
+
+
+@pytest.mark.parametrize("arch", REC_ARCHS)
+def test_tp2_recurrent_pool_matches_one_rank(recs, tp2, rec_one, arch):
+    """The contiguous pool at tp = 2 (4 requests, 2 slots: slots recycle,
+    each admission scatters its cross KV or its state into the rank's part
+    of the slot): the unsharded port's tokens, slots, admissions and
+    scheduling counters on every rank, JAX's tokens and slots, and a
+    rank's pool smaller than one rank's."""
+    s = recs[arch]
+    one = rec_one[f"{arch}/pool"]
+    case = _rec_pool(s)
+    ce = JContinuous(s["japi"], s["params"], case["qcfg"], n_slots=2,
+                     max_seq=128, cushion=s["cushion"],
+                     scales=s["scales"] if case["prequant"] else None,
+                     prequant=case["prequant"])
+    jout = {o.uid: (o.tokens, o.slot) for o in ce.run(s["reqs"])}
+    for rep in tp2[f"{arch}/pool"]:
+        assert sorted(rep["tokens"]) == sorted(one["tokens"]) == \
+            sorted(jout)
+        for uid, toks in one["tokens"].items():
+            np.testing.assert_array_equal(rep["tokens"][uid], toks)
+            np.testing.assert_array_equal(toks, jout[uid][0])
+        assert rep["admissions"] == one["admissions"]
+        assert {u: sl for u, sl, _ in rep["admissions"]} == \
+            {u: sl for u, (_, sl) in jout.items()}
+        assert _one_rank_counters(rep["stats"]) == \
+            _one_rank_counters(one["stats"])
+        assert rep["stats"]["recycles"] >= 1
+        assert rep["stats"]["pool_bytes"] < one["stats"]["pool_bytes"]
+        assert rep["stats"]["weight_bytes_fp"] < \
+            one["stats"]["weight_bytes_fp"]
+
+
+def test_xlstm_state_cut_on_every_rank(recs, tp2):
+    """Each rank's xLSTM cushion state (as its prefill reads it) is the
+    mLSTM memory's value slice of the artifact, and every other leaf the
+    artifact's whole, bit for bit."""
+    s = recs["xlstm-350m"]
+    art = {f"{g}.{k}": np.asarray(v, np.float32)
+           for g, d in s["cushion"]["state"].items() for k, v in d.items()}
+    n = XL.dims(s["tcfg"])[2] // 2
+    for name in ("none-fp", "w8a8-prequant"):
+        for rank, rep in enumerate(tp2[f"xlstm-350m/{name}"]):
+            cs = rep["cushion_state"]
+            assert sorted(cs) == sorted(art)
+            for k, v in art.items():
+                want = v[..., n * rank:n * (rank + 1)] if k == "m.C" else v
+                np.testing.assert_array_equal(cs[k], want, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# 7. The launcher
+# ---------------------------------------------------------------------------
+
+_SERVE_W8 = ["--quant", "pt_static", "--prequant", "--kv-dtype", "int8"]
+
+
 @pytest.mark.parametrize("arch,extra", [
-    ("jamba-v0.1-52b", []),
-    ("internvl2-26b", ["--mode", "continuous", "--paged", "--page-size",
-                       "32", "--rate", "0", "--n-requests", "3"]),
-], ids=["jamba-static", "internvl2-paged"])
+    ("jamba-v0.1-52b", _SERVE_W8),
+    ("internvl2-26b", _SERVE_W8 + ["--mode", "continuous", "--paged",
+                                   "--page-size", "32", "--rate", "0",
+                                   "--n-requests", "3"]),
+    ("xlstm-350m", ["--quant", "pt_static", "--prequant"]),
+    ("whisper-base", ["--mode", "continuous", "--rate", "0",
+                      "--n-requests", "3"]),
+], ids=["jamba-static", "internvl2-paged", "xlstm-static",
+        "whisper-continuous"])
 def test_serve_tp2_gives_tp1_tokens(arch, extra):
-    """``serve.py --tp 2`` (the reduced config, W8A8 with int8-resident
-    weights and int8 KV, a 4-token cushion) serves the tokens of ``--tp
-    1``: the static path for the hybrid, a paged pool for the VLM (each
-    request's patches the same on both ranks)."""
-    argv = ["--device", "cpu", "--smoke", "--arch", arch, "--quant",
-            "pt_static", "--prequant", "--kv-dtype", "int8",
+    """``serve.py --tp 2`` (the reduced config, a 4-token cushion) serves
+    the tokens of ``--tp 1``: the static path for the hybrid and the xLSTM
+    (W8A8, int8-resident weights; the hybrid with int8 KV), a paged W8A8
+    pool for the VLM (each request's patches the same on both ranks), a
+    contiguous fp pool for whisper (each request's frames)."""
+    argv = ["--device", "cpu", "--smoke", "--arch", arch,
             "--cushion-len", "4", "--tokens", "6", "--prompt-len", "24",
             *extra]
     one = serve.main(argv)
     two = serve.main(argv + ["--tp", "2"])
     if isinstance(one, list):
+        assert len(one) == 3
         assert [o.uid for o in two] == [o.uid for o in one]
         for a, b in zip(one, two):
             np.testing.assert_array_equal(b.tokens, a.tokens)
