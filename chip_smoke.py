@@ -325,6 +325,18 @@ Phases, each fatal on failure:
    death with its live requests failed over, each rank's launches those
    of its replica's admissions and steps; TTFT / TPOT p50, each rank's
    wall split (its replica's steps, prefills, the rest) and peak GiB;
+4n. the dry-run accounting (``launch/dryrun.py``), run right after phase
+   4 on its W8A8 engine (int8-resident weights, int8 KV cache, the
+   4-token cushion, its pt_static scales): the prefill (B = 4, 512 tokens)
+   and one decode step on meta tensors, then the same two calls through
+   ``api.prefill`` / ``api.decode_step`` on the card. Each kernel's
+   launches (the fused counts too) equal ``_lib.LAUNCHES`` around the
+   card's call, the argument bytes (parameters, cache, inputs, cushion,
+   scales) equal the card's, and the predicted peak (arguments + the meta
+   run's temp bytes) lies within ``DRYRUN_PEAK_TOL`` of the card's
+   (arguments + the rise of ``max_memory_allocated``); both peaks, the
+   FLOPs, bytes, roofline time and the card's time of the call are
+   printed;
 5. the card's Engine against the port's CPU Engine on the same weights,
    scales and cushion (B=1, 64-token prompt, 8 tokens) in all four phase-4
    modes: teacher-forced logits within the stated bf16 tolerance,
@@ -4880,6 +4892,103 @@ def tp_kernel_rows(dev, timed, cfg):
     return out
 
 
+# phase 4n, the dry-run accounting against the card (launch/dryrun.py): the
+# prefill (B x PROMPT tokens) and one decode step of phase 4's W8A8 engine
+# (int8-resident weights, int8 KV cache, the CUSHION-token cushion, its
+# pt_static scales), run on meta tensors, then the same two calls on the
+# card through api.prefill / api.decode_step. The launches and the argument
+# bytes are held equal; the predicted peak (arguments + the meta run's temp
+# bytes) within DRYRUN_PEAK_TOL of the card's (arguments + the rise of
+# max_memory_allocated over what the card held when the count was reset)
+DRYRUN_PEAK_TOL = 0.10
+
+
+def dryrun_phase(api, eng, batch, cushion):
+    import torch
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import dryrun as DRY
+    tree = eng.params.tree()
+    tokens = batch["tokens"][:, :PROMPT].to(torch.int32).contiguous()
+    out, cache, step_in = {}, None, None
+    for kind in ("prefill", "decode"):
+        prog = DRY.serving_program(api.cfg, kind, B, PROMPT, qcfg=eng.qcfg,
+                                   cushion_m=CUSHION, prequant=True,
+                                   kv_dtype="int8", max_seq=eng.max_seq)
+        pred = DRY.measure_program(prog)
+        if kind == "prefill":
+            cache = eng._init_cache(B)
+            inputs = {"tokens": tokens}
+            args = {"params": tree, "cache": cache, "inputs": inputs,
+                    "scales": eng.scales, "cushion": cushion}
+        else:
+            inputs = step_in
+            args = {"params": tree, "cache": cache, "inputs": inputs,
+                    "scales": eng.scales}
+        card_args = {k: DRY.tree_bytes(v) for k, v in args.items()}
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            if kind == "prefill":
+                logits, cache, pos = api.prefill(
+                    tree, inputs, cache, eng.qcfg, cushion=cushion,
+                    scales=eng.scales)
+            else:
+                logits, cache = api.decode_step(
+                    tree, inputs["token"], inputs["pos"], cache, eng.qcfg,
+                    scales=eng.scales)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        rise = torch.cuda.max_memory_allocated() - held
+        launches = {k: v for k, v in _lib.LAUNCHES.items() if v}
+        if kind == "prefill":
+            step_in = {"token": torch.argmax(logits[:, -1], dim=-1)
+                       .to(torch.int32), "pos": pos}
+        del logits
+        mem = pred["memory"]
+        pred_peak = mem["argument_bytes"] + mem["temp_bytes"]
+        card_peak = sum(card_args.values()) + rise
+        miss = (pred_peak - card_peak) / card_peak
+        c = pred["cost"]
+        terms = DRY.roofline(c.flops, pred["int8_flops"], c.bytes,
+                             c.collective_bytes)
+        out[kind] = {
+            "launches_dryrun": pred["launches"], "launches_card": launches,
+            "argument_bytes_dryrun": pred["arguments"],
+            "argument_bytes_card": card_args,
+            "temp_bytes_dryrun": mem["temp_bytes"], "rise_bytes_card": rise,
+            "held_bytes_card": held, "peak_bytes_dryrun": pred_peak,
+            "peak_bytes_card": card_peak, "peak_miss": miss,
+            "flops": c.flops, "int8_flops": pred["int8_flops"],
+            "bytes": c.bytes, "terms_s": terms, "card_ms": card_ms,
+            "dryrun_s": pred["seconds"]}
+        log(f"phase 4n {kind} (B={B}, {PROMPT} tokens, m={CUSHION}, W8A8 "
+            f"int8 weights and KV): dry-run launches {pred['launches']}, "
+            f"card {launches}; arguments dry-run {pred['arguments']}, card "
+            f"{card_args}; peak dry-run {pred_peak} B (arguments + temp "
+            f"{mem['temp_bytes']}), card {card_peak} B (arguments + rise "
+            f"{rise}; {held} B held at the reset): miss {miss:+.4f}; "
+            f"{c.flops:.6g} FLOPs ({pred['int8_flops']:.6g} int8), "
+            f"{c.bytes:.6g} B, roofline {max(terms.values()) * 1e3:.4f} ms "
+            f"({max(terms, key=terms.get)}) against {card_ms:.3f} ms on the "
+            f"card (one eager call); the meta run took "
+            f"{pred['seconds']:.2f} s")
+        if launches != pred["launches"]:
+            fail(f"phase 4n {kind}: the dry-run's launches "
+                 f"{pred['launches']} != the card's {launches}")
+        if card_args != pred["arguments"]:
+            fail(f"phase 4n {kind}: the dry-run's argument bytes "
+                 f"{pred['arguments']} != the card's {card_args}")
+        if abs(miss) > DRYRUN_PEAK_TOL:
+            fail(f"phase 4n {kind}: predicted peak {pred_peak} B is "
+                 f"{miss:+.2%} off the card's {card_peak} B (bar "
+                 f"{DRYRUN_PEAK_TOL:.0%})")
+    return out
+
+
 # phase 4m, the router over tensor-parallel replicas: smollm-360m whole,
 # 2 replicas of tp = 2 (four gloo ranks of the one card,
 # launch/mesh.spawn_mesh(data=2, tp=2), each replica a data row), W8A8
@@ -6384,6 +6493,11 @@ def main() -> None:
         "cushion": tree_map(cpu, cushion), "tokens": cpu(b1["tokens"]),
         "n_cmp": n_cmp, "modes": cpu_modes})
     phase_done("main_path")
+
+    # 4n. the dry-run's accounting against the card, on phase 4's tree -----
+    record["dryrun"] = dryrun_phase(api, engines["w8a8_int8kv"], batch,
+                                    cushion)
+    phase_done("dryrun")
 
     # 4b. the continuous path at full width -----------------------------
     N_REQ, SLOTS = 12, 4

@@ -31,6 +31,13 @@ global loss's.
 
 ``compressed_psum`` and ``dp_train_step_compressed`` are the reference's
 int8-payload all-reduce mean and its data-parallel gradient step.
+
+On the dry-run mesh (``launch/mesh.DryRunMesh``: one rank's view of a
+mesh of any size, no process group) the tensors are on ``meta``: every
+all-reduce calls no ``torch.distributed`` and records its result's bytes
+and one ``all-reduce`` in the dry-run's tally (``launch/cost``), the
+collective a real rank issues for the same call (``gather_last`` is an
+all-reduce of the whole width, as it runs).
 """
 from __future__ import annotations
 
@@ -98,11 +105,15 @@ def _group(axis: str):
 
 
 def _all_reduce(x: torch.Tensor, op, axis: str = "tp") -> torch.Tensor:
-    import torch.distributed as dist
     # a fresh contiguous buffer: the reduction runs in place, and gloo takes
     # no 0-dim tensors
     buf = x.reshape(-1).clone()
-    dist.all_reduce(buf, op=op, group=_group(axis))
+    if buf.device.type == "meta":
+        from repro_torch.launch import cost
+        cost.collective("all-reduce", buf)
+    else:
+        import torch.distributed as dist
+        dist.all_reduce(buf, op=op, group=_group(axis))
     return buf.reshape(x.shape)
 
 

@@ -25,8 +25,10 @@ codes, scale and zero it makes from that range). Min and max are exact, so
 a rank's codes are those of the whole row.
 
 A CUDA tensor launches the hand-written kernels (``csrc/act_quant.cu``); a
-CPU tensor takes the plain versions. The serving path launches
-``act_quant_static`` only above 16 rows: at decode the int matmuls quantize
+CPU tensor takes the plain versions; a meta tensor (the dry-run) returns
+empty outputs of the kernel's shapes and records one launch, no FLOPs and
+its bytes in the dry-run's tally (``launch/cost.kernel``). The serving
+path launches ``act_quant_static`` only above 16 rows: at decode the int matmuls quantize
 their A operand themselves (``quant_w8a8_matmul``, ``quant_w4a8_matmul``),
 with the same arithmetic (``csrc/act_quant.cuh``).
 """
@@ -37,6 +39,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _lib
+from repro_torch.launch import cost
 
 
 def act_quant_static_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -61,7 +64,7 @@ def act_quant_static(x: torch.Tensor, scale: torch.Tensor,
     device. Returns int8 (M, D)."""
     if x.device.type == "cpu":
         return act_quant_static_plain(x, scale, zero, bits)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"act_quant_static: unsupported device {x.device}")
     if bits != 8:
         raise ValueError("act_quant_static kernel is 8-bit")
@@ -69,8 +72,11 @@ def act_quant_static(x: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"x must be contiguous f32/bf16, got {x.dtype}")
     _check_scalar(scale, "scale")
     _check_scalar(zero, "zero")
-    _lib.require_cuda(x, scale, zero)
     out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    if x.device.type == "meta":
+        cost.kernel("act_quant_static", 0, (x, scale, zero), (out,))
+        return out
+    _lib.require_cuda(x, scale, zero)
     code = _lib.lib().act_quant_static_launch(
         x.data_ptr(), int(x.dtype == torch.bfloat16), scale.data_ptr(),
         zero.data_ptr(), out.data_ptr(), x.numel(), _lib.stream_ptr(x))
@@ -121,8 +127,9 @@ def act_quant_ptoken_plain(x: torch.Tensor, bits: int = 8, rng=None
 def _ptoken_launch(x: torch.Tensor, bits: int, mode: int, rng=None):
     """One launch of the per-token kernel in ``mode`` (0 whole, 1 range
     only, 2 the given range); checks every operand first. Returns (codes,
-    scale, zero), or (mn, mx) in the range-only mode."""
-    if x.device.type != "cuda":
+    scale, zero), or (mn, mx) in the range-only mode. On meta the outputs
+    are empty and the launch is recorded in the dry-run's tally."""
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"act_quant_ptoken: unsupported device {x.device}")
     if not 1 <= bits <= 8:
         raise ValueError(f"bits must be in [1, 8], got {bits}")
@@ -131,6 +138,8 @@ def _ptoken_launch(x: torch.Tensor, bits: int, mode: int, rng=None):
         raise ValueError(f"x must be contiguous 2-D f32/bf16, got {x.dtype} "
                          f"{tuple(x.shape)}")
     M, D = x.shape
+    if x.device.type == "meta":
+        return _ptoken_meta(x, mode, rng)
     f32 = dict(dtype=torch.float32, device=x.device)
     if mode == 2:
         lo, hi = (r.reshape(M, 1).float().contiguous() for r in rng)
@@ -151,6 +160,21 @@ def _ptoken_launch(x: torch.Tensor, bits: int, mode: int, rng=None):
     _lib.count(("act_quant_ptoken", "act_quant_ptoken_range",
                 "act_quant_ptoken_given")[mode])
     return (lo, hi) if mode == 1 else (out, scale, zero)
+
+
+def _ptoken_meta(x: torch.Tensor, mode: int, rng=None):
+    """The meta route of ``_ptoken_launch``."""
+    M, D = x.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    col = [torch.empty((M, 1), **f32) for _ in range(2)]
+    name = ("act_quant_ptoken", "act_quant_ptoken_range",
+            "act_quant_ptoken_given")[mode]
+    if mode == 1:
+        cost.kernel(name, 0, (x,), col)
+        return tuple(col)
+    out = torch.empty((M, D), dtype=torch.int8, device=x.device)
+    cost.kernel(name, 0, (x, *(rng if mode == 2 else ())), (out, *col))
+    return (out, *col)
 
 
 def act_quant_ptoken(x: torch.Tensor, bits: int = 8, rng=None

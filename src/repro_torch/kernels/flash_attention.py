@@ -19,6 +19,14 @@ forward launches the same kernel with the per-row log-sum-exp written out,
 its backward launches ``csrc/flash_attention_bwd.cu``
 (``flash_attention_bwd``). Every other call passes no log-sum-exp buffer
 and is the serving path's kernel, bit for bit.
+
+A meta tensor (the dry-run) takes the card's route, autograd included,
+without launching: each launch returns empty meta outputs (the log-sum-exp
+too) and records its FLOPs, bytes and launch in the dry-run's tally
+(``launch/cost.kernel``): 4 B H S T hd forward and 8 B H S T hd
+backward over the whole key range, what the reference's HLO counts for
+its jnp oracle and that oracle's gradient (two and four dots of S x T x
+hd).
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _lib
+from repro_torch.launch import cost
 
 NEG_INF = -1e30
 Tensor = torch.Tensor
@@ -150,6 +159,14 @@ def _launch(q: Tensor, k: Tensor, v: Tensor, prefix_len: int, lv: int,
     _check_mode(causal, prefix_len, k.shape[2])
     B, H, S, hd = q.shape
     Kh, T = k.shape[1], k.shape[2]
+    if q.device.type == "meta":
+        out = torch.empty((B, S, H, hd), dtype=q.dtype,
+                          device=q.device).transpose(1, 2)
+        lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+               if with_lse else None)
+        cost.kernel("flash_attention", 4.0 * B * H * S * T * hd, (q, k, v),
+                    (out, lse))
+        return out, lse
     if q.dtype == torch.bfloat16 and any(
             t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])
             for t in (q, k, v)):
@@ -198,7 +215,7 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, prefix_len,
                                          prefix_live, causal)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
     _check(q, k, v)
@@ -216,6 +233,8 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
     bf16 = q.dtype == torch.bfloat16
     q, k, v, o, do = (t if (_rows_aligned(t) if bf16 else t.stride(3) == 1)
                       else t.contiguous() for t in (q, k, v, o, do))
+    if q.device.type == "meta":
+        return _bwd_meta(q, k, v, o, lse, do)
     _lib.require_cuda(q, k, v, o, lse, do)
     # the gradients in their inputs' layouts (strides are passed), so that
     # autograd neither copies them into the leaves' layouts nor, behind a
@@ -234,6 +253,21 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
         int(prefix_len), lv, strides, _lib.stream_ptr(q))
     _lib.check(code, "flash_attention_bwd")
     _lib.count("flash_attention_bwd")
+    return dq, dk, dv
+
+
+def _bwd_meta(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
+              do: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """The meta route of ``flash_attention_bwd``: the gradients in their
+    inputs' layouts and the (B, H, S) f32 workspace the card allocates, one
+    launch of 8·B·H·S·T·hd FLOPs."""
+    B, H, S, hd = q.shape
+    T = k.shape[2]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    ws = torch.empty(B * H * S, dtype=torch.float32, device=q.device)
+    cost.kernel("flash_attention_bwd", 8.0 * B * H * S * T * hd,
+                (q, k, v, o, lse, do), (dq, dk, dv))
+    del ws
     return dq, dk, dv
 
 
@@ -265,7 +299,7 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, prefix_len,
                                      prefix_live)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     lv = _live(prefix_len, prefix_live)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

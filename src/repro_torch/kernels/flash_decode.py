@@ -21,7 +21,11 @@ cut while the KV heads are whole on every rank reads its group's head so
 (``models/common.py`` ``kv_window``). None reads all K.
 
 A CUDA tensor launches ``csrc/flash_decode.cu``; a CPU tensor takes the
-plain version (``flash_decode_plain``, ``flash_decode_paged_plain``).
+plain version (``flash_decode_plain``, ``flash_decode_paged_plain``); a
+meta tensor (the dry-run) returns an empty output and records one launch in
+the dry-run's tally (``launch/cost.kernel``): 4 B H Smax hd FLOPs over the
+whole cache length, as the reference's HLO counts its jnp oracle, and the
+bytes of the operands read (the KV heads of the window) and the output.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _lib
+from repro_torch.launch import cost
 
 NEG_INF = -1e30
 
@@ -198,6 +203,28 @@ def _scratch(q: torch.Tensor, K: int, Smax: int):
     return ws, t
 
 
+# positions a chunk of the split-KV kernel (``CH`` of csrc/flash_decode.cu)
+CHUNK = 64
+
+
+def _meta(name: str, q: torch.Tensor, k: torch.Tensor, Smax: int, kv_heads,
+          extra) -> torch.Tensor:
+    """The meta route of either decode kernel, its operands checked as for
+    the card: the (B, H, hd) output, the split-KV workspace the card
+    allocates (``flash_decode_workspace_elems``) and one launch. k / v
+    count the window's heads at Smax positions a row."""
+    B, H, hd = q.shape
+    K = k.shape[2]
+    n = K if kv_heads is None else int(kv_heads[1])
+    out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
+    ws = torch.empty(B * n * -(-Smax // CHUNK) * (H // n) * (hd + 2),
+                     dtype=torch.float32, device=q.device)
+    cost.kernel(name, 4.0 * B * H * Smax * hd, (q, *extra), (out,),
+                extra_bytes=2 * B * Smax * n * hd * k.element_size())
+    del ws
+    return out
+
+
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
                  k_scale: Optional[torch.Tensor] = None,
                  v_scale: Optional[torch.Tensor] = None,
@@ -208,7 +235,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, pos, k_scale, v_scale, kc, vc,
                                   kv_heads)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_decode: unsupported device {q.device}")
     B, H, hd = q.shape
     Smax, K = k.shape[1], k.shape[2]
@@ -219,6 +246,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
     if m and not quantized:
         raise ValueError("fp caches hold the cushion in-cache (kc/vc are "
                          "for int8 caches)")
+    if q.device.type == "meta":
+        return _meta("flash_decode", q, k, Smax, kv_heads,
+                     (*tensors[3:], posv))
     _lib.require_cuda(*tensors, posv)
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
     ws, tickets = _scratch(q, n, Smax)
@@ -246,7 +276,7 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type == "cpu":
         return flash_decode_paged_plain(q, k_pages, v_pages, page_table, pos,
                                         k_scale, v_scale, kc, vc, kv_heads)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_decode_paged: unsupported device "
                          f"{q.device}")
     B, H, hd = q.shape
@@ -258,6 +288,9 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     P = page_table.shape[1]
     tensors, posv, quantized, m, per_row, kv0, n = _operands(
         q, k_pages, v_pages, pos, k_scale, v_scale, kc, vc, K, kv_heads)
+    if q.device.type == "meta":
+        return _meta("flash_decode_paged", q, k_pages, P * ps, kv_heads,
+                     (*tensors[3:], posv, page_table))
     _lib.require_cuda(*tensors, posv, page_table)
     out = torch.empty((B, H, hd), dtype=q.dtype, device=q.device)
     ws, tickets = _scratch(q, n, P * ps)

@@ -12,7 +12,8 @@ int8 storage offset of the activation codes, -128, as in ``w8a8_matmul``).
 ``colsum`` is the *scale-weighted* column sum ``sum_g s_w[g] * colsum_g``
 that ``prequantize(weight_bits=4)`` stores, so the zero-point correction is
 one rank-1 subtract. A CUDA tensor launches ``csrc/w4a8_matmul.cu``; a CPU
-tensor takes ``w4a8_matmul_plain``. ``quant_w4a8_matmul`` takes the f32 /
+tensor takes ``w4a8_matmul_plain``; a meta tensor records the launch in the
+dry-run's tally, as ``w8a8_matmul`` does. ``quant_w4a8_matmul`` takes the f32 /
 bf16 activation and its static scale and zero instead of the codes, as
 ``quant_w8a8_matmul`` does. ``s_w`` is read in its stored dtype,
 f32 or bf16 (the weight's, as ``prequantize`` keeps it), and converted
@@ -34,7 +35,8 @@ from repro_torch.kernels.act_quant import (act_quant_static,
                                            act_quant_static_plain)
 from repro_torch.kernels.w8a8_matmul import (SCALE_DTYPES, X_KINDS,
                                              _check_scalar, decode_max_m,
-                                             int_product_exact, workspace)
+                                             int_product_exact, meta_launch,
+                                             workspace)
 
 
 def unpack_int4(packed: torch.Tensor, k: int) -> torch.Tensor:
@@ -89,8 +91,8 @@ def _launch(x: torch.Tensor, w_packed: torch.Tensor, s_x: torch.Tensor,
     """One launch of ``csrc/w4a8_matmul.cu`` on int8 codes, or (M <= 16) on
     an f32 / bf16 activation that the kernel quantizes while it stages it;
     checks every operand first. ``accumulate``: the f32 accumulator
-    (``colsum`` may be None)."""
-    if x.device.type != "cuda":
+    (``colsum`` may be None). On meta: ``w8a8_matmul.meta_launch``."""
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"w4a8_matmul: unsupported device {x.device}")
     if x.dtype not in X_KINDS or w_packed.dtype != torch.int8:
         raise ValueError(f"w4a8_matmul takes int8, f32 or bf16 x and int8 "
@@ -104,9 +106,9 @@ def _launch(x: torch.Tensor, w_packed: torch.Tensor, s_x: torch.Tensor,
     if K % 4 or group_size % 4 or K % group_size:
         raise ValueError(f"K={K} and group_size={group_size} must be "
                          f"multiples of 4 with groups tiling K")
-    if x.dtype != torch.int8 and M > decode_max_m():
+    if x.dtype != torch.int8 and M > decode_max_m(x.device.type):
         raise ValueError(f"the kernel quantizes x only at M <= "
-                         f"{decode_max_m()}, got M={M}")
+                         f"{decode_max_m(x.device.type)}, got M={M}")
     G = K // group_size
     if s_w.dtype not in SCALE_DTYPES or s_w.shape != (G, N) \
             or not s_w.is_contiguous():
@@ -126,6 +128,11 @@ def _launch(x: torch.Tensor, w_packed: torch.Tensor, s_x: torch.Tensor,
     _check_scalar(z_x, "z_x")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype must be f32 or bf16, got {out_dtype}")
+    if x.device.type == "meta":
+        return meta_launch("w4a8_matmul_acc" if accumulate else "w4a8_matmul",
+                           x, w_packed, N, out_dtype,
+                           (s_w, s_x, z_x, None if accumulate else colsum),
+                           group_size)
     _lib.require_cuda(x, w_packed, s_w, s_x, z_x,
                       *(() if colsum is None else (colsum,)))
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
@@ -157,7 +164,7 @@ def w4a8_matmul(x_int: torch.Tensor, w_packed: torch.Tensor,
     if x_int.device.type == "cpu":
         return w4a8_matmul_plain(x_int, w_packed, s_x, z_x, s_w, colsum,
                                  group_size, z_shift, out_dtype, accumulate)
-    if x_int.device.type == "cuda" and x_int.dtype != torch.int8:
+    if x_int.device.type in ("cuda", "meta") and x_int.dtype != torch.int8:
         raise ValueError("w4a8_matmul takes int8 operands")
     return _launch(x_int, w_packed, s_x, z_x, s_w, colsum, group_size,
                    z_shift, out_dtype, accumulate)
@@ -192,7 +199,7 @@ def quant_w4a8_matmul(x: torch.Tensor, w_packed: torch.Tensor,
     if x.device.type == "cpu":
         return quant_w4a8_matmul_plain(x, w_packed, s_x, z_x, s_w, colsum,
                                        group_size, out_dtype, accumulate)
-    if x.dim() == 2 and x.shape[0] > decode_max_m():
+    if x.dim() == 2 and x.shape[0] > decode_max_m(x.device.type):
         x = act_quant_static(x, s_x, z_x)
     return _launch(x, w_packed, s_x, z_x, s_w, colsum, group_size, -128.0,
                    out_dtype, accumulate)

@@ -13,6 +13,11 @@ launches ``csrc/w8a8_matmul.cu``; a CPU tensor takes ``w8a8_matmul_plain``.
 site's static scale and zero instead of the codes: the serving path's one
 call per site (``core/quantization.py``).
 
+A ``meta`` tensor (the dry-run, ``launch/dryrun.py``) takes the card's
+route without launching: each wrapper returns empty meta outputs of the
+kernel's shapes and records its FLOPs (2 M N K), bytes and launch into the
+dry-run's tally (``launch/cost.kernel``); it never builds the library.
+
 ``out_dtype=torch.int32`` returns the exact accumulator ``x_int @ w_int``
 with no epilogue (``colsum`` is then not read). Tensor parallelism's
 row-parallel sites (``wo``, ``w_down``) take it: the ranks sum their
@@ -30,6 +35,7 @@ import torch
 from repro_torch.kernels import _lib
 from repro_torch.kernels.act_quant import (act_quant_static,
                                            act_quant_static_plain)
+from repro_torch.launch import cost
 
 F32_EXACT_K = 1024  # 1024 * 128 * 128 == 2**24: f32 partial sums stay exact
 
@@ -88,12 +94,51 @@ X_KINDS = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
 OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 
 
+# ``D_MAX_M`` of ``csrc/int_matmul.cuh``: what the meta route takes for
+# ``decode_max_m`` without loading the library (the card's launch counts,
+# which the dry-run's must equal, hold the two together)
+DECODE_MAX_M = 16
+
+
 @functools.cache
-def decode_max_m() -> int:
+def _lib_decode_max_m() -> int:
+    return int(_lib.lib().int_matmul_decode_max_m())
+
+
+def decode_max_m(device_type: str = "cuda") -> int:
     """The most rows of the int matmuls' decode regime
     (``csrc/int_matmul.cuh``), the only one that quantizes A itself, as the
-    kernels define it (the card only: it loads the kernel library)."""
-    return int(_lib.lib().int_matmul_decode_max_m())
+    kernels define it: on the card it loads the kernel library; on meta it
+    is ``DECODE_MAX_M``."""
+    return DECODE_MAX_M if device_type == "meta" else _lib_decode_max_m()
+
+
+def workspace_elems(M: int, N: int, K: int, group: int) -> int:
+    """``int_matmul_workspace_elems`` of ``csrc/int_matmul.cuh`` (the
+    decode regime's (K / group, M, N) partials and a ticket a 128-column
+    tile; none above ``DECODE_MAX_M`` rows), for the meta route."""
+    if M > DECODE_MAX_M or group <= 0:
+        return 0
+    return (K // group) * M * N + -(-N // 128)
+
+
+def meta_launch(name: str, x: torch.Tensor, w: torch.Tensor, N: int,
+                out_dtype: torch.dtype, reads, group: int) -> torch.Tensor:
+    """The meta route of either int matmul's launch, its operands checked
+    as for the card: the (M, N) output,
+    the workspace the card allocates (held while the launch runs), and
+    one launch of ``name`` (and of ``act_quant_static_fused`` when the
+    kernel quantizes an f32 / bf16 x in its staging) recorded with 2·M·N·K
+    FLOPs and each operand read once."""
+    M, K = x.shape
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    ws = torch.empty(workspace_elems(M, N, K, group), dtype=torch.int32,
+                     device=x.device)
+    cost.kernel(name, 2.0 * M * N * K, (x, w, *reads), (out,),
+                fused=() if x.dtype == torch.int8
+                else ("act_quant_static_fused",), int8=True)
+    del ws
+    return out
 
 
 def _check_scalar(t: torch.Tensor, name: str,
@@ -130,8 +175,8 @@ def _launch(x: torch.Tensor, w_int: torch.Tensor, s_x: torch.Tensor,
             out_dtype: torch.dtype) -> torch.Tensor:
     """One launch of ``csrc/w8a8_matmul.cu`` on int8 codes, or (M <= 16) on
     an f32 / bf16 activation that the kernel quantizes while it stages it;
-    checks every operand first."""
-    if x.device.type != "cuda":
+    checks every operand first. On meta: ``meta_launch``."""
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"w8a8_matmul: unsupported device {x.device}")
     if x.dtype not in X_KINDS or w_int.dtype != torch.int8:
         raise ValueError(f"w8a8_matmul takes int8, f32 or bf16 x and int8 "
@@ -144,9 +189,9 @@ def _launch(x: torch.Tensor, w_int: torch.Tensor, s_x: torch.Tensor,
         raise ValueError(f"contracting dims differ: {K} vs {K2}")
     if K % 4:
         raise ValueError(f"K={K} must be a multiple of 4 (dp4a words)")
-    if x.dtype != torch.int8 and M > decode_max_m():
+    if x.dtype != torch.int8 and M > decode_max_m(x.device.type):
         raise ValueError(f"the kernel quantizes x only at M <= "
-                         f"{decode_max_m()}, got M={M}")
+                         f"{decode_max_m(x.device.type)}, got M={M}")
     if not (x.is_contiguous() and w_int.is_contiguous()):
         raise ValueError("w8a8_matmul takes contiguous operands")
     if (x.dtype == torch.int8 and x.data_ptr() % 4) or w_int.data_ptr() % 4:
@@ -164,6 +209,9 @@ def _launch(x: torch.Tensor, w_int: torch.Tensor, s_x: torch.Tensor,
     _check_scalar(s_x, "s_x")
     _check_scalar(z_x, "z_x")
     _check_scalar(s_w, "s_w", SCALE_DTYPES)
+    if x.device.type == "meta":
+        return meta_launch("w8a8_matmul", x, w_int, N, out_dtype,
+                           (colsum, s_x, z_x, s_w), K)
     _lib.require_cuda(x, w_int, s_x, z_x, s_w,
                       *(() if colsum is None else (colsum,)))
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
@@ -193,7 +241,7 @@ def w8a8_matmul(x_int: torch.Tensor, w_int: torch.Tensor, s_x: torch.Tensor,
     if x_int.device.type == "cpu":
         return w8a8_matmul_plain(x_int, w_int, s_x, z_x, s_w, colsum,
                                  z_shift, out_dtype)
-    if x_int.device.type == "cuda" and x_int.dtype != torch.int8:
+    if x_int.device.type in ("cuda", "meta") and x_int.dtype != torch.int8:
         raise ValueError("w8a8_matmul takes int8 operands")
     return _launch(x_int, w_int, s_x, z_x, s_w, colsum, z_shift, out_dtype)
 
@@ -225,6 +273,6 @@ def quant_w8a8_matmul(x: torch.Tensor, w_int: torch.Tensor,
     if x.device.type == "cpu":
         return quant_w8a8_matmul_plain(x, w_int, s_x, z_x, s_w, colsum,
                                        out_dtype)
-    if x.dim() == 2 and x.shape[0] > decode_max_m():
+    if x.dim() == 2 and x.shape[0] > decode_max_m(x.device.type):
         x = act_quant_static(x, s_x, z_x)
     return _launch(x, w_int, s_x, z_x, s_w, colsum, -128.0, out_dtype)

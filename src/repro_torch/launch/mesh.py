@@ -42,7 +42,10 @@ live ``TPMesh`` and a ``ReplicaGroup`` (the world ranks) for every other
 row.
 
 The reference's ``make_production_mesh`` needs 256 or 512 devices and
-raises its ``RuntimeError`` with fewer ranks.
+raises its ``RuntimeError`` with fewer ranks. Its dry-run's meshes, which
+the reference fakes with 512 host devices, are ``dryrun_mesh``'s here:
+one rank's view of a mesh of any size with no process group, on ``meta``
+(``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -201,22 +204,61 @@ def single_device_mesh(device="cuda") -> TPMesh:
     return make_mesh((1,), ("data",), device)
 
 
+def production_shape(multi_pod: bool = False
+                     ) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """(shape, axes) of the reference's production meshes."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False):
     """The reference's production meshes, (data=16, model=16) or (pod=2,
     data=16, model=16): they need 256 or 512 ranks."""
     import numpy as np
     import torch.distributed as dist
-    shape = (2, 16, 16) if multi_pod else (16, 16)
+    shape, axes = production_shape(multi_pod)
     n = int(np.prod(shape))
     have = dist.get_world_size() if dist.is_initialized() else 1
     if have < n:
         raise RuntimeError(
-            f"need {n} devices for mesh {shape}; have {have}. "
-            "The dry-run launcher must set "
-            "XLA_FLAGS=--xla_force_host_platform_device_count=512 before "
-            "importing jax.")
-    return make_mesh(shape, ("pod", "data", "model") if multi_pod
-                     else ("data", "model"))
+            f"need {n} devices for mesh {shape}; have {have}. The dry-run "
+            f"runs one rank of it on meta tensors: "
+            f"dryrun_mesh({shape}, {axes}) (launch/dryrun.py).")
+    return make_mesh(shape, axes)
+
+
+@dataclasses.dataclass
+class DryRunMesh(TPMesh):
+    """One rank's view of a mesh of any ``sizes`` over ``axes`` for the
+    dry-run: rank 0 of the tensor-parallel axis (the last), no process
+    group, device ``meta``. ``shape`` and ``axis_names`` are the
+    reference mesh's, which ``distributed/sharding.py`` resolves; the
+    collectives record what the rank would issue
+    (``distributed/collectives.py``); ``data_size`` is the ranks of the
+    batch axes (``("pod", "data")`` or ``"data"``)."""
+    sizes: Tuple[int, ...] = ()
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axes, self.sizes))
+
+
+def dryrun_mesh(shape, axes) -> DryRunMesh:
+    """The dry-run's view of rank 0 of a ``shape`` mesh over ``axes``
+    (``("data",)``, ``("data", X)`` or ``("pod", "data", X)`` with X in
+    ``("tp", "model")``)."""
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    batch_axes = axes[:-1] if axes[-1] in _TP_AXES else axes
+    if len(shape) != len(axes) or batch_axes not in (("data",),
+                                                     ("pod", "data")):
+        raise ValueError(f"a dry-run mesh of axes {axes} and shape {shape}")
+    tp = shape[-1] if axes[-1] in _TP_AXES else 1
+    data = 1
+    for s in shape[:len(batch_axes)]:
+        data *= s
+    return DryRunMesh(0, tp, None, torch.device("meta"), None,
+                      data_size=data, axes=axes, sizes=shape)
 
 
 @dataclasses.dataclass(frozen=True)

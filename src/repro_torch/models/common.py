@@ -167,11 +167,26 @@ def stack_trees(trees: List[Any]) -> Any:
 # Init helpers
 # ---------------------------------------------------------------------------
 
+class ShapesOnly:
+    """The generator of a shapes-only init (the dry-run's ``meta`` tree):
+    ``device`` is meta, and every draw is an empty meta tensor. A
+    ``torch.Generator`` has no meta device."""
+    device = torch.device("meta")
+
+
+def draw(gen, shape, rand=torch.randn) -> Tensor:
+    """An f32 draw of ``rand`` (``torch.randn`` or ``torch.rand``) of
+    ``shape`` from ``gen`` on its device; empty on meta for
+    ``ShapesOnly``."""
+    if isinstance(gen, ShapesOnly):
+        return torch.empty(shape, dtype=torch.float32, device=gen.device)
+    return rand(shape, generator=gen, device=gen.device, dtype=torch.float32)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
                scale: float = 1.0) -> Tensor:
     std = scale / np.sqrt(d_in)
-    w = torch.randn((d_in, d_out), generator=gen, device=gen.device,
-                    dtype=torch.float32)
+    w = draw(gen, (d_in, d_out))
     return (w * std).to(dtype)
 
 
@@ -570,8 +585,7 @@ def apply_mlp(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
 
 def embed_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     dt = dtype_of(cfg)
-    w = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
-                    device=gen.device, dtype=torch.float32) * 0.02
+    w = draw(gen, (cfg.vocab_size, cfg.d_model)) * 0.02
     p = {"embed": {"w": w.to(dt)}}
     if not cfg.tie_embeddings:
         p["head"] = {"w": dense_init(gen, cfg.d_model, cfg.vocab_size, dt)}

@@ -103,8 +103,7 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     std_out = 1.0 / np.sqrt(Fd) / np.sqrt(2 * cfg.n_layers)
 
     def randn(*shape):
-        return torch.randn(shape, generator=gen, device=gen.device,
-                           dtype=torch.float32)
+        return C.draw(gen, shape)
 
     p = {"router": randn(D, E) * std_in,
          "w_up": (randn(E, D, Fd) * std_in).to(dt),

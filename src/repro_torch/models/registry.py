@@ -12,7 +12,7 @@ which the encoder reads.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -52,12 +52,14 @@ def _extra_kwargs(cfg: ModelConfig, batch: Dict[str, Any]) -> Dict[str, Any]:
 
 def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on: the card unless the caller asks
-    for the CPU. Asking for the card where there is none raises."""
+    for the CPU (or for ``meta``: the dry-run's shapes without data,
+    ``launch/dryrun.py``). Asking for the card where there is none
+    raises."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA was asked for but is not available; pass "
                            "device='cpu' to run the plain versions")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
 
@@ -76,10 +78,19 @@ class ModelAPI:
         """The sites of a layer (an encoder-decoder's: its decoder's)."""
         return self.mod.SITES
 
-    def init_params(self, gen: torch.Generator) -> C.ParamTree:
-        if gen.device.type != self.device.type:
-            raise ValueError(f"generator on {gen.device}, model on "
-                             f"{self.device}")
+    def init_params(self, gen: Optional[torch.Generator] = None
+                    ) -> C.ParamTree:
+        """Seeded random weights from ``gen`` on its device (the API's).
+        On meta (no generator: a ``torch.Generator`` has no meta device)
+        the same tree, leaf for leaf, of shapes and dtypes only."""
+        if self.device.type == "meta":
+            if gen is not None:
+                raise ValueError("a meta tree takes no generator")
+            return self.mod.init_params(self.cfg, C.ShapesOnly())
+        if gen is None or gen.device.type != self.device.type:
+            raise ValueError(f"generator on "
+                             f"{None if gen is None else gen.device}, model "
+                             f"on {self.device}")
         return self.mod.init_params(self.cfg, gen)
 
     def loss_fn(self, params, batch, qcfg: QuantConfig, **kw):
@@ -348,6 +359,27 @@ class ModelAPI:
         if self.cfg.family == Family.VLM:
             return max(1, seq_len - self.cfg.vlm.num_patches)
         return seq_len
+
+    def input_specs(self, batch: int, seq_len: int
+                    ) -> Dict[str, torch.Tensor]:
+        """Meta stand-ins for every model input (the dry-run; the
+        reference's ``ShapeDtypeStruct``s): ``tokens`` and ``labels``
+        (batch, text_len) int32, a VLM's ``patches`` (batch, P, D), an
+        encoder-decoder's ``frames`` (batch, T_enc, D), in the model
+        dtype."""
+        cfg = self.cfg
+        meta = torch.device("meta")
+        n = self.text_len(seq_len)
+        out = {k: torch.empty((batch, n), dtype=torch.int32, device=meta)
+               for k in ("tokens", "labels")}
+        extra = {Family.ENCDEC: ("frames", getattr(cfg.encdec,
+                                                   "encoder_seq", 0)),
+                 Family.VLM: ("patches", getattr(cfg.vlm, "num_patches", 0))}
+        if cfg.family in extra:
+            key, m = extra[cfg.family]
+            out[key] = torch.empty((batch, m, cfg.d_model),
+                                   dtype=C.dtype_of(cfg), device=meta)
+        return out
 
 
 def build(cfg: ModelConfig, device="cuda") -> ModelAPI:

@@ -76,7 +76,7 @@ def mamba_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     dev = gen.device
 
     def f32(*shape, rand=torch.randn):
-        return rand(shape, generator=gen, device=dev, dtype=torch.float32)
+        return C.draw(gen, shape, rand)
 
     A = torch.arange(1, d_state + 1, dtype=torch.float32,
                      device=dev)[None].repeat(inner, 1)

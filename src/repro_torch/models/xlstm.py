@@ -53,6 +53,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, QuantConfig
 from repro_torch.core import quantization as Q
 from repro_torch.distributed import collectives as DC
+from repro_torch.launch import cost
 from repro_torch.models import common as C
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import tree_leaves
@@ -138,8 +139,7 @@ def mlstm_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     inner, NH, _ = dims(cfg)
     D = cfg.d_model
     dt = C.dtype_of(cfg)
-    w_if = torch.randn((D, 2 * NH), generator=gen, device=gen.device,
-                       dtype=torch.float32) / math.sqrt(D)
+    w_if = C.draw(gen, (D, 2 * NH)) / math.sqrt(D)
     b_if = torch.cat([torch.zeros((NH,)), torch.linspace(3.0, 6.0, NH)])
     return {"w_qkv": C.dense_init(gen, D, 3 * inner, dt),
             "w_if": w_if,
@@ -202,7 +202,7 @@ def _mlstm_mix(q: Tensor, k: Tensor, v: Tensor, li: Tensor, lf: Tensor,
     if init_state is not None:
         iw = torch.exp(inter_log - m_row)
         num = num + iw[..., None] * (qh @ init_state["C"])
-        den = den + iw * (qh * init_state["n"][..., None, :]).sum(-1)
+        den = den + iw * (qh @ init_state["n"][..., :, None])[..., 0]
     norm = torch.maximum(den.abs(), torch.exp(-m_row))
     h = num / norm[..., None]
     if not return_state:
@@ -215,7 +215,7 @@ def _mlstm_mix(q: Tensor, k: Tensor, v: Tensor, li: Tensor, lf: Tensor,
         m_state = torch.maximum(m_state, bS + init_state["m"])
     w = torch.exp(w_log - m_state[..., None])
     Cn = (kh * w[..., None]).transpose(-1, -2) @ vh
-    nn = (w[..., None] * kh).sum(-2)
+    nn = (w[..., None, :] @ kh)[..., 0, :]
     if init_state is not None:
         iw0 = torch.exp(bS + init_state["m"] - m_state)
         Cn = Cn + iw0[..., None, None] * init_state["C"]
@@ -282,7 +282,8 @@ def decode_mlstm(p: Params, x: Tensor, state: Params, cfg: ModelConfig,
     Cn = fp[..., None, None] * state["C"] \
         + ip[..., None, None] * (k[..., :, None] * v[..., None, :])
     nn = fp[..., None] * state["n"] + ip[..., None] * k
-    den = _per_row(lambda a, b_: (a * b_).sum(-1), q, nn)
+    den = _per_row(lambda a, b_: (a[..., None, :] @ b_[..., :, None])
+                   [..., 0, 0], q, nn)
     norm = torch.maximum(den.abs(), torch.exp(-m_new))
     h = _per_row(lambda a, c: (a[..., None, :] @ c)[..., 0, :], q, Cn)
     h = _gather_values(h / norm[..., None], cfg)
@@ -300,8 +301,7 @@ def slstm_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     D = cfg.d_model
     dt = C.dtype_of(cfg)
     w = C.dense_init(gen, D, 4 * inner, dt)
-    r = torch.randn((NH, hd, 4 * hd), generator=gen, device=gen.device,
-                    dtype=torch.float32) / math.sqrt(hd)
+    r = C.draw(gen, (NH, hd, 4 * hd)) / math.sqrt(hd)
     return {"w": w, "r": r,
             "b": torch.zeros((4 * inner,), dtype=torch.float32,
                              device=gen.device),
@@ -344,17 +344,16 @@ def apply_slstm(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
                 n_skip: int = 0, init_state: Optional[Params] = None,
                 return_state: bool = False, groups: int = 1):
     """The sLSTM block: W x over the sequence, then the scan, a loop over
-    positions."""
+    positions (``launch/cost.scan``: the dry-run counts one step S
+    times)."""
     B, S, _ = x.shape
     inner, NH, hd = dims(cfg)
     wx = C.qlinear(x, p["w"], None, qcfg, scales, "s_in", taps, n_skip,
                    groups).float() + p["b"]
     state = _f32_state(init_state) if init_state is not None \
         else slstm_state(cfg, B, x.device)
-    hs = []
-    for t in range(S):
-        h, state = _slstm_step(p["r"], wx[:, t], state, NH, hd)
-        hs.append(h)
+    hs, state = cost.scan(
+        S, lambda t, st: _slstm_step(p["r"], wx[:, t], st, NH, hd), state)
     hs = torch.stack(hs, dim=1).reshape(B, S, inner).to(x.dtype)
     out = C.qlinear(hs, p["w_proj"], None, qcfg, scales, "s_out", taps,
                     n_skip, groups)

@@ -44,6 +44,12 @@ returns one report a case. A case names:
   a rank); ``warmup``: one run first, without faults, outside the report.
   The report: every output as (uid, replica, slot, tokens), the
   rejections, ``RouterStats`` and the launches;
+* ``kind`` "collectives": ``launch/dryrun.serving_program``'s rank program
+  of a ``prefill`` and of one ``decode_step`` (global batch ``batch``,
+  ``seq`` positions, ``qcfg``, ``prequant``, the whole tree ``params``) run
+  on this rank; the report counts every ``torch.distributed.all_reduce``
+  of each call and its bytes, the collectives the dry-run counts on its
+  meta mesh (``tests/test_torch_sharding.py``);
 * ``mesh``: False serves without a mesh (the unsharded engine);
 * ``reset_peak``: False keeps the device's peak-memory count running
   (default: reset before serving);
@@ -291,7 +297,36 @@ def _in_turn(mesh, make):
     return out
 
 
+def run_collectives(mesh, case: Dict[str, Any]) -> Dict[str, Any]:
+    """A "collectives" case: the all-reduces of the dry-run's rank program
+    of a prefill and of a decode step, as this rank issues them."""
+    import torch.distributed as dist
+    from repro_torch.launch.dryrun import serving_program
+    rep: Dict[str, Any] = {"rank": mesh.rank, "name": case.get("name")}
+    params = convert.params_from_numpy(case["params"], mesh.device)
+    for kind in ("prefill", "decode"):
+        prog = serving_program(case["cfg"], kind, case["batch"], case["seq"],
+                               mesh=mesh, qcfg=case["qcfg"],
+                               prequant=case.get("prequant", False),
+                               device=mesh.device, params=params)
+        seen: List[int] = []
+        real = dist.all_reduce
+
+        def counted(t, *a, **kw):
+            seen.append(t.numel() * t.element_size())
+            return real(t, *a, **kw)
+        dist.all_reduce = counted
+        try:
+            prog()
+        finally:
+            dist.all_reduce = real
+        rep[kind] = {"all-reduce": len(seen), "bytes": sum(seen)}
+    return rep
+
+
 def run_case(mesh, case: Dict[str, Any]) -> Dict[str, Any]:
+    if case["kind"] == "collectives":
+        return run_collectives(mesh, case)
     dev = mesh.device
     if dev.type == "cuda":
         # the last case's engines (an engine and its decode states refer to

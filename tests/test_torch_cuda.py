@@ -1954,9 +1954,10 @@ def test_dp2_gloo_ranks_tune_and_train_on_the_card(dev):
             assert lf["shard"] * share == lf["full"]
             assert lf["moments"] == 2 * lf["shard"]
             assert lf["moment_dtype"] == "torch.float32"
-    o = r0["one"]
+    # the last data rank runs the one-rank comparison (tests/_dp_probe.py)
+    o = r1["one"]
     rel = [abs(a["loss"] / b["loss"] - 1)
-           for a, b in zip(r0["metrics"], o["metrics"])]
+           for a, b in zip(r1["metrics"], o["metrics"])]
     assert rel[0] <= 1e-2 and max(rel) <= 5e-2, rel
     assert o["moments"]["rel_l2"] <= 0.1, o["moments"]
     assert o["moments"]["cosine"] >= 0.99, o["moments"]

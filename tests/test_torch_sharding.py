@@ -19,6 +19,9 @@ unsharded engines, on f32 ``paper_tiny`` (8 query heads, 4 KV heads).
   admit together when rank 1's clock runs three times as fast;
 * ``decode_attention_tp`` / ``_tp_paged``, each rank's slice computed in one
   process, concatenate to JAX's ``flash_decode_ref``;
+* the dry-run (``launch/dryrun.py``) counts, on its meta rank of a tp = 2
+  mesh, the all-reduces and their bytes that a gloo rank of the same
+  spawn issues for the same prefill and decode step;
 * what is not sharded yet raises, citing the ROADMAP (the MoE, VLM and
   hybrid families and the axes that do not divide are served and held in
   ``test_torch_tp_families.py``).
@@ -144,6 +147,19 @@ def _pool_cases(ref):
     return cases
 
 
+# the dry-run's collectives against a real rank's (launch/dryrun.py): the
+# rank program of a prefill (B = 2, S = 24) and a decode step, fp and W8A8
+# with int8-resident weights
+COLLECTIVE_CASES = [("fp", QN, False), ("w8a8-prequant", QW8, True)]
+
+
+def _collective_cases(ref):
+    return [dict(name=f"collectives-{name}", kind="collectives",
+                 cfg=t_get_config("paper_tiny"), params=ref["np_params"],
+                 qcfg=q, prequant=pq, batch=2, seq=24)
+            for name, q, pq in COLLECTIVE_CASES]
+
+
 def _interrupt_case(ref):
     """The fp pool with a SIGINT sent to rank 1 alone after its second
     decode step."""
@@ -154,7 +170,8 @@ def _interrupt_case(ref):
 @pytest.fixture(scope="module")
 def tp2(ref):
     """Every tp = 2 case in one spawn: {name: [rank 0's report, rank 1's]}."""
-    cases = _static_cases(ref) + _pool_cases(ref) + [_interrupt_case(ref)]
+    cases = _static_cases(ref) + _pool_cases(ref) + [_interrupt_case(ref)] \
+        + _collective_cases(ref)
     outs = M.spawn_tp(run_cases, 2, cases, device="cpu", every_rank=True,
                       timeout_s=600)
     return {c["name"]: [o[i] for o in outs] for i, c in enumerate(cases)}
@@ -399,6 +416,29 @@ def test_tp2_engine_matches_jax(ref, tp2, tp1, name, qcfg, prequant, kv):
         # W8A8 with int32 sums at the row-parallel sites: exactly tp = 1
         np.testing.assert_array_equal(ranks[0]["logits"],
                                       tp1[name]["logits"])
+
+
+@pytest.mark.parametrize("name,qcfg,prequant", COLLECTIVE_CASES,
+                         ids=[c[0] for c in COLLECTIVE_CASES])
+def test_dryrun_collectives_equal_a_real_rank(tp2, name, qcfg, prequant):
+    """The dry-run's meta rank of a (data=1, tp=2) mesh counts the
+    all-reduces, and their bytes, that each gloo rank issues for the same
+    prefill and decode step (the other kinds: none on either side)."""
+    from repro_torch.launch import dryrun as D
+    mesh = M.dryrun_mesh((1, 2), ("data", "tp"))
+    tq = TQuantConfig(mode=qcfg.mode, true_int8=qcfg.true_int8)
+    for kind in ("prefill", "decode"):
+        got = D.measure_program(D.serving_program(
+            t_get_config("paper_tiny"), kind, 2, 24, mesh=mesh, qcfg=tq,
+            prequant=prequant))["cost"]
+        for rank in tp2[f"collectives-{name}"]:
+            real = rank[kind]
+            assert real["all-reduce"] > 0
+            assert got.collective_counts == {
+                **{k: 0 for k in got.collective_counts},
+                "all-reduce": real["all-reduce"]}, (kind, rank["rank"])
+            assert got.collective_bytes == real["bytes"], (kind,
+                                                           rank["rank"])
 
 
 def test_tp4_engine_matches_jax(ref):
@@ -691,9 +731,14 @@ def test_indivisible_heads_replicas_and_data_refuse():
                              data_rank=0, data_size=2))
     with pytest.raises(RuntimeError, match="spawn_mesh"):
         M.make_replica_meshes(2, tp=2)
-    # the reference's production meshes need 256 or 512 devices
+    # the reference's production meshes need 256 or 512 devices; the
+    # message names the dry-run's mesh, not the reference's XLA flag
     with pytest.raises(RuntimeError, match=r"need 256 devices for mesh "
-                       r"\(16, 16\); have 1"):
+                       r"\(16, 16\); have 1\. The dry-run runs one rank of "
+                       r"it on meta tensors: dryrun_mesh\(\(16, 16\), "
+                       r"\('data', 'model'\)\)") as err:
         M.make_production_mesh()
-    with pytest.raises(RuntimeError, match="need 512 devices"):
+    assert "XLA_FLAGS" not in str(err.value)
+    with pytest.raises(RuntimeError, match=r"need 512 devices.*"
+                       r"dryrun_mesh\(\(2, 16, 16\)"):
         M.make_production_mesh(multi_pod=True)
