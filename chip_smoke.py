@@ -51,7 +51,13 @@ Phases, each fatal on failure:
    plain version, the bound and SDPA; its backward at the tuning's
    cross-attention shape (B=2, S=256, T=1500) within one ulp plus 1e-5 of
    the largest entry, two calls identical, beside SDPA's forward +
-   backward;
+   backward; and ``flash_attention``, ``flash_attention_bwd``,
+   ``flash_decode`` and ``flash_decode_paged`` at stablelm-3b's head_dim
+   80 (32 heads over 32 KV heads, bf16; B = 4 x 512 behind the 4-row
+   cushion; decode at pos 576, int8 with (B, K) scales, the paged pool
+   ``torch.equal`` to the contiguous kernel), each within its bar of its
+   plain version, timed beside its bound and SDPA (``head_dim_80_rows``;
+   ``stablelm_*`` in the kernels line);
 4. the static main path at full width: smollm-360m (32 layers, bf16,
    seeded random weights), a 4-token cushion from ``extract_cushion``,
    pt_static scales calibrated on 2 pipeline batches, int8-resident
@@ -312,7 +318,18 @@ Phases, each fatal on failure:
    ``DP_LOSS_TOL`` and the two runs' first moments within ``GRAD_TOL``; ms a
    step, peak GiB, a step profiled on rank 0. (a) ``compressed_psum`` of
    2.46 M values and ``dp_train_step_compressed``: every rank equal,
-   within ``amax / 127 + 1e-6`` of the exact mean;
+   within ``amax / 127 + 1e-6`` of the exact mean. (e) Tensor-parallel
+   training in the same two processes as one (data 1, model 2) mesh:
+   qwen1.5-0.5b at full width and depth (24 layers, QKV bias, a tied
+   vocabulary of 151,936 cut in two), ``shard_train_step`` at B = 4 x 256
+   for 3 steps under none and pt_dynamic against rank 0's
+   ``make_train_step`` on the whole tree and the same batches: the ranks'
+   metrics and whole leaves equal bit for bit, the first step's loss
+   within ``TPT_LOSS_TOL`` and gradient norm within ``TPT_GNORM_TOL`` of
+   one rank's, the attention kernels' launches a rank a step one rank's;
+   ms a step, gloo all-reduces a step, peak GiB and resident parameter and
+   moment bytes a rank beside one rank's (``tp_train_*`` in the kernels
+   line);
 4m. the router over tensor-parallel replicas: smollm-360m whole on four
    gloo ranks of the card, 2 replicas of tp = 2
    (``launch/mesh.spawn_mesh(data=2, tp=2)``, ``make_replica_meshes``; the
@@ -325,6 +342,12 @@ Phases, each fatal on failure:
    death with its live requests failed over, each rank's launches those
    of its replica's admissions and steps; TTFT / TPOT p50, each rank's
    wall split (its replica's steps, prefills, the rest) and peak GiB;
+4o. stablelm-3b (head_dim 80) at full width and 4 of its 32 layers (run
+   after 4e), seeded random weights, a 4-token cushion, scales calibrated
+   on 2 batches of 4 x 512: ``Engine.generate`` for B = 4, a 512-token
+   prompt and 64 new tokens in W8A8 (int8-resident weights, int8 KV) and
+   fp, the decode step a CUDA graph replayed once per token, launch
+   counts exact, graph tokens = the eager loop's;
 4n. the dry-run accounting (``launch/dryrun.py``), run right after phase
    4 on its W8A8 engine (int8-resident weights, int8 KV cache, the
    4-token cushion, its pt_static scales): the prefill (B = 4, 512 tokens)
@@ -2641,6 +2664,237 @@ def hybrid_phase(dev, zero_counts, counters_zero, timed):
     run.card_vs_cpu(cfg2, p2, cush2, calib2, prompt, modes, HY_CMP_TOKENS)
     return run.done()
 
+
+# phase 3 at stablelm-3b's shapes (32 heads of 80 over 32 KV heads, bf16:
+# head_dim 80, no power of two) and phase 4o, stablelm-3b serving at full
+# width and 4 of its 32 layers (as phase 4k cuts deepseek-67b), B = 4 x
+# 512 and 64 new tokens
+SL_ARCH, SL_LAYERS, SL_NEW = "stablelm-3b", 4, 64
+SL_POS = PROMPT + NEW_TOKENS          # the decode rows' position, 576
+
+
+def head_dim_80_rows(dev, timed):
+    """Rows 4, 5, 6 and 8 of the kernel table at stablelm-3b's shapes:
+    ``flash_attention`` (B = 4, S = 512 behind the 4-row cushion) within one
+    bf16 ulp of its plain version, timed beside its bound and SDPA with the
+    same boolean mask; ``flash_decode`` and ``flash_decode_paged`` (int8,
+    (B, K) scales, pos 576, the paged pool a shuffled table of 64-position
+    pages) within one bf16 ulp, the paged kernel ``torch.equal`` to the
+    contiguous one on the gathered pool, timed beside their bounds and SDPA
+    on the dequantized bf16 cache (not the same inputs: no PyTorch call
+    reads int8 with scales); ``flash_attention_bwd`` (the same shape, the
+    cushion live) within one bf16 ulp plus 1e-5 of the largest entry, two
+    calls ``torch.equal``, timed beside its bound and SDPA's forward +
+    backward against the kernels' forward + backward. Returns {kernel:
+    row}, one call a row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (
+        _launch, flash_attention, flash_attention_bwd,
+        flash_attention_bwd_plain, flash_attention_plain)
+    from repro_torch.kernels.flash_decode import (
+        flash_decode, flash_decode_paged, flash_decode_paged_plain,
+        flash_decode_plain, gather_pages)
+    from repro_torch.serving.engine import cache_seq_len
+
+    cfg = get_config(SL_ARCH)
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if hd != 80:
+        fail(f"{SL_ARCH}: head_dim {hd}, not 80")
+    bf = torch.bfloat16
+    g = torch.Generator(dev).manual_seed(80)
+    rows = {}
+
+    def within(name, got, want, floor=1e-6):
+        err = (got.float() - want.float()).abs()
+        if not bool((err <= BF16_ULP * want.float().abs() + floor).all()):
+            fail(f"head_dim 80 {name}: {float(err.max()):.3g} beyond one "
+                 f"bf16 ulp")
+        return float(err.max())
+
+    def sdpa(fn, what):
+        try:
+            return timed(fn)
+        except (RuntimeError, TypeError) as e:
+            log(f"scaled_dot_product_attention {what} not timed: {e}")
+            return None
+
+    S, m = PROMPT, CUSHION
+    T = S + m
+    q = torch.randn((B, H, S, hd), generator=g, device=dev).to(bf)
+    k = torch.randn((B, K, T, hd), generator=g, device=dev).to(bf)
+    v = torch.randn((B, K, T, hd), generator=g, device=dev).to(bf)
+    err = within("flash_attention", flash_attention(q, k, v, prefix_len=m),
+                 flash_attention_plain(q, k, v, prefix_len=m))
+    i_ = torch.arange(S, device=dev)[:, None]
+    j_ = torch.arange(T, device=dev)[None, :]
+    vis = (j_ < m) | (j_ <= i_ + m)
+    pairs = B * H * (S * m + S * (S + 1) / 2)
+    bms, by = bound_ms(2 * (2 * B * H * S * hd + 2 * B * K * T * hd),
+                       4.0 * hd * pairs, BF16_FLOPS_PER_S)
+    rows["flash_attention"] = {
+        "unit": f"one call (B={B}, S={S}, m={m}, {H} heads of {hd}, G=1)",
+        "ms": timed(lambda: flash_attention(q, k, v, prefix_len=m)),
+        "plain_ms": timed(lambda: flash_attention_plain(q, k, v,
+                                                        prefix_len=m), 3),
+        "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+        "library_ms": sdpa(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=vis), "forward"),
+        "library_of": "scaled_dot_product_attention with the same boolean "
+                      "mask"}
+
+    # the backward: the kernels' forward (writing the log-sum-exp) and
+    # backward against the plain backward on the same output and lse
+    do = torch.randn(q.shape, generator=g, device=dev).to(bf)
+    o, lse = _launch(q, k, v, m, m, with_lse=True)
+    ba = (q, k, v, o, lse, do, m, m)
+    got1 = flash_attention_bwd(*ba)
+    got2 = flash_attention_bwd(*ba)
+    errs = []
+    for a_, b_, want_ in zip(got1, got2, flash_attention_bwd_plain(*ba)):
+        if not torch.equal(a_, b_):
+            fail("head_dim 80 flash_attention_bwd: two calls differ")
+        errs.append(within("flash_attention_bwd", a_, want_,
+                           1e-5 * float(want_.float().abs().max())))
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def fwd_bwd():
+        flash_attention(qg, kg, vg, prefix_len=m).backward(do)
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(qg, kg, vg,
+                                       attn_mask=vis).backward(do)
+    bms, by = bound_ms(2 * (4 * B * H * S * hd + 4 * B * K * T * hd)
+                       + 4 * B * H * S, 10.0 * hd * pairs, BF16_FLOPS_PER_S)
+    rows["flash_attention_bwd"] = {
+        "unit": f"one call (B={B}, S={S}, m={m} live, {H} heads of {hd})",
+        "ms": timed(lambda: flash_attention_bwd(*ba)),
+        "plain_ms": timed(lambda: flash_attention_bwd_plain(*ba), 3),
+        "bound_ms": bms, "bound_by": by, "max_abs_err": max(errs),
+        "fwd_bwd_ms": timed(fwd_bwd),
+        "library_ms": sdpa(sdpa_fwd_bwd, "forward + backward"),
+        "library_of": "scaled_dot_product_attention forward + backward "
+                      "with the same boolean mask, against fwd_bwd_ms"}
+    del q, k, v, o, lse, do, qg, kg, vg, got1, got2
+
+    # decode: int8 cache, per-row (B, K) scales, pos 576
+    Smax = cache_seq_len(SL_POS + 32)
+    qd = torch.randn((B, H, hd), generator=g, device=dev).to(bf)
+    kq = torch.randint(-127, 128, (B, Smax, K, hd), generator=g, device=dev,
+                       dtype=torch.int8)
+    vq = torch.randint(-127, 128, (B, Smax, K, hd), generator=g, device=dev,
+                       dtype=torch.int8)
+    ks = torch.rand((B, K), generator=g, device=dev) * 0.05 + 0.01
+    vs = torch.rand((B, K), generator=g, device=dev) * 0.05 + 0.01
+    kc = torch.randn((m, K, hd), generator=g, device=dev).to(bf)
+    vc = torch.randn((m, K, hd), generator=g, device=dev).to(bf)
+    pos = torch.full((B,), SL_POS, dtype=torch.int32, device=dev)
+    a = (qd, kq, vq, pos, ks, vs, kc, vc)
+    got = flash_decode(*a)
+    err = within("flash_decode", got, flash_decode_plain(*a))
+    # SDPA on the dequantized bf16 cache (the cushion rows in place)
+    kd = (kq.float() * ks[:, None, :, None]).to(bf)
+    vd = (vq.float() * vs[:, None, :, None]).to(bf)
+    kd[:, :m], vd[:, :m] = kc, vc
+    kt, vt = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
+    vis_d = (torch.arange(Smax, device=dev) <= SL_POS)[None, None, None]
+    sdpa_ms = sdpa(lambda: F.scaled_dot_product_attention(
+        qd[:, :, None], kt, vt, attn_mask=vis_d), "decode")
+    live = B * (SL_POS + 1 - m)
+    bms, by = bound_ms(4 * B * H * hd + 2 * live * K * hd
+                       + 4 * m * K * hd + 8 * B * K,
+                       4.0 * B * H * hd * (SL_POS + 1), BF16_FLOPS_PER_S)
+    rows["flash_decode"] = {
+        "unit": f"one call (int8 KV, (B, K) scales, B={B}, pos {SL_POS} of "
+                f"{Smax}, {H} heads of {hd})",
+        "ms": timed(lambda: flash_decode(*a)),
+        "plain_ms": timed(lambda: flash_decode_plain(*a), 3),
+        "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+        "library_ms": None,
+        "library_of": "none: no PyTorch call reads an int8 cache with "
+                      "scales; sdpa_dequantized_ms is SDPA on its "
+                      "dequantized bf16 copy",
+        "sdpa_dequantized_ms": sdpa_ms}
+    del kd, vd, kt, vt
+
+    # the paged pool: the same rows in 64-position pages, a shuffled table
+    P = Smax // 64
+    n_pages = B * P + 1
+    table = (torch.randperm(n_pages - 1, generator=g, device=dev) + 1) \
+        .to(torch.int32).reshape(B, P)
+    kp = torch.zeros((n_pages, 64, K, hd), dtype=torch.int8, device=dev)
+    vp = torch.zeros((n_pages, 64, K, hd), dtype=torch.int8, device=dev)
+    kp[table.reshape(-1).long()] = kq.reshape(B * P, 64, K, hd)
+    vp[table.reshape(-1).long()] = vq.reshape(B * P, 64, K, hd)
+    pa = (qd, kp, vp, table, pos, ks, vs, kc, vc)
+    gotp = flash_decode_paged(*pa)
+    errp = within("flash_decode_paged", gotp, flash_decode_paged_plain(*pa))
+    if not torch.equal(gotp, got) or not torch.equal(
+            gotp, flash_decode(qd, gather_pages(kp, table),
+                               gather_pages(vp, table), pos, ks, vs, kc,
+                               vc)):
+        fail("head_dim 80 flash_decode_paged: not bit-identical to "
+             "flash_decode on the gathered pool")
+    bms, by = bound_ms(4 * B * H * hd + 2 * live * K * hd + 4 * m * K * hd
+                       + 8 * B * K + 4 * B * P,
+                       4.0 * B * H * hd * (SL_POS + 1), BF16_FLOPS_PER_S)
+    rows["flash_decode_paged"] = {
+        "unit": f"one call (int8 pages of 64, (B, K) scales, B={B}, pos "
+                f"{SL_POS}, {H} heads of {hd})",
+        "ms": timed(lambda: flash_decode_paged(*pa)),
+        "plain_ms": timed(lambda: flash_decode_paged_plain(*pa), 3),
+        "bound_ms": bms, "bound_by": by, "max_abs_err": errp,
+        "library_ms": None, "library_of": rows["flash_decode"]["library_of"],
+        "sdpa_dequantized_ms": sdpa_ms}
+    for name, r in rows.items():
+        log(f"head_dim 80 {name}: {r['unit']}: {r['ms']:.4f} ms (plain "
+            f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+            f"{r['bound_by']}, SDPA {r.get('library_ms')}"
+            + (f", SDPA dequantized {r['sdpa_dequantized_ms']}"
+               if "sdpa_dequantized_ms" in r else "")
+            + (f", fwd + bwd {r['fwd_bwd_ms']:.4f}" if "fwd_bwd_ms" in r
+               else "") + f"), max |err| {r['max_abs_err']:.3g}")
+    return rows
+
+
+def stablelm_phase(dev, zero_counts, counters_zero):
+    """Phase 4o: stablelm-3b (head_dim 80) at full width and SL_LAYERS of
+    its 32 layers: ``Engine.generate`` for B = 4, a 512-token prompt and
+    64 new tokens in W8A8 (int8-resident weights, int8 KV) and in fp, the
+    decode step a CUDA graph replayed once per token, launch counts exact,
+    the graph's tokens the eager loop's (as phases 4e-4g hold theirs)."""
+    import torch
+    from repro_torch.configs import QuantConfig, get_config
+    from repro_torch.launch.serve import seeded_cushion
+
+    cfg = dataclasses.replace(get_config(SL_ARCH), n_layers=SL_LAYERS)
+    run = FamilyRun(SL_ARCH, cfg, dev, zero_counts, counters_zero)
+    api, params, L = run.api, run.params, cfg.n_layers
+
+    def draw(seed, b, n):
+        return api.make_batch(torch.Generator(dev).manual_seed(seed), b, n)
+
+    batch = {k: v for k, v in draw(1, B, PROMPT).items() if k != "labels"}
+    calib = [draw(1000 + i, B, PROMPT) for i in range(2)]
+    cushion = seeded_cushion(api, params, CUSHION, seed=0)
+    qw8 = QuantConfig(mode="pt_static", true_int8=True)
+    sites = 5 * L + 1          # qkv, o, up, gate, down a layer; the head
+    attn = {"flash_attention": L, "flash_decode": L * (SL_NEW - 1)}
+    expect = {"w8a8_int8kv": {**zero_counts, **attn,
+                              "w8a8_matmul": sites * SL_NEW,
+                              "act_quant_static": 5 * L,
+                              "act_quant_static_fused":
+                                  1 + sites * (SL_NEW - 1)},
+              "fp": {**zero_counts, **attn}}
+    modes = {"w8a8_int8kv": (qw8, "int8", True),
+             "fp": (QuantConfig(), None, False)}
+    engines = run.static(batch, SL_NEW, cushion, calib, expect, modes)
+    run.counters_zero(f"{SL_ARCH} static",
+                      [s.graph for e in engines.values()
+                       for s in e.states.values()])
+    del engines
+    return run.done()
 
 # phase 3, the non-causal mode of flash_attention (and of its backward) at
 # whisper-base's shapes: 8 heads of 64 (G = 1), bf16
@@ -5171,6 +5425,116 @@ DP_CE_TOL, DP_SQ_TOL, DP_MOVE_SHARE = 1e-3, 0.1, 0.5
 DP_LOSS0_TOL, DP_LOSS_TOL = 1e-2, 5e-2
 
 
+# phase 4l's tensor-parallel training: qwen1.5-0.5b at full width and
+# depth (24 layers, d_model 1024, 16 heads, QKV bias, a tied vocabulary of
+# 151,936) on the same two processes as one (data 1, model 2) mesh,
+# shard_train_step at B = 4 x 256 for 3 steps under none and pt_dynamic,
+# against rank 0's make_train_step on the whole tree and the same batches.
+# The ranks' row-parallel sums (wo, w_down) add in another order than one
+# rank's GEMMs, in bf16, as phase 4l's data-parallel ranks' halves of the
+# rows do: its bars, the first step's loss within 1e-2 relative; the
+# gradient norm within 5e-2 (the clip reads it)
+TPT_ARCH, TPT_B, TPT_S, TPT_STEPS = "qwen1.5-0.5b", 4, 256, 3
+TPT_MODES = ("none", "pt_dynamic")
+TPT_LOSS_TOL, TPT_GNORM_TOL = 1e-2, 5e-2
+
+
+def tp_train_cases():
+    """The rank program's cases of the tensor-parallel training (one a
+    mode), on batches of seeded random tokens."""
+    import numpy as np
+    from repro_torch.configs import QuantConfig, get_config
+    cfg = get_config(TPT_ARCH)
+    rs = np.random.RandomState(31)
+    batches = []
+    for _ in range(TPT_STEPS):
+        t = rs.randint(0, cfg.vocab_size, (TPT_B, TPT_S + 1)) \
+            .astype(np.int32)
+        batches.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
+    return [dict(kind="train", name=f"tp_train_{mode}", cfg=cfg, seed=0,
+                 batches=batches, batch_rows=TPT_B, seq=TPT_S,
+                 steps=TPT_STEPS, lr=1e-3, warmup=10, mesh_shape=(1, 2),
+                 one_rank=True, one_rank_tp=[0],
+                 qcfg=QuantConfig(mode=mode))
+            for mode in TPT_MODES]
+
+
+def tp_train_checks(got):
+    """Hold phase 4l's tensor-parallel training (``got``: {case name: [rank
+    0's report, rank 1's]}) to its bars and return its record: the ranks'
+    metrics and whole leaves equal bit for bit, the first step's loss and
+    gradient norm against rank 0's one-rank run, the attention kernels'
+    launches a rank a step one rank's; ms a step, gloo all-reduces a step,
+    peak GiB and resident parameter and moment bytes a rank, each beside
+    one rank's."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    gib = 2.0 ** 30
+    L = get_config(TPT_ARCH).n_layers
+    rec = {"arch": TPT_ARCH, "mesh": "(data 1, model 2), two gloo ranks of "
+           "the one card", "B": TPT_B, "S": TPT_S, "steps": TPT_STEPS}
+    for mode in TPT_MODES:
+        r0, r1 = got[f"tp_train_{mode}"]
+        if r0["metrics"] != r1["metrics"]:
+            fail(f"phase 4l tp {mode}: the ranks' metrics differ")
+        for path, a in r0["whole_leaves"].items():
+            if not np.array_equal(a, r1["whole_leaves"][path]):
+                fail(f"phase 4l tp {mode}: whole leaf {path} differs "
+                     f"between the ranks")
+        one = r0["one"]
+        m0, o0 = r0["metrics"][0], one["metrics"][0]
+        rel = {k: abs(m0[k] / o0[k] - 1) for k in ("loss", "grad_norm")}
+        if rel["loss"] > TPT_LOSS_TOL or rel["grad_norm"] > TPT_GNORM_TOL:
+            fail(f"phase 4l tp {mode}: the first step against one rank's "
+                 f"{rel} (bars loss {TPT_LOSS_TOL}, gradient norm "
+                 f"{TPT_GNORM_TOL})")
+        want = dict(one["launches"][0])
+        if want.get("flash_attention") != 2 * L or \
+                want.get("flash_attention_bwd") != L:
+            fail(f"phase 4l tp {mode}: one rank launched {want} a step")
+        for r in (r0, r1):
+            if any(x != want for x in r["launches"]):
+                fail(f"phase 4l tp {mode}: a rank launched {r['launches']}, "
+                     f"one rank {want} a step")
+        rec[mode] = {
+            "loss": [m["loss"] for m in r0["metrics"]],
+            "one_rank_loss": [m["loss"] for m in one["metrics"]],
+            "grad_norm": [m["grad_norm"] for m in r0["metrics"]],
+            "one_rank_grad_norm": [m["grad_norm"] for m in one["metrics"]],
+            "first_step_rel": rel, "launches_a_step": want,
+            "ms_a_step": [r["ms"] for r in (r0, r1)],
+            "one_rank_ms_a_step": one["ms"],
+            "all_reduces_a_step": [r["collectives"] for r in (r0, r1)],
+            "peak_gib": [r["peak_bytes"] / gib for r in (r0, r1)],
+            "one_rank_peak_gib": one["peak_bytes"] / gib,
+            "param_bytes": [r["shard_bytes"] for r in (r0, r1)],
+            "moment_bytes": [r["moment_bytes"] for r in (r0, r1)],
+            "one_rank_param_bytes": one["bytes"]["params"],
+            "one_rank_moment_bytes": one["bytes"]["moments"],
+            "whole_leaves": len(r0["whole_leaves"])}
+        x = rec[mode]
+        log(f"(e) tensor-parallel training, {TPT_ARCH} at full width, "
+            f"{mode}, (data 1, model 2), B={TPT_B} x {TPT_S}, {TPT_STEPS} "
+            f"steps: losses {[round(v, 5) for v in x['loss']]} vs one "
+            f"rank's {[round(v, 5) for v in x['one_rank_loss']]}, the first "
+            f"step apart {rel}; metrics and {x['whole_leaves']} whole leaves "
+            f"equal on both ranks; launches a rank a step {want} = one "
+            f"rank's; ms a step a rank {[[round(v, 1) for v in ms] for ms in x['ms_a_step']]} "
+            f"vs one rank's {[round(v, 1) for v in one['ms']]}; gloo "
+            f"all-reduces a step {x['all_reduces_a_step'][0]} (one rank: "
+            f"0); peak GiB a rank {[round(v, 2) for v in x['peak_gib']]} vs "
+            f"one rank's run {x['one_rank_peak_gib']:.2f}; a rank holds "
+            f"{x['param_bytes'][0] / gib:.3f} GiB of parameters and "
+            f"{x['moment_bytes'][0] / gib:.3f} of moments, one rank "
+            f"{x['one_rank_param_bytes'] / gib:.3f} and "
+            f"{x['one_rank_moment_bytes'] / gib:.3f}")
+    r0 = got[f"tp_train_{TPT_MODES[0]}"][0]
+    rec["launches"] = {k: v * TPT_STEPS for k, v in
+                       r0["launches"][0].items()}
+    rec["kernels"] = {}
+    return rec
+
+
 def dp_phase(dev, corpus):
     """Phase 4l: data-parallel tuning and training of smollm-360m over two
     gloo ranks of the card, and the user's path train -> tune --dp 2 ->
@@ -5318,7 +5682,7 @@ def dp_phase(dev, corpus):
              batches=[pipe.get_batch(i) for i in range(DP_TRAIN_STEPS)],
              batch_rows=DP_TRAIN_B, seq=DP_TRAIN_S, steps=DP_TRAIN_STEPS,
              lr=1e-3, warmup=max(10, 300 // 20), one_rank=True,
-             profile=True)]
+             profile=True)] + tp_train_cases()
     t0 = time.perf_counter()
     ranks = spawn_mesh(dp_probe.run_cases, 2, 1, cases, device="cuda",
                        every_rank=True, backend="gloo")
@@ -5447,6 +5811,8 @@ def dp_phase(dev, corpus):
         f"{rec['train']['peak_gib']}; one step profiled on rank 0: wall "
         f"{tprof['ms']:.1f} ms, device {tprof['device_ms']} ms (busy "
         f"{tbusy})")
+    # (e) tensor-parallel training on the same two processes
+    rec["tp_train"] = tp_train_checks(got)
     log(f"(a) compressed_psum over 2 ranks of {big.shape[1]} values: every "
         f"rank equal, max |err| {err:.3g} against the exact mean (bound "
         f"{rec['compressed']['bound']:.3g}); dp_train_step_compressed equal "
@@ -6095,6 +6461,9 @@ def main() -> None:
     log(f"bf16, all rows live: forward + backward through autograd "
         f"{fb:.4f} ms against SDPA's forward + backward {sdpa} ms "
         f"({'no slower' if sdpa is not None and fb <= sdpa else 'slower'})")
+
+    # rows 4, 5, 6 and 8 at stablelm-3b's head_dim 80 (phase 4o serves it)
+    record["stablelm"] = {"kernels": head_dim_80_rows(dev, timed)}
 
     # the non-causal mode, forward and backward, at whisper-base's shapes
     fa_nc, fa_nc_bwd = noncausal_attention_rows(dev, timed)
@@ -6779,6 +7148,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("moe")
 
+    # 4o. stablelm-3b (head_dim 80) at full width, 4 of its layers ------
+    record["stablelm"].update(stablelm_phase(dev, zero_counts,
+                                             counters_zero))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("stablelm")
+
     # 4f. the VLM at full width -----------------------------------------
     record["vlm"] = vlm_phase(dev, zero_counts, counters_zero, timed)
     gc.collect()
@@ -6817,6 +7193,7 @@ def main() -> None:
 
     # 4l. data-parallel tuning and training, smollm-360m on two ranks ---
     record["dp"] = dp_phase(dev, corpus)
+    record["tp_train"] = record["dp"].pop("tp_train")
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("dp")
@@ -7110,8 +7487,8 @@ def main() -> None:
         # (4f), jamba's (4g), whisper-base's (4h) and xlstm-350m's (4i)
         # shapes, beside smollm's; smollm's training run (4j); rank 0 of
         # deepseek-67b's tensor-parallel runs (4k)
-        for tag in ("moe", "vlm", "hybrid", "encdec", "xlstm", "train",
-                    "tp", "dp", "router_tp"):
+        for tag in ("moe", "stablelm", "vlm", "hybrid", "encdec", "xlstm",
+                    "train", "tp", "dp", "router_tp", "tp_train"):
             if record[tag]["launches"].get(kk["name"]):
                 kk[f"{tag}_launches"] = record[tag]["launches"][kk["name"]]
             kk.update({f"{tag}_{k_}": v for k_, v in

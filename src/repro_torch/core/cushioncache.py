@@ -362,13 +362,15 @@ def tune_loss_grads(api, params, cushion: Params, batch: Dict[str, Any],
 
 
 def _ranks_equal(tree: Params) -> torch.Tensor:
-    """1.0 where every rank of the active data axis holds ``tree`` equal
-    (elementwise, as ``torch.equal``: the max over the ranks is the min),
-    else 0.0; a device scalar."""
+    """1.0 where every rank of the active data and tp axes holds ``tree``
+    equal (elementwise, as ``torch.equal``: the max over the ranks is the
+    min), else 0.0; a device scalar."""
     from repro_torch.distributed import collectives as DC
     ok = torch.ones((), dtype=torch.bool, device=tree_leaves(tree)[0].device)
     for t in tree_leaves(tree):
-        ok = ok & (DC.pmax(t, "data") == DC.pmin(t, "data")).all()
+        for axis in ("data", "tp"):
+            if DC.axis_size(axis) > 1:
+                ok = ok & (DC.pmax(t, axis) == DC.pmin(t, axis)).all()
     return ok.float()
 
 
@@ -399,7 +401,12 @@ def prefix_tune(api, params, cushion0: Params,
       (``train/trainer.shard_update_step``): the loss's reductions over
       the batch are global, the gradients summed over the axis, and every
       rank holds the same cushion after every step. The batch size must
-      divide by the axis.
+      divide by the axis. A model axis of more than one rank (the dense
+      family) runs the model on the rank's shard (``engine.shard_tree``,
+      ``tp_config``), ``params`` being the whole tree: the cushion is
+      whole on every rank and a rank reads its heads' slice, so where the
+      heads are cut its gradient is the rank's share, summed over tp; the
+      statistics and L_q of a cut activation are the ranks'.
     * On the card every layer's attention runs ``flash_attention`` forward
       and ``flash_attention_bwd`` backward.
     """
@@ -413,6 +420,16 @@ def prefix_tune(api, params, cushion0: Params,
                                                replicated_shardings,
                                                shard_update_step)
         check_data_parallel(api.cfg, int(mesh.data_size), int(mesh.size))
+    shared = None
+    if mesh is not None and int(mesh.size) > 1:
+        from repro_torch.models.common import as_tree
+        from repro_torch.serving import engine as E
+        from repro_torch.train.trainer import sum_shared
+        tp = int(mesh.size)
+        params = E.shard_tree(as_tree(params), api.cfg, mesh)
+        api = dataclasses.replace(api, cfg=E.tp_config(api.cfg, tp))
+        read_in_part = "heads" in api.cfg.tp.cut
+        shared = tree_map(lambda _: E.TPPart(0, read_in_part), cushion0)
     frozen, stop_grad_frozen = _partition_cushion(cushion0)
     opt = AdamW(lr=constant_lr(ccfg.tune_lr), weight_decay=0.0,
                 grad_clip=1.0, frozen=frozen)
@@ -422,9 +439,11 @@ def prefix_tune(api, params, cushion0: Params,
     def step(cush, state, batch):
         grads, metrics = tune_loss_grads(api, params, cush, batch, qcfg,
                                          ccfg, scales, stop_grad_frozen)
+        if shared is not None:
+            grads = sum_shared(grads, shared)
         cush, state, om = opt.update(grads, state, cush)
         metrics["gnorm"] = om["grad_norm"]
-        if DC.data_size() > 1:
+        if DC.data_size() > 1 or DC.tp_size() > 1:
             metrics["ranks_equal"] = _ranks_equal(cush)
         return cush, state, metrics
 

@@ -143,7 +143,7 @@ def act_minmax(x: Tensor, per_token: bool, groups: int = 1,
         if groups > 1:
             raise ValueError("stacked groups (the search's candidates) run "
                              "on one rank")
-        return _tp_extrema(*DC.global_extrema(x))
+        return DC.tp_extrema(x)
     if groups > 1:
         if DC.data_size() > 1:
             raise ValueError("stacked groups (the search's candidates) run "
@@ -617,11 +617,17 @@ def qdot(x: Tensor, w: Any, cfg: QuantConfig,
 
 def site_qerr(x: Tensor, cfg: QuantConfig, site: Optional[SiteScale],
               n_skip: int = 0, groups: int = 1,
-              rng: Optional[Tuple] = None) -> Tensor:
+              rng: Optional[Tuple] = None, cut: bool = False) -> Tensor:
     """||X - q(X)||^2 over the token part (positions >= n_skip): a scalar
     (the global batch's under a data axis), or with ``groups`` > 1 one
     value per stacked tensor, (groups,). ``rng``: the token part's
-    per-tensor (min, max), where the caller has it."""
+    per-tensor (min, max), where the caller has it. ``cut``: x's last axis
+    is the rank's slice of a tensor-parallel cut, and the ranks' partial
+    sums are summed (the range is the ranks')."""
+    cut = cut and DC.tp_size() > 1
+    if cut and groups > 1:
+        raise ValueError("stacked groups (the search's candidates) run on "
+                         "one rank")
     if n_skip:
         x = x[..., n_skip:, :]
     if cfg.mode == "pt_static" and site is not None:
@@ -629,7 +635,8 @@ def site_qerr(x: Tensor, cfg: QuantConfig, site: Optional[SiteScale],
     elif rng is not None and cfg.mode != "ptoken_dynamic":
         scale, zero = params_from_minmax(*rng, cfg.a_bits, cfg.symmetric_a)
     else:
-        mn, mx = act_minmax(x.detach(), cfg.mode == "ptoken_dynamic", groups)
+        mn, mx = act_minmax(x.detach(), cfg.mode == "ptoken_dynamic", groups,
+                            cut)
         scale, zero = params_from_minmax(mn, mx, cfg.a_bits, cfg.symmetric_a)
     scale, zero = scale.detach(), zero.detach()
     xq = dequantize(quantize(x, scale, zero, cfg.a_bits, cfg.symmetric_a),
@@ -637,32 +644,39 @@ def site_qerr(x: Tensor, cfg: QuantConfig, site: Optional[SiteScale],
     err = torch.sub(*_promote(x, xq)).float().square()
     if groups > 1:
         return err.reshape(groups, -1).sum(1)
-    return DC.global_sum(err.sum())
+    err = DC.global_sum(err.sum())
+    return DC.psum(err) if cut else err
 
 
-def site_stats(x: Tensor, n_skip: int = 0) -> Dict[str, Tensor]:
+def site_stats(x: Tensor, n_skip: int = 0, cut: bool = False
+               ) -> Dict[str, Tensor]:
     """A site's range (differentiable: the range penalty of prefix tuning
     reads it) and per-channel absmax, over the global batch under a data
-    axis."""
+    axis and, with ``cut`` (x's last axis is the rank's slice of a
+    tensor-parallel cut), over the ranks' channels."""
     if n_skip:
         x = x[..., n_skip:, :]
-    amin, amax, absmax_ch = DC.global_site_stats(x.float())
+    amin, amax, absmax_ch = DC.global_site_stats(x.float(), cut)
     return {"amin": amin, "amax": amax, "absmax_ch": absmax_ch}
 
 
 def site_taps(x: Tensor, cfg: QuantConfig, site: Optional[SiteScale],
-              n_skip: int = 0, groups: int = 1):
+              n_skip: int = 0, groups: int = 1, cut: bool = False):
     """A site's taps, ``{"qerr", "amin", "amax", "absmax_ch"}``, and x's
     per-tensor (min, max) for the site's quantizer (``qdot(..., rng=)``),
     or None. The statistics' range serves L_q's range and the quantizer's:
     they are the same values (a min and a max are exact in x's dtype), so
-    a site takes its range once (one all-reduce under a data axis)."""
-    stats = site_stats(x, n_skip)
+    a site takes its range once (one all-reduce under a data axis).
+    ``cut``: the input of a row-parallel site under tensor parallelism,
+    whose statistics and L_q are the ranks' (``site_stats``,
+    ``site_qerr``)."""
+    stats = site_stats(x, n_skip, cut)
     rng = None
     if groups == 1:
         rng = (stats["amin"].detach().to(x.dtype),
                stats["amax"].detach().to(x.dtype))
-    taps = {"qerr": site_qerr(x, cfg, site, n_skip, groups, rng), **stats}
+    taps = {"qerr": site_qerr(x, cfg, site, n_skip, groups, rng, cut),
+            **stats}
     return taps, (rng if not n_skip else None)
 
 

@@ -1,43 +1,60 @@
 """The collectives of the port over ``torch.distributed`` (the reference's
 module name, ``repro/distributed/collectives.py``): over the ``tp`` axis
-for tensor-parallel serving, over the ``data`` axis for data-parallel
-tuning and training.
+for tensor-parallel serving and training, over the ``data`` axis for
+data-parallel tuning and training.
 
 The reference leaves its collectives to GSPMD, which inserts them where a
-sharded layout meets a replicated one. The port calls them where the model
-code needs them: ``psum`` after a row-parallel linear (``wo``, ``w_down``)
-and after the vocabulary-sharded embedding, ``pmax`` for the whole weight's
-range when a sharded weight is quantized per call, ``gather_last`` for the
-vocabulary-sharded logits; and, with a data axis active, every reduction
-over the batch: ``global_sum`` (CE's sum, L_q), ``global_extrema`` (the
-per-tensor ranges) and ``global_site_stats`` (the sites' statistics).
+sharded layout meets a replicated one, and differentiates through them.
+The port calls them where the model code needs them: ``psum`` after a
+row-parallel linear (``wo``, ``w_down``) and after the vocabulary-sharded
+embedding, ``pmax`` for the whole weight's range when a sharded weight is
+quantized per call, ``gather_last`` for the vocabulary-sharded logits;
+and, with a data axis active, every reduction over the batch:
+``global_sum`` (CE's sum, L_q), ``global_extrema`` (the per-tensor
+ranges) and ``global_site_stats`` (the sites' statistics).
 
 ``use_tp(mesh)`` makes a ``launch/mesh.TPMesh``'s tp axis, ``use_data(mesh)``
 its data axis, the active group for the model calls inside it (the engines
 enter ``use_tp`` around their prefill and decode calls,
-``train/trainer.shard_update_step`` enters ``use_data`` around a step).
+``train/trainer.shard_update_step`` enters ``use_data``, and ``use_tp``
+where the mesh's model axis has more than one rank, around a step).
 With no active mesh, or an axis of one rank, every collective is a no-op
 and returns its input, and the model code takes the one-rank path. Every
 rank gets the same bits: a sum of integers, a max, and a gather that adds
-zeros are exact in any order, and two ranks' float sums are commutative.
+zeros are exact in any order, and an all-reduce hands every rank the one
+result.
+
+The gradients over the tp axis (Megatron's rules; the ranks compute the
+same loss, and the gradient of a replicated activation is the whole one on
+every rank):
+
+* ``psum`` (reduce-from-tp, after a row-parallel site or the cut
+  embedding): the sum forward, the identity backward;
+* ``copy_to_tp`` (where a replicated activation enters a site whose output
+  columns are cut: ``wqkv``, ``w_gate`` / ``w_up``, the head): the
+  identity forward, the sum of the ranks' partial gradients backward;
+* ``gather_last``: the gather forward, the rank's slice of the gradient
+  backward;
+* ``tp_extrema`` and ``global_site_stats(..., cut=True)`` (the ranks'
+  min and max of a cut activation): the gradient goes to the elements
+  equal to the global value, divided by the global count of such elements
+  (JAX's ``reduce_max`` rule, and ``torch.amax``'s within one rank).
 
 Under a data axis a reduction's value is the global one on every rank and
 its gradient is the rank's share: ``global_sum``'s backward is the
-identity, and a global max or min sends the gradient to the elements equal
-to the global value, divided by the global count of such elements (JAX's
-``reduce_max`` rule, and ``torch.amax``'s within one rank). The gradients
-of replicated leaves summed over the axis (``sum_over_data``) are then the
-global loss's.
+identity, and a global max or min follows the rule above over the axis.
+The gradients of replicated leaves summed over the axis
+(``sum_over_data``) are then the global loss's.
 
 ``compressed_psum`` and ``dp_train_step_compressed`` are the reference's
 int8-payload all-reduce mean and its data-parallel gradient step.
 
 On the dry-run mesh (``launch/mesh.DryRunMesh``: one rank's view of a
 mesh of any size, no process group) the tensors are on ``meta``: every
-all-reduce calls no ``torch.distributed`` and records its result's bytes
-and one ``all-reduce`` in the dry-run's tally (``launch/cost``), the
-collective a real rank issues for the same call (``gather_last`` is an
-all-reduce of the whole width, as it runs).
+all-reduce, the backward's too, calls no ``torch.distributed`` and records
+its result's bytes and one ``all-reduce`` in the dry-run's tally
+(``launch/cost``), the collective a real rank issues for the same call
+(``gather_last`` is an all-reduce of the whole width, as it runs).
 """
 from __future__ import annotations
 
@@ -117,17 +134,63 @@ def _all_reduce(x: torch.Tensor, op, axis: str = "tp") -> torch.Tensor:
     return buf.reshape(x.shape)
 
 
-def psum(x: torch.Tensor, axis: str = "tp") -> torch.Tensor:
-    """The sum of ``x`` over the ranks of ``axis`` (in ``x``'s dtype:
-    callers pass f32 or int32)."""
-    if axis_size(axis) == 1:
-        return x
+def _sum(x: torch.Tensor, axis: str) -> torch.Tensor:
     import torch.distributed as dist
     return _all_reduce(x, dist.ReduceOp.SUM, axis)
 
 
+class _ReduceFromTP(torch.autograd.Function):
+    """The sum over tp; the gradient of each rank's term is the sum's."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _sum(x, "tp")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _CopyToTP(torch.autograd.Function):
+    """The identity; the gradient is the sum of the ranks' partials."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, "tp")
+
+
+def _grad_path(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def psum(x: torch.Tensor, axis: str = "tp") -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axis`` (in ``x``'s dtype:
+    callers pass f32 or int32). Over tp its gradient is the identity
+    (reduce-from-tp)."""
+    if axis_size(axis) == 1:
+        return x
+    if axis == "tp" and _grad_path(x):
+        return _ReduceFromTP.apply(x)
+    return _sum(x, axis)
+
+
+def copy_to_tp(x: torch.Tensor) -> torch.Tensor:
+    """``x``, a replicated activation entering a site whose output columns
+    are the rank's part: its gradient, each rank's part of the whole one,
+    is summed over tp (copy-to-tp). Without a gradient to take, or at one
+    rank, ``x`` itself."""
+    if tp_size() == 1 or not _grad_path(x):
+        return x
+    return _CopyToTP.apply(x)
+
+
 def pmax(x: torch.Tensor, axis: str = "tp") -> torch.Tensor:
-    """The elementwise max of ``x`` over the ranks of ``axis``."""
+    """The elementwise max of ``x`` over the ranks of ``axis`` (no
+    gradient: the quantizers' ranges, which they detach)."""
     if axis_size(axis) == 1:
         return x
     import torch.distributed as dist
@@ -178,22 +241,88 @@ def global_extrema(x: torch.Tensor):
     return -both[0], both[1]
 
 
-class _GlobalSiteStats(torch.autograd.Function):
-    """(min, max, per-channel max of |x| over every axis but the last) of
-    x over the data axis: one all-reduce forward (the max of (-min, max,
-    channel maxima)) and, for the outputs that carry a gradient, one
-    backward (their counts)."""
+def _axes(cut: bool):
+    """The axes a reduction of an activation spans: data where it is
+    active, tp where the activation's last axis is the rank's slice of a
+    cut one (``cut``)."""
+    return tuple(a for a, on in (("data", data_size() > 1),
+                                 ("tp", cut and tp_size() > 1)) if on)
+
+
+def _psum_axes(x: torch.Tensor, axes) -> torch.Tensor:
+    for a in axes:
+        x = _sum(x, a)
+    return x
+
+
+class _Extrema(torch.autograd.Function):
+    """(min, max) of every element of x over ``axes``: one all-reduce
+    forward (the max of (-min, max)) and, for the outputs that carry a
+    gradient, one backward (their elements' counts)."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, axes):
+        ctx.set_materialize_grads(False)
+        # in f32, which holds any bf16 value exactly
+        both = torch.stack([-x.amin(), x.amax()]).float()
+        for a in axes:
+            both = pmax(both, a)
+        mn, mx = (-both[0]).to(x.dtype), both[1].to(x.dtype)
+        ctx.axes = axes
+        ctx.save_for_backward(x, mn, mx)
+        return mn, mx
+
+    @staticmethod
+    def backward(ctx, g_mn, g_mx):
+        x, mn, mx = ctx.saved_tensors
+        pairs = [(g, (x == v).to(g.dtype)) for g, v in ((g_mn, mn),
+                                                         (g_mx, mx))
+                 if g is not None]
+        if not pairs:
+            return None, None
+        counts = _psum_axes(torch.stack([m.sum() for _, m in pairs]),
+                            ctx.axes)
+        grad = torch.zeros_like(x)
+        for i, (g, m) in enumerate(pairs):
+            grad = grad + m * (g / counts[i])
+        return grad, None
+
+
+def tp_extrema(x: torch.Tensor):
+    """``(x.amin(), x.amax())`` of a cut activation over the tp ranks (and
+    the data axis where it is active); on one rank torch's, gradient and
+    all (see the module docstring for the gradient)."""
+    axes = _axes(True)
+    if not axes:
+        return x.amin(), x.amax()
+    return _Extrema.apply(x, axes)
+
+
+class _GlobalSiteStats(torch.autograd.Function):
+    """(min, max, per-channel max of |x| over every axis but the last) of
+    x over the data axis, and the min and max over tp where x's channels
+    are the rank's slice of a cut axis (the channel maxima then gathered
+    in rank order): one all-reduce forward an axis (the max of (-min, max,
+    channel maxima)) and, for the outputs that carry a gradient, one
+    backward an axis (their counts; a channel's over the data axis
+    only)."""
+
+    @staticmethod
+    def forward(ctx, x, cut):
         ctx.set_materialize_grads(False)
         dims = tuple(range(x.dim() - 1))
         local = torch.cat([torch.stack([-x.amin(), x.amax()]),
                            x.abs().amax(dim=dims)])
-        both = pmax(local, "data")
-        mn, mx, ch = -both[0], both[1], both[2:]
+        if data_size() > 1:
+            local = pmax(local, "data")
+        mn, mx, ch = -local[0], local[1], local[2:]
+        ctx.cut = cut and tp_size() > 1
+        ctx.axes = (_axes(ctx.cut), _axes(False))
+        if ctx.cut:
+            both = pmax(torch.stack([-mn, mx]), "tp")
+            mn, mx = -both[0], both[1]
         ctx.save_for_backward(x, mn, mx, ch)
-        return mn, mx, ch
+        return mn, mx, (_gather(ch) if ctx.cut else ch)
 
     @staticmethod
     def backward(ctx, g_mn, g_mx, g_ch):
@@ -204,28 +333,33 @@ class _GlobalSiteStats(torch.autograd.Function):
             if g is not None:
                 masks.append((g, m.to(g.dtype)))
                 sums.append(masks[-1][1].sum().reshape(1))
+        if masks:
+            counts = _psum_axes(torch.cat(sums), ctx.axes[0])
         if g_ch is not None:
+            if ctx.cut:
+                g_ch = _rank_slice(g_ch, ch.shape[-1])
             m_ch = (x.abs() == ch).to(g_ch.dtype)
-            sums.append(m_ch.sum(dim=dims))
-        if not sums:
-            return None
-        counts = psum(torch.cat(sums), "data")
+            n_ch = _psum_axes(m_ch.sum(dim=dims), ctx.axes[1])
+        if not masks and g_ch is None:
+            return None, None
         grad = torch.zeros_like(x)
         for i, (g, m) in enumerate(masks):
             grad = grad + m * (g / counts[i])
         if g_ch is not None:
             # through |x|: the sign of x, 0 at 0 (torch's abs rule)
-            grad = grad + torch.sign(x) * m_ch * (g_ch / counts[len(masks):])
-        return grad
+            grad = grad + torch.sign(x) * m_ch * (g_ch / n_ch)
+        return grad, None
 
 
-def global_site_stats(x: torch.Tensor):
+def global_site_stats(x: torch.Tensor, cut: bool = False):
     """``(x.amin(), x.amax(), x.abs().amax(all axes but the last))`` over
-    the data axis (see the module docstring for the gradient)."""
-    if data_size() == 1:
+    the data axis and, with ``cut`` (x's last axis is the rank's slice of a
+    tensor-parallel cut), over tp, the channel maxima gathered whole (see
+    the module docstring for the gradient)."""
+    if not _axes(cut):
         return x.amin(), x.amax(), x.abs().amax(dim=tuple(range(
             x.dim() - 1)))
-    return _GlobalSiteStats.apply(x)
+    return _GlobalSiteStats.apply(x, cut)
 
 
 def sum_over_data(grads: Any) -> Any:
@@ -302,20 +436,42 @@ def rank_rows(batch: Any, mesh) -> Any:
     return batch[r * n:(r + 1) * n]
 
 
+def _gather(x: torch.Tensor) -> torch.Tensor:
+    n, r = x.shape[-1], tp_rank()
+    full = x.new_zeros((*x.shape[:-1], n * tp_size()))
+    full[..., r * n:(r + 1) * n] = x
+    return _sum(full, "tp")
+
+
+def _rank_slice(g: torch.Tensor, n: int) -> torch.Tensor:
+    return g.narrow(-1, tp_rank() * n, n)
+
+
+class _GatherLast(torch.autograd.Function):
+    """The gather; the gradient is the rank's slice of the whole one."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.n = x.shape[-1]
+        return _gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _rank_slice(g, ctx.n)
+
+
 def gather_last(x: torch.Tensor) -> torch.Tensor:
     """The ranks' slices of the last axis, in rank order: (..., n) per rank
-    -> (..., n * tp). Each rank writes its slice into a zero-filled f32
-    buffer of the whole width and the buffers are summed: adding zeros is
-    exact, and only ``all_reduce`` is needed (gloo takes it on CUDA
-    tensors). Returns ``x``'s dtype."""
-    tp = tp_size()
-    if tp == 1:
+    -> (..., n * tp). Each rank writes its slice into a zero-filled buffer
+    of the whole width, in x's dtype, and the buffers are summed: adding
+    zeros is exact in any dtype, and only ``all_reduce`` is needed (gloo
+    takes it on CUDA tensors, bf16 too). The gradient is the rank's
+    slice."""
+    if tp_size() == 1:
         return x
-    n = x.shape[-1]
-    full = x.new_zeros((*x.shape[:-1], n * tp), dtype=torch.float32)
-    r = tp_rank()
-    full[..., r * n:(r + 1) * n] = x.float()
-    return psum(full).to(x.dtype)
+    if _grad_path(x):
+        return _GatherLast.apply(x)
+    return _gather(x)
 
 
 def broadcast_ints(values, mesh=None, src: int = 0, axis: str = "tp"

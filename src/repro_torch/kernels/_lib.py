@@ -159,18 +159,24 @@ def build() -> Path:
     procs = []
     for src in _sources():
         obj = BUILD_DIR / (src.stem + f".{os.getpid()}.o")
+        log = obj.with_suffix(".log")
         cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-        procs.append((src, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-    objs, errors = [], []
-    for src, obj, p in procs:
-        log, _ = p.communicate()
-        # seconds from the start until this source was done (sources are
-        # awaited in order, so an entry is at least its predecessor's)
-        BUILD_LOG[src.name] = time.perf_counter() - t0
-        if p.returncode != 0:
-            errors.append(f"{src.name}:\n{log.decode(errors='replace')}")
-        objs.append(str(obj))
+        with open(log, "wb") as fh:
+            procs.append((src, obj, log, subprocess.Popen(
+                cmd, stdout=fh, stderr=subprocess.STDOUT)))
+    objs, errors = [str(obj) for _, obj, _, _ in procs], []
+    pending = list(procs)
+    while pending:
+        for item in [x for x in pending if x[3].poll() is not None]:
+            src, _, log, p = item
+            # seconds from the start until this source was done
+            BUILD_LOG[src.name] = time.perf_counter() - t0
+            if p.returncode != 0:
+                errors.append(f"{src.name}:\n"
+                              f"{log.read_text(errors='replace')}")
+            os.remove(log)
+            pending.remove(item)
+        time.sleep(0.05)
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
     tmp = out.with_suffix(f".{os.getpid()}.tmp")

@@ -71,12 +71,14 @@
 //
 // The f32 instantiation keeps the CUDA-core kernel of the first port (one
 // thread per query row, f32 FMAs): no card path runs an f32 prefill, and
-// TF32 tensor cores would change the function. It was not redesigned.
+// TF32 tensor cores would change the function. It was not redesigned; it
+// lives in flash_attention_f32.cu, a translation unit of its own, so that
+// nvcc builds it beside this file.
 //
-// Head dims: 16, 32 and 64, and 128 in bf16 (olmoe's): there the three
-// tiles (87 KB) take dynamic shared memory and two blocks share a SM; the
-// f32 kernel, whose thread holds a row of q and of acc in registers, stays
-// at 64 and below.
+// Head dims: 16, 32, 64 and 80 (stablelm-3b's) in both dtypes, and 128 in
+// bf16 (olmoe's): there the three tiles (87 KB) take dynamic shared memory
+// and two blocks share a SM; the f32 kernel, whose thread holds a row of q
+// and of acc in registers, stays at 80 and below.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -84,112 +86,6 @@
 #include "attention_mma.cuh"
 
 #define NEG_INF (-1e30f)
-
-template <typename T>
-__device__ __forceinline__ float ld(const T* p);
-template <>
-__device__ __forceinline__ float ld<float>(const float* p) { return *p; }
-template <>
-__device__ __forceinline__ float ld<__nv_bfloat16>(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-template <typename T>
-__device__ __forceinline__ void st(T* p, float v);
-template <>
-__device__ __forceinline__ void st<float>(float* p, float v) { *p = v; }
-template <>
-__device__ __forceinline__ void st<__nv_bfloat16>(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-// ---------------------------------------------------------------------------
-// f32: CUDA cores, one thread per query row (not redesigned)
-// ---------------------------------------------------------------------------
-
-constexpr int BQ = 64;
-constexpr int BKV = 32;
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(BQ)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out,
-                       float* __restrict__ lse, int H, int G, int S, int T_,
-                       int P, int LV, int R, long long qsb,
-                       long long qsh, long long qss, long long ksb,
-                       long long ksh, long long kst, long long vsb,
-                       long long vsh, long long vst, long long osb,
-                       long long osh, long long oss, float scale) {
-  __shared__ float Ks[BKV][HD];
-  __shared__ float Vs[BKV][HD];
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H, kh = h / G;
-  const int q0 = blockIdx.x * BQ;
-  const int qi = q0 + threadIdx.x;
-  const bool live = qi < S;
-
-  float qr[HD], acc[HD];
-  const T* qp = q + b * qsb + h * qsh + (long long)(live ? qi : 0) * qss;
-#pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    qr[d] = live ? ld(qp + d) : 0.f;
-    acc[d] = 0.f;
-  }
-  float m = NEG_INF, l = 0.f;
-
-  const T* kb = k + b * ksb + kh * ksh;
-  const T* vb = v + b * vsb + kh * vsh;
-  // last key any query of this tile can see is (q0 + BQ - 1) + R
-  int t_end = q0 + BQ + R;
-  if (t_end > T_) t_end = T_;
-  for (int t0 = 0; t0 < t_end; t0 += BKV) {
-    // a tile wholly in the dead rows [LV, P) is seen by no query
-    if (t0 >= LV && t0 + BKV <= P) continue;
-    for (int i = threadIdx.x; i < BKV * HD; i += BQ) {
-      const int j = i / HD, d = i % HD, t = t0 + j;
-      Ks[j][d] = t < T_ ? ld(kb + (long long)t * kst + d) : 0.f;
-      Vs[j][d] = t < T_ ? ld(vb + (long long)t * vst + d) : 0.f;
-    }
-    __syncthreads();
-    float s[BKV];
-    float mx = m;
-#pragma unroll
-    for (int j = 0; j < BKV; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) dot += qr[d] * Ks[j][d];
-      const int kj = t0 + j;
-      const bool valid = kj < T_ && (kj < LV || (kj >= P && kj <= qi + R));
-      s[j] = valid ? dot * scale : NEG_INF;
-      mx = fmaxf(mx, s[j]);
-    }
-    const float alpha = expf(m - mx);
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < BKV; ++j) {
-      const int kj = t0 + j;
-      const bool valid = kj < T_ && (kj < LV || (kj >= P && kj <= qi + R));
-      s[j] = valid ? expf(s[j] - mx) : 0.f;
-      psum += s[j];
-    }
-    l = l * alpha + psum;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      float a = acc[d] * alpha;
-#pragma unroll
-      for (int j = 0; j < BKV; ++j) a += s[j] * Vs[j][d];
-      acc[d] = a;
-    }
-    m = mx;
-    __syncthreads();
-  }
-  if (live) {
-    const float inv_l = 1.f / fmaxf(l, 1e-30f);
-    T* op = out + b * osb + h * osh + (long long)qi * oss;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) st(op + d, acc[d] * inv_l);
-    if (lse) lse[(long long)bh * S + qi] = m + logf(fmaxf(l, 1e-30f));
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (mma.sync m16n8k16), cp.async double buffering
@@ -205,7 +101,11 @@ constexpr int TTHREADS = TWARPS * 32;
 // three blocks of 4 warps a SM: the registers fit (~160 a thread) without
 // spills; a fourth block would cap them at 128 and spill in the loop. At
 // head_dim 128 (olmoe) a block's tiles take 87 KB, so two blocks a SM fit
-// and the registers may grow to 255 a thread
+// and the registers may grow to 255 a thread; head_dim 80 (stablelm-3b)
+// takes 55 KB and the same two blocks. At 80 every tiling is whole: five
+// k-steps of Q K^T, ten output n-tiles (five ldmatrix.trans pairs), ten
+// 16-byte chunks a row, and the padded row of 88 bf16 (176 bytes, eleven
+// 16-byte units) keeps ldmatrix's eight rows on eight distinct bank groups
 template <int HD>
 constexpr int fa_min_blocks() { return HD > 64 ? 2 : 3; }
 
@@ -440,21 +340,12 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
       str[0], str[1], str[2], str[3], str[4], str[5], str[6], str[7],        \
       str[8], str[9], str[10], str[11], scale
 
-static int dispatch_f32(const void* q, const void* k, const void* v,
-                        void* out, float* lse, int B, int H, int Kh, int S,
-                        int T_, int hd, int P, int LV, int R,
-                        const long long* str, cudaStream_t stream) {
-  dim3 grid((S + BQ - 1) / BQ, B * H);
-  const int G = H / Kh;
-  const float scale = 1.0f / sqrtf((float)hd);
-  switch (hd) {
-    case 16: flash_attention_kernel<float, 16><<<grid, BQ, 0, stream>>>(FA_ARGS(float)); break;
-    case 32: flash_attention_kernel<float, 32><<<grid, BQ, 0, stream>>>(FA_ARGS(float)); break;
-    case 64: flash_attention_kernel<float, 64><<<grid, BQ, 0, stream>>>(FA_ARGS(float)); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
+// the f32 instantiation's dispatch (flash_attention_f32.cu, compiled beside
+// this file)
+int flash_attention_dispatch_f32(const void* q, const void* k, const void* v,
+                                 void* out, float* lse, int B, int H, int Kh,
+                                 int S, int T_, int hd, int P, int LV, int R,
+                                 const long long* str, cudaStream_t stream);
 
 // one launch of the bf16 kernel; above 48 KB of dynamic shared memory the
 // kernel is allowed it once, at its first launch (before any graph capture:
@@ -484,6 +375,7 @@ static int dispatch_bf16(const void* q, const void* k, const void* v,
     case 16: return launch_mma<16>(grid, stream, FA_ARGS(bf16));
     case 32: return launch_mma<32>(grid, stream, FA_ARGS(bf16));
     case 64: return launch_mma<64>(grid, stream, FA_ARGS(bf16));
+    case 80: return launch_mma<80>(grid, stream, FA_ARGS(bf16));
     case 128: return launch_mma<128>(grid, stream, FA_ARGS(bf16));
     default: return (int)cudaErrorInvalidValue;
   }
@@ -509,6 +401,6 @@ extern "C" int flash_attention_launch(
   if (bf16_in)
     return dispatch_bf16(q, k, v, out, l, B, H, Kh, S, T_, hd, prefix_len,
                          prefix_live, R, str, st);
-  return dispatch_f32(q, k, v, out, l, B, H, Kh, S, T_, hd, prefix_len,
-                      prefix_live, R, str, st);
+  return flash_attention_dispatch_f32(q, k, v, out, l, B, H, Kh, S, T_, hd,
+                                      prefix_len, prefix_live, R, str, st);
 }

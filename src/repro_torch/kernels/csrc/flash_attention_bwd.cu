@@ -120,22 +120,29 @@ __global__ void attn_bwd_delta(const float* __restrict__ o,
 
 typedef __nv_bfloat16 bf16;
 
-// D = rowsum(dO * O): hd / 8 lanes a row, one 16-byte
-// load of each a lane (rows 16-byte aligned, as the wrapper ensures). The
-// kernel launched after it may start at once (programmatic dependent
-// launch): its blocks stage their tiles meanwhile and wait for D before
-// they read it.
+// lanes a row of attn_bwd_delta_bf16: hd / 8 rounded up to a power of two
+// (16 at head_dim 80), so that a row's lanes lie in one warp and sum by
+// butterfly shuffles; the lanes past hd / 8 add zeros
+__host__ __device__ constexpr int delta_lanes(int hd) {
+  return hd / 8 <= 2 ? 2 : 2 * delta_lanes((hd / 8 + 1) / 2 * 8);
+}
+
+// D = rowsum(dO * O): delta_lanes(hd) lanes a row, one 16-byte
+// load of each a lane below hd / 8 (rows 16-byte aligned, as the wrapper
+// ensures). The kernel launched after it may start at once (programmatic
+// dependent launch): its blocks stage their tiles meanwhile and wait for D
+// before they read it.
 __global__ void attn_bwd_delta_bf16(const bf16* __restrict__ o,
                                     const bf16* __restrict__ dout,
                                     float* __restrict__ delta, int H, int S,
                                     int hd, long long n_rows, Strides str) {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-  const int lpr = hd / 8;
+  const int lpr = delta_lanes(hd);
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long row = idx / lpr;
   const int part = (int)(idx % lpr);
   float acc = 0.f;
-  if (row < n_rows) {
+  if (row < n_rows && part < hd / 8) {
     const int i = (int)(row % S);
     const int h = (int)((row / S) % H);
     const int b = (int)(row / ((long long)S * H));
@@ -594,7 +601,9 @@ __device__ __forceinline__ void dq_block(const MmaArgs& A, int blk,
 // blocks (in clusters of GB * NC), of one grid; three blocks a SM. At
 // head_dim 128 (olmoe) the four tiles take 68 KB of dynamic shared memory
 // (past a static allocation's 48 KB) and one block a SM lets a thread hold
-// its fragments and accumulators in up to 255 registers
+// its fragments and accumulators in up to 255 registers; so at head_dim 80
+// (stablelm-3b: 45 KB, five k-steps and ten n-tiles; the cluster's f32 dK
+// and dV, 40 KB, fit in the four tiles)
 template <int HD>
 constexpr int mma_min_blocks() { return HD > 64 ? 1 : 3; }
 
@@ -656,7 +665,8 @@ int run_mma(const void* q, const void* k, const void* v, const void* o,
   A.scale = (float)(1.0 / sqrt((double)HD));
   A.scale_log2 = (float)(1.4426950408889634 / sqrt((double)HD));
   A.str = str;
-  const long long rows = (long long)B * H * S, lanes = rows * (HD / 8);
+  const long long rows = (long long)B * H * S,
+                  lanes = rows * delta_lanes(HD);
   attn_bwd_delta_bf16<<<(unsigned)((lanes + 255) / 256), 256, 0, st>>>(
       (const bf16*)o, (const bf16*)dout, ws, H, S, HD, rows, str);
   const int err = (int)cudaGetLastError();
@@ -708,6 +718,14 @@ __device__ __forceinline__ void load_tile(float (*s)[HD + 1], const float* base,
   }
 }
 
+// the K, V, Q and dO tiles, P and dS, the rows' lse and D of
+// attn_bwd_dkdv, in dynamic shared memory: 49.7 KB at head_dim 80, past a
+// static allocation's 48 KB
+template <int HD>
+constexpr int dkdv_smem_bytes() {
+  return (4 * BT * (HD + 1) + 2 * BT * (BT + 1) + 2 * BT) * 4;
+}
+
 // dK, dV of 32 keys of one kv-head: grid (key tiles, B * Kh)
 template <int HD>
 __global__ void __launch_bounds__(NT)
@@ -717,10 +735,17 @@ attn_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
               float* __restrict__ dk, float* __restrict__ dv, int H, int Kh,
               int S, int T_, int P, int LV, int R, Strides str, float scale) {
   constexpr int NPT = HD / TPR;     // output dims a thread
-  __shared__ float Ks[BT][HD + 1], Vs[BT][HD + 1];
-  __shared__ float Qs[BT][HD + 1], Ds[BT][HD + 1];
-  __shared__ float Ps[BT][BT + 1], Ss[BT][BT + 1];
-  __shared__ float lse_s[BT], del_s[BT];
+  typedef float Row[HD + 1];
+  typedef float PRow[BT + 1];
+  extern __shared__ float dkdv_smem[];
+  Row* const Ks = reinterpret_cast<Row*>(dkdv_smem);
+  Row* const Vs = Ks + BT;
+  Row* const Qs = Vs + BT;
+  Row* const Ds = Qs + BT;
+  PRow* const Ps = reinterpret_cast<PRow*>(Ds + BT);
+  PRow* const Ss = Ps + BT;
+  float* const lse_s = reinterpret_cast<float*>(Ss + BT);
+  float* const del_s = lse_s + BT;
   const int t0 = blockIdx.x * BT;
   const int b = blockIdx.y / Kh, kh = blockIdx.y % Kh, G = H / Kh;
   const int tid = threadIdx.x;
@@ -883,7 +908,14 @@ int run_f32(const void* q, const void* k, const void* v, const void* o,
   int err = (int)cudaGetLastError();
   if (err) return err;
   dim3 g_kv((T_ + BT - 1) / BT, B * Kh);
-  attn_bwd_dkdv<HD><<<g_kv, NT, 0, st>>>(
+  constexpr int smem = dkdv_smem_bytes<HD>();
+  if (smem > 48 * 1024) {
+    // allowed once, at the first launch (before any graph capture)
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        attn_bwd_dkdv<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (attr != cudaSuccess) return (int)attr;
+  }
+  attn_bwd_dkdv<HD><<<g_kv, NT, smem, st>>>(
       (cf)q, (cf)k, (cf)v, (cf)dout, lse, delta, (float*)dk, (float*)dv, H,
       Kh, S, T_, P, LV, R, str, scale);
   err = (int)cudaGetLastError();
@@ -934,6 +966,7 @@ extern "C" int flash_attention_bwd_launch(
       case 16: return BWD(run_mma, 16);
       case 32: return BWD(run_mma, 32);
       case 64: return BWD(run_mma, 64);
+      case 80: return BWD(run_mma, 80);
       case 128: return BWD(run_mma, 128);
     }
   } else {
@@ -941,6 +974,7 @@ extern "C" int flash_attention_bwd_launch(
       case 16: return BWD(run_f32, 16);
       case 32: return BWD(run_f32, 32);
       case 64: return BWD(run_f32, 64);
+      case 80: return BWD(run_f32, 80);
     }
   }
 #undef BWD

@@ -180,6 +180,9 @@ __device__ __forceinline__ acc_t warp_max(acc_t v) {
 // 128, olmoe's)
 template <int HD>
 constexpr int fd_smem_bytes() { return (2 * CH * (HD + 4) + GMAX * HD) * 4; }
+// the kernel's static shared memory (Ps, Ls, Mrun, Resc, s_last): with it
+// the dynamic bytes pass 48 KB at head_dim 80 (stablelm-3b) as well
+constexpr int FD_STATIC_BYTES = (2 * GMAX * CH + 2 * GMAX) * 4 + 4;
 
 template <typename T, typename C, int HD, typename Addr>
 __global__ void __launch_bounds__(NT)
@@ -422,13 +425,13 @@ static int dispatch(const void* q, const void* k, const void* v,
       (const float*)vs, scale_per_row, (const T*)kc, (const T*)vc,         \
       (const int*)pos, per_row, (T*)out, H, K, Smax, mc, kv0, Kmem, scale, \
       addr, (acc_t*)ws, (int*)tickets
-  // above 48 KB of dynamic shared memory a kernel is allowed it once, at
-  // its first launch (before any graph capture: a captured step runs twice
-  // first, serving/graphs.py)
+  // above 48 KB of shared memory, static and dynamic together, a kernel
+  // is allowed it once, at its first launch (before any graph capture: a
+  // captured step runs twice first, serving/graphs.py)
 #define FD_CASE(HD_)                                                        \
   case HD_: {                                                               \
     constexpr int smem = fd_smem_bytes<HD_>();                              \
-    if (smem > 48 * 1024) {                                                 \
+    if (smem + FD_STATIC_BYTES > 48 * 1024) {                               \
       static const cudaError_t attr = cudaFuncSetAttribute(                 \
           flash_decode_kernel<T, C, HD_, Addr>,                             \
           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);               \
@@ -442,6 +445,7 @@ static int dispatch(const void* q, const void* k, const void* v,
     FD_CASE(16)
     FD_CASE(32)
     FD_CASE(64)
+    FD_CASE(80)
     FD_CASE(128)
     default: return (int)cudaErrorInvalidValue;
   }

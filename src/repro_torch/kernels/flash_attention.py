@@ -135,9 +135,9 @@ def _check(q: Tensor, k: Tensor, v: Tensor) -> None:
     if q.dtype not in (torch.float32, torch.bfloat16) \
             or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("q, k, v must share one dtype, f32 or bf16")
-    if hd not in (16, 32, 64) and not (hd == 128
-                                       and q.dtype == torch.bfloat16):
-        raise ValueError(f"head_dim {hd} not built (16, 32, 64; 128 in "
+    if hd not in (16, 32, 64, 80) and not (hd == 128
+                                           and q.dtype == torch.bfloat16):
+        raise ValueError(f"head_dim {hd} not built (16, 32, 64, 80; 128 in "
                          f"bf16)")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("head_dim must be the contiguous axis")

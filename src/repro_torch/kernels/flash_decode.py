@@ -146,7 +146,7 @@ def _operands(q, k, v, pos, k_scale, v_scale, kc, vc, K: int, kv_heads):
             or kv0 < 0 or kv0 + n > K:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}, KV heads [{kv0}, {kv0 + n})")
-    if hd not in (16, 32, 64, 128) or H // n > 8:
+    if hd not in (16, 32, 64, 80, 128) or H // n > 8:
         raise ValueError(f"head_dim {hd} / group {H // n} not built")
     cache_dt = torch.int8 if quantized else q.dtype
     if k.dtype != cache_dt or v.dtype != cache_dt:

@@ -42,11 +42,24 @@ meta run's seconds. Beside the reference's keys: ``launches`` by kernel,
 ``cache_bytes_per_chip`` (what the rank holds), ``rank_batch`` and
 ``device``.
 
+A ``train_4k`` cell runs one rank's ``train/trainer.shard_train_step``
+(``train_program``): the whole tree's specs by the training rules
+(``DEFAULT_RULES``), the rank's shards of it (``data_shards``: the
+tensor-parallel cut at the mesh's model axis, then the "data" shard of
+every "D" leaf) and their AdamW moments, its rows of the global batch in
+the reference's microbatches (``auto``: B // n_batch, one row a rank a
+microbatch), and one step: the FSDP gather over ``data``, the forward and
+backward with every tensor-parallel collective of
+``distributed/collectives.py`` and its gradient, the gradients summed over
+tp and data, the norm and the update. ``param_bytes_per_chip`` is then
+the rank's parameter shards, ``opt_bytes_per_chip`` its moments.
+
 Cells the port cannot run are written the way the reference writes a cell
-that fails, ``ok: false`` with the reason: ``train_4k`` on a ``model``
-axis of more than one rank (tensor-parallel training, ROADMAP queue 1,
-item 6.10), serving under ``--param-shard fsdp`` (FSDP-sharded serving
-weights, item 6.12), and whatever the engines refuse at the mesh's tp.
+that fails, ``ok: false`` with the reason: ``train_4k`` of a family but
+the dense one (tensor-parallel training of the other families, ROADMAP
+queue 1, item 6.10b, and of the experts over a data axis, 6.11), serving
+under ``--param-shard fsdp`` (FSDP-sharded serving weights, item 6.12),
+and whatever the engines refuse at the mesh's tp.
 ``--all`` runs every applicable cell of both production meshes (the
 reference's ``--all --both-meshes``). ``--out`` defaults to
 ``results/dryrun_torch.jsonl``; a cell already there is skipped.
@@ -70,8 +83,10 @@ from repro_torch.distributed import collectives as DC
 from repro_torch.distributed import sharding as SH
 from repro_torch.launch import cost
 from repro_torch.launch.mesh import dryrun_mesh, production_shape
+from repro_torch.models.common import as_tree
 from repro_torch.models.registry import build
 from repro_torch.serving import engine as E
+from repro_torch.train import trainer as TR
 
 # one H100 SXM's published peaks (dense), per card
 DEVICE = "NVIDIA H100 80GB HBM3 (SXM)"
@@ -80,9 +95,9 @@ PEAK_OPS_INT8 = 1979e12
 HBM_BW = 3.35e12
 NVLINK_BW = 450e9           # each way
 
-TRAIN_REFUSAL = ("tensor-parallel training: a train step on a 'model' axis "
-                 "of {tp} ranks is not ported (train/trainer.py "
-                 "check_data_parallel; ROADMAP queue 1, item 6.10)")
+# a train cell of a family that tensor-parallel training does not run
+# (train/trainer.py check_data_parallel)
+TRAIN_REFUSAL = TR.TP_TRAINING_LATER
 FSDP_REFUSAL = ("FSDP-sharded serving weights (--param-shard fsdp): the "
                 "port's engines hold tensor-parallel shards only, weights "
                 "whole over the data axis (ROADMAP queue 1, item 6.12)")
@@ -259,9 +274,65 @@ def measure(call, arguments: Dict[str, Any]) -> Dict[str, Any]:
             "arguments": args, "seconds": seconds}
 
 
-def measure_program(program: Program) -> Dict[str, Any]:
-    """``measure`` of a serving program."""
+def measure_program(program) -> Dict[str, Any]:
+    """``measure`` of a serving or a train program."""
     return measure(program, program.arguments())
+
+
+@dataclasses.dataclass
+class TrainProgram:
+    """One rank's train step: ``shard_train_step``'s function, the rank's
+    shards and moments, the global batch."""
+    fn: Any
+    params: Any
+    opt: Any
+    inputs: Dict[str, torch.Tensor]
+    # the rank's parameter bytes by the reference's specs
+    spec_bytes: Optional[Dict[str, int]] = None
+
+    def arguments(self) -> Dict[str, Any]:
+        return {"params": self.params, "opt": self.opt,
+                "inputs": self.inputs}
+
+    def __call__(self):
+        return self.fn(self.params, self.opt, self.inputs)
+
+
+def train_program(cfg: ModelConfig, B: int, S: int, *, mesh,
+                  quant: str = "none", cushion_m: int = 0,
+                  microbatches="auto", device="meta",
+                  params=None) -> TrainProgram:
+    """One rank's ``shard_train_step`` of a train cell at global batch B
+    and S positions on ``mesh`` (see the module docstring): on meta by
+    default, with a shapes-only tree; on another device from the given
+    whole tree ``params`` and a batch of zeros. AdamW at the reference's
+    dry-run schedule; ``microbatches`` "auto" is the reference's B //
+    n_batch."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.optim.adamw import AdamW, cosine_lr
+    qcfg = QuantConfig(mode=quant, true_int8=(quant == "pt_static"))
+    TR.check_data_parallel(cfg, int(mesh.data_size), int(mesh.size))
+    api = build(cfg, device)
+    whole = api.init_params().tree() if params is None \
+        else as_tree(params)
+    cushion = api.cushion_zeros(cushion_m) if cushion_m else None
+    run = RunConfig(model=cfg, quant=qcfg, seq_len=S, global_batch=B)
+    opt = AdamW(lr=cosine_lr(3e-4, 100, 1000))
+    n_b = int(mesh.data_size)
+    mb = max(1, B // n_b) if microbatches == "auto" else int(microbatches)
+    fn, p_specs, _ = TR.shard_train_step(api, run, opt, mesh, whole,
+                                         microbatches=mb, cushion=cushion)
+    spec = None
+    if api.device.type == "meta":
+        spec = {"params": spec_bytes(whole, p_specs, mesh)}
+    shards = TR.data_shards(whole, p_specs, mesh, cfg=cfg)
+    del whole
+    inputs = api.input_specs(B, S)
+    if api.device.type != "meta":
+        inputs = {k: torch.zeros(v.shape, dtype=v.dtype, device=api.device)
+                  for k, v in inputs.items()}
+    return TrainProgram(fn=fn, params=shards, opt=opt.init(shards),
+                        inputs=inputs, spec_bytes=spec)
 
 
 def train_step_cost(cfg: ModelConfig, B: int, S: int) -> Dict[str, Any]:
@@ -305,17 +376,24 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
     kind = shp["kind"]
     B, S = shp["global_batch"], shp["seq_len"]
     if kind == "train":
-        raise NotImplementedError(TRAIN_REFUSAL.format(tp=mesh.size))
-    if param_shard != "tp":
+        # the training rules (FSDP and tensor parallel) at either flag, as
+        # the reference's
+        prog = train_program(cfg, B, S, mesh=mesh, quant=quant,
+                             cushion_m=cushion_m,
+                             microbatches=microbatch_policy)
+    elif param_shard != "tp":
         raise NotImplementedError(FSDP_REFUSAL)
-    prog = serving_program(cfg, kind, B, S, mesh=mesh, quant=quant,
-                           cushion_m=cushion_m,
-                           prequant=prequant and kind != "train")
+    else:
+        prog = serving_program(cfg, kind, B, S, mesh=mesh, quant=quant,
+                               cushion_m=cushion_m, prequant=prequant)
     got = measure_program(prog)
     record = analyze(got, arch, shape_name, multi_pod, kind, quant,
                      cushion_m, cfg, B, S, mesh, param_shard, prequant)
     record["param_bytes_spec_per_chip"] = prog.spec_bytes["params"]
-    record["cache_bytes_spec_per_chip"] = prog.spec_bytes["cache"]
+    if kind == "train":
+        record["opt_bytes_per_chip"] = got["arguments"]["opt"]
+    else:
+        record["cache_bytes_spec_per_chip"] = prog.spec_bytes["cache"]
     record["compile_s"] = round(got["seconds"], 1)
     record["param_shard"] = param_shard
     record["prequant"] = prequant
@@ -354,7 +432,7 @@ def analyze(got, arch, shape_name, multi_pod, kind, quant, cushion_m, cfg,
         "params": cfg.param_count(), "active_params": n_active,
         "launches": got["launches"], "int8_flops_per_chip": got["int8_flops"],
         "param_bytes_per_chip": got["arguments"]["params"],
-        "cache_bytes_per_chip": got["arguments"]["cache"],
+        "cache_bytes_per_chip": got["arguments"].get("cache", 0),
         "rank_batch": rank_rows(B, mesh), "device": DEVICE,
     }
 

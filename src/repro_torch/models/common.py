@@ -34,7 +34,13 @@ Conventions
   (``gather_last``); whole ones take no collective. Decode attention runs
   ``ops.decode_attention_tp`` / ``decode_attention_tp_paged``. A leaf the
   reference keeps whole but whose output the rank needs only a part of
-  is read through a window of its columns (``rank_window``).
+  is read through a window of its columns (``rank_window``). Under
+  autograd (tensor-parallel training, ``train/trainer.py``) a replicated
+  activation enters a site whose output columns are cut through
+  ``collectives.copy_to_tp`` (``qlinear``'s ``x_tp``, ``copy_to_cut``),
+  whose backward sums the ranks' partial gradients; the row-parallel sums
+  pass the gradient through whole; a row-parallel site's taps are the
+  ranks' (``Q.site_taps(..., cut=)``).
 """
 from __future__ import annotations
 
@@ -290,6 +296,13 @@ def tp_cut(cfg: ModelConfig, axis: str) -> bool:
     return cfg.tp is not None and axis in cfg.tp.cut
 
 
+def copy_to_cut(x: Tensor, cfg: ModelConfig, axis: str) -> Tensor:
+    """x through ``collectives.copy_to_tp`` where the rank holds a part of
+    ``axis`` (the output columns of the site x enters), else x: a whole
+    site reads x as every rank does, its gradient whole already."""
+    return DC.copy_to_tp(x) if tp_cut(cfg, axis) else x
+
+
 def kv_window(cfg: ModelConfig) -> Optional[Tuple[int, int]]:
     """Where a rank's query heads are cut and the KV heads whole on every
     rank: (the first KV head, the count) of the whole cache that its H/tp
@@ -316,16 +329,21 @@ def get_site(scales: Optional[Params], name: str) -> Optional[Q.SiteScale]:
 def qlinear(x: Tensor, w, b: Optional[Tensor], qcfg: QuantConfig,
             scales: Optional[Params], site: str, taps: Optional[Dict],
             n_skip: int = 0, groups: int = 1,
-            row_parallel: bool = False) -> Tensor:
+            row_parallel: bool = False,
+            x_tp: Optional[Tensor] = None) -> Tensor:
     """y = q(x) @ q(w) + b, recording taps for ``site`` when collecting.
     ``row_parallel``: the site's contracting axis is the one tensor
-    parallelism shards (``wo``, ``w_down``; ``Q.qdot``)."""
+    parallelism shards (``wo``, ``w_down``; ``Q.qdot``), and its taps are
+    the ranks'. ``x_tp``: where the site's output columns are the rank's
+    part, x through ``collectives.copy_to_tp``, which the product reads
+    (its gradient summed over the ranks; the taps read x itself, whose
+    gradient is whole on every rank)."""
     rng = None
     if taps is not None:
         taps[site], rng = Q.site_taps(x, qcfg, get_site(scales, site),
-                                      n_skip, groups)
-    y = Q.qdot(x, w, qcfg, get_site(scales, site), groups, row_parallel,
-               rng)
+                                      n_skip, groups, row_parallel)
+    y = Q.qdot(x if x_tp is None else x_tp, w, qcfg, get_site(scales, site),
+               groups, row_parallel, rng)
     if b is not None:
         y = y + b
     return y
@@ -397,7 +415,7 @@ def attention_full(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
     its length, so the kernel's launch takes no mask tensor."""
     B, S, _ = x.shape
     qkv = qlinear(x, p["wqkv"], p.get("bqkv"), qcfg, scales, "qkv", taps,
-                  n_skip, groups)
+                  n_skip, groups, x_tp=copy_to_cut(x, cfg, "heads"))
     q, k, v = _split_qkv(qkv, cfg)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
@@ -566,12 +584,14 @@ def apply_mlp(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
     the ranks."""
     if cut is None:
         cut = tp_cut(cfg, "d_ff")
+    # one copy-to-tp for both products: one sum of the gradient
+    x_tp = DC.copy_to_tp(x) if cut else x
     up = qlinear(x, p["w_up"], None, qcfg, scales, "mlp_in", taps, n_skip,
-                 groups)
+                 groups, x_tp=x_tp)
     if cfg.gated_mlp:
         # gate shares the "mlp_in" site (same input tensor -> same scale)
         gate = qlinear(x, p["w_gate"], None, qcfg, scales, "mlp_in", None,
-                       n_skip, groups)
+                       n_skip, groups, x_tp=x_tp)
         h = F.silu(gate) * up
     else:
         h = F.gelu(up, approximate="tanh")      # jax.nn.gelu's default
@@ -606,7 +626,9 @@ def embed_tokens(p: Params, tokens: Tensor, cfg: ModelConfig) -> Tensor:
     e = F.embedding(local.clamp(0, n - 1), w)
     e = torch.where(mine[..., None], e, torch.zeros((), dtype=e.dtype,
                                                     device=e.device))
-    return DC.psum(e.float()).to(w.dtype)
+    # one rank holds each row: the sum adds zeros, exact in the table's
+    # dtype
+    return DC.psum(e)
 
 
 def lm_head(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
@@ -617,13 +639,15 @@ def lm_head(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
     vocab x d_model bytes that the reference does not hold, and the port's
     resident bytes are held equal to JAX's. ``last``: the head reads
     every position of x (a dynamic range spans them) and returns the last
-    position's logits (B, 1, V), taken before a cut vocabulary's gather."""
+    position's logits (B, 1, V), taken before a cut vocabulary's gather
+    (whose gradient is the rank's columns)."""
     w = p["embed"]["w"].T if cfg.tie_embeddings else p["head"]["w"]
     site = scales.get("head") if scales is not None else None
     rng = None
     if taps is not None:
         taps["head"], rng = Q.site_taps(x, qcfg, site, n_skip, groups)
-    logits = Q.qdot(x, w, qcfg, site, groups, rng=rng)
+    logits = Q.qdot(copy_to_cut(x, cfg, "vocab"), w, qcfg, site, groups,
+                    rng=rng)
     if last:
         logits = logits[:, -1:]
     # a rank's cut vocabulary columns, gathered

@@ -126,9 +126,11 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, qcfg: QuantConfig, *,
         + torch.arange(S, device=x.device)
     lscales = C.resolve_scales(scales, SITES, L, qcfg, x.device)
     layer_taps = []
+    # under tensor parallelism the cushion is whole on every rank and a
+    # rank reads its KV heads (the gradient of the others is zero here)
     for lp, lsc, lpre in zip(C.unstack(params["layers"], L),
                              C.unstack(lscales, L),
-                             _cushion_layers(cushion, L)):
+                             _cushion_layers(local_cushion(cushion, cfg), L)):
         x, taps = C.remat_call(remat, _block, lp, x, cfg, qcfg, lsc, lpre,
                                positions, collect, n_skip, prefix_valid,
                                groups)

@@ -65,20 +65,28 @@ def tree_paths(tree: Any) -> Any:
     return _unflatten(tree, iter(["/".join(p) for p, _ in _flatten(tree)]))
 
 
-def _sharded_norm(gs: List[Tensor], sharded: List[bool]) -> Tensor:
-    """The global norm of a tree whose ``sharded`` leaves are this rank's
-    shards over the active data axis: their squared sums summed over the
-    axis, plus the replicated leaves' once."""
+def _sharded_norm(gs: List[Tensor], sharded: List[Any]) -> Tensor:
+    """The global norm of a tree held in shards (``sharded``: each leaf's
+    ``train/trainer.Shard``, ``(data, own)``): the squared sums of a
+    leaf's "data" shard summed over the active data axis, those of the
+    rank's tensor-parallel part (the leading ``own`` entries of its last
+    axis, -1 all of them) over the tp axis as well, and each entry whole on
+    every rank counted once."""
     from repro_torch.distributed import collectives as DC
     zero = torch.zeros((), dtype=torch.float32, device=gs[0].device)
-    part, rep = zero, zero
-    for g, s in zip(gs, sharded):
-        sq = g.float().square().sum()
-        if s:
-            part = part + sq
-        else:
-            rep = rep + sq
-    return torch.sqrt(DC.psum(part, "data") + rep)
+    # once, over data, over tp, over both
+    sums = [zero] * 4
+    for g, (data, own) in zip(gs, sharded):
+        g = g.float().reshape(g.shape or (1,))
+        n = g.shape[-1] if own < 0 else own
+        for whole, t in ((False, g.narrow(-1, 0, n)),
+                         (True, g.narrow(-1, n, g.shape[-1] - n))):
+            if t.numel():
+                i = int(data) + (0 if whole else 2)
+                sums[i] = sums[i] + t.square().sum()
+    over_data = DC.psum(torch.stack([sums[1], sums[3]]), "data")
+    over_tp = DC.psum(torch.stack([sums[2], over_data[1]]), "tp")
+    return torch.sqrt(over_data[0] + sums[0] + over_tp[0] + over_tp[1])
 
 
 class AdamWState(NamedTuple):
@@ -117,11 +125,12 @@ class AdamW:
     def update(self, grads: Any, state: AdamWState, params: Any,
                sharded: Any = None):
         """One step. Returns (params, state, {"grad_norm", "lr"}).
-        ``sharded``: a tree of bools beside ``params`` marking the leaves
-        that hold this rank's shard of a leaf split over the active data
-        axis (``train/trainer.shard_train_step``); the clip's norm is then
-        the whole tree's, the sharded leaves' squares summed over the axis
-        and each replicated leaf counted once."""
+        ``sharded``: a tree of ``train/trainer.Shard`` beside ``params``
+        marking how each leaf holds this rank's shard of a leaf split over
+        the active data axis and the tp axis
+        (``train/trainer.shard_train_step``); the clip's norm is then the
+        whole tree's, the shards' squares summed over their axes and each
+        replicated entry counted once."""
         ps = tree_leaves(params)
         gs = tree_leaves(grads)
         ms, vs = tree_leaves(state.mu), tree_leaves(state.nu)

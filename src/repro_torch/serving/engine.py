@@ -40,7 +40,7 @@ from __future__ import annotations
 import dataclasses
 import re
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -293,6 +293,47 @@ def leaf_cut(path: str, cfg: ModelConfig, tp: int):
                 return None
             return axis, dim, how
     return None
+
+
+class TPPart(NamedTuple):
+    """How a rank holds one leaf of its tree in tensor-parallel training:
+    the leading ``own`` entries of its last axis are the rank's part of a
+    leaf cut over tp (-1: all of it; 0: none, the leaf whole on every
+    rank); ``summed``: the rest, whole on every rank, is read in part (each
+    rank's program reads some of it, so its gradient is the rank's share,
+    summed over tp where the gradients meet the optimizer)."""
+    own: int
+    summed: bool
+
+
+def tp_leaf_parts(params: Any, cfg: ModelConfig, tp: int) -> Any:
+    """``TPPart`` of every leaf of a parameter tree at ``tp`` (the dense
+    family's training layout, ``shard_tree``'s cut): a leaf ``leaf_cut``
+    cuts is the rank's; the fused ``wqkv`` / ``bqkv`` where the query heads
+    are cut and the KV heads whole holds the rank's query columns, then
+    every KV head's, whose gradient is summed (a KV head's query heads lie
+    on several ranks: deepseek-67b at tp = 16); every other leaf is whole
+    and read whole (the norms, smollm-360m's attention at tp = 2, whose 15
+    heads every rank computes whole: no sum, which would double it)."""
+    lay = tp_layout(cfg, tp)
+    kv_whole = "heads" in lay.cut and "kv_heads" not in lay.cut
+    own_q = cfg.n_heads // tp * cfg.head_dim
+
+    def part(path):
+        c = leaf_cut(path, cfg, tp) if tp > 1 else None
+        if c is None:
+            return TPPart(0, False)
+        if c[2] == "qkv" and kv_whole:
+            return TPPart(own_q, True)
+        return TPPart(-1, False)
+
+    def visit(node):
+        if isinstance(node, dict):
+            return {k: visit(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [visit(v) for v in node]
+        return part(node)
+    return visit(SH.tree_paths(params))
 
 
 def _leaves(tree: Any):

@@ -25,14 +25,28 @@ takes the same update. ``shard_train_step`` adds FSDP: a rank keeps the
 moments of that shard (ZeRO-1); a step gathers the whole leaves, runs on
 the rank's rows, keeps its shard of the summed gradients (an all-reduce,
 then a slice: gloo on one card has no reduce-scatter for CUDA tensors) and
-updates the shard, clipping by the whole tree's norm. Tensor-parallel
-training (a ``model`` axis of more than one rank) and the experts over a
-data axis are not ported yet (ROADMAP queue 1, items 6.10 and 6.11).
+updates the shard, clipping by the whole tree's norm.
+
+Tensor-parallel training (the dense family on a ``model`` axis of more
+than one rank): a rank's tree, once gathered over ``data``, is the one
+``serving/engine.shard_tree`` gives a rank at that tp, and the rank runs
+its config (``tp_config``) with the mesh's tp axis active, so the model
+code's collectives and their gradients (``distributed/collectives.py``:
+copy-to-tp where a replicated activation enters a cut site, reduce-from-tp
+after a row-parallel one) make every replicated activation's gradient the
+whole one on every rank. A leaf whole on every rank but read in part
+(``engine.tp_leaf_parts``: every KV head's ``wqkv`` columns where the KV
+heads do not divide) has its gradient summed over tp where the gradients
+meet the optimizer; the clip's norm sums the squares of the rank's parts
+over tp and counts each whole leaf once. The other families on a model
+axis and the experts over a data axis are not ported yet (ROADMAP queue 1,
+items 6.10b and 6.11).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -42,6 +56,7 @@ from repro_torch.configs.base import (Family, ModelConfig, QuantConfig,
 from repro_torch.core.quantization import SiteScale
 from repro_torch.distributed import collectives as DC
 from repro_torch.distributed import sharding as SH
+from repro_torch.launch import cost
 from repro_torch.models.common import as_tree
 from repro_torch.optim.adamw import (AdamW, AdamWState, cosine_lr,
                                      tree_leaves, tree_map)
@@ -127,16 +142,23 @@ def _train_step(api, run: RunConfig, opt: AdamW, microbatches: int,
                 a.shape, dtype=torch.float32, device=a.device), full)
             lsum = torch.zeros((), dtype=torch.float32,
                                device=tree_leaves(full)[0].device)
-            for i in range(microbatches):
+
+            def body(i, carry):
                 li, _, gi = grads_of(full, {k: v[i] for k, v in mb.items()})
-                grads = tree_map(torch.add, grads, gi)
-                lsum = lsum + li
+                return None, [tree_map(torch.add, carry[0], gi),
+                              carry[1] + li]
+            # a loop in microbatch order (on the dry-run's meta tensors one
+            # microbatch, counted ``microbatches`` times: launch/cost.scan)
+            _, (grads, lsum) = cost.scan(microbatches, body, [grads, lsum])
             grads = tree_map(lambda a: a / microbatches, grads)
             loss = lsum / microbatches
             aux = {}
         del full
-        # where the gradients meet the optimizer: each rank's share of the
+        # where the gradients meet the optimizer: each rank's share of a
+        # leaf read in part, summed over tp; each rank's share of the
         # global loss's gradient, summed over the data axis
+        if fsdp is not None:
+            grads = fsdp.sum_shared(grads)
         grads = DC.sum_over_data(grads)
         if fsdp is None:
             params, opt_state, om = opt.update(grads, opt_state, params)
@@ -151,18 +173,31 @@ def _train_step(api, run: RunConfig, opt: AdamW, microbatches: int,
     return train_step
 
 
+TP_TRAINING_LATER = ("tensor-parallel training of the {family} family (a "
+                     "model axis of {tp} ranks) is not ported yet (ROADMAP "
+                     "queue 1, item 6.10b{more})")
+
+
 def check_data_parallel(cfg: ModelConfig, data: int, model: int = 1
                         ) -> None:
     """Refuse what training and tuning over a ``(data, model)`` mesh do not
-    run yet: a tensor-parallel axis of more than one rank, and a family
-    with experts over a data axis of more than one rank."""
-    if model > 1:
-        raise ValueError(
-            f"tensor-parallel training (a model axis of {model} ranks) is "
-            f"not ported yet (ROADMAP queue 1, item 6.10)")
-    if data > 1 and (cfg.family == Family.MOE or cfg.moe is not None):
+    run yet: a model axis of more than one rank but for the dense family,
+    and a family with experts over a data axis of more than one rank; and,
+    on a model axis, what tensor-parallel serving refuses
+    (``engine.check_tp_serving``: query heads that straddle the groups of
+    whole KV heads)."""
+    experts = cfg.family == Family.MOE or cfg.moe is not None
+    if model > 1 and cfg.family != Family.DENSE:
+        raise ValueError(f"{cfg.name}: " + TP_TRAINING_LATER.format(
+            family=cfg.family.value, tp=model,
+            more="; its experts over a data axis, item 6.11" if experts
+            else ""))
+    if data > 1 and experts:
         from repro_torch.models.moe import DATA_AXIS_LATER
         raise ValueError(f"{cfg.name}: {DATA_AXIS_LATER}")
+    if model > 1:
+        from repro_torch.serving.engine import check_tp_serving
+        check_tp_serving(cfg, QuantConfig(), model)
 
 
 def _map_leaves(fn: Callable, tree: Any) -> Any:
@@ -191,17 +226,50 @@ def shard_update_step(step_fn: Callable, mesh: Any, var_specs: Any,
     given matters) each rank keeps its rows of every batch leaf (the
     leading axis split over "data", which it must divide; the reference's
     batch sharding), and ``step_fn`` runs on them with the data axis active
-    (``collectives.use_data``). The carried state stays on each rank as
-    ``var_specs`` / ``opt_specs`` lay it out (replicated, or the rank's
-    "data" shard): the step function keeps it so, and nothing moves it
+    (``collectives.use_data``), and the tp axis (``use_tp``) where the
+    mesh's model axis has more than one rank. The carried state stays on
+    each rank as ``var_specs`` / ``opt_specs`` lay it out (replicated, or
+    the rank's shard): the step function keeps it so, and nothing moves it
     between steps. Shared by ``shard_train_step`` (FSDP shards) and
     ``cushioncache.prefix_tune`` (the replicated cushion)."""
     def step(variables, opt_state, batch):
         if batch_like is not None:
             batch = DC.rank_rows(batch, mesh)
-        with DC.use_data(mesh):
+        tp = DC.use_tp(mesh) if int(mesh.size) > 1 \
+            else contextlib.nullcontext()
+        with DC.use_data(mesh), tp:
             return step_fn(variables, opt_state, batch)
     return step
+
+
+class Shard(NamedTuple):
+    """How a rank holds one leaf of its training tree, for the clip's norm
+    (``optim/adamw._sharded_norm``): ``data``, its "data" shard; ``own``,
+    as ``engine.TPPart``: the leading entries of the last axis that are the
+    rank's part of a leaf cut over tp (-1 all, 0 none)."""
+    data: bool
+    own: int = 0
+
+
+def sum_shared(grads: Any, parts: Any) -> Any:
+    """The gradients with every part read in part on each rank
+    (``engine.TPPart.summed``: a leaf's entries past ``own`` on its last
+    axis) summed over tp, in f32, in one all-reduce; the others as they
+    are. A no-op at one rank."""
+    if DC.tp_size() == 1:
+        return grads
+    ps = tree_leaves(parts)
+    gs = [g.float() if p.summed else g
+          for g, p in zip(tree_leaves(grads), ps)]
+    pieces = [g.narrow(-1, p.own, g.shape[-1] - p.own)
+              for g, p in zip(gs, ps) if p.summed]
+    if not pieces:
+        return grads
+    flat = DC.psum(torch.cat([t.reshape(-1) for t in pieces]))
+    for t, s in zip(pieces, torch.split(flat, [t.numel() for t in pieces])):
+        t.copy_(s.reshape(t.shape))
+    it = iter(gs)
+    return tree_map(lambda _: next(it), grads)
 
 
 class _FSDP:
@@ -210,18 +278,34 @@ class _FSDP:
     can be freed), ``gather`` rebuilds the whole leaves (each rank's part
     in a buffer filled with -0.0, summed over the axis: adding -0.0 is
     exact for every value, +0 and -0 included, so the gathered leaf is
-    bit for bit the one that was sharded)."""
+    bit for bit the one that was sharded). The leaves are a rank's tree:
+    with ``parts`` (``engine.tp_leaf_parts``) its tensor-parallel shards,
+    whose dims the specs of the whole tree still name (the "data" dim of a
+    leaf is never the one tp cuts, so it keeps its size)."""
 
-    def __init__(self, specs: Any, mesh: Any):
+    def __init__(self, specs: Any, mesh: Any, parts: Any = None):
         self.mesh = mesh
         # a spec tuple is a leaf of the optimizer's tree functions
         self.axes = tree_map(
             lambda spec: spec.index("data") if "data" in spec else None,
             specs)
-        self.sharded = tree_map(lambda spec: "data" in spec, specs)
+        self.parts = parts
+        owns = tree_map(lambda _: 0, specs) if parts is None else \
+            tree_map(lambda p: p.own, parts)
+        self.sharded = tree_map(lambda spec, own: Shard("data" in spec, own),
+                                specs, owns)
+
+    def sum_shared(self, grads: Any) -> Any:
+        return grads if self.parts is None else sum_shared(grads,
+                                                           self.parts)
+
+    def _d(self) -> int:
+        # the "data" axis of the mesh (the batch axes may also hold "pod",
+        # over which the "data" shards are replicated)
+        return int(self.mesh.shape.get("data", self.mesh.data_size))
 
     def shard(self, tree: Any) -> Any:
-        d, r = int(self.mesh.data_size), int(self.mesh.data_rank)
+        d, r = self._d(), int(self.mesh.data_rank) % self._d()
 
         def one(leaf, ax):
             if ax is None or d == 1:
@@ -231,7 +315,7 @@ class _FSDP:
         return tree_map(one, tree, self.axes)
 
     def gather(self, tree: Any) -> Any:
-        d, r = int(self.mesh.data_size), int(self.mesh.data_rank)
+        d, r = self._d(), int(self.mesh.data_rank) % self._d()
 
         def one(leaf, ax):
             if ax is None or d == 1:
@@ -251,25 +335,44 @@ def shard_train_step(api, run: RunConfig, opt: AdamW, mesh: Any,
                      params_like: Any, microbatches: int = 1,
                      cushion: Any = None, scales: Any = None):
     """The train step over ``mesh`` (axes ``("data", "model")`` or
-    ``("data", "tp")``, the second of one rank) with FSDP parameter
-    layouts by the training rules (``distributed/sharding.DEFAULT_RULES``:
-    "D" is the ``data`` axis) and ZeRO-1 moments that inherit them. Returns
-    ``(fn, param_specs, opt_specs)``: ``fn(shards, opt_state, global_batch)
-    -> (shards, opt_state, metrics)`` on each rank's shards (``data_shards``
-    of the whole tree; ``opt.init`` of them) and its rows of the batch."""
-    check_data_parallel(api.cfg, int(mesh.data_size), int(mesh.size))
+    ``("data", "tp")``; a model axis of more than one rank for the dense
+    family) with FSDP parameter layouts by the training rules
+    (``distributed/sharding.DEFAULT_RULES``: "D" is the ``data`` axis) on
+    the rank's tensor-parallel tree (the serving cut at the mesh's tp,
+    ``engine.shard_tree``; see the module docstring) and ZeRO-1 moments
+    that inherit them. Returns ``(fn, param_specs, opt_specs)``:
+    ``fn(shards, opt_state, global_batch) -> (shards, opt_state,
+    metrics)`` on each rank's shards (``data_shards`` of the whole tree;
+    ``opt.init`` of them) and its rows of the batch. ``params_like``: the
+    whole tree (its shapes; a meta tree will do)."""
+    from repro_torch.serving import engine as E
+    tp = int(mesh.size)
+    check_data_parallel(api.cfg, int(mesh.data_size), tp)
     p_specs = SH.params_shardings(as_tree(params_like), mesh)
     o_specs = AdamWState(step=(), mu=p_specs, nu=p_specs)
+    parts = E.tp_leaf_parts(as_tree(params_like), api.cfg, tp)
+    if tp > 1:
+        api = dataclasses.replace(api, cfg=E.tp_config(api.cfg, tp))
     step_fn = _train_step(api, run, opt, microbatches, cushion, scales,
-                          fsdp=_FSDP(p_specs, mesh))
+                          fsdp=_FSDP(p_specs, mesh, parts))
     return (shard_update_step(step_fn, mesh, p_specs, o_specs, True),
             p_specs, o_specs)
 
 
-def data_shards(tree: Any, specs: Any, mesh: Any) -> Any:
-    """This rank's part of a whole tree laid out by ``specs`` (the leaves
-    with a "data" axis cut to the rank's slice, the others as they are)."""
-    return _FSDP(specs, mesh).shard(as_tree(tree))
+def data_shards(tree: Any, specs: Any, mesh: Any, cfg: Any = None) -> Any:
+    """This rank's part of a whole tree laid out by ``specs``: on a model
+    axis of more than one rank its tensor-parallel shard first
+    (``engine.shard_tree`` by ``cfg``, the whole model's config), then the
+    leaves with a "data" axis cut to the rank's slice, the others as they
+    are."""
+    tree = as_tree(tree)
+    if int(mesh.size) > 1:
+        if cfg is None:
+            raise ValueError("a model axis of more than one rank: pass the "
+                             "model's cfg for its tensor-parallel cut")
+        from repro_torch.serving.engine import shard_tree
+        tree = shard_tree(tree, cfg, mesh)
+    return _FSDP(specs, mesh).shard(tree)
 
 
 @torch.no_grad()

@@ -14,7 +14,10 @@ returns one report a case (numpy arrays and numbers, and the case's wall
 * "dp_step": ``dp_train_step_compressed`` of the reference test's
   quadratic ``grad_fn`` on ``params`` (K, N) and ``batch`` (B, K).
 * "range_tie": ``x`` (data, ...) f32, the rank's row; the gradient of the
-  activation-range penalty of ``site_stats`` of it under the data axis.
+  activation-range penalty of ``site_stats`` of it under the data axis;
+  with ``axis`` "tp", ``x`` (tp, ...), the rank's channels of a cut
+  activation under the tp axis, and also the gradients of ``tp_extrema``
+  (min + 2 max) and of the gathered channel maxima (weighted 1, 2, ...).
 * "grad": the gradient of the tuning loss (``cushioncache.tune_loss_grads``)
   at ``cushion`` (a numpy tree, or ``cushion_ids`` extracted on the rank)
   on the global ``batch``, under the data axis; with ``one_rank`` the last
@@ -25,18 +28,22 @@ returns one report a case (numpy arrays and numbers, and the case's wall
   ``qcfg`` / ``ccfg``: the log, the cushion it started from and the tuned
   one, the launches and the host syncs of the tuning.
 * "train": ``shard_train_step`` on the mesh (its ``("data", "model")``
-  form, ``make_mesh``), ``steps`` steps of the global
+  form, ``make_mesh``; a model axis of more than one rank trains the
+  rank's tensor-parallel tree), ``steps`` steps of the global
   ``batches`` from the ``params`` (a numpy tree) or the tree made from
-  ``seed``: the metrics a step, the launches a step, this rank's resident
-  parameter and moment bytes beside the whole tree's (``leaves``: each
-  leaf's spec and element counts), the peak device memory, the final
-  whole parameters (``return_params``), ``ms`` a step, ``profile`` (one
-  more step, timed),
-  and with ``one_rank`` the last data rank's comparison with
-  ``make_train_step`` alone on the whole batches (``one``: its metrics,
-  each leaf's difference, and the two runs' parameter updates and first
-  moments, each of the whole tree as a vector, against each other), made
-  beside rank 0's profile.
+  ``seed``, under ``qcfg`` with ``scales`` (a plain numpy tree): the
+  metrics a step, the launches and the all-reduces a step, this rank's
+  resident parameter and moment bytes beside the whole tree's
+  (``leaves``: each leaf's spec, its ``engine.TPPart`` and element
+  counts), the peak device memory, the final whole parameters over the
+  data axis (``return_params``; the rank's tensor-parallel part), the
+  first step's first moment (``first_moment``: ``mu1``), ``ms`` a step,
+  ``profile`` (one more step, timed), and with ``one_rank`` the last
+  data row's comparison with ``make_train_step`` alone on the whole tree
+  and batches, cut to the rank's part (``one``: its metrics, each leaf's
+  difference, the two runs' parameter updates and first moments, each of
+  the tree as a vector, against each other, and its first step's first
+  moment), made beside rank 0's profile.
 * "refuse": ``shard_train_step`` and ``prefix_tune`` over the mesh on
   ``cfg`` (a family with experts): the messages they raise.
 
@@ -46,6 +53,7 @@ from the latest checkpoint of ``ckpt_dir`` if given.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Dict, List
 
@@ -64,7 +72,24 @@ from repro_torch.models import convert
 from repro_torch.models.registry import build
 from repro_torch.models.common import as_tree
 from repro_torch.optim.adamw import tree_leaves, tree_map, tree_paths
+from repro_torch.serving.engine import shard_tree, tp_leaf_parts
 from repro_torch.train import trainer as TR
+
+
+@contextlib.contextmanager
+def counting_all_reduces():
+    """The ``torch.distributed.all_reduce`` calls inside, by their bytes."""
+    import torch.distributed as dist
+    seen, real = [], dist.all_reduce
+
+    def counted(t, *a, **kw):
+        seen.append(t.numel() * t.element_size())
+        return real(t, *a, **kw)
+    dist.all_reduce = counted
+    try:
+        yield seen
+    finally:
+        dist.all_reduce = real
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -159,15 +184,31 @@ def _dp_step(mesh, case):
 
 
 def _range_tie(mesh, case):
-    x = torch.as_tensor(case["x"][mesh.data_rank],
-                        device=mesh.device).requires_grad_()
-    with DC.use_data(mesh), torch.enable_grad():
-        stats = TQ.site_stats(x)
+    if case.get("axis") == "tp":
+        # the rank's channels of a cut activation: the statistics and the
+        # extrema are the ranks'
+        x = torch.as_tensor(case["x"][mesh.rank], device=mesh.device)
+        ctx, cut = DC.use_tp(mesh), True
+    else:
+        x = torch.as_tensor(case["x"][mesh.data_rank], device=mesh.device)
+        ctx, cut = DC.use_data(mesh), False
+    x = x.requires_grad_()
+    rep = {}
+    with ctx, torch.enable_grad():
+        stats = TQ.site_stats(x, cut=cut)
         pen = OUT.activation_range_penalty({"layers": {"qkv": stats}})
-        (g,) = torch.autograd.grad(pen, [x])
+        (g,) = torch.autograd.grad(pen, [x], retain_graph=cut)
+        if cut:
+            ch = stats["absmax_ch"]
+            w = torch.arange(1.0, ch.numel() + 1, device=x.device)
+            (gc,) = torch.autograd.grad((ch * w).sum(), [x])
+            mn, mx = DC.tp_extrema(x)
+            (ge,) = torch.autograd.grad(mn + 2 * mx, [x])
+            rep = {"extrema_grad": _np(ge), "channel_grad": _np(gc),
+                   "absmax_ch": _np(ch)}
     return {"grad": _np(g), "penalty": float(pen.detach()),
             "amin": float(stats["amin"].detach()),
-            "amax": float(stats["amax"].detach())}
+            "amax": float(stats["amax"].detach()), **rep}
 
 
 def _grad(mesh, case):
@@ -223,9 +264,10 @@ def _bytes(tree) -> int:
 
 def _train(mesh, case):
     # a training mesh names its axes ("data", "model"), as the reference's
-    # make_mesh callers do
-    mesh = make_mesh((mesh.data_size, mesh.size), ("data", "model"),
-                     mesh.device)
+    # make_mesh callers do; ``mesh_shape`` lays the same world out another
+    # way (two ranks of a data axis as one model axis of two)
+    mesh = make_mesh(case.get("mesh_shape", (mesh.data_size, mesh.size)),
+                     ("data", "model"), mesh.device)
     dev = mesh.device
     api = build(case["cfg"], dev)
     full = as_tree(_params(api, case))
@@ -235,23 +277,35 @@ def _train(mesh, case):
                     warmup_steps=case.get("warmup", 2))
     opt = TR.make_optimizer(run)
     mb = case.get("microbatches", 1)
+    scales = None if case.get("scales") is None else \
+        convert.scales_from_numpy(case["scales"], dev)
     fn, p_specs, o_specs = TR.shard_train_step(api, run, opt, mesh, full,
-                                               microbatches=mb)
-    shards = TR.data_shards(full, p_specs, mesh)
+                                               microbatches=mb,
+                                               scales=scales)
+    shards = TR.data_shards(full, p_specs, mesh, cfg=case["cfg"])
     state = opt.init(shards)
+    if mesh.size > 1:
+        # the rank's tensor-parallel tree, which the one-rank run is cut to
+        rank_cut = lambda t: shard_tree(t, case["cfg"], mesh)  # noqa: E731
+        parts = tree_leaves(tp_leaf_parts(full, case["cfg"], mesh.size))
+    else:
+        rank_cut, parts = (lambda t: t), None
     batches = [_batch(b, dev) for b in case["batches"]]
     paths = tree_leaves(tree_paths(full))
     rep: Dict[str, Any] = {
         "full_bytes": _bytes(full), "shard_bytes": _bytes(shards),
         "moment_bytes": _bytes(state.mu) + _bytes(state.nu),
         "specs": p_specs, "metrics": [], "launches": [], "ms": [],
+        "collectives": [],
         "leaves": {p: {"spec": spec, "full": t.numel(),
                        "shard": s_.numel(), "moments": m.numel() * 2,
-                       "moment_dtype": str(m.dtype)}
-                   for p, spec, t, s_, m in zip(
+                       "moment_dtype": str(m.dtype),
+                       "part": None if parts is None else tuple(parts[i])}
+                   for i, (p, spec, t, s_, m) in enumerate(zip(
                        paths, tree_leaves(p_specs), tree_leaves(full),
-                       tree_leaves(shards), tree_leaves(state.mu))}}
-    one_rank = case.get("one_rank") and mesh.data_rank == mesh.data_size - 1
+                       tree_leaves(shards), tree_leaves(state.mu)))}}
+    one_rank = case.get("one_rank") and mesh.data_rank == mesh.data_size - 1 \
+        and mesh.rank in case.get("one_rank_tp", range(mesh.size))
     if one_rank:
         keep = tree_map(lambda t: t.clone(), full)
     del full
@@ -262,11 +316,19 @@ def _train(mesh, case):
         _lib.reset_launches()
         _sync(dev)
         t0 = time.perf_counter()
-        shards, state, met = fn(shards, state, b)
+        with counting_all_reduces() as seen:
+            shards, state, met = fn(shards, state, b)
         _sync(dev)
         rep["ms"].append((time.perf_counter() - t0) * 1e3)
         rep["launches"].append(dict(_lib.LAUNCHES))
+        rep["collectives"].append(len(seen))
         rep["metrics"].append({k: float(v) for k, v in met.items()})
+        if i == 0 and case.get("first_moment"):
+            # 0.1 x the clipped gradient of the first step, the rank's
+            # tensor-parallel part
+            with DC.use_data(mesh):
+                rep["mu1"] = _np_tree(TR._FSDP(p_specs, mesh).gather(
+                    state.mu))
     rep["peak_bytes"] = (int(torch.cuda.max_memory_allocated(dev))
                          if dev.type == "cuda" else 0)
     fsdp = TR._FSDP(p_specs, mesh)
@@ -281,15 +343,36 @@ def _train(mesh, case):
                                    mesh)
     if case.get("return_params"):
         rep["params"] = _np_tree(whole)
+    elif parts is not None:
+        # the leaves every rank holds whole, to hold the ranks equal
+        rep["whole_leaves"] = {p: _np(t) for p, t, part in zip(
+            paths, tree_leaves(whole), parts) if part.own == 0}
     if one_rank:
-        step = TR.make_train_step(api, run, opt, microbatches=mb)
+        step = TR.make_train_step(api, run, opt, microbatches=mb,
+                                  scales=scales)
         p, st = keep, opt.init(keep)
-        losses = []
+        losses, mu1, one_ms, one_launches = [], None, [], []
+        _sync(dev)
+        held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
         for i in range(case["steps"]):
+            _lib.reset_launches()
+            t0 = time.perf_counter()
             p, st, met = step(p, st, batches[i % len(batches)])
+            _sync(dev)
+            one_ms.append((time.perf_counter() - t0) * 1e3)
+            one_launches.append(dict(_lib.LAUNCHES))
             losses.append({k: float(v) for k, v in met.items()})
+            if i == 0:
+                mu1 = rank_cut(st.mu)
+        one_peak = (int(torch.cuda.max_memory_allocated(dev)) - held
+                    if dev.type == "cuda" else 0)
+        one_bytes = {"params": _bytes(keep), "moments": _bytes(st.mu)
+                     + _bytes(st.nu)}
         diffs = {}
         num = den = dot = nd = 0.0
+        p, keep, st_mu = rank_cut(p), rank_cut(keep), rank_cut(st.mu)
         for path, a, w, k0 in zip(paths, tree_leaves(whole), tree_leaves(p),
                                   tree_leaves(keep)):
             # the resume bar (rtol 1e-5, atol 1e-6) of test_torch_train.py
@@ -306,7 +389,11 @@ def _train(mesh, case):
         rep["one"] = {"metrics": losses, "diffs": diffs,
                       "update": _compare(num, den, dot, nd),
                       "moments": _compare(*_sums(tree_leaves(whole_mu),
-                                                 tree_leaves(st.mu)))}
+                                                 tree_leaves(st_mu))),
+                      "mu1": _np_tree(mu1) if case.get("first_moment")
+                      else None,
+                      "ms": one_ms, "launches": one_launches,
+                      "peak_bytes": one_peak, "bytes": one_bytes}
     return rep
 
 
@@ -357,7 +444,7 @@ _KINDS = {"compressed": _compressed, "dp_step": _dp_step,
 def run_case(mesh, case: Dict[str, Any]) -> Dict[str, Any]:
     t0 = time.perf_counter()
     rep = _KINDS[case["kind"]](mesh, case)
-    rep.update(rank=mesh.data_rank, backend=mesh.backend,
+    rep.update(rank=mesh.data_rank, tp_rank=mesh.rank, backend=mesh.backend,
                name=case.get("name"), seconds=time.perf_counter() - t0)
     return rep
 

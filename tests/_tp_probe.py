@@ -44,6 +44,12 @@ returns one report a case. A case names:
   a rank); ``warmup``: one run first, without faults, outside the report.
   The report: every output as (uid, replica, slot, tokens), the
   rejections, ``RouterStats`` and the launches;
+* ``kind`` "train" and "tune": ``shard_train_step`` and
+  ``prefix_tune(mesh=)`` on the mesh's ``("data", "model")`` form, as
+  ``tests/_dp_probe.py`` runs them (tensor-parallel training), and its
+  "range_tie" (``axis`` "tp": the extrema of a cut activation);
+  "train_collectives": the all-reduces of ``launch/dryrun.train_program``'s
+  rank program of one train step, as "collectives" counts them;
 * ``kind`` "collectives": ``launch/dryrun.serving_program``'s rank program
   of a ``prefill`` and of one ``decode_step`` (global batch ``batch``,
   ``seq`` positions, ``qcfg``, ``prequant``, the whole tree ``params``) run
@@ -88,7 +94,7 @@ from repro_torch.models import common as C
 from repro_torch.models import convert
 from repro_torch.models.registry import build, family_module
 from repro_torch.distributed.fault_injection import FaultInjector
-from repro_torch.launch.mesh import make_replica_meshes
+from repro_torch.launch.mesh import make_mesh, make_replica_meshes
 from repro_torch.serving.engine import Engine, check_tree_sums
 from repro_torch.serving.router import ReplicaRouter, RouterConfig
 from repro_torch.serving.scheduler import ContinuousEngine, Request
@@ -324,9 +330,35 @@ def run_collectives(mesh, case: Dict[str, Any]) -> Dict[str, Any]:
     return rep
 
 
+def run_train_collectives(mesh, case: Dict[str, Any]) -> Dict[str, Any]:
+    """A "train_collectives" case: the all-reduces of the dry-run's rank
+    program of one train step (``launch/dryrun.train_program`` on the
+    mesh's ``("data", "model")`` form, from the whole tree ``params``), as
+    this rank issues them."""
+    from repro_torch.launch.dryrun import train_program
+    from _dp_probe import counting_all_reduces
+    mesh = make_mesh((mesh.data_size, mesh.size), ("data", "model"),
+                     mesh.device)
+    prog = train_program(case["cfg"], case["batch"], case["seq"], mesh=mesh,
+                         device=mesh.device,
+                         params=convert.params_from_numpy(case["params"],
+                                                          mesh.device))
+    with counting_all_reduces() as seen:
+        prog()
+    return {"rank": mesh.rank, "name": case.get("name"),
+            "all-reduce": len(seen), "bytes": sum(seen)}
+
+
 def run_case(mesh, case: Dict[str, Any]) -> Dict[str, Any]:
     if case["kind"] == "collectives":
         return run_collectives(mesh, case)
+    if case["kind"] == "train_collectives":
+        return run_train_collectives(mesh, case)
+    if case["kind"] in ("train", "tune", "range_tie"):
+        # tensor-parallel training and tuning: the data-parallel probe's
+        # cases, which run on any (data, model) mesh
+        from _dp_probe import run_case as training_case
+        return training_case(mesh, case)
     dev = mesh.device
     if dev.type == "cuda":
         # the last case's engines (an engine and its decode states refer to
@@ -567,5 +599,7 @@ def run_router_case(world, case: Dict[str, Any]) -> Dict[str, Any]:
 def run_router_cases(world, cases: List[Dict[str, Any]]
                      ) -> List[Dict[str, Any]]:
     """Every "router" case on this rank, in order (a ``spawn_mesh``
-    target)."""
-    return [run_router_case(world, c) for c in cases]
+    target); a "train" case runs ``shard_train_step`` on the world's
+    ``(data, model)`` mesh (``_dp_probe.py``)."""
+    return [run_router_case(world, c) if c["kind"] == "router"
+            else run_case(world, c) for c in cases]

@@ -411,7 +411,7 @@ def _attn_inputs(g, dev, B, Kh, G, S, m, hd, dt):
 
 
 @pytest.mark.parametrize("G", [1, 3])
-@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80])
 @pytest.mark.parametrize("m", [0, 4, 37])
 @pytest.mark.parametrize("S", [1, 63, 64, 65, 300])
 def test_flash_attention_bf16_edges_within_one_ulp(dev, S, m, hd, G):
@@ -440,10 +440,11 @@ def test_flash_attention_rows_independent(dev, S, m, hd, G):
     assert torch.equal(full[:, :, cut:], tail)
 
 
-def test_flash_attention_f32_within_1e5(dev):
+@pytest.mark.parametrize("hd", [64, 80])
+def test_flash_attention_f32_within_1e5(dev, hd):
     """The f32 instantiation (CUDA cores, not redesigned)."""
     g = torch.Generator(dev).manual_seed(5)
-    q, k, v = _attn_inputs(g, dev, 2, 5, 3, 100, 4, 64, torch.float32)
+    q, k, v = _attn_inputs(g, dev, 2, 5, 3, 100, 4, hd, torch.float32)
     torch.testing.assert_close(flash_attention(q, k, v, prefix_len=4),
                                flash_attention_plain(q, k, v, prefix_len=4),
                                rtol=1e-5, atol=1e-5)
@@ -762,7 +763,7 @@ BWD_CASES = [(256, 4, 4, 2, 5, 3), (256, 4, 1, 2, 5, 3), (33, 5, 0, 2, 5, 3),
 
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
-@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80])
 @pytest.mark.parametrize("S,m,live,B,Kh,G", BWD_CASES)
 def test_flash_attention_bwd_matches_plain(dev, S, m, live, B, Kh, G, hd,
                                            dt):
@@ -1191,6 +1192,36 @@ def test_flash_decode_head_dim_128_gqa(dev, G, mode, dt):
            for k_, v_ in kw.items()}
     assert torch.equal(flash_decode(q[1:2], k[1:2], v[1:2], pos[1:2], **one),
                        got[1:2])
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("mode", ["fp", "int8-K", "int8-BK"])
+def test_flash_decode_head_dim_80(dev, mode, dt):
+    """Contiguous and paged decode at head_dim 80 (stablelm-3b: 32
+    kv-heads, G = 1; and G = 3): within one bf16 ulp of the plain version
+    (f32: 1e-5), the paged kernel bit-identical to the contiguous one, a
+    row equal to the row computed alone."""
+    g = torch.Generator(dev).manual_seed(19)
+    for Kh, G in ((32, 1), (2, 3)):
+        B, hd, Smax, m = 4, 80, 200, 4
+        q, k, v, kw = _decode_case(g, dev, mode, dt, B, Kh, G, hd, Smax, m)
+        cm = m if mode != "fp" else 0
+        pos = torch.tensor([cm - 1 if cm else 0, 64, Smax - 1, -1],
+                           dtype=torch.int32, device=dev)
+        got = flash_decode(q, k, v, pos, **kw)
+        want = flash_decode_plain(q, k, v, pos, **kw)
+        if dt == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        else:
+            _within_ulp(got, want)
+        kp, vp, table = _paginate(g, dev, k, v, 40)
+        assert torch.equal(flash_decode_paged(q, kp, vp, table, pos, **kw),
+                           got)
+        one = {k_: (v_[1:2] if k_.endswith("scale") and v_.dim() == 2
+                    else v_) for k_, v_ in kw.items()}
+        assert torch.equal(flash_decode(q[1:2], k[1:2], v[1:2], pos[1:2],
+                                        **one), got[1:2])
 
 
 def _moe_setup(dev, dtype="float32"):

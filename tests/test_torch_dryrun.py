@@ -19,6 +19,9 @@
   phase 4n holds them against ``_lib.LAUNCHES``);
 * ``cost.scan`` counts a step n times; the meta route is a device of its
   own and the card's refusals hold on it;
+* the dense family's ``train_4k`` cells run one rank's
+  ``shard_train_step`` on meta (both meshes, the reference's
+  microbatches), the other families' refuse naming ROADMAP item 6.10b;
 * the CLI writes the reference's record keys, skips what is done, and
   writes the cells the port does not run as ``ok: false``.
 """
@@ -354,14 +357,46 @@ def test_meta_is_a_device_of_its_own():
     with pytest.raises(ValueError, match="no generator"):
         build(get_config("paper_tiny"), "meta").init_params(
             torch.Generator().manual_seed(0))
-    q = torch.empty(1, 2, 4, 80, device="meta")
-    with pytest.raises(ValueError, match="head_dim 80 not built"):
+    q = torch.empty(1, 2, 4, 96, device="meta")
+    with pytest.raises(ValueError, match="head_dim 96 not built"):
         flash_attention(q, q, q)
     # a meta call outside a tally counts nothing and touches no card count
     before = dict(_lib.LAUNCHES)
     out = flash_attention(*(torch.empty(1, 2, 4, 32, device="meta"),) * 3)
     assert out.shape == (1, 2, 4, 32) and out.device.type == "meta"
     assert _lib.LAUNCHES == before and cost.active() is None
+
+
+def test_train_cells_of_the_dense_family_run_and_the_others_refuse():
+    """The 8 dense ``train_4k`` cells (both production meshes) run one
+    rank's ``shard_train_step`` on meta: the reference's microbatches (one
+    row a rank each), both attention kernels a layer a microbatch (the
+    forward twice with remat), the FSDP gather and the tensor-parallel
+    collectives; the other 12 refuse, naming item 6.10b (and 6.11 for a
+    family with experts)."""
+    n_ok = n_refused = 0
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for mp in (False, True):
+            if cfg.family.value != "dense":
+                with pytest.raises(ValueError, match="item 6.10b") as e:
+                    D.lower_cell(arch, "train_4k", mp)
+                assert (cfg.moe is not None) == ("item 6.11" in str(e.value))
+                n_refused += 1
+                continue
+            r = D.lower_cell(arch, "train_4k", mp)
+            n_b = 32 if mp else 16
+            assert r["kind"] == "train" and r["rank_batch"] == 256 // n_b
+            mb = 256 // n_b
+            assert r["launches"] == {
+                "flash_attention": 2 * mb * cfg.n_layers,
+                "flash_attention_bwd": mb * cfg.n_layers}, arch
+            assert r["collective_counts"]["all-reduce"] > 0
+            assert r["flops_per_chip"] > r["model_flops_per_chip"] > 0
+            assert r["param_bytes_per_chip"] \
+                >= r["param_bytes_spec_per_chip"] > 0
+            n_ok += 1
+    assert (n_ok, n_refused) == (8, 12)
 
 
 def test_dryrun_mesh_is_the_reference_mesh():
@@ -418,12 +453,24 @@ def test_cli_records_resume_and_refusals(tmp_path, capsys):
                    "--param-shard", "tp"])
     assert len(_records(out)) == 2
     assert capsys.readouterr().out.count("[skip]") == 2
-    # what the port does not run: ok false, naming its item
+    # the dense family's train step (tensor parallel and FSDP); what the
+    # port does not run: ok false, naming its item
     D.main(base + ["--shape", "train_4k", "--param-shard", "tp"])
     D.main(base + ["--shape", "prefill_32k"])            # fsdp, the default
-    train, fsdp = _records(out)[2:]
-    assert not train["ok"] and "item 6.10" in train["error"]
+    D.main(["--arch", "xlstm-350m", "--out", out, "--shape", "train_4k"])
+    train, fsdp, other = _records(out)[2:]
+    assert train["ok"] and REF_KEYS <= set(train)
+    assert train["kind"] == "train" and train["rank_batch"] == 256 // 16
+    assert train["launches"] == {"flash_attention": 2 * 16 * 24,
+                                 "flash_attention_bwd": 16 * 24}
+    assert train["collective_counts"]["all-reduce"] > 0
+    assert 0 < train["param_bytes_per_chip"] \
+        == train["param_bytes_spec_per_chip"]
+    # bf16 shards, their f32 moments and the int32 step
+    assert train["opt_bytes_per_chip"] \
+        == 4 * train["param_bytes_per_chip"] + 4
     assert not fsdp["ok"] and "item 6.12" in fsdp["error"]
     assert fsdp["param_shard"] == "fsdp"
+    assert not other["ok"] and "item 6.10b" in other["error"]
     assert {"arch", "shape", "mesh", "quant", "cushion_m", "ok", "error",
-            "traceback", "wall_s"} <= set(train)
+            "traceback", "wall_s"} <= set(other)

@@ -101,9 +101,11 @@ def test_act_quant_rounds_half_to_even():
     assert out.tolist() == [[-128, -126, -126, -128, -128, 127, -128]]
 
 
-@pytest.mark.parametrize("prefix", [0, 3])
-def test_flash_attention_plain_matches_pallas_and_ref(prefix):
-    B, H, Kh, S, hd = 2, 6, 2, 24, 16
+# head_dim 16, and 80 (stablelm-3b's: no power of two)
+@pytest.mark.parametrize("prefix,hd", [(0, 16), (3, 16), (0, 80), (3, 80)],
+                         ids=["0", "3", "0-hd80", "3-hd80"])
+def test_flash_attention_plain_matches_pallas_and_ref(prefix, hd):
+    B, H, Kh, S = 2, 6, 2, 24
     T = S + prefix
     rs = np.random.RandomState(prefix)
     q = rs.randn(B, H, S, hd).astype(np.float32)
@@ -126,13 +128,16 @@ def test_flash_attention_plain_matches_pallas_and_ref(prefix):
                                rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("mode,pos", [
-    ("fp", 41), ("fp", [5, -1]), ("int8", 37), ("int8", [2, 50]),
-])
-def test_flash_decode_plain_matches_pallas_and_ref(mode, pos):
+@pytest.mark.parametrize("mode,pos,hd", [
+    ("fp", 41, 16), ("fp", [5, -1], 16), ("int8", 37, 16),
+    ("int8", [2, 50], 16), ("fp", [5, -1], 80), ("int8", [2, 50], 80),
+], ids=["fp-41", "fp-pos1", "int8-37", "int8-pos3", "fp-pos1-hd80",
+        "int8-pos3-hd80"])
+def test_flash_decode_plain_matches_pallas_and_ref(mode, pos, hd):
     """fp and int8+cushion caches; scalar and per-row pos, with a retired
-    row (pos < 0) and a row whose pos is inside the cushion."""
-    B, K, G, hd, Smax, m = 2, 2, 3, 16, 64, 4
+    row (pos < 0) and a row whose pos is inside the cushion; head_dim 16
+    and 80 (stablelm-3b's)."""
+    B, K, G, Smax, m = 2, 2, 3, 64, 4
     rs = np.random.RandomState(len(str(pos)))
     q = rs.randn(B, K * G, hd).astype(np.float32)
     kw = {}

@@ -32,6 +32,11 @@ CPU, each world size in one spawn (gloo ranks).
 * the router over 2 replicas x tp 2 of the reduced xlstm-350m (its
   recurrent state in contiguous pools, W8A8 with int8-resident
   ``w_proj``), in the same spawn: the JAX router's outputs and counts.
+* FSDP cut on both axes, in the same spawn: ``shard_train_step`` on a
+  (data 2, model 2) mesh, six steps of paper_tiny, at
+  ``test_torch_sharding.py``'s tp = 2 bars against JAX's one device and
+  the port's one rank; each rank holds a quarter of every "D" and "M"
+  leaf and f32 moments of it.
 """
 import functools
 import types
@@ -64,6 +69,7 @@ from repro_torch.kernels.w4a8_matmul import (w4a8_epilogue,  # noqa: E402
 from repro_torch.launch import mesh as M  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from _tp_probe import run_cases, run_router_cases  # noqa: E402
+import _train_ref as TRF  # noqa: E402
 
 QN = QuantConfig()
 QW8 = QuantConfig(mode="pt_static", true_int8=True)
@@ -161,13 +167,23 @@ def _router_case(s, name, chaos=None, pool=PAGED_INT8):
                  **pool)
 
 
+def _train_case(s):
+    """Six steps of ``shard_train_step`` on the world's (data 2, model 2)
+    mesh: FSDP shards cut on both axes."""
+    return dict(kind="train", name="train-2x2", cfg=t_get_config("paper_tiny"),
+                params=s["np_params"],
+                batches=TRF.batches(s["jcfg"].vocab_size),
+                batch_rows=TRF.B, seq=TRF.S, steps=TRF.STEPS, lr=1e-3,
+                warmup=10, return_params=True, one_rank=True)
+
+
 @pytest.fixture(scope="module")
 def router_runs(tiny, xl):
-    """The router cases in one spawn of 2 x 2 ranks: {name: [each rank's
-    report]}."""
+    """The router cases, and FSDP on both axes, in one spawn of 2 x 2
+    ranks: {name: [each rank's report]}."""
     cases = [_router_case(tiny, "no-fault"), _router_case(tiny, "crash",
                                                           CRASH),
-             _router_case(xl, "xlstm", pool=STATE_POOL)]
+             _router_case(xl, "xlstm", pool=STATE_POOL), _train_case(tiny)]
     outs = M.spawn_mesh(run_router_cases, 2, 2, cases, device="cpu",
                         every_rank=True, timeout_s=900)
     return {c["name"]: [o[i] for o in outs] for i, c in enumerate(cases)}
@@ -529,3 +545,54 @@ def test_w4a8_accumulator_mode_plus_epilogue(M, K, group):
                             jnp.asarray(s_w.numpy()), group)
     np.testing.assert_allclose(split.numpy(), np.asarray(ref), rtol=W4_RTOL,
                                atol=W4_ATOL)
+
+
+# ---------------------------------------------------------------------------
+# FSDP cut on both axes: tensor-parallel training on a (data 2, model 2) mesh
+# ---------------------------------------------------------------------------
+
+def test_fsdp_on_both_axes_matches_jax_and_keeps_its_shards(tiny,
+                                                            router_runs):
+    """``shard_train_step`` on a (data 2, model 2) mesh, six steps of
+    paper_tiny (one row a data rank): the first step's loss, CE and
+    gradient norm within 1e-5 relative of JAX's one device, the parameters
+    after six steps (each rank's tensor-parallel part, gathered over data)
+    at the resume bar with the Adam allowance against JAX and against the
+    port's one rank; the four ranks' metrics equal. Each rank holds only
+    its shard of every "D" and "M" leaf, and f32 moments of that shard."""
+    ranks = router_runs["train-2x2"]
+    cfg = t_get_config("paper_tiny")
+    jref = TRF.reference(tiny["japi"], tiny["params"], cfg,
+                         TRF.batches(tiny["jcfg"].vocab_size), qat=False)
+    for r in ranks[1:]:
+        assert r["metrics"] == ranks[0]["metrics"]
+    m0, jm = ranks[0]["metrics"][0], jref["metrics"][0]
+    rel = {k: abs(m0[k] / jm[k] - 1) for k in ("loss", "ce", "grad_norm")}
+    print(f"(data 2, model 2) vs JAX, step 0, relative: {rel}")
+    assert max(rel.values()) <= TRF.FIRST_STEP
+    lrs = TRF.lr_sum()
+    for r in ranks:
+        TRF.assert_params_close(
+            TRF.flat(r["params"]), TRF.cut(jref["params"], cfg,
+                                           r["tp_rank"], 2), lrs,
+            f"rank ({r['rank']}, {r['tp_rank']}) vs JAX after six steps")
+        if "one" in r:
+            for path, d in r["one"]["diffs"].items():
+                assert d["past"] <= TRF.ADAM_SHARE, path
+                assert d["worst_past"] <= lrs, path
+        held = 0
+        for path, leaf in r["leaves"].items():
+            spec, own = leaf["spec"], leaf["part"][0]
+            # paper_tiny at tp = 2 cuts every leaf the rules name "model"
+            assert (own == -1) == ("model" in spec), path
+            want = leaf["full"] // (2 if "data" in spec else 1) \
+                // (2 if "model" in spec else 1)
+            assert leaf["shard"] == want, path
+            assert leaf["moments"] == 2 * want
+            assert leaf["moment_dtype"] == "torch.float32"
+            held += want
+        assert r["shard_bytes"] == 4 * held
+        print(f"rank ({r['rank']}, {r['tp_rank']}) holds {r['shard_bytes']} "
+              f"of {r['full_bytes']} parameter bytes")
+        assert r["shard_bytes"] < 0.3 * r["full_bytes"]
+    assert sum("one" in r for r in ranks) == 2

@@ -24,7 +24,26 @@ unsharded engines, on f32 ``paper_tiny`` (8 query heads, 4 KV heads).
   spawn issues for the same prefill and decode step;
 * what is not sharded yet raises, citing the ROADMAP (the MoE, VLM and
   hybrid families and the axes that do not divide are served and held in
-  ``test_torch_tp_families.py``).
+  ``test_torch_tp_families.py``);
+* tensor-parallel training of the dense family, in the same spawn
+  (``tests/_train_ref.py`` has the JAX side and the bars):
+  ``shard_train_step`` on a (data 1, model 2) mesh, six steps of
+  paper_tiny on test_torch_train.py's batches, against JAX's one-device
+  ``make_train_step`` and the port's one rank, each cut to the rank's
+  part: under ``none`` the first step's loss, CE and gradient norm within
+  1e-5 relative (measured 0, 0 and 1.8e-7 against JAX), the parameters
+  after six steps at the resume bar with the Adam allowance; under
+  ``pt_dynamic``, ``ptoken_dynamic`` and ``pt_static`` ROADMAP queue 3's
+  training bars (the loss 1e-3; the first step's first moment 5e-2 /
+  3e-2 / 5e-2 of a leaf's largest entry: measured 2.2e-2 / 7.0e-3 /
+  2.7e-2 against JAX); the ranks' metrics and whole leaves bit for bit;
+  two reduced dense configs whose leaves a rank holds whole (the query
+  heads do not divide, smollm-360m's case; the KV heads do not,
+  deepseek-67b's at tp = 16): one step's first moment within 2e-6 of a
+  leaf's largest entry of tp = 1's (measured 9.8e-7); ``prefix_tune
+  (mesh=)`` at tp = 2 against JAX's one device at the method's bars; the
+  dry-run's all-reduces of one train step on its meta rank equal a gloo
+  rank's.
 """
 import dataclasses
 import types
@@ -65,6 +84,7 @@ from repro_torch.serving.engine import (Engine, check_tp_serving,  # noqa: E402
                                         shard_tree, tp_config)
 from repro_torch.serving.scheduler import ContinuousEngine  # noqa: E402
 from _tp_probe import run_cases  # noqa: E402
+import _train_ref as TRF  # noqa: E402
 
 QN = QuantConfig()
 QW8 = QuantConfig(mode="pt_static", true_int8=True)
@@ -167,13 +187,97 @@ def _interrupt_case(ref):
     return dict(case, name="interrupt", interrupt=(1, 2))
 
 
+# tensor-parallel training (the dense family): paper_tiny in every mode on
+# test_torch_train.py's batches; two reduced dense configs whose leaves a
+# rank holds whole at tp = 2: the query heads do not divide (smollm-360m's
+# 15), or the KV heads do not (deepseek-67b's 8 at tp = 16)
+TRAIN_MODES = ("none",) + tuple(TRF.QAT_TOL)
+WHOLE = {"heads-whole": t_reduced(t_get_config("smollm-360m"),
+                                  dtype="float32", n_layers=2, n_heads=3,
+                                  n_kv_heads=1),
+         "kv-whole": t_reduced(t_get_config("deepseek-67b"),
+                               dtype="float32", n_layers=2, n_heads=4,
+                               n_kv_heads=1)}
+TUNE_MODES = {"none": QN, "pt_dynamic": QuantConfig(mode="pt_dynamic")}
+TUNE_B, TUNE_S, TUNE_STEPS, LAM = 2, 24, 6, 0.1
+# a cut activation's two halves (tp, 1, 3, 4): the max once in rank 0's
+# channels and twice in rank 1's, -amin tying it in rank 0's, a channel
+# max tied within rank 1's half
+TIE = np.zeros((2, 1, 3, 4), np.float32)
+TIE[:, 0, 0, 1] = 2.0
+TIE[1, 0, 2, 3] = 2.0
+TIE[0, 0, 1, 0] = -2.0
+TIE[:, 0, 1, 2] = (0.5, -0.25)
+TIE[1, 0, 0, 2] = TIE[1, 0, 2, 2] = -1.5
+
+
 @pytest.fixture(scope="module")
-def tp2(ref):
+def jtrain(ref):
+    """JAX's training reference (``tests/_train_ref.py``) from ref's
+    weights, and the batches."""
+    tb = TRF.batches(ref["cfg"].vocab_size)
+    return dict(tb=tb, **TRF.reference(ref["japi"], ref["params"],
+                                       t_get_config("paper_tiny"), tb))
+
+
+@pytest.fixture(scope="module")
+def jtune(ref):
+    """JAX's one-device prefix_tune in both modes from ref's cushion
+    (test_torch_data_parallel.py's run), and the batches."""
+    from repro.configs import CushionConfig
+    from repro.core import cushioncache as JCC
+    japi = ref["japi"]
+    batches = [np_tree(japi.make_batch(jax.random.PRNGKey(3000 + i), TUNE_B,
+                                       TUNE_S)) for i in range(TUNE_STEPS)]
+    ccfg = CushionConfig(tune_steps=TUNE_STEPS, tune_lr=1e-3, lam=LAM,
+                         log_every=3)
+    return dict(batches=batches, runs={
+        mode: JCC.prefix_tune(japi, ref["params"], ref["cushion"],
+                              iter([jax.tree.map(jnp.asarray, b)
+                                    for b in batches]), q, ccfg,
+                              verbose=False)
+        for mode, q in TUNE_MODES.items()})
+
+
+def _train_cases(ref, jtrain, jtune):
+    from repro_torch.configs import CushionConfig as TCushion
+    base = dict(kind="train", batch_rows=TRF.B, seq=TRF.S, lr=1e-3,
+                warmup=10, one_rank=True, first_moment=True)
+    cases = [dict(base, name=f"train-{mode}", cfg=t_get_config("paper_tiny"),
+                  params=ref["np_params"], batches=jtrain["tb"],
+                  steps=TRF.STEPS, qcfg=TQuantConfig(mode=mode),
+                  scales=jtrain["scales"] if mode == "pt_static" else None,
+                  return_params=True)
+             for mode in TRAIN_MODES]
+    rs = np.random.RandomState(11)
+    for name, cfg in WHOLE.items():
+        tok = rs.randint(0, cfg.vocab_size, (2, 17)).astype(np.int32)
+        cases.append(dict(base, name=f"train-{name}", cfg=cfg, seed=0,
+                          steps=1, batches=[{"tokens": tok[:, :-1],
+                                             "labels": tok[:, 1:]}],
+                          return_params=True))
+    ccfg = TCushion(tune_steps=TUNE_STEPS, tune_lr=1e-3, lam=LAM,
+                    log_every=3)
+    cases += [dict(kind="tune", name=f"tune-{mode}",
+                   cfg=t_get_config("paper_tiny"), params=ref["np_params"],
+                   cushion=ref["np_cushion"], batches=jtune["batches"],
+                   qcfg=TQuantConfig(mode=mode), ccfg=ccfg)
+              for mode in TUNE_MODES]
+    cases.append(dict(kind="train_collectives", name="train-collectives",
+                      cfg=t_get_config("paper_tiny"),
+                      params=ref["np_params"], batch=2, seq=24))
+    cases.append(dict(kind="range_tie", name="range-tie-tp", axis="tp",
+                      x=TIE))
+    return cases
+
+
+@pytest.fixture(scope="module")
+def tp2(ref, jtrain, jtune):
     """Every tp = 2 case in one spawn: {name: [rank 0's report, rank 1's]}."""
     cases = _static_cases(ref) + _pool_cases(ref) + [_interrupt_case(ref)] \
-        + _collective_cases(ref)
+        + _collective_cases(ref) + _train_cases(ref, jtrain, jtune)
     outs = M.spawn_tp(run_cases, 2, cases, device="cpu", every_rank=True,
-                      timeout_s=600)
+                      timeout_s=900)
     return {c["name"]: [o[i] for o in outs] for i, c in enumerate(cases)}
 
 
@@ -439,6 +543,209 @@ def test_dryrun_collectives_equal_a_real_rank(tp2, name, qcfg, prequant):
                 "all-reduce": real["all-reduce"]}, (kind, rank["rank"])
             assert got.collective_bytes == real["bytes"], (kind,
                                                            rank["rank"])
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel training of the dense family
+# ---------------------------------------------------------------------------
+
+def _whole_leaves_equal(ranks):
+    """Across the ranks: the metrics and every entry held whole (a leaf's
+    entries past its ``TPPart.own``) bit for bit."""
+    for r in ranks[1:]:
+        assert r["metrics"] == ranks[0]["metrics"]
+    n = 0
+    for path, leaf in ranks[0]["leaves"].items():
+        own = leaf["part"][0]
+        if own < 0:
+            continue
+        for r in ranks[1:]:
+            np.testing.assert_array_equal(
+                TRF.flat(r["params"])[path][..., own:],
+                TRF.flat(ranks[0]["params"])[path][..., own:], err_msg=path)
+        n += 1
+    return n
+
+
+@pytest.mark.parametrize("mode", TRAIN_MODES)
+def test_tp2_train_matches_jax_and_one_rank(jtrain, tp2, mode):
+    """``shard_train_step`` on a (data 1, model 2) mesh, six steps of
+    paper_tiny: against JAX's ``make_train_step`` on one device (the
+    function GSPMD partitions) and the port's one-rank step, each cut to
+    the rank's part. ``none``: the first step's loss, CE and gradient norm
+    within 1e-5 relative, the parameters after six steps at the resume
+    bar with the Adam allowance; the quantized modes: ROADMAP queue 3's
+    training bars (the loss, and the first step's first moment of a
+    leaf's largest entry). The ranks equal bit for bit where they hold the
+    same thing."""
+    cfg = t_get_config("paper_tiny")
+    ranks = tp2[f"train-{mode}"]
+    assert _whole_leaves_equal(ranks) >= 3          # the norms at least
+    m0 = ranks[0]["metrics"][0]
+    lrs = TRF.lr_sum()
+    for r in ranks:
+        assert r["collectives"][0] > 0
+        one = r["one"]
+        rel = {k: abs(m0[k] / one["metrics"][0][k] - 1)
+               for k in ("loss", "ce", "grad_norm")}
+        print(f"[{mode}] rank {r['tp_rank']} vs one rank, step 0: {rel}")
+    if mode == "none":
+        jm = jtrain["metrics"]
+        rel = {k: abs(m0[k] / jm[0][k] - 1) for k in ("loss", "ce",
+                                                       "grad_norm")}
+        print(f"[none] tp 2 vs JAX, step 0, relative: {rel}")
+        assert max(rel.values()) <= TRF.FIRST_STEP
+        for m, j in zip(ranks[0]["metrics"], jm):
+            assert m["lr"] == j["lr"]
+        for r in ranks:
+            TRF.assert_params_close(
+                TRF.flat(r["params"]),
+                TRF.cut(jtrain["params"], cfg, r["tp_rank"], 2), lrs,
+                f"[none] rank {r['tp_rank']} vs JAX after six steps")
+            for m, o in zip(r["metrics"], r["one"]["metrics"]):
+                for k in ("loss", "ce", "grad_norm"):
+                    np.testing.assert_allclose(m[k], o[k],
+                                               rtol=TRF.FIRST_STEP)
+            for path, d in r["one"]["diffs"].items():
+                assert d["past"] <= TRF.ADAM_SHARE, path
+                assert d["worst_past"] <= lrs, path
+        return
+    loss_tol, grad_tol = TRF.QAT_TOL[mode]
+    jl, jmu = jtrain["qat"][mode]
+    rel = abs(m0["loss"] / jl - 1)
+    print(f"[{mode}] tp 2 vs JAX, step 0 loss relative {rel:.2e}")
+    assert rel <= loss_tol
+    for r in ranks:
+        assert abs(m0["loss"] / r["one"]["metrics"][0]["loss"] - 1) \
+            <= loss_tol
+        TRF.leafwise(TRF.flat(r["mu1"]),
+                     TRF.cut(jmu, cfg, r["tp_rank"], 2), TRF.flat(jmu),
+                     grad_tol, f"[{mode}] rank {r['tp_rank']} vs JAX, "
+                     f"first moment")
+        want = TRF.flat(r["one"]["mu1"])
+        TRF.leafwise(TRF.flat(r["mu1"]), want, want, grad_tol,
+                     f"[{mode}] rank {r['tp_rank']} vs one rank")
+
+
+@pytest.mark.parametrize("name", list(WHOLE))
+def test_tp2_leaves_held_whole_take_tp1_gradients(tp2, name):
+    """A leaf a rank holds whole gets the one-rank gradient (one step's
+    first moment, 0.1 x the clipped gradient) within 2e-6 of its largest
+    entry: where every rank computes the query heads whole, nothing is
+    summed (a sum would double them); where a KV head's query heads lie on
+    both ranks, its ``wqkv`` / ``bqkv`` columns are summed over tp (a
+    missing sum would halve them)."""
+    ranks = tp2[f"train-{name}"]
+    part = ranks[0]["leaves"]["layers/attn/wqkv"]["part"]
+    cfg = WHOLE[name]
+    if name == "heads-whole":
+        assert tuple(part) == (0, False)
+    else:
+        assert tuple(part) == (cfg.n_heads // 2 * cfg.head_dim, True)
+    assert _whole_leaves_equal(ranks) > 0
+    for r in ranks:
+        want = TRF.flat(r["one"]["mu1"])
+        TRF.leafwise(TRF.flat(r["mu1"]), want, want, TRF.WHOLE_LEAF,
+                     f"[{name}] rank {r['tp_rank']} vs tp = 1")
+
+
+@pytest.mark.parametrize("mode", list(TUNE_MODES))
+def test_tp2_prefix_tune_matches_jax(ref, jtune, tp2, mode):
+    """``prefix_tune(mesh=)`` on a model axis of two ranks against JAX's
+    one device, at test_torch_data_parallel.py's method bars; the ranks'
+    cushions equal after every step."""
+    jtr, ranks = jtune["runs"][mode], tp2[f"tune-{mode}"]
+    assert ranks[0]["fingerprint"] == ranks[1]["fingerprint"]
+    for r in ranks:
+        assert [x["step"] for x in r["log"]] == list(range(TUNE_STEPS))
+        assert all(x["ranks_equal"] == 1.0 for x in r["log"])
+    got = ranks[0]
+    worst = {key: max(abs(a[key] / b[key] - 1)
+                      for a, b in zip(got["log"], jtr.log))
+             for key in ("loss", "ce", "range", "qerr", "gnorm")}
+    print(f"[{mode}] tp 2 vs JAX, max relative log difference: {worst}")
+    if mode == "none":
+        assert max(worst.values()) < 1e-5
+    else:
+        first = {key: abs(got["log"][0][key] / jtr.log[0][key] - 1)
+                 for key in ("ce", "range", "qerr")}
+        print(f"[{mode}] step 0: {first}")
+        assert first["ce"] < 1e-3 and max(first.values()) < 1e-2
+        assert max(v for k, v in worst.items() if k != "gnorm") < 5e-2
+        # the gradient norm within 0.2 (step 0: 1.6e-2, as one rank's;
+        # step 4: 0.14): the range penalty's gradient sits on one element
+        # of a site, its argmax, and the ranks' row-parallel sums flip a
+        # code where one device's do not, so the trajectories part (at one
+        # cushion, after four tp = 2 steps, tp = 2 and one rank's norms
+        # differ by 0.7%)
+        assert worst["gnorm"] < 0.2
+    for k in ("k", "v"):
+        a = got["cushion"]["kv"][k]
+        want = np.asarray(jtr.cushion["kv"][k])
+        move = np.abs(want - ref["np_cushion"]["kv"][k])
+        print(f"[{mode}] tuned {k}: max |tp2 - JAX| "
+              f"{np.abs(a - want).max():.2e}, mean / mean move "
+              f"{np.abs(a - want).mean() / move.mean():.3f}")
+        assert move.max() > 1e-3
+        if mode == "none":
+            np.testing.assert_allclose(a, want, rtol=0, atol=1e-6)
+        else:
+            assert np.abs(a - want).mean() < 0.25 * move.mean()
+
+
+def test_extrema_gradients_of_a_cut_activation(tp2):
+    """A cut activation's statistics over two ranks (each its channels):
+    the range penalty's gradient and ``tp_extrema``'s go to the elements
+    equal to the global value, divided by the global count of such
+    elements, as ``jax.grad`` of the same function of the whole tensor
+    gives it; the gathered channel maxima's as torch's autograd of the
+    whole tensor on one rank (through |x| torch's rule: 0 at 0, where
+    JAX's is 1)."""
+    whole = np.concatenate([TIE[0], TIE[1]], axis=-1)       # (1, 3, 8)
+
+    def jpen(a):
+        return jnp.square(jnp.maximum(jnp.max(a), -jnp.min(a)))
+
+    def jext(a):
+        return jnp.min(a) + 2 * jnp.max(a)
+    ranks = tp2["range-tie-tp"]
+    got = {key: np.concatenate([r[key] for r in ranks], axis=-1)
+           for key in ("grad", "extrema_grad", "channel_grad")}
+    for key, fn in (("grad", jpen), ("extrema_grad", jext)):
+        np.testing.assert_allclose(
+            got[key], np.asarray(jax.grad(fn)(jnp.asarray(whole))), rtol=0,
+            atol=1e-7, err_msg=key)
+    t = torch.from_numpy(whole).requires_grad_()
+    (t.abs().amax(dim=(0, 1)) * torch.arange(1.0, 9.0)).sum().backward()
+    np.testing.assert_allclose(got["channel_grad"], t.grad.numpy(), rtol=0,
+                               atol=1e-7)
+    assert np.count_nonzero(np.asarray(jax.grad(jpen)(
+        jnp.asarray(whole)))) == 4
+    for r in ranks:
+        assert (r["amin"], r["amax"]) == (-2.0, 2.0)
+        np.testing.assert_array_equal(r["absmax_ch"],
+                                      np.abs(whole).max(axis=(0, 1)))
+
+
+def test_dryrun_train_collectives_equal_a_real_rank(tp2):
+    """The dry-run's meta rank of a (data=1, model=2) mesh counts the
+    all-reduces, and their bytes, that each gloo rank issues for the same
+    train step (two microbatches of one row, the FSDP gather, the
+    tensor-parallel collectives and their gradients, the clip's norm), and
+    the kernels' launches of the step."""
+    from repro_torch.launch import dryrun as D
+    mesh = M.dryrun_mesh((1, 2), ("data", "model"))
+    got = D.measure_program(D.train_program(t_get_config("paper_tiny"), 2,
+                                            24, mesh=mesh))
+    c = got["cost"]
+    for rank in tp2["train-collectives"]:
+        assert rank["all-reduce"] > 0
+        assert c.collective_counts == {**{k: 0 for k in c.collective_counts},
+                                       "all-reduce": rank["all-reduce"]}
+        assert c.collective_bytes == rank["bytes"]
+    # two microbatches, 4 layers, the forward twice with remat
+    assert got["launches"] == {"flash_attention": 16,
+                               "flash_attention_bwd": 8}
 
 
 def test_tp4_engine_matches_jax(ref):

@@ -317,7 +317,7 @@ def _attn_inputs(hd, B=2, H=4, Kh=2, S=20, m=5, seed=0):
     return q, k, v, do
 
 
-@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("hd", [32, 64, 80])
 @pytest.mark.parametrize("live", [5, 3, 0])
 def test_flash_attention_bwd_plain_matches_autograd_and_jax(hd, live):
     """GQA (H = 4, Kh = 2) behind a 5-row prefix whose rows [live, 5) are

@@ -406,7 +406,9 @@ PRECISION = ("as_built", "f32_dots", "f64_sums")
 PRECISION_DRAWS = 8
 
 
-def build(lib, name, source, subs, out_dir):
+def build(lib, name, source, subs, out_dir, extra=()):
+    """A copy of ``source`` with ``subs`` applied, built with the sources
+    ``extra`` (unchanged) into one library."""
     text = source
     for old, new in subs:
         if old not in text:
@@ -416,7 +418,7 @@ def build(lib, name, source, subs, out_dir):
     cu.write_text(text)
     so = out_dir / f"{name}.so"
     cmd = [lib._nvcc(), *lib.NVCC_FLAGS, "-I", str(lib.CSRC), "-shared",
-           str(cu), "-o", str(so)]
+           str(cu), *map(str, extra), "-o", str(so)]
     return so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT)
 
@@ -486,8 +488,12 @@ def main() -> None:
         if kernel not in only:
             continue
         src = (_lib.CSRC / f"{kernel}.cu").read_text()
+        # the f32 forward is a source of its own beside the bf16 kernels
+        extra = ((_lib.CSRC / "flash_attention_f32.cu",)
+                 if kernel == "flash_attention" else ())
         for name, subs in table.items():
-            so, p = build(_lib, f"{kernel}.{name}", src, subs, out_dir)
+            so, p = build(_lib, f"{kernel}.{name}", src, subs, out_dir,
+                          extra)
             libs[(kernel, name)] = so
             procs.append((kernel, name, p))
     for family, table, sources in (
