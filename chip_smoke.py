@@ -329,7 +329,19 @@ Phases, each fatal on failure:
    one rank's, the attention kernels' launches a rank a step one rank's;
    ms a step, gloo all-reduces a step, peak GiB and resident parameter and
    moment bytes a rank beside one rank's (``tp_train_*`` in the kernels
-   line);
+   line). (f) The same for the families without experts beside the dense
+   one, in the same two processes: whisper-base whole (B = 4 x 256 over
+   1,500 frames), xlstm-350m whole (B = 4 x 256) and internvl2-26b at
+   full width and 2 of its 48 layers (B = 2, 1,024 patches + 256 tokens;
+   its one-rank side run first on rank 0 and freed), each held as (e)
+   (the attention launches a step: whisper's encoder, decoder and
+   cross-attention, none in the xLSTM), with ``tp_train_<arch>_*`` in the
+   kernels line; ``prefix_tune(mesh=)`` of xlstm-350m for 3 steps
+   (``ranks_equal`` 1 at every step, the first step's loss within
+   ``TPT_LOSS_TOL`` of rank 0's one-rank tuning); the attention kernels
+   at a rank's shapes, forward and backward, against their plain
+   versions (whisper's 4 heads of 64 over 1,500 frames, internvl2's 24
+   query heads over 4 KV heads of head_dim 128);
 4m. the router over tensor-parallel replicas: smollm-360m whole on four
    gloo ranks of the card, 2 replicas of tp = 2
    (``launch/mesh.spawn_mesh(data=2, tp=2)``, ``make_replica_meshes``; the
@@ -5425,117 +5437,348 @@ DP_CE_TOL, DP_SQ_TOL, DP_MOVE_SHARE = 1e-3, 0.1, 0.5
 DP_LOSS0_TOL, DP_LOSS_TOL = 1e-2, 5e-2
 
 
-# phase 4l's tensor-parallel training: qwen1.5-0.5b at full width and
-# depth (24 layers, d_model 1024, 16 heads, QKV bias, a tied vocabulary of
-# 151,936) on the same two processes as one (data 1, model 2) mesh,
-# shard_train_step at B = 4 x 256 for 3 steps under none and pt_dynamic,
-# against rank 0's make_train_step on the whole tree and the same batches.
-# The ranks' row-parallel sums (wo, w_down) add in another order than one
-# rank's GEMMs, in bf16, as phase 4l's data-parallel ranks' halves of the
-# rows do: its bars, the first step's loss within 1e-2 relative; the
-# gradient norm within 5e-2 (the clip reads it)
-TPT_ARCH, TPT_B, TPT_S, TPT_STEPS = "qwen1.5-0.5b", 4, 256, 3
+# phase 4l's tensor-parallel training, (e) and (f): each model on the same
+# two processes as one (data 1, model 2) mesh, shard_train_step for 3 steps
+# under none and pt_dynamic against rank 0's make_train_step on the whole
+# tree and the same batches. (e) qwen1.5-0.5b at full width and depth (24
+# layers, d_model 1024, 16 heads, QKV bias, a tied vocabulary of 151,936
+# cut in two); (f) the families without experts beside the dense one:
+# whisper-base whole (6 + 6 layers, 8 heads of 64 cut in two, d_ff cut,
+# its odd vocabulary of 51,865 whole) over 1,500 frames, xlstm-350m whole
+# (24 layers, its vocabulary and mLSTM values cut), internvl2-26b at full
+# width and 2 of its 48 layers (48 query heads and 8 KV heads cut in two,
+# d_ff 16,384 cut, its odd vocabulary of 92,553 whole: about 1.92 B
+# parameters) over 1,024 patches. The ranks' row-parallel sums (wo,
+# w_down) add in another order than one rank's GEMMs, in bf16, as phase
+# 4l's data-parallel ranks' halves of the rows do: its bars, the first
+# step's loss within 1e-2 relative; the gradient norm within 5e-2 (the
+# clip reads it). internvl2's one-rank side (bf16 weights and gradients,
+# f32 moments: about 23 GB, twice the moments while it updates) runs first
+# on rank 0 and is freed before the rank's shards are made
+# (``one_rank_first``); its ranks' steps write their new shards and
+# moments into the old ones (``donate``, the reference's donated state:
+# two ranks' functional updates, 35 GiB each by the dry-run's count, do
+# not fit on the card together)
+TPT_STEPS = 3
 TPT_MODES = ("none", "pt_dynamic")
 TPT_LOSS_TOL, TPT_GNORM_TOL = 1e-2, 5e-2
+# (arch, the layers kept (None: all), B, S text positions, the phase's
+# case)
+TPT_RUNS = (("qwen1.5-0.5b", None, 4, 256, "e"),
+            ("whisper-base", None, 4, 256, "f"),
+            ("xlstm-350m", None, 4, 256, "f"),
+            ("internvl2-26b", 2, 2, 256, "f"))
+# (f)'s prefix_tune(mesh=) of xlstm-350m (its mLSTM state summed over tp,
+# its sLSTM state not): 3 steps at B = 4 x 256 under none from a 4-token
+# cushion, against rank 0's one-rank tuning
+TPT_TUNE_ARCH, TPT_TUNE_B, TPT_TUNE_S = "xlstm-350m", 4, 256
+TPT_TUNE_IDS = [11, 12, 13, 14]
+
+
+def tpt_cfg(arch, layers):
+    """A (e) / (f) model's config: the whole model's, ``layers`` of its
+    layers where the depth is cut."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def attention_layers(cfg) -> int:
+    """The attention layers a forward runs: the encoder-decoder's encoder,
+    decoder and cross-attention, none in the xLSTM."""
+    if cfg.family.value == "ssm":
+        return 0
+    if cfg.encdec is not None:
+        return cfg.encdec.encoder_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def tpt_batches(cfg, B, S, n, seed):
+    """``n`` batches of seeded random tokens (B, S), with a VLM's patches or
+    an encoder-decoder's frames (normal x 0.02, f32, the stub frontends'
+    output)."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        t = rs.randint(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+        b = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+        extra = (("patches", cfg.vlm.num_patches) if cfg.vlm is not None
+                 else ("frames", cfg.encdec.encoder_seq)
+                 if cfg.encdec is not None else None)
+        if extra is not None:
+            b[extra[0]] = (rs.randn(B, extra[1], cfg.d_model)
+                           * 0.02).astype(np.float32)
+        out.append(b)
+    return out
 
 
 def tp_train_cases():
     """The rank program's cases of the tensor-parallel training (one a
-    mode), on batches of seeded random tokens."""
-    import numpy as np
-    from repro_torch.configs import QuantConfig, get_config
-    cfg = get_config(TPT_ARCH)
-    rs = np.random.RandomState(31)
-    batches = []
-    for _ in range(TPT_STEPS):
-        t = rs.randint(0, cfg.vocab_size, (TPT_B, TPT_S + 1)) \
-            .astype(np.int32)
-        batches.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
-    return [dict(kind="train", name=f"tp_train_{mode}", cfg=cfg, seed=0,
-                 batches=batches, batch_rows=TPT_B, seq=TPT_S,
-                 steps=TPT_STEPS, lr=1e-3, warmup=10, mesh_shape=(1, 2),
-                 one_rank=True, one_rank_tp=[0],
-                 qcfg=QuantConfig(mode=mode))
-            for mode in TPT_MODES]
+    model and mode) and (f)'s xLSTM tuning."""
+    from repro_torch.configs import CushionConfig, QuantConfig
+    cases = []
+    for i, (arch, layers, B, S, _) in enumerate(TPT_RUNS):
+        cfg = tpt_cfg(arch, layers)
+        batches = tpt_batches(cfg, B, S, TPT_STEPS, 31 + i)
+        cases += [dict(kind="train", name=f"tp_train_{arch}_{mode}",
+                       cfg=cfg, seed=0, batches=batches, batch_rows=B,
+                       seq=S, steps=TPT_STEPS, lr=1e-3, warmup=10,
+                       mesh_shape=(1, 2), one_rank=True, one_rank_tp=[0],
+                       one_rank_first=cfg.vlm is not None,
+                       donate=cfg.vlm is not None,
+                       qcfg=QuantConfig(mode=mode))
+                  for mode in TPT_MODES]
+    cfg = tpt_cfg(TPT_TUNE_ARCH, None)
+    cases.append(dict(
+        kind="tune", name=f"tp_tune_{TPT_TUNE_ARCH}", cfg=cfg, seed=0,
+        cushion_ids=TPT_TUNE_IDS, mesh_shape=(1, 2),
+        batches=tpt_batches(cfg, TPT_TUNE_B, TPT_TUNE_S, TPT_STEPS, 41),
+        qcfg=QuantConfig(), one_rank=True, one_rank_tp=[0],
+        ccfg=CushionConfig(tune_steps=TPT_STEPS, tune_lr=1e-3, lam=0.05,
+                           log_every=TPT_STEPS)))
+    return cases
 
 
-def tp_train_checks(got):
-    """Hold phase 4l's tensor-parallel training (``got``: {case name: [rank
-    0's report, rank 1's]}) to its bars and return its record: the ranks'
-    metrics and whole leaves equal bit for bit, the first step's loss and
-    gradient norm against rank 0's one-rank run, the attention kernels'
-    launches a rank a step one rank's; ms a step, gloo all-reduces a step,
-    peak GiB and resident parameter and moment bytes a rank, each beside
-    one rank's."""
+def tp_train_kernel_rows(dev, timed):
+    """(f)'s attention kernels at a rank's shapes of its training step, in
+    bf16, against their plain versions: ``flash_attention`` and, through
+    autograd, ``flash_attention_bwd`` at whisper-base's 4 heads of 64 of
+    tp = 2 (B = 4: the encoder and the cross-attention non-causal over
+    1,500 frames, the decoder's self-attention causal at S = 256) and
+    internvl2-26b's 24 query heads over 4 KV heads of head_dim 128 (B = 2,
+    causal, S = 1,280), the forward within one bf16 ulp, the backward
+    within one bf16 ulp plus 1e-5 of the largest entry; each timed beside
+    its plain version, its bound and SDPA. Returns {kernel: {shape_key:
+    value}}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+
+    bf = torch.bfloat16
+    g = torch.Generator(dev).manual_seed(47)
+    shapes = (("whisper-base_encoder", 4, 4, 1, 1500, 1500, 64, False),
+              ("whisper-base_cross", 4, 4, 1, 256, 1500, 64, False),
+              ("whisper-base_self", 4, 4, 1, 256, 256, 64, True),
+              ("internvl2-26b_self", 2, 4, 6, 1280, 1280, 128, True))
+    out = {"flash_attention": {}, "flash_attention_bwd": {}}
+
+    def sdpa_ms(fn):
+        try:
+            return timed(fn)
+        except (RuntimeError, TypeError) as e:
+            log(f"scaled_dot_product_attention not timed: {e}")
+            return None
+    for key, B, Kh, G, S, T, hd, causal in shapes:
+        H = Kh * G
+        q = torch.randn((B, H, S, hd), generator=g, device=dev).to(bf)
+        k = torch.randn((B, Kh, T, hd), generator=g, device=dev).to(bf)
+        v = torch.randn((B, Kh, T, hd), generator=g, device=dev).to(bf)
+        do = torch.randn((B, H, S, hd), generator=g, device=dev).to(bf)
+        got = FA.flash_attention(q, k, v, causal=causal)
+        want = FA.flash_attention_plain(q, k, v, causal=causal)
+        e_o = (got.float() - want.float()).abs()
+        if not bool((e_o <= BF16_ULP * want.float().abs() + 1e-6).all()):
+            fail(f"phase 4l (f) flash_attention at {key}: max err "
+                 f"{float(e_o.max())} beyond one bf16 ulp")
+        o, lse = FA._launch(q, k, v, 0, 0, with_lse=True, causal=causal)
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        FA.flash_attention(qg, kg, vg, causal=causal).backward(do)
+        wants = FA.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                             causal=causal)
+        errs = []
+        for name, a, b_ in zip(("dq", "dk", "dv"), (qg.grad, kg.grad,
+                                                    vg.grad), wants):
+            e = (a.float() - b_.float()).abs()
+            lim = BF16_ULP * b_.float().abs() + 1e-5 * float(
+                b_.float().abs().max())
+            if not bool((e <= lim).all()):
+                fail(f"phase 4l (f) flash_attention_bwd at {key}, {name}: "
+                     f"max err {float(e.max())}")
+            errs.append(float(e.max()))
+        pairs = B * H * (S * (S + 1) / 2 if causal else S * T)
+        io = 2 * (2 * B * H * S * hd + 2 * B * Kh * T * hd)
+        f_b, f_by = bound_ms(io, 4.0 * hd * pairs, BF16_FLOPS_PER_S)
+        b_b, b_by = bound_ms(2 * (4 * B * H * S * hd + 4 * B * Kh * T * hd)
+                             + 4 * B * H * S, 10.0 * hd * pairs,
+                             BF16_FLOPS_PER_S)
+        qs, ks_, vs_ = (t.detach().contiguous().requires_grad_()
+                        for t in (q, k, v))
+        dos = do.contiguous()
+        gqa = dict(enable_gqa=True) if G > 1 else {}
+        fwd = {"ms": timed(lambda: FA.flash_attention(q, k, v,
+                                                      causal=causal)),
+               "plain_ms": timed(lambda: FA.flash_attention_plain(
+                   q, k, v, causal=causal), 3),
+               "bound_ms": f_b, "bound_by": f_by,
+               "library_ms": sdpa_ms(lambda: F.scaled_dot_product_attention(
+                   qs, ks_, vs_, is_causal=causal, **gqa)),
+               "max_abs_err": float(e_o.max())}
+        bwd = {"ms": timed(lambda: FA.flash_attention_bwd(
+                   q, k, v, o, lse, do, causal=causal)),
+               "plain_ms": timed(lambda: FA.flash_attention_bwd_plain(
+                   q, k, v, o, lse, do, causal=causal), 3),
+               "bound_ms": b_b, "bound_by": b_by,
+               "library_ms": sdpa_ms(lambda: F.scaled_dot_product_attention(
+                   qs, ks_, vs_, is_causal=causal, **gqa).backward(dos)),
+               "library_of": "scaled_dot_product_attention forward + "
+                             "backward",
+               "max_abs_err": max(errs)}
+        unit = (f"one call of a tp = 2 rank, B={B}, S={S}, T={T}, {H} "
+                f"heads over {Kh}, hd={hd}, "
+                f"{'causal' if causal else 'non-causal'}")
+        for kname, row in (("flash_attention", fwd),
+                           ("flash_attention_bwd", bwd)):
+            out[kname].update({f"{key}_{k_}": v_ for k_, v_ in row.items()})
+            out[kname][f"{key}_unit"] = unit
+        log(f"(f) at {key} ({unit}): flash_attention {fwd['ms']:.4f} ms "
+            f"(plain {fwd['plain_ms']:.4f}, bound {f_b:.4f}, SDPA "
+            f"{fwd['library_ms']}), flash_attention_bwd {bwd['ms']:.4f} "
+            f"(plain {bwd['plain_ms']:.4f}, bound {b_b:.4f}, SDPA forward + "
+            f"backward {bwd['library_ms']})")
+        del q, k, v, do, o, lse, qg, kg, vg, qs, ks_, vs_, dos, wants
+    return out
+
+
+def tp_train_checks(got, dev, timed):
+    """Hold phase 4l's tensor-parallel training and tuning (``got``: {case
+    name: [rank 0's report, rank 1's]}) to their bars and return the
+    record: for each model, the ranks' metrics and whole leaves equal bit
+    for bit, the first step's loss and gradient norm against rank 0's
+    one-rank run, the attention kernels' launches a rank a step one
+    rank's; ms a step, gloo all-reduces a step, peak GiB and resident
+    parameter and moment bytes a rank, each beside one rank's; the
+    xLSTM's tuning: ``ranks_equal`` 1 at every step, the first step's loss
+    against one rank's; (f)'s kernels at the ranks' shapes
+    (``tp_train_kernel_rows``)."""
     import numpy as np
-    from repro_torch.configs import get_config
     gib = 2.0 ** 30
-    L = get_config(TPT_ARCH).n_layers
-    rec = {"arch": TPT_ARCH, "mesh": "(data 1, model 2), two gloo ranks of "
-           "the one card", "B": TPT_B, "S": TPT_S, "steps": TPT_STEPS}
-    for mode in TPT_MODES:
-        r0, r1 = got[f"tp_train_{mode}"]
-        if r0["metrics"] != r1["metrics"]:
-            fail(f"phase 4l tp {mode}: the ranks' metrics differ")
-        for path, a in r0["whole_leaves"].items():
-            if not np.array_equal(a, r1["whole_leaves"][path]):
-                fail(f"phase 4l tp {mode}: whole leaf {path} differs "
-                     f"between the ranks")
-        one = r0["one"]
-        m0, o0 = r0["metrics"][0], one["metrics"][0]
-        rel = {k: abs(m0[k] / o0[k] - 1) for k in ("loss", "grad_norm")}
-        if rel["loss"] > TPT_LOSS_TOL or rel["grad_norm"] > TPT_GNORM_TOL:
-            fail(f"phase 4l tp {mode}: the first step against one rank's "
-                 f"{rel} (bars loss {TPT_LOSS_TOL}, gradient norm "
-                 f"{TPT_GNORM_TOL})")
-        want = dict(one["launches"][0])
-        if want.get("flash_attention") != 2 * L or \
-                want.get("flash_attention_bwd") != L:
-            fail(f"phase 4l tp {mode}: one rank launched {want} a step")
-        for r in (r0, r1):
-            if any(x != want for x in r["launches"]):
-                fail(f"phase 4l tp {mode}: a rank launched {r['launches']}, "
-                     f"one rank {want} a step")
-        rec[mode] = {
-            "loss": [m["loss"] for m in r0["metrics"]],
-            "one_rank_loss": [m["loss"] for m in one["metrics"]],
-            "grad_norm": [m["grad_norm"] for m in r0["metrics"]],
-            "one_rank_grad_norm": [m["grad_norm"] for m in one["metrics"]],
-            "first_step_rel": rel, "launches_a_step": want,
-            "ms_a_step": [r["ms"] for r in (r0, r1)],
-            "one_rank_ms_a_step": one["ms"],
-            "all_reduces_a_step": [r["collectives"] for r in (r0, r1)],
-            "peak_gib": [r["peak_bytes"] / gib for r in (r0, r1)],
-            "one_rank_peak_gib": one["peak_bytes"] / gib,
-            "param_bytes": [r["shard_bytes"] for r in (r0, r1)],
-            "moment_bytes": [r["moment_bytes"] for r in (r0, r1)],
-            "one_rank_param_bytes": one["bytes"]["params"],
-            "one_rank_moment_bytes": one["bytes"]["moments"],
-            "whole_leaves": len(r0["whole_leaves"])}
-        x = rec[mode]
-        log(f"(e) tensor-parallel training, {TPT_ARCH} at full width, "
-            f"{mode}, (data 1, model 2), B={TPT_B} x {TPT_S}, {TPT_STEPS} "
-            f"steps: losses {[round(v, 5) for v in x['loss']]} vs one "
-            f"rank's {[round(v, 5) for v in x['one_rank_loss']]}, the first "
-            f"step apart {rel}; metrics and {x['whole_leaves']} whole leaves "
-            f"equal on both ranks; launches a rank a step {want} = one "
-            f"rank's; ms a step a rank {[[round(v, 1) for v in ms] for ms in x['ms_a_step']]} "
-            f"vs one rank's {[round(v, 1) for v in one['ms']]}; gloo "
-            f"all-reduces a step {x['all_reduces_a_step'][0]} (one rank: "
-            f"0); peak GiB a rank {[round(v, 2) for v in x['peak_gib']]} vs "
-            f"one rank's run {x['one_rank_peak_gib']:.2f}; a rank holds "
-            f"{x['param_bytes'][0] / gib:.3f} GiB of parameters and "
-            f"{x['moment_bytes'][0] / gib:.3f} of moments, one rank "
-            f"{x['one_rank_param_bytes'] / gib:.3f} and "
-            f"{x['one_rank_moment_bytes'] / gib:.3f}")
-    r0 = got[f"tp_train_{TPT_MODES[0]}"][0]
-    rec["launches"] = {k: v * TPT_STEPS for k, v in
-                       r0["launches"][0].items()}
-    rec["kernels"] = {}
+    rec = {"mesh": "(data 1, model 2), two gloo ranks of the one card",
+           "steps": TPT_STEPS, "launches": {}, "kernels": {}}
+    for arch, layers, B, S, part in TPT_RUNS:
+        cfg = tpt_cfg(arch, layers)
+        n_attn = attention_layers(cfg)
+        rec[arch] = {"case": part, "B": B, "S": S,
+                     "layers": cfg.n_layers, "attention_layers": n_attn}
+        for mode in TPT_MODES:
+            r0, r1 = got[f"tp_train_{arch}_{mode}"]
+            what = f"phase 4l ({part}) {arch} {mode}"
+            if r0["metrics"] != r1["metrics"]:
+                fail(f"{what}: the ranks' metrics differ")
+            for path, a in r0["whole_digests"].items():
+                if a != r1["whole_digests"][path]:
+                    fail(f"{what}: whole leaf {path} differs between the "
+                         f"ranks")
+            one = r0["one"]
+            m0, o0 = r0["metrics"][0], one["metrics"][0]
+            rel = {k: abs(m0[k] / o0[k] - 1) for k in ("loss", "grad_norm")}
+            if rel["loss"] > TPT_LOSS_TOL or \
+                    rel["grad_norm"] > TPT_GNORM_TOL:
+                fail(f"{what}: the first step against one rank's {rel} "
+                     f"(bars loss {TPT_LOSS_TOL}, gradient norm "
+                     f"{TPT_GNORM_TOL})")
+            want = {k: v for k, v in one["launches"][0].items() if v}
+            if want.get("flash_attention", 0) != 2 * n_attn or \
+                    want.get("flash_attention_bwd", 0) != n_attn:
+                fail(f"{what}: one rank launched {want} a step")
+            for r in (r0, r1):
+                if any({k: v for k, v in x.items() if v} != want
+                       for x in r["launches"]):
+                    fail(f"{what}: a rank launched {r['launches']}, one "
+                         f"rank {want} a step")
+            for k_, v_ in r0["launches"][0].items():
+                rec["launches"][k_] = rec["launches"].get(k_, 0) \
+                    + v_ * TPT_STEPS
+            rec[arch][mode] = {
+                "loss": [m["loss"] for m in r0["metrics"]],
+                "one_rank_loss": [m["loss"] for m in one["metrics"]],
+                "grad_norm": [m["grad_norm"] for m in r0["metrics"]],
+                "one_rank_grad_norm": [m["grad_norm"]
+                                       for m in one["metrics"]],
+                "first_step_rel": rel, "launches_a_step": want,
+                "ms_a_step": [r["ms"] for r in (r0, r1)],
+                "one_rank_ms_a_step": one["ms"],
+                "all_reduces_a_step": [r["collectives"] for r in (r0, r1)],
+                "peak_gib": [r["peak_bytes"] / gib for r in (r0, r1)],
+                "one_rank_peak_gib": one["peak_bytes"] / gib,
+                "param_bytes": [r["shard_bytes"] for r in (r0, r1)],
+                "moment_bytes": [r["moment_bytes"] for r in (r0, r1)],
+                "one_rank_param_bytes": one["bytes"]["params"],
+                "one_rank_moment_bytes": one["bytes"]["moments"],
+                "whole_leaves": len(r0["whole_digests"])}
+            x = rec[arch][mode]
+            log(f"({part}) tensor-parallel training, {arch} at full width"
+                f"{'' if layers is None else f', {layers} layers'}, {mode},"
+                f" (data 1, model 2), B={B} x {S}, {TPT_STEPS} steps: "
+                f"losses {[round(v, 5) for v in x['loss']]} vs one rank's "
+                f"{[round(v, 5) for v in x['one_rank_loss']]}, the first "
+                f"step apart {rel}; metrics and {x['whole_leaves']} whole "
+                f"leaves equal on both ranks; launches a rank a step {want} "
+                f"= one rank's; ms a step a rank "
+                f"{[[round(v, 1) for v in ms] for ms in x['ms_a_step']]} vs "
+                f"one rank's {[round(v, 1) for v in one['ms']]}; gloo "
+                f"all-reduces a step {x['all_reduces_a_step'][0]} (one "
+                f"rank: 0); peak GiB a rank "
+                f"{[round(v, 2) for v in x['peak_gib']]} vs one rank's run "
+                f"{x['one_rank_peak_gib']:.2f}; a rank holds "
+                f"{x['param_bytes'][0] / gib:.3f} GiB of parameters and "
+                f"{x['moment_bytes'][0] / gib:.3f} of moments, one rank "
+                f"{x['one_rank_param_bytes'] / gib:.3f} and "
+                f"{x['one_rank_moment_bytes'] / gib:.3f}")
+        # the kernels line's tp_train_<arch>_* figures (under none)
+        x = rec[arch]["none"]
+        figures = {
+            f"{arch}_ms_a_step": float(np.median(x["ms_a_step"][0][1:])),
+            f"{arch}_one_rank_ms_a_step": float(np.median(
+                x["one_rank_ms_a_step"][1:])),
+            f"{arch}_all_reduces_a_step": x["all_reduces_a_step"][0][0],
+            f"{arch}_peak_gib": x["peak_gib"],
+            f"{arch}_one_rank_peak_gib": x["one_rank_peak_gib"],
+            f"{arch}_param_bytes": x["param_bytes"][0],
+            f"{arch}_one_rank_param_bytes": x["one_rank_param_bytes"],
+            f"{arch}_moment_bytes": x["moment_bytes"][0],
+            f"{arch}_one_rank_moment_bytes": x["one_rank_moment_bytes"]}
+        for kname in ("flash_attention", "flash_attention_bwd"):
+            n = x["launches_a_step"].get(kname, 0)
+            if n:
+                rec["kernels"].setdefault(kname, {}).update(
+                    figures, **{f"{arch}_launches_a_step": n})
+
+    # (f) the xLSTM's prefix_tune(mesh=)
+    t0_, t1_ = got[f"tp_tune_{TPT_TUNE_ARCH}"]
+    one = t0_["one"]
+    if t0_["fingerprint"] != t1_["fingerprint"]:
+        fail("phase 4l (f) tuning: the ranks' tuned cushions differ")
+    eq = [x["ranks_equal"] for x in t0_["log"]]
+    if eq != [1.0] * TPT_STEPS:
+        fail(f"phase 4l (f) tuning: ranks_equal {eq}")
+    rel = abs(t0_["log"][0]["loss"] / one["log"][0]["loss"] - 1)
+    if rel > TPT_LOSS_TOL:
+        fail(f"phase 4l (f) tuning: the first step's loss {rel:.3g} "
+             f"relative from one rank's (bar {TPT_LOSS_TOL})")
+    rec["tune"] = {"arch": TPT_TUNE_ARCH, "B": TPT_TUNE_B, "S": TPT_TUNE_S,
+                   "ranks_equal": eq,
+                   "loss": [x["loss"] for x in t0_["log"]],
+                   "one_rank_loss": [x["loss"] for x in one["log"]],
+                   "first_step_rel": rel,
+                   "ms_a_step": [t0_["ms"], t1_["ms"]],
+                   "one_rank_ms_a_step": one["ms"]}
+    log(f"(f) prefix_tune(mesh=) of {TPT_TUNE_ARCH} on (data 1, model 2), "
+        f"B={TPT_TUNE_B} x {TPT_TUNE_S}, {TPT_STEPS} steps under none: "
+        f"ranks_equal {eq}; losses "
+        f"{[round(v, 5) for v in rec['tune']['loss']]} vs one rank's "
+        f"{[round(v, 5) for v in rec['tune']['one_rank_loss']]} (first "
+        f"step {rel:.2e} apart); ms a step a rank "
+        f"{[round(v, 1) for v in rec['tune']['ms_a_step']]} vs one rank's "
+        f"{one['ms']:.1f}")
+    # (f)'s kernels at the ranks' shapes
+    for kname, row in tp_train_kernel_rows(dev, timed).items():
+        rec["kernels"].setdefault(kname, {}).update(row)
     return rec
 
 
-def dp_phase(dev, corpus):
+def dp_phase(dev, corpus, timed):
     """Phase 4l: data-parallel tuning and training of smollm-360m over two
     gloo ranks of the card, and the user's path train -> tune --dp 2 ->
     serve --ckpt-dir (see the module docstring). Returns the record."""
@@ -5812,7 +6055,7 @@ def dp_phase(dev, corpus):
         f"{tprof['ms']:.1f} ms, device {tprof['device_ms']} ms (busy "
         f"{tbusy})")
     # (e) tensor-parallel training on the same two processes
-    rec["tp_train"] = tp_train_checks(got)
+    rec["tp_train"] = tp_train_checks(got, dev, timed)
     log(f"(a) compressed_psum over 2 ranks of {big.shape[1]} values: every "
         f"rank equal, max |err| {err:.3g} against the exact mean (bound "
         f"{rec['compressed']['bound']:.3g}); dp_train_step_compressed equal "
@@ -7192,7 +7435,7 @@ def main() -> None:
     phase_done("tp")
 
     # 4l. data-parallel tuning and training, smollm-360m on two ranks ---
-    record["dp"] = dp_phase(dev, corpus)
+    record["dp"] = dp_phase(dev, corpus, timed)
     record["tp_train"] = record["dp"].pop("tp_train")
     gc.collect()
     torch.cuda.empty_cache()

@@ -401,12 +401,15 @@ def prefix_tune(api, params, cushion0: Params,
       (``train/trainer.shard_update_step``): the loss's reductions over
       the batch are global, the gradients summed over the axis, and every
       rank holds the same cushion after every step. The batch size must
-      divide by the axis. A model axis of more than one rank (the dense
-      family) runs the model on the rank's shard (``engine.shard_tree``,
+      divide by the axis. A model axis of more than one rank (the dense,
+      VLM, encoder-decoder and xLSTM families; ``check_data_parallel``)
+      runs the model on the rank's shard (``engine.shard_tree``,
       ``tp_config``), ``params`` being the whole tree: the cushion is
-      whole on every rank and a rank reads its heads' slice, so where the
-      heads are cut its gradient is the rank's share, summed over tp; the
-      statistics and L_q of a cut activation are the ranks'.
+      whole on every rank, and a leaf a rank reads in part (the family's
+      ``cushion_summed``: the KV where the heads are cut, the xLSTM's
+      mLSTM state where its values are) gets the rank's share of its
+      gradient, summed over tp; the statistics and L_q of a cut activation
+      are the ranks'.
     * On the card every layer's attention runs ``flash_attention`` forward
       and ``flash_attention_bwd`` backward.
     """
@@ -428,8 +431,10 @@ def prefix_tune(api, params, cushion0: Params,
         tp = int(mesh.size)
         params = E.shard_tree(as_tree(params), api.cfg, mesh)
         api = dataclasses.replace(api, cfg=E.tp_config(api.cfg, tp))
-        read_in_part = "heads" in api.cfg.tp.cut
-        shared = tree_map(lambda _: E.TPPart(0, read_in_part), cushion0)
+        # the leaves a rank reads in part, by family (the KV where the
+        # heads are cut; the xLSTM's mLSTM state where its values are)
+        shared = tree_map(lambda summed: E.TPPart(0, summed),
+                          api.mod.cushion_summed(cushion0, api.cfg))
     frozen, stop_grad_frozen = _partition_cushion(cushion0)
     opt = AdamW(lr=constant_lr(ccfg.tune_lr), weight_decay=0.0,
                 grad_clip=1.0, frozen=frozen)

@@ -52,12 +52,17 @@ microbatch), and one step: the FSDP gather over ``data``, the forward and
 backward with every tensor-parallel collective of
 ``distributed/collectives.py`` and its gradient, the gradients summed over
 tp and data, the norm and the update. ``param_bytes_per_chip`` is then
-the rank's parameter shards, ``opt_bytes_per_chip`` its moments.
+the rank's parameter shards, ``opt_bytes_per_chip`` its moments. The
+dense, VLM, encoder-decoder and xLSTM families run it; the production
+meshes cut them in their own ways (internvl2-26b its 48 query heads and
+not its 8 KV heads, whisper-base its ``d_ff`` and not its 8 heads,
+xlstm-350m its vocabulary and its mLSTM values).
 
 Cells the port cannot run are written the way the reference writes a cell
-that fails, ``ok: false`` with the reason: ``train_4k`` of a family but
-the dense one (tensor-parallel training of the other families, ROADMAP
-queue 1, item 6.10b, and of the experts over a data axis, 6.11), serving
+that fails, ``ok: false`` with the reason: ``train_4k`` of a family with
+experts, the MoE family and the Jamba hybrid (tensor-parallel training of
+them, ROADMAP queue 1, item 6.10b, and of the experts over a data axis,
+6.11), serving
 under ``--param-shard fsdp`` (FSDP-sharded serving weights, item 6.12),
 and whatever the engines refuse at the mesh's tp.
 ``--all`` runs every applicable cell of both production meshes (the
@@ -96,7 +101,7 @@ HBM_BW = 3.35e12
 NVLINK_BW = 450e9           # each way
 
 # a train cell of a family that tensor-parallel training does not run
-# (train/trainer.py check_data_parallel)
+# (train/trainer.py check_data_parallel: the families with experts)
 TRAIN_REFUSAL = TR.TP_TRAINING_LATER
 FSDP_REFUSAL = ("FSDP-sharded serving weights (--param-shard fsdp): the "
                 "port's engines hold tensor-parallel shards only, weights "

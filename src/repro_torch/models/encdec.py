@@ -43,7 +43,13 @@ by rows (the rule ``attn/wo$`` finds ``xattn/wo``), while ``wq`` and
 heads' columns of each (``common.rank_window``), so its cross KV holds
 its heads, as the cache roles say. The five row-parallel sites sum over
 the ranks (``Q.qdot``); the embedding and the head are cut where the
-vocabulary divides.
+vocabulary divides. Under autograd (tensor-parallel training and tuning)
+the cross-attention's query product reads the decoder state through
+``collectives.copy_to_tp``, and the decoder reads ``enc_out`` through one
+copy for all its layers, so both gradients are whole on every rank; the
+whole ``xattn/wq`` and ``xattn/wkv``, read in windows, get each rank's
+share, summed over tp where the gradients meet the optimizer
+(``engine.tp_leaf_parts``).
 """
 from __future__ import annotations
 
@@ -77,6 +83,7 @@ CACHE_BATCH_AXES = {"k": 1, "v": 1, "xk": 1, "xv": 1}
 
 total_qerr = T.total_qerr
 cushion_zeros = T.cushion_zeros
+cushion_summed = T.cushion_summed
 
 
 def xattn_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
@@ -142,7 +149,8 @@ def cross_attention(p: Params, x: Tensor, kv: Tuple[Tensor, Tensor],
     H, hd = cfg.n_heads, cfg.head_dim
     cut = C.tp_cut(cfg, "heads")
     wq = C.rank_window(p["wq"], H * hd) if cut else p["wq"]
-    q = C.qlinear(x, wq, None, qcfg, scales, "xq", taps, n_skip, groups)
+    q = C.qlinear(x, wq, None, qcfg, scales, "xq", taps, n_skip, groups,
+                  x_tp=C.copy_to_cut(x, cfg, "heads"))
     out = ops.attention(q.reshape(B, S, H, hd), kv[0], kv[1], causal=False,
                         kv_heads=C.kv_window(cfg))
     return C.qlinear(out.reshape(B, S, H * hd), p["wo"], None, qcfg, scales,
@@ -204,6 +212,10 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, qcfg: QuantConfig, *,
     params = C.as_tree(params)
     enc_out, enc_taps = encode(params, frames, cfg, qcfg, scales, collect,
                                groups, remat)
+    # every decoder layer reads its heads' part of the encoder states (the
+    # windows of the whole ``wkv``, or a window of the whole KV heads): one
+    # copy-to-tp for all of them, one sum of the gradient
+    enc_out = C.copy_to_cut(enc_out, cfg, "heads")
     x = C.embed_tokens(params, tokens, cfg)
     S = x.shape[1]
     m = 0 if cushion is None else cushion["kv"]["k"].shape[1]
@@ -211,9 +223,9 @@ def forward(params, tokens: Tensor, cfg: ModelConfig, qcfg: QuantConfig, *,
     L = cfg.n_layers
     lscales = _dec_scales(scales, cfg, qcfg, x.device)
     dec_taps: List[Dict] = []
+    pre = T._cushion_layers(T.local_cushion(cushion, cfg), L)
     for lp, lsc, lpre in zip(C.unstack(params["decoder"], L),
-                             C.unstack(lscales, L),
-                             T._cushion_layers(cushion, L)):
+                             C.unstack(lscales, L), pre):
         x, taps = C.remat_call(remat, _dec_block, lp, x, enc_out, cfg, qcfg,
                                lsc, lpre, positions, collect, n_skip, groups)
         dec_taps.append(taps)

@@ -239,6 +239,17 @@ def local_cushion(cushion: Optional[Params], cfg: ModelConfig
     return out
 
 
+def cushion_summed(cushion: Params, cfg: ModelConfig) -> Params:
+    """Which leaves of the cushion a tensor-parallel rank reads in part
+    (``local_cushion``), a tree of bools: the KV as
+    ``transformer.cushion_summed``, the Mamba state where its channels are
+    cut (the rank's slice)."""
+    kv = T.cushion_summed(cushion, cfg)["kv"]
+    cut = C.tp_cut(cfg, "inner")
+    return {g: kv if g == "kv" else {k: cut for k in leaves}
+            for g, leaves in cushion.items()}
+
+
 def _stack_states(states: List[Params]) -> Params:
     return {"h": torch.stack([s["h"] for s in states]),
             "conv": torch.stack([s["conv"] for s in states])}

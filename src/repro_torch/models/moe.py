@@ -87,6 +87,7 @@ SUPPORTS_PREFIX_KV_SCORING = True
 init_cache = T.init_cache
 cache_roles = T.cache_roles
 cushion_zeros = T.cushion_zeros
+cushion_summed = T.cushion_summed
 write_cushion_to_cache = T.write_cushion_to_cache
 finalize_staged_kv = T.finalize_staged_kv
 total_qerr = T.total_qerr

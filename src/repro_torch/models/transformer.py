@@ -229,6 +229,16 @@ def local_cushion(cushion: Optional[Params], cfg: ModelConfig
     return {"kv": {k: C.local_heads(t, n) for k, t in cushion["kv"].items()}}
 
 
+def cushion_summed(cushion: Params, cfg: ModelConfig) -> Params:
+    """Which leaves of the cushion a tensor-parallel rank reads in part
+    (``local_cushion``), a tree of bools: every KV leaf where the query
+    heads are cut (a rank reads its KV heads, or its group's window of
+    whole ones: its gradient is the rank's share, summed over tp), none
+    where every rank computes the heads whole (a sum would double it)."""
+    cut = C.tp_cut(cfg, "heads")
+    return {"kv": {k: cut for k in cushion["kv"]}}
+
+
 def write_prompt_kv(cache: Params, ks: Tensor, vs: Tensor, m: int) -> Params:
     """Write prefill KV (stacked (L,B,S,K,hd) fp) at positions [m:m+S]. An
     int8 cache also derives its per-(layer, head) scales from the prompt KV

@@ -31,6 +31,7 @@ init_params = T.init_params
 init_cache = T.init_cache
 cache_roles = T.cache_roles
 cushion_zeros = T.cushion_zeros
+cushion_summed = T.cushion_summed
 decode_step = T.decode_step
 placeholder_all_scales = T.placeholder_all_scales
 total_qerr = T.total_qerr

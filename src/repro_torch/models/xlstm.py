@@ -39,7 +39,11 @@ vocabulary (the embedding and the head) and the mLSTM memory ``C`` are
 cut: a rank holds ``C``'s value slice ("values", ``cache_roles``), forms
 its slice of h from q and that slice (the values' columns are contracted
 nowhere), and the slices are gathered whole before ``w_proj``, once an
-mLSTM block a forward.
+mLSTM block a forward. Under autograd (tensor-parallel training) q, k, v
+and the gates enter the mixing through ``collectives.copy_to_tp``, so
+every block weight gets its whole gradient on every rank; a cushion's
+mLSTM state, read towards the rank's slice of h, gets the rank's share
+(``cushion_summed``).
 """
 from __future__ import annotations
 
@@ -245,6 +249,13 @@ def apply_mlstm(p: Params, x: Tensor, cfg: ModelConfig, qcfg: QuantConfig,
     chunk = MLSTM_CHUNK if chunk is None else chunk
     q, k, v, li, lf, og = _mlstm_qkvif(p, x, cfg, qcfg, scales, taps,
                                        n_skip, groups)
+    if C.tp_cut(cfg, "values"):
+        # every rank forms q, k, v and the gates whole and mixes them into
+        # its value slice of h: their gradients are the rank's shares,
+        # summed here (v's is zero outside the rank's window), so the
+        # block's weights and input get whole ones. Not x itself: it also
+        # feeds the output gate, read whole after the gather
+        q, k, v, li, lf = (DC.copy_to_tp(t) for t in (q, k, v, li, lf))
     v = _local_values(v, cfg)
     if chunk <= 0 or S <= chunk or S % chunk:
         res = _mlstm_mix(q, k, v, li, lf, init_state, return_state)
@@ -458,6 +469,18 @@ def local_cushion(cushion: Optional[Params], cfg: ModelConfig
     return {"state": {"m": {**st["m"], "C": _local_values(st["m"]["C"],
                                                           cfg)},
                       "s": st["s"]}}
+
+
+def cushion_summed(cushion: Params, cfg: ModelConfig) -> Params:
+    """Which leaves of the CushionState a tensor-parallel rank reads in
+    part (``local_cushion``), a tree of bools: where the values are cut,
+    the mLSTM memory ``C`` (its value slice) and ``n`` and ``m`` (read
+    whole, towards the rank's slice of h only), whose gradients are the
+    rank's shares, summed over tp; never the sLSTM state, which every rank
+    reads and computes whole (a sum would double it)."""
+    cut = C.tp_cut(cfg, "values")
+    return {"state": {g: {k: cut and g == "m" for k in leaves}
+                      for g, leaves in cushion["state"].items()}}
 
 
 def _bcast_state(st: Params, B: int) -> Params:

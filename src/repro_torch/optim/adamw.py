@@ -123,14 +123,17 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: Any, state: AdamWState, params: Any,
-               sharded: Any = None):
+               sharded: Any = None, donate: bool = False):
         """One step. Returns (params, state, {"grad_norm", "lr"}).
         ``sharded``: a tree of ``train/trainer.Shard`` beside ``params``
         marking how each leaf holds this rank's shard of a leaf split over
         the active data axis and the tp axis
         (``train/trainer.shard_train_step``); the clip's norm is then the
         whole tree's, the shards' squares summed over their axes and each
-        replicated entry counted once."""
+        replicated entry counted once. ``donate``: the new parameters and
+        moments are written into the given ones (the reference's donated
+        train state) and returned, the same values bit for bit; the caller
+        must not read the old ones again."""
         ps = tree_leaves(params)
         gs = tree_leaves(grads)
         ms, vs = tree_leaves(state.mu), tree_leaves(state.nu)
@@ -143,12 +146,11 @@ class AdamW:
             gn = _sharded_norm(gs, tree_leaves(sharded))
         elif self.grad_clip > 0:
             gn = torch.sqrt(sum(g.float().square().sum() for g in gs))
+        scale = None
         if self.grad_clip > 0:
             scale = torch.clamp(self.grad_clip / (gn + 1e-9), max=1.0)
-            gs = [g.float() * scale for g in gs]
         else:
             gn = torch.zeros((), device=ps[0].device)
-            gs = [g.float() for g in gs]
         step = state.step + 1
         lr_t = self.lr(step)
         sf = step.float()
@@ -161,18 +163,45 @@ class AdamW:
                 new_m.append(m)
                 new_v.append(v)
                 continue
-            m = self.b1 * m + (1 - self.b1) * g
-            v = self.b2 * v + (1 - self.b2) * g.square()
-            delta = (m / b1c) / (torch.sqrt(v / b2c) + self.eps)
-            if dk and self.weight_decay > 0:
-                delta = delta + self.weight_decay * p.float()
-            new_p.append((p.float() - lr_t * delta).to(p.dtype))
-            new_m.append(m)
-            new_v.append(v)
+            ins = [t.contiguous() for t in (g, m, v, p)]
+            out = (m, v, p) if donate and all(
+                t.is_contiguous() for t in (m, v, p)) else tuple(
+                    torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                    for t in (m, v, p))
+            # elementwise, a chunk of a leaf at a time: the same arithmetic
+            # with the f32 temporaries of one chunk alive, not of a leaf
+            # (internvl2-26b's embedding is 568 M entries)
+            n = g.numel()
+            for i in range(0, max(n, 1), UPDATE_CHUNK):
+                sl = slice(i, min(i + UPDATE_CHUNK, n))
+                self._update_chunk(*(t.view(-1)[sl] for t in (*ins, *out)),
+                                   scale, b1c, b2c, lr_t,
+                                   dk and self.weight_decay > 0)
+            new_m.append(out[0])
+            new_v.append(out[1])
+            new_p.append(out[2])
         return (_unflatten(params, iter(new_p)),
                 AdamWState(step=step, mu=_unflatten(params, iter(new_m)),
                            nu=_unflatten(params, iter(new_v))),
                 {"grad_norm": gn, "lr": lr_t})
+
+    def _update_chunk(self, g, m, v, p, m_out, v_out, p_out, scale, b1c,
+                      b2c, lr_t, decay: bool) -> None:
+        """AdamW's step on matching pieces of one leaf: the f32 (clipped)
+        gradient, the moments and the parameter written into ``m_out``,
+        ``v_out`` and ``p_out`` (which may be ``m``, ``v`` and ``p``)."""
+        g = g.float() if scale is None else g.float() * scale
+        torch.mul(m, self.b1, out=m_out).add_((1 - self.b1) * g)
+        torch.mul(v, self.b2, out=v_out).add_((1 - self.b2) * g.square())
+        del g
+        delta = (m_out / b1c).div_((v_out / b2c).sqrt_().add_(self.eps))
+        if decay:
+            delta.add_(self.weight_decay * p.float())
+        p_out.copy_(p.float() - delta.mul_(lr_t))
+
+
+# the entries of a leaf that ``AdamW.update`` takes in one piece
+UPDATE_CHUNK = 1 << 24
 
 
 def constant_lr(lr: float) -> Callable[[Tensor], Tensor]:

@@ -306,15 +306,25 @@ class TPPart(NamedTuple):
     summed: bool
 
 
+# the encoder-decoder's cross-attention leaves that stay whole on every
+# rank and are read through the rank's windows of their columns where the
+# heads are cut (``encdec.cross_attention`` / ``enc_kv``)
+_XATTN_WINDOWED = re.compile(r"xattn/(wq|wkv)$")
+
+
 def tp_leaf_parts(params: Any, cfg: ModelConfig, tp: int) -> Any:
-    """``TPPart`` of every leaf of a parameter tree at ``tp`` (the dense
-    family's training layout, ``shard_tree``'s cut): a leaf ``leaf_cut``
-    cuts is the rank's; the fused ``wqkv`` / ``bqkv`` where the query heads
-    are cut and the KV heads whole holds the rank's query columns, then
-    every KV head's, whose gradient is summed (a KV head's query heads lie
-    on several ranks: deepseek-67b at tp = 16); every other leaf is whole
-    and read whole (the norms, smollm-360m's attention at tp = 2, whose 15
-    heads every rank computes whole: no sum, which would double it)."""
+    """``TPPart`` of every leaf of a parameter tree at ``tp`` (the
+    training layout, ``shard_tree``'s cut): a leaf ``leaf_cut`` cuts is the
+    rank's; the fused ``wqkv`` / ``bqkv`` where the query heads are cut
+    and the KV heads whole holds the rank's query columns, then every KV
+    head's, whose gradient is summed (a KV head's query heads lie on
+    several ranks: deepseek-67b at tp = 16); the encoder-decoder's whole
+    ``xattn/wq`` and ``xattn/wkv`` where the heads are cut, read through
+    the rank's windows, are summed whole (their gradients zero outside the
+    windows); every other leaf is whole and read whole (the norms,
+    smollm-360m's attention at tp = 2, whose 15 heads every rank computes
+    whole, whisper-base's cross-attention at tp = 16, every xLSTM block
+    weight: no sum, which would double it)."""
     lay = tp_layout(cfg, tp)
     kv_whole = "heads" in lay.cut and "kv_heads" not in lay.cut
     own_q = cfg.n_heads // tp * cfg.head_dim
@@ -322,7 +332,9 @@ def tp_leaf_parts(params: Any, cfg: ModelConfig, tp: int) -> Any:
     def part(path):
         c = leaf_cut(path, cfg, tp) if tp > 1 else None
         if c is None:
-            return TPPart(0, False)
+            windowed = tp > 1 and "heads" in lay.cut \
+                and _XATTN_WINDOWED.search(path) is not None
+            return TPPart(0, windowed)
         if c[2] == "qkv" and kv_whole:
             return TPPart(own_q, True)
         return TPPart(-1, False)

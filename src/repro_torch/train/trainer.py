@@ -27,8 +27,9 @@ the rank's rows, keeps its shard of the summed gradients (an all-reduce,
 then a slice: gloo on one card has no reduce-scatter for CUDA tensors) and
 updates the shard, clipping by the whole tree's norm.
 
-Tensor-parallel training (the dense family on a ``model`` axis of more
-than one rank): a rank's tree, once gathered over ``data``, is the one
+Tensor-parallel training (the dense, VLM, encoder-decoder and xLSTM
+families on a ``model`` axis of more than one rank): a rank's tree, once
+gathered over ``data``, is the one
 ``serving/engine.shard_tree`` gives a rank at that tp, and the rank runs
 its config (``tp_config``) with the mesh's tp axis active, so the model
 code's collectives and their gradients (``distributed/collectives.py``:
@@ -36,11 +37,12 @@ copy-to-tp where a replicated activation enters a cut site, reduce-from-tp
 after a row-parallel one) make every replicated activation's gradient the
 whole one on every rank. A leaf whole on every rank but read in part
 (``engine.tp_leaf_parts``: every KV head's ``wqkv`` columns where the KV
-heads do not divide) has its gradient summed over tp where the gradients
-meet the optimizer; the clip's norm sums the squares of the rank's parts
-over tp and counts each whole leaf once. The other families on a model
-axis and the experts over a data axis are not ported yet (ROADMAP queue 1,
-items 6.10b and 6.11).
+heads do not divide; the encoder-decoder's ``xattn/wq`` and ``xattn/wkv``
+where the heads are cut) has its gradient summed over tp where the
+gradients meet the optimizer; the clip's norm sums the squares of the
+rank's parts over tp and counts each whole leaf once. The families with
+experts (MoE and the Jamba hybrid) on a model axis, and the experts over a
+data axis, are not ported yet (ROADMAP queue 1, items 6.10b and 6.11).
 """
 from __future__ import annotations
 
@@ -109,9 +111,11 @@ def make_train_step(api, run: RunConfig, opt: AdamW, microbatches: int = 1,
 
 
 def _train_step(api, run: RunConfig, opt: AdamW, microbatches: int,
-                cushion: Any, scales: Any, fsdp: Any = None) -> Callable:
+                cushion: Any, scales: Any, fsdp: Any = None,
+                donate: bool = False) -> Callable:
     """``make_train_step``; with ``fsdp`` (an ``_FSDP``) the step takes and
-    returns the rank's shards of the parameters and moments."""
+    returns the rank's shards of the parameters and moments, written in
+    place with ``donate`` (``AdamW.update``)."""
     qcfg = run.quant
     cushion, scales = _autograd_usable(cushion), _autograd_usable(scales)
 
@@ -164,7 +168,8 @@ def _train_step(api, run: RunConfig, opt: AdamW, microbatches: int,
             params, opt_state, om = opt.update(grads, opt_state, params)
         else:
             params, opt_state, om = opt.update(
-                fsdp.shard(grads), opt_state, params, sharded=fsdp.sharded)
+                fsdp.shard(grads), opt_state, params, sharded=fsdp.sharded,
+                donate=donate)
         metrics = {"loss": loss, **om}
         if isinstance(aux, dict) and "ce" in aux:
             metrics["ce"] = aux["ce"].detach()
@@ -176,18 +181,21 @@ def _train_step(api, run: RunConfig, opt: AdamW, microbatches: int,
 TP_TRAINING_LATER = ("tensor-parallel training of the {family} family (a "
                      "model axis of {tp} ranks) is not ported yet (ROADMAP "
                      "queue 1, item 6.10b{more})")
+# the families that train and tune on a model axis of more than one rank
+TP_TRAINING_FAMILIES = (Family.DENSE, Family.VLM, Family.ENCDEC, Family.SSM)
 
 
 def check_data_parallel(cfg: ModelConfig, data: int, model: int = 1
                         ) -> None:
     """Refuse what training and tuning over a ``(data, model)`` mesh do not
-    run yet: a model axis of more than one rank but for the dense family,
-    and a family with experts over a data axis of more than one rank; and,
-    on a model axis, what tensor-parallel serving refuses
+    run yet: a model axis of more than one rank for the families with
+    experts (MoE, the hybrid: ``apply_moe``'s backward under tp is item
+    6.10b's), and a family with experts over a data axis of more than one
+    rank; and, on a model axis, what tensor-parallel serving refuses
     (``engine.check_tp_serving``: query heads that straddle the groups of
     whole KV heads)."""
     experts = cfg.family == Family.MOE or cfg.moe is not None
-    if model > 1 and cfg.family != Family.DENSE:
+    if model > 1 and cfg.family not in TP_TRAINING_FAMILIES:
         raise ValueError(f"{cfg.name}: " + TP_TRAINING_LATER.format(
             family=cfg.family.value, tp=model,
             more="; its experts over a data axis, item 6.11" if experts
@@ -333,18 +341,23 @@ class _FSDP:
 
 def shard_train_step(api, run: RunConfig, opt: AdamW, mesh: Any,
                      params_like: Any, microbatches: int = 1,
-                     cushion: Any = None, scales: Any = None):
+                     cushion: Any = None, scales: Any = None,
+                     donate: bool = False):
     """The train step over ``mesh`` (axes ``("data", "model")`` or
-    ``("data", "tp")``; a model axis of more than one rank for the dense
-    family) with FSDP parameter layouts by the training rules
-    (``distributed/sharding.DEFAULT_RULES``: "D" is the ``data`` axis) on
+    ``("data", "tp")``; a model axis of more than one rank for the
+    families of ``TP_TRAINING_FAMILIES``) with FSDP parameter layouts by
+    the training rules (``distributed/sharding.DEFAULT_RULES``: "D" is the
+    ``data`` axis) on
     the rank's tensor-parallel tree (the serving cut at the mesh's tp,
     ``engine.shard_tree``; see the module docstring) and ZeRO-1 moments
     that inherit them. Returns ``(fn, param_specs, opt_specs)``:
     ``fn(shards, opt_state, global_batch) -> (shards, opt_state,
     metrics)`` on each rank's shards (``data_shards`` of the whole tree;
     ``opt.init`` of them) and its rows of the batch. ``params_like``: the
-    whole tree (its shapes; a meta tree will do)."""
+    whole tree (its shapes; a meta tree will do). ``donate``: the step
+    writes the new shards and moments into the given ones, as the
+    reference's donated state (the same values; a rank then holds one
+    copy of its state, not two, when it updates)."""
     from repro_torch.serving import engine as E
     tp = int(mesh.size)
     check_data_parallel(api.cfg, int(mesh.data_size), tp)
@@ -354,7 +367,7 @@ def shard_train_step(api, run: RunConfig, opt: AdamW, mesh: Any,
     if tp > 1:
         api = dataclasses.replace(api, cfg=E.tp_config(api.cfg, tp))
     step_fn = _train_step(api, run, opt, microbatches, cushion, scales,
-                          fsdp=_FSDP(p_specs, mesh, parts))
+                          fsdp=_FSDP(p_specs, mesh, parts), donate=donate)
     return (shard_update_step(step_fn, mesh, p_specs, o_specs, True),
             p_specs, o_specs)
 

@@ -24,9 +24,13 @@ returns one report a case (numpy arrays and numbers, and the case's wall
   data rank also computes it alone on the whole batch (``one``, with the
   cushion it started from), beside rank 0's ``profile`` of one
   data-parallel call.
-* "tune": ``prefix_tune(mesh=)`` from ``cushion`` on ``batches`` under
-  ``qcfg`` / ``ccfg``: the log, the cushion it started from and the tuned
-  one, the launches and the host syncs of the tuning.
+* "tune": ``prefix_tune(mesh=)`` from ``cushion`` (or ``cushion_ids``
+  extracted on the rank) on ``batches`` under ``qcfg`` / ``ccfg``: the
+  log, the cushion it started from and the tuned one, the launches and the
+  host syncs of the tuning, its wall ``ms`` a step; with ``one_rank`` the
+  ranks of ``one_rank_tp`` (default all) also tune alone on the whole
+  model and batches (``one``: its log, launches and ms a step);
+  ``mesh_shape`` as "train" takes it.
 * "train": ``shard_train_step`` on the mesh (its ``("data", "model")``
   form, ``make_mesh``; a model axis of more than one rank trains the
   rank's tensor-parallel tree), ``steps`` steps of the global
@@ -36,14 +40,23 @@ returns one report a case (numpy arrays and numbers, and the case's wall
   resident parameter and moment bytes beside the whole tree's
   (``leaves``: each leaf's spec, its ``engine.TPPart`` and element
   counts), the peak device memory, the final whole parameters over the
-  data axis (``return_params``; the rank's tensor-parallel part), the
+  data axis (``return_params``; the rank's tensor-parallel part; else on
+  a model axis ``whole_digests``, the ``engine.tree_checksum`` of each
+  leaf every rank holds whole), the
   first step's first moment (``first_moment``: ``mu1``), ``ms`` a step,
   ``profile`` (one more step, timed), and with ``one_rank`` the last
   data row's comparison with ``make_train_step`` alone on the whole tree
   and batches, cut to the rank's part (``one``: its metrics, each leaf's
   difference, the two runs' parameter updates and first moments, each of
   the tree as a vector, against each other, and its first step's first
-  moment), made beside rank 0's profile.
+  moment), made beside rank 0's profile. ``one_rank_first``: that rank
+  runs the one-rank steps before the sharded ones and frees them, while
+  the other ranks wait before making their shards (a model whose whole
+  tree, gradients and moments would not fit on the card beside the
+  ranks' shards); ``one`` then holds no comparison of the final
+  parameters and moments (``diffs``, ``update``, ``moments``).
+  ``donate``: the step writes the rank's new shards and moments into the
+  old ones (``shard_train_step(donate=True)``; no ``profile`` then).
 * "refuse": ``shard_train_step`` and ``prefix_tune`` over the mesh on
   ``cfg`` (a family with experts): the messages they raise.
 
@@ -72,7 +85,8 @@ from repro_torch.models import convert
 from repro_torch.models.registry import build
 from repro_torch.models.common import as_tree
 from repro_torch.optim.adamw import tree_leaves, tree_map, tree_paths
-from repro_torch.serving.engine import shard_tree, tp_leaf_parts
+from repro_torch.serving.engine import (shard_tree, tp_leaf_parts,
+                                        tree_checksum)
 from repro_torch.train import trainer as TR
 
 
@@ -242,20 +256,47 @@ def _grad(mesh, case):
 
 
 def _tune(mesh, case):
+    if "mesh_shape" in case:
+        # another layout of the same world, as "train" takes it
+        mesh = make_mesh(case["mesh_shape"], ("data", "model"), mesh.device)
     dev = mesh.device
+    _free(dev)
     api = build(case["cfg"], dev)
     params = _params(api, case)
     cushion = _cushion(api, params, case)
     batches = [_batch(b, dev) for b in case["batches"]]
-    _lib.reset_launches()
-    with MON.count_host_syncs() as hs:
-        tr = CC.prefix_tune(api, params, cushion, iter(batches),
-                            case["qcfg"], case["ccfg"], mesh=mesh,
-                            verbose=False)
-    return {"log": tr.log, "cushion": _np_tree(tr.cushion),
-            "start": _np_tree(cushion),
-            "fingerprint": CC.cushion_fingerprint(tr.cushion),
-            "launches": dict(_lib.LAUNCHES), "host_syncs": hs.count}
+    n = min(len(batches), case["ccfg"].tune_steps)
+
+    def tuned(m):
+        _lib.reset_launches()
+        _sync(dev)
+        t0 = time.perf_counter()
+        with MON.count_host_syncs() as hs:
+            tr = CC.prefix_tune(api, params, cushion, iter(batches),
+                                case["qcfg"], case["ccfg"], mesh=m,
+                                verbose=False)
+        _sync(dev)
+        return tr, hs.count, dict(_lib.LAUNCHES), \
+            (time.perf_counter() - t0) * 1e3 / max(n, 1)
+    tr, syncs, launches, ms = tuned(mesh)
+    rep = {"log": tr.log, "cushion": _np_tree(tr.cushion),
+           "start": _np_tree(cushion),
+           "fingerprint": CC.cushion_fingerprint(tr.cushion),
+           "launches": launches, "host_syncs": syncs, "ms": ms}
+    if case.get("one_rank") and mesh.data_rank == mesh.data_size - 1 \
+            and mesh.rank in case.get("one_rank_tp", range(mesh.size)):
+        one, _, launches, ms = tuned(None)
+        rep["one"] = {"log": one.log, "launches": launches, "ms": ms}
+    return rep
+
+
+def _free(dev):
+    """The last case's tensors and the caching allocator's free blocks
+    given back before a case builds (the ranks share one card)."""
+    if dev.type == "cuda":
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def _bytes(tree) -> int:
@@ -269,6 +310,7 @@ def _train(mesh, case):
     mesh = make_mesh(case.get("mesh_shape", (mesh.data_size, mesh.size)),
                      ("data", "model"), mesh.device)
     dev = mesh.device
+    _free(dev)
     api = build(case["cfg"], dev)
     full = as_tree(_params(api, case))
     run = RunConfig(model=case["cfg"], quant=case.get("qcfg", QuantConfig()),
@@ -279,18 +321,32 @@ def _train(mesh, case):
     mb = case.get("microbatches", 1)
     scales = None if case.get("scales") is None else \
         convert.scales_from_numpy(case["scales"], dev)
-    fn, p_specs, o_specs = TR.shard_train_step(api, run, opt, mesh, full,
-                                               microbatches=mb,
-                                               scales=scales)
-    shards = TR.data_shards(full, p_specs, mesh, cfg=case["cfg"])
-    state = opt.init(shards)
+    batches = [_batch(b, dev) for b in case["batches"]]
     if mesh.size > 1:
         # the rank's tensor-parallel tree, which the one-rank run is cut to
         rank_cut = lambda t: shard_tree(t, case["cfg"], mesh)  # noqa: E731
         parts = tree_leaves(tp_leaf_parts(full, case["cfg"], mesh.size))
     else:
         rank_cut, parts = (lambda t: t), None
-    batches = [_batch(b, dev) for b in case["batches"]]
+    one_rank = case.get("one_rank") and mesh.data_rank == mesh.data_size - 1 \
+        and mesh.rank in case.get("one_rank_tp", range(mesh.size))
+    first = None
+    if case.get("one_rank_first"):
+        # alone first, then freed: the one-rank tree, its gradients and
+        # moments go before any rank makes its shards (the others wait)
+        if one_rank:
+            first = _one_rank_steps(api, run, opt, mb, scales, full,
+                                    batches, case, dev, rank_cut)
+            first = {k: v for k, v in first.items()
+                     if k not in ("p", "st", "keep")}
+            _free(dev)
+        import torch.distributed as dist
+        dist.barrier()
+    fn, p_specs, o_specs = TR.shard_train_step(
+        api, run, opt, mesh, full, microbatches=mb, scales=scales,
+        donate=case.get("donate", False))
+    shards = TR.data_shards(full, p_specs, mesh, cfg=case["cfg"])
+    state = opt.init(shards)
     paths = tree_leaves(tree_paths(full))
     rep: Dict[str, Any] = {
         "full_bytes": _bytes(full), "shard_bytes": _bytes(shards),
@@ -304,9 +360,7 @@ def _train(mesh, case):
                    for i, (p, spec, t, s_, m) in enumerate(zip(
                        paths, tree_leaves(p_specs), tree_leaves(full),
                        tree_leaves(shards), tree_leaves(state.mu)))}}
-    one_rank = case.get("one_rank") and mesh.data_rank == mesh.data_size - 1 \
-        and mesh.rank in case.get("one_rank_tp", range(mesh.size))
-    if one_rank:
+    if one_rank and first is None:
         keep = tree_map(lambda t: t.clone(), full)
     del full
     if dev.type == "cuda":
@@ -344,32 +398,20 @@ def _train(mesh, case):
     if case.get("return_params"):
         rep["params"] = _np_tree(whole)
     elif parts is not None:
-        # the leaves every rank holds whole, to hold the ranks equal
-        rep["whole_leaves"] = {p: _np(t) for p, t, part in zip(
-            paths, tree_leaves(whole), parts) if part.own == 0}
-    if one_rank:
-        step = TR.make_train_step(api, run, opt, microbatches=mb,
-                                  scales=scales)
-        p, st = keep, opt.init(keep)
-        losses, mu1, one_ms, one_launches = [], None, [], []
-        _sync(dev)
-        held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(dev)
-        for i in range(case["steps"]):
-            _lib.reset_launches()
-            t0 = time.perf_counter()
-            p, st, met = step(p, st, batches[i % len(batches)])
-            _sync(dev)
-            one_ms.append((time.perf_counter() - t0) * 1e3)
-            one_launches.append(dict(_lib.LAUNCHES))
-            losses.append({k: float(v) for k, v in met.items()})
-            if i == 0:
-                mu1 = rank_cut(st.mu)
-        one_peak = (int(torch.cuda.max_memory_allocated(dev)) - held
-                    if dev.type == "cuda" else 0)
-        one_bytes = {"params": _bytes(keep), "moments": _bytes(st.mu)
-                     + _bytes(st.nu)}
+        # the leaves every rank holds whole, to hold the ranks equal: each
+        # one's digest (``engine.tree_checksum``: its 32-bit words summed,
+        # and the odd ones), not its values, which a rank would send back
+        # whole (internvl2-26b's embedding and head are 2.3 GB each in f32)
+        rep["whole_digests"] = {p: tree_checksum(t).cpu().tolist()
+                                for p, t, part in zip(
+                                    paths, tree_leaves(whole), parts)
+                                if part.own == 0}
+    if first is not None:
+        rep["one"] = first
+    elif one_rank:
+        one = _one_rank_steps(api, run, opt, mb, scales, keep, batches,
+                              case, dev, rank_cut)
+        p, st, keep = one.pop("p"), one.pop("st"), one.pop("keep")
         diffs = {}
         num = den = dot = nd = 0.0
         p, keep, st_mu = rank_cut(p), rank_cut(keep), rank_cut(st.mu)
@@ -386,15 +428,44 @@ def _train(mesh, case):
             # the two runs' updates of the whole tree, as vectors
             n_, d_, t_, a_ = _sums([a - k0], [w - k0])
             num, den, dot, nd = num + n_, den + d_, dot + t_, nd + a_
-        rep["one"] = {"metrics": losses, "diffs": diffs,
+        rep["one"] = {**one, "diffs": diffs,
                       "update": _compare(num, den, dot, nd),
                       "moments": _compare(*_sums(tree_leaves(whole_mu),
-                                                 tree_leaves(st_mu))),
-                      "mu1": _np_tree(mu1) if case.get("first_moment")
-                      else None,
-                      "ms": one_ms, "launches": one_launches,
-                      "peak_bytes": one_peak, "bytes": one_bytes}
+                                                 tree_leaves(st_mu)))}
     return rep
+
+
+def _one_rank_steps(api, run, opt, mb, scales, keep, batches, case, dev,
+                    rank_cut):
+    """``make_train_step`` alone on the whole tree ``keep`` for the case's
+    steps: its metrics, ms and launches a step, its first step's first
+    moment cut to the rank's part (``mu1``), its peak device memory above
+    what was held before, its parameter and moment bytes, and the final
+    ``p`` and ``st`` beside ``keep``."""
+    step = TR.make_train_step(api, run, opt, microbatches=mb, scales=scales)
+    p, st = keep, opt.init(keep)
+    losses, mu1, one_ms, one_launches = [], None, [], []
+    _sync(dev)
+    held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(case["steps"]):
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        p, st, met = step(p, st, batches[i % len(batches)])
+        _sync(dev)
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+        one_launches.append(dict(_lib.LAUNCHES))
+        losses.append({k: float(v) for k, v in met.items()})
+        if i == 0 and case.get("first_moment"):
+            mu1 = _np_tree(rank_cut(st.mu))
+    peak = (int(torch.cuda.max_memory_allocated(dev)) - held
+            if dev.type == "cuda" else 0)
+    return {"metrics": losses, "mu1": mu1, "ms": one_ms,
+            "launches": one_launches, "peak_bytes": peak,
+            "bytes": {"params": _bytes(keep),
+                      "moments": _bytes(st.mu) + _bytes(st.nu)},
+            "p": p, "st": st, "keep": keep}
 
 
 def _sums(got, want):

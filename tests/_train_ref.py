@@ -1,14 +1,20 @@
-"""The JAX package's training on paper_tiny, and the bars the port's
-tensor-parallel training is held to, for the tests that spawn it
-(``test_torch_sharding.py``: tp = 2; ``test_torch_replica_tp.py``: data 2
-x tp 2). Not a test module: it imports jax, so no spawned rank imports it.
+"""The JAX package's training, and the bars the port's tensor-parallel
+training is held to, for the tests that spawn it
+(``test_torch_sharding.py``: paper_tiny at tp = 2;
+``test_torch_replica_tp.py``: data 2 x tp 2; ``test_torch_tp_families.py``:
+the VLM, the encoder-decoder and the xLSTM at tp = 2 and 4). Not a test
+module: it imports jax, so no spawned rank imports it.
 
-The run is test_torch_train.py's: JAX's paper_tiny weights
+paper_tiny's run is test_torch_train.py's: JAX's paper_tiny weights
 (``PRNGKey(0)``), the launcher's pipeline batches (B = 2 x 32), lr 1e-3,
 warmup 10; six steps of ``make_train_step`` on one device under ``none``
 (the function GSPMD partitions), and the first step's loss and gradient
 under each quantized mode, with the port's pt_static scales calibrated on
-two of the batches.
+two of the batches. The other families' (``family_batches``,
+``first_steps``): seeded numpy batches of tokens with a VLM's patches or
+an encoder-decoder's frames, and the first step's loss, CE, gradient norm
+and first moment on one device under each mode asked for (test_torch_train.py
+builds the same per family).
 """
 import jax
 import jax.numpy as jnp
@@ -112,6 +118,59 @@ def reference(japi, jp, tcfg, tb, qat: bool = True):
     return dict(metrics=metrics, params=np_tree(p), scales=plain,
                 qat={m: (float(loss), first_moment(g))
                      for m, (loss, g) in qat.items()})
+
+
+def family_batches(cfg, n: int, seed: int, rows: int = B, seq: int = 24):
+    """``n`` numpy batches of ``rows`` x ``seq`` tokens and labels for the
+    port's config ``cfg`` (its JAX twin takes the same), with a VLM's
+    ``patches`` or an encoder-decoder's ``frames`` (normal x 0.02, f32: the
+    stub frontends' output), from ``RandomState(seed)``."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        t = rs.randint(0, cfg.vocab_size, (rows, seq + 1)).astype(np.int32)
+        b = {"tokens": t[:, :-1], "labels": t[:, 1:]}
+        extra = (("patches", cfg.vlm.num_patches) if cfg.vlm is not None
+                 else ("frames", cfg.encdec.encoder_seq)
+                 if cfg.encdec is not None else None)
+        if extra is not None:
+            b[extra[0]] = (rs.randn(rows, extra[1], cfg.d_model)
+                           * 0.02).astype(np.float32)
+        out.append(b)
+    return out
+
+
+def first_steps(japi, jp, batch, modes=("none",) + tuple(QAT_TOL),
+                eager: bool = False):
+    """JAX's first training step on one device from ``jp`` on ``batch``
+    (a numpy batch), under each mode of ``modes``, in one jitted call
+    (``eager``: without jit, whose quantizers the port's follow: jitted,
+    XLA turns a range's divide by 255 into a multiply,
+    test_torch_train.py::test_reference_quantizer_jit_and_eager_differ):
+    {mode: {"loss", "ce", "grad_norm", "mu1"}}, ``mu1`` AdamW's first
+    moment after the step (``first_moment``), the loss with remat as
+    ``make_train_step`` takes it (one microbatch: the loss is the CE)."""
+    jb = jax.tree.map(jnp.asarray, batch)
+
+    def vg(mode):
+        return jax.value_and_grad(lambda q: japi.loss_fn(
+            q, jb, JQ(mode=mode), remat=True), has_aux=True)
+
+    def all_modes(q):
+        return {m: vg(m)(q) for m in modes}
+    if eager:
+        with jax.disable_jit():
+            got = all_modes(jp)
+    else:
+        got = jax.jit(all_modes)(jp)
+    out = {}
+    for mode, ((loss, aux), g) in got.items():
+        gn = np.sqrt(sum(float(np.sum(np.square(
+            np.asarray(x, np.float64)))) for x in jax.tree_util.tree_leaves(
+                g)))
+        out[mode] = {"loss": float(loss), "ce": float(aux["ce"]),
+                     "grad_norm": gn, "mu1": first_moment(g)}
+    return out
 
 
 def first_moment(g):

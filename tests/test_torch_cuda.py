@@ -2160,6 +2160,46 @@ def test_noncausal_attention_at_a_whisper_rank(dev, S, T):
     assert _lib.LAUNCHES["flash_attention"] == n0 + 2
 
 
+# the attention of a rank's tensor-parallel training step (tp = 2, bf16,
+# chip_smoke.py phase 4l (f)): whisper-base's 4 heads of 64, B = 4, over
+# its 1,500 frames (the encoder, non-causal, S = T = 1,500; the
+# cross-attention, non-causal, S = 256 over T = 1,500) and its decoder's
+# causal self-attention (S = 256); internvl2-26b's 24 query heads over 4 KV
+# heads (G = 6) of head_dim 128, causal, B = 2 x (1,024 patches + 256 text
+# tokens)
+TP_TRAIN_ATTN = [("whisper-encoder", 4, 4, 1, WH_T, WH_T, 64, False),
+                 ("whisper-cross", 4, 4, 1, WH_PROMPT, WH_T, 64, False),
+                 ("whisper-self", 4, 4, 1, WH_PROMPT, WH_PROMPT, 64, True),
+                 ("internvl2", 2, 4, 6, 1280, 1280, 128, True)]
+
+
+@pytest.mark.parametrize("name,B,Kh,G,S,T,hd,causal", TP_TRAIN_ATTN,
+                         ids=[c[0] for c in TP_TRAIN_ATTN])
+def test_attention_at_a_tp_training_rank(dev, name, B, Kh, G, S, T, hd,
+                                         causal):
+    """``flash_attention`` and, through autograd, ``flash_attention_bwd`` at
+    a tensor-parallel training rank's shapes against their plain versions:
+    the forward within one bf16 ulp, the backward within the backward's
+    bars (one bf16 ulp plus 1e-5 of the largest entry) on the kernel's own
+    output and log-sum-exp; one launch of each."""
+    from repro_torch.kernels.flash_attention import _launch
+    q, k, v = _nc_inputs(dev, B, Kh, G, S, T, hd, torch.bfloat16,
+                         S + T + G + hd)
+    do = torch.randn(q.shape, generator=torch.Generator(dev).manual_seed(S),
+                     device=dev).to(torch.bfloat16)
+    n_f = _lib.LAUNCHES["flash_attention"]
+    n_b = _lib.LAUNCHES["flash_attention_bwd"]
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    out = flash_attention(qg, kg, vg, causal=causal)
+    out.backward(do)
+    assert _lib.LAUNCHES["flash_attention"] == n_f + 1
+    assert _lib.LAUNCHES["flash_attention_bwd"] == n_b + 1
+    _within_ulp(out.detach(), flash_attention_plain(q, k, v, causal=causal))
+    o, lse = _launch(q, k, v, 0, 0, with_lse=True, causal=causal)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    _bwd_within((qg.grad, kg.grad, vg.grad), want, torch.bfloat16)
+
+
 def test_flash_decode_at_a_whisper_rank(dev):
     """The decoder's self-attention decode on a rank's 4 heads (G = 1, the
     fp cache with the cushion's rows in it, per-row positions) through

@@ -434,9 +434,10 @@ def test_range_gradient_at_a_tie_across_ranks(dp2):
 def test_experts_and_model_axis_refuse(dp2):
     """A family with experts refuses a data axis of two ranks in both
     entries, the experts themselves under an active data axis too; a model
-    axis of two ranks takes the dense family (the step is made; it runs in
-    test_torch_sharding.py's tp = 2 spawn) and refuses the others, naming
-    item 6.10b (and 6.11 for the experts)."""
+    axis of two ranks takes the dense family and the xLSTM (the steps are
+    made; they run in test_torch_sharding.py's and
+    test_torch_tp_families.py's tp = 2 spawns) and refuses the families
+    with experts, naming item 6.10b (and 6.11 for the experts)."""
     for r in dp2["refuse"]:
         for key in ("train", "tune"):
             assert r[key] and "ROADMAP queue 1, item 6.11" in r[key]
@@ -451,8 +452,20 @@ def test_experts_and_model_axis_refuse(dp2):
                                        two, params.tree())
     assert callable(fn)
     assert flat_specs(specs)["/layers/attn/wqkv"] == (None, "data", "model")
-    for arch, also in (("xlstm-350m", None), ("olmoe-1b-7b", "item 6.11")):
-        cfg = t_reduced(t_get_config(arch), dtype="float32", n_layers=2)
+    cfg = t_reduced(t_get_config("xlstm-350m"), dtype="float32", n_layers=2)
+    api = build(cfg, "cpu")
+    params = api.init_params(torch.Generator().manual_seed(0))
+    run = TCfg.RunConfig(model=cfg, quant=TCfg.QuantConfig(), seq_len=8,
+                         global_batch=2)
+    fn, specs, _ = TT.shard_train_step(api, run, TT.make_optimizer(run),
+                                       two, params.tree())
+    assert callable(fn)
+    for arch, also in (("jamba-v0.1-52b", "item 6.11"),
+                       ("olmoe-1b-7b", "item 6.11")):
+        # the hybrid at one period, the layer count its reduction keeps
+        cfg = t_reduced(t_get_config(arch), dtype="float32",
+                        **({} if arch.startswith("jamba") else
+                           {"n_layers": 2}))
         api = build(cfg, "cpu")
         params = api.init_params(torch.Generator().manual_seed(0))
         run = TCfg.RunConfig(model=cfg, quant=TCfg.QuantConfig(), seq_len=8,

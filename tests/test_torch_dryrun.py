@@ -19,9 +19,10 @@
   phase 4n holds them against ``_lib.LAUNCHES``);
 * ``cost.scan`` counts a step n times; the meta route is a device of its
   own and the card's refusals hold on it;
-* the dense family's ``train_4k`` cells run one rank's
-  ``shard_train_step`` on meta (both meshes, the reference's
-  microbatches), the other families' refuse naming ROADMAP item 6.10b;
+* the ``train_4k`` cells of the families without experts (dense, VLM,
+  encoder-decoder, xLSTM) run one rank's ``shard_train_step`` on meta
+  (both meshes, the reference's microbatches), those with experts refuse
+  naming ROADMAP items 6.10b and 6.11;
 * the CLI writes the reference's record keys, skips what is done, and
   writes the cells the port does not run as ``ok: false``.
 """
@@ -368,35 +369,41 @@ def test_meta_is_a_device_of_its_own():
 
 
 def test_train_cells_of_the_dense_family_run_and_the_others_refuse():
-    """The 8 dense ``train_4k`` cells (both production meshes) run one
-    rank's ``shard_train_step`` on meta: the reference's microbatches (one
-    row a rank each), both attention kernels a layer a microbatch (the
-    forward twice with remat), the FSDP gather and the tensor-parallel
-    collectives; the other 12 refuse, naming item 6.10b (and 6.11 for a
-    family with experts)."""
+    """The 14 ``train_4k`` cells (both production meshes) of the families
+    without experts (dense, VLM, encoder-decoder, xLSTM) run one rank's
+    ``shard_train_step`` on meta: the reference's microbatches (one row a
+    rank each), both attention kernels an attention layer a microbatch
+    (the forward twice with remat: internvl2's self-attention, whisper's
+    encoder, decoder and cross-attention; none in the xLSTM), the FSDP
+    gather and the tensor-parallel collectives; the 6 of the families with
+    experts (olmoe, arctic, the jamba hybrid) refuse, naming items 6.10b
+    and 6.11."""
     n_ok = n_refused = 0
     for arch in ARCH_IDS:
         cfg = get_config(arch)
         for mp in (False, True):
-            if cfg.family.value != "dense":
+            if cfg.moe is not None:
                 with pytest.raises(ValueError, match="item 6.10b") as e:
                     D.lower_cell(arch, "train_4k", mp)
-                assert (cfg.moe is not None) == ("item 6.11" in str(e.value))
+                assert "item 6.11" in str(e.value)
                 n_refused += 1
                 continue
             r = D.lower_cell(arch, "train_4k", mp)
             n_b = 32 if mp else 16
             assert r["kind"] == "train" and r["rank_batch"] == 256 // n_b
             mb = 256 // n_b
-            assert r["launches"] == {
-                "flash_attention": 2 * mb * cfg.n_layers,
-                "flash_attention_bwd": mb * cfg.n_layers}, arch
+            n_attn = {"ssm": 0, "encdec": cfg.n_layers * 2 + (
+                cfg.encdec.encoder_layers if cfg.encdec else 0)}.get(
+                    cfg.family.value, cfg.n_layers)
+            want = {"flash_attention": 2 * mb * n_attn,
+                    "flash_attention_bwd": mb * n_attn} if n_attn else {}
+            assert r["launches"] == want, arch
             assert r["collective_counts"]["all-reduce"] > 0
             assert r["flops_per_chip"] > r["model_flops_per_chip"] > 0
             assert r["param_bytes_per_chip"] \
                 >= r["param_bytes_spec_per_chip"] > 0
             n_ok += 1
-    assert (n_ok, n_refused) == (8, 12)
+    assert (n_ok, n_refused) == (14, 6)
 
 
 def test_dryrun_mesh_is_the_reference_mesh():
@@ -457,7 +464,7 @@ def test_cli_records_resume_and_refusals(tmp_path, capsys):
     # port does not run: ok false, naming its item
     D.main(base + ["--shape", "train_4k", "--param-shard", "tp"])
     D.main(base + ["--shape", "prefill_32k"])            # fsdp, the default
-    D.main(["--arch", "xlstm-350m", "--out", out, "--shape", "train_4k"])
+    D.main(["--arch", "olmoe-1b-7b", "--out", out, "--shape", "train_4k"])
     train, fsdp, other = _records(out)[2:]
     assert train["ok"] and REF_KEYS <= set(train)
     assert train["kind"] == "train" and train["rank_batch"] == 256 // 16

@@ -54,7 +54,23 @@ a head width of 32), in the same spawns:
   tokens, slots and scheduling counters (and JAX's tokens), a rank's pool
   smaller than one rank's;
 * each rank holds its value slice of the xLSTM cushion's mLSTM memory and
-  the rest of the state whole.
+  the rest of the state whole;
+* the unsharded port's whisper ``pt_dynamic`` logits part from JAX's by
+  one code flipped at a rounding boundary, pinned to its site.
+
+Tensor-parallel training and tuning of the VLM, the encoder-decoder and
+the xLSTM, in the same spawns (``tests/_train_ref.py`` has the JAX side
+and the bars): ``shard_train_step`` on a (data 1, model 2) mesh, two steps
+of each reduced family (d_ff 256) under ``none`` and ``pt_dynamic``: the
+first step's loss, CE and gradient norm within 1e-5 relative of JAX's
+one device under ``none``, every leaf's first moment within 2e-6 of its
+largest entry of the port's tp = 1 where a rank holds it whole (1e-5
+where it holds its part), ``pt_dynamic`` at ROADMAP queue 3's training
+bars; internvl2 at tp = 4 with its KV heads whole; whisper with one KV
+head (the cross-attention's window of whole KV heads); ``prefix_tune
+(mesh=)`` of whisper and the xLSTM against JAX's one device, the ranks'
+cushions equal after every step; and which leaves a rank reads in part
+(``engine.tp_leaf_parts``, each family's ``cushion_summed``).
 """
 import types
 
@@ -87,6 +103,7 @@ from repro_torch.models import xlstm as XL  # noqa: E402
 from repro_torch.serving.engine import (leaf_cut, shard_tree,  # noqa: E402
                                         tp_config, tp_layout)
 from _tp_probe import run_cases  # noqa: E402
+import _train_ref as TRF  # noqa: E402
 
 QN = QuantConfig()
 QW8 = QuantConfig(mode="pt_static", true_int8=True)
@@ -213,8 +230,106 @@ def _by_name(cases, outs):
     return {c["name"]: [o[i] for o in outs] for i, c in enumerate(cases)}
 
 
+# tensor-parallel training and tuning of the three families without
+# experts: each reduced config (d_ff 256, so that a rank's w_down rows at
+# tp = 2 hold whole weight groups of 128 under pt_dynamic) from JAX's
+# weights, TRAIN_STEPS steps of shard_train_step on seeded batches against
+# JAX's first step on one device and the port's one rank; whisper with one
+# KV head, whole on both ranks, against the port's one rank; prefix_tune
+# (mesh=) of whisper and the xLSTM (recs' models and cushions) against
+# JAX's one device
+TRAIN_ARCHS = ("internvl2-26b", "whisper-base", "xlstm-350m")
+TRAIN_MODES = ("none", "pt_dynamic")
+TRAIN_STEPS = 2
+TUNE_ARCHS = ("whisper-base", "xlstm-350m")
+TUNE_STEPS, TUNE_LAM = 3, 0.05
+# the tuned cushion against JAX's: whisper's KV as the dense family's
+# (test_torch_sharding.py), the xLSTM's state at test_torch_xlstm.py's bar
+TUNE_CUSHION_TOL = {"whisper-base": 1e-6, "xlstm-350m": 1e-4}
+
+
+def _train_over(arch):
+    return {} if arch == "xlstm-350m" else {"d_ff": 256}
+
+
 @pytest.fixture(scope="module")
-def tp2(fams, odd, recs):
+def trains():
+    """Per family: the port's reduced config, JAX's weights as numpy, the
+    batches, and JAX's first step on one device in each mode."""
+    out = {}
+    for arch in TRAIN_ARCHS:
+        jcfg = reduced(get_config(arch), dtype="float32", **_train_over(arch))
+        tcfg = t_reduced(t_get_config(arch), dtype="float32",
+                         **_train_over(arch))
+        japi = j_build(jcfg)
+        jp = japi.init_params(jax.random.PRNGKey(0))
+        tb = TRF.family_batches(tcfg, TRAIN_STEPS, seed=40)
+        if arch == "xlstm-350m":
+            # under pt_dynamic the jitted reference parts from its eager
+            # self by 5.5e-2 of a leaf's largest entry here (the mLSTM
+            # gates' bias b_if), past the bar, while the port's one rank
+            # holds the eager one within 2.4e-6: the port's quantizers are
+            # the eager reference's, so that is the one held
+            first = dict(TRF.first_steps(japi, jp, tb[0], ("none",)),
+                         **TRF.first_steps(japi, jp, tb[0], ("pt_dynamic",),
+                                           eager=True))
+        else:
+            first = TRF.first_steps(japi, jp, tb[0], TRAIN_MODES)
+        out[arch] = dict(tcfg=tcfg, np_params=np_tree(jp), batches=tb,
+                         first=first)
+    return out
+
+
+@pytest.fixture(scope="module")
+def jtunes(recs):
+    """JAX's one-device prefix_tune of whisper and the xLSTM under none
+    from recs' weights and cushions, and the batches."""
+    from repro.configs import CushionConfig
+    from repro.core import cushioncache as JCC
+    out = {}
+    for arch in TUNE_ARCHS:
+        s = recs[arch]
+        japi = s["japi"]
+        batches = [np_tree(japi.make_batch(jax.random.PRNGKey(3000 + i), 2,
+                                           24)) for i in range(TUNE_STEPS)]
+        ccfg = CushionConfig(tune_steps=TUNE_STEPS, tune_lr=1e-3,
+                             lam=TUNE_LAM, log_every=TUNE_STEPS)
+        out[arch] = dict(batches=batches, run=JCC.prefix_tune(
+            japi, s["params"], s["cushion"],
+            iter([jax.tree.map(jnp.asarray, b) for b in batches]), QN, ccfg,
+            verbose=False))
+    return out
+
+
+def _train_case(cfg, name, mode, steps, batches, **kw):
+    from repro_torch.configs import QuantConfig as TQuantConfig
+    return dict(kind="train", name=name, cfg=cfg, batches=batches,
+                batch_rows=TRF.B, seq=24, steps=steps, lr=1e-3, warmup=10,
+                one_rank=True, first_moment=True, return_params=True,
+                qcfg=TQuantConfig(mode=mode), **kw)
+
+
+def _train_cases(trains, jtunes, recs):
+    from repro_torch.configs import CushionConfig as TCushion
+    from repro_torch.configs import QuantConfig as TQuantConfig
+    cases = [_train_case(t["tcfg"], f"train/{a}/{m}", m, TRAIN_STEPS,
+                         t["batches"], params=t["np_params"])
+             for a, t in trains.items() for m in TRAIN_MODES]
+    kv1 = t_reduced(t_get_config("whisper-base"), dtype="float32",
+                    n_kv_heads=1)
+    cases.append(_train_case(kv1, "train/whisper-kv-whole", "none", 1,
+                             TRF.family_batches(kv1, 1, seed=41), seed=0))
+    ccfg = TCushion(tune_steps=TUNE_STEPS, tune_lr=1e-3, lam=TUNE_LAM,
+                    log_every=TUNE_STEPS)
+    cases += [dict(kind="tune", name=f"tune/{a}", cfg=recs[a]["tcfg"],
+                   params=recs[a]["np_params"], cushion=recs[a]["np_cushion"],
+                   batches=jtunes[a]["batches"], qcfg=TQuantConfig(),
+                   ccfg=ccfg) for a in TUNE_ARCHS]
+    return cases
+
+
+@pytest.fixture(scope="module")
+def tp2(fams, odd, recs, trains, jtunes):
     """Every tp = 2 case in one spawn: {name: [rank 0's report, ...]}."""
     cases = [_static(s, n, q, pq, kv) for s in fams.values()
              for n, q, pq, kv in STATIC]
@@ -223,6 +338,7 @@ def tp2(fams, odd, recs):
     cases += [dict(_static(odd["vocab257"], "none-fp", QN, False, None),
                    name="vocab257")]
     cases += _rec_cases(recs)
+    cases += _train_cases(trains, jtunes, recs)
     outs = M.spawn_tp(run_cases, 2, cases, device="cpu", every_rank=True,
                       timeout_s=900)
     return _by_name(cases, outs)
@@ -239,9 +355,15 @@ def rec_one(recs):
 
 
 @pytest.fixture(scope="module")
-def tp4(fams, recs):
+def tp4(fams, recs, trains):
     cases = [_static(fams[a], "none-fp", QN, False, None) for a in ARCHS]
     cases += [_rec_static(recs[a], "none-fp", QN, False) for a in REC_ARCHS]
+    # internvl2's training with its 2 KV heads whole on every rank (the
+    # production pattern: internvl2-26b's 8 at tp = 16)
+    t = trains["internvl2-26b"]
+    cases.append(_train_case(t["tcfg"], "train/internvl2-26b/none", "none",
+                             TRAIN_STEPS, t["batches"],
+                             params=t["np_params"]))
     return _by_name(cases, M.spawn_tp(run_cases, 4, cases, device="cpu",
                                       every_rank=True, timeout_s=900))
 
@@ -682,7 +804,9 @@ def test_tp2_recurrent_engine_matches_jax(recs, tp2, rec_one, arch, name):
     tp bar) and its tokens; under W8A8 JAX's tokens, and the unsharded
     port's logits within 1e-4 (what sharding adds: every row-parallel
     site of whisper sums int32, the xLSTM's gather of the mLSTM values
-    adds zeros)."""
+    adds zeros). The unsharded port's gap to JAX's logits is printed: for
+    whisper's ``pt_dynamic`` one code flipped at a rounding boundary
+    (``test_whisper_pt_dynamic_parting_pinned``)."""
     s = recs[arch]
     qcfg, pq = {m[0]: m[1:] for m in REC_STATIC[arch]}[name]
     want_logits, want = _jax_ref(s, qcfg, pq, None)
@@ -696,6 +820,98 @@ def test_tp2_recurrent_engine_matches_jax(recs, tp2, rec_one, arch, name):
     print(f"{arch} {name}: one rank's prefill logits max |port - JAX| "
           f"{gap:.3g}")
     np.testing.assert_array_equal(one["tokens"], want)
+
+
+def test_whisper_pt_dynamic_parting_pinned(recs, monkeypatch):
+    """Where the unsharded port's whisper logits under true-int8
+    ``pt_dynamic`` part from JAX's (``test_tp2_recurrent_engine_matches_jax``
+    prints the gap, 0.0263): every true-int8 site's input and its dynamic
+    range, in prefill order, in both packages. Two roundings the port
+    cannot match meet at one code: the first f32 op to differ is the
+    encoder's first LayerNorm (a 64-wide row's mean and variance summed in
+    another order than XLA's: every site's input is then within 2e-6 of
+    JAX's), and jitted JAX multiplies a range by 1 / 255 where the port
+    divides by 255, as the eager reference does
+    (``test_torch_train.py::test_reference_quantizer_jit_and_eager_differ``):
+    with the ranges' ends apart by the inputs' ulps, the scales differ by
+    up to 8 ulp (0 to 5 measured). No code flips at the encoder's 8 sites
+    nor at the first decoder layer's 6; the first that flips is one code of
+    the second decoder layer's ``qkv`` site (the 15th site), row 1,
+    position 6, feature 22, where JAX's x / s + z is 77.5 exactly (rounded
+    half to even to 78) and the port's 77.49997 (77). Either rounding
+    alone leaves it at 77.499985: it takes both."""
+    import repro.core.quantization as JQU
+    import repro_torch.core.quantization as TQU
+    s = recs["whisper-base"]
+    jrec, trec = [], []
+    jt, tt = JQU.true_int_dot, TQU.true_int_dot
+
+    def j_true(x, w, cfg, site):
+        sx, zx = JQU.params_from_minmax(*JQU.act_minmax(x, False), 8, False)
+        jax.debug.callback(lambda v, a, b: jrec.append(
+            (np.asarray(v), np.float32(a), np.float32(b))), x, sx, zx,
+            ordered=True)
+        return jt(x, w, cfg, site)
+
+    def t_true(x, w, cfg, site, row_parallel=False, rng=None):
+        mn, mx = TQU.act_minmax(x, False, 1, False) if rng is None else rng
+        sx, zx = TQU.params_from_minmax(mn, mx, 8, False)
+        trec.append((x.detach().numpy().copy(), np.float32(sx),
+                     np.float32(zx)))
+        return tt(x, w, cfg, site, row_parallel, rng)
+    monkeypatch.setattr(JQU, "true_int_dot", j_true)
+    monkeypatch.setattr(TQU, "true_int_dot", t_true)
+    jax.clear_caches()
+    eng = _jax_engine(s, QD8, False, None)
+    jax.effects_barrier()
+    jrec.clear()
+    with JSH.use_mesh(None):
+        eng._prefill(eng.params, s["batch"], eng._init_cache(2))
+    jax.effects_barrier()
+    case = dict(_rec_static(s, "pt_dynamic", QD8, False), n_tokens=1,
+                mesh=False)
+    run_cases(M.make_tp_mesh(1, device="cpu"), [case])
+    ne, L = s["tcfg"].encdec.encoder_layers, s["tcfg"].n_layers
+    # the encoder's sites, then each decoder layer's six, then the head
+    assert len(jrec) == len(trec) == 4 * ne + 6 * L + 1
+
+    def codes(x, sc, z):
+        return np.clip(np.round(x / sc + z), 0, 255)
+    first = None
+    for i, (j, t) in enumerate(zip(jrec, trec)):
+        assert j[0].shape == t[0].shape and j[2] == t[2], i
+        ulps = abs(float(j[1]) - float(t[1])) / np.spacing(t[1])
+        print(f"site #{i}: scales {ulps:.0f} ulp apart")
+        assert ulps <= 8, (i, ulps)
+        flips = np.argwhere(codes(*j) != codes(*t))
+        if len(flips):
+            first = (i, flips)
+            break
+        assert np.abs(j[0] - t[0]).max() <= 2e-6, i
+    assert first is not None
+    i, flips = first
+    j, t = jrec[i], trec[i]
+    at = tuple(flips[0])
+    v_j, v_t = j[0][at] / j[1] + j[2], t[0][at] / t[1] + t[2]
+    print(f"first flipped code: site #{i} at {flips.tolist()}: JAX x/s+z "
+          f"{v_j!r}, port {v_t!r}; alone: JAX's x at the port's scale "
+          f"{j[0][at] / t[1] + t[2]!r}, the port's x at JAX's "
+          f"{t[0][at] / j[1] + j[2]!r}")
+    assert (i, len(flips), at) == (4 * ne + 6, 1, (1, 6, 22))
+    assert v_j == np.float32(77.5) and np.round(v_t) == 77
+    for alone in (j[0][at] / t[1] + t[2], t[0][at] / j[1] + j[2]):
+        assert np.round(alone) == 77
+    # the first f32 op that differs: the encoder's first LayerNorm
+    frames = np.array(s["np_batch"]["frames"], np.float32)
+    jmu, jvar = jax.jit(lambda x: (jnp.mean(x, -1), jnp.var(x, -1)))(frames)
+    tf = torch.from_numpy(frames)
+    tmu, tvar = tf.mean(-1).numpy(), tf.var(-1, unbiased=False).numpy()
+    diff = (np.asarray(jmu) != tmu) | (np.asarray(jvar) != tvar)
+    print(f"LayerNorm statistics: {int(diff.sum())} of {diff.size} rows "
+          f"differ")
+    assert diff.any()
+    assert np.abs(np.asarray(jvar) - tvar).max() <= 4 * np.spacing(
+        np.abs(tvar)).max()
 
 
 @pytest.mark.parametrize("arch", REC_ARCHS)
@@ -791,3 +1007,208 @@ def test_serve_tp2_gives_tp1_tokens(arch, extra):
             np.testing.assert_array_equal(b.tokens, a.tokens)
     else:
         np.testing.assert_array_equal(two.tokens, one.tokens)
+
+
+# ---------------------------------------------------------------------------
+# 8. Tensor-parallel training and tuning of the VLM, the encoder-decoder and
+#    the xLSTM
+# ---------------------------------------------------------------------------
+
+def _ranks_agree(ranks):
+    """The ranks' metrics, and every entry each holds whole (a leaf's
+    entries past its ``TPPart.own``), bit for bit; returns how many leaves
+    every rank holds whole."""
+    for r in ranks[1:]:
+        assert r["metrics"] == ranks[0]["metrics"]
+    n = 0
+    for path, leaf in ranks[0]["leaves"].items():
+        own = leaf["part"][0]
+        if own < 0:
+            continue
+        for r in ranks[1:]:
+            np.testing.assert_array_equal(
+                TRF.flat(r["params"])[path][..., own:],
+                TRF.flat(ranks[0]["params"])[path][..., own:], err_msg=path)
+        n += own == 0
+    return n
+
+
+def _held_to_one_rank(ranks, what):
+    """Each rank's first moment after one step against the port's one
+    rank cut to its part: every leaf it holds whole within
+    ``TRF.WHOLE_LEAF`` of the leaf's largest entry (a missing sum over tp
+    halves a gradient, a sum too many doubles it), its own parts within
+    ``TRF.FIRST_STEP`` (their products read activations whose
+    row-parallel sums add in another order)."""
+    for r in ranks:
+        got, want = TRF.flat(r["mu1"]), TRF.flat(r["one"]["mu1"])
+        whole = {p for p, lf in r["leaves"].items() if lf["part"][0] == 0}
+        for keep, bar in ((whole, TRF.WHOLE_LEAF),
+                          (set(want) - whole, TRF.FIRST_STEP)):
+            TRF.leafwise({p: got[p] for p in keep},
+                         {p: want[p] for p in keep}, want, bar,
+                         f"{what} rank {r['tp_rank']} vs tp = 1 "
+                         f"({'whole' if keep is whole else 'cut'} leaves)")
+
+
+def _against_jax(ranks, first, mode, what):
+    """The first step against JAX's one device: under ``none`` the loss,
+    CE and gradient norm within ``TRF.FIRST_STEP`` relative; under
+    ``pt_dynamic`` the loss within ``TRF.QAT_TOL``'s and the first moment,
+    each rank's part, within its bar of a leaf's largest entry, against
+    JAX's and the port's one rank's."""
+    m0, j = ranks[0]["metrics"][0], first[mode]
+    rel = {k: abs(m0[k] / j[k] - 1) for k in ("loss", "ce", "grad_norm")}
+    print(f"{what} {mode}: first step vs JAX, relative {rel}")
+    if mode == "none":
+        assert max(rel.values()) <= TRF.FIRST_STEP
+        return
+    loss_tol, grad_tol = TRF.QAT_TOL[mode]
+    assert rel["loss"] <= loss_tol
+    jmu = TRF.flat(j["mu1"])
+    for r in ranks:
+        assert abs(m0["loss"] / r["one"]["metrics"][0]["loss"] - 1) \
+            <= loss_tol
+        cfg = r["cfg"]
+        TRF.leafwise(TRF.flat(r["mu1"]),
+                     TRF.cut(j["mu1"], cfg, r["tp_rank"], r["tp"]), jmu,
+                     grad_tol, f"{what} {mode} rank {r['tp_rank']} vs JAX")
+        want = TRF.flat(r["one"]["mu1"])
+        TRF.leafwise(TRF.flat(r["mu1"]), want, want, grad_tol,
+                     f"{what} {mode} rank {r['tp_rank']} vs one rank")
+
+
+@pytest.mark.parametrize("mode", TRAIN_MODES)
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_tp2_family_train_matches_jax_and_one_rank(trains, tp2, arch, mode):
+    """``shard_train_step`` on a (data 1, model 2) mesh, two steps of each
+    reduced family: the ranks agree bit for bit where they hold the same
+    thing; the first step against JAX's ``make_train_step`` loss on one
+    device (the function GSPMD partitions) and, under ``none``, every
+    leaf's gradient against the port's one rank. What each holds whole:
+    internvl2 its norms, embedding and head where the vocabulary is cut
+    (4 query and 2 KV heads, both cut); whisper the cross-attention's
+    ``wq`` / ``wkv`` (read through windows, summed over tp) and the
+    encoder's norms (their gradient through ``enc_out``'s copy-to-tp);
+    the xLSTM every block weight (q, k, v and the gates enter the mixing
+    through a copy-to-tp)."""
+    ranks = [dict(r, cfg=trains[arch]["tcfg"], tp=2)
+             for r in tp2[f"train/{arch}/{mode}"]]
+    assert _ranks_agree(ranks) >= 3
+    assert all(r["collectives"][0] > 0 for r in ranks)
+    _against_jax(ranks, trains[arch]["first"], mode, f"[{arch} tp 2]")
+    if mode == "none":
+        _held_to_one_rank(ranks, f"[{arch} tp 2]")
+    leaves = ranks[0]["leaves"]
+    if arch == "whisper-base":
+        for leaf in ("decoder/xattn/wq", "decoder/xattn/wkv"):
+            assert tuple(leaves[leaf]["part"]) == (0, True), leaf
+    if arch == "xlstm-350m":
+        assert all(tuple(lf["part"]) == (0, False)
+                   for p, lf in leaves.items() if p.startswith("layers/"))
+
+
+def test_tp4_vlm_train_with_whole_kv_heads(trains, tp4):
+    """internvl2 at tp = 4: one query head a rank, the 2 KV heads whole on
+    every rank (its ``wqkv`` the rank's query columns, then every KV
+    head's, summed over tp): JAX's first step under ``none`` and every
+    leaf's gradient the port's one rank's."""
+    arch = "internvl2-26b"
+    ranks = [dict(r, cfg=trains[arch]["tcfg"], tp=4)
+             for r in tp4[f"train/{arch}/none"]]
+    hd = trains[arch]["tcfg"].head_dim
+    assert tuple(ranks[0]["leaves"]["layers/attn/wqkv"]["part"]) == (hd,
+                                                                     True)
+    _ranks_agree(ranks)
+    _against_jax(ranks, trains[arch]["first"], "none", f"[{arch} tp 4]")
+    _held_to_one_rank(ranks, f"[{arch} tp 4]")
+
+
+def test_tp2_whisper_whole_kv_heads_sum_the_encoder(tp2):
+    """whisper with one KV head at tp = 2: the heads are cut and the KV
+    head is whole on both ranks, so every rank forms the whole
+    cross-attention KV from ``enc_out`` and reads its group's window of
+    it (``kv_window``): the encoder's gradient and ``xattn/wkv``'s are the
+    rank's shares, summed over tp; every leaf against the port's one
+    rank."""
+    ranks = tp2["train/whisper-kv-whole"]
+    assert tuple(ranks[0]["leaves"]["decoder/xattn/wkv"]["part"]) == (0,
+                                                                       True)
+    _ranks_agree(ranks)
+    _held_to_one_rank(ranks, "[whisper one KV head tp 2]")
+
+
+@pytest.mark.parametrize("arch", TUNE_ARCHS)
+def test_tp2_family_prefix_tune_matches_jax(recs, jtunes, tp2, arch):
+    """``prefix_tune(mesh=)`` on a model axis of two ranks against JAX's
+    one device under ``none``: the logs within 1e-5 relative, the tuned
+    cushion within ``TUNE_CUSHION_TOL``, the ranks' cushions equal after
+    every step. The xLSTM's mLSTM state (``C`` read by its value slice, ``n``
+    and ``m`` towards it) has its gradient summed over tp, its sLSTM state
+    not (``xlstm.cushion_summed``); whisper's KV as the dense family's."""
+    jtr, ranks = jtunes[arch]["run"], tp2[f"tune/{arch}"]
+    assert ranks[0]["fingerprint"] == ranks[1]["fingerprint"]
+    for r in ranks:
+        assert [x["step"] for x in r["log"]] == list(range(TUNE_STEPS))
+        assert all(x["ranks_equal"] == 1.0 for x in r["log"])
+    worst = {key: max(abs(a[key] / b[key] - 1)
+                      for a, b in zip(ranks[0]["log"], jtr.log))
+             for key in ("loss", "ce", "range", "qerr", "gnorm")}
+    print(f"[{arch}] tune tp 2 vs JAX, max relative log difference: "
+          f"{worst}")
+    assert max(worst.values()) < 1e-5
+    got = TRF.flat(ranks[0]["cushion"])
+    want = TRF.flat(np_tree(jtr.cushion))
+    start = TRF.flat(recs[arch]["np_cushion"])
+    for path, w in want.items():
+        err = float(np.abs(got[path] - w).max())
+        move = float(np.abs(w - start[path]).max())
+        print(f"[{arch}] tuned {path}: max |tp2 - JAX| {err:.2e}, max move "
+              f"{move:.2e}")
+        assert move > 1e-4, path
+        assert err <= TUNE_CUSHION_TOL[arch], path
+
+
+def test_marks_of_the_leaves_read_in_part():
+    """Which leaves a rank reads in part: whisper's ``xattn/wq`` / ``wkv``
+    where its heads are cut (tp = 2), not where every rank computes its 8
+    heads whole (tp = 16, the dry-run's mesh); no xLSTM block weight; the
+    cushion's KV where the heads are cut, the xLSTM's mLSTM state (not
+    its sLSTM state) where the values are, the hybrid's Mamba state where
+    its channels are."""
+    from repro_torch.models import transformer as TT
+    from repro_torch.serving.engine import tp_leaf_parts
+    wh = t_get_config("whisper-base")
+    meta = _meta_tree(wh)
+    for tp, summed in ((2, True), (16, False)):
+        parts = _flat(tp_leaf_parts(meta, wh, tp))
+        for leaf in ("decoder/xattn/wq", "decoder/xattn/wkv"):
+            assert tuple(parts[leaf]) == (0, summed), (tp, leaf)
+        assert tuple(parts["decoder/xattn/wo"])[0] == (-1 if summed else 0)
+    xl = t_get_config("xlstm-350m")
+    parts = _flat(tp_leaf_parts(_meta_tree(xl), xl, 2))
+    assert all(tuple(v) == (0, False) for p, v in parts.items()
+               if p.startswith("layers/"))
+    rank = tp_config(xl, 2)
+    cush = XL.cushion_zeros(xl, 0, "meta")
+    got = _flat(XL.cushion_summed(cush, rank))
+    assert got == {f"state/{g}/{k}": g == "m"
+                   for g in ("m", "s") for k in cush["state"][g]}
+    assert not any(_flat(XL.cushion_summed(cush, tp_config(xl, 3))).values())
+    kv = {"kv": {"k": None, "v": None}}
+    assert TT.cushion_summed(kv, tp_config(wh, 2)) == {
+        "kv": {"k": True, "v": True}}
+    assert TT.cushion_summed(kv, tp_config(wh, 16)) == {
+        "kv": {"k": False, "v": False}}
+    # the hybrid's Mamba state where its channels are cut
+    from repro_torch.models import hybrid as HY
+    jb = t_get_config("jamba-v0.1-52b")
+    hy = {**kv, "state": {"h": None, "conv": None}}
+    assert HY.cushion_summed(hy, tp_config(jb, 2)) == {
+        "kv": {"k": True, "v": True},
+        "state": {"h": True, "conv": True}}
+
+
+def _meta_tree(cfg):
+    from repro_torch.models.registry import build
+    return build(cfg, "meta").init_params().tree()

@@ -585,6 +585,39 @@ def test_adamw_updates_a_tree_with_a_list_as_jax():
     assert isinstance(st.mu["layers"]["sub"], list)
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_adamw_donated_update_equals_the_functional_one(dt):
+    """``AdamW.update(donate=True)`` (the reference's donated train state:
+    ``shard_train_step(donate=True)``) writes the new parameters and
+    moments into the given tensors and returns them, bit for bit the
+    functional update's, weight decay, frozen and clipped leaves
+    included."""
+    g = torch.Generator().manual_seed(5)
+    tree = {"w": torch.randn(6, 4, generator=g).to(dt),
+            "ln": {"g": torch.randn(4, generator=g).to(dt)},
+            "kv": torch.randn(3, generator=g).to(dt)}
+    grads = TA.tree_map(lambda t: torch.randn(t.shape, generator=g).to(dt),
+                        tree)
+    opt = TA.AdamW(lr=TA.constant_lr(1e-2), frozen=("kv",))
+    fp, fs = tree, opt.init(tree)
+    dp = TA.tree_map(torch.clone, tree)
+    ds = opt.init(dp)
+    for _ in range(3):
+        fp, fs, fm = opt.update(grads, fs, fp)
+        held = TA.tree_leaves(dp) + TA.tree_leaves(ds.mu)
+        dp, ds, dm = opt.update(grads, ds, dp, donate=True)
+        assert all(a is b for a, b in zip(
+            held, TA.tree_leaves(dp) + TA.tree_leaves(ds.mu)))
+    assert torch.equal(fm["grad_norm"], dm["grad_norm"])
+    for a, b in zip(TA.tree_leaves(fp) + TA.tree_leaves(fs.mu)
+                    + TA.tree_leaves(fs.nu),
+                    TA.tree_leaves(dp) + TA.tree_leaves(ds.mu)
+                    + TA.tree_leaves(ds.nu)):
+        assert torch.equal(a, b)
+    assert not torch.equal(fp["w"], tree["w"])
+
+
 def tbatch_tree(tree):
     if isinstance(tree, dict):
         return {k: tbatch_tree(v) for k, v in tree.items()}
